@@ -1,0 +1,17 @@
+"""maskrcnn_tpu_torch — the PyTorch/CUDA port of maskrcnn_tpu for Hopper.
+
+A second package beside the JAX one, held against it module by module.
+Plain tensor code is PyTorch; the two geometry kernels of the batched
+inference path (multilevel RoIAlign and greedy NMS) are hand-written
+CUDA C++ for sm_90a (`csrc/`, built on first use by `kernels/`).
+
+Dispatch is by the tensor's device: a CUDA tensor runs the kernel (or
+raises), a CPU tensor runs the plain PyTorch version in the same `ops/`
+module. The configs are the JAX package's own: `maskrcnn_tpu.config`
+imports nothing of JAX.
+"""
+
+from maskrcnn_tpu.config import (CocoConfig, CocoInferenceConfig, Config,
+                                 TinyConfig)
+
+__all__ = ["Config", "CocoConfig", "CocoInferenceConfig", "TinyConfig"]

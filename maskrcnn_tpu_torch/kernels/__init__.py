@@ -1,0 +1,209 @@
+"""Build, load and launch the port's CUDA kernels (csrc/*.cu).
+
+The sources are compiled by `nvcc` on first use into one shared library
+with a plain C interface, loaded with ctypes (no PyTorch headers, so a
+build takes seconds). The library lives in `build/maskrcnn_tpu_torch/`
+at the repository root, named by a hash of the sources and the flags, so
+a changed source rebuilds and a checkout with no build directory builds
+everything on its first kernel call.
+
+Flags: sm_90a, -O3, and -fmad=false. Without the last, nvcc contracts
+the IoU's `a_i + a_j - w*h` and the bilinear blend into FMAs, which round
+differently from the plain PyTorch versions and flip boundary decisions
+(suppressed or not, sampled or extrapolated). Never --use_fast_math.
+
+Each wrapper checks its inputs, launches on PyTorch's current stream,
+raises if the launch returned a CUDA error, and counts its launches in
+its `launches` attribute. There is no fallback: a failed build or launch
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Sequence
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+SOURCES = ("roi_align.cu", "nms.cu")
+BUILD_DIR = _PKG.parent / "build" / "maskrcnn_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin): the CUDA kernels cannot build")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        digest.update(name.encode())
+        digest.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"libmaskrcnn_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless the library for these sources exists.
+    Writes to a temporary name and renames, so concurrent builds never
+    load a half-written file."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[str(CSRC / name) for name in SOURCES]]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    lib = ctypes.CDLL(str(build()))
+    lib.mrt_roi_align.argtypes = [
+        ctypes.POINTER(_P), ctypes.POINTER(_I), ctypes.POINTER(_I),
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    lib.mrt_roi_align.restype = _I
+    lib.mrt_nms.argtypes = [_P, _P, _I, _I, ctypes.c_float, _P, _P, _P]
+    lib.mrt_nms.restype = _I
+    lib.mrt_error_string.argtypes = [_I]
+    lib.mrt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:
+    if err != 0:
+        msg = lib.mrt_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error "
+                           f"{err} ({msg})")
+
+
+def _stream(device: torch.device) -> _P:
+    return _P(torch.cuda.current_stream(device).cuda_stream)
+
+
+_DTYPES = {torch.float32: (0, 4), torch.bfloat16: (1, 8)}
+# the scan stages an image's [N, ceil(N/64)] bitmask in shared memory:
+# the H100's 227 KB a block, less the kernel's static words (N <= 1344)
+_MAX_SCAN_SMEM = 227 * 1024 - 256
+
+
+def roi_align(levels: Sequence[torch.Tensor], box_level: torch.Tensor,
+              in_y: torch.Tensor, in_x: torch.Tensor,
+              boxes_per_image: int) -> torch.Tensor:
+    """Multilevel RoIAlign kernel (csrc/roi_align.cu).
+
+    levels: P2..P5 as contiguous NHWC [B, H_l, W_l, C] CUDA tensors of
+    one dtype (float32 or bfloat16); box_level [M] int32 (M = B*N boxes,
+    image-major); in_y/in_x [M, P] float32 sample coordinates from
+    ops.roi_align.level_geometry. Returns [M, P, P, C] in the levels'
+    dtype."""
+    if len(levels) != 4:
+        raise ValueError(f"roi_align takes 4 levels, got {len(levels)}")
+    dtype = levels[0].dtype
+    if dtype not in _DTYPES:
+        raise TypeError(f"roi_align: unsupported dtype {dtype}")
+    code, vec = _DTYPES[dtype]
+    device = levels[0].device
+    b, _, _, c = levels[0].shape
+    for f in levels:
+        if (not f.is_cuda or f.device != device or f.dtype != dtype
+                or f.dim() != 4 or f.shape[0] != b or f.shape[3] != c
+                or not f.is_contiguous() or f.data_ptr() % 16):
+            raise ValueError("roi_align: levels must be contiguous, "
+                             "16-byte aligned NHWC CUDA tensors of one "
+                             "dtype, batch and channel count")
+    if c % vec:
+        raise ValueError(f"roi_align: channels {c} not a multiple of {vec}")
+    m, pool = in_y.shape
+    if (box_level.dtype != torch.int32 or box_level.shape != (m,)
+            or in_y.dtype != torch.float32 or in_x.dtype != torch.float32
+            or in_x.shape != (m, pool) or m != b * boxes_per_image):
+        raise ValueError("roi_align: box_level [B*N] int32 and in_y/in_x "
+                         "[B*N, P] float32 expected")
+    for t in (box_level, in_y, in_x):
+        if t.device != device or not t.is_contiguous():
+            raise ValueError("roi_align: box inputs must be contiguous on "
+                             "the levels' device")
+    out = torch.empty((m, pool, pool, c), dtype=dtype, device=device)
+    lib = library()
+    with torch.cuda.device(device):
+        err = lib.mrt_roi_align(
+            (_P * 4)(*[f.data_ptr() for f in levels]),
+            (_I * 4)(*[f.shape[1] for f in levels]),
+            (_I * 4)(*[f.shape[2] for f in levels]),
+            box_level.data_ptr(), in_y.data_ptr(), in_x.data_ptr(),
+            out.data_ptr(), m, boxes_per_image, pool, c, code,
+            _stream(device))
+    _check_launch(lib, "roi_align", err)
+    roi_align.launches += 1
+    return out
+
+
+roi_align.launches = 0
+
+
+def nms(boxes: torch.Tensor, valid: torch.Tensor,
+        iou_threshold: float) -> torch.Tensor:
+    """Greedy NMS kernel (csrc/nms.cu).
+
+    boxes [B, N, 4] float32 score-descending, valid [B, N] bool, both
+    contiguous CUDA tensors. Returns keep [B, N] bool on the device."""
+    if (not boxes.is_cuda or boxes.dtype != torch.float32 or boxes.dim() != 3
+            or boxes.shape[2] != 4 or not boxes.is_contiguous()):
+        raise ValueError("nms: boxes must be a contiguous [B, N, 4] "
+                         "float32 CUDA tensor")
+    b, n = boxes.shape[:2]
+    if (valid.dtype != torch.bool or valid.shape != (b, n)
+            or valid.device != boxes.device or not valid.is_contiguous()):
+        raise ValueError("nms: valid must be a contiguous [B, N] bool "
+                         "tensor on the boxes' device")
+    words = -(-n // 64)
+    if n * words * 8 > _MAX_SCAN_SMEM:
+        raise ValueError(f"nms: N={n} boxes do not fit the scan's shared "
+                         "memory")
+    keep = torch.empty((b, n), dtype=torch.bool, device=boxes.device)
+    mask = torch.empty((b, n, words), dtype=torch.int64, device=boxes.device)
+    lib = library()
+    with torch.cuda.device(boxes.device):
+        err = lib.mrt_nms(boxes.data_ptr(), valid.data_ptr(), b, n,
+                          float(iou_threshold), mask.data_ptr(),
+                          keep.data_ptr(), _stream(boxes.device))
+    _check_launch(lib, "nms", err)
+    nms.launches += 1
+    return keep
+
+
+nms.launches = 0

@@ -1,0 +1,95 @@
+"""Mask R-CNN model bundle (counterpart of maskrcnn_tpu/models/mask_rcnn.py).
+
+One nn.Module holding the backbone (`fpn`), `rpn`, box head
+(`classifier`) and `mask` head under the checkpoint's attribute names,
+so a `checkpoint.convert.from_jax_params` state dict loads with
+strict=True. Convolution and linear weights are stored in the compute
+dtype (Config.COMPUTE_DTYPE) in channels_last memory; the frozen-BN
+tensors stay float32. The stage API takes and returns the JAX layouts
+(NHWC maps, [N, P, P, C] pooled features).
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+import torch.nn as nn
+
+from maskrcnn_tpu.config import Config
+from maskrcnn_tpu_torch.models.fpn import FPN
+from maskrcnn_tpu_torch.models.heads import BoxHead, MaskHead
+from maskrcnn_tpu_torch.models.resnet import FrozenBatchNorm
+from maskrcnn_tpu_torch.models.rpn import RPN
+from maskrcnn_tpu_torch.ops.anchors import config_anchors
+
+
+class MaskRCNN(nn.Module):
+    """Inference model for a Config on one device."""
+
+    def __init__(self, config: Config, device="cpu"):
+        super().__init__()
+        self.config = config
+        dtype = getattr(torch, config.COMPUTE_DTYPE)
+        kw = dict(dtype=dtype, device=device)
+        self.fpn = FPN(config.BACKBONE, **kw)
+        self.rpn = RPN(len(config.RPN_ANCHOR_RATIOS),
+                       config.RPN_ANCHOR_STRIDE, **kw)
+        self.classifier = BoxHead(config.NUM_CLASSES, config.POOL_SIZE, **kw)
+        self.mask = MaskHead(config.NUM_CLASSES, **kw)
+        self.register_buffer(
+            "anchor_boxes",
+            torch.from_numpy(config_anchors(config)).to(device),
+            persistent=False)
+        self.to(memory_format=torch.channels_last)
+        self.eval()
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The compute dtype of the weights."""
+        return self.rpn.conv_shared.weight.dtype
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "MaskRCNN":
+        """Reference init (model.py:1021-1035): xavier-uniform convs, zero
+        biases, N(0, 0.01) linears, identity BN. Values are drawn in
+        float32 from `generator` (a CPU generator) in module order, so a
+        seed gives the same weights on every device."""
+        for mod in self.modules():
+            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                w = torch.empty(mod.weight.shape, dtype=torch.float32)
+                if isinstance(mod, nn.Linear):
+                    w.normal_(0.0, 0.01, generator=generator)
+                else:
+                    nn.init.xavier_uniform_(w, generator=generator)
+                mod.weight.copy_(w)
+                mod.bias.zero_()
+            elif isinstance(mod, FrozenBatchNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+                mod.running_mean.zero_()
+                mod.running_var.fill_(1.0)
+        return self
+
+    def backbone(self, images: torch.Tensor) -> List[torch.Tensor]:
+        """images [B, H, W, 3] float32 -> [P2..P6] as NHWC views."""
+        x = images.to(self.dtype).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        return [p.permute(0, 2, 3, 1) for p in self.fpn(x)]
+
+    def rpn_scores(self, feature_maps: Sequence[torch.Tensor]):
+        """NHWC maps -> (scores [B, A] float32, deltas [B, A, 4] compute
+        dtype)."""
+        return self.rpn([f.permute(0, 3, 1, 2) for f in feature_maps])
+
+    def classify(self, pooled: torch.Tensor):
+        """Box head over pooled [N, 7, 7, 256]."""
+        return self.classifier(pooled)
+
+    def predict_masks(self, pooled: torch.Tensor) -> torch.Tensor:
+        """Mask head over pooled [N, 14, 14, 256] -> [N, 28, 28, K]."""
+        return self.mask(pooled)
+
+    def anchors(self) -> torch.Tensor:
+        """Pixel-space anchors [num_anchors, 4] float32 on the device."""
+        return self.anchor_boxes

@@ -1,0 +1,70 @@
+"""The kernels' Python side on the CPU: dispatch by device, input checks,
+and the build's naming. The kernels themselves run only on the card
+(chip_smoke.py compares them with the plain versions there)."""
+
+import pytest
+import torch
+
+from maskrcnn_tpu_torch import kernels
+from maskrcnn_tpu_torch.ops import nms as port_nms
+from maskrcnn_tpu_torch.ops import roi_align as port_roi
+
+
+def _levels(device, dtype=torch.float32):
+    return [torch.zeros(2, s, s, 16, dtype=dtype, device=device)
+            for s in (16, 8, 4, 2)]
+
+
+def test_wrappers_reject_tensors_off_the_card():
+    """Checks run before the build, so they raise here without nvcc."""
+    levels = _levels("cpu")
+    lvl = torch.zeros(6, dtype=torch.int32)
+    coords = torch.zeros(6, 7)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.roi_align(levels, lvl, coords, coords, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.nms(torch.zeros(2, 5, 4), torch.ones(2, 5, dtype=torch.bool),
+                    0.5)
+    assert kernels.roi_align.launches == 0 and kernels.nms.launches == 0
+
+
+@pytest.mark.parametrize("op", ["nms", "roi_align"])
+def test_dispatch_raises_on_devices_without_an_implementation(op):
+    """Neither the kernel nor the plain version takes a tensor that is on
+    neither the CPU nor a CUDA device."""
+    with pytest.raises(ValueError, match="no implementation"):
+        if op == "nms":
+            port_nms.nms_mask_impl(torch.zeros(2, 5, 4, device="meta"),
+                                   torch.ones(2, 5, dtype=torch.bool,
+                                              device="meta"), 0.5)
+        else:
+            port_roi.multilevel_roi_align_impl(
+                _levels("meta"), torch.zeros(2, 3, 4, device="meta"), 7,
+                (64, 64, 3))
+
+
+def test_cpu_dispatch_is_the_plain_version():
+    rng = torch.Generator().manual_seed(0)
+    levels = [torch.randn(2, s, s, 16, generator=rng) for s in (16, 8, 4, 2)]
+    corner = torch.rand(2, 9, 2, generator=rng) * 0.5
+    boxes = torch.cat([corner, corner + torch.rand(2, 9, 2, generator=rng)
+                       * 0.5], -1)
+    got = port_roi.multilevel_roi_align_impl(levels, boxes, 7, (64, 64, 3))
+    want = port_roi.multilevel_roi_align(levels, boxes, 7, (64, 64, 3))
+    assert torch.equal(got, want)
+    b = torch.rand(2, 30, 4, generator=rng) * 50
+    b = torch.cat([b[..., :2], b[..., :2] + b[..., 2:]], -1)
+    v = torch.rand(2, 30, generator=rng) > 0.2
+    assert torch.equal(port_nms.nms_mask_impl(b, v, 0.5),
+                       port_nms.nms_mask(b, v, 0.5))
+    assert kernels.roi_align.launches == 0 and kernels.nms.launches == 0
+
+
+def test_library_named_by_sources_inside_the_checkout():
+    path = kernels.library_path()
+    assert path.parent == kernels.BUILD_DIR
+    assert kernels.BUILD_DIR.parts[-2:] == ("build", "maskrcnn_tpu_torch")
+    assert all((kernels.CSRC / name).is_file() for name in kernels.SOURCES)
+    assert "-fmad=false" in kernels.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
+    assert path == kernels.library_path()
