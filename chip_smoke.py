@@ -13,13 +13,25 @@ Phases, each printing one line:
     boxes), in float32 with TF32 off and in bfloat16;
  4. NMS kernel vs its plain version: N=500 at 0.7, class-offset boxes at
     0.3, with invalid rows; keep masks must be identical;
+ 4b. fused identity bottleneck kernel vs its plain version at the four
+    identity-block shapes of ResNet-101 at B=8 on the 1024² canvas and at
+    odd small sizes, float32 and bfloat16; times beside the plain version
+    and beside the same folded block as cuDNN bf16 convs;
+ 4c. paste-and-pack kernel vs its plain version: 400 detections on the
+    1024² canvas with edge boxes and invalid rows; bits identical except
+    threshold ties, zero outside the boxes and in invalid rows;
  5. the slice: Detector(CocoInferenceConfig, ResNet-101, bf16, 1024²
     canvas) with seeded random weights answers three requests (8, 8 and 1
     images); kernel launch counts during them; kernels vs plain versions
     on the run's own FPN maps and proposals; the port on the card vs the
     port on the CPU on a 128-px float32 config;
+ 5d. the FOLD_BN slice: the same three requests through
+    Detector(CocoInferenceConfig with FOLD_BN), 29 bottleneck launches a
+    step; on the 128-px float32 config the folded port on the card vs the
+    folded port on the CPU, and vs the unfolded port on the card;
  6. one predict_step at B=8 in sync-debug "error" mode (no host sync),
-    then the median of 5 timed calls at B=8 and at B=1;
+    then the median of 5 timed calls at B=8 and at B=1, for the default
+    and the FOLD_BN model;
 then one JSON line of per-kernel numbers and, last, the result line.
 Exits non-zero, printing no result line, without a CUDA device or when
 any check fails. Imports nothing of JAX.
@@ -168,6 +180,158 @@ def nms_phase(kernels, nms):
     return times
 
 
+# identity-block shapes (H, W, P) of ResNet-101 on the 1024² canvas: C2 to
+# C5 hold 2, 3, 22 and 2 identity blocks
+BLOCK_SHAPES = ((256, 256, 64), (128, 128, 128), (64, 64, 256), (32, 32, 512))
+# A float32 sum in another order can land an intermediate (h1 or h2) on
+# the other side of a bf16 rounding boundary; that one bf16 ulp of an
+# intermediate spreads through the next conv. So bf16 outputs are held to
+# 2 bf16 ulp except a share of at most 1%, and every error to 2% of the
+# output's range.
+BF16_SHARE, BF16_RANGE = 0.01, 0.02
+
+
+def bf16_ulp_share(got: torch.Tensor, want: torch.Tensor, ulps: float):
+    """Share of elements more than `ulps` bf16 ulp apart, the spacing
+    taken at the larger magnitude of the two."""
+    got, want = got.float(), want.float()
+    big = torch.maximum(got.abs(), want.abs())
+    _, exp = torch.frexp(big)
+    ulp = torch.ldexp(torch.ones_like(big), exp - 8)
+    far = ((got - want).abs() > ulps * ulp) & (big > 0)
+    return float(far.float().mean())
+
+
+def bottleneck_weights(gen, c, p, dtype):
+    """Packed folded weights of one block: fan-in scaled, nonzero biases."""
+    shapes = ((c, p), (p,), (9, p, p), (p,), (p, c), (c,))
+    out = []
+    for i, shape in enumerate(shapes):
+        t = torch.randn(*shape, generator=gen, device=DEVICE)
+        if i % 2 == 0:
+            out.append((t / (shape[-2] * (9 if i == 2 else 1)) ** 0.5)
+                       .to(dtype).contiguous())
+        else:
+            out.append(t * 0.1)
+    return out
+
+
+def cudnn_block(x, w1, b1, w2, b2, w3, b3):
+    """The same folded block as three cuDNN convs with bias and relu and
+    the residual add: what the unfused folded path costs."""
+    import torch.nn.functional as F
+    p = w1.shape[1]
+    dt = x.dtype
+    conv = [w1.t()[:, :, None, None], w2.reshape(3, 3, p, p).permute(3, 2, 0, 1),
+            w3.t()[:, :, None, None]]
+    conv = [w.contiguous(memory_format=torch.channels_last) for w in conv]
+    b1, b2, b3 = (b.to(dt) for b in (b1, b2, b3))
+
+    def run():
+        xc = x.permute(0, 3, 1, 2)
+        h = F.relu(F.conv2d(xc, conv[0], b1))
+        h = F.relu(F.conv2d(h, conv[1], b2, padding=1))
+        return F.relu(F.conv2d(h, conv[2], b3) + xc)
+    return run
+
+
+def bottleneck_phase(kernels, bt):
+    """Phase 4b: K3 against the plain version, float32 (TF32 off) and
+    bfloat16, at the slice's block shapes and at odd small sizes."""
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    worst, times = 0.0, {}
+    cases = [(8, h, w, p, dt) for h, w, p in BLOCK_SHAPES
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(2, 4, 4, 16, torch.float32), (2, 25, 37, 16, torch.float32),
+              (2, 25, 37, 64, torch.bfloat16), (3, 4, 4, 64, torch.bfloat16)]
+    for b, h, w, p, dtype in cases:
+        c = 4 * p
+        x = torch.randn(b, h, w, c, generator=gen, device=DEVICE).to(dtype)
+        weights = bottleneck_weights(gen, c, p, dtype)
+        got = kernels.bottleneck(x, *weights)
+        want = bt.fused_identity_bottleneck_plain(x, *weights)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        name = f"{str(dtype)[6:]} B={b} {h}x{w} C={c} P={p}"
+        if dtype == torch.float32:
+            # the same float32 products summed in another order
+            check(err <= 1e-4 * scale, f"bottleneck {name}: err {err}")
+            line = f"max_abs_err {err:.3g} (max |want| {scale:.3g})"
+        else:
+            share = bf16_ulp_share(got, want, 2.0)
+            check(share <= BF16_SHARE and err <= BF16_RANGE * scale,
+                  f"bottleneck {name}: {share:.3g} over 2 bf16 ulp, err "
+                  f"{err}")
+            worst = max(worst, err)
+            line = (f"max_abs_err {err:.3g} (max |want| {scale:.3g}), "
+                    f"{share:.3g} of outputs over 2 bf16 ulp")
+        if b == 8:
+            ms = cuda_ms(lambda: kernels.bottleneck(x, *weights), iters=10)
+            plain_ms = cuda_ms(lambda: bt.fused_identity_bottleneck_plain(
+                x, *weights), iters=3, warmup=1)
+            line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            if dtype == torch.bfloat16:
+                cudnn_ms = cuda_ms(cudnn_block(x, *weights), iters=10)
+                line += f", cuDNN bf16 block {cudnn_ms:.4f} ms"
+                times[(h, w, p)] = (ms, plain_ms, cudnn_ms)
+        print(f"[4b] bottleneck {name}: {line}", flush=True)
+    return worst, times
+
+
+def paste_phase(kernels, mp, n=400, h=1024, w=1024):
+    """Phase 4c: K4 against the plain version at 400 detections (B=8 x
+    50) on the 1024² canvas: identical bits except threshold ties (pixels
+    whose exact value lies within an ulp of 127.5), none outside the
+    boxes or in invalid rows."""
+    rng = np.random.RandomState(5)
+    masks = torch.from_numpy(rng.rand(n, 28, 28).astype(np.float32)).to(DEVICE)
+    boxes = np.round(edge_boxes(rng, n) * [h, w, h, w]).astype(np.float32)
+    boxes[5] = [0, 0, h, w]
+    boxes[6] = [17, 23, 18, 24]
+    boxes_t = torch.from_numpy(boxes).to(DEVICE)
+    valid_np = rng.rand(n) > 0.2
+    valid_np[:7] = True
+    valid_np[7] = False
+    valid = torch.from_numpy(valid_np).to(DEVICE)
+    got = kernels.paste_pack(masks, boxes_t, valid, h, w)
+    want = mp.paste_masks_packed_plain(masks, boxes_t, valid, h, w)
+    torch.cuda.synchronize()
+    from maskrcnn_tpu_torch.ops.bits import unpack_masks
+    got_bits = unpack_masks(got, w).bool()
+    diff = got_bits != unpack_masks(want, w).bool()
+    idx = torch.nonzero(diff)
+    tie = 2 * float(np.spacing(np.float32(127.5)))
+    if len(idx):
+        # exact pasted values at the differing pixels, in float64
+        d, yy, xx = idx.unbind(1)
+        bx = boxes_t
+        wy = mp._interp_operator(bx[:, 0], bx[:, 2] - bx[:, 0], h, 28)
+        wx = mp._interp_operator(bx[:, 1], bx[:, 3] - bx[:, 1], w, 28)
+        q = torch.floor(torch.clamp(masks * 255.0, 0.0, 255.0)).double()
+        exact = torch.einsum("nm,nmj,nj->n", wy[d, yy].double(), q[d],
+                             wx[d, xx].double())
+        far = float((exact - 127.5).abs().max())
+        check(far < tie, f"paste_pack: a bit differs {far} from the tie")
+    y1, x1, y2, x2 = boxes_t.unbind(1)
+    ys = torch.arange(h, device=DEVICE, dtype=torch.float32)
+    xs = torch.arange(w, device=DEVICE, dtype=torch.float32)
+    in_y = (ys >= y1[:, None]) & (ys < y1[:, None] + (y2 - y1).clamp_min(1)[:, None])
+    in_x = (xs >= x1[:, None]) & (xs < x1[:, None] + (x2 - x1).clamp_min(1)[:, None])
+    outside = got_bits & ~(in_y[:, :, None] & in_x[:, None, :])
+    check(not bool(outside.any()), "paste_pack: bits outside a box")
+    check(not bool(got_bits[~valid].any()), "paste_pack: bits in invalid rows")
+    check(bool(got_bits[5].any()), "paste_pack: the full-canvas box is empty")
+    ms = cuda_ms(lambda: kernels.paste_pack(masks, boxes_t, valid, h, w))
+    plain_ms = cuda_ms(lambda: mp.paste_masks_packed_plain(
+        masks, boxes_t, valid, h, w), iters=5)
+    print(f"[4c] paste_pack N={n} {h}x{w}: {len(idx)} of {diff.numel()} bits "
+          f"differ, all threshold ties; none outside boxes or in "
+          f"{int((~valid).sum())} invalid rows; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms", flush=True)
+    return len(idx), ms, plain_ms
+
+
 def slice_config():
     """CocoInferenceConfig: ResNet-101, 81 classes, bf16, 1024² canvas,
     with masks decoded on the device for images up to 1024 px."""
@@ -176,23 +340,27 @@ def slice_config():
 
 
 def cfg_name(cfg) -> str:
-    return f"{cfg.BACKBONE} {cfg.IMAGE_MAX_DIM}² {cfg.COMPUTE_DTYPE}"
+    return (f"{cfg.BACKBONE} {cfg.IMAGE_MAX_DIM}² {cfg.COMPUTE_DTYPE}"
+            + (" FOLD_BN" if cfg.FOLD_BN else ""))
 
 
 def make_images(rng, shapes):
     return [rng.randint(0, 256, s + (3,), dtype=np.uint8) for s in shapes]
 
 
-def slice_phase(kernels, cfg):
-    """Phase 5: three requests through the Detector, with the kernels'
-    launch counts and checks of every output."""
+KERNELS = ("roi_align", "nms", "bottleneck", "paste_pack")
+
+
+def slice_phase(kernels, cfg, tag="5"):
+    """Phase 5 (and 5d): three requests through the Detector, with the
+    kernels' launch counts and checks of every output. Returns the
+    detector, the first request's images and the launches of the run."""
     from maskrcnn_tpu_torch.api import Detector
     t0 = time.perf_counter()
     det = Detector(cfg, device=DEVICE,
                    generator=torch.Generator().manual_seed(0))
     torch.cuda.synchronize()
-    print(f"[5] Detector {cfg.BACKBONE} {cfg.COMPUTE_DTYPE} "
-          f"{cfg.IMAGE_MAX_DIM}² on {DEVICE}, seeded init "
+    print(f"[{tag}] Detector {cfg_name(cfg)} on {DEVICE}, seeded init "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     # scale-1 images (min side >= IMAGE_MIN_DIM, max side <= the canvas):
     # no resample, padded windows of several shapes
@@ -204,27 +372,30 @@ def slice_phase(kernels, cfg):
     requests = [make_images(rng, shapes), make_images(rng, shapes[::-1]),
                 make_images(rng, shapes[2:3])]
 
-    kernels.roi_align.launches = 0
-    kernels.nms.launches = 0
+    def count():
+        return {k: getattr(kernels, k).launches for k in KERNELS}
+
+    for k in KERNELS:
+        getattr(kernels, k).launches = 0
     counts = []
     outputs = []
     for images in requests:
-        before = (kernels.roi_align.launches, kernels.nms.launches)
+        before = count()
         handle = det.dispatch_batch(images)
         out = handle[0]
         results = det.fetch(handle)
-        counts.append((kernels.roi_align.launches - before[0],
-                       kernels.nms.launches - before[1]))
+        counts.append({k: v - before[k] for k, v in count().items()})
         outputs.append((images, out, results))
-    launches = {"roi_align": kernels.roi_align.launches,
-                "nms": kernels.nms.launches}
+    launches = count()
 
+    # one predict_step a request; ResNet-101 has 29 identity blocks
+    blocks = 29 if cfg.FOLD_BN else 0
     d = cfg.DETECTION_MAX_INSTANCES
-    for r, ((images, out, results), (k1, k2)) in enumerate(
-            zip(outputs, counts)):
+    for r, ((images, out, results), n) in enumerate(zip(outputs, counts)):
         b = len(images)
-        check(k1 >= 2 and k2 >= 2,
-              f"request {r}: kernel launches roi_align {k1}, nms {k2}")
+        check(n["roi_align"] >= 2 and n["nms"] >= 2
+              and n["paste_pack"] >= 1 and n["bottleneck"] == blocks,
+              f"request {r}: kernel launches {n}")
         check(tuple(out["class_ids"].shape) == (b, d)
               and tuple(out["boxes"].shape) == (b, d, 4)
               and tuple(out["masks_packed"].shape)
@@ -244,8 +415,9 @@ def slice_phase(kernels, cfg):
             check(all(0 < c < cfg.NUM_CLASSES for c in cls),
                   f"request {r}: class ids out of range")
             per_image.append(len(cls))
-        print(f"[5] request {r}: {b} images, detections {per_image}, "
-              f"launches roi_align {k1} nms {k2}", flush=True)
+        print(f"[{tag}] request {r}: {b} images, detections {per_image}, "
+              f"launches " + " ".join(f"{k} {v}" for k, v in n.items()),
+              flush=True)
     return det, requests[0], launches
 
 
@@ -282,23 +454,32 @@ def intermediates_phase(det, images, kernels, roi, nms):
     return err
 
 
-def tiny_parity_phase():
-    """Phase 5c: the port on the card against the port on the CPU, 128-px
-    float32 config, TF32 off; the bar of the CPU parity tests."""
-    from maskrcnn_tpu_torch import TinyConfig
-    from maskrcnn_tpu_torch.detection.pipeline import predict_step
-    from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
-    cfg = TinyConfig().replace(DETECTION_MIN_CONFIDENCE=0.0)
-    cpu = MaskRCNN(cfg, "cpu").init(torch.Generator().manual_seed(5))
-    gpu = MaskRCNN(cfg, DEVICE)
-    gpu.load_state_dict(cpu.state_dict())
+def tiny_inputs():
     rng = np.random.RandomState(3)
     images = rng.randint(0, 256, (2, 128, 128, 3), dtype=np.uint8)
     windows = np.array([[0, 0, 128, 128], [16, 0, 112, 128]], np.float32)
-    want = predict_step(cpu, torch.from_numpy(images),
-                        torch.from_numpy(windows))
-    got = predict_step(gpu, torch.from_numpy(images).to(DEVICE),
-                       torch.from_numpy(windows).to(DEVICE))
+    return torch.from_numpy(images), torch.from_numpy(windows)
+
+
+def tiny_model(fold: bool, device):
+    """The 128-px float32 config with seeded weights (folded under
+    FOLD_BN), every detection kept."""
+    from maskrcnn_tpu_torch import TinyConfig
+    from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
+    cfg = TinyConfig().replace(DETECTION_MIN_CONFIDENCE=0.0, FOLD_BN=fold)
+    return MaskRCNN(cfg, device).init(torch.Generator().manual_seed(5))
+
+
+def tiny_parity_phase(fold: bool = False, tag: str = "5"):
+    """Phase 5c (and 5e under FOLD_BN): the port on the card against the
+    port on the CPU, 128-px float32 config, TF32 off; the bar of the CPU
+    parity tests."""
+    from maskrcnn_tpu_torch.detection.pipeline import predict_step
+    cpu = tiny_model(fold, "cpu")
+    gpu = tiny_model(fold, DEVICE)
+    images, windows = tiny_inputs()
+    want = predict_step(cpu, images, windows)
+    got = predict_step(gpu, images.to(DEVICE), windows.to(DEVICE))
     got = {k: v.cpu() for k, v in got.items()}
     total = equal = mism = nbytes = 0
     dscore = 0.0
@@ -323,12 +504,38 @@ def tiny_parity_phase():
           and mism <= 0.01 * max(nbytes, 1),
           f"tiny cuda vs cpu: share {share}, dscore {dscore}, "
           f"mask bytes {mism}/{nbytes}")
-    print(f"[5] tiny f32 predict_step cuda vs cpu: {total} valid, (class, "
-          f"box) equal {share:.4f}, max |dscore| {dscore:.3g}, mask byte "
-          f"mismatch {mism / max(nbytes, 1):.3g}", flush=True)
+    print(f"[{tag}] tiny f32{' FOLD_BN' if fold else ''} predict_step "
+          f"cuda vs cpu: {total} valid, (class, box) equal {share:.4f}, max "
+          f"|dscore| {dscore:.3g}, mask byte mismatch "
+          f"{mism / max(nbytes, 1):.3g}", flush=True)
 
 
-def timing_phase(det, images, card):
+def fold_parity_phase():
+    """Phase 5e: the folded port against the unfolded port on the card,
+    same seeded weights, at the bar of tests/test_fold.py (valid equal,
+    scores within 1e-3, boxes within 0.51 px)."""
+    from maskrcnn_tpu_torch.detection.pipeline import predict_step
+    images, windows = (t.to(DEVICE) for t in tiny_inputs())
+    base = predict_step(tiny_model(False, DEVICE), images, windows)
+    fold = predict_step(tiny_model(True, DEVICE), images, windows)
+    v = base["valid"]
+    check(bool(torch.equal(v, fold["valid"])) and bool(v.any()),
+          "folded vs unfolded: valid differs")
+    ds = float((base["scores"][v] - fold["scores"][v]).abs().max())
+    db = float((base["boxes"][v] - fold["boxes"][v]).abs().max())
+    sv = base["scores"][v].abs()
+    bv = base["boxes"][v].abs()
+    check(bool(((base["scores"][v] - fold["scores"][v]).abs()
+                <= 1e-3 + 1e-3 * sv).all())
+          and bool(((base["boxes"][v] - fold["boxes"][v]).abs()
+                    <= 0.51 + 1e-3 * bv).all()),
+          f"folded vs unfolded: |dscore| {ds}, |dbox| {db}")
+    print(f"[5e] tiny f32 folded vs unfolded on the card: {int(v.sum())} "
+          f"valid, valid equal, max |dscore| {ds:.3g}, max |dbox| {db:.3g}",
+          flush=True)
+
+
+def timing_phase(det, images, card, tag="6"):
     """Phase 6: predict_step at B=8 and at B=1, the median of 5 calls
     after 2 warm-ups, each timed by CUDA events around the call. One B=8
     call first runs with synchronising calls turned into errors."""
@@ -358,14 +565,14 @@ def timing_phase(det, images, card):
             torch.cuda.synchronize()
             runs.append(start.elapsed_time(end))
         ms = statistics.median(runs)
-        print(f"[6] predict_step B={b} {cfg_name(det.config)}: median {ms} "
+        print(f"[{tag}] predict_step B={b} {cfg_name(det.config)}: median {ms} "
               f"ms/batch ({b * 1000.0 / ms} img/s), runs {runs}, peak mem "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}",
               flush=True)
     return x, win
 
 
-def profile_phase(det, x, win, out_dir):
+def profile_phase(det, x, win, out_dir, name="predict_step"):
     """--profile: one predict_step under torch.profiler. Writes the table
     by op and the Chrome trace, and prints the device's busy time over
     the step's kernel window (the profiler's own host cost widens the
@@ -380,9 +587,9 @@ def profile_phase(det, x, win, out_dir):
         torch.cuda.synchronize()
     table = prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=40)
-    with open(os.path.join(out_dir, "predict_step_profile.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"{name}_profile.txt"), "w") as f:
         f.write(table)
-    trace = os.path.join(out_dir, "predict_step_trace.json")
+    trace = os.path.join(out_dir, f"{name}_trace.json")
     prof.export_chrome_trace(trace)
     with open(trace) as f:
         spans = sorted((e["ts"], e["ts"] + e["dur"])
@@ -397,7 +604,8 @@ def profile_phase(det, x, win, out_dir):
             cur_end = max(cur_end, e)
     busy += cur_end - cur_start
     window = max(e for _, e in spans) - spans[0][0]
-    print(f"[6] profile: {len(spans)} kernels, device busy "
+    print(f"[6] profile {cfg_name(det.config)}: {len(spans)} kernels, "
+          f"device busy "
           f"{busy / 1e3:.3f} of {window / 1e3:.3f} ms "
           f"({1 - busy / window:.1%} idle); table and trace in {out_dir}",
           flush=True)
@@ -412,6 +620,8 @@ def main() -> int:
         return 1
 
     from maskrcnn_tpu_torch import kernels
+    from maskrcnn_tpu_torch.ops import bottleneck as bt
+    from maskrcnn_tpu_torch.ops import mask_paste as mp
     from maskrcnn_tpu_torch.ops import nms, roi_align as roi
 
     card = card_info()
@@ -432,28 +642,50 @@ def main() -> int:
 
     roi_err, roi_times = roi_align_phase(kernels, roi)
     nms_ms, nms_plain_ms = nms_phase(kernels, nms)
+    k3_err, k3_times = bottleneck_phase(kernels, bt)
+    k4_ties, k4_ms, k4_plain_ms = paste_phase(kernels, mp)
 
     cfg = slice_config()
     det, images, launches = slice_phase(kernels, cfg)
     run_err = intermediates_phase(det, images, kernels, roi, nms)
     tiny_parity_phase()
+    fdet, _, fold_launches = slice_phase(
+        kernels, cfg.replace(FOLD_BN=True), tag="5d")
+    tiny_parity_phase(fold=True, tag="5e")
+    fold_parity_phase()
     x, win = timing_phase(det, images, card)
+    timing_phase(fdet, images, card)
     if args.profile:
         profile_phase(det, x, win, args.profile)
+        profile_phase(fdet, x, win, args.profile, "predict_step_fold_bn")
 
+    # launches: the two main-path runs (default and FOLD_BN slices)
+    runs = {k: launches[k] + fold_launches[k] for k in KERNELS}
     roi_ms, roi_plain_ms = roi_times[(torch.bfloat16, 7)]
+    # K3 at its most frequent shape, C4 (22 of the 29 blocks)
+    k3_ms, k3_plain_ms, _ = k3_times[(64, 64, 256)]
     print(json.dumps({"kernels": [
         {"name": "roi_align", "route": "cuda",
          "source": "maskrcnn_tpu_torch/csrc/roi_align.cu",
          "replaces": "maskrcnn_tpu/ops/roi_align_pallas.py:58",
-         "launches": launches["roi_align"],
+         "launches": runs["roi_align"],
          "max_abs_err": max(roi_err, run_err),
          "ms": roi_ms, "plain_ms": roi_plain_ms},
         {"name": "nms", "route": "cuda",
          "source": "maskrcnn_tpu_torch/csrc/nms.cu",
          "replaces": "maskrcnn_tpu/ops/nms_pallas.py:35",
-         "launches": launches["nms"], "max_abs_err": 0.0,
-         "ms": nms_ms, "plain_ms": nms_plain_ms}]}), flush=True)
+         "launches": runs["nms"], "max_abs_err": 0.0,
+         "ms": nms_ms, "plain_ms": nms_plain_ms},
+        {"name": "bottleneck", "route": "cuda",
+         "source": "maskrcnn_tpu_torch/csrc/bottleneck.cu",
+         "replaces": "maskrcnn_tpu/ops/bottleneck_pallas.py:38",
+         "launches": runs["bottleneck"], "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain_ms},
+        {"name": "paste_pack", "route": "cuda",
+         "source": "maskrcnn_tpu_torch/csrc/paste_pack.cu",
+         "replaces": "benchmarks/gates/paste_pack_kernel.py:60",
+         "launches": runs["paste_pack"], "max_abs_err": float(k4_ties > 0),
+         "ms": k4_ms, "plain_ms": k4_plain_ms}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

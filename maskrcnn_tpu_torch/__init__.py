@@ -1,8 +1,9 @@
 """maskrcnn_tpu_torch — the PyTorch/CUDA port of maskrcnn_tpu for Hopper.
 
 A second package beside the JAX one, held against it module by module.
-Plain tensor code is PyTorch; the two geometry kernels of the batched
-inference path (multilevel RoIAlign and greedy NMS) are hand-written
+Plain tensor code is PyTorch; the kernels of the batched inference
+path (multilevel RoIAlign, greedy NMS, mask paste-and-pack, and the
+fused identity bottleneck of the FOLD_BN configuration) are hand-written
 CUDA C++ for sm_90a (`csrc/`, built on first use by `kernels/`).
 
 Dispatch is by the tensor's device: a CUDA tensor runs the kernel (or

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from maskrcnn_tpu.config import Config
+from maskrcnn_tpu_torch.checkpoint.convert import load_jax_params
 from maskrcnn_tpu_torch.detection.pipeline import predict_step
 from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
 from maskrcnn_tpu_torch.ops import device_tensor
@@ -39,12 +40,23 @@ class Detector:
                  generator: torch.Generator = None):
         """Random reference-init weights drawn from `generator` (a CPU
         generator; seed 0 when omitted). Load real weights afterwards
-        with checkpoint.convert.load_jax_params(detector.model, tree)."""
+        with `load_jax_params`.
+
+        Config.FOLD_BN (as maskrcnn_tpu.api.Detector) folds the frozen BN
+        into the convs: the seeded float32 weights are folded before the
+        cast to the compute dtype, and `load_jax_params` takes the
+        ordinary, unfolded JAX tree and folds it on the way in."""
         self.config = config
         self.device = torch.device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.model = MaskRCNN(config, self.device).init(generator)
+
+    def load_jax_params(self, params) -> None:
+        """Load a JAX parameter tree (nested dicts of arrays, the JAX
+        package's layout). Under FOLD_BN it is folded in float32 first;
+        an already folded tree folds to itself."""
+        load_jax_params(self.model, params)
 
     @staticmethod
     def _canvas_geometry(h, w, min_dim, ch, cw):

@@ -86,8 +86,13 @@ def from_jax_params(params: Dict, architecture: str = "resnet101"
 
 def load_jax_params(model, params: Dict) -> None:
     """Load a JAX parameter tree into a MaskRCNN (strict: every key of the
-    model must be present and nothing else)."""
+    model must be present and nothing else). Under Config.FOLD_BN the
+    float32 weights are folded first (checkpoint.fold), so the tree may
+    be unfolded or already folded: folding twice is a no-op."""
     import torch
     state = from_jax_params(params, model.config.BACKBONE)
+    if model.config.FOLD_BN:
+        from maskrcnn_tpu_torch.checkpoint.fold import fold_state_dict
+        state = fold_state_dict(state, model.config.BACKBONE)
     model.load_state_dict({k: torch.tensor(v) for k, v in state.items()},
                           strict=True)

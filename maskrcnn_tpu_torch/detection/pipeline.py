@@ -9,7 +9,8 @@ head -> class-channel select -> paste + bit-pack.
 Every shape is fixed by the config and nothing waits on the host: no
 `.item()`, no copy to the CPU, no branch on tensor values. Dynamic-length
 results are padded tensors with validity masks, as in the JAX package.
-On CUDA tensors RoIAlign and NMS run the port's kernels.
+On CUDA tensors RoIAlign, NMS and the paste-and-pack run the port's
+kernels (and, under FOLD_BN, the backbone's identity blocks).
 
 Tie order follows JAX: `lax.top_k` and `jnp.argsort` put equal keys in
 index order, so every sort here is `stable=True` (torch.topk's tie order

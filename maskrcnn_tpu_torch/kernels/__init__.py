@@ -1,5 +1,11 @@
 """Build, load and launch the port's CUDA kernels (csrc/*.cu).
 
+    roi_align.cu   multilevel RoIAlign         (Pallas ops/roi_align_pallas.py)
+    nms.cu         greedy NMS keep masks       (Pallas ops/nms_pallas.py)
+    bottleneck.cu  fused identity bottleneck   (Pallas ops/bottleneck_pallas.py)
+    paste_pack.cu  mask paste + threshold +    (Pallas benchmarks/gates/
+                   valid + bit-pack             paste_pack_kernel.py)
+
 The sources are compiled by `nvcc` on first use into one shared library
 with a plain C interface, loaded with ctypes (no PyTorch headers, so a
 build takes seconds). The library lives in `build/maskrcnn_tpu_torch/`
@@ -8,9 +14,10 @@ a changed source rebuilds and a checkout with no build directory builds
 everything on its first kernel call.
 
 Flags: sm_90a, -O3, and -fmad=false. Without the last, nvcc contracts
-the IoU's `a_i + a_j - w*h` and the bilinear blend into FMAs, which round
-differently from the plain PyTorch versions and flip boundary decisions
-(suppressed or not, sampled or extrapolated). Never --use_fast_math.
+the IoU's `a_i + a_j - w*h`, the bilinear blends and the paste's
+operator math into FMAs, which round differently from the plain PyTorch
+versions and flip boundary decisions (suppressed or not, sampled or
+extrapolated, a mask bit set or not). Never --use_fast_math.
 
 Each wrapper checks its inputs, launches on PyTorch's current stream,
 raises if the launch returned a CUDA error, and counts its launches in
@@ -34,7 +41,7 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("roi_align.cu", "nms.cu")
+SOURCES = ("roi_align.cu", "nms.cu", "bottleneck.cu", "paste_pack.cu")
 BUILD_DIR = _PKG.parent / "build" / "maskrcnn_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
@@ -98,6 +105,10 @@ def library() -> ctypes.CDLL:
     lib.mrt_roi_align.restype = _I
     lib.mrt_nms.argtypes = [_P, _P, _I, _I, ctypes.c_float, _P, _P, _P]
     lib.mrt_nms.restype = _I
+    lib.mrt_bottleneck.argtypes = [_P] * 8 + [_I] * 6 + [_P]
+    lib.mrt_bottleneck.restype = _I
+    lib.mrt_paste_pack.argtypes = [_P] * 4 + [_I] * 4 + [_P]
+    lib.mrt_paste_pack.restype = _I
     lib.mrt_error_string.argtypes = [_I]
     lib.mrt_error_string.restype = ctypes.c_char_p
     return lib
@@ -207,3 +218,91 @@ def nms(boxes: torch.Tensor, valid: torch.Tensor,
 
 
 nms.launches = 0
+
+
+def bottleneck(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+               w2: torch.Tensor, b2: torch.Tensor, w3: torch.Tensor,
+               b3: torch.Tensor) -> torch.Tensor:
+    """Fused identity bottleneck kernel (csrc/bottleneck.cu).
+
+    x [B, H, W, C] contiguous NHWC CUDA tensor, float32 or bfloat16 (any
+    H, W; bf16 needs C and P multiples of 64); w1 [C, P], w2 [9, P, P],
+    w3 [P, C] contiguous in x's dtype; b1/b2 [P], b3 [C] float32 (as
+    ops.bottleneck.pack_weights makes them). Returns y like x."""
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"bottleneck: unsupported dtype {x.dtype}")
+    if (not x.is_cuda or x.dim() != 4 or not x.is_contiguous()
+            or x.data_ptr() % 16):
+        raise ValueError("bottleneck: x must be a contiguous, 16-byte "
+                         "aligned NHWC CUDA tensor")
+    b, h, w, c = x.shape
+    p = w1.shape[-1]
+    if c != 4 * p:
+        raise ValueError(f"bottleneck: C={c} is not 4P (P={p})")
+    shapes = ((w1, (c, p), x.dtype), (b1, (p,), torch.float32),
+              (w2, (9, p, p), x.dtype), (b2, (p,), torch.float32),
+              (w3, (p, c), x.dtype), (b3, (c,), torch.float32))
+    for t, shape, dtype in shapes:
+        if (tuple(t.shape) != shape or t.dtype != dtype
+                or t.device != x.device or not t.is_contiguous()):
+            raise ValueError("bottleneck: weights must be contiguous w1 "
+                             "[C, P], w2 [9, P, P], w3 [P, C] in x's dtype "
+                             "and float32 biases on x's device")
+    if x.dtype == torch.bfloat16 and (c % 64 or p % 64):
+        raise ValueError(f"bottleneck: bf16 needs C and P multiples of 64, "
+                         f"got C={c} P={p}")
+    y = torch.empty_like(x)
+    lib = library()
+    with torch.cuda.device(x.device):
+        err = lib.mrt_bottleneck(
+            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), y.data_ptr(), b, h,
+            w, c, p, _DTYPES[x.dtype][0], _stream(x.device))
+    _check_launch(lib, "bottleneck", err)
+    bottleneck.launches += 1
+    return y
+
+
+bottleneck.launches = 0
+
+# q, the quantised mask, is staged in the kernel's shared memory
+_MAX_MASK_SIDE = 64
+
+
+def paste_pack(masks: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor,
+               height: int, width: int) -> torch.Tensor:
+    """Fused paste + threshold + valid + bit-pack kernel
+    (csrc/paste_pack.cu), one launch for all N detections.
+
+    masks [N, m, m] float32, boxes [N, 4] float32 integral pixel coords,
+    valid [N] bool, all contiguous on one CUDA device. Returns
+    [N, height, ceil(width/8)] uint8 (np.unpackbits order)."""
+    if (not masks.is_cuda or masks.dtype != torch.float32 or masks.dim() != 3
+            or masks.shape[1] != masks.shape[2] or not masks.is_contiguous()):
+        raise ValueError("paste_pack: masks must be a contiguous [N, m, m] "
+                         "float32 CUDA tensor")
+    n, m = masks.shape[:2]
+    if not 1 <= m <= _MAX_MASK_SIDE:
+        raise ValueError(f"paste_pack: mask side {m} outside "
+                         f"[1, {_MAX_MASK_SIDE}]")
+    if (boxes.dtype != torch.float32 or tuple(boxes.shape) != (n, 4)
+            or valid.dtype != torch.bool or tuple(valid.shape) != (n,)
+            or boxes.device != masks.device or valid.device != masks.device
+            or not boxes.is_contiguous() or not valid.is_contiguous()):
+        raise ValueError("paste_pack: boxes [N, 4] float32 and valid [N] "
+                         "bool expected, contiguous on the masks' device")
+    if height < 1 or width < 1:
+        raise ValueError(f"paste_pack: canvas {height}x{width}")
+    out = torch.empty((n, height, -(-width // 8)), dtype=torch.uint8,
+                      device=masks.device)
+    lib = library()
+    with torch.cuda.device(masks.device):
+        err = lib.mrt_paste_pack(masks.data_ptr(), boxes.data_ptr(),
+                                 valid.data_ptr(), out.data_ptr(), n, m,
+                                 height, width, _stream(masks.device))
+    _check_launch(lib, "paste_pack", err)
+    paste_pack.launches += 1
+    return out
+
+
+paste_pack.launches = 0

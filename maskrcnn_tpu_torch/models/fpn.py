@@ -21,22 +21,25 @@ class FPN(nn.Module):
     """Backbone + pyramid neck: NCHW images -> [P2, P3, P4, P5, P6]."""
 
     def __init__(self, architecture: str = "resnet101",
-                 out_channels: int = 256, dtype=None, device=None):
+                 out_channels: int = 256, dtype=None, device=None,
+                 fold_bn: bool = False):
         super().__init__()
         blocks = BLOCKS[architecture]
         kw = dict(dtype=dtype, device=device)
-        self.C1 = make_stem(**kw)
+        self.C1 = make_stem(fold_bn=fold_bn, **kw)
+        kw["fold_bn"] = fold_bn
         self.C2 = make_stage(64, 64, blocks[0], 1, **kw)
         self.C3 = make_stage(256, 128, blocks[1], 2, **kw)
         self.C4 = make_stage(512, 256, blocks[2], 2, **kw)
         self.C5 = make_stage(1024, 512, blocks[3], 2, **kw)
         for lvl, cin in zip((2, 3, 4, 5), (256, 512, 1024, 2048)):
-            setattr(self, f"P{lvl}_conv1",
-                    nn.Conv2d(cin, out_channels, 1, **kw))
+            setattr(self, f"P{lvl}_conv1", nn.Conv2d(
+                cin, out_channels, 1, dtype=dtype, device=device))
             # Sequential(SamePad, Conv) in the reference: the conv is `.1`
             setattr(self, f"P{lvl}_conv2", nn.Sequential(
                 nn.Identity(),
-                nn.Conv2d(out_channels, out_channels, 3, padding=1, **kw)))
+                nn.Conv2d(out_channels, out_channels, 3, padding=1,
+                          dtype=dtype, device=device)))
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         c2 = self.C2(self.C1(x))

@@ -19,15 +19,15 @@ class BoxHead(nn.Module):
     deltas [N, K, 4]), all float32 (reference model.py:724-800)."""
 
     def __init__(self, num_classes: int, pool_size: int = 7, dtype=None,
-                 device=None):
+                 device=None, fold_bn: bool = False):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.num_classes = num_classes
         # a pool_size conv with no padding: one dense map per RoI
         self.conv1 = nn.Conv2d(256, 1024, pool_size, **kw)
-        self.bn1 = FrozenBatchNorm(1024, device)
+        self.bn1 = FrozenBatchNorm(1024, device, fold_bn)
         self.conv2 = nn.Conv2d(1024, 1024, 1, **kw)
-        self.bn2 = FrozenBatchNorm(1024, device)
+        self.bn2 = FrozenBatchNorm(1024, device, fold_bn)
         self.linear_class = nn.Linear(1024, num_classes, **kw)
         self.linear_bbox = nn.Linear(1024, num_classes * 4, **kw)
 
@@ -46,12 +46,13 @@ class MaskHead(nn.Module):
     """pooled [N, 14, 14, 256] -> per-class sigmoid masks [N, 28, 28, K]
     float32 (reference model.py:848-920)."""
 
-    def __init__(self, num_classes: int, dtype=None, device=None):
+    def __init__(self, num_classes: int, dtype=None, device=None,
+                 fold_bn: bool = False):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         for i in range(1, 5):
             setattr(self, f"conv{i}", nn.Conv2d(256, 256, 3, padding=1, **kw))
-            setattr(self, f"bn{i}", FrozenBatchNorm(256, device))
+            setattr(self, f"bn{i}", FrozenBatchNorm(256, device, fold_bn))
         # kernel == stride: no overlap, equal to the JAX DeconvK2S2
         self.deconv = nn.ConvTranspose2d(256, 256, 2, stride=2, **kw)
         self.conv5 = nn.Conv2d(256, num_classes, 1, **kw)

@@ -7,19 +7,29 @@ strict=True. Convolution and linear weights are stored in the compute
 dtype (Config.COMPUTE_DTYPE) in channels_last memory; the frozen-BN
 tensors stay float32. The stage API takes and returns the JAX layouts
 (NHWC maps, [N, P, P, C] pooled features).
+
+Config.FOLD_BN builds every frozen BN folded (it applies nothing) and
+runs the backbone's identity blocks as the fused bottleneck op. The
+weights must then be folded (checkpoint.fold): `init` folds its float32
+draws before the one cast to the compute dtype, and
+`checkpoint.convert.load_jax_params` folds a JAX tree. Every
+`load_state_dict` repacks the fused blocks' weights from the state
+loaded.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Mapping, Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 from maskrcnn_tpu.config import Config
+from maskrcnn_tpu_torch.checkpoint.fold import fold_state_dict
 from maskrcnn_tpu_torch.models.fpn import FPN
 from maskrcnn_tpu_torch.models.heads import BoxHead, MaskHead
-from maskrcnn_tpu_torch.models.resnet import FrozenBatchNorm
+from maskrcnn_tpu_torch.models.resnet import Bottleneck, FrozenBatchNorm
 from maskrcnn_tpu_torch.models.rpn import RPN
 from maskrcnn_tpu_torch.ops.anchors import config_anchors
 
@@ -32,11 +42,13 @@ class MaskRCNN(nn.Module):
         self.config = config
         dtype = getattr(torch, config.COMPUTE_DTYPE)
         kw = dict(dtype=dtype, device=device)
-        self.fpn = FPN(config.BACKBONE, **kw)
+        fold = dict(fold_bn=config.FOLD_BN)
+        self.fpn = FPN(config.BACKBONE, **kw, **fold)
         self.rpn = RPN(len(config.RPN_ANCHOR_RATIOS),
                        config.RPN_ANCHOR_STRIDE, **kw)
-        self.classifier = BoxHead(config.NUM_CLASSES, config.POOL_SIZE, **kw)
-        self.mask = MaskHead(config.NUM_CLASSES, **kw)
+        self.classifier = BoxHead(config.NUM_CLASSES, config.POOL_SIZE, **kw,
+                                  **fold)
+        self.mask = MaskHead(config.NUM_CLASSES, **kw, **fold)
         self.register_buffer(
             "anchor_boxes",
             torch.from_numpy(config_anchors(config)).to(device),
@@ -54,22 +66,42 @@ class MaskRCNN(nn.Module):
         """Reference init (model.py:1021-1035): xavier-uniform convs, zero
         biases, N(0, 0.01) linears, identity BN. Values are drawn in
         float32 from `generator` (a CPU generator) in module order, so a
-        seed gives the same weights on every device."""
-        for mod in self.modules():
+        seed gives the same weights on every device. Under FOLD_BN the
+        float32 draws are folded (var=1 gives scale 1/sqrt(1.001), so
+        even fresh weights change) before the cast to the compute
+        dtype."""
+        state = {}
+        for name, mod in self.named_modules():
             if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
                 w = torch.empty(mod.weight.shape, dtype=torch.float32)
                 if isinstance(mod, nn.Linear):
                     w.normal_(0.0, 0.01, generator=generator)
                 else:
                     nn.init.xavier_uniform_(w, generator=generator)
-                mod.weight.copy_(w)
-                mod.bias.zero_()
+                state[f"{name}.weight"] = w
+                state[f"{name}.bias"] = torch.zeros(mod.bias.shape)
             elif isinstance(mod, FrozenBatchNorm):
-                mod.weight.fill_(1.0)
-                mod.bias.zero_()
-                mod.running_mean.zero_()
-                mod.running_var.fill_(1.0)
+                f = mod.weight.shape
+                state.update({f"{name}.weight": torch.ones(f),
+                              f"{name}.bias": torch.zeros(f),
+                              f"{name}.running_mean": torch.zeros(f),
+                              f"{name}.running_var": torch.ones(f)})
+        if self.config.FOLD_BN:
+            state = {k: torch.from_numpy(np.asarray(v)) for k, v in
+                     fold_state_dict({k: v.numpy() for k, v in state.items()},
+                                     self.config.BACKBONE).items()}
+        self.load_state_dict(state)
         return self
+
+    def load_state_dict(self, state_dict: Mapping[str, torch.Tensor],
+                        strict: bool = True, assign: bool = False):
+        """nn.Module.load_state_dict, then the fused blocks repack their
+        weights from `state_dict` (float32 biases stay float32)."""
+        result = super().load_state_dict(state_dict, strict, assign)
+        for name, mod in self.named_modules():
+            if isinstance(mod, Bottleneck) and mod.fused:
+                mod.pack(state_dict, f"{name}.")
+        return result
 
     def backbone(self, images: torch.Tensor) -> List[torch.Tensor]:
         """images [B, H, W, 3] float32 -> [P2..P6] as NHWC views."""

@@ -1,7 +1,8 @@
 """Geometry and image ops of the port (counterpart of maskrcnn_tpu.ops).
 
-Each module holds the plain PyTorch version of its op; `nms` and
-`roi_align` also dispatch CUDA tensors to their kernels.
+Each module holds the plain PyTorch version of its op; `nms`,
+`roi_align`, `bottleneck` and `mask_paste` also dispatch CUDA tensors to
+their kernels.
 """
 
 import torch

@@ -8,6 +8,12 @@ as in the JAX package, which leaves these to XLA; here they are
 (uint8 quantisation of mask*255, half-pixel centres, `> 127` threshold)
 are kept as documented there. Detections go through in chunks of 8 to
 bound the transient [chunk, H, W] float32 canvas.
+
+`paste_masks_packed` dispatches by device: CUDA tensors go to the fused
+paste-threshold-pack kernel (csrc/paste_pack.cu, one launch for all
+detections, only the packed bits written), CPU tensors to the chunked
+matmul version, `paste_masks_packed_plain`, which is the kernel's plain
+version.
 """
 
 from __future__ import annotations
@@ -53,9 +59,9 @@ def paste_masks(masks: torch.Tensor, boxes: torch.Tensor, height: int,
     return torch.bmm(rows, wx.transpose(1, 2)) > 127.5       # [N, H, W]
 
 
-def paste_masks_packed(masks: torch.Tensor, boxes: torch.Tensor,
-                       valid: torch.Tensor, height: int, width: int,
-                       chunk: int = 8) -> torch.Tensor:
+def paste_masks_packed_plain(masks: torch.Tensor, boxes: torch.Tensor,
+                             valid: torch.Tensor, height: int, width: int,
+                             chunk: int = 8) -> torch.Tensor:
     """paste_masks, ANDed with valid [N] and bit-packed per chunk of
     detections, so only the packed bytes outlive a chunk.
     Returns [N, height, ceil(width/8)] uint8 (np.unpackbits order)."""
@@ -64,6 +70,22 @@ def paste_masks_packed(masks: torch.Tensor, boxes: torch.Tensor,
            for m, b, v in zip(masks.split(chunk), boxes.split(chunk),
                               valid.split(chunk))]
     return torch.cat(out)
+
+
+def paste_masks_packed(masks: torch.Tensor, boxes: torch.Tensor,
+                       valid: torch.Tensor, height: int,
+                       width: int) -> torch.Tensor:
+    """Device dispatch of `paste_masks_packed_plain` (same arguments and
+    result): the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if masks.is_cuda:
+        from maskrcnn_tpu_torch import kernels
+        return kernels.paste_pack(masks.to(torch.float32).contiguous(),
+                                  boxes.to(torch.float32).contiguous(),
+                                  valid.contiguous(), height, width)
+    if masks.device.type == "cpu":
+        return paste_masks_packed_plain(masks, boxes, valid, height, width)
+    raise ValueError(f"paste: no implementation for device {masks.device}")
 
 
 def _pil_resize_operator(top: torch.Tensor, span: torch.Tensor,

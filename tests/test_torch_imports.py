@@ -21,6 +21,7 @@ REPO = Path(__file__).resolve().parent.parent
 SLICE_MODULES = (
     "maskrcnn_tpu_torch", "maskrcnn_tpu_torch.api",
     "maskrcnn_tpu_torch.kernels", "maskrcnn_tpu_torch.checkpoint.convert",
+    "maskrcnn_tpu_torch.checkpoint.fold", "maskrcnn_tpu_torch.ops.bottleneck",
     "maskrcnn_tpu_torch.detection.pipeline",
     "maskrcnn_tpu_torch.models.fpn", "maskrcnn_tpu_torch.models.heads",
     "maskrcnn_tpu_torch.models.mask_rcnn", "maskrcnn_tpu_torch.models.resnet",

@@ -2,10 +2,14 @@
 and the build's naming. The kernels themselves run only on the card
 (chip_smoke.py compares them with the plain versions there)."""
 
+import shutil
+
 import pytest
 import torch
 
 from maskrcnn_tpu_torch import kernels
+from maskrcnn_tpu_torch.ops import bottleneck as port_bn
+from maskrcnn_tpu_torch.ops import mask_paste as port_paste
 from maskrcnn_tpu_torch.ops import nms as port_nms
 from maskrcnn_tpu_torch.ops import roi_align as port_roi
 
@@ -28,7 +32,39 @@ def test_wrappers_reject_tensors_off_the_card():
     assert kernels.roi_align.launches == 0 and kernels.nms.launches == 0
 
 
-@pytest.mark.parametrize("op", ["nms", "roi_align"])
+def _bottleneck_args(device, dtype=torch.float32, p=16, h=5, w=7):
+    """x [2, H, W, 4P] and packed weights on `device`."""
+    gen = torch.Generator().manual_seed(p)
+    c = 4 * p
+    x = torch.randn(2, h, w, c, generator=gen)
+    ws = [torch.randn(*s, generator=gen) * 0.2
+          for s in ((c, p), (p,), (9, p, p), (p,), (p, c), (c,))]
+    ws = [t.to(dtype) if i % 2 == 0 else t for i, t in enumerate(ws)]
+    return [t.to(device) for t in [x.to(dtype)] + ws]
+
+
+def _paste_args(device, n=6, h=20, w=29):
+    gen = torch.Generator().manual_seed(n)
+    masks = torch.rand(n, 28, 28, generator=gen)
+    start = torch.randint(0, 10, (n, 2), generator=gen).float()
+    boxes = torch.cat([start, start + torch.randint(
+        0, 12, (n, 2), generator=gen).float()], -1)
+    valid = torch.rand(n, generator=gen) > 0.3
+    return [t.to(device) for t in (masks, boxes, valid)] + [h, w]
+
+
+def test_new_wrappers_reject_tensors_off_the_card():
+    """The bottleneck and paste-pack wrappers check their inputs before
+    the build, so CPU tensors raise here without nvcc."""
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.bottleneck(*_bottleneck_args("cpu"))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.paste_pack(*_paste_args("cpu"))
+    assert kernels.bottleneck.launches == 0
+    assert kernels.paste_pack.launches == 0
+
+
+@pytest.mark.parametrize("op", ["nms", "roi_align", "bottleneck", "paste"])
 def test_dispatch_raises_on_devices_without_an_implementation(op):
     """Neither the kernel nor the plain version takes a tensor that is on
     neither the CPU nor a CUDA device."""
@@ -37,6 +73,10 @@ def test_dispatch_raises_on_devices_without_an_implementation(op):
             port_nms.nms_mask_impl(torch.zeros(2, 5, 4, device="meta"),
                                    torch.ones(2, 5, dtype=torch.bool,
                                               device="meta"), 0.5)
+        elif op == "bottleneck":
+            port_bn.fused_identity_bottleneck(*_bottleneck_args("meta"))
+        elif op == "paste":
+            port_paste.paste_masks_packed(*_paste_args("meta"))
         else:
             port_roi.multilevel_roi_align_impl(
                 _levels("meta"), torch.zeros(2, 3, 4, device="meta"), 7,
@@ -60,6 +100,23 @@ def test_cpu_dispatch_is_the_plain_version():
     assert kernels.roi_align.launches == 0 and kernels.nms.launches == 0
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_dispatch_is_the_plain_bottleneck(dtype):
+    args = _bottleneck_args("cpu", dtype)
+    got = port_bn.fused_identity_bottleneck(*args)
+    assert got.dtype == dtype and got.shape == args[0].shape
+    assert torch.equal(got, port_bn.fused_identity_bottleneck_plain(*args))
+    assert kernels.bottleneck.launches == 0
+
+
+def test_cpu_dispatch_is_the_plain_paste():
+    args = _paste_args("cpu")
+    got = port_paste.paste_masks_packed(*args)
+    assert got.shape == (6, 20, 4) and got.dtype == torch.uint8
+    assert torch.equal(got, port_paste.paste_masks_packed_plain(*args))
+    assert kernels.paste_pack.launches == 0
+
+
 def test_library_named_by_sources_inside_the_checkout():
     path = kernels.library_path()
     assert path.parent == kernels.BUILD_DIR
@@ -68,3 +125,17 @@ def test_library_named_by_sources_inside_the_checkout():
     assert "-fmad=false" in kernels.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
     assert path == kernels.library_path()
+
+
+@pytest.mark.parametrize("source", ["bottleneck.cu", "paste_pack.cu"])
+def test_library_path_follows_the_new_sources(source, tmp_path, monkeypatch):
+    """Editing either new kernel's source names a new library, so a stale
+    build is never loaded."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC, csrc)
+    monkeypatch.setattr(kernels, "CSRC", csrc)
+    before = kernels.library_path()
+    with open(csrc / source, "a") as f:
+        f.write("\n// edited\n")
+    assert source in kernels.SOURCES
+    assert kernels.library_path() != before
