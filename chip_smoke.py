@@ -11,6 +11,9 @@ Phases, each printing one line:
  3. RoIAlign kernel vs its plain PyTorch version on the card: B=8, levels
     256/128/64/32, C=256, 500 boxes at P=7 and 50 at P=14 (with the edge
     boxes), in float32 with TF32 off and in bfloat16;
+ 3b. RoIAlign's int8-table mode vs its plain version: int8 levels with
+    four level scales, same shapes, bf16 and f32 out; bit-equal (else at
+    most 1 bf16 ulp, the count printed); times beside the plain version;
  4. NMS kernel vs its plain version: N=500 at 0.7, class-offset boxes at
     0.3, with invalid rows; keep masks must be identical;
  4b. fused identity bottleneck kernel vs its plain version at the four
@@ -20,6 +23,11 @@ Phases, each printing one line:
  4c. paste-and-pack kernel vs its plain version: 400 detections on the
     1024² canvas with edge boxes and invalid rows; bits identical except
     threshold ties, zero outside the boxes and in invalid rows;
+ 4d. the int8 conv (im2col + torch._int_mm) vs its plain version (a
+    float64 conv) at B=8: the 1x1s and the 3x3 of each stage C2-C5, C4's
+    strided 1x1 and P2's 3x3; int32 accumulators equal; times beside
+    cuDNN's bf16 conv of the shape and the unfused quantize and
+    dequantize passes around it;
  5. the slice: Detector(CocoInferenceConfig, ResNet-101, bf16, 1024²
     canvas) with seeded random weights answers three requests (8, 8 and 1
     images); kernel launch counts during them; kernels vs plain versions
@@ -29,9 +37,14 @@ Phases, each printing one line:
     Detector(CocoInferenceConfig with FOLD_BN), 29 bottleneck launches a
     step; on the 128-px float32 config the folded port on the card vs the
     folded port on the CPU, and vs the unfolded port on the card;
+ 5f. the QUANT_INT8 slice: Detector(CocoInferenceConfig with
+    QUANT_INT8), calibrated (mse) on two default canvases (timed), the
+    same three requests, both RoIAligns of every step in int8-table mode;
+ 5g. on the 128-px float32 config with QUANT_INT8 and one set of
+    calibration stats, the int8 port on the card vs on the CPU;
  6. one predict_step at B=8 in sync-debug "error" mode (no host sync),
-    then the median of 5 timed calls at B=8 and at B=1, for the default
-    and the FOLD_BN model;
+    then the median of 5 timed calls at B=8 and at B=1, for the default,
+    the FOLD_BN and the QUANT_INT8 model (--profile: a table of each);
 then one JSON line of per-kernel numbers and, last, the result line.
 Exits non-zero, printing no result line, without a CUDA device or when
 any check fails. Imports nothing of JAX.
@@ -143,6 +156,106 @@ def roi_align_phase(kernels, roi):
                   f"C=256: {line}; kernel op {ms:.4f} ms (launch only "
                   f"{kern_ms:.4f}), plain {plain_ms:.4f} ms", flush=True)
     return worst, times
+
+
+ROI_SCALES = (0.021, 0.017, 0.032, 0.009)
+
+
+def roi_int8_phase(kernels, roi):
+    """Phase 3b: K1's int8-table mode against its plain version at the
+    slice's shapes (int8 P2..P5 with four level scales), bf16 and f32 out.
+    Bar: bit-equal; else at most 1 bf16 ulp, the count of differing
+    values printed."""
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    rng = np.random.RandomState(6)
+    levels = [torch.randint(-127, 128, (8, s, s, 256), generator=gen,
+                            device=DEVICE, dtype=torch.int8) for s in LEVELS]
+    worst, times = 0.0, {}
+    for pool, n in ((7, 500), (14, 50)):
+        boxes = torch.from_numpy(np.stack(
+            [edge_boxes(rng, n) for _ in range(8)])).to(DEVICE)
+        lvl, in_y, in_x = roi.level_geometry(levels, boxes, pool, CANVAS)
+        for out_dtype in (torch.bfloat16, torch.float32):
+            args = (levels, lvl, in_y, in_x, n, ROI_SCALES, out_dtype)
+            got = kernels.roi_align(*args)
+            want = roi.roi_align_levels(*args)
+            torch.cuda.synchronize()
+            check(got.dtype == want.dtype == out_dtype,
+                  f"roi_align int8: out dtype {got.dtype}")
+            differ = int((got != want).sum())
+            err = float((got.float() - want.float()).abs().max())
+            ulps = bf16_ulps(got, want)
+            check(differ == 0 or ulps <= 1.0,
+                  f"roi_align int8 P={pool} {out_dtype}: {differ} differ, "
+                  f"{ulps} bf16 ulp")
+            worst = max(worst, err)
+            ms = cuda_ms(lambda: roi.multilevel_roi_align_impl(
+                levels, boxes, pool, CANVAS, ROI_SCALES, out_dtype))
+            plain_ms = cuda_ms(lambda: roi.multilevel_roi_align(
+                levels, boxes, pool, CANVAS, ROI_SCALES, out_dtype), iters=5)
+            kern_ms = cuda_ms(lambda: kernels.roi_align(*args))
+            times[(out_dtype, pool)] = (ms, plain_ms, kern_ms)
+            print(f"[3b] roi_align int8 tables -> {str(out_dtype)[6:]} B=8 "
+                  f"N={n} P={pool} C=256: {differ} of {got.numel()} values "
+                  f"differ, max_abs_err {err:.3g} ({ulps:g} bf16 ulp); "
+                  f"kernel op {ms:.4f} ms (launch only {kern_ms:.4f}), "
+                  f"plain {plain_ms:.4f} ms", flush=True)
+    return worst, times
+
+
+# The int8 convs of ResNet-101 and the FPN at B=8 on the 1024² canvas, per
+# stage: (name, input [H, W, C], output channels, kernel side, stride)
+INT8_CONVS = tuple(
+    conv for stage, s, p in (("C2", 256, 64), ("C3", 128, 128),
+                             ("C4", 64, 256), ("C5", 32, 512))
+    for conv in ((f"{stage} 1x1 reduce", (s, s, 4 * p), p, 1, 1),
+                 (f"{stage} 3x3", (s, s, p), p, 3, 1),
+                 (f"{stage} 1x1 expand", (s, s, p), 4 * p, 1, 1))
+) + (("C4 1x1 stride 2 (block0 conv1)", (128, 128, 512), 256, 1, 2),
+     ("P2 3x3 (P2_conv2, RPN shared conv)", (256, 256, 256), 256, 3, 1))
+
+
+def int8_conv_phase():
+    """Phase 4d: the int8 conv (im2col + torch._int_mm) against its plain
+    version (float64 conv) on the card: int32 accumulators exactly equal.
+    Times beside cuDNN's bf16 conv of the same shape, and the unfused
+    passes around the GEMM: quantizing its bf16 input and the dequantize
+    epilogue (scale, bias, ReLU) to bf16."""
+    import torch.nn.functional as F
+    from maskrcnn_tpu_torch.ops import int8_conv as ic
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    scale = torch.tensor(0.02, device=DEVICE)
+    for name, (h, w, c), o, k, stride in INT8_CONVS:
+        x = torch.randint(-127, 128, (8, h, w, c), generator=gen,
+                          device=DEVICE, dtype=torch.int8)
+        wq = torch.randint(-127, 128, (o, k, k, c), generator=gen,
+                           device=DEVICE, dtype=torch.int8)
+        pad = (k - 1) // 2
+        got = ic.int8_conv_gemm(x, wq, stride, pad)
+        want = ic.int8_conv_plain(x, wq, stride, pad)
+        torch.cuda.synchronize()
+        differ = int((got != want).sum())
+        check(got.dtype == torch.int32 and differ == 0,
+              f"int8 conv {name}: {differ} accumulators differ")
+        del want
+        gemm_ms = cuda_ms(lambda: ic.int8_conv_gemm(x, wq, stride, pad),
+                          iters=10)
+        xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+        wb = wq.to(torch.bfloat16).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        cudnn_ms = cuda_ms(lambda: F.conv2d(xb, wb, stride=stride,
+                                            padding=pad), iters=10)
+        xh = xb.permute(0, 2, 3, 1)
+        q_ms = cuda_ms(lambda: ic.quantize_tensor(xh, scale), iters=10)
+        ws = torch.rand(o, generator=gen, device=DEVICE) * 1e-3
+        bias = torch.randn(o, generator=gen, device=DEVICE)
+        dq_ms = cuda_ms(lambda: ic.dequantize(got, scale, ws, bias,
+                                              torch.bfloat16, True), iters=10)
+        print(f"[4d] int8 conv {name} B=8 {h}x{w}x{c} -> {o}: int32 "
+              f"accumulators equal ({got.numel()}); im2col + _int_mm "
+              f"{gemm_ms:.4f} ms, cuDNN bf16 conv {cudnn_ms:.4f} ms; "
+              f"quantize input {q_ms:.4f} ms, dequantize epilogue "
+              f"{dq_ms:.4f} ms", flush=True)
 
 
 def nms_phase(kernels, nms):
@@ -341,7 +454,8 @@ def slice_config():
 
 def cfg_name(cfg) -> str:
     return (f"{cfg.BACKBONE} {cfg.IMAGE_MAX_DIM}² {cfg.COMPUTE_DTYPE}"
-            + (" FOLD_BN" if cfg.FOLD_BN else ""))
+            + (" FOLD_BN" if cfg.FOLD_BN else "")
+            + (" QUANT_INT8" if cfg.QUANT_INT8 else ""))
 
 
 def make_images(rng, shapes):
@@ -351,17 +465,50 @@ def make_images(rng, shapes):
 KERNELS = ("roi_align", "nms", "bottleneck", "paste_pack")
 
 
+def launch_counts(kernels):
+    """Launches of every kernel wrapper, K1's int8-mode share, and the
+    int8 convs' integer GEMMs."""
+    from maskrcnn_tpu_torch.ops.int8_conv import int8_conv_gemm
+    counts = {k: getattr(kernels, k).launches for k in KERNELS}
+    counts["roi_align_int8"] = kernels.roi_align.int8_launches
+    counts["int8_gemm"] = int8_conv_gemm.calls
+    return counts
+
+
+def reset_counts(kernels):
+    from maskrcnn_tpu_torch.ops.int8_conv import int8_conv_gemm
+    for k in KERNELS:
+        getattr(kernels, k).launches = 0
+    kernels.roi_align.int8_launches = 0
+    int8_conv_gemm.calls = 0
+
+
 def slice_phase(kernels, cfg, tag="5"):
-    """Phase 5 (and 5d): three requests through the Detector, with the
-    kernels' launch counts and checks of every output. Returns the
-    detector, the first request's images and the launches of the run."""
+    """Phase 5 (and 5d, 5f): three requests through the Detector, with the
+    kernels' launch counts and checks of every output. Under QUANT_INT8
+    the Detector calibrates on two default canvases first (timed). Returns
+    the detector, the first request's images and the launches of the
+    run."""
     from maskrcnn_tpu_torch.api import Detector
+    from maskrcnn_tpu_torch.quant import default_calib_canvases
     t0 = time.perf_counter()
+    calib = (default_calib_canvases(cfg.IMAGE_SHAPE, n=2)
+             if cfg.QUANT_INT8 else None)
     det = Detector(cfg, device=DEVICE,
-                   generator=torch.Generator().manual_seed(0))
+                   generator=torch.Generator().manual_seed(0),
+                   calib_images=calib)
     torch.cuda.synchronize()
     print(f"[{tag}] Detector {cfg_name(cfg)} on {DEVICE}, seeded init "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if cfg.QUANT_INT8:
+        t0 = time.perf_counter()
+        det.prepare()
+        torch.cuda.synchronize()
+        q = det.model.quant
+        print(f"[{tag}] calibration ({cfg.QUANT_CALIB}, 2 canvases) and "
+              f"quantization {time.perf_counter() - t0:.2f} s: "
+              f"{len(q['convs'])} int8 convs, {len(q['acts'])} activation "
+              f"scales", flush=True)
     # scale-1 images (min side >= IMAGE_MIN_DIM, max side <= the canvas):
     # no resample, padded windows of several shapes
     rng = np.random.RandomState(2)
@@ -372,29 +519,32 @@ def slice_phase(kernels, cfg, tag="5"):
     requests = [make_images(rng, shapes), make_images(rng, shapes[::-1]),
                 make_images(rng, shapes[2:3])]
 
-    def count():
-        return {k: getattr(kernels, k).launches for k in KERNELS}
-
-    for k in KERNELS:
-        getattr(kernels, k).launches = 0
+    reset_counts(kernels)
     counts = []
     outputs = []
     for images in requests:
-        before = count()
+        before = launch_counts(kernels)
         handle = det.dispatch_batch(images)
         out = handle[0]
         results = det.fetch(handle)
-        counts.append({k: v - before[k] for k, v in count().items()})
+        counts.append({k: v - before[k]
+                       for k, v in launch_counts(kernels).items()})
         outputs.append((images, out, results))
-    launches = count()
+    launches = launch_counts(kernels)
 
-    # one predict_step a request; ResNet-101 has 29 identity blocks
+    # one predict_step a request; ResNet-101 has 29 identity blocks; under
+    # QUANT_INT8 both RoIAligns of a step read int8 tables
     blocks = 29 if cfg.FOLD_BN else 0
+    # one GEMM a quantized conv, the RPN's shared conv once a level (P2-P6)
+    gemms = len(det.model.quant["convs"]) + 4 if cfg.QUANT_INT8 else 0
     d = cfg.DETECTION_MAX_INSTANCES
     for r, ((images, out, results), n) in enumerate(zip(outputs, counts)):
         b = len(images)
-        check(n["roi_align"] >= 2 and n["nms"] >= 2
-              and n["paste_pack"] >= 1 and n["bottleneck"] == blocks,
+        int8_roi = n["roi_align"] if cfg.QUANT_INT8 else 0
+        check(n["roi_align"] == 2 and n["nms"] >= 2
+              and n["paste_pack"] >= 1 and n["bottleneck"] == blocks
+              and n["roi_align_int8"] == int8_roi
+              and n["int8_gemm"] == gemms,
               f"request {r}: kernel launches {n}")
         check(tuple(out["class_ids"].shape) == (b, d)
               and tuple(out["boxes"].shape) == (b, d, 4)
@@ -461,22 +611,41 @@ def tiny_inputs():
     return torch.from_numpy(images), torch.from_numpy(windows)
 
 
-def tiny_model(fold: bool, device):
+def tiny_model(fold: bool, device, act_stats=None):
     """The 128-px float32 config with seeded weights (folded under
-    FOLD_BN), every detection kept."""
+    FOLD_BN), every detection kept. With `act_stats` (calibration stats):
+    QUANT_INT8, quantized with them."""
     from maskrcnn_tpu_torch import TinyConfig
     from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
-    cfg = TinyConfig().replace(DETECTION_MIN_CONFIDENCE=0.0, FOLD_BN=fold)
-    return MaskRCNN(cfg, device).init(torch.Generator().manual_seed(5))
+    from maskrcnn_tpu_torch.quant import prepare_quant_params
+    cfg = TinyConfig().replace(DETECTION_MIN_CONFIDENCE=0.0, FOLD_BN=fold,
+                               QUANT_INT8=act_stats is not None)
+    model = MaskRCNN(cfg, device).init(torch.Generator().manual_seed(5))
+    if act_stats is not None:
+        model.set_quant(prepare_quant_params(model, model.float_state,
+                                             act_stats=act_stats))
+    return model
 
 
-def tiny_parity_phase(fold: bool = False, tag: str = "5"):
-    """Phase 5c (and 5e under FOLD_BN): the port on the card against the
-    port on the CPU, 128-px float32 config, TF32 off; the bar of the CPU
-    parity tests."""
+def tiny_act_stats():
+    """Calibration stats of the tiny int8 model, taken on the CPU: one
+    dict for both sides of the int8 parity."""
+    from maskrcnn_tpu_torch import TinyConfig
+    from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
+    from maskrcnn_tpu_torch.quant import calibrate, default_calib_canvases
+    cfg = TinyConfig().replace(DETECTION_MIN_CONFIDENCE=0.0, QUANT_INT8=True)
+    model = MaskRCNN(cfg, "cpu").init(torch.Generator().manual_seed(5))
+    return calibrate(model, model.float_state,
+                     default_calib_canvases(cfg.IMAGE_SHAPE, n=2))
+
+
+def tiny_parity_phase(fold: bool = False, tag: str = "5", act_stats=None):
+    """Phase 5c (5e under FOLD_BN, 5g under QUANT_INT8 with one shared
+    act_stats): the port on the card against the port on the CPU, 128-px
+    float32 config, TF32 off; the bar of the CPU parity tests."""
     from maskrcnn_tpu_torch.detection.pipeline import predict_step
-    cpu = tiny_model(fold, "cpu")
-    gpu = tiny_model(fold, DEVICE)
+    cpu = tiny_model(fold, "cpu", act_stats)
+    gpu = tiny_model(fold, DEVICE, act_stats)
     images, windows = tiny_inputs()
     want = predict_step(cpu, images, windows)
     got = predict_step(gpu, images.to(DEVICE), windows.to(DEVICE))
@@ -504,7 +673,8 @@ def tiny_parity_phase(fold: bool = False, tag: str = "5"):
           and mism <= 0.01 * max(nbytes, 1),
           f"tiny cuda vs cpu: share {share}, dscore {dscore}, "
           f"mask bytes {mism}/{nbytes}")
-    print(f"[{tag}] tiny f32{' FOLD_BN' if fold else ''} predict_step "
+    print(f"[{tag}] tiny f32{' FOLD_BN' if fold else ''}"
+          f"{' QUANT_INT8' if act_stats else ''} predict_step "
           f"cuda vs cpu: {total} valid, (class, box) equal {share:.4f}, max "
           f"|dscore| {dscore:.3g}, mask byte mismatch "
           f"{mism / max(nbytes, 1):.3g}", flush=True)
@@ -544,6 +714,7 @@ def timing_phase(det, images, card, tag="6"):
     x = torch.from_numpy(batch).to(DEVICE)
     win = torch.tensor(windows, dtype=torch.float32, device=DEVICE)
     for b in (len(images), 1):
+        torch.cuda.reset_peak_memory_stats()
         for _ in range(2):
             predict_step(det.model, x[:b], win[:b])
         torch.cuda.synchronize()
@@ -641,9 +812,11 @@ def main() -> int:
           flush=True)
 
     roi_err, roi_times = roi_align_phase(kernels, roi)
+    roi8_err, roi8_times = roi_int8_phase(kernels, roi)
     nms_ms, nms_plain_ms = nms_phase(kernels, nms)
     k3_err, k3_times = bottleneck_phase(kernels, bt)
     k4_ties, k4_ms, k4_plain_ms = paste_phase(kernels, mp)
+    int8_conv_phase()
 
     cfg = slice_config()
     det, images, launches = slice_phase(kernels, cfg)
@@ -653,15 +826,24 @@ def main() -> int:
         kernels, cfg.replace(FOLD_BN=True), tag="5d")
     tiny_parity_phase(fold=True, tag="5e")
     fold_parity_phase()
+    qdet, _, quant_launches = slice_phase(
+        kernels, cfg.replace(QUANT_INT8=True), tag="5f")
+    tiny_parity_phase(tag="5g", act_stats=tiny_act_stats())
     x, win = timing_phase(det, images, card)
     timing_phase(fdet, images, card)
+    timing_phase(qdet, images, card)
     if args.profile:
         profile_phase(det, x, win, args.profile)
         profile_phase(fdet, x, win, args.profile, "predict_step_fold_bn")
+        profile_phase(qdet, x, win, args.profile, "predict_step_int8")
 
-    # launches: the two main-path runs (default and FOLD_BN slices)
-    runs = {k: launches[k] + fold_launches[k] for k in KERNELS}
+    # launches: the three main-path runs (default, FOLD_BN and QUANT_INT8
+    # slices); K1's float-table launches apart from its int8 ones
+    runs = {k: launches[k] + fold_launches[k] + quant_launches[k]
+            for k in launches}
+    runs["roi_align"] -= runs["roi_align_int8"]
     roi_ms, roi_plain_ms = roi_times[(torch.bfloat16, 7)]
+    roi8_ms, roi8_plain_ms, _ = roi8_times[(torch.bfloat16, 7)]
     # K3 at its most frequent shape, C4 (22 of the 29 blocks)
     k3_ms, k3_plain_ms, _ = k3_times[(64, 64, 256)]
     print(json.dumps({"kernels": [
@@ -671,6 +853,11 @@ def main() -> int:
          "launches": runs["roi_align"],
          "max_abs_err": max(roi_err, run_err),
          "ms": roi_ms, "plain_ms": roi_plain_ms},
+        {"name": "roi_align_int8", "route": "cuda",
+         "source": "maskrcnn_tpu_torch/csrc/roi_align.cu",
+         "replaces": "maskrcnn_tpu/ops/roi_align_pallas.py:58",
+         "launches": runs["roi_align_int8"], "max_abs_err": roi8_err,
+         "ms": roi8_ms, "plain_ms": roi8_plain_ms},
         {"name": "nms", "route": "cuda",
          "source": "maskrcnn_tpu_torch/csrc/nms.cu",
          "replaces": "maskrcnn_tpu/ops/nms_pallas.py:35",

@@ -88,7 +88,9 @@ def load_jax_params(model, params: Dict) -> None:
     """Load a JAX parameter tree into a MaskRCNN (strict: every key of the
     model must be present and nothing else). Under Config.FOLD_BN the
     float32 weights are folded first (checkpoint.fold), so the tree may
-    be unfolded or already folded: folding twice is a no-op."""
+    be unfolded or already folded: folding twice is a no-op. Under
+    Config.QUANT_INT8 the model keeps the float32 state for quantization
+    and drops its prepared int8 state."""
     import torch
     state = from_jax_params(params, model.config.BACKBONE)
     if model.config.FOLD_BN:
@@ -96,3 +98,33 @@ def load_jax_params(model, params: Dict) -> None:
         state = fold_state_dict(state, model.config.BACKBONE)
     model.load_state_dict({k: torch.tensor(v) for k, v in state.items()},
                           strict=True)
+    model.keep_float_state(state)
+
+
+def _float_conv(entry: Dict) -> Dict[str, np.ndarray]:
+    return {"weight": np.asarray(entry["kernel"], np.float32)
+            .transpose(3, 2, 0, 1),
+            "bias": np.asarray(entry["bias"], np.float32)}
+
+
+def from_jax_quant_params(params: Dict) -> Dict:
+    """A JAX `quant.prepare_quant_params` tree (the whole tree or its
+    "quant" subtree) -> the port's quantized tree, as the port's
+    `quant.prepare_quant_params` returns it: int8 kernels HWIO -> [O, kh,
+    kw, I] (the GEMM layout), float kernels -> torch layouts (the
+    deconv's [kh, kw, O, I] -> [I, O, kh, kw]), scales float32."""
+    q = params.get("quant", params)
+    out = {
+        "convs": {p: {"kernel": np.ascontiguousarray(
+                          np.asarray(e["kernel"], np.int8)
+                          .transpose(3, 0, 1, 2)),
+                      "kscale": np.asarray(e["kscale"], np.float32),
+                      "bias": np.asarray(e["bias"], np.float32)}
+                  for p, e in q["convs"].items()},
+        "convs_fp": {p: _float_conv(e) for p, e in q["convs_fp"].items()},
+        "acts": {k: np.float32(v) for k, v in q["acts"].items()},
+        "stem": _float_conv(q["stem"])}
+    if "mask_head_fp" in q:
+        out["mask_head_fp"] = {k: _float_conv(e)
+                               for k, e in q["mask_head_fp"].items()}
+    return out

@@ -27,6 +27,14 @@
 // w_yx = wy*wx, and the build passes -fmad=false, so the plain PyTorch
 // version (ops/roi_align.multilevel_roi_align) computes the same bits.
 // Level sizes are arbitrary; nothing assumes the Pallas patch window.
+//
+// int8-table mode (Config.QUANT_INT8_ROI; the Pallas kernel's
+// `level_scales`): the levels are int8 maps quantized with the RPN's
+// per-level activation scales. A 16-byte load carries 16 channels, so the
+// kernel reads half the bytes of the bf16 mode. The blend runs in the
+// same order over float32 of the int8 taps, is multiplied by the box's
+// level scale (four host floats passed by value in `Levels`: no device
+// read, no sync), and rounds once to the output type (float32 or bf16).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,10 +49,23 @@ struct Levels {
   const void* ptr[kLevels];
   int height[kLevels];
   int width[kLevels];
+  float scale[kLevels];  // dequantization scales of int8 levels
 };
 
+// 16-byte loads of a table type to float, and stores of an output type
 template <typename T>
 struct Vec;
+
+template <>
+struct Vec<int8_t> {
+  static constexpr int kWidth = 16;
+  __device__ static void load(const int8_t* p, float* v) {
+    const uint4 r = *reinterpret_cast<const uint4*>(p);
+    const int8_t* b = reinterpret_cast<const int8_t*>(&r);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) v[i] = static_cast<float>(b[i]);
+  }
+};
 
 template <>
 struct Vec<float> {
@@ -97,11 +118,23 @@ __device__ __forceinline__ Taps axis_taps(float coord, float extent_max) {
   return t;
 }
 
-template <typename T>
+// A table vector of V channels as V / kWidth stores of the output type.
+template <typename TOut, int V>
+__device__ __forceinline__ void store_all(TOut* p, const float* v) {
+  constexpr int W = Vec<TOut>::kWidth;
+  static_assert(V % W == 0, "table vector must be whole output stores");
+#pragma unroll
+  for (int j = 0; j < V; j += W) Vec<TOut>::store(p + j, v + j);
+}
+
+// TIn: the table type; TOut: the output type; kScaled: int8 tables,
+// whose blend is multiplied by the level's scale.
+template <typename TIn, typename TOut, bool kScaled>
 __global__ void __launch_bounds__(kThreads)
 roi_align_kernel(Levels levels, const int32_t* __restrict__ box_level,
                  const float* __restrict__ in_y, const float* __restrict__ in_x,
-                 T* __restrict__ out, int boxes_per_image, int pool, int channels) {
+                 TOut* __restrict__ out, int boxes_per_image, int pool, int channels) {
+  using T = TIn;
   constexpr int V = Vec<T>::kWidth;
   const int box = blockIdx.x;
   const int py = blockIdx.y;
@@ -119,7 +152,8 @@ roi_align_kernel(Levels levels, const int32_t* __restrict__ box_level,
                   static_cast<size_t>(img) * height * width * channels;
   const T* row0 = base + static_cast<size_t>(ty.start) * width * channels;
   const T* row1 = base + static_cast<size_t>(y1) * width * channels;
-  T* out_row = out + (static_cast<size_t>(box) * pool + py) * pool * channels;
+  TOut* out_row = out + (static_cast<size_t>(box) * pool + py) * pool * channels;
+  const float scale = levels.scale[lvl];
 
   const int vecs = channels / V;
   for (int i = threadIdx.x; i < pool * vecs; i += blockDim.x) {
@@ -142,40 +176,66 @@ roi_align_kernel(Levels levels, const int32_t* __restrict__ box_level,
       Vec<T>::load(row1 + static_cast<size_t>(tx.start) * channels + c, p10);
       Vec<T>::load(row1 + static_cast<size_t>(x1) * channels + c, p11);
 #pragma unroll
-      for (int k = 0; k < V; ++k)
+      for (int k = 0; k < V; ++k) {
         res[k] = ((p00[k] * w00 + p01[k] * w01) + p10[k] * w10) + p11[k] * w11;
+        if (kScaled) res[k] = res[k] * scale;
+      }
     }
-    Vec<T>::store(out_row + static_cast<size_t>(px) * channels + c, res);
+    store_all<TOut, V>(out_row + static_cast<size_t>(px) * channels + c, res);
   }
+}
+
+template <typename TIn, typename TOut, bool kScaled>
+void launch(const Levels& levels, const int32_t* box_level, const float* in_y,
+            const float* in_x, void* out, int num_boxes, int boxes_per_image,
+            int pool, int channels, cudaStream_t s) {
+  const dim3 grid(num_boxes, pool);
+  roi_align_kernel<TIn, TOut, kScaled><<<grid, kThreads, 0, s>>>(
+      levels, box_level, in_y, in_x, static_cast<TOut*>(out), boxes_per_image,
+      pool, channels);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Pointers are device pointers except
-// level_ptrs/heights/widths (host arrays of kLevels entries). Returns the
-// CUDA error of the launch (0 on success).
+// Types: 0 = float32, 1 = bfloat16, 2 = int8 (tables only). Float tables
+// write their own type and take no scales; int8 tables write float32 or
+// bfloat16 and take `scales`, a host array of kLevels floats. Pointers are
+// device pointers except level_ptrs/heights/widths/scales (host arrays of
+// kLevels entries). Returns the CUDA error of the launch (0 on success).
 int mrt_roi_align(const void* const* level_ptrs, const int* heights,
-                  const int* widths, const int32_t* box_level, const float* in_y,
-                  const float* in_x, void* out, int num_boxes, int boxes_per_image,
-                  int pool, int channels, int dtype, void* stream) {
+                  const int* widths, const float* scales,
+                  const int32_t* box_level, const float* in_y, const float* in_x,
+                  void* out, int num_boxes, int boxes_per_image, int pool,
+                  int channels, int in_dtype, int out_dtype, void* stream) {
   Levels levels;
   for (int l = 0; l < kLevels; ++l) {
     levels.ptr[l] = level_ptrs[l];
     levels.height[l] = heights[l];
     levels.width[l] = widths[l];
+    levels.scale[l] = scales ? scales[l] : 1.0f;
   }
-  const dim3 grid(num_boxes, pool);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    roi_align_kernel<float><<<grid, kThreads, 0, s>>>(
-        levels, box_level, in_y, in_x, static_cast<float*>(out), boxes_per_image,
-        pool, channels);
-  } else if (dtype == 1) {
-    roi_align_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        levels, box_level, in_y, in_x, static_cast<__nv_bfloat16*>(out),
-        boxes_per_image, pool, channels);
+  const bool int8_tables = in_dtype == 2;
+  if (int8_tables != (scales != nullptr) ||
+      (!int8_tables && in_dtype != out_dtype)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (in_dtype == 0 && out_dtype == 0) {
+    launch<float, float, false>(levels, box_level, in_y, in_x, out, num_boxes,
+                                boxes_per_image, pool, channels, s);
+  } else if (in_dtype == 1 && out_dtype == 1) {
+    launch<__nv_bfloat16, __nv_bfloat16, false>(
+        levels, box_level, in_y, in_x, out, num_boxes, boxes_per_image, pool,
+        channels, s);
+  } else if (in_dtype == 2 && out_dtype == 0) {
+    launch<int8_t, float, true>(levels, box_level, in_y, in_x, out, num_boxes,
+                                boxes_per_image, pool, channels, s);
+  } else if (in_dtype == 2 && out_dtype == 1) {
+    launch<int8_t, __nv_bfloat16, true>(levels, box_level, in_y, in_x, out,
+                                        num_boxes, boxes_per_image, pool,
+                                        channels, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -10,7 +10,9 @@ Every shape is fixed by the config and nothing waits on the host: no
 `.item()`, no copy to the CPU, no branch on tensor values. Dynamic-length
 results are padded tensors with validity masks, as in the JAX package.
 On CUDA tensors RoIAlign, NMS and the paste-and-pack run the port's
-kernels (and, under FOLD_BN, the backbone's identity blocks).
+kernels (and, under FOLD_BN, the backbone's identity blocks). Under
+QUANT_INT8 the model's int8 routes run the backbone, RPN and mask head,
+and both RoIAligns read int8 tables (QUANT_INT8_ROI).
 
 Tie order follows JAX: `lax.top_k` and `jnp.argsort` put equal keys in
 index order, so every sort here is `stable=True` (torch.topk's tie order
@@ -20,7 +22,7 @@ ties are common.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Sequence
 
 import torch
 
@@ -29,6 +31,8 @@ from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
 from maskrcnn_tpu_torch.ops import boxes as box_ops
 from maskrcnn_tpu_torch.ops import device_tensor
 from maskrcnn_tpu_torch.ops.image import normalize_image
+from maskrcnn_tpu_torch.ops.int8_conv import quantize_tensor
+from maskrcnn_tpu_torch.quant import Scale, roi_scales
 from maskrcnn_tpu_torch.ops.mask_paste import paste_masks_packed
 from maskrcnn_tpu_torch.ops.nms import multiclass_nms_mask, nms_mask_impl
 from maskrcnn_tpu_torch.ops.roi_align import multilevel_roi_align_impl
@@ -152,43 +156,61 @@ def mrn_refine(config: Config, proposals: torch.Tensor,
 
 
 def _pool_rois(feature_maps, boxes: torch.Tensor, pool_size: int,
-               image_shape) -> torch.Tensor:
+               image_shape, quant_scales: Sequence[Scale] = None
+               ) -> torch.Tensor:
     """Multilevel RoIAlign over P2..P5 (NHWC): [B, N, 4] -> [B, N, P, P, C].
     The kernel runs at every batch size on CUDA; the JAX package's
-    batch-8 routing rule was a TPU measurement."""
-    return multilevel_roi_align_impl(feature_maps[:4], boxes, pool_size,
-                                     image_shape)
+    batch-8 routing rule was a TPU measurement.
+
+    quant_scales: the four levels' int8 scales (quant.roi_scales). The
+    maps are quantized with them (the RPN's own quantization) and pooled
+    as int8 tables, dequantized in the blend, out in the maps' dtype.
+    Unlike the JAX package, which takes int8 tables only on its Pallas
+    route (B >= 8 on a TPU, levels at least the patch window), the port
+    follows QUANT_INT8_ROI alone: its one RoIAlign has no such limits."""
+    levels = feature_maps[:4]
+    if quant_scales is None:
+        return multilevel_roi_align_impl(levels, boxes, pool_size,
+                                         image_shape)
+    q = [quantize_tensor(f, s.tensor).contiguous()
+         for f, s in zip(levels, quant_scales)]
+    return multilevel_roi_align_impl(
+        q, boxes, pool_size, image_shape,
+        level_scales=[s.value for s in quant_scales],
+        out_dtype=levels[0].dtype)
 
 
 def detect_boxes(model: MaskRCNN, images: torch.Tensor,
                  windows: torch.Tensor):
     """normalize -> backbone -> RPN -> proposals -> box head -> refine.
-    Returns (feature maps P2..P6 NHWC, Detections)."""
+    Returns (feature maps P2..P6 NHWC, Detections, the int8 RoI table
+    scales or None)."""
     config = model.config
     x = normalize_image(images, config.MEAN_PIXEL)
     feats = model.backbone(x)
     rpn_fg, rpn_bbox = model.rpn_scores(feats)
     proposals, pvalid = rpn_refine_scores(config, model.anchors(), rpn_fg,
                                           rpn_bbox)
+    q_scales = roi_scales(model)
     b, r = proposals.shape[:2]
     pooled = _pool_rois(feats, proposals, config.POOL_SIZE,
-                        config.IMAGE_SHAPE)
+                        config.IMAGE_SHAPE, quant_scales=q_scales)
     _, probs, deltas = model.classify(pooled.reshape(b * r,
                                                      *pooled.shape[2:]))
     det = mrn_refine(config, proposals, pvalid, probs.reshape(b, r, -1),
                      deltas.reshape(b, r, config.NUM_CLASSES, 4), windows)
-    return feats, det
+    return feats, det, q_scales
 
 
 def detect_and_pool_masks(model: MaskRCNN, images: torch.Tensor,
                           windows: torch.Tensor):
     """detect_boxes, then the mask-head RoIAlign on the detection boxes
     (normalized per axis). Returns (Detections, pooled [B, D, 14, 14, C])."""
-    feats, det = detect_boxes(model, images, windows)
+    feats, det, q_scales = detect_boxes(model, images, windows)
     h, w = model.config.IMAGE_SHAPE[:2]
     mask_rois = det.boxes / _f32([h, w, h, w], det.boxes.device)
     return det, _pool_rois(feats, mask_rois, model.config.MASK_POOL_SIZE,
-                           model.config.IMAGE_SHAPE)
+                           model.config.IMAGE_SHAPE, quant_scales=q_scales)
 
 
 @torch.inference_mode()

@@ -1,16 +1,18 @@
 """Build, load and launch the port's CUDA kernels (csrc/*.cu).
 
-    roi_align.cu   multilevel RoIAlign         (Pallas ops/roi_align_pallas.py)
+    roi_align.cu   multilevel RoIAlign, float  (Pallas ops/roi_align_pallas.py)
+                   and int8 tables
     nms.cu         greedy NMS keep masks       (Pallas ops/nms_pallas.py)
     bottleneck.cu  fused identity bottleneck   (Pallas ops/bottleneck_pallas.py)
     paste_pack.cu  mask paste + threshold +    (Pallas benchmarks/gates/
                    valid + bit-pack             paste_pack_kernel.py)
 
-The sources are compiled by `nvcc` on first use into one shared library
-with a plain C interface, loaded with ctypes (no PyTorch headers, so a
-build takes seconds). The library lives in `build/maskrcnn_tpu_torch/`
-at the repository root, named by a hash of the sources and the flags, so
-a changed source rebuilds and a checkout with no build directory builds
+The sources are compiled by `nvcc` on first use, one process a source,
+all started together, and linked into one shared library with a plain C
+interface, loaded with ctypes (no PyTorch headers, so a build takes
+seconds). The library lives in `build/maskrcnn_tpu_torch/` at the
+repository root, named by a hash of the sources and the flags, so a
+changed source rebuilds and a checkout with no build directory builds
 everything on its first kernel call.
 
 Flags: sm_90a, -O3, and -fmad=false. Without the last, nvcc contracts
@@ -44,7 +46,7 @@ CSRC = _PKG / "csrc"
 SOURCES = ("roi_align.cu", "nms.cu", "bottleneck.cu", "paste_pack.cu")
 BUILD_DIR = _PKG.parent / "build" / "maskrcnn_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-std=c++17", "-fmad=false", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -71,27 +73,42 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmaskrcnn_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run(procs) -> None:
+    """Wait for every (command, process); raise on the first failure."""
+    failed = []
+    for cmd, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{stdout}{stderr}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
-    """Compile the kernels unless the library for these sources exists.
-    Writes to a temporary name and renames, so concurrent builds never
+    """Compile the kernels unless the library for these sources exists:
+    one nvcc process a source, started together, then one link. Writes
+    into a temporary directory and renames, so concurrent builds never
     load a half-written file."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(CSRC / name) for name in SOURCES]]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, name + ".o") for name in SOURCES]
+        compiles = []
+        for name, obj in zip(SOURCES, objs):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / name)]
+            compiles.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        _run(compiles)
+        lib = os.path.join(tmp, out.name)
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", lib, *objs]
+        _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True))])
+        os.replace(lib, out)
     return out
 
 
@@ -101,7 +118,8 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     lib.mrt_roi_align.argtypes = [
         ctypes.POINTER(_P), ctypes.POINTER(_I), ctypes.POINTER(_I),
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+        ctypes.POINTER(ctypes.c_float), _P, _P, _P, _P, _I, _I, _I, _I, _I,
+        _I, _P]
     lib.mrt_roi_align.restype = _I
     lib.mrt_nms.argtypes = [_P, _P, _I, _I, ctypes.c_float, _P, _P, _P]
     lib.mrt_nms.restype = _I
@@ -126,27 +144,49 @@ def _stream(device: torch.device) -> _P:
 
 
 _DTYPES = {torch.float32: (0, 4), torch.bfloat16: (1, 8)}
+# RoIAlign tables: type code and channels a 16-byte load carries
+_TABLES = {**_DTYPES, torch.int8: (2, 16)}
 # the scan stages an image's [N, ceil(N/64)] bitmask in shared memory:
 # the H100's 227 KB a block, less the kernel's static words (N <= 1344)
 _MAX_SCAN_SMEM = 227 * 1024 - 256
 
 
 def roi_align(levels: Sequence[torch.Tensor], box_level: torch.Tensor,
-              in_y: torch.Tensor, in_x: torch.Tensor,
-              boxes_per_image: int) -> torch.Tensor:
+              in_y: torch.Tensor, in_x: torch.Tensor, boxes_per_image: int,
+              level_scales: Sequence[float] = None,
+              out_dtype: torch.dtype = None) -> torch.Tensor:
     """Multilevel RoIAlign kernel (csrc/roi_align.cu).
 
     levels: P2..P5 as contiguous NHWC [B, H_l, W_l, C] CUDA tensors of
-    one dtype (float32 or bfloat16); box_level [M] int32 (M = B*N boxes,
-    image-major); in_y/in_x [M, P] float32 sample coordinates from
-    ops.roi_align.level_geometry. Returns [M, P, P, C] in the levels'
-    dtype."""
+    one dtype (float32, bfloat16, or int8 with `level_scales`); box_level
+    [M] int32 (M = B*N boxes, image-major); in_y/in_x [M, P] float32
+    sample coordinates from ops.roi_align.level_geometry. Returns
+    [M, P, P, C] in the levels' dtype, or for int8 levels in `out_dtype`
+    (float32 or bfloat16), each value the blend times its level's scale
+    (four host floats). `launches` counts every launch, `int8_launches`
+    those of the int8-table mode."""
     if len(levels) != 4:
         raise ValueError(f"roi_align takes 4 levels, got {len(levels)}")
     dtype = levels[0].dtype
-    if dtype not in _DTYPES:
+    if dtype not in _TABLES:
         raise TypeError(f"roi_align: unsupported dtype {dtype}")
-    code, vec = _DTYPES[dtype]
+    code, vec = _TABLES[dtype]
+    int8 = dtype == torch.int8
+    if int8:
+        if level_scales is None or len(level_scales) != 4:
+            raise ValueError("roi_align: int8 levels need 4 level_scales")
+        if out_dtype not in _DTYPES:
+            raise TypeError("roi_align: int8 levels need out_dtype float32 "
+                            f"or bfloat16, got {out_dtype}")
+        scales = (ctypes.c_float * 4)(*[float(s) for s in level_scales])
+    else:
+        if level_scales is not None:
+            raise ValueError("roi_align: level_scales apply to int8 levels "
+                             "only")
+        if out_dtype not in (None, dtype):
+            raise TypeError(f"roi_align: {dtype} levels write {dtype}, not "
+                            f"{out_dtype}")
+        out_dtype, scales = dtype, None
     device = levels[0].device
     b, _, _, c = levels[0].shape
     for f in levels:
@@ -168,22 +208,24 @@ def roi_align(levels: Sequence[torch.Tensor], box_level: torch.Tensor,
         if t.device != device or not t.is_contiguous():
             raise ValueError("roi_align: box inputs must be contiguous on "
                              "the levels' device")
-    out = torch.empty((m, pool, pool, c), dtype=dtype, device=device)
+    out = torch.empty((m, pool, pool, c), dtype=out_dtype, device=device)
     lib = library()
     with torch.cuda.device(device):
         err = lib.mrt_roi_align(
             (_P * 4)(*[f.data_ptr() for f in levels]),
             (_I * 4)(*[f.shape[1] for f in levels]),
-            (_I * 4)(*[f.shape[2] for f in levels]),
+            (_I * 4)(*[f.shape[2] for f in levels]), scales,
             box_level.data_ptr(), in_y.data_ptr(), in_x.data_ptr(),
             out.data_ptr(), m, boxes_per_image, pool, c, code,
-            _stream(device))
+            _DTYPES[out_dtype][0], _stream(device))
     _check_launch(lib, "roi_align", err)
     roi_align.launches += 1
+    roi_align.int8_launches += int8
     return out
 
 
 roi_align.launches = 0
+roi_align.int8_launches = 0
 
 
 def nms(boxes: torch.Tensor, valid: torch.Tensor,

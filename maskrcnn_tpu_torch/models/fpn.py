@@ -17,6 +17,12 @@ import torch.nn.functional as F
 from maskrcnn_tpu_torch.models.resnet import BLOCKS, make_stage, make_stem
 
 
+def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour x2 of an NCHW map (each pixel repeated 2x2), the
+    top-down path's upsample."""
+    return F.interpolate(x, scale_factor=2.0)
+
+
 class FPN(nn.Module):
     """Backbone + pyramid neck: NCHW images -> [P2, P3, P4, P5, P6]."""
 
@@ -47,9 +53,9 @@ class FPN(nn.Module):
         c4 = self.C4(c3)
         c5 = self.C5(c4)
         p5 = self.P5_conv1(c5)
-        p4 = self.P4_conv1(c4) + F.interpolate(p5, scale_factor=2.0)
-        p3 = self.P3_conv1(c3) + F.interpolate(p4, scale_factor=2.0)
-        p2 = self.P2_conv1(c2) + F.interpolate(p3, scale_factor=2.0)
+        p4 = self.P4_conv1(c4) + nearest_upsample_2x(p5)
+        p3 = self.P3_conv1(c3) + nearest_upsample_2x(p4)
+        p2 = self.P2_conv1(c2) + nearest_upsample_2x(p3)
         p5 = self.P5_conv2(p5)
         p4 = self.P4_conv2(p4)
         p3 = self.P3_conv2(p3)

@@ -15,10 +15,24 @@ draws before the one cast to the compute dtype, and
 `checkpoint.convert.load_jax_params` folds a JAX tree. Every
 `load_state_dict` repacks the fused blocks' weights from the state
 loaded.
+
+Config.QUANT_INT8 (maskrcnn_tpu_torch.quant): `init` and
+`load_jax_params` keep the float32 state in `float_state`, which
+`quant.prepare_quant_params` quantizes; `set_quant` puts the result on
+the device. Then `backbone`, `rpn_scores` and (when the state has the
+mask head's kernels) `predict_masks` take the int8 route, as the JAX
+package's MaskRCNN routes a tree with "quant". A QUANT_INT8 model used
+before `set_quant` raises, except inside `float_path()` (calibration).
+
+Options the port does not implement raise NotImplementedError here
+(`check_supported`) instead of running something else. The TPU knobs
+(NMS_IMPL, ROI_IMPL, S2D_STEM, REMAT_*, MATMUL_PRECISION) do not change
+the function computed and are ignored.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Mapping, Sequence
 
 import numpy as np
@@ -26,6 +40,7 @@ import torch
 import torch.nn as nn
 
 from maskrcnn_tpu.config import Config
+from maskrcnn_tpu_torch import quant
 from maskrcnn_tpu_torch.checkpoint.fold import fold_state_dict
 from maskrcnn_tpu_torch.models.fpn import FPN
 from maskrcnn_tpu_torch.models.heads import BoxHead, MaskHead
@@ -33,13 +48,42 @@ from maskrcnn_tpu_torch.models.resnet import Bottleneck, FrozenBatchNorm
 from maskrcnn_tpu_torch.models.rpn import RPN
 from maskrcnn_tpu_torch.ops.anchors import config_anchors
 
+# (field, test that it is set away from its default): options that change
+# the function computed and are not ported yet
+UNPORTED = (
+    ("CASCADE_STAGES", lambda v: len(v) > 0),
+    ("NUM_KEYPOINTS", lambda v: v != 0),
+    ("TTA_HFLIP", bool),
+    ("DETECTION_SOFT_NMS_SIGMA", lambda v: v != 0.0),
+    ("IMAGE_CANVAS", lambda v: v is not None),
+    ("DEVICE_RESIZE", bool),
+    ("NUM_DEVICES", lambda v: v > 1),
+    ("SP_DEVICES", lambda v: v > 1),
+)
+
+
+def check_supported(config: Config) -> None:
+    """Raise NotImplementedError, naming the field, for an option the port
+    does not implement."""
+    for field, is_set in UNPORTED:
+        value = getattr(config, field)
+        if is_set(value):
+            raise NotImplementedError(
+                f"Config.{field}={value!r} is not ported to "
+                "maskrcnn_tpu_torch (ROADMAP Queue 1)")
+
 
 class MaskRCNN(nn.Module):
     """Inference model for a Config on one device."""
 
     def __init__(self, config: Config, device="cpu"):
         super().__init__()
+        check_supported(config)
         self.config = config
+        # QUANT_INT8: float32 torch-layout state (numpy) and device state
+        self.float_state = None
+        self.quant = None
+        self._float_ok = False
         dtype = getattr(torch, config.COMPUTE_DTYPE)
         kw = dict(dtype=dtype, device=device)
         fold = dict(fold_bn=config.FOLD_BN)
@@ -91,7 +135,42 @@ class MaskRCNN(nn.Module):
                      fold_state_dict({k: v.numpy() for k, v in state.items()},
                                      self.config.BACKBONE).items()}
         self.load_state_dict(state)
+        self.keep_float_state({k: v.numpy() for k, v in state.items()})
         return self
+
+    def keep_float_state(self, state: Mapping[str, np.ndarray]) -> None:
+        """Under QUANT_INT8, keep the float32 state just loaded for
+        quantization and drop any prepared int8 state (it belongs to the
+        old weights)."""
+        self.quant = None
+        if self.config.QUANT_INT8:
+            self.float_state = {k: np.asarray(v, np.float32)
+                                for k, v in state.items()}
+
+    def set_quant(self, tree) -> None:
+        """Put a `quant.prepare_quant_params` tree on the model's device."""
+        self.quant = quant.to_device(tree, self.dtype,
+                                     self.anchor_boxes.device)
+
+    @contextlib.contextmanager
+    def float_path(self):
+        """Run the float model under QUANT_INT8 (calibration), whether or
+        not an int8 state is set."""
+        saved = self.quant
+        self.quant, self._float_ok = None, True
+        try:
+            yield self
+        finally:
+            self.quant, self._float_ok = saved, False
+
+    def _int8(self) -> bool:
+        if self.quant is not None:
+            return True
+        if self.config.QUANT_INT8 and not self._float_ok:
+            raise RuntimeError("QUANT_INT8 model used before set_quant: "
+                               "prepare it (api.Detector does) or use "
+                               "float_path()")
+        return False
 
     def load_state_dict(self, state_dict: Mapping[str, torch.Tensor],
                         strict: bool = True, assign: bool = False):
@@ -105,6 +184,8 @@ class MaskRCNN(nn.Module):
 
     def backbone(self, images: torch.Tensor) -> List[torch.Tensor]:
         """images [B, H, W, 3] float32 -> [P2..P6] as NHWC views."""
+        if self._int8():
+            return quant.quant_backbone(self, images)
         x = images.to(self.dtype).permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
         return [p.permute(0, 2, 3, 1) for p in self.fpn(x)]
@@ -112,6 +193,8 @@ class MaskRCNN(nn.Module):
     def rpn_scores(self, feature_maps: Sequence[torch.Tensor]):
         """NHWC maps -> (scores [B, A] float32, deltas [B, A, 4] compute
         dtype)."""
+        if self._int8():
+            return quant.quant_rpn_scores(self, feature_maps)
         return self.rpn([f.permute(0, 3, 1, 2) for f in feature_maps])
 
     def classify(self, pooled: torch.Tensor):
@@ -119,7 +202,11 @@ class MaskRCNN(nn.Module):
         return self.classifier(pooled)
 
     def predict_masks(self, pooled: torch.Tensor) -> torch.Tensor:
-        """Mask head over pooled [N, 14, 14, 256] -> [N, 28, 28, K]."""
+        """Mask head over pooled [N, 14, 14, 256] -> [N, 28, 28, K]. int8
+        only when the state has the head's kernels: stats without its
+        activations leave it float, as in the JAX package."""
+        if self._int8() and "mask_head/conv1" in self.quant["convs"]:
+            return quant.quant_mask_head(self, pooled)
         return self.mask(pooled)
 
     def anchors(self) -> torch.Tensor:

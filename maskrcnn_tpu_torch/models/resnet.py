@@ -116,14 +116,18 @@ def make_stage(inplanes: int, planes: int, blocks: int, stride: int,
     return nn.Sequential(*layers)
 
 
+def stem_pool(x: torch.Tensor) -> torch.Tensor:
+    """SamePad(3, 2) + MaxPool(3, 2) on NCHW: pads (0, 1) on both axes with
+    -inf, as flax's max_pool does (reference model.py:223-229)."""
+    x = F.pad(x, (0, 1, 0, 1), value=float("-inf"))
+    return F.max_pool2d(x, 3, 2).contiguous(memory_format=torch.channels_last)
+
+
 class StemPool(nn.Module):
-    """SamePad(3, 2) + MaxPool(3, 2): pads (0, 1) on both axes with -inf,
-    as flax's max_pool does (reference model.py:223-229)."""
+    """`stem_pool` as a module of the stem's Sequential."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.pad(x, (0, 1, 0, 1), value=float("-inf"))
-        return F.max_pool2d(x, 3, 2).contiguous(
-            memory_format=torch.channels_last)
+        return stem_pool(x)
 
 
 def make_stem(dtype=None, device=None, fold_bn: bool = False

@@ -11,7 +11,7 @@ layer casts only its top-k survivors.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Iterable, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -37,12 +37,18 @@ class RPN(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """NCHW maps -> (scores [B, A] float32, deltas [B, A, 4] compute
         dtype), anchors in (level, y, x, ratio) order."""
+        return self.outputs(F.relu(self.conv_shared(f)) for f in feature_maps)
+
+    def outputs(self, shared_maps: Iterable[torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The fused 1x1 over each level's shared map (NCHW, after the
+        ReLU), levels in order -> (scores, deltas) as `forward`. The int8
+        path (quant.rpn_scores_forward) hands its own shared maps here."""
         a = self.anchors_per_location
         weight = torch.cat([self.conv_class.weight, self.conv_bbox.weight])
         bias = torch.cat([self.conv_class.bias, self.conv_bbox.bias])
         scores, deltas = [], []
-        for f in feature_maps:
-            shared = F.relu(self.conv_shared(f))
+        for shared in shared_maps:
             # NHWC before the reshape: (y, x, ratio) anchor order
             y = F.conv2d(shared, weight, bias).permute(0, 2, 3, 1)
             b = y.shape[0]

@@ -2,7 +2,7 @@
 
 Each module holds the plain PyTorch version of its op; `nms`,
 `roi_align`, `bottleneck` and `mask_paste` also dispatch CUDA tensors to
-their kernels.
+their kernels, and `int8_conv` to the integer GEMM.
 """
 
 import torch

@@ -15,7 +15,10 @@ place. `roi_align_levels` is the plain blend, with the kernel's inputs
 operations; `multilevel_roi_align_impl` dispatches CUDA tensors to the
 kernel and CPU tensors to the plain blend.
 Both blend in float32 and round to the feature dtype once (the JAX XLA
-path blends in the table dtype; its Pallas kernel in float32).
+path blends in the table dtype; its Pallas kernel in float32). int8
+tables (the Pallas kernel's `level_scales`, Config.QUANT_INT8_ROI) blend
+the same way, multiply by the box's level scale and round once to
+`out_dtype`.
 """
 
 from __future__ import annotations
@@ -92,12 +95,15 @@ def _axis_taps(coord: torch.Tensor, extent_max: torch.Tensor):
 
 def roi_align_levels(levels: Sequence[torch.Tensor],
                      box_level: torch.Tensor, in_y: torch.Tensor,
-                     in_x: torch.Tensor, boxes_per_image: int
-                     ) -> torch.Tensor:
+                     in_x: torch.Tensor, boxes_per_image: int,
+                     level_scales: Sequence[float] = None,
+                     out_dtype: torch.dtype = None) -> torch.Tensor:
     """Plain version of the kernel (kernels.roi_align), same inputs:
     levels P2..P5 as [B, H_l, W_l, C]; box_level [M] int32 and in_y/in_x
     [M, P] from `level_geometry` (M = B*N, image-major). Returns
-    [M, P, P, C] in the levels' dtype."""
+    [M, P, P, C] in the levels' dtype. int8 levels (the int8-table mode)
+    take `level_scales`, four floats: the blend is multiplied by the
+    box's level scale and rounded once to `out_dtype`."""
     m, p = in_y.shape
     c = levels[0].shape[-1]
     dev = in_y.device
@@ -131,29 +137,46 @@ def roi_align_levels(levels: Sequence[torch.Tensor],
             + corner(y0, x1) * (wy0 * wx1)[..., None])
            + corner(y1, x0) * (wy1 * wx0)[..., None]) \
         + corner(y1, x1) * (wy1 * wx1)[..., None]
+    if table.dtype == torch.int8:
+        if level_scales is None or out_dtype is None:
+            raise ValueError("roi_align: int8 levels need level_scales and "
+                             "out_dtype")
+        scale = device_tensor([float(s) for s in level_scales],
+                              torch.float32, dev)[lvl]
+        out = out * scale[:, None, None, None]
+    elif level_scales is not None or out_dtype not in (None, table.dtype):
+        raise ValueError("roi_align: level_scales and out_dtype go with "
+                         "int8 levels")
+    else:
+        out_dtype = table.dtype
     inside = ~(out_y[:, :, None] | out_x[:, None, :])
-    return torch.where(inside[..., None], out, 0.0).to(levels[0].dtype)
+    return torch.where(inside[..., None], out, 0.0).to(out_dtype)
 
 
 def multilevel_roi_align(features: Sequence[torch.Tensor],
                          boxes: torch.Tensor, pool_size: int,
-                         image_shape) -> torch.Tensor:
+                         image_shape, level_scales: Sequence[float] = None,
+                         out_dtype: torch.dtype = None) -> torch.Tensor:
     """Plain batched multilevel RoIAlign.
 
     features: P2..P5 as [B, H_l, W_l, C] (NHWC views); boxes [B, N, 4]
-    normalized. Returns [B, N, P, P, C] in the feature dtype. Zero boxes
-    route to P2 and pool real pixels; callers mask them downstream.
+    normalized. Returns [B, N, P, P, C] in the feature dtype (int8
+    features: in `out_dtype`, dequantized by `level_scales`, as
+    `roi_align_levels`). Zero boxes route to P2 and pool real pixels;
+    callers mask them downstream.
     """
     b, n = boxes.shape[:2]
     lvl, in_y, in_x = level_geometry(features, boxes, pool_size, image_shape)
-    out = roi_align_levels(features, lvl, in_y, in_x, n)
+    out = roi_align_levels(features, lvl, in_y, in_x, n, level_scales,
+                           out_dtype)
     return out.reshape(b, n, pool_size, pool_size, -1)
 
 
 def multilevel_roi_align_impl(features: Sequence[torch.Tensor],
                               boxes: torch.Tensor, pool_size: int,
-                              image_shape) -> torch.Tensor:
-    """Device dispatch of multilevel RoIAlign (shapes as
+                              image_shape, level_scales: Sequence[float] = None,
+                              out_dtype: torch.dtype = None) -> torch.Tensor:
+    """Device dispatch of multilevel RoIAlign (arguments as
     `multilevel_roi_align`): the CUDA kernel for CUDA tensors at every
     batch size, the plain version for CPU tensors."""
     if boxes.is_cuda:
@@ -166,5 +189,5 @@ def multilevel_roi_align_impl(features: Sequence[torch.Tensor],
                          f"{boxes.device}")
     b, n = boxes.shape[:2]
     lvl, in_y, in_x = level_geometry(features, boxes, pool_size, image_shape)
-    out = blend(list(features), lvl, in_y, in_x, n)
+    out = blend(list(features), lvl, in_y, in_x, n, level_scales, out_dtype)
     return out.reshape(b, n, pool_size, pool_size, -1)

@@ -28,7 +28,8 @@ SLICE_MODULES = (
     "maskrcnn_tpu_torch.models.rpn", "maskrcnn_tpu_torch.ops.anchors",
     "maskrcnn_tpu_torch.ops.bits", "maskrcnn_tpu_torch.ops.boxes",
     "maskrcnn_tpu_torch.ops.image", "maskrcnn_tpu_torch.ops.mask_paste",
-    "maskrcnn_tpu_torch.ops.nms", "maskrcnn_tpu_torch.ops.roi_align")
+    "maskrcnn_tpu_torch.ops.nms", "maskrcnn_tpu_torch.ops.roi_align",
+    "maskrcnn_tpu_torch.ops.int8_conv", "maskrcnn_tpu_torch.quant")
 
 
 def test_port_imports_no_jax():
