@@ -4,6 +4,8 @@
     python3 chip_smoke.py                 # from the repository root
     python3 chip_smoke.py --profile DIR   # also write a torch.profiler
                                           # table of one B=8 predict_step
+    python3 chip_smoke.py --quick         # phases 1, 2, 4b and 4e only,
+                                          # no result line
 
 Phases, each printing one line:
  1. the card (nvidia-smi name and power limit, torch's device name);
@@ -18,11 +20,15 @@ Phases, each printing one line:
     0.3, with invalid rows; keep masks must be identical;
  4b. fused identity bottleneck kernel vs its plain version at the four
     identity-block shapes of ResNet-101 at B=8 on the 1024² canvas and at
-    odd small sizes, float32 and bfloat16; times beside the plain version
-    and beside the same folded block as cuDNN bf16 convs;
+    odd small sizes, float32 and bfloat16; the bf16 tile plan, and times
+    beside the bound, the share of the bound reached, the plain version,
+    the same folded block as cuDNN bf16 convs and version 3's time;
  4c. paste-and-pack kernel vs its plain version: 400 detections on the
     1024² canvas with edge boxes and invalid rows; bits identical except
     threshold ties, zero outside the boxes and in invalid rows;
+ 4e. the grouped-RoIAlign gate study (K5, on no path) vs its plain
+    version: 2,500 groups, float32 and bf16-cast patches, 3-D and 2-D
+    layouts; microseconds per box beside K1's at P=7;
  4d. the int8 conv (im2col + torch._int_mm) vs its plain version (a
     float64 conv) at B=8: the 1x1s and the 3x3 of each stage C2-C5, C4's
     strided 1x1 and P2's 3x3; int32 accumulators equal; times beside
@@ -45,7 +51,9 @@ Phases, each printing one line:
  6. one predict_step at B=8 in sync-debug "error" mode (no host sync),
     then the median of 5 timed calls at B=8 and at B=1, for the default,
     the FOLD_BN and the QUANT_INT8 model (--profile: a table of each);
-then one JSON line of per-kernel numbers and, last, the result line.
+then one JSON line of per-kernel numbers (time, launches on the main
+path, error, plain version's time, the bound and what sets it), and,
+last, the result line.
 Exits non-zero, printing no result line, without a CUDA device or when
 any check fails. Imports nothing of JAX.
 """
@@ -116,9 +124,56 @@ def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(((got.float() - want).abs() / ulp).max())
 
 
+# Published peaks of one H100 SXM (dense): the bound of a kernel is the
+# larger of its bytes over the memory rate and its operations over the
+# peak rate of their type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_BF16 = 989e12   # tensor cores, bf16
+PEAK_F32 = 67e12     # float32 outside the tensor cores
+
+
+def bound(nbytes: float, ops: float, peak: float):
+    """(least ms for the work, "bytes" or "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def roi_bound(roi, levels, lvl, in_y, in_x, n, out):
+    """K1's bound on these inputs: the table rows its samples read (each
+    distinct row once: inside-the-level corners of every sample), the
+    output written once and the coordinates; 4 taps of a multiply and an
+    add, and the 4 corner weights, a value, in float32."""
+    dev = in_y.device
+    m, p = in_y.shape
+    c = levels[0].shape[-1]
+    heights = torch.tensor([f.shape[1] for f in levels], device=dev)
+    widths = torch.tensor([f.shape[2] for f in levels], device=dev)
+    sizes = torch.tensor([f.shape[0] * f.shape[1] * f.shape[2]
+                          for f in levels], device=dev)
+    lv = lvl.long()
+    h_l, w_l = heights[lv], widths[lv]
+    ys, _, out_y = roi._axis_taps(in_y, (h_l - 1).float()[:, None])
+    xs, _, out_x = roi._axis_taps(in_x, (w_l - 1).float()[:, None])
+    y0, x0 = ys.long(), xs.long()
+    y1 = torch.minimum(y0 + 1, (h_l - 1)[:, None])
+    x1 = torch.minimum(x0 + 1, (w_l - 1)[:, None])
+    base = (torch.cumsum(sizes, 0) - sizes)[lv] + (
+        torch.arange(m, device=dev) // n) * h_l * w_l
+    inside = ~(out_y[:, :, None] | out_x[:, None, :])
+    rows = [(base[:, None, None] + yy[:, :, None] * w_l[:, None, None]
+             + xx[:, None, :])[inside]
+            for yy in (y0, y1) for xx in (x0, x1)]
+    distinct = int(torch.unique(torch.cat(rows)).numel())
+    nbytes = (distinct * c * levels[0].element_size()
+              + out.numel() * out.element_size()
+              + lvl.numel() * 4 + (in_y.numel() + in_x.numel()) * 4)
+    return bound(nbytes, out.numel() * 12.0, PEAK_F32)
 
 
 def roi_align_phase(kernels, roi):
@@ -151,10 +206,14 @@ def roi_align_phase(kernels, roi):
                 levels, boxes, pool, CANVAS), iters=5)
             kern_ms = cuda_ms(lambda: kernels.roi_align(levels, lvl, in_y,
                                                         in_x, n))
-            times[(dtype, pool)] = (ms, plain_ms)
+            bound_ms, bound_by = roi_bound(roi, levels, lvl, in_y, in_x, n,
+                                           got)
+            times[(dtype, pool)] = (ms, plain_ms, kern_ms, bound_ms,
+                                    bound_by)
             print(f"[3] roi_align {str(dtype)[6:]} B=8 N={n} P={pool} "
                   f"C=256: {line}; kernel op {ms:.4f} ms (launch only "
-                  f"{kern_ms:.4f}), plain {plain_ms:.4f} ms", flush=True)
+                  f"{kern_ms:.4f}, bound {bound_ms:.4f} by {bound_by}), "
+                  f"plain {plain_ms:.4f} ms", flush=True)
     return worst, times
 
 
@@ -194,12 +253,16 @@ def roi_int8_phase(kernels, roi):
             plain_ms = cuda_ms(lambda: roi.multilevel_roi_align(
                 levels, boxes, pool, CANVAS, ROI_SCALES, out_dtype), iters=5)
             kern_ms = cuda_ms(lambda: kernels.roi_align(*args))
-            times[(out_dtype, pool)] = (ms, plain_ms, kern_ms)
+            bound_ms, bound_by = roi_bound(roi, levels, lvl, in_y, in_x, n,
+                                           got)
+            times[(out_dtype, pool)] = (ms, plain_ms, kern_ms, bound_ms,
+                                        bound_by)
             print(f"[3b] roi_align int8 tables -> {str(out_dtype)[6:]} B=8 "
                   f"N={n} P={pool} C=256: {differ} of {got.numel()} values "
                   f"differ, max_abs_err {err:.3g} ({ulps:g} bf16 ulp); "
-                  f"kernel op {ms:.4f} ms (launch only {kern_ms:.4f}), "
-                  f"plain {plain_ms:.4f} ms", flush=True)
+                  f"kernel op {ms:.4f} ms (launch only {kern_ms:.4f}, "
+                  f"bound {bound_ms:.4f} by {bound_by}), plain "
+                  f"{plain_ms:.4f} ms", flush=True)
     return worst, times
 
 
@@ -286,10 +349,15 @@ def nms_phase(kernels, nms):
         ms = cuda_ms(lambda: kernels.nms(bt, vt, thr))
         plain_ms = cuda_ms(lambda: nms.nms_mask(bt, vt, thr), iters=3,
                            warmup=1)
-        times = times or (ms, plain_ms)
+        # boxes and valid read, keep written once; every pair's IoU (about
+        # 12 float32 operations: 4 min/max, 2 widths, area, union, compare)
+        bound_ms, bound_by = bound(bt.numel() * 4 + vt.numel() * 2,
+                                   b * n * (n - 1) / 2 * 12.0, PEAK_F32)
+        times = times or (ms, plain_ms, bound_ms, bound_by)
         print(f"[4] nms {name} B={b} N={n}: keep identical "
-              f"({int(got.sum())} kept); kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms", flush=True)
+              f"({int(got.sum())} kept); kernel {ms:.4f} ms (bound "
+              f"{bound_ms:.6f} by {bound_by}), plain {plain_ms:.4f} ms",
+              flush=True)
     return times
 
 
@@ -316,13 +384,14 @@ def bf16_ulp_share(got: torch.Tensor, want: torch.Tensor, ulps: float):
 
 
 def bottleneck_weights(gen, c, p, dtype):
-    """Packed folded weights of one block: fan-in scaled, nonzero biases."""
-    shapes = ((c, p), (p,), (9, p, p), (p,), (p, c), (c,))
+    """Packed (K-major) folded weights of one block, w1 [P, C], w2 [P, 9,
+    P], w3 [C, P]: fan-in scaled, nonzero biases."""
+    shapes = ((p, c), (p,), (p, 9, p), (p,), (c, p), (c,))
     out = []
     for i, shape in enumerate(shapes):
         t = torch.randn(*shape, generator=gen, device=DEVICE)
         if i % 2 == 0:
-            out.append((t / (shape[-2] * (9 if i == 2 else 1)) ** 0.5)
+            out.append((t / (shape[-1] * (9 if i == 2 else 1)) ** 0.5)
                        .to(dtype).contiguous())
         else:
             out.append(t * 0.1)
@@ -333,10 +402,10 @@ def cudnn_block(x, w1, b1, w2, b2, w3, b3):
     """The same folded block as three cuDNN convs with bias and relu and
     the residual add: what the unfused folded path costs."""
     import torch.nn.functional as F
-    p = w1.shape[1]
+    p = w1.shape[0]
     dt = x.dtype
-    conv = [w1.t()[:, :, None, None], w2.reshape(3, 3, p, p).permute(3, 2, 0, 1),
-            w3.t()[:, :, None, None]]
+    conv = [w1[:, :, None, None], w2.reshape(p, 3, 3, p).permute(0, 3, 1, 2),
+            w3[:, :, None, None]]
     conv = [w.contiguous(memory_format=torch.channels_last) for w in conv]
     b1, b2, b3 = (b.to(dt) for b in (b1, b2, b3))
 
@@ -348,9 +417,27 @@ def cudnn_block(x, w1, b1, w2, b2, w3, b3):
     return run
 
 
+# version 3 of K3 (wmma; PERF.md's kernel table, NVIDIA H100
+# 80GB HBM3, 700 W), by (H, W, P) at B=8
+K3_V3_MS = {(256, 256, 64): 1.2275, (128, 128, 128): 1.0877,
+            (64, 64, 256): 1.2884, (32, 32, 512): 1.1814}
+
+
+def k3_bound(b, h, w, p):
+    """K3's bound at B x H x W, C = 4P, bf16: x read and y written once,
+    the weights and biases read once; 2 * B*H*W * 17 P^2 flops."""
+    c = 4 * p
+    weights = c * p + 9 * p * p + p * c
+    nbytes = 2 * (2 * b * h * w * c) + 2 * weights + 4 * (2 * p + c)
+    return bound(nbytes, 2.0 * b * h * w * weights, PEAK_BF16)
+
+
 def bottleneck_phase(kernels, bt):
     """Phase 4b: K3 against the plain version, float32 (TF32 off) and
-    bfloat16, at the slice's block shapes and at odd small sizes."""
+    bfloat16, at the slice's block shapes and at odd small sizes. At B=8
+    in bf16: the kernel's tile plan, its time beside its bound and the
+    share of the bound reached, cuDNN's folded block and version 3's
+    time."""
     gen = torch.Generator(device=DEVICE).manual_seed(4)
     worst, times = 0.0, {}
     cases = [(8, h, w, p, dt) for h, w, p in BLOCK_SHAPES
@@ -386,8 +473,18 @@ def bottleneck_phase(kernels, bt):
             line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
             if dtype == torch.bfloat16:
                 cudnn_ms = cuda_ms(cudnn_block(x, *weights), iters=10)
-                line += f", cuDNN bf16 block {cudnn_ms:.4f} ms"
-                times[(h, w, p)] = (ms, plain_ms, cudnn_ms)
+                bound_ms, bound_by = k3_bound(b, h, w, p)
+                th, ns, stages, smem = kernels.bottleneck_plan(p)
+                ctas = -(-w // 16) * -(-h // th) * b
+                v3 = K3_V3_MS[(h, w, p)]
+                line += (f"; bound {bound_ms:.4f} ms by {bound_by}, "
+                         f"{bound_ms / ms:.1%} of it; cuDNN bf16 block "
+                         f"{cudnn_ms:.4f} ms; v3 {v3} ms (PERF.md), "
+                         f"{v3 / ms:.2f}x; tile {th}x16, slice {ns}, "
+                         f"{stages}-slot ring, {smem} B shared, {ctas} "
+                         f"CTAs")
+                times[(h, w, p)] = (ms, plain_ms, cudnn_ms, bound_ms,
+                                    bound_by)
         print(f"[4b] bottleneck {name}: {line}", flush=True)
     return worst, times
 
@@ -438,11 +535,62 @@ def paste_phase(kernels, mp, n=400, h=1024, w=1024):
     ms = cuda_ms(lambda: kernels.paste_pack(masks, boxes_t, valid, h, w))
     plain_ms = cuda_ms(lambda: mp.paste_masks_packed_plain(
         masks, boxes_t, valid, h, w), iters=5)
+    # masks, boxes and valid read once, the packed bits written once; the
+    # pixels inside the valid boxes (this run's data) each take a blend of
+    # about 8 operations
+    area = float(((y2 - y1).clamp_min(1) * (x2 - x1).clamp_min(1))[valid]
+                 .sum())
+    bound_ms, bound_by = bound(
+        masks.numel() * 4 + boxes_t.numel() * 4 + n + got.numel(),
+        area * 8.0, PEAK_F32)
     print(f"[4c] paste_pack N={n} {h}x{w}: {len(idx)} of {diff.numel()} bits "
           f"differ, all threshold ties; none outside boxes or in "
-          f"{int((~valid).sum())} invalid rows; kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms", flush=True)
-    return len(idx), ms, plain_ms
+          f"{int((~valid).sum())} invalid rows; kernel {ms:.4f} ms (bound "
+          f"{bound_ms:.4f} by {bound_by}), plain {plain_ms:.4f} ms",
+          flush=True)
+    return len(idx), ms, plain_ms, bound_ms, bound_by
+
+
+def group_roi_phase(kernels, k1_box_us):
+    """Phase 4e: K5, the grouped-RoIAlign gate study, against its plain
+    version at the gate's size (2,500 groups of 4 boxes): float32 and
+    bf16-cast patches, [128, 40, 256] and [128, 10240], within 1e-5 of
+    the output's range. Its time per box beside K1's at P=7 answers the
+    gate's question on this card."""
+    from maskrcnn_tpu_torch.ops import group_roi as gr
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    n = gr.N_GROUPS
+    boxes = gr.K * n
+    worst, out = 0.0, None
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((128, 40, 256), (128, 40 * 256)):
+            patches = torch.randn(*shape, generator=gen,
+                                  device=DEVICE).to(dtype)
+            got = kernels.group_roi(patches, n)
+            want = gr.group_roi_plain(patches, n)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            check(err <= 1e-5 * scale, f"group_roi {dtype} {shape}: err "
+                  f"{err} of {scale}")
+            worst = max(worst, err)
+            ms = cuda_ms(lambda: kernels.group_roi(patches, n), iters=5)
+            plain_ms = cuda_ms(lambda: gr.group_roi_plain(patches, n),
+                               iters=1, warmup=1)
+            ops = n * (2.0 * 28 * 128 * 40 * 256 + 2.0 * 4 * 49 * 40 * 256)
+            bound_ms, bound_by = bound(
+                patches.numel() * patches.element_size() + got.numel() * 4,
+                ops, PEAK_F32)
+            print(f"[4e] group_roi {str(dtype)[6:]} {list(shape)} "
+                  f"{n} groups: max_abs_err {err:.3g} (max |want| "
+                  f"{scale:.3g}); kernel {ms:.4f} ms = "
+                  f"{ms * 1e3 / boxes:.4f} us/box (bound {bound_ms:.4f} ms "
+                  f"by {bound_by}, {bound_ms * 1e3 / boxes:.4f} us/box, "
+                  f"{bound_ms / ms:.1%} of it), plain {plain_ms:.4f} ms; "
+                  f"K1 bf16 P=7 launch {k1_box_us:.4f} us/box", flush=True)
+            if out is None:
+                out = (ms, plain_ms, bound_ms, bound_by)
+    return worst, out
 
 
 def slice_config():
@@ -462,7 +610,7 @@ def make_images(rng, shapes):
     return [rng.randint(0, 256, s + (3,), dtype=np.uint8) for s in shapes]
 
 
-KERNELS = ("roi_align", "nms", "bottleneck", "paste_pack")
+KERNELS = ("roi_align", "nms", "bottleneck", "paste_pack", "group_roi")
 
 
 def launch_counts(kernels):
@@ -785,6 +933,8 @@ def profile_phase(det, x, win, out_dir, name="predict_step"):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None)
+    parser.add_argument("--quick", action="store_true",
+                        help="phases 1, 2, 4b and 4e only; no result line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -811,11 +961,18 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s: {kernels.library_path().name}",
           flush=True)
 
+    if args.quick:
+        bottleneck_phase(kernels, bt)
+        group_roi_phase(kernels, float("nan"))
+        return 0
     roi_err, roi_times = roi_align_phase(kernels, roi)
     roi8_err, roi8_times = roi_int8_phase(kernels, roi)
-    nms_ms, nms_plain_ms = nms_phase(kernels, nms)
+    nms_times = nms_phase(kernels, nms)
     k3_err, k3_times = bottleneck_phase(kernels, bt)
-    k4_ties, k4_ms, k4_plain_ms = paste_phase(kernels, mp)
+    k4_ties, *k4_times = paste_phase(kernels, mp)
+    # K1 launch only, bf16 P=7: 8 x 500 boxes
+    k5_err, k5_times = group_roi_phase(
+        kernels, roi_times[(torch.bfloat16, 7)][2] * 1e3 / 4000)
     int8_conv_phase()
 
     cfg = slice_config()
@@ -842,37 +999,45 @@ def main() -> int:
     runs = {k: launches[k] + fold_launches[k] + quant_launches[k]
             for k in launches}
     runs["roi_align"] -= runs["roi_align_int8"]
-    roi_ms, roi_plain_ms = roi_times[(torch.bfloat16, 7)]
-    roi8_ms, roi8_plain_ms, _ = roi8_times[(torch.bfloat16, 7)]
-    # K3 at its most frequent shape, C4 (22 of the 29 blocks)
-    k3_ms, k3_plain_ms, _ = k3_times[(64, 64, 256)]
+    roi_ms, roi_plain_ms, _, roi_bound_ms, roi_by = \
+        roi_times[(torch.bfloat16, 7)]
+    roi8_ms, roi8_plain_ms, _, roi8_bound_ms, roi8_by = \
+        roi8_times[(torch.bfloat16, 7)]
+    # K3 at its most frequent shape, C4 (22 of the 29 blocks); no single
+    # PyTorch call computes the fused block (cuDNN's three convs beside it)
+    k3_ms, k3_plain_ms, k3_cudnn_ms, k3_bound_ms, k3_by = \
+        k3_times[(64, 64, 256)]
+
+    def entry(name, source, replaces, err, times, **extra):
+        ms, plain_ms, bound_ms, bound_by = times
+        return {"name": name, "route": "cuda",
+                "source": f"maskrcnn_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": runs[name],
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None, **extra}
+
     print(json.dumps({"kernels": [
-        {"name": "roi_align", "route": "cuda",
-         "source": "maskrcnn_tpu_torch/csrc/roi_align.cu",
-         "replaces": "maskrcnn_tpu/ops/roi_align_pallas.py:58",
-         "launches": runs["roi_align"],
-         "max_abs_err": max(roi_err, run_err),
-         "ms": roi_ms, "plain_ms": roi_plain_ms},
-        {"name": "roi_align_int8", "route": "cuda",
-         "source": "maskrcnn_tpu_torch/csrc/roi_align.cu",
-         "replaces": "maskrcnn_tpu/ops/roi_align_pallas.py:58",
-         "launches": runs["roi_align_int8"], "max_abs_err": roi8_err,
-         "ms": roi8_ms, "plain_ms": roi8_plain_ms},
-        {"name": "nms", "route": "cuda",
-         "source": "maskrcnn_tpu_torch/csrc/nms.cu",
-         "replaces": "maskrcnn_tpu/ops/nms_pallas.py:35",
-         "launches": runs["nms"], "max_abs_err": 0.0,
-         "ms": nms_ms, "plain_ms": nms_plain_ms},
-        {"name": "bottleneck", "route": "cuda",
-         "source": "maskrcnn_tpu_torch/csrc/bottleneck.cu",
-         "replaces": "maskrcnn_tpu/ops/bottleneck_pallas.py:38",
-         "launches": runs["bottleneck"], "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain_ms},
-        {"name": "paste_pack", "route": "cuda",
-         "source": "maskrcnn_tpu_torch/csrc/paste_pack.cu",
-         "replaces": "benchmarks/gates/paste_pack_kernel.py:60",
-         "launches": runs["paste_pack"], "max_abs_err": float(k4_ties > 0),
-         "ms": k4_ms, "plain_ms": k4_plain_ms}]}), flush=True)
+        entry("roi_align", "roi_align.cu",
+              "maskrcnn_tpu/ops/roi_align_pallas.py:58",
+              max(roi_err, run_err),
+              (roi_ms, roi_plain_ms, roi_bound_ms, roi_by)),
+        entry("roi_align_int8", "roi_align.cu",
+              "maskrcnn_tpu/ops/roi_align_pallas.py:58", roi8_err,
+              (roi8_ms, roi8_plain_ms, roi8_bound_ms, roi8_by)),
+        entry("nms", "nms.cu", "maskrcnn_tpu/ops/nms_pallas.py:35", 0.0,
+              nms_times),
+        entry("bottleneck", "bottleneck.cu",
+              "maskrcnn_tpu/ops/bottleneck_pallas.py:38", k3_err,
+              (k3_ms, k3_plain_ms, k3_bound_ms, k3_by),
+              cudnn_block_ms=k3_cudnn_ms),
+        entry("paste_pack", "paste_pack.cu",
+              "benchmarks/gates/paste_pack_kernel.py:60",
+              float(k4_ties > 0), k4_times),
+        # a study on no path: no launch on the main path by design
+        entry("group_roi", "group_roi.cu",
+              "benchmarks/gates/group_roi_gate.py:29", k5_err, k5_times,
+              on_path=False)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

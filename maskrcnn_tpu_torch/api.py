@@ -18,11 +18,12 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from maskrcnn_tpu.config import Config
+from maskrcnn_tpu_torch.config import Config
 from maskrcnn_tpu_torch import quant
 from maskrcnn_tpu_torch.checkpoint.convert import load_jax_params
+from maskrcnn_tpu_torch.data.codecs import resize_image
 from maskrcnn_tpu_torch.detection.pipeline import predict_step
-from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
+from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN, resolve_device
 from maskrcnn_tpu_torch.ops import device_tensor
 from maskrcnn_tpu_torch.ops.bits import pack_masks_device, unpack_masks
 from maskrcnn_tpu_torch.ops.mask_paste import masks_to_original
@@ -72,12 +73,13 @@ def decode_boxes(boxes: np.ndarray, scale: float, window) -> np.ndarray:
 class Detector:
     """Stateful wrapper around `predict_step` on one device."""
 
-    def __init__(self, config: Config, device="cpu",
+    def __init__(self, config: Config, device=None,
                  generator: torch.Generator = None, calib_images=None,
                  calib_stats_path=None):
         """Random reference-init weights drawn from `generator` (a CPU
         generator; seed 0 when omitted). Load real weights afterwards
-        with `load_jax_params`.
+        with `load_jax_params`. `device` defaults to the card ("cuda");
+        without one it raises, unless given device="cpu".
 
         Config.FOLD_BN (as maskrcnn_tpu.api.Detector) folds the frozen BN
         into the convs: the seeded float32 weights are folded before the
@@ -93,7 +95,7 @@ class Detector:
         and key, so either package reads the other's stats and a hit
         skips calibration; a miss calibrates and merges into the file."""
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.model = MaskRCNN(config, self.device).init(generator)
@@ -143,7 +145,7 @@ class Detector:
     def _preprocess(self, images: Sequence[np.ndarray]):
         """Images -> (uint8 canvases [B, CH, CW, 3], windows, scales).
         Images at scale 1 are copied into the canvas; others go through
-        the PIL resample of data/codecs, imported only then."""
+        data.codecs.resize_image (PIL, imported only then)."""
         cfg = self.config
         ch, cw = int(cfg.IMAGE_SHAPE[0]), int(cfg.IMAGE_SHAPE[1])
         batch = np.zeros((len(images), ch, cw, 3), np.uint8)
@@ -152,7 +154,6 @@ class Detector:
             window, scale = self._canvas_geometry(
                 img.shape[0], img.shape[1], cfg.IMAGE_MIN_DIM, ch, cw)
             if scale != 1.0:
-                from maskrcnn_tpu.data.codecs import resize_image
                 batch[i] = resize_image(img, cfg.IMAGE_MIN_DIM,
                                         cfg.IMAGE_MAX_DIM,
                                         canvas_shape=(ch, cw))[0]

@@ -26,7 +26,7 @@ from typing import Dict, NamedTuple, Sequence
 
 import torch
 
-from maskrcnn_tpu.config import Config
+from maskrcnn_tpu_torch.config import Config
 from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
 from maskrcnn_tpu_torch.ops import boxes as box_ops
 from maskrcnn_tpu_torch.ops import device_tensor

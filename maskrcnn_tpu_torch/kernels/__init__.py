@@ -6,6 +6,8 @@
     bottleneck.cu  fused identity bottleneck   (Pallas ops/bottleneck_pallas.py)
     paste_pack.cu  mask paste + threshold +    (Pallas benchmarks/gates/
                    valid + bit-pack             paste_pack_kernel.py)
+    group_roi.cu   grouped RoIAlign skeleton,  (Pallas benchmarks/gates/
+                   a cost study on no path      group_roi_gate.py)
 
 The sources are compiled by `nvcc` on first use, one process a source,
 all started together, and linked into one shared library with a plain C
@@ -43,7 +45,8 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("roi_align.cu", "nms.cu", "bottleneck.cu", "paste_pack.cu")
+SOURCES = ("roi_align.cu", "nms.cu", "bottleneck.cu", "paste_pack.cu",
+           "group_roi.cu")
 BUILD_DIR = _PKG.parent / "build" / "maskrcnn_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-fmad=false", "-Xcompiler", "-fPIC")
@@ -105,7 +108,8 @@ def build() -> Path:
                 text=True)))
         _run(compiles)
         lib = os.path.join(tmp, out.name)
-        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", lib, *objs]
+        # -ldl: bottleneck.cu finds cuTensorMapEncodeTiled with dlsym
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", lib, *objs, "-ldl"]
         _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.PIPE, text=True))])
         os.replace(lib, out)
@@ -125,8 +129,12 @@ def library() -> ctypes.CDLL:
     lib.mrt_nms.restype = _I
     lib.mrt_bottleneck.argtypes = [_P] * 8 + [_I] * 6 + [_P]
     lib.mrt_bottleneck.restype = _I
+    lib.mrt_bottleneck_plan.argtypes = [_I] + [ctypes.POINTER(_I)] * 4
+    lib.mrt_bottleneck_plan.restype = _I
     lib.mrt_paste_pack.argtypes = [_P] * 4 + [_I] * 4 + [_P]
     lib.mrt_paste_pack.restype = _I
+    lib.mrt_group_roi.argtypes = [_P, _I, _I, _P, _P]
+    lib.mrt_group_roi.restype = _I
     lib.mrt_error_string.argtypes = [_I]
     lib.mrt_error_string.restype = ctypes.c_char_p
     return lib
@@ -268,9 +276,11 @@ def bottleneck(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     """Fused identity bottleneck kernel (csrc/bottleneck.cu).
 
     x [B, H, W, C] contiguous NHWC CUDA tensor, float32 or bfloat16 (any
-    H, W; bf16 needs C and P multiples of 64); w1 [C, P], w2 [9, P, P],
-    w3 [P, C] contiguous in x's dtype; b1/b2 [P], b3 [C] float32 (as
-    ops.bottleneck.pack_weights makes them). Returns y like x."""
+    H, W; bf16 needs P a multiple of 64 up to 256, or 384 or 512, the
+    tiles that fit shared memory; others fail at the launch); w1
+    [P, C], w2 [P, 9, P], w3 [C, P] contiguous in x's dtype; b1/b2 [P],
+    b3 [C] float32 (as ops.bottleneck.pack_weights makes them). Returns y
+    like x."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"bottleneck: unsupported dtype {x.dtype}")
     if (not x.is_cuda or x.dim() != 4 or not x.is_contiguous()
@@ -278,21 +288,25 @@ def bottleneck(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         raise ValueError("bottleneck: x must be a contiguous, 16-byte "
                          "aligned NHWC CUDA tensor")
     b, h, w, c = x.shape
-    p = w1.shape[-1]
+    p = w1.shape[0]
     if c != 4 * p:
         raise ValueError(f"bottleneck: C={c} is not 4P (P={p})")
-    shapes = ((w1, (c, p), x.dtype), (b1, (p,), torch.float32),
-              (w2, (9, p, p), x.dtype), (b2, (p,), torch.float32),
-              (w3, (p, c), x.dtype), (b3, (c,), torch.float32))
+    shapes = ((w1, (p, c), x.dtype), (b1, (p,), torch.float32),
+              (w2, (p, 9, p), x.dtype), (b2, (p,), torch.float32),
+              (w3, (c, p), x.dtype), (b3, (c,), torch.float32))
     for t, shape, dtype in shapes:
         if (tuple(t.shape) != shape or t.dtype != dtype
                 or t.device != x.device or not t.is_contiguous()):
             raise ValueError("bottleneck: weights must be contiguous w1 "
-                             "[C, P], w2 [9, P, P], w3 [P, C] in x's dtype "
+                             "[P, C], w2 [P, 9, P], w3 [C, P] in x's dtype "
                              "and float32 biases on x's device")
-    if x.dtype == torch.bfloat16 and (c % 64 or p % 64):
-        raise ValueError(f"bottleneck: bf16 needs C and P multiples of 64, "
-                         f"got C={c} P={p}")
+    if x.dtype == torch.bfloat16 and p % 64:
+        raise ValueError(f"bottleneck: bf16 needs P a multiple of 64, got "
+                         f"P={p}")
+    if x.dtype == torch.float32:
+        # the float32 kernel (parity only) reads version 3's layout
+        w1, w2, w3 = (w1.t().contiguous(), w2.permute(1, 2, 0).contiguous(),
+                      w3.t().contiguous())
     y = torch.empty_like(x)
     lib = library()
     with torch.cuda.device(x.device):
@@ -306,6 +320,15 @@ def bottleneck(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
 
 bottleneck.launches = 0
+
+
+def bottleneck_plan(p: int):
+    """The bf16 kernel's tile for P, from the library: (tile height,
+    stage 1/2 weight slice width, ring depth, shared memory bytes)."""
+    out = [_I() for _ in range(4)]
+    if library().mrt_bottleneck_plan(p, *out):
+        raise ValueError(f"bottleneck: bf16 takes no P={p}")
+    return tuple(v.value for v in out)
 
 # q, the quantised mask, is staged in the kernel's shared memory
 _MAX_MASK_SIDE = 64
@@ -348,3 +371,34 @@ def paste_pack(masks: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor,
 
 
 paste_pack.launches = 0
+
+
+def group_roi(patches: torch.Tensor, n_groups: int) -> torch.Tensor:
+    """Grouped RoIAlign skeleton kernel (csrc/group_roi.cu), the gate
+    study of ops.group_roi.
+
+    patches [128, 40, 256] or [128, 10240] contiguous CUDA tensor,
+    float32 or bfloat16; n_groups >= 1. Returns the last group's [4, 7, 7,
+    256] float32 result."""
+    from maskrcnn_tpu_torch.ops.group_roi import CHANNELS, K, POOL
+    if patches.dtype not in _DTYPES:
+        raise TypeError(f"group_roi: unsupported dtype {patches.dtype}")
+    if (not patches.is_cuda or not patches.is_contiguous()
+            or tuple(patches.shape) not in ((128, 40, 256), (128, 10240))):
+        raise ValueError("group_roi: patches must be a contiguous [128, 40, "
+                         "256] or [128, 10240] CUDA tensor")
+    if n_groups < 1:
+        raise ValueError(f"group_roi: n_groups {n_groups} < 1")
+    out = torch.empty((K, POOL, POOL, CHANNELS), dtype=torch.float32,
+                      device=patches.device)
+    lib = library()
+    with torch.cuda.device(patches.device):
+        err = lib.mrt_group_roi(patches.data_ptr(),
+                                _DTYPES[patches.dtype][0], int(n_groups),
+                                out.data_ptr(), _stream(patches.device))
+    _check_launch(lib, "group_roi", err)
+    group_roi.launches += 1
+    return out
+
+
+group_roi.launches = 0

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from maskrcnn_tpu.config import Config
+from maskrcnn_tpu_torch.config import Config
 from maskrcnn_tpu_torch import quant
 from maskrcnn_tpu_torch.checkpoint.fold import fold_state_dict
 from maskrcnn_tpu_torch.models.fpn import FPN
@@ -73,12 +73,27 @@ def check_supported(config: Config) -> None:
                 "maskrcnn_tpu_torch (ROADMAP Queue 1)")
 
 
-class MaskRCNN(nn.Module):
-    """Inference model for a Config on one device."""
+def resolve_device(device=None) -> torch.device:
+    """The entry points' device: the card ("cuda") unless `device` names
+    another. Without a card and no device given, raise: the port never
+    moves to the CPU unasked."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the port runs on the card by default; "
+                'pass device="cpu" to run on the CPU')
+        device = "cuda"
+    return torch.device(device)
 
-    def __init__(self, config: Config, device="cpu"):
+
+class MaskRCNN(nn.Module):
+    """Inference model for a Config on one device (the card unless
+    `device` says otherwise, see `resolve_device`)."""
+
+    def __init__(self, config: Config, device=None):
         super().__init__()
         check_supported(config)
+        device = resolve_device(device)
         self.config = config
         # QUANT_INT8: float32 torch-layout state (numpy) and device state
         self.float_state = None

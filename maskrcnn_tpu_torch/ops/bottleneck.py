@@ -6,9 +6,12 @@ maskrcnn_tpu/ops/bottleneck_pallas.py).
     y  = relu(h2 @ W3 + b3 + x)       1x1 expand    P -> C, residual
 
 NHWC in and out, as in the JAX package. Weights in the layout the kernel
-reads: w1 [C, P], w2 [9, P, P] (tap dy*3+dx, in, out), w3 [P, C], all in
-x's dtype; biases float32. `pack_weights` makes that layout once, when
-the weights are loaded.
+reads, K-major (output channel first, its inputs contiguous), as the
+conv weights [O, I, kh, kw] already are: w1 [P, C], w2 [P, 9, P] (out,
+tap dy*3+dx, in), w3 [C, P], all in x's dtype; biases float32. Each
+weight slice the kernel loads is then one TMA box of 64 inputs by up to
+128 outputs, the operand layout wgmma reads. `pack_weights` makes that
+layout once, when the weights are loaded.
 
 The plain version follows the Pallas kernel's numerics, not the unfused
 module's: each product is accumulated in float32 from the x-dtype
@@ -33,7 +36,7 @@ def pack_weights(conv1_w: torch.Tensor, conv1_b: torch.Tensor,
                  conv3_w: torch.Tensor, conv3_b: torch.Tensor,
                  dtype: torch.dtype, device) -> Weights:
     """Conv2d weights [O, I, kh, kw] and biases of the three folded convs
-    -> (w1 [C, P], b1, w2 [9, P, P], b2, w3 [P, C], b3): weights in
+    -> (w1 [P, C], b1, w2 [P, 9, P], b2, w3 [C, P], b3): weights in
     `dtype`, biases float32, all contiguous on `device`."""
     p, c = conv1_w.shape[:2]
 
@@ -43,10 +46,10 @@ def pack_weights(conv1_w: torch.Tensor, conv1_b: torch.Tensor,
     def bias(b):
         return b.to(device=device, dtype=torch.float32).contiguous()
 
-    return (weight(conv1_w.reshape(p, c).t()), bias(conv1_b),
-            weight(conv2_w.permute(2, 3, 1, 0).reshape(9, p, p)),
+    return (weight(conv1_w.reshape(p, c)), bias(conv1_b),
+            weight(conv2_w.permute(0, 2, 3, 1).reshape(p, 9, p)),
             bias(conv2_b),
-            weight(conv3_w.reshape(c, p).t()), bias(conv3_b))
+            weight(conv3_w.reshape(c, p)), bias(conv3_b))
 
 
 def fused_identity_bottleneck_plain(x: torch.Tensor, w1: torch.Tensor,
@@ -58,17 +61,17 @@ def fused_identity_bottleneck_plain(x: torch.Tensor, w1: torch.Tensor,
     dtype = x.dtype
     _, h, w, _ = x.shape
     xf = x.to(torch.float32)
-    h1 = torch.relu(xf @ w1.to(torch.float32) + b1).to(dtype)
+    h1 = torch.relu(xf @ w1.to(torch.float32).t() + b1).to(dtype)
     # SAME padding of the 3x3: zeros around the image
     h1p = F.pad(h1.to(torch.float32), (0, 0, 1, 1, 1, 1))
     w2f = w2.to(torch.float32)
     acc = None
     for tap in range(9):
         dy, dx = divmod(tap, 3)
-        term = h1p[:, dy:dy + h, dx:dx + w] @ w2f[tap]
+        term = h1p[:, dy:dy + h, dx:dx + w] @ w2f[:, tap].t()
         acc = term if acc is None else acc + term
     h2 = torch.relu(acc + b2).to(dtype)
-    y = h2.to(torch.float32) @ w3.to(torch.float32) + b3 + xf
+    y = h2.to(torch.float32) @ w3.to(torch.float32).t() + b3 + xf
     return torch.relu(y).to(dtype)
 
 

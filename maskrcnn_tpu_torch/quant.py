@@ -35,7 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from maskrcnn_tpu.config import Config
+from maskrcnn_tpu_torch.config import Config
 from maskrcnn_tpu_torch.checkpoint.convert import name_map
 from maskrcnn_tpu_torch.checkpoint.fold import fold_state_dict
 from maskrcnn_tpu_torch.models.fpn import nearest_upsample_2x

@@ -36,12 +36,14 @@ def _case(rng, b, h, w, c, p):
 
 
 def _port(x, weights, dtype):
-    """The plain version on torch tensors: weights in x's dtype, biases
-    float32, w2 as [9, P, P]."""
-    w1, b1, w2, b2, w3, b3 = weights
+    """The plain version on torch tensors, JAX-layout weights repacked
+    K-major as ops.bottleneck.pack_weights does: w1 [P, C], w2 [P, 9, P]
+    (out, tap, in), w3 [C, P] in x's dtype, biases float32."""
+    w1, b1, w2, b2, w3, b3 = (np.asarray(a) for a in weights)
     p = w1.shape[1]
-    t = [torch.tensor(np.asarray(a))
-         for a in (w1, b1, w2.reshape(9, p, p), b2, w3, b3)]
+    t = [torch.tensor(np.ascontiguousarray(a))
+         for a in (w1.T, b1, w2.reshape(9, p, p).transpose(2, 0, 1), b2,
+                   w3.T, b3)]
     t = [a.to(dtype) if i % 2 == 0 else a for i, a in enumerate(t)]
     return port_bn.fused_identity_bottleneck(
         torch.from_numpy(x).to(dtype), *t).to(torch.float32).numpy()

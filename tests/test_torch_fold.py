@@ -14,7 +14,7 @@ from maskrcnn_tpu_torch.checkpoint.convert import from_jax_params
 from maskrcnn_tpu_torch.checkpoint.fold import BN_EPS, fold_state_dict
 from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
 from maskrcnn_tpu_torch.models.resnet import FrozenBatchNorm
-from tests.torch_port import jax_params, torch_model
+from tests.torch_port import jax_params, port_config, torch_model
 
 CFG = TinyConfig()
 FOLD = CFG.replace(FOLD_BN=True)
@@ -61,7 +61,7 @@ def test_fold_bn_is_honoured_when_loading_jax_params():
     conv equals the JAX fold, every BN holds the identity and applies
     nothing, and the identity blocks run the fused op."""
     params = jax_params(CFG)
-    det = Detector(FOLD, "cpu")
+    det = Detector(port_config(FOLD), "cpu")
     det.load_jax_params(params)
     want = from_jax_params(jax_fold(params), CFG.BACKBONE)
     got = det.model.state_dict()
@@ -90,11 +90,12 @@ def test_seeded_init_folds_float32_before_the_cast(dtype):
     not a no-op; in bf16, folding the rounded weights would round twice
     and differ."""
     cfg = CFG.replace(COMPUTE_DTYPE=dtype)
-    draws = MaskRCNN(cfg.replace(COMPUTE_DTYPE="float32")).init(
+    draws = MaskRCNN(port_config(cfg.replace(COMPUTE_DTYPE="float32")),
+                     "cpu").init(
         torch.Generator().manual_seed(4)).state_dict()
     draws = {k: v.numpy() for k, v in draws.items()}
     folded = fold_state_dict(draws, cfg.BACKBONE)
-    model = MaskRCNN(cfg.replace(FOLD_BN=True)).init(
+    model = MaskRCNN(port_config(cfg.replace(FOLD_BN=True)), "cpu").init(
         torch.Generator().manual_seed(4))
     got = model.state_dict()
     key = "fpn.C3.2.conv2.weight"

@@ -38,7 +38,7 @@ def _bottleneck_args(device, dtype=torch.float32, p=16, h=5, w=7):
     c = 4 * p
     x = torch.randn(2, h, w, c, generator=gen)
     ws = [torch.randn(*s, generator=gen) * 0.2
-          for s in ((c, p), (p,), (9, p, p), (p,), (p, c), (c,))]
+          for s in ((p, c), (p,), (p, 9, p), (p,), (c, p), (c,))]
     ws = [t.to(dtype) if i % 2 == 0 else t for i, t in enumerate(ws)]
     return [t.to(device) for t in [x.to(dtype)] + ws]
 
@@ -127,9 +127,10 @@ def test_library_named_by_sources_inside_the_checkout():
     assert path == kernels.library_path()
 
 
-@pytest.mark.parametrize("source", ["bottleneck.cu", "paste_pack.cu"])
+@pytest.mark.parametrize("source", ["bottleneck.cu", "paste_pack.cu",
+                                    "group_roi.cu"])
 def test_library_path_follows_the_new_sources(source, tmp_path, monkeypatch):
-    """Editing either new kernel's source names a new library, so a stale
+    """Editing any of these kernels' sources names a new library, so a stale
     build is never loaded."""
     csrc = tmp_path / "csrc"
     shutil.copytree(kernels.CSRC, csrc)
@@ -139,3 +140,26 @@ def test_library_path_follows_the_new_sources(source, tmp_path, monkeypatch):
         f.write("\n// edited\n")
     assert source in kernels.SOURCES
     assert kernels.library_path() != before
+
+
+def test_bottleneck_plain_takes_the_packed_layout():
+    """pack_weights' K-major layout (w1 [P, C], w2 [P, 9, P], w3 [C, P])
+    in the plain version gives the folded block of three float32 convs."""
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(1)
+    p, c = 16, 64
+    convs = [torch.randn(*s, generator=gen) / s[1] ** 0.5
+             for s in ((p, c, 1, 1), (p, p, 3, 3), (c, p, 1, 1))]
+    biases = [torch.randn(n, generator=gen) for n in (p, p, c)]
+    x = torch.randn(2, 5, 7, c, generator=gen)
+    packed = port_bn.pack_weights(convs[0], biases[0], convs[1], biases[1],
+                                  convs[2], biases[2], torch.float32, "cpu")
+    assert [tuple(t.shape) for t in packed[::2]] == [(p, c), (p, 9, p),
+                                                      (c, p)]
+    got = port_bn.fused_identity_bottleneck_plain(x, *packed)
+    xc = x.permute(0, 3, 1, 2)
+    h = F.relu(F.conv2d(xc, convs[0], biases[0]))
+    h = F.relu(F.conv2d(h, convs[1], biases[1], padding=1))
+    want = F.relu(F.conv2d(h, convs[2], biases[2]) + xc).permute(0, 2, 3, 1)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+

@@ -10,7 +10,7 @@ import torch
 
 from maskrcnn_tpu.config import TinyConfig
 from maskrcnn_tpu.models.mask_rcnn import MaskRCNN as JaxMaskRCNN
-from tests.torch_port import jax_params, torch_model
+from tests.torch_port import jax_params, port_config, torch_model
 
 
 @pytest.fixture(scope="module")
@@ -79,8 +79,10 @@ def test_init_is_seeded_and_reference_shaped():
     N(0, 0.01) linears, zero biases, identity BN."""
     from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
     cfg = TinyConfig()
-    a = MaskRCNN(cfg).init(torch.Generator().manual_seed(3))
-    b = MaskRCNN(cfg).init(torch.Generator().manual_seed(3))
+    a = MaskRCNN(port_config(cfg), "cpu").init(
+        torch.Generator().manual_seed(3))
+    b = MaskRCNN(port_config(cfg), "cpu").init(
+        torch.Generator().manual_seed(3))
     for (k, va), vb in zip(a.state_dict().items(), b.state_dict().values()):
         assert torch.equal(va, vb), k
     w = a.fpn.C2[0].conv2.weight

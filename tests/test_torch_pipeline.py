@@ -22,9 +22,10 @@ from maskrcnn_tpu_torch.api import Detector
 from maskrcnn_tpu_torch.checkpoint.convert import load_jax_params
 from maskrcnn_tpu_torch.detection import pipeline as port_pipe
 from maskrcnn_tpu_torch.ops import mask_paste as port_paste
-from tests.torch_port import jax_params, torch_model
+from tests.torch_port import jax_params, port_config, torch_model
 
 CFG = TinyConfig().replace(DETECTION_MIN_CONFIDENCE=0.0)
+PCFG = port_config(CFG)
 
 
 def _t(x):
@@ -49,7 +50,7 @@ def test_rpn_refine_scores_matches_jax(tied):
         scores = np.round(scores * 2) / 2
     deltas = (rng.randn(2, a, 4) * 0.3).astype(np.float32)
     want_p, want_v = _jax_rpn(CFG, anchors, scores, deltas)
-    got_p, got_v = port_pipe.rpn_refine_scores(CFG, _t(anchors), _t(scores),
+    got_p, got_v = port_pipe.rpn_refine_scores(PCFG, _t(anchors), _t(scores),
                                                _t(deltas))
     np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
     np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), rtol=1e-6,
@@ -63,7 +64,7 @@ def test_rpn_candidates_tie_order():
     a = anchors.shape[0]
     k = CFG.PRE_NMS_LIMIT
     h, w = CFG.IMAGE_SHAPE[:2]
-    got = port_pipe.rpn_candidates(CFG, anchors, torch.ones(1, a),
+    got = port_pipe.rpn_candidates(PCFG, anchors, torch.ones(1, a),
                                    torch.zeros(1, a, 4))[0]
     want = box_ops.clip_boxes(box_ops.refine_boxes(anchors[:k],
                                                    torch.zeros(k, 4)),
@@ -87,7 +88,7 @@ def test_mrn_refine_matches_jax():
     want = jax.vmap(lambda p, v, pr, d, wi: jax_pipe.mrn_refine(
         CFG, p, v, pr, d, wi))(*map(jnp.asarray, (proposals, valid, probs,
                                                   deltas, windows)))
-    got = port_pipe.mrn_refine(CFG, _t(proposals), _t(valid), _t(probs),
+    got = port_pipe.mrn_refine(PCFG, _t(proposals), _t(valid), _t(probs),
                                _t(deltas), _t(windows))
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
     np.testing.assert_array_equal(got.class_ids.numpy(),
@@ -257,7 +258,7 @@ def test_detector_detect_batch_matches_jax(weights):
     images = [rng.randint(0, 256, (128, 128, 3), np.uint8),
               rng.randint(0, 256, (96, 128, 3), np.uint8),
               rng.randint(0, 256, (64, 48, 3), np.uint8)]
-    det = Detector(CFG, "cpu")
+    det = Detector(PCFG, "cpu")
     load_jax_params(det.model, params)
     got = det.detect_batch(images)
     want = JaxDetector(CFG, params=params).detect_batch(images)

@@ -15,7 +15,7 @@ from maskrcnn_tpu.models.mask_rcnn import MaskRCNN as JaxMaskRCNN
 from maskrcnn_tpu_torch.api import Detector
 from maskrcnn_tpu_torch.detection import pipeline as port_pipe
 from tests.test_torch_pipeline import CFG, _images, _match
-from tests.torch_port import jax_params, torch_model
+from tests.torch_port import jax_params, port_config, torch_model
 
 FOLD = CFG.replace(FOLD_BN=True)
 
@@ -58,7 +58,7 @@ def test_folded_detector_matches_jax(params):
     images = [rng.randint(0, 256, (128, 128, 3), np.uint8),
               rng.randint(0, 256, (96, 128, 3), np.uint8),
               rng.randint(0, 256, (64, 48, 3), np.uint8)]
-    det = Detector(FOLD, "cpu")
+    det = Detector(port_config(FOLD), "cpu")
     det.load_jax_params(params)
     got = det.detect_batch(images)
     want = JaxDetector(FOLD, params=params).detect_batch(images)

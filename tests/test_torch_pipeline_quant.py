@@ -31,7 +31,7 @@ from maskrcnn_tpu_torch.detection import pipeline as port_pipe
 from maskrcnn_tpu_torch.models.mask_rcnn import UNPORTED
 from maskrcnn_tpu_torch.ops import int8_conv as ic
 from tests.test_torch_pipeline import CFG, _images, _match
-from tests.torch_port import jax_params, torch_model
+from tests.torch_port import jax_params, port_config, torch_model
 
 QCFG = CFG.replace(QUANT_INT8=True, QUANT_CALIB="amax")
 PORT = QCFG.replace(QUANT_INT8_ROI=False)
@@ -95,7 +95,7 @@ def test_quant_detector_reads_jax_stats(setup, tmp_path, monkeypatch):
         raise AssertionError("the stats file was not used")
 
     monkeypatch.setattr(pq, "calibrate", no_calibration)
-    det = Detector(PORT, "cpu", calib_images=calib, calib_stats_path=path)
+    det = Detector(port_config(PORT), "cpu", calib_images=calib, calib_stats_path=path)
     det.load_jax_params(params)
     det.prepare()
     acts = {k: np.float32(s.value) for k, s in det.model.quant["acts"].items()}
@@ -142,7 +142,7 @@ def test_int8_detector_runs_the_int8_path(monkeypatch):
         return plain(*args, **kwargs)
 
     monkeypatch.setattr(ic, "int8_conv_plain", counted)
-    det = Detector(QCFG, "cpu")
+    det = Detector(port_config(QCFG), "cpu")
     assert det.model.quant is None
     images = [np.random.RandomState(11).randint(0, 256, (128, 128, 3),
                                                 np.uint8)]
@@ -164,4 +164,4 @@ def test_unported_option_raises(field):
     raises, naming its field, instead of running the default."""
     cfg = CFG.replace(**{field: SET[field]})
     with pytest.raises(NotImplementedError, match=field):
-        Detector(cfg, "cpu")
+        Detector(port_config(cfg), "cpu")

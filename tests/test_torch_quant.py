@@ -25,7 +25,7 @@ from maskrcnn_tpu_torch.checkpoint.convert import (from_jax_params,
 from maskrcnn_tpu_torch.ops import int8_conv as ic
 from maskrcnn_tpu_torch.ops.image import normalize_image
 from tests.test_torch_pipeline import CFG
-from tests.torch_port import jax_params, torch_model
+from tests.torch_port import jax_params, port_config, torch_model
 
 QCFG = CFG.replace(QUANT_INT8=True, QUANT_CALIB="amax")
 SKIPS = [(), ("C4", "C5"), ("RPN",), ("MASK",)]
@@ -95,6 +95,15 @@ def test_canvases_and_stats_key_equal(setup):
                                       jq.default_calib_canvases(shape, n))
     assert pq.params_fingerprint(from_jax_params(params, QCFG.BACKBONE)) == \
         jq.params_fingerprint(params)
+    # the port's own config keys the stats file as the JAX Detector does
+    # (maskrcnn_tpu/api.py:143-146)
+    state = from_jax_params(params, QCFG.BACKBONE)
+    for cfg in (QCFG, QCFG.replace(QUANT_CALIB="percentile",
+                                   QUANT_PERCENTILE=99.5)):
+        want = (jq.params_fingerprint(params) + f"|{cfg.QUANT_CALIB}"
+                + (f":{cfg.QUANT_PERCENTILE}"
+                   if cfg.QUANT_CALIB == "percentile" else ""))
+        assert pq.stats_key(port_config(cfg), state) == want
 
 
 @pytest.mark.parametrize("skip", SKIPS, ids=lambda s: "-".join(s) or "none")

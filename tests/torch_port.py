@@ -2,17 +2,30 @@
 
 Weights are made once, by the JAX package, and loaded into the port
 through `checkpoint.convert.load_jax_params`; inputs are made with numpy
-from a seed and handed to both sides as arrays.
+from a seed and handed to both sides as arrays. The JAX side gets the JAX
+package's config classes and the port its own (`port_config` mirrors one
+into the port's field by field).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import jax
 import numpy as np
 
 from maskrcnn_tpu.models.mask_rcnn import MaskRCNN as JaxMaskRCNN
+from maskrcnn_tpu_torch import config as port_config_module
 from maskrcnn_tpu_torch.checkpoint.convert import load_jax_params
 from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
+
+
+def port_config(config):
+    """A JAX package config as the port's config class of the same name,
+    with the same fields."""
+    cls = getattr(port_config_module, type(config).__name__)
+    return cls(**{f.name: getattr(config, f.name)
+                  for f in dataclasses.fields(config)})
 
 
 def jax_params(config, seed: int = 7):
@@ -32,8 +45,9 @@ def jax_params(config, seed: int = 7):
 
 
 def torch_model(config, params) -> MaskRCNN:
-    """The port's model on the CPU with the JAX weights loaded."""
-    model = MaskRCNN(config, "cpu")
+    """The port's model on the CPU with the JAX weights loaded (`config`
+    may be either package's; the port gets its own class)."""
+    model = MaskRCNN(port_config(config), "cpu")
     load_jax_params(model, params)
     return model
 
