@@ -4,8 +4,6 @@
     python3 chip_smoke.py                 # from the repository root
     python3 chip_smoke.py --profile DIR   # also write a torch.profiler
                                           # table of one B=8 predict_step
-    python3 chip_smoke.py --quick         # phases 1, 2, 4b and 4e only,
-                                          # no result line
 
 Phases, each printing one line:
  1. the card (nvidia-smi name and power limit, torch's device name);
@@ -19,10 +17,11 @@ Phases, each printing one line:
  4. NMS kernel vs its plain version: N=500 at 0.7, class-offset boxes at
     0.3, with invalid rows; keep masks must be identical;
  4b. fused identity bottleneck kernel vs its plain version at the four
-    identity-block shapes of ResNet-101 at B=8 on the 1024² canvas and at
-    odd small sizes, float32 and bfloat16; the bf16 tile plan, and times
-    beside the bound, the share of the bound reached, the plain version,
-    the same folded block as cuDNN bf16 convs and version 3's time;
+    identity-block shapes of ResNet-101 at B=8 on the 1024² canvas, float32
+    and bfloat16, and at odd small sizes (bf16 at every P of the four, so
+    every bf16 tile has partial tiles); bf16 times beside the bound, the
+    share of the bound reached, the plain version, the same folded block
+    as cuDNN bf16 convs and version 3's time;
  4c. paste-and-pack kernel vs its plain version: 400 detections on the
     1024² canvas with edge boxes and invalid rows; bits identical except
     threshold ties, zero outside the boxes and in invalid rows;
@@ -434,16 +433,19 @@ def k3_bound(b, h, w, p):
 
 def bottleneck_phase(kernels, bt):
     """Phase 4b: K3 against the plain version, float32 (TF32 off) and
-    bfloat16, at the slice's block shapes and at odd small sizes. At B=8
-    in bf16: the kernel's tile plan, its time beside its bound and the
-    share of the bound reached, cuDNN's folded block and version 3's
-    time."""
+    bfloat16, at the slice's block shapes and at odd small sizes: in bf16
+    at each P of the four, whose tiles differ (8x16 with 64- or 128-column
+    slices, 4x16 with the columns split at P=512), H and W that leave
+    partial tiles. At B=8 in bf16: its time beside its bound and the share
+    of the bound reached, cuDNN's folded block and version 3's time."""
     gen = torch.Generator(device=DEVICE).manual_seed(4)
     worst, times = 0.0, {}
     cases = [(8, h, w, p, dt) for h, w, p in BLOCK_SHAPES
              for dt in (torch.float32, torch.bfloat16)]
     cases += [(2, 4, 4, 16, torch.float32), (2, 25, 37, 16, torch.float32),
-              (2, 25, 37, 64, torch.bfloat16), (3, 4, 4, 64, torch.bfloat16)]
+              (3, 4, 4, 64, torch.bfloat16)]
+    cases += [(2, h, w, p, torch.bfloat16) for _, _, p in BLOCK_SHAPES
+              for h, w in ((25, 37), (5, 3))]
     for b, h, w, p, dtype in cases:
         c = 4 * p
         x = torch.randn(b, h, w, c, generator=gen, device=DEVICE).to(dtype)
@@ -474,15 +476,11 @@ def bottleneck_phase(kernels, bt):
             if dtype == torch.bfloat16:
                 cudnn_ms = cuda_ms(cudnn_block(x, *weights), iters=10)
                 bound_ms, bound_by = k3_bound(b, h, w, p)
-                th, ns, stages, smem = kernels.bottleneck_plan(p)
-                ctas = -(-w // 16) * -(-h // th) * b
                 v3 = K3_V3_MS[(h, w, p)]
                 line += (f"; bound {bound_ms:.4f} ms by {bound_by}, "
                          f"{bound_ms / ms:.1%} of it; cuDNN bf16 block "
                          f"{cudnn_ms:.4f} ms; v3 {v3} ms (PERF.md), "
-                         f"{v3 / ms:.2f}x; tile {th}x16, slice {ns}, "
-                         f"{stages}-slot ring, {smem} B shared, {ctas} "
-                         f"CTAs")
+                         f"{v3 / ms:.2f}x")
                 times[(h, w, p)] = (ms, plain_ms, cudnn_ms, bound_ms,
                                     bound_by)
         print(f"[4b] bottleneck {name}: {line}", flush=True)
@@ -551,7 +549,7 @@ def paste_phase(kernels, mp, n=400, h=1024, w=1024):
     return len(idx), ms, plain_ms, bound_ms, bound_by
 
 
-def group_roi_phase(kernels, k1_box_us):
+def group_roi_phase(k1_box_us):
     """Phase 4e: K5, the grouped-RoIAlign gate study, against its plain
     version at the gate's size (2,500 groups of 4 boxes): float32 and
     bf16-cast patches, [128, 40, 256] and [128, 10240], within 1e-5 of
@@ -566,7 +564,7 @@ def group_roi_phase(kernels, k1_box_us):
         for shape in ((128, 40, 256), (128, 40 * 256)):
             patches = torch.randn(*shape, generator=gen,
                                   device=DEVICE).to(dtype)
-            got = kernels.group_roi(patches, n)
+            got = gr.group_roi(patches, n)
             want = gr.group_roi_plain(patches, n)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
@@ -574,7 +572,7 @@ def group_roi_phase(kernels, k1_box_us):
             check(err <= 1e-5 * scale, f"group_roi {dtype} {shape}: err "
                   f"{err} of {scale}")
             worst = max(worst, err)
-            ms = cuda_ms(lambda: kernels.group_roi(patches, n), iters=5)
+            ms = cuda_ms(lambda: gr.group_roi(patches, n), iters=5)
             plain_ms = cuda_ms(lambda: gr.group_roi_plain(patches, n),
                                iters=1, warmup=1)
             ops = n * (2.0 * 28 * 128 * 40 * 256 + 2.0 * 4 * 49 * 40 * 256)
@@ -933,8 +931,6 @@ def profile_phase(det, x, win, out_dir, name="predict_step"):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None)
-    parser.add_argument("--quick", action="store_true",
-                        help="phases 1, 2, 4b and 4e only; no result line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -961,10 +957,6 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s: {kernels.library_path().name}",
           flush=True)
 
-    if args.quick:
-        bottleneck_phase(kernels, bt)
-        group_roi_phase(kernels, float("nan"))
-        return 0
     roi_err, roi_times = roi_align_phase(kernels, roi)
     roi8_err, roi8_times = roi_int8_phase(kernels, roi)
     nms_times = nms_phase(kernels, nms)
@@ -972,7 +964,7 @@ def main() -> int:
     k4_ties, *k4_times = paste_phase(kernels, mp)
     # K1 launch only, bf16 P=7: 8 x 500 boxes
     k5_err, k5_times = group_roi_phase(
-        kernels, roi_times[(torch.bfloat16, 7)][2] * 1e3 / 4000)
+        roi_times[(torch.bfloat16, 7)][2] * 1e3 / 4000)
     int8_conv_phase()
 
     cfg = slice_config()

@@ -577,10 +577,9 @@ bottleneck_bf16(const __grid_constant__ CUtensorMap x_map,
 }
 
 // ---------------------------------------------------------------------------
-// The float32 kernel (parity checks only): version 3, unchanged. It reads
-// the weights in version 3's layout, w1 [C, P], w2 [9, P, P] (tap, in,
-// out), w3 [P, C], so that consecutive threads (consecutive outputs) read
-// consecutive weights; the wrapper transposes the packed ones for it.
+// The float32 kernel (parity checks only): version 3's scalar loops over
+// the packed K-major weights, one output channel a thread, its inputs
+// summed in order.
 
 constexpr int kThreadsF = 256;
 constexpr int kPairSmem = 113 * 1024;  // two CTAs an SM
@@ -612,7 +611,7 @@ bottleneck_f32(const float* __restrict__ x, const float* __restrict__ w1,
     if (inside(gy, gx, height, width)) {
       const float* xp = x + (img + static_cast<size_t>(gy) * width + gx) * channels;
       float acc = 0.0f;
-      for (int k = 0; k < channels; ++k) acc += xp[k] * w1[static_cast<size_t>(k) * planes + n];
+      for (int k = 0; k < channels; ++k) acc += xp[k] * w1[static_cast<size_t>(n) * channels + k];
       v = fmaxf(acc + b1[n], 0.0f);
     }
     h1[i] = v;
@@ -626,8 +625,8 @@ bottleneck_f32(const float* __restrict__ x, const float* __restrict__ w1,
     float acc = 0.0f;
     for (int tap = 0; tap < 9; ++tap) {
       const float* hp = h1 + ((py + tap / 3) * kHaloW + px + tap % 3) * planes;
-      const float* wp = w2 + static_cast<size_t>(tap) * planes * planes + n;
-      for (int k = 0; k < planes; ++k) acc += hp[k] * wp[static_cast<size_t>(k) * planes];
+      const float* wp = w2 + (static_cast<size_t>(n) * 9 + tap) * planes;
+      for (int k = 0; k < planes; ++k) acc += hp[k] * wp[k];
     }
     h2[i] = fmaxf(acc + b2[n], 0.0f);
   }
@@ -640,7 +639,7 @@ bottleneck_f32(const float* __restrict__ x, const float* __restrict__ w1,
     if (!inside(gy, gx, height, width)) continue;
     const float* hp = h2 + p * planes;
     float acc = 0.0f;
-    for (int k = 0; k < planes; ++k) acc += hp[k] * w3[static_cast<size_t>(k) * channels + n];
+    for (int k = 0; k < planes; ++k) acc += hp[k] * w3[static_cast<size_t>(n) * planes + k];
     const size_t at = (img + static_cast<size_t>(gy) * width + gx) * channels + n;
     y[at] = fmaxf((acc + b3[n]) + x[at], 0.0f);
   }
@@ -757,11 +756,10 @@ cudaError_t launch_bf16(const bf16* x, const bf16* w1, const float* b1, const bf
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. x/y [B, H, W, C] NHWC; biases
-// float32; weights in x's dtype: for bf16 K-major, w1 [P, C], w2 [P, 9,
-// P] (out, tap dy*3+dx, in), w3 [C, P]; for float32 version 3's layout,
-// w1 [C, P], w2 [9, P, P] (tap, in, out), w3 [P, C]. bf16 needs C = 4P,
-// P a multiple of 64 up to 256, or 384 or 512, and 16-byte aligned
-// tensors. Returns the CUDA error of the launch (0 on success).
+// float32; weights K-major in x's dtype, w1 [P, C], w2 [P, 9, P] (out,
+// tap dy*3+dx, in), w3 [C, P]. bf16 needs C = 4P, P a multiple of 64 up
+// to 256, or 384 or 512, and 16-byte aligned tensors. Returns the CUDA
+// error of the launch (0 on success).
 int mrt_bottleneck(const void* x, const void* w1, const float* b1, const void* w2,
                    const float* b2, const void* w3, const float* b3, void* y, int batch,
                    int height, int width, int channels, int planes, int dtype, void* stream) {
@@ -799,15 +797,6 @@ int mrt_bottleneck(const void* x, const void* w1, const float* b1, const void* w
       static_cast<const float*>(w2), b2, static_cast<const float*>(w3), b3,
       static_cast<float*>(y), height, width, channels, planes, th);
   return static_cast<int>(cudaGetLastError());
-}
-
-// The bf16 tile mrt_bottleneck launches for `planes` (at C = 4P): writes
-// the tile height, the stage 1/2 slice width, the ring depth and the
-// shared memory bytes, and returns 0; returns 1 when bf16 takes no such P.
-int mrt_bottleneck_plan(int planes, int* th, int* slice, int* stages, int* smem) {
-  if (!choose_tile(planes, th, slice, stages)) return 1;
-  *smem = make_plan(*th, planes, *stages).total + 1024;
-  return 0;
 }
 
 }  // extern "C"

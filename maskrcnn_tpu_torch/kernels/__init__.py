@@ -129,8 +129,6 @@ def library() -> ctypes.CDLL:
     lib.mrt_nms.restype = _I
     lib.mrt_bottleneck.argtypes = [_P] * 8 + [_I] * 6 + [_P]
     lib.mrt_bottleneck.restype = _I
-    lib.mrt_bottleneck_plan.argtypes = [_I] + [ctypes.POINTER(_I)] * 4
-    lib.mrt_bottleneck_plan.restype = _I
     lib.mrt_paste_pack.argtypes = [_P] * 4 + [_I] * 4 + [_P]
     lib.mrt_paste_pack.restype = _I
     lib.mrt_group_roi.argtypes = [_P, _I, _I, _P, _P]
@@ -303,10 +301,6 @@ def bottleneck(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     if x.dtype == torch.bfloat16 and p % 64:
         raise ValueError(f"bottleneck: bf16 needs P a multiple of 64, got "
                          f"P={p}")
-    if x.dtype == torch.float32:
-        # the float32 kernel (parity only) reads version 3's layout
-        w1, w2, w3 = (w1.t().contiguous(), w2.permute(1, 2, 0).contiguous(),
-                      w3.t().contiguous())
     y = torch.empty_like(x)
     lib = library()
     with torch.cuda.device(x.device):
@@ -321,14 +315,6 @@ def bottleneck(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
 bottleneck.launches = 0
 
-
-def bottleneck_plan(p: int):
-    """The bf16 kernel's tile for P, from the library: (tile height,
-    stage 1/2 weight slice width, ring depth, shared memory bytes)."""
-    out = [_I() for _ in range(4)]
-    if library().mrt_bottleneck_plan(p, *out):
-        raise ValueError(f"bottleneck: bf16 takes no P={p}")
-    return tuple(v.value for v in out)
 
 # q, the quantised mask, is staged in the kernel's shared memory
 _MAX_MASK_SIDE = 64
