@@ -8,12 +8,16 @@
 Phases, each printing one line:
  1. the card (nvidia-smi name and power limit, torch's device name);
  2. build the CUDA kernels from maskrcnn_tpu_torch/csrc;
- 3. RoIAlign kernel vs its plain PyTorch version on the card: B=8, levels
-    256/128/64/32, C=256, 500 boxes at P=7 and 50 at P=14 (with the edge
-    boxes), in float32 with TF32 off and in bfloat16;
- 3b. RoIAlign's int8-table mode vs its plain version: int8 levels with
-    four level scales, same shapes, bf16 and f32 out; bit-equal (else at
-    most 1 bf16 ulp, the count printed); times beside the plain version;
+ 3. RoIAlign kernel, fed only boxes, vs its plain PyTorch version with
+    its coordinate prologue on the card: B=8, levels 256/128/64/32,
+    C=256, 500 boxes at P=7 and 50 at P=14 (with the edge boxes), in
+    float32 with TF32 off and in bfloat16 (the count of differing values
+    printed); the op on the card runs no PyTorch op but the output
+    allocation, and launches K1 once; its time at both shapes beside its
+    bound and the plain version's;
+ 3b. RoIAlign's int8-table mode the same way: int8 levels with four
+    level scales, both shapes, bf16 and f32 out; bit-equal (else at most
+    1 bf16 ulp, the count printed);
  4. NMS kernel vs its plain version: N=500 at 0.7, class-offset boxes at
     0.3, with invalid rows; keep masks must be identical;
  4b. fused identity bottleneck kernel vs its plain version at the four
@@ -23,8 +27,9 @@ Phases, each printing one line:
     share of the bound reached, the plain version, the same folded block
     as cuDNN bf16 convs and version 3's time;
  4c. paste-and-pack kernel vs its plain version: 400 detections on the
-    1024² canvas with edge boxes and invalid rows; bits identical except
-    threshold ties, zero outside the boxes and in invalid rows;
+    1024² canvas and 100 on a ragged 1000x997 one, with edge boxes and
+    invalid rows; bits identical except threshold ties, zero outside the
+    boxes, in invalid rows and in the padding bits;
  4e. the grouped-RoIAlign gate study (K5, on no path) vs its plain
     version: 2,500 groups, float32 and bf16-cast patches, 3-D and 2-D
     layouts; microseconds per box beside K1's at P=7;
@@ -51,8 +56,8 @@ Phases, each printing one line:
     then the median of 5 timed calls at B=8 and at B=1, for the default,
     the FOLD_BN and the QUANT_INT8 model (--profile: a table of each);
 then one JSON line of per-kernel numbers (time, launches on the main
-path, error, plain version's time, the bound and what sets it), and,
-last, the result line.
+path, error, plain version's time, the bound and what sets it; K1 at
+P=7 and, in the `_p14` keys, at P=14), and, last, the result line.
 Exits non-zero, printing no result line, without a CUDA device or when
 any check fails. Imports nothing of JAX.
 """
@@ -81,13 +86,24 @@ def card_info() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn over `iters` back-to-back calls."""
+# about 50-70 ms of a spinning kernel at the H100's clocks
+SPIN_CYCLES = 100_000_000
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3,
+            queued: bool = True) -> float:
+    """Mean device time of fn over `iters` back-to-back calls. Queued (the
+    default), the calls are enqueued behind a spinning kernel, so the card
+    runs them back to back and the host's launch cost does not set the
+    time (unless enqueueing them outlasts the spin). Not queued: the time
+    of the calls as a caller issues them, host cost included."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -143,13 +159,15 @@ def check(cond: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
-def roi_bound(roi, levels, lvl, in_y, in_x, n, out):
+def roi_bound(roi, levels, boxes, pool, out):
     """K1's bound on these inputs: the table rows its samples read (each
     distinct row once: inside-the-level corners of every sample), the
-    output written once and the coordinates; 4 taps of a multiply and an
-    add, and the 4 corner weights, a value, in float32."""
+    output written once and the boxes (16 B each); 4 taps of a multiply
+    and an add, and the 4 corner weights, a value, in float32."""
+    lvl, in_y, in_x = roi.level_geometry(levels, boxes, pool, CANVAS)
     dev = in_y.device
     m, p = in_y.shape
+    n = boxes.shape[1]
     c = levels[0].shape[-1]
     heights = torch.tensor([f.shape[1] for f in levels], device=dev)
     widths = torch.tensor([f.shape[2] for f in levels], device=dev)
@@ -170,49 +188,97 @@ def roi_bound(roi, levels, lvl, in_y, in_x, n, out):
             for yy in (y0, y1) for xx in (x0, x1)]
     distinct = int(torch.unique(torch.cat(rows)).numel())
     nbytes = (distinct * c * levels[0].element_size()
-              + out.numel() * out.element_size()
-              + lvl.numel() * 4 + (in_y.numel() + in_x.numel()) * 4)
+              + out.numel() * out.element_size() + m * 16)
     return bound(nbytes, out.numel() * 12.0, PEAK_F32)
 
 
+# (P, N) of the box head's and the mask head's RoIAlign
+ROI_SHAPES = ((7, 500), (14, 50))
+
+
+def roi_ops_check(kernels, roi, levels, boxes, pool, *args):
+    """The fused op on the card runs no PyTorch op but the output
+    allocation (views aside: every PyTorch kernel goes through an op seen
+    here) and launches K1 once. Returns the ops seen."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    before = kernels.roi_align.launches
+    with Ops() as ops:
+        roi.multilevel_roi_align_impl(levels, boxes, pool, CANVAS, *args)
+    # views and no-op conversions compute nothing; a copy would show as
+    # _to_copy, clone or copy_
+    compute = [n for n in ops.names
+               if n not in ("view", "_unsafe_view", "reshape", "to",
+                            "contiguous", "alias")]
+    check(compute == ["empty"] and kernels.roi_align.launches == before + 1,
+          f"roi_align op on the card: ops {ops.names}, launches "
+          f"{kernels.roi_align.launches - before}")
+    return ops.names
+
+
+def roi_op_times(roi, levels, boxes, pool, *args):
+    """K1's op on the card (queued), the same op as a caller issues it back
+    to back (host cost included), the plain coordinate prologue alone (what
+    version 1 ran in PyTorch before its launch) and the plain version."""
+    def op():
+        return roi.multilevel_roi_align_impl(levels, boxes, pool, CANVAS,
+                                             *args)
+    return (cuda_ms(op), cuda_ms(op, queued=False),
+            cuda_ms(lambda: roi.level_geometry(levels, boxes, pool, CANVAS)),
+            cuda_ms(lambda: roi.multilevel_roi_align(levels, boxes, pool,
+                                                     CANVAS, *args), iters=5))
+
+
 def roi_align_phase(kernels, roi):
-    """Phase 3: K1 against the plain version at the slice's shapes."""
+    """Phase 3: K1 (fed only boxes) against the plain version with its
+    PyTorch coordinate prologue, at the slice's shapes."""
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     rng = np.random.RandomState(0)
     worst, times = 0.0, {}
     for dtype in (torch.float32, torch.bfloat16):
         levels = [torch.randn(8, s, s, 256, generator=gen, device=DEVICE)
                   .to(dtype) for s in LEVELS]
-        for pool, n in ((7, 500), (14, 50)):
+        for pool, n in ROI_SHAPES:
             boxes = torch.from_numpy(np.stack(
                 [edge_boxes(rng, n) for _ in range(8)])).to(DEVICE)
-            lvl, in_y, in_x = roi.level_geometry(levels, boxes, pool, CANVAS)
-            got = kernels.roi_align(levels, lvl, in_y, in_x, n)
-            want = roi.roi_align_levels(levels, lvl, in_y, in_x, n)
+            flat = boxes.reshape(-1, 4)
+            got = kernels.roi_align(levels, flat, pool, CANVAS)
+            want = roi.multilevel_roi_align(levels, boxes, pool,
+                                            CANVAS).reshape(got.shape)
             torch.cuda.synchronize()
+            differ = int((got != want).sum())
             err = float((got.float() - want.float()).abs().max())
             worst = max(worst, err)
+            line = (f"{differ} of {got.numel()} values differ, "
+                    f"max_abs_err {err:.3g}")
             if dtype == torch.float32:
                 check(err <= 1e-5, f"roi_align f32 P={pool}: err {err}")
-                line = f"max_abs_err {err:.3g}"
             else:
                 ulps = bf16_ulps(got, want)
                 check(ulps <= 1.0, f"roi_align bf16 P={pool}: {ulps} ulp")
-                line = f"max_abs_err {err:.3g} ({ulps:g} bf16 ulp)"
-            ms = cuda_ms(lambda: roi.multilevel_roi_align_impl(
-                levels, boxes, pool, CANVAS))
-            plain_ms = cuda_ms(lambda: roi.multilevel_roi_align(
-                levels, boxes, pool, CANVAS), iters=5)
-            kern_ms = cuda_ms(lambda: kernels.roi_align(levels, lvl, in_y,
-                                                        in_x, n))
-            bound_ms, bound_by = roi_bound(roi, levels, lvl, in_y, in_x, n,
-                                           got)
-            times[(dtype, pool)] = (ms, plain_ms, kern_ms, bound_ms,
+                line += f" ({ulps:g} bf16 ulp)"
+            ops = roi_ops_check(kernels, roi, levels, boxes, pool)
+            ms, issued_ms, prologue_ms, plain_ms = roi_op_times(
+                roi, levels, boxes, pool)
+            bound_ms, bound_by = roi_bound(roi, levels, boxes, pool, got)
+            times[(dtype, pool)] = (ms, plain_ms, issued_ms, bound_ms,
                                     bound_by)
             print(f"[3] roi_align {str(dtype)[6:]} B=8 N={n} P={pool} "
-                  f"C=256: {line}; kernel op {ms:.4f} ms (launch only "
-                  f"{kern_ms:.4f}, bound {bound_ms:.4f} by {bound_by}), "
-                  f"plain {plain_ms:.4f} ms", flush=True)
+                  f"C=256: {line}; op {ms:.4f} ms on the card (bound "
+                  f"{bound_ms:.4f} by {bound_by}, {bound_ms / ms:.1%} of "
+                  f"it; {issued_ms:.4f} ms a call as issued, host "
+                  f"included); the plain prologue that version 1 ran before "
+                  f"its launch {prologue_ms:.4f} ms; plain {plain_ms:.4f} "
+                  f"ms; the op ran {ops} and one K1 launch", flush=True)
     return worst, times
 
 
@@ -220,23 +286,24 @@ ROI_SCALES = (0.021, 0.017, 0.032, 0.009)
 
 
 def roi_int8_phase(kernels, roi):
-    """Phase 3b: K1's int8-table mode against its plain version at the
-    slice's shapes (int8 P2..P5 with four level scales), bf16 and f32 out.
-    Bar: bit-equal; else at most 1 bf16 ulp, the count of differing
-    values printed."""
+    """Phase 3b: K1's int8-table mode (fed only boxes) against its plain
+    version with its PyTorch prologue at the slice's shapes (int8 P2..P5
+    with four level scales), bf16 and f32 out. Bar: bit-equal; else at
+    most 1 bf16 ulp, the count of differing values printed."""
     gen = torch.Generator(device=DEVICE).manual_seed(6)
     rng = np.random.RandomState(6)
     levels = [torch.randint(-127, 128, (8, s, s, 256), generator=gen,
                             device=DEVICE, dtype=torch.int8) for s in LEVELS]
     worst, times = 0.0, {}
-    for pool, n in ((7, 500), (14, 50)):
+    for pool, n in ROI_SHAPES:
         boxes = torch.from_numpy(np.stack(
             [edge_boxes(rng, n) for _ in range(8)])).to(DEVICE)
-        lvl, in_y, in_x = roi.level_geometry(levels, boxes, pool, CANVAS)
+        flat = boxes.reshape(-1, 4)
         for out_dtype in (torch.bfloat16, torch.float32):
-            args = (levels, lvl, in_y, in_x, n, ROI_SCALES, out_dtype)
-            got = kernels.roi_align(*args)
-            want = roi.roi_align_levels(*args)
+            args = (ROI_SCALES, out_dtype)
+            got = kernels.roi_align(levels, flat, pool, CANVAS, *args)
+            want = roi.multilevel_roi_align(levels, boxes, pool, CANVAS,
+                                            *args).reshape(got.shape)
             torch.cuda.synchronize()
             check(got.dtype == want.dtype == out_dtype,
                   f"roi_align int8: out dtype {got.dtype}")
@@ -247,21 +314,19 @@ def roi_int8_phase(kernels, roi):
                   f"roi_align int8 P={pool} {out_dtype}: {differ} differ, "
                   f"{ulps} bf16 ulp")
             worst = max(worst, err)
-            ms = cuda_ms(lambda: roi.multilevel_roi_align_impl(
-                levels, boxes, pool, CANVAS, ROI_SCALES, out_dtype))
-            plain_ms = cuda_ms(lambda: roi.multilevel_roi_align(
-                levels, boxes, pool, CANVAS, ROI_SCALES, out_dtype), iters=5)
-            kern_ms = cuda_ms(lambda: kernels.roi_align(*args))
-            bound_ms, bound_by = roi_bound(roi, levels, lvl, in_y, in_x, n,
-                                           got)
-            times[(out_dtype, pool)] = (ms, plain_ms, kern_ms, bound_ms,
+            roi_ops_check(kernels, roi, levels, boxes, pool, *args)
+            ms, issued_ms, prologue_ms, plain_ms = roi_op_times(
+                roi, levels, boxes, pool, *args)
+            bound_ms, bound_by = roi_bound(roi, levels, boxes, pool, got)
+            times[(out_dtype, pool)] = (ms, plain_ms, issued_ms, bound_ms,
                                         bound_by)
             print(f"[3b] roi_align int8 tables -> {str(out_dtype)[6:]} B=8 "
                   f"N={n} P={pool} C=256: {differ} of {got.numel()} values "
                   f"differ, max_abs_err {err:.3g} ({ulps:g} bf16 ulp); "
-                  f"kernel op {ms:.4f} ms (launch only {kern_ms:.4f}, "
-                  f"bound {bound_ms:.4f} by {bound_by}), plain "
-                  f"{plain_ms:.4f} ms", flush=True)
+                  f"op {ms:.4f} ms on the card (bound {bound_ms:.4f} by "
+                  f"{bound_by}, {bound_ms / ms:.1%} of it; {issued_ms:.4f} "
+                  f"ms a call as issued); plain prologue {prologue_ms:.4f} "
+                  f"ms; plain {plain_ms:.4f} ms", flush=True)
     return worst, times
 
 
@@ -487,26 +552,32 @@ def bottleneck_phase(kernels, bt):
     return worst, times
 
 
-def paste_phase(kernels, mp, n=400, h=1024, w=1024):
-    """Phase 4c: K4 against the plain version at 400 detections (B=8 x
-    50) on the 1024² canvas: identical bits except threshold ties (pixels
-    whose exact value lies within an ulp of 127.5), none outside the
-    boxes or in invalid rows."""
+def paste_phase(kernels, mp, n, h, w):
+    """Phase 4c: K4 against the plain version, at 400 detections (B=8 x
+    50) on the 1024² canvas and on a ragged canvas (a row pitch and plane
+    offsets that are not 16-byte aligned, padding bits): identical bits
+    except threshold ties (pixels whose exact value lies within an ulp of
+    127.5), none outside the boxes, in invalid rows or in the padding."""
+    from maskrcnn_tpu_torch.ops.bits import unpack_masks
     rng = np.random.RandomState(5)
     masks = torch.from_numpy(rng.rand(n, 28, 28).astype(np.float32)).to(DEVICE)
     boxes = np.round(edge_boxes(rng, n) * [h, w, h, w]).astype(np.float32)
     boxes[5] = [0, 0, h, w]
     boxes[6] = [17, 23, 18, 24]
+    boxes[8] = [h - 37, w - 45, h, w]   # touching the bottom-right edge
     boxes_t = torch.from_numpy(boxes).to(DEVICE)
     valid_np = rng.rand(n) > 0.2
     valid_np[:7] = True
     valid_np[7] = False
+    valid_np[8] = True
     valid = torch.from_numpy(valid_np).to(DEVICE)
     got = kernels.paste_pack(masks, boxes_t, valid, h, w)
     want = mp.paste_masks_packed_plain(masks, boxes_t, valid, h, w)
     torch.cuda.synchronize()
-    from maskrcnn_tpu_torch.ops.bits import unpack_masks
-    got_bits = unpack_masks(got, w).bool()
+    check(got.shape == want.shape, f"paste_pack: shape {tuple(got.shape)}")
+    padded = unpack_masks(got, got.shape[-1] * 8).bool()
+    check(not bool(padded[..., w:].any()), "paste_pack: padding bits set")
+    got_bits = padded[..., :w]
     diff = got_bits != unpack_masks(want, w).bool()
     idx = torch.nonzero(diff)
     tie = 2 * float(np.spacing(np.float32(127.5)))
@@ -530,7 +601,10 @@ def paste_phase(kernels, mp, n=400, h=1024, w=1024):
     check(not bool(outside.any()), "paste_pack: bits outside a box")
     check(not bool(got_bits[~valid].any()), "paste_pack: bits in invalid rows")
     check(bool(got_bits[5].any()), "paste_pack: the full-canvas box is empty")
+    check(bool(got_bits[8].any()), "paste_pack: the edge box is empty")
     ms = cuda_ms(lambda: kernels.paste_pack(masks, boxes_t, valid, h, w))
+    issued_ms = cuda_ms(lambda: kernels.paste_pack(masks, boxes_t, valid, h,
+                                                   w), queued=False)
     plain_ms = cuda_ms(lambda: mp.paste_masks_packed_plain(
         masks, boxes_t, valid, h, w), iters=5)
     # masks, boxes and valid read once, the packed bits written once; the
@@ -542,10 +616,11 @@ def paste_phase(kernels, mp, n=400, h=1024, w=1024):
         masks.numel() * 4 + boxes_t.numel() * 4 + n + got.numel(),
         area * 8.0, PEAK_F32)
     print(f"[4c] paste_pack N={n} {h}x{w}: {len(idx)} of {diff.numel()} bits "
-          f"differ, all threshold ties; none outside boxes or in "
-          f"{int((~valid).sum())} invalid rows; kernel {ms:.4f} ms (bound "
-          f"{bound_ms:.4f} by {bound_by}), plain {plain_ms:.4f} ms",
-          flush=True)
+          f"differ, all threshold ties; none outside boxes, in the padding "
+          f"or in {int((~valid).sum())} invalid rows; kernel {ms:.4f} ms "
+          f"on the card (bound {bound_ms:.4f} by {bound_by}, "
+          f"{bound_ms / ms:.1%} of it; {issued_ms:.4f} ms a call as issued), "
+          f"plain {plain_ms:.4f} ms", flush=True)
     return len(idx), ms, plain_ms, bound_ms, bound_by
 
 
@@ -585,7 +660,7 @@ def group_roi_phase(k1_box_us):
                   f"{ms * 1e3 / boxes:.4f} us/box (bound {bound_ms:.4f} ms "
                   f"by {bound_by}, {bound_ms * 1e3 / boxes:.4f} us/box, "
                   f"{bound_ms / ms:.1%} of it), plain {plain_ms:.4f} ms; "
-                  f"K1 bf16 P=7 launch {k1_box_us:.4f} us/box", flush=True)
+                  f"K1 bf16 P=7 op {k1_box_us:.4f} us/box", flush=True)
             if out is None:
                 out = (ms, plain_ms, bound_ms, bound_by)
     return worst, out
@@ -961,10 +1036,11 @@ def main() -> int:
     roi8_err, roi8_times = roi_int8_phase(kernels, roi)
     nms_times = nms_phase(kernels, nms)
     k3_err, k3_times = bottleneck_phase(kernels, bt)
-    k4_ties, *k4_times = paste_phase(kernels, mp)
-    # K1 launch only, bf16 P=7: 8 x 500 boxes
+    k4_ties, *k4_times = paste_phase(kernels, mp, 400, 1024, 1024)
+    k4_ragged_ties = paste_phase(kernels, mp, 100, 1000, 997)[0]
+    # K1's op on the card, bf16 P=7: 8 x 500 boxes
     k5_err, k5_times = group_roi_phase(
-        roi_times[(torch.bfloat16, 7)][2] * 1e3 / 4000)
+        roi_times[(torch.bfloat16, 7)][0] * 1e3 / 4000)
     int8_conv_phase()
 
     cfg = slice_config()
@@ -991,10 +1067,7 @@ def main() -> int:
     runs = {k: launches[k] + fold_launches[k] + quant_launches[k]
             for k in launches}
     runs["roi_align"] -= runs["roi_align_int8"]
-    roi_ms, roi_plain_ms, _, roi_bound_ms, roi_by = \
-        roi_times[(torch.bfloat16, 7)]
-    roi8_ms, roi8_plain_ms, _, roi8_bound_ms, roi8_by = \
-        roi8_times[(torch.bfloat16, 7)]
+
     # K3 at its most frequent shape, C4 (22 of the 29 blocks); no single
     # PyTorch call computes the fused block (cuDNN's three convs beside it)
     k3_ms, k3_plain_ms, k3_cudnn_ms, k3_bound_ms, k3_by = \
@@ -1009,23 +1082,31 @@ def main() -> int:
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": None, **extra}
 
+    def roi_entry(name, err, times):
+        """K1 at P=7 (the box head) with the mask head's P=14 beside it,
+        bf16 out: the op's time, fed only boxes."""
+        ms, plain_ms, _, bound_ms, bound_by = times[(torch.bfloat16, 7)]
+        ms14, plain14, _, bound14, _ = times[(torch.bfloat16, 14)]
+        return entry(name, "roi_align.cu",
+                     "maskrcnn_tpu/ops/roi_align_pallas.py:58", err,
+                     (ms, plain_ms, bound_ms, bound_by), ms_p14=ms14,
+                     bound_ms_p14=bound14, plain_ms_p14=plain14)
+
     print(json.dumps({"kernels": [
-        entry("roi_align", "roi_align.cu",
-              "maskrcnn_tpu/ops/roi_align_pallas.py:58",
-              max(roi_err, run_err),
-              (roi_ms, roi_plain_ms, roi_bound_ms, roi_by)),
-        entry("roi_align_int8", "roi_align.cu",
-              "maskrcnn_tpu/ops/roi_align_pallas.py:58", roi8_err,
-              (roi8_ms, roi8_plain_ms, roi8_bound_ms, roi8_by)),
+        roi_entry("roi_align", max(roi_err, run_err), roi_times),
+        roi_entry("roi_align_int8", roi8_err, roi8_times),
         entry("nms", "nms.cu", "maskrcnn_tpu/ops/nms_pallas.py:35", 0.0,
               nms_times),
         entry("bottleneck", "bottleneck.cu",
               "maskrcnn_tpu/ops/bottleneck_pallas.py:38", k3_err,
               (k3_ms, k3_plain_ms, k3_bound_ms, k3_by),
               cudnn_block_ms=k3_cudnn_ms),
+        # a bit's error is 0 or 1: 1 where a threshold tie landed on the
+        # other side, and tie_bits counts them (1024² and ragged canvas)
         entry("paste_pack", "paste_pack.cu",
               "benchmarks/gates/paste_pack_kernel.py:60",
-              float(k4_ties > 0), k4_times),
+              float(k4_ties + k4_ragged_ties > 0), k4_times,
+              tie_bits=k4_ties + k4_ragged_ties),
         # a study on no path: no launch on the main path by design
         entry("group_roi", "group_roi.cu",
               "benchmarks/gates/group_roi_gate.py:29", k5_err, k5_times,

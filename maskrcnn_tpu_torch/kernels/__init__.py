@@ -122,8 +122,8 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     lib.mrt_roi_align.argtypes = [
         ctypes.POINTER(_P), ctypes.POINTER(_I), ctypes.POINTER(_I),
-        ctypes.POINTER(ctypes.c_float), _P, _P, _P, _P, _I, _I, _I, _I, _I,
-        _I, _P]
+        ctypes.POINTER(ctypes.c_float), _P, _P, _I, _I, _I, _I, _I, _I,
+        ctypes.c_float, ctypes.c_float, _P]
     lib.mrt_roi_align.restype = _I
     lib.mrt_nms.argtypes = [_P, _P, _I, _I, ctypes.c_float, _P, _P, _P]
     lib.mrt_nms.restype = _I
@@ -157,20 +157,32 @@ _TABLES = {**_DTYPES, torch.int8: (2, 16)}
 _MAX_SCAN_SMEM = 227 * 1024 - 256
 
 
-def roi_align(levels: Sequence[torch.Tensor], box_level: torch.Tensor,
-              in_y: torch.Tensor, in_x: torch.Tensor, boxes_per_image: int,
+_BOXES = ("roi_align: boxes must be a contiguous [B*N, 4] float32 tensor on "
+          "the levels' device")
+
+
+def roi_align(levels: Sequence[torch.Tensor], boxes: torch.Tensor,
+              pool_size: int, image_shape,
               level_scales: Sequence[float] = None,
               out_dtype: torch.dtype = None) -> torch.Tensor:
-    """Multilevel RoIAlign kernel (csrc/roi_align.cu).
+    """Multilevel RoIAlign kernel (csrc/roi_align.cu), its coordinate
+    prologue (ops.roi_align.level_geometry) computed in the kernel.
 
     levels: P2..P5 as contiguous NHWC [B, H_l, W_l, C] CUDA tensors of
-    one dtype (float32, bfloat16, or int8 with `level_scales`); box_level
-    [M] int32 (M = B*N boxes, image-major); in_y/in_x [M, P] float32
-    sample coordinates from ops.roi_align.level_geometry. Returns
-    [M, P, P, C] in the levels' dtype, or for int8 levels in `out_dtype`
-    (float32 or bfloat16), each value the blend times its level's scale
-    (four host floats). `launches` counts every launch, `int8_launches`
-    those of the int8-table mode."""
+    one dtype (float32, bfloat16, or int8 with `level_scales`); boxes
+    [B*N, 4] float32 contiguous on the levels' device, normalized (y1, x1,
+    y2, x2), image-major; image_shape: the canvas (H, W, ...) that sets the
+    FPN level rule. Returns [B*N, P, P, C] in the levels' dtype, or for
+    int8 levels in `out_dtype` (float32 or bfloat16), each value the blend
+    times its level's scale (four host floats). Allocates only the output.
+    `launches` counts every launch, `int8_launches` those of the
+    int8-table mode."""
+    from maskrcnn_tpu_torch.ops.roi_align import level_divisor
+    if (boxes.dtype != torch.float32 or boxes.dim() != 2
+            or boxes.shape[1] != 4):
+        raise ValueError(_BOXES)
+    if pool_size < 1:
+        raise ValueError(f"roi_align: pool size {pool_size} < 1")
     if len(levels) != 4:
         raise ValueError(f"roi_align takes 4 levels, got {len(levels)}")
     dtype = levels[0].dtype
@@ -202,28 +214,28 @@ def roi_align(levels: Sequence[torch.Tensor], box_level: torch.Tensor,
             raise ValueError("roi_align: levels must be contiguous, "
                              "16-byte aligned NHWC CUDA tensors of one "
                              "dtype, batch and channel count")
+        if f.shape[1] * f.shape[2] * c >= 2 ** 31:
+            raise ValueError(f"roi_align: a level image of {f.shape[1]}x"
+                             f"{f.shape[2]}x{c} exceeds 32-bit offsets")
     if c % vec:
         raise ValueError(f"roi_align: channels {c} not a multiple of {vec}")
-    m, pool = in_y.shape
-    if (box_level.dtype != torch.int32 or box_level.shape != (m,)
-            or in_y.dtype != torch.float32 or in_x.dtype != torch.float32
-            or in_x.shape != (m, pool) or m != b * boxes_per_image):
-        raise ValueError("roi_align: box_level [B*N] int32 and in_y/in_x "
-                         "[B*N, P] float32 expected")
-    for t in (box_level, in_y, in_x):
-        if t.device != device or not t.is_contiguous():
-            raise ValueError("roi_align: box inputs must be contiguous on "
-                             "the levels' device")
-    out = torch.empty((m, pool, pool, c), dtype=out_dtype, device=device)
+    m = boxes.shape[0]
+    if (m != b * (m // max(b, 1)) or boxes.device != device
+            or not boxes.is_contiguous()):
+        raise ValueError(_BOXES)
+    out = torch.empty((m, pool_size, pool_size, c), dtype=out_dtype,
+                      device=device)
+    if m == 0:
+        return out
     lib = library()
     with torch.cuda.device(device):
         err = lib.mrt_roi_align(
             (_P * 4)(*[f.data_ptr() for f in levels]),
             (_I * 4)(*[f.shape[1] for f in levels]),
             (_I * 4)(*[f.shape[2] for f in levels]), scales,
-            box_level.data_ptr(), in_y.data_ptr(), in_x.data_ptr(),
-            out.data_ptr(), m, boxes_per_image, pool, c, code,
-            _DTYPES[out_dtype][0], _stream(device))
+            boxes.data_ptr(), out.data_ptr(), m, m // b, pool_size, c, code,
+            _DTYPES[out_dtype][0], level_divisor(image_shape),
+            float(pool_size - 1), _stream(device))
     _check_launch(lib, "roi_align", err)
     roi_align.launches += 1
     roi_align.int8_launches += int8

@@ -8,12 +8,13 @@ crop_cpu.cpp:13-116):
   align-corners grid of `sample_points`;
 * samples outside the level read 0.
 
-The coordinate math (`roi_levels`, `sample_points`) is plain PyTorch and
-is shared by both paths, so the rounding-sensitive steps live in one
-place. `roi_align_levels` is the plain blend, with the kernel's inputs
-(csrc/roi_align.cu, bound as kernels.roi_align) and the kernel's order of
-operations; `multilevel_roi_align_impl` dispatches CUDA tensors to the
-kernel and CPU tensors to the plain blend.
+The plain version is `multilevel_roi_align`: the coordinate prologue
+(`roi_levels`, `sample_points`, gathered by `level_geometry`) and the
+blend (`roi_align_levels`), in plain PyTorch. The CUDA kernel
+(csrc/roi_align.cu, bound as kernels.roi_align) takes the boxes and
+computes the same prologue itself, with the same IEEE operations in the
+same order; `multilevel_roi_align_impl` hands CUDA tensors to it with no
+other op, and CPU tensors to the plain version.
 Both blend in float32 and round to the feature dtype once (the JAX XLA
 path blends in the table dtype; its Pallas kernel in float32). int8
 tables (the Pallas kernel's `level_scales`, Config.QUANT_INT8_ROI) blend
@@ -31,15 +32,20 @@ import torch
 from maskrcnn_tpu_torch.ops import device_tensor
 
 
+def level_divisor(image_shape) -> float:
+    """224 / sqrt(image area) as the float32 the JAX package divides by (a
+    numpy scalar canonicalised to float32 there)."""
+    image_area = float(image_shape[0]) * float(image_shape[1])
+    return float(np.float32(224.0 / np.sqrt(image_area)))
+
+
 def roi_levels(boxes: torch.Tensor, image_shape) -> torch.Tensor:
     """0-based FPN level (P2=0..P5=3) per box; boxes [..., 4] normalized."""
     h = boxes[..., 2] - boxes[..., 0]
     w = boxes[..., 3] - boxes[..., 1]
-    image_area = float(image_shape[0]) * float(image_shape[1])
-    # the float32 value of the JAX package's divisor (a numpy scalar
-    # canonicalised to float32 there), as a tensor: see sample_points on
-    # CUDA division by a host scalar
-    denom = torch.full_like(h, float(np.float32(224.0 / np.sqrt(image_area))))
+    # the divisor as a tensor: see sample_points on CUDA division by a
+    # host scalar
+    denom = torch.full_like(h, level_divisor(image_shape))
     lvl = 4.0 + torch.log2(torch.sqrt(h * w) / denom)
     lvl = torch.clamp(torch.round(lvl), 2.0, 5.0)
     return (lvl - 2.0).to(torch.int32)
@@ -73,7 +79,8 @@ def sample_points(boxes: torch.Tensor, h_max: torch.Tensor,
 def level_geometry(features: Sequence[torch.Tensor], boxes: torch.Tensor,
                    pool_size: int, image_shape):
     """(level [M] int32, in_y [M, P], in_x [M, P]) for boxes [B, N, 4]
-    over NHWC levels [B, H_l, W_l, C]: the inputs both blends take."""
+    over NHWC levels [B, H_l, W_l, C]: the plain blend's inputs, which the
+    kernel computes itself."""
     flat = boxes.reshape(-1, 4).to(torch.float32)
     lvl = roi_levels(flat, image_shape)
     dims = device_tensor([[f.shape[1] - 1.0, f.shape[2] - 1.0]
@@ -98,12 +105,13 @@ def roi_align_levels(levels: Sequence[torch.Tensor],
                      in_x: torch.Tensor, boxes_per_image: int,
                      level_scales: Sequence[float] = None,
                      out_dtype: torch.dtype = None) -> torch.Tensor:
-    """Plain version of the kernel (kernels.roi_align), same inputs:
-    levels P2..P5 as [B, H_l, W_l, C]; box_level [M] int32 and in_y/in_x
-    [M, P] from `level_geometry` (M = B*N, image-major). Returns
-    [M, P, P, C] in the levels' dtype. int8 levels (the int8-table mode)
-    take `level_scales`, four floats: the blend is multiplied by the
-    box's level scale and rounded once to `out_dtype`."""
+    """The plain blend, in the kernel's (kernels.roi_align) order of
+    operations: levels P2..P5 as [B, H_l, W_l, C]; box_level [M] int32
+    and in_y/in_x [M, P] from `level_geometry` (M = B*N, image-major).
+    Returns [M, P, P, C] in the levels' dtype. int8 levels (the
+    int8-table mode) take `level_scales`, four floats: the blend is
+    multiplied by the box's level scale and rounded once to
+    `out_dtype`."""
     m, p = in_y.shape
     c = levels[0].shape[-1]
     dev = in_y.device
@@ -177,17 +185,19 @@ def multilevel_roi_align_impl(features: Sequence[torch.Tensor],
                               image_shape, level_scales: Sequence[float] = None,
                               out_dtype: torch.dtype = None) -> torch.Tensor:
     """Device dispatch of multilevel RoIAlign (arguments as
-    `multilevel_roi_align`): the CUDA kernel for CUDA tensors at every
-    batch size, the plain version for CPU tensors."""
-    if boxes.is_cuda:
-        from maskrcnn_tpu_torch import kernels
-        blend = kernels.roi_align
-    elif boxes.device.type == "cpu":
-        blend = roi_align_levels
-    else:
+    `multilevel_roi_align`): CUDA tensors go to the kernel, which computes
+    the levels and sample points itself (no PyTorch op but the output
+    allocation, for contiguous float32 boxes and levels), at every batch
+    size; CPU tensors to the plain version."""
+    if boxes.device.type == "cpu":
+        return multilevel_roi_align(features, boxes, pool_size, image_shape,
+                                    level_scales, out_dtype)
+    if not boxes.is_cuda:
         raise ValueError(f"roi_align: no implementation for device "
                          f"{boxes.device}")
+    from maskrcnn_tpu_torch import kernels
     b, n = boxes.shape[:2]
-    lvl, in_y, in_x = level_geometry(features, boxes, pool_size, image_shape)
-    out = blend(list(features), lvl, in_y, in_x, n, level_scales, out_dtype)
+    flat = boxes.reshape(b * n, 4).to(torch.float32).contiguous()
+    out = kernels.roi_align(list(features), flat, pool_size, image_shape,
+                            level_scales, out_dtype)
     return out.reshape(b, n, pool_size, pool_size, -1)

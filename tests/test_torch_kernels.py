@@ -22,10 +22,8 @@ def _levels(device, dtype=torch.float32):
 def test_wrappers_reject_tensors_off_the_card():
     """Checks run before the build, so they raise here without nvcc."""
     levels = _levels("cpu")
-    lvl = torch.zeros(6, dtype=torch.int32)
-    coords = torch.zeros(6, 7)
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.roi_align(levels, lvl, coords, coords, 3)
+        kernels.roi_align(levels, torch.zeros(6, 4), 7, (64, 64, 3))
     with pytest.raises(ValueError, match="CUDA"):
         kernels.nms(torch.zeros(2, 5, 4), torch.ones(2, 5, dtype=torch.bool),
                     0.5)
@@ -62,6 +60,27 @@ def test_new_wrappers_reject_tensors_off_the_card():
         kernels.paste_pack(*_paste_args("cpu"))
     assert kernels.bottleneck.launches == 0
     assert kernels.paste_pack.launches == 0
+
+
+@pytest.mark.parametrize("boxes", [
+    torch.zeros(2, 3, 4), torch.zeros(6, 5), torch.zeros(6),
+    torch.zeros(6, 4, dtype=torch.float64), torch.zeros(6, 4).half(),
+    torch.zeros(6, 4, dtype=torch.int32)],
+    ids=["batched", "width5", "flat", "float64", "float16", "int32"])
+def test_roi_align_rejects_box_shapes_and_dtypes(boxes):
+    """The kernel takes boxes [B*N, 4] float32 alone (it computes their
+    levels and sample points itself); anything else raises before the
+    build and counts no launch."""
+    with pytest.raises(ValueError, match=r"boxes must be .*\[B\*N, 4\] "
+                                         "float32"):
+        kernels.roi_align(_levels("cpu"), boxes, 7, (64, 64, 3))
+    assert kernels.roi_align.launches == 0
+
+
+def test_roi_align_rejects_a_pool_below_one():
+    with pytest.raises(ValueError, match="pool size 0"):
+        kernels.roi_align(_levels("cpu"), torch.zeros(6, 4), 0, (64, 64, 3))
+    assert kernels.roi_align.launches == 0
 
 
 @pytest.mark.parametrize("op", ["nms", "roi_align", "bottleneck", "paste"])

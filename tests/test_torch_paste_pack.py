@@ -32,7 +32,8 @@ def gate():
 
 def _case(rng, n, h, w):
     """Random boxes plus the edge cases: the full canvas, zero-size, one
-    pixel, a box past the bottom-right corner; about 30% invalid."""
+    pixel, a box past the bottom-right corner, a box touching the right
+    edge; about 30% invalid."""
     masks = rng.rand(n, 28, 28).astype(np.float32)
     y1 = rng.randint(0, h - 4, n)
     x1 = rng.randint(0, w - 4, n)
@@ -43,9 +44,11 @@ def _case(rng, n, h, w):
     boxes[1] = [10, 12, 10, 12]
     boxes[2] = [5, 7, 6, 8]
     boxes[3] = [h - 9, w - 13, h + 20, w + 20]
+    boxes[5] = [h // 3, w - 17, h // 3 + 20, w]
     valid = rng.rand(n) > 0.3
     valid[:4] = True
     valid[4] = False
+    valid[5] = True
     return masks, boxes, valid
 
 
@@ -84,6 +87,8 @@ def test_paste_pack_matches_pallas_interpret(gate, hw):
     assert not got_bits[~valid].any()
     assert got_bits[1].sum() <= 1 and got_bits[2].sum() <= 1
     assert got_bits[0].any()
+    # the box touching the right edge sets bits in the last column
+    assert got_bits[5].any() and got_bits[5][..., w - 1].any()
 
 
 def test_paste_pack_ragged_width():
@@ -99,3 +104,23 @@ def test_paste_pack_ragged_width():
     assert not bits[..., w:].any()
     full = port_paste.paste_masks(t(masks), t(boxes), h, w).numpy()
     np.testing.assert_array_equal(bits[..., :w], full & valid[:, None, None])
+
+
+@pytest.mark.parametrize("hw", [(33, 997), (70, 61), (9, 3)],
+                         ids=["33x997", "70x61", "9x3"])
+def test_paste_pack_ragged_canvas_is_the_plain_version(hw):
+    """On the CPU the dispatch is the plain version at widths whose row
+    pitch is not a multiple of 16 bytes (the kernel's stores are then
+    narrower at a band's edges): same bytes, zero padding bits."""
+    h, w = hw
+    rng = np.random.RandomState(h * w)
+    masks, boxes, valid = _case(rng, 12, max(h, 12), max(w, 12))
+    boxes = np.minimum(boxes, [h, w, h, w]).astype(np.float32)
+    t = torch.from_numpy
+    got = port_paste.paste_masks_packed(t(masks), t(boxes), t(valid), h, w)
+    want = port_paste.paste_masks_packed_plain(t(masks), t(boxes), t(valid),
+                                               h, w)
+    assert tuple(got.shape) == (12, h, -(-w // 8))
+    assert torch.equal(got, want)
+    assert not np.unpackbits(got.numpy(), axis=-1)[..., w:].any()
+

@@ -122,16 +122,18 @@ def test_int8_wrapper_checks_before_the_build():
                                                                    4, 2)]
     lvl = torch.zeros(6, dtype=torch.int32)
     coords = torch.zeros(6, 7)
+    boxes = torch.zeros(6, 4)
+    canvas = (64, 64, 3)
     with pytest.raises(ValueError, match="level_scales"):
-        kernels.roi_align(levels, lvl, coords, coords, 3)
+        kernels.roi_align(levels, boxes, 7, canvas)
     with pytest.raises(TypeError, match="out_dtype"):
-        kernels.roi_align(levels, lvl, coords, coords, 3, [1.0] * 4)
+        kernels.roi_align(levels, boxes, 7, canvas, [1.0] * 4)
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.roi_align(levels, lvl, coords, coords, 3, [1.0] * 4,
+        kernels.roi_align(levels, boxes, 7, canvas, [1.0] * 4,
                           torch.bfloat16)
     with pytest.raises(ValueError, match="int8 levels only"):
-        kernels.roi_align([f.float() for f in levels], lvl, coords, coords,
-                          3, [1.0] * 4)
+        kernels.roi_align([f.float() for f in levels], boxes, 7, canvas,
+                          [1.0] * 4)
     with pytest.raises(ValueError, match="level_scales"):
         port_roi.roi_align_levels(levels, lvl, coords, coords, 3)
     assert kernels.roi_align.launches == kernels.roi_align.int8_launches == 0
