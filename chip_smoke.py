@@ -18,8 +18,12 @@ Phases, each printing one line:
  3b. RoIAlign's int8-table mode the same way: int8 levels with four
     level scales, both shapes, bf16 and f32 out; bit-equal (else at most
     1 bf16 ulp, the count printed);
- 4. NMS kernel vs its plain version: N=500 at 0.7, class-offset boxes at
-    0.3, with invalid rows; keep masks must be identical;
+ 4. NMS kernel vs its plain version at N = 500, 64, 1,320, 1,345, 2,000 and
+    6,000 (above 1,320 the bitmask goes through device memory), boxes at
+    0.7 and class-offset boxes at 0.3, with invalid rows: keep masks must
+    be identical, one launch a call; the chain's step latency (one
+    thread) and K2's chain bound; rpn_refine_scores at
+    RPN_NMS_MAX_ROIS_NUM=2000 on the card equal to the CPU;
  4b. fused identity bottleneck kernel vs its plain version at the four
     identity-block shapes of ResNet-101 at B=8 on the 1024² canvas, float32
     and bfloat16, and at odd small sizes (bf16 at every P of the four, so
@@ -32,7 +36,9 @@ Phases, each printing one line:
     boxes, in invalid rows and in the padding bits;
  4e. the grouped-RoIAlign gate study (K5, on no path) vs its plain
     version: 2,500 groups, float32 and bf16-cast patches, 3-D and 2-D
-    layouts; microseconds per box beside K1's at P=7;
+    layouts; its bound on the tensor cores, one torch.einsum over all
+    groups as the library's time, version 1's time; microseconds per box
+    beside K1's at P=7;
  4d. the int8 conv (im2col + torch._int_mm) vs its plain version (a
     float64 conv) at B=8: the 1x1s and the 3x3 of each stage C2-C5, C4's
     strided 1x1 and P2's 3x3; int32 accumulators equal; times beside
@@ -56,8 +62,10 @@ Phases, each printing one line:
     then the median of 5 timed calls at B=8 and at B=1, for the default,
     the FOLD_BN and the QUANT_INT8 model (--profile: a table of each);
 then one JSON line of per-kernel numbers (time, launches on the main
-path, error, plain version's time, the bound and what sets it; K1 at
-P=7 and, in the `_p14` keys, at P=14), and, last, the result line.
+path, error, plain version's time, the bound and what sets it, the
+library's time; K1 at P=7 and, in the `_p14` keys, at P=14; K2's chain
+bound and version 1's time; K5 in float32 and, in the `_bf16` keys,
+bf16, with version 1's times), and, last, the result line.
 Exits non-zero, printing no result line, without a CUDA device or when
 any check fails. Imports nothing of JAX.
 """
@@ -385,44 +393,126 @@ def int8_conv_phase():
               f"{dq_ms:.4f} ms", flush=True)
 
 
-def nms_phase(kernels, nms):
-    """Phase 4: K2 against the plain version, keep masks identical."""
-    rng = np.random.RandomState(1)
-    b, n = 8, 500
-    # boxes jittered around a few centres, so suppression chains are long
+def nms_boxes(rng, b, n):
+    """[b, n, 4] pixel boxes jittered around a few centres per image, so
+    suppression chains are long, and [b, n] valid with a tenth invalid."""
     centres = rng.rand(b, 6, 2) * 800 + 100
     ctr = (centres[np.arange(b)[:, None], rng.randint(0, 6, (b, n))]
            + rng.randn(b, n, 2) * 25)
     size = rng.uniform(40, 160, (b, n, 2))
-    boxes = np.concatenate([ctr - size / 2, ctr + size / 2], -1)
-    valid = rng.rand(b, n) > 0.1
-    cases = [("proposals thr 0.7", boxes.astype(np.float32), 0.7)]
-    classes = rng.randint(0, 81, (b, n))
-    offset = classes[..., None] * (1024.0 + 2.0)
-    cases.append(("class-offset thr 0.3",
-                  (np.round(boxes) + offset).astype(np.float32), 0.3))
-    vt = torch.from_numpy(valid).to(DEVICE)
+    return (np.concatenate([ctr - size / 2, ctr + size / 2], -1),
+            rng.rand(b, n) > 0.1)
+
+
+# (B, N) of phase 4: the main path's N=500 (not a multiple of 64), a
+# multiple of 64, the largest N whose bitmask shared memory holds (1,320),
+# and N above it up to a chain of 94 blocks
+NMS_SHAPES = ((8, 500), (8, 64), (8, 1320), (8, 1345), (8, 2000),
+              (2, 6000))
+# K2 version 1 (PERF.md's kernel table, NVIDIA H100 80GB HBM3,
+# 700 W): B=8 N=500 at 0.7, two launches
+K2_V1_MS = 0.0537
+
+
+def nms_chain_step(kernels):
+    """Cycles and nanoseconds of one dependent step of K2's chain (one
+    thread, 64-bit bit-test-and-OR), measured over 1.28 M steps."""
+    kernels._nms_chain_probe(100)
+    blocks = 20_000
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    cycles = kernels._nms_chain_probe(blocks)
+    end.record()
+    torch.cuda.synchronize()
+    return cycles, start.elapsed_time(end) * 1e6 / (blocks * 64)
+
+
+def nms_phase(kernels, nms):
+    """Phase 4: K2 against the plain version, keep masks identical, at
+    every N of NMS_SHAPES, proposals at 0.7 and class-offset boxes at 0.3,
+    with invalid rows; one launch a call. At B=8 N=500 (the main path):
+    its time beside both bounds (bytes and operations; the chain of N
+    dependent steps at the probe's step latency), the plain version's
+    and version 1's."""
+    rng = np.random.RandomState(1)
+    cycles, step_ns = nms_chain_step(kernels)
+    print(f"[4] nms chain step: {cycles:.2f} cycles, {step_ns:.3f} ns "
+          f"(one thread, 1.28 M dependent steps)", flush=True)
     times = None
-    for name, bx, thr in cases:
-        bt = torch.from_numpy(bx).to(DEVICE)
-        got = kernels.nms(bt, vt, thr)
-        want = nms.nms_mask(bt, vt, thr)
-        torch.cuda.synchronize()
-        diff = int((got != want).sum())
-        check(diff == 0, f"nms {name}: {diff} keep entries differ")
-        ms = cuda_ms(lambda: kernels.nms(bt, vt, thr))
-        plain_ms = cuda_ms(lambda: nms.nms_mask(bt, vt, thr), iters=3,
-                           warmup=1)
-        # boxes and valid read, keep written once; every pair's IoU (about
-        # 12 float32 operations: 4 min/max, 2 widths, area, union, compare)
-        bound_ms, bound_by = bound(bt.numel() * 4 + vt.numel() * 2,
-                                   b * n * (n - 1) / 2 * 12.0, PEAK_F32)
-        times = times or (ms, plain_ms, bound_ms, bound_by)
-        print(f"[4] nms {name} B={b} N={n}: keep identical "
-              f"({int(got.sum())} kept); kernel {ms:.4f} ms (bound "
-              f"{bound_ms:.6f} by {bound_by}), plain {plain_ms:.4f} ms",
-              flush=True)
+    for b, n in NMS_SHAPES:
+        boxes, valid = nms_boxes(rng, b, n)
+        cases = [("proposals thr 0.7", boxes.astype(np.float32), 0.7)]
+        classes = rng.randint(0, 81, (b, n))
+        offset = classes[..., None] * (1024.0 + 2.0)
+        cases.append(("class-offset thr 0.3",
+                      (np.round(boxes) + offset).astype(np.float32), 0.3))
+        vt = torch.from_numpy(valid).to(DEVICE)
+        for name, bx, thr in cases:
+            bt = torch.from_numpy(bx).to(DEVICE)
+            before = kernels.nms.launches
+            got = kernels.nms(bt, vt, thr)
+            calls = kernels.nms.launches - before
+            want = nms.nms_mask(bt, vt, thr)
+            torch.cuda.synchronize()
+            diff = int((got != want).sum())
+            check(diff == 0 and calls == 1,
+                  f"nms {name} B={b} N={n}: {diff} keep entries differ, "
+                  f"{calls} launches")
+            ms = cuda_ms(lambda: kernels.nms(bt, vt, thr))
+            line = (f"[4] nms {name} B={b} N={n}: keep identical "
+                    f"({int(got.sum())} kept), {calls} launch; kernel "
+                    f"{ms:.4f} ms")
+            if n == 500:
+                plain_ms = cuda_ms(lambda: nms.nms_mask(bt, vt, thr),
+                                   iters=3, warmup=1)
+                # boxes and valid read, keep written once; every pair's
+                # IoU (about 12 float32 operations: 4 min/max, 2 widths,
+                # area, union, compare)
+                bound_ms, bound_by = bound(
+                    bt.numel() * 4 + vt.numel() * 2,
+                    b * n * (n - 1) / 2 * 12.0, PEAK_F32)
+                chain_ms = n * step_ns * 1e-6
+                pace = "the chain" if chain_ms > bound_ms else bound_by
+                line += (f" (bound {bound_ms:.6f} by {bound_by}; chain "
+                         f"bound {chain_ms:.6f}, {n} steps: {pace} sets the "
+                         f"pace, {chain_ms / ms:.1%} of it), plain "
+                         f"{plain_ms:.4f} ms, v1 {K2_V1_MS} ms (PERF.md)")
+                times = times or (ms, plain_ms, bound_ms, bound_by,
+                                  chain_ms, calls)
+            print(line, flush=True)
     return times
+
+
+def rpn_nms_2000_phase(kernels):
+    """Phase 4: rpn_refine_scores with RPN_NMS_MAX_ROIS_NUM=2000 (so K2
+    runs at N=2000, above what its shared memory holds) on the card
+    equals the same call on the CPU. The size deltas are 0, so every
+    operation before NMS is exact on both (exp(0) = 1; a CPU and a CUDA
+    exp may differ in the last bit elsewhere)."""
+    from maskrcnn_tpu_torch.detection.pipeline import rpn_refine_scores
+    from maskrcnn_tpu_torch.ops.anchors import config_anchors
+    cfg = slice_config().replace(RPN_NMS_MAX_ROIS_NUM=2000)
+    check(cfg.PRE_NMS_LIMIT == 2000, f"PRE_NMS_LIMIT {cfg.PRE_NMS_LIMIT}")
+    rng = np.random.RandomState(9)
+    anchors = torch.from_numpy(config_anchors(cfg))
+    a = anchors.shape[0]
+    scores = torch.from_numpy(rng.rand(2, a).astype(np.float32))
+    deltas = np.zeros((2, a, 4), np.float32)
+    deltas[..., :2] = rng.randn(2, a, 2) * 0.5
+    deltas = torch.from_numpy(deltas)
+    before = kernels.nms.launches
+    got_p, got_v = rpn_refine_scores(cfg, anchors.to(DEVICE),
+                                     scores.to(DEVICE), deltas.to(DEVICE))
+    calls = kernels.nms.launches - before
+    want_p, want_v = rpn_refine_scores(cfg, anchors, scores, deltas)
+    check(calls == 1 and torch.equal(got_v.cpu(), want_v)
+          and torch.equal(got_p.cpu(), want_p),
+          f"rpn_refine_scores N=2000: card differs from the CPU ({calls} "
+          f"launches)")
+    print(f"[4] rpn_refine_scores RPN_NMS_MAX_ROIS_NUM=2000, B=2: card "
+          f"equals CPU ({int(want_v.sum())} of {want_v.numel()} proposals "
+          f"valid), 1 K2 launch", flush=True)
 
 
 # identity-block shapes (H, W, P) of ResNet-101 on the 1024² canvas: C2 to
@@ -624,17 +714,43 @@ def paste_phase(kernels, mp, n, h, w):
     return len(idx), ms, plain_ms, bound_ms, bound_by
 
 
+# K5 version 1 (CUDA cores; PERF.md's kernel table, NVIDIA H100
+# 80GB HBM3, 700 W): 2,500 groups, float32 / bf16 patches
+K5_V1_MS = {torch.float32: 13.33, torch.bfloat16: 12.07}
+PEAK_TF32 = 495e12   # tensor cores, TF32
+
+
+def k5_bound(n, patches, out):
+    """K5's bound for n groups: the patches read and the output written
+    once; the first product's operations at the peak of the tensor cores
+    that run it (bf16, or TF32 counted twice for float32's high and low
+    parts), beside the second product's on the CUDA cores, the two units
+    working at once; and, as version 1 counted it, every operation at the
+    float32 CUDA-core peak."""
+    first = n * 2.0 * 28 * 128 * 40 * 256
+    second = n * 2.0 * 4 * 49 * 40 * 256
+    nbytes = patches.numel() * patches.element_size() + out.numel() * 4
+    f32 = patches.dtype == torch.float32
+    t_tc = first * (2 if f32 else 1) / (PEAK_TF32 if f32 else PEAK_BF16)
+    t_ops = max(t_tc, second / PEAK_F32) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                          else (t_ops, "operations"))
+    return bound_ms, bound_by, bound(nbytes, first + second, PEAK_F32)[0]
+
+
 def group_roi_phase(k1_box_us):
     """Phase 4e: K5, the grouped-RoIAlign gate study, against its plain
     version at the gate's size (2,500 groups of 4 boxes): float32 and
     bf16-cast patches, [128, 40, 256] and [128, 10240], within 1e-5 of
-    the output's range. Its time per box beside K1's at P=7 answers the
-    gate's question on this card."""
+    the output's range. Its time beside its bound, version 1's time and
+    one torch.einsum over every group (the library's time; float32 with
+    TF32 off); per box beside K1's at P=7, the gate's question."""
     from maskrcnn_tpu_torch.ops import group_roi as gr
     gen = torch.Generator(device=DEVICE).manual_seed(8)
     n = gr.N_GROUPS
     boxes = gr.K * n
-    worst, out = 0.0, None
+    worst, out = 0.0, {}
     for dtype in (torch.float32, torch.bfloat16):
         for shape in ((128, 40, 256), (128, 40 * 256)):
             patches = torch.randn(*shape, generator=gen,
@@ -650,19 +766,22 @@ def group_roi_phase(k1_box_us):
             ms = cuda_ms(lambda: gr.group_roi(patches, n), iters=5)
             plain_ms = cuda_ms(lambda: gr.group_roi_plain(patches, n),
                                iters=1, warmup=1)
-            ops = n * (2.0 * 28 * 128 * 40 * 256 + 2.0 * 4 * 49 * 40 * 256)
-            bound_ms, bound_by = bound(
-                patches.numel() * patches.element_size() + got.numel() * 4,
-                ops, PEAK_F32)
+            lib_ms = cuda_ms(lambda: gr.group_roi_einsum(patches, n),
+                             iters=3, warmup=1)
+            bound_ms, bound_by, cc_ms = k5_bound(n, patches, got)
+            v1 = K5_V1_MS[dtype]
             print(f"[4e] group_roi {str(dtype)[6:]} {list(shape)} "
                   f"{n} groups: max_abs_err {err:.3g} (max |want| "
                   f"{scale:.3g}); kernel {ms:.4f} ms = "
                   f"{ms * 1e3 / boxes:.4f} us/box (bound {bound_ms:.4f} ms "
-                  f"by {bound_by}, {bound_ms * 1e3 / boxes:.4f} us/box, "
-                  f"{bound_ms / ms:.1%} of it), plain {plain_ms:.4f} ms; "
-                  f"K1 bf16 P=7 op {k1_box_us:.4f} us/box", flush=True)
-            if out is None:
-                out = (ms, plain_ms, bound_ms, bound_by)
+                  f"by {bound_by} on the tensor cores, "
+                  f"{bound_ms / ms:.1%} of it; all at the float32 CUDA-core "
+                  f"peak {cc_ms:.4f} ms, {cc_ms / ms:.1%}), einsum "
+                  f"{lib_ms:.4f} ms, plain {plain_ms:.4f} ms, v1 {v1} ms "
+                  f"(PERF.md), {v1 / ms:.2f}x; K1 bf16 P=7 op "
+                  f"{k1_box_us:.4f} us/box", flush=True)
+            out.setdefault(dtype, (ms, plain_ms, bound_ms, bound_by,
+                                   lib_ms, cc_ms))
     return worst, out
 
 
@@ -1035,6 +1154,7 @@ def main() -> int:
     roi_err, roi_times = roi_align_phase(kernels, roi)
     roi8_err, roi8_times = roi_int8_phase(kernels, roi)
     nms_times = nms_phase(kernels, nms)
+    rpn_nms_2000_phase(kernels)
     k3_err, k3_times = bottleneck_phase(kernels, bt)
     k4_ties, *k4_times = paste_phase(kernels, mp, 400, 1024, 1024)
     k4_ragged_ties = paste_phase(kernels, mp, 100, 1000, 997)[0]
@@ -1095,8 +1215,13 @@ def main() -> int:
     print(json.dumps({"kernels": [
         roi_entry("roi_align", max(roi_err, run_err), roi_times),
         roi_entry("roi_align_int8", roi8_err, roi8_times),
+        # B=8 N=500 at 0.7; the chain bound: N dependent steps at the
+        # probe's latency. No PyTorch call computes greedy NMS.
         entry("nms", "nms.cu", "maskrcnn_tpu/ops/nms_pallas.py:35", 0.0,
-              nms_times),
+              nms_times[:4], chain_bound_ms=nms_times[4],
+              paced_by=("chain" if nms_times[4] > nms_times[2]
+                        else nms_times[3]),
+              launches_per_call=nms_times[5]),
         entry("bottleneck", "bottleneck.cu",
               "maskrcnn_tpu/ops/bottleneck_pallas.py:38", k3_err,
               (k3_ms, k3_plain_ms, k3_bound_ms, k3_by),
@@ -1107,10 +1232,20 @@ def main() -> int:
               "benchmarks/gates/paste_pack_kernel.py:60",
               float(k4_ties + k4_ragged_ties > 0), k4_times,
               tie_bits=k4_ties + k4_ragged_ties),
-        # a study on no path: no launch on the main path by design
+        # a study on no path: no launch on the main path by design.
+        # float32 patches [128, 40, 256]: the bound at the tensor cores'
+        # peak (two TF32 products), the library's time one torch.einsum;
+        # bf16 beside it
         entry("group_roi", "group_roi.cu",
-              "benchmarks/gates/group_roi_gate.py:29", k5_err, k5_times,
-              on_path=False)]}), flush=True)
+              "benchmarks/gates/group_roi_gate.py:29", k5_err,
+              k5_times[torch.float32][:4],
+              library_ms=k5_times[torch.float32][4],
+              bound_ms_cuda_cores=k5_times[torch.float32][5],
+              ms_bf16=k5_times[torch.bfloat16][0],
+              plain_ms_bf16=k5_times[torch.bfloat16][1],
+              bound_ms_bf16=k5_times[torch.bfloat16][2],
+              library_ms_bf16=k5_times[torch.bfloat16][4], on_path=False)]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

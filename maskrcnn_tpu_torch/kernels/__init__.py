@@ -2,12 +2,14 @@
 
     roi_align.cu   multilevel RoIAlign, float  (Pallas ops/roi_align_pallas.py)
                    and int8 tables
-    nms.cu         greedy NMS keep masks       (Pallas ops/nms_pallas.py)
+    nms.cu         greedy NMS keep masks, any  (Pallas ops/nms_pallas.py)
+                   N, one launch a call
     bottleneck.cu  fused identity bottleneck   (Pallas ops/bottleneck_pallas.py)
     paste_pack.cu  mask paste + threshold +    (Pallas benchmarks/gates/
                    valid + bit-pack             paste_pack_kernel.py)
     group_roi.cu   grouped RoIAlign skeleton,  (Pallas benchmarks/gates/
-                   a cost study on no path      group_roi_gate.py)
+                   a cost study on no path;     group_roi_gate.py)
+                   tensor-core products
 
 The sources are compiled by `nvcc` on first use, one process a source,
 all started together, and linked into one shared library with a plain C
@@ -127,6 +129,10 @@ def library() -> ctypes.CDLL:
     lib.mrt_roi_align.restype = _I
     lib.mrt_nms.argtypes = [_P, _P, _I, _I, ctypes.c_float, _P, _P, _P]
     lib.mrt_nms.restype = _I
+    lib.mrt_nms_scratch_words.argtypes = [_I]
+    lib.mrt_nms_scratch_words.restype = ctypes.c_longlong
+    lib.mrt_nms_chain_probe.argtypes = [_P, _I, _P, _P, _P]
+    lib.mrt_nms_chain_probe.restype = _I
     lib.mrt_bottleneck.argtypes = [_P] * 8 + [_I] * 6 + [_P]
     lib.mrt_bottleneck.restype = _I
     lib.mrt_paste_pack.argtypes = [_P] * 4 + [_I] * 4 + [_P]
@@ -152,9 +158,6 @@ def _stream(device: torch.device) -> _P:
 _DTYPES = {torch.float32: (0, 4), torch.bfloat16: (1, 8)}
 # RoIAlign tables: type code and channels a 16-byte load carries
 _TABLES = {**_DTYPES, torch.int8: (2, 16)}
-# the scan stages an image's [N, ceil(N/64)] bitmask in shared memory:
-# the H100's 227 KB a block, less the kernel's static words (N <= 1344)
-_MAX_SCAN_SMEM = 227 * 1024 - 256
 
 
 _BOXES = ("roi_align: boxes must be a contiguous [B*N, 4] float32 tensor on "
@@ -248,29 +251,34 @@ roi_align.int8_launches = 0
 
 def nms(boxes: torch.Tensor, valid: torch.Tensor,
         iou_threshold: float) -> torch.Tensor:
-    """Greedy NMS kernel (csrc/nms.cu).
+    """Greedy NMS kernel (csrc/nms.cu), one launch for the batch, any N.
 
-    boxes [B, N, 4] float32 score-descending, valid [B, N] bool, both
-    contiguous CUDA tensors. Returns keep [B, N] bool on the device."""
+    boxes [B, N, 4] float32 score-descending, 16-byte aligned, valid
+    [B, N] bool, both contiguous CUDA tensors. Returns keep [B, N] bool on
+    the device. Above N = 1,320 an image's bitmask no longer fits the
+    kernel's shared memory and goes through a device scratch of
+    B * N * ceil(N/64) 64-bit words, allocated here."""
     if (not boxes.is_cuda or boxes.dtype != torch.float32 or boxes.dim() != 3
-            or boxes.shape[2] != 4 or not boxes.is_contiguous()):
-        raise ValueError("nms: boxes must be a contiguous [B, N, 4] "
-                         "float32 CUDA tensor")
+            or boxes.shape[2] != 4 or not boxes.is_contiguous()
+            or boxes.data_ptr() % 16):
+        raise ValueError("nms: boxes must be a contiguous, 16-byte aligned "
+                         "[B, N, 4] float32 CUDA tensor")
     b, n = boxes.shape[:2]
     if (valid.dtype != torch.bool or valid.shape != (b, n)
             or valid.device != boxes.device or not valid.is_contiguous()):
         raise ValueError("nms: valid must be a contiguous [B, N] bool "
                          "tensor on the boxes' device")
-    words = -(-n // 64)
-    if n * words * 8 > _MAX_SCAN_SMEM:
-        raise ValueError(f"nms: N={n} boxes do not fit the scan's shared "
-                         "memory")
     keep = torch.empty((b, n), dtype=torch.bool, device=boxes.device)
-    mask = torch.empty((b, n, words), dtype=torch.int64, device=boxes.device)
+    if b == 0 or n == 0:
+        return keep
     lib = library()
+    per_image = lib.mrt_nms_scratch_words(n)
+    scratch = (torch.empty(b * per_image, dtype=torch.int64,
+                           device=boxes.device) if per_image else None)
     with torch.cuda.device(boxes.device):
         err = lib.mrt_nms(boxes.data_ptr(), valid.data_ptr(), b, n,
-                          float(iou_threshold), mask.data_ptr(),
+                          float(iou_threshold),
+                          None if scratch is None else scratch.data_ptr(),
                           keep.data_ptr(), _stream(boxes.device))
     _check_launch(lib, "nms", err)
     nms.launches += 1
@@ -278,6 +286,25 @@ def nms(boxes: torch.Tensor, valid: torch.Tensor,
 
 
 nms.launches = 0
+
+
+def _nms_chain_probe(blocks: int, device="cuda") -> float:
+    """Cycles of one dependent step of K2's greedy chain (a 64-bit
+    bit-test-and-OR), from one thread running `blocks` x 64 steps of the
+    kernel's resolve loop (csrc/nms.cu). A measurement helper for
+    chip_smoke's chain bound, not part of the port's API: it times the
+    loop alone, not the kernel's step in place; waits for the card."""
+    gen = torch.Generator().manual_seed(blocks)
+    words = torch.randint(-2 ** 62, 2 ** 62, (65,), generator=gen,
+                          dtype=torch.int64).to(device)
+    out = torch.empty(2, dtype=torch.int64, device=device)
+    lib = library()
+    with torch.cuda.device(words.device):
+        err = lib.mrt_nms_chain_probe(words.data_ptr(), int(blocks),
+                                      out.data_ptr(), out[1:].data_ptr(),
+                                      _stream(words.device))
+    _check_launch(lib, "nms_chain_probe", err)
+    return float(out[1].item()) / (blocks * 64)
 
 
 def bottleneck(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -373,18 +400,21 @@ paste_pack.launches = 0
 
 def group_roi(patches: torch.Tensor, n_groups: int) -> torch.Tensor:
     """Grouped RoIAlign skeleton kernel (csrc/group_roi.cu), the gate
-    study of ops.group_roi.
+    study of ops.group_roi: the first product on the tensor cores (bf16,
+    or two TF32 products of a high and a low part for float32).
 
-    patches [128, 40, 256] or [128, 10240] contiguous CUDA tensor,
-    float32 or bfloat16; n_groups >= 1. Returns the last group's [4, 7, 7,
-    256] float32 result."""
+    patches [128, 40, 256] or [128, 10240] contiguous, 16-byte aligned
+    CUDA tensor, float32 or bfloat16; n_groups >= 1. Returns the last
+    group's [4, 7, 7, 256] float32 result."""
     from maskrcnn_tpu_torch.ops.group_roi import CHANNELS, K, POOL
     if patches.dtype not in _DTYPES:
         raise TypeError(f"group_roi: unsupported dtype {patches.dtype}")
     if (not patches.is_cuda or not patches.is_contiguous()
+            or patches.data_ptr() % 16
             or tuple(patches.shape) not in ((128, 40, 256), (128, 10240))):
-        raise ValueError("group_roi: patches must be a contiguous [128, 40, "
-                         "256] or [128, 10240] CUDA tensor")
+        raise ValueError("group_roi: patches must be a contiguous, 16-byte "
+                         "aligned [128, 40, 256] or [128, 10240] CUDA "
+                         "tensor")
     if n_groups < 1:
         raise ValueError(f"group_roi: n_groups {n_groups} < 1")
     out = torch.empty((K, POOL, POOL, CHANNELS), dtype=torch.float32,

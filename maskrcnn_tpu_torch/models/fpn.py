@@ -14,6 +14,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from maskrcnn_tpu_torch.models.layers import Conv2d
 from maskrcnn_tpu_torch.models.resnet import BLOCKS, make_stage, make_stem
 
 
@@ -39,13 +40,13 @@ class FPN(nn.Module):
         self.C4 = make_stage(512, 256, blocks[2], 2, **kw)
         self.C5 = make_stage(1024, 512, blocks[3], 2, **kw)
         for lvl, cin in zip((2, 3, 4, 5), (256, 512, 1024, 2048)):
-            setattr(self, f"P{lvl}_conv1", nn.Conv2d(
+            setattr(self, f"P{lvl}_conv1", Conv2d(
                 cin, out_channels, 1, dtype=dtype, device=device))
             # Sequential(SamePad, Conv) in the reference: the conv is `.1`
             setattr(self, f"P{lvl}_conv2", nn.Sequential(
                 nn.Identity(),
-                nn.Conv2d(out_channels, out_channels, 3, padding=1,
-                          dtype=dtype, device=device)))
+                Conv2d(out_channels, out_channels, 3, padding=1,
+                       dtype=dtype, device=device)))
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         c2 = self.C2(self.C1(x))

@@ -11,6 +11,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from maskrcnn_tpu_torch.models.layers import Conv2d, ConvTranspose2d, Linear
 from maskrcnn_tpu_torch.models.resnet import FrozenBatchNorm
 
 
@@ -24,12 +25,12 @@ class BoxHead(nn.Module):
         kw = dict(dtype=dtype, device=device)
         self.num_classes = num_classes
         # a pool_size conv with no padding: one dense map per RoI
-        self.conv1 = nn.Conv2d(256, 1024, pool_size, **kw)
+        self.conv1 = Conv2d(256, 1024, pool_size, **kw)
         self.bn1 = FrozenBatchNorm(1024, device, fold_bn)
-        self.conv2 = nn.Conv2d(1024, 1024, 1, **kw)
+        self.conv2 = Conv2d(1024, 1024, 1, **kw)
         self.bn2 = FrozenBatchNorm(1024, device, fold_bn)
-        self.linear_class = nn.Linear(1024, num_classes, **kw)
-        self.linear_bbox = nn.Linear(1024, num_classes * 4, **kw)
+        self.linear_class = Linear(1024, num_classes, **kw)
+        self.linear_bbox = Linear(1024, num_classes * 4, **kw)
 
     def forward(self, pooled: torch.Tensor):
         x = pooled.to(self.conv1.weight.dtype).permute(0, 3, 1, 2)
@@ -51,11 +52,11 @@ class MaskHead(nn.Module):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         for i in range(1, 5):
-            setattr(self, f"conv{i}", nn.Conv2d(256, 256, 3, padding=1, **kw))
+            setattr(self, f"conv{i}", Conv2d(256, 256, 3, padding=1, **kw))
             setattr(self, f"bn{i}", FrozenBatchNorm(256, device, fold_bn))
         # kernel == stride: no overlap, equal to the JAX DeconvK2S2
-        self.deconv = nn.ConvTranspose2d(256, 256, 2, stride=2, **kw)
-        self.conv5 = nn.Conv2d(256, num_classes, 1, **kw)
+        self.deconv = ConvTranspose2d(256, 256, 2, stride=2, **kw)
+        self.conv5 = Conv2d(256, num_classes, 1, **kw)
 
     def forward(self, pooled: torch.Tensor) -> torch.Tensor:
         x = pooled.to(self.conv1.weight.dtype).permute(0, 3, 1, 2)

@@ -20,6 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from maskrcnn_tpu_torch.models.layers import Conv2d
 from maskrcnn_tpu_torch.ops.bottleneck import (fused_identity_bottleneck,
                                                pack_weights)
 
@@ -63,14 +64,14 @@ class Bottleneck(nn.Module):
                  fold_bn: bool = False):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, stride=stride, **kw)
+        self.conv1 = Conv2d(inplanes, planes, 1, stride=stride, **kw)
         self.bn1 = FrozenBatchNorm(planes, device, fold_bn)
-        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, **kw)
+        self.conv2 = Conv2d(planes, planes, 3, padding=1, **kw)
         self.bn2 = FrozenBatchNorm(planes, device, fold_bn)
-        self.conv3 = nn.Conv2d(planes, planes * 4, 1, **kw)
+        self.conv3 = Conv2d(planes, planes * 4, 1, **kw)
         self.bn3 = FrozenBatchNorm(planes * 4, device, fold_bn)
         self.downsample = (nn.Sequential(
-            nn.Conv2d(inplanes, planes * 4, 1, stride=stride, **kw),
+            Conv2d(inplanes, planes * 4, 1, stride=stride, **kw),
             FrozenBatchNorm(planes * 4, device, fold_bn))
             if downsample else None)
         self.fused = fold_bn and not downsample
@@ -135,5 +136,5 @@ def make_stem(dtype=None, device=None, fold_bn: bool = False
     """C1: 7x7/2 conv (pad 3), frozen BN, ReLU, stem pool. Sequential
     indices 0/1 are the checkpoint's `C1.0` / `C1.1`."""
     return nn.Sequential(
-        nn.Conv2d(3, 64, 7, stride=2, padding=3, dtype=dtype, device=device),
+        Conv2d(3, 64, 7, stride=2, padding=3, dtype=dtype, device=device),
         FrozenBatchNorm(64, device, fold_bn), nn.ReLU(), StemPool())

@@ -17,6 +17,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from maskrcnn_tpu_torch.models.layers import Conv2d, conv2d
+
 
 class RPN(nn.Module):
     """Shared 3x3 conv -> (2A class logits, 4A box deltas) per location,
@@ -28,10 +30,10 @@ class RPN(nn.Module):
         a = anchors_per_location
         kw = dict(dtype=dtype, device=device)
         self.anchors_per_location = a
-        self.conv_shared = nn.Conv2d(256, 512, 3, stride=anchor_stride,
-                                     padding=1, **kw)
-        self.conv_class = nn.Conv2d(512, 2 * a, 1, **kw)
-        self.conv_bbox = nn.Conv2d(512, 4 * a, 1, **kw)
+        self.conv_shared = Conv2d(256, 512, 3, stride=anchor_stride,
+                                  padding=1, **kw)
+        self.conv_class = Conv2d(512, 2 * a, 1, **kw)
+        self.conv_bbox = Conv2d(512, 4 * a, 1, **kw)
 
     def forward(self, feature_maps: Sequence[torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -50,7 +52,7 @@ class RPN(nn.Module):
         scores, deltas = [], []
         for shared in shared_maps:
             # NHWC before the reshape: (y, x, ratio) anchor order
-            y = F.conv2d(shared, weight, bias).permute(0, 2, 3, 1)
+            y = conv2d(shared, weight, bias).permute(0, 2, 3, 1)
             b = y.shape[0]
             cls = y[..., :2 * a].reshape(b, -1, 2)
             scores.append(torch.sigmoid(

@@ -72,6 +72,22 @@ def group_roi_plain(patches: torch.Tensor,
     return out
 
 
+def group_roi_einsum(patches: torch.Tensor,
+                     n_groups: int = N_GROUPS) -> torch.Tensor:
+    """The yardstick: one torch.einsum over every group's weights (in the
+    patches' dtype, whose values hold 0.25, 0.5 and 0.75 exactly), the
+    last group's [4, 7, 7, C] as float32. It computes what the gate's two
+    dense products compute; chip_smoke.py times it beside the kernel,
+    and nothing else calls it."""
+    p = _patches3d(patches)
+    # row 7k+a of group i's Wy and Wx as [i, k, a]
+    wy, wx = (torch.stack(w).reshape(n_groups, K, POOL, -1).to(p.dtype)
+              for w in zip(*(group_weights(i, p.device)
+                             for i in range(n_groups))))
+    out = torch.einsum("gkax,gkby,yxc->gkabc", wx, wy, p)
+    return out[-1].to(torch.float32)
+
+
 def group_roi(patches: torch.Tensor, n_groups: int = N_GROUPS
               ) -> torch.Tensor:
     """Device dispatch: the CUDA kernel (csrc/group_roi.cu) for CUDA

@@ -114,3 +114,57 @@ def test_group_roi_rejects_bad_inputs():
     with pytest.raises(ValueError, match="no implementation"):
         port_gr.group_roi(torch.zeros(128, 40, 256, device="meta"), 1)
     assert kernels.group_roi.launches == 0
+
+
+@pytest.mark.parametrize("n_groups", [1, 3, 7])
+@pytest.mark.parametrize("layout", ["2d", "3d"])
+def test_einsum_yardstick_matches_plain(layout, n_groups):
+    """chip_smoke.py times one torch.einsum over every group as K5's
+    library time; it computes the plain version's result (exact weights,
+    float32 sums of two nonzero terms in another order: 1e-6)."""
+    rng = np.random.RandomState(30 + n_groups)
+    shape = (128, 40 * 256) if layout == "2d" else (128, 40, 256)
+    patches = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+    want = port_gr.group_roi_plain(patches, n_groups)
+    got = port_gr.group_roi_einsum(patches, n_groups)
+    assert got.shape == want.shape == (4, 7, 7, 256)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def _tf32(x: torch.Tensor, rounding: str) -> torch.Tensor:
+    """float32 to TF32 (10 mantissa bits): clear the low 13 bits, or round
+    them half away from zero as the kernel's cvt.rna.tf32.f32 does."""
+    bits = x.view(torch.int32)
+    if rounding == "nearest":
+        bits = bits + 0x1000
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.parametrize("rounding", ["truncate", "nearest"])
+def test_tf32_split_holds_the_bar(rounding):
+    """The precision argument of K5's float32 path, in plain PyTorch: the
+    first product as two TF32 products, of hi = tf32(p) and lo = tf32(p -
+    hi) (Wy's 0.25 and 0.75 are exact in TF32), lands within 1e-5 of the
+    output's range of the plain version; hi alone (one TF32 product)
+    does not."""
+    rng = np.random.RandomState(40)
+    p = torch.from_numpy(rng.randn(128, 40 * 256).astype(np.float32))
+    hi = _tf32(p, rounding)
+    lo = _tf32(p - hi, rounding)
+    assert torch.equal(_tf32(hi, rounding), hi)
+    for n_groups in (1, 3):
+        want = port_gr.group_roi_plain(p, n_groups)
+        scale = float(want.abs().max())
+        wy, wx = port_gr.group_weights(n_groups - 1)
+        assert torch.equal(_tf32(wy, rounding), wy)
+        outs = []
+        for parts in ((hi, lo), (hi,)):
+            t = sum(wy @ part for part in parts).reshape(28, 40, 256)
+            outs.append(torch.stack([
+                torch.einsum("ax,bxc->abc", wx[7 * k:7 * k + 7],
+                             t[7 * k:7 * k + 7]) for k in range(4)]))
+        split_err = float((outs[0] - want).abs().max())
+        hi_err = float((outs[1] - want).abs().max())
+        assert split_err <= 1e-5 * scale, split_err
+        assert hi_err > 1e-5 * scale, hi_err

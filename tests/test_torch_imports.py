@@ -39,7 +39,7 @@ SLICE_MODULES = (
     "maskrcnn_tpu_torch.ops.nms", "maskrcnn_tpu_torch.ops.roi_align",
     "maskrcnn_tpu_torch.ops.int8_conv", "maskrcnn_tpu_torch.quant",
     "maskrcnn_tpu_torch.config", "maskrcnn_tpu_torch.data.codecs",
-    "maskrcnn_tpu_torch.ops.group_roi")
+    "maskrcnn_tpu_torch.ops.group_roi", "maskrcnn_tpu_torch.models.layers")
 # packages the port must not import: JAX, flax, and the JAX package itself
 # (even its modules that import no JAX)
 FORBIDDEN = ("jax", "flax", "maskrcnn_tpu")
