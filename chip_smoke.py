@@ -58,6 +58,22 @@ Phases, each printing one line:
     same three requests, both RoIAligns of every step in int8-table mode;
  5g. on the 128-px float32 config with QUANT_INT8 and one set of
     calibration stats, the int8 port on the card vs on the CPU;
+ 5h. the product surface under the default CocoInferenceConfig as it is
+    (ORIG_MASK_CANVAS 640): a seeded float32 state written as a
+    reference-layout .pth under build/ and loaded with
+    Detector.load_weights into a default and a FOLD_BN Detector (states
+    bit-equal to the file's); one request of eight COCO-sized images
+    (333-640 px a side, resampled without Pillow, masks decoded on the
+    device), the same through the FOLD_BN Detector, one request holding a
+    1000x750 image (host mask decode), the eight again under
+    DEVICE_MASK_DECODE=False (share of mask pixels apart between the two
+    decodes < 0.02); COCO ground truth built from those results with
+    build_coco_results and evaluate_coco for bbox and segm through the
+    host-decode Detector (AP@[.5:.95] >= 0.95, detections with an empty
+    box or mask left out on both sides); the native RLE library in use,
+    Pillow never imported; B=8 detect_batch end to end on both decode
+    routes (median of 3, img/s) and the host resample, host decode and
+    RLE encode per image;
  6. one predict_step at B=8 in sync-debug "error" mode (no host sync),
     then the median of 5 timed calls at B=8 and at B=1, for the default,
     the FOLD_BN and the QUANT_INT8 model (--profile: a table of each);
@@ -78,6 +94,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -1045,6 +1062,313 @@ def fold_parity_phase():
           flush=True)
 
 
+# COCO val image shapes (h, w): every side <= 640, so each is upsampled to
+# the 800-px short side and decoded on the device (ORIG_MASK_CANVAS 640)
+COCO_SHAPES = ((480, 640), (640, 480), (427, 640), (375, 500), (612, 612),
+               (360, 640), (500, 333), (640, 640))
+# above ORIG_MASK_CANVAS: resampled to 1024x768, decoded on the host
+LARGE_SHAPE = (1000, 750)
+
+
+def write_reference_pth(cfg, path):
+    """A seeded float32 state (the model's init, drawn on the CPU) written
+    with torch.save in the reference checkpoint's layout, with the
+    `num_batches_tracked` entries a torch BatchNorm state carries. Returns
+    the state as numpy arrays."""
+    from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
+    model = MaskRCNN(cfg.replace(COMPUTE_DTYPE="float32", FOLD_BN=False,
+                                 QUANT_INT8=False), "cpu")
+    state = model.init(torch.Generator().manual_seed(7)).state_dict()
+    saved = dict(state)
+    for k in state:
+        if k.endswith(".running_mean"):
+            saved[k[:-len("running_mean")] + "num_batches_tracked"] = \
+                torch.tensor(0)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(saved, path)
+    return {k: v.numpy() for k, v in state.items()}
+
+
+def check_loaded_state(det, state, what):
+    """The Detector's state equals the .pth's float32 state (folded under
+    FOLD_BN) cast to each tensor's dtype, bit for bit."""
+    from maskrcnn_tpu_torch.checkpoint.fold import fold_state_dict
+    if det.config.FOLD_BN:
+        state = fold_state_dict(state, det.config.BACKBONE)
+    own = det.model.state_dict()
+    check(set(own) == set(state), f"{what}: state keys differ")
+    bad = [k for k, v in own.items()
+           if not torch.equal(v.cpu(), torch.from_numpy(
+               np.asarray(state[k])).to(v.dtype))]
+    check(not bad, f"{what}: {len(bad)} tensors differ from the .pth, "
+          f"e.g. {bad[:3]}")
+
+
+class ImageDataset:
+    """evaluate_coco's dataset surface over images held in memory: ids
+    1..N, load_image, and the COCO category of a contiguous label."""
+
+    def __init__(self, images):
+        self.images = images
+        self.ids = list(range(1, len(images) + 1))
+
+    def load_image(self, image_id):
+        return self.images[image_id - 1]
+
+    @staticmethod
+    def class_id(label_id):
+        from maskrcnn_tpu_torch.data.coco import CocoLabel
+        return CocoLabel.to_class(label_id)
+
+
+def matchable(res):
+    """A Detector result without the detections that no ground truth can
+    match: an int32 box (as evaluate_coco casts it) with no area, or an
+    empty mask. Random weights make such detections; their IoU with
+    anything is 0. None when nothing is left."""
+    if res is None:
+        return None
+    cls, scores, boxes, masks = res
+    b = np.asarray(boxes).astype(np.int32)
+    keep = np.flatnonzero((b[:, 2] > b[:, 0]) & (b[:, 3] > b[:, 1])
+                          & masks.reshape(len(cls), -1).any(axis=1))
+    if not keep.size:
+        return None
+    return ([cls[i] for i in keep], [scores[i] for i in keep],
+            [boxes[i] for i in keep], masks[keep])
+
+
+class MatchableDetector:
+    """A Detector's dispatch_batch/fetch, with `matchable` results."""
+
+    def __init__(self, det):
+        self.det = det
+
+    def dispatch_batch(self, images):
+        return self.det.dispatch_batch(images)
+
+    def fetch(self, handle):
+        return [matchable(r) for r in self.det.fetch(handle)]
+
+
+def coco_ground_truth(ds, results):
+    """A COCO index whose annotations are the detections of `results`
+    (one Detector result an image of `ds`, or None), built as
+    evaluate_coco builds its results (boxes cast to int32 first), so a
+    deterministic step scores AP 1 on them."""
+    from maskrcnn_tpu_torch.data.coco import COCO_CLASS_IDS
+    from maskrcnn_tpu_torch.eval import rle as rle_lib
+    from maskrcnn_tpu_torch.eval.coco_index import COCO
+    from maskrcnn_tpu_torch.eval.evaluate import build_coco_results
+    anns, images = [], []
+    for image_id, img, res in zip(ds.ids, ds.images, results):
+        images.append({"id": image_id, "height": img.shape[0],
+                       "width": img.shape[1]})
+        if res is None:
+            continue
+        cls, scores, boxes, masks = res
+        for r in build_coco_results(ds, image_id, cls, scores,
+                                    np.asarray(boxes).astype(np.int32),
+                                    np.asarray(masks, np.uint8)):
+            r.update(id=len(anns) + 1, iscrowd=0,
+                     area=rle_lib.area(r["segmentation"]))
+            anns.append(r)
+    return COCO({"images": images, "annotations": anns,
+                 "categories": [{"id": c, "name": str(c)}
+                                for c in COCO_CLASS_IDS[1:]]})
+
+
+def host_runs(fn, reps: int = 3):
+    """Host times of `reps` calls of fn(), in ms (the work ends on the
+    host)."""
+    runs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return runs
+
+
+def product_phase(kernels, card, cfg=None, shapes=COCO_SHAPES,
+                  large=LARGE_SHAPE):
+    """Phase 5h: the Detector's product surface under the default
+    CocoInferenceConfig (ORIG_MASK_CANVAS 640). A seeded float32 state is
+    written as a reference-layout .pth and loaded with load_weights into
+    a default and a FOLD_BN Detector (states bit-equal to the file's);
+    one request of eight COCO-sized images (resampled without Pillow,
+    masks decoded on the device), the same through the FOLD_BN Detector,
+    one request holding a larger image (host decode), and the eight again
+    under DEVICE_MASK_DECODE=False (share of mask pixels apart between
+    the decodes < 0.02). Ground truth built from the host-decode results
+    with build_coco_results; evaluate_coco for bbox and segm must reach
+    AP >= 0.95. The native RLE library must be in use and Pillow never
+    imported. Then B=8 detect_batch end to end on both decode routes
+    (median of 3) and the host resample, host decode and RLE per image.
+    Returns the kernels' launches during the requests and evaluations."""
+    from pathlib import Path
+    from maskrcnn_tpu_torch import CocoInferenceConfig
+    from maskrcnn_tpu_torch.api import Detector
+    from maskrcnn_tpu_torch.data import codecs
+    from maskrcnn_tpu_torch.eval import native
+    from maskrcnn_tpu_torch.eval.evaluate import (build_coco_results,
+                                                  evaluate_coco)
+    cfg = cfg or CocoInferenceConfig()
+    t0 = time.perf_counter()
+    path = Path(__file__).resolve().parent / "build" / "phase5h_seeded.pth"
+    state = write_reference_pth(cfg, path)
+
+    def loaded(c):
+        det = Detector(c, device=DEVICE)
+        det.load_weights(str(path))
+        return det
+
+    det = loaded(cfg)
+    fdet = loaded(cfg.replace(FOLD_BN=True))
+    hdet = loaded(cfg.replace(DEVICE_MASK_DECODE=False))
+    for d, what in ((det, "default"), (fdet, "FOLD_BN")):
+        check_loaded_state(d, state, f"load_weights {what}")
+    mib = path.stat().st_size / 2**20
+    path.unlink()
+    print(f"[5h] seeded float32 state as a .pth ({mib:.1f} MiB), "
+          f"load_weights into default, FOLD_BN and host-decode "
+          f"Detectors {cfg_name(cfg)} in {time.perf_counter() - t0:.1f} s: "
+          f"default and FOLD_BN states bit-equal to the file's", flush=True)
+
+    rng = np.random.RandomState(5)
+    images = make_images(rng, list(shapes))
+    big = make_images(rng, [large])[0]
+    reset_counts(kernels)
+    counts = {}
+
+    def request(name, d, batch):
+        before = launch_counts(kernels)
+        handle = d.dispatch_batch(batch)
+        route = "device" if handle[-1] else "host"
+        results = d.fetch(handle)
+        n = {k: v - before[k] for k, v in launch_counts(kernels).items()}
+        blocks = 29 if d.config.FOLD_BN else 0
+        check(n["roi_align"] == 2 and n["nms"] >= 2 and n["paste_pack"] >= 1
+              and n["bottleneck"] == blocks, f"{name}: kernel launches {n}")
+        for img, res in zip(batch, results):
+            check(res is not None, f"{name}: an image has no detection")
+            cls, scores, boxes, masks = res
+            check(masks.shape == (len(cls),) + img.shape[:2]
+                  and masks.dtype == np.uint8
+                  and np.isfinite(boxes).all() and np.isfinite(scores).all()
+                  and all(0 < c < cfg.NUM_CLASSES for c in cls),
+                  f"{name}: decoded results")
+        counts[name] = n
+        print(f"[5h] {name}: {len(batch)} images, {route} mask decode, "
+              f"detections {[len(r[0]) for r in results]}, launches "
+              + " ".join(f"{k} {v}" for k, v in n.items()), flush=True)
+        return route, results
+
+    route, dev_res = request("coco-sized request", det, images)
+    check(route == "device", "eight COCO-sized images: device decode")
+    request("coco-sized request, FOLD_BN", fdet, images)
+    route, _ = request(f"request with a {large[0]}x{large[1]} image", det,
+                       images[:3] + [big])
+    check(route == "host", "an image above ORIG_MASK_CANVAS: host decode")
+    route, host_res = request("coco-sized request, DEVICE_MASK_DECODE=False",
+                              hdet, images)
+    check(route == "host", "DEVICE_MASK_DECODE=False: host decode")
+    apart = pixels = 0
+    for a, b in zip(dev_res, host_res):
+        check(a[0] == b[0] and a[2] == b[2], "device vs host decode: the "
+              "detections differ")
+        apart += int((a[3] != b[3]).sum())
+        pixels += a[3].size
+    share = apart / pixels
+    check(share < 0.02, f"device vs host decode: {share} of pixels apart")
+    print(f"[5h] device vs host mask decode on the eight images: same "
+          f"detections, {share:.6f} of mask pixels apart ({apart} of "
+          f"{pixels})", flush=True)
+
+    # the self-check: ground truth from the host-decode results, then
+    # evaluate_coco through the same Detector; detections no ground truth
+    # can match are left out on both sides
+    ds = ImageDataset(images)
+    gt = coco_ground_truth(ds, [matchable(r) for r in host_res])
+    dropped = sum(len(r[0]) for r in host_res) - len(gt.anns)
+    check(len(gt.anns) >= len(images), f"only {len(gt.anns)} matchable "
+          "detections")
+    ap = {}
+    t0 = time.perf_counter()
+    for eval_type in ("bbox", "segm"):
+        ap[eval_type] = float(evaluate_coco(MatchableDetector(hdet), ds, gt,
+                                            eval_type, batch_size=8)[0])
+    eval_s = time.perf_counter() - t0
+    check(min(ap.values()) >= 0.95, f"evaluate_coco self-check: AP {ap}")
+    check(native.available(), "the native RLE library is not in use")
+    launches = launch_counts(kernels)
+    print(f"[5h] evaluate_coco against ground truth from the host-decode "
+          f"results ({len(gt.anns)} annotations; {dropped} detections with "
+          f"an empty box or mask left out): AP@[.5:.95] bbox "
+          f"{ap['bbox']:.4f}, segm {ap['segm']:.4f}; RLE route native; "
+          f"{2 * len(images) / eval_s:.2f} img/s over both sweeps "
+          f"({eval_s:.2f} s)", flush=True)
+
+    # host work per image (medians of 3): resample to the window, decode
+    # the canvas masks, RLE-encode the results
+    b = len(images)
+    resample = statistics.median(host_runs(lambda: [
+        codecs.resample_bilinear(img, g[2] - g[0], g[3] - g[1])
+        for img, g in zip(images, (det._canvas_geometry(
+            h, w, cfg.IMAGE_MIN_DIM, *cfg.IMAGE_SHAPE[:2])[0]
+            for h, w in shapes))]))
+    out, _, windows, scales, _ = hdet.dispatch_batch(images)
+    valid = out["valid"].cpu().numpy()
+    packed = out["masks_packed"].cpu().numpy()
+    canvas = [packed[i][valid[i]] for i in range(b)]
+    n_masks = int(valid.sum())
+    jobs = list(zip(canvas, scales, windows, images))
+
+    def decode_one(job):
+        m, s, w, img = job
+        return codecs.decode_masks(m, s, w, img.shape[0], img.shape[1])
+
+    decode = statistics.median(host_runs(lambda: list(map(decode_one,
+                                                          jobs))))
+    with ThreadPoolExecutor(max_workers=b) as pool:
+        threaded = statistics.median(host_runs(
+            lambda: list(pool.map(decode_one, jobs))))
+    nonempty = sum(int(m.reshape(len(m), -1).any(axis=1).sum())
+                   for m in canvas)  # anywhere on the canvas
+    rle = statistics.median(host_runs(lambda: [
+        build_coco_results(ds, i, r[0], r[1],
+                           np.asarray(r[2]).astype(np.int32), r[3])
+        for i, r in zip(ds.ids, host_res)]))
+    print(f"[5h] host per image: resample {resample / b:.2f} ms, decode "
+          f"{decode / b:.2f} ms in series, {threaded / b:.2f} ms over "
+          f"{b} threads ({decode / max(n_masks, 1):.3f} ms a mask, "
+          f"{n_masks} masks, {nonempty} nonempty), RLE encode {rle / b:.2f} ms; {card}", flush=True)
+    for d, name in ((det, "device decode"), (hdet, "host decode")):
+        d.detect_batch(images)
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = [time.perf_counter()]
+            handle = d.dispatch_batch(images)
+            t.append(time.perf_counter())
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            d.fetch(handle)
+            t.append(time.perf_counter())
+            runs.append([(t[i + 1] - t[i]) * 1e3 for i in range(3)])
+        total = [sum(r) for r in runs]
+        ms = statistics.median(total)
+        split = [statistics.median(r[i] for r in runs) for i in range(3)]
+        print(f"[5h] detect_batch B={b} COCO-sized, {name}: median {ms:.2f} "
+              f"ms ({b * 1e3 / ms:.2f} img/s), runs "
+              f"{[round(r, 2) for r in total]}; medians: dispatch_batch "
+              f"(preprocess and enqueue) {split[0]:.2f} ms, then the card "
+              f"{split[1]:.2f} ms, fetch {split[2]:.2f} ms; {card}",
+              flush=True)
+    check("PIL" not in sys.modules, "Pillow was imported")
+    print("[5h] Pillow never imported", flush=True)
+    return launches
+
+
 def timing_phase(det, images, card, tag="6"):
     """Phase 6: predict_step at B=8 and at B=1, the median of 5 calls
     after 2 warm-ups, each timed by CUDA events around the call. One B=8
@@ -1174,6 +1498,7 @@ def main() -> int:
     qdet, _, quant_launches = slice_phase(
         kernels, cfg.replace(QUANT_INT8=True), tag="5f")
     tiny_parity_phase(tag="5g", act_stats=tiny_act_stats())
+    product_launches = product_phase(kernels, card)
     x, win = timing_phase(det, images, card)
     timing_phase(fdet, images, card)
     timing_phase(qdet, images, card)
@@ -1182,10 +1507,11 @@ def main() -> int:
         profile_phase(fdet, x, win, args.profile, "predict_step_fold_bn")
         profile_phase(qdet, x, win, args.profile, "predict_step_int8")
 
-    # launches: the three main-path runs (default, FOLD_BN and QUANT_INT8
-    # slices); K1's float-table launches apart from its int8 ones
+    # launches: the main-path runs (default, FOLD_BN and QUANT_INT8 slices,
+    # and the product surface's requests and evaluations); K1's
+    # float-table launches apart from its int8 ones
     runs = {k: launches[k] + fold_launches[k] + quant_launches[k]
-            for k in launches}
+            + product_launches[k] for k in launches}
     runs["roi_align"] -= runs["roi_align_int8"]
 
     # K3 at its most frequent shape, C4 (22 of the 29 blocks); no single

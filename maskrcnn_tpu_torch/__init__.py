@@ -14,8 +14,11 @@ Dispatch is by the tensor's device: a CUDA tensor runs the kernel (or
 raises), a CPU tensor runs the plain PyTorch version in the same `ops/`
 module. The entry points (`api.Detector`, `models.mask_rcnn.MaskRCNN`)
 run on the card unless given `device="cpu"`. The package carries its own
-copy of the configs (`config.py`) and of the host resize
-(`data/codecs.py`), and imports nothing of the JAX package.
+copy of the configs (`config.py`), of the host codecs (`data/codecs.py`:
+Pillow's bilinear resample in torch int32 ops, no Pillow) and of the
+COCO evaluation stack (`eval/`, `data/coco.py`), and imports nothing of
+the JAX package. Pillow is imported only to read an image file, and
+matplotlib only to draw (`utils/visualize.py`).
 """
 
 from maskrcnn_tpu_torch.config import (CocoConfig, CocoInferenceConfig,

@@ -1,11 +1,14 @@
 """High-level inference API (counterpart of maskrcnn_tpu/api.py).
 
-`Detector` places images on the canvas on the host, runs
-`predict_step` on its device, decodes masks to original-image
-coordinates on the device (`masks_to_original`), and decodes boxes with
-numpy, keeping the reference's `/(scale + 1e-5)` quirk. Covered: one
+`Detector` places images on the canvas on the host (`data.codecs`, no
+Pillow), runs `predict_step` on its device and decodes boxes with numpy,
+keeping the reference's `/(scale + 1e-5)` quirk. Masks go back to
+original-image coordinates on the device (`masks_to_original`) when
+every image of a request fits ORIG_MASK_CANVAS and DEVICE_MASK_DECODE is
+set; otherwise on the host (`codecs.decode_masks`, the reference-parity
+decode, each mask resampled over its nonzero region only). Covered: one
 device, float, folded (FOLD_BN) or int8 (QUANT_INT8) weights, no
-keypoints; images up to ORIG_MASK_CANVAS on a side.
+keypoints.
 """
 
 from __future__ import annotations
@@ -20,8 +23,10 @@ import torch
 
 from maskrcnn_tpu_torch.config import Config
 from maskrcnn_tpu_torch import quant
-from maskrcnn_tpu_torch.checkpoint.convert import load_jax_params
-from maskrcnn_tpu_torch.data.codecs import resize_image
+from maskrcnn_tpu_torch.checkpoint.convert import (load_jax_params,
+                                                  load_state, read_pth)
+from maskrcnn_tpu_torch.data.codecs import (decode_boxes, decode_masks,
+                                            resample_bilinear)
 from maskrcnn_tpu_torch.detection.pipeline import predict_step
 from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN, resolve_device
 from maskrcnn_tpu_torch.ops import device_tensor
@@ -61,15 +66,6 @@ def _store_calib_stats(path, key, stats) -> None:
     os.replace(tmp, path)
 
 
-def decode_boxes(boxes: np.ndarray, scale: float, window) -> np.ndarray:
-    """Canvas coords -> original coords (reference data.py:331-343,
-    including the scale + 1e-5 quirk)."""
-    top, left = window[0], window[1]
-    out = boxes.astype(np.float64) - np.array([top, left, top, left],
-                                              np.float64)
-    return out / (scale + 1e-5)
-
-
 class Detector:
     """Stateful wrapper around `predict_step` on one device."""
 
@@ -78,13 +74,15 @@ class Detector:
                  calib_stats_path=None):
         """Random reference-init weights drawn from `generator` (a CPU
         generator; seed 0 when omitted). Load real weights afterwards
-        with `load_jax_params`. `device` defaults to the card ("cuda");
+        with `load_weights` (a reference `.pth`) or `load_jax_params` (a
+        JAX parameter tree). `device` defaults to the card ("cuda");
         without one it raises, unless given device="cpu".
 
         Config.FOLD_BN (as maskrcnn_tpu.api.Detector) folds the frozen BN
         into the convs: the seeded float32 weights are folded before the
-        cast to the compute dtype, and `load_jax_params` takes the
-        ordinary, unfolded JAX tree and folds it on the way in.
+        cast to the compute dtype, and `load_weights` and
+        `load_jax_params` take ordinary, unfolded weights and fold them
+        on the way in.
 
         Config.QUANT_INT8 (as maskrcnn_tpu.api.Detector): the model is
         calibrated and quantized lazily, at `prepare` (the first request
@@ -101,6 +99,18 @@ class Detector:
         self.model = MaskRCNN(config, self.device).init(generator)
         self._calib_images = calib_images
         self._calib_stats_path = calib_stats_path
+
+    def load_weights(self, path: str, reinit_mismatched: bool = False
+                     ) -> None:
+        """Load a reference `.pth` (the torch state dict of
+        mask_rcnn_coco.pth; `torch.load` with weights_only). Under
+        FOLD_BN it is folded in float32 first; under QUANT_INT8 the next
+        request prepares the new weights. reinit_mismatched=True keeps the
+        model's own values for tensors whose shape differs (fine-tuning
+        to another NUM_CLASSES); without it they raise ValueError. An
+        orbax directory raises: it needs orbax, a JAX library."""
+        load_state(self.model, read_pth(path, self.config.BACKBONE),
+                   reinit_mismatched=reinit_mismatched)
 
     def load_jax_params(self, params) -> None:
         """Load a JAX parameter tree (nested dicts of arrays, the JAX
@@ -131,8 +141,7 @@ class Detector:
 
     @staticmethod
     def _canvas_geometry(h, w, min_dim, ch, cw):
-        """Window and scale of data/codecs.resize_image, without the
-        resample."""
+        """Window and scale of data/codecs.resize_image."""
         scale = max(1.0, min_dim / min(h, w))
         if round(h * scale) > ch or round(w * scale) > cw:
             scale = min(ch / h, cw / w)
@@ -144,8 +153,8 @@ class Detector:
 
     def _preprocess(self, images: Sequence[np.ndarray]):
         """Images -> (uint8 canvases [B, CH, CW, 3], windows, scales).
-        Images at scale 1 are copied into the canvas; others go through
-        data.codecs.resize_image (PIL, imported only then)."""
+        Each image is resampled to its window (codecs.resample_bilinear,
+        as resize_image does) unless at scale 1, and copied in."""
         cfg = self.config
         ch, cw = int(cfg.IMAGE_SHAPE[0]), int(cfg.IMAGE_SHAPE[1])
         batch = np.zeros((len(images), ch, cw, 3), np.uint8)
@@ -153,16 +162,20 @@ class Detector:
         for i, img in enumerate(images):
             window, scale = self._canvas_geometry(
                 img.shape[0], img.shape[1], cfg.IMAGE_MIN_DIM, ch, cw)
+            top, left, bottom, right = window
             if scale != 1.0:
-                batch[i] = resize_image(img, cfg.IMAGE_MIN_DIM,
-                                        cfg.IMAGE_MAX_DIM,
-                                        canvas_shape=(ch, cw))[0]
-            else:
-                top, left, bottom, right = window
-                batch[i, top:bottom, left:right] = img
+                img = resample_bilinear(img, bottom - top, right - left)
+            batch[i, top:bottom, left:right] = img
             windows.append(window)
             scales.append(scale)
         return batch, windows, scales
+
+    def detect(self, image: np.ndarray):
+        """One image -> (class_ids, scores, boxes, masks) in original
+        coordinates, or (None, None, None, None) when nothing is found
+        (the reference contract, model.py:1120-1121)."""
+        out = self.detect_batch([image])[0]
+        return (None,) * 4 if out is None else out
 
     def detect_batch(self, images: Sequence[np.ndarray]):
         """Batched detection -> per image (class_ids, scores, boxes, masks)
@@ -171,36 +184,43 @@ class Detector:
 
     def dispatch_batch(self, images: Sequence[np.ndarray]):
         """Preprocess and enqueue the device work without waiting for it
-        (CUDA launches are asynchronous). Returns a handle for `fetch`."""
+        (CUDA launches are asynchronous). Returns a handle for `fetch`.
+        Masks are decoded to original coordinates on the device when
+        DEVICE_MASK_DECODE is set and every image fits ORIG_MASK_CANVAS;
+        otherwise the canvas masks stay packed for `fetch`'s host
+        decode."""
         cfg = self.config
         out_dim = cfg.ORIG_MASK_CANVAS
-        if not cfg.DEVICE_MASK_DECODE or any(
-                max(img.shape[:2]) > out_dim for img in images):
-            raise ValueError(
-                "Detector decodes masks on the device only: every image "
-                f"side must be <= ORIG_MASK_CANVAS ({out_dim})")
+        use_device = cfg.DEVICE_MASK_DECODE and all(
+            max(img.shape[:2]) <= out_dim for img in images)
         self.prepare()
         batch, windows, scales = self._preprocess(images)
         dev = self.device
         win = device_tensor(windows, torch.float32, dev)
         out = predict_step(self.model, torch.from_numpy(batch).to(dev), win)
-        with torch.inference_mode():
-            masks = unpack_masks(out["masks_packed"],
-                                 cfg.IMAGE_SHAPE[1]).to(torch.bool)
-            sizes = device_tensor([img.shape[:2] for img in images],
-                                  torch.int64, dev)
-            orig = torch.stack([
-                masks_to_original(masks[i], win[i], sizes[i, 0],
-                                  sizes[i, 1], out_dim)
-                for i in range(len(images))])
-            out["masks_packed"] = pack_masks_device(orig)
-        return out, images, windows, scales
+        if use_device:
+            with torch.inference_mode():
+                masks = unpack_masks(out["masks_packed"],
+                                     cfg.IMAGE_SHAPE[1]).to(torch.bool)
+                sizes = device_tensor([img.shape[:2] for img in images],
+                                      torch.int64, dev)
+                orig = torch.stack([
+                    masks_to_original(masks[i], win[i], sizes[i, 0],
+                                      sizes[i, 1], out_dim)
+                    for i in range(len(images))])
+                out["masks_packed"] = pack_masks_device(orig)
+        return out, images, windows, scales, use_device
 
     def fetch(self, handle):
         """Wait for a dispatch_batch handle and decode on the host. Mask
         slots past the last valid detection of the batch are not copied
-        (valid detections come first in the D slots)."""
-        out, images, windows, scales = handle
+        (valid detections come first in the D slots; a valid slot past an
+        invalid one is still copied). On the host-decode route each
+        image's packed canvas masks go back to its original size through
+        one `codecs.decode_masks` call, image after image (a thread pool
+        over the images made the decode slower: its small tensor ops hold
+        the interpreter lock between them; PERF.md has the times)."""
+        out, images, windows, scales, use_device = handle
         small = {k: out[k].cpu().numpy()
                  for k in ("class_ids", "scores", "boxes", "valid")}
         valid = small["valid"]
@@ -214,7 +234,12 @@ class Detector:
                 results.append(None)
                 continue
             oh, ow = img.shape[:2]
-            masks = np.unpackbits(packed[i][v[:n]], axis=-1)[:, :oh, :ow]
+            if use_device:
+                masks = np.unpackbits(packed[i][v[:n], :oh], axis=-1,
+                                      count=ow)
+            else:
+                masks = decode_masks(packed[i][v[:n]], scales[i], windows[i],
+                                     oh, ow)
             results.append((small["class_ids"][i][v].tolist(),
                             small["scores"][i][v].tolist(),
                             decode_boxes(small["boxes"][i][v], scales[i],

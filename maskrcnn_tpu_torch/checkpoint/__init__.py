@@ -1,1 +1,2 @@
-"""Weight bridge from the JAX package's parameter trees."""
+"""Weights into the port: a reference `.pth` or a JAX parameter tree,
+and the frozen-BN fold."""

@@ -1,9 +1,12 @@
-"""JAX parameter tree -> PyTorch state dict (counterpart of
-maskrcnn_tpu/checkpoint/torch_convert.py).
+"""Weights into the port: a JAX parameter tree or the reference `.pth`
+(counterpart of maskrcnn_tpu/checkpoint/torch_convert.py and the `.pth`
+branch of maskrcnn_tpu/checkpoint/store.load_params).
 
-A torch-free numpy port of `name_map` and `to_torch_state_dict`: the JAX
-package's copy cannot be imported without JAX, because
-`maskrcnn_tpu/checkpoint/__init__.py` imports the orbax store. Layouts:
+The port's state-dict names are the reference checkpoint's, so a `.pth`
+loads by name (`read_pth`); a JAX tree goes through a numpy port of
+`name_map` and `to_torch_state_dict` (`from_jax_params`). Both end in
+`load_state`: the FOLD_BN fold, a strict load, and the float32 state
+kept for QUANT_INT8. Layouts of a JAX tree:
 * flax conv kernel [kh, kw, I, O]    -> Conv2d weight [O, I, kh, kw]
 * flax deconv kernel [kh, kw, O, I]  -> ConvTranspose2d [I, O, kh, kw]
 * flax dense kernel [I, O]           -> Linear weight [O, I]
@@ -12,6 +15,7 @@ package's copy cannot be imported without JAX, because
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -84,21 +88,84 @@ def from_jax_params(params: Dict, architecture: str = "resnet101"
     return out
 
 
-def load_jax_params(model, params: Dict) -> None:
-    """Load a JAX parameter tree into a MaskRCNN (strict: every key of the
-    model must be present and nothing else). Under Config.FOLD_BN the
-    float32 weights are folded first (checkpoint.fold), so the tree may
-    be unfolded or already folded: folding twice is a no-op. Under
-    Config.QUANT_INT8 the model keeps the float32 state for quantization
-    and drops its prepared int8 state."""
+def state_keys(architecture: str = "resnet101") -> List[str]:
+    """Every state-dict key of the model, in `name_map` order."""
+    out = []
+    for tname, _, kind in name_map(architecture):
+        fields = _BN_FIELDS if kind == "bn" else ("weight", "bias")
+        out += [f"{tname}.{field}" for field in fields]
+    return out
+
+
+def read_pth(path: str, architecture: str = "resnet101"
+             ) -> Dict[str, np.ndarray]:
+    """A reference `.pth` state dict -> the entries `name_map` names, as
+    float32 numpy arrays (`num_batches_tracked` and any other key is
+    dropped, as torch_convert.from_torch_state_dict ignores them). A
+    missing key raises KeyError naming it; a directory (an orbax
+    checkpoint of the JAX package) raises ValueError."""
     import torch
-    state = from_jax_params(params, model.config.BACKBONE)
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory, an orbax checkpoint of the JAX "
+            "package: reading it needs orbax, a JAX library the port does "
+            "not use. Write it as a .pth with the JAX package "
+            "(checkpoint.torch_convert.to_torch_state_dict, then "
+            "torch.save) and load that")
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    keys = state_keys(architecture)
+    missing = [k for k in keys if k not in state]
+    if missing:
+        raise KeyError(f"{path} lacks {len(missing)} of the model's "
+                       f"weights: {', '.join(missing)}")
+    return {k: state[k].detach().to(torch.float32).numpy() for k in keys}
+
+
+def load_state(model, state: Dict[str, np.ndarray],
+               reinit_mismatched: bool = False) -> None:
+    """Load a float32 torch-layout state (unfolded or folded) into a
+    MaskRCNN: strict, every key of the model present and nothing else.
+    Under Config.FOLD_BN the float32 state is folded first
+    (checkpoint.fold; folding twice is a no-op). Under Config.QUANT_INT8
+    the model keeps the float32 state for quantization and drops its
+    prepared int8 state.
+
+    A tensor whose shape differs from the model's raises ValueError,
+    unless reinit_mismatched=True: then each such tensor keeps the
+    model's own value (its float32 state under QUANT_INT8, else its
+    weights in float32: the init, unless weights were loaded since) and
+    the list is printed, as the JAX `store.load_params` does (the
+    fine-tune flow for another NUM_CLASSES)."""
+    import torch
     if model.config.FOLD_BN:
         from maskrcnn_tpu_torch.checkpoint.fold import fold_state_dict
         state = fold_state_dict(state, model.config.BACKBONE)
+    own = model.state_dict()
+    mismatched = [k for k in own if k in state
+                  and tuple(np.shape(state[k])) != tuple(own[k].shape)]
+    if mismatched:
+        if not reinit_mismatched:
+            raise ValueError(
+                "checkpoint shapes do not match the model: "
+                f"{', '.join(mismatched)} (pass reinit_mismatched=True to "
+                "keep the model's own values for incompatible tensors, "
+                "e.g. when fine-tuning to a different NUM_CLASSES)")
+        kept = model.float_state or {}
+        state = dict(state)
+        for k in mismatched:
+            state[k] = (np.asarray(kept[k], np.float32) if k in kept
+                        else own[k].to(torch.float32).cpu().numpy())
+        print(f"reinitialized {len(mismatched)} shape-mismatched tensors: "
+              + ", ".join(mismatched))
     model.load_state_dict({k: torch.tensor(v) for k, v in state.items()},
                           strict=True)
     model.keep_float_state(state)
+
+
+def load_jax_params(model, params: Dict) -> None:
+    """Load a JAX parameter tree into a MaskRCNN through `load_state`
+    (the tree may be unfolded or already folded)."""
+    load_state(model, from_jax_params(params, model.config.BACKBONE))
 
 
 def _float_conv(entry: Dict) -> Dict[str, np.ndarray]:

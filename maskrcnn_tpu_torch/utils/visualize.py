@@ -1,0 +1,90 @@
+"""Visualization: instance overlays (counterpart of
+maskrcnn_tpu/utils/visualize.py; reference: utils.py:294-398
+display_instances/apply_mask/random_colors).
+
+matplotlib is imported only where a figure is drawn, so the port imports
+without it. `plot_loss` waits for the training slice.
+"""
+
+from __future__ import annotations
+
+import colorsys
+import random
+from typing import Optional, Sequence
+
+import numpy as np
+
+
+def random_colors(n: int, bright: bool = True, shuffle: bool = True):
+    """n visually-distinct RGB tuples: evenly spaced hues at full
+    saturation, optionally shuffled so adjacent instances differ
+    (same contract as reference utils.py:294-305)."""
+    value = 1.0 if bright else 0.7
+    colors = [colorsys.hsv_to_rgb(hue, 1.0, value)
+              for hue in np.linspace(0.0, 1.0, n, endpoint=False)]
+    if shuffle:
+        random.shuffle(colors)
+    return colors
+
+
+def apply_mask(image: np.ndarray, mask: np.ndarray, color,
+               alpha: float = 0.5) -> np.ndarray:
+    """Alpha-blend `color` into the masked pixels of an RGB uint8 image
+    (same contract as reference utils.py:307-319), vectorized over the
+    channel axis."""
+    out = image.astype(np.float32)
+    inside = np.asarray(mask) == 1
+    rgb = np.asarray(color, np.float32) * 255.0
+    out[inside] = out[inside] * (1.0 - alpha) + alpha * rgb
+    return out.astype(np.uint8)
+
+
+def display_instances(image: np.ndarray, boxes, masks, class_ids,
+                      class_names: Sequence[str],
+                      scores: Optional[Sequence[float]] = None,
+                      title: str = "", figsize=(16, 16), ax=None,
+                      save_path: Optional[str] = None):
+    """Draw boxes, labels and mask contours (reference: utils.py:322-398).
+
+    boxes: [N, 4] (y1, x1, y2, x2); masks: [N, H, W]; class_ids: [N].
+    Saves to `save_path` when given, else shows the figure.
+    """
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    from matplotlib import patches
+
+    n = 0 if boxes is None else len(boxes)
+    if ax is None:
+        _, ax = plt.subplots(1, figsize=figsize)
+    colors = random_colors(max(n, 1))
+    h, w = image.shape[:2]
+    ax.set_ylim(h + 10, -10)
+    ax.set_xlim(-10, w + 10)
+    ax.axis("off")
+    ax.set_title(title)
+
+    shown = image.copy()
+    for i in range(n):
+        color = colors[i]
+        y1, x1, y2, x2 = boxes[i]
+        ax.add_patch(patches.Rectangle(
+            (x1, y1), x2 - x1, y2 - y1, linewidth=2, alpha=0.7,
+            linestyle="dashed", edgecolor=color, facecolor="none"))
+        class_id = int(class_ids[i])
+        score = scores[i] if scores is not None else None
+        label = class_names[class_id] if class_id < len(class_names) \
+            else str(class_id)
+        caption = f"{label} {score:.3f}" if score else label
+        ax.text(x1, y1 + 8, caption, color="w", size=11,
+                backgroundcolor="none")
+        if masks is not None:
+            shown = apply_mask(shown, np.asarray(masks[i]), color)
+    ax.imshow(shown)
+    if save_path:
+        plt.savefig(save_path, bbox_inches="tight")
+        print(f"saved {save_path}")
+    else:
+        plt.show()
+    plt.close("all")
+    return shown

@@ -39,7 +39,12 @@ SLICE_MODULES = (
     "maskrcnn_tpu_torch.ops.nms", "maskrcnn_tpu_torch.ops.roi_align",
     "maskrcnn_tpu_torch.ops.int8_conv", "maskrcnn_tpu_torch.quant",
     "maskrcnn_tpu_torch.config", "maskrcnn_tpu_torch.data.codecs",
-    "maskrcnn_tpu_torch.ops.group_roi", "maskrcnn_tpu_torch.models.layers")
+    "maskrcnn_tpu_torch.ops.group_roi", "maskrcnn_tpu_torch.models.layers",
+    "maskrcnn_tpu_torch.data.coco", "maskrcnn_tpu_torch.eval",
+    "maskrcnn_tpu_torch.eval.rle", "maskrcnn_tpu_torch.eval.native",
+    "maskrcnn_tpu_torch.eval.coco_index", "maskrcnn_tpu_torch.eval.cocoeval",
+    "maskrcnn_tpu_torch.eval.evaluate", "maskrcnn_tpu_torch.utils.progress",
+    "maskrcnn_tpu_torch.utils.visualize", "predict_torch", "coco_torch")
 # packages the port must not import: JAX, flax, and the JAX package itself
 # (even its modules that import no JAX)
 FORBIDDEN = ("jax", "flax", "maskrcnn_tpu")
@@ -75,10 +80,12 @@ def _imported_names(path: Path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py", "maskrcnn_tpu_torch"])
+@pytest.mark.parametrize("path", ["chip_smoke.py", "maskrcnn_tpu_torch",
+                                  "predict_torch.py", "coco_torch.py"])
 def test_port_sources_import_nothing_of_jax(path):
-    """chip_smoke.py and every source file of the port, read with ast:
-    no import of JAX, flax or the JAX package, even inside a function."""
+    """chip_smoke.py, the port's CLIs and every source file of the port,
+    read with ast: no import of JAX, flax or the JAX package, even inside
+    a function."""
     root = REPO / path
     files = sorted(root.rglob("*.py")) if root.is_dir() else [root]
     assert files
@@ -135,17 +142,26 @@ def test_port_resize_image_bit_equal(size):
         assert got[2] == 1.0
 
 
-def test_resize_image_without_pil_names_pillow(monkeypatch):
-    """Without PIL, an image that needs a resample raises an ImportError
-    that names Pillow; one at scale 1 needs no PIL."""
+def test_resize_image_without_pil_names_pillow(monkeypatch, tmp_path):
+    """Without PIL, resize_image still resamples (the port resamples
+    without Pillow) and equals the JAX package's canvas; reading an image
+    file (CocoDataset.load_image, the one edge that needs PIL) raises an
+    ImportError that names Pillow."""
+    from maskrcnn_tpu_torch.data.coco import CocoDataset
+    rng = np.random.RandomState(4)
+    image = rng.randint(0, 256, (50, 70, 3), dtype=np.uint8)
+    want = jax_codecs.resize_image(image, 128, 128)
     monkeypatch.setitem(sys.modules, "PIL", None)
-    image = np.zeros((50, 70, 3), np.uint8)
+    got = port_codecs.resize_image(image, 128, 128)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1:] == want[1:]
+    ann = tmp_path / "ann.json"
+    ann.write_text('{"images": [{"id": 1, "height": 2, "width": 2, '
+                   '"file_name": "a.jpg"}], "annotations": [], '
+                   '"categories": []}')
+    ds = CocoDataset(str(tmp_path), "val", 2014, None, annfile=str(ann))
     with pytest.raises(ImportError, match="Pillow"):
-        port_codecs.resize_image(image, 128, 128)
-    canvas, window, scale = port_codecs.resize_image(
-        np.ones((128, 96, 3), np.uint8), 96, 128)
-    assert scale == 1.0 and window == (0, 16, 128, 112)
-    assert canvas.sum() == 128 * 96 * 3
+        ds.load_image(1)
 
 
 @pytest.mark.parametrize("entry", ["Detector", "MaskRCNN"])

@@ -10,6 +10,8 @@ into the port's field by field).
 from __future__ import annotations
 
 import dataclasses
+import json
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -69,3 +71,30 @@ def edge_boxes(rng: np.random.RandomState, n: int) -> np.ndarray:
     b[3] = [0.05, 0.4, 0.95, 0.44]
     b[4] = [0.9, 0.9, 0.99, 0.999]
     return b
+
+
+def synthetic_coco_dir(root: Path) -> str:
+    """tests/test_e2e.py's COCO directory under `root`: three JPEGs of
+    104-120 x 120 px, one box-and-polygon annotation each, under the
+    minival 2014 names. Returns the directory."""
+    from PIL import Image
+    (root / "annotations").mkdir()
+    (root / "val2014").mkdir()
+    rng = np.random.RandomState(0)
+    images, anns = [], []
+    for i in range(1, 4):
+        h, w = 96 + 8 * i, 120
+        name = f"COCO_val2014_{i:012d}.jpg"
+        Image.fromarray(rng.randint(0, 255, (h, w, 3), np.uint8)).save(
+            root / "val2014" / name)
+        images.append({"id": i, "height": h, "width": w, "file_name": name})
+        x, y, bw, bh = 10, 20, 40, 30
+        anns.append({"id": i, "image_id": i, "category_id": 1,
+                     "bbox": [x, y, bw, bh], "area": bw * bh, "iscrowd": 0,
+                     "segmentation": [[x, y, x + bw, y, x + bw, y + bh, x,
+                                       y + bh]]})
+    data = {"images": images, "annotations": anns,
+            "categories": [{"id": c, "name": f"c{c}"} for c in range(1, 91)]}
+    with open(root / "annotations" / "instances_minival2014.json", "w") as f:
+        json.dump(data, f)
+    return str(root)
