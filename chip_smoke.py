@@ -14,10 +14,11 @@ Phases, each printing one line:
     float32 with TF32 off and in bfloat16 (the count of differing values
     printed); the op on the card runs no PyTorch op but the output
     allocation, and launches K1 once; its time at both shapes beside its
-    bound and the plain version's;
+    bound and the plain version's; then the same checks, untimed, on the
+    768x1024 canvas (levels 192x256 .. 24x32, its own level rule);
  3b. RoIAlign's int8-table mode the same way: int8 levels with four
-    level scales, both shapes, bf16 and f32 out; bit-equal (else at most
-    1 bf16 ulp, the count printed);
+    level scales, both shapes, bf16 and f32 out, both canvases; bit-equal
+    (else at most 1 bf16 ulp, the count printed);
  4. NMS kernel vs its plain version at N = 500, 64, 1,320, 1,345, 2,000 and
     6,000 (above 1,320 the bitmask goes through device memory), boxes at
     0.7 and class-offset boxes at 0.3, with invalid rows: keep masks must
@@ -26,12 +27,15 @@ Phases, each printing one line:
     RPN_NMS_MAX_ROIS_NUM=2000 on the card equal to the CPU;
  4b. fused identity bottleneck kernel vs its plain version at the four
     identity-block shapes of ResNet-101 at B=8 on the 1024² canvas, float32
-    and bfloat16, and at odd small sizes (bf16 at every P of the four, so
-    every bf16 tile has partial tiles); bf16 times beside the bound, the
+    and bfloat16, in bfloat16 at the four stage shapes of the 768x1024
+    canvas (192x256 .. 24x32), and at odd small sizes (bf16 at every P of
+    the four, so every bf16 tile has partial tiles); B=8 bf16 times
+    beside the bound, the
     share of the bound reached, the plain version, the same folded block
-    as cuDNN bf16 convs and version 3's time;
+    as cuDNN bf16 convs and (at the square shapes) version 3's time;
  4c. paste-and-pack kernel vs its plain version: 400 detections on the
-    1024² canvas and 100 on a ragged 1000x997 one, with edge boxes and
+    1024² canvas, 400 on the 768x1024 one and 100 on a ragged 1000x997
+    one, with edge boxes and
     invalid rows; bits identical except threshold ties, zero outside the
     boxes, in invalid rows and in the padding bits;
  4e. the grouped-RoIAlign gate study (K5, on no path) vs its plain
@@ -67,16 +71,29 @@ Phases, each printing one line:
     device), the same through the FOLD_BN Detector, one request holding a
     1000x750 image (host mask decode), the eight again under
     DEVICE_MASK_DECODE=False (share of mask pixels apart between the two
-    decodes < 0.02); COCO ground truth built from those results with
-    build_coco_results and evaluate_coco for bbox and segm through the
+    decodes < 0.02), the eight through a DEVICE_RESIZE Detector (canvases
+    resampled on the card, equal to the CPU's plain run but at .5 ties,
+    the resample's device time); COCO ground truth built from those
+    results with build_coco_results and evaluate_coco for bbox and segm
+    through the
     host-decode Detector (AP@[.5:.95] >= 0.95, detections with an empty
     box or mask left out on both sides); the native RLE library in use,
     Pillow never imported; B=8 detect_batch end to end on both decode
     routes (median of 3, img/s) and the host resample, host decode and
-    RLE encode per image;
+    RLE encode per image, and the DEVICE_RESIZE route beside them;
  6. one predict_step at B=8 in sync-debug "error" mode (no host sync),
     then the median of 5 timed calls at B=8 and at B=1, for the default,
     the FOLD_BN and the QUANT_INT8 model (--profile: a table of each);
+ 5i. the inference protocols at the same width, one Detector each:
+    cascade (0.5, 0.6, 0.7) + soft-NMS 0.5, flip TTA + soft-NMS 0.5, flip
+    TTA with hard NMS, 17 keypoints (8 x conv512 head), and a 768x1024
+    canvas under FOLD_BN and under QUANT_INT8: three requests (8, 8 and 1
+    images) with every result checked, the kernels' launches of one B=8
+    step against the expected counts, every class-offset NMS call of a
+    hard TTA step (the merge's at N = 2D) through the kernel and the plain
+    version (keep masks identical), one step in sync-debug mode, B=8 and
+    B=1 medians (of 3) beside the default's, and the port on the card
+    against the CPU at tiny width; soft-NMS's ops and time a call;
 then one JSON line of per-kernel numbers (time, launches on the main
 path, error, plain version's time, the bound and what sets it, the
 library's time; K1 at P=7 and, in the `_p14` keys, at P=14; K2's chain
@@ -100,7 +117,9 @@ import numpy as np
 import torch
 
 CANVAS = (1024, 1024, 3)
-LEVELS = (256, 128, 64, 32)
+# the IMAGE_CANVAS of phase 5i's canvas protocols; phases 3, 3b, 4b and 4c
+# hold K1, K3 and K4 against their plain versions at its shapes too
+RECT_CANVAS = (768, 1024)
 DEVICE = "cuda"
 
 
@@ -221,33 +240,39 @@ def roi_bound(roi, levels, boxes, pool, out):
 ROI_SHAPES = ((7, 500), (14, 50))
 
 
-def roi_ops_check(kernels, roi, levels, boxes, pool, *args):
-    """The fused op on the card runs no PyTorch op but the output
-    allocation (views aside: every PyTorch kernel goes through an op seen
-    here) and launches K1 once. Returns the ops seen."""
+def op_log():
+    """A dispatch mode that records in its `computed` the name of every
+    PyTorch op run inside it that computes: views (whose result aliases
+    an input and writes nothing) left out, in-place ops and copies
+    kept."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class Ops(TorchDispatchMode):
         def __init__(self):
             super().__init__()
-            self.names = []
+            self.computed = []
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            self.names.append(func.overloadpacket.__name__)
+            if not any(r.alias_info is not None and not r.alias_info.is_write
+                       for r in func._schema.returns):
+                self.computed.append(func.overloadpacket.__name__)
             return func(*args, **(kwargs or {}))
 
+    return Ops()
+
+
+def roi_ops_check(kernels, roi, levels, boxes, pool, *args, canvas=CANVAS):
+    """The fused op on the card runs no PyTorch op that computes but the
+    output allocation (every PyTorch kernel goes through an op seen here)
+    and launches K1 once. Returns the ops seen."""
     before = kernels.roi_align.launches
-    with Ops() as ops:
-        roi.multilevel_roi_align_impl(levels, boxes, pool, CANVAS, *args)
-    # views and no-op conversions compute nothing; a copy would show as
-    # _to_copy, clone or copy_
-    compute = [n for n in ops.names
-               if n not in ("view", "_unsafe_view", "reshape", "to",
-                            "contiguous", "alias")]
-    check(compute == ["empty"] and kernels.roi_align.launches == before + 1,
-          f"roi_align op on the card: ops {ops.names}, launches "
+    with op_log() as ops:
+        roi.multilevel_roi_align_impl(levels, boxes, pool, canvas, *args)
+    check(ops.computed == ["empty"]
+          and kernels.roi_align.launches == before + 1,
+          f"roi_align op on the card: ops {ops.computed}, launches "
           f"{kernels.roi_align.launches - before}")
-    return ops.names
+    return ops.computed
 
 
 def roi_op_times(roi, levels, boxes, pool, *args):
@@ -265,45 +290,56 @@ def roi_op_times(roi, levels, boxes, pool, *args):
 
 def roi_align_phase(kernels, roi):
     """Phase 3: K1 (fed only boxes) against the plain version with its
-    PyTorch coordinate prologue, at the slice's shapes."""
+    PyTorch coordinate prologue, at the slice's shapes: on the 1024²
+    canvas (timed) and on the 768x1024 one (rectangular levels and the
+    level rule of its area)."""
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     rng = np.random.RandomState(0)
     worst, times = 0.0, {}
-    for dtype in (torch.float32, torch.bfloat16):
-        levels = [torch.randn(8, s, s, 256, generator=gen, device=DEVICE)
-                  .to(dtype) for s in LEVELS]
-        for pool, n in ROI_SHAPES:
-            boxes = torch.from_numpy(np.stack(
-                [edge_boxes(rng, n) for _ in range(8)])).to(DEVICE)
-            flat = boxes.reshape(-1, 4)
-            got = kernels.roi_align(levels, flat, pool, CANVAS)
-            want = roi.multilevel_roi_align(levels, boxes, pool,
-                                            CANVAS).reshape(got.shape)
-            torch.cuda.synchronize()
-            differ = int((got != want).sum())
-            err = float((got.float() - want.float()).abs().max())
-            worst = max(worst, err)
-            line = (f"{differ} of {got.numel()} values differ, "
-                    f"max_abs_err {err:.3g}")
-            if dtype == torch.float32:
-                check(err <= 1e-5, f"roi_align f32 P={pool}: err {err}")
-            else:
-                ulps = bf16_ulps(got, want)
-                check(ulps <= 1.0, f"roi_align bf16 P={pool}: {ulps} ulp")
-                line += f" ({ulps:g} bf16 ulp)"
-            ops = roi_ops_check(kernels, roi, levels, boxes, pool)
-            ms, issued_ms, prologue_ms, plain_ms = roi_op_times(
-                roi, levels, boxes, pool)
-            bound_ms, bound_by = roi_bound(roi, levels, boxes, pool, got)
-            times[(dtype, pool)] = (ms, plain_ms, issued_ms, bound_ms,
-                                    bound_by)
-            print(f"[3] roi_align {str(dtype)[6:]} B=8 N={n} P={pool} "
-                  f"C=256: {line}; op {ms:.4f} ms on the card (bound "
-                  f"{bound_ms:.4f} by {bound_by}, {bound_ms / ms:.1%} of "
-                  f"it; {issued_ms:.4f} ms a call as issued, host "
-                  f"included); the plain prologue that version 1 ran before "
-                  f"its launch {prologue_ms:.4f} ms; plain {plain_ms:.4f} "
-                  f"ms; the op ran {ops} and one K1 launch", flush=True)
+    for cfg in (slice_config(), rect_config()):
+        canvas = cfg.IMAGE_SHAPE
+        for dtype in (torch.float32, torch.bfloat16):
+            levels = [torch.randn(8, h, w, 256, generator=gen, device=DEVICE)
+                      .to(dtype) for h, w in stage_shapes(cfg)]
+            for pool, n in ROI_SHAPES:
+                boxes = torch.from_numpy(np.stack(
+                    [edge_boxes(rng, n) for _ in range(8)])).to(DEVICE)
+                flat = boxes.reshape(-1, 4)
+                got = kernels.roi_align(levels, flat, pool, canvas)
+                want = roi.multilevel_roi_align(levels, boxes, pool,
+                                                canvas).reshape(got.shape)
+                torch.cuda.synchronize()
+                differ = int((got != want).sum())
+                err = float((got.float() - want.float()).abs().max())
+                worst = max(worst, err)
+                line = (f"{differ} of {got.numel()} values differ, "
+                        f"max_abs_err {err:.3g}")
+                name = (f"{str(dtype)[6:]} {canvas[0]}x{canvas[1]} B=8 "
+                        f"N={n} P={pool} C=256")
+                if dtype == torch.float32:
+                    check(err <= 1e-5, f"roi_align {name}: err {err}")
+                else:
+                    ulps = bf16_ulps(got, want)
+                    check(ulps <= 1.0, f"roi_align {name}: {ulps} ulp")
+                    line += f" ({ulps:g} bf16 ulp)"
+                ops = roi_ops_check(kernels, roi, levels, boxes, pool,
+                                    canvas=canvas)
+                if canvas != CANVAS:
+                    print(f"[3] roi_align {name}: {line}; the op ran {ops} "
+                          f"and one K1 launch", flush=True)
+                    continue
+                ms, issued_ms, prologue_ms, plain_ms = roi_op_times(
+                    roi, levels, boxes, pool)
+                bound_ms, bound_by = roi_bound(roi, levels, boxes, pool, got)
+                times[(dtype, pool)] = (ms, plain_ms, issued_ms, bound_ms,
+                                        bound_by)
+                print(f"[3] roi_align {name}: {line}; op {ms:.4f} ms on the "
+                      f"card (bound {bound_ms:.4f} by {bound_by}, "
+                      f"{bound_ms / ms:.1%} of it; {issued_ms:.4f} ms a call "
+                      f"as issued, host included); the plain prologue that "
+                      f"version 1 ran before its launch {prologue_ms:.4f} "
+                      f"ms; plain {plain_ms:.4f} ms; the op ran {ops} and "
+                      f"one K1 launch", flush=True)
     return worst, times
 
 
@@ -313,45 +349,57 @@ ROI_SCALES = (0.021, 0.017, 0.032, 0.009)
 def roi_int8_phase(kernels, roi):
     """Phase 3b: K1's int8-table mode (fed only boxes) against its plain
     version with its PyTorch prologue at the slice's shapes (int8 P2..P5
-    with four level scales), bf16 and f32 out. Bar: bit-equal; else at
-    most 1 bf16 ulp, the count of differing values printed."""
+    with four level scales), bf16 and f32 out, on the 1024² canvas (timed)
+    and the 768x1024 one. Bar: bit-equal; else at most 1 bf16 ulp, the
+    count of differing values printed."""
     gen = torch.Generator(device=DEVICE).manual_seed(6)
     rng = np.random.RandomState(6)
-    levels = [torch.randint(-127, 128, (8, s, s, 256), generator=gen,
-                            device=DEVICE, dtype=torch.int8) for s in LEVELS]
     worst, times = 0.0, {}
-    for pool, n in ROI_SHAPES:
-        boxes = torch.from_numpy(np.stack(
-            [edge_boxes(rng, n) for _ in range(8)])).to(DEVICE)
-        flat = boxes.reshape(-1, 4)
-        for out_dtype in (torch.bfloat16, torch.float32):
-            args = (ROI_SCALES, out_dtype)
-            got = kernels.roi_align(levels, flat, pool, CANVAS, *args)
-            want = roi.multilevel_roi_align(levels, boxes, pool, CANVAS,
-                                            *args).reshape(got.shape)
-            torch.cuda.synchronize()
-            check(got.dtype == want.dtype == out_dtype,
-                  f"roi_align int8: out dtype {got.dtype}")
-            differ = int((got != want).sum())
-            err = float((got.float() - want.float()).abs().max())
-            ulps = bf16_ulps(got, want)
-            check(differ == 0 or ulps <= 1.0,
-                  f"roi_align int8 P={pool} {out_dtype}: {differ} differ, "
-                  f"{ulps} bf16 ulp")
-            worst = max(worst, err)
-            roi_ops_check(kernels, roi, levels, boxes, pool, *args)
-            ms, issued_ms, prologue_ms, plain_ms = roi_op_times(
-                roi, levels, boxes, pool, *args)
-            bound_ms, bound_by = roi_bound(roi, levels, boxes, pool, got)
-            times[(out_dtype, pool)] = (ms, plain_ms, issued_ms, bound_ms,
-                                        bound_by)
-            print(f"[3b] roi_align int8 tables -> {str(out_dtype)[6:]} B=8 "
-                  f"N={n} P={pool} C=256: {differ} of {got.numel()} values "
-                  f"differ, max_abs_err {err:.3g} ({ulps:g} bf16 ulp); "
-                  f"op {ms:.4f} ms on the card (bound {bound_ms:.4f} by "
-                  f"{bound_by}, {bound_ms / ms:.1%} of it; {issued_ms:.4f} "
-                  f"ms a call as issued); plain prologue {prologue_ms:.4f} "
-                  f"ms; plain {plain_ms:.4f} ms", flush=True)
+    for cfg in (slice_config(), rect_config()):
+        canvas = cfg.IMAGE_SHAPE
+        levels = [torch.randint(-127, 128, (8, h, w, 256), generator=gen,
+                                device=DEVICE, dtype=torch.int8)
+                  for h, w in stage_shapes(cfg)]
+        for pool, n in ROI_SHAPES:
+            boxes = torch.from_numpy(np.stack(
+                [edge_boxes(rng, n) for _ in range(8)])).to(DEVICE)
+            flat = boxes.reshape(-1, 4)
+            for out_dtype in (torch.bfloat16, torch.float32):
+                args = (ROI_SCALES, out_dtype)
+                got = kernels.roi_align(levels, flat, pool, canvas, *args)
+                want = roi.multilevel_roi_align(levels, boxes, pool, canvas,
+                                                *args).reshape(got.shape)
+                torch.cuda.synchronize()
+                name = (f"{str(out_dtype)[6:]} {canvas[0]}x{canvas[1]} B=8 "
+                        f"N={n} P={pool} C=256")
+                check(got.dtype == want.dtype == out_dtype,
+                      f"roi_align int8 {name}: out dtype {got.dtype}")
+                differ = int((got != want).sum())
+                err = float((got.float() - want.float()).abs().max())
+                ulps = bf16_ulps(got, want)
+                check(differ == 0 or ulps <= 1.0,
+                      f"roi_align int8 {name}: {differ} differ, {ulps} bf16 "
+                      f"ulp")
+                worst = max(worst, err)
+                roi_ops_check(kernels, roi, levels, boxes, pool, *args,
+                              canvas=canvas)
+                line = (f"{differ} of {got.numel()} values differ, "
+                        f"max_abs_err {err:.3g} ({ulps:g} bf16 ulp)")
+                if canvas != CANVAS:
+                    print(f"[3b] roi_align int8 tables -> {name}: {line}",
+                          flush=True)
+                    continue
+                ms, issued_ms, prologue_ms, plain_ms = roi_op_times(
+                    roi, levels, boxes, pool, *args)
+                bound_ms, bound_by = roi_bound(roi, levels, boxes, pool, got)
+                times[(out_dtype, pool)] = (ms, plain_ms, issued_ms,
+                                            bound_ms, bound_by)
+                print(f"[3b] roi_align int8 tables -> {name}: {line}; op "
+                      f"{ms:.4f} ms on the card (bound {bound_ms:.4f} by "
+                      f"{bound_by}, {bound_ms / ms:.1%} of it; "
+                      f"{issued_ms:.4f} ms a call as issued); plain prologue "
+                      f"{prologue_ms:.4f} ms; plain {plain_ms:.4f} ms",
+                      flush=True)
     return worst, times
 
 
@@ -605,7 +653,8 @@ def k3_bound(b, h, w, p):
 
 def bottleneck_phase(kernels, bt):
     """Phase 4b: K3 against the plain version, float32 (TF32 off) and
-    bfloat16, at the slice's block shapes and at odd small sizes: in bf16
+    bfloat16, at the slice's block shapes, in bf16 at the 768x1024
+    canvas's, and at odd small sizes: in bf16
     at each P of the four, whose tiles differ (8x16 with 64- or 128-column
     slices, 4x16 with the columns split at P=512), H and W that leave
     partial tiles. At B=8 in bf16: its time beside its bound and the share
@@ -618,6 +667,9 @@ def bottleneck_phase(kernels, bt):
               (3, 4, 4, 64, torch.bfloat16)]
     cases += [(2, h, w, p, torch.bfloat16) for _, _, p in BLOCK_SHAPES
               for h, w in ((25, 37), (5, 3))]
+    # the 768x1024 canvas's stages, as FOLD_BN runs them there
+    cases += [(8, h, w, p, torch.bfloat16) for (h, w), (_, _, p)
+              in zip(stage_shapes(rect_config()), BLOCK_SHAPES)]
     for b, h, w, p, dtype in cases:
         c = 4 * p
         x = torch.randn(b, h, w, c, generator=gen, device=DEVICE).to(dtype)
@@ -648,11 +700,12 @@ def bottleneck_phase(kernels, bt):
             if dtype == torch.bfloat16:
                 cudnn_ms = cuda_ms(cudnn_block(x, *weights), iters=10)
                 bound_ms, bound_by = k3_bound(b, h, w, p)
-                v3 = K3_V3_MS[(h, w, p)]
                 line += (f"; bound {bound_ms:.4f} ms by {bound_by}, "
                          f"{bound_ms / ms:.1%} of it; cuDNN bf16 block "
-                         f"{cudnn_ms:.4f} ms; v3 {v3} ms (PERF.md), "
-                         f"{v3 / ms:.2f}x")
+                         f"{cudnn_ms:.4f} ms")
+                v3 = K3_V3_MS.get((h, w, p))
+                if v3:
+                    line += f"; v3 {v3} ms (PERF.md), {v3 / ms:.2f}x"
                 times[(h, w, p)] = (ms, plain_ms, cudnn_ms, bound_ms,
                                     bound_by)
         print(f"[4b] bottleneck {name}: {line}", flush=True)
@@ -661,7 +714,8 @@ def bottleneck_phase(kernels, bt):
 
 def paste_phase(kernels, mp, n, h, w):
     """Phase 4c: K4 against the plain version, at 400 detections (B=8 x
-    50) on the 1024² canvas and on a ragged canvas (a row pitch and plane
+    50) on the 1024² and the 768x1024 canvas and on a ragged canvas (a
+    row pitch and plane
     offsets that are not 16-byte aligned, padding bits): identical bits
     except threshold ties (pixels whose exact value lies within an ulp of
     127.5), none outside the boxes, in invalid rows or in the padding."""
@@ -809,10 +863,31 @@ def slice_config():
     return CocoInferenceConfig().replace(ORIG_MASK_CANVAS=1024)
 
 
+def rect_config():
+    """slice_config on the RECT_CANVAS canvas."""
+    return slice_config().replace(IMAGE_CANVAS=RECT_CANVAS)
+
+
+def stage_shapes(cfg):
+    """(H, W) of C2..C5 and P2..P5 on cfg's canvas."""
+    h, w = cfg.IMAGE_SHAPE[:2]
+    return [(h // s, w // s) for s in cfg.BACKBONE_STRIDES[:4]]
+
+
 def cfg_name(cfg) -> str:
-    return (f"{cfg.BACKBONE} {cfg.IMAGE_MAX_DIM}² {cfg.COMPUTE_DTYPE}"
-            + (" FOLD_BN" if cfg.FOLD_BN else "")
-            + (" QUANT_INT8" if cfg.QUANT_INT8 else ""))
+    h, w = cfg.IMAGE_SHAPE[:2]
+    stages = len(cfg.CASCADE_STAGES)
+    sigma = cfg.DETECTION_SOFT_NMS_SIGMA
+    return (f"{cfg.BACKBONE} {h}² " if h == w else
+            f"{cfg.BACKBONE} {h}x{w} ") + (
+        cfg.COMPUTE_DTYPE
+        + (" FOLD_BN" if cfg.FOLD_BN else "")
+        + (" QUANT_INT8" if cfg.QUANT_INT8 else "")
+        + (f" cascade x{stages}" if stages else "")
+        + (" TTA" if cfg.TTA_HFLIP else "")
+        + (f" soft-NMS {sigma}" if sigma else "")
+        + (f" keypoints {cfg.NUM_KEYPOINTS}" if cfg.NUM_KEYPOINTS else "")
+        + (" DEVICE_RESIZE" if cfg.DEVICE_RESIZE else ""))
 
 
 def make_images(rng, shapes):
@@ -936,8 +1011,7 @@ def intermediates_phase(det, images, kernels, roi, nms):
     cfg, model = det.config, det.model
     batch, _, _ = det._preprocess(images)
     with torch.inference_mode():
-        x = normalize_image(torch.from_numpy(batch).to(DEVICE),
-                            cfg.MEAN_PIXEL)
+        x = normalize_image(batch, cfg.MEAN_PIXEL)
         feats = model.backbone(x)
         fg, deltas = model.rpn_scores(feats)
         cand = pipeline.rpn_candidates(cfg, model.anchors(), fg, deltas)
@@ -961,22 +1035,28 @@ def intermediates_phase(det, images, kernels, roi, nms):
     return err
 
 
-def tiny_inputs():
+def tiny_inputs(h: int = 128, w: int = 128):
     rng = np.random.RandomState(3)
-    images = rng.randint(0, 256, (2, 128, 128, 3), dtype=np.uint8)
-    windows = np.array([[0, 0, 128, 128], [16, 0, 112, 128]], np.float32)
+    images = rng.randint(0, 256, (2, h, w, 3), dtype=np.uint8)
+    windows = np.array([[0, 0, h, w], [16, 0, h - 16, w]], np.float32)
     return torch.from_numpy(images), torch.from_numpy(windows)
 
 
-def tiny_model(fold: bool, device, act_stats=None):
-    """The 128-px float32 config with seeded weights (folded under
-    FOLD_BN), every detection kept. With `act_stats` (calibration stats):
-    QUANT_INT8, quantized with them."""
+def tiny_config(fold: bool = False, quant: bool = False, **overrides):
+    """The 128-px float32 config, every detection kept, with `overrides`
+    (an inference protocol at tiny width)."""
     from maskrcnn_tpu_torch import TinyConfig
+    return TinyConfig().replace(DETECTION_MIN_CONFIDENCE=0.0, FOLD_BN=fold,
+                                QUANT_INT8=quant, **overrides)
+
+
+def tiny_model(fold: bool, device, act_stats=None, **overrides):
+    """The tiny config (`tiny_config`) with seeded weights (folded under
+    FOLD_BN). With `act_stats` (calibration stats): QUANT_INT8, quantized
+    with them."""
     from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
     from maskrcnn_tpu_torch.quant import prepare_quant_params
-    cfg = TinyConfig().replace(DETECTION_MIN_CONFIDENCE=0.0, FOLD_BN=fold,
-                               QUANT_INT8=act_stats is not None)
+    cfg = tiny_config(fold, act_stats is not None, **overrides)
     model = MaskRCNN(cfg, device).init(torch.Generator().manual_seed(5))
     if act_stats is not None:
         model.set_quant(prepare_quant_params(model, model.float_state,
@@ -984,31 +1064,33 @@ def tiny_model(fold: bool, device, act_stats=None):
     return model
 
 
-def tiny_act_stats():
+def tiny_act_stats(**overrides):
     """Calibration stats of the tiny int8 model, taken on the CPU: one
     dict for both sides of the int8 parity."""
-    from maskrcnn_tpu_torch import TinyConfig
     from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
     from maskrcnn_tpu_torch.quant import calibrate, default_calib_canvases
-    cfg = TinyConfig().replace(DETECTION_MIN_CONFIDENCE=0.0, QUANT_INT8=True)
+    cfg = tiny_config(quant=True, **overrides)
     model = MaskRCNN(cfg, "cpu").init(torch.Generator().manual_seed(5))
     return calibrate(model, model.float_state,
                      default_calib_canvases(cfg.IMAGE_SHAPE, n=2))
 
 
-def tiny_parity_phase(fold: bool = False, tag: str = "5", act_stats=None):
+def tiny_parity_phase(fold: bool = False, tag: str = "5", act_stats=None,
+                      what: str = "", **overrides):
     """Phase 5c (5e under FOLD_BN, 5g under QUANT_INT8 with one shared
-    act_stats): the port on the card against the port on the CPU, 128-px
-    float32 config, TF32 off; the bar of the CPU parity tests."""
+    act_stats, 5i under an inference protocol's `overrides`): the port on
+    the card against the port on the CPU, 128-px float32 config, TF32
+    off; the bar of the CPU parity tests, and keypoints within 1e-3 px
+    and 1e-4 in score where both have the detection."""
     from maskrcnn_tpu_torch.detection.pipeline import predict_step
-    cpu = tiny_model(fold, "cpu", act_stats)
-    gpu = tiny_model(fold, DEVICE, act_stats)
-    images, windows = tiny_inputs()
+    cpu = tiny_model(fold, "cpu", act_stats, **overrides)
+    gpu = tiny_model(fold, DEVICE, act_stats, **overrides)
+    images, windows = tiny_inputs(*cpu.config.IMAGE_SHAPE[:2])
     want = predict_step(cpu, images, windows)
     got = predict_step(gpu, images.to(DEVICE), windows.to(DEVICE))
     got = {k: v.cpu() for k, v in got.items()}
     total = equal = mism = nbytes = 0
-    dscore = 0.0
+    dscore = dkp = 0.0
     for i in range(2):
         found = {(int(got["class_ids"][i, s]),
                   tuple(got["boxes"][i, s].tolist())): s
@@ -1025,16 +1107,24 @@ def tiny_parity_phase(fold: bool = False, tag: str = "5", act_stats=None):
                 a, b = want["masks_packed"][i, s], got["masks_packed"][i, p]
                 mism += int((a != b).sum())
                 nbytes += a.numel()
+                if "keypoints" in want and s < want["keypoints"].shape[1]:
+                    d = (want["keypoints"][i, s]
+                         - got["keypoints"][i, p]).abs()
+                    dkp = max(dkp, float(d[:, :2].max()))
+                    check(float(d[:, 2].max()) <= 1e-4,
+                          f"tiny cuda vs cpu: keypoint scores {d[:, 2]}")
     share = equal / max(total, 1)
     check(total > 0 and share >= 0.9 and dscore <= 1e-4
-          and mism <= 0.01 * max(nbytes, 1),
+          and mism <= 0.01 * max(nbytes, 1) and dkp <= 1e-3,
           f"tiny cuda vs cpu: share {share}, dscore {dscore}, "
-          f"mask bytes {mism}/{nbytes}")
+          f"mask bytes {mism}/{nbytes}, keypoints {dkp} px")
     print(f"[{tag}] tiny f32{' FOLD_BN' if fold else ''}"
-          f"{' QUANT_INT8' if act_stats else ''} predict_step "
+          f"{' QUANT_INT8' if act_stats else ''}{what} predict_step "
           f"cuda vs cpu: {total} valid, (class, box) equal {share:.4f}, max "
           f"|dscore| {dscore:.3g}, mask byte mismatch "
-          f"{mism / max(nbytes, 1):.3g}", flush=True)
+          f"{mism / max(nbytes, 1):.3g}"
+          + (f", max |dkeypoint| {dkp:.3g} px" if "keypoints" in want
+             else ""), flush=True)
 
 
 def fold_parity_phase():
@@ -1178,6 +1268,49 @@ def coco_ground_truth(ds, results):
                                 for c in COCO_CLASS_IDS[1:]]})
 
 
+def device_resize_check(det, images, card):
+    """Phase 5h, the DEVICE_RESIZE route: the canvases the Detector
+    places on the card against `batched_resize_pad`'s plain run on the
+    CPU: uint8 equal but where the float64 value of the CPU's matrices
+    lies within 1e-4 of a .5 tie (the card's products sum in another
+    order), each such value counted; the resample's device time."""
+    from maskrcnn_tpu_torch.ops.image import batched_resize_pad, bucket_raws
+    batch, windows, scales = det._preprocess(images)
+    check(batch.is_cuda and all(s > 1.0 for s in scales),
+          "DEVICE_RESIZE: the COCO-sized images go to the device route")
+    raws, sizes = bucket_raws(images)
+    hb, wb = raws.shape[1:3]
+    win = torch.tensor(windows, dtype=torch.int32)
+    sizes = torch.from_numpy(sizes)
+    canvas = det.config.IMAGE_SHAPE[:2]
+    want = batched_resize_pad(torch.from_numpy(raws), win, sizes, canvas)
+    got = batch.cpu()
+    apart = torch.nonzero(got != want).tolist()
+    check(len(apart) <= 1e-4 * got.numel(), f"DEVICE_RESIZE: {len(apart)} "
+          "canvas values apart")
+    from maskrcnn_tpu_torch.ops.image import axis_resize_matrix
+    f = win.to(torch.float32)
+    vmat = axis_resize_matrix(canvas[0], hb, f[:, 0], sizes[:, 0],
+                              f[:, 2] - f[:, 0]).double()
+    hmat = axis_resize_matrix(canvas[1], wb, f[:, 1], sizes[:, 1],
+                              f[:, 3] - f[:, 1]).double()
+    rawd = torch.from_numpy(raws).double()
+    worst = 0.0
+    for b, y, x, c in apart:
+        exact = float(vmat[b, y] @ rawd[b, :, :, c] @ hmat[b, x])
+        worst = max(worst, abs(exact - np.floor(exact) - 0.5))
+    check(worst < 1e-4, f"DEVICE_RESIZE: a value apart lies {worst} from "
+          "a .5 tie")
+    dev_args = (torch.from_numpy(raws).to(DEVICE), win.to(DEVICE),
+                sizes.to(DEVICE), canvas)
+    ms = cuda_ms(lambda: batched_resize_pad(*dev_args), iters=10)
+    print(f"[5h] DEVICE_RESIZE canvases, card vs the CPU's plain run: "
+          f"{len(apart)} of {got.numel()} values apart, each within "
+          f"{worst:.3g} of a .5 tie; the resample of the {len(images)} "
+          f"images ({hb}x{wb} bucket to {canvas[0]}x{canvas[1]}) "
+          f"{ms:.4f} ms on the card; {card}", flush=True)
+
+
 def host_runs(fn, reps: int = 3):
     """Host times of `reps` calls of fn(), in ms (the work ends on the
     host)."""
@@ -1225,13 +1358,15 @@ def product_phase(kernels, card, cfg=None, shapes=COCO_SHAPES,
     det = loaded(cfg)
     fdet = loaded(cfg.replace(FOLD_BN=True))
     hdet = loaded(cfg.replace(DEVICE_MASK_DECODE=False))
+    rdet = loaded(cfg.replace(DEVICE_RESIZE=True))
     for d, what in ((det, "default"), (fdet, "FOLD_BN")):
         check_loaded_state(d, state, f"load_weights {what}")
     mib = path.stat().st_size / 2**20
     path.unlink()
     print(f"[5h] seeded float32 state as a .pth ({mib:.1f} MiB), "
-          f"load_weights into default, FOLD_BN and host-decode "
-          f"Detectors {cfg_name(cfg)} in {time.perf_counter() - t0:.1f} s: "
+          f"load_weights into default, FOLD_BN, host-decode and "
+          f"DEVICE_RESIZE Detectors {cfg_name(cfg)} in "
+          f"{time.perf_counter() - t0:.1f} s: "
           f"default and FOLD_BN states bit-equal to the file's", flush=True)
 
     rng = np.random.RandomState(5)
@@ -1269,6 +1404,9 @@ def product_phase(kernels, card, cfg=None, shapes=COCO_SHAPES,
     route, _ = request(f"request with a {large[0]}x{large[1]} image", det,
                        images[:3] + [big])
     check(route == "host", "an image above ORIG_MASK_CANVAS: host decode")
+    route, _ = request("coco-sized request, DEVICE_RESIZE", rdet, images)
+    check(route == "device", "DEVICE_RESIZE: device decode")
+    device_resize_check(rdet, images, card)
     route, host_res = request("coco-sized request, DEVICE_MASK_DECODE=False",
                               hdet, images)
     check(route == "host", "DEVICE_MASK_DECODE=False: host decode")
@@ -1342,7 +1480,8 @@ def product_phase(kernels, card, cfg=None, shapes=COCO_SHAPES,
           f"{decode / b:.2f} ms in series, {threaded / b:.2f} ms over "
           f"{b} threads ({decode / max(n_masks, 1):.3f} ms a mask, "
           f"{n_masks} masks, {nonempty} nonempty), RLE encode {rle / b:.2f} ms; {card}", flush=True)
-    for d, name in ((det, "device decode"), (hdet, "host decode")):
+    for d, name in ((det, "device decode"), (hdet, "host decode"),
+                    (rdet, "device resample and decode")):
         d.detect_batch(images)
         runs = []
         for _ in range(3):
@@ -1369,17 +1508,19 @@ def product_phase(kernels, card, cfg=None, shapes=COCO_SHAPES,
     return launches
 
 
-def timing_phase(det, images, card, tag="6"):
-    """Phase 6: predict_step at B=8 and at B=1, the median of 5 calls
-    after 2 warm-ups, each timed by CUDA events around the call. One B=8
-    call first runs with synchronising calls turned into errors."""
+def timing_phase(det, images, card, tag="6", reps: int = 5,
+                 warmup: int = 2):
+    """Phase 6: predict_step at B=8 and at B=1, the median of `reps`
+    calls after `warmup` warm-ups, each timed by CUDA events around the
+    call. One B=8 call first runs with synchronising calls turned into
+    errors. Returns the canvases, windows and {B: median ms}."""
     from maskrcnn_tpu_torch.detection.pipeline import predict_step
-    batch, windows, _ = det._preprocess(images)
-    x = torch.from_numpy(batch).to(DEVICE)
+    x, windows, _ = det._preprocess(images)
     win = torch.tensor(windows, dtype=torch.float32, device=DEVICE)
+    medians = {}
     for b in (len(images), 1):
         torch.cuda.reset_peak_memory_stats()
-        for _ in range(2):
+        for _ in range(warmup):
             predict_step(det.model, x[:b], win[:b])
         torch.cuda.synchronize()
         if b > 1:
@@ -1391,7 +1532,7 @@ def timing_phase(det, images, card, tag="6"):
                 torch.cuda.set_sync_debug_mode("default")
             torch.cuda.synchronize()
         runs = []
-        for _ in range(5):
+        for _ in range(reps):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -1400,11 +1541,215 @@ def timing_phase(det, images, card, tag="6"):
             torch.cuda.synchronize()
             runs.append(start.elapsed_time(end))
         ms = statistics.median(runs)
+        medians[b] = ms
         print(f"[{tag}] predict_step B={b} {cfg_name(det.config)}: median {ms} "
               f"ms/batch ({b * 1000.0 / ms} img/s), runs {runs}, peak mem "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}",
               flush=True)
-    return x, win
+    return x, win, medians
+
+
+# Phase 5i: the README's serving presets and the other inference
+# protocols at full width: (name, overrides, the tiny parity's overrides,
+# K1 and K2 launches of one step)
+PROTOCOLS = (
+    ("box quality: cascade + soft-NMS",
+     dict(CASCADE_STAGES=(0.5, 0.6, 0.7), DETECTION_SOFT_NMS_SIGMA=0.5),
+     dict(CASCADE_STAGES=(0.5, 0.6, 0.7), DETECTION_SOFT_NMS_SIGMA=0.5),
+     4, 1),
+    ("mask quality: TTA + soft-NMS",
+     dict(TTA_HFLIP=True, DETECTION_SOFT_NMS_SIGMA=0.5),
+     dict(TTA_HFLIP=True, DETECTION_SOFT_NMS_SIGMA=0.5), 3, 2),
+    ("TTA, hard NMS", dict(TTA_HFLIP=True), dict(TTA_HFLIP=True), 3, 5),
+    ("keypoints", dict(NUM_KEYPOINTS=17),
+     dict(NUM_KEYPOINTS=4, KEYPOINT_HEAD_CONVS=2, KEYPOINT_HEAD_DIM=32),
+     2, 2),
+    ("768x1024 canvas, FOLD_BN", dict(IMAGE_CANVAS=RECT_CANVAS, FOLD_BN=True),
+     dict(IMAGE_CANVAS=(128, 192), FOLD_BN=True), 2, 2),
+    ("max throughput: 768x1024 canvas, QUANT_INT8",
+     dict(IMAGE_CANVAS=RECT_CANVAS, QUANT_INT8=True),
+     dict(IMAGE_CANVAS=(128, 192), QUANT_INT8=True), 2, 2),
+)
+
+
+def request_shapes(cfg, rng):
+    """Eight image shapes that land on the canvas at scale 1 (no
+    resample): on the square canvas min side >= IMAGE_MIN_DIM; on a
+    rectangular one, images as tall or as wide as the canvas."""
+    ch, cw = cfg.IMAGE_SHAPE[:2]
+    if ch == cw:
+        lo, hi = cfg.IMAGE_MIN_DIM, ch
+        return [(lo, hi), (hi, hi)] + [
+            tuple(int(v) for v in rng.randint(lo // 16, hi // 16 + 1, 2) * 16)
+            for _ in range(6)]
+    return [(ch, cw), (ch, cw - cw // 8), (ch - ch // 12, cw),
+            (ch - ch // 3, cw), (ch, cw - 3 * cw // 8), (ch - ch // 6, cw),
+            (ch, cw - cw // 4), (ch - 5 * ch // 12, cw)]
+
+
+class NmsCalls:
+    """Records every class-offset NMS call the pipeline makes (its
+    score-sorted boxes, classes and valid rows), for the kernel's check
+    against the plain version on the inputs the callers give it."""
+
+    def __init__(self, pipeline):
+        self.pipeline, self.calls = pipeline, []
+        self.inner = pipeline.multiclass_nms_mask
+
+    def __enter__(self):
+        def record(boxes, class_ids, valid, thr, coord_span):
+            self.calls.append((boxes, class_ids, valid, thr, coord_span))
+            return self.inner(boxes, class_ids, valid, thr, coord_span)
+        self.pipeline.multiclass_nms_mask = record
+        return self
+
+    def __exit__(self, *exc):
+        self.pipeline.multiclass_nms_mask = self.inner
+
+
+def soft_nms_cost(nms, card):
+    """Phase 5i: soft-NMS (plain PyTorch on every device) at the refine's
+    shape (B=8, N=500 score-sorted rows, D=50 steps) and the TTA merge's
+    (N=100): the PyTorch ops that compute a call (views aside; on the
+    card each is a launch, but for an op on a CPU scalar), its time on
+    the card queued, and as a caller issues it (host cost included)."""
+    gen = torch.Generator().manual_seed(4)
+    for n in (500, 100):
+        ctr = torch.rand(8, n, 2, generator=gen) * 900
+        size = torch.rand(8, n, 2, generator=gen) * 200 + 8
+        boxes = torch.cat([ctr, ctr + size], -1).to(DEVICE)
+        scores = torch.sort(torch.rand(8, n, generator=gen), descending=True,
+                            dim=-1).values.to(DEVICE)
+        valid = (torch.rand(8, n, generator=gen) > 0.3).to(DEVICE)
+
+        def call():
+            return nms.soft_nms_scores(boxes, scores, valid, 0.5, 50)
+        with op_log() as ops:
+            call()
+        queued, issued = cuda_ms(call, iters=10), cuda_ms(call, iters=10,
+                                                          queued=False)
+        print(f"[5i] soft-NMS B=8 N={n}, 50 steps: {len(ops.computed)} "
+              f"PyTorch ops a call, {queued:.4f} ms on the card queued, "
+              f"{issued:.4f} ms as issued; {card}", flush=True)
+
+
+def protocols_phase(kernels, nms, card, base_ms):
+    """Phase 5i: each of PROTOCOLS through a Detector at full width
+    (CocoInferenceConfig: ResNet-101, 81 classes, bf16, seeded weights):
+    three requests (8, 8 and 1 images at scale 1), with checks of every
+    result (keypoints: the fifth element, finite, [n, 17, 3] float64);
+    the kernels' launches of one B=8 step against the expected (K1 once a
+    cascade stage and once a TTA pass, plus the mask head's; K2 for each
+    RPN, hard detection and hard merge NMS; K3 29 times under FOLD_BN; K4
+    once); under hard TTA every class-offset NMS call of the step (the
+    merge's at N = 2D) through the kernel and the plain version, keep
+    masks identical; one step in sync-debug "error" mode; B=8 and B=1
+    step medians (of 3) beside the default's (`base_ms`); the port on the
+    card against the port on the CPU at tiny width. Returns the launches
+    of the requests and steps."""
+    from maskrcnn_tpu_torch.api import Detector
+    from maskrcnn_tpu_torch.detection import pipeline
+    from maskrcnn_tpu_torch.quant import default_calib_canvases
+    soft_nms_cost(nms, card)
+    total = {}
+    for name, overrides, tiny, k1, k2 in PROTOCOLS:
+        cfg = slice_config().replace(**overrides)
+        t0 = time.perf_counter()
+        calib = (default_calib_canvases(cfg.IMAGE_SHAPE, n=2)
+                 if cfg.QUANT_INT8 else None)
+        det = Detector(cfg, device=DEVICE,
+                       generator=torch.Generator().manual_seed(0),
+                       calib_images=calib)
+        det.prepare()
+        torch.cuda.synchronize()
+        print(f"[5i] {name}: Detector {cfg_name(cfg)}, seeded init"
+              f"{' and calibration' if cfg.QUANT_INT8 else ''} "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        rng = np.random.RandomState(2)
+        shapes = request_shapes(cfg, rng)
+        requests = [make_images(rng, shapes), make_images(rng, shapes[::-1]),
+                    make_images(rng, shapes[2:3])]
+        reset_counts(kernels)
+        for r, images in enumerate(requests):
+            results = det.detect_batch(images)
+            per_image = []
+            for img, res in zip(images, results):
+                check(res is not None, f"{name} request {r}: an image has "
+                      "no detection")
+                check(len(res) == (5 if cfg.NUM_KEYPOINTS else 4),
+                      f"{name} request {r}: result tuple")
+                cls, scores, boxes, masks = res[:4]
+                check(len(cls) >= 1 and masks.shape == (len(cls),)
+                      + img.shape[:2] and np.isfinite(boxes).all()
+                      and np.isfinite(scores).all()
+                      and all(0 < c < cfg.NUM_CLASSES for c in cls),
+                      f"{name} request {r}: decoded results")
+                if cfg.NUM_KEYPOINTS:
+                    kp = res[4]
+                    check(kp.shape == (len(cls), cfg.NUM_KEYPOINTS, 3)
+                          and kp.dtype == np.float64
+                          and np.isfinite(kp).all(),
+                          f"{name} request {r}: keypoints {kp.shape}")
+                per_image.append(len(cls))
+            print(f"[5i] {name}: request {r}, {len(images)} images, "
+                  f"detections {per_image}", flush=True)
+
+        x, windows, _ = det._preprocess(requests[0])
+        win = torch.tensor(windows, dtype=torch.float32, device=DEVICE)
+        before = launch_counts(kernels)
+        with NmsCalls(pipeline) as rec:
+            out = pipeline.predict_step(det.model, x, win)
+        step = {k: v - before[k] for k, v in launch_counts(kernels).items()}
+        gemms = len(det.model.quant["convs"]) + 4 if cfg.QUANT_INT8 else 0
+        want = {"roi_align": k1, "nms": k2,
+                "bottleneck": 29 if cfg.FOLD_BN else 0, "paste_pack": 1,
+                "roi_align_int8": k1 if cfg.QUANT_INT8 else 0,
+                "int8_gemm": gemms, "group_roi": 0}
+        check(step == want, f"{name}: launches of one step {step}, want "
+              f"{want}")
+        d = cfg.DETECTION_MAX_INSTANCES
+        check(tuple(out["boxes"].shape) == (8, d, 4)
+              and bool(torch.isfinite(out["scores"]).all()),
+              f"{name}: step outputs")
+        if cfg.NUM_KEYPOINTS:
+            n = min(cfg.KEYPOINT_MAX_INSTANCES or d, d)
+            check(tuple(out["keypoints"].shape)
+                  == (8, n, cfg.NUM_KEYPOINTS, 3)
+                  and bool(torch.isfinite(out["keypoints"]).all()),
+                  f"{name}: keypoints {tuple(out['keypoints'].shape)}")
+        print(f"[5i] {name}: launches of one B=8 step "
+              + " ".join(f"{k} {v}" for k, v in step.items()), flush=True)
+        _, _, ms = timing_phase(det, requests[0], card, tag="5i", reps=3,
+                                warmup=1)
+        print(f"[5i] {name}: B=8 {ms[8]:.3f} ms ({ms[8] / base_ms[8]:.3f}x "
+              f"the default's {base_ms[8]:.3f}), B=1 {ms[1]:.3f} ms "
+              f"({ms[1] / base_ms[1]:.3f}x the default's {base_ms[1]:.3f}); "
+              f"{card}", flush=True)
+        # the main path's launches end here: the checks below compare
+        for k, v in launch_counts(kernels).items():
+            total[k] = total.get(k, 0) + v
+        merged = ""
+        for boxes, class_ids, valid, thr, span in rec.calls:
+            offset = class_ids.to(boxes.dtype)[..., None] * (span + 2.0)
+            ob = (boxes + offset).contiguous()
+            keep_k = kernels.nms(ob, valid.contiguous(), thr)
+            keep_p = nms.nms_mask(ob, valid, thr)
+            diff = int((keep_k != keep_p).sum())
+            check(diff == 0, f"{name}: class-offset NMS at N="
+                  f"{boxes.shape[1]}: {diff} keep bits differ")
+            merged += (f" N={boxes.shape[1]} ({int(keep_k.sum())} of "
+                       f"{int(valid.sum())} kept)")
+        if merged:
+            print(f"[5i] {name}: class-offset NMS of the step, kernel vs "
+                  f"plain, keep masks identical:{merged}", flush=True)
+        tiny = {k: v for k, v in tiny.items() if k not in ("FOLD_BN",
+                                                          "QUANT_INT8")}
+        act_stats = tiny_act_stats(**tiny) if cfg.QUANT_INT8 else None
+        tiny_parity_phase(fold=cfg.FOLD_BN, tag="5i", act_stats=act_stats,
+                          what=f" {name}", **tiny)
+        del det, x, out, rec
+        torch.cuda.empty_cache()
+    return total
 
 
 def profile_phase(det, x, win, out_dir, name="predict_step"):
@@ -1482,6 +1827,7 @@ def main() -> int:
     k3_err, k3_times = bottleneck_phase(kernels, bt)
     k4_ties, *k4_times = paste_phase(kernels, mp, 400, 1024, 1024)
     k4_ragged_ties = paste_phase(kernels, mp, 100, 1000, 997)[0]
+    k4_ragged_ties += paste_phase(kernels, mp, 400, *RECT_CANVAS)[0]
     # K1's op on the card, bf16 P=7: 8 x 500 boxes
     k5_err, k5_times = group_roi_phase(
         roi_times[(torch.bfloat16, 7)][0] * 1e3 / 4000)
@@ -1499,19 +1845,21 @@ def main() -> int:
         kernels, cfg.replace(QUANT_INT8=True), tag="5f")
     tiny_parity_phase(tag="5g", act_stats=tiny_act_stats())
     product_launches = product_phase(kernels, card)
-    x, win = timing_phase(det, images, card)
+    x, win, base_ms = timing_phase(det, images, card)
     timing_phase(fdet, images, card)
     timing_phase(qdet, images, card)
+    protocol_launches = protocols_phase(kernels, nms, card, base_ms)
     if args.profile:
         profile_phase(det, x, win, args.profile)
         profile_phase(fdet, x, win, args.profile, "predict_step_fold_bn")
         profile_phase(qdet, x, win, args.profile, "predict_step_int8")
 
     # launches: the main-path runs (default, FOLD_BN and QUANT_INT8 slices,
-    # and the product surface's requests and evaluations); K1's
-    # float-table launches apart from its int8 ones
+    # the product surface's requests and evaluations, and the protocols'
+    # requests and steps); K1's float-table launches apart from its int8
+    # ones
     runs = {k: launches[k] + fold_launches[k] + quant_launches[k]
-            + product_launches[k] for k in launches}
+            + product_launches[k] + protocol_launches[k] for k in launches}
     runs["roi_align"] -= runs["roi_align_int8"]
 
     # K3 at its most frequent shape, C4 (22 of the 29 blocks); no single
@@ -1553,7 +1901,8 @@ def main() -> int:
               (k3_ms, k3_plain_ms, k3_bound_ms, k3_by),
               cudnn_block_ms=k3_cudnn_ms),
         # a bit's error is 0 or 1: 1 where a threshold tie landed on the
-        # other side, and tie_bits counts them (1024² and ragged canvas)
+        # other side, and tie_bits counts them (1024², 768x1024 and ragged
+        # canvas)
         entry("paste_pack", "paste_pack.cu",
               "benchmarks/gates/paste_pack_kernel.py:60",
               float(k4_ties + k4_ragged_ties > 0), k4_times,

@@ -7,13 +7,14 @@ counterpart of coco.py, with its argv, plus --device):
                          [--device cuda|cpu]
 
 Evaluation runs the minival subset through Detector.dispatch_batch/fetch
-(batches of 8, two in flight) and reports COCO bbox then segm AP. Masks
-are decoded on the host, the reference-parity decode, as coco.py does.
-Reading the image files needs Pillow; the Detector and the evaluation do
-not. `train` is not ported yet (ROADMAP Queue 1 item 5), and the options
-the port does not implement (--devices above 1, --sp, --keypoints,
---soft-nms, --tta, --cascade) reach the config, which raises
-NotImplementedError for them.
+(batches of 8, two in flight) and reports COCO bbox then segm AP, then,
+with --keypoints K, the OKS keypoint AP (ground truth with person
+keypoints). Masks are decoded on the host, the reference-parity decode,
+as coco.py does. --tta, --soft-nms SIGMA and --cascade IOUS set the
+config's inference protocols. Reading the image files needs Pillow; the
+Detector and the evaluation do not. `train` is not ported yet (ROADMAP
+Queue 1 item 5), and more than one device (--devices above 1, --sp)
+reaches the config, which raises NotImplementedError.
 """
 
 import argparse
@@ -67,16 +68,16 @@ def build_parser() -> argparse.ArgumentParser:
                         type=int, help="Gradient accumulation (train)")
     parser.add_argument("--keypoints", required=False, default=0,
                         type=int, metavar="K",
-                        help="Keypoint branch with K keypoints (not ported)")
+                        help="Keypoint branch with K keypoints (17 = COCO "
+                        "person keypoints); adds the keypoint AP")
     parser.add_argument("--soft-nms", required=False, default=0.0,
                         type=float, metavar="SIGMA",
-                        help="gaussian Soft-NMS sigma (not ported)")
+                        help="gaussian Soft-NMS sigma (0 = hard NMS)")
     parser.add_argument("--tta", action="store_true",
-                        help="horizontal-flip test-time augmentation "
-                        "(not ported)")
+                        help="horizontal-flip test-time augmentation")
     parser.add_argument("--cascade", required=False, default=None,
                         metavar="IOUS",
-                        help="Cascade R-CNN stage IoUs (not ported)")
+                        help="Cascade R-CNN stage IoUs, e.g. 0.5,0.6,0.7")
     parser.add_argument("--cascade-mask-last", action="store_true",
                         help="Cascade Mask R-CNN placement (train)")
     parser.add_argument("--device", required=False, default="cuda",
@@ -126,7 +127,9 @@ def main(argv=None) -> None:
     val_ds = CocoDataset(args.dataset, "minival", args.year, config)
     limit = int(args.limit)
     print(f"Running COCO evaluation on {limit} images.")
-    for eval_type in ("bbox", "segm"):
+    eval_types = ("bbox", "segm") + (("keypoints",) if args.keypoints
+                                     else ())
+    for eval_type in eval_types:
         evaluate_coco(detector, val_ds, val_ds.coco, eval_type, limit=limit,
                       batch_size=8)
 

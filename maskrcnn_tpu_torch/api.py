@@ -1,14 +1,18 @@
 """High-level inference API (counterpart of maskrcnn_tpu/api.py).
 
 `Detector` places images on the canvas on the host (`data.codecs`, no
-Pillow), runs `predict_step` on its device and decodes boxes with numpy,
-keeping the reference's `/(scale + 1e-5)` quirk. Masks go back to
-original-image coordinates on the device (`masks_to_original`) when
-every image of a request fits ORIG_MASK_CANVAS and DEVICE_MASK_DECODE is
-set; otherwise on the host (`codecs.decode_masks`, the reference-parity
-decode, each mask resampled over its nonzero region only). Covered: one
-device, float, folded (FOLD_BN) or int8 (QUANT_INT8) weights, no
-keypoints.
+Pillow) or, under DEVICE_RESIZE, on the device (`ops.image
+.batched_resize_pad`), runs `predict_step` on its device and decodes
+boxes with numpy, keeping the reference's `/(scale + 1e-5)` quirk. Masks
+go back to original-image coordinates on the device
+(`masks_to_original`) when every image of a request fits
+ORIG_MASK_CANVAS and DEVICE_MASK_DECODE is set; otherwise on the host
+(`codecs.decode_masks`, the reference-parity decode, each mask resampled
+over its nonzero region only). Keypoints (NUM_KEYPOINTS) go back to
+original coordinates on the host in float64. Covered: one device, float,
+folded (FOLD_BN) or int8 (QUANT_INT8) weights, and every inference
+protocol of the JAX Detector (cascade, soft-NMS, flip TTA, keypoints,
+rectangular canvases).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from maskrcnn_tpu_torch.detection.pipeline import predict_step
 from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN, resolve_device
 from maskrcnn_tpu_torch.ops import device_tensor
 from maskrcnn_tpu_torch.ops.bits import pack_masks_device, unpack_masks
+from maskrcnn_tpu_torch.ops.image import batched_resize_pad, bucket_raws
 from maskrcnn_tpu_torch.ops.mask_paste import masks_to_original
 
 
@@ -64,6 +69,20 @@ def _store_calib_stats(path, key, stats) -> None:
     with os.fdopen(fd, "w") as f:
         json.dump(blob, f)
     os.replace(tmp, path)
+
+
+def _original_keypoints(kp: np.ndarray, valid: np.ndarray, window,
+                        scale: float) -> np.ndarray:
+    """One image's canvas keypoints [n, K, 3] -> [valid.sum(), K, 3]
+    float64 in original coordinates (maskrcnn_tpu/api.py:351-368): y and
+    x less the window's top and left, over scale + 1e-5; rows of valid
+    detections past the n keypoint slots are zero."""
+    rows = kp[valid[:kp.shape[0]]].astype(np.float64)
+    rows[..., 0] = (rows[..., 0] - window[0]) / (scale + 1e-5)
+    rows[..., 1] = (rows[..., 1] - window[1]) / (scale + 1e-5)
+    out = np.zeros((int(valid.sum()),) + rows.shape[1:], np.float64)
+    out[:len(rows)] = rows
+    return out
 
 
 class Detector:
@@ -107,9 +126,13 @@ class Detector:
         FOLD_BN it is folded in float32 first; under QUANT_INT8 the next
         request prepares the new weights. reinit_mismatched=True keeps the
         model's own values for tensors whose shape differs (fine-tuning
-        to another NUM_CLASSES); without it they raise ValueError. An
-        orbax directory raises: it needs orbax, a JAX library."""
-        load_state(self.model, read_pth(path, self.config.BACKBONE),
+        to another NUM_CLASSES); without it they raise ValueError. A
+        cascade or keypoint head the file lacks (the reference `.pth`
+        has neither) keeps its initialization, and the branches are
+        printed. An orbax directory raises: it needs orbax, a JAX
+        library."""
+        load_state(self.model,
+                   read_pth(path, self.model.state_dict()),
                    reinit_mismatched=reinit_mismatched)
 
     def load_jax_params(self, params) -> None:
@@ -152,34 +175,55 @@ class Detector:
         return (top, left, top + nh, left + nw), scale
 
     def _preprocess(self, images: Sequence[np.ndarray]):
-        """Images -> (uint8 canvases [B, CH, CW, 3], windows, scales).
-        Each image is resampled to its window (codecs.resample_bilinear,
-        as resize_image does) unless at scale 1, and copied in."""
+        """Images -> (uint8 canvases [B, CH, CW, 3] on the device, windows,
+        scales).
+
+        On the host each image is resampled to its window
+        (codecs.resample_bilinear, as resize_image does) unless at scale
+        1, and copied in. Under DEVICE_RESIZE, when no image of the batch
+        needs a downscale, the raw pixels go to the device zero-padded
+        into a [B, Hb, Wb, 3] bucket (Hb, Wb rounded up to multiples of
+        64) and `batched_resize_pad` places them. A batch with an image
+        to downscale takes the host path: that is the JAX package's
+        routing rule (Config.DEVICE_RESIZE): the device resample
+        reproduces Pillow's filter only for an upscale (support 1)."""
         cfg = self.config
         ch, cw = int(cfg.IMAGE_SHAPE[0]), int(cfg.IMAGE_SHAPE[1])
+        geoms = [self._canvas_geometry(img.shape[0], img.shape[1],
+                                       cfg.IMAGE_MIN_DIM, ch, cw)
+                 for img in images]
+        windows = [g[0] for g in geoms]
+        scales = [g[1] for g in geoms]
+        dev = self.device
+        if cfg.DEVICE_RESIZE and all(s >= 1.0 for s in scales):
+            raws, sizes = bucket_raws(images)
+            batch = batched_resize_pad(
+                torch.from_numpy(raws).to(dev, non_blocking=True),
+                device_tensor(windows, torch.int32, dev),
+                device_tensor(sizes, torch.int32, dev), (ch, cw))
+            return batch, windows, scales
         batch = np.zeros((len(images), ch, cw, 3), np.uint8)
-        windows, scales = [], []
-        for i, img in enumerate(images):
-            window, scale = self._canvas_geometry(
-                img.shape[0], img.shape[1], cfg.IMAGE_MIN_DIM, ch, cw)
-            top, left, bottom, right = window
+        for i, (img, (top, left, bottom, right), scale) in enumerate(
+                zip(images, windows, scales)):
             if scale != 1.0:
                 img = resample_bilinear(img, bottom - top, right - left)
             batch[i, top:bottom, left:right] = img
-            windows.append(window)
-            scales.append(scale)
-        return batch, windows, scales
+        return torch.from_numpy(batch).to(dev), windows, scales
 
     def detect(self, image: np.ndarray):
         """One image -> (class_ids, scores, boxes, masks) in original
         coordinates, or (None, None, None, None) when nothing is found
-        (the reference contract, model.py:1120-1121)."""
+        (the reference contract, model.py:1120-1121). Under
+        NUM_KEYPOINTS the tuple gains a fifth element, the keypoints."""
         out = self.detect_batch([image])[0]
-        return (None,) * 4 if out is None else out
+        if out is None:
+            return (None,) * (5 if self.config.NUM_KEYPOINTS > 0 else 4)
+        return out
 
     def detect_batch(self, images: Sequence[np.ndarray]):
         """Batched detection -> per image (class_ids, scores, boxes, masks)
-        in original coordinates, or None when nothing was found."""
+        in original coordinates, and under NUM_KEYPOINTS the keypoints
+        [n, K, 3] (y, x, score), or None when nothing was found."""
         return self.fetch(self.dispatch_batch(images))
 
     def dispatch_batch(self, images: Sequence[np.ndarray]):
@@ -197,7 +241,7 @@ class Detector:
         batch, windows, scales = self._preprocess(images)
         dev = self.device
         win = device_tensor(windows, torch.float32, dev)
-        out = predict_step(self.model, torch.from_numpy(batch).to(dev), win)
+        out = predict_step(self.model, batch, win)
         if use_device:
             with torch.inference_mode():
                 masks = unpack_masks(out["masks_packed"],
@@ -219,10 +263,13 @@ class Detector:
         image's packed canvas masks go back to its original size through
         one `codecs.decode_masks` call, image after image (a thread pool
         over the images made the decode slower: its small tensor ops hold
-        the interpreter lock between them; PERF.md has the times)."""
+        the interpreter lock between them; PERF.md has the times).
+        Keypoints go to original coordinates in float64, as the JAX
+        Detector maps them; detections past the keypoint slots get zero
+        rows."""
         out, images, windows, scales, use_device = handle
-        small = {k: out[k].cpu().numpy()
-                 for k in ("class_ids", "scores", "boxes", "valid")}
+        small = {k: out[k].cpu().numpy() for k in out
+                 if k != "masks_packed"}
         valid = small["valid"]
         used = np.flatnonzero(valid.any(axis=0))
         n = int(used[-1]) + 1 if used.size else 0
@@ -240,9 +287,13 @@ class Detector:
             else:
                 masks = decode_masks(packed[i][v[:n]], scales[i], windows[i],
                                      oh, ow)
-            results.append((small["class_ids"][i][v].tolist(),
-                            small["scores"][i][v].tolist(),
-                            decode_boxes(small["boxes"][i][v], scales[i],
-                                         windows[i]).tolist(),
-                            masks))
+            res = (small["class_ids"][i][v].tolist(),
+                   small["scores"][i][v].tolist(),
+                   decode_boxes(small["boxes"][i][v], scales[i],
+                                windows[i]).tolist(),
+                   masks)
+            if "keypoints" in small:
+                res += (_original_keypoints(small["keypoints"][i], v,
+                                            windows[i], scales[i]),)
+            results.append(res)
         return results

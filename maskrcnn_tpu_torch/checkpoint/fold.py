@@ -18,7 +18,7 @@ from typing import Dict
 
 import numpy as np
 
-from maskrcnn_tpu_torch.checkpoint.convert import name_map
+from maskrcnn_tpu_torch.checkpoint.convert import name_map, state_branches
 
 # nn.BatchNorm2d(..., eps=0.001) in the reference (model.py:180)
 BN_EPS = 1e-3
@@ -47,10 +47,13 @@ def fold_state_dict(state: Dict[str, np.ndarray],
     """A new torch-layout state dict of float32 numpy arrays (conv weights
     [O, I, kh, kw]) with every conv/BN pair folded, as
     maskrcnn_tpu.checkpoint.fold.fold_bn_params folds a JAX tree. Pairs
-    are found through the flax paths of `convert.name_map`."""
-    torch_name = {fpath: tname for tname, fpath, _ in name_map(architecture)}
+    are found through the flax paths of `convert.name_map` with the
+    optional heads that `state` holds: the cascade's box heads fold like
+    the first; the keypoint head has no BN."""
+    names = name_map(architecture, **state_branches(state))
+    torch_name = {fpath: tname for tname, fpath, _ in names}
     out = dict(state)
-    for tname, fpath, kind in name_map(architecture):
+    for tname, fpath, kind in names:
         parent, _, leaf = fpath.rpartition("/")
         bn_leaf = _bn_partner(leaf)
         if kind != "conv" or bn_leaf is None:

@@ -21,25 +21,32 @@ from maskrcnn_tpu_torch.eval.cocoeval import COCOeval
 
 
 def build_coco_results(dataset, image_id, class_ids, scores, boxes,
-                       masks) -> List[dict]:
+                       masks, keypoints=None) -> List[dict]:
     """Result dicts for one image (reference: coco.py:40-75).
 
     boxes: [N, 4] (y1, x1, y2, x2) original coords; masks: [N, H, W]
-    uint8.
+    uint8; keypoints: optional [N, K, 3] (y, x, score) original coords
+    (the Detector's keypoint output), written in COCO's (x, y, v) order
+    with v = 1 for the OKS evaluation.
     """
     results = []
     for i in range(len(class_ids)):
         box = np.around(np.asarray(boxes[i], np.float64), 1)
         rle = rle_lib.encode(np.asfortranarray(masks[i]))
         rle["counts"] = rle["counts"].decode("ascii")
-        results.append({
+        r = {
             "image_id": image_id,
             "category_id": dataset.class_id(int(class_ids[i])),
             "bbox": [float(box[1]), float(box[0]),
                      float(box[3] - box[1]), float(box[2] - box[0])],
             "score": float(scores[i]),
             "segmentation": rle,
-        })
+        }
+        if keypoints is not None:
+            r["keypoints"] = [v for y, x, _ in np.asarray(keypoints[i],
+                                                          np.float64)
+                              for v in (float(x), float(y), 1)]
+        results.append(r)
     return results
 
 
@@ -74,11 +81,12 @@ def evaluate_coco(detector, dataset, coco, eval_type: str = "bbox",
         for image_id, out in zip(chunk, outs):
             if out is None:
                 continue
-            class_ids, scores, boxes, masks = out
+            class_ids, scores, boxes, masks = out[:4]
             boxes = np.asarray(boxes)
             results.extend(build_coco_results(
                 dataset, image_id, class_ids, scores,
-                boxes.astype(np.int32), np.asarray(masks, np.uint8)))
+                boxes.astype(np.int32), np.asarray(masks, np.uint8),
+                keypoints=out[4] if len(out) > 4 else None))
         done += len(chunk)
         progress(done, len(image_ids),
                  prefix=f"Evaluating {eval_type}",

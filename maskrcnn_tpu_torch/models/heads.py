@@ -1,6 +1,7 @@
-"""Box and mask heads (counterpart of maskrcnn_tpu/models/heads.py).
+"""Box, mask and keypoint heads (counterpart of
+maskrcnn_tpu/models/heads.py).
 
-Both take pooled RoI features in the JAX layout [N, P, P, 256] (NHWC);
+All take pooled RoI features in the JAX layout [N, P, P, 256] (NHWC);
 the NCHW view the convs read is free because the pooled tensor is
 contiguous NHWC, i.e. channels_last.
 """
@@ -65,3 +66,38 @@ class MaskHead(nn.Module):
         x = F.relu(self.deconv(x))
         x = self.conv5(x).to(torch.float32)
         return torch.sigmoid(x).permute(0, 2, 3, 1)
+
+
+class KeypointHead(nn.Module):
+    """pooled [N, P, P, 256] -> per-keypoint heatmap logits [N, 4P, 4P, K]
+    float32 (the JAX KeypointHead: `convs` x conv3x3 at `dim` with ReLU,
+    the 2x2 stride-2 deconv, ReLU, a 1x1 score conv, then a fixed 2x
+    bilinear upsample with half-pixel centers). No BN.
+
+    The upsample is F.interpolate(align_corners=False). jax.image.resize
+    renormalizes the edge taps instead of clamping the coordinate; at an
+    exact 2x upscale both give weights (1) at the edges and (0.75, 0.25)
+    inside, equal in exact arithmetic, but the JAX package blends one
+    axis after the other and the port both at once, so values may differ
+    in the last bits (tests/test_torch_protocols.py states the bound)."""
+
+    def __init__(self, num_keypoints: int, convs: int = 8, dim: int = 512,
+                 dtype=None, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.convs = convs
+        for i in range(1, convs + 1):
+            setattr(self, f"conv{i}", Conv2d(256 if i == 1 else dim, dim, 3,
+                                             padding=1, **kw))
+        self.deconv = ConvTranspose2d(dim, dim, 2, stride=2, **kw)
+        self.score = Conv2d(dim, num_keypoints, 1, **kw)
+
+    def forward(self, pooled: torch.Tensor) -> torch.Tensor:
+        x = pooled.to(self.deconv.weight.dtype).permute(0, 3, 1, 2)
+        for i in range(1, self.convs + 1):
+            x = F.relu(getattr(self, f"conv{i}")(x))
+        x = F.relu(self.deconv(x))
+        logits = self.score(x).to(torch.float32)
+        up = F.interpolate(logits, scale_factor=2, mode="bilinear",
+                           align_corners=False)
+        return up.permute(0, 2, 3, 1)

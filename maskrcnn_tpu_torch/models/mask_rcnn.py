@@ -3,9 +3,13 @@
 One nn.Module holding the backbone (`fpn`), `rpn`, box head
 (`classifier`) and `mask` head under the checkpoint's attribute names,
 so a `checkpoint.convert.from_jax_params` state dict loads with
-strict=True. Convolution and linear weights are stored in the compute
-dtype (Config.COMPUTE_DTYPE) in channels_last memory; the frozen-BN
-tensors stay float32. The stage API takes and returns the JAX layouts
+strict=True. Config.CASCADE_STAGES adds a box head a stage past the first
+(`classifier2`, ...; `classify_stage`) and Config.NUM_KEYPOINTS the
+keypoint head (`keypoint`; `predict_keypoints`), registered after the
+mask head so the two-head model's seeded draws stay as they were.
+Convolution and linear weights are stored in the compute dtype
+(Config.COMPUTE_DTYPE) in channels_last memory; the frozen-BN tensors
+stay float32. The stage API takes and returns the JAX layouts
 (NHWC maps, [N, P, P, C] pooled features).
 
 Config.FOLD_BN builds every frozen BN folded (it applies nothing) and
@@ -24,8 +28,9 @@ mask head's kernels) `predict_masks` take the int8 route, as the JAX
 package's MaskRCNN routes a tree with "quant". A QUANT_INT8 model used
 before `set_quant` raises, except inside `float_path()` (calibration).
 
-Options the port does not implement raise NotImplementedError here
-(`check_supported`) instead of running something else. The TPU knobs
+The options the port does not implement, more than one device, raise
+NotImplementedError here (`check_supported`) instead of running
+something else. The TPU knobs
 (NMS_IMPL, ROI_IMPL, S2D_STEM, REMAT_*, MATMUL_PRECISION) do not change
 the function computed and are ignored.
 """
@@ -43,7 +48,7 @@ from maskrcnn_tpu_torch.config import Config
 from maskrcnn_tpu_torch import quant
 from maskrcnn_tpu_torch.checkpoint.fold import fold_state_dict
 from maskrcnn_tpu_torch.models.fpn import FPN
-from maskrcnn_tpu_torch.models.heads import BoxHead, MaskHead
+from maskrcnn_tpu_torch.models.heads import BoxHead, KeypointHead, MaskHead
 from maskrcnn_tpu_torch.models.resnet import Bottleneck, FrozenBatchNorm
 from maskrcnn_tpu_torch.models.rpn import RPN
 from maskrcnn_tpu_torch.ops.anchors import config_anchors
@@ -51,12 +56,6 @@ from maskrcnn_tpu_torch.ops.anchors import config_anchors
 # (field, test that it is set away from its default): options that change
 # the function computed and are not ported yet
 UNPORTED = (
-    ("CASCADE_STAGES", lambda v: len(v) > 0),
-    ("NUM_KEYPOINTS", lambda v: v != 0),
-    ("TTA_HFLIP", bool),
-    ("DETECTION_SOFT_NMS_SIGMA", lambda v: v != 0.0),
-    ("IMAGE_CANVAS", lambda v: v is not None),
-    ("DEVICE_RESIZE", bool),
     ("NUM_DEVICES", lambda v: v > 1),
     ("SP_DEVICES", lambda v: v > 1),
 )
@@ -108,6 +107,14 @@ class MaskRCNN(nn.Module):
         self.classifier = BoxHead(config.NUM_CLASSES, config.POOL_SIZE, **kw,
                                   **fold)
         self.mask = MaskHead(config.NUM_CLASSES, **kw, **fold)
+        self.stages = max(1, len(config.CASCADE_STAGES))
+        for i in range(2, self.stages + 1):
+            setattr(self, f"classifier{i}", BoxHead(
+                config.NUM_CLASSES, config.POOL_SIZE, **kw, **fold))
+        if config.NUM_KEYPOINTS > 0:
+            self.keypoint = KeypointHead(config.NUM_KEYPOINTS,
+                                         config.KEYPOINT_HEAD_CONVS,
+                                         config.KEYPOINT_HEAD_DIM, **kw)
         self.register_buffer(
             "anchor_boxes",
             torch.from_numpy(config_anchors(config)).to(device),
@@ -215,6 +222,19 @@ class MaskRCNN(nn.Module):
     def classify(self, pooled: torch.Tensor):
         """Box head over pooled [N, 7, 7, 256]."""
         return self.classifier(pooled)
+
+    def classify_stage(self, pooled: torch.Tensor, stage: int):
+        """Cascade stage `stage`'s box head (stage 0 is `classifier`).
+        The box heads stay float under QUANT_INT8, as in the JAX
+        package."""
+        head = "classifier" if stage == 0 else f"classifier{stage + 1}"
+        return getattr(self, head)(pooled)
+
+    def predict_keypoints(self, pooled: torch.Tensor) -> torch.Tensor:
+        """Keypoint head over pooled [N, 14, 14, 256] -> heatmap logits
+        [N, 56, 56, K] float32; float under QUANT_INT8, as in the JAX
+        package."""
+        return self.keypoint(pooled)
 
     def predict_masks(self, pooled: torch.Tensor) -> torch.Tensor:
         """Mask head over pooled [N, 14, 14, 256] -> [N, 28, 28, K]. int8

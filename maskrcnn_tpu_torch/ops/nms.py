@@ -11,6 +11,10 @@ JAX default, a fixpoint `while_loop`, would read a flag back to the
 host on every sweep in eager PyTorch. `nms_mask_impl` dispatches by
 device: CUDA tensors go to the kernel (csrc/nms.cu), CPU tensors to
 `nms_mask`.
+
+`soft_nms_scores` is Gaussian soft-NMS (the JAX package's `lax.scan` of
+select-and-decay steps) as a fixed number of batched tensor steps: plain
+PyTorch on every device, with no host sync.
 """
 
 from __future__ import annotations
@@ -73,6 +77,46 @@ def nms_mask_impl(boxes: torch.Tensor, valid: torch.Tensor,
     if boxes.device.type == "cpu":
         return nms_mask(boxes, valid, iou_threshold)
     raise ValueError(f"nms: no implementation for device {boxes.device}")
+
+
+def soft_nms_scores(boxes: torch.Tensor, scores: torch.Tensor,
+                    valid: torch.Tensor, sigma: float,
+                    iters: int) -> torch.Tensor:
+    """Gaussian soft-NMS score decay (maskrcnn_tpu.ops.nms.soft_nms_scores),
+    batched: boxes [B, N, 4], scores [B, N] (>= 0), valid [B, N] bool ->
+    final scores [B, N] float32.
+
+    Each of `iters` steps selects the highest-scored valid box not yet
+    selected (ties to the lowest index, as jnp.argmax) and multiplies
+    every other unselected score by exp(-iou^2 / sigma) over the +1 IoU;
+    the selected box keeps its score at selection. Boxes never selected
+    (beyond `iters`, or invalid) return 0.
+
+    The JAX scan's values in six launches a step: the decay matrix is
+    computed once (the same elementwise ops the scan applies to a row),
+    with 1 on its diagonal so the selected box's own product leaves its
+    score as it is; a selected or invalid box is `blocked`. An image with
+    nothing left to select has every box blocked, so its step changes
+    nothing and the scan's `has` flag is not needed: nothing is read back
+    to the host. sigma divides as a float32 tensor (on CUDA a division by
+    a Python scalar is a reciprocal multiply)."""
+    iou = _iou_plus_one(boxes.to(torch.float32))
+    sig = device_tensor(sigma, torch.float32, boxes.device)
+    decay = torch.exp(-(iou * iou) / sig)
+    decay.diagonal(dim1=-2, dim2=-1).fill_(1.0)
+    cur = scores.to(torch.float32)
+    blocked = ~valid
+    n = decay.shape[-1]
+    # a tensor, not a Python scalar: torch.where would make a device
+    # scalar of it on every step
+    ninf = torch.full((1, 1), float("-inf"), device=cur.device)
+    for _ in range(iters):
+        i = torch.argmax(torch.where(blocked, ninf, cur), dim=-1,
+                         keepdim=True)                           # [B, 1]
+        row = torch.gather(decay, 1, i[..., None].expand(-1, 1, n))[:, 0]
+        cur = torch.where(blocked, cur, cur * row)
+        blocked.scatter_(1, i, True)
+    return torch.where(blocked & valid, cur, 0.0)
 
 
 def multiclass_nms_mask(boxes: torch.Tensor, class_ids: torch.Tensor,

@@ -9,7 +9,8 @@ int8 x int8 -> int32 convs with the float32 epilogue
 `y = float32(y32) * (sx * sw) + bias` (ops/int8_conv). Quantized: ResNet
 stages C2-C5, the FPN neck, the RPN shared 3x3 and the mask head's conv1-4.
 Float in the compute dtype: the stem, residual and top-down adds, the
-RPN's 18-channel 1x1, the box head, the mask deconv and conv5.
+RPN's 18-channel 1x1, the box head (and the cascade's stage heads), the
+mask deconv and conv5, and the keypoint head, as in the JAX package.
 Config.QUANT_SKIP keeps whole stage groups float.
 
 One traversal serves both modes (as quant.py:25-31): "calib" runs the

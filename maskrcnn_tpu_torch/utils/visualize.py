@@ -43,11 +43,13 @@ def display_instances(image: np.ndarray, boxes, masks, class_ids,
                       class_names: Sequence[str],
                       scores: Optional[Sequence[float]] = None,
                       title: str = "", figsize=(16, 16), ax=None,
-                      save_path: Optional[str] = None):
+                      save_path: Optional[str] = None, keypoints=None):
     """Draw boxes, labels and mask contours (reference: utils.py:322-398).
 
-    boxes: [N, 4] (y1, x1, y2, x2); masks: [N, H, W]; class_ids: [N].
-    Saves to `save_path` when given, else shows the figure.
+    boxes: [N, 4] (y1, x1, y2, x2); masks: [N, H, W]; class_ids: [N];
+    keypoints: optional [N, K, 3] (y, x, score), drawn as dots in each
+    instance's colour. Saves to `save_path` when given, else shows the
+    figure.
     """
     import matplotlib
     matplotlib.use("Agg")
@@ -80,6 +82,10 @@ def display_instances(image: np.ndarray, boxes, masks, class_ids,
                 backgroundcolor="none")
         if masks is not None:
             shown = apply_mask(shown, np.asarray(masks[i]), color)
+        if keypoints is not None:
+            kp = np.asarray(keypoints[i])
+            ax.scatter(kp[:, 1], kp[:, 0], c=[color], s=14, marker="o",
+                       edgecolors="w", linewidths=0.5)
     ax.imshow(shown)
     if save_path:
         plt.savefig(save_path, bbox_inches="tight")

@@ -8,9 +8,10 @@ counterpart of predict.py, with its argv, plus --device):
 Loads the reference `mask_rcnn_coco.pth` when it exists (random weights
 otherwise), prints one line a detection (label id, Chinese name, box,
 score) and saves the overlay. Reading the image file needs Pillow and
-drawing needs matplotlib; the Detector needs neither. -tta, -soft-nms
-and -cascade reach the config, where the port raises NotImplementedError
-for them (not ported yet).
+drawing needs matplotlib; the Detector needs neither. -tta (flip
+test-time augmentation), -soft-nms SIGMA and -cascade IOUS set the
+config's inference protocols; the reference `.pth` has no cascade heads,
+so they keep their initialization (the Detector prints so).
 """
 
 import argparse
@@ -35,13 +36,13 @@ def build_parser() -> argparse.ArgumentParser:
                         help="save the rendered overlay to this path")
     parser.add_argument("-tta", action="store_true",
                         help="horizontal-flip test-time augmentation "
-                        "(config.TTA_HFLIP; not ported)")
+                        "(config.TTA_HFLIP)")
     parser.add_argument("-soft-nms", type=float, default=0.0, metavar="S",
                         help="gaussian Soft-NMS sigma instead of hard "
-                        "detection NMS (0 = off; not ported)")
+                        "detection NMS (0 = off)")
     parser.add_argument("-cascade", type=str, default=None, metavar="IOUS",
                         help="Cascade R-CNN stage IoUs, e.g. '0.5,0.6,0.7' "
-                        "(config.CASCADE_STAGES; not ported)")
+                        "(config.CASCADE_STAGES)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to run on [cuda]")
     parser.add_argument("image", type=str, help="image file")

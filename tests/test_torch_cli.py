@@ -1,8 +1,10 @@
 """The port's CLIs run in-process on the CPU (`--device cpu`) with the
 config class swapped for TinyConfig: predict_torch.py on
-images/sample.jpg with a `.pth` the port wrote, coco_torch.py evaluate on
-the synthetic COCO directory; the unported paths raise."""
+images/sample.jpg with a `.pth` the port wrote, with and without the
+inference protocols' flags; coco_torch.py evaluate on the synthetic COCO
+directory, with the protocols' flags too; `train` raises."""
 
+import json
 from pathlib import Path
 
 import pytest
@@ -24,8 +26,9 @@ def tiny_config(**kw):
 
 def test_predict_torch_cli(monkeypatch, tmp_path, capsys):
     """Loads the .pth, prints one line a detection (label id, Chinese
-    name, box, score) and saves the overlay; -tta reaches the config,
-    which raises NotImplementedError."""
+    name, box, score) and saves the overlay; -tta, -soft-nms and
+    -cascade run (the two-head .pth leaves the cascade heads at their
+    initialization, and says so)."""
     monkeypatch.setattr(predict_torch, "CocoInferenceConfig", tiny_config)
     weights = tmp_path / "tiny.pth"
     torch.save(Detector(tiny_config(), "cpu").model.state_dict(), weights)
@@ -36,14 +39,21 @@ def test_predict_torch_cli(monkeypatch, tmp_path, capsys):
     assert "Weight file not found ..." not in lines
     detections = [ln for ln in lines if ln.split(" ", 1)[0].isdigit()]
     assert detections and out.stat().st_size > 0
-    with pytest.raises(NotImplementedError, match="TTA_HFLIP"):
-        predict_torch.main(["--device", "cpu", "-tta",
-                            str(REPO / "images/sample.jpg")])
+    predict_torch.main(["--device", "cpu", "-model", str(weights), "-tta",
+                        "-soft-nms", "0.5", "-cascade", "0.5,0.6,0.7",
+                        "-output", str(out), str(REPO / "images/sample.jpg")])
+    lines = capsys.readouterr().out.splitlines()
+    assert any("checkpoint lacks ['classifier2', 'classifier3']" in ln
+               for ln in lines)
+    assert [ln for ln in lines if ln.split(" ", 1)[0].isdigit()]
 
 
 def test_coco_torch_cli(monkeypatch, tmp_path, capsys):
-    """evaluate prints the RLE route and the bbox and segm summaries;
-    train raises NotImplementedError naming the ROADMAP item."""
+    """evaluate prints the RLE route and the bbox and segm summaries; under
+    --tta --soft-nms --cascade --keypoints 17 (a two-conv keypoint head)
+    the keypoint summary follows, on ground truth with 17 keypoints an
+    annotation; train raises NotImplementedError naming the ROADMAP
+    item."""
     monkeypatch.setattr(coco_torch, "CocoInferenceConfig", tiny_config)
     root = synthetic_coco_dir(tmp_path)
     coco_torch.main(["evaluate", "--dataset", root, "--limit", "3",
@@ -52,5 +62,25 @@ def test_coco_torch_cli(monkeypatch, tmp_path, capsys):
     assert "RLE route: native" in out
     assert out.count("Average Precision  (AP) @[ IoU=0.50:0.95 | area=   "
                      "all | maxDets=100 ]") == 2
+    ann_path = Path(root) / "annotations" / "instances_minival2014.json"
+    gt = json.loads(ann_path.read_text())
+    for ann in gt["annotations"]:
+        x, y, w, h = ann["bbox"]
+        ann["keypoints"] = [v for k in range(17)
+                            for v in (x + w * k / 16, y + h / 2, 2)]
+        ann["num_keypoints"] = 17
+    ann_path.write_text(json.dumps(gt))
+    monkeypatch.setattr(coco_torch, "CocoInferenceConfig", lambda **kw:
+                        tiny_config(KEYPOINT_HEAD_CONVS=2,
+                                    KEYPOINT_HEAD_DIM=32, **kw))
+    coco_torch.main(["evaluate", "--dataset", root, "--limit", "3",
+                     "--device", "cpu", "--model", str(tmp_path / "none"),
+                     "--tta", "--soft-nms", "0.5", "--cascade", "0.5,0.6",
+                     "--keypoints", "17"])
+    out = capsys.readouterr().out
+    assert out.count("Average Precision  (AP) @[ IoU=0.50:0.95 | area=   "
+                     "all | maxDets=100 ]") == 2
+    assert out.count("Average Precision  (AP) @[ IoU=0.50:0.95 | area=   "
+                     "all | maxDets= 20 ]") == 1
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         coco_torch.main(["train", "--dataset", root, "--device", "cpu"])
