@@ -4,6 +4,8 @@
     python3 chip_smoke.py                 # from the repository root
     python3 chip_smoke.py --profile DIR   # also write a torch.profiler
                                           # table of one B=8 predict_step
+                                          # a model and of one B=4
+                                          # training step
 
 Phases, each printing one line:
  1. the card (nvidia-smi name and power limit, torch's device name);
@@ -81,6 +83,22 @@ Phases, each printing one line:
     Pillow never imported; B=8 detect_batch end to end on both decode
     routes (median of 3, img/s) and the host resample, host decode and
     RLE encode per image, and the DEVICE_RESIZE route beside them;
+ 7. training (after 5h, before phase 6's timings): 7a K1-bwd, the
+    RoIAlign backward kernel, against its plain version (float32
+    index_add_) at the training step's shapes (B=4, N=100, C=256, P=7 and
+    14, edge and zero boxes, both canvases; float32 within 1e-5 of a
+    level's largest gradient, bf16 within 1 ulp of the float32 sums
+    rounded once beside the float32 order slack), one launch a call, its
+    time beside its bound and the plain version's; 7b one float32 step
+    of the 128-px config on the card against the CPU (the six losses
+    within 1e-4 relative, the gradients of fpn.P2_conv1 and a C2 conv
+    within 1e-4 of their max: the FPN's gradient passes K1-bwd); 7c the
+    CocoConfig training step (ResNet-101, bf16, 1024², float32 master
+    weights, REMAT_BACKBONE) through Trainer.fit, 10 steps at B=1 and at
+    B=4 on SyntheticLoader batches (masks bit-packed): median ms a step,
+    img/s, peak memory, the losses finite, the step count, K1 / K1-bwd /
+    K2 launches a step 2 / 2 / 1; one train_step in sync-debug mode; 3
+    steps under layers "heads" leave every ResNet weight bit-identical;
  6. one predict_step at B=8 in sync-debug "error" mode (no host sync),
     then the median of 5 timed calls at B=8 and at B=1, for the default,
     the FOLD_BN and the QUANT_INT8 model (--profile: a table of each);
@@ -96,7 +114,8 @@ Phases, each printing one line:
     against the CPU at tiny width; soft-NMS's ops and time a call;
 then one JSON line of per-kernel numbers (time, launches on the main
 path, error, plain version's time, the bound and what sets it, the
-library's time; K1 at P=7 and, in the `_p14` keys, at P=14; K2's chain
+library's time; K1 and K1-bwd at P=7 and, in the `_p14` keys, at P=14
+(K1-bwd's launches from phase 7c's training runs); K2's chain
 bound and version 1's time; K5 in float32 and, in the `_bf16` keys,
 bf16, with version 1's times), and, last, the result line.
 Exits non-zero, printing no result line, without a CUDA device or when
@@ -106,6 +125,7 @@ any check fails. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import statistics
 import subprocess
@@ -894,7 +914,8 @@ def make_images(rng, shapes):
     return [rng.randint(0, 256, s + (3,), dtype=np.uint8) for s in shapes]
 
 
-KERNELS = ("roi_align", "nms", "bottleneck", "paste_pack", "group_roi")
+KERNELS = ("roi_align", "roi_align_backward", "nms", "bottleneck",
+           "paste_pack", "group_roi")
 
 
 def launch_counts(kernels):
@@ -1549,6 +1570,344 @@ def timing_phase(det, images, card, tag="6", reps: int = 5,
     return x, win, medians
 
 
+# Phase 7: training. K1-bwd at the training step's shapes: B=4 images,
+# N=100 RoIs an image (TRAIN_ROIS_PER_IMAGE), C=256
+TRAIN_B, TRAIN_N = 4, 100
+
+
+def roi_backward_bound(roi, shapes, boxes, pool, grad, dtype):
+    """K1-bwd's bound on these inputs: grad_out read once, the four level
+    gradients written once in the levels' dtype, the boxes (16 B each);
+    four products and four adds a channel of every sample inside its
+    level, in float32."""
+    lvl, in_y, in_x = roi.level_geometry(shapes, boxes, pool, CANVAS)
+    _, inside = roi._corners(shapes, lvl, in_y, in_x, boxes.shape[1])
+    c = shapes[0][-1]
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (grad.numel() * grad.element_size()
+              + sum(int(np.prod(s)) for s in shapes) * size
+              + boxes.numel() * 4)
+    return bound(nbytes, float(inside.sum()) * c * 8.0, PEAK_F32)
+
+
+def roi_backward_phase(kernels, roi):
+    """Phase 7a: K1-bwd against its plain version (the float32 index_add_
+    of ops.roi_align.roi_align_backward_levels) on seeded grad_out at the
+    training shapes, the edge boxes and ten zero (padding) boxes an image,
+    on the 1024² canvas (timed, both P) and the 768x1024 one. float32
+    levels: max |d| <= 1e-5 of the largest |grad| a level; bf16 levels:
+    within 1 bf16 ulp of the plain float32 sums rounded once, beside the
+    float32 order slack (1e-6 of the level's largest |grad|): the atomics
+    add in another order than index_add_. One launch a call."""
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    rng = np.random.RandomState(7)
+    worst, times = 0.0, {}
+    for cfg in (slice_config(), rect_config()):
+        canvas = cfg.IMAGE_SHAPE
+        shapes = [(TRAIN_B, h, w, 256) for h, w in stage_shapes(cfg)]
+        for pool in (7, 14):
+            b = np.stack([edge_boxes(rng, TRAIN_N) for _ in range(TRAIN_B)])
+            b[:, -10:] = 0.0
+            boxes = torch.from_numpy(b).to(DEVICE)
+            flat = boxes.reshape(-1, 4).contiguous()
+            for dtype in (torch.float32, torch.bfloat16):
+                grad = torch.randn(TRAIN_B * TRAIN_N, pool, pool, 256,
+                                   generator=gen, device=DEVICE).to(dtype)
+                before = kernels.roi_align_backward.launches
+                got = kernels.roi_align_backward(grad, flat, shapes, dtype,
+                                                 pool, canvas)
+                check(kernels.roi_align_backward.launches == before + 1,
+                      "roi_align_backward: one launch a call")
+                want = roi.multilevel_roi_align_backward(
+                    grad.reshape(TRAIN_B, TRAIN_N, pool, pool, 256),
+                    shapes, torch.float32, boxes, pool, canvas)
+                torch.cuda.synchronize()
+                name = (f"{str(dtype)[6:]} {canvas[0]}x{canvas[1]} "
+                        f"B={TRAIN_B} N={TRAIN_N} P={pool} C=256")
+                errs, far = [], 0
+                for g, w in zip(got, want):
+                    scale = float(w.abs().max())
+                    err = float((g.float() - w).abs().max())
+                    errs.append(err)
+                    if dtype == torch.float32:
+                        check(err <= 1e-5 * scale,
+                              f"roi_align_backward {name}: err {err} of "
+                              f"{scale}")
+                        worst = max(worst, err)
+                        continue
+                    rounded = w.to(torch.bfloat16).float()
+                    _, exp = torch.frexp(rounded.abs())
+                    ulp = torch.where(rounded == 0,
+                                      torch.full_like(rounded, 2.0 ** -133),
+                                      torch.ldexp(torch.ones_like(rounded),
+                                                  exp - 8))
+                    apart = (g.float() - rounded).abs()
+                    far += int((apart > ulp).sum())
+                    check(bool((apart <= ulp + 1e-6 * scale).all()),
+                          f"roi_align_backward {name}: beyond 1 bf16 ulp")
+                line = (f"max |d| a level {[f'{e:.3g}' for e in errs]}"
+                        + (f", {far} values beyond 1 bf16 ulp (inside the "
+                           "float32 order slack)" if dtype == torch.bfloat16
+                           else ""))
+                if canvas != CANVAS:
+                    print(f"[7a] roi_align_backward {name}: {line}",
+                          flush=True)
+                    continue
+                ms = cuda_ms(lambda: kernels.roi_align_backward(
+                    grad, flat, shapes, dtype, pool, canvas))
+                plain_ms = cuda_ms(lambda: roi.multilevel_roi_align_backward(
+                    grad.reshape(TRAIN_B, TRAIN_N, pool, pool, 256), shapes,
+                    dtype, boxes, pool, canvas), iters=3, warmup=1)
+                bound_ms, bound_by = roi_backward_bound(roi, shapes, boxes,
+                                                        pool, grad, dtype)
+                times[(dtype, pool)] = (ms, plain_ms, bound_ms, bound_by)
+                print(f"[7a] roi_align_backward {name}: {line}; {ms:.4f} ms "
+                      f"on the card (bound {bound_ms:.4f} by {bound_by}, "
+                      f"{bound_ms / ms:.1%} of it); plain {plain_ms:.4f} ms",
+                      flush=True)
+    return worst, times
+
+
+def train_scene_config():
+    """The 128-px float32 config in the samplers' deterministic regime
+    (as tests/torch_port.train_config): every anchor in the RPN sample, 24
+    proposals and 24 head slots an image, 3 of them positive."""
+    from maskrcnn_tpu_torch import TinyConfig
+    from maskrcnn_tpu_torch.ops.anchors import config_anchors
+    cfg = TinyConfig().replace(RPN_NMS_MAX_ROIS_NUM=24,
+                               TRAIN_ROIS_PER_IMAGE=24,
+                               ROI_POSITIVE_RATIO=0.125)
+    return cfg.replace(RPN_TRAIN_ANCHORS_PER_IMAGE=len(config_anchors(cfg)))
+
+
+def train_scene_batch(model, b: int = 2):
+    """Two canvases whose gt boxes are three proposals an image of the
+    model's own RPN, none with another proposal at IoU 0.5 or more, so
+    each image has exactly three positive proposals: no random subsample
+    fires, and the card's and the CPU's samplers agree."""
+    from maskrcnn_tpu_torch.detection.pipeline import rpn_refine
+    from maskrcnn_tpu_torch.ops.boxes import box_iou
+    from maskrcnn_tpu_torch.ops.image import normalize_image
+    cfg = model.config
+    h, w = cfg.IMAGE_SHAPE[:2]
+    g = cfg.MAX_GT_INSTANCES
+    rng = np.random.RandomState(11)
+    images = rng.randint(0, 256, (b, h, w, 3), np.uint8)
+    with torch.no_grad():
+        feats = model.backbone(normalize_image(torch.from_numpy(images),
+                                               cfg.MEAN_PIXEL))
+        props, pvalid = rpn_refine(cfg, model.anchors(),
+                                   *model.rpn_detect(feats)[1:])
+    batch = {"images": images, "gt_class_ids": np.zeros((b, g), np.int32),
+             "gt_boxes": np.zeros((b, g, 4), np.float32),
+             "gt_masks": np.zeros((b, g, h, w), np.uint8),
+             "gt_valid": np.zeros((b, g), bool)}
+    for i in range(b):
+        live = props[i, pvalid[i]]
+        picked = [j for j in np.flatnonzero(pvalid[i].numpy())
+                  if min(props[i, j, 2] - props[i, j, 0],
+                         props[i, j, 3] - props[i, j, 1]) * h >= 2.0
+                  and int((box_iou(props[i, j][None], live)[0] >= 0.5)
+                          .sum()) == 1][:3]
+        check(len(picked) == 3, "train scene: three isolated proposals")
+        for k, j in enumerate(picked):
+            px = props[i, j].numpy() * np.array([h, w, h, w], np.float32)
+            batch["gt_boxes"][i, k] = px
+            batch["gt_class_ids"][i, k] = rng.randint(1, cfg.NUM_CLASSES)
+            batch["gt_valid"][i, k] = True
+            y1, x1, y2, x2 = np.round(px).astype(int)
+            batch["gt_masks"][i, k, y1:y2, x1:x2] = 1
+    return batch
+
+
+def train_parity_phase():
+    """Phase 7b: one float32 training forward and gradient of the 128-px
+    config on the card (K1 forward, K1-bwd backward, K2) against the same
+    on the CPU (the plain versions), TF32 off, the same seeded weights
+    and batch: the six losses within 1e-4 relative, the gradients of an
+    FPN lateral conv (fpn.P2_conv1) and of a C2 conv within 1e-4 of their
+    largest |g|: the FPN's gradient reaches it through K1-bwd."""
+    from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
+    from maskrcnn_tpu_torch.train.step import compute_losses
+    from maskrcnn_tpu_torch.train.trainer import to_device
+    cfg = train_scene_config()
+    cpu = MaskRCNN(cfg, "cpu", train=True).init(
+        torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        # seeded weights give degenerate proposals at 128 px (deltas of
+        # tens); smaller RPN deltas keep them near their anchors
+        cpu.rpn.conv_bbox.weight.mul_(0.01)
+    card = MaskRCNN(cfg, DEVICE, train=True)
+    card.load_state_dict(cpu.state_dict())
+    batch = train_scene_batch(cpu)
+    names = ("fpn.P2_conv1.weight", "fpn.C2.0.conv1.weight")
+    out = []
+    for model in (cpu, card):
+        dev = model.anchor_boxes.device
+        gen = torch.Generator(device=dev).manual_seed(0)
+        losses = compute_losses(model, gen, to_device(batch, dev))
+        params = dict(model.named_parameters())
+        grads = torch.autograd.grad(losses.total, [params[n] for n in names])
+        out.append(({k: float(v) for k, v in losses.as_dict().items()},
+                    [g.cpu() for g in grads]))
+    (l_cpu, g_cpu), (l_card, g_card) = out
+    check(l_cpu["mrn_class"] > 0 and l_cpu["mrn_mask"] > 0,
+          f"train parity: the head has positives {l_cpu}")
+    for k, v in l_cpu.items():
+        check(abs(l_card[k] - v) <= 1e-4 * abs(v) + 1e-7,
+              f"train parity: loss {k} card {l_card[k]} cpu {v}")
+    gaps = []
+    for n, a, b in zip(names, g_card, g_cpu):
+        scale = float(b.abs().max())
+        gap = float((a - b).abs().max())
+        check(scale > 0 and gap <= 1e-4 * scale,
+              f"train parity: {n} gradient {gap} of {scale}")
+        gaps.append(gap / scale)
+    rel = max(abs(l_card[k] - v) / max(abs(v), 1e-30) for k, v in l_cpu.items())
+    print(f"[7b] tiny float32 training step, card against CPU: losses within "
+          f"{rel:.3g} relative {l_card}; gradients of {names[0]} and "
+          f"{names[1]} within {gaps[0]:.3g} and {gaps[1]:.3g} of their "
+          "max", flush=True)
+
+
+def train_config_full():
+    """CocoConfig as the JAX package trains it: ResNet-101 FPN, 81 classes,
+    bf16, the 1024² canvas, 100 training RoIs an image, REMAT_BACKBONE as
+    configured."""
+    from maskrcnn_tpu_torch import CocoConfig
+    return CocoConfig()
+
+
+class StepClock:
+    """A batch iterator that records a CUDA event at every draw: the
+    device time between draws is the time a step takes on the card's
+    timeline (idle included) once the trainer runs ahead."""
+
+    def __init__(self, batch):
+        self.batch = batch
+        self.events = []
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        self.events.append(event)
+        return self.batch
+
+    def step_ms(self):
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in
+                zip(self.events, self.events[1:])]
+
+
+def synthetic_batch(cfg, b):
+    """SyntheticLoader's batch with the masks bit-packed, as BatchLoader
+    ships them."""
+    from maskrcnn_tpu_torch.data.pipeline import SyntheticLoader
+    from maskrcnn_tpu_torch.ops.bits import pack_masks
+    batch = dict(next(SyntheticLoader(cfg, b)))
+    batch["gt_masks_packed"] = pack_masks(batch.pop("gt_masks"))
+    return batch
+
+
+def train_phase(kernels, card):
+    """Phase 7c: the training slice at full width through Trainer.fit
+    (layers "all"): 10 steps at B=1 and at B=4 of SyntheticLoader batches
+    on seeded weights, the median ms a step after 2 warm-ups (the card's
+    timeline between steps), img/s, peak memory and the loss trajectory;
+    every loss finite and the step count 10; K1, K1-bwd and K2 launches a
+    step 2 / 2 / 1; one train_step in sync-debug "error" mode; then 3
+    steps under layers "heads": every ResNet weight (C1-C5) bit-identical,
+    the RPN's, FPN P layers' and box head's weights moved. Returns a
+    function that runs one more B=4 step (for --profile)."""
+    from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
+    from maskrcnn_tpu_torch.train.step import make_optimizer, train_step
+    from maskrcnn_tpu_torch.train.trainer import (LAYER_REGEX, Trainer,
+                                                  to_device, trainable_mask)
+    cfg = train_config_full()
+    t0 = time.perf_counter()
+    model = MaskRCNN(cfg, DEVICE, train=True).init(
+        torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"[7c] training MaskRCNN {cfg_name(cfg)}, REMAT_BACKBONE "
+          f"{cfg.REMAT_BACKBONE}, float32 weights, seeded init "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    reset_counts(kernels)
+    steps = 10
+    for b in (1, 4):
+        clock = StepClock(synthetic_batch(cfg, b))
+        trainer = Trainer(model, log_every=steps)
+        before = launch_counts(kernels)
+        torch.cuda.reset_peak_memory_stats()
+        trainer.fit(clock, cfg.LEARNING_RATE, 1, "all", gen,
+                    steps_per_epoch=steps)
+        ms_steps = clock.step_ms()
+        n = {k: v - before[k] for k, v in launch_counts(kernels).items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        traj = [round(r["total"], 4) for r in trainer.step_history]
+        check(all(np.isfinite(v) for r in trainer.step_history
+                  for v in r.values()), f"B={b}: a loss is not finite")
+        check(int(trainer.optimizer.step) == steps,
+              f"B={b}: step count {int(trainer.optimizer.step)}")
+        want = {"roi_align": 2 * steps, "roi_align_backward": 2 * steps,
+                "nms": steps}
+        check(all(n[k] == v for k, v in want.items()),
+              f"B={b}: launches {n}, want {want}")
+        ms = statistics.median(ms_steps[2:])
+        print(f"[7c] train step B={b}: median {ms} ms/step ({b * 1000.0 / ms}"
+              f" img/s), steps 3-10 {ms_steps[2:]}, peak mem {peak:.2f} GiB, "
+              f"total loss {traj}; launches a step K1 "
+              f"{n['roi_align'] / steps:g} K1-bwd "
+              f"{n['roi_align_backward'] / steps:g} K2 {n['nms'] / steps:g}; "
+              f"{card}", flush=True)
+
+    # one step in sync-debug mode: the step never waits on the card
+    batch = to_device(synthetic_batch(cfg, 4), DEVICE)
+    params = [p for p in model.parameters() if p.requires_grad]
+    opt = make_optimizer(cfg, cfg.LEARNING_RATE, params,
+                         [True] * len(params))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = train_step(model, opt, batch, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(bool(torch.isfinite(metrics["total"])), "sync-debug step loss")
+    print("[7c] one B=4 train_step in sync-debug mode: no host sync",
+          flush=True)
+
+    def step_b4():
+        train_step(model, opt, batch, gen)
+
+    # layers "heads": the ResNet stays bit-identical
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    trainer = Trainer(model, log_every=steps)
+    trainer.fit(itertools.repeat(synthetic_batch(cfg, 1)),
+                cfg.LEARNING_RATE, 1, "heads", gen, steps_per_epoch=3)
+    torch.cuda.synchronize()
+    mask = trainable_mask(model, LAYER_REGEX["heads"])
+    after = dict(model.named_parameters())
+    frozen = [k for k in before if k.startswith(("fpn.C1", "fpn.C2",
+                                                 "fpn.C3", "fpn.C4",
+                                                 "fpn.C5"))]
+    check(all(torch.equal(before[k], after[k]) for k in frozen),
+          "heads: a ResNet weight moved")
+    moved = [k for k in ("rpn.conv_shared.weight", "fpn.P2_conv1.weight",
+                         "fpn.P5_conv2.1.weight", "classifier.conv1.weight",
+                         "classifier.linear_class.weight")
+             if not torch.equal(before[k], after[k])]
+    check(len(moved) == 5 and all(mask[k] for k in moved),
+          f"heads: moved {moved}")
+    print(f"[7c] layers heads, 3 steps: {len(frozen)} ResNet tensors "
+          f"bit-identical; moved {moved}", flush=True)
+    for p in model.parameters():
+        p.requires_grad_(True)
+    return step_b4
+
+
 # Phase 5i: the README's serving presets and the other inference
 # protocols at full width: (name, overrides, the tiny parity's overrides,
 # K1 and K2 launches of one step)
@@ -1704,7 +2063,7 @@ def protocols_phase(kernels, nms, card, base_ms):
         want = {"roi_align": k1, "nms": k2,
                 "bottleneck": 29 if cfg.FOLD_BN else 0, "paste_pack": 1,
                 "roi_align_int8": k1 if cfg.QUANT_INT8 else 0,
-                "int8_gemm": gemms, "group_roi": 0}
+                "int8_gemm": gemms, "group_roi": 0, "roi_align_backward": 0}
         check(step == want, f"{name}: launches of one step {step}, want "
               f"{want}")
         d = cfg.DETECTION_MAX_INSTANCES
@@ -1752,18 +2111,17 @@ def protocols_phase(kernels, nms, card, base_ms):
     return total
 
 
-def profile_phase(det, x, win, out_dir, name="predict_step"):
-    """--profile: one predict_step under torch.profiler. Writes the table
-    by op and the Chrome trace, and prints the device's busy time over
-    the step's kernel window (the profiler's own host cost widens the
-    window, so the idle share is an upper bound)."""
+def profile_phase(run, label, out_dir, name):
+    """--profile: one step, `run()`, under torch.profiler. Writes the
+    table by op and the Chrome trace, and prints the device's busy time
+    over the step's kernel window (the profiler's own host cost widens
+    the window, so the idle share is an upper bound)."""
     import os
     from torch.profiler import ProfilerActivity, profile
-    from maskrcnn_tpu_torch.detection.pipeline import predict_step
     os.makedirs(out_dir, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        predict_step(det.model, x, win)
+        run()
         torch.cuda.synchronize()
     table = prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=40)
@@ -1784,7 +2142,7 @@ def profile_phase(det, x, win, out_dir, name="predict_step"):
             cur_end = max(cur_end, e)
     busy += cur_end - cur_start
     window = max(e for _, e in spans) - spans[0][0]
-    print(f"[6] profile {cfg_name(det.config)}: {len(spans)} kernels, "
+    print(f"[profile] {label}: {len(spans)} kernels, "
           f"device busy "
           f"{busy / 1e3:.3f} of {window / 1e3:.3f} ms "
           f"({1 - busy / window:.1%} idle); table and trace in {out_dir}",
@@ -1845,22 +2203,37 @@ def main() -> int:
         kernels, cfg.replace(QUANT_INT8=True), tag="5f")
     tiny_parity_phase(tag="5g", act_stats=tiny_act_stats())
     product_launches = product_phase(kernels, card)
+    k1b_err, k1b_times = roi_backward_phase(kernels, roi)
+    train_parity_phase()
+    reset_counts(kernels)
+    train_step_b4 = train_phase(kernels, card)
+    train_launches = launch_counts(kernels)
     x, win, base_ms = timing_phase(det, images, card)
     timing_phase(fdet, images, card)
     timing_phase(qdet, images, card)
     protocol_launches = protocols_phase(kernels, nms, card, base_ms)
     if args.profile:
-        profile_phase(det, x, win, args.profile)
-        profile_phase(fdet, x, win, args.profile, "predict_step_fold_bn")
-        profile_phase(qdet, x, win, args.profile, "predict_step_int8")
+        from maskrcnn_tpu_torch.detection.pipeline import predict_step
+        for d, name in ((det, "predict_step"),
+                        (fdet, "predict_step_fold_bn"),
+                        (qdet, "predict_step_int8")):
+            profile_phase(lambda d=d: predict_step(d.model, x, win),
+                          f"predict_step B=8 {cfg_name(d.config)}",
+                          args.profile, name)
+        profile_phase(train_step_b4, "train_step B=4 "
+                      f"{cfg_name(train_config_full())}", args.profile,
+                      "train_step")
 
     # launches: the main-path runs (default, FOLD_BN and QUANT_INT8 slices,
     # the product surface's requests and evaluations, and the protocols'
     # requests and steps); K1's float-table launches apart from its int8
     # ones
     runs = {k: launches[k] + fold_launches[k] + quant_launches[k]
-            + product_launches[k] + protocol_launches[k] for k in launches}
+            + product_launches[k] + protocol_launches[k] + train_launches[k]
+            for k in launches}
     runs["roi_align"] -= runs["roi_align_int8"]
+    check(runs["roi_align_backward"] > 0, "K1-bwd never ran on the main "
+          "path")
 
     # K3 at its most frequent shape, C4 (22 of the 29 blocks); no single
     # PyTorch call computes the fused block (cuDNN's three convs beside it)
@@ -1889,6 +2262,17 @@ def main() -> int:
     print(json.dumps({"kernels": [
         roi_entry("roi_align", max(roi_err, run_err), roi_times),
         roi_entry("roi_align_int8", roi8_err, roi8_times),
+        # K1-bwd at the training step's shapes (B=4, N=100), bf16 levels
+        # at P=7 with P=14 and float32 beside it; no PyTorch call on the
+        # card's machine computes it (torchvision's roi_align is absent)
+        entry("roi_align_backward", "roi_align.cu",
+              "maskrcnn_tpu/ops/roi_align.py:176", k1b_err,
+              k1b_times[(torch.bfloat16, 7)],
+              ms_p14=k1b_times[(torch.bfloat16, 14)][0],
+              plain_ms_p14=k1b_times[(torch.bfloat16, 14)][1],
+              bound_ms_p14=k1b_times[(torch.bfloat16, 14)][2],
+              ms_f32=k1b_times[(torch.float32, 7)][0],
+              ms_f32_p14=k1b_times[(torch.float32, 14)][0]),
         # B=8 N=500 at 0.7; the chain bound: N dependent steps at the
         # probe's latency. No PyTorch call computes greedy NMS.
         entry("nms", "nms.cu", "maskrcnn_tpu/ops/nms_pallas.py:35", 0.0,

@@ -1,10 +1,25 @@
 #!/usr/bin/env python
-"""Evaluate Mask R-CNN on MS COCO with the PyTorch/CUDA port (the
+"""Train or evaluate Mask R-CNN on MS COCO with the PyTorch/CUDA port (the
 counterpart of coco.py, with its argv, plus --device):
 
+    python coco_torch.py train --dataset /path/to/coco [--year 2014]
+                         [--model weights.pth] [--logs DIR]
+                         [--epochs E] [--steps-per-epoch S]
+                         [--curriculum 512:10,1024:20[:LR]]
+                         [--augment scale=0.8:1.25,crop=0.7:1.0,color=0.2]
+                         [--grad-accum A] [--keypoints K]
+                         [--cascade 0.5,0.6,0.7 [--cascade-mask-last]]
+                         [--device cuda|cpu]
     python coco_torch.py evaluate --dataset /path/to/coco [--year 2014]
                          [--model weights.pth] [--limit 500]
                          [--device cuda|cpu]
+
+Training runs the CocoConfig on the train subset with minival for
+validation: --epochs E trains the heads to epoch E, without it the
+reference's three-stage schedule runs (heads to 40, 4+ to 120, all to
+160 at LR / 10); --curriculum trains "all" over canvas stages. The newest
+epoch checkpoint under --logs (torch.save, checkpoint.store) resumes the
+run before --model is read; --model loads a reference-layout .pth.
 
 Evaluation runs the minival subset through Detector.dispatch_batch/fetch
 (batches of 8, two in flight) and reports COCO bbox then segm AP, then,
@@ -12,16 +27,17 @@ with --keypoints K, the OKS keypoint AP (ground truth with person
 keypoints). Masks are decoded on the host, the reference-parity decode,
 as coco.py does. --tta, --soft-nms SIGMA and --cascade IOUS set the
 config's inference protocols. Reading the image files needs Pillow; the
-Detector and the evaluation do not. `train` is not ported yet (ROADMAP
-Queue 1 item 5), and more than one device (--devices above 1, --sp)
-reaches the config, which raises NotImplementedError.
+Detector and the evaluation do not. More than one device (--devices
+above 1, --sp) reaches the config, which raises NotImplementedError.
 """
 
 import argparse
 import os
 
+import torch
+
 from maskrcnn_tpu_torch.api import Detector
-from maskrcnn_tpu_torch.config import CocoInferenceConfig
+from maskrcnn_tpu_torch.config import CocoConfig, CocoInferenceConfig
 from maskrcnn_tpu_torch.data.coco import CocoDataset
 from maskrcnn_tpu_torch.eval import native
 from maskrcnn_tpu_torch.eval.evaluate import evaluate_coco
@@ -33,7 +49,7 @@ DEFAULT_DATASET_YEAR = "2014"
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="Train/Eval Mask R-CNN Model on MS COCO (PyTorch/CUDA "
-        "port; evaluate only).")
+        "port).")
     parser.add_argument("command", metavar="<command>",
                         help="'train' or 'evaluate' on MS COCO")
     parser.add_argument("--dataset", required=True,
@@ -96,11 +112,13 @@ def main(argv=None) -> None:
     print("Year: ", args.year)
     print("Logs: ", args.logs)
 
+    if args.cascade_mask_last and not cascade:
+        # without stages CASCADE_MASK_LAST would do nothing
+        parser.error("--cascade-mask-last requires --cascade "
+                     "(e.g. --cascade 0.5,0.6,0.7)")
     if args.command == "train":
-        raise NotImplementedError(
-            "coco_torch.py train: training is not ported to "
-            "maskrcnn_tpu_torch yet (ROADMAP Queue 1 item 5); train with "
-            "coco.py")
+        train(args, cascade)
+        return
     if args.command != "evaluate":
         print(f"'{args.command}' is not recognized. "
               "Use 'train' or 'evaluate'")
@@ -132,6 +150,74 @@ def main(argv=None) -> None:
     for eval_type in eval_types:
         evaluate_coco(detector, val_ds, val_ds.coco, eval_type, limit=limit,
                       batch_size=8)
+
+
+def train(args, cascade) -> None:
+    """The train command (coco.py's, on one device)."""
+    from maskrcnn_tpu_torch.checkpoint.convert import load_state, read_pth
+    from maskrcnn_tpu_torch.data.pipeline import BatchLoader
+    from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
+    from maskrcnn_tpu_torch.train.trainer import (Trainer,
+                                                  fit_canvas_curriculum)
+    config = CocoConfig(NUM_DEVICES=args.devices or 1, SP_DEVICES=args.sp,
+                        GRAD_ACCUM_STEPS=args.grad_accum,
+                        NUM_KEYPOINTS=args.keypoints, CASCADE_STAGES=cascade,
+                        CASCADE_MASK_LAST=args.cascade_mask_last)
+    if config.BATCH_SIZE % max(args.grad_accum, 1):
+        raise ValueError(f"BATCH_SIZE {config.BATCH_SIZE} must divide by "
+                         f"--grad-accum {args.grad_accum}")
+    config.display()
+    model = MaskRCNN(config, args.device, train=True).init(
+        torch.Generator().manual_seed(0))
+    if os.path.exists(args.model):
+        load_state(model, read_pth(args.model, model.state_dict()))
+        print("Loaded weights ", args.model)
+    augment = None
+    if args.augment:
+        from maskrcnn_tpu_torch.data.augment import Augmenter
+        augment = Augmenter.parse(args.augment)
+        print("Augmentation:", augment)
+    generator = torch.Generator(device=args.device).manual_seed(1)
+    kw = {}
+    if args.steps_per_epoch:
+        kw["steps_per_epoch"] = args.steps_per_epoch
+    loaders = []
+
+    def loader(cfg, subset, **extra):
+        ds = CocoDataset(args.dataset, subset, args.year, cfg)
+        loaders.append(BatchLoader(ds, cfg.BATCH_SIZE, **extra))
+        return loaders[-1]
+
+    try:
+        if args.curriculum:
+            stages = []
+            for part in args.curriculum.split(","):
+                bits = part.split(":")
+                stage = {"canvas": int(bits[0]), "epochs": int(bits[1])}
+                if len(bits) > 2:
+                    stage["lr"] = float(bits[2])
+                stages.append(stage)
+            fit_canvas_curriculum(
+                config, model,
+                lambda cfg: (loader(cfg, "train", augment=augment),
+                             loader(cfg, "minival")),
+                stages, generator, layers="all", checkpoint_dir=args.logs,
+                **kw)
+            return
+        trainer = Trainer(model, checkpoint_dir=args.logs)
+        # the newest epoch checkpoint under --logs wins over --model
+        trainer.try_resume()
+        train_iter = loader(config, "train", augment=augment)
+        val_iter = loader(config, "minival")
+        if args.epochs:
+            trainer.fit(train_iter, config.LEARNING_RATE, args.epochs, "heads",
+                        generator, val_iter=val_iter, **kw)
+        else:
+            trainer.fit_coco_schedule(train_iter, generator,
+                                      val_iter=val_iter, **kw)
+    finally:
+        for it in loaders:
+            it.close()
 
 
 if __name__ == "__main__":

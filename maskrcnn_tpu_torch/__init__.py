@@ -9,6 +9,8 @@ first use by `kernels/`), as is the grouped-RoIAlign gate study
 (`ops/group_roi.py`, on no serving path). The int8 serving path
 (QUANT_INT8, `quant.py`) runs its integer convolutions as
 `torch._int_mm` GEMMs, where the JAX package leaves them to XLA.
+Training (`train/`, `MaskRCNN(..., train=True)`) takes the RoIAlign's
+gradient for the levels from a hand-written kernel too (K1-bwd).
 
 Dispatch is by the tensor's device: a CUDA tensor runs the kernel (or
 raises), a CPU tensor runs the plain PyTorch version in the same `ops/`

@@ -1,5 +1,6 @@
 // Multilevel RoIAlign forward (tf.crop_and_resize semantics) for sm_90a,
-// version 2: the coordinate prologue runs inside the kernel.
+// version 2: the coordinate prologue runs inside the kernel; and its
+// backward for the levels (K1-bwd, at the end of the file).
 //
 // Replaces the Pallas TPU kernel maskrcnn_tpu/ops/roi_align_pallas.py:58
 // `_kernel` (entry point batched_multilevel_roi_align_pallas). The
@@ -52,6 +53,25 @@
 // kernel's `level_scales`) blend their int8 taps the same way and multiply
 // by the level's scale (four host floats passed by value). Level sizes and
 // C (a multiple of the 16-byte vector) are arbitrary.
+//
+// K1-bwd, the gradient for the levels (training). It mirrors
+// maskrcnn_tpu/ops/roi_align.py:176 `_gather_patches_bwd`, the backward of
+// the JAX package's custom_vjp: an XLA scatter-add, not a Pallas kernel,
+// and the reference's crop_cuda.cu atomicAdd backward. Each sample inside
+// its level adds g*w00, g*w01, g*w10, g*w11 to the four corners of its
+// footprint; a sample outside adds nothing (_crop_core zeroes it with a
+// where). The kernel recomputes the forward's prologue (band_prologue,
+// the same IEEE operations), so the corners and weights are the forward's.
+// The plain version is ops/roi_align.roi_align_backward_levels.
+// What bounds it on the H100: bytes, mostly the dense level gradients it
+// writes (at B=4 on the 1024² canvas 89.1 M values, 178 MB in bf16)
+// beside grad_out (10 MB at P=7, 40 MB at P=14). This first version is
+// simple: it zeroes a float32 scratch of every level (cudaMemsetAsync),
+// adds into it with 16-byte float32 vector atomics (sm_90's float4
+// atomicAdd; version 1 issued one 4-byte atomic a value, four times as
+// many), and for bf16 levels rounds the sums once in a second pass, so
+// it moves the scratch three times. The atomics make the float32 sums'
+// order, and so their last bits, vary from run to run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -175,6 +195,63 @@ struct __align__(16) Cell {
   float w00, w01, w10, w11;
 };
 
+// The cell of the sample at (in_y, in_x) in a level of height x width.
+__device__ __forceinline__ Cell make_cell(float in_y, float in_x, float h_max, float w_max,
+                                          int height, int width, int channels) {
+  const Taps ty = axis_taps(in_y, h_max);
+  const Taps tx = axis_taps(in_x, w_max);
+  Cell e;
+  if (ty.outside || tx.outside) {
+    e.off = -1;
+    e.dx = e.dy = 0;
+    e.w00 = e.w01 = e.w10 = e.w11 = 0.0f;
+  } else {
+    const int y_next = min(ty.start + 1, height - 1);
+    const int x_next = min(tx.start + 1, width - 1);
+    e.off = (ty.start * width + tx.start) * channels;
+    e.dx = (x_next - tx.start) * channels;
+    e.dy = (y_next - ty.start) * width * channels;
+    const float wy0 = 1.0f - ty.frac, wy1 = ty.frac;
+    const float wx0 = 1.0f - tx.frac, wx1 = tx.frac;
+    e.w00 = wy0 * wx0;
+    e.w01 = wy0 * wx1;
+    e.w10 = wy1 * wx0;
+    e.w11 = wy1 * wx1;
+  }
+  e.pad = 0;
+  return e;
+}
+
+// The prologue of a band, run by the CTA's first `ncells` threads: the
+// box's level into *s_level and the band's cells (rows row0.. of the pool
+// grid) into `cells`. The caller synchronises the CTA after it.
+__device__ __forceinline__ void band_prologue(const Levels& levels, const float* boxes,
+                                              int box, int row0, int ncells, int pool,
+                                              int channels, float divisor, float pool_m1,
+                                              Cell* cells, int* s_level) {
+  const int tid = threadIdx.x;
+  if (tid >= ncells) return;
+  const float* b = boxes + 4 * static_cast<size_t>(box);
+  const float y1 = b[0], x1 = b[1], y2 = b[2], x2 = b[3];
+  const int lvl = box_level(y1, x1, y2, x2, divisor);
+  if (tid == 0) *s_level = lvl;
+  const int height = pick(levels.height, lvl);
+  const int width = pick(levels.width, lvl);
+  const float h_max = static_cast<float>(height - 1);
+  const float w_max = static_cast<float>(width - 1);
+  const float hs = ((y2 - y1) * h_max) / pool_m1;
+  const float ws = ((x2 - x1) * w_max) / pool_m1;
+  const float y_base = y1 * h_max;
+  const float x_base = x1 * w_max;
+  for (int c = tid; c < ncells; c += kThreads) {
+    const int r = row0 + c / pool;
+    const int col = c - (c / pool) * pool;
+    cells[c] = make_cell(y_base + static_cast<float>(r) * hs,
+                         x_base + static_cast<float>(col) * ws, h_max, w_max, height,
+                         width, channels);
+  }
+}
+
 // CTAs an SM holds: 4 (64 registers a thread) where an item writes at
 // most 32 bytes; int8 tables to float32 (64 bytes an item) need more
 // registers, and 3 CTAs.
@@ -200,46 +277,8 @@ roi_align_kernel(Levels levels, const float* __restrict__ boxes, TOut* __restric
   const int tid = threadIdx.x;
 
   // prologue: the level and the band's cells
-  if (tid < ncells) {
-    const float* b = boxes + 4 * static_cast<size_t>(box);
-    const float y1 = b[0], x1 = b[1], y2 = b[2], x2 = b[3];
-    const int lvl = box_level(y1, x1, y2, x2, divisor);
-    if (tid == 0) s_level = lvl;
-    const int height = pick(levels.height, lvl);
-    const int width = pick(levels.width, lvl);
-    const float h_max = static_cast<float>(height - 1);
-    const float w_max = static_cast<float>(width - 1);
-    const float hs = ((y2 - y1) * h_max) / pool_m1;
-    const float ws = ((x2 - x1) * w_max) / pool_m1;
-    const float y_base = y1 * h_max;
-    const float x_base = x1 * w_max;
-    for (int c = tid; c < ncells; c += kThreads) {
-      const int r = row0 + c / pool;
-      const int col = c - (c / pool) * pool;
-      const Taps ty = axis_taps(y_base + static_cast<float>(r) * hs, h_max);
-      const Taps tx = axis_taps(x_base + static_cast<float>(col) * ws, w_max);
-      Cell e;
-      if (ty.outside || tx.outside) {
-        e.off = -1;
-        e.dx = e.dy = 0;
-        e.w00 = e.w01 = e.w10 = e.w11 = 0.0f;
-      } else {
-        const int y_next = min(ty.start + 1, height - 1);
-        const int x_next = min(tx.start + 1, width - 1);
-        e.off = (ty.start * width + tx.start) * channels;
-        e.dx = (x_next - tx.start) * channels;
-        e.dy = (y_next - ty.start) * width * channels;
-        const float wy0 = 1.0f - ty.frac, wy1 = ty.frac;
-        const float wx0 = 1.0f - tx.frac, wx1 = tx.frac;
-        e.w00 = wy0 * wx0;
-        e.w01 = wy0 * wx1;
-        e.w10 = wy1 * wx0;
-        e.w11 = wy1 * wx1;
-      }
-      e.pad = 0;
-      cells[c] = e;
-    }
-  }
+  band_prologue(levels, boxes, box, row0, ncells, pool, channels, divisor, pool_m1, cells,
+                &s_level);
   __syncthreads();
 
   const int lvl = s_level;
@@ -340,9 +379,146 @@ cudaError_t launch(const Levels& levels, const float* boxes, void* out, float di
   return cudaGetLastError();
 }
 
+// dst[0..3] += g[0..3] * w, each product rounded once, as one 16-byte
+// atomic (dst 16-byte aligned).
+__device__ __forceinline__ void add4(float* dst, const float* g, float w) {
+  atomicAdd(reinterpret_cast<float4*>(dst),
+            make_float4(g[0] * w, g[1] * w, g[2] * w, g[3] * w));
+}
+
+// K1-bwd: the gradient of the forward for the levels. One CTA a band, as
+// the forward, with the same prologue; each thread takes (cell, 16-byte
+// vector of grad_out) items and adds g * w to the four corners of the
+// cell's footprint in the image's float32 level gradient with atomicAdd.
+// A cell outside its level adds nothing.
+template <typename TG>
+__global__ void __launch_bounds__(kThreads)
+roi_align_backward_kernel(Levels grads, const float* __restrict__ boxes,
+                          const TG* __restrict__ grad_out, float divisor, float pool_m1,
+                          int boxes_per_image, int pool, int channels, int band_rows,
+                          int bands) {
+  constexpr int V = Vec<TG>::kWidth;
+  extern __shared__ Cell cells[];
+  __shared__ int s_level;
+  const int box = blockIdx.x / bands;
+  const int row0 = (blockIdx.x - box * bands) * band_rows;
+  const int ncells = min(band_rows, pool - row0) * pool;
+  band_prologue(grads, boxes, box, row0, ncells, pool, channels, divisor, pool_m1, cells,
+                &s_level);
+  __syncthreads();
+
+  const int lvl = s_level;
+  const int height = pick(grads.height, lvl);
+  const int width = pick(grads.width, lvl);
+  const int img = box / boxes_per_image;
+  float* base = static_cast<float*>(const_cast<void*>(pick(grads.ptr, lvl))) +
+                static_cast<size_t>(img) * height * width * channels;
+  const TG* g_band = grad_out + (static_cast<size_t>(box) * pool + row0) * pool * channels;
+  const int vecs = channels / V;
+  const int nitems = ncells * vecs;
+  for (int i = threadIdx.x; i < nitems; i += kThreads) {
+    const int cell = i / vecs;
+    const Cell e = cells[cell];
+    if (e.off < 0) continue;
+    float g[V];
+    Vec<TG>::convert(__ldg(reinterpret_cast<const uint4*>(g_band + static_cast<size_t>(i) * V)),
+                     g);
+    float* p00 = base + e.off + (i - cell * vecs) * V;
+    // 16-byte vector atomics (sm_90): four float32 adds each
+#pragma unroll
+    for (int k = 0; k < V; k += 4) {
+      add4(p00 + k, g + k, e.w00);
+      add4(p00 + e.dx + k, g + k, e.w01);
+      add4(p00 + e.dy + k, g + k, e.w10);
+      add4(p00 + e.dy + e.dx + k, g + k, e.w11);
+    }
+  }
+}
+
+// The rounding pass's grid: at most 16 CTAs an SM of the H100's 132,
+// striding over the values.
+constexpr size_t kConvertBlocks = 132 * 16;
+
+// float32 -> bfloat16, round to nearest even, four values a thread.
+__global__ void __launch_bounds__(kThreads)
+to_bf16_kernel(const float4* __restrict__ in, __nv_bfloat162* __restrict__ out, size_t n4) {
+  for (size_t i = blockIdx.x * static_cast<size_t>(kThreads) + threadIdx.x; i < n4;
+       i += static_cast<size_t>(gridDim.x) * kThreads) {
+    const float4 v = in[i];
+    out[2 * i] = __floats2bfloat162_rn(v.x, v.y);
+    out[2 * i + 1] = __floats2bfloat162_rn(v.z, v.w);
+  }
+}
+
+template <typename TG>
+cudaError_t launch_backward(const Levels& grads, const float* boxes, const void* grad_out,
+                            float divisor, float pool_m1, int num_boxes,
+                            int boxes_per_image, int pool, int channels, cudaStream_t s) {
+  const int rows = min(pool, max(1, kBandCells / pool));
+  const int bands = (pool + rows - 1) / rows;
+  const int band_rows = (pool + bands - 1) / bands;
+  const size_t smem = static_cast<size_t>(band_rows) * pool * sizeof(Cell);
+  auto kernel = roi_align_backward_kernel<TG>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<static_cast<unsigned>(num_boxes) * bands, kThreads, smem, s>>>(
+      grads, boxes, static_cast<const TG*>(grad_out), divisor, pool_m1, boxes_per_image,
+      pool, channels, band_rows, bands);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
+
+// K1-bwd. grad_ptrs: host array of kLevels device pointers, the float32
+// gradient of each level ([B, H_l, W_l, C]), all inside `scratch`
+// (scratch_elems floats, zeroed here first); heights, widths: host arrays;
+// boxes [num_boxes, 4] float32 and grad_out [num_boxes, pool, pool,
+// channels] (grad_dtype 0 = float32, 1 = bfloat16) device pointers. With
+// out_bf16 set, the float32 sums are then rounded once into it
+// (scratch_elems bfloat16 values, the same layout). divisor and pool_m1 as
+// mrt_roi_align. Returns the CUDA error of the launches (0 on success).
+int mrt_roi_align_backward(void* const* grad_ptrs, const int* heights, const int* widths,
+                           const float* boxes, const void* grad_out, int num_boxes,
+                           int boxes_per_image, int pool, int channels, int grad_dtype,
+                           float divisor, float pool_m1, float* scratch,
+                           long long scratch_elems, void* out_bf16, void* stream) {
+  Levels grads;
+  for (int l = 0; l < kLevels; ++l) {
+    grads.ptr[l] = grad_ptrs[l];
+    grads.height[l] = heights[l];
+    grads.width[l] = widths[l];
+    grads.scale[l] = 1.0f;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pool < 1 || num_boxes < 0 || scratch_elems < 0 || scratch_elems % 4 ||
+      (grad_dtype != 0 && grad_dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaMemsetAsync(scratch, 0, static_cast<size_t>(scratch_elems) * 4, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (num_boxes > 0) {
+    err = grad_dtype == 0
+              ? launch_backward<float>(grads, boxes, grad_out, divisor, pool_m1, num_boxes,
+                                       boxes_per_image, pool, channels, s)
+              : launch_backward<__nv_bfloat16>(grads, boxes, grad_out, divisor, pool_m1,
+                                               num_boxes, boxes_per_image, pool, channels, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (out_bf16 != nullptr && scratch_elems > 0) {
+    const size_t n4 = static_cast<size_t>(scratch_elems) / 4;
+    const size_t needed = (n4 + kThreads - 1) / kThreads;
+    const size_t blocks = needed < kConvertBlocks ? needed : kConvertBlocks;
+    to_bf16_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        reinterpret_cast<const float4*>(scratch), static_cast<__nv_bfloat162*>(out_bf16), n4);
+    err = cudaGetLastError();
+  }
+  return static_cast<int>(err);
+}
 
 // Types: 0 = float32, 1 = bfloat16, 2 = int8 (tables only). Float tables
 // write their own type and take no scales; int8 tables write float32 or

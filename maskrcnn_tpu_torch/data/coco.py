@@ -4,18 +4,22 @@ CocoMaskRCNNDataset, coco_annfile/coco_root at data.py:681-692 with the
 minival -> val images rule).
 
 Annotations come through the port's own COCO index (eval/coco_index.py).
-`CocoDataset.load_image` decodes an image file with Pillow, imported when
-it is called: nothing else here needs it. The training side (`load`,
-`sample`, DetectionDataset) waits for the training slice.
+`CocoDataset.load_image` and `load` decode an image file with Pillow,
+imported when called: nothing else here needs it. `load` gives a training
+image's instances in original coordinates (crowds negated, mask-extent
+boxes, the empty-image fallback) and `sample`, from DetectionDataset, puts
+them on the canvas.
 """
 
 from __future__ import annotations
 
 import os
+import random
 from typing import List, Optional
 
 import numpy as np
 
+from maskrcnn_tpu_torch.data.dataset import DetectionDataset
 from maskrcnn_tpu_torch.eval.coco_index import COCO
 
 # The 80 COCO categories in contiguous label order (label 0 = background).
@@ -63,6 +67,11 @@ COCO_CLASS_IDS = [
 
 _CLASS_TO_LABEL = {c: i for i, c in enumerate(COCO_CLASS_IDS)}
 
+# COCO person keypoints' left/right swap under a horizontal flip (nose
+# stays; eyes, ears, shoulders, elbows, wrists, hips, knees, ankles swap)
+COCO_KP_HFLIP_PERM = [0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9,
+                      12, 11, 14, 13, 16, 15]
+
 class CocoLabel:
     """Contiguous label <-> sparse COCO class id (data.py:594-678)."""
 
@@ -108,8 +117,9 @@ def _pil_image():
     return Image
 
 
-class CocoDataset:
-    """COCO images and annotations of one subset, for evaluation."""
+class CocoDataset(DetectionDataset):
+    """COCO images and annotations of one subset, for training and
+    evaluation (reference CocoMaskRCNNDataset, data.py:695-884)."""
 
     def __init__(self, root: str, subset: str, year: int, config,
                  annfile: Optional[str] = None,
@@ -145,3 +155,80 @@ class CocoDataset:
         image_cls = _pil_image()
         img = image_cls.open(self.image_path(self.image_index(image_id)))
         return np.asarray(img.convert("RGB"))
+
+    def load(self, index: int, hflip: bool = False):
+        """(image, label_ids, boxes, masks[, keypoints]) in original
+        coordinates (reference data.py:797-876: crowds negated,
+        mask-extent boxes, the empty-image fallback); hflip flips half
+        the time. Needs Pillow to read the file."""
+        image_id = self.ids[index]
+        image = np.asarray(
+            _pil_image().open(self.image_path(index)).convert("RGB"))
+        anns = self.coco.loadAnns(self.coco.getAnnIds(imgIds=[image_id]))
+
+        flip = hflip and random.randint(0, 1)
+        if flip:
+            image = image[:, ::-1]
+
+        nk = getattr(self.config, "NUM_KEYPOINTS", 0)
+        label_ids: List[int] = []
+        boxes: List[List[float]] = []
+        masks: List[np.ndarray] = []
+        kps: List[np.ndarray] = []
+        h, w = image.shape[:2]
+        for ann in anns:
+            label_id = CocoLabel.from_class(ann["category_id"])
+            if not label_id:
+                continue
+            m = self.coco.annToMask(ann)
+            if m.max() < 1:
+                continue
+            if ann.get("iscrowd"):
+                label_id = -label_id  # crowd marker (data.py:829-833)
+                if m.shape[0] != h or m.shape[1] != w:
+                    m = np.ones((h, w), np.uint8)
+            if nk:
+                # COCO's flat (x, y, v) to (y, x, v), the box layout's order
+                kp = np.zeros((nk, 3), np.float32)
+                raw = ann.get("keypoints")
+                if raw is not None:
+                    arr = np.asarray(raw, np.float32).reshape(-1, 3)[:nk]
+                    kp[:len(arr), 0] = arr[:, 1]
+                    kp[:len(arr), 1] = arr[:, 0]
+                    kp[:len(arr), 2] = arr[:, 2]
+                if flip:
+                    kp[:, 1] = np.where(kp[:, 2] > 0,
+                                        w - 1 - kp[:, 1], kp[:, 1])
+                    if nk == len(COCO_KP_HFLIP_PERM):
+                        kp = kp[COCO_KP_HFLIP_PERM]
+                kps.append(kp)
+            if flip:
+                m = m[:, ::-1]
+            cols = np.any(m, axis=0)
+            rows = np.any(m, axis=1)
+            if cols.any():
+                y1, y2 = np.where(rows)[0][[0, -1]]
+                x1, x2 = np.where(cols)[0][[0, -1]]
+                box = [float(y1), float(x1), float(y2) + 1.0,
+                       float(x2) + 1.0]
+            else:
+                box = [0.0, 0.0, 0.0, 0.0]
+            label_ids.append(label_id)
+            boxes.append(box)
+            masks.append(m.astype(np.uint8))
+
+        if not label_ids:
+            # empty-image fallback (data.py:859-867)
+            label_ids = [0]
+            boxes = [[0.0, 0.0, float(h), float(w)]]
+            masks = [np.ones((h, w), np.uint8)]
+            kps = [np.zeros((nk, 3), np.float32)] if nk else []
+
+        g = self.config.MAX_GT_INSTANCES
+        # the reference's truncation is a no-op ([:m] with m the current
+        # count, data.py:869-874); this one truncates
+        out = (image, np.asarray(label_ids[:g], np.int32),
+               np.asarray(boxes[:g], np.float32), np.stack(masks[:g]))
+        if nk:
+            out = out + (np.stack(kps[:g]),)
+        return out

@@ -12,6 +12,9 @@ maskrcnn_tpu/data/codecs.py), with no Pillow.
   does (data.py:191-223): scale up so the short side reaches min_dim,
   cap the long side at the canvas, resample, centre-pad with zeros. Its
   canvases are bit-equal to the JAX package's, which resizes with Pillow.
+* `encode_boxes` and `encode_masks` (data.py:246-262, 317-328) put a
+  training image's boxes and masks on the canvas, the masks resampled
+  as 0/255 images and thresholded at 127;
 * `decode_boxes` (data.py:331-343, including the /(scale + 1e-5) quirk)
   and `decode_masks` (data.py:265-284: crop the window, resample the
   crop to the original size, threshold at 127) undo the canvas; masks
@@ -133,6 +136,39 @@ def resize_image(image: np.ndarray, min_dim: int, max_dim: int,
     canvas = np.zeros((ch, cw, 3), np.uint8)
     canvas[top:top + nh, left:left + nw] = image
     return canvas, (top, left, top + nh, left + nw), scale
+
+
+def encode_boxes(boxes: np.ndarray, scale: float, window) -> np.ndarray:
+    """Original coords -> canvas coords (data.py:317-328)."""
+    top, left = window[0], window[1]
+    out = boxes * scale
+    out[:, 0] += top
+    out[:, 1] += left
+    out[:, 2] += top
+    out[:, 3] += left
+    return out
+
+
+def encode_masks(masks: np.ndarray, scale: float, window, max_dim: int,
+                 canvas_shape: Tuple[int, int] = None) -> np.ndarray:
+    """Instance masks [N, H, W] {0,1} -> canvas masks [N, CH, CW]
+    (data.py:246-262; square CH = CW = max_dim by default): each mask as
+    a 0/255 image resampled by `scale` (Pillow's bilinear, as
+    `resample_bilinear`), thresholded at 127 and placed at the window."""
+    n = masks.shape[0]
+    ch, cw = canvas_shape if canvas_shape is not None else (max_dim,
+                                                           max_dim)
+    out = np.zeros((n, ch, cw), np.uint8)
+    top, left = window[0], window[1]
+    for i in range(n):
+        img = masks[i].astype(np.uint8) * 255
+        nh = round(img.shape[0] * scale)
+        nw = round(img.shape[1] * scale)
+        arr = resample_bilinear(img, nh, nw) > 127
+        h = min(nh, ch - top)
+        w = min(nw, cw - left)
+        out[i, top:top + h, left:left + w] = arr[:h, :w]
+    return out
 
 
 def decode_boxes(boxes: np.ndarray, scale: float, window) -> np.ndarray:

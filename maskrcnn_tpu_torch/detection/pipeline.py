@@ -118,6 +118,16 @@ def rpn_refine_scores(config: Config, anchors: torch.Tensor,
     return proposals, valid
 
 
+@torch.no_grad()
+def rpn_refine(config: Config, anchors: torch.Tensor, rpn_probs: torch.Tensor,
+               rpn_bbox: torch.Tensor):
+    """The proposal layer on the training RPN's outputs (the JAX
+    rpn_refine): rpn_probs [B, A, 2] softmax, rpn_bbox [B, A, 4]; the
+    foreground column through `rpn_refine_scores` (its NMS is K2 on the
+    card). No gradient: proposals are constants of the step."""
+    return rpn_refine_scores(config, anchors, rpn_probs[..., 1], rpn_bbox)
+
+
 def _take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """t [B, N, ...] gathered along dim 1 at idx [B, M]."""
     return torch.gather(t, 1, idx.reshape(idx.shape + (1,) * (t.dim() - 2))

@@ -1,7 +1,9 @@
 """Build, load and launch the port's CUDA kernels (csrc/*.cu).
 
     roi_align.cu   multilevel RoIAlign, float  (Pallas ops/roi_align_pallas.py)
-                   and int8 tables
+                   and int8 tables; and its
+                   backward for the levels     (XLA scatter-add,
+                   (K1-bwd)                     ops/roi_align.py:176)
     nms.cu         greedy NMS keep masks, any  (Pallas ops/nms_pallas.py)
                    N, one launch a call
     bottleneck.cu  fused identity bottleneck   (Pallas ops/bottleneck_pallas.py)
@@ -127,6 +129,11 @@ def library() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_float), _P, _P, _I, _I, _I, _I, _I, _I,
         ctypes.c_float, ctypes.c_float, _P]
     lib.mrt_roi_align.restype = _I
+    lib.mrt_roi_align_backward.argtypes = [
+        ctypes.POINTER(_P), ctypes.POINTER(_I), ctypes.POINTER(_I), _P, _P,
+        _I, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _P,
+        ctypes.c_longlong, _P, _P]
+    lib.mrt_roi_align_backward.restype = _I
     lib.mrt_nms.argtypes = [_P, _P, _I, _I, ctypes.c_float, _P, _P, _P]
     lib.mrt_nms.restype = _I
     lib.mrt_nms_scratch_words.argtypes = [_I]
@@ -247,6 +254,73 @@ def roi_align(levels: Sequence[torch.Tensor], boxes: torch.Tensor,
 
 roi_align.launches = 0
 roi_align.int8_launches = 0
+
+
+def roi_align_backward(grad_out: torch.Tensor, boxes: torch.Tensor,
+                       shapes: Sequence[tuple], dtype: torch.dtype,
+                       pool_size: int, image_shape):
+    """K1-bwd (csrc/roi_align.cu), the gradient of `roi_align` for the
+    levels, its prologue computed in the kernel as the forward's.
+
+    grad_out [B*N, P, P, C] contiguous, 16-byte aligned CUDA tensor,
+    float32 or bfloat16; boxes [B*N, 4] float32 contiguous on its device,
+    as `roi_align` took them; shapes: the four levels' [B, H_l, W_l, C];
+    dtype: the levels' dtype (float32 or bfloat16). Returns the four
+    level gradients [B, H_l, W_l, C] in `dtype`, contiguous: float32 sums
+    of atomic adds in a scratch the wrapper allocates, rounded once to
+    bf16 for bf16 levels. `launches` counts the calls (a call is a
+    memset, the scatter and, for bf16, the rounding pass)."""
+    from maskrcnn_tpu_torch.ops.roi_align import level_divisor
+    if (boxes.dtype != torch.float32 or boxes.dim() != 2
+            or boxes.shape[1] != 4 or not boxes.is_cuda
+            or not boxes.is_contiguous()):
+        raise ValueError("roi_align_backward: boxes must be a contiguous "
+                         "[B*N, 4] float32 CUDA tensor")
+    if grad_out.dtype not in _DTYPES or dtype not in _DTYPES:
+        raise TypeError(f"roi_align_backward: unsupported dtypes "
+                        f"{grad_out.dtype} -> {dtype}")
+    if len(shapes) != 4:
+        raise ValueError(f"roi_align_backward takes 4 levels, got "
+                         f"{len(shapes)}")
+    m = boxes.shape[0]
+    b, _, _, c = shapes[0]
+    if (tuple(grad_out.shape) != (m, pool_size, pool_size, c)
+            or grad_out.device != boxes.device
+            or not grad_out.is_contiguous() or grad_out.data_ptr() % 16):
+        raise ValueError("roi_align_backward: grad_out must be a contiguous, "
+                         "16-byte aligned [B*N, P, P, C] tensor on the "
+                         "boxes' device")
+    if any(len(s) != 4 or s[0] != b or s[3] != c for s in shapes):
+        raise ValueError("roi_align_backward: levels of one batch and "
+                         "channel count expected")
+    if (b < 1 or c % 8 or m % b
+            or any(s[1] * s[2] * c >= 2 ** 31 for s in shapes)):
+        raise ValueError("roi_align_backward: B >= 1, C a multiple of 8, "
+                         "boxes a whole number per image and a level image "
+                         "within 32-bit offsets expected")
+    device = boxes.device
+    sizes = [s[0] * s[1] * s[2] * s[3] for s in shapes]
+    scratch = torch.empty(sum(sizes), dtype=torch.float32, device=device)
+    f32 = torch.split(scratch, sizes)
+    out = (None if dtype == torch.float32 else
+           torch.empty(sum(sizes), dtype=dtype, device=device))
+    lib = library()
+    with torch.cuda.device(device):
+        err = lib.mrt_roi_align_backward(
+            (_P * 4)(*[t.data_ptr() for t in f32]),
+            (_I * 4)(*[s[1] for s in shapes]),
+            (_I * 4)(*[s[2] for s in shapes]), boxes.data_ptr(),
+            grad_out.data_ptr(), m, m // b, pool_size, c,
+            _DTYPES[grad_out.dtype][0], level_divisor(image_shape),
+            float(pool_size - 1), scratch.data_ptr(), scratch.numel(),
+            None if out is None else out.data_ptr(), _stream(device))
+    _check_launch(lib, "roi_align_backward", err)
+    roi_align_backward.launches += 1
+    flat = f32 if out is None else torch.split(out, sizes)
+    return [t.view(s) for t, s in zip(flat, shapes)]
+
+
+roi_align_backward.launches = 0
 
 
 def nms(boxes: torch.Tensor, valid: torch.Tensor,

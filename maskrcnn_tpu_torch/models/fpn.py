@@ -4,6 +4,10 @@ Lateral 1x1 convs on C2..C5, nearest x2 top-down adds, 3x3 smoothing
 convs, and P6 = P5[::2, ::2] (the reference's MaxPool2d(1, 2),
 model.py:109). Attribute names follow the checkpoint (fpn.C1.0,
 fpn.C2.0.conv1, fpn.P2_conv2.1, ...).
+
+`remat` (Config.REMAT_BACKBONE in the training construction) recomputes
+each ResNet stage C2..C5 in the backward pass instead of keeping its
+activations, as the JAX ResNet's nn.remat of a stage.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from typing import List
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from maskrcnn_tpu_torch.models.layers import Conv2d
 from maskrcnn_tpu_torch.models.resnet import BLOCKS, make_stage, make_stem
@@ -29,8 +34,9 @@ class FPN(nn.Module):
 
     def __init__(self, architecture: str = "resnet101",
                  out_channels: int = 256, dtype=None, device=None,
-                 fold_bn: bool = False):
+                 fold_bn: bool = False, remat: bool = False):
         super().__init__()
+        self.remat = remat
         blocks = BLOCKS[architecture]
         kw = dict(dtype=dtype, device=device)
         self.C1 = make_stem(fold_bn=fold_bn, **kw)
@@ -48,11 +54,17 @@ class FPN(nn.Module):
                 Conv2d(out_channels, out_channels, 3, padding=1,
                        dtype=dtype, device=device)))
 
+    def _stage(self, stage: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(stage, x, use_reentrant=False,
+                              preserve_rng_state=False)
+        return stage(x)
+
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        c2 = self.C2(self.C1(x))
-        c3 = self.C3(c2)
-        c4 = self.C4(c3)
-        c5 = self.C5(c4)
+        c2 = self._stage(self.C2, self.C1(x))
+        c3 = self._stage(self.C3, c2)
+        c4 = self._stage(self.C4, c3)
+        c5 = self._stage(self.C5, c4)
         p5 = self.P5_conv1(c5)
         p4 = self.P4_conv1(c4) + nearest_upsample_2x(p5)
         p3 = self.P3_conv1(c3) + nearest_upsample_2x(p4)

@@ -28,10 +28,18 @@ mask head's kernels) `predict_masks` take the int8 route, as the JAX
 package's MaskRCNN routes a tree with "quant". A QUANT_INT8 model used
 before `set_quant` raises, except inside `float_path()` (calibration).
 
+`MaskRCNN(config, device, train=True)` is the training construction:
+float32 master weights, as the JAX package's flax params, each layer
+casting its weight and bias to COMPUTE_DTYPE in `forward`
+(models.layers), so gradients and SGD updates stay float32;
+Config.REMAT_BACKBONE recomputes each ResNet stage in the backward pass.
+FOLD_BN and QUANT_INT8 are inference-only and raise there. The
+inference construction keeps its weights in the compute dtype.
+
 The options the port does not implement, more than one device, raise
 NotImplementedError here (`check_supported`) instead of running
 something else. The TPU knobs
-(NMS_IMPL, ROI_IMPL, S2D_STEM, REMAT_*, MATMUL_PRECISION) do not change
+(NMS_IMPL, ROI_IMPL, S2D_STEM, MATMUL_PRECISION) do not change
 the function computed and are ignored.
 """
 
@@ -49,6 +57,7 @@ from maskrcnn_tpu_torch import quant
 from maskrcnn_tpu_torch.checkpoint.fold import fold_state_dict
 from maskrcnn_tpu_torch.models.fpn import FPN
 from maskrcnn_tpu_torch.models.heads import BoxHead, KeypointHead, MaskHead
+from maskrcnn_tpu_torch.models.layers import set_compute_dtype
 from maskrcnn_tpu_torch.models.resnet import Bottleneck, FrozenBatchNorm
 from maskrcnn_tpu_torch.models.rpn import RPN
 from maskrcnn_tpu_torch.ops.anchors import config_anchors
@@ -85,23 +94,37 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-class MaskRCNN(nn.Module):
-    """Inference model for a Config on one device (the card unless
-    `device` says otherwise, see `resolve_device`)."""
+# options that apply to inference only (config.py: FOLD_BN "must never be
+# used for training")
+INFERENCE_ONLY = ("FOLD_BN", "QUANT_INT8")
 
-    def __init__(self, config: Config, device=None):
+
+class MaskRCNN(nn.Module):
+    """Model for a Config on one device (the card unless `device` says
+    otherwise, see `resolve_device`); `train=True` builds it for training
+    (float32 master weights, see the module docstring)."""
+
+    def __init__(self, config: Config, device=None, train: bool = False):
         super().__init__()
         check_supported(config)
+        if train:
+            for field in INFERENCE_ONLY:
+                if getattr(config, field):
+                    raise NotImplementedError(
+                        f"Config.{field} is inference-only: the training "
+                        "construction does not take it")
         device = resolve_device(device)
         self.config = config
         # QUANT_INT8: float32 torch-layout state (numpy) and device state
         self.float_state = None
         self.quant = None
         self._float_ok = False
-        dtype = getattr(torch, config.COMPUTE_DTYPE)
+        self.compute_dtype = getattr(torch, config.COMPUTE_DTYPE)
+        dtype = torch.float32 if train else self.compute_dtype
         kw = dict(dtype=dtype, device=device)
         fold = dict(fold_bn=config.FOLD_BN)
-        self.fpn = FPN(config.BACKBONE, **kw, **fold)
+        self.fpn = FPN(config.BACKBONE, **kw, **fold,
+                       remat=train and config.REMAT_BACKBONE)
         self.rpn = RPN(len(config.RPN_ANCHOR_RATIOS),
                        config.RPN_ANCHOR_STRIDE, **kw)
         self.classifier = BoxHead(config.NUM_CLASSES, config.POOL_SIZE, **kw,
@@ -119,13 +142,16 @@ class MaskRCNN(nn.Module):
             "anchor_boxes",
             torch.from_numpy(config_anchors(config)).to(device),
             persistent=False)
+        if train:
+            set_compute_dtype(self, self.compute_dtype)
         self.to(memory_format=torch.channels_last)
         self.eval()
 
     @property
     def dtype(self) -> torch.dtype:
-        """The compute dtype of the weights."""
-        return self.rpn.conv_shared.weight.dtype
+        """The compute dtype (the weights' dtype but in the training
+        construction, whose weights are float32)."""
+        return self.compute_dtype
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "MaskRCNN":
@@ -218,6 +244,12 @@ class MaskRCNN(nn.Module):
         if self._int8():
             return quant.quant_rpn_scores(self, feature_maps)
         return self.rpn([f.permute(0, 3, 1, 2) for f in feature_maps])
+
+    def rpn_detect(self, feature_maps: Sequence[torch.Tensor]):
+        """NHWC maps -> (logits [B, A, 2], probs [B, A, 2], deltas
+        [B, A, 4]), float32: the training form of the RPN (the JAX
+        MaskRCNN.rpn_detect)."""
+        return self.rpn.detect([f.permute(0, 3, 1, 2) for f in feature_maps])
 
     def classify(self, pooled: torch.Tensor):
         """Box head over pooled [N, 7, 7, 256]."""

@@ -1,12 +1,14 @@
-"""Region Proposal Network, fused inference form (counterpart of
-maskrcnn_tpu/models/rpn.py and MaskRCNN.rpn_scores in
-maskrcnn_tpu/models/mask_rcnn.py:148-195).
+"""Region Proposal Network (counterpart of maskrcnn_tpu/models/rpn.py and
+MaskRCNN.rpn_scores / rpn_detect in maskrcnn_tpu/models/mask_rcnn.py).
 
-The class and box 1x1 convs run as ONE 18-channel conv, class channels
-first. The foreground score is sigmoid(float32(l1 - l0)): softmax over
+Inference (`forward`): the class and box 1x1 convs run as ONE 18-channel
+conv, class channels first. The foreground score is sigmoid(float32(l1 - l0)): softmax over
 two logits, with the subtraction in the compute dtype and the cast
 before the sigmoid. The deltas stay in the compute dtype; the proposal
 layer casts only its top-k survivors.
+
+Training (`detect`, the JAX RPNHead): the two 1x1 convs apart, logits
+[B, A, 2], their softmax and the deltas [B, A, 4], all float32.
 """
 
 from __future__ import annotations
@@ -41,6 +43,22 @@ class RPN(nn.Module):
         dtype), anchors in (level, y, x, ratio) order."""
         return self.outputs(F.relu(self.conv_shared(f)) for f in feature_maps)
 
+    def detect(self, feature_maps: Sequence[torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """NCHW maps -> (logits [B, A, 2], probs [B, A, 2], deltas
+        [B, A, 4]), float32, anchors in (level, y, x, ratio) order."""
+        logits, deltas = [], []
+        for f in feature_maps:
+            shared = F.relu(self.conv_shared(f))
+            b = shared.shape[0]
+            logits.append(self.conv_class(shared).permute(0, 2, 3, 1)
+                          .reshape(b, -1, 2))
+            deltas.append(self.conv_bbox(shared).permute(0, 2, 3, 1)
+                          .reshape(b, -1, 4))
+        logits = torch.cat(logits, dim=1).to(torch.float32)
+        return (logits, torch.softmax(logits, dim=-1),
+                torch.cat(deltas, dim=1).to(torch.float32))
+
     def outputs(self, shared_maps: Iterable[torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The fused 1x1 over each level's shared map (NCHW, after the
@@ -51,6 +69,9 @@ class RPN(nn.Module):
         bias = torch.cat([self.conv_class.bias, self.conv_bbox.bias])
         scores, deltas = [], []
         for shared in shared_maps:
+            # float32 master weights (training construction) to the maps'
+            # dtype; inference weights are already in it
+            weight, bias = weight.to(shared.dtype), bias.to(shared.dtype)
             # NHWC before the reshape: (y, x, ratio) anchor order
             y = conv2d(shared, weight, bias).permute(0, 2, 3, 1)
             b = y.shape[0]

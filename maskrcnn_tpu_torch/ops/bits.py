@@ -6,10 +6,16 @@ np.unpackbits, so host code unpacks device output with numpy.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from maskrcnn_tpu_torch.ops import device_tensor
+
+
+def pack_masks(masks: np.ndarray) -> np.ndarray:
+    """Host: [..., W] {0,1} -> [..., ceil(W/8)] uint8 (np.packbits)."""
+    return np.packbits(masks.astype(bool), axis=-1)
 
 
 def pack_masks_device(masks: torch.Tensor) -> torch.Tensor:

@@ -1,16 +1,17 @@
-"""Visualization: instance overlays (counterpart of
-maskrcnn_tpu/utils/visualize.py; reference: utils.py:294-398
-display_instances/apply_mask/random_colors).
+"""Visualization: instance overlays and loss plots (counterpart of
+maskrcnn_tpu/utils/visualize.py; reference: utils.py:294-488
+display_instances/apply_mask/random_colors/plot_loss).
 
 matplotlib is imported only where a figure is drawn, so the port imports
-without it. `plot_loss` waits for the training slice.
+without it.
 """
 
 from __future__ import annotations
 
 import colorsys
 import random
-from typing import Optional, Sequence
+import os
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -94,3 +95,28 @@ def display_instances(image: np.ndarray, boxes, masks, class_ids,
         plt.show()
     plt.close("all")
     return shown
+
+
+def plot_loss(loss_history: List[dict], val_loss_history: List[dict],
+              save: bool = True, log_dir: str = "."):
+    """One PNG a loss, training and validation curves by epoch
+    (reference utils.py:401-488)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    if not loss_history:
+        return
+    for key in loss_history[0]:
+        plt.figure(key, figsize=(8, 5))
+        plt.title(key)
+        plt.plot([h[key] for h in loss_history], label="train")
+        if val_loss_history:
+            plt.plot([h.get(key, 0.0) for h in val_loss_history],
+                     label="valid")
+        plt.xlabel("epoch")
+        plt.ylabel("loss")
+        plt.legend()
+        if save:
+            plt.savefig(os.path.join(log_dir, f"{key}.png"))
+        plt.close(key)

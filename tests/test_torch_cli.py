@@ -52,8 +52,8 @@ def test_coco_torch_cli(monkeypatch, tmp_path, capsys):
     """evaluate prints the RLE route and the bbox and segm summaries; under
     --tta --soft-nms --cascade --keypoints 17 (a two-conv keypoint head)
     the keypoint summary follows, on ground truth with 17 keypoints an
-    annotation; train raises NotImplementedError naming the ROADMAP
-    item."""
+    annotation; train on more than one device raises NotImplementedError
+    naming the field (training itself: tests/test_torch_train_data.py)."""
     monkeypatch.setattr(coco_torch, "CocoInferenceConfig", tiny_config)
     root = synthetic_coco_dir(tmp_path)
     coco_torch.main(["evaluate", "--dataset", root, "--limit", "3",
@@ -82,5 +82,6 @@ def test_coco_torch_cli(monkeypatch, tmp_path, capsys):
                      "all | maxDets=100 ]") == 2
     assert out.count("Average Precision  (AP) @[ IoU=0.50:0.95 | area=   "
                      "all | maxDets= 20 ]") == 1
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        coco_torch.main(["train", "--dataset", root, "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="NUM_DEVICES"):
+        coco_torch.main(["train", "--dataset", root, "--device", "cpu",
+                         "--devices", "2"])

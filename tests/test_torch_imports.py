@@ -44,7 +44,12 @@ SLICE_MODULES = (
     "maskrcnn_tpu_torch.eval.rle", "maskrcnn_tpu_torch.eval.native",
     "maskrcnn_tpu_torch.eval.coco_index", "maskrcnn_tpu_torch.eval.cocoeval",
     "maskrcnn_tpu_torch.eval.evaluate", "maskrcnn_tpu_torch.utils.progress",
-    "maskrcnn_tpu_torch.utils.visualize", "predict_torch", "coco_torch")
+    "maskrcnn_tpu_torch.utils.visualize", "maskrcnn_tpu_torch.train",
+    "maskrcnn_tpu_torch.train.targets", "maskrcnn_tpu_torch.train.losses",
+    "maskrcnn_tpu_torch.train.step", "maskrcnn_tpu_torch.train.trainer",
+    "maskrcnn_tpu_torch.checkpoint.store", "maskrcnn_tpu_torch.data.dataset",
+    "maskrcnn_tpu_torch.data.augment", "maskrcnn_tpu_torch.data.pipeline",
+    "predict_torch", "coco_torch")
 # packages the port must not import: JAX, flax, and the JAX package itself
 # (even its modules that import no JAX)
 FORBIDDEN = ("jax", "flax", "maskrcnn_tpu")

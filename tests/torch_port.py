@@ -98,3 +98,73 @@ def synthetic_coco_dir(root: Path) -> str:
     with open(root / "annotations" / "instances_minival2014.json", "w") as f:
         json.dump(data, f)
     return str(root)
+
+
+def train_config(base, **overrides):
+    """`base` (a JAX package config) in the samplers' deterministic regime
+    (tests/test_reference_samplers_golden.py): the RPN cap is the anchor
+    count, and 24 proposals and 24 head slots an image, 3 of them
+    positive (ratio 0.125): with exactly three positive proposals
+    (`train_batch`) the negative budget, 3 / 0.125 - 3 = 21, takes every
+    other proposal, so no random subsample fires on either side."""
+    from maskrcnn_tpu.ops.anchors import config_anchors
+    cfg = base.replace(RPN_NMS_MAX_ROIS_NUM=24, TRAIN_ROIS_PER_IMAGE=24,
+                       ROI_POSITIVE_RATIO=0.125, **overrides)
+    return cfg.replace(RPN_TRAIN_ANCHORS_PER_IMAGE=len(config_anchors(cfg)))
+
+
+def train_batch(config, model, b: int = 2, seed: int = 0, keypoints=0):
+    """A training batch (numpy) whose gt boxes are three of the port
+    model's own proposals an image, each with no other proposal at IoU
+    0.5 or more, so exactly three proposals an image are positive; with
+    rectangle masks. The proposals come from the port's training RPN on
+    the same canvases."""
+    import torch
+    from maskrcnn_tpu_torch.detection.pipeline import rpn_refine
+    from maskrcnn_tpu_torch.ops.boxes import box_iou
+    from maskrcnn_tpu_torch.ops.image import normalize_image
+    rng = np.random.RandomState(seed)
+    h, w = config.IMAGE_SHAPE[:2]
+    g = config.MAX_GT_INSTANCES
+    images = rng.randint(0, 256, (b, h, w, 3), np.uint8)
+    with torch.no_grad():
+        feats = model.backbone(normalize_image(torch.from_numpy(images),
+                                               config.MEAN_PIXEL))
+        _, probs, deltas = model.rpn_detect(feats)
+        props, pvalid = rpn_refine(model.config, model.anchors(), probs,
+                                   deltas)
+    cls = np.zeros((b, g), np.int32)
+    boxes = np.zeros((b, g, 4), np.float32)
+    valid = np.zeros((b, g), bool)
+    masks = np.zeros((b, g, h, w), np.uint8)
+    kps = np.zeros((b, g, keypoints, 3), np.float32)
+    for i in range(b):
+        picked = []
+        live = props[i, pvalid[i]]
+        for j in np.flatnonzero(pvalid[i].numpy()):
+            box = props[i, j]
+            if min(box[2] - box[0], box[3] - box[1]) * min(h, w) < 2.0:
+                continue
+            if int((box_iou(box[None], live)[0] >= 0.5).sum()) != 1:
+                continue
+            picked.append(j)
+            if len(picked) == 3:
+                break
+        assert len(picked) == 3, "too few distinct proposals"
+        for k, j in enumerate(picked):
+            px = props[i, j].numpy() * np.array([h, w, h, w], np.float32)
+            boxes[i, k] = px
+            cls[i, k] = rng.randint(1, config.NUM_CLASSES)
+            valid[i, k] = True
+            y1, x1, y2, x2 = np.round(px).astype(int)
+            masks[i, k, y1:y2, x1:x2] = 1
+            if keypoints:
+                kps[i, k, :, 0] = rng.uniform(px[0], px[2], keypoints)
+                kps[i, k, :, 1] = rng.uniform(px[1], px[3], keypoints)
+                kps[i, k, :, 2] = 2.0
+                kps[i, k, ::3, 2] = 0.0
+    out = {"images": images, "gt_class_ids": cls, "gt_boxes": boxes,
+           "gt_masks": masks, "gt_valid": valid}
+    if keypoints:
+        out["gt_keypoints"] = kps
+    return out
