@@ -14,8 +14,8 @@ Phases, each printing one line:
     its coordinate prologue on the card: B=8, levels 256/128/64/32,
     C=256, 500 boxes at P=7 and 50 at P=14 (with the edge boxes), in
     float32 with TF32 off and in bfloat16 (the count of differing values
-    printed); the op on the card runs no PyTorch op but the output
-    allocation, and launches K1 once; its time at both shapes beside its
+    printed); the op on the card runs no PyTorch op but the mrt::roi_align
+    custom op, and launches K1 once; its time at both shapes beside its
     bound and the plain version's; then the same checks, untimed, on the
     768x1024 canvas (levels 192x256 .. 24x32, its own level rule);
  3b. RoIAlign's int8-table mode the same way: int8 levels with four
@@ -112,12 +112,34 @@ Phases, each printing one line:
     version (keep masks identical), one step in sync-debug mode, B=8 and
     B=1 medians (of 3) beside the default's, and the port on the card
     against the CPU at tiny width; soft-NMS's ops and time a call;
+ 8. after 5i, the serving, RetinaNet, data-parallel, export and
+    profiler modules at full width:
+    8a BatchingDetector(max_batch=8) over the phase-5 Detector: eight
+    threads submit 32 COCO-sized images, every result equal to
+    detect_batch's on the batch the server ran (class ids and boxes
+    equal, mask pixels apart < 0.02), img/s and p50/p99 latency, and from
+    a torch.profiler trace of the same requests the share of the copy
+    stream's device-to-host copies that ran beside a kernel;
+    8b RetinaNet (CocoInferenceConfig: 1024², 81 classes, bf16), default
+    and QUANT_INT8: B=8 detect with its class-offset K2 call (N = 1,000
+    boxes an image) held against the plain version (keep masks
+    identical), K2's time there beside its bounds, B=8 and B=1 medians;
+    8c two gloo ranks on the one card (this script with --dp-rank), one
+    image each of 7b's scene: the data-parallel step against the
+    one-process step within 1e-4; a one-rank nccl group through
+    Trainer.fit for two steps;
+    8d predict_step B=8 exported with torch.export (weights as its
+    input, K1/K2/K4 as the custom ops of kernels/torch_ops.py), loaded in
+    a process importing torch and kernels.torch_ops only: outputs
+    bit-identical, its launches and time beside the live step's;
+    8e utils.profiler.trace around one step writes a Chrome trace;
 then one JSON line of per-kernel numbers (time, launches on the main
 path, error, plain version's time, the bound and what sets it, the
 library's time; K1 and K1-bwd at P=7 and, in the `_p14` keys, at P=14
 (K1-bwd's launches from phase 7c's training runs); K2's chain
-bound and version 1's time; K5 in float32 and, in the `_bf16` keys,
-bf16, with version 1's times), and, last, the result line.
+bound and version 1's time, and its time at RetinaNet's N = 1,000 in the
+`_retina` keys; K5 in float32 and, in the `_bf16` keys, bf16, with
+version 1's times), and, last, the result line.
 Exits non-zero, printing no result line, without a CUDA device or when
 any check fails. Imports nothing of JAX.
 """
@@ -283,12 +305,13 @@ def op_log():
 
 def roi_ops_check(kernels, roi, levels, boxes, pool, *args, canvas=CANVAS):
     """The fused op on the card runs no PyTorch op that computes but the
-    output allocation (every PyTorch kernel goes through an op seen here)
-    and launches K1 once. Returns the ops seen."""
+    mrt::roi_align custom op (every PyTorch kernel goes through an op seen
+    here; the op's own output allocation runs inside it) and launches K1
+    once. Returns the ops seen."""
     before = kernels.roi_align.launches
     with op_log() as ops:
         roi.multilevel_roi_align_impl(levels, boxes, pool, canvas, *args)
-    check(ops.computed == ["empty"]
+    check(ops.computed == ["roi_align"]
           and kernels.roi_align.launches == before + 1,
           f"roi_align op on the card: ops {ops.computed}, launches "
           f"{kernels.roi_align.launches - before}")
@@ -1475,7 +1498,7 @@ def product_phase(kernels, card, cfg=None, shapes=COCO_SHAPES,
         for img, g in zip(images, (det._canvas_geometry(
             h, w, cfg.IMAGE_MIN_DIM, *cfg.IMAGE_SHAPE[:2])[0]
             for h, w in shapes))]))
-    out, _, windows, scales, _ = hdet.dispatch_batch(images)
+    out, _, windows, scales, _, _ = hdet.dispatch_batch(images)
     valid = out["valid"].cpu().numpy()
     packed = out["masks_packed"].cpu().numpy()
     canvas = [packed[i][valid[i]] for i in range(b)]
@@ -2149,10 +2172,598 @@ def profile_phase(run, label, out_dir, name):
           flush=True)
 
 
+# ---------------------------------------------------------------------
+# phase 8: the server, RetinaNet, data parallelism, export, the profiler
+# ---------------------------------------------------------------------
+
+def _spans(events, pred):
+    """Merged [start, end) microsecond spans of the trace events that
+    `pred` takes."""
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                   if pred(e))
+    merged = []
+    for s, e in spans:
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    return merged
+
+
+def _overlap_us(a, b):
+    """Microseconds where the merged spans `a` and `b` both run."""
+    total, j = 0.0, 0
+    for s, e in a:
+        for s2, e2 in b:
+            total += max(0.0, min(e, e2) - max(s, s2))
+    return total
+
+
+class RecordingDetector:
+    """A Detector's dispatch_batch/fetch that records every batch it is
+    given (phase 8a repeats them through detect_batch)."""
+
+    def __init__(self, det):
+        self.det = det
+        self.config = det.config
+        self.batches = []
+
+    def dispatch_batch(self, images):
+        self.batches.append(list(images))
+        return self.det.dispatch_batch(images)
+
+    def fetch(self, handle):
+        return self.det.fetch(handle)
+
+
+def server_phase(det, kernels, card, n_images=32, threads=8, max_batch=8):
+    """Phase 8a: BatchingDetector(max_batch=8) over the default Detector;
+    eight threads submit 32 COCO-sized images, four each, all at once,
+    then wait for their results (a closed loop of one request a thread
+    would leave one batch in flight and nothing to overlap).
+    Every result equals detect_batch's on the batch the server ran (the
+    same padded images): class ids and boxes equal, mask pixels apart
+    under 0.02 (5h's metrics). img/s over the run and p50/p99 latency a
+    request. Then a traced run of 32 canvas-sized images (scale 1: no
+    host resample, so the card and not the host sets the pace): the copy
+    stream's device-to-host copies against the kernels."""
+    from maskrcnn_tpu_torch.serving import BatchingDetector
+    from maskrcnn_tpu_torch.utils.profiler import trace
+    rng = np.random.RandomState(8)
+    images = make_images(rng, [COCO_SHAPES[i % len(COCO_SHAPES)]
+                               for i in range(n_images)])
+    det.detect_batch(images[:max_batch])          # warm the B=8 step
+
+    def serve(rec, images=images):
+        server = BatchingDetector(rec, max_batch=max_batch,
+                                  max_delay_ms=20.0)
+        lat = [None] * n_images
+
+        def client(t):
+            mine = range(t, n_images, threads)
+            sent = {i: (time.perf_counter(), server.submit(images[i]))
+                    for i in mine}
+            for i, (s, fut) in sent.items():
+                results[i] = fut.result(timeout=600)
+                lat[i] = (time.perf_counter() - s) * 1e3
+        results = [None] * n_images
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=threads) as pool:
+            list(pool.map(client, range(threads)))
+        wall = time.perf_counter() - t0
+        server.close()
+        return results, lat, wall, server
+    before = launch_counts(kernels)
+    rec = RecordingDetector(det)
+    results, lat, wall, server = serve(rec)
+    launches = {k: v - before[k] for k, v in launch_counts(kernels).items()}
+    check(server.images_run == n_images, "8a: every request answered")
+    check(all(launches[k] >= len(rec.batches) for k in
+              ("roi_align", "nms", "paste_pack")),
+          f"8a: the server's batches launched K1, K2 and K4: {launches}")
+    # the batches again through detect_batch
+    ids = {id(img): i for i, img in enumerate(images)}
+    apart = pixels = 0
+    for batch in rec.batches:
+        want = det.detect_batch(batch)
+        for img, w in zip(batch[:len(set(map(id, batch)))], want):
+            got = results[ids[id(img)]]
+            check(got[0] is not None and w is not None
+                  and got[0] == w[0] and got[2] == w[2],
+                  "8a: a server result differs from detect_batch's")
+            apart += int((got[3] != w[3]).sum())
+            pixels += got[3].size
+    share = apart / max(pixels, 1)
+    check(share < 0.02, f"8a: {share} of mask pixels apart")
+    sizes = [len(b) for b in rec.batches]
+    lat.sort()
+    print(f"[8a] BatchingDetector(max_batch={max_batch}) "
+          f"{cfg_name(det.config)}"
+          f": {threads} threads, {n_images} COCO-sized requests in "
+          f"{len(sizes)} batches {sizes}; results equal detect_batch's on "
+          f"the same batches ({share:.6f} of mask pixels apart); "
+          f"{n_images / wall:.2f} img/s, latency p50 "
+          f"{statistics.median(lat):.1f} ms p99 "
+          f"{lat[min(n_images - 1, int(0.99 * n_images))]:.1f} ms; launches "
+          + " ".join(f"{k} {launches[k]}" for k in ("roi_align", "nms",
+                                                    "paste_pack"))
+          + f"; {card}", flush=True)
+    # the overlap, from a trace of canvas-sized requests
+    out_dir = "build/phase8"
+    canvases = make_images(rng, [(1024, 1024)] * n_images)
+    det.detect_batch(canvases[:max_batch])
+    t0 = time.perf_counter()
+    serve(RecordingDetector(det), canvases)
+    canvas_rate = n_images / (time.perf_counter() - t0)
+    with trace(out_dir, "server") as prof:
+        serve(RecordingDetector(det), canvases)
+    with open(f"{out_dir}/server.json") as f:
+        events = json.load(f)["traceEvents"]
+    d2h = [e for e in events if e.get("cat") == "gpu_memcpy"
+           and "DtoH" in e.get("name", "")]
+    kernels_ev = [e for e in events if e.get("cat") == "kernel"]
+    if not d2h or not kernels_ev:
+        print(f"[8a] stream overlap: not measured (the trace holds "
+              f"{len(d2h)} device-to-host copies and {len(kernels_ev)} "
+              "kernels)", flush=True)
+        return launches
+    streams = sorted({e["args"].get("stream") for e in d2h})
+    kernel_streams = sorted({e["args"].get("stream") for e in kernels_ev})
+    copies = _spans(d2h, lambda e: True)
+    compute = _spans(kernels_ev, lambda e: True)
+    copy_us = sum(e - s for s, e in copies)
+    both = _overlap_us(copies, compute)
+    print(f"[8a] {n_images} requests of 1024x1024 images (scale 1, no "
+          f"host resample): {canvas_rate:.2f} img/s; stream overlap "
+          f"(torch.profiler trace of them, {out_dir}/server.json): "
+          f"{len(d2h)} device-to-host "
+          f"copies on stream(s) {streams}, kernels on stream(s) "
+          f"{kernel_streams}; {copy_us / 1e3:.3f} ms of copies, "
+          f"{both / 1e3:.3f} ms of them ({both / max(copy_us, 1e-9):.1%}) "
+          f"while a kernel ran; {card}", flush=True)
+    return launches
+
+
+def retina_phase(kernels, nms, card, base=None):
+    """Phase 8b: RetinaNet (CocoInferenceConfig: 1024², 81 classes, bf16)
+    with seeded weights, default and QUANT_INT8 (calibrated on two
+    default canvases): detect at B=8 and B=1. Every class-offset K2 call
+    (N = 2 x PRE_NMS_LIMIT = 1,000 boxes an image) is held against the
+    plain version on the same boxes: keep masks identical. K2's
+    launches, its time at B=8 N=1,000 beside its bounds, and the B=8 and
+    B=1 detect medians of each configuration."""
+    from maskrcnn_tpu_torch import CocoInferenceConfig
+    from maskrcnn_tpu_torch.models import retina_fpn
+    from maskrcnn_tpu_torch.ops.image import normalize_image
+    from maskrcnn_tpu_torch.quant import default_calib_canvases
+    base = base or CocoInferenceConfig()
+    d = base.IMAGE_MAX_DIM
+    k = min(2 * base.PRE_NMS_LIMIT, len(retina_fpn.retina_anchors(base)))
+    calls = []
+    real = retina_fpn.multiclass_nms_mask
+
+    def held(boxes, class_ids, valid, thr, coord_span):
+        before = kernels.nms.launches
+        keep = real(boxes, class_ids, valid, thr, coord_span)
+        offset = class_ids.to(boxes.dtype)[..., None] * (coord_span + 2.0)
+        want = nms.nms_mask(boxes + offset, valid, thr)
+        calls.append((int((keep != want).sum()), tuple(boxes.shape),
+                      kernels.nms.launches - before,
+                      (boxes + offset, valid, thr)))
+        return keep
+    rng = np.random.RandomState(12)
+    raw = torch.from_numpy(rng.randint(0, 256, (8, d, d, 3),
+                                       dtype=np.uint8)).to(DEVICE)
+    x = normalize_image(raw, base.MEAN_PIXEL)
+    times, launches = {}, 0
+    for quant in (False, True):
+        cfg = base.replace(QUANT_INT8=quant)
+        net = retina_fpn.RetinaNet(cfg, DEVICE).init(
+            torch.Generator().manual_seed(0))
+        if quant:
+            t0 = time.perf_counter()
+            net.prepare(default_calib_canvases(cfg.IMAGE_SHAPE, n=2))
+            print(f"[8b] RetinaNet QUANT_INT8 calibrated on two canvases "
+                  f"in {time.perf_counter() - t0:.1f} s", flush=True)
+        calls.clear()
+        before = kernels.nms.launches
+        retina_fpn.multiclass_nms_mask = held
+        try:
+            out = net.detect(x)
+        finally:
+            retina_fpn.multiclass_nms_mask = real
+        torch.cuda.synchronize()
+        launches += kernels.nms.launches - before
+        check(len(calls) == 1 and calls[0][1] == (8, k, 4)
+              and calls[0][2] == 1 and calls[0][0] == 0,
+              f"8b: K2 calls {[c[:3] for c in calls]}")
+        valid = out["valid"]
+        check(bool(valid.any()) and bool(torch.isfinite(
+            out["boxes"]).all()) and int(valid.sum(1).min()) > 0,
+            "8b: detections")
+        name = "QUANT_INT8" if quant else "default"
+        # the detect never waits on the card
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            net.detect(x)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        for b in (8, 1):
+            times[(name, b)] = statistics.median(
+                cuda_ms(lambda: net.detect(x[:b]), iters=3, warmup=1,
+                        queued=False) for _ in range(3))
+        print(f"[8b] RetinaNet {name}: B=8 detect, {int(valid.sum())} "
+              f"detections, one class-offset K2 call at B=8 N={k} "
+              f"(keep mask identical to the plain version's, "
+              f"{int(calls[0][3][1].sum())} valid boxes), no host sync "
+              f"in a detect; detect B=8 {times[(name, 8)]:.2f} ms, B=1 "
+              f"{times[(name, 1)]:.2f} ms (CUDA events around issued "
+              f"calls, median of 3); {card}", flush=True)
+        del net
+    # K2 at the RetinaNet shape, as phase 4 times it
+    bx, vt, thr = calls[0][3]
+    bx = bx.contiguous()
+    ms = cuda_ms(lambda: kernels.nms(bx, vt, thr))
+    plain_ms = cuda_ms(lambda: nms.nms_mask(bx, vt, thr), iters=3, warmup=1)
+    b, n = vt.shape
+    bound_ms, bound_by = bound(bx.numel() * 4 + vt.numel() * 2,
+                               b * n * (n - 1) / 2 * 12.0, PEAK_F32)
+    _, step_ns = nms_chain_step(kernels)
+    chain_ms = n * step_ns * 1e-6
+    print(f"[8b] K2 at RetinaNet's B=8 N={n} class-offset boxes (thr "
+          f"{thr}): kernel {ms:.4f} ms, bound {bound_ms:.6f} ms by "
+          f"{bound_by}, chain bound {chain_ms:.6f} ms ({n} steps), plain "
+          f"{plain_ms:.4f} ms; launches on the RetinaNet path {launches}; "
+          f"{card}", flush=True)
+    return launches, (ms, plain_ms, bound_ms, bound_by, chain_ms)
+
+
+def _dp_scene(b: int = 2):
+    """Phase 7b's 128-px float32 scene: seeded weights (RPN deltas scaled
+    as 7b scales them) and `b` images, as (state, batch)."""
+    from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
+    cfg = train_scene_config()
+    cpu = MaskRCNN(cfg, "cpu", train=True).init(
+        torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        cpu.rpn.conv_bbox.weight.mul_(0.01)
+    return cpu.state_dict(), train_scene_batch(cpu, b)
+
+
+def dp_rank_main(rank: int, world: int, port: int, out_path: str,
+                 backend: str) -> int:
+    """One rank of phase 8c (chip_smoke.py --dp-rank): "gloo", two ranks
+    on the card, or "nccl", rank r on card r (tools/chip_phases.py m):
+    one data-parallel train_step of the 7b scene, one image a rank, rank
+    0 writing the weights and losses; "nccl-fit", one rank:
+    Trainer.fit for two steps through the data-parallel path."""
+    import torch.distributed as dist
+    from maskrcnn_tpu_torch import parallel
+    from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
+    from maskrcnn_tpu_torch.train import step as pstep
+    from maskrcnn_tpu_torch.train.trainer import Trainer, to_device
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    state, batch = _dp_scene(max(world, 2))
+    device = (torch.device("cuda", rank) if backend == "nccl"
+              else torch.device(DEVICE))
+    if device.index is not None:
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend.split("-")[0],
+                            init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        cfg = train_scene_config().replace(NUM_DEVICES=world)
+        model = MaskRCNN(cfg, device, train=True)
+        model.load_state_dict(state)
+        if backend == "nccl-fit":
+            trainer = Trainer(model, log_every=1)
+            trainer.fit(iter([batch] * 2), 1e-3, 1, "all",
+                        parallel.rank_generator(0, rank, device),
+                        steps_per_epoch=2)
+            hist = trainer.step_history
+            check(len(hist) == 2 and all(np.isfinite(r["total"])
+                                         for r in hist),
+                  f"8c: Trainer.fit over nccl: {hist}")
+            print(f"[8c] one-rank nccl group: Trainer.fit 2 steps through "
+                  f"the data-parallel path, totals "
+                  f"{[round(r['total'], 5) for r in hist]}", flush=True)
+            return 0
+        per = cfg.IMAGES_PER_DEVICE
+        ps = [p for _, p in model.named_parameters()]
+        opt = pstep.make_optimizer(cfg, 1e-3, ps, [True] * len(ps))
+        dp = parallel.for_config(cfg)
+        local = to_device(parallel.rank_slice(batch, rank, per), device)
+        gen = torch.Generator(device=device).manual_seed(0)
+        losses = pstep.train_step(model, opt, local, gen, dp)
+        if rank == 0:
+            torch.save({"losses": {k: float(v) for k, v in losses.items()},
+                        "params": {n: p.detach().cpu()
+                                   for n, p in model.named_parameters()}},
+                       out_path)
+        return 0
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _ranks(world: int, backend: str, out_path: str):
+    """Run `world` ranks of dp_rank_main as subprocesses; wait for all."""
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--dp-rank", str(r), str(world),
+         str(port), out_path, backend], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outs):
+        check(p.returncode == 0, f"8c {backend} rank failed:\n{out[-3000:]}")
+    return outs
+
+
+def _dp_against_one_process(world, backend, label):
+    """Run `world` ranks of one data-parallel step (one image each) and
+    hold it against the one-process step on the same global batch on the
+    first card: losses within 1e-4 relative, every weight within 1e-4 of
+    its largest |value|, as 7b; a zero-initialized bias, which is nothing
+    but its update, within 3e-3 of its largest update (as
+    tests/test_torch_parallel.py: its gradient sums terms of both signs
+    over the ranks in another order; measured 1.0e-4 for mask.conv3.bias
+    on four cards). Returns (loss gap, weight gap, seconds)."""
+    import os
+    from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
+    from maskrcnn_tpu_torch.train import step as pstep
+    from maskrcnn_tpu_torch.train.trainer import to_device
+    path = f"build/phase8c_{backend}_rank0.pt"
+    t0 = time.perf_counter()
+    _ranks(world, backend, path)
+    got = torch.load(path)
+    os.remove(path)
+    state, batch = _dp_scene(max(world, 2))
+    batch = {k: v[:world] for k, v in batch.items()}
+    model = MaskRCNN(train_scene_config(), DEVICE, train=True)
+    model.load_state_dict(state)
+    ps = [p for _, p in model.named_parameters()]
+    opt = pstep.make_optimizer(model.config, 1e-3, ps, [True] * len(ps))
+    losses = pstep.train_step(model, opt, to_device(batch, DEVICE),
+                              torch.Generator(device=DEVICE).manual_seed(0))
+    rel = 0.0
+    for k, v in losses.items():
+        v = float(v)
+        check(abs(got["losses"][k] - v) <= 1e-4 * abs(v) + 1e-7,
+              f"{label}: loss {k} ranks {got['losses'][k]} one {v}")
+        rel = max(rel, abs(got["losses"][k] - v) / max(abs(v), 1e-30))
+    worst = 0.0
+    for n, p in model.named_parameters():
+        want = p.detach().cpu()
+        init = state[n]
+        zero = not init.any()
+        scale = float((want - init).abs().max() if zero
+                      else want.abs().max())
+        gap = float((got["params"][n] - want).abs().max())
+        check(gap <= (3e-3 if zero else 1e-4) * scale + 1e-30,
+              f"{label}: {n} {gap} of {scale}")
+        if not zero:
+            worst = max(worst, gap / max(scale, 1e-30))
+    return rel, worst, time.perf_counter() - t0
+
+
+def dp_phase(card):
+    """Phase 8c: two gloo ranks on the one card (NCCL refuses two ranks
+    on a device) each take one image of the 7b scene: their
+    data-parallel step (K1, K1-bwd and K2 on the card, the losses'
+    denominators and the gradients all-reduced) against the one-process
+    step on the same global batch, as 7b. Then a one-rank nccl group runs
+    Trainer.fit for two steps. The multi-device Detector needs more than
+    one card."""
+    rel, worst, secs = _dp_against_one_process(2, "gloo", "8c")
+    print(f"[8c] two gloo ranks on the card, one image each of the 7b "
+          f"scene: the data-parallel step equals the one-process step "
+          f"(losses within {rel:.3g} relative, weights within {worst:.3g} "
+          f"of their max) in {secs:.1f} s; {card}", flush=True)
+    outs = _ranks(1, "nccl-fit", "")
+    print(outs[0].strip().splitlines()[-1], flush=True)
+    print("[8c] the multi-device Detector (NUM_DEVICES > 1, one replica a "
+          "card) needs more than one card: not run here", flush=True)
+
+
+def multi_gpu_phase(det, card):
+    """More than one card (tools/chip_phases.py m): one nccl rank a card,
+    one image each of the 7b scene, against the one-process step; then
+    Detector(NUM_DEVICES = the card count) on eight COCO-sized images
+    against the one-card Detector `det` run on the same split (each
+    replica's part as its own batch: cuDNN's bf16 convs pick their
+    algorithm by batch size): class ids and boxes equal, mask pixels
+    apart under 0.02 (5h's metrics); and both detect_batch times on the
+    eight (median of 3, host clock)."""
+    from maskrcnn_tpu_torch.api import Detector
+    n = torch.cuda.device_count()
+    check(n > 1, f"the multi-card phase needs more than one card, has {n}")
+    rel, worst, secs = _dp_against_one_process(n, "nccl", "multi-gpu")
+    print(f"[m] {n} nccl ranks, one a card, one image each of the 7b scene:"
+          f" the data-parallel step equals the one-process step (losses "
+          f"within {rel:.3g} relative, weights within {worst:.3g} of their "
+          f"max, zero-initialized biases within 3e-3 of their update) in "
+          f"{secs:.1f} s; {card}", flush=True)
+    rng = np.random.RandomState(5)
+    images = make_images(rng, list(COCO_SHAPES))
+    many = Detector(det.config.replace(NUM_DEVICES=n), device=DEVICE,
+                    generator=torch.Generator().manual_seed(0))
+    many.model.load_state_dict(det.model.state_dict())
+    many._weights = object()
+    per = -(-len(images) // n)
+    want = [r for i in range(0, len(images), per)
+            for r in det.detect_batch(images[i:i + per])]
+    got = many.detect_batch(images)
+    check(len(many._replicas) == n, "one replica a card")
+    apart = pixels = 0
+    for a, b in zip(want, got):
+        check(a is not None and b is not None and a[0] == b[0]
+              and a[2] == b[2], "multi-card Detector: detections differ")
+        apart += int((a[3] != b[3]).sum())
+        pixels += a[3].size
+    share = apart / max(pixels, 1)
+    check(share < 0.02, f"multi-card Detector: {share} of mask pixels")
+    times = {}
+    for name, d in (("one card", det), (f"{n} cards", many)):
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            d.detect_batch(images)
+            runs.append((time.perf_counter() - t) * 1e3)
+        times[name] = statistics.median(runs)
+    print(f"[m] Detector(NUM_DEVICES={n}) on eight COCO-sized images: the "
+          f"one-card Detector's detections on the same split ({share:.6f} "
+          f"of mask pixels apart); detect_batch median "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in times.items())
+          + f"; {card}", flush=True)
+
+
+EXPORT_CHILD = r"""
+import sys, time
+import torch
+import maskrcnn_tpu_torch.kernels.torch_ops
+from maskrcnn_tpu_torch import kernels
+sync = torch.cuda.synchronize if torch.cuda.is_available() else lambda: None
+path, params_path, io_path, out_path = sys.argv[1:5]
+params = torch.load(params_path)
+io = torch.load(io_path)
+program = torch.export.load(path).module()
+names = ("roi_align", "nms", "paste_pack", "bottleneck")
+before = {k: getattr(kernels, k).launches for k in names}
+with torch.no_grad():
+    out = program(params, io["images"], io["windows"])
+sync()
+launches = {k: getattr(kernels, k).launches - v for k, v in before.items()}
+times = []
+for _ in range(5):
+    sync()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        program(params, io["images"], io["windows"])
+    sync()
+    times.append((time.perf_counter() - t0) * 1e3)
+model_code = sorted(m for m in sys.modules if m.startswith("maskrcnn")
+                    and m not in ("maskrcnn_tpu_torch",
+                                  "maskrcnn_tpu_torch.kernels",
+                                  "maskrcnn_tpu_torch.kernels.torch_ops"))
+torch.save({"out": {k: v.cpu() for k, v in out.items()},
+            "launches": launches, "ms": sorted(times)[2],
+            "model_code": model_code}, out_path)
+"""
+
+
+def export_phase(det, kernels, card, b=8):
+    """Phase 8d: export the default config's predict_step at B=8 on the
+    card (weights as the program's input), save it, and load and run it in
+    a subprocess that imports torch and kernels.torch_ops only: its
+    outputs bit-identical to the live step's, its K1/K2/K4 launches, its
+    time beside the live step's (host clock around synchronised calls,
+    median of 5)."""
+    import os
+    from maskrcnn_tpu_torch import export as ex
+    from maskrcnn_tpu_torch.detection.pipeline import predict_step
+    rng = np.random.RandomState(9)
+    images = make_images(rng, [COCO_SHAPES[i] for i in range(b)])
+    x, windows, _ = det._preprocess(images)
+    win = torch.tensor(windows, dtype=torch.float32).to(DEVICE)
+    t0 = time.perf_counter()
+    path = "build/phase8d_predict.pt2"
+    torch.export.save(ex.export_predict(det.model, b), path)
+    export_s = time.perf_counter() - t0
+    ep = torch.export.load(path)
+    ops = sorted({str(n.target) for n in ep.graph.nodes
+                  if n.op == "call_function" and "mrt" in str(n.target)})
+    with torch.no_grad():
+        want = predict_step(det.model, x, win)
+    live = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        with torch.no_grad():
+            predict_step(det.model, x, win)
+        torch.cuda.synchronize()
+        live.append((time.perf_counter() - s) * 1e3)
+    params_path, io_path, out_path = ("build/phase8d_params.pt",
+                                      "build/phase8d_io.pt",
+                                      "build/phase8d_out.pt")
+    torch.save({k: v for k, v in ex.model_params(det.model).items()},
+               params_path)
+    torch.save({"images": x, "windows": win}, io_path)
+    try:
+        proc = subprocess.run([sys.executable, "-c", EXPORT_CHILD, path,
+                               params_path, io_path, out_path],
+                              capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"8d: the loading process failed:\n"
+              f"{proc.stderr[-3000:]}")
+        got = torch.load(out_path)
+    finally:
+        for f in (path, params_path, io_path, out_path):
+            if os.path.exists(f):
+                os.remove(f)
+    check(not got["model_code"], f"8d: model code imported "
+          f"{got['model_code']}")
+    for k, v in want.items():
+        check(torch.equal(got["out"][k], v.cpu()),
+              f"8d: the loaded program's {k} differs from the live step's")
+    n = got["launches"]
+    check(n["roi_align"] == 2 and n["nms"] >= 2 and n["paste_pack"] == 1,
+          f"8d: launches {n}")
+    print(f"[8d] predict_step B={b} {cfg_name(det.config)} exported in "
+          f"{export_s:.1f} s (custom ops {ops}), loaded in a process that "
+          f"imports torch and kernels.torch_ops only: outputs bit-identical "
+          f"to the live step; launches a step K1 {n['roi_align']} K2 "
+          f"{n['nms']} K4 {n['paste_pack']}; loaded program "
+          f"{got['ms']:.2f} ms, live step {sorted(live)[2]:.2f} ms "
+          f"(host clock, median of 5); {card}", flush=True)
+
+
+def profiler_phase(det, images):
+    """Phase 8e: utils.profiler.trace around one predict_step writes a
+    Chrome trace with the card's kernels in it."""
+    from maskrcnn_tpu_torch.detection.pipeline import predict_step
+    from maskrcnn_tpu_torch.utils.profiler import trace
+    x, windows, _ = det._preprocess(images)
+    win = torch.tensor(windows, dtype=torch.float32).to(DEVICE)
+    with trace("build/phase8", "predict_step"):
+        with torch.no_grad():
+            predict_step(det.model, x, win)
+        torch.cuda.synchronize()
+    with open("build/phase8/predict_step.json") as f:
+        events = json.load(f)["traceEvents"]
+    k = [e for e in events if e.get("cat") == "kernel"]
+    check(len(events) > 0, "8e: an empty trace")
+    names = {e["name"] for e in k}
+    print(f"[8e] utils.profiler.trace around one B={len(images)} "
+          f"predict_step: build/phase8/predict_step.json, "
+          f"{len(events)} events, {len(k)} CUDA kernels "
+          f"({len(names)} names, K1 among them: "
+          f"{any('roi_align' in n for n in names)})", flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None)
+    # phase 8c's ranks: RANK WORLD PORT OUT BACKEND
+    parser.add_argument("--dp-rank", nargs=5, default=None,
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.dp_rank:
+        rank, world, port, out, backend = args.dp_rank
+        return dp_rank_main(int(rank), int(world), int(port), out, backend)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2212,6 +2823,14 @@ def main() -> int:
     timing_phase(fdet, images, card)
     timing_phase(qdet, images, card)
     protocol_launches = protocols_phase(kernels, nms, card, base_ms)
+    reset_counts(kernels)
+    server_launches = server_phase(det, kernels, card)
+    reset_counts(kernels)
+    retina_k2, retina_times = retina_phase(kernels, nms, card)
+    dp_phase(card)
+    reset_counts(kernels)
+    export_phase(det, kernels, card)
+    profiler_phase(det, images)
     if args.profile:
         from maskrcnn_tpu_torch.detection.pipeline import predict_step
         for d, name in ((det, "predict_step"),
@@ -2230,7 +2849,8 @@ def main() -> int:
     # ones
     runs = {k: launches[k] + fold_launches[k] + quant_launches[k]
             + product_launches[k] + protocol_launches[k] + train_launches[k]
-            for k in launches}
+            + server_launches[k] for k in launches}
+    runs["nms"] += retina_k2
     runs["roi_align"] -= runs["roi_align_int8"]
     check(runs["roi_align_backward"] > 0, "K1-bwd never ran on the main "
           "path")
@@ -2279,7 +2899,12 @@ def main() -> int:
               nms_times[:4], chain_bound_ms=nms_times[4],
               paced_by=("chain" if nms_times[4] > nms_times[2]
                         else nms_times[3]),
-              launches_per_call=nms_times[5]),
+              launches_per_call=nms_times[5],
+              # RetinaNet's class-offset call, B=8 N=1,000 (phase 8b)
+              ms_retina=retina_times[0], plain_ms_retina=retina_times[1],
+              bound_ms_retina=retina_times[2],
+              chain_bound_ms_retina=retina_times[4],
+              launches_retina=retina_k2),
         entry("bottleneck", "bottleneck.cu",
               "maskrcnn_tpu/ops/bottleneck_pallas.py:38", k3_err,
               (k3_ms, k3_plain_ms, k3_bound_ms, k3_by),

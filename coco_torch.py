@@ -27,8 +27,19 @@ with --keypoints K, the OKS keypoint AP (ground truth with person
 keypoints). Masks are decoded on the host, the reference-parity decode,
 as coco.py does. --tta, --soft-nms SIGMA and --cascade IOUS set the
 config's inference protocols. Reading the image files needs Pillow; the
-Detector and the evaluation do not. More than one device (--devices
-above 1, --sp) reaches the config, which raises NotImplementedError.
+Detector and the evaluation do not.
+
+Data-parallel training runs one process a GPU under torchrun, --devices
+the world size:
+
+    torchrun --nproc_per_node 4 coco_torch.py train --dataset /path/to/coco
+                         --devices 4 --epochs 1
+
+Each rank reads its shard of the dataset (IMAGES_PER_DEVICE images a
+step); rank 0 logs and writes the checkpoints. --devices above 1 outside
+such a group raises ValueError; evaluation with --devices N runs one
+weight replica a GPU in one process. --sp (the spatial axis) raises
+NotImplementedError.
 """
 
 import argparse
@@ -166,8 +177,14 @@ def train(args, cascade) -> None:
     if config.BATCH_SIZE % max(args.grad_accum, 1):
         raise ValueError(f"BATCH_SIZE {config.BATCH_SIZE} must divide by "
                          f"--grad-accum {args.grad_accum}")
-    config.display()
-    model = MaskRCNN(config, args.device, train=True).init(
+    from maskrcnn_tpu_torch import parallel
+    device, rank = args.device, 0
+    if config.NUM_DEVICES > 1 and "WORLD_SIZE" in os.environ:
+        device = parallel.init_from_env(torch.device(args.device).type)
+        rank = parallel.rank()
+    if rank == 0:
+        config.display()
+    model = MaskRCNN(config, device, train=True).init(
         torch.Generator().manual_seed(0))
     if os.path.exists(args.model):
         load_state(model, read_pth(args.model, model.state_dict()))
@@ -177,7 +194,7 @@ def train(args, cascade) -> None:
         from maskrcnn_tpu_torch.data.augment import Augmenter
         augment = Augmenter.parse(args.augment)
         print("Augmentation:", augment)
-    generator = torch.Generator(device=args.device).manual_seed(1)
+    generator = parallel.rank_generator(1, rank, device)
     kw = {}
     if args.steps_per_epoch:
         kw["steps_per_epoch"] = args.steps_per_epoch
@@ -185,7 +202,9 @@ def train(args, cascade) -> None:
 
     def loader(cfg, subset, **extra):
         ds = CocoDataset(args.dataset, subset, args.year, cfg)
-        loaders.append(BatchLoader(ds, cfg.BATCH_SIZE, **extra))
+        loaders.append(BatchLoader(ds, cfg.IMAGES_PER_DEVICE,
+                                   shard_index=rank,
+                                   num_shards=cfg.NUM_DEVICES, **extra))
         return loaders[-1]
 
     try:

@@ -23,7 +23,14 @@ the JAX package. Pillow is imported only to read an image file, and
 matplotlib only to draw (`utils/visualize.py`).
 """
 
-from maskrcnn_tpu_torch.config import (CocoConfig, CocoInferenceConfig,
-                                       Config, TinyConfig)
-
 __all__ = ["Config", "CocoConfig", "CocoInferenceConfig", "TinyConfig"]
+
+
+def __getattr__(name):
+    # the configs on first use, so that importing a submodule (the
+    # kernels' op registrations that a loaded program needs) imports
+    # nothing else of the package
+    if name in __all__:
+        from maskrcnn_tpu_torch import config
+        return getattr(config, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

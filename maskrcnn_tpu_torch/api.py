@@ -9,7 +9,8 @@ go back to original-image coordinates on the device
 ORIG_MASK_CANVAS and DEVICE_MASK_DECODE is set; otherwise on the host
 (`codecs.decode_masks`, the reference-parity decode, each mask resampled
 over its nonzero region only). Keypoints (NUM_KEYPOINTS) go back to
-original coordinates on the host in float64. Covered: one device, float,
+original coordinates on the host in float64. Covered: one device or
+Config.NUM_DEVICES weight replicas (`_predict_replicas`), float,
 folded (FOLD_BN) or int8 (QUANT_INT8) weights, and every inference
 protocol of the JAX Detector (cascade, soft-NMS, flip TTA, keypoints,
 rectangular canvases).
@@ -17,6 +18,7 @@ rectangular canvases).
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import tempfile
@@ -85,8 +87,30 @@ def _original_keypoints(kp: np.ndarray, valid: np.ndarray, window,
     return out
 
 
+def _tree_to(tree, device):
+    """A device state (dicts, tensors, quant.Scale) on another device."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, quant.Scale):
+        return quant.Scale(tree.value, tree.tensor.to(device))
+    return tree.to(device)
+
+
+def replica_devices(n: int, device: torch.device):
+    """The NUM_DEVICES devices of a data-parallel Detector: cuda:0..n-1
+    for the card (all present, or it raises), or n times the CPU (the
+    tests' stand-in)."""
+    if device.type == "cpu":
+        return [device] * n
+    if torch.cuda.device_count() < n:
+        raise RuntimeError(f"NUM_DEVICES={n} but {torch.cuda.device_count()} "
+                           "CUDA device(s)")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
 class Detector:
-    """Stateful wrapper around `predict_step` on one device."""
+    """Stateful wrapper around `predict_step` on one device, or on
+    Config.NUM_DEVICES devices, one weight replica each."""
 
     def __init__(self, config: Config, device=None,
                  generator: torch.Generator = None, calib_images=None,
@@ -113,11 +137,23 @@ class Detector:
         skips calibration; a miss calibrates and merges into the file."""
         self.config = config
         self.device = resolve_device(device)
+        self._replicas = None
+        if config.NUM_DEVICES > 1:
+            self._replica_devices = replica_devices(config.NUM_DEVICES,
+                                                    self.device)
+            self.device = self._replica_devices[0]
+            self._replicas = []
+        # a token replaced at every change of weights (the replicas'
+        # staleness check)
+        self._weights = object()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.model = MaskRCNN(config, self.device).init(generator)
         self._calib_images = calib_images
         self._calib_stats_path = calib_stats_path
+        # the fetch's device-to-host copies (`_to_host`)
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
 
     def load_weights(self, path: str, reinit_mismatched: bool = False
                      ) -> None:
@@ -134,6 +170,7 @@ class Detector:
         load_state(self.model,
                    read_pth(path, self.model.state_dict()),
                    reinit_mismatched=reinit_mismatched)
+        self._weights = object()
 
     def load_jax_params(self, params) -> None:
         """Load a JAX parameter tree (nested dicts of arrays, the JAX
@@ -141,6 +178,7 @@ class Detector:
         an already folded tree folds to itself. Under QUANT_INT8 the next
         request prepares the new weights."""
         load_jax_params(self.model, params)
+        self._weights = object()
 
     def prepare(self) -> None:
         """Under QUANT_INT8, calibrate (or read the stats file) and put
@@ -161,6 +199,7 @@ class Detector:
                 _store_calib_stats(path, key, stats)
         model.set_quant(quant.prepare_quant_params(
             model, model.float_state, act_stats=stats))
+        self._weights = object()
 
     @staticmethod
     def _canvas_geometry(h, w, min_dim, ch, cw):
@@ -186,7 +225,10 @@ class Detector:
         64) and `batched_resize_pad` places them. A batch with an image
         to downscale takes the host path: that is the JAX package's
         routing rule (Config.DEVICE_RESIZE): the device resample
-        reproduces Pillow's filter only for an upscale (support 1)."""
+        reproduces Pillow's filter only for an upscale (support 1). A
+        NUM_DEVICES Detector places on the host and returns the numpy
+        canvases (`_predict_replicas` splits them), as the JAX Detector
+        on a mesh does."""
         cfg = self.config
         ch, cw = int(cfg.IMAGE_SHAPE[0]), int(cfg.IMAGE_SHAPE[1])
         geoms = [self._canvas_geometry(img.shape[0], img.shape[1],
@@ -195,7 +237,8 @@ class Detector:
         windows = [g[0] for g in geoms]
         scales = [g[1] for g in geoms]
         dev = self.device
-        if cfg.DEVICE_RESIZE and all(s >= 1.0 for s in scales):
+        if (cfg.DEVICE_RESIZE and self._replicas is None
+                and all(s >= 1.0 for s in scales)):
             raws, sizes = bucket_raws(images)
             batch = batched_resize_pad(
                 torch.from_numpy(raws).to(dev, non_blocking=True),
@@ -208,7 +251,61 @@ class Detector:
             if scale != 1.0:
                 img = resample_bilinear(img, bottom - top, right - left)
             batch[i, top:bottom, left:right] = img
-        return torch.from_numpy(batch).to(dev), windows, scales
+        if self._replicas is not None:
+            return batch, windows, scales
+        batch = torch.from_numpy(batch)
+        if dev.type == "cuda":
+            # pinned and asynchronous: a copy from pageable memory would
+            # hold the host until the card finishes the work queued before
+            # it, so a dispatch could not run ahead of the previous batch
+            batch = batch.pin_memory()
+        return batch.to(dev, non_blocking=True), windows, scales
+
+    def _replica_models(self):
+        """The NUM_DEVICES models, replica 0 the Detector's own: the others
+        are copies of its current weights (and of its prepared int8
+        state and fused-block weights), made once per set of weights."""
+        if self._replicas[1:] and self._replicas[1][1] is self._weights:
+            return [m for m, _ in self._replicas]
+        models = [(self.model, self._weights)]
+        for dev in self._replica_devices[1:]:
+            m = copy.deepcopy(self.model).to(dev)
+            for mod in m.modules():
+                if getattr(mod, "packed", None) is not None:
+                    mod.packed = tuple(t.to(dev) for t in mod.packed)
+            if m.quant is not None:
+                m.quant = _tree_to(m.quant, dev)
+            models.append((m, self._weights))
+        self._replicas = models
+        return [m for m, _ in models]
+
+    def _predict_replicas(self, canvases: np.ndarray, windows):
+        """Data-parallel predict_step over the NUM_DEVICES replicas (the
+        JAX Detector's mesh predict, api.py:62-76, 185-203): the batch is
+        padded to a multiple of NUM_DEVICES by repeating its last canvas,
+        split in order, each part launched on its replica's device with no
+        wait in between, and the outputs gathered on the first device,
+        the padding dropped."""
+        models = self._replica_models()
+        n = len(models)
+        b = canvases.shape[0]
+        pad = (-b) % n
+        win = np.asarray(windows, np.float32)
+        if pad:
+            canvases = np.concatenate([canvases, canvases[-1:].repeat(pad, 0)])
+            win = np.concatenate([win, win[-1:].repeat(pad, 0)])
+        per = canvases.shape[0] // n
+        outs = []
+        for i, m in enumerate(models):
+            d = m.anchor_boxes.device
+            part = torch.from_numpy(canvases[i * per:(i + 1) * per])
+            wpart = torch.from_numpy(win[i * per:(i + 1) * per])
+            if d.type == "cuda":
+                part, wpart = part.pin_memory(), wpart.pin_memory()
+            outs.append(predict_step(m, part.to(d, non_blocking=True),
+                                     wpart.to(d, non_blocking=True)))
+        return {k: torch.cat([o[k].to(self.device) for o in outs])[:b]
+                for k in outs[0]}
 
     def detect(self, image: np.ndarray):
         """One image -> (class_ids, scores, boxes, masks) in original
@@ -241,7 +338,10 @@ class Detector:
         batch, windows, scales = self._preprocess(images)
         dev = self.device
         win = device_tensor(windows, torch.float32, dev)
-        out = predict_step(self.model, batch, win)
+        if self._replicas is None:
+            out = predict_step(self.model, batch, win)
+        else:
+            out = self._predict_replicas(batch, windows)
         if use_device:
             with torch.inference_mode():
                 masks = unpack_masks(out["masks_packed"],
@@ -253,7 +353,28 @@ class Detector:
                                       sizes[i, 1], out_dim)
                     for i in range(len(images))])
                 out["masks_packed"] = pack_masks_device(orig)
-        return out, images, windows, scales, use_device
+        ready = None
+        if dev.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record()
+        return out, images, windows, scales, ready, use_device
+
+    def _to_host(self, tensors, ready):
+        """{name: device tensor} -> {name: numpy array}. On the card: on
+        the copy stream, after `ready` (the dispatch's event), into pinned
+        host buffers, then wait for the copy stream's own event."""
+        if ready is None:
+            return {k: v.cpu().numpy() for k, v in tensors.items()}
+        stream = self._copy_stream
+        with torch.cuda.stream(stream):
+            stream.wait_event(ready)
+            host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                    .copy_(v, non_blocking=True)
+                    for k, v in tensors.items()}
+            done = torch.cuda.Event()
+            done.record(stream)
+        done.synchronize()
+        return {k: v.numpy() for k, v in host.items()}
 
     def fetch(self, handle):
         """Wait for a dispatch_batch handle and decode on the host. Mask
@@ -266,14 +387,20 @@ class Detector:
         the interpreter lock between them; PERF.md has the times).
         Keypoints go to original coordinates in float64, as the JAX
         Detector maps them; detections past the keypoint slots get zero
-        rows."""
-        out, images, windows, scales, use_device = handle
-        small = {k: out[k].cpu().numpy() for k in out
-                 if k != "masks_packed"}
+        rows.
+
+        On the card the copies run on the Detector's own copy stream,
+        after the handle's event, into pinned buffers: a fetch from
+        another thread (serving.BatchingDetector's fetcher) then overlaps
+        the next batch's compute on the default stream, which a `.cpu()`
+        on the shared default stream would queue behind."""
+        out, images, windows, scales, ready, use_device = handle
+        small = self._to_host({k: v for k, v in out.items()
+                               if k != "masks_packed"}, ready)
         valid = small["valid"]
         used = np.flatnonzero(valid.any(axis=0))
         n = int(used[-1]) + 1 if used.size else 0
-        packed = out["masks_packed"][:, :n].cpu().numpy()
+        packed = self._to_host({"m": out["masks_packed"][:, :n]}, ready)["m"]
         results = []
         for i, img in enumerate(images):
             v = valid[i]

@@ -146,6 +146,32 @@ def from_jax_params(params: Dict, architecture: str = "resnet101"
     return out
 
 
+def from_jax_retina_params(params: Dict) -> Dict[str, np.ndarray]:
+    """A JAX `RetinaNet.init` tree ({"fpn", "head"}) -> the port
+    RetinaNet's torch-layout state dict of float32 numpy arrays. The port's
+    module names are the tree's paths joined by "." (`fpn.layer2_block0
+    .conv1.weight`); conv kernels [kh, kw, I, O] -> [O, I, kh, kw], the
+    bias where the conv has one; the BN tensors copy through."""
+    out: Dict[str, np.ndarray] = {}
+
+    def walk(node: Dict, prefix: str) -> None:
+        if "kernel" in node:
+            out[f"{prefix}.weight"] = np.asarray(
+                node["kernel"], np.float32).transpose(3, 2, 0, 1)
+            if "bias" in node:
+                out[f"{prefix}.bias"] = np.asarray(node["bias"], np.float32)
+        elif "running_mean" in node:
+            for field in _BN_FIELDS:
+                out[f"{prefix}.{field}"] = np.asarray(node[field],
+                                                      np.float32)
+        else:
+            for k, v in node.items():
+                walk(v, f"{prefix}.{k}" if prefix else k)
+
+    walk({"fpn": params["fpn"], "head": params["head"]}, "")
+    return out
+
+
 def read_pth(path: str, keys) -> Dict[str, np.ndarray]:
     """The entries of a reference `.pth` state dict that `keys` (the
     model's state-dict keys) name, as float32 numpy arrays
@@ -262,7 +288,8 @@ def from_jax_quant_params(params: Dict) -> Dict:
                       "kscale": np.asarray(e["kscale"], np.float32),
                       "bias": np.asarray(e["bias"], np.float32)}
                   for p, e in q["convs"].items()},
-        "convs_fp": {p: _float_conv(e) for p, e in q["convs_fp"].items()},
+        "convs_fp": {p: _float_conv(e)
+                     for p, e in q.get("convs_fp", {}).items()},
         "acts": {k: np.float32(v) for k, v in q["acts"].items()},
         "stem": _float_conv(q["stem"])}
     if "mask_head_fp" in q:

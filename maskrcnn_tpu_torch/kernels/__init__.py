@@ -30,7 +30,9 @@ extrapolated, a mask bit set or not). Never --use_fast_math.
 Each wrapper checks its inputs, launches on PyTorch's current stream,
 raises if the launch returned a CUDA error, and counts its launches in
 its `launches` attribute. There is no fallback: a failed build or launch
-raises.
+raises. `torch_ops` registers K1-K4 as torch.library ops over these
+wrappers, the route the port's CUDA path takes. This module imports
+torch, ctypes and the standard library only.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -167,6 +170,14 @@ _DTYPES = {torch.float32: (0, 4), torch.bfloat16: (1, 8)}
 _TABLES = {**_DTYPES, torch.int8: (2, 16)}
 
 
+def level_divisor(image_shape) -> float:
+    """224 / sqrt(image area) as the float32 the JAX package divides by (a
+    numpy scalar canonicalised to float32 there): the FPN level rule's
+    divisor, rounded to float32 by ctypes as numpy would."""
+    area = float(image_shape[0]) * float(image_shape[1])
+    return ctypes.c_float(224.0 / math.sqrt(area)).value
+
+
 _BOXES = ("roi_align: boxes must be a contiguous [B*N, 4] float32 tensor on "
           "the levels' device")
 
@@ -187,7 +198,6 @@ def roi_align(levels: Sequence[torch.Tensor], boxes: torch.Tensor,
     times its level's scale (four host floats). Allocates only the output.
     `launches` counts every launch, `int8_launches` those of the
     int8-table mode."""
-    from maskrcnn_tpu_torch.ops.roi_align import level_divisor
     if (boxes.dtype != torch.float32 or boxes.dim() != 2
             or boxes.shape[1] != 4):
         raise ValueError(_BOXES)
@@ -259,6 +269,17 @@ roi_align.int8_launches = 0
 def roi_align_backward(grad_out: torch.Tensor, boxes: torch.Tensor,
                        shapes: Sequence[tuple], dtype: torch.dtype,
                        pool_size: int, image_shape):
+    """K1-bwd: the four level gradients, views of one buffer
+    (`roi_align_backward_flat`'s), shaped as `shapes`."""
+    flat = roi_align_backward_flat(grad_out, boxes, shapes, dtype, pool_size,
+                                   image_shape)
+    sizes = [s[0] * s[1] * s[2] * s[3] for s in shapes]
+    return [t.view(s) for t, s in zip(torch.split(flat, sizes), shapes)]
+
+
+def roi_align_backward_flat(grad_out: torch.Tensor, boxes: torch.Tensor,
+                            shapes: Sequence[tuple], dtype: torch.dtype,
+                            pool_size: int, image_shape) -> torch.Tensor:
     """K1-bwd (csrc/roi_align.cu), the gradient of `roi_align` for the
     levels, its prologue computed in the kernel as the forward's.
 
@@ -266,11 +287,11 @@ def roi_align_backward(grad_out: torch.Tensor, boxes: torch.Tensor,
     float32 or bfloat16; boxes [B*N, 4] float32 contiguous on its device,
     as `roi_align` took them; shapes: the four levels' [B, H_l, W_l, C];
     dtype: the levels' dtype (float32 or bfloat16). Returns the four
-    level gradients [B, H_l, W_l, C] in `dtype`, contiguous: float32 sums
-    of atomic adds in a scratch the wrapper allocates, rounded once to
-    bf16 for bf16 levels. `launches` counts the calls (a call is a
-    memset, the scatter and, for bf16, the rounding pass)."""
-    from maskrcnn_tpu_torch.ops.roi_align import level_divisor
+    level gradients [B, H_l, W_l, C] in `dtype` flattened into one
+    buffer, level after level: float32 sums of atomic adds in a scratch
+    the wrapper allocates, rounded once to bf16 for bf16 levels.
+    `roi_align_backward.launches` counts the calls (a call is a memset,
+    the scatter and, for bf16, the rounding pass)."""
     if (boxes.dtype != torch.float32 or boxes.dim() != 2
             or boxes.shape[1] != 4 or not boxes.is_cuda
             or not boxes.is_contiguous()):
@@ -316,8 +337,7 @@ def roi_align_backward(grad_out: torch.Tensor, boxes: torch.Tensor,
             None if out is None else out.data_ptr(), _stream(device))
     _check_launch(lib, "roi_align_backward", err)
     roi_align_backward.launches += 1
-    flat = f32 if out is None else torch.split(out, sizes)
-    return [t.view(s) for t, s in zip(flat, shapes)]
+    return scratch if out is None else out
 
 
 roi_align_backward.launches = 0

@@ -36,9 +36,11 @@ Config.REMAT_BACKBONE recomputes each ResNet stage in the backward pass.
 FOLD_BN and QUANT_INT8 are inference-only and raise there. The
 inference construction keeps its weights in the compute dtype.
 
-The options the port does not implement, more than one device, raise
-NotImplementedError here (`check_supported`) instead of running
-something else. The TPU knobs
+The option the port does not implement, the spatial axis
+(SP_DEVICES > 1), raises NotImplementedError here (`check_supported`)
+instead of running something else. NUM_DEVICES > 1 is data parallelism
+outside the model: `parallel` (training over torch.distributed, one
+process a device) and `api.Detector` (one replica a device). The TPU knobs
 (NMS_IMPL, ROI_IMPL, S2D_STEM, MATMUL_PRECISION) do not change
 the function computed and are ignored.
 """
@@ -65,7 +67,6 @@ from maskrcnn_tpu_torch.ops.anchors import config_anchors
 # (field, test that it is set away from its default): options that change
 # the function computed and are not ported yet
 UNPORTED = (
-    ("NUM_DEVICES", lambda v: v > 1),
     ("SP_DEVICES", lambda v: v > 1),
 )
 
@@ -113,6 +114,8 @@ class MaskRCNN(nn.Module):
                     raise NotImplementedError(
                         f"Config.{field} is inference-only: the training "
                         "construction does not take it")
+            from maskrcnn_tpu_torch.parallel import check_world
+            check_world(config)
         device = resolve_device(device)
         self.config = config
         # QUANT_INT8: float32 torch-layout state (numpy) and device state

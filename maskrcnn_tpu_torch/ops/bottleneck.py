@@ -79,12 +79,13 @@ def fused_identity_bottleneck(x: torch.Tensor, w1: torch.Tensor,
                               b1: torch.Tensor, w2: torch.Tensor,
                               b2: torch.Tensor, w3: torch.Tensor,
                               b3: torch.Tensor) -> torch.Tensor:
-    """Device dispatch: the CUDA kernel (csrc/bottleneck.cu) for CUDA
-    tensors, the plain version for CPU tensors. Shapes as the plain
+    """Device dispatch: the CUDA kernel (csrc/bottleneck.cu, the
+    mrt::bottleneck op) for CUDA tensors, the plain version for CPU
+    tensors. Shapes as the plain
     version."""
     if x.is_cuda:
-        from maskrcnn_tpu_torch import kernels
-        return kernels.bottleneck(x.contiguous(), w1, b1, w2, b2, w3, b3)
+        from maskrcnn_tpu_torch.kernels import torch_ops
+        return torch_ops.bottleneck(x.contiguous(), w1, b1, w2, b2, w3, b3)
     if x.device.type == "cpu":
         return fused_identity_bottleneck_plain(x, w1, b1, w2, b2, w3, b3)
     raise ValueError(f"bottleneck: no implementation for device {x.device}")

@@ -76,13 +76,14 @@ def paste_masks_packed(masks: torch.Tensor, boxes: torch.Tensor,
                        valid: torch.Tensor, height: int,
                        width: int) -> torch.Tensor:
     """Device dispatch of `paste_masks_packed_plain` (same arguments and
-    result): the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+    result): the CUDA kernel (the mrt::paste_pack op) for CUDA tensors,
+    the plain version for CPU tensors."""
     if masks.is_cuda:
-        from maskrcnn_tpu_torch import kernels
-        return kernels.paste_pack(masks.to(torch.float32).contiguous(),
-                                  boxes.to(torch.float32).contiguous(),
-                                  valid.contiguous(), height, width)
+        from maskrcnn_tpu_torch.kernels import torch_ops
+        return torch_ops.paste_pack(masks.to(torch.float32).contiguous(),
+                                    boxes.to(torch.float32).contiguous(),
+                                    valid.contiguous(), int(height),
+                                    int(width))
     if masks.device.type == "cpu":
         return paste_masks_packed_plain(masks, boxes, valid, height, width)
     raise ValueError(f"paste: no implementation for device {masks.device}")

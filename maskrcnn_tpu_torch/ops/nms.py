@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from maskrcnn_tpu_torch.kernels import torch_ops
 from maskrcnn_tpu_torch.ops import device_tensor
 
 
@@ -64,15 +65,15 @@ def nms_mask(boxes: torch.Tensor, valid: torch.Tensor,
 
 def nms_mask_impl(boxes: torch.Tensor, valid: torch.Tensor,
                   iou_threshold: float) -> torch.Tensor:
-    """Device dispatch: the CUDA kernel for CUDA tensors, `nms_mask` for
-    CPU tensors. Shapes as `nms_mask`."""
+    """Device dispatch: the CUDA kernel (the mrt::nms op) for CUDA
+    tensors, `nms_mask` for CPU tensors. Shapes as `nms_mask`."""
     if boxes.is_cuda:
-        from maskrcnn_tpu_torch import kernels
         n = boxes.shape[-2]
         lead = boxes.shape[:-2]
-        keep = kernels.nms(boxes.reshape(-1, n, 4).to(torch.float32)
-                           .contiguous(),
-                           valid.reshape(-1, n).contiguous(), iou_threshold)
+        keep = torch_ops.nms(boxes.reshape(-1, n, 4).to(torch.float32)
+                             .contiguous(),
+                             valid.reshape(-1, n).contiguous(),
+                             float(iou_threshold))
         return keep.reshape(lead + (n,))
     if boxes.device.type == "cpu":
         return nms_mask(boxes, valid, iou_threshold)

@@ -11,10 +11,10 @@ crop_cpu.cpp:13-116):
 The plain version is `multilevel_roi_align`: the coordinate prologue
 (`roi_levels`, `sample_points`, gathered by `level_geometry`) and the
 blend (`roi_align_levels`), in plain PyTorch. The CUDA kernel
-(csrc/roi_align.cu, bound as kernels.roi_align) takes the boxes and
-computes the same prologue itself, with the same IEEE operations in the
-same order; `multilevel_roi_align_impl` hands CUDA tensors to it with no
-other op, and CPU tensors to the plain version.
+(csrc/roi_align.cu, the mrt::roi_align op of kernels.torch_ops) takes
+the boxes and computes the same prologue itself, with the same IEEE
+operations in the same order; `multilevel_roi_align_impl` hands CUDA
+tensors to it with no other op, and CPU tensors to the plain version.
 Both blend in float32 and round to the feature dtype once (the JAX XLA
 path blends in the table dtype; its Pallas kernel in float32). int8
 tables (the Pallas kernel's `level_scales`, Config.QUANT_INT8_ROI) blend
@@ -29,14 +29,8 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from maskrcnn_tpu_torch.kernels import level_divisor, torch_ops
 from maskrcnn_tpu_torch.ops import device_tensor
-
-
-def level_divisor(image_shape) -> float:
-    """224 / sqrt(image area) as the float32 the JAX package divides by (a
-    numpy scalar canonicalised to float32 there)."""
-    image_area = float(image_shape[0]) * float(image_shape[1])
-    return float(np.float32(224.0 / np.sqrt(image_area)))
 
 
 def roi_levels(boxes: torch.Tensor, image_shape) -> torch.Tensor:
@@ -241,28 +235,33 @@ def multilevel_roi_align_backward(grad: torch.Tensor, shapes: Sequence[tuple],
 
 def _forward(features, boxes, pool_size, image_shape, level_scales=None,
              out_dtype=None):
-    """Device dispatch of the forward: the kernel on CUDA, the plain
-    version on the CPU."""
+    """Device dispatch of the forward: K1 (the mrt::roi_align op, whose
+    gradient for the levels is K1-bwd) on CUDA, the plain version on the
+    CPU."""
     if boxes.device.type == "cpu":
         return multilevel_roi_align(features, boxes, pool_size, image_shape,
                                     level_scales, out_dtype)
     if not boxes.is_cuda:
         raise ValueError(f"roi_align: no implementation for device "
                          f"{boxes.device}")
-    from maskrcnn_tpu_torch import kernels
     b, n = boxes.shape[:2]
     flat = boxes.reshape(b * n, 4).to(torch.float32).contiguous()
-    out = kernels.roi_align(list(features), flat, pool_size, image_shape,
-                            level_scales, out_dtype)
+    int8 = level_scales is not None
+    out = torch_ops.roi_align(
+        list(features), flat, pool_size, int(image_shape[0]),
+        int(image_shape[1]), [float(s) for s in level_scales] if int8 else [],
+        out_dtype if int8 else features[0].dtype)
     return out.reshape(b, n, pool_size, pool_size, -1)
 
 
 class RoIAlignFunction(torch.autograd.Function):
-    """Multilevel RoIAlign with a gradient for the levels: forward K1
-    (kernels.roi_align) on CUDA tensors, backward K1-bwd
-    (kernels.roi_align_backward); the plain versions on CPU tensors. No
-    gradient reaches the boxes, as in the JAX package (stop_gradient)
-    and the reference (model.py:358 detaches them).
+    """Multilevel RoIAlign with a gradient for the levels on CPU tensors:
+    the plain forward and the plain backward (`multilevel_roi_align
+    _backward`, the JAX `_gather_patches` VJP's sums in its order; aten's
+    autograd through the plain blend would sum in another). On the card
+    the mrt::roi_align op carries its own gradient (K1-bwd). No gradient
+    reaches the boxes, as in the JAX package (stop_gradient) and the
+    reference (model.py:358 detaches them).
 
     apply(boxes [B, N, 4], pool_size, image_shape, P2, P3, P4, P5) ->
     [B, N, P, P, C]."""
@@ -273,24 +272,14 @@ class RoIAlignFunction(torch.autograd.Function):
         ctx.save_for_backward(boxes)
         ctx.geometry = (pool_size, image_shape,
                         [tuple(f.shape) for f in levels], levels[0].dtype)
-        return _forward(levels, boxes, pool_size, image_shape)
+        return multilevel_roi_align(levels, boxes, pool_size, image_shape)
 
     @staticmethod
     def backward(ctx, grad):
         boxes, = ctx.saved_tensors
         pool_size, image_shape, shapes, dtype = ctx.geometry
-        if boxes.device.type == "cpu":
-            grads = multilevel_roi_align_backward(grad, shapes, dtype, boxes,
-                                                  pool_size, image_shape)
-        else:
-            from maskrcnn_tpu_torch import kernels
-            b, n = boxes.shape[:2]
-            flat = boxes.reshape(b * n, 4).to(torch.float32).contiguous()
-            g = grad.reshape(b * n, pool_size, pool_size, -1).contiguous()
-            if g.data_ptr() % 16:
-                g = g.clone()
-            grads = kernels.roi_align_backward(g, flat, shapes, dtype,
-                                               pool_size, image_shape)
+        grads = multilevel_roi_align_backward(grad, shapes, dtype, boxes,
+                                              pool_size, image_shape)
         return (None, None, None, *grads)
 
 
@@ -299,13 +288,13 @@ def multilevel_roi_align_impl(features: Sequence[torch.Tensor],
                               image_shape, level_scales: Sequence[float] = None,
                               out_dtype: torch.dtype = None) -> torch.Tensor:
     """Device dispatch of multilevel RoIAlign (arguments as
-    `multilevel_roi_align`): CUDA tensors go to the kernel, which computes
-    the levels and sample points itself (no PyTorch op but the output
-    allocation, for contiguous float32 boxes and levels), at every batch
-    size; CPU tensors to the plain version. When a level requires grad
-    (training), the call goes through `RoIAlignFunction`, whose backward
-    is K1-bwd on CUDA."""
-    if (level_scales is None and torch.is_grad_enabled()
+    `multilevel_roi_align`): CUDA tensors go to K1 (mrt::roi_align), which
+    computes the levels and sample points itself (no PyTorch op but the
+    output allocation, for contiguous float32 boxes and levels), at every
+    batch size, with K1-bwd as its gradient; CPU tensors to the plain
+    version, through `RoIAlignFunction` when a level requires grad."""
+    if (boxes.device.type == "cpu" and level_scales is None
+            and torch.is_grad_enabled()
             and any(f.requires_grad for f in features)):
         return RoIAlignFunction.apply(boxes, pool_size, image_shape,
                                       *features)

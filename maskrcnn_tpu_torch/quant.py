@@ -1,6 +1,6 @@
 """Post-training int8 quantization of the inference path (counterpart of
-maskrcnn_tpu/quant.py, Config.QUANT_INT8; RetinaNet's part is not
-ported).
+maskrcnn_tpu/quant.py, Config.QUANT_INT8), for Mask R-CNN and for
+RetinaNet (the section at the end).
 
 Scheme, as the JAX package's: per-output-channel weight scales
 `sw = max|W| / 127` on BN-folded kernels; per-tensor activation scales
@@ -530,3 +530,197 @@ def calibrate(model, state: Dict[str, np.ndarray], calib_images: np.ndarray,
         stats[k] = _search_clip(amax, pool, cfg.QUANT_CALIB,
                                 cfg.QUANT_PERCENTILE)
     return stats
+
+
+# ---------------------------------------------------------------------
+# RetinaNet (models/retina_fpn.py; maskrcnn_tpu/quant.py:600-801)
+# ---------------------------------------------------------------------
+#
+# Quantized: every ResNet and pyramid conv but the stem, and the head's
+# eight tower convs (per-(conv, level) input scales). Float in the
+# compute dtype: the stem, the residual and top-down adds, cls_out and
+# box_out. Calibration is amax, as the JAX package's.
+
+_RETINA_LAYERS = ("layer2", "layer3", "layer4", "layer5")
+_RETINA_NECK = ("conv6", "conv7", "toplayer", "latlayer1", "latlayer2",
+                "smooth1", "smooth2")
+
+
+def _fold_retina_state(state: Dict[str, np.ndarray], num_blocks
+                       ) -> Dict[str, Dict]:
+    """RetinaFPN's float32 torch-layout state -> {quant path: float32
+    {weight, bias}}: each frozen BN folded into its bias-free conv in
+    float64 (the bias is the BN offset), as the JAX `_fold_retina_tree`;
+    the neck's biased convs pass through."""
+    def fold(conv: str, bn: str) -> Dict:
+        scale = (np.asarray(state[f"{bn}.weight"], np.float64)
+                 / np.sqrt(np.asarray(state[f"{bn}.running_var"],
+                                      np.float64) + 1e-3))
+        offset = (np.asarray(state[f"{bn}.bias"], np.float64)
+                  - np.asarray(state[f"{bn}.running_mean"], np.float64)
+                  * scale)
+        k = np.asarray(state[f"{conv}.weight"], np.float64) * scale[
+            :, None, None, None]
+        return {"weight": k.astype(np.float32),
+                "bias": offset.astype(np.float32)}
+
+    out = {"conv1": fold("fpn.conv1", "fpn.bn1")}
+    for layer, n in zip(_RETINA_LAYERS, num_blocks):
+        for b in range(n):
+            path = f"{layer}_block{b}"
+            t = f"fpn.{path}"
+            for j in (1, 2, 3):
+                out[f"{path}/conv{j}"] = fold(f"{t}.conv{j}", f"{t}.bn{j}")
+            if f"{t}.shortcut_conv.weight" in state:
+                out[f"{path}/shortcut_conv"] = fold(f"{t}.shortcut_conv",
+                                                    f"{t}.shortcut_bn")
+    for name in _RETINA_NECK:
+        out[name] = _entry(state, f"fpn.{name}")
+    return out
+
+
+def _retina_conv_paths(num_blocks):
+    """The quantized RetinaFPN conv paths, in traversal order."""
+    paths = []
+    for layer, n in zip(_RETINA_LAYERS, num_blocks):
+        for b in range(n):
+            base = f"{layer}_block{b}"
+            paths += [f"{base}/conv{j}" for j in (1, 2, 3)]
+            if b == 0:
+                paths.append(f"{base}/shortcut_conv")
+    return paths + list(_RETINA_NECK)
+
+
+def _retina_block(ctx: _Ctx, path: str, x, stride: int):
+    """RetinaBottleneck with folded BN (the stride on conv2)."""
+    src = ctx.fp if ctx.mode == "calib" else ctx.tree["convs"]
+    xq = ctx.qt(f"{path}/in", x)
+    o = ctx.conv(f"{path}/conv1", xq, relu=True)
+    o = ctx.conv(f"{path}/conv2", ctx.qt(f"{path}/a1", o), stride=stride,
+                 padding=1, relu=True)
+    o = ctx.conv(f"{path}/conv3", ctx.qt(f"{path}/a2", o))
+    residual = (ctx.conv(f"{path}/shortcut_conv", xq, stride=stride)
+                if f"{path}/shortcut_conv" in src else x)
+    return torch.relu(o + residual)
+
+
+def _resize_nhwc(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    from maskrcnn_tpu_torch.models.retina_fpn import bilinear_resize
+    return bilinear_resize(x.permute(0, 3, 1, 2), h, w).permute(0, 2, 3, 1)
+
+
+def retina_fpn_forward(ctx: _Ctx, x: torch.Tensor, num_blocks):
+    """RetinaFPN P3..P7 in either mode: images [B, H, W, 3] -> five NHWC
+    maps. The stem stays float."""
+    stem = ctx.fp["conv1"] if ctx.mode == "calib" else ctx.tree["stem"]
+    x = torch.relu(float_conv(stem, x, 2, 3, ctx.dtype))
+    c = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, padding=1).permute(
+        0, 2, 3, 1)
+    outs = []
+    for li, (layer, n) in enumerate(zip(_RETINA_LAYERS, num_blocks)):
+        for b in range(n):
+            c = _retina_block(ctx, f"{layer}_block{b}", c,
+                              2 if b == 0 and li > 0 else 1)
+        outs.append(c)
+    c3, c4, c5 = outs[1:]
+    p6 = ctx.conv("conv6", ctx.qt("c5_for_p6", c5), stride=2, padding=1)
+    p7 = ctx.conv("conv7", ctx.qt("p6_relu", torch.relu(p6)), stride=2,
+                  padding=1)
+    p5 = ctx.conv("toplayer", ctx.qt("c5_top", c5))
+    lat4 = ctx.conv("latlayer1", ctx.qt("c4_lat", c4))
+    p4 = _resize_nhwc(p5, lat4.shape[1], lat4.shape[2]) + lat4
+    lat3 = ctx.conv("latlayer2", ctx.qt("c3_lat", c3))
+    p3 = _resize_nhwc(p4, lat3.shape[1], lat3.shape[2]) + lat3
+    p4 = ctx.conv("smooth1", ctx.qt("p4_pre", p4), padding=1)
+    p3 = ctx.conv("smooth2", ctx.qt("p3_pre", p3), padding=1)
+    return [p3, p4, p5, p6, p7]
+
+
+def _module_entry(conv) -> Dict:
+    return {"weight": conv.weight, "bias": conv.bias}
+
+
+def retina_head_forward(config: Config, ctx: _Ctx, head, feats):
+    """RetinaHead over NHWC maps through `ctx`: the tower convs with the
+    activation "head/{cls,box}{i}/P{level}"; cls_out and box_out float
+    (the module's weights). -> (logits [B, A, K], deltas [B, A, 4])
+    float32."""
+    k = config.NUM_CLASSES
+    cls_l, box_l = [], []
+    for lvl, f in enumerate(feats):
+        cls = box = f
+        for i in range(4):
+            cls = ctx.conv(f"head/cls{i}", ctx.qt(f"head/cls{i}/P{lvl}", cls),
+                           padding=1, relu=True,
+                           fp_override=_module_entry(getattr(head, f"cls{i}")))
+            box = ctx.conv(f"head/box{i}", ctx.qt(f"head/box{i}/P{lvl}", box),
+                           padding=1, relu=True,
+                           fp_override=_module_entry(getattr(head, f"box{i}")))
+        cls = float_conv(_module_entry(head.cls_out), cls, 1, 1, ctx.dtype)
+        box = float_conv(_module_entry(head.box_out), box, 1, 1, ctx.dtype)
+        b = f.shape[0]
+        cls_l.append(cls.reshape(b, -1, k).to(torch.float32))
+        box_l.append(box.reshape(b, -1, 4).to(torch.float32))
+    return torch.cat(cls_l, dim=1), torch.cat(box_l, dim=1)
+
+
+def calibrate_retina(net, folded: Dict[str, Dict], calib_images: np.ndarray,
+                     batch_size: int = 4) -> Dict[str, float]:
+    """Run the folded float RetinaNet over uint8 canvases [N, H, W, 3]
+    (normalized here, as the JAX `_retina_calib_step`) -> {name: amax}."""
+    cfg = net.config
+    calib_images = np.asarray(calib_images)
+    want = tuple(cfg.IMAGE_SHAPE[:2])
+    if calib_images.ndim != 4 or calib_images.shape[1:3] != want:
+        raise ValueError(f"calib canvases {calib_images.shape}: want "
+                         f"[N, {want[0]}, {want[1]}, 3]")
+    fp = {p: _float_entry(e, net.dtype, net.device)
+          for p, e in folded.items()}
+    stats: Dict[str, float] = {}
+    with torch.inference_mode():
+        for i in range(0, calib_images.shape[0], batch_size):
+            batch = torch.from_numpy(calib_images[i:i + batch_size]).to(
+                net.device)
+            ctx = _Ctx(mode="calib", dtype=net.dtype, fp=fp)
+            feats = retina_fpn_forward(
+                ctx, normalize_image(batch, cfg.MEAN_PIXEL),
+                net.fpn.num_blocks)
+            retina_head_forward(cfg, ctx, net.head, feats)
+            for k, v in _to_host(ctx.stats).items():
+                stats[k] = max(stats.get(k, 0.0), v)
+    return stats
+
+
+def prepare_retina_quant_params(net, state: Dict[str, np.ndarray],
+                                calib_images: Optional[np.ndarray] = None,
+                                batch_size: int = 4,
+                                act_stats: Optional[Dict[str, float]] = None
+                                ) -> Tree:
+    """RetinaNet's `prepare_quant_params`: `net` a models.retina_fpn
+    .RetinaNet, `state` its float32 torch-layout state (`float_state`).
+    Returns {"convs", "convs_fp": {}, "acts", "stem"} (numpy) for
+    `RetinaNet.set_quant`; the head's cls_out and box_out stay the
+    module's."""
+    nb = net.fpn.num_blocks
+    folded = _fold_retina_state(state, nb)
+    if act_stats is None:
+        if calib_images is None:
+            raise ValueError("pass calib_images or act_stats")
+        act_stats = calibrate_retina(net, folded, calib_images, batch_size)
+    acts = {k: np.float32(max(v, 1e-6) / 127.0) for k, v in act_stats.items()}
+    convs = {p: _quantize_kernel(folded[p]["weight"], folded[p]["bias"])
+             for p in _retina_conv_paths(nb)}
+    for i in range(4):
+        for tower in ("cls", "box"):
+            e = _entry(state, f"head.{tower}{i}")
+            convs[f"head/{tower}{i}"] = _quantize_kernel(e["weight"],
+                                                         e["bias"])
+    return {"convs": convs, "convs_fp": {}, "acts": acts,
+            "stem": folded["conv1"]}
+
+
+def retina_quant_forward(net, images: torch.Tensor):
+    """int8 (logits, deltas): RetinaNet.forward's quantized twin."""
+    ctx = _Ctx(mode="int8", dtype=net.dtype, tree=net.quant)
+    feats = retina_fpn_forward(ctx, images, net.fpn.num_blocks)
+    return retina_head_forward(net.config, ctx, net.head, feats)

@@ -5,14 +5,39 @@ maskrcnn_tpu/train/losses.py; reference model.py:652-718, 802-845,
 Every loss is a masked mean over fixed-shape tensors, as in the JAX
 package: where the reference gathers dynamic index lists, boolean masks
 weight the terms. An empty selection gives 0, as the reference's
-empty-tensor branches.
+empty-tensor branches. Under `global_denominators` (data parallelism)
+each denominator is the global batch's.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import contextlib
+import contextvars
+from typing import Callable, NamedTuple, Optional
 
 import torch
+
+# data parallelism (parallel.DataParallel.global_means): a function that
+# all-reduces a denominator in place, so every loss is a mean over the
+# global batch
+_DENOMINATOR: contextvars.ContextVar[Optional[Callable]] = \
+    contextvars.ContextVar("loss_denominator", default=None)
+
+
+@contextlib.contextmanager
+def global_denominators(reduce: Callable[[torch.Tensor], torch.Tensor]):
+    """Inside the block every loss's denominator passes through `reduce`
+    (an in-place all-reduce SUM) before the division."""
+    token = _DENOMINATOR.set(reduce)
+    try:
+        yield
+    finally:
+        _DENOMINATOR.reset(token)
+
+
+def _den(den: torch.Tensor) -> torch.Tensor:
+    reduce = _DENOMINATOR.get()
+    return den if reduce is None else reduce(den)
 
 
 def smooth_l1(diff: torch.Tensor) -> torch.Tensor:
@@ -23,7 +48,7 @@ def smooth_l1(diff: torch.Tensor) -> torch.Tensor:
 
 def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     num = torch.sum(values * mask)
-    den = torch.sum(mask)
+    den = _den(torch.sum(mask))
     return torch.where(den > 0, num / torch.clamp_min(den, 1.0), 0.0)
 
 
@@ -55,7 +80,7 @@ def rpn_box_loss(target_bbox: torch.Tensor, rpn_match: torch.Tensor,
         *packed.shape, 4))
     diff = smooth_l1(pred - target_bbox)
     num = torch.sum(diff * pvalid[..., None])
-    den = torch.sum(pvalid) * 4.0
+    den = _den(torch.sum(pvalid) * 4.0)
     return torch.where(den > 0, num / torch.clamp_min(den, 1.0), 0.0)
 
 

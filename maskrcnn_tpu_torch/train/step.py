@@ -14,11 +14,15 @@ reference sums single-image passes; at its batch of 1 they coincide).
 Nothing in a step reads a value on the host: the non-finite guard keeps
 the old weights and momentum with device selects, as the JAX step does
 in its graph. On the card the step's RoIAligns are K1 forward and K1-bwd
-backward (ops.roi_align.RoIAlignFunction), its proposal NMS K2.
+backward (the mrt::roi_align op's registered gradient,
+kernels/torch_ops.py), its proposal NMS K2. Under data parallelism
+(`train_step`'s `dp`) the losses are global-batch means and the
+gradients are all-reduced before the update (parallel/).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -289,15 +293,47 @@ def _grads(total: torch.Tensor, params: List[torch.Tensor]):
             for g, p in zip(grads, params)]
 
 
+def compute_losses_dp(model: MaskRCNN, generator: Optional[torch.Generator],
+                      batch: Dict[str, torch.Tensor], dp=None) -> L.Losses:
+    """`compute_losses` under data parallelism (`dp` a
+    parallel.DataParallel, or None for one process): each loss a mean
+    over the global batch, returned all-reduced (the validation losses,
+    the counterpart of make_parallel_eval_losses)."""
+    if dp is None:
+        return compute_losses(model, generator, batch)
+    with dp.global_means():
+        losses = compute_losses(model, generator, batch)
+    return dp.sum_losses(losses)
+
+
 def train_step(model: MaskRCNN, optimizer: SGD,
                batch: Dict[str, torch.Tensor],
-               generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
+               generator: Optional[torch.Generator],
+               dp=None) -> Dict[str, torch.Tensor]:
     """One SGD step on the device; returns the losses (0-d device tensors).
 
     Under GRAD_ACCUM_STEPS = A > 1 the batch's leaves are [A, B / A, ...]
     (`split_accum`): the gradients and losses are the means over the A
     micro-batches. A non-finite total keeps the parameters, the momentum
-    and the step count (decided on the device)."""
+    and the step count (decided on the device).
+
+    dp (a parallel.DataParallel): `batch` is this rank's slice; the
+    losses are means over the global batch (their denominators
+    all-reduced), and the gradients and losses are all-reduced (SUM)
+    before the update, so every rank applies the same global step."""
+    with (dp.global_means() if dp is not None else contextlib.nullcontext()):
+        grads, losses = _step_grads(model, optimizer, batch, generator)
+    if dp is not None:
+        grads = dp.sum_grads(grads)
+        losses = dp.sum_losses(losses)
+    optimizer.update(grads, torch.isfinite(losses.total))
+    return losses.as_dict()
+
+
+def _step_grads(model: MaskRCNN, optimizer: SGD,
+                batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator]):
+    """This process's (gradients, detached losses) of a step."""
     params = optimizer.params
     accum = model.config.GRAD_ACCUM_STEPS
     if accum > 1:
@@ -321,5 +357,4 @@ def train_step(model: MaskRCNN, optimizer: SGD,
         losses = compute_losses(model, generator, batch)
         grads = _grads(losses.total, params)
         losses = L.Losses(*[v.detach() for v in losses])
-    optimizer.update(grads, torch.isfinite(losses.total))
-    return losses.as_dict()
+    return grads, losses

@@ -7,7 +7,10 @@ A step is `step.train_step` on the device; this module picks the
 trainable parameters, makes the optimizer, moves batches to the device,
 logs, validates and writes checkpoints. Per-step losses stay on the
 device until a log point; the host runs at most two steps ahead of the
-card.
+card. Config.NUM_DEVICES > 1 trains data-parallel (`parallel`, one
+process a device under torchrun): each rank's `train_iter` yields its
+slice of the global batch, the steps and the validation losses reduce
+over the ranks, and rank 0 alone logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ import numpy as np
 import torch
 
 from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
-from maskrcnn_tpu_torch.train.step import (compute_losses, make_optimizer,
+from maskrcnn_tpu_torch import parallel
+from maskrcnn_tpu_torch.train.step import (compute_losses_dp, make_optimizer,
                                            split_accum, train_step)
 
 # Layer presets (reference model.py:1509-1523) over the port's parameter
@@ -172,13 +176,19 @@ class Trainer:
                                    [p for _, p in params],
                                    [dmask[n] for n, _ in params])
         self.optimizer = optimizer
+        dp = parallel.for_config(cfg)
+        lead = parallel.rank() == 0
+        if dp is not None and lead:
+            print(f"Data-parallel: {dp.size} ranks (global batch "
+                  f"{cfg.BATCH_SIZE})")
 
         for epoch in range(self.epoch + 1, epochs + 1):
             t0 = time.time()
             pending, done = [], []
             for step in range(steps_per_epoch):
                 metrics = train_step(self.model, optimizer,
-                                     self._batch(next(train_iter)), generator)
+                                     self._batch(next(train_iter)), generator,
+                                     dp)
                 pending.append(metrics)
                 if self.device.type == "cuda":
                     event = torch.cuda.Event()
@@ -189,7 +199,7 @@ class Trainer:
                     # batch buffers ahead of it
                     if step >= 2:
                         done[step - 2].synchronize()
-                if (step + 1) % self.log_every == 0 or step == 0:
+                if lead and ((step + 1) % self.log_every == 0 or step == 0):
                     m = {k: float(v) for k, v in metrics.items()}
                     if not np.isfinite(m["total"]):
                         print(f"  WARNING: non-finite loss at epoch {epoch} "
@@ -200,7 +210,7 @@ class Trainer:
             sums = _mean(self.step_history, steps_per_epoch)
             skipped = sum(not np.isfinite(r["total"])
                           for r in self.step_history)
-            if skipped:
+            if skipped and lead:
                 print(f"  WARNING: {skipped} non-finite step(s) in epoch "
                       f"{epoch} were skipped")
             self.loss_history.append(sums)
@@ -210,21 +220,23 @@ class Trainer:
                 with torch.no_grad():
                     for _ in range(validation_steps):
                         batch = to_device(next(val_iter), self.device)
-                        vpending.append(compute_losses(
-                            self.model, generator, batch).as_dict())
+                        vpending.append(compute_losses_dp(
+                            self.model, generator, batch, dp).as_dict())
                 self.val_loss_history.append(
                     _mean(_fetch(vpending), validation_steps))
 
             self.epoch = epoch
-            print(f"epoch {epoch} done in {time.time() - t0:.1f}s: "
-                  + " ".join(f"{k}={v:.4f}"
-                             for k, v in self.loss_history[-1].items()))
-            if self.checkpoint_dir:
+            if lead:
+                print(f"epoch {epoch} done in {time.time() - t0:.1f}s: "
+                      + " ".join(f"{k}={v:.4f}"
+                                 for k, v in self.loss_history[-1].items()))
+            if self.checkpoint_dir and lead:
                 from maskrcnn_tpu_torch.checkpoint.store import (
                     prune_checkpoints, save_checkpoint)
                 save_checkpoint(self.checkpoint_dir, self.model, epoch, cfg)
                 prune_checkpoints(self.checkpoint_dir, self.keep_last)
-            self._plot_losses()
+            if lead:
+                self._plot_losses()
             if on_epoch_end is not None:
                 on_epoch_end(self, self.model)
         return self.model

@@ -52,7 +52,7 @@ def test_coco_torch_cli(monkeypatch, tmp_path, capsys):
     """evaluate prints the RLE route and the bbox and segm summaries; under
     --tta --soft-nms --cascade --keypoints 17 (a two-conv keypoint head)
     the keypoint summary follows, on ground truth with 17 keypoints an
-    annotation; train on more than one device raises NotImplementedError
+    annotation; train on more than one device outside torchrun raises
     naming the field (training itself: tests/test_torch_train_data.py)."""
     monkeypatch.setattr(coco_torch, "CocoInferenceConfig", tiny_config)
     root = synthetic_coco_dir(tmp_path)
@@ -82,6 +82,7 @@ def test_coco_torch_cli(monkeypatch, tmp_path, capsys):
                      "all | maxDets=100 ]") == 2
     assert out.count("Average Precision  (AP) @[ IoU=0.50:0.95 | area=   "
                      "all | maxDets= 20 ]") == 1
-    with pytest.raises(NotImplementedError, match="NUM_DEVICES"):
+    # --devices 2 outside a two-process torchrun group raises
+    with pytest.raises(ValueError, match="NUM_DEVICES"):
         coco_torch.main(["train", "--dataset", root, "--device", "cpu",
                          "--devices", "2"])

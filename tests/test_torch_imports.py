@@ -49,7 +49,11 @@ SLICE_MODULES = (
     "maskrcnn_tpu_torch.train.step", "maskrcnn_tpu_torch.train.trainer",
     "maskrcnn_tpu_torch.checkpoint.store", "maskrcnn_tpu_torch.data.dataset",
     "maskrcnn_tpu_torch.data.augment", "maskrcnn_tpu_torch.data.pipeline",
-    "predict_torch", "coco_torch")
+    "maskrcnn_tpu_torch.serving", "maskrcnn_tpu_torch.models.retina_fpn",
+    "maskrcnn_tpu_torch.parallel", "maskrcnn_tpu_torch.export",
+    "maskrcnn_tpu_torch.kernels.torch_ops",
+    "maskrcnn_tpu_torch.utils.profiler", "maskrcnn_tpu_torch.utils.canvas",
+    "predict_torch", "coco_torch", "tools.serve_torch")
 # packages the port must not import: JAX, flax, and the JAX package itself
 # (even its modules that import no JAX)
 FORBIDDEN = ("jax", "flax", "maskrcnn_tpu")
@@ -86,7 +90,10 @@ def _imported_names(path: Path):
 
 
 @pytest.mark.parametrize("path", ["chip_smoke.py", "maskrcnn_tpu_torch",
-                                  "predict_torch.py", "coco_torch.py"])
+                                  "predict_torch.py", "coco_torch.py",
+                                  "tools/serve_torch.py",
+                                  "tools/chip_phases.py",
+                                  "tools/ab_trees.py"])
 def test_port_sources_import_nothing_of_jax(path):
     """chip_smoke.py, the port's CLIs and every source file of the port,
     read with ast: no import of JAX, flax or the JAX package, even inside

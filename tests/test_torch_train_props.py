@@ -153,5 +153,7 @@ def test_training_construction():
     for field in ("FOLD_BN", "QUANT_INT8"):
         with pytest.raises(NotImplementedError, match=field):
             MaskRCNN(TinyConfig(**{field: True}), "cpu", train=True)
-    with pytest.raises(NotImplementedError, match="NUM_DEVICES"):
+    # data parallelism needs one process a device: outside a process
+    # group of that size NUM_DEVICES > 1 raises
+    with pytest.raises(ValueError, match="NUM_DEVICES"):
         MaskRCNN(TinyConfig(NUM_DEVICES=2), "cpu", train=True)
