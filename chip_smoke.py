@@ -133,6 +133,24 @@ Phases, each printing one line:
     a process importing torch and kernels.torch_ops only: outputs
     bit-identical, its launches and time beside the live step's;
     8e utils.profiler.trace around one step writes a Chrome trace;
+ 9. after phase 8, image files and learning (tools/learning_torch.py):
+    9a the port's PNG and JPEG reader (data/image_io.py) gives Pillow's
+    pixels for every repository image (SHA-256 digests taken with Pillow
+    12.1.0; the card's machine has no Pillow), its host time a decode of
+    a 640x480 and a 1252² JPEG, write_png read back exactly;
+    9b K1 and K1-bwd against their plain versions at the 64 px levels
+    (P5 2x2), then tests/test_learning_ap.py on the card: the 64 px
+    TinyConfig trained from scratch (240 steps, B=4, one class),
+    evaluate_coco bbox and segm over 8 held-out PNG scenes read through
+    CocoDataset, the JAX package's floors (bbox AP50 >= 0.5, segm AP50
+    >= 0.3, int8 bbox AP50 within 0.05 of float; int8 with float RoI
+    tables printed), then tools/overfit_smoke.py (the 128 px TinyConfig,
+    200 steps): recall >= 0.75, and the keypoint gate (OKS AP50 >= 0.5);
+    9c the same path at full width and reduced depth: CocoInferenceConfig
+    trained 20 steps at B=8 on multiclass scenes, saved and loaded as an
+    epoch checkpoint, evaluate_coco bbox and segm over 16 PNG images in
+    float and int8: ms a step, peak memory, AP, and K1, K1-bwd, K2, K4
+    (K1's int8 mode in int8) launched;
 then one JSON line of per-kernel numbers (time, launches on the main
 path, error, plain version's time, the bound and what sets it, the
 library's time; K1 and K1-bwd at P=7 and, in the `_p14` keys, at P=14
@@ -147,13 +165,16 @@ any check fails. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import itertools
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -2754,6 +2775,236 @@ def profiler_phase(det, images):
           f"{any('roi_align' in n for n in names)})", flush=True)
 
 
+# Phase 9: image files without Pillow, then the JAX package's learning
+# gates. Pillow 12.1.0's decode of the repository's images,
+# np.asarray(Image.open(f).convert("RGB")): rows, columns and the SHA-256
+# of the pixels (the card's machine has no Pillow).
+IMAGE_DIGESTS = {
+    "images/sample.jpg": (480, 640, "7d5e9dfd71f8d2cbcea7df1e163204957121598b1ef8c3630f7211ffc77a7add"),
+    "images/synthetic_scene.png": (1024, 1024, "7a2be11f136780caf6ef39986a3d36b7ce82527dba9a75611111ba5566f4ae34"),
+    "output/anchors.jpg": (463, 447, "62a4220713a429a820ac649ab3aff67fbb03299d61eb8810c06d1d0562ad4e72"),
+    "output/custom_finetune.jpg": (504, 481, "dcbe34a8ff7fdd6ee22dc97e60d07b6721b75ebd75ff83970351b6e5eb158fce"),
+    "output/detections.jpg": (1252, 1252, "3b26b0cfb2932801b77c617f2d5d9972ae49b1dc979f38ad9326ebd1f421f911"),
+    "output/keypoints.jpg": (1274, 1252, "9518e5b0bf6f0d5e76390c4404e200bf534c47efad0895ac2481deb6b9e7cbc8"),
+    "output/mask_head.jpg": (146, 1008, "c812e04daa25d88645a4697a19edbe3f9e3e27c025f3eea658cf456b0757a468"),
+    "output/p2_features.jpg": (340, 729, "9c94ba9e546535e89a0304378f93e2a4999efe2397ecdcb47f3a1d1d5bfcf2ca"),
+    "output/rpn_refine.jpg": (463, 447, "b75b7a0d999fed779ee7c7d2212e71bfcfa92631934e84d23db96ba8f07d6388"),
+    "output/tpu_trained_int8_detections.jpg": (1274, 1252, "5b89d7e575d4542dc7323122fb8722140931ddf71d60ef5a9083ecaa71e3db3b"),
+}
+REPO = Path(__file__).resolve().parent
+
+
+def learning_tools():
+    """tools/learning_torch.py: the gates' scenes, training and
+    evaluation."""
+    from tools import learning_torch
+    return learning_torch
+
+
+def decode_phase(card):
+    """Phase 9a: the port's PNG and JPEG reader gives Pillow's pixels for
+    every repository image (digests above); host ms a decode of
+    images/sample.jpg (640x480) and output/detections.jpg (1252²), median
+    of 5; write_png read back exactly (RGB and grayscale)."""
+    from maskrcnn_tpu_torch.data import image_io
+    for name, (h, w, digest) in IMAGE_DIGESTS.items():
+        img = image_io.read_image(REPO / name)
+        check(img.shape == (h, w, 3)
+              and hashlib.sha256(img.tobytes()).hexdigest() == digest,
+              f"9a: {name} decodes to other pixels than Pillow's")
+    times = []
+    for name in ("images/sample.jpg", "output/detections.jpg"):
+        data = (REPO / name).read_bytes()
+        runs = []
+        for _ in range(5):
+            t = time.perf_counter()
+            image_io.read_image(data)
+            runs.append((time.perf_counter() - t) * 1e3)
+        times.append(f"{name} {statistics.median(runs):.2f} ms "
+                     f"(runs {[round(r, 2) for r in runs]})")
+    rng = np.random.RandomState(9)
+    for shape in ((37, 53, 3), (29, 17)):
+        img = rng.randint(0, 256, shape, dtype=np.uint8)
+        back = image_io.read_image(image_io.encode_png(img))
+        want = img if img.ndim == 3 else np.repeat(img[..., None], 3, 2)
+        check(np.array_equal(back, want), f"9a: write_png {shape} round trip")
+    check("PIL" not in sys.modules, "9a: Pillow was imported")
+    print(f"[9a] image_io: {len(IMAGE_DIGESTS)} repository images decode to "
+          f"Pillow's pixels (SHA-256); host decode median of 5: "
+          f"{'; '.join(times)}; write_png reads back exactly; {card}",
+          flush=True)
+
+
+# the 64 px gate's training batch and head RoIs an image
+GATE_B, GATE_N = 4, 16
+
+
+def gate_kernel_phase(kernels, roi, cfg):
+    """Phase 9b, first: K1 and K1-bwd against their plain versions at the
+    64 px gate's levels (P2-P5 16² .. 2², C=256, float32), B=4, 16 boxes
+    an image with the edge boxes, P=7 and 14: within 1e-5 (of a level's
+    largest gradient for K1-bwd)."""
+    canvas = cfg.IMAGE_SHAPE
+    shapes = [(GATE_B, h, w, 256) for h, w in stage_shapes(cfg)]
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    rng = np.random.RandomState(9)
+    levels = [torch.randn(*s, generator=gen, device=DEVICE) for s in shapes]
+    errs = []
+    for pool in (7, 14):
+        boxes = torch.from_numpy(np.stack(
+            [edge_boxes(rng, GATE_N) for _ in range(GATE_B)])).to(DEVICE)
+        flat = boxes.reshape(-1, 4).contiguous()
+        got = kernels.roi_align(levels, flat, pool, canvas)
+        want = roi.multilevel_roi_align(levels, boxes, pool,
+                                        canvas).reshape(got.shape)
+        err = float((got - want).abs().max())
+        check(err <= 1e-5, f"9b: roi_align 64 px P={pool}: err {err}")
+        grad = torch.randn(GATE_B * GATE_N, pool, pool, 256, generator=gen,
+                           device=DEVICE)
+        got = kernels.roi_align_backward(grad, flat, shapes, torch.float32,
+                                         pool, canvas)
+        want = roi.multilevel_roi_align_backward(
+            grad.reshape(GATE_B, GATE_N, pool, pool, 256), shapes,
+            torch.float32, boxes, pool, canvas)
+        for g, w in zip(got, want):
+            gap = float((g - w).abs().max())
+            check(gap <= 1e-5 * float(w.abs().max()),
+                  f"9b: roi_align_backward 64 px P={pool}: {gap}")
+            errs.append(gap)
+        errs.append(err)
+    torch.cuda.synchronize()
+    print(f"[9b] K1 and K1-bwd at the 64 px gate's levels "
+          f"{[s[1] for s in shapes]}² (P6 1² feeds the RPN only), float32, "
+          f"P=7 and 14: max |d| {max(errs):.3g}", flush=True)
+
+
+def learning_phase(kernels, roi, card):
+    """Phase 9b: tests/test_learning_ap.py on the card: the 64 px
+    TinyConfig trained from scratch for 240 steps at B=4 (one class),
+    evaluated through CocoDataset (PNG files) and evaluate_coco: bbox AP50
+    >= 0.5, segm AP50 >= 0.3; the int8 Detector (int8 RoI tables) within
+    0.05 of float's bbox AP50, and without int8 RoI tables printed; then
+    tools/overfit_smoke.py (the 128 px TinyConfig, 200 steps): recall >=
+    0.75; then tests/test_keypoints_learning.py (17 keypoints, 240
+    steps): OKS AP50 >= 0.5, the one gate whose three runs on the card
+    cleared its floor by 0.05 or more (the multiclass and cascade gates
+    run through tools/chip_phases.py l). Returns the run's launches."""
+    lt = learning_tools()
+    gate_kernel_phase(kernels, roi, lt.gate_config())
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        rec, failures = lt.one_class_gate(DEVICE, tmp)
+        over, missed = lt.overfit_gate(DEVICE)
+        kp, kp_missed = lt.keypoint_gate(DEVICE, tmp)
+    n = launch_counts(kernels)
+    tr, otr = rec["train"], over["train"]
+    print(f"[9b] one-class gate, {cfg_name(lt.gate_config())}: "
+          f"{tr['steps']} steps at B=4 in {tr['seconds']:.1f} s (median "
+          f"{tr['median_ms']:.2f} ms a step, last total loss "
+          f"{tr['losses']['total']:.4f}); float "
+          f"{lt.gate_line('one-class', rec)}; int8 bbox AP50 "
+          f"{rec['int8']['bbox']['AP50']:.3f} (int8 RoI tables), "
+          f"{rec['int8_bf16_roi']['bbox']['AP50']:.3f} (float RoI tables); "
+          f"overfit_smoke, {otr['steps']} steps (median "
+          f"{otr['median_ms']:.2f} ms a step): "
+          f"{lt.gate_line('overfit', over)}; keypoint gate "
+          f"{lt.gate_line('keypoints', kp)}; "
+          f"{time.perf_counter() - t0:.1f} s; launches {n}; {card}",
+          flush=True)
+    failures += missed + kp_missed
+    check(not failures, f"9b: missed floors {failures}")
+    check(all(n[k] > 0 for k in ("roi_align", "roi_align_backward", "nms",
+                                  "paste_pack", "roi_align_int8")),
+          f"9b: launches {n}")
+    return n
+
+
+# 9c: training steps at full width, the card's pool of batches
+FULL_STEPS, FULL_POOL, FULL_B = 20, 4, 8
+
+
+def learning_full_phase(kernels, card):
+    """Phase 9c: the same path at full width (CocoInferenceConfig with 8 gt
+    slots: ResNet-101, 1024², 81 classes, bf16), reduced depth: 20 steps
+    at B=8 on multiclass scenes (a pool of 4 batches on the card), the
+    weights saved as an epoch checkpoint under build/ and loaded into a
+    float and a QUANT_INT8 Detector (the file deleted once read), then
+    evaluate_coco bbox and segm over a 16-image PNG COCO directory: ms a
+    step, peak memory, AP (no floor at 20 steps) and launches: K1, K1-bwd,
+    K2 in training, K1, K2, K4 in each evaluation, K1's int8 mode in
+    int8's. Returns the launches."""
+    import shutil
+    from maskrcnn_tpu_torch.api import Detector
+    from maskrcnn_tpu_torch.checkpoint.store import (load_checkpoint,
+                                                     save_checkpoint)
+    lt = learning_tools()
+    cfg = lt.full_config()
+    pool = lt.device_pool(lt.multiclass_train_batch, np.random.RandomState(3),
+                          cfg, FULL_B, FULL_POOL, DEVICE)
+    total = {k: 0 for k in launch_counts(kernels)}
+
+    def add(n):
+        for k in total:
+            total[k] += n[k]
+
+    reset_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    model, info = lt.train(cfg, pool, FULL_STEPS, DEVICE, log_every=10,
+                           tag="9c")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = launch_counts(kernels)
+    add(n)
+    check(all(n[k] >= FULL_STEPS for k in ("roi_align", "roi_align_backward",
+                                            "nms")), f"9c train: {n}")
+    print(f"[9c] train {cfg_name(cfg)} B={FULL_B}, {FULL_STEPS} steps: median "
+          f"{info['median_ms']:.2f} ms a step ({FULL_B * 1e3 / info['median_ms']:.2f}"
+          f" img/s), {info['seconds']:.1f} s in all, peak {peak:.2f} GiB, last "
+          f"losses {info['losses']}; launches K1 {n['roi_align']} K1-bwd "
+          f"{n['roi_align_backward']} K2 {n['nms']}; {card}", flush=True)
+    run_dir = REPO / "build" / "phase9"
+    ref = model.state_dict()["mask.conv1.weight"].detach().to(model.dtype)
+    path = save_checkpoint(str(run_dir), model, 1, cfg)
+    del model, pool
+    torch.cuda.empty_cache()
+    calib = lt.calib_scenes(
+        lambda r: lt.multiclass_scene(r, cfg.IMAGE_MAX_DIM)[0], 4)
+    dets = {"float": Detector(cfg, DEVICE),
+            "int8": Detector(cfg.replace(QUANT_INT8=True), DEVICE,
+                             calib_images=calib)}
+    try:
+        for det in dets.values():
+            load_checkpoint(path, det.model)
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    check(torch.equal(dets["float"].model.state_dict()["mask.conv1.weight"],
+                      ref), "9c: the loaded weights differ")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = lt.make_multiclass_coco_dir(Path(tmp), cfg, n_images=16)
+        for name, det in dets.items():
+            reset_counts(kernels)
+            t = time.perf_counter()
+            stats = lt.evaluate(det, root, limit=16, batch_size=8)
+            seconds = time.perf_counter() - t
+            n = launch_counts(kernels)
+            add(n)
+            want = ("roi_align", "nms", "paste_pack") + (
+                ("roi_align_int8", "int8_gemm") if name == "int8" else ())
+            check(all(n[k] > 0 for k in want), f"9c {name} eval: {n}")
+            check(all(np.isfinite(v) for s in stats.values()
+                      for v in s.values()), f"9c {name}: AP {stats}")
+            print(f"[9c] evaluate_coco {name}, 16 PNG images at B=8, bbox and "
+                  f"segm in {seconds:.1f} s: "
+                  + " / ".join(f"{k} AP {v['AP']:.3f} AP50 {v['AP50']:.3f} "
+                               f"AP75 {v['AP75']:.3f}"
+                               for k, v in stats.items())
+                  + f"; launches K1 {n['roi_align']} (int8 mode "
+                  f"{n['roi_align_int8']}) K2 {n['nms']} K4 "
+                  f"{n['paste_pack']}", flush=True)
+    return total
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None)
@@ -2831,6 +3082,9 @@ def main() -> int:
     reset_counts(kernels)
     export_phase(det, kernels, card)
     profiler_phase(det, images)
+    decode_phase(card)
+    learning_launches = learning_phase(kernels, roi, card)
+    full_launches = learning_full_phase(kernels, card)
     if args.profile:
         from maskrcnn_tpu_torch.detection.pipeline import predict_step
         for d, name in ((det, "predict_step"),
@@ -2849,7 +3103,8 @@ def main() -> int:
     # ones
     runs = {k: launches[k] + fold_launches[k] + quant_launches[k]
             + product_launches[k] + protocol_launches[k] + train_launches[k]
-            + server_launches[k] for k in launches}
+            + server_launches[k] + learning_launches[k] + full_launches[k]
+            for k in launches}
     runs["nms"] += retina_k2
     runs["roi_align"] -= runs["roi_align_int8"]
     check(runs["roi_align_backward"] > 0, "K1-bwd never ran on the main "

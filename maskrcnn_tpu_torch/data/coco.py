@@ -4,8 +4,9 @@ CocoMaskRCNNDataset, coco_annfile/coco_root at data.py:681-692 with the
 minival -> val images rule).
 
 Annotations come through the port's own COCO index (eval/coco_index.py).
-`CocoDataset.load_image` and `load` decode an image file with Pillow,
-imported when called: nothing else here needs it. `load` gives a training
+`CocoDataset.load_image` and `load` decode an image file with the port's
+own PNG and JPEG reader (data/image_io.py: Pillow's pixels, no Pillow).
+`load` gives a training
 image's instances in original coordinates (crowds negated, mask-extent
 boxes, the empty-image fallback) and `sample`, from DetectionDataset, puts
 them on the canvas.
@@ -20,6 +21,7 @@ from typing import List, Optional
 import numpy as np
 
 from maskrcnn_tpu_torch.data.dataset import DetectionDataset
+from maskrcnn_tpu_torch.data.image_io import read_image
 from maskrcnn_tpu_torch.eval.coco_index import COCO
 
 # The 80 COCO categories in contiguous label order (label 0 = background).
@@ -108,15 +110,6 @@ def coco_image_dir(root: str, subset: str, year: int = 2014) -> str:
     return os.path.join(root, f"{subset}{year}")
 
 
-def _pil_image():
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise ImportError("CocoDataset.load_image needs Pillow to decode "
-                          "an image file") from e
-    return Image
-
-
 class CocoDataset(DetectionDataset):
     """COCO images and annotations of one subset, for training and
     evaluation (reference CocoMaskRCNNDataset, data.py:695-884)."""
@@ -151,19 +144,16 @@ class CocoDataset(DetectionDataset):
         return CocoLabel.to_class(label_id)
 
     def load_image(self, image_id: int) -> np.ndarray:
-        """RGB uint8 array (reference data.py:761-768); needs Pillow."""
-        image_cls = _pil_image()
-        img = image_cls.open(self.image_path(self.image_index(image_id)))
-        return np.asarray(img.convert("RGB"))
+        """RGB uint8 array (reference data.py:761-768)."""
+        return read_image(self.image_path(self.image_index(image_id)))
 
     def load(self, index: int, hflip: bool = False):
         """(image, label_ids, boxes, masks[, keypoints]) in original
         coordinates (reference data.py:797-876: crowds negated,
         mask-extent boxes, the empty-image fallback); hflip flips half
-        the time. Needs Pillow to read the file."""
+        the time."""
         image_id = self.ids[index]
-        image = np.asarray(
-            _pil_image().open(self.image_path(index)).convert("RGB"))
+        image = read_image(self.image_path(index))
         anns = self.coco.loadAnns(self.coco.getAnnIds(imgIds=[image_id]))
 
         flip = hflip and random.randint(0, 1)

@@ -1,0 +1,642 @@
+"""Image files without Pillow: PNG and baseline JPEG decode to RGB uint8,
+and a PNG writer.
+
+`read_image(f)` (a path, the file's bytes or a binary file object)
+returns what `np.asarray(PIL.Image.open(f).convert("RGB"))` returns with
+Pillow 12.1 over libjpeg-turbo 3.1 and zlib, bit for bit, for the files
+it accepts:
+
+* PNG: 8-bit grayscale, grayscale + alpha, RGB, RGBA and palette images,
+  not interlaced, with all five row filters; alpha is dropped and a
+  palette looked up, as `convert("RGB")` does. zlib is the standard
+  library's.
+* JPEG: baseline and extended sequential Huffman coding with 8-bit
+  samples, 1 or 3 components (YCbCr), sampling factors 1 or 2 (4:4:4,
+  4:2:2, 4:4:0, 4:2:0), restart intervals and byte stuffing. It follows
+  libjpeg-turbo's C path as Pillow configures it (its SIMD paths give the
+  same bits): the islow IDCT of jidctint.c with its range-limit table,
+  the fancy upsampling of jdsample.c (edges replicate the component's
+  downsampled size, as jdmainct.c's context rows do) and jdcolor.c's
+  fixed-point YCbCr -> RGB tables.
+
+Anything else raises NotImplementedError naming the feature: Adam7
+interlacing and bit depths other than 8 in PNG; progressive, lossless,
+hierarchical, arithmetic-coded, 12-bit, CMYK, YCCK and Adobe-transform
+or RGB-coded JPEG.
+
+The JPEG entropy decoding is plain Python over a table of 16-bit
+windows, one a bit position; everything after it (dequantize, un-zigzag,
+IDCT, upsample, colour) is integer numpy over all blocks at once.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import struct
+import zlib
+from typing import BinaryIO, Union
+
+import numpy as np
+
+Source = Union[str, os.PathLike, bytes, bytearray, memoryview, BinaryIO]
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# Pillow's decompression-bomb error: more pixels than twice
+# Image.MAX_IMAGE_PIXELS
+MAX_PIXELS = 2 * 89_478_485
+
+
+def _check_size(width: int, height: int) -> None:
+    if width < 1 or height < 1 or width * height > MAX_PIXELS:
+        raise ValueError(f"image size {width}x{height}: not 1 to "
+                         f"{MAX_PIXELS} pixels")
+
+
+def _read_bytes(source: Source) -> bytes:
+    if isinstance(source, (bytes, bytearray, memoryview)):
+        return bytes(source)
+    if hasattr(source, "read"):
+        return source.read()
+    with open(source, "rb") as f:
+        return f.read()
+
+
+def read_image(source: Source) -> np.ndarray:
+    """An image file (path, bytes or binary file object) as RGB uint8
+    [H, W, 3]: the pixels Pillow's `Image.open(f).convert("RGB")` gives."""
+    data = _read_bytes(source)
+    if data.startswith(PNG_SIGNATURE):
+        return decode_png(data)
+    if data.startswith(b"\xff\xd8"):
+        return decode_jpeg(data)
+    raise ValueError("not a PNG or JPEG file")
+
+
+# --------------------------------------------------------------------- PNG
+
+def _paeth_row(cur: bytearray, prior: bytes, bpp: int) -> None:
+    """Undo the Paeth filter of one row in place."""
+    for i in range(len(cur)):
+        a = cur[i - bpp] if i >= bpp else 0
+        b = prior[i]
+        c = prior[i - bpp] if i >= bpp else 0
+        p = a + b - c
+        pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+        if pa <= pb and pa <= pc:
+            pred = a
+        elif pb <= pc:
+            pred = b
+        else:
+            pred = c
+        cur[i] = (cur[i] + pred) & 255
+
+
+def _average_row(cur: bytearray, prior: bytes, bpp: int) -> None:
+    """Undo the Average filter of one row in place."""
+    for i in range(len(cur)):
+        a = cur[i - bpp] if i >= bpp else 0
+        cur[i] = (cur[i] + ((a + prior[i]) >> 1)) & 255
+
+
+def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
+    """The PNG row filters undone: [height, stride] uint8."""
+    if len(raw) < height * (stride + 1):
+        raise ValueError("PNG: image data too short")
+    rows = np.frombuffer(raw, np.uint8, height * (stride + 1)).reshape(
+        height, stride + 1)
+    out = np.empty((height, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
+    for y in range(height):
+        kind = int(rows[y, 0])
+        cur = rows[y, 1:]
+        if kind == 0:
+            row = cur.copy()
+        elif kind == 1:
+            # a running sum mod 256 over the pixels, per byte of a pixel
+            row = np.cumsum(cur.reshape(-1, bpp), axis=0,
+                            dtype=np.uint8).reshape(-1)
+        elif kind == 2:
+            row = cur + prior
+        elif kind in (3, 4):
+            buf = bytearray(cur.tobytes())
+            (_average_row if kind == 3 else _paeth_row)(
+                buf, prior.tobytes(), bpp)
+            row = np.frombuffer(bytes(buf), np.uint8)
+        else:
+            raise ValueError(f"PNG: unknown row filter {kind}")
+        out[y] = row
+        prior = out[y]
+    return out
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """A PNG file's bytes -> RGB uint8 [H, W, 3]."""
+    if not data.startswith(PNG_SIGNATURE):
+        raise ValueError("not a PNG file")
+    pos = len(PNG_SIGNATURE)
+    header = palette = None
+    idat = []
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body[:13])
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None:
+        raise ValueError("PNG: no IHDR chunk")
+    width, height, depth, color, _, _, interlace = header
+    _check_size(width, height)
+    if interlace:
+        raise NotImplementedError("PNG: Adam7 interlaced images are not "
+                                  "supported")
+    if depth != 8:
+        raise NotImplementedError(f"PNG: bit depth {depth} is not supported "
+                                  "(8 only)")
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}.get(color)
+    if channels is None:
+        raise ValueError(f"PNG: unknown colour type {color}")
+    pixels = _unfilter(zlib.decompress(b"".join(idat)), height,
+                       width * channels, channels).reshape(
+                           height, width, channels)
+    if color == 3:
+        if palette is None:
+            raise ValueError("PNG: palette image without a PLTE chunk")
+        # Pillow's palette holds 256 entries, black past the file's
+        table = np.zeros((256, 3), np.uint8)
+        table[:len(palette)] = palette[:256]
+        return table[pixels[..., 0]]
+    if color in (0, 4):
+        return np.repeat(pixels[..., :1], 3, axis=2)
+    return np.ascontiguousarray(pixels[..., :3])
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def encode_png(image: np.ndarray) -> bytes:
+    """uint8 [H, W, 3] (RGB) or [H, W] (grayscale) -> PNG bytes: every row
+    filter 0, the data through zlib.compress."""
+    image = np.asarray(image)
+    if image.dtype != np.uint8 or not (
+            image.ndim == 2 or (image.ndim == 3 and image.shape[2] == 3)):
+        raise ValueError("encode_png takes uint8 [H, W] or [H, W, 3], not "
+                         f"{image.dtype} {image.shape}")
+    height, width = image.shape[:2]
+    rows = image.reshape(height, -1)
+    raw = np.zeros((height, rows.shape[1] + 1), np.uint8)
+    raw[:, 1:] = rows
+    header = struct.pack(">IIBBBBB", width, height, 8,
+                         0 if image.ndim == 2 else 2, 0, 0, 0)
+    return (PNG_SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes()))
+            + _chunk(b"IEND", b""))
+
+
+def write_png(target: Union[str, os.PathLike, BinaryIO],
+              image: np.ndarray) -> None:
+    """Write `image` (see encode_png) as a PNG file to a path or a binary
+    file object."""
+    data = encode_png(image)
+    if hasattr(target, "write"):
+        target.write(data)
+        return
+    with open(target, "wb") as f:
+        f.write(data)
+
+
+# -------------------------------------------------------------------- JPEG
+
+# the zigzag position k's coefficient in natural (row-major) order
+NATURAL_ORDER = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
+
+_SOF_MODES = {
+    0xC2: "progressive", 0xC3: "lossless", 0xC5: "hierarchical sequential",
+    0xC6: "hierarchical progressive", 0xC7: "hierarchical lossless",
+    0xC9: "arithmetic-coded sequential", 0xCA: "arithmetic-coded progressive",
+    0xCB: "arithmetic-coded lossless", 0xCD: "arithmetic-coded hierarchical",
+    0xCE: "arithmetic-coded hierarchical", 0xCF: "arithmetic-coded "
+    "hierarchical"}
+
+# a marker in the entropy-coded data: 0xFF neither stuffed (0x00) nor a
+# restart (0xD0-0xD7)
+_MARKER = re.compile(rb"\xff[^\x00\xd0-\xd7]")
+_RESTART = re.compile(rb"\xff[\xd0-\xd7]")
+
+
+def _huffman_lut(counts, symbols) -> list:
+    """A table over 16-bit windows: symbol << 5 | code length, 0 where no
+    code starts the window."""
+    lut = np.zeros(1 << 16, np.int64)
+    code = k = 0
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            span = 1 << (16 - length)
+            lut[code * span:(code + 1) * span] = symbols[k] << 5 | length
+            code += 1
+            k += 1
+        code <<= 1
+    return lut.tolist()
+
+
+def _windows(segment: bytes) -> list:
+    """The 16 bits starting at each bit position of the segment (stuffing
+    removed; zeros past its end), as a list."""
+    buf = np.frombuffer(segment + b"\x00\x00\x00\x00", np.uint8).astype(
+        np.int64)
+    word = (buf[:-3] << 24) | (buf[1:-2] << 16) | (buf[2:-1] << 8) | buf[3:]
+    pos = np.arange(8 * len(segment), dtype=np.int64)
+    return ((word[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF).tolist()
+
+
+def _decode_segment(segment: bytes, mcus: int, layout: list, offsets: list,
+                    first: int, idx: list, val: list) -> None:
+    """Entropy-decode `mcus` MCUs of one restart interval. layout: one
+    (predictor slot, DC table, AC table) a block of an MCU; offsets: the
+    coefficient-array block of every block in scan order, from `first`.
+    Appends the flat index and value of every nonzero coefficient (the DC
+    always) to idx and val, in zigzag order within a block."""
+    win = _windows(segment)
+    preds = [0] * (1 + max(slot for slot, _, _ in layout))
+    pos = 0
+    b = first
+    append_i, append_v = idx.append, val.append
+    try:
+        for _ in range(mcus):
+            for slot, dc, ac in layout:
+                base = offsets[b] * 64
+                b += 1
+                e = dc[win[pos]]
+                if not e:
+                    raise ValueError("JPEG: bad Huffman code")
+                pos += e & 31
+                s = e >> 5
+                if s:
+                    v = win[pos] >> (16 - s)
+                    pos += s
+                    if v < 1 << (s - 1):
+                        v -= (1 << s) - 1
+                    preds[slot] += v
+                append_i(base)
+                append_v(preds[slot])
+                k = 1
+                while k < 64:
+                    e = ac[win[pos]]
+                    if not e:
+                        raise ValueError("JPEG: bad Huffman code")
+                    pos += e & 31
+                    rs = e >> 5
+                    s = rs & 15
+                    if s:
+                        k += rs >> 4
+                        v = win[pos] >> (16 - s)
+                        pos += s
+                        if v < 1 << (s - 1):
+                            v -= (1 << s) - 1
+                        if k < 64:
+                            append_i(base + k)
+                            append_v(v)
+                        k += 1
+                    elif rs == 0xF0:
+                        k += 16
+                    else:
+                        break
+    except IndexError:
+        raise ValueError("JPEG: entropy-coded data ends early") from None
+
+
+# jidctint.c's constants: FIX(x) at CONST_BITS 13
+_CONST_BITS, _PASS1_BITS = 13, 2
+_F0298, _F0390, _F0541, _F0765 = 2446, 3196, 4433, 6270
+_F0899, _F1175, _F1501, _F1847 = 7373, 9633, 12299, 15137
+_F1961, _F2053, _F2562, _F3072 = 16069, 16819, 20995, 25172
+
+
+def _idct_1d(x):
+    """jidctint.c's 8-point islow butterfly on x[0..7] (int64 arrays):
+    the eight outputs, before the descale."""
+    z1 = (x[2] + x[6]) * _F0541
+    tmp2 = z1 - x[6] * _F1847
+    tmp3 = z1 + x[2] * _F0765
+    tmp0 = (x[0] + x[4]) << _CONST_BITS
+    tmp1 = (x[0] - x[4]) << _CONST_BITS
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+    t0, t1, t2, t3 = x[7], x[5], x[3], x[1]
+    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
+    z5 = (z3 + z4) * _F1175
+    t0, t1, t2, t3 = t0 * _F0298, t1 * _F2053, t2 * _F3072, t3 * _F1501
+    z1, z2 = z1 * -_F0899, z2 * -_F2562
+    z3, z4 = z3 * -_F1961 + z5, z4 * -_F0390 + z5
+    t0 += z1 + z3
+    t1 += z2 + z4
+    t2 += z2 + z3
+    t3 += z1 + z4
+    return (tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
+            tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3)
+
+
+def _range_limit_table() -> np.ndarray:
+    """jdmaster.c's post-IDCT range-limit table, indexed by the descaled
+    value & 1023: x + 128 clamped to 0..255 for x in [-512, 511]."""
+    x = np.arange(1024)
+    x = np.where(x >= 512, x - 1024, x)
+    return np.clip(x + 128, 0, 255).astype(np.uint8)
+
+
+_RANGE_LIMIT = _range_limit_table()
+
+
+def _descale(x, n):
+    return (x + (1 << (n - 1))) >> n
+
+
+def idct_islow(coef: np.ndarray) -> np.ndarray:
+    """Dequantized coefficients [N, 8, 8] (natural order, row = vertical
+    frequency) -> samples [N, 8, 8] uint8, as jpeg_idct_islow."""
+    c = coef.astype(np.int64)
+    # pass 1: the columns, into the workspace
+    ws = np.stack(_idct_1d([c[:, k, :] for k in range(8)]), axis=1)
+    ws = _descale(ws, _CONST_BITS - _PASS1_BITS)
+    # pass 2: the rows
+    out = np.stack(_idct_1d([ws[:, :, k] for k in range(8)]), axis=2)
+    out = _descale(out, _CONST_BITS + _PASS1_BITS + 3)
+    return _RANGE_LIMIT[out & 1023]
+
+
+def _rows_around(p: np.ndarray):
+    """The row above and below each row, the edge rows replicated."""
+    above = np.concatenate([p[:1], p[:-1]], axis=0)
+    below = np.concatenate([p[1:], p[-1:]], axis=0)
+    return above, below
+
+
+def _cols_around(p: np.ndarray):
+    left = np.concatenate([p[:, :1], p[:, :-1]], axis=1)
+    right = np.concatenate([p[:, 1:], p[:, -1:]], axis=1)
+    return left, right
+
+
+def _interleave(a: np.ndarray, b: np.ndarray, axis: int) -> np.ndarray:
+    return np.stack([a, b], axis=axis + 1).reshape(
+        *a.shape[:axis], 2 * a.shape[axis], *a.shape[axis + 1:])
+
+
+def upsample(plane: np.ndarray, h_factor: int, v_factor: int) -> np.ndarray:
+    """A component's downsampled plane [h, w] (uint8) upsampled by
+    integer factors as jdsample.c does with fancy upsampling on: the
+    triangle filters of h2v1, h1v2 and h2v2 (h2v1 and h2v2 only when w > 2),
+    else pixel replication."""
+    if (h_factor, v_factor) == (1, 1):
+        return plane
+    p = plane.astype(np.int32)
+    w = p.shape[1]
+    if (h_factor, v_factor) == (1, 2):
+        above, below = _rows_around(p)
+        return _interleave((3 * p + above + 1) >> 2,
+                           (3 * p + below + 2) >> 2, 0).astype(np.uint8)
+    if (h_factor, v_factor) == (2, 1) and w > 2:
+        left, right = _cols_around(p)
+        return _interleave((3 * p + left + 1) >> 2,
+                           (3 * p + right + 2) >> 2, 1).astype(np.uint8)
+    if (h_factor, v_factor) == (2, 2) and w > 2:
+        above, below = _rows_around(p)
+        out = []
+        for colsum in (3 * p + above, 3 * p + below):
+            left, right = _cols_around(colsum)
+            out.append(_interleave((3 * colsum + left + 8) >> 4,
+                                   (3 * colsum + right + 7) >> 4, 1))
+        return _interleave(out[0], out[1], 0).astype(np.uint8)
+    return np.repeat(np.repeat(plane, v_factor, axis=0), h_factor, axis=1)
+
+
+def _ycc_tables():
+    """jdcolor.c's YCbCr -> RGB tables (SCALEBITS 16)."""
+    one_half = 1 << 15
+    x = np.arange(256, dtype=np.int64) - 128
+
+    def fix(v):
+        return int(v * (1 << 16) + 0.5)
+
+    cr_r = (fix(1.40200) * x + one_half) >> 16
+    cb_b = (fix(1.77200) * x + one_half) >> 16
+    cr_g = -fix(0.71414) * x
+    cb_g = -fix(0.34414) * x + one_half
+    return cr_r, cb_b, cr_g, cb_g
+
+
+_CR_R, _CB_B, _CR_G, _CB_G = _ycc_tables()
+# range_limit[] of jdcolor.c: x + 512 -> x clamped to 0..255
+_CLAMP = np.clip(np.arange(1280) - 512, 0, 255).astype(np.uint8)
+
+
+def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
+    """uint8 planes -> RGB uint8 [H, W, 3] (ycc_rgb_convert)."""
+    out = np.empty(y.shape + (3,), np.uint8)
+    yy = y.astype(np.int32)
+    for i, chroma in enumerate((_CR_R[cr], (_CB_G[cb] + _CR_G[cr]) >> 16,
+                                _CB_B[cb])):
+        out[..., i] = _CLAMP[yy + chroma.astype(np.int32) + 512]
+    return out
+
+
+class _Frame:
+    """The parsed frame: size, components and the tables in force."""
+
+    def __init__(self, body: bytes, marker: int):
+        precision, self.height, self.width, n = struct.unpack(
+            ">BHHB", body[:6])
+        _check_size(self.width, self.height)
+        if precision != 8:
+            raise NotImplementedError(f"JPEG: {precision}-bit samples are not "
+                                      "supported (8-bit only)")
+        if n == 4:
+            raise NotImplementedError("JPEG: CMYK (4-component) images are "
+                                      "not supported")
+        if n not in (1, 3):
+            raise NotImplementedError(f"JPEG: {n} components are not "
+                                      "supported (1 or 3)")
+        self.ids, self.h, self.v, self.tq = [], [], [], []
+        for i in range(n):
+            cid, hv, tq = body[6 + 3 * i:9 + 3 * i]
+            self.ids.append(cid)
+            self.h.append(hv >> 4)
+            self.v.append(hv & 15)
+            self.tq.append(tq)
+        if any(f not in (1, 2) for f in self.h + self.v):
+            raise NotImplementedError("JPEG: sampling factors other than 1 "
+                                      "and 2 are not supported")
+        self.hmax, self.vmax = max(self.h), max(self.v)
+        self.mcux = -(-self.width // (8 * self.hmax))
+        self.mcuy = -(-self.height // (8 * self.vmax))
+        # each component's coefficient blocks: the interleaved MCU grid
+        self.bw = [self.mcux * h for h in self.h]
+        self.bh = [self.mcuy * v for v in self.v]
+        self.base = np.cumsum([0] + [w * h for w, h in
+                                     zip(self.bw, self.bh)]).tolist()
+        self.quant = [None] * n
+
+    def comp_size(self, c: int):
+        """(rows, columns) of component c's downsampled plane."""
+        return (-(-self.height * self.v[c] // self.vmax),
+                -(-self.width * self.h[c] // self.hmax))
+
+
+def _scan_blocks(frame: _Frame, comps, dc_luts, ac_luts):
+    """(layout, block offsets in scan order, MCU count) of a scan."""
+    if len(comps) == 1:
+        c = comps[0]
+        rows, cols = frame.comp_size(c)
+        by, bx = -(-rows // 8), -(-cols // 8)
+        grid = (np.arange(by)[:, None] * frame.bw[c]
+                + np.arange(bx)[None, :])
+        layout = [(0, dc_luts[0], ac_luts[0])]
+        return layout, (frame.base[c] + grid.reshape(-1)).tolist(), by * bx
+    layout, per_mcu = [], []
+    for slot, c in enumerate(comps):
+        for v in range(frame.v[c]):
+            for h in range(frame.h[c]):
+                layout.append((slot, dc_luts[slot], ac_luts[slot]))
+                per_mcu.append((c, v, h))
+    my, mx = np.meshgrid(np.arange(frame.mcuy), np.arange(frame.mcux),
+                         indexing="ij")
+    my, mx = my.reshape(-1, 1), mx.reshape(-1, 1)
+    cols = [frame.base[c] + (my * frame.v[c] + v) * frame.bw[c]
+            + mx * frame.h[c] + h for c, v, h in per_mcu]
+    offsets = np.concatenate(cols, axis=1).reshape(-1)
+    return layout, offsets.tolist(), frame.mcux * frame.mcuy
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """A baseline JPEG file's bytes -> RGB uint8 [H, W, 3]."""
+    if not data.startswith(b"\xff\xd8"):
+        raise ValueError("not a JPEG file")
+    pos = 2
+    frame = None
+    qtables, dc_tables, ac_tables = {}, {}, {}
+    restart = 0
+    jfif = adobe = False
+    transform = None
+    idx, val = [], []
+    while True:
+        if pos + 2 > len(data):
+            raise ValueError("JPEG: no EOI marker")
+        if data[pos] != 0xFF:
+            raise ValueError(f"JPEG: marker expected at byte {pos}")
+        marker = data[pos + 1]
+        if marker == 0xFF:                       # fill byte
+            pos += 1
+            continue
+        if marker == 0xD9:                       # EOI
+            break
+        if 0xD0 <= marker <= 0xD8 or marker == 0x01:
+            pos += 2
+            continue
+        length = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        body = data[pos + 4:pos + 2 + length]
+        pos += 2 + length
+        if marker in (0xC0, 0xC1):
+            frame = _Frame(body, marker)
+        elif marker in _SOF_MODES:
+            raise NotImplementedError(f"JPEG: {_SOF_MODES[marker]} mode is "
+                                      "not supported (baseline and extended "
+                                      "sequential Huffman only)")
+        elif marker == 0xC4:
+            i = 0
+            while i < len(body):
+                tc, th = body[i] >> 4, body[i] & 15
+                counts = body[i + 1:i + 17]
+                n = sum(counts)
+                lut = _huffman_lut(counts, list(body[i + 17:i + 17 + n]))
+                (dc_tables if tc == 0 else ac_tables)[th] = lut
+                i += 17 + n
+        elif marker == 0xDB:
+            i = 0
+            while i < len(body):
+                pq, tq = body[i] >> 4, body[i] & 15
+                if pq:
+                    q = np.frombuffer(body[i + 1:i + 129], ">u2")
+                    i += 129
+                else:
+                    q = np.frombuffer(body[i + 1:i + 65], np.uint8)
+                    i += 65
+                qtables[tq] = q.astype(np.int32)
+        elif marker == 0xDD:
+            restart = struct.unpack(">H", body[:2])[0]
+        elif marker == 0xE0 and body.startswith(b"JFIF\x00"):
+            jfif = True
+        elif marker == 0xEE and body.startswith(b"Adobe") and len(body) >= 12:
+            adobe, transform = True, body[11]
+        elif marker == 0xDA:
+            if frame is None:
+                raise ValueError("JPEG: scan before the frame header")
+            ns = body[0]
+            comps, dcl, acl = [], [], []
+            for k in range(ns):
+                cid, t = body[1 + 2 * k:3 + 2 * k]
+                c = frame.ids.index(cid)
+                comps.append(c)
+                dcl.append(dc_tables[t >> 4])
+                acl.append(ac_tables[t & 15])
+                if frame.quant[c] is None:
+                    frame.quant[c] = qtables[frame.tq[c]]
+            end = _MARKER.search(data, pos)
+            if end is None:
+                raise ValueError("JPEG: entropy-coded data without an end")
+            layout, offsets, mcus = _scan_blocks(frame, comps, dcl, acl)
+            segments = _RESTART.split(data[pos:end.start()])
+            per = restart or mcus
+            done = 0
+            for seg in segments:
+                n = min(per, mcus - done)
+                if n <= 0:
+                    break
+                _decode_segment(seg.replace(b"\xff\x00", b"\xff"), n, layout,
+                                offsets, done * len(layout), idx, val)
+                done += n
+            pos = end.start()
+    if frame is None:
+        raise ValueError("JPEG: no frame header")
+    n = len(frame.ids)
+    if n == 3:
+        if adobe and transform != 1:
+            raise NotImplementedError(
+                f"JPEG: Adobe transform {transform} (RGB-coded) is not "
+                "supported (YCbCr only)")
+        if not jfif and not adobe and frame.ids == [82, 71, 66]:
+            raise NotImplementedError("JPEG: RGB-coded images are not "
+                                      "supported (YCbCr only)")
+    coef = np.zeros(frame.base[-1] * 64, np.int32)
+    coef[np.asarray(idx, np.int64)] = val
+    coef = coef.reshape(-1, 64)
+    planes = []
+    for c in range(n):
+        q = frame.quant[c]
+        if q is None:                            # in no scan
+            q = qtables.get(frame.tq[c], np.ones(64, np.int32))
+        zz = coef[frame.base[c]:frame.base[c + 1]] * q[None, :]
+        nat = np.empty_like(zz)
+        nat[:, NATURAL_ORDER] = zz
+        samples = idct_islow(nat.reshape(-1, 8, 8))
+        bh, bw = frame.bh[c], frame.bw[c]
+        plane = samples.reshape(bh, bw, 8, 8).transpose(0, 2, 1, 3).reshape(
+            bh * 8, bw * 8)
+        rows, cols = frame.comp_size(c)
+        plane = upsample(plane[:rows, :cols], frame.hmax // frame.h[c],
+                         frame.vmax // frame.v[c])
+        planes.append(plane[:frame.height, :frame.width])
+    if n == 1:
+        return np.repeat(planes[0][..., None], 3, axis=2)
+    return ycc_to_rgb(*planes)

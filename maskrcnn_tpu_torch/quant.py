@@ -119,6 +119,18 @@ def _search_clip(amax: float, sample: np.ndarray, method: str,
     return max(float(cands[int(np.argmin(mse))]), 1e-6)
 
 
+def sample_stride(numel: int, channels: int, size: int) -> int:
+    """The stride of a calibration subsample of about `size` values of an
+    NHWC tensor: numel // size, as the JAX package strides, but one more
+    where that is a multiple of the channel count. Such a stride reads
+    channel 0 alone (at 1024² it does for every tensor from the stem to
+    C4 and the FPN), and the clip fitted to one channel cuts the others;
+    one more visits every channel. Elsewhere the subsample is the JAX
+    package's."""
+    stride = max(1, numel // size)
+    return stride + 1 if stride % channels == 0 else stride
+
+
 def _quantize_kernel(weight: np.ndarray, bias: np.ndarray) -> Dict:
     """A float32 conv weight [O, I, kh, kw] -> {kernel int8 [O, kh, kw, I],
     kscale [O], bias [O]} float32: per-output-channel symmetric scales."""
@@ -299,7 +311,8 @@ class _Ctx:
             amax = ax.max()
             if self.calib_sample > 0:
                 flat = ax.reshape(-1)
-                stride = max(1, flat.shape[0] // self.calib_sample)
+                stride = sample_stride(flat.shape[0], x.shape[-1],
+                                       self.calib_sample)
                 self.stats[name] = {"amax": amax,
                                     "sample": flat[::stride].clone()}
             else:

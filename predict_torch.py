@@ -7,8 +7,9 @@ counterpart of predict.py, with its argv, plus --device):
 
 Loads the reference `mask_rcnn_coco.pth` when it exists (random weights
 otherwise), prints one line a detection (label id, Chinese name, box,
-score) and saves the overlay. Reading the image file needs Pillow and
-drawing needs matplotlib; the Detector needs neither. -tta (flip
+score) and saves the overlay. The image file (PNG or baseline JPEG) is
+read without Pillow (data/image_io.py); drawing needs matplotlib, the
+Detector does not. -tta (flip
 test-time augmentation), -soft-nms SIGMA and -cascade IOUS set the
 config's inference protocols; the reference `.pth` has no cascade heads,
 so they keep their initialization (the Detector prints so).
@@ -22,6 +23,7 @@ import numpy as np
 from maskrcnn_tpu_torch.api import Detector
 from maskrcnn_tpu_torch.config import CocoInferenceConfig
 from maskrcnn_tpu_torch.data.coco import COCO_CLASS_NAMES, CocoLabel
+from maskrcnn_tpu_torch.data.image_io import read_image
 from maskrcnn_tpu_torch.utils.visualize import display_instances
 
 COCO_MODEL_PATH = os.path.join(os.getcwd(), "models/mask_rcnn_coco.pth")
@@ -47,13 +49,6 @@ def build_parser() -> argparse.ArgumentParser:
                         help="torch device to run on [cuda]")
     parser.add_argument("image", type=str, help="image file")
     return parser
-
-
-def read_image(path: str) -> np.ndarray:
-    """An image file as RGB uint8 (decoded with Pillow)."""
-    from PIL import Image
-    with Image.open(path) as img:
-        return np.asarray(img.convert("RGB"))
 
 
 def main(argv=None) -> None:

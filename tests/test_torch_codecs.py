@@ -3,6 +3,7 @@ Pillow's 8-bit BILINEAR resize, `resize_image`, `decode_masks` and
 `decode_boxes` equal to the JAX package's (which use Pillow), and the
 port importing and serving with Pillow and matplotlib refused."""
 
+import hashlib
 import subprocess
 import sys
 from pathlib import Path
@@ -128,6 +129,19 @@ cfg = TinyConfig(DETECTION_MIN_CONFIDENCE=0.0, ORIG_MASK_CANVAS=96)
 out = Detector(cfg, "cpu").detect(
     rng.randint(0, 256, (100, 120, 3), dtype=np.uint8))
 assert out[0] is not None and out[3].shape[1:] == (100, 120)
+import hashlib, json, os, tempfile
+from maskrcnn_tpu_torch.data.coco import CocoDataset
+files = ("images/sample.jpg", "images/synthetic_scene.png")
+with tempfile.TemporaryDirectory() as tmp:
+    ann = os.path.join(tmp, "ann.json")
+    with open(ann, "w") as f:
+        json.dump({"images": [{"id": i + 1, "height": 1, "width": 1,
+                               "file_name": n} for i, n in enumerate(files)],
+                   "annotations": [], "categories": []}, f)
+    ds = CocoDataset(".", "val", 2014, cfg, annfile=ann, image_dir=".")
+    for i, n in enumerate(files):
+        img = ds.load_image(i + 1)
+        print("DIGEST", n, img.shape, hashlib.sha256(img.tobytes()).hexdigest())
 bad = sorted(k for k in sys.modules if k.split(".")[0] in ("PIL",
                                                            "matplotlib"))
 print(bad)
@@ -137,8 +151,16 @@ sys.exit(1 if bad else 0)
 
 def test_port_serves_without_pillow_or_matplotlib():
     """With PIL and matplotlib refused at import, the port imports, the
-    codecs resample and decode, and a Detector answers a request that
-    takes the resample and the host mask decode."""
+    codecs resample and decode, a Detector answers a request that takes
+    the resample and the host mask decode, and CocoDataset.load_image
+    reads a JPEG and a PNG to the pixels Pillow decodes here."""
     proc = subprocess.run([sys.executable, "-c", NO_PIL], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    digests = [line.split(" ", 2)[1:] for line in proc.stdout.splitlines()
+               if line.startswith("DIGEST ")]
+    assert len(digests) == 2, proc.stdout
+    for name, rest in digests:
+        want = np.asarray(Image.open(REPO / name).convert("RGB"))
+        assert rest == (f"{want.shape} "
+                        f"{hashlib.sha256(want.tobytes()).hexdigest()}")

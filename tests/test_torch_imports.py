@@ -4,6 +4,7 @@ bridge, the anchors."""
 
 import ast
 import dataclasses
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -53,10 +54,15 @@ SLICE_MODULES = (
     "maskrcnn_tpu_torch.parallel", "maskrcnn_tpu_torch.export",
     "maskrcnn_tpu_torch.kernels.torch_ops",
     "maskrcnn_tpu_torch.utils.profiler", "maskrcnn_tpu_torch.utils.canvas",
-    "predict_torch", "coco_torch", "tools.serve_torch")
-# packages the port must not import: JAX, flax, and the JAX package itself
-# (even its modules that import no JAX)
-FORBIDDEN = ("jax", "flax", "maskrcnn_tpu")
+    "maskrcnn_tpu_torch.data.image_io",
+    "predict_torch", "coco_torch", "tools.serve_torch",
+    "tools.learning_torch", "tools.protocol_ap_ab_torch",
+    "tools.int8_ablation_gate_torch", "tools.int8_ap_gate_torch",
+    "tools.int8_calib_diag_torch")
+# packages the port must not import: JAX, flax, the JAX package itself
+# (even its modules that import no JAX) and Pillow (the card's machine has
+# none: the port reads image files with data/image_io.py)
+FORBIDDEN = ("jax", "flax", "maskrcnn_tpu", "PIL")
 
 
 def _forbidden(name: str) -> bool:
@@ -64,9 +70,10 @@ def _forbidden(name: str) -> bool:
 
 
 def test_port_imports_no_jax():
-    """Every slice module imports in a fresh interpreter without JAX,
-    flax or any module of the JAX package (the card's machine has no JAX,
-    and the port keeps its own copies of what it needs)."""
+    """Every slice module and port tool imports in a fresh interpreter
+    without JAX, flax, any module of the JAX package or Pillow (the card's
+    machine has neither JAX nor Pillow, and the port keeps its own copies
+    of what it needs)."""
     code = ("import importlib, sys\n"
             f"for m in {SLICE_MODULES!r}:\n"
             "    importlib.import_module(m)\n"
@@ -93,11 +100,16 @@ def _imported_names(path: Path):
                                   "predict_torch.py", "coco_torch.py",
                                   "tools/serve_torch.py",
                                   "tools/chip_phases.py",
-                                  "tools/ab_trees.py"])
+                                  "tools/ab_trees.py",
+                                  "tools/learning_torch.py",
+                                  "tools/protocol_ap_ab_torch.py",
+                                  "tools/int8_ablation_gate_torch.py",
+                                  "tools/int8_ap_gate_torch.py",
+                                  "tools/int8_calib_diag_torch.py"])
 def test_port_sources_import_nothing_of_jax(path):
-    """chip_smoke.py, the port's CLIs and every source file of the port,
-    read with ast: no import of JAX, flax or the JAX package, even inside
-    a function."""
+    """chip_smoke.py, the port's CLIs and tools and every source file of
+    the port, read with ast: no import of JAX, flax, the JAX package or
+    Pillow, even inside a function."""
     root = REPO / path
     files = sorted(root.rglob("*.py")) if root.is_dir() else [root]
     assert files
@@ -156,24 +168,30 @@ def test_port_resize_image_bit_equal(size):
 
 def test_resize_image_without_pil_names_pillow(monkeypatch, tmp_path):
     """Without PIL, resize_image still resamples (the port resamples
-    without Pillow) and equals the JAX package's canvas; reading an image
-    file (CocoDataset.load_image, the one edge that needs PIL) raises an
-    ImportError that names Pillow."""
+    without Pillow) and equals the JAX package's canvas, and
+    CocoDataset.load_image reads a real PNG and a real JPEG (the port's
+    own reader, data/image_io.py) to the pixels Pillow decoded before PIL
+    was refused."""
+    from PIL import Image
     from maskrcnn_tpu_torch.data.coco import CocoDataset
     rng = np.random.RandomState(4)
     image = rng.randint(0, 256, (50, 70, 3), dtype=np.uint8)
     want = jax_codecs.resize_image(image, 128, 128)
+    files = ("images/synthetic_scene.png", "images/sample.jpg")
+    pillow = [np.asarray(Image.open(REPO / f).convert("RGB")) for f in files]
     monkeypatch.setitem(sys.modules, "PIL", None)
     got = port_codecs.resize_image(image, 128, 128)
     np.testing.assert_array_equal(got[0], want[0])
     assert got[1:] == want[1:]
     ann = tmp_path / "ann.json"
-    ann.write_text('{"images": [{"id": 1, "height": 2, "width": 2, '
-                   '"file_name": "a.jpg"}], "annotations": [], '
-                   '"categories": []}')
-    ds = CocoDataset(str(tmp_path), "val", 2014, None, annfile=str(ann))
-    with pytest.raises(ImportError, match="Pillow"):
-        ds.load_image(1)
+    ann.write_text(json.dumps({"images": [
+        {"id": i + 1, "height": p.shape[0], "width": p.shape[1],
+         "file_name": f} for i, (f, p) in enumerate(zip(files, pillow))],
+        "annotations": [], "categories": []}))
+    ds = CocoDataset(str(REPO), "val", 2014, None, annfile=str(ann),
+                     image_dir=str(REPO))
+    for i, want_pixels in enumerate(pillow):
+        np.testing.assert_array_equal(ds.load_image(i + 1), want_pixels)
 
 
 @pytest.mark.parametrize("entry", ["Detector", "MaskRCNN"])

@@ -1,0 +1,141 @@
+"""The port's recorded learning and accuracy gates (records_torch/*.json,
+written on the card by tools/learning_torch.py, tools/protocol_ap_ab_torch.py,
+tools/int8_ablation_gate_torch.py and tools/int8_ap_gate_torch.py) held
+to the JAX package's floors, as test_learning_ap_multiclass.py's
+test_recorded_protocol_artifacts_hold_the_signals holds the JAX records.
+A re-measurement that lands below a floor fails the suite."""
+
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+RECORDS = Path(__file__).resolve().parent.parent / "records_torch"
+FILES = ("learning_gates.json", "learning_gates_spread.json",
+         "protocol_ap_ab.json", "int8_ablation.json", "int8_ap_gate.json")
+
+
+def load(name):
+    return json.loads((RECORDS / name).read_text())
+
+
+@pytest.mark.parametrize("name", FILES)
+def test_record_names_the_card_and_holds_finite_ap(name):
+    """Each record was measured on an H100, its name and power limit
+    recorded as nvidia-smi gives them, and every AP in it is finite and in
+    COCOeval's range."""
+    rec = load(name)
+    assert "H100" in rec["card"]["device"]
+    assert "H100" in rec["card"]["nvidia_smi"] and " W" in \
+        rec["card"]["nvidia_smi"]
+
+    def aps(node):
+        if isinstance(node, dict):
+            if set(node) == {"AP", "AP50", "AP75"}:
+                yield from node.values()
+            else:
+                for v in node.values():
+                    yield from aps(v)
+        elif isinstance(node, list):
+            for v in node:
+                yield from aps(v)
+
+    values = list(aps(rec))
+    assert values
+    assert all(np.isfinite(v) and -1.0 <= v <= 1.0 for v in values)
+
+
+def _gate_values(runs):
+    """Per gate, the value each run holds to the floor: multiclass bbox
+    and segm AP50, the cascade's bbox AP75 less the single head's, the
+    OKS AP50."""
+    out = {"multiclass bbox AP50": [], "multiclass segm AP50": [],
+           "cascade AP75 - single AP75": [], "keypoints OKS AP50": []}
+    for run in runs:
+        if "multiclass" in run:
+            f = run["multiclass"]["float"]
+            out["multiclass bbox AP50"].append(f["bbox"]["AP50"])
+            out["multiclass segm AP50"].append(f["segm"]["AP50"])
+        if "cascade" in run:
+            c = run["cascade"]
+            out["cascade AP75 - single AP75"].append(
+                c["cascade"]["bbox"]["AP75"] - c["single"]["bbox"]["AP75"])
+        if "keypoints" in run:
+            out["keypoints OKS AP50"].append(
+                run["keypoints"]["float"]["keypoints"]["AP50"])
+    return out
+
+
+# the JAX gates' floors (tests/test_learning_ap_multiclass.py:127-153,
+# tests/test_keypoints_learning.py:97)
+GATE_FLOORS = {"multiclass bbox AP50": 0.70, "multiclass segm AP50": 0.60,
+               "cascade AP75 - single AP75": -0.05,
+               "keypoints OKS AP50": 0.5}
+
+
+@pytest.mark.parametrize("gate", sorted(GATE_FLOORS))
+def test_learning_gate_run_holds_the_floor(gate):
+    """learning_gates.json, the gates' run through tools/chip_phases.py l
+    (the gates chip_smoke's phase 9 leaves out): 240 steps, each gate's
+    value at or above the JAX package's floor."""
+    rec = load("learning_gates.json")
+    assert rec["steps"] == 240 and rec["runs"]
+    values = _gate_values(rec["runs"])[gate]
+    assert values and min(values) >= GATE_FLOORS[gate], values
+
+
+@pytest.mark.parametrize("gate", sorted(GATE_FLOORS))
+def test_learning_gate_spread_median_holds_the_floor(gate):
+    """learning_gates_spread.json, every run of the gates on the card
+    (the same seeds; the runs differ because K1-bwd and cuDNN add with
+    float atomics): at least 3 runs a gate, their median at or above the
+    floor. Single runs below it are listed in ROADMAP Queue 3."""
+    rec = load("learning_gates_spread.json")
+    assert rec["steps"] == 240
+    values = _gate_values(rec["runs"])[gate]
+    assert len(values) >= 3
+    assert float(np.median(values)) >= GATE_FLOORS[gate], values
+
+
+def test_protocol_record():
+    """tools/protocol_ap_ab_torch.py at full width: every protocol arm
+    evaluated, the cascade's bbox AP75 at most 0.05 below the baseline's
+    (the tool's own assertion), and the B=1 / B=8 check recorded."""
+    rec = load("protocol_ap_ab.json")
+    arms = rec["arms"]
+    assert set(arms) == {"baseline", "tta", "soft-nms-0.5", "tta+soft-nms",
+                         "cascade"}
+    assert rec["steps"] == 240 and rec["batch"] == 8 and rec["limit"] == 16
+    assert arms["cascade"]["bbox"]["AP75"] >= \
+        arms["baseline"]["bbox"]["AP75"] - 0.05
+    check = rec["batch_check"]
+    assert check["images"] == 16 and 0 <= check["same_detections"] <= 16
+    assert set(check["b1"]) == {"bbox", "segm"}
+
+
+def test_int8_ablation_record():
+    """tools/int8_ablation_gate_torch.py: every arm recorded, the best
+    int8 arm's bbox AP50 within 0.05 of float's."""
+    arms = load("int8_ablation.json")["arms"]
+    assert {"float", "amax-4f", "amax-32f", "pct-32f", "mse-32f",
+            "mse-32f+fp-ROI", "mse-32f+fp-C45"} <= set(arms)
+    best = max(v["bbox"]["AP50"] for k, v in arms.items() if k != "float")
+    assert best >= arms["float"]["bbox"]["AP50"] - 0.05
+
+
+@pytest.mark.parametrize("arm", ["int8+roi8", "int8 bf16 RoI"])
+def test_int8_ap_gate_record(arm):
+    """tools/int8_ap_gate_torch.py at full width: int8 with int8 RoI
+    tables and with bf16 ones against float on the same weights, bbox and
+    segm. The card's training runs differ (float atomics) and one missed
+    object on the 8 held-out scenes moves AP50 by about 0.07, more than
+    the JAX gate's 0.05: over at least 3 recorded runs the median of
+    (int8 - float) AP50 is above -0.05; runs below it are listed in
+    ROADMAP Queue 3."""
+    runs = load("int8_ap_gate.json")["runs"]
+    assert len(runs) >= 3
+    for kind in ("bbox", "segm"):
+        gaps = [r["arms"][arm][kind]["AP50"] - r["arms"]["float"][kind]["AP50"]
+                for r in runs]
+        assert float(np.median(gaps)) >= -0.05, (kind, gaps)

@@ -2,14 +2,18 @@
 """Run chosen phases of chip_smoke.py on one NVIDIA GPU, for a short
 check after a change (the full script is the port's gate):
 
-    python3 tools/chip_phases.py [3] [7] [a] [b] [c] [d] [e] [m]
+    python3 tools/chip_phases.py [3] [7] [a] [b] [c] [d] [e] [m] [l]
 
 3: K1 against its plain version (the op check); 7: K1-bwd and the tiny
 training step against the CPU; a-e: phase 8's server, RetinaNet, data
 parallelism, export and profiler over the phase-5 Detector; m, on a
 machine with more than one card: one nccl rank a card against one
-process, and the multi-card Detector against the one-card one. No
-arguments runs 3, 7 and a-e.
+process, and the multi-card Detector against the one-card one; l: phase
+9 (the image reader, the one-class, overfit and keypoint gates, the
+full-width training and evaluation), then the learning gates phase 9
+leaves out (multiclass and cascade: tools/learning_torch.py), their
+record written to records_torch/learning_gates.json. No arguments runs
+3, 7 and a-e.
 """
 
 import os
@@ -43,6 +47,17 @@ def main(which) -> int:
     if "7" in which:
         cs.roi_backward_phase(kernels, roi)
         cs.train_parity_phase()
+    if "l" in which:
+        cs.decode_phase(card)
+        cs.learning_phase(kernels, roi, card)
+        cs.learning_full_phase(kernels, card)
+        from tools import learning_torch
+        if learning_torch.main(["multiclass", "cascade", "--json-out", str(
+                cs.REPO / "records_torch" / "learning_gates.json")]):
+            return 1
+    if not set(which) & set("abcdem"):
+        print("chip_phases: done", flush=True)
+        return 0
     det, images, _ = cs.slice_phase(kernels, cs.slice_config())
     if "a" in which:
         cs.reset_counts(kernels)

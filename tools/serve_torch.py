@@ -15,14 +15,13 @@ coalesced into device batches by `maskrcnn_tpu_torch.serving
     GET /healthz   -> {"ok": true, "batches": N, "images": M}
 
 The Detector runs on the card; --tiny runs TinyConfig on the CPU (the
-smoke and test mode). Decoding a posted image needs Pillow, imported in
-the POST handler only.
+smoke and test mode). A posted PNG or baseline JPEG is decoded without
+Pillow (maskrcnn_tpu_torch/data/image_io.py).
 """
 
 from __future__ import annotations
 
 import argparse
-import io
 import json
 import os
 import sys
@@ -35,6 +34,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def make_handler(batcher, class_names):
     from http.server import BaseHTTPRequestHandler
 
+    from maskrcnn_tpu_torch.data.image_io import read_image
     from maskrcnn_tpu_torch.eval import rle as R
 
     class Handler(BaseHTTPRequestHandler):
@@ -59,10 +59,8 @@ def make_handler(batcher, class_names):
                 self._send(404, {"error": "not found"})
                 return
             try:
-                from PIL import Image
                 n = int(self.headers.get("Content-Length", 0))
-                img = np.asarray(Image.open(
-                    io.BytesIO(self.rfile.read(n))).convert("RGB"))
+                img = read_image(self.rfile.read(n))
                 class_ids, scores, boxes, masks = batcher.detect(img)[:4]
                 dets = []
                 for i in range(len(class_ids or [])):
