@@ -146,11 +146,37 @@ Phases, each printing one line:
     >= 0.3, int8 bbox AP50 within 0.05 of float; int8 with float RoI
     tables printed), then tools/overfit_smoke.py (the 128 px TinyConfig,
     200 steps): recall >= 0.75, and the keypoint gate (OKS AP50 >= 0.5);
+    the overfit weights in bf16 on row shards of the card (2 at 128 px,
+    2 and 4 on 256 px scenes): the detections of 8 scenes against the
+    whole canvas's, 5h's metrics (mask pixels apart < 0.02; class ids
+    and boxes equal wherever the whole canvas run image by image keeps
+    them too);
     9c the same path at full width and reduced depth: CocoInferenceConfig
     trained 20 steps at B=8 on multiclass scenes, saved and loaded as an
     epoch checkpoint, evaluate_coco bbox and segm over 16 PNG images in
     float and int8: ms a step, peak memory, AP, and K1, K1-bwd, K2, K4
     (K1's int8 mode in int8) launched;
+10. after phase 9, the spatial axis and the debug and tutorial surface:
+    10a predict_step B=2 at 1024² with the backbone and FPN on 2 and 4
+    row shards of the one card (parallel/spatial.py, in process):
+    float32 with TF32 off, P2-P6 within 1e-5 of their range and the
+    detections identical to the unsharded step's; bf16 default, FOLD_BN
+    (K3 on slabs extended by a neighbour row) and QUANT_INT8 (halos moved
+    as int8): every op group on shards of its own input (the int8
+    backbone's levels) within 2 bf16 ulps for all but 1% of its outputs,
+    the whole step's detections against the unsharded step's printed
+    (cuDNN's bf16 algorithms differ by shape, and the seeded weights
+    amplify an ulp) beside two controls, the unsharded step with 1% of
+    the stem's outputs an ulp up and run image by image, K1, K2, K3, K4
+    and int8 GEMM launches, one sharded step in sync-debug mode, ms
+    beside the unsharded step's;
+    10b (in phase 8c's two gloo ranks) the ranks sharing the rows of an
+    image of 7b's scene (SP_DEVICES=2, REMAT_BACKBONE): the step against
+    one process, within 1e-4; 10c explore_torch.py's stages on
+    images/sample.jpg (the detect stage equal to predict_step) and its CLI,
+    tools/export_model_torch.py (the program on its weight sidecar
+    bit-equal to the live step), tools/finetune_custom_torch.py for 10
+    steps (its full run: tools/chip_phases.py f);
 then one JSON line of per-kernel numbers (time, launches on the main
 path, error, plain version's time, the bound and what sets it, the
 library's time; K1 and K1-bwd at P=7 and, in the `_p14` keys, at P=14
@@ -165,6 +191,7 @@ any check fails. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import itertools
 import json
@@ -2451,13 +2478,25 @@ def _dp_scene(b: int = 2):
     return cpu.state_dict(), train_scene_batch(cpu, b)
 
 
+def _sp_of(backend: str) -> int:
+    """The SP_DEVICES a rank backend names ("nccl-sp2": 2), else 1."""
+    return int(backend.split("-sp")[1]) if "-sp" in backend else 1
+
+
 def dp_rank_main(rank: int, world: int, port: int, out_path: str,
                  backend: str) -> int:
     """One rank of phase 8c (chip_smoke.py --dp-rank): "gloo", two ranks
     on the card, or "nccl", rank r on card r (tools/chip_phases.py m):
-    one data-parallel train_step of the 7b scene, one image a rank, rank
-    0 writing the weights and losses; "nccl-fit", one rank:
-    Trainer.fit for two steps through the data-parallel path."""
+    one data-parallel train_step of the 7b scene, one image a dp index,
+    rank 0 writing the weights and losses; "gloo" then also runs phase
+    10b in the same ranks, the two as one sp group sharing the rows of one
+    image (SP_DEVICES = 2), to `out_path`.sp; with "-spS" (phase m,
+    "nccl-sp2") the ranks form groups of S that share each image's rows
+    (SP_DEVICES = S); "nccl-fit", one rank: Trainer.fit for two steps
+    through the data-parallel path; "nccl-mem" (phase m; "nccl-mem-plain"
+    with REMAT_BACKBONE off): one CocoConfig 1024² training step at B=1
+    an sp group of all the ranks (or one process), each rank writing its
+    peak memory and what held it."""
     import torch.distributed as dist
     from maskrcnn_tpu_torch import parallel
     from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
@@ -2465,8 +2504,11 @@ def dp_rank_main(rank: int, world: int, port: int, out_path: str,
     from maskrcnn_tpu_torch.train.trainer import Trainer, to_device
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    state, batch = _dp_scene(max(world, 2))
-    device = (torch.device("cuda", rank) if backend == "nccl"
+    sp = _sp_of(backend)
+    if not backend.startswith("nccl-mem"):
+        # before the group exists: a one-process training construction
+        state, batch = _dp_scene(max(world, 2))
+    device = (torch.device("cuda", rank) if backend.startswith("nccl")
               else torch.device(DEVICE))
     if device.index is not None:
         torch.cuda.set_device(device)
@@ -2474,10 +2516,13 @@ def dp_rank_main(rank: int, world: int, port: int, out_path: str,
                             init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=world)
     try:
-        cfg = train_scene_config().replace(NUM_DEVICES=world)
-        model = MaskRCNN(cfg, device, train=True)
-        model.load_state_dict(state)
+        if backend.startswith("nccl-mem"):
+            return sp_memory_rank(rank, world, out_path, device,
+                                  remat=backend == "nccl-mem")
+        cfg = train_scene_config().replace(NUM_DEVICES=world, SP_DEVICES=sp)
         if backend == "nccl-fit":
+            model = MaskRCNN(cfg, device, train=True)
+            model.load_state_dict(state)
             trainer = Trainer(model, log_every=1)
             trainer.fit(iter([batch] * 2), 1e-3, 1, "all",
                         parallel.rank_generator(0, rank, device),
@@ -2490,18 +2535,25 @@ def dp_rank_main(rank: int, world: int, port: int, out_path: str,
                   f"the data-parallel path, totals "
                   f"{[round(r['total'], 5) for r in hist]}", flush=True)
             return 0
-        per = cfg.IMAGES_PER_DEVICE
-        ps = [p for _, p in model.named_parameters()]
-        opt = pstep.make_optimizer(cfg, 1e-3, ps, [True] * len(ps))
-        dp = parallel.for_config(cfg)
-        local = to_device(parallel.rank_slice(batch, rank, per), device)
-        gen = torch.Generator(device=device).manual_seed(0)
-        losses = pstep.train_step(model, opt, local, gen, dp)
-        if rank == 0:
-            torch.save({"losses": {k: float(v) for k, v in losses.items()},
-                        "params": {n: p.detach().cpu()
-                                   for n, p in model.named_parameters()}},
-                       out_path)
+        runs = [(cfg, out_path)]
+        if backend == "gloo":
+            runs.append((cfg.replace(SP_DEVICES=world), f"{out_path}.sp"))
+        for cfg, path in runs:
+            model = MaskRCNN(cfg, device, train=True)
+            model.load_state_dict(state)
+            ps = [p for _, p in model.named_parameters()]
+            opt = pstep.make_optimizer(cfg, 1e-3, ps, [True] * len(ps))
+            dp = parallel.for_config(cfg)
+            local = to_device(parallel.rank_slice(
+                batch, parallel.dp_index(cfg), cfg.IMAGES_PER_DEVICE), device)
+            gen = torch.Generator(device=device).manual_seed(0)
+            losses = pstep.train_step(model, opt, local, gen, dp)
+            if rank == 0:
+                torch.save({"losses": {k: float(v)
+                                       for k, v in losses.items()},
+                            "params": {n: p.detach().cpu()
+                                       for n, p in model.named_parameters()}},
+                           path)
         return 0
     finally:
         dist.destroy_process_group()
@@ -2535,25 +2587,39 @@ def _ranks(world: int, backend: str, out_path: str):
 
 
 def _dp_against_one_process(world, backend, label):
-    """Run `world` ranks of one data-parallel step (one image each) and
-    hold it against the one-process step on the same global batch on the
-    first card: losses within 1e-4 relative, every weight within 1e-4 of
-    its largest |value|, as 7b; a zero-initialized bias, which is nothing
-    but its update, within 3e-3 of its largest update (as
-    tests/test_torch_parallel.py: its gradient sums terms of both signs
-    over the ranks in another order; measured 1.0e-4 for mask.conv3.bias
-    on four cards). Returns (loss gap, weight gap, seconds)."""
+    """Run `world` ranks of one data-parallel step (one image a dp index;
+    under "-spS" groups of S ranks share an image) and hold it against
+    the one-process step on the same global batch on the first card
+    (`_against_one_process`). Returns (loss gap, weight gap, seconds) and,
+    for "gloo", phase 10b's as well."""
     import os
-    from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
-    from maskrcnn_tpu_torch.train import step as pstep
-    from maskrcnn_tpu_torch.train.trainer import to_device
     path = f"build/phase8c_{backend}_rank0.pt"
     t0 = time.perf_counter()
     _ranks(world, backend, path)
-    got = torch.load(path)
-    os.remove(path)
+    out = []
+    for f, images, tag in ((path, world // _sp_of(backend), label),
+                           (f"{path}.sp", 1, "10b")):
+        if os.path.exists(f):
+            got = torch.load(f)
+            os.remove(f)
+            out.append((*_against_one_process(got, world, images, tag),
+                        time.perf_counter() - t0))
+    return out if backend == "gloo" else out[0]
+
+
+def _against_one_process(got, world, images, label):
+    """The ranks' step `got` against the one-process step on the first
+    `images` images of the scene: losses within 1e-4 relative, every
+    weight within 1e-4 of its largest |value|, as 7b; a zero-initialized
+    bias, which is nothing but its update, within 3e-3 of its largest
+    update (as tests/test_torch_parallel.py: its gradient sums terms of
+    both signs over the ranks in another order; measured 1.0e-4 for
+    mask.conv3.bias on four cards). Returns (loss gap, weight gap)."""
+    from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
+    from maskrcnn_tpu_torch.train import step as pstep
+    from maskrcnn_tpu_torch.train.trainer import to_device
     state, batch = _dp_scene(max(world, 2))
-    batch = {k: v[:world] for k, v in batch.items()}
+    batch = {k: v[:images] for k, v in batch.items()}
     model = MaskRCNN(train_scene_config(), DEVICE, train=True)
     model.load_state_dict(state)
     ps = [p for _, p in model.named_parameters()]
@@ -2578,7 +2644,7 @@ def _dp_against_one_process(world, backend, label):
               f"{label}: {n} {gap} of {scale}")
         if not zero:
             worst = max(worst, gap / max(scale, 1e-30))
-    return rel, worst, time.perf_counter() - t0
+    return rel, worst
 
 
 def dp_phase(card):
@@ -2589,11 +2655,17 @@ def dp_phase(card):
     step on the same global batch, as 7b. Then a one-rank nccl group runs
     Trainer.fit for two steps. The multi-device Detector needs more than
     one card."""
-    rel, worst, secs = _dp_against_one_process(2, "gloo", "8c")
+    (rel, worst, secs), (rel_sp, worst_sp, secs_sp) = \
+        _dp_against_one_process(2, "gloo", "8c")
     print(f"[8c] two gloo ranks on the card, one image each of the 7b "
           f"scene: the data-parallel step equals the one-process step "
           f"(losses within {rel:.3g} relative, weights within {worst:.3g} "
           f"of their max) in {secs:.1f} s; {card}", flush=True)
+    print(f"[10b] the same two ranks, one sp group (SP_DEVICES=2, "
+          f"REMAT_BACKBONE on) sharing the rows of one image of the 7b "
+          f"scene: the step equals the one-process step (losses within "
+          f"{rel_sp:.3g} relative, weights within {worst_sp:.3g} of their "
+          f"max), {secs_sp - secs:.1f} s more; {card}", flush=True)
     outs = _ranks(1, "nccl-fit", "")
     print(outs[0].strip().splitlines()[-1], flush=True)
     print("[8c] the multi-device Detector (NUM_DEVICES > 1, one replica a "
@@ -2893,9 +2965,10 @@ def learning_phase(kernels, roi, card):
     gate_kernel_phase(kernels, roi, lt.gate_config())
     reset_counts(kernels)
     t0 = time.perf_counter()
+    trained = {}
     with tempfile.TemporaryDirectory() as tmp:
         rec, failures = lt.one_class_gate(DEVICE, tmp)
-        over, missed = lt.overfit_gate(DEVICE)
+        over, missed = lt.overfit_gate(DEVICE, keep=trained)
         kp, kp_missed = lt.keypoint_gate(DEVICE, tmp)
     n = launch_counts(kernels)
     tr, otr = rec["train"], over["train"]
@@ -2917,6 +2990,19 @@ def learning_phase(kernels, roi, card):
     check(all(n[k] > 0 for k in ("roi_align", "roi_align_backward", "nms",
                                   "paste_pack", "roi_align_int8")),
           f"9b: launches {n}")
+    # the overfit weights in bf16 on row shards: on their 128 px canvas
+    # (sp = 2 only) and, the weights being the canvas's own, on 256 px
+    # scenes of the same generator (sp = 2 and 4)
+    for side, sps in ((128, (2,)), (256, (2, 4))):
+        cfg = trained["config"].replace(COMPUTE_DTYPE="bfloat16",
+                                        IMAGE_MIN_DIM=side, IMAGE_MAX_DIM=side)
+        model = lt.detector(cfg, trained["state"], DEVICE).model
+        scenes = lt.overfit_batch(np.random.RandomState(11), cfg, 8)["images"]
+        x = torch.from_numpy(scenes).to(DEVICE)
+        win = torch.tensor([[0.0, 0.0, float(side), float(side)]] * 8,
+                           device=DEVICE)
+        sp_trained_check(model, x, win, sps, "9b", "the overfit_smoke "
+                         "weights (trained 200 steps at 128 px)", card)
     return n
 
 
@@ -3005,6 +3091,655 @@ def learning_full_phase(kernels, card):
     return total
 
 
+# ---------------------------------------------------------------------
+# Phase 10: the spatial axis (parallel/spatial.py) and the debug and
+# tutorial surface (explore_torch.py, tools/*_custom_torch.py,
+# tools/export_model_torch.py)
+# ---------------------------------------------------------------------
+
+# phase 10a's batch
+SP_B = 2
+
+
+def sp_canvases(cfg, b: int = SP_B, seed: int = 13):
+    """`b` random uint8 canvases of cfg, whole windows, on the card."""
+    h, w = cfg.IMAGE_SHAPE[:2]
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randint(0, 256, (b, h, w, 3), np.uint8))
+    win = torch.tensor([[0.0, 0.0, float(h), float(w)]] * b)
+    return x.to(DEVICE), win.to(DEVICE)
+
+
+def sp_compare(want, got, w: int):
+    """Two predict_step outputs: (validity, class ids and boxes equal,
+    the largest |Δscore| of the valid slots, the share of their mask
+    pixels apart, the share of their packed mask bytes apart)."""
+    from maskrcnn_tpu_torch.ops.bits import unpack_masks
+    same = (torch.equal(want["valid"], got["valid"])
+            and torch.equal(want["class_ids"], got["class_ids"])
+            and torch.equal(want["boxes"], got["boxes"]))
+    v = want["valid"] & got["valid"]
+    if not bool(v.any()):
+        return same, 0.0, 0.0, 0.0
+    dscore = float((want["scores"] - got["scores"])[v].abs().max())
+    bytes_apart = float((want["masks_packed"][v]
+                         != got["masks_packed"][v]).float().mean())
+    pixels = float((unpack_masks(want["masks_packed"][v], w)
+                    != unpack_masks(got["masks_packed"][v], w))
+                   .float().mean())
+    return same, dscore, pixels, bytes_apart
+
+
+def slots_equal(want, got) -> tuple:
+    """Two predict_step outputs: (the share of the slots valid in either
+    whose class id and box are equal, the number of those slots)."""
+    valid = want["valid"] | got["valid"]
+    kept = ((want["class_ids"] == got["class_ids"])
+            & (want["boxes"] == got["boxes"]).all(-1))[valid]
+    return float(kept.float().mean()), int(valid.sum())
+
+
+@contextlib.contextmanager
+def nudged_stem(model, share: float = 0.01, seed: int = 0):
+    """Within: the whole-canvas route with a seeded `share` of the stem's
+    outputs (model.fpn.C1) moved up by one or two bf16 ulps (x (1 +
+    2^-7), rounded), a change of the size a shard's cuDNN algorithm makes
+    (`sp_op_check`): how far the weights amplify such a change."""
+    def hook(_, __, out):
+        g = torch.Generator(device=out.device).manual_seed(seed)
+        pick = torch.rand(out.shape, generator=g, device=out.device) < share
+        return torch.where(pick, (out.float() * (1 + 2 ** -7)).to(out.dtype),
+                           out)
+
+    handle = model.fpn.C1.register_forward_hook(hook)
+    try:
+        yield
+    finally:
+        handle.remove()
+
+
+def image_by_image(model, x, win):
+    """predict_step on each image of the batch alone (B=1), the outputs
+    stacked: the same function at other shapes, so that cuDNN may pick
+    other algorithms, as a shard's shapes make it."""
+    from maskrcnn_tpu_torch.detection.pipeline import predict_step
+    outs = [predict_step(model, x[i:i + 1], win[i:i + 1])
+            for i in range(x.shape[0])]
+    return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+
+def compare_line(want, got, w: int) -> str:
+    """5h's metrics of two predict_step outputs, as printed."""
+    same, dscore, pixels, _ = sp_compare(want, got, w)
+    kept, slots = slots_equal(want, got)
+    return (f"class ids and boxes {'equal' if same else 'apart'} "
+            f"({kept:.3f} of {slots} slots equal), mask pixels apart "
+            f"{pixels:.3g}, |Δscore| {dscore:.3g}")
+
+
+def controls(model, x, win, ref, w: int):
+    """The whole canvas against itself: (whether the image-by-image run
+    (`image_by_image`) keeps `ref`'s class ids and boxes, the two
+    controls' metrics as printed: 1% of the stem's outputs an ulp up
+    (`nudged_stem`), and image by image)."""
+    from maskrcnn_tpu_torch.detection.pipeline import predict_step
+    with torch.inference_mode():
+        with nudged_stem(model):
+            nudged = predict_step(model, x, win)
+        alone = image_by_image(model, x, win)
+    return sp_compare(ref, alone, w)[0], (
+        f"controls, the whole canvas with 1% of the stem's outputs an ulp "
+        f"up: {compare_line(ref, nudged, w)}; the whole canvas image by "
+        f"image: {compare_line(ref, alone, w)}")
+
+
+def sp_trained_check(model, x, win, sps, tag, label, card):
+    """predict_step of trained bf16 weights on `sps` row shards of the one
+    card (in process) against the unsharded step, held to 5h's metrics
+    where the whole canvas meets them itself: mask pixels apart under
+    0.02, and class ids and boxes equal unless the whole canvas image by
+    image (the same function at other shapes, cuDNN's bf16 algorithms
+    chosen by shape as for a shard) moves them too. The controls
+    (`controls`) printed beside."""
+    from maskrcnn_tpu_torch.detection.pipeline import predict_step
+    from maskrcnn_tpu_torch.parallel.spatial import InProcess
+    w = model.config.IMAGE_SHAPE[1]
+    parts = []
+    with torch.inference_mode():
+        ref = predict_step(model, x, win)
+        stable, control = controls(model, x, win, ref, w)
+        for sp in sps:
+            model.spatial = InProcess([model] * sp)
+            try:
+                out = predict_step(model, x, win)
+            finally:
+                model.spatial = None
+            same, _, pixels, _ = sp_compare(ref, out, w)
+            check(pixels < 0.02 and (same or not stable),
+                  f"{tag}: {label}, sp={sp}: {compare_line(ref, out, w)}; "
+                  f"{control}")
+            parts.append(f"sp={sp} {compare_line(ref, out, w)}")
+    print(f"[{tag}] {label}, {cfg_name(model.config)} B={x.shape[0]} on row "
+          f"shards of the one card against the whole canvas: "
+          + "; ".join(parts) + f"; {control}; {card}", flush=True)
+
+
+def _beyond_2_ulps(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The share of elements more than 2 bf16 ulps apart."""
+    a, b = a.float(), b.float()
+    tol = 2 * torch.finfo(torch.bfloat16).eps * torch.maximum(a.abs(),
+                                                            b.abs())
+    return float(((a - b).abs() > tol).float().mean())
+
+
+def sp_op_check(model, x, sp: int):
+    """Every H op group of the backbone and FPN (the stem, each
+    bottleneck, each lateral and smoothing conv) on `sp` row shards of the
+    unsharded route's own input to it, against the op group on the whole
+    map: (the largest share of outputs more than 2 bf16 ulps apart, the
+    number of op groups)."""
+    from maskrcnn_tpu_torch.ops.image import normalize_image
+    from maskrcnn_tpu_torch.parallel import spatial as S
+    f = model.fpn
+    t = S.InProcess([model] * sp)
+
+    def cut(y):
+        h = y.shape[2] // sp
+        return [y[:, :, i * h:(i + 1) * h].contiguous(
+            memory_format=torch.channels_last) for i in range(sp)]
+
+    shares = []
+    with torch.inference_mode():
+        y = normalize_image(x, model.config.MEAN_PIXEL).to(model.dtype)
+        y = y.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        c = f.C1(y)
+        shares.append(_beyond_2_ulps(c, S.gather(t, S.stem(t, cut(y)))))
+        outs = []
+        for name in ("C2", "C3", "C4", "C5"):
+            for block in getattr(f, name):
+                nxt = block(c)
+                shares.append(_beyond_2_ulps(nxt, S.gather(
+                    t, S.bottleneck(t, [block] * sp, cut(c)))))
+                c = nxt
+            outs.append(c)
+        for lvl, c in zip((2, 3, 4, 5), outs):
+            lateral = getattr(f, f"P{lvl}_conv1")
+            p = lateral(c)
+            shares.append(_beyond_2_ulps(p, S.gather(
+                t, [lateral(s) for s in cut(c)])))
+            shares.append(_beyond_2_ulps(
+                getattr(f, f"P{lvl}_conv2")(p),
+                S.gather(t, S.smooth(t, f"P{lvl}_conv2", cut(p)))))
+    return max(shares), len(shares)
+
+
+def sp_int8_levels(model, x, sp: int) -> float:
+    """The int8 backbone and FPN (quant.fpn_forward on the shards: halos
+    moved as int8, every accumulator the unsharded conv's) on `sp` row shards
+    against the whole canvas: the largest share of a level's values more
+    than 2 bf16 ulps apart (only the float stem's cuDNN conv may move
+    ulps)."""
+    from maskrcnn_tpu_torch.ops.image import normalize_image
+    from maskrcnn_tpu_torch.parallel.spatial import InProcess
+    with torch.inference_mode():
+        xn = normalize_image(x, model.config.MEAN_PIXEL)
+        want = model.backbone(xn)
+        model.spatial = InProcess([model] * sp)
+        try:
+            got = model.backbone(xn)
+        finally:
+            model.spatial = None
+    return max(_beyond_2_ulps(a, b) for a, b in zip(want, got))
+
+
+def _sp_step_ms(model, x, win, reps: int = 5) -> float:
+    """predict_step's median device time (CUDA events), after a warm-up."""
+    from maskrcnn_tpu_torch.detection.pipeline import predict_step
+    predict_step(model, x, win)
+    runs = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        predict_step(model, x, win)
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end))
+    return statistics.median(runs)
+
+
+def sp_inference_phase(kernels, det, fdet, qdet, card):
+    """Phase 10a: predict_step with the backbone and FPN on 2 and then 4
+    row shards of the one card (parallel.spatial.InProcess, every shard
+    on cuda:0), B=2 on the 1024² canvas of CocoInferenceConfig (ResNet-101,
+    seeded weights). float32 with TF32 off: P2-P6 within 1e-5 of each
+    level's range of the unsharded backbone, class ids and boxes
+    identical, |Δscore| and the share of mask bytes apart printed. bf16,
+    the phase-5 Detector's model and the FOLD_BN one (K3 on slabs
+    extended by a neighbour row), and the QUANT_INT8 one (5f; the int8
+    traversal sharded, its halos moved as int8; its P2-P6 held by
+    `sp_int8_levels`): every op group on shards of its own
+    unsharded input within 2 bf16 ulps for all but 1% of its outputs (K3's
+    bf16 rule; `sp_op_check`), since cuDNN picks its bf16 algorithms by
+    shape and a shard's shapes move ulps, which 33 blocks of seeded
+    weights amplify into other detections; the whole step's detections
+    against the unsharded step's by 5h's metrics, printed beside the
+    controls (`controls`: the unsharded step run image by image moves
+    them as far); the sharded
+    step's K1, K2, K3 and K4 launches; one sharded step in sync-debug
+    "error" mode; the sharded step's ms beside the unsharded one's (one
+    card: the overhead only). Returns (the float32 model, the sharded
+    steps' launches)."""
+    from maskrcnn_tpu_torch.detection.pipeline import predict_step
+    from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
+    from maskrcnn_tpu_torch.ops.image import normalize_image
+    from maskrcnn_tpu_torch.parallel.spatial import InProcess
+    cfg = det.config
+    w = cfg.IMAGE_SHAPE[1]
+    x, win = sp_canvases(cfg)
+    f32 = MaskRCNN(cfg.replace(COMPUTE_DTYPE="float32"), DEVICE).init(
+        torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        xn = normalize_image(x, cfg.MEAN_PIXEL)
+        ref_levels = f32.backbone(xn)
+        ref = predict_step(f32, x, win)
+        for sp in (2, 4):
+            f32.spatial = InProcess([f32] * sp)
+            levels = f32.backbone(xn)
+            gaps = [float((a - b).abs().max()) / float(a.max() - a.min())
+                    for a, b in zip(ref_levels, levels)]
+            out = predict_step(f32, x, win)
+            f32.spatial = None
+            check(max(gaps) <= 1e-5, f"10a: float32 sp={sp}: P2-P6 "
+                  f"{gaps} of their range")
+            same, dscore, pixels, nbytes = sp_compare(ref, out, w)
+            check(same, f"10a: float32 sp={sp}: detections differ")
+            print(f"[10a] {cfg_name(f32.config)} B={SP_B}, {sp} row "
+                  f"shards on one card: P2-P6 within {max(gaps):.3g} of "
+                  f"their range; class ids and boxes identical "
+                  f"({int(ref['valid'].sum())} detections), |Δscore| "
+                  f"{dscore:.3g}, mask bytes apart {nbytes:.3g}", flush=True)
+    launches = {k: 0 for k in launch_counts(kernels)}
+    for d in (det, fdet, qdet):
+        model = d.model
+        blocks = 29 if d.config.FOLD_BN else 0
+        int8 = d.config.QUANT_INT8
+        # the int8 GEMMs of a step: the backbone's and FPN's once a shard,
+        # the RPN's shared conv once a level (P2-P6), the mask head's
+        convs = list(model.quant["convs"]) if int8 else []
+        sharded = sum(c.startswith(("resnet/", "P")) for c in convs)
+        ref = predict_step(model, x, win)
+        control = "" if int8 else "; " + controls(model, x, win, ref, w)[1]
+        base_ms = _sp_step_ms(model, x, win)
+        for sp in (2, 4):
+            model.spatial = InProcess([model] * sp)
+            try:
+                before = launch_counts(kernels)
+                out = predict_step(model, x, win)
+                torch.cuda.synchronize()
+                n = {k: v - before[k]
+                     for k, v in launch_counts(kernels).items()}
+                for k, v in n.items():
+                    launches[k] += v
+                if sp == 2:
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        predict_step(model, x, win)
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                ms = _sp_step_ms(model, x, win)
+            finally:
+                model.spatial = None
+            gemms = (len(convs) + 4 + sharded * (sp - 1)) if int8 else 0
+            check(n["roi_align"] == 2 and n["nms"] >= 2
+                  and n["paste_pack"] == 1
+                  and n["bottleneck"] == blocks * sp
+                  and n["roi_align_int8"] == (2 if int8 else 0)
+                  and n["int8_gemm"] == gemms,
+                  f"10a: sp={sp} launches {n}")
+            if int8:
+                worst = sp_int8_levels(model, x, sp)
+                held = "the int8 backbone's P2-P6 on shards of the canvas"
+            else:
+                worst, groups = sp_op_check(model, x, sp)
+                held = f"{groups} op groups on shards of their own inputs"
+            check(worst <= 0.01, f"10a: {cfg_name(d.config)} sp={sp}: "
+                  f"{worst} of an output beyond 2 ulps")
+            print(f"[10a] {cfg_name(d.config)} B={SP_B}, {sp} row shards on "
+                  f"one card: {held}, at most {worst:.3g} of an output "
+                  f"beyond 2 bf16 ulps; the whole step against the "
+                  f"unsharded one: {compare_line(ref, out, w)}{control}; "
+                  f"launches K1 "
+                  f"{n['roi_align']} K2 {n['nms']} K3 {n['bottleneck']} K4 "
+                  f"{n['paste_pack']} int8 GEMMs {n['int8_gemm']}"
+                  + ("; no host sync (sync-debug "
+                                          "error mode)" if sp == 2 else "")
+                  + f"; predict_step {ms:.3f} ms against {base_ms:.3f} ms "
+                  f"unsharded (CUDA events, median of 5); {card}",
+                  flush=True)
+    return f32, launches
+
+
+def surface_phase(kernels, f32, card):
+    """Phase 10c: explore_torch's four stages on the repository's image
+    through the float32 model of 10a (TF32 off), its detect stage's
+    boxes and class ids equal to predict_step's on the same canvas, then
+    its CLI's detect stage (the card's machine has no matplotlib: it
+    says it cannot draw); tools/export_model_torch.py writes a B=2
+    program and a weight sidecar, the program given the sidecar's
+    weights returns the live step's bits; tools/finetune_custom_torch.py
+    for a few steps on the card (its full run: tools/chip_phases.py f).
+    Returns the launches of the explore stages."""
+    import os
+    import explore_torch as et
+    from tools import export_model_torch as em
+    from tools import finetune_custom_torch as ft
+    from maskrcnn_tpu_torch import export as ex
+    from maskrcnn_tpu_torch.data.image_io import read_image
+    from maskrcnn_tpu_torch.detection.pipeline import predict_step
+    from maskrcnn_tpu_torch import CocoInferenceConfig
+    from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
+    cfg = f32.config
+    canvas, window, _ = et.canvas_of(cfg, read_image(REPO / "images" /
+                                                     "sample.jpg"))
+    before = launch_counts(kernels)
+    feats = et.features(f32, canvas)
+    anchors = et.anchors(f32)
+    rois, valid = et.proposals(f32, feats)
+    det = et.detections(f32, feats, rois, valid, window)
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in launch_counts(kernels).items()}
+    check(launches["roi_align"] == 1 and launches["nms"] >= 2,
+          f"10c: explore launches {launches}")
+    out = predict_step(f32, torch.from_numpy(canvas[None]).to(DEVICE),
+                       torch.tensor([list(window)], dtype=torch.float32)
+                       .to(DEVICE))
+    v = det.valid[0]
+    check(int(v.sum()) > 0 and torch.equal(det.valid, out["valid"])
+          and torch.equal(det.class_ids, out["class_ids"])
+          and torch.equal(det.boxes, out["boxes"]),
+          "10c: explore's detect stage differs from predict_step")
+    print(f"[10c] explore_torch stages on images/sample.jpg, {cfg_name(cfg)}"
+          f": P2 {tuple(feats[0].shape)}, {anchors.shape[0]} anchors, "
+          f"{int(valid.sum())} proposals, {int(v.sum())} detections with "
+          f"the boxes and class ids of predict_step; launches K1 "
+          f"{launches['roi_align']} K2 {launches['nms']}", flush=True)
+    t0 = time.perf_counter()
+    et.main(["-stage", "detect", "-output", "build/phase10c_explore.png",
+             "--device", DEVICE, str(REPO / "images" / "sample.jpg")])
+    print(f"[10c] explore_torch.py -stage detect on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    path, side = "build/phase10c_predict.pt2", "build/phase10c_weights.npz"
+    try:
+        t0 = time.perf_counter()
+        em.main(["--out", path, "--weights", side, "--batch", str(SP_B),
+                 "--device", DEVICE])
+        export_s = time.perf_counter() - t0
+        run = ex.load_exported(path)
+        live = MaskRCNN(CocoInferenceConfig(), DEVICE)
+        params = ex.params_from_npz(side, DEVICE)
+        live.load_state_dict({k: v for k, v in params.items()
+                              if k != "anchor_boxes"})
+    finally:
+        for f in (path, side):
+            if os.path.exists(f):
+                os.remove(f)
+    x, win = sp_canvases(live.config)
+    want = predict_step(live, x, win)
+    got = run(ex.model_params(live), x, win)
+    for k, v in want.items():
+        check(torch.equal(got[k], v), f"10c: the exported program's {k} "
+              "differs from the live step's")
+    print(f"[10c] tools/export_model_torch.py --batch {SP_B} on the card: "
+          f"program and weight sidecar in {export_s:.1f} s; the loaded "
+          f"program on the sidecar's weights gives the live step's bits",
+          flush=True)
+    t0 = time.perf_counter()
+    bbox, segm = ft.main(["--device", DEVICE, "--steps", "10", "--epochs",
+                          "1", "--train-images", "16", "--eval-images", "4",
+                          "--out", "build/phase10c_finetune.jpg"])
+    print(f"[10c] tools/finetune_custom_torch.py, 10 steps at B=4 and "
+          f"evaluate_coco on 4 images, on the card in "
+          f"{time.perf_counter() - t0:.1f} s: bbox AP50 {bbox:.3f}, segm "
+          f"AP50 {segm:.3f} (a few steps: no floor); {card}", flush=True)
+    return launches
+
+
+def peak_owners(snapshot, device: int, base: int, top: int = 5):
+    """What held a recorded step's peak: replays the allocator trace of
+    `device` in a torch.cuda.memory._snapshot() taken after the step
+    (recording started with `base` bytes allocated) -> (the peak's bytes,
+    the peak before the optimizer's update (train/step.py update: the
+    forward and backward passes), [(bytes, owner)] of the blocks
+    allocated in the step and alive at its peak, grouped by their two
+    innermost frames in the port, largest first). A block with no Python
+    frame was allocated by the autograd engine's backward ops."""
+    trace = snapshot["device_traces"][device]
+    live, now, peak, at, before = {}, base, base, -1, None
+    for i, e in enumerate(trace):
+        if e["action"] == "alloc":
+            if before is None and any(
+                    f["name"] == "update" and "train/step.py" in f["filename"]
+                    for f in e.get("frames") or []):
+                before = peak
+            now += e["size"]
+            if now > peak:
+                peak, at = now, i
+        elif e["action"] == "free_completed":
+            now -= e["size"]
+    for e in trace[:at + 1]:
+        if e["action"] == "alloc":
+            live[e["addr"]] = e
+        elif e["action"] == "free_completed":
+            live.pop(e["addr"], None)
+    owners = {}
+    for e in live.values():
+        frames = e.get("frames") or []
+        ours = [f for f in frames if "maskrcnn_tpu_torch" in f["filename"]]
+        if ours:
+            name = " < ".join(
+                f"{f['filename'].split('maskrcnn_tpu_torch/')[-1]}:"
+                f"{f['line']} {f['name']}" for f in ours[:2])
+        elif frames:
+            f = frames[0]
+            name = f"{Path(f['filename']).name}:{f['line']} {f['name']}"
+        else:
+            name = "the autograd engine (backward ops)"
+        owners[name] = owners.get(name, 0) + e["size"]
+    return peak, before, sorted(((v, k) for k, v in owners.items()),
+                                reverse=True)[:top]
+
+
+def sp_memory_rank(rank: int, world: int, out_path: str, device,
+                   remat: bool = True) -> int:
+    """A rank of phase m's memory runs ("nccl-mem", "nccl-mem-plain"):
+    CocoConfig (ResNet-101, bf16, 1024²; REMAT_BACKBONE as `remat`) with
+    SP_DEVICES = the world size, one image, two train_steps; writes the
+    second step's peak memory, host-clock ms and what held the peak
+    (`peak_owners`, from the allocator's record of that step) to
+    `out_path`.RANK."""
+    from maskrcnn_tpu_torch import parallel
+    from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
+    from maskrcnn_tpu_torch.train import step as pstep
+    from maskrcnn_tpu_torch.train.trainer import to_device
+    cfg = train_config_full().replace(NUM_DEVICES=world, SP_DEVICES=world,
+                                      REMAT_BACKBONE=remat)
+    model = MaskRCNN(cfg, device, train=True).init(
+        torch.Generator().manual_seed(0))
+    ps = [p for _, p in model.named_parameters()]
+    opt = pstep.make_optimizer(cfg, 1e-3, ps, [True] * len(ps))
+    dp = parallel.for_config(cfg)
+    batch = to_device(synthetic_batch(cfg, 1), device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    pstep.train_step(model, opt, batch, gen, dp)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    losses = pstep.train_step(model, opt, batch, gen, dp)
+    torch.cuda.synchronize(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(device)
+    # the same step again under the allocator's record (its stacks slow
+    # the host: `ms` is the unrecorded step's)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.memory._record_memory_history(max_entries=1_000_000,
+                                             stacks="python")
+    pstep.train_step(model, opt, batch, gen, dp)
+    torch.cuda.synchronize(device)
+    snap = torch.cuda.memory._snapshot()
+    torch.cuda.memory._record_memory_history(enabled=None)
+    recorded, before, owners = peak_owners(snap, device.index, base)
+    torch.save({"peak": peak, "ms": ms, "total": float(losses["total"]),
+                "base": base, "recorded_peak": recorded,
+                "before_update": before, "owners": owners},
+               f"{out_path}.{rank}")
+    return 0
+
+
+def sp_multi_gpu_phase(det, card):
+    """The spatial axis on more than one card (tools/chip_phases.py m,
+    four cards): Detector(NUM_DEVICES=4, SP_DEVICES=2) and (4, 4) on eight
+    COCO-sized images against the one-card Detector on the same split,
+    float32 with TF32 off (class ids and boxes equal, mask pixels apart
+    under 0.02) and bf16 (`det`: the same metrics, printed);
+    four nccl ranks, dp=2 x sp=2, one step against one process; B=1
+    predict_step at sp = 1, 2 and 4, one shard a card (host clock around
+    synchronised calls, median of 5); each rank's peak memory of a
+    CocoConfig 1024² training step at sp = 1, 2 and 4, REMAT_BACKBONE on
+    and off, and what held rank 0's peak (`peak_owners`). The bf16 rows
+    print a control beside them: the one-card Detector image by image
+    against itself on the same split."""
+    import copy
+    import os
+    from maskrcnn_tpu_torch.api import Detector, replica_devices
+    from maskrcnn_tpu_torch.detection.pipeline import predict_step
+    from maskrcnn_tpu_torch.parallel.spatial import InProcess
+    n = torch.cuda.device_count()
+    check(n >= 4, f"the spatial multi-card phase needs four cards, has {n}")
+    rng = np.random.RandomState(5)
+    images = make_images(rng, list(COCO_SHAPES))
+    f32_cfg = det.config.replace(COMPUTE_DTYPE="float32")
+    one32 = Detector(f32_cfg, device=DEVICE,
+                     generator=torch.Generator().manual_seed(0))
+    for sp in (2, 4):
+        per = -(-len(images) // (4 // sp))
+        lines = []
+        for one in (one32, det):
+            many = Detector(one.config.replace(NUM_DEVICES=4, SP_DEVICES=sp),
+                            device=DEVICE,
+                            generator=torch.Generator().manual_seed(0))
+            many.model.load_state_dict(one.model.state_dict())
+            many._new_weights()
+            want = [r for i in range(0, len(images), per)
+                    for r in one.detect_batch(images[i:i + per])]
+            got = many.detect_batch(images)
+
+            def agree(got):
+                equal = apart = pixels = 0
+                for a, b in zip(want, got):
+                    check(a is not None and b is not None,
+                          f"m: sp={sp}: an image has no detection")
+                    equal += a[0] == b[0] and a[2] == b[2]
+                    if a[3].shape == b[3].shape:
+                        apart += int((a[3] != b[3]).sum())
+                        pixels += a[3].size
+                return equal, apart / max(pixels, 1)
+
+            equal, share = agree(got)
+            name = cfg_name(one.config)
+            control = ""
+            if one is det and sp == 2:
+                c_equal, c_share = agree([one.detect_batch([im])[0]
+                                          for im in images])
+                control = (f" (control, the one card image by image: "
+                           f"{c_equal} of {len(images)} images equal, "
+                           f"{c_share:.6f} of mask pixels apart)")
+            if one is one32:
+                # float32 (TF32 off) row shards are bit-exact on the card
+                # (10a); bf16 ones move ulps with cuDNN's choice of
+                # algorithm by shape, which the seeded weights amplify
+                check(equal == len(images) and share < 0.02,
+                      f"m: {name} Detector(4, SP_DEVICES={sp}): detections "
+                      f"differ ({equal} of {len(images)} images equal)")
+            runs = []
+            for _ in range(3):
+                for i in range(4):
+                    torch.cuda.synchronize(i)
+                t = time.perf_counter()
+                many.detect_batch(images)
+                runs.append((time.perf_counter() - t) * 1e3)
+            lines.append(f"{name}: {equal} of {len(images)} images with the "
+                         f"one card's class ids and boxes, {share:.6f} of "
+                         f"mask pixels apart{control}, detect_batch median "
+                         f"{statistics.median(runs):.2f} ms")
+            del many
+        print(f"[m] Detector(NUM_DEVICES=4, SP_DEVICES={sp}) on eight "
+              f"COCO-sized images, {4 // sp} groups of {sp} cards, against "
+              f"the one-card Detector on the same split: "
+              + "; ".join(lines) + f"; {card}", flush=True)
+    del one32
+    rel, worst, secs = _dp_against_one_process(4, "nccl-sp2", "m-sp")
+    print(f"[m] four nccl ranks, dp=2 x sp=2, one image a group of the 7b "
+          f"scene: the step equals the one-process step (losses within "
+          f"{rel:.3g} relative, weights within {worst:.3g} of their max) in "
+          f"{secs:.1f} s; {card}", flush=True)
+    model = det.model
+    x, win = sp_canvases(det.config, b=1)
+    lat = {}
+    for sp in (1, 2, 4):
+        if sp > 1:
+            model.spatial = InProcess([model] + [
+                copy.deepcopy(model).to(d)
+                for d in replica_devices(sp, torch.device(DEVICE))[1:]])
+        try:
+            predict_step(model, x, win)
+            runs = []
+            for _ in range(5):
+                for i in range(sp):
+                    torch.cuda.synchronize(i)
+                t = time.perf_counter()
+                predict_step(model, x, win)
+                for i in range(sp):
+                    torch.cuda.synchronize(i)
+                runs.append((time.perf_counter() - t) * 1e3)
+        finally:
+            model.spatial = None
+        lat[sp] = statistics.median(runs)
+    print(f"[m] predict_step B=1 {cfg_name(det.config)}, one row shard a "
+          f"card: " + ", ".join(f"sp={k} {v:.2f} ms" for k, v in lat.items())
+          + f" (host clock, median of 5); {card}", flush=True)
+    gib = 2 ** 30
+    for backend, remat in (("nccl-mem", "on"), ("nccl-mem-plain", "off")):
+        mem = {}
+        for sp in (1, 2, 4):
+            path = f"build/phase_m_mem_sp{sp}"
+            _ranks(sp, backend, path)
+            got = [torch.load(f"{path}.{r}") for r in range(sp)]
+            for r in range(sp):
+                os.remove(f"{path}.{r}")
+            check(all(np.isfinite(g["total"]) for g in got),
+                  f"m: sp={sp} training losses {got}")
+            mem[sp] = got
+        print(f"[m] CocoConfig training step B=1 at 1024² (REMAT_BACKBONE "
+              f"{remat}), peak memory a rank: " + "; ".join(
+                  f"sp={sp} " + " ".join(f"{g['peak'] / gib:.2f}"
+                                         for g in got) + " GiB, step "
+                  + " ".join(f"{g['ms']:.1f}" for g in got) + " ms"
+                  for sp, got in mem.items()) + f"; {card}", flush=True)
+        for sp, got in mem.items():
+            g = got[0]
+            print(f"[m]   REMAT_BACKBONE {remat}, sp={sp}, rank 0 (the "
+                  f"allocator's record of a third step): "
+                  f"{g['base'] / gib:.3f} GiB held before the step "
+                  f"(weights, optimizer state), peak "
+                  f"{g['recorded_peak'] / gib:.3f} GiB, before the "
+                  f"optimizer's update (forward and backward) "
+                  f"{g['before_update'] / gib:.3f} GiB; alive at the peak "
+                  f"of what the step allocated: " + "; ".join(
+                      f"{n / gib:.3f} GiB {owner}" for n, owner in g["owners"]),
+                  flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None)
@@ -3085,6 +3820,13 @@ def main() -> int:
     decode_phase(card)
     learning_launches = learning_phase(kernels, roi, card)
     full_launches = learning_full_phase(kernels, card)
+    t10 = time.perf_counter()
+    f32, sp_launches = sp_inference_phase(kernels, det, fdet, qdet, card)
+    t10a = time.perf_counter() - t10
+    surface_launches = surface_phase(kernels, f32, card)
+    del f32
+    print(f"[10] 10a {t10a:.1f} s, 10c {time.perf_counter() - t10 - t10a:.1f}"
+          f" s (10b ran in 8c's ranks)", flush=True)
     if args.profile:
         from maskrcnn_tpu_torch.detection.pipeline import predict_step
         for d, name in ((det, "predict_step"),
@@ -3098,12 +3840,13 @@ def main() -> int:
                       "train_step")
 
     # launches: the main-path runs (default, FOLD_BN and QUANT_INT8 slices,
-    # the product surface's requests and evaluations, and the protocols'
-    # requests and steps); K1's float-table launches apart from its int8
-    # ones
+    # the product surface's requests and evaluations, the protocols'
+    # requests and steps, the sharded steps and the explore stages); K1's
+    # float-table launches apart from its int8 ones
     runs = {k: launches[k] + fold_launches[k] + quant_launches[k]
             + product_launches[k] + protocol_launches[k] + train_launches[k]
             + server_launches[k] + learning_launches[k] + full_launches[k]
+            + sp_launches[k] + surface_launches[k]
             for k in launches}
     runs["nms"] += retina_k2
     runs["roi_align"] -= runs["roi_align_int8"]

@@ -38,8 +38,22 @@ the world size:
 Each rank reads its shard of the dataset (IMAGES_PER_DEVICE images a
 step); rank 0 logs and writes the checkpoints. --devices above 1 outside
 such a group raises ValueError; evaluation with --devices N runs one
-weight replica a GPU in one process. --sp (the spatial axis) raises
-NotImplementedError.
+weight replica a GPU in one process.
+
+--sp S adds the spatial axis (Config.SP_DEVICES; maskrcnn_tpu_torch
+.parallel.spatial): groups of S GPUs share each image's rows through
+the backbone and FPN, so the data-parallel width is --devices / S and
+the global batch IMAGES_PER_DEVICE * (--devices / S). Training under
+torchrun (ranks [g * S, (g + 1) * S) one group, each group one shard of
+the dataset, read by the group's first rank and broadcast to the
+others):
+
+    torchrun --nproc_per_node 4 coco_torch.py train --dataset /path/to/coco
+                         --devices 4 --sp 2 --epochs 1
+
+Evaluation with --devices N --sp S runs N / S groups of S weight
+replicas in one process. The canvas height must be a multiple of 64 * S
+(ValueError otherwise).
 """
 
 import argparse
@@ -80,9 +94,12 @@ def build_parser() -> argparse.ArgumentParser:
                         metavar="<image count>",
                         help="Images to use for evaluation (default=500)")
     parser.add_argument("--devices", required=False, default=None, type=int,
-                        help="Device count (default 1; more is not ported)")
+                        help="Device count (default 1; more: one process "
+                        "a GPU under torchrun to train, one replica a GPU "
+                        "to evaluate)")
     parser.add_argument("--sp", required=False, default=1, type=int,
-                        help="Spatial partitioning (not ported)")
+                        help="Spatial partitioning: GPUs that share each "
+                        "image's rows (divides --devices; default 1)")
     parser.add_argument("--steps-per-epoch", required=False, default=None,
                         type=int, help="Override STEPS_PER_EPOCH (train)")
     parser.add_argument("--epochs", required=False, default=None, type=int,
@@ -164,7 +181,8 @@ def main(argv=None) -> None:
 
 
 def train(args, cascade) -> None:
-    """The train command (coco.py's, on one device)."""
+    """The train command (coco.py's): on one device, or one process a
+    device under torchrun (--devices, --sp)."""
     from maskrcnn_tpu_torch.checkpoint.convert import load_state, read_pth
     from maskrcnn_tpu_torch.data.pipeline import BatchLoader
     from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
@@ -178,10 +196,10 @@ def train(args, cascade) -> None:
         raise ValueError(f"BATCH_SIZE {config.BATCH_SIZE} must divide by "
                          f"--grad-accum {args.grad_accum}")
     from maskrcnn_tpu_torch import parallel
-    device, rank = args.device, 0
+    device, rank, shard = args.device, 0, 0
     if config.NUM_DEVICES > 1 and "WORLD_SIZE" in os.environ:
         device = parallel.init_from_env(torch.device(args.device).type)
-        rank = parallel.rank()
+        rank, shard = parallel.rank(), parallel.dp_index(config)
     if rank == 0:
         config.display()
     model = MaskRCNN(config, device, train=True).init(
@@ -194,17 +212,21 @@ def train(args, cascade) -> None:
         from maskrcnn_tpu_torch.data.augment import Augmenter
         augment = Augmenter.parse(args.augment)
         print("Augmentation:", augment)
-    generator = parallel.rank_generator(1, rank, device)
+    # the sp ranks of a group draw the same samples of the same images
+    generator = parallel.rank_generator(1, shard, device)
     kw = {}
     if args.steps_per_epoch:
         kw["steps_per_epoch"] = args.steps_per_epoch
     loaders = []
 
     def loader(cfg, subset, **extra):
-        ds = CocoDataset(args.dataset, subset, args.year, cfg)
-        loaders.append(BatchLoader(ds, cfg.IMAGES_PER_DEVICE,
-                                   shard_index=rank,
-                                   num_shards=cfg.NUM_DEVICES, **extra))
+        def make():
+            ds = CocoDataset(args.dataset, subset, args.year, cfg)
+            return BatchLoader(ds, cfg.IMAGES_PER_DEVICE, shard_index=shard,
+                               num_shards=cfg.NUM_DEVICES // cfg.SP_DEVICES,
+                               **extra)
+        # under --sp a group's first rank reads, the others get its batches
+        loaders.append(parallel.group_loader(make, cfg))
         return loaders[-1]
 
     try:

@@ -10,7 +10,8 @@ ORIG_MASK_CANVAS and DEVICE_MASK_DECODE is set; otherwise on the host
 (`codecs.decode_masks`, the reference-parity decode, each mask resampled
 over its nonzero region only). Keypoints (NUM_KEYPOINTS) go back to
 original coordinates on the host in float64. Covered: one device or
-Config.NUM_DEVICES weight replicas (`_predict_replicas`), float,
+Config.NUM_DEVICES weight replicas (`_predict_replicas`), in groups of
+SP_DEVICES that share each canvas's rows (parallel.spatial), float,
 folded (FOLD_BN) or int8 (QUANT_INT8) weights, and every inference
 protocol of the JAX Detector (cascade, soft-NMS, flip TTA, keypoints,
 rectangular canvases).
@@ -155,6 +156,14 @@ class Detector:
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
 
+    def _new_weights(self) -> None:
+        """Mark the weights changed: the replicas are remade at the next
+        request, and until then the model runs its backbone whole (its
+        spatial group's replicas hold the old weights; calibration runs
+        unsharded)."""
+        self._weights = object()
+        self.model.spatial = None
+
     def load_weights(self, path: str, reinit_mismatched: bool = False
                      ) -> None:
         """Load a reference `.pth` (the torch state dict of
@@ -170,7 +179,7 @@ class Detector:
         load_state(self.model,
                    read_pth(path, self.model.state_dict()),
                    reinit_mismatched=reinit_mismatched)
-        self._weights = object()
+        self._new_weights()
 
     def load_jax_params(self, params) -> None:
         """Load a JAX parameter tree (nested dicts of arrays, the JAX
@@ -178,7 +187,7 @@ class Detector:
         an already folded tree folds to itself. Under QUANT_INT8 the next
         request prepares the new weights."""
         load_jax_params(self.model, params)
-        self._weights = object()
+        self._new_weights()
 
     def prepare(self) -> None:
         """Under QUANT_INT8, calibrate (or read the stats file) and put
@@ -199,7 +208,7 @@ class Detector:
                 _store_calib_stats(path, key, stats)
         model.set_quant(quant.prepare_quant_params(
             model, model.float_state, act_stats=stats))
-        self._weights = object()
+        self._new_weights()
 
     @staticmethod
     def _canvas_geometry(h, w, min_dim, ch, cw):
@@ -264,7 +273,10 @@ class Detector:
     def _replica_models(self):
         """The NUM_DEVICES models, replica 0 the Detector's own: the others
         are copies of its current weights (and of its prepared int8
-        state and fused-block weights), made once per set of weights."""
+        state and fused-block weights), made once per set of weights.
+        Under SP_DEVICES the first model of each group of SP_DEVICES
+        replicas shards its backbone over the group
+        (parallel.spatial.InProcess)."""
         if self._replicas[1:] and self._replicas[1][1] is self._weights:
             return [m for m, _ in self._replicas]
         models = [(self.model, self._weights)]
@@ -277,16 +289,24 @@ class Detector:
                 m.quant = _tree_to(m.quant, dev)
             models.append((m, self._weights))
         self._replicas = models
+        sp = self.config.SP_DEVICES
+        if sp > 1:
+            from maskrcnn_tpu_torch.parallel.spatial import InProcess
+            for g in range(0, len(models), sp):
+                models[g][0].spatial = InProcess(
+                    [m for m, _ in models[g:g + sp]])
         return [m for m, _ in models]
 
     def _predict_replicas(self, canvases: np.ndarray, windows):
         """Data-parallel predict_step over the NUM_DEVICES replicas (the
         JAX Detector's mesh predict, api.py:62-76, 185-203): the batch is
-        padded to a multiple of NUM_DEVICES by repeating its last canvas,
-        split in order, each part launched on its replica's device with no
-        wait in between, and the outputs gathered on the first device,
-        the padding dropped."""
-        models = self._replica_models()
+        padded to a multiple of the data width, NUM_DEVICES //
+        SP_DEVICES, by repeating its last canvas, split in order, each
+        part launched on its replica group's first device with no wait in
+        between (under SP_DEVICES its backbone runs on the group's
+        devices), and the outputs gathered on the first device, the
+        padding dropped."""
+        models = self._replica_models()[::self.config.SP_DEVICES]
         n = len(models)
         b = canvases.shape[0]
         pad = (-b) % n

@@ -36,13 +36,19 @@ Config.REMAT_BACKBONE recomputes each ResNet stage in the backward pass.
 FOLD_BN and QUANT_INT8 are inference-only and raise there. The
 inference construction keeps its weights in the compute dtype.
 
-The option the port does not implement, the spatial axis
-(SP_DEVICES > 1), raises NotImplementedError here (`check_supported`)
-instead of running something else. NUM_DEVICES > 1 is data parallelism
-outside the model: `parallel` (training over torch.distributed, one
-process a device) and `api.Detector` (one replica a device). The TPU knobs
-(NMS_IMPL, ROI_IMPL, S2D_STEM, MATMUL_PRECISION) do not change
-the function computed and are ignored.
+NUM_DEVICES > 1 is data parallelism outside the model: `parallel`
+(training over torch.distributed, one process a device) and
+`api.Detector` (one replica a device). SP_DEVICES > 1, the spatial axis
+(`parallel.spatial`), runs `backbone` on row shards when the model has a
+`spatial` transport: the training construction under a process group
+makes its own (`parallel.spatial.Distributed`), api.Detector gives each
+replica group's first model one over the group (`InProcess`); a model
+without one runs the whole canvas, as the JAX package's MaskRCNN off a
+mesh; under QUANT_INT8 the int8 traversal shards the same way
+(`quant.fpn_forward` on the shards). `check_supported` raises ValueError
+for a canvas height the shards cannot split. The TPU knobs (NMS_IMPL, ROI_IMPL,
+S2D_STEM, MATMUL_PRECISION) do not change the function computed and are
+ignored.
 """
 
 from __future__ import annotations
@@ -64,22 +70,12 @@ from maskrcnn_tpu_torch.models.resnet import Bottleneck, FrozenBatchNorm
 from maskrcnn_tpu_torch.models.rpn import RPN
 from maskrcnn_tpu_torch.ops.anchors import config_anchors
 
-# (field, test that it is set away from its default): options that change
-# the function computed and are not ported yet
-UNPORTED = (
-    ("SP_DEVICES", lambda v: v > 1),
-)
-
 
 def check_supported(config: Config) -> None:
-    """Raise NotImplementedError, naming the field, for an option the port
-    does not implement."""
-    for field, is_set in UNPORTED:
-        value = getattr(config, field)
-        if is_set(value):
-            raise NotImplementedError(
-                f"Config.{field}={value!r} is not ported to "
-                "maskrcnn_tpu_torch (ROADMAP Queue 1)")
+    """Raise ValueError for a spatial layout the canvas cannot take
+    (parallel.spatial.check_config)."""
+    from maskrcnn_tpu_torch.parallel import spatial
+    spatial.check_config(config)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -149,6 +145,11 @@ class MaskRCNN(nn.Module):
             set_compute_dtype(self, self.compute_dtype)
         self.to(memory_format=torch.channels_last)
         self.eval()
+        # the spatial transport `backbone` shards through, or None
+        self.spatial = None
+        if train and config.SP_DEVICES > 1:
+            from maskrcnn_tpu_torch.parallel import spatial
+            self.spatial = spatial.Distributed.for_config(config, self)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -234,12 +235,18 @@ class MaskRCNN(nn.Module):
         return result
 
     def backbone(self, images: torch.Tensor) -> List[torch.Tensor]:
-        """images [B, H, W, 3] float32 -> [P2..P6] as NHWC views."""
+        """images [B, H, W, 3] float32 -> [P2..P6] as NHWC views; on row
+        shards through the `spatial` transport when there is one."""
         if self._int8():
             return quant.quant_backbone(self, images)
         x = images.to(self.dtype).permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
-        return [p.permute(0, 2, 3, 1) for p in self.fpn(x)]
+        if self.spatial is None:
+            levels = self.fpn(x)
+        else:
+            from maskrcnn_tpu_torch.parallel import spatial
+            levels = spatial.backbone(self.spatial, x)
+        return [p.permute(0, 2, 3, 1) for p in levels]
 
     def rpn_scores(self, feature_maps: Sequence[torch.Tensor]):
         """NHWC maps -> (scores [B, A] float32, deltas [B, A, 4] compute

@@ -15,8 +15,10 @@ Config.QUANT_SKIP keeps whole stage groups float.
 
 One traversal serves both modes (as quant.py:25-31): "calib" runs the
 float folded convs and records activation stats, "int8" runs the
-quantized state. Activations are NHWC throughout, so a calibration
-subsample ravels NHWC, as the JAX package's does.
+quantized state; under SP_DEVICES the int8 mode runs the backbone and
+neck on row shards (`fpn_forward` with a spatial transport), and
+calibration stays whole. Activations are NHWC throughout, so a
+calibration subsample ravels NHWC, as the JAX package's does.
 
 Host side (numpy): `_conv_paths`, `_group_of`, `_search_clip`,
 `_quantize_kernel`, `default_calib_canvases`, `params_fingerprint`, and
@@ -348,51 +350,97 @@ class _Ctx:
         return torch.relu(y) if relu else y
 
 
-def _bottleneck(ctx: _Ctx, path: str, x, stride: int, downsample: bool):
-    """Bottleneck with folded BN (models/resnet.Bottleneck)."""
-    xq = ctx.qt(f"{path}/in", x)
-    o = ctx.conv(f"{path}/conv1", xq, stride=stride, relu=True)
-    o = ctx.conv(f"{path}/conv2", ctx.qt(f"{path}/a1", o), padding=1,
-                 relu=True)
-    o = ctx.conv(f"{path}/conv3", ctx.qt(f"{path}/a2", o))
-    residual = (ctx.conv(f"{path}/downsample_conv", xq, stride=stride)
-                if downsample else x)
-    return torch.relu(o + residual)
-
-
-def _stage(ctx: _Ctx, path: str, x, blocks: int, stride: int):
-    x = _bottleneck(ctx, f"{path}/block0", x, stride, downsample=True)
-    for i in range(1, blocks):
-        x = _bottleneck(ctx, f"{path}/block{i}", x, 1, downsample=False)
-    return x
-
-
 def _up2(x: torch.Tensor) -> torch.Tensor:
     return nearest_upsample_2x(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
-def fpn_forward(config: Config, ctx: _Ctx, x: torch.Tensor):
+def _halo(t, vals, above: int, below: int, fill: float, pad_w: int):
+    """NHWC row shards of spatial transport `t` (QTs or float tensors) ->
+    slabs [rows above, shard, rows below] (parallel.spatial.exchange; fill
+    past the canvas's edge), `pad_w` zero columns on each side. A QT's
+    rows move as int8: the same integers, so each int32 accumulator of a
+    conv on the slab is the unsharded conv's."""
+    from maskrcnn_tpu_torch.parallel import spatial
+    quantized = isinstance(vals[0], QT)
+    raw = [v.q if quantized else v for v in vals]
+    slabs = [F.pad(s.permute(0, 2, 3, 1), (0, 0, pad_w, pad_w))
+             for s in spatial.exchange(t, [r.permute(0, 3, 1, 2)
+                                           for r in raw], above, below, fill)]
+    return ([QT(s, v.scale) for s, v in zip(slabs, vals)] if quantized
+            else slabs)
+
+
+def fpn_forward(config: Config, ctx, x, t=None):
     """ResNet + FPN neck in either mode: normalized images [B, H, W, 3]
-    float32 -> [P2..P6] NHWC. The stem stays float."""
-    stem = ctx.fp["resnet/C1_conv"] if ctx.mode == "calib" else \
-        ctx.tree["stem"]
-    x = torch.relu(float_conv(stem, x, 2, 3, ctx.dtype))
-    c1 = stem_pool(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    float32 -> [P2..P6] NHWC. The stem stays float.
+
+    With a spatial transport `t` (parallel.spatial, int8 mode), `ctx` and
+    `x` are lists, one a shard of t: the shard's ctx (its replica's int8
+    state) and the images' NHWC rows. The stem and each 3x3 conv then run
+    on slabs that carry their neighbours' rows (`_halo`, the halo plan of
+    parallel.spatial) with padding 0 in H, and the levels are gathered
+    whole on the first shard's device."""
+    from maskrcnn_tpu_torch.parallel import spatial
+    ctxs, xs = (ctx, x) if t is not None else ([ctx], [x])
+
+    def qt(name, vals):
+        return [c.qt(name, v) for c, v in zip(ctxs, vals)]
+
+    def conv(path, vals, stride=1, padding=0, relu=False):
+        if t is not None and padding:
+            vals, padding = _halo(t, vals, padding, padding, 0.0,
+                                  padding), 0
+        return [c.conv(path, v, stride, padding, relu)
+                for c, v in zip(ctxs, vals)]
+
+    def block(path, vals, stride, downsample):
+        """Bottleneck with folded BN (models/resnet.Bottleneck)."""
+        xq = qt(f"{path}/in", vals)
+        o = conv(f"{path}/conv1", xq, stride=stride, relu=True)
+        o = conv(f"{path}/conv2", qt(f"{path}/a1", o), padding=1, relu=True)
+        o = conv(f"{path}/conv3", qt(f"{path}/a2", o))
+        res = (conv(f"{path}/downsample_conv", xq, stride=stride)
+               if downsample else vals)
+        return [torch.relu(a + r) for a, r in zip(o, res)]
+
+    def stage(path, vals, blocks, stride):
+        vals = block(f"{path}/block0", vals, stride, True)
+        for i in range(1, blocks):
+            vals = block(f"{path}/block{i}", vals, 1, False)
+        return vals
+
+    pad = 3
+    if t is not None:
+        xs, pad = _halo(t, xs, 3, 2, 0.0, 3), 0
+    ys = [torch.relu(float_conv(
+        c.fp["resnet/C1_conv"] if c.mode == "calib" else c.tree["stem"],
+        v, 2, pad, c.dtype)) for c, v in zip(ctxs, xs)]
+    ys = [y.permute(0, 3, 1, 2) for y in ys]
+    if t is None:
+        c1 = [stem_pool(ys[0])]
+    else:
+        c1 = [spatial.pool_rows(s) for s in spatial.exchange(
+            t, ys, 0, 1, float("-inf"))]
     blocks = BLOCKS[config.BACKBONE]
-    c2 = _stage(ctx, "resnet/C2", c1, blocks[0], 1)
-    c3 = _stage(ctx, "resnet/C3", c2, blocks[1], 2)
-    c4 = _stage(ctx, "resnet/C4", c3, blocks[2], 2)
-    c5 = _stage(ctx, "resnet/C5", c4, blocks[3], 2)
+    c2 = stage("resnet/C2", [c.permute(0, 2, 3, 1) for c in c1], blocks[0],
+               1)
+    c3 = stage("resnet/C3", c2, blocks[1], 2)
+    c4 = stage("resnet/C4", c3, blocks[2], 2)
+    c5 = stage("resnet/C5", c4, blocks[3], 2)
 
-    p5 = ctx.conv("P5_conv1", ctx.qt("C5_out", c5))
-    p4 = ctx.conv("P4_conv1", ctx.qt("C4_out", c4)) + _up2(p5)
-    p3 = ctx.conv("P3_conv1", ctx.qt("C3_out", c3)) + _up2(p4)
-    p2 = ctx.conv("P2_conv1", ctx.qt("C2_out", c2)) + _up2(p3)
-
-    p5s = ctx.conv("P5_conv2", ctx.qt("P5_pre", p5), padding=1)
-    p4s = ctx.conv("P4_conv2", ctx.qt("P4_pre", p4), padding=1)
-    p3s = ctx.conv("P3_conv2", ctx.qt("P3_pre", p3), padding=1)
-    p2s = ctx.conv("P2_conv2", ctx.qt("P2_pre", p2), padding=1)
+    p5 = conv("P5_conv1", qt("C5_out", c5))
+    p4 = [a + _up2(b) for a, b in zip(conv("P4_conv1", qt("C4_out", c4)),
+                                      p5)]
+    p3 = [a + _up2(b) for a, b in zip(conv("P3_conv1", qt("C3_out", c3)),
+                                      p4)]
+    p2 = [a + _up2(b) for a, b in zip(conv("P2_conv1", qt("C2_out", c2)),
+                                      p3)]
+    levels = []
+    for lvl, p in ((5, p5), (4, p4), (3, p3), (2, p2)):
+        ys = conv(f"P{lvl}_conv2", qt(f"P{lvl}_pre", p), padding=1)
+        levels.append(ys[0] if t is None else spatial.gather(
+            t, [y.permute(0, 3, 1, 2) for y in ys]).permute(0, 2, 3, 1))
+    p5s, p4s, p3s, p2s = levels
     return [p2s, p3s, p4s, p5s, p5s[:, ::2, ::2]]
 
 
@@ -435,8 +483,16 @@ def _int8_ctx(model) -> _Ctx:
 
 
 def quant_backbone(model, x: torch.Tensor):
-    """The int8 backbone and neck of a prepared model (MaskRCNN.backbone)."""
-    return fpn_forward(model.config, _int8_ctx(model), x)
+    """The int8 backbone and neck of a prepared model (MaskRCNN.backbone),
+    on row shards through the model's spatial transport when it has
+    one."""
+    t = model.spatial
+    if t is None:
+        return fpn_forward(model.config, _int8_ctx(model), x)
+    from maskrcnn_tpu_torch.parallel import spatial
+    xs = [s.permute(0, 2, 3, 1)
+          for s in spatial.shards(t, x.permute(0, 3, 1, 2))]
+    return fpn_forward(model.config, [_int8_ctx(m) for m in t.models], xs, t)
 
 
 def quant_rpn_scores(model, feature_maps: Sequence[torch.Tensor]):

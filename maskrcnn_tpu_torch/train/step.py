@@ -320,11 +320,18 @@ def train_step(model: MaskRCNN, optimizer: SGD,
     dp (a parallel.DataParallel): `batch` is this rank's slice; the
     losses are means over the global batch (their denominators
     all-reduced), and the gradients and losses are all-reduced (SUM)
-    before the update, so every rank applies the same global step."""
+    before the update, so every rank applies the same global step. Under
+    SP_DEVICES (the model's `spatial` transport) the heads' gradients,
+    alike on an sp group's ranks, are divided by SP_DEVICES first."""
     with (dp.global_means() if dp is not None else contextlib.nullcontext()):
         grads, losses = _step_grads(model, optimizer, batch, generator)
     if dp is not None:
-        grads = dp.sum_grads(grads)
+        shared = None
+        if model.spatial is not None:
+            # the parameters after the spatial gather: alike on the group
+            upstream = {id(p) for p in model.fpn.parameters()}
+            shared = [id(p) not in upstream for p in optimizer.params]
+        grads = dp.sum_grads(grads, shared)
         losses = dp.sum_losses(losses)
     optimizer.update(grads, torch.isfinite(losses.total))
     return losses.as_dict()

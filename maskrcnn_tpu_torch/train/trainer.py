@@ -9,8 +9,10 @@ logs, validates and writes checkpoints. Per-step losses stay on the
 device until a log point; the host runs at most two steps ahead of the
 card. Config.NUM_DEVICES > 1 trains data-parallel (`parallel`, one
 process a device under torchrun): each rank's `train_iter` yields its
-slice of the global batch, the steps and the validation losses reduce
-over the ranks, and rank 0 alone logs and writes checkpoints.
+slice of the global batch (under SP_DEVICES the ranks of an sp group
+the same batch: parallel.group_loader), the steps and the validation
+losses reduce over the ranks, and rank 0 alone logs and writes
+checkpoints.
 """
 
 from __future__ import annotations

@@ -54,8 +54,9 @@ SLICE_MODULES = (
     "maskrcnn_tpu_torch.parallel", "maskrcnn_tpu_torch.export",
     "maskrcnn_tpu_torch.kernels.torch_ops",
     "maskrcnn_tpu_torch.utils.profiler", "maskrcnn_tpu_torch.utils.canvas",
-    "maskrcnn_tpu_torch.data.image_io",
-    "predict_torch", "coco_torch", "tools.serve_torch",
+    "maskrcnn_tpu_torch.data.image_io", "maskrcnn_tpu_torch.parallel.spatial",
+    "predict_torch", "coco_torch", "explore_torch", "tools.serve_torch",
+    "tools.finetune_custom_torch", "tools.export_model_torch",
     "tools.learning_torch", "tools.protocol_ap_ab_torch",
     "tools.int8_ablation_gate_torch", "tools.int8_ap_gate_torch",
     "tools.int8_calib_diag_torch")
@@ -105,7 +106,11 @@ def _imported_names(path: Path):
                                   "tools/protocol_ap_ab_torch.py",
                                   "tools/int8_ablation_gate_torch.py",
                                   "tools/int8_ap_gate_torch.py",
-                                  "tools/int8_calib_diag_torch.py"])
+                                  "tools/int8_calib_diag_torch.py",
+                                  "explore_torch.py",
+                                  "tools/finetune_custom_torch.py",
+                                  "tools/export_model_torch.py",
+                                  "tests/torch_sp_worker.py"])
 def test_port_sources_import_nothing_of_jax(path):
     """chip_smoke.py, the port's CLIs and tools and every source file of
     the port, read with ast: no import of JAX, flax, the JAX package or

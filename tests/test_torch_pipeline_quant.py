@@ -28,7 +28,6 @@ from maskrcnn_tpu_torch import quant as pq
 from maskrcnn_tpu_torch.api import Detector
 from maskrcnn_tpu_torch.checkpoint.convert import from_jax_quant_params
 from maskrcnn_tpu_torch.detection import pipeline as port_pipe
-from maskrcnn_tpu_torch.models.mask_rcnn import UNPORTED
 from maskrcnn_tpu_torch.ops import int8_conv as ic
 from tests.test_torch_pipeline import CFG, _images, _match
 from tests.torch_port import jax_params, port_config, torch_model
@@ -160,12 +159,13 @@ SET = {"CASCADE_STAGES": (0.5, 0.6), "NUM_KEYPOINTS": 17, "TTA_HFLIP": True,
 
 @pytest.mark.parametrize("field", list(SET))
 def test_unported_option_raises(field):
-    """Each option that changes the function computed raises, naming its
-    field, while it is not ported (UNPORTED: the device counts), instead
-    of running the default; a ported one builds its Detector."""
-    cfg = port_config(CFG.replace(**{field: SET[field]}))
-    if field in dict(UNPORTED):
-        with pytest.raises(NotImplementedError, match=field):
-            Detector(cfg, "cpu")
-    else:
-        assert getattr(Detector(cfg, "cpu").config, field) == SET[field]
+    """Each option that changes the function computed builds its Detector
+    and keeps the field, instead of running the default: every one is
+    ported. SP_DEVICES counts within NUM_DEVICES, so its case sets both
+    (tests/test_torch_spatial.py holds the spatial axis against the JAX
+    package)."""
+    overrides = {field: SET[field]}
+    if field == "SP_DEVICES":
+        overrides["NUM_DEVICES"] = SET["NUM_DEVICES"]
+    cfg = port_config(CFG.replace(**overrides))
+    assert getattr(Detector(cfg, "cpu").config, field) == SET[field]

@@ -4,7 +4,11 @@ turns A B B A, each in a fresh process: the default
 CocoInferenceConfig Detector (seeded weights) on eight 1024x1024 random
 canvases, B=1 and B=8, the host clock around synchronised calls (median
 and quartiles of 30, what a lone request sees) and CUDA events around
-10 calls queued behind a spinning kernel (the card's time).
+10 calls queued behind a spinning kernel (the card's time). Each run
+also records, for the default, the FOLD_BN and the QUANT_INT8 Detector
+(calibrated on two default canvases), one B=8 step's kernel launches
+and a SHA-256 of its outputs; the last lines say whether both trees
+launch the same kernels as often and give the same bits.
 
     python3 tools/ab_trees.py ROOT_A ROOT_B [--out build/ab_trees.json]
 
@@ -60,6 +64,32 @@ with torch.no_grad():
         out[f"B{b}_host_q1_q3_ms"] = [float(np.percentile(host, 25)),
                                       float(np.percentile(host, 75))]
         out[f"B{b}_queued_ms"] = s.elapsed_time(e) / 10
+import hashlib
+from maskrcnn_tpu_torch import kernels
+from maskrcnn_tpu_torch.ops.int8_conv import int8_conv_gemm
+from maskrcnn_tpu_torch.quant import default_calib_canvases
+names = ("roi_align", "nms", "bottleneck", "paste_pack")
+base = CocoInferenceConfig()
+for tag, cfg in (("default", base), ("fold", base.replace(FOLD_BN=True)),
+                 ("int8", base.replace(QUANT_INT8=True))):
+    d = det if tag == "default" else Detector(
+        cfg, generator=torch.Generator().manual_seed(0),
+        calib_images=(default_calib_canvases(cfg.IMAGE_SHAPE, n=2)
+                      if cfg.QUANT_INT8 else None))
+    d.prepare()
+    torch.cuda.synchronize()
+    before = {k: getattr(kernels, k).launches for k in names}
+    gemms = int8_conv_gemm.calls
+    with torch.no_grad():
+        o = predict_step(d.model, x, win)
+    torch.cuda.synchronize()
+    n = {k: getattr(kernels, k).launches - v for k, v in before.items()}
+    n["int8_gemm"] = int8_conv_gemm.calls - gemms
+    h = hashlib.sha256()
+    for k in sorted(o):
+        h.update(o[k].cpu().numpy().tobytes())
+    out[f"{tag}_launches"] = n
+    out[f"{tag}_sha256"] = h.hexdigest()
 print("AB " + json.dumps(out), flush=True)
 """
 
@@ -88,6 +118,13 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
+    for tag in ("default", "fold", "int8"):
+        same = all(r[f"{tag}_sha256"] == runs[0][f"{tag}_sha256"]
+                   and r[f"{tag}_launches"] == runs[0][f"{tag}_launches"]
+                   for r in runs)
+        print(f"{tag} B=8 step: launches {runs[0][f'{tag}_launches']}, "
+              f"{'the same launches and bits' if same else 'DIFFERENT'} "
+              f"in both trees", flush=True)
     print(card, flush=True)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:

@@ -2,7 +2,7 @@
 """Run chosen phases of chip_smoke.py on one NVIDIA GPU, for a short
 check after a change (the full script is the port's gate):
 
-    python3 tools/chip_phases.py [3] [7] [a] [b] [c] [d] [e] [m] [l]
+    python3 tools/chip_phases.py [3] [7] [a] [b] [c] [d] [e] [m] [l] [s] [f]
 
 3: K1 against its plain version (the op check); 7: K1-bwd and the tiny
 training step against the CPU; a-e: phase 8's server, RetinaNet, data
@@ -12,8 +12,15 @@ process, and the multi-card Detector against the one-card one; l: phase
 9 (the image reader, the one-class, overfit and keypoint gates, the
 full-width training and evaluation), then the learning gates phase 9
 leaves out (multiclass and cascade: tools/learning_torch.py), their
-record written to records_torch/learning_gates.json. No arguments runs
-3, 7 and a-e.
+record written to records_torch/learning_gates.json; s: phase 10 (the
+spatial axis on row shards of the one card, two gloo ranks sharing an
+image's rows in phase 8c's ranks, the debug and tutorial scripts), with
+m also the spatial axis on four cards (Detector groups, a dp=2 x sp=2
+nccl step, B=1 latency, and each rank's training memory at sp = 1, 2
+and 4 with REMAT_BACKBONE on and off and what holds its peak); f: the
+tutorial's full run (tools/finetune_custom_torch.py, 3 epochs x 100
+steps at B=4), its AP written to records_torch/finetune_custom.json. No
+arguments runs 3, 7 and a-e.
 """
 
 import os
@@ -55,7 +62,9 @@ def main(which) -> int:
         if learning_torch.main(["multiclass", "cascade", "--json-out", str(
                 cs.REPO / "records_torch" / "learning_gates.json")]):
             return 1
-    if not set(which) & set("abcdem"):
+    if "f" in which:
+        finetune_record(card)
+    if not set(which) & set("abcdems"):
         print("chip_phases: done", flush=True)
         return 0
     det, images, _ = cs.slice_phase(kernels, cs.slice_config())
@@ -72,10 +81,42 @@ def main(which) -> int:
         cs.export_phase(det, kernels, card)
     if "e" in which:
         cs.profiler_phase(det, images)
+    if "s" in which:
+        fdet = cs.slice_phase(kernels, cs.slice_config().replace(
+            FOLD_BN=True), tag="5d")[0]
+        qdet = cs.slice_phase(kernels, cs.slice_config().replace(
+            QUANT_INT8=True), tag="5f")[0]
+        f32, _ = cs.sp_inference_phase(kernels, det, fdet, qdet, card)
+        del fdet, qdet
+        if "c" not in which:
+            # 10b runs in 8c's ranks
+            cs.dp_phase(card)
+        cs.surface_phase(kernels, f32, card)
+        del f32
     if "m" in which:
         cs.multi_gpu_phase(det, card)
+        cs.sp_multi_gpu_phase(det, card)
     print("chip_phases: done", flush=True)
     return 0
+
+
+def finetune_record(card) -> None:
+    """The tutorial's full run on the card, its AP and the card written to
+    records_torch/finetune_custom.json."""
+    import json
+    from tools import finetune_custom_torch as ft
+    t0 = time.perf_counter()
+    bbox, segm = ft.main(["--device", "cuda",
+                          "--out", "build/finetune_custom.jpg"])
+    record = {"tool": "tools/finetune_custom_torch.py",
+              "args": "3 epochs x 100 steps, batch 4, lr 3e-3, 64 train "
+                      "and 16 held-out images",
+              "bbox_ap50": bbox, "segm_ap50": segm, "card": card,
+              "device": torch.cuda.get_device_name(0),
+              "seconds": time.perf_counter() - t0}
+    path = cs.REPO / "records_torch" / "finetune_custom.json"
+    path.write_text(json.dumps(record, indent=1) + "\n")
+    print(f"[f] {json.dumps(record)}", flush=True)
 
 
 if __name__ == "__main__":

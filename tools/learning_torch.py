@@ -517,18 +517,22 @@ def one_class_gate(device, tmp, steps: int = STEPS):
 OVERFIT_STEPS = 200
 
 
-def overfit_gate(device, steps: int = OVERFIT_STEPS):
+def overfit_gate(device, steps: int = OVERFIT_STEPS, keep=None):
     """tools/overfit_smoke.py on the port: TinyConfig (128 px, every
     detection kept) trained from scratch on its rectangle scenes (200
     steps at B=4, numpy seed 3), then Detector.detect on 4 more scenes of
-    the same generator: recall >= 0.75. Returns (record, failures)."""
+    the same generator: recall >= 0.75. Returns (record, failures); a
+    dict `keep` gets the trained float32 state and the config."""
     from maskrcnn_tpu_torch import TinyConfig
     cfg = TinyConfig(DETECTION_MIN_CONFIDENCE=0.0)
     rng = np.random.RandomState(3)
     model, info = train(cfg, batches(overfit_batch, rng, cfg, 4), steps,
                         device, log_every=50, tag="overfit")
-    hits, total, mask_ious = overfit_recall(
-        detector(cfg, float_state(model), device), rng)
+    state = float_state(model)
+    if keep is not None:
+        keep.update(state=state, config=cfg)
+    hits, total, mask_ious = overfit_recall(detector(cfg, state, device),
+                                            rng)
     rec = {"train": info, "found": hits, "total": total,
            "recall": hits / total, "mask_iou": mask_ious}
     failures = []
