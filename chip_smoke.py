@@ -84,12 +84,14 @@ Phases, each printing one line:
     routes (median of 3, img/s) and the host resample, host decode and
     RLE encode per image, and the DEVICE_RESIZE route beside them;
  7. training (after 5h, before phase 6's timings): 7a K1-bwd, the
-    RoIAlign backward kernel, against its plain version (float32
-    index_add_) at the training step's shapes (B=4, N=100, C=256, P=7 and
-    14, edge and zero boxes, both canvases; float32 within 1e-5 of a
-    level's largest gradient, bf16 within 1 ulp of the float32 sums
-    rounded once beside the float32 order slack), one launch a call, its
-    time beside its bound and the plain version's; 7b one float32 step
+    RoIAlign backward kernel (version 3: no float atomics), against its
+    plain version (float32 index_add_) run on a CPU copy of the same
+    inputs at the training step's shapes (B=4, N=100, C=256, P=7 and 14,
+    edge and zero boxes, both canvases): float32 levels equal (==), bf16
+    levels equal to the plain float32 sums rounded once, three launches
+    byte-identical, one launch a call; its time in both dtypes beside its
+    bound, version 2's recorded time and the plain version's, and its
+    three parts (emit, ordering, reduce) timed alone; 7b one float32 step
     of the 128-px config on the card against the CPU (the six losses
     within 1e-4 relative, the gradients of fpn.P2_conv1 and a C2 conv
     within 1e-4 of their max: the FPN's gradient passes K1-bwd); 7c the
@@ -99,6 +101,11 @@ Phases, each printing one line:
     img/s, peak memory, the losses finite, the step count, K1 / K1-bwd /
     K2 launches a step 2 / 2 / 1; one train_step in sync-debug mode; 3
     steps under layers "heads" leave every ResNet weight bit-identical;
+    7d the same seeds give the same weights: train_step under its strict
+    deterministic mode (an op with no deterministic form raises), the
+    64 px one-class gate's config 30 steps at B=4, the keypoint gate's 10
+    steps and the CocoConfig 3 steps at B=4, each run twice: the SHA-256
+    of the float32 state and every step's losses equal;
  6. one predict_step at B=8 in sync-debug "error" mode (no host sync),
     then the median of 5 timed calls at B=8 and at B=1, for the default,
     the FOLD_BN and the QUANT_INT8 model (--profile: a table of each);
@@ -126,7 +133,8 @@ Phases, each printing one line:
     identical), K2's time there beside its bounds, B=8 and B=1 medians;
     8c two gloo ranks on the one card (this script with --dp-rank), one
     image each of 7b's scene: the data-parallel step against the
-    one-process step within 1e-4; a one-rank nccl group through
+    one-process step within 1e-4 (the ranks' weights' SHA-256 printed:
+    whether the step repeats across calls); a one-rank nccl group through
     Trainer.fit for two steps;
     8d predict_step B=8 exported with torch.export (weights as its
     input, K1/K2/K4 as the custom ops of kernels/torch_ops.py), loaded in
@@ -138,13 +146,15 @@ Phases, each printing one line:
     pixels for every repository image (SHA-256 digests taken with Pillow
     12.1.0; the card's machine has no Pillow), its host time a decode of
     a 640x480 and a 1252² JPEG, write_png read back exactly;
-    9b K1 and K1-bwd against their plain versions at the 64 px levels
-    (P5 2x2), then tests/test_learning_ap.py on the card: the 64 px
+    9b K1 against its plain version at the 64 px levels (P5 2x2), K1-bwd
+    there as in 7a, then tests/test_learning_ap.py on the card: the 64 px
     TinyConfig trained from scratch (240 steps, B=4, one class),
     evaluate_coco bbox and segm over 8 held-out PNG scenes read through
     CocoDataset, the JAX package's floors (bbox AP50 >= 0.5, segm AP50
     >= 0.3, int8 bbox AP50 within 0.05 of float; int8 with float RoI
-    tables printed), then tools/overfit_smoke.py (the 128 px TinyConfig,
+    tables printed; the trained state's SHA-256, one value a seed since
+    training is deterministic), then tools/overfit_smoke.py (the 128 px
+    TinyConfig,
     200 steps): recall >= 0.75, and the keypoint gate (OKS AP50 >= 0.5);
     the overfit weights in bf16 on row shards of the card (2 at 128 px,
     2 and 4 on 256 px scenes): the detections of 8 scenes against the
@@ -174,7 +184,9 @@ Phases, each printing one line:
     image of 7b's scene (SP_DEVICES=2, REMAT_BACKBONE): the step against
     one process, within 1e-4; 10c explore_torch.py's stages on
     images/sample.jpg (the detect stage equal to predict_step) and its CLI,
-    tools/export_model_torch.py (the program on its weight sidecar
+    explore_torch.ipynb's code cells in order in one namespace (each
+    output line printed), tools/export_model_torch.py (the program on its
+    weight sidecar
     bit-equal to the live step), tools/finetune_custom_torch.py for 10
     steps (its full run: tools/chip_phases.py f);
 then one JSON line of per-kernel numbers (time, launches on the main
@@ -195,6 +207,7 @@ import contextlib
 import hashlib
 import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -203,8 +216,13 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-import numpy as np
-import torch
+# read at the process's first cuBLAS call: train_step's deterministic mode
+# refuses cuBLAS without it (maskrcnn_tpu_torch.train sets it on import,
+# after this script's inference phases have run products)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 CANVAS = (1024, 1024, 3)
 # the IMAGE_CANVAS of phase 5i's canvas protocols; phases 3, 3b, 4b and 4c
@@ -1661,18 +1679,59 @@ def roi_backward_bound(roi, shapes, boxes, pool, grad, dtype):
     return bound(nbytes, float(inside.sum()) * c * 8.0, PEAK_F32)
 
 
+# K1-bwd version 2's times at this phase's shapes (float32 atomics; on an
+# NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 6), printed beside
+# version 3's
+K1_BWD_V2_MS = {(torch.bfloat16, 7): 0.3924, (torch.bfloat16, 14): 0.6279,
+                (torch.float32, 7): 0.1780, (torch.float32, 14): 0.2997}
+
+
+def roi_backward_exact(kernels, roi, grad, boxes, shapes, pool, canvas):
+    """K1-bwd against its plain version run on a CPU copy of the same
+    inputs (the float32 index_add_ of ops.roi_align.roi_align_backward
+    _levels, which adds in index order): grad [B*N, P, P, C] bfloat16 on
+    the card, boxes [B, N, 4]. float32 levels (grad in float32, the same
+    values) equal (==) to the plain sums, bfloat16 levels equal to the
+    plain sums rounded once, each from three launches on the same inputs
+    that are byte-identical, one launch a call. Returns the count of
+    values checked."""
+    b, n = boxes.shape[:2]
+    flat = boxes.reshape(-1, 4).contiguous()
+    want = torch.cat([w.reshape(-1) for w in roi.multilevel_roi_align_backward(
+        grad.float().cpu().reshape(b, n, pool, pool, -1), shapes,
+        torch.float32, boxes.cpu(), pool, canvas)])
+    name = (f"{canvas[0]}x{canvas[1]} B={b} N={n} P={pool} "
+            f"C={shapes[0][-1]}")
+    for dtype, g in ((torch.float32, grad.float()), (torch.bfloat16, grad)):
+        before = kernels.roi_align_backward.launches
+        runs = [kernels.roi_align_backward_flat(g, flat, shapes, dtype, pool,
+                                                canvas) for _ in range(3)]
+        check(kernels.roi_align_backward.launches == before + 3,
+              "roi_align_backward: one launch a call")
+        check(all(torch.equal(runs[0].view(torch.uint8), r.view(torch.uint8))
+                  for r in runs[1:]),
+              f"roi_align_backward {dtype} {name}: three launches differ")
+        got = runs[0].cpu()
+        ref = want.to(dtype)
+        apart = int((got != ref).sum())
+        check(apart == 0, f"roi_align_backward {dtype} {name}: {apart} of "
+              f"{got.numel()} values differ from the CPU's plain version")
+    return want.numel()
+
+
 def roi_backward_phase(kernels, roi):
-    """Phase 7a: K1-bwd against its plain version (the float32 index_add_
-    of ops.roi_align.roi_align_backward_levels) on seeded grad_out at the
-    training shapes, the edge boxes and ten zero (padding) boxes an image,
-    on the 1024² canvas (timed, both P) and the 768x1024 one. float32
-    levels: max |d| <= 1e-5 of the largest |grad| a level; bf16 levels:
-    within 1 bf16 ulp of the plain float32 sums rounded once, beside the
-    float32 order slack (1e-6 of the level's largest |grad|): the atomics
-    add in another order than index_add_. One launch a call."""
+    """Phase 7a: K1-bwd (version 3) against its plain version on a CPU copy
+    of the same inputs (`roi_backward_exact`: float32 equal, bf16 the
+    float32 sums rounded once, three launches byte-identical) at the
+    training shapes, B=4, N=100, C=256, P=7 and 14, seeded grad_out, the
+    edge boxes and ten zero (padding) boxes an image, on the 1024² canvas
+    and the 768x1024 one; on the 1024² canvas its time in both dtypes
+    beside its bound, version 2's recorded time and the plain version's
+    on the card, and its three parts (the emit kernel, the ordering, the
+    reduce kernel) timed alone."""
     gen = torch.Generator(device=DEVICE).manual_seed(7)
     rng = np.random.RandomState(7)
-    worst, times = 0.0, {}
+    times = {}
     for cfg in (slice_config(), rect_config()):
         canvas = cfg.IMAGE_SHAPE
         shapes = [(TRAIN_B, h, w, 256) for h, w in stage_shapes(cfg)]
@@ -1681,62 +1740,55 @@ def roi_backward_phase(kernels, roi):
             b[:, -10:] = 0.0
             boxes = torch.from_numpy(b).to(DEVICE)
             flat = boxes.reshape(-1, 4).contiguous()
-            for dtype in (torch.float32, torch.bfloat16):
-                grad = torch.randn(TRAIN_B * TRAIN_N, pool, pool, 256,
-                                   generator=gen, device=DEVICE).to(dtype)
-                before = kernels.roi_align_backward.launches
-                got = kernels.roi_align_backward(grad, flat, shapes, dtype,
-                                                 pool, canvas)
-                check(kernels.roi_align_backward.launches == before + 1,
-                      "roi_align_backward: one launch a call")
-                want = roi.multilevel_roi_align_backward(
-                    grad.reshape(TRAIN_B, TRAIN_N, pool, pool, 256),
-                    shapes, torch.float32, boxes, pool, canvas)
-                torch.cuda.synchronize()
-                name = (f"{str(dtype)[6:]} {canvas[0]}x{canvas[1]} "
-                        f"B={TRAIN_B} N={TRAIN_N} P={pool} C=256")
-                errs, far = [], 0
-                for g, w in zip(got, want):
-                    scale = float(w.abs().max())
-                    err = float((g.float() - w).abs().max())
-                    errs.append(err)
-                    if dtype == torch.float32:
-                        check(err <= 1e-5 * scale,
-                              f"roi_align_backward {name}: err {err} of "
-                              f"{scale}")
-                        worst = max(worst, err)
-                        continue
-                    rounded = w.to(torch.bfloat16).float()
-                    _, exp = torch.frexp(rounded.abs())
-                    ulp = torch.where(rounded == 0,
-                                      torch.full_like(rounded, 2.0 ** -133),
-                                      torch.ldexp(torch.ones_like(rounded),
-                                                  exp - 8))
-                    apart = (g.float() - rounded).abs()
-                    far += int((apart > ulp).sum())
-                    check(bool((apart <= ulp + 1e-6 * scale).all()),
-                          f"roi_align_backward {name}: beyond 1 bf16 ulp")
-                line = (f"max |d| a level {[f'{e:.3g}' for e in errs]}"
-                        + (f", {far} values beyond 1 bf16 ulp (inside the "
-                           "float32 order slack)" if dtype == torch.bfloat16
-                           else ""))
-                if canvas != CANVAS:
-                    print(f"[7a] roi_align_backward {name}: {line}",
-                          flush=True)
-                    continue
+            grad = torch.randn(TRAIN_B * TRAIN_N, pool, pool, 256,
+                               generator=gen, device=DEVICE).to(torch.bfloat16)
+            t0 = time.perf_counter()
+            count = roi_backward_exact(kernels, roi, grad, boxes, shapes,
+                                       pool, canvas)
+            name = (f"{canvas[0]}x{canvas[1]} B={TRAIN_B} N={TRAIN_N} "
+                    f"P={pool} C=256")
+            line = (f"float32 and bf16 levels ({count} values) equal to the "
+                    f"CPU's plain float32 sums (bf16: rounded once), three "
+                    f"launches byte-identical ({time.perf_counter() - t0:.1f}"
+                    " s with the CPU's run)")
+            if canvas != CANVAS:
+                print(f"[7a] roi_align_backward {name}: {line}", flush=True)
+                continue
+            parts = roi_backward_parts(kernels, grad, flat, shapes, pool,
+                                       canvas)
+            for dtype in (torch.bfloat16, torch.float32):
+                g = grad.to(dtype)
                 ms = cuda_ms(lambda: kernels.roi_align_backward(
-                    grad, flat, shapes, dtype, pool, canvas))
+                    g, flat, shapes, dtype, pool, canvas))
                 plain_ms = cuda_ms(lambda: roi.multilevel_roi_align_backward(
-                    grad.reshape(TRAIN_B, TRAIN_N, pool, pool, 256), shapes,
+                    g.reshape(TRAIN_B, TRAIN_N, pool, pool, 256), shapes,
                     dtype, boxes, pool, canvas), iters=3, warmup=1)
                 bound_ms, bound_by = roi_backward_bound(roi, shapes, boxes,
-                                                        pool, grad, dtype)
+                                                        pool, g, dtype)
                 times[(dtype, pool)] = (ms, plain_ms, bound_ms, bound_by)
-                print(f"[7a] roi_align_backward {name}: {line}; {ms:.4f} ms "
-                      f"on the card (bound {bound_ms:.4f} by {bound_by}, "
-                      f"{bound_ms / ms:.1%} of it); plain {plain_ms:.4f} ms",
-                      flush=True)
-    return worst, times
+                line += (f"; {str(dtype)[6:]} {ms:.4f} ms on the card (bound "
+                         f"{bound_ms:.4f} by {bound_by}, {bound_ms / ms:.1%} "
+                         f"of it; version 2 "
+                         f"{K1_BWD_V2_MS[(dtype, pool)]:.4f}); plain "
+                         f"{plain_ms:.4f} ms")
+            print(f"[7a] roi_align_backward {name}: {line}; bf16 parts: emit "
+                  f"{parts[0]:.4f} ms, order (sort and search) "
+                  f"{parts[1]:.4f} ms, reduce {parts[2]:.4f} ms", flush=True)
+    return 0.0, times
+
+
+def roi_backward_parts(kernels, grad, flat, shapes, pool, canvas):
+    """Device ms of K1-bwd's three parts alone on these inputs: the emit
+    kernel, the ordering (a stable sort of the rows and the search for
+    each row's start) and the reduce kernel (bf16 levels)."""
+    rows = sum(s[0] * s[1] * s[2] for s in shapes)
+    keys, weights = kernels._roi_backward_emit(flat, shapes, pool, canvas)
+    order, starts = kernels._roi_backward_order(keys, rows)
+    return (cuda_ms(lambda: kernels._roi_backward_emit(flat, shapes, pool,
+                                                       canvas)),
+            cuda_ms(lambda: kernels._roi_backward_order(keys, rows)),
+            cuda_ms(lambda: kernels._roi_backward_reduce(
+                grad, order, starts, weights, rows, torch.bfloat16)))
 
 
 def train_scene_config():
@@ -1979,6 +2031,56 @@ def train_phase(kernels, card):
     return step_b4
 
 
+# Phase 7d: (name, config, batch maker of tools/learning_torch.py or None
+# for phase 7c's batch, steps) of the runs repeated
+def repeat_runs():
+    lt = learning_tools()
+    return (("64 px one-class gate", lt.gate_config(), lt.train_batch, 30),
+            ("64 px keypoint gate", lt.keypoint_config(),
+             lt.keypoint_train_batch, 10),
+            ("CocoConfig 1024²", train_config_full(), None, 3))
+
+
+def repeat_phase(card):
+    """Phase 7d, the same seeds give the same weights: each run of
+    `repeat_runs` twice in this process through tools/learning_torch.train
+    (its seeded init, preset "all", B=4; the 64 px gates' scenes from numpy
+    seed 3, the full-width run on one SyntheticLoader batch), train_step
+    under its strict deterministic mode (an op with no deterministic form
+    raises and fails the phase): the SHA-256 of the float32 state equal,
+    and every step's losses equal."""
+    from maskrcnn_tpu_torch.train.trainer import to_device
+    lt = learning_tools()
+    t0 = time.perf_counter()
+    parts = []
+    for name, cfg, make, steps in repeat_runs():
+        batch = (None if make is not None
+                 else to_device(synthetic_batch(cfg, TRAIN_B), DEVICE))
+        digests, traces = [], []
+        for _ in range(2):
+            it = (itertools.repeat(batch) if make is None else
+                  lt.batches(make, np.random.RandomState(3), cfg, TRAIN_B))
+            trace = []
+            model, info = lt.train(cfg, it, steps, DEVICE, log_every=0,
+                                   trace=trace)
+            del model
+            torch.cuda.empty_cache()
+            digests.append(info["state_sha256"])
+            traces.append(torch.stack([torch.stack(list(m.values()))
+                                       for m in trace]).cpu())
+        check(digests[0] == digests[1],
+              f"7d {name}: two runs' states differ {digests}")
+        apart = int((traces[0] != traces[1]).any(dim=1).sum())
+        check(apart == 0, f"7d {name}: the losses differ at {apart} of "
+              f"{steps} steps")
+        parts.append(f"{name}, {steps} steps: state {digests[0][:16]} "
+                     f"twice, last total loss {float(traces[0][-1, 0]):.6f}")
+    print(f"[7d] the same seeds give the same weights (train_step in its "
+          f"strict deterministic mode, each run twice, every step's losses "
+          f"equal): {'; '.join(parts)}; {time.perf_counter() - t0:.1f} s; "
+          f"{card}", flush=True)
+
+
 # Phase 5i: the README's serving presets and the other inference
 # protocols at full width: (name, overrides, the tiny parity's overrides,
 # K1 and K2 launches of one step)
@@ -2187,7 +2289,6 @@ def profile_phase(run, label, out_dir, name):
     table by op and the Chrome trace, and prints the device's busy time
     over the step's kernel window (the profiler's own host cost widens
     the window, so the idle share is an upper bound)."""
-    import os
     from torch.profiler import ProfilerActivity, profile
     os.makedirs(out_dir, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU,
@@ -2592,7 +2693,6 @@ def _dp_against_one_process(world, backend, label):
     the one-process step on the same global batch on the first card
     (`_against_one_process`). Returns (loss gap, weight gap, seconds) and,
     for "gloo", phase 10b's as well."""
-    import os
     path = f"build/phase8c_{backend}_rank0.pt"
     t0 = time.perf_counter()
     _ranks(world, backend, path)
@@ -2602,6 +2702,12 @@ def _dp_against_one_process(world, backend, label):
         if os.path.exists(f):
             got = torch.load(f)
             os.remove(f)
+            # whether the ranks' step repeats from call to call
+            digest = hashlib.sha256()
+            for name in sorted(got["params"]):
+                digest.update(got["params"][name].float().numpy().tobytes())
+            print(f"[{tag}] the ranks' weights after the step: SHA-256 "
+                  f"{digest.hexdigest()}", flush=True)
             out.append((*_against_one_process(got, world, images, tag),
                         time.perf_counter() - t0))
     return out if backend == "gloo" else out[0]
@@ -2766,7 +2872,6 @@ def export_phase(det, kernels, card, b=8):
     outputs bit-identical to the live step's, its K1/K2/K4 launches, its
     time beside the live step's (host clock around synchronised calls,
     median of 5)."""
-    import os
     from maskrcnn_tpu_torch import export as ex
     from maskrcnn_tpu_torch.detection.pipeline import predict_step
     rng = np.random.RandomState(9)
@@ -2912,10 +3017,11 @@ GATE_B, GATE_N = 4, 16
 
 
 def gate_kernel_phase(kernels, roi, cfg):
-    """Phase 9b, first: K1 and K1-bwd against their plain versions at the
-    64 px gate's levels (P2-P5 16² .. 2², C=256, float32), B=4, 16 boxes
-    an image with the edge boxes, P=7 and 14: within 1e-5 (of a level's
-    largest gradient for K1-bwd)."""
+    """Phase 9b, first: K1 against its plain version at the 64 px gate's
+    levels (P2-P5 16² .. 2², C=256, float32), B=4, 16 boxes an image with
+    the edge boxes, P=7 and 14, within 1e-5; K1-bwd there against the
+    plain version on a CPU copy (`roi_backward_exact`: float32 equal, bf16
+    the float32 sums rounded once, three launches byte-identical)."""
     canvas = cfg.IMAGE_SHAPE
     shapes = [(GATE_B, h, w, 256) for h, w in stage_shapes(cfg)]
     gen = torch.Generator(device=DEVICE).manual_seed(9)
@@ -2931,23 +3037,16 @@ def gate_kernel_phase(kernels, roi, cfg):
                                         canvas).reshape(got.shape)
         err = float((got - want).abs().max())
         check(err <= 1e-5, f"9b: roi_align 64 px P={pool}: err {err}")
-        grad = torch.randn(GATE_B * GATE_N, pool, pool, 256, generator=gen,
-                           device=DEVICE)
-        got = kernels.roi_align_backward(grad, flat, shapes, torch.float32,
-                                         pool, canvas)
-        want = roi.multilevel_roi_align_backward(
-            grad.reshape(GATE_B, GATE_N, pool, pool, 256), shapes,
-            torch.float32, boxes, pool, canvas)
-        for g, w in zip(got, want):
-            gap = float((g - w).abs().max())
-            check(gap <= 1e-5 * float(w.abs().max()),
-                  f"9b: roi_align_backward 64 px P={pool}: {gap}")
-            errs.append(gap)
         errs.append(err)
+        grad = torch.randn(GATE_B * GATE_N, pool, pool, 256, generator=gen,
+                           device=DEVICE).to(torch.bfloat16)
+        roi_backward_exact(kernels, roi, grad, boxes, shapes, pool, canvas)
     torch.cuda.synchronize()
     print(f"[9b] K1 and K1-bwd at the 64 px gate's levels "
-          f"{[s[1] for s in shapes]}² (P6 1² feeds the RPN only), float32, "
-          f"P=7 and 14: max |d| {max(errs):.3g}", flush=True)
+          f"{[s[1] for s in shapes]}² (P6 1² feeds the RPN only), P=7 and "
+          f"14: K1 float32 max |d| {max(errs):.3g}; K1-bwd equal to the "
+          f"CPU's plain version (float32, bf16 rounded once), three launches "
+          f"byte-identical", flush=True)
 
 
 def learning_phase(kernels, roi, card):
@@ -2975,14 +3074,16 @@ def learning_phase(kernels, roi, card):
     print(f"[9b] one-class gate, {cfg_name(lt.gate_config())}: "
           f"{tr['steps']} steps at B=4 in {tr['seconds']:.1f} s (median "
           f"{tr['median_ms']:.2f} ms a step, last total loss "
-          f"{tr['losses']['total']:.4f}); float "
+          f"{tr['losses']['total']:.4f}, trained state SHA-256 "
+          f"{tr['state_sha256']}); float "
           f"{lt.gate_line('one-class', rec)}; int8 bbox AP50 "
           f"{rec['int8']['bbox']['AP50']:.3f} (int8 RoI tables), "
           f"{rec['int8_bf16_roi']['bbox']['AP50']:.3f} (float RoI tables); "
           f"overfit_smoke, {otr['steps']} steps (median "
-          f"{otr['median_ms']:.2f} ms a step): "
-          f"{lt.gate_line('overfit', over)}; keypoint gate "
-          f"{lt.gate_line('keypoints', kp)}; "
+          f"{otr['median_ms']:.2f} ms a step, state "
+          f"{otr['state_sha256'][:16]}): {lt.gate_line('overfit', over)}; "
+          f"keypoint gate {lt.gate_line('keypoints', kp)} (state "
+          f"{kp['train']['state_sha256'][:16]}); "
           f"{time.perf_counter() - t0:.1f} s; launches {n}; {card}",
           flush=True)
     failures += missed + kp_missed
@@ -3420,6 +3521,38 @@ def sp_inference_phase(kernels, det, fdet, qdet, card):
     return f32, launches
 
 
+def run_notebook(path, tag: str) -> float:
+    """Run a notebook's code cells (explore_torch.ipynb) in order in one
+    namespace, from a temporary directory that links the repository's
+    images/ and models/ (its pictures land there, not in output/); print
+    each output line after `tag`. Returns the seconds."""
+    import io
+    sys.path.insert(0, str(REPO))
+    nb = json.loads(Path(path).read_text())
+    cells = ["".join(c["source"]) for c in nb["cells"]
+             if c["cell_type"] == "code"]
+    here = os.getcwd()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("images", "models"):
+            if (REPO / name).exists():
+                os.symlink(REPO / name, Path(tmp) / name)
+        os.chdir(tmp)
+        ns = {"__name__": "__main__"}
+        try:
+            for i, src in enumerate(cells):
+                out = io.StringIO()
+                with contextlib.redirect_stdout(out):
+                    exec(compile(src, f"{Path(path).name} cell {i}", "exec"),
+                         ns)
+                for line in out.getvalue().splitlines():
+                    if line.strip():
+                        print(f"{tag} cell {i}: {line}", flush=True)
+        finally:
+            os.chdir(here)
+    return time.perf_counter() - t0
+
+
 def surface_phase(kernels, f32, card):
     """Phase 10c: explore_torch's four stages on the repository's image
     through the float32 model of 10a (TF32 off), its detect stage's
@@ -3430,7 +3563,6 @@ def surface_phase(kernels, f32, card):
     weights returns the live step's bits; tools/finetune_custom_torch.py
     for a few steps on the card (its full run: tools/chip_phases.py f).
     Returns the launches of the explore stages."""
-    import os
     import explore_torch as et
     from tools import export_model_torch as em
     from tools import finetune_custom_torch as ft
@@ -3469,6 +3601,10 @@ def surface_phase(kernels, f32, card):
              "--device", DEVICE, str(REPO / "images" / "sample.jpg")])
     print(f"[10c] explore_torch.py -stage detect on the card in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    seconds = run_notebook(REPO / "explore_torch.ipynb",
+                           "[10c] explore_torch.ipynb")
+    print(f"[10c] explore_torch.ipynb's code cells in order on the card in "
+          f"{seconds:.1f} s", flush=True)
     path, side = "build/phase10c_predict.pt2", "build/phase10c_weights.npz"
     try:
         t0 = time.perf_counter()
@@ -3610,7 +3746,6 @@ def sp_multi_gpu_phase(det, card):
     print a control beside them: the one-card Detector image by image
     against itself on the same split."""
     import copy
-    import os
     from maskrcnn_tpu_torch.api import Detector, replica_devices
     from maskrcnn_tpu_torch.detection.pipeline import predict_step
     from maskrcnn_tpu_torch.parallel.spatial import InProcess
@@ -3805,6 +3940,7 @@ def main() -> int:
     reset_counts(kernels)
     train_step_b4 = train_phase(kernels, card)
     train_launches = launch_counts(kernels)
+    repeat_phase(card)
     x, win, base_ms = timing_phase(det, images, card)
     timing_phase(fdet, images, card)
     timing_phase(qdet, images, card)

@@ -60,20 +60,42 @@
 // and the reference's crop_cuda.cu atomicAdd backward. Each sample inside
 // its level adds g*w00, g*w01, g*w10, g*w11 to the four corners of its
 // footprint; a sample outside adds nothing (_crop_core zeroes it with a
-// where). The kernel recomputes the forward's prologue (band_prologue,
-// the same IEEE operations), so the corners and weights are the forward's.
-// The plain version is ops/roi_align.roi_align_backward_levels.
+// where). The plain version is ops/roi_align.roi_align_backward_levels:
+// an index_add_ a corner, corners 00, 01, 10, 11 in turn, the samples in
+// (box, cell row, cell col) order within a corner, which on the CPU adds
+// in index order.
 // What bounds it on the H100: bytes, mostly the dense level gradients it
 // writes (at B=4 on the 1024² canvas 89.1 M values, 178 MB in bf16)
-// beside grad_out (10 MB at P=7, 40 MB at P=14). This first version is
-// simple: it zeroes a float32 scratch of every level (cudaMemsetAsync),
-// adds into it with 16-byte float32 vector atomics (sm_90's float4
-// atomicAdd; version 1 issued one 4-byte atomic a value, four times as
-// many), and for bf16 levels rounds the sums once in a second pass, so
-// it moves the scratch three times. The atomics make the float32 sums'
-// order, and so their last bits, vary from run to run.
+// beside grad_out (10 MB at P=7, 40 MB at P=14).
+// Version 2 added with float32 atomics into a zeroed scratch, so the
+// order of each sum, and its last bits, changed from run to run.
+// Version 3 adds every row's terms in the plain version's order, with no
+// float atomic, and writes each level value once:
+// * emit (roi_align_backward_emit_kernel): one CTA a band, the forward's
+//   band_prologue (the same IEEE operations) with row steps in place of
+//   element offsets; for each cell and corner k, at entry k*M*P² +
+//   box*P² + cell, the corner's row in the four-level buffer and its
+//   weight; a cell outside its level gets the key one past the last row.
+// * order (the wrapper, kernels.roi_align_backward_flat): a stable sort
+//   of the integer keys, which keeps entry order within a row, and each
+//   row's segment start (a search of the sorted keys).
+// * reduce (roi_align_backward_reduce_kernel): one dense pass over every
+//   row, a thread a (row, 8 channels): s += g * w over its segment in
+//   order, in float32, each product rounded once (-fmad=false), written
+//   once in the levels' dtype (round to nearest even for bf16); a row
+//   with no entry gets zero. Each entry's loads wait on the one before
+//   in a thread, so a row of more than kShortSegment entries (the
+//   padding boxes' corner rows, the rows under many boxes at P4-P5) is
+//   listed and left to roi_align_backward_long_kernel: a CTA a row, which
+//   stages a chunk of its entries' gradients in shared memory with
+//   asynchronous copies, all in flight together, then adds them in the
+//   same order.
+// So every float32 sum is the plain version's on the CPU, bit for bit
+// (the plain version adds +0.0 for a sample outside its level, which can
+// turn a -0.0 sum into +0.0), and a run repeats bit for bit.
 
 #include <cuda_bf16.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -357,116 +379,241 @@ roi_align_kernel(Levels levels, const float* __restrict__ boxes, TOut* __restric
   }
 }
 
+// The bands of a box's pool rows, as the forward splits them: whole pool
+// rows, at least kBandCells cells each where the box has them, split
+// evenly.
+struct Bands {
+  int count, rows;
+  size_t smem;
+};
+
+inline Bands bands_of(int pool) {
+  const int rows = min(pool, max(1, kBandCells / pool));
+  Bands b;
+  b.count = (pool + rows - 1) / rows;
+  b.rows = (pool + b.count - 1) / b.count;
+  b.smem = static_cast<size_t>(b.rows) * pool * sizeof(Cell);
+  return b;
+}
+
 template <typename TIn, typename TOut, bool kScaled>
 cudaError_t launch(const Levels& levels, const float* boxes, void* out, float divisor,
                    float pool_m1, int num_boxes, int boxes_per_image, int pool,
                    int channels, cudaStream_t s) {
-  // bands of whole pool rows, at least kBandCells cells each where the box
-  // has them, split evenly
-  const int rows = min(pool, max(1, kBandCells / pool));
-  const int bands = (pool + rows - 1) / rows;
-  const int band_rows = (pool + bands - 1) / bands;
-  const size_t smem = static_cast<size_t>(band_rows) * pool * sizeof(Cell);
+  const Bands b = bands_of(pool);
   auto kernel = roi_align_kernel<TIn, TOut, kScaled>;
-  if (smem > 48 * 1024) {
+  if (b.smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(b.smem));
     if (err != cudaSuccess) return err;
   }
-  kernel<<<static_cast<unsigned>(num_boxes) * bands, kThreads, smem, s>>>(
+  kernel<<<static_cast<unsigned>(num_boxes) * b.count, kThreads, b.smem, s>>>(
       levels, boxes, static_cast<TOut*>(out), divisor, pool_m1, boxes_per_image,
-      pool, channels, band_rows, bands);
+      pool, channels, b.rows, b.count);
   return cudaGetLastError();
 }
 
-// dst[0..3] += g[0..3] * w, each product rounded once, as one 16-byte
-// atomic (dst 16-byte aligned).
-__device__ __forceinline__ void add4(float* dst, const float* g, float w) {
-  atomicAdd(reinterpret_cast<float4*>(dst),
-            make_float4(g[0] * w, g[1] * w, g[2] * w, g[3] * w));
-}
+// The first row of each level in the four-level row buffer.
+struct LevelRows {
+  int first[kLevels];
+};
 
-// K1-bwd: the gradient of the forward for the levels. One CTA a band, as
-// the forward, with the same prologue; each thread takes (cell, 16-byte
-// vector of grad_out) items and adds g * w to the four corners of the
-// cell's footprint in the image's float32 level gradient with atomicAdd.
-// A cell outside its level adds nothing.
-template <typename TG>
+// K1-bwd emit: one CTA a band, as the forward. The cells come from the
+// forward's prologue with row steps (channels = 1). For each cell and
+// corner k it writes, at entry k * per_corner + box * P² + cell, the
+// corner's row (the level's first row + image * H * W + y * W + x; `past`,
+// one after the last row, for a cell outside its level) and its weight.
 __global__ void __launch_bounds__(kThreads)
-roi_align_backward_kernel(Levels grads, const float* __restrict__ boxes,
-                          const TG* __restrict__ grad_out, float divisor, float pool_m1,
-                          int boxes_per_image, int pool, int channels, int band_rows,
-                          int bands) {
-  constexpr int V = Vec<TG>::kWidth;
+roi_align_backward_emit_kernel(Levels levels, LevelRows level_rows,
+                               const float* __restrict__ boxes, int* __restrict__ keys,
+                               float* __restrict__ weights, float divisor, float pool_m1,
+                               int boxes_per_image, int pool, int band_rows, int bands,
+                               int per_corner, int past) {
   extern __shared__ Cell cells[];
   __shared__ int s_level;
   const int box = blockIdx.x / bands;
   const int row0 = (blockIdx.x - box * bands) * band_rows;
   const int ncells = min(band_rows, pool - row0) * pool;
-  band_prologue(grads, boxes, box, row0, ncells, pool, channels, divisor, pool_m1, cells,
+  band_prologue(levels, boxes, box, row0, ncells, pool, 1, divisor, pool_m1, cells,
                 &s_level);
   __syncthreads();
 
   const int lvl = s_level;
-  const int height = pick(grads.height, lvl);
-  const int width = pick(grads.width, lvl);
   const int img = box / boxes_per_image;
-  float* base = static_cast<float*>(const_cast<void*>(pick(grads.ptr, lvl))) +
-                static_cast<size_t>(img) * height * width * channels;
-  const TG* g_band = grad_out + (static_cast<size_t>(box) * pool + row0) * pool * channels;
-  const int vecs = channels / V;
-  const int nitems = ncells * vecs;
-  for (int i = threadIdx.x; i < nitems; i += kThreads) {
-    const int cell = i / vecs;
-    const Cell e = cells[cell];
-    if (e.off < 0) continue;
-    float g[V];
-    Vec<TG>::convert(__ldg(reinterpret_cast<const uint4*>(g_band + static_cast<size_t>(i) * V)),
-                     g);
-    float* p00 = base + e.off + (i - cell * vecs) * V;
-    // 16-byte vector atomics (sm_90): four float32 adds each
+  const int base =
+      pick(level_rows.first, lvl) + img * pick(levels.height, lvl) * pick(levels.width, lvl);
+  const int first = (box * pool + row0) * pool;
+  for (int c = threadIdx.x; c < ncells; c += kThreads) {
+    const Cell e = cells[c];
+    const int at = first + c;
+    const bool inside = e.off >= 0;
+    const int r00 = base + e.off;
+    keys[at] = inside ? r00 : past;
+    keys[at + per_corner] = inside ? r00 + e.dx : past;
+    keys[at + 2 * per_corner] = inside ? r00 + e.dy : past;
+    keys[at + 3 * per_corner] = inside ? r00 + e.dy + e.dx : past;
+    weights[at] = e.w00;
+    weights[at + per_corner] = e.w01;
+    weights[at + 2 * per_corner] = e.w10;
+    weights[at + 3 * per_corner] = e.w11;
+  }
+}
+
+// s += g * w over 8 channels, each product rounded, then each sum.
+__device__ __forceinline__ void add_product(float* s, const float* g, float w) {
 #pragma unroll
-    for (int k = 0; k < V; k += 4) {
-      add4(p00 + k, g + k, e.w00);
-      add4(p00 + e.dx + k, g + k, e.w01);
-      add4(p00 + e.dy + k, g + k, e.w10);
-      add4(p00 + e.dy + e.dx + k, g + k, e.w11);
-    }
-  }
+  for (int k = 0; k < 8; ++k) s[k] = s[k] + g[k] * w;
 }
 
-// The rounding pass's grid: at most 16 CTAs an SM of the H100's 132,
-// striding over the values.
-constexpr size_t kConvertBlocks = 132 * 16;
-
-// float32 -> bfloat16, round to nearest even, four values a thread.
-__global__ void __launch_bounds__(kThreads)
-to_bf16_kernel(const float4* __restrict__ in, __nv_bfloat162* __restrict__ out, size_t n4) {
-  for (size_t i = blockIdx.x * static_cast<size_t>(kThreads) + threadIdx.x; i < n4;
-       i += static_cast<size_t>(gridDim.x) * kThreads) {
-    const float4 v = in[i];
-    out[2 * i] = __floats2bfloat162_rn(v.x, v.y);
-    out[2 * i + 1] = __floats2bfloat162_rn(v.z, v.w);
-  }
-}
-
+// Eight channels at p (16-byte aligned; global or shared memory) as
+// float32: one 16-byte load of bfloat16, two of float32.
 template <typename TG>
-cudaError_t launch_backward(const Levels& grads, const float* boxes, const void* grad_out,
-                            float divisor, float pool_m1, int num_boxes,
-                            int boxes_per_image, int pool, int channels, cudaStream_t s) {
-  const int rows = min(pool, max(1, kBandCells / pool));
-  const int bands = (pool + rows - 1) / rows;
-  const int band_rows = (pool + bands - 1) / bands;
-  const size_t smem = static_cast<size_t>(band_rows) * pool * sizeof(Cell);
-  auto kernel = roi_align_backward_kernel<TG>;
+__device__ __forceinline__ void load8(const TG* p, float* g) {
+#pragma unroll
+  for (int i = 0; i < 8; i += Vec<TG>::kWidth)
+    Vec<TG>::convert(*reinterpret_cast<const uint4*>(p + i), g + i);
+}
+
+// A row's segment longer than this goes to the long-row kernel.
+constexpr int kShortSegment = 16;
+// The long-row kernel's staging of entries' gradients, at most.
+constexpr int kStageBytes = 64 * 1024;
+
+// K1-bwd reduce, every row: a thread a (row, 8 channels), neighbouring
+// threads on neighbouring channels of a row. A row of at most
+// kShortSegment entries is added here, its segment of sorted entries
+// [starts[row], starts[row + 1]) in order: entry e = order[j] reads
+// grad_out's cell e % per_corner with weight weights[e]; the row is
+// written once. A longer row is listed for the long-row kernel (an
+// integer atomic: the list's order varies, each row's sum does not).
+template <typename TG, typename TOut>
+__global__ void __launch_bounds__(kThreads)
+roi_align_backward_reduce_kernel(const int* __restrict__ starts,
+                                 const long long* __restrict__ order,
+                                 const float* __restrict__ weights,
+                                 const TG* __restrict__ grad_out, TOut* __restrict__ out,
+                                 int* __restrict__ long_rows, int* __restrict__ long_count,
+                                 int items, int vecs, int channels, int per_corner) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= items) return;
+  const int row = i / vecs;
+  const int col = (i - row * vecs) * 8;
+  const int begin = starts[row];
+  const int end = starts[row + 1];
+  if (end - begin > kShortSegment) {
+    if (col == 0) long_rows[atomicAdd(long_count, 1)] = row;
+    return;
+  }
+  float s[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) s[k] = 0.0f;
+  for (int j = begin; j < end; ++j) {
+    const int e = static_cast<int>(order[j]);
+    float g[8];
+    load8(grad_out + static_cast<size_t>(e % per_corner) * channels + col, g);
+    add_product(s, g, weights[e]);
+  }
+  store_all<TOut, 8>(out + static_cast<size_t>(row) * channels + col, s);
+}
+
+// K1-bwd reduce, the long rows: a CTA a listed row at a time. It stages
+// `chunk` entries at a time: their grad_out cells and weights into shared
+// memory (asynchronous 16-byte copies, all in flight together), then
+// thread t adds channels 8t..8t+7 of the chunk's entries in order, as
+// the short-row kernel does, and writes the row once.
+template <typename TG, typename TOut>
+__global__ void __launch_bounds__(kThreads)
+roi_align_backward_long_kernel(const int* __restrict__ starts,
+                               const long long* __restrict__ order,
+                               const float* __restrict__ weights,
+                               const TG* __restrict__ grad_out, TOut* __restrict__ out,
+                               const int* __restrict__ long_rows,
+                               const int* __restrict__ long_count, int channels,
+                               int per_corner, int chunk) {
+  extern __shared__ uint4 stage[];
+  TG* g = reinterpret_cast<TG*>(stage);                         // [chunk][channels]
+  float* w = reinterpret_cast<float*>(g + static_cast<size_t>(chunk) * channels);
+  int* src = reinterpret_cast<int*>(w + chunk);                 // [chunk]
+  constexpr int kPer16 = 16 / static_cast<int>(sizeof(TG));
+  const int copies = channels / kPer16;
+  const int col = threadIdx.x * 8;
+  const int count = *long_count;
+  for (int k = blockIdx.x; k < count; k += gridDim.x) {
+    const int row = long_rows[k];
+    const int end = starts[row + 1];
+    float s[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) s[c] = 0.0f;
+    for (int j0 = starts[row]; j0 < end; j0 += chunk) {
+      const int n = min(chunk, end - j0);
+      for (int t = threadIdx.x; t < n; t += kThreads) {
+        const int e = static_cast<int>(order[j0 + t]);
+        w[t] = weights[e];
+        src[t] = e % per_corner;
+      }
+      __syncthreads();
+      for (int c = threadIdx.x; c < n * copies; c += kThreads) {
+        const int t = c / copies;
+        const int off = (c - t * copies) * kPer16;
+        __pipeline_memcpy_async(g + static_cast<size_t>(t) * channels + off,
+                                grad_out + static_cast<size_t>(src[t]) * channels + off, 16);
+      }
+      __pipeline_commit();
+      __pipeline_wait_prior(0);
+      __syncthreads();
+      if (col < channels) {
+        for (int t = 0; t < n; ++t) {
+          float v[8];
+          load8(g + static_cast<size_t>(t) * channels + col, v);
+          add_product(s, v, w[t]);
+        }
+      }
+      __syncthreads();
+    }
+    if (col < channels) store_all<TOut, 8>(out + static_cast<size_t>(row) * channels + col, s);
+  }
+}
+
+// Entries the long-row kernel stages at a time for C channels of TG.
+template <typename TG>
+int stage_chunk(int channels) {
+  const int per_entry = channels * static_cast<int>(sizeof(TG)) + 8;
+  return max(1, min(128, kStageBytes / per_entry));
+}
+
+template <typename TG, typename TOut>
+cudaError_t launch_reduce(const int* starts, const long long* order, const float* weights,
+                          const void* grad_out, void* out, int* long_rows, int* long_count,
+                          int rows, int channels, int per_corner, cudaStream_t s) {
+  const int vecs = channels / 8;
+  const int items = rows * vecs;
+  if (items == 0) return cudaSuccess;
+  cudaError_t err = cudaMemsetAsync(long_count, 0, sizeof(int), s);
+  if (err != cudaSuccess) return err;
+  roi_align_backward_reduce_kernel<TG, TOut><<<(items + kThreads - 1) / kThreads, kThreads, 0,
+                                                s>>>(
+      starts, order, weights, static_cast<const TG*>(grad_out), static_cast<TOut*>(out),
+      long_rows, long_count, items, vecs, channels, per_corner);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int chunk = stage_chunk<TG>(channels);
+  const size_t smem = static_cast<size_t>(chunk) * (channels * sizeof(TG) + 8);
+  auto kernel = roi_align_backward_long_kernel<TG, TOut>;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  kernel<<<static_cast<unsigned>(num_boxes) * bands, kThreads, smem, s>>>(
-      grads, boxes, static_cast<const TG*>(grad_out), divisor, pool_m1, boxes_per_image,
-      pool, channels, band_rows, bands);
+  // a persistent grid, two CTAs an SM, over the listed rows
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  kernel<<<2 * sms, kThreads, smem, s>>>(starts, order, weights,
+                                         static_cast<const TG*>(grad_out),
+                                         static_cast<TOut*>(out), long_rows, long_count,
+                                         channels, per_corner, chunk);
   return cudaGetLastError();
 }
 
@@ -474,50 +621,95 @@ cudaError_t launch_backward(const Levels& grads, const float* boxes, const void*
 
 extern "C" {
 
-// K1-bwd. grad_ptrs: host array of kLevels device pointers, the float32
-// gradient of each level ([B, H_l, W_l, C]), all inside `scratch`
-// (scratch_elems floats, zeroed here first); heights, widths: host arrays;
-// boxes [num_boxes, 4] float32 and grad_out [num_boxes, pool, pool,
-// channels] (grad_dtype 0 = float32, 1 = bfloat16) device pointers. With
-// out_bf16 set, the float32 sums are then rounded once into it
-// (scratch_elems bfloat16 values, the same layout). divisor and pool_m1 as
-// mrt_roi_align. Returns the CUDA error of the launches (0 on success).
-int mrt_roi_align_backward(void* const* grad_ptrs, const int* heights, const int* widths,
-                           const float* boxes, const void* grad_out, int num_boxes,
-                           int boxes_per_image, int pool, int channels, int grad_dtype,
-                           float divisor, float pool_m1, float* scratch,
-                           long long scratch_elems, void* out_bf16, void* stream) {
-  Levels grads;
-  for (int l = 0; l < kLevels; ++l) {
-    grads.ptr[l] = grad_ptrs[l];
-    grads.height[l] = heights[l];
-    grads.width[l] = widths[l];
-    grads.scale[l] = 1.0f;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (pool < 1 || num_boxes < 0 || scratch_elems < 0 || scratch_elems % 4 ||
-      (grad_dtype != 0 && grad_dtype != 1)) {
+// K1-bwd, step 1 of 2. heights, widths: host arrays of kLevels entries,
+// the levels being [batch, H_l, W_l, C]; boxes [num_boxes, 4] float32
+// (image-major, num_boxes / batch an image) and keys, weights (each
+// 4 * num_boxes * pool² entries) device pointers. Writes each corner's
+// row in the four levels' rows, level after level (one past the last for
+// a sample outside its level), and weight, at entry corner * num_boxes *
+// pool² + box * pool² + cell. divisor and pool_m1 as mrt_roi_align.
+// Returns the CUDA error of the launch (0 on success).
+int mrt_roi_align_backward_emit(const int* heights, const int* widths, const float* boxes,
+                                int num_boxes, int batch, int pool, float divisor,
+                                float pool_m1, int* keys, float* weights, void* stream) {
+  if (pool < 1 || num_boxes < 0 || batch < 1 || num_boxes % batch) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaMemsetAsync(scratch, 0, static_cast<size_t>(scratch_elems) * 4, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (num_boxes > 0) {
-    err = grad_dtype == 0
-              ? launch_backward<float>(grads, boxes, grad_out, divisor, pool_m1, num_boxes,
-                                       boxes_per_image, pool, channels, s)
-              : launch_backward<__nv_bfloat16>(grads, boxes, grad_out, divisor, pool_m1,
-                                               num_boxes, boxes_per_image, pool, channels, s);
+  Levels levels;
+  LevelRows level_rows;
+  long long rows = 0;
+  for (int l = 0; l < kLevels; ++l) {
+    levels.ptr[l] = nullptr;
+    levels.height[l] = heights[l];
+    levels.width[l] = widths[l];
+    levels.scale[l] = 1.0f;
+    level_rows.first[l] = static_cast<int>(rows);
+    rows += static_cast<long long>(batch) * heights[l] * widths[l];
+  }
+  const long long per_corner = static_cast<long long>(num_boxes) * pool * pool;
+  if (rows >= (1LL << 31) - 1 || 4 * per_corner >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (num_boxes == 0) return 0;
+  const Bands b = bands_of(pool);
+  auto kernel = roi_align_backward_emit_kernel;
+  if (b.smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(b.smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  if (out_bf16 != nullptr && scratch_elems > 0) {
-    const size_t n4 = static_cast<size_t>(scratch_elems) / 4;
-    const size_t needed = (n4 + kThreads - 1) / kThreads;
-    const size_t blocks = needed < kConvertBlocks ? needed : kConvertBlocks;
-    to_bf16_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        reinterpret_cast<const float4*>(scratch), static_cast<__nv_bfloat162*>(out_bf16), n4);
-    err = cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  kernel<<<static_cast<unsigned>(num_boxes) * b.count, kThreads, b.smem, s>>>(
+      levels, level_rows, boxes, keys, weights, divisor, pool_m1, num_boxes / batch, pool,
+      b.rows, b.count, static_cast<int>(per_corner), static_cast<int>(rows));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1-bwd, step 2 of 2. starts: rows + 1 ints, row r's entries being sorted
+// positions [starts[r], starts[r + 1]); order: the entries' indices in
+// that sorted order (int64); weights as the emit wrote them; grad_out
+// [num_boxes, pool, pool, channels] (grad_dtype 0 = float32, 1 =
+// bfloat16), per_corner = num_boxes * pool²; out: rows x channels values
+// (out_dtype 0 = float32, 1 = bfloat16), every one written; long_rows:
+// device scratch of at least entries / (kShortSegment + 1) + 1 ints
+// (entries = 4 * per_corner), the first one the count. channels a
+// multiple of 8 up to 8 * kThreads; grad_out and out 16-byte aligned.
+// Returns the CUDA error of the launches (0 on success).
+int mrt_roi_align_backward_reduce(const int* starts, const long long* order,
+                                  const float* weights, const void* grad_out, int grad_dtype,
+                                  void* out, int out_dtype, int rows, int channels,
+                                  int per_corner, int* long_rows, void* stream) {
+  if (rows < 0 || channels < 8 || channels % 8 || channels > 8 * kThreads ||
+      per_corner < 0 || static_cast<long long>(rows) * (channels / 8) >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* count = long_rows;
+  int* listed = long_rows + 1;
+  cudaError_t err;
+  if (grad_dtype == 0 && out_dtype == 0) {
+    err = launch_reduce<float, float>(starts, order, weights, grad_out, out, listed, count,
+                                      rows, channels, per_corner, s);
+  } else if (grad_dtype == 0 && out_dtype == 1) {
+    err = launch_reduce<float, __nv_bfloat16>(starts, order, weights, grad_out, out, listed,
+                                              count, rows, channels, per_corner, s);
+  } else if (grad_dtype == 1 && out_dtype == 0) {
+    err = launch_reduce<__nv_bfloat16, float>(starts, order, weights, grad_out, out, listed,
+                                              count, rows, channels, per_corner, s);
+  } else if (grad_dtype == 1 && out_dtype == 1) {
+    err = launch_reduce<__nv_bfloat16, __nv_bfloat16>(starts, order, weights, grad_out, out,
+                                                      listed, count, rows, channels,
+                                                      per_corner, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);
+}
+
+// The long-row scratch mrt_roi_align_backward_reduce needs for `entries`
+// entries, in ints.
+long long mrt_roi_align_backward_scratch(long long entries) {
+  return entries / (kShortSegment + 1) + 2;
 }
 
 // Types: 0 = float32, 1 = bfloat16, 2 = int8 (tables only). Float tables

@@ -132,11 +132,15 @@ def library() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_float), _P, _P, _I, _I, _I, _I, _I, _I,
         ctypes.c_float, ctypes.c_float, _P]
     lib.mrt_roi_align.restype = _I
-    lib.mrt_roi_align_backward.argtypes = [
-        ctypes.POINTER(_P), ctypes.POINTER(_I), ctypes.POINTER(_I), _P, _P,
-        _I, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _P,
-        ctypes.c_longlong, _P, _P]
-    lib.mrt_roi_align_backward.restype = _I
+    lib.mrt_roi_align_backward_emit.argtypes = [
+        ctypes.POINTER(_I), ctypes.POINTER(_I), _P, _I, _I, _I,
+        ctypes.c_float, ctypes.c_float, _P, _P, _P]
+    lib.mrt_roi_align_backward_emit.restype = _I
+    lib.mrt_roi_align_backward_reduce.argtypes = [
+        _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P]
+    lib.mrt_roi_align_backward_reduce.restype = _I
+    lib.mrt_roi_align_backward_scratch.argtypes = [ctypes.c_longlong]
+    lib.mrt_roi_align_backward_scratch.restype = ctypes.c_longlong
     lib.mrt_nms.argtypes = [_P, _P, _I, _I, ctypes.c_float, _P, _P, _P]
     lib.mrt_nms.restype = _I
     lib.mrt_nms_scratch_words.argtypes = [_I]
@@ -288,10 +292,16 @@ def roi_align_backward_flat(grad_out: torch.Tensor, boxes: torch.Tensor,
     as `roi_align` took them; shapes: the four levels' [B, H_l, W_l, C];
     dtype: the levels' dtype (float32 or bfloat16). Returns the four
     level gradients [B, H_l, W_l, C] in `dtype` flattened into one
-    buffer, level after level: float32 sums of atomic adds in a scratch
-    the wrapper allocates, rounded once to bf16 for bf16 levels.
-    `roi_align_backward.launches` counts the calls (a call is a memset,
-    the scatter and, for bf16, the rounding pass)."""
+    buffer, level after level.
+
+    Version 3: the emit kernel writes each (sample, corner)'s row and
+    weight, corner-major as the plain version's index_add_ calls take
+    them; a stable sort of the rows (integers) and a search of the sorted
+    rows give each row's segment; the reduce kernel adds each row's
+    segment in that order in float32 and writes every value once. So the
+    float32 sums equal the plain version's on the CPU, and a call
+    repeats bit for bit. `roi_align_backward.launches` counts the calls
+    (a call is the two kernels and the ordering between them)."""
     if (boxes.dtype != torch.float32 or boxes.dim() != 2
             or boxes.shape[1] != 4 or not boxes.is_cuda
             or not boxes.is_contiguous()):
@@ -314,30 +324,73 @@ def roi_align_backward_flat(grad_out: torch.Tensor, boxes: torch.Tensor,
     if any(len(s) != 4 or s[0] != b or s[3] != c for s in shapes):
         raise ValueError("roi_align_backward: levels of one batch and "
                          "channel count expected")
-    if (b < 1 or c % 8 or m % b
-            or any(s[1] * s[2] * c >= 2 ** 31 for s in shapes)):
-        raise ValueError("roi_align_backward: B >= 1, C a multiple of 8, "
-                         "boxes a whole number per image and a level image "
-                         "within 32-bit offsets expected")
-    device = boxes.device
-    sizes = [s[0] * s[1] * s[2] * s[3] for s in shapes]
-    scratch = torch.empty(sum(sizes), dtype=torch.float32, device=device)
-    f32 = torch.split(scratch, sizes)
-    out = (None if dtype == torch.float32 else
-           torch.empty(sum(sizes), dtype=dtype, device=device))
-    lib = library()
-    with torch.cuda.device(device):
-        err = lib.mrt_roi_align_backward(
-            (_P * 4)(*[t.data_ptr() for t in f32]),
-            (_I * 4)(*[s[1] for s in shapes]),
-            (_I * 4)(*[s[2] for s in shapes]), boxes.data_ptr(),
-            grad_out.data_ptr(), m, m // b, pool_size, c,
-            _DTYPES[grad_out.dtype][0], level_divisor(image_shape),
-            float(pool_size - 1), scratch.data_ptr(), scratch.numel(),
-            None if out is None else out.data_ptr(), _stream(device))
-    _check_launch(lib, "roi_align_backward", err)
+    rows = sum(s[0] * s[1] * s[2] for s in shapes)
+    per_corner = m * pool_size * pool_size
+    if (b < 1 or c % 8 or c > 2048 or m % b or rows >= 2 ** 31 - 1
+            or 4 * per_corner >= 2 ** 31 or rows * (c // 8) >= 2 ** 31):
+        raise ValueError("roi_align_backward: B >= 1, C a multiple of 8 up "
+                         "to 2048, boxes a whole number per image and rows "
+                         "and samples within 32-bit indices expected")
+    keys, weights = _roi_backward_emit(boxes, shapes, pool_size,
+                                       image_shape)
+    order, starts = _roi_backward_order(keys, rows)
+    out = _roi_backward_reduce(grad_out, order, starts, weights, rows, dtype)
     roi_align_backward.launches += 1
-    return scratch if out is None else out
+    return out
+
+
+def _roi_backward_emit(boxes, shapes, pool_size, image_shape):
+    """K1-bwd's first kernel: (keys, weights), each 4 * B*N * P² entries,
+    corner-major: each sample's corner row in the four levels' rows (one
+    past the last for a sample outside its level) and its weight."""
+    m = boxes.shape[0]
+    per_corner = m * pool_size * pool_size
+    keys = torch.empty(4 * per_corner, dtype=torch.int32, device=boxes.device)
+    weights = torch.empty(4 * per_corner, dtype=torch.float32,
+                          device=boxes.device)
+    lib = library()
+    with torch.cuda.device(boxes.device):
+        err = lib.mrt_roi_align_backward_emit(
+            (_I * 4)(*[s[1] for s in shapes]),
+            (_I * 4)(*[s[2] for s in shapes]), boxes.data_ptr(), m,
+            shapes[0][0], pool_size, level_divisor(image_shape),
+            float(pool_size - 1), keys.data_ptr(), weights.data_ptr(),
+            _stream(boxes.device))
+    _check_launch(lib, "roi_align_backward", err)
+    return keys, weights
+
+
+def _roi_backward_order(keys: torch.Tensor, rows: int):
+    """K1-bwd's ordering: the entries sorted by row, stable so that a
+    row's entries keep their corner-major order (int64 indices), and each
+    row's first sorted position ([rows + 1] int32: row r's entries are
+    order[starts[r]:starts[r + 1]])."""
+    sorted_keys, order = torch.sort(keys, stable=True)
+    starts = torch.searchsorted(
+        sorted_keys, torch.arange(rows + 1, dtype=torch.int32,
+                                  device=keys.device), out_int32=True)
+    return order, starts
+
+
+def _roi_backward_reduce(grad_out, order, starts, weights, rows, dtype):
+    """K1-bwd's reduce kernels: every row of the levels written once, its
+    segment of entries added in order (a short segment by the row's
+    threads, a long one by a CTA that stages its entries) -> [rows * C]
+    in `dtype`."""
+    c = grad_out.shape[-1]
+    per_corner = grad_out.numel() // c
+    out = torch.empty(rows * c, dtype=dtype, device=grad_out.device)
+    lib = library()
+    long_rows = torch.empty(lib.mrt_roi_align_backward_scratch(order.numel()),
+                            dtype=torch.int32, device=grad_out.device)
+    with torch.cuda.device(grad_out.device):
+        err = lib.mrt_roi_align_backward_reduce(
+            starts.data_ptr(), order.data_ptr(), weights.data_ptr(),
+            grad_out.data_ptr(), _DTYPES[grad_out.dtype][0], out.data_ptr(),
+            _DTYPES[dtype][0], rows, c, per_corner, long_rows.data_ptr(),
+            _stream(grad_out.device))
+    _check_launch(lib, "roi_align_backward", err)
+    return out
 
 
 roi_align_backward.launches = 0

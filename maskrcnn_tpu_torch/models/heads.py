@@ -81,18 +81,44 @@ class MaskHead(nn.Module):
         return torch.sigmoid(x).permute(0, 2, 3, 1)
 
 
+def _upsample_axis(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """One axis of `upsample_2x`: output 2i + 1 blends inputs i and i + 1
+    (0.75, 0.25), output 2i inputs i - 1 and i (0.25, 0.75); outputs 0
+    and 2n - 1 are inputs 0 and n - 1 (F.interpolate's clamped edge taps,
+    (1, 0) and (0.75, 0.25) on one input, give exactly that)."""
+    n = x.shape[dim]
+    lo, hi = x.narrow(dim, 0, n - 1), x.narrow(dim, 1, n - 1)
+    even = torch.cat([x.narrow(dim, 0, 1), lo * 0.25 + hi * 0.75], dim)
+    odd = torch.cat([lo * 0.75 + hi * 0.25, x.narrow(dim, n - 1, 1)], dim)
+    return torch.stack([even, odd], dim + 1).flatten(dim, dim + 1)
+
+
+def upsample_2x(x: torch.Tensor) -> torch.Tensor:
+    """x [N, C, H, W] float -> [N, C, 2H, 2W]: the fixed 2x bilinear
+    upsample with half-pixel centers of F.interpolate(scale_factor=2,
+    mode="bilinear", align_corners=False), width then height, each a
+    blend of two taps. Its autograd (slices, products, sums, cat, stack)
+    is deterministic. F.interpolate on the CPU contracts a blend into a
+    fused multiply-add, so the two differ in the last bits
+    (tests/test_torch_determinism.py states the bound)."""
+    return _upsample_axis(_upsample_axis(x, 3), 2)
+
+
 class KeypointHead(nn.Module):
     """pooled [N, P, P, 256] -> per-keypoint heatmap logits [N, 4P, 4P, K]
     float32 (the JAX KeypointHead: `convs` x conv3x3 at `dim` with ReLU,
     the 2x2 stride-2 deconv, ReLU, a 1x1 score conv, then a fixed 2x
     bilinear upsample with half-pixel centers). No BN.
 
-    The upsample is F.interpolate(align_corners=False). jax.image.resize
-    renormalizes the edge taps instead of clamping the coordinate; at an
-    exact 2x upscale both give weights (1) at the edges and (0.75, 0.25)
-    inside, equal in exact arithmetic, but the JAX package blends one
-    axis after the other and the port both at once, so values may differ
-    in the last bits (tests/test_torch_protocols.py states the bound)."""
+    The upsample is `upsample_2x`: F.interpolate(align_corners=False)'s
+    taps written as slices, products and sums, whose gradient is
+    deterministic on the card (F.interpolate's bilinear backward is not,
+    and raises under the training step's deterministic mode).
+    jax.image.resize renormalizes the edge taps instead of clamping the
+    coordinate; at an exact 2x upscale both give weights (1) at the edges
+    and (0.75, 0.25) inside, equal in exact arithmetic, so values may
+    differ in the last bits (tests/test_torch_protocols.py states the
+    bound)."""
 
     def __init__(self, num_keypoints: int, convs: int = 8, dim: int = 512,
                  dtype=None, device=None):
@@ -111,6 +137,4 @@ class KeypointHead(nn.Module):
             x = F.relu(getattr(self, f"conv{i}")(x))
         x = F.relu(self.deconv(x))
         logits = self.score(x).to(torch.float32)
-        up = F.interpolate(logits, scale_factor=2, mode="bilinear",
-                           align_corners=False)
-        return up.permute(0, 2, 3, 1)
+        return upsample_2x(logits).permute(0, 2, 3, 1)

@@ -206,7 +206,11 @@ def roi_align_backward_levels(grad: torch.Tensor, shapes: Sequence[tuple],
     footprint (w the forward's corner weight), corners 00, 01, 10, 11 in
     turn, as the JAX package's `_gather_patches_bwd`; a sample outside
     adds nothing. The sums run in float32 and round to `dtype` once (the
-    JAX package multiplies and scatter-adds in the table dtype)."""
+    JAX package multiplies and scatter-adds in the table dtype). On the
+    CPU index_add_ adds in index order, so each level value is a
+    sequential float32 sum over (corner, box, cell row, cell col); K1-bwd
+    adds in that order too, and equals this bit for bit
+    (tests/test_torch_determinism.py pins the order)."""
     m, p = in_y.shape
     c = grad.shape[-1]
     corners, inside = _corners(shapes, box_level, in_y, in_x,

@@ -18,6 +18,14 @@ backward (the mrt::roi_align op's registered gradient,
 kernels/torch_ops.py), its proposal NMS K2. Under data parallelism
 (`train_step`'s `dp`) the losses are global-batch means and the
 gradients are all-reduced before the update (parallel/).
+
+`train_step` runs under torch's strict deterministic mode
+(`deterministic`): cuDNN and cuBLAS take deterministic algorithms,
+index_add_ and the gathers' backward their deterministic forms, and an
+op with no deterministic form raises. With K1-bwd's fixed order of sums,
+a step on the card gives the same bits from the same weights, batch and
+generator, as the JAX package's step does. cuBLAS needs
+CUBLAS_WORKSPACE_CONFIG, which `maskrcnn_tpu_torch.train` sets on import.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.utils.deterministic
 from torch.utils.checkpoint import checkpoint
 
 from maskrcnn_tpu_torch.detection.pipeline import _pool_rois, rpn_refine
@@ -43,6 +52,27 @@ from maskrcnn_tpu_torch.train.targets import (_crop_gt_masks,
 
 # the global-norm clip of the reference (model.py:1633)
 CLIP_NORM = 5.0
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch.use_deterministic_algorithms(True), strict (not warn_only),
+    inside; the caller's setting restored on exit. The mode's fill of
+    uninitialized memory (torch.utils.deterministic
+    .fill_uninitialized_memory) is off inside: every op of the step
+    writes its whole output, and the fill cost a CocoConfig B=4 step
+    3,536 more launches and about 5 ms more device time on an H100
+    (PERF.md section 6); chip_smoke phase 7d checks that runs repeat."""
+    mode = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(mode, warn_only=warn_only)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
 
 
 def _remat(fn):
@@ -322,18 +352,23 @@ def train_step(model: MaskRCNN, optimizer: SGD,
     all-reduced), and the gradients and losses are all-reduced (SUM)
     before the update, so every rank applies the same global step. Under
     SP_DEVICES (the model's `spatial` transport) the heads' gradients,
-    alike on an sp group's ranks, are divided by SP_DEVICES first."""
-    with (dp.global_means() if dp is not None else contextlib.nullcontext()):
-        grads, losses = _step_grads(model, optimizer, batch, generator)
-    if dp is not None:
-        shared = None
-        if model.spatial is not None:
-            # the parameters after the spatial gather: alike on the group
-            upstream = {id(p) for p in model.fpn.parameters()}
-            shared = [id(p) not in upstream for p in optimizer.params]
-        grads = dp.sum_grads(grads, shared)
-        losses = dp.sum_losses(losses)
-    optimizer.update(grads, torch.isfinite(losses.total))
+    alike on an sp group's ranks, are divided by SP_DEVICES first.
+
+    The step runs under `deterministic()`."""
+    with deterministic():
+        with (dp.global_means() if dp is not None
+              else contextlib.nullcontext()):
+            grads, losses = _step_grads(model, optimizer, batch, generator)
+        if dp is not None:
+            shared = None
+            if model.spatial is not None:
+                # the parameters after the spatial gather: alike on the
+                # group
+                upstream = {id(p) for p in model.fpn.parameters()}
+                shared = [id(p) not in upstream for p in optimizer.params]
+            grads = dp.sum_grads(grads, shared)
+            losses = dp.sum_losses(losses)
+        optimizer.update(grads, torch.isfinite(losses.total))
     return losses.as_dict()
 
 

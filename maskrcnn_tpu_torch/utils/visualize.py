@@ -3,7 +3,9 @@ maskrcnn_tpu/utils/visualize.py; reference: utils.py:294-488
 display_instances/apply_mask/random_colors/plot_loss).
 
 matplotlib is imported only where a figure is drawn, so the port imports
-without it.
+without it. `render_instances` draws with numpy alone (masks, box
+outlines, keypoint dots on a uint8 array) for machines without
+matplotlib; `data.image_io.write_png` writes its result.
 """
 
 from __future__ import annotations
@@ -38,6 +40,52 @@ def apply_mask(image: np.ndarray, mask: np.ndarray, color,
     rgb = np.asarray(color, np.float32) * 255.0
     out[inside] = out[inside] * (1.0 - alpha) + alpha * rgb
     return out.astype(np.uint8)
+
+
+def _rgb(color) -> np.ndarray:
+    return np.round(np.asarray(color, np.float32) * 255.0).astype(np.uint8)
+
+
+def render_instances(image: np.ndarray, boxes, masks=None, keypoints=None,
+                     colors=None, thickness: int = 1,
+                     radius: int = 1) -> np.ndarray:
+    """Instances drawn on a copy of `image` (RGB uint8 [H, W, 3]) with
+    numpy alone: each mask blended in its instance's colour
+    (`apply_mask`), each box outlined `thickness` pixels wide on its
+    inside edge, each keypoint a filled dot of `radius` pixels in the
+    colour, ringed in white.
+
+    boxes: [N, 4] (y1, x1, y2, x2) in pixels, y2 and x2 exclusive; masks:
+    [N, H, W] {0, 1} or None; keypoints: [N, K, 2 or 3] (y, x, ...) or
+    None; colors: N RGB tuples in [0, 1] (default: `random_colors(N,
+    shuffle=False)`). Returns the drawing, uint8 [H, W, 3]."""
+    shown = np.array(image, dtype=np.uint8, copy=True)
+    n = 0 if boxes is None else len(boxes)
+    h, w = shown.shape[:2]
+    colors = colors or random_colors(max(n, 1), shuffle=False)
+    yy, xx = np.mgrid[-radius - 1:radius + 2, -radius - 1:radius + 2]
+    disc = yy * yy + xx * xx <= radius * radius
+    ring = (yy * yy + xx * xx <= (radius + 1) ** 2) & ~disc
+    for i in range(n):
+        rgb = _rgb(colors[i])
+        if masks is not None:
+            shown = apply_mask(shown, np.asarray(masks[i]), colors[i])
+        y1, x1, y2, x2 = np.clip(np.round(np.asarray(boxes[i], np.float64)),
+                                 0, [h, w, h, w]).astype(int)
+        if y2 > y1 and x2 > x1:
+            t = thickness
+            shown[y1:min(y1 + t, y2), x1:x2] = rgb
+            shown[max(y2 - t, y1):y2, x1:x2] = rgb
+            shown[y1:y2, x1:min(x1 + t, x2)] = rgb
+            shown[y1:y2, max(x2 - t, x1):x2] = rgb
+        if keypoints is None:
+            continue
+        for y, x in np.round(np.asarray(keypoints[i])[:, :2]).astype(int):
+            for mark, value in ((ring, 255), (disc, rgb)):
+                ys, xs = y + yy[mark], x + xx[mark]
+                keep = (ys >= 0) & (ys < h) & (xs >= 0) & (xs < w)
+                shown[ys[keep], xs[keep]] = value
+    return shown
 
 
 def display_instances(image: np.ndarray, boxes, masks, class_ids,

@@ -59,7 +59,8 @@ SLICE_MODULES = (
     "tools.finetune_custom_torch", "tools.export_model_torch",
     "tools.learning_torch", "tools.protocol_ap_ab_torch",
     "tools.int8_ablation_gate_torch", "tools.int8_ap_gate_torch",
-    "tools.int8_calib_diag_torch")
+    "tools.int8_calib_diag_torch", "tools.keypoint_demo_torch",
+    "tools.train_synthetic_ckpt_torch", "tools.build_notebook_torch")
 # packages the port must not import: JAX, flax, the JAX package itself
 # (even its modules that import no JAX) and Pillow (the card's machine has
 # none: the port reads image files with data/image_io.py)
@@ -90,7 +91,12 @@ def test_port_imports_no_jax():
 def _imported_names(path: Path):
     """Every module named by an import statement in the file, at any
     depth (imports inside functions included)."""
-    for node in ast.walk(ast.parse(path.read_text())):
+    return _names_in(path.read_text())
+
+
+def _names_in(source: str):
+    """Every module named by an import statement in Python source."""
+    for node in ast.walk(ast.parse(source)):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -110,7 +116,11 @@ def _imported_names(path: Path):
                                   "explore_torch.py",
                                   "tools/finetune_custom_torch.py",
                                   "tools/export_model_torch.py",
-                                  "tests/torch_sp_worker.py"])
+                                  "tests/torch_sp_worker.py",
+                                  "tools/keypoint_demo_torch.py",
+                                  "tools/train_synthetic_ckpt_torch.py",
+                                  "tools/build_notebook_torch.py",
+                                  "tools/ab_train_torch.py"])
 def test_port_sources_import_nothing_of_jax(path):
     """chip_smoke.py, the port's CLIs and tools and every source file of
     the port, read with ast: no import of JAX, flax, the JAX package or
@@ -121,6 +131,33 @@ def test_port_sources_import_nothing_of_jax(path):
     bad = [(str(f.relative_to(REPO)), name) for f in files
            for name in _imported_names(f) if _forbidden(name)]
     assert not bad, bad
+
+
+# the card's machine has neither nbformat nor matplotlib: the demo scripts
+# and the notebook draw with numpy and write JSON and PNG themselves
+DEMO_FORBIDDEN = FORBIDDEN + ("nbformat", "matplotlib")
+
+
+@pytest.mark.parametrize("path", ["tools/keypoint_demo_torch.py",
+                                  "tools/train_synthetic_ckpt_torch.py",
+                                  "tools/build_notebook_torch.py",
+                                  "explore_torch.ipynb"])
+def test_demo_sources_import_no_jax_pil_nbformat_matplotlib(path):
+    """The demo scripts and every code cell of explore_torch.ipynb, read
+    with ast: no import of JAX, flax, the JAX package, Pillow, nbformat
+    or matplotlib, even inside a function."""
+    root = REPO / path
+    if root.suffix == ".ipynb":
+        cells = ["".join(c["source"]) for c in
+                 json.loads(root.read_text())["cells"]
+                 if c["cell_type"] == "code"]
+    else:
+        cells = [root.read_text()]
+    assert cells
+    names = [name for src in cells for name in _names_in(src)]
+    bad = [n for n in names if any(n == f or n.startswith(f + ".")
+                                   for f in DEMO_FORBIDDEN)]
+    assert names and not bad, bad
 
 
 CONFIG_CLASSES = ("Config", "CocoConfig", "CocoInferenceConfig",

@@ -12,8 +12,9 @@ the same weights over 8 held-out PNG scenes as
 
 (4 calibration scenes, seeds 900 + i). Fails unless each quantized bbox
 and segm AP50 is within 0.05 of float's. --runs N repeats the gate from
-training on (the card's training runs differ: K1-bwd and cuDNN add with
-float atomics) and records every run.
+training on and records every run (the card's runs once differed:
+K1-bwd and cuDNN added with float atomics; the training step is
+deterministic now, and the runs show it).
 
     python tools/int8_ap_gate_torch.py [--steps 240] [--batch 8]
         [--runs 1] [--json-out FILE]

@@ -39,6 +39,7 @@ port; nothing of JAX or Pillow.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import itertools
 import json
 import os
@@ -321,14 +322,16 @@ def device_pool(make, rng, cfg, b, n, device):
 
 
 def train(cfg, batch_iter, steps: int, device, lr: float = LR,
-          log_every: int = 60, tag: str = ""):
+          log_every: int = 60, tag: str = "", trace: list = None):
     """Train MaskRCNN(cfg) from its seeded init (torch seed 0) for `steps`
     SGD steps under preset "all" (train/trainer.py's masks), the samplers
     drawing from a torch generator seeded 1 on the device. batch_iter
-    yields numpy batches or batches already on the device. Returns
-    (model, info): the wall seconds, their mean a step, the median step
-    after two warm-ups (host clock, two steps in flight: the card's pace
-    once it sets it) and the last losses."""
+    yields numpy batches or batches already on the device; a list `trace`
+    gets each step's losses (0-d device tensors). Returns (model, info):
+    the wall seconds, their mean a step, the median step after two
+    warm-ups (host clock, two steps in flight: the card's pace once it
+    sets it), the last losses and the trained state's digest
+    (`state_digest`)."""
     from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
     from maskrcnn_tpu_torch.train.step import make_optimizer, train_step
     from maskrcnn_tpu_torch.train.trainer import (LAYER_REGEX, decay_mask,
@@ -356,6 +359,8 @@ def train(cfg, batch_iter, steps: int, device, lr: float = LR,
         if not torch.is_tensor(batch["images"]):
             batch = to_device(batch, dev)
         metrics = train_step(model, opt, batch, gen)
+        if trace is not None:
+            trace.append(metrics)
         if cuda:
             # at most two steps in flight, as Trainer.fit
             event = torch.cuda.Event()
@@ -375,7 +380,7 @@ def train(cfg, batch_iter, steps: int, device, lr: float = LR,
     return model, {"steps": steps, "seconds": seconds,
                    "ms_per_step": seconds * 1e3 / max(steps, 1),
                    "median_ms": float(np.median(gaps)) if len(gaps) else None,
-                   "losses": losses}
+                   "losses": losses, "state_sha256": state_digest(model)}
 
 
 def float_state(model):
@@ -383,6 +388,17 @@ def float_state(model):
     checkpoint.convert.load_state takes)."""
     return {k: v.detach().to("cpu", torch.float32).numpy()
             for k, v in model.state_dict().items()}
+
+
+def state_digest(model) -> str:
+    """SHA-256 of the model's state as float32, tensor after tensor in
+    state_dict order, each name then its bytes: one training run's
+    fingerprint (the same seeds give the same digest)."""
+    digest = hashlib.sha256()
+    for name, value in float_state(model).items():
+        digest.update(name.encode())
+        digest.update(np.ascontiguousarray(value).tobytes())
+    return digest.hexdigest()
 
 
 def detector(cfg, state, device, calib_images=None):
@@ -675,17 +691,18 @@ def main(argv=None) -> int:
         print("learning_torch: no CUDA device", file=sys.stderr)
         return 1
     record = {"card": card_record(args.device), "steps": args.steps,
-              "floors": FLOORS, "runs": []}
+              "floors": FLOORS, "runs": [], "missed_floors": []}
     failed = []
     for run in range(args.runs):
         t0 = time.perf_counter()
         out, failures = run_gates(gates, args.device, args.steps)
         for name, rec in out.items():
-            print(f"[learning run {run + 1}] {name}: {gate_line(name, rec)}",
-                  flush=True)
+            print(f"[learning run {run + 1}] {name}: {gate_line(name, rec)}"
+                  f"; state {rec['train']['state_sha256']}", flush=True)
         print(f"[learning run {run + 1}] {time.perf_counter() - t0:.1f} s; "
               f"missed floors: {failures or 'none'}", flush=True)
         record["runs"].append(out)
+        record["missed_floors"].append(failures)
         failed += failures
         if args.json_out:
             write_record(args.json_out, record)
