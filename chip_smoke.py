@@ -142,10 +142,16 @@ Phases, each printing one line:
     bit-identical, its launches and time beside the live step's;
     8e utils.profiler.trace around one step writes a Chrome trace;
  9. after phase 8, image files and learning (tools/learning_torch.py):
-    9a the port's PNG and JPEG reader (data/image_io.py) gives Pillow's
-    pixels for every repository image (SHA-256 digests taken with Pillow
-    12.1.0; the card's machine has no Pillow), its host time a decode of
-    a 640x480 and a 1252² JPEG, write_png read back exactly;
+    9a the port's native PNG and JPEG decoder (data/native_image.py,
+    csrc/image_decode.cpp built with g++) gives Pillow's pixels for every
+    repository image and every file of the committed corpus
+    (tests/data/image_io; SHA-256 digests taken with Pillow 12.1.0; the
+    card's machine has no Pillow) and equals the plain Python route on
+    the repository images, the corpus's refused files name their modes,
+    host ms a decode native beside plain (640x480, 1252² and the
+    progressive scene), decodes a second on 1 and 4 threads each route,
+    BatchLoader img/s with 1 and 4 workers,
+    write_png read back exactly;
     9b K1 against its plain version at the 64 px levels (P5 2x2), K1-bwd
     there as in 7a, then tests/test_learning_ap.py on the card: the 64 px
     TinyConfig trained from scratch (240 steps, B=4, one class),
@@ -166,6 +172,12 @@ Phases, each printing one line:
     epoch checkpoint, evaluate_coco bbox and segm over 16 PNG images in
     float and int8: ms a step, peak memory, AP, and K1, K1-bwd, K2, K4
     (K1's int8 mode in int8) launched;
+    9d the main path from files: evaluate_coco over a COCO directory of
+    the corpus's 640x480 scenes (one progressive) through the default
+    CocoInferenceConfig Detector at B=8, once through the plain decode
+    route and once through the native one: detections equal, K1, K2 and
+    K4 launched, img/s and the decode's share of each sweep; one POST of
+    the progressive JPEG to tools/serve_torch.py's handler answered;
 10. after phase 9, the spatial axis and the debug and tutorial surface:
     10a predict_step B=2 at 1024² with the backbone and FPN on 2 and 4
     row shards of the one card (parallel/spatial.py, in process):
@@ -2350,19 +2362,23 @@ def _overlap_us(a, b):
 
 class RecordingDetector:
     """A Detector's dispatch_batch/fetch that records every batch it is
-    given (phase 8a repeats them through detect_batch)."""
+    given (phase 8a repeats them through detect_batch) and every result
+    it fetches, in order (phase 9d compares two sweeps')."""
 
     def __init__(self, det):
         self.det = det
         self.config = det.config
         self.batches = []
+        self.results = []
 
     def dispatch_batch(self, images):
         self.batches.append(list(images))
         return self.det.dispatch_batch(images)
 
     def fetch(self, handle):
-        return self.det.fetch(handle)
+        out = self.det.fetch(handle)
+        self.results.extend(out)
+        return out
 
 
 def server_phase(det, kernels, card, n_images=32, threads=8, max_batch=8):
@@ -2979,26 +2995,50 @@ def learning_tools():
 
 
 def decode_phase(card):
-    """Phase 9a: the port's PNG and JPEG reader gives Pillow's pixels for
-    every repository image (digests above); host ms a decode of
-    images/sample.jpg (640x480) and output/detections.jpg (1252²), median
-    of 5; write_png read back exactly (RGB and grayscale)."""
-    from maskrcnn_tpu_torch.data import image_io
+    """Phase 9a: the port's native image decoder (data/native_image.py,
+    csrc/image_decode.cpp built with g++) gives Pillow's pixels for every
+    repository image (digests above) and equals the plain Python route
+    there; every file of the committed corpus (tests/data/image_io:
+    progressive, CMYK and YCCK, Adobe RGB, sampling factors up to 4,
+    Adam7 and every PNG bit depth) decodes to its Pillow digest, and each
+    refused file raises NotImplementedError naming its mode; host ms a
+    decode, median of 5, native beside plain (images/sample.jpg 640x480,
+    output/detections.jpg 1252², the progressive scene); decodes a
+    second of the two baseline scenes on 1 and 4 threads, each route
+    (whether a decode leaves the GIL); BatchLoader images a second with
+    1 and 4 worker threads over a COCO directory of the corpus scenes (a
+    whole training sample); write_png read
+    back exactly (RGB and grayscale)."""
+    from maskrcnn_tpu_torch.data import image_io, native_image
+    from tools import image_decode_bench_torch as bench
+    t0 = time.perf_counter()
+    fresh = not native_image.library_path().exists()
+    native_image.library()
+    build_s = time.perf_counter() - t0
     for name, (h, w, digest) in IMAGE_DIGESTS.items():
-        img = image_io.read_image(REPO / name)
+        data = (REPO / name).read_bytes()
+        img = image_io.read_image(data)
         check(img.shape == (h, w, 3)
               and hashlib.sha256(img.tobytes()).hexdigest() == digest,
               f"9a: {name} decodes to other pixels than Pillow's")
-    times = []
-    for name in ("images/sample.jpg", "output/detections.jpg"):
-        data = (REPO / name).read_bytes()
-        runs = []
-        for _ in range(5):
-            t = time.perf_counter()
-            image_io.read_image(data)
-            runs.append((time.perf_counter() - t) * 1e3)
-        times.append(f"{name} {statistics.median(runs):.2f} ms "
-                     f"(runs {[round(r, 2) for r in runs]})")
+        check(np.array_equal(img, image_io.read_image(data, plain=True)),
+              f"9a: {name}: the native and plain routes differ")
+    index = bench.corpus_index()
+    for name, entry in index["files"].items():
+        img = image_io.read_image(bench.CORPUS / name)
+        check(list(img.shape) == entry["shape"] + [3]
+              and hashlib.sha256(img.tobytes()).hexdigest()
+              == entry["sha256"], f"9a: corpus {name} decodes to other "
+              "pixels than Pillow's")
+    for name, word in index["refused"].items():
+        try:
+            image_io.read_image(bench.CORPUS / name)
+            check(False, f"9a: corpus {name} was not refused")
+        except NotImplementedError as e:
+            check(word in str(e), f"9a: corpus {name} refused as {e}")
+    times = bench.decode_times(5)
+    threads = bench.decode_rates()
+    rates = bench.loader_rates()
     rng = np.random.RandomState(9)
     for shape in ((37, 53, 3), (29, 17)):
         img = rng.randint(0, 256, shape, dtype=np.uint8)
@@ -3006,10 +3046,153 @@ def decode_phase(card):
         want = img if img.ndim == 3 else np.repeat(img[..., None], 3, 2)
         check(np.array_equal(back, want), f"9a: write_png {shape} round trip")
     check("PIL" not in sys.modules, "9a: Pillow was imported")
-    print(f"[9a] image_io: {len(IMAGE_DIGESTS)} repository images decode to "
-          f"Pillow's pixels (SHA-256); host decode median of 5: "
-          f"{'; '.join(times)}; write_png reads back exactly; {card}",
-          flush=True)
+    lines = "; ".join(
+        f"{name} native {row['native_ms']:.2f} ms, plain "
+        + (f"{row['plain_ms']:.2f} ms ({row['plain_ms'] / row['native_ms']:.1f}x)"
+           if row["plain_ms"] is not None else "refuses it")
+        for name, row in times.items())
+    print(f"[9a] native decoder {'built' if fresh else 'found built'} in "
+          f"{build_s:.2f} s; {len(IMAGE_DIGESTS)} repository images decode "
+          f"to Pillow's pixels (SHA-256) and equal the plain route; corpus: "
+          f"{len(index['files'])} files to their digests, "
+          f"{len(index['refused'])} refused by name; host decode median of "
+          f"5: {lines}; decodes a second of the baseline scenes on 1 / 4 "
+          + "threads: " + ", ".join(
+              f"{route} {row[1]:.1f} / {row[4]:.1f} ({row[4] / row[1]:.2f}x)"
+              for route, row in threads.items())
+          + f"; BatchLoader over the corpus scenes (CocoConfig, B=4): 1 "
+          f"worker {rates[1]:.1f} img/s, 4 workers {rates[4]:.1f} img/s "
+          f"({rates[4] / rates[1]:.2f}x); write_png reads back exactly; "
+          f"{card}", flush=True)
+
+
+def same_detections(a, b) -> bool:
+    """Two Detector result lists equal: class ids, scores, boxes, masks."""
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if (x is None) != (y is None):
+            return False
+        if x is not None and not all(
+                np.array_equal(np.asarray(u), np.asarray(v))
+                for u, v in zip(x, y)):
+            return False
+    return True
+
+
+# 9d: the corpus scenes, each this many times (3 batches of 8)
+FILES_COPIES, FILES_B = 8, 8
+
+
+def files_phase(kernels, card, cfg=None):
+    """Phase 9d: the main path from files. evaluate_coco (bbox) over a COCO
+    directory of the corpus's three 640x480 scenes (one progressive), 24
+    images, through the default CocoInferenceConfig Detector (seeded
+    weights, as 5h) at B=8: once with CocoDataset reading through the
+    plain Python route (the progressive scene, which it refuses, through
+    the native one) and once through the native route; the detections of
+    the two sweeps equal, K1, K2 and K4 launched in the native sweep,
+    each sweep's images a second and the decode's share of its seconds.
+    Then one POST of the progressive scene to tools/serve_torch.py's
+    handler on a localhost port is answered with detections. Returns the
+    native sweep's launches."""
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+    from maskrcnn_tpu_torch import CocoInferenceConfig
+    from maskrcnn_tpu_torch.api import Detector
+    from maskrcnn_tpu_torch.data import image_io
+    from maskrcnn_tpu_torch.data.coco import COCO_CLASS_NAMES, CocoDataset
+    from maskrcnn_tpu_torch.eval.evaluate import evaluate_coco
+    from maskrcnn_tpu_torch.serving import BatchingDetector
+    from tools import image_decode_bench_torch as bench
+    from tools.serve_torch import make_handler
+    cfg = cfg or CocoInferenceConfig()
+    det = Detector(cfg, DEVICE, generator=torch.Generator().manual_seed(7))
+    sweeps, launches = {}, None
+    with tempfile.TemporaryDirectory() as tmp:
+        root = bench.coco_scene_dir(Path(tmp), FILES_COPIES)
+        # a warm-up batch: the first request's one-time work is no
+        # route's
+        det.detect_batch([image_io.read_image(
+            bench.CORPUS / "scene_baseline_420.jpg")] * FILES_B)
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        for route in ("plain", "native"):
+            ds = CocoDataset(root, "minival", 2014, cfg)
+            decode = {"s": 0.0, "native": 0}
+
+            def load_image(image_id, ds=ds, plain=route == "plain",
+                           decode=decode):
+                path = ds.image_path(ds.image_index(image_id))
+                t = time.perf_counter()
+                try:
+                    img = image_io.read_image(path, plain=plain)
+                except NotImplementedError:
+                    img = image_io.read_image(path)
+                    decode["native"] += 1
+                decode["s"] += time.perf_counter() - t
+                return img
+
+            ds.load_image = load_image
+            rec = RecordingDetector(det)
+            reset_counts(kernels)
+            t = time.perf_counter()
+            stats = evaluate_coco(rec, ds, ds.coco, "bbox",
+                                  batch_size=FILES_B)
+            seconds = time.perf_counter() - t
+            n = launch_counts(kernels)
+            sweeps[route] = (rec.results, seconds, decode, stats, n)
+        launches = sweeps["native"][4]
+    check(all(launches[k] > 0 for k in ("roi_align", "nms", "paste_pack")),
+          f"9d: launches {launches}")
+    found = sum(len(r[0]) for r in sweeps["native"][0] if r is not None)
+    check(found > 0, "9d: no detection in the sweep")
+    check(same_detections(sweeps["plain"][0], sweeps["native"][0]),
+          "9d: the native route's detections differ from the plain "
+          "route's")
+    n_images = 3 * FILES_COPIES
+    parts = []
+    for route, (_, seconds, decode, stats, _) in sweeps.items():
+        parts.append(
+            f"{route} route {n_images / seconds:.2f} img/s ({seconds:.2f} s, "
+            f"decode {decode['s'] * 1e3 / n_images:.2f} ms an image, "
+            f"{100 * decode['s'] / seconds:.1f}% of the sweep"
+            + (f", {decode['native']} progressive files read natively"
+               if decode["native"] and route == "plain" else "") + ")")
+    # the serve handler: one POST of the progressive scene
+    batcher = BatchingDetector(det, FILES_B, 10.0)
+    server = ThreadingHTTPServer(("127.0.0.1", 0),
+                                 make_handler(batcher, COCO_CLASS_NAMES))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        body = (bench.CORPUS / "scene_progressive.jpg").read_bytes()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.server_address[1]}/detect",
+            data=body, method="POST",
+            headers={"Content-Type": "image/jpeg"})
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            status, reply = resp.status, json.loads(resp.read())
+        post_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.close()
+    check(status == 200 and "detections" in reply,
+          f"9d: the POST of a progressive JPEG was answered {status} "
+          f"{str(reply)[:200]}")
+    print(f"[9d] evaluate_coco bbox over {n_images} files (3 corpus scenes "
+          f"x {FILES_COPIES}, one progressive) through {cfg_name(cfg)} at "
+          f"B={FILES_B}: detections of the plain-route and native-route "
+          f"sweeps equal ({found} detections); " + "; ".join(parts)
+          + f"; bbox AP {sweeps['native'][3][0]:.3f} (seeded weights); "
+          f"launches K1 {launches['roi_align']} K2 {launches['nms']} K4 "
+          f"{launches['paste_pack']}; serve_torch POST of the progressive "
+          f"JPEG answered 200 with {len(reply['detections'])} detections in "
+          f"{post_ms:.1f} ms; {card}", flush=True)
+    return launches
 
 
 # the 64 px gate's training batch and head RoIs an image
@@ -3956,6 +4139,7 @@ def main() -> int:
     decode_phase(card)
     learning_launches = learning_phase(kernels, roi, card)
     full_launches = learning_full_phase(kernels, card)
+    files_launches = files_phase(kernels, card)
     t10 = time.perf_counter()
     f32, sp_launches = sp_inference_phase(kernels, det, fdet, qdet, card)
     t10a = time.perf_counter() - t10
@@ -3982,7 +4166,7 @@ def main() -> int:
     runs = {k: launches[k] + fold_launches[k] + quant_launches[k]
             + product_launches[k] + protocol_launches[k] + train_launches[k]
             + server_launches[k] + learning_launches[k] + full_launches[k]
-            + sp_launches[k] + surface_launches[k]
+            + files_launches[k] + sp_launches[k] + surface_launches[k]
             for k in launches}
     runs["nms"] += retina_k2
     runs["roi_align"] -= runs["roi_align_int8"]

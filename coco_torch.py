@@ -26,7 +26,7 @@ Evaluation runs the minival subset through Detector.dispatch_batch/fetch
 with --keypoints K, the OKS keypoint AP (ground truth with person
 keypoints). Masks are decoded on the host, the reference-parity decode,
 as coco.py does. --tta, --soft-nms SIGMA and --cascade IOUS set the
-config's inference protocols. Image files (PNG and baseline JPEG) are
+config's inference protocols. Image files (PNG and JPEG) are
 read without Pillow (data/image_io.py).
 
 Data-parallel training runs one process a GPU under torchrun, --devices

@@ -14,7 +14,7 @@ returns its tensors (`features`, `anchors`, `proposals`, `detections`),
 so a script can call the stages without the CLI. The RoIAlign is the
 device dispatch (`ops.roi_align.multilevel_roi_align_impl`): K1 on the
 card, the plain `multilevel_roi_align` on the CPU. The image file (PNG
-or baseline JPEG) is read without Pillow (data/image_io.py). Drawing
+or JPEG) is read without Pillow (data/image_io.py). Drawing
 needs matplotlib; without it the stages still run and print, and the CLI
 says that it cannot draw the picture.
 """

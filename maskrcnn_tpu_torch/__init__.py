@@ -19,8 +19,8 @@ run on the card unless given `device="cpu"`. The package carries its own
 copy of the configs (`config.py`), of the host codecs (`data/codecs.py`:
 Pillow's bilinear resample in torch int32 ops, no Pillow) and of the
 COCO evaluation stack (`eval/`, `data/coco.py`), and imports nothing of
-the JAX package. It reads PNG and baseline JPEG files without Pillow
-(`data/image_io.py`: Pillow's pixels bit for bit), and imports matplotlib
+the JAX package. It reads PNG and JPEG files without Pillow
+(`data/image_io.py`, a native decoder: Pillow's pixels bit for bit), and imports matplotlib
 only to draw (`utils/visualize.py`).
 """
 

@@ -154,20 +154,41 @@ def encode_masks(masks: np.ndarray, scale: float, window, max_dim: int,
     """Instance masks [N, H, W] {0,1} -> canvas masks [N, CH, CW]
     (data.py:246-262; square CH = CW = max_dim by default): each mask as
     a 0/255 image resampled by `scale` (Pillow's bilinear, as
-    `resample_bilinear`), thresholded at 127 and placed at the window."""
+    `resample_bilinear`), thresholded at 127 and placed at the window.
+    An output reads only the inputs of its window, and a zero window
+    gives 0, so each mask is resampled over the reach of its pixels'
+    bounding rows and columns only (as `decode_masks`), and an empty
+    mask not at all."""
     n = masks.shape[0]
     ch, cw = canvas_shape if canvas_shape is not None else (max_dim,
                                                            max_dim)
     out = np.zeros((n, ch, cw), np.uint8)
     top, left = window[0], window[1]
+    if n == 0:
+        return out
+    in_h, in_w = masks.shape[1:]
+    nh, nw = round(in_h * scale), round(in_w * scale)
+    ys = _coeffs(in_h, nh) if in_h != nh else None
+    xs = _coeffs(in_w, nw) if in_w != nw else None
+    h, w = min(nh, ch - top), min(nw, cw - left)
     for i in range(n):
-        img = masks[i].astype(np.uint8) * 255
-        nh = round(img.shape[0] * scale)
-        nw = round(img.shape[1] * scale)
-        arr = resample_bilinear(img, nh, nw) > 127
-        h = min(nh, ch - top)
-        w = min(nw, cw - left)
-        out[i, top:top + h, left:left + w] = arr[:h, :w]
+        rows = np.flatnonzero(masks[i].any(axis=1))
+        if not rows.size:
+            continue
+        cols = np.flatnonzero(masks[i].any(axis=0))
+        oy0, oy1, iy0, iy1 = _reach(ys, rows[0], rows[-1] + 1)
+        ox0, ox1, ix0, ix1 = _reach(xs, cols[0], cols[-1] + 1)
+        x = torch.from_numpy(
+            masks[i, iy0:iy1, ix0:ix1].astype(np.int32)) * 255
+        if xs is not None:
+            x = _pass(x, 1, xs[0][ox0:ox1], xs[2][ox0:ox1], ix0)
+        if ys is not None:
+            x = _pass(x, 0, ys[0][oy0:oy1], ys[2][oy0:oy1], iy0)
+        arr = (x > 127).numpy()
+        y1, x1 = min(oy1, h), min(ox1, w)
+        if y1 > oy0 and x1 > ox0:
+            out[i, top + oy0:top + y1, left + ox0:left + x1] = \
+                arr[:y1 - oy0, :x1 - ox0]
     return out
 
 

@@ -1,32 +1,43 @@
-"""Image files without Pillow: PNG and baseline JPEG decode to RGB uint8,
-and a PNG writer.
+"""Image files without Pillow: PNG and JPEG decode to RGB uint8, and a PNG
+writer.
 
 `read_image(f)` (a path, the file's bytes or a binary file object)
 returns what `np.asarray(PIL.Image.open(f).convert("RGB"))` returns with
-Pillow 12.1 over libjpeg-turbo 3.1 and zlib, bit for bit, for the files
-it accepts:
+Pillow 12.1 over libjpeg-turbo 3.1 and zlib, bit for bit, through the
+native decoder (`csrc/image_decode.cpp`, built with g++ on first use and
+called through ctypes outside the GIL: data/native_image.py). It reads:
 
-* PNG: 8-bit grayscale, grayscale + alpha, RGB, RGBA and palette images,
-  not interlaced, with all five row filters; alpha is dropped and a
-  palette looked up, as `convert("RGB")` does. zlib is the standard
-  library's.
-* JPEG: baseline and extended sequential Huffman coding with 8-bit
-  samples, 1 or 3 components (YCbCr), sampling factors 1 or 2 (4:4:4,
-  4:2:2, 4:4:0, 4:2:0), restart intervals and byte stuffing. It follows
-  libjpeg-turbo's C path as Pillow configures it (its SIMD paths give the
-  same bits): the islow IDCT of jidctint.c with its range-limit table,
-  the fancy upsampling of jdsample.c (edges replicate the component's
-  downsampled size, as jdmainct.c's context rows do) and jdcolor.c's
-  fixed-point YCbCr -> RGB tables.
+* PNG: grayscale (bit depths 1, 2, 4, 8, 16), RGB (8, 16), palette (1,
+  2, 4, 8), grayscale + alpha and RGBA (8, 16); all five row filters;
+  Adam7 interlacing. Alpha and tRNS are dropped and a palette looked up,
+  as `convert("RGB")` does; 16-bit grayscale opens in Pillow as "I;16"
+  and is clipped to 255, other 16-bit samples give their high byte.
+  zlib is the standard library's.
+* JPEG: baseline, extended sequential and progressive Huffman coding
+  with 8-bit samples, restart intervals and byte stuffing; 1 component
+  (grayscale), 3 (YCbCr, or RGB under an Adobe transform 0 or component
+  ids R, G, B without JFIF, jdapimin.c's rule) or 4 (CMYK under Adobe
+  transform 0 or no Adobe marker, YCCK under transform 2; Pillow's
+  inverted "CMYK;I" samples and its cmyk2rgb); sampling factors 1 to 4
+  with libjpeg-turbo's upsampler for each ratio (fancy h2v1, h1v2,
+  h2v2, box replication elsewhere).
 
-Anything else raises NotImplementedError naming the feature: Adam7
-interlacing and bit depths other than 8 in PNG; progressive, lossless,
-hierarchical, arithmetic-coded, 12-bit, CMYK, YCCK and Adobe-transform
-or RGB-coded JPEG.
+Refused, with NotImplementedError naming the mode: arithmetic-coded,
+lossless and hierarchical JPEG, samples of other than 8 bits, a height
+set by a DNL marker, 2-component JPEG, fractional sampling factors, an
+interleaved MCU of more than 10 blocks, and a progressive JPEG whose
+scans leave a low-frequency coefficient incomplete (libjpeg-turbo
+block-smooths it).
 
-The JPEG entropy decoding is plain Python over a table of 16-bit
-windows, one a bit position; everything after it (dequantize, un-zigzag,
-IDCT, upsample, colour) is integer numpy over all blocks at once.
+`read_image(f, plain=True)` takes the plain Python decoders below
+instead (`decode_png`, `decode_jpeg`): 8-bit non-interlaced PNG and
+baseline JPEG with 1 or 3 components (YCbCr) and sampling factors 1 or
+2, the rest refused. They are the reference the native route is held
+to on the card, where Pillow is absent; no caller on the main path uses
+them. Their JPEG entropy decoding is plain Python over a table of
+16-bit windows; everything after it (dequantize, un-zigzag, jidctint.c's
+islow IDCT, jdsample.c's fancy upsampling, jdcolor.c's YCbCr -> RGB) is
+integer numpy over all blocks at once.
 """
 
 from __future__ import annotations
@@ -39,18 +50,12 @@ from typing import BinaryIO, Union
 
 import numpy as np
 
+from maskrcnn_tpu_torch.data import native_image
+from maskrcnn_tpu_torch.data.native_image import (MAX_PIXELS,  # noqa: F401
+                                                  PNG_SIGNATURE)
+from maskrcnn_tpu_torch.data.native_image import check_size as _check_size
+
 Source = Union[str, os.PathLike, bytes, bytearray, memoryview, BinaryIO]
-
-PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# Pillow's decompression-bomb error: more pixels than twice
-# Image.MAX_IMAGE_PIXELS
-MAX_PIXELS = 2 * 89_478_485
-
-
-def _check_size(width: int, height: int) -> None:
-    if width < 1 or height < 1 or width * height > MAX_PIXELS:
-        raise ValueError(f"image size {width}x{height}: not 1 to "
-                         f"{MAX_PIXELS} pixels")
 
 
 def _read_bytes(source: Source) -> bytes:
@@ -62,14 +67,16 @@ def _read_bytes(source: Source) -> bytes:
         return f.read()
 
 
-def read_image(source: Source) -> np.ndarray:
+def read_image(source: Source, plain: bool = False) -> np.ndarray:
     """An image file (path, bytes or binary file object) as RGB uint8
-    [H, W, 3]: the pixels Pillow's `Image.open(f).convert("RGB")` gives."""
+    [H, W, 3]: the pixels Pillow's `Image.open(f).convert("RGB")` gives,
+    through the native decoder (a RuntimeError naming the compiler when
+    it cannot be built); `plain=True` takes the plain Python decoders."""
     data = _read_bytes(source)
     if data.startswith(PNG_SIGNATURE):
-        return decode_png(data)
+        return decode_png(data) if plain else native_image.decode_png(data)
     if data.startswith(b"\xff\xd8"):
-        return decode_jpeg(data)
+        return decode_jpeg(data) if plain else native_image.decode_jpeg(data)
     raise ValueError("not a PNG or JPEG file")
 
 
@@ -131,7 +138,7 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
 
 
 def decode_png(data: bytes) -> np.ndarray:
-    """A PNG file's bytes -> RGB uint8 [H, W, 3]."""
+    """A PNG file's bytes -> RGB uint8 [H, W, 3] (the plain version)."""
     if not data.startswith(PNG_SIGNATURE):
         raise ValueError("not a PNG file")
     pos = len(PNG_SIGNATURE)
@@ -520,7 +527,8 @@ def _scan_blocks(frame: _Frame, comps, dc_luts, ac_luts):
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """A baseline JPEG file's bytes -> RGB uint8 [H, W, 3]."""
+    """A baseline JPEG file's bytes -> RGB uint8 [H, W, 3] (the plain
+    version)."""
     if not data.startswith(b"\xff\xd8"):
         raise ValueError("not a JPEG file")
     pos = 2

@@ -11,12 +11,24 @@ multi-process data parallelism is index-striding over the dataset.
 
 from __future__ import annotations
 
+import os
 import queue
 import random
 import threading
 from typing import Dict, Iterator, Optional
 
 import numpy as np
+
+
+def _pack_valid(masks: np.ndarray, valid: np.ndarray) -> np.ndarray:
+    """A sample's gt masks [G, H, W] bit-packed along W: the valid slots
+    (the first ones, DetectionDataset.sample's layout) packed, the padding
+    slots, all zero, left as zero bytes."""
+    from maskrcnn_tpu_torch.ops.bits import pack_masks
+    n = int(np.count_nonzero(valid))
+    out = np.zeros(masks.shape[:-1] + (-(-masks.shape[-1] // 8),), np.uint8)
+    out[:n] = pack_masks(masks[:n])
+    return out
 
 
 def _collate(samples) -> Dict[str, np.ndarray]:
@@ -47,6 +59,13 @@ class BatchLoader:
         self._iq: "queue.Queue" = queue.Queue(
             maxsize=prefetch * batch_size + batch_size)
         self._stop = threading.Event()
+        # each worker's torch ops (the resample) on its share of the
+        # host's cores: a thread's torch pool is its own, and pools of a
+        # thread a core each, one a worker, would wait on each other
+        import torch
+        self._worker_threads = max(1, min(
+            torch.get_num_threads(),
+            (os.cpu_count() or 1) // max(1, num_workers)))
         self._workers = [
             threading.Thread(target=self._worker, daemon=True)
             for _ in range(max(1, num_workers))
@@ -61,22 +80,28 @@ class BatchLoader:
         self._feeder.start()
         self._collator.start()
 
+    def _put(self, q: "queue.Queue", item) -> bool:
+        """Put item on q, waiting while it is full; False once stopped."""
+        while not self._stop.is_set():
+            try:
+                q.put(item, timeout=0.5)
+                return True
+            except queue.Full:
+                continue
+        return False
+
     def _feed(self):
         while not self._stop.is_set():
             order = list(self._indices)
             if self.shuffle:
                 self._rng.shuffle(order)
             for idx in order:
-                while True:
-                    if self._stop.is_set():
-                        return
-                    try:
-                        self._iq.put(idx, timeout=0.5)
-                        break
-                    except queue.Full:
-                        continue
+                if not self._put(self._iq, idx):
+                    return
 
     def _worker(self):
+        import torch
+        torch.set_num_threads(self._worker_threads)
         while not self._stop.is_set():
             try:
                 idx = self._iq.get(timeout=0.5)
@@ -89,9 +114,9 @@ class BatchLoader:
                 else:
                     s = self.dataset.sample(idx, hflip=self.hflip)
                 if self.pack_bits:
-                    from maskrcnn_tpu_torch.ops.bits import pack_masks
-                    s["gt_masks_packed"] = pack_masks(s.pop("gt_masks"))
-                self._sample_q.put(s)
+                    s["gt_masks_packed"] = _pack_valid(s.pop("gt_masks"),
+                                                       s["gt_valid"])
+                self._put(self._sample_q, s)
             except Exception as e:  # keep the pipeline alive
                 print(f"[pipeline] sample {idx} failed: {e}")
 
@@ -104,7 +129,7 @@ class BatchLoader:
                 except queue.Empty:
                     if self._stop.is_set():
                         return
-            self._q.put(_collate(samples))
+            self._put(self._q, _collate(samples))
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         return self
@@ -113,7 +138,11 @@ class BatchLoader:
         return self._q.get()
 
     def close(self):
+        """Stop the threads and wait for them (a sample in progress
+        finishes first)."""
         self._stop.set()
+        for t in [self._feeder, self._collator] + self._workers:
+            t.join()
 
 
 class SyntheticLoader:

@@ -3,9 +3,9 @@ maskrcnn_tpu/eval/native.py).
 
 On first use `native/rle_kernels.cpp` (the JAX package's host library;
 rle.py calls its run-length encode and its RLE IoU matrix) is compiled
-with the host's C++ compiler (`g++ -O2 -shared -fPIC`) into
-`build/maskrcnn_tpu_torch/` at the repository root, named by a hash of
-the source, and loaded with ctypes. Nothing is written under `native/`.
+with the host's C++ compiler into `build/maskrcnn_tpu_torch/` at the
+repository root and loaded with ctypes (`utils/native_build.py`).
+Nothing is written under `native/`.
 This is a host library, not a device kernel. Without a compiler every
 function returns None and `rle.py` takes its numpy route; `available()`
 says which route is in use.
@@ -14,20 +14,16 @@ says which route is in use.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
 import subprocess
-import tempfile
 from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
 
-_REPO = Path(__file__).resolve().parent.parent.parent
-SOURCE = _REPO / "native" / "rle_kernels.cpp"
-BUILD_DIR = _REPO / "build" / "maskrcnn_tpu_torch"
-CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
+from maskrcnn_tpu_torch.utils import native_build
+
+SOURCE = Path(__file__).resolve().parent.parent.parent / "native" / \
+    "rle_kernels.cpp"
 
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
@@ -35,25 +31,7 @@ _TRIED = False
 
 def library_path() -> Path:
     """Where the library for the current source and flags lives."""
-    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    digest.update(SOURCE.read_bytes())
-    return BUILD_DIR / f"librle_kernels_{digest.hexdigest()[:16]}.so"
-
-
-def _build(path: Path) -> None:
-    """Compile the source to `path`, through a temporary file and a
-    rename, so processes building at once never load a partial file."""
-    cxx = os.environ.get("CXX") or shutil.which("g++") or "c++"
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    try:
-        subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, str(SOURCE)],
-                       check=True, capture_output=True, timeout=120)
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    return native_build.library_path("rle_kernels", SOURCE)
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -62,10 +40,7 @@ def _load() -> Optional[ctypes.CDLL]:
         return _LIB
     _TRIED = True
     try:
-        path = library_path()
-        if not path.exists():
-            _build(path)
-        lib = ctypes.CDLL(str(path))
+        lib = native_build.load("rle_kernels", SOURCE)
     except (OSError, subprocess.SubprocessError):
         return None
     u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")

@@ -200,25 +200,20 @@ def poly_to_rle(poly: Sequence[float], h: int, w: int) -> RLE:
     u = np.concatenate(us)
     v = np.concatenate(vs)
 
-    # boundary points where the x (column) changes, downsampled
-    xs_list: List[int] = []
-    ys_list: List[int] = []
-    for j in range(1, len(u)):
-        if u[j] != u[j - 1]:
-            xd = float(u[j] if u[j] < u[j - 1] else u[j] - 1)
-            xd = (xd + 0.5) / scale - 0.5
-            if np.floor(xd) != xd or xd < 0 or xd > w - 1:
-                continue
-            yd = float(v[j] if v[j] < v[j - 1] else v[j - 1])
-            yd = (yd + 0.5) / scale - 0.5
-            yd = min(max(yd, 0.0), float(h))
-            xs_list.append(int(xd))
-            ys_list.append(int(np.ceil(yd)))
+    # boundary points where the x (column) changes, downsampled (the C
+    # loop's float64 operations, in its order, over all points at once)
+    u0, u1, v0, v1 = u[:-1], u[1:], v[:-1], v[1:]
+    xd = np.where(u1 < u0, u1, u1 - 1).astype(np.float64)
+    xd = (xd + 0.5) / scale - 0.5
+    keep = (u1 != u0) & (np.floor(xd) == xd) & (xd >= 0) & (xd <= w - 1)
+    yd = np.where(v1 < v0, v1, v0).astype(np.float64)
+    yd = (yd + 0.5) / scale - 0.5
+    yd = np.minimum(np.maximum(yd, 0.0), float(h))
+    xs_list = xd[keep].astype(np.int64)
+    ys_list = np.ceil(yd[keep]).astype(np.int64)
 
     # integrate: sorted crossing positions -> run boundaries
-    a = np.asarray(
-        [xx * h + yy for xx, yy in zip(xs_list, ys_list)] + [h * w],
-        np.int64)
+    a = np.concatenate([xs_list * h + ys_list, [h * w]]).astype(np.int64)
     a.sort()
     diffs = np.diff(np.concatenate([[0], a]))
     # collapse zero diffs by pairing (maskApi.c:198-200)

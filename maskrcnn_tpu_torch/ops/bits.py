@@ -14,8 +14,9 @@ from maskrcnn_tpu_torch.ops import device_tensor
 
 
 def pack_masks(masks: np.ndarray) -> np.ndarray:
-    """Host: [..., W] {0,1} -> [..., ceil(W/8)] uint8 (np.packbits)."""
-    return np.packbits(masks.astype(bool), axis=-1)
+    """Host: [..., W] {0,1} -> [..., ceil(W/8)] uint8 (np.packbits, which
+    packs a nonzero element as a 1 bit without a cast)."""
+    return np.packbits(masks, axis=-1)
 
 
 def pack_masks_device(masks: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,61 @@
+"""Build and load the port's host C++ libraries (the RLE kernels of
+eval/native.py, the image decoder of data/native_image.py).
+
+A library is compiled with the host's C++ compiler (`$CXX`, else `g++`,
+else `c++`) into `build/maskrcnn_tpu_torch/` at the repository root,
+named by a hash of its source and flags, on first use, and loaded with
+ctypes. The build goes through a temporary file and a rename, so
+processes building at once never load a partial file.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Sequence
+
+_REPO = Path(__file__).resolve().parent.parent.parent
+BUILD_DIR = _REPO / "build" / "maskrcnn_tpu_torch"
+CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
+
+
+def compiler() -> str:
+    """The C++ compiler a build runs."""
+    return os.environ.get("CXX") or shutil.which("g++") or "c++"
+
+
+def library_path(stem: str, source: Path,
+                 flags: Sequence[str] = CXX_FLAGS) -> Path:
+    """Where the library of `source` built with `flags` lives."""
+    digest = hashlib.sha256(" ".join(flags).encode())
+    digest.update(Path(source).read_bytes())
+    return BUILD_DIR / f"lib{stem}_{digest.hexdigest()[:16]}.so"
+
+
+def build(source: Path, path: Path, flags: Sequence[str] = CXX_FLAGS) -> None:
+    """Compile `source` to `path`; raises OSError or
+    subprocess.SubprocessError when the compiler fails or is missing."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+    os.close(fd)
+    try:
+        subprocess.run([compiler(), *flags, "-o", tmp, str(source)],
+                       check=True, capture_output=True, timeout=120)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def load(stem: str, source: Path,
+         flags: Sequence[str] = CXX_FLAGS) -> ctypes.CDLL:
+    """The library of `source`, built first if it is not there."""
+    path = library_path(stem, source, flags)
+    if not path.exists():
+        build(source, path, flags)
+    return ctypes.CDLL(str(path))

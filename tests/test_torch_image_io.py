@@ -1,10 +1,12 @@
 """The port's image reader and PNG writer (maskrcnn_tpu_torch/data/
-image_io.py) against Pillow: the same RGB uint8 pixels, bit for bit, for
-every repository image, for seeded JPEGs Pillow encodes (4:4:4, 4:2:2,
-4:2:0, grayscale, quality 50 and 95, restart intervals, optimized
-Huffman tables, odd sizes) and for seeded PNGs of each mode with rows of
-each of the five filters; the modes it refuses raise NotImplementedError
-naming them."""
+image_io.py) against Pillow: the same RGB uint8 pixels, bit for bit,
+through the native route (`read_image`) and the plain Python route
+(`read_image(..., plain=True)`) alike, for every repository image, for
+seeded JPEGs Pillow encodes (4:4:4, 4:2:2, 4:2:0, grayscale, quality 50
+and 95, restart intervals, optimized Huffman tables, odd sizes) and for
+seeded PNGs of each mode with rows of each of the five filters; the
+modes each route refuses raise NotImplementedError naming them
+(tests/test_torch_image_native.py holds the native route's other modes)."""
 
 import hashlib
 import io
@@ -44,6 +46,13 @@ def pillow(data: bytes) -> np.ndarray:
     return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
 
 
+def read_both(data: bytes) -> np.ndarray:
+    """The native route's pixels, held equal to the plain route's."""
+    got = image_io.read_image(data)
+    np.testing.assert_array_equal(got, image_io.read_image(data, plain=True))
+    return got
+
+
 def seeded_image(rng, h, w, channels=3):
     """Smooth gradients with noise and a hard edge: the IDCT, the
     upsampling and the range limit all see work."""
@@ -60,7 +69,7 @@ def test_repository_image_equals_pillow(name):
     """Every repository image: the port's pixels are Pillow's, and their
     digest is the one committed here and in chip_smoke.py."""
     data = (REPO / name).read_bytes()
-    got = image_io.read_image(data)
+    got = read_both(data)
     np.testing.assert_array_equal(got, pillow(data))
     h, w, digest = IMAGE_DIGESTS[name]
     assert got.shape == (h, w, 3)
@@ -89,7 +98,7 @@ def test_seeded_jpeg_equals_pillow(sampling, quality, size):
     rng = np.random.RandomState(quality + size[0] * 31 + size[1])
     data = _jpeg(seeded_image(rng, *size), quality=quality,
                  subsampling=sampling)
-    np.testing.assert_array_equal(image_io.read_image(data), pillow(data))
+    np.testing.assert_array_equal(read_both(data), pillow(data))
 
 
 @pytest.mark.parametrize("size", SIZES + [(40, 57)],
@@ -99,8 +108,7 @@ def test_grayscale_jpeg_equals_pillow(size):
     img = seeded_image(rng, *size, channels=1)[..., 0]
     for quality in (50, 95):
         data = _jpeg(img, quality=quality)
-        np.testing.assert_array_equal(image_io.read_image(data),
-                                      pillow(data))
+        np.testing.assert_array_equal(read_both(data), pillow(data))
 
 
 @pytest.mark.parametrize("restart", [dict(restart_marker_blocks=1),
@@ -113,7 +121,7 @@ def test_restart_intervals_equal_pillow(sampling, restart):
     data = _jpeg(seeded_image(rng, 45, 61), quality=90,
                  subsampling=sampling, **restart)
     assert b"\xff\xdd" in data            # a DRI marker
-    np.testing.assert_array_equal(image_io.read_image(data), pillow(data))
+    np.testing.assert_array_equal(read_both(data), pillow(data))
 
 
 def test_optimized_huffman_tables_and_file_objects():
@@ -122,7 +130,7 @@ def test_optimized_huffman_tables_and_file_objects():
     rng = np.random.RandomState(6)
     data = _jpeg(seeded_image(rng, 70, 90), quality=75, optimize=True)
     want = pillow(data)
-    np.testing.assert_array_equal(image_io.read_image(data), want)
+    np.testing.assert_array_equal(read_both(data), want)
     np.testing.assert_array_equal(image_io.read_image(io.BytesIO(data)), want)
 
 
@@ -141,8 +149,7 @@ def test_seeded_png_of_each_mode_equals_pillow(mode):
         buf = io.BytesIO()
         img.save(buf, "PNG", **kw)
         data = buf.getvalue()
-        np.testing.assert_array_equal(image_io.read_image(data),
-                                      pillow(data))
+        np.testing.assert_array_equal(read_both(data), pillow(data))
 
 
 def _filter_rows(rows: np.ndarray, bpp: int, kinds) -> bytes:
@@ -196,7 +203,7 @@ def test_hand_filtered_png_rows_equal_pillow(kind, color, bpp):
     rows = rng.randint(0, 256, (9, width * bpp)).astype(np.uint8)
     for kinds in ([kind] * 9, [kind, 0, 1, 2, 3, 4, kind, kind, 2]):
         data = _raw_png(rows, width, color, kinds, bpp)
-        got = image_io.read_image(data)
+        got = read_both(data)
         np.testing.assert_array_equal(got, pillow(data))
 
 
@@ -232,35 +239,44 @@ def _patched_sof(data: bytes, marker: int = None, precision: int = None):
 
 
 def test_unsupported_modes_raise_naming_them():
+    """Both routes refuse arithmetic coding, lossless and 12-bit JPEG; the
+    plain route also refuses what only the native route reads
+    (progressive, CMYK, Adobe transform 0, Adam7, 16-bit PNG)."""
     rng = np.random.RandomState(9)
     img = seeded_image(rng, 24, 24)
-    with pytest.raises(NotImplementedError, match="progressive"):
-        image_io.read_image(_jpeg(img, progressive=True))
     base = _jpeg(img)
-    with pytest.raises(NotImplementedError, match="arithmetic"):
-        image_io.read_image(_patched_sof(base, marker=0xC9))
-    with pytest.raises(NotImplementedError, match="lossless"):
-        image_io.read_image(_patched_sof(base, marker=0xC3))
-    with pytest.raises(NotImplementedError, match="12-bit"):
-        image_io.read_image(_patched_sof(base, precision=12))
+    for plain in (False, True):
+        with pytest.raises(NotImplementedError, match="arithmetic"):
+            image_io.read_image(_patched_sof(base, marker=0xC9), plain=plain)
+        with pytest.raises(NotImplementedError, match="lossless"):
+            image_io.read_image(_patched_sof(base, marker=0xC3), plain=plain)
+        with pytest.raises(NotImplementedError, match="12-bit"):
+            image_io.read_image(_patched_sof(base, precision=12),
+                                plain=plain)
+    with pytest.raises(NotImplementedError, match="progressive"):
+        image_io.read_image(_jpeg(img, progressive=True), plain=True)
     buf = io.BytesIO()
     Image.fromarray(img).convert("CMYK").save(buf, "JPEG")
     with pytest.raises(NotImplementedError, match="CMYK"):
-        image_io.read_image(buf.getvalue())
+        image_io.read_image(buf.getvalue(), plain=True)
     with pytest.raises(NotImplementedError, match="Adobe transform"):
-        image_io.read_image(_jpeg(img, keep_rgb=True))
+        image_io.read_image(_jpeg(img, keep_rgb=True), plain=True)
     rows = rng.randint(0, 256, (5, 15)).astype(np.uint8)
     with pytest.raises(NotImplementedError, match="interlaced"):
-        image_io.read_image(_raw_png(rows, 5, 2, [0] * 5, 3, interlace=1))
+        image_io.read_image(_raw_png(rows, 5, 2, [0] * 5, 3, interlace=1),
+                            plain=True)
     with pytest.raises(NotImplementedError, match="bit depth 16"):
-        image_io.read_image(_raw_png(rows, 5, 2, [0] * 5, 3, depth=16))
-    with pytest.raises(ValueError, match="not a PNG or JPEG"):
-        image_io.read_image(b"GIF89a")
-    # a header claiming more pixels than Pillow's decompression-bomb limit
-    huge = bytearray(_raw_png(rows, 5, 2, [0] * 5, 3))
-    huge[16:24] = struct.pack(">II", 20000, 20000)
-    with pytest.raises(ValueError, match="image size"):
-        image_io.read_image(bytes(huge))
+        image_io.read_image(_raw_png(rows, 5, 2, [0] * 5, 3, depth=16),
+                            plain=True)
+    for plain in (False, True):
+        with pytest.raises(ValueError, match="not a PNG or JPEG"):
+            image_io.read_image(b"GIF89a", plain=plain)
+        # a header claiming more pixels than Pillow's decompression-bomb
+        # limit
+        huge = bytearray(_raw_png(rows, 5, 2, [0] * 5, 3))
+        huge[16:24] = struct.pack(">II", 20000, 20000)
+        with pytest.raises(ValueError, match="image size"):
+            image_io.read_image(bytes(huge), plain=plain)
 
 
 @pytest.mark.parametrize("h,w", [(3, 3), (2, 5), (5, 2), (16, 16)])
@@ -270,4 +286,4 @@ def test_upsample_edges(h, w):
     equal Pillow's."""
     rng = np.random.RandomState(h * 10 + w)
     data = _jpeg(seeded_image(rng, h, w), quality=90, subsampling="4:2:0")
-    np.testing.assert_array_equal(image_io.read_image(data), pillow(data))
+    np.testing.assert_array_equal(read_both(data), pillow(data))

@@ -1,0 +1,218 @@
+"""The port's native image decoder (csrc/image_decode.cpp through
+data/native_image.py, what `image_io.read_image` runs) against Pillow
+12.1.0 over libjpeg-turbo 3.1: the committed corpus (tests/data/image_io,
+tests/image_corpus.py) decodes to Pillow's pixels here and to its
+committed digests, which chip_smoke.py's phase 9a holds the card's host
+to; seeded cases of every mode at odd sizes; the refused modes name
+themselves; the native route equals the plain Python route wherever that
+one reads; a failed build raises naming the compiler, with no fallback."""
+
+import hashlib
+import io
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+from PIL import Image
+
+import chip_smoke
+from maskrcnn_tpu_torch.data import image_io, native_image
+
+TESTS = Path(__file__).resolve().parent
+sys.path.insert(0, str(TESTS))
+
+import image_corpus as ic  # noqa: E402
+from jpeg_writer import encode_jpeg  # noqa: E402
+
+INDEX = json.loads(ic.INDEX.read_text())
+REPO = TESTS.parent
+
+
+def pillow(data: bytes) -> np.ndarray:
+    return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+
+
+def digest(img: np.ndarray) -> str:
+    return hashlib.sha256(img.tobytes()).hexdigest()
+
+
+@pytest.mark.parametrize("name", sorted(INDEX["files"]))
+def test_corpus_file_equals_pillow_and_its_digest(name):
+    data = (ic.CORPUS / name).read_bytes()
+    got = image_io.read_image(data)
+    np.testing.assert_array_equal(got, pillow(data))
+    entry = INDEX["files"][name]
+    assert list(got.shape) == entry["shape"] + [3]
+    assert digest(got) == entry["sha256"]
+
+
+@pytest.mark.parametrize("name", sorted(INDEX["refused"]))
+def test_refused_corpus_file_names_its_mode(name):
+    with pytest.raises(NotImplementedError, match=INDEX["refused"][name]):
+        image_io.read_image(ic.CORPUS / name)
+
+
+def test_corpus_is_whole_and_small():
+    """The index names every file of the corpus, the files hold at most
+    400 KB in all, the scenes are COCO-sized and one is progressive, and
+    the generator would write the same bytes again."""
+    files = {p.name for p in ic.CORPUS.iterdir()} - {"index.json"}
+    assert files == set(INDEX["files"]) | set(INDEX["refused"])
+    assert sum(p.stat().st_size for p in ic.CORPUS.iterdir()) <= 400_000
+    assert {INDEX["files"][s]["shape"][0] for s in INDEX["scenes"]} == {480}
+    assert any("progressive" in s for s in INDEX["scenes"])
+    for name, data in ic.jpeg_cases()[:6] + ic.png_cases()[:4]:
+        assert (ic.CORPUS / name).read_bytes() == data, name
+
+
+def _cmyk_cases(rng, h, w):
+    cmyk = ic.seeded_image(rng, h, w, 4)
+    for inverted in (False, True):
+        data = ic.pil_jpeg(255 - cmyk if inverted else cmyk, "CMYK",
+                           quality=85)
+        yield f"cmyk inverted={inverted}", data
+        yield f"ycck inverted={inverted}", ic.with_transform(data, 2)
+        yield f"cmyk no Adobe inverted={inverted}", ic.without_adobe(data)
+
+
+SAMPLING = [[(1, 1)] * 3, [(2, 1), (1, 1), (1, 1)], [(2, 2), (1, 1), (1, 1)],
+            [(1, 2), (1, 1), (1, 1)], [(4, 1), (1, 1), (1, 1)],
+            [(3, 1), (1, 1), (1, 1)], [(2, 4), (1, 1), (1, 1)],
+            [(4, 2), (2, 1), (2, 1)], [(1, 1), (2, 2), (2, 2)]]
+
+
+def _seeded_cases(h, w):
+    rng = np.random.RandomState(h * 100 + w)
+    img = ic.seeded_image(rng, h, w)
+    planes = [img[..., k] for k in range(3)]
+    for sub in ("4:4:4", "4:2:0"):
+        yield f"progressive {sub} restart", ic.pil_jpeg(
+            img, quality=85, progressive=True, subsampling=sub,
+            restart_marker_blocks=1)
+    yield from _cmyk_cases(rng, h, w)
+    rgb = ic.pil_jpeg(img, quality=90, keep_rgb=True)
+    yield "Adobe RGB", rgb
+    yield "R,G,B ids", ic.without_adobe(rgb)
+    for factors in SAMPLING:
+        blocks = sum(a * b for a, b in factors)
+        yield f"sampling {factors}", encode_jpeg(
+            planes, factors, interleaved=blocks <= 10, restart=2)
+    for color, depths in ((0, (1, 2, 4, 16)), (2, (16,)), (3, (1, 2, 4)),
+                          (4, (16,)), (6, (16,))):
+        for depth in depths:
+            yield f"png c{color} d{depth}", ic.seeded_png(
+                h * w + depth, h, w, depth, color)
+    yield "png Adam7", ic.seeded_png(h + w, h, w, 8, 2, interlace=1)
+    yield "png Adam7 palette d2", ic.seeded_png(h + w, h, w, 2, 3,
+                                                interlace=1)
+
+
+@pytest.mark.parametrize("size", [(37, 53), (5, 3)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_seeded_modes_equal_pillow(size):
+    """Progressive with restart intervals, CMYK and YCCK (inverted and
+    not, with and without the Adobe marker), Adobe RGB and R,G,B ids,
+    sampling factors 4:4:4 to 4x2 (4:2:2, 4:2:0, 4:4:0, 4:1:1, 3, and
+    chroma sampled above luma), PNG bit depths 1, 2, 4 and 16 in each
+    colour type that allows them, and Adam7."""
+    seen = 0
+    for what, data in _seeded_cases(*size):
+        np.testing.assert_array_equal(image_io.read_image(data),
+                                      pillow(data), err_msg=what)
+        seen += 1
+    assert seen == 31
+
+
+def test_truncated_progressive_equals_pillow_or_is_refused():
+    """A progressive file missing its last scans: libjpeg-turbo smooths
+    the blocks when coefficients 1-9 are incomplete (refused here, named);
+    a file whose only missing band is 10-63, or its DC scan, is not
+    smoothed and equals Pillow's pixels."""
+    rng = np.random.RandomState(21)
+    img = ic.seeded_image(rng, 37, 53)
+    full = ic.pil_jpeg(img, quality=85, progressive=True)
+    for k in range(1, 4):
+        with pytest.raises(NotImplementedError, match="block smoothing"):
+            image_io.read_image(ic.drop_scan(full, -k))
+    planes = [img[..., k] for k in range(3)]
+    bands = encode_jpeg(planes, [(2, 2), (1, 1), (1, 1)],
+                        bands=[(1, 9), (10, 63)])
+    equal = refused = 0
+    for k in range(7):
+        cut = ic.drop_scan(bands, k)
+        try:
+            got = image_io.read_image(cut)
+        except NotImplementedError as e:
+            assert "block smoothing" in str(e)
+            refused += 1
+            continue
+        np.testing.assert_array_equal(got, pillow(cut))
+        equal += 1
+    # the DC scan and the three 10-63 bands decode; the 1-9 bands refuse
+    assert (equal, refused) == (4, 3)
+
+
+def test_native_route_equals_plain_route():
+    """Wherever the plain Python decoders read a file (the repository's
+    images, the corpus's baseline JPEGs and 8-bit PNGs), the native route
+    gives the same pixels."""
+    names = [REPO / n for n in chip_smoke.IMAGE_DIGESTS] + [
+        ic.CORPUS / n for n in sorted(INDEX["files"])]
+    both = 0
+    for path in names:
+        data = path.read_bytes()
+        try:
+            plain = image_io.read_image(data, plain=True)
+        except NotImplementedError:
+            continue
+        np.testing.assert_array_equal(image_io.read_image(data), plain,
+                                      err_msg=path.name)
+        both += 1
+    assert both >= 25
+
+
+def test_read_image_never_takes_the_plain_route(monkeypatch):
+    def refuse(data):
+        raise AssertionError("the plain route ran")
+    monkeypatch.setattr(image_io, "decode_jpeg", refuse)
+    monkeypatch.setattr(image_io, "decode_png", refuse)
+    for name in ("images/sample.jpg", "images/synthetic_scene.png"):
+        assert image_io.read_image(REPO / name).dtype == np.uint8
+
+
+FAILED_BUILD = r"""
+import os, sys
+os.environ["CXX"] = "/nonexistent/g++-for-a-test"
+from maskrcnn_tpu_torch.data import image_io, native_image
+native_image.CXX_FLAGS = native_image.CXX_FLAGS + ("-DFAILED_BUILD_TEST",)
+try:
+    image_io.read_image("images/sample.jpg")
+except RuntimeError as e:
+    print("RAISED", e)
+"""
+
+
+def test_failed_build_raises_naming_the_compiler():
+    """Without a compiler the reader raises a RuntimeError naming it; it
+    never drops to the plain route."""
+    proc = subprocess.run([sys.executable, "-c", FAILED_BUILD], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert "RAISED" in proc.stdout, proc.stdout + proc.stderr
+    assert "/nonexistent/g++-for-a-test" in proc.stdout
+    assert not list(native_image.native_build.BUILD_DIR.glob("*.so.tmp"))
+
+
+def test_corrupt_files_raise_value_errors():
+    data = (REPO / "images" / "sample.jpg").read_bytes()
+    with pytest.raises(ValueError, match="truncated"):
+        image_io.read_image(data[:len(data) // 2])
+    with pytest.raises(ValueError, match="not a PNG or JPEG"):
+        image_io.read_image(b"BM" + data)
+    png = (ic.CORPUS / "png_c2_d8_trns.png").read_bytes()
+    broken = bytearray(png)
+    broken[24] = 7                                   # bit depth 7
+    with pytest.raises(ValueError, match="bit depth 7"):
+        image_io.read_image(bytes(broken))

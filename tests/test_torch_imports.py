@@ -55,6 +55,8 @@ SLICE_MODULES = (
     "maskrcnn_tpu_torch.kernels.torch_ops",
     "maskrcnn_tpu_torch.utils.profiler", "maskrcnn_tpu_torch.utils.canvas",
     "maskrcnn_tpu_torch.data.image_io", "maskrcnn_tpu_torch.parallel.spatial",
+    "maskrcnn_tpu_torch.data.native_image",
+    "maskrcnn_tpu_torch.utils.native_build",
     "predict_torch", "coco_torch", "explore_torch", "tools.serve_torch",
     "tools.finetune_custom_torch", "tools.export_model_torch",
     "tools.learning_torch", "tools.protocol_ap_ab_torch",
@@ -120,7 +122,8 @@ def _names_in(source: str):
                                   "tools/keypoint_demo_torch.py",
                                   "tools/train_synthetic_ckpt_torch.py",
                                   "tools/build_notebook_torch.py",
-                                  "tools/ab_train_torch.py"])
+                                  "tools/ab_train_torch.py",
+                                  "tools/image_decode_bench_torch.py"])
 def test_port_sources_import_nothing_of_jax(path):
     """chip_smoke.py, the port's CLIs and tools and every source file of
     the port, read with ast: no import of JAX, flax, the JAX package or

@@ -11,15 +11,31 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from pathlib import Path
 
-import jax
-import numpy as np
+# Two intra-op threads for torch in every test process: pytest-xdist runs
+# several workers on the machine's cores, and each worker's default pool
+# (a thread a core, meeting at a barrier after every parallel op) then
+# waits on threads the other workers hold. Two, not one: the tests'
+# float32 equalities and tolerances were set on pools of several threads,
+# and five of them (sharded against whole convs, gradients against JAX's)
+# fail with the single thread's summation order. Set for this process
+# and for the processes the tests start (the gloo ranks, the CLIs).
+_THREADS = 2
+for _var in ("OMP_NUM_THREADS", "MKL_NUM_THREADS"):
+    os.environ[_var] = str(_THREADS)
 
-from maskrcnn_tpu.models.mask_rcnn import MaskRCNN as JaxMaskRCNN
-from maskrcnn_tpu_torch import config as port_config_module
-from maskrcnn_tpu_torch.checkpoint.convert import load_jax_params
-from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+torch.set_num_threads(_THREADS)
+
+from maskrcnn_tpu.models.mask_rcnn import MaskRCNN as JaxMaskRCNN  # noqa: E402
+from maskrcnn_tpu_torch import config as port_config_module  # noqa: E402
+from maskrcnn_tpu_torch.checkpoint.convert import load_jax_params  # noqa: E402
+from maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN  # noqa: E402
 
 
 def port_config(config):

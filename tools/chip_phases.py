@@ -3,7 +3,7 @@
 check after a change (the full script is the port's gate):
 
     python3 tools/chip_phases.py [3] [7] [a] [b] [c] [d] [e] [m] [l] [s] [f]
-        [k] [w] [r] [--gates-json FILE]
+        [k] [w] [r] [i] [--gates-json FILE]
 
 3: K1 against its plain version (the op check); 7: K1-bwd against the
 CPU's plain version, the tiny training step against the CPU, and phase
@@ -13,8 +13,8 @@ parallelism, export and profiler over the phase-5 Detector; m, on a
 machine with more than one card: one nccl rank a card against one
 process, and the multi-card Detector against the one-card one; l: phase
 9 (the image reader, the one-class, overfit and keypoint gates, the
-full-width training and evaluation), then the learning gates phase 9
-leaves out (multiclass and cascade: tools/learning_torch.py), their
+full-width training and evaluation, the sweep from files), then the
+learning gates phase 9 leaves out (multiclass and cascade: tools/learning_torch.py), their
 record written to records_torch/learning_gates.json (or --gates-json);
 r: l twice, each in a fresh process, both runs' AP and state digests
 written to records_torch/learning_gates_deterministic.json; s: phase 10 (the
@@ -28,7 +28,10 @@ steps at B=4), its AP written to records_torch/finetune_custom.json; k:
 the keypoint demo's full run (tools/keypoint_demo_torch.py, 240 steps,
 output/keypoints_torch.png); w: the synthetic checkpoint's full run
 (tools/train_synthetic_ckpt_torch.py, 240 steps at B=8, 1024²), then
-explore_torch.py -model on it and explore_torch.ipynb's cells with it. No
+explore_torch.py -model on it and explore_torch.ipynb's cells with it;
+i: the image files alone, phases 9a (the native decoder against the
+corpus's digests, its times beside the plain route's, the loader's
+rates) and 9d (evaluate_coco from files at B=8, the serve POST). No
 arguments runs 3, 7 and a-e.
 """
 
@@ -72,10 +75,14 @@ def main(argv) -> int:
         cs.roi_backward_phase(kernels, roi)
         cs.train_parity_phase()
         cs.repeat_phase(card)
+    if "i" in which:
+        cs.decode_phase(card)
+        cs.files_phase(kernels, card)
     if "l" in which:
         cs.decode_phase(card)
         cs.learning_phase(kernels, roi, card)
         cs.learning_full_phase(kernels, card)
+        cs.files_phase(kernels, card)
         from tools import learning_torch
         if learning_torch.main(["multiclass", "cascade", "--json-out",
                                 str(gates_json)]):

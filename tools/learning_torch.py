@@ -322,10 +322,12 @@ def device_pool(make, rng, cfg, b, n, device):
 
 
 def train(cfg, batch_iter, steps: int, device, lr: float = LR,
-          log_every: int = 60, tag: str = "", trace: list = None):
-    """Train MaskRCNN(cfg) from its seeded init (torch seed 0) for `steps`
-    SGD steps under preset "all" (train/trainer.py's masks), the samplers
-    drawing from a torch generator seeded 1 on the device. batch_iter
+          log_every: int = 60, tag: str = "", trace: list = None,
+          init_state=None):
+    """Train MaskRCNN(cfg) from its seeded init (torch seed 0), or from
+    `init_state` (a float32 torch-layout state of numpy arrays), for
+    `steps` SGD steps under preset "all" (train/trainer.py's masks), the
+    samplers drawing from a torch generator seeded 1 on the device. batch_iter
     yields numpy batches or batches already on the device; a list `trace`
     gets each step's losses (0-d device tensors). Returns (model, info):
     the wall seconds, their mean a step, the median step after two
@@ -338,6 +340,9 @@ def train(cfg, batch_iter, steps: int, device, lr: float = LR,
                                                   to_device, trainable_mask)
     model = MaskRCNN(cfg, device, train=True).init(
         torch.Generator().manual_seed(0))
+    if init_state is not None:
+        from maskrcnn_tpu_torch.checkpoint.convert import load_state
+        load_state(model, init_state)
     regex = LAYER_REGEX["all"]
     tmask, dmask = trainable_mask(model, regex), decay_mask(model, regex)
     params = []

@@ -15,7 +15,7 @@ coalesced into device batches by `maskrcnn_tpu_torch.serving
     GET /healthz   -> {"ok": true, "batches": N, "images": M}
 
 The Detector runs on the card; --tiny runs TinyConfig on the CPU (the
-smoke and test mode). A posted PNG or baseline JPEG is decoded without
+smoke and test mode). A posted PNG or JPEG is decoded without
 Pillow (maskrcnn_tpu_torch/data/image_io.py).
 """
 
