@@ -142,15 +142,17 @@ Phases, each printing one line:
     bit-identical, its launches and time beside the live step's;
     8e utils.profiler.trace around one step writes a Chrome trace;
  9. after phase 8, image files and learning (tools/learning_torch.py):
-    9a the port's native PNG and JPEG decoder (data/native_image.py,
-    csrc/image_decode.cpp built with g++) gives Pillow's pixels for every
-    repository image and every file of the committed corpus
-    (tests/data/image_io; SHA-256 digests taken with Pillow 12.1.0; the
-    card's machine has no Pillow) and equals the plain Python route on
-    the repository images, the corpus's refused files name their modes,
-    host ms a decode native beside plain (640x480, 1252² and the
-    progressive scene), decodes a second on 1 and 4 threads each route,
-    BatchLoader img/s with 1 and 4 workers,
+    9a the port's native PNG, JPEG, BMP, GIF and WebP decoders
+    (data/native_image.py, csrc/image_decode.cpp and csrc/webp_decode.cpp
+    built with g++) give Pillow's pixels for every repository image and
+    every file of the committed corpus (tests/data/image_io; SHA-256
+    digests taken with Pillow 12.1.0; the card's machine has no Pillow,
+    and no libwebp or giflib is loaded) and equal the plain Python route
+    on the repository images, the corpus's refused files name their
+    modes, host ms a decode native beside plain (640x480, 1252², the
+    progressive scene, and the first scene as lossy and lossless WebP,
+    GIF and BMP), decodes a second on 1 and 4 threads each route and of
+    the lossy WebP scenes, BatchLoader img/s with 1 and 4 workers,
     write_png read back exactly;
     9b K1 against its plain version at the 64 px levels (P5 2x2), K1-bwd
     there as in 7a, then tests/test_learning_ap.py on the card: the 64 px
@@ -176,8 +178,12 @@ Phases, each printing one line:
     the corpus's 640x480 scenes (one progressive) through the default
     CocoInferenceConfig Detector at B=8, once through the plain decode
     route and once through the native one: detections equal, K1, K2 and
-    K4 launched, img/s and the decode's share of each sweep; one POST of
-    the progressive JPEG to tools/serve_torch.py's handler answered;
+    K4 launched, img/s and the decode's share of each sweep; then the
+    same sweep over the scenes as BMP files and with the first as
+    lossless WebP (the JPEG decodes' pixels: detections equal the JPEG
+    sweep's), as lossy WebP and as GIF files (detections found), K1, K2
+    and K4 launched in each; one POST each of the progressive JPEG and
+    of a lossy WebP to tools/serve_torch.py's handler answered;
 10. after phase 9, the spatial axis and the debug and tutorial surface:
     10a predict_step B=2 at 1024² with the backbone and FPN on 2 and 4
     row shards of the one card (parallel/spatial.py, in process):
@@ -220,6 +226,7 @@ import hashlib
 import itertools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -2994,27 +3001,57 @@ def learning_tools():
     return learning_torch
 
 
-def decode_phase(card):
-    """Phase 9a: the port's native image decoder (data/native_image.py,
-    csrc/image_decode.cpp built with g++) gives Pillow's pixels for every
-    repository image (digests above) and equals the plain Python route
-    there; every file of the committed corpus (tests/data/image_io:
-    progressive, CMYK and YCCK, Adobe RGB, sampling factors up to 4,
-    Adam7 and every PNG bit depth) decodes to its Pillow digest, and each
-    refused file raises NotImplementedError naming its mode; host ms a
-    decode, median of 5, native beside plain (images/sample.jpg 640x480,
-    output/detections.jpg 1252², the progressive scene); decodes a
-    second of the two baseline scenes on 1 and 4 threads, each route
-    (whether a decode leaves the GIL); BatchLoader images a second with
-    1 and 4 worker threads over a COCO directory of the corpus scenes (a
-    whole training sample); write_png read
-    back exactly (RGB and grayscale)."""
-    from maskrcnn_tpu_torch.data import image_io, native_image
+class DecoderBuild:
+    """The native image decoders (g++: csrc/image_decode.cpp and
+    csrc/webp_decode.cpp) built in two threads from when it is made,
+    beside the kernels' nvcc build; `wait` gives the seconds the later
+    one took."""
+
+    def __init__(self):
+        from maskrcnn_tpu_torch.data import native_image
+        self.fresh = not (native_image.library_path().exists()
+                          and native_image.webp_library_path().exists())
+        t0 = time.perf_counter()
+
+        def build(fn):
+            fn()
+            return time.perf_counter() - t0
+
+        self.pool = ThreadPoolExecutor(2)
+        self.futures = [self.pool.submit(build, fn) for fn in (
+            native_image.library, native_image.webp_library)]
+
+    def wait(self) -> float:
+        try:
+            return max(f.result() for f in self.futures)
+        finally:
+            self.pool.shutdown()
+
+
+def decode_phase(card, build=None):
+    """Phase 9a: the port's native image decoders (data/native_image.py,
+    csrc/image_decode.cpp and csrc/webp_decode.cpp built with g++) give
+    Pillow's pixels for every repository image (digests above) and equal
+    the plain Python route there; every file of the committed corpus
+    (tests/data/image_io: progressive, CMYK and YCCK, Adobe RGB, sampling
+    factors up to 4, Adam7 and every PNG bit depth; lossy and lossless,
+    extended and animated WebP, GIF and BMP of every mode) decodes to its
+    Pillow digest, and each refused file raises NotImplementedError
+    naming its mode; neither Pillow nor a system libwebp or giflib is
+    loaded; host ms a decode, median of 5, native beside plain
+    (images/sample.jpg 640x480, output/detections.jpg 1252², the
+    progressive scene, the first scene as lossy and lossless WebP, GIF
+    and BMP); decodes a second of the two baseline JPEG scenes on 1 and
+    4 threads, each route, and of the three lossy WebP scenes (whether a
+    decode leaves the GIL); BatchLoader images a second with 1 and 4
+    worker threads over a COCO directory of the corpus scenes (a whole
+    training sample); write_png read back exactly (RGB and
+    grayscale)."""
+    from maskrcnn_tpu_torch.data import image_io
     from tools import image_decode_bench_torch as bench
-    t0 = time.perf_counter()
-    fresh = not native_image.library_path().exists()
-    native_image.library()
-    build_s = time.perf_counter() - t0
+    build = build or DecoderBuild()
+    build_s = build.wait()
+    fresh = build.fresh
     for name, (h, w, digest) in IMAGE_DIGESTS.items():
         data = (REPO / name).read_bytes()
         img = image_io.read_image(data)
@@ -3046,18 +3083,26 @@ def decode_phase(card):
         want = img if img.ndim == 3 else np.repeat(img[..., None], 3, 2)
         check(np.array_equal(back, want), f"9a: write_png {shape} round trip")
     check("PIL" not in sys.modules, "9a: Pillow was imported")
+    with open("/proc/self/maps") as f:
+        loaded = {line.split()[-1] for line in f if "/" in line}
+    codecs = sorted(p for p in loaded
+                    if re.match(r"lib(webp|gif)[.-]", os.path.basename(p))
+                    or "/PIL/" in p or "pillow.libs" in p)
+    check(not codecs, f"9a: a system codec was loaded: {codecs}")
     lines = "; ".join(
         f"{name} native {row['native_ms']:.2f} ms, plain "
         + (f"{row['plain_ms']:.2f} ms ({row['plain_ms'] / row['native_ms']:.1f}x)"
            if row["plain_ms"] is not None else "refuses it")
         for name, row in times.items())
-    print(f"[9a] native decoder {'built' if fresh else 'found built'} in "
-          f"{build_s:.2f} s; {len(IMAGE_DIGESTS)} repository images decode "
+    print(f"[9a] native decoders {'built' if fresh else 'found built'} in "
+          f"{build_s:.2f} s (two g++ threads, from the script's start in a "
+          f"whole run); {len(IMAGE_DIGESTS)} repository images decode "
           f"to Pillow's pixels (SHA-256) and equal the plain route; corpus: "
           f"{len(index['files'])} files to their digests, "
-          f"{len(index['refused'])} refused by name; host decode median of "
-          f"5: {lines}; decodes a second of the baseline scenes on 1 / 4 "
-          + "threads: " + ", ".join(
+          f"{len(index['refused'])} refused by name; no system codec "
+          f"loaded; host decode median of 5: {lines}; decodes a second of "
+          "the scenes on 1 / 4 threads (native and plain: the baseline "
+          "JPEG scenes; webp: the lossy WebP scenes): " + ", ".join(
               f"{route} {row[1]:.1f} / {row[4]:.1f} ({row[4] / row[1]:.2f}x)"
               for route, row in threads.items())
           + f"; BatchLoader over the corpus scenes (CocoConfig, B=4): 1 "
@@ -3080,8 +3125,10 @@ def same_detections(a, b) -> bool:
     return True
 
 
-# 9d: the corpus scenes, each this many times (3 batches of 8)
+# 9d: the corpus scenes, each this many times (3 batches of 8), and the
+# formats swept beside the JPEG files (image_decode_bench_torch.scene_files)
 FILES_COPIES, FILES_B = 8, 8
+FILES_FORMATS = ("bmp", "webp_lossless", "webp", "gif")
 
 
 def files_phase(kernels, card, cfg=None):
@@ -3093,9 +3140,14 @@ def files_phase(kernels, card, cfg=None):
     the native one) and once through the native route; the detections of
     the two sweeps equal, K1, K2 and K4 launched in the native sweep,
     each sweep's images a second and the decode's share of its seconds.
-    Then one POST of the progressive scene to tools/serve_torch.py's
-    handler on a localhost port is answered with detections. Returns the
-    native sweep's launches."""
+    Then the native sweep over the scenes in the other formats
+    (image_decode_bench_torch.scene_files): BMP files and the first
+    scene as lossless WebP hold the JPEG decodes' pixels, so their
+    detections equal the JPEG sweep's; lossy WebP and GIF (a fixed
+    palette) find detections; K1, K2 and K4 launched in every sweep.
+    Then one POST each of the progressive scene and of a lossy WebP scene
+    to tools/serve_torch.py's handler on a localhost port is answered
+    with detections. Returns the native JPEG sweep's launches."""
     import threading
     import urllib.request
     from http.server import ThreadingHTTPServer
@@ -3109,89 +3161,109 @@ def files_phase(kernels, card, cfg=None):
     from tools.serve_torch import make_handler
     cfg = cfg or CocoInferenceConfig()
     det = Detector(cfg, DEVICE, generator=torch.Generator().manual_seed(7))
-    sweeps, launches = {}, None
+    sweeps = {}
+
+    def sweep(root, route, plain=False):
+        ds = CocoDataset(root, "minival", 2014, cfg)
+        decode = {"s": 0.0, "native": 0}
+
+        def load_image(image_id, ds=ds):
+            path = ds.image_path(ds.image_index(image_id))
+            t = time.perf_counter()
+            try:
+                img = image_io.read_image(path, plain=plain)
+            except NotImplementedError:
+                img = image_io.read_image(path)
+                decode["native"] += 1
+            decode["s"] += time.perf_counter() - t
+            return img
+
+        ds.load_image = load_image
+        rec = RecordingDetector(det)
+        reset_counts(kernels)
+        t = time.perf_counter()
+        stats = evaluate_coco(rec, ds, ds.coco, "bbox", batch_size=FILES_B)
+        seconds = time.perf_counter() - t
+        sweeps[route] = (rec.results, seconds, decode, stats,
+                         launch_counts(kernels))
+
     with tempfile.TemporaryDirectory() as tmp:
-        root = bench.coco_scene_dir(Path(tmp), FILES_COPIES)
+        root = bench.coco_scene_dir(Path(tmp) / "jpeg", FILES_COPIES)
         # a warm-up batch: the first request's one-time work is no
         # route's
         det.detect_batch([image_io.read_image(
             bench.CORPUS / "scene_baseline_420.jpg")] * FILES_B)
         if DEVICE == "cuda":
             torch.cuda.synchronize()
-        for route in ("plain", "native"):
-            ds = CocoDataset(root, "minival", 2014, cfg)
-            decode = {"s": 0.0, "native": 0}
-
-            def load_image(image_id, ds=ds, plain=route == "plain",
-                           decode=decode):
-                path = ds.image_path(ds.image_index(image_id))
-                t = time.perf_counter()
-                try:
-                    img = image_io.read_image(path, plain=plain)
-                except NotImplementedError:
-                    img = image_io.read_image(path)
-                    decode["native"] += 1
-                decode["s"] += time.perf_counter() - t
-                return img
-
-            ds.load_image = load_image
-            rec = RecordingDetector(det)
-            reset_counts(kernels)
-            t = time.perf_counter()
-            stats = evaluate_coco(rec, ds, ds.coco, "bbox",
-                                  batch_size=FILES_B)
-            seconds = time.perf_counter() - t
-            n = launch_counts(kernels)
-            sweeps[route] = (rec.results, seconds, decode, stats, n)
-        launches = sweeps["native"][4]
-    check(all(launches[k] > 0 for k in ("roi_align", "nms", "paste_pack")),
-          f"9d: launches {launches}")
+        sweep(root, "plain", plain=True)
+        sweep(root, "native")
+        for fmt in FILES_FORMATS:
+            sweep(bench.coco_scene_dir(Path(tmp) / fmt, FILES_COPIES, fmt),
+                  fmt)
+    launches = sweeps["native"][4]
+    for route, (results, _, _, _, n) in sweeps.items():
+        if route == "plain":
+            continue
+        check(all(n[k] > 0 for k in ("roi_align", "nms", "paste_pack")),
+              f"9d: {route} sweep launches {n}")
+        check(sum(len(r[0]) for r in results if r is not None) > 0,
+              f"9d: no detection in the {route} sweep")
     found = sum(len(r[0]) for r in sweeps["native"][0] if r is not None)
-    check(found > 0, "9d: no detection in the sweep")
-    check(same_detections(sweeps["plain"][0], sweeps["native"][0]),
-          "9d: the native route's detections differ from the plain "
-          "route's")
+    for route in ("plain", "bmp", "webp_lossless"):
+        check(same_detections(sweeps[route][0], sweeps["native"][0]),
+              f"9d: the {route} sweep's detections differ from the native "
+              "JPEG sweep's")
     n_images = 3 * FILES_COPIES
     parts = []
-    for route, (_, seconds, decode, stats, _) in sweeps.items():
+    for route, (results, seconds, decode, stats, n) in sweeps.items():
         parts.append(
-            f"{route} route {n_images / seconds:.2f} img/s ({seconds:.2f} s, "
+            f"{route} {n_images / seconds:.2f} img/s ({seconds:.2f} s, "
             f"decode {decode['s'] * 1e3 / n_images:.2f} ms an image, "
             f"{100 * decode['s'] / seconds:.1f}% of the sweep"
             + (f", {decode['native']} progressive files read natively"
-               if decode["native"] and route == "plain" else "") + ")")
-    # the serve handler: one POST of the progressive scene
+               if decode["native"] and route == "plain" else "")
+            + ("" if route == "plain" else
+               f", {sum(len(r[0]) for r in results if r is not None)} "
+               f"detections, bbox AP {stats[0]:.3f}, launches K1 "
+               f"{n['roi_align']} K2 {n['nms']} K4 {n['paste_pack']}")
+            + ")")
+    # the serve handler: one POST of the progressive JPEG, one of a WebP
     batcher = BatchingDetector(det, FILES_B, 10.0)
     server = ThreadingHTTPServer(("127.0.0.1", 0),
                                  make_handler(batcher, COCO_CLASS_NAMES))
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
+    posts = []
     try:
-        body = (bench.CORPUS / "scene_progressive.jpg").read_bytes()
-        req = urllib.request.Request(
-            f"http://127.0.0.1:{server.server_address[1]}/detect",
-            data=body, method="POST",
-            headers={"Content-Type": "image/jpeg"})
-        t = time.perf_counter()
-        with urllib.request.urlopen(req, timeout=300) as resp:
-            status, reply = resp.status, json.loads(resp.read())
-        post_ms = (time.perf_counter() - t) * 1e3
+        for name, kind in (("scene_progressive.jpg", "image/jpeg"),
+                           (bench.WEBP_SCENES[0], "image/webp")):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{server.server_address[1]}/detect",
+                data=(bench.CORPUS / name).read_bytes(), method="POST",
+                headers={"Content-Type": kind})
+            t = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                status, reply = resp.status, json.loads(resp.read())
+            posts.append((name, status, reply,
+                          (time.perf_counter() - t) * 1e3))
     finally:
         server.shutdown()
         server.server_close()
         batcher.close()
-    check(status == 200 and "detections" in reply,
-          f"9d: the POST of a progressive JPEG was answered {status} "
-          f"{str(reply)[:200]}")
+    for name, status, reply, _ in posts:
+        check(status == 200 and "detections" in reply,
+              f"9d: the POST of {name} was answered {status} "
+              f"{str(reply)[:200]}")
     print(f"[9d] evaluate_coco bbox over {n_images} files (3 corpus scenes "
           f"x {FILES_COPIES}, one progressive) through {cfg_name(cfg)} at "
           f"B={FILES_B}: detections of the plain-route and native-route "
-          f"sweeps equal ({found} detections); " + "; ".join(parts)
+          f"JPEG sweeps equal ({found} detections), and of the BMP and "
+          f"lossless-WebP sweeps; " + "; ".join(parts)
           + f"; bbox AP {sweeps['native'][3][0]:.3f} (seeded weights); "
-          f"launches K1 {launches['roi_align']} K2 {launches['nms']} K4 "
-          f"{launches['paste_pack']}; serve_torch POST of the progressive "
-          f"JPEG answered 200 with {len(reply['detections'])} detections in "
-          f"{post_ms:.1f} ms; {card}", flush=True)
+          + "; ".join(f"serve_torch POST of {name} answered {status} with "
+                      f"{len(reply['detections'])} detections in {ms:.1f} ms"
+                      for name, status, reply, ms in posts)
+          + f"; {card}", flush=True)
     return launches
 
 
@@ -4086,6 +4158,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    decoders = DecoderBuild()   # phase 9a's, beside the nvcc build
     t0 = time.perf_counter()
     fresh = not kernels.library_path().exists()
     kernels.library()
@@ -4136,7 +4209,7 @@ def main() -> int:
     reset_counts(kernels)
     export_phase(det, kernels, card)
     profiler_phase(det, images)
-    decode_phase(card)
+    decode_phase(card, decoders)
     learning_launches = learning_phase(kernels, roi, card)
     full_launches = learning_full_phase(kernels, card)
     files_launches = files_phase(kernels, card)

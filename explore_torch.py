@@ -13,8 +13,8 @@ numbers and renders the stage asked for. Each stage is a function that
 returns its tensors (`features`, `anchors`, `proposals`, `detections`),
 so a script can call the stages without the CLI. The RoIAlign is the
 device dispatch (`ops.roi_align.multilevel_roi_align_impl`): K1 on the
-card, the plain `multilevel_roi_align` on the CPU. The image file (PNG
-or JPEG) is read without Pillow (data/image_io.py). Drawing
+card, the plain `multilevel_roi_align` on the CPU. The image file (JPEG,
+PNG, WebP, GIF or BMP) is read without Pillow (data/image_io.py). Drawing
 needs matplotlib; without it the stages still run and print, and the CLI
 says that it cannot draw the picture.
 """

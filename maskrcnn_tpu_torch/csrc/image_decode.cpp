@@ -1,6 +1,6 @@
-// Host image decoder of the port: JPEG and PNG (after inflate) to RGB
-// uint8, the pixels np.asarray(PIL.Image.open(f).convert("RGB")) gives
-// with Pillow 12.1 over libjpeg-turbo 3.1.
+// Host image decoder of the port: JPEG, PNG (after inflate), BMP and GIF
+// to RGB uint8, the pixels np.asarray(PIL.Image.open(f).convert("RGB"))
+// gives with Pillow 12.1 over libjpeg-turbo 3.1 (WebP: webp_decode.cpp).
 //
 // Host C++17, no CUDA: maskrcnn_tpu_torch/data/native_image.py compiles it
 // with g++ on first use and calls it through ctypes, which releases the
@@ -30,10 +30,29 @@
 // high byte of every other 16-bit sample, alpha dropped, palette indices
 // looked up (black past the palette).
 //
+// BMP as BmpImagePlugin.py reads it: the 12-byte OS/2 header and the
+// 40- to 124-byte Windows ones, 1/4/8-bit palettes (black past a short
+// one; a grayscale palette's 8-bit indices read as gray levels), 16-bit
+// 5-5-5 and 5-6-5, 24-bit, 32-bit with the bit-field layouts Pillow
+// takes (alpha dropped), BI_RLE8 and BI_RLE4 through Pillow's own RLE
+// decoder (a delta skips two bytes before its offsets; deltas and line
+// ends leave index 0; absolute runs align to the file's even offsets),
+// rows bottom-up or top-down. Channels narrower than 8 bits widen as
+// Pillow's unpackers do: v * 255 / (2**bits - 1).
+//
+// GIF: the first frame as GifImagePlugin.py and GifDecode.c give it: the
+// logical screen grown to hold the frame, pixels outside the frame filled
+// with the transparency index or 0, global or local colour table (a
+// table of the grays 0, 1, 2, ... opens as mode "L": indices as gray
+// levels; black past a short table), LZW with any code size Pillow takes
+// (clear and end codes, a full table kept without a clear code),
+// interlaced rows.
+//
 // Entry points return 0, 1 (a corrupt file: ValueError) or 2 (a mode not
 // read: NotImplementedError), with a message.
 
 #include <algorithm>
+#include <climits>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
@@ -1140,6 +1159,529 @@ void decode_png(const uint8_t* raw, int64_t n, int width, int height,
   }
 }
 
+// -------------------------------------------------------------------- BMP
+
+uint32_t le16(const uint8_t* p) { return p[0] | (p[1] << 8); }
+uint32_t le32(const uint8_t* p) {
+  return p[0] | (p[1] << 8) | (p[2] << 16) | (static_cast<uint32_t>(p[3]) << 24);
+}
+
+// A BMP as BmpImagePlugin.py opens it.
+struct Bmp {
+  int64_t width = 0, height = 0;
+  int bits = 0;
+  uint32_t compression = 0;
+  bool top_down = false;
+  int64_t offset = 0;             // the pixel data (or RLE data)
+  // mode "P": a palette lookup (black past the file's entries); mode "L"
+  // (a grayscale palette of 8-bit indices): the index itself
+  std::vector<uint8_t> palette;   // RGB triples
+  bool gray = false;
+  int rgb_at[3] = {2, 1, 0};      // 32-bit: byte of R, G and B in a pixel
+  int depth16 = 15;               // 16-bit: 5-5-5 ("BGR;15") or 5-6-5
+
+  Bmp(const uint8_t* d, int64_t n) {
+    if (n < 18 || d[0] != 'B' || d[1] != 'M') corrupt("not a BMP file");
+    offset = le32(d + 10);
+    uint32_t hs = le32(d + 14);
+    int64_t pos = 14;
+    if (hs < 4 || pos + hs > n) corrupt("BMP: truncated header");
+    const uint8_t* h = d + 18;
+    uint32_t colors = 0;
+    int padding = 4;
+    uint32_t mask[4] = {0, 0, 0, 0};
+    if (hs == 12) {
+      width = le16(h);
+      height = le16(h + 2);
+      bits = static_cast<int>(le16(h + 6));
+      padding = 3;
+      pos += hs;
+    } else if (hs == 40 || hs == 52 || hs == 56 || hs == 64 || hs == 108 ||
+               hs == 124) {
+      top_down = h[7] == 0xFF;
+      width = le32(h);
+      height = top_down ? (int64_t{1} << 32) - le32(h + 4) : le32(h + 4);
+      bits = static_cast<int>(le16(h + 10));
+      compression = le32(h + 12);
+      colors = le32(h + 28);
+      pos += hs;
+      if (compression == 3) {
+        if (hs >= 52) {
+          for (int i = 0; i < 3; i++) mask[i] = le32(h + 36 + 4 * i);
+          if (hs >= 56) mask[3] = le32(h + 48);
+        } else {
+          if (pos + 12 > n) corrupt("BMP: truncated bit fields");
+          for (int i = 0; i < 3; i++) mask[i] = le32(d + pos + 4 * i);
+          pos += 12;
+        }
+      }
+    } else {
+      refuse("BMP: header type " + std::to_string(hs) + " is not supported");
+    }
+    if (colors == 0) colors = bits < 32 ? 1u << bits : 0u;
+    if (offset == 14 + static_cast<int64_t>(hs) && bits <= 8)
+      offset += 4 * static_cast<int64_t>(colors);
+    if (bits != 1 && bits != 4 && bits != 8 && bits != 16 && bits != 24 &&
+        bits != 32)
+      refuse("BMP: pixel depth " + std::to_string(bits) +
+             " is not supported");
+    if (compression == 3) {
+      // the bit-field layouts Pillow reads
+      static const uint32_t k32[8][4] = {
+          {0xFF0000, 0xFF00, 0xFF, 0x0},
+          {0xFF000000, 0xFF0000, 0xFF00, 0x0},
+          {0xFF000000, 0xFF00, 0xFF, 0x0},
+          {0xFF000000, 0xFF0000, 0xFF00, 0xFF},
+          {0xFF, 0xFF00, 0xFF0000, 0xFF000000},
+          {0xFF0000, 0xFF00, 0xFF, 0xFF000000},
+          {0xFF000000, 0xFF00, 0xFF, 0xFF0000},
+          {0x0, 0x0, 0x0, 0x0}};
+      bool ok = false;
+      if (bits == 32) {
+        for (const auto& m : k32) {
+          if (std::equal(m, m + 4, mask)) {
+            ok = true;
+            if (mask[0] == 0) break;  // all zero: "BGRA"
+            for (int c = 0; c < 3; c++)
+              rgb_at[c] = __builtin_ctz(mask[c]) / 8;
+            break;
+          }
+        }
+      } else if (bits == 24) {
+        ok = mask[0] == 0xFF0000 && mask[1] == 0xFF00 && mask[2] == 0xFF;
+      } else if (bits == 16) {
+        if (mask[0] == 0xF800 && mask[1] == 0x7E0 && mask[2] == 0x1F) {
+          ok = true;
+          depth16 = 16;
+        } else {
+          ok = mask[0] == 0x7C00 && mask[1] == 0x3E0 && mask[2] == 0x1F;
+        }
+      }
+      if (!ok) refuse("BMP: this bit-fields layout is not supported");
+    } else if (compression == 1 || compression == 2) {
+      if (bits > 8)
+        refuse("BMP: RLE compression of " + std::to_string(bits) +
+               "-bit pixels is not supported");
+    } else if (compression != 0) {
+      const char* name = compression == 4   ? " (JPEG)"
+                         : compression == 5 ? " (PNG)"
+                                            : "";
+      refuse("BMP: compression " + std::to_string(compression) + name +
+             " is not supported");
+    }
+    if (bits <= 8) {
+      if (colors == 0 || colors > 65536)
+        refuse("BMP: palette size " + std::to_string(colors) +
+               " is not supported");
+      int64_t avail = std::max<int64_t>(0, std::min<int64_t>(
+          n - pos, static_cast<int64_t>(padding) * colors));
+      const uint8_t* p = d + pos;
+      gray = true;
+      for (uint32_t i = 0; i < colors; i++) {
+        uint8_t v = colors == 2 ? (i ? 255 : 0) : static_cast<uint8_t>(i);
+        int64_t at = static_cast<int64_t>(i) * padding;
+        if (at + 3 > avail || p[at] != v || p[at + 1] != v || p[at + 2] != v) {
+          gray = false;
+          break;
+        }
+      }
+      int64_t entries = std::min<int64_t>(avail / padding, 256);
+      palette.assign(256 * 3, 0);
+      for (int64_t i = 0; i < entries; i++) {
+        palette[3 * i] = p[i * padding + 2];
+        palette[3 * i + 1] = p[i * padding + 1];
+        palette[3 * i + 2] = p[i * padding];
+      }
+      if (gray) {
+        // mode "1" over 1-bit pixels and mode "L" over 8-bit ones are a
+        // lookup in this palette; Pillow reads other bit depths under a
+        // grayscale palette with the wrong unpacker
+        bool one = colors == 2 && bits == 1 && compression == 0;
+        bool l8 = colors != 2 && bits == 8;
+        bool rle_l = colors != 2 && (compression == 1 || compression == 2);
+        if (!one && !l8 && !rle_l)
+          refuse("BMP: a " + std::to_string(bits) +
+                 "-bit image under a grayscale palette of " +
+                 std::to_string(colors) + " colours is not supported");
+        gray = !one;
+      }
+    }
+    if (offset == 0) offset = pos + (bits <= 8 ? static_cast<int64_t>(padding) * colors : 0);
+  }
+};
+
+// BmpRleDecoder.decode of BmpImagePlugin.py: the indices of the whole
+// image in file row order (rows of width), or a ValueError when they do
+// not fill it.
+std::vector<uint8_t> bmp_rle(const uint8_t* d, int64_t n, int64_t pos,
+                             int64_t width, int64_t height, bool rle4) {
+  const int64_t need = width * height;
+  std::vector<uint8_t> data;
+  data.reserve(static_cast<size_t>(need));
+  int64_t x = 0;
+  while (static_cast<int64_t>(data.size()) < need) {
+    if (pos + 2 > n) break;
+    int num = d[pos], byte = d[pos + 1];
+    pos += 2;
+    if (num) {
+      if (x + num > width) num = static_cast<int>(std::max<int64_t>(0, width - x));
+      for (int i = 0; i < num; i++)
+        data.push_back(rle4 ? (i % 2 ? byte & 15 : byte >> 4) : byte);
+      x += num;
+    } else if (byte == 0) {
+      while (data.size() % width) data.push_back(0);
+      x = 0;
+    } else if (byte == 1) {
+      break;
+    } else if (byte == 2) {
+      // Pillow reads two bytes it drops, then right and up
+      if (pos + 2 > n) break;
+      if (pos + 4 > n) corrupt("BMP: truncated RLE delta");
+      int64_t right = d[pos + 2], up = d[pos + 3];
+      pos += 4;
+      data.resize(data.size() + right + up * width, 0);
+      x = static_cast<int64_t>(data.size() % width);
+    } else {
+      int64_t count = rle4 ? byte / 2 : byte;
+      int64_t got = std::min(count, n - pos);
+      for (int64_t i = 0; i < got; i++) {
+        uint8_t b = d[pos + i];
+        if (rle4) {
+          data.push_back(b >> 4);
+          data.push_back(b & 15);
+        } else {
+          data.push_back(b);
+        }
+      }
+      pos += got;
+      if (got < count) break;
+      x += byte;
+      if (pos % 2) pos++;
+    }
+  }
+  if (static_cast<int64_t>(data.size()) < need)
+    corrupt("BMP: not enough image data");
+  data.resize(static_cast<size_t>(need));
+  return data;
+}
+
+// into out [height, width, 3]: the size mrt_bmp_size gave
+void decode_bmp(const uint8_t* d, int64_t n, uint8_t* out, int64_t height,
+                int64_t width) {
+  Bmp b(d, n);
+  if (b.width != width || b.height != height)
+    corrupt("BMP: the image's size changed");
+  const int64_t w = b.width, h = b.height;
+  auto index_out = [&](uint8_t v, uint8_t* o) {
+    if (b.gray) {
+      o[0] = o[1] = o[2] = v;
+    } else {
+      std::memcpy(o, &b.palette[3 * v], 3);
+    }
+  };
+  if (b.compression == 1 || b.compression == 2) {
+    std::vector<uint8_t> idx = bmp_rle(d, n, b.offset, w, h, b.compression == 2);
+    for (int64_t r = 0; r < h; r++) {
+      int64_t y = b.top_down ? r : h - 1 - r;
+      for (int64_t x = 0; x < w; x++)
+        index_out(idx[r * w + x], out + (y * w + x) * 3);
+    }
+    return;
+  }
+  const int64_t stride = ((w * b.bits + 31) >> 3) & ~int64_t{3};
+  if (b.offset < 0 || b.offset > n || (n - b.offset) / std::max<int64_t>(stride, 1) < h)
+    corrupt("BMP: image file is truncated");
+  for (int64_t r = 0; r < h; r++) {
+    const uint8_t* row = d + b.offset + r * stride;
+    int64_t y = b.top_down ? r : h - 1 - r;
+    uint8_t* o = out + y * w * 3;
+    switch (b.bits) {
+      case 1:
+      case 4:
+      case 8: {
+        const int per = 8 / b.bits, mask = (1 << b.bits) - 1;
+        for (int64_t x = 0; x < w; x++) {
+          int shift = 8 - b.bits * (static_cast<int>(x % per) + 1);
+          index_out((row[x / per] >> shift) & mask, o + x * 3);
+        }
+        break;
+      }
+      case 16:
+        for (int64_t x = 0; x < w; x++) {
+          uint32_t p = le16(row + 2 * x);
+          if (b.depth16 == 16) {
+            o[3 * x] = static_cast<uint8_t>(((p >> 11) & 31) * 255 / 31);
+            o[3 * x + 1] = static_cast<uint8_t>(((p >> 5) & 63) * 255 / 63);
+          } else {
+            o[3 * x] = static_cast<uint8_t>(((p >> 10) & 31) * 255 / 31);
+            o[3 * x + 1] = static_cast<uint8_t>(((p >> 5) & 31) * 255 / 31);
+          }
+          o[3 * x + 2] = static_cast<uint8_t>((p & 31) * 255 / 31);
+        }
+        break;
+      case 24:
+        for (int64_t x = 0; x < w; x++) {
+          o[3 * x] = row[3 * x + 2];
+          o[3 * x + 1] = row[3 * x + 1];
+          o[3 * x + 2] = row[3 * x];
+        }
+        break;
+      default:
+        for (int64_t x = 0; x < w; x++)
+          for (int c = 0; c < 3; c++) o[3 * x + c] = row[4 * x + b.rgb_at[c]];
+    }
+  }
+}
+
+// -------------------------------------------------------------------- GIF
+
+// The first frame of a GIF as GifImagePlugin.py opens it.
+struct Gif {
+  int64_t width = 0, height = 0;  // the screen, grown to hold the frame
+  int64_t x0 = 0, y0 = 0, fw = 0, fh = 0;
+  bool interlace = false;
+  int code_size = 0;
+  int transparency = -1;
+  bool has_palette = false;       // mode "P"; else "L"
+  std::vector<uint8_t> palette;   // 256 RGB triples, black past the file's
+  int64_t data = 0;               // the first sub-block of image data
+
+  // _is_palette_needed: false for the table 0, 1, 2, ... of grays
+  static bool palette_needed(const uint8_t* p, int64_t len) {
+    for (int64_t i = 0; i < len; i += 3) {
+      if (i + 2 >= len || p[i] != i / 3 || p[i + 1] != p[i] ||
+          p[i + 2] != p[i])
+        return true;
+    }
+    return false;
+  }
+
+  void set_palette(const uint8_t* p, int64_t len) {
+    has_palette = true;
+    palette.assign(256 * 3, 0);
+    std::memcpy(palette.data(), p, static_cast<size_t>(std::min<int64_t>(len / 3, 256) * 3));
+  }
+
+  Gif(const uint8_t* d, int64_t n) {
+    if (n < 13 || (std::memcmp(d, "GIF87a", 6) && std::memcmp(d, "GIF89a", 6)))
+      corrupt("not a GIF file");
+    width = le16(d + 6);
+    height = le16(d + 8);
+    int64_t pos = 13;
+    uint8_t flags = d[10];
+    if (flags & 128) {
+      int64_t len = std::min<int64_t>(3 << ((flags & 7) + 1), n - pos);
+      if (palette_needed(d + pos, len)) set_palette(d + pos, len);
+      pos += len;
+    }
+    // the blocks up to the first image: extensions are skipped, but for
+    // the graphic control extension's transparency index
+    auto sub_block = [&](int64_t& at, const uint8_t** body) -> int64_t {
+      if (at >= n || d[at] == 0) {
+        if (at < n) at++;
+        return 0;
+      }
+      int64_t len = std::min<int64_t>(d[at], n - at - 1);
+      *body = d + at + 1;
+      at += 1 + len;
+      return len;
+    };
+    for (;;) {
+      if (pos >= n || d[pos] == ';') corrupt("GIF: no image in the file");
+      uint8_t s = d[pos++];
+      if (s == '!') {
+        if (pos >= n) corrupt("GIF: no image in the file");
+        uint8_t label = d[pos++];
+        const uint8_t* body = nullptr;
+        int64_t len = sub_block(pos, &body);
+        if (label == 249 && len) {
+          if (len < 3 || ((body[0] & 1) && len < 4))
+            corrupt("GIF: short graphic control extension");
+          if (body[0] & 1) transparency = body[3];
+        }
+        while (len) len = sub_block(pos, &body);
+      } else if (s == ',') {
+        if (pos + 9 > n) corrupt("GIF: truncated image descriptor");
+        x0 = le16(d + pos);
+        y0 = le16(d + pos + 2);
+        fw = le16(d + pos + 4);
+        fh = le16(d + pos + 6);
+        uint8_t lflags = d[pos + 8];
+        pos += 9;
+        width = std::max(width, x0 + fw);
+        height = std::max(height, y0 + fh);
+        interlace = lflags & 64;
+        if (lflags & 128) {
+          int64_t len = std::min<int64_t>(3 << ((lflags & 7) + 1), n - pos);
+          if (palette_needed(d + pos, len)) {
+            set_palette(d + pos, len);
+          } else {
+            has_palette = false;  // a grayscale local table: mode "L"
+          }
+          pos += len;
+        }
+        if (pos >= n) corrupt("GIF: truncated image");
+        code_size = d[pos++];
+        data = pos;
+        return;
+      }
+    }
+  }
+};
+
+// GifDecode.c's LZW decoder over the sub-blocks from `pos`, into the
+// frame's indices (rows in display order).
+void gif_lzw(const Gif& g, const uint8_t* d, int64_t n, uint8_t* image) {
+  constexpr int kTable = 4096;
+  const int bits = g.code_size;
+  if (bits > 12) corrupt("GIF: LZW code size " + std::to_string(bits));
+  if (g.fw == 0 || g.fh == 0) return;
+  const int clear = 1 << bits, end = clear + 1;
+  std::vector<uint8_t> data(kTable), buffer(kTable);
+  std::vector<uint16_t> link(kTable);
+  int state = 1, next = 0, codesize = 0, codemask = 0, bufferindex = kTable;
+  int lastcode = 0;
+  uint8_t lastdata = 0;
+  uint32_t bitbuffer = 0;
+  int bitcount = 0;
+  int64_t blocksize = 0, pos = g.data;
+  int64_t x = 0, y = 0;
+  int step = g.interlace ? 8 : 1, pass = g.interlace ? 1 : 0;
+  auto newline = [&]() -> bool {   // false: the frame is full
+    x = 0;
+    y += step;
+    while (y >= g.fh) {
+      switch (pass) {
+        case 1: y = 4; pass = 2; break;
+        case 2: step = 4; y = 2; pass = 3; break;
+        case 3: step = 2; y = 1; pass = 0; break;
+        default: return false;
+      }
+    }
+    return true;
+  };
+  for (;;) {
+    if (state == 1) {
+      next = clear + 2;
+      codesize = bits + 1;
+      codemask = (1 << codesize) - 1;
+      bufferindex = kTable;
+      state = 2;
+    }
+    const uint8_t* p;
+    int count;
+    if (bufferindex < kTable) {
+      count = kTable - bufferindex;
+      p = &buffer[bufferindex];
+      bufferindex = kTable;
+    } else {
+      while (bitcount < codesize) {
+        if (blocksize > 0) {
+          bitbuffer |= static_cast<uint32_t>(d[pos++]) << bitcount;
+          bitcount += 8;
+          blocksize--;
+        } else {
+          if (pos >= n || pos + 1 + d[pos] > n)
+            corrupt("GIF: the image data ends before the frame is full");
+          blocksize = d[pos++];
+        }
+      }
+      int c = static_cast<int>(bitbuffer & codemask);
+      bitbuffer >>= codesize;
+      bitcount -= codesize;
+      if (c == clear) {
+        if (state != 2) state = 1;
+        continue;
+      }
+      if (c == end)
+        corrupt("GIF: the image data ends before the frame is full");
+      count = 1;
+      p = &lastdata;
+      if (state == 2) {
+        if (c > clear) corrupt("GIF: bad LZW code");
+        lastdata = static_cast<uint8_t>(c);
+        lastcode = c;
+        state = 3;
+      } else {
+        int thiscode = c;
+        if (c > next) corrupt("GIF: bad LZW code");
+        if (c == next) {
+          if (bufferindex <= 0) corrupt("GIF: bad LZW code");
+          buffer[--bufferindex] = lastdata;
+          c = lastcode;
+        }
+        while (c >= clear) {
+          if (bufferindex <= 0 || c >= kTable) corrupt("GIF: bad LZW code");
+          buffer[--bufferindex] = data[c];
+          c = link[c];
+        }
+        lastdata = static_cast<uint8_t>(c);
+        if (next < kTable) {
+          data[next] = static_cast<uint8_t>(c);
+          link[next] = static_cast<uint16_t>(lastcode);
+          if (next == codemask && codesize < 12) {
+            codesize++;
+            codemask = (1 << codesize) - 1;
+          }
+          next++;
+        }
+        // the string's first byte goes out now, the buffered rest next
+        lastcode = thiscode;
+      }
+    }
+    for (int i = 0; i < count; i++) {
+      image[y * g.fw + x] = p[i];
+      if (++x >= g.fw && !newline()) return;
+    }
+  }
+}
+
+// into out [height, width, 3]: the size mrt_gif_size gave
+void decode_gif(const uint8_t* d, int64_t n, uint8_t* out, int64_t height,
+                int64_t width) {
+  Gif g(d, n);
+  if (g.width != width || g.height != height)
+    corrupt("GIF: the image's size changed");
+  std::vector<uint8_t> frame(static_cast<size_t>(g.fw * g.fh));
+  gif_lzw(g, d, n, frame.data());
+  const uint8_t fill = static_cast<uint8_t>(g.transparency >= 0 ? g.transparency : 0);
+  auto put = [&](uint8_t v, uint8_t* o) {
+    if (g.has_palette) {
+      std::memcpy(o, &g.palette[3 * v], 3);
+    } else {
+      o[0] = o[1] = o[2] = v;
+    }
+  };
+  for (int64_t y = 0; y < g.height; y++) {
+    for (int64_t x = 0; x < g.width; x++) {
+      int64_t fx = x - g.x0, fy = y - g.y0;
+      bool inside = fx >= 0 && fy >= 0 && fx < g.fw && fy < g.fh;
+      put(inside ? frame[fy * g.fw + fx] : fill, out + (y * g.width + x) * 3);
+    }
+  }
+}
+
+// Runs f, reporting a thrown Error or an allocation failure.
+template <class F>
+int guarded(const char* format, char* msg, int32_t msg_len, F f) {
+  try {
+    f();
+    return 0;
+  } catch (const Error& e) {
+    return report(e, msg, msg_len);
+  } catch (const std::bad_alloc&) {
+    return report(Error{1, std::string(format) + ": out of memory"}, msg,
+                  msg_len);
+  }
+}
+
+template <class T>
+void size_of(const T& t, int32_t* height, int32_t* width) {
+  // the caller's check_size refuses what does not fit
+  *height = static_cast<int32_t>(std::min<int64_t>(t.height, INT32_MAX));
+  *width = static_cast<int32_t>(std::min<int64_t>(t.width, INT32_MAX));
+}
+
 }  // namespace
 
 extern "C" {
@@ -1194,6 +1736,34 @@ int mrt_png_decode(const uint8_t* raw, int64_t n, int32_t width,
   } catch (const std::bad_alloc&) {
     return report(Error{1, "PNG: out of memory"}, msg, msg_len);
   }
+}
+
+// BMP and GIF: the image's size, then the whole decode into out
+// [height, width, 3] (that size, checked again).
+int mrt_bmp_size(const uint8_t* data, int64_t n, int32_t* height,
+                 int32_t* width, char* msg, int32_t msg_len) {
+  return guarded("BMP", msg, msg_len,
+                 [&] { size_of(Bmp(data, n), height, width); });
+}
+
+int mrt_bmp_decode(const uint8_t* data, int64_t n, uint8_t* out,
+                   int32_t height, int32_t width, char* msg,
+                   int32_t msg_len) {
+  return guarded("BMP", msg, msg_len,
+                 [&] { decode_bmp(data, n, out, height, width); });
+}
+
+int mrt_gif_size(const uint8_t* data, int64_t n, int32_t* height,
+                 int32_t* width, char* msg, int32_t msg_len) {
+  return guarded("GIF", msg, msg_len,
+                 [&] { size_of(Gif(data, n), height, width); });
+}
+
+int mrt_gif_decode(const uint8_t* data, int64_t n, uint8_t* out,
+                   int32_t height, int32_t width, char* msg,
+                   int32_t msg_len) {
+  return guarded("GIF", msg, msg_len,
+                 [&] { decode_gif(data, n, out, height, width); });
 }
 
 }  // extern "C"

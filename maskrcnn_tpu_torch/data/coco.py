@@ -5,7 +5,7 @@ minival -> val images rule).
 
 Annotations come through the port's own COCO index (eval/coco_index.py).
 `CocoDataset.load_image` and `load` decode an image file with the port's
-own PNG and JPEG reader (data/image_io.py: Pillow's pixels, no Pillow).
+own JPEG, PNG, WebP, GIF and BMP reader (data/image_io.py: Pillow's pixels, no Pillow).
 `load` gives a training
 image's instances in original coordinates (crowds negated, mask-extent
 boxes, the empty-image fallback) and `sample`, from DetectionDataset, puts

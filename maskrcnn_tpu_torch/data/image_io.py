@@ -1,11 +1,14 @@
-"""Image files without Pillow: PNG and JPEG decode to RGB uint8, and a PNG
-writer.
+"""Image files without Pillow: PNG, JPEG, WebP, GIF and BMP decode to RGB
+uint8, and a PNG writer.
 
 `read_image(f)` (a path, the file's bytes or a binary file object)
 returns what `np.asarray(PIL.Image.open(f).convert("RGB"))` returns with
-Pillow 12.1 over libjpeg-turbo 3.1 and zlib, bit for bit, through the
-native decoder (`csrc/image_decode.cpp`, built with g++ on first use and
-called through ctypes outside the GIL: data/native_image.py). It reads:
+Pillow 12.1 over libjpeg-turbo 3.1, zlib and libwebp 1.6, bit for bit,
+through the native decoders (`csrc/image_decode.cpp` for PNG, JPEG, GIF
+and BMP, `csrc/webp_decode.cpp` for WebP; built with g++ on first use and
+called through ctypes outside the GIL, one call a decode:
+data/native_image.py). The format is told by the file's first bytes, as
+Pillow's `_accept` functions tell it. It reads:
 
 * PNG: grayscale (bit depths 1, 2, 4, 8, 16), RGB (8, 16), palette (1,
   2, 4, 8), grayscale + alpha and RGBA (8, 16); all five row filters;
@@ -21,18 +24,41 @@ called through ctypes outside the GIL: data/native_image.py). It reads:
   inverted "CMYK;I" samples and its cmyk2rgb); sampling factors 1 to 4
   with libjpeg-turbo's upsampler for each ratio (fancy h2v1, h1v2,
   h2v2, box replication elsewhere).
+* WebP (RIFF "WEBP" with a "VP8 ", "VP8L" or "VP8X" chunk): lossy (VP8:
+  segments, loop-filter deltas, 1 to 8 token partitions, the simple and
+  normal loop filters, libwebp's fancy upsampler and YUV -> RGB) and
+  lossless (VP8L: every transform, the colour cache, meta prefix codes),
+  plain or extended; alpha (ALPH, or VP8L's) dropped, which Pillow's
+  RGB never depends on; an animation's first frame at its offset on the
+  canvas cleared to black, as libwebp's WebPAnimDecoder gives it.
+* GIF (GIF87a, GIF89a): the first frame, with the screen grown to hold
+  it and filled outside it with the transparency index or 0; global or
+  local colour table (a table of the grays 0, 1, 2, ... opens in Pillow
+  as mode "L": the indices are the gray levels); interlaced rows; LZW
+  through Pillow's own decoder (a full code table kept without a clear
+  code); transparency dropped.
+* BMP ("BM"): the 12-byte OS/2 header and the 40, 52, 56, 64, 108 and
+  124-byte ones; 1, 4 and 8-bit palettes (black past a short one),
+  16-bit (5-5-5, or 5-6-5 bit fields), 24-bit, 32-bit (BGRX and the
+  bit-field layouts Pillow takes; alpha dropped); BI_RLE8 and BI_RLE4 as
+  Pillow's RLE decoder reads them; rows bottom-up or top-down.
 
 Refused, with NotImplementedError naming the mode: arithmetic-coded,
 lossless and hierarchical JPEG, samples of other than 8 bits, a height
 set by a DNL marker, 2-component JPEG, fractional sampling factors, an
 interleaved MCU of more than 10 blocks, and a progressive JPEG whose
 scans leave a low-frequency coefficient incomplete (libjpeg-turbo
-block-smooths it).
+block-smooths it); JPEG- or PNG-compressed BMP, BMP bit-field layouts
+and pixel depths Pillow refuses, RLE of more than 8-bit pixels, and 1-
+and 4-bit BMP under a grayscale palette (Pillow reads them with the
+wrong unpacker). Any other file (TIFF, Pillow's other plugins) raises a
+ValueError naming the five formats read.
 
 `read_image(f, plain=True)` takes the plain Python decoders below
 instead (`decode_png`, `decode_jpeg`): 8-bit non-interlaced PNG and
 baseline JPEG with 1 or 3 components (YCbCr) and sampling factors 1 or
-2, the rest refused. They are the reference the native route is held
+2, the rest refused (WebP, GIF and BMP with a NotImplementedError
+naming the format). They are the reference the native route is held
 to on the card, where Pillow is absent; no caller on the main path uses
 them. Their JPEG entropy decoding is plain Python over a table of
 16-bit windows; everything after it (dequantize, un-zigzag, jidctint.c's
@@ -68,16 +94,36 @@ def _read_bytes(source: Source) -> bytes:
 
 
 def read_image(source: Source, plain: bool = False) -> np.ndarray:
-    """An image file (path, bytes or binary file object) as RGB uint8
-    [H, W, 3]: the pixels Pillow's `Image.open(f).convert("RGB")` gives,
-    through the native decoder (a RuntimeError naming the compiler when
-    it cannot be built); `plain=True` takes the plain Python decoders."""
+    """An image file (path, bytes or binary file object: PNG, JPEG, WebP,
+    GIF or BMP) as RGB uint8 [H, W, 3]: the pixels Pillow's
+    `Image.open(f).convert("RGB")` gives, through the native decoders (a
+    RuntimeError naming the compiler when one cannot be built);
+    `plain=True` takes the plain Python decoders (PNG and JPEG only)."""
     data = _read_bytes(source)
     if data.startswith(PNG_SIGNATURE):
         return decode_png(data) if plain else native_image.decode_png(data)
     if data.startswith(b"\xff\xd8"):
         return decode_jpeg(data) if plain else native_image.decode_jpeg(data)
-    raise ValueError("not a PNG or JPEG file")
+    name = format_of(data)
+    if name is None:
+        raise ValueError("not a PNG, JPEG, WebP, GIF or BMP file")
+    if plain:
+        raise NotImplementedError(f"{name}: the plain route reads PNG and "
+                                  "JPEG only")
+    return getattr(native_image, f"decode_{name.lower()}")(data)
+
+
+def format_of(data: bytes):
+    """"WebP", "GIF" or "BMP" as Pillow's _accept functions take the file's
+    first bytes, else None (PNG and JPEG are told apart before)."""
+    if (data[:4] == b"RIFF" and data[8:12] == b"WEBP"
+            and data[12:16] in (b"VP8 ", b"VP8L", b"VP8X")):
+        return "WebP"
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return "GIF"
+    if data[:2] == b"BM":
+        return "BMP"
+    return None
 
 
 # --------------------------------------------------------------------- PNG

@@ -1,15 +1,22 @@
-"""ctypes bridge to the port's native image decoder
-(`maskrcnn_tpu_torch/csrc/image_decode.cpp`, host C++17).
+"""ctypes bridge to the port's native image decoders
+(`maskrcnn_tpu_torch/csrc/image_decode.cpp`: JPEG, PNG, GIF and BMP;
+`csrc/webp_decode.cpp`: WebP; host C++17).
 
-On first use the source is compiled with the host's C++ compiler into
+On first use each source is compiled with the host's C++ compiler into
 `build/maskrcnn_tpu_torch/` (`utils/native_build.py`) and loaded with
-ctypes. A whole JPEG decode (markers, entropy decoding, IDCT, upsampling,
-colour) runs in one call, as does a PNG's after zlib's inflate (the row
-filters, Adam7, bit depths, palette and colour); ctypes releases the GIL
-for the call, and zlib for the inflate, so decoder threads run in
-parallel. There is no fallback: without a compiler `library()` raises a
-RuntimeError naming it (the plain Python decoders of image_io.py, 56x
-slower, are reached only by `read_image(..., plain=True)`).
+ctypes; the libraries link only the C and C++ runtimes. A whole JPEG,
+GIF, BMP or WebP decode (headers, entropy decoding, transforms,
+filtering, colour) runs in one call, as does a PNG's after zlib's
+inflate (the row filters, Adam7, bit depths, palette and colour); ctypes
+releases the GIL for the call, and zlib for the inflate, so decoder
+threads run in parallel. Every format's size is read first and held to
+Pillow's decompression-bomb limit (`check_size`) before the output is
+allocated (an animated WebP's canvas, a GIF's screen grown to hold its
+frame). There is no fallback: without a compiler `library()` and
+`webp_library()` raise a RuntimeError naming it (the plain Python
+decoders of image_io.py, PNG and JPEG only and 56x slower, are reached
+only by `read_image(..., plain=True)`); no system codec (libwebp,
+giflib, Pillow) is loaded.
 """
 
 from __future__ import annotations
@@ -26,8 +33,10 @@ import numpy as np
 
 from maskrcnn_tpu_torch.utils import native_build
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "image_decode.cpp"
-# -fwrapv: the IDCT's int32 arithmetic wraps as libjpeg-turbo's does on
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCE = CSRC / "image_decode.cpp"
+WEBP_SOURCE = CSRC / "webp_decode.cpp"
+# -fwrapv: the IDCTs' int32 arithmetic wraps as libjpeg-turbo's does on
 # the corrupt coefficients a valid file never holds
 CXX_FLAGS = native_build.CXX_FLAGS + ("-fwrapv",)
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -36,7 +45,10 @@ PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 MAX_PIXELS = 2 * 89_478_485
 
 _LIB: Optional[ctypes.CDLL] = None
+_WEBP_LIB: Optional[ctypes.CDLL] = None
+# one lock a library: the two may build at once
 _LOCK = threading.Lock()
+_WEBP_LOCK = threading.Lock()
 _MSG_LEN = 512
 
 
@@ -45,39 +57,68 @@ def library_path() -> Path:
     return native_build.library_path("image_decode", SOURCE, CXX_FLAGS)
 
 
+def webp_library_path() -> Path:
+    """Where the WebP library for the current source and flags lives."""
+    return native_build.library_path("webp_decode", WEBP_SOURCE, CXX_FLAGS)
+
+
+def _build(stem: str, source: Path) -> ctypes.CDLL:
+    try:
+        return native_build.load(stem, source, CXX_FLAGS)
+    except (OSError, subprocess.SubprocessError) as e:
+        detail = getattr(e, "stderr", b"") or b""
+        raise RuntimeError(
+            f"the native image decoder ({source.name}) could not be "
+            f"built with the C++ compiler {native_build.compiler()!r} "
+            f"or loaded: {e} {detail.decode(errors='replace')[-2000:]}"
+        ) from e
+
+
+_U8P = ctypes.c_char_p
+_I32P = ctypes.POINTER(ctypes.c_int32)
+_OUT = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+# mrt_<format>_size and mrt_<format>_decode of JPEG, BMP, GIF and WebP
+_SIZE_ARGS = [_U8P, ctypes.c_int64, _I32P, _I32P, ctypes.c_char_p,
+              ctypes.c_int32]
+_DECODE_ARGS = [_U8P, ctypes.c_int64, _OUT, ctypes.c_int32, ctypes.c_int32,
+                ctypes.c_char_p, ctypes.c_int32]
+
+
+def _declare(lib: ctypes.CDLL, formats) -> None:
+    for name in formats:
+        getattr(lib, f"mrt_{name}_size").argtypes = _SIZE_ARGS
+        getattr(lib, f"mrt_{name}_decode").argtypes = _DECODE_ARGS
+        for kind in ("size", "decode"):
+            getattr(lib, f"mrt_{name}_{kind}").restype = ctypes.c_int
+
+
 def library() -> ctypes.CDLL:
-    """The decoder library, built on first use; a RuntimeError naming the
-    compiler when it cannot be built or loaded."""
+    """The JPEG, PNG, BMP and GIF decoder library, built on first use; a
+    RuntimeError naming the compiler when it cannot be built or loaded."""
     global _LIB
     with _LOCK:
         if _LIB is not None:
             return _LIB
-        try:
-            lib = native_build.load("image_decode", SOURCE, CXX_FLAGS)
-        except (OSError, subprocess.SubprocessError) as e:
-            detail = getattr(e, "stderr", b"") or b""
-            raise RuntimeError(
-                f"the native image decoder ({SOURCE.name}) could not be "
-                f"built with the C++ compiler {native_build.compiler()!r} "
-                f"or loaded: {e} {detail.decode(errors='replace')[-2000:]}"
-            ) from e
-        u8p = ctypes.c_char_p
-        i32p = ctypes.POINTER(ctypes.c_int32)
-        out = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
-        lib.mrt_jpeg_size.argtypes = [u8p, ctypes.c_int64, i32p, i32p,
-                                      ctypes.c_char_p, ctypes.c_int32]
-        lib.mrt_jpeg_decode.argtypes = [u8p, ctypes.c_int64, out,
-                                        ctypes.c_int32, ctypes.c_int32,
-                                        ctypes.c_char_p, ctypes.c_int32]
+        lib = _build("image_decode", SOURCE)
+        _declare(lib, ("jpeg", "bmp", "gif"))
         lib.mrt_png_decode.argtypes = [
-            u8p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
-            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, u8p,
-            ctypes.c_int32, out, ctypes.c_char_p, ctypes.c_int32]
-        for fn in (lib.mrt_jpeg_size, lib.mrt_jpeg_decode,
-                   lib.mrt_png_decode):
-            fn.restype = ctypes.c_int
+            _U8P, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, _U8P,
+            ctypes.c_int32, _OUT, ctypes.c_char_p, ctypes.c_int32]
+        lib.mrt_png_decode.restype = ctypes.c_int
         _LIB = lib
         return lib
+
+
+def webp_library() -> ctypes.CDLL:
+    """The WebP decoder library, built on first use (as `library`)."""
+    global _WEBP_LIB
+    with _WEBP_LOCK:
+        if _WEBP_LIB is None:
+            lib = _build("webp_decode", WEBP_SOURCE)
+            _declare(lib, ("webp",))
+            _WEBP_LIB = lib
+        return _WEBP_LIB
 
 
 def _raise(code: int, msg) -> None:
@@ -97,20 +138,7 @@ def check_size(width: int, height: int) -> None:
 
 def decode_jpeg(data: bytes) -> np.ndarray:
     """A JPEG file's bytes -> RGB uint8 [H, W, 3]."""
-    lib = library()
-    msg = ctypes.create_string_buffer(_MSG_LEN)
-    h, w = ctypes.c_int32(), ctypes.c_int32()
-    code = lib.mrt_jpeg_size(data, len(data), ctypes.byref(h),
-                             ctypes.byref(w), msg, _MSG_LEN)
-    if code:
-        _raise(code, msg)
-    check_size(w.value, h.value)
-    out = np.empty((h.value, w.value, 3), np.uint8)
-    code = lib.mrt_jpeg_decode(data, len(data), out, h.value, w.value, msg,
-                               _MSG_LEN)
-    if code:
-        _raise(code, msg)
-    return out
+    return _decode(library(), "jpeg", data)
 
 
 def decode_png(data: bytes) -> np.ndarray:
@@ -153,3 +181,38 @@ def decode_png(data: bytes) -> np.ndarray:
     if code:
         _raise(code, msg)
     return out
+
+
+def _decode(lib: ctypes.CDLL, name: str, data: bytes) -> np.ndarray:
+    """One format's size call, Pillow's size limit, then its decode call
+    into an array of that size."""
+    msg = ctypes.create_string_buffer(_MSG_LEN)
+    h, w = ctypes.c_int32(), ctypes.c_int32()
+    code = getattr(lib, f"mrt_{name}_size")(
+        data, len(data), ctypes.byref(h), ctypes.byref(w), msg, _MSG_LEN)
+    if code:
+        _raise(code, msg)
+    check_size(w.value, h.value)
+    out = np.empty((h.value, w.value, 3), np.uint8)
+    code = getattr(lib, f"mrt_{name}_decode")(data, len(data), out, h.value,
+                                              w.value, msg, _MSG_LEN)
+    if code:
+        _raise(code, msg)
+    return out
+
+
+def decode_bmp(data: bytes) -> np.ndarray:
+    """A BMP file's bytes -> RGB uint8 [H, W, 3]."""
+    return _decode(library(), "bmp", data)
+
+
+def decode_gif(data: bytes) -> np.ndarray:
+    """A GIF file's bytes -> the first frame on its screen, RGB uint8
+    [H, W, 3]."""
+    return _decode(library(), "gif", data)
+
+
+def decode_webp(data: bytes) -> np.ndarray:
+    """A WebP file's bytes -> the first frame on its canvas, RGB uint8
+    [H, W, 3]."""
+    return _decode(webp_library(), "webp", data)

@@ -1,8 +1,10 @@
 """The image reader's committed corpus, `tests/data/image_io/`: small
-seeded files of every JPEG and PNG mode the port reads, a few it
-refuses, and three COCO-sized (640x480) synthetic scenes, one of them
-progressive, with their annotations (chip_smoke.py's phase 9d reads them
-as a COCO directory).
+seeded files of every JPEG, PNG, WebP, GIF and BMP mode the port reads
+(the WebP, GIF and BMP modes each at 1x1, 5x3, 37x53 and 16x24), a few it
+refuses, three COCO-sized (640x480) synthetic scenes as JPEG files, one
+of them progressive, with their annotations (chip_smoke.py's phase 9d
+reads them as a COCO directory), the same three scenes as lossy WebP
+(q80), and the first scene's JPEG decode as lossless WebP.
 
 `index.json` beside the files gives each file's rows, columns and the
 SHA-256 of Pillow 12.1.0's decode (np.asarray(Image.open(f).convert(
@@ -13,9 +15,11 @@ holds the port's reader to these digests there.
 Every file is made here from seeded numpy arrays: by Pillow where Pillow
 writes the mode, by a byte edit of a Pillow file (an Adobe transform set
 to 2 for YCCK, the Adobe marker removed, a frame marker or precision
-rewritten), or by the test-only writers (tests/jpeg_writer.py; the PNG
-writer below). Regenerate with `python tests/image_corpus.py` (needs
-Pillow; the digests then change only if Pillow's decode does);
+rewritten), or by the test-only writers (tests/jpeg_writer.py,
+tests/image_writers.py; the PNG writer below). Regenerate with `python
+tests/image_corpus.py` (needs Pillow, and the system's libwebp for the
+encoder options Pillow does not reach; the digests then change only if
+Pillow's decode does);
 `--time-pillow` prints Pillow's decode times of the files
 tools/image_decode_bench_torch.py times instead.
 """
@@ -35,6 +39,7 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 sys.path.insert(1, str(Path(__file__).resolve().parent.parent))
 
+import image_writers as iw  # noqa: E402
 from jpeg_writer import encode_jpeg, scan_offsets  # noqa: E402
 
 CORPUS = Path(__file__).resolve().parent / "data" / "image_io"
@@ -329,6 +334,240 @@ def png_cases():
     return cases
 
 
+# ------------------------------------------------- WebP, GIF and BMP
+
+# (rows, columns) of every WebP, GIF and BMP mode's files
+SIZES = ((1, 1), (5, 3), (37, 53), (16, 24))
+
+
+def pil_bytes(img: np.ndarray, fmt: str, mode: str = None, **kw) -> bytes:
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(img, mode).save(buf, fmt, **kw)
+    return buf.getvalue()
+
+
+def pil_animation(frames, **kw) -> bytes:
+    from PIL import Image
+    ims = [Image.fromarray(f) for f in frames]
+    buf = io.BytesIO()
+    ims[0].save(buf, "WEBP", save_all=True, append_images=ims[1:],
+                duration=100, **kw)
+    return buf.getvalue()
+
+
+def frame_chunks(data: bytes):
+    """A still WebP file's bitstream chunks (ALPH and VP8, or VP8L)."""
+    return [(c, b) for c, b in iw.webp_chunks(data) if c != b"VP8X"]
+
+
+def with_scale_bits(data: bytes) -> bytes:
+    """A plain lossy WebP file with the VP8 frame's scaling bits set (2
+    horizontally, 1 vertically), which libwebp ignores."""
+    out = bytearray(data)
+    at = data.index(b"VP8 ") + 8
+    out[at + 7] |= 0x80
+    out[at + 9] |= 0x40
+    return bytes(out)
+
+
+def webp_modes(rng, h, w):
+    """{mode: bytes} of every WebP mode at h x w."""
+    img = seeded_image(rng, h, w)
+    rgba = seeded_image(rng, h, w, 4)
+    rgba[..., 3] = np.where(rgba[..., 3] > 128, 255, rgba[..., 3])
+    second = np.roll(img, 1, axis=1)
+    flat = np.full_like(img, 90)
+    flat[h // 2:, w // 2:] = img[h // 2:, w // 2:]
+    few = (rng.randint(0, 2, (h, w, 1)) * 200 + 30).repeat(3, 2).astype(
+        np.uint8)
+    sixteen = rng.randint(0, 16, (h, w))
+    palette = rng.randint(0, 256, (16, 3)).astype(np.uint8)
+    canvas = (w + 6, h + 4)
+    return {
+        "lossy_q0_m0": pil_bytes(img, "WEBP", quality=0, method=0),
+        "lossy_q50_m4": pil_bytes(img, "WEBP", quality=50, method=4),
+        "lossy_q100_m6": pil_bytes(img, "WEBP", quality=100, method=6),
+        "lossy_alpha": pil_bytes(rgba, "WEBP", quality=80),
+        "lossy_scale_bits": with_scale_bits(pil_bytes(img, "WEBP",
+                                                      quality=80)),
+        "lossy_loop_filter_deltas": iw.vp8_with_lf_deltas(
+            pil_bytes(img, "WEBP", quality=60)),
+        "lossy_simple_filter": iw.encode_webp(img, quality=60, filter_type=0,
+                                              filter_strength=60),
+        # libwebp writes one token partition at methods 3 to 6
+        "lossy_2_partitions": iw.encode_webp(img, quality=75, partitions=1,
+                                             method=0),
+        "lossy_8_partitions": iw.encode_webp(img, quality=75, partitions=3,
+                                             method=2),
+        "lossy_skipped_macroblocks": iw.encode_webp(flat, quality=50,
+                                                    method=2),
+        "lossy_1_segment_no_filter": iw.encode_webp(
+            img, quality=60, segments=1, filter_strength=0),
+        "lossy_4_segments_sharpness_7": iw.encode_webp(
+            img, quality=40, segments=4, sns_strength=100,
+            filter_strength=80, filter_sharpness=7),
+        "lossless": pil_bytes(img, "WEBP", lossless=True),
+        "lossless_exact_alpha": pil_bytes(rgba, "WEBP", lossless=True,
+                                          exact=True),
+        "lossless_2_colours": pil_bytes(few, "WEBP", lossless=True),
+        "lossless_16_colours": pil_bytes(palette[sixteen], "WEBP",
+                                         lossless=True),
+        "animation_lossy": pil_animation([img, second], quality=70),
+        "animation_lossless": pil_animation([img, second], lossless=True),
+        "animation_offset_lossy": iw.webp_container(canvas, [
+            (2, 4, w, h, frame_chunks(pil_bytes(rgba, "WEBP",
+                                                quality=70)))]),
+        "animation_offset_lossless": iw.webp_container(canvas, [
+            (4, 2, w, h, frame_chunks(pil_bytes(img, "WEBP",
+                                                lossless=True)))]),
+    }
+
+
+def gif_indices(rng, h, w, n):
+    """Indices below n in diagonal bands, one pixel in 20 drawn at random
+    (LZW finds runs and strings)."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    idx = (yy * 3 + xx * 5) // 4 % n
+    noise = rng.rand(h, w) < 0.05
+    idx[noise] = rng.randint(0, n, int(noise.sum()))
+    return idx.astype(np.uint8)
+
+
+def gif_modes(rng, h, w):
+    """{mode: bytes} of every GIF mode at h x w."""
+    idx = gif_indices(rng, h, w, 256)
+    pal = rng.randint(0, 256, (256, 3)).astype(np.uint8)
+    gray = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1)
+    small = gif_indices(rng, h, w, 4)
+    sixteen = gif_indices(rng, h, w, 16)
+    return {
+        "global_table": iw.encode_gif(idx, global_palette=pal),
+        "local_table": iw.encode_gif(sixteen, global_palette=pal[16:32],
+                                     local_palette=pal[:16], min_code_size=4),
+        "interlaced": iw.encode_gif(sixteen, global_palette=pal[:16],
+                                    interlace=True, min_code_size=4),
+        "code_size_2": iw.encode_gif(small, global_palette=pal[:4],
+                                     min_code_size=2),
+        "code_size_4_short_table": iw.encode_gif(
+            sixteen, global_palette=pal[:8], min_code_size=4),
+        "clear_codes": iw.encode_gif(sixteen, global_palette=pal[:16],
+                                     clear_every=5, deferred=False,
+                                     min_code_size=4, version=b"GIF87a"),
+        "offset_frame_transparency": iw.encode_gif(
+            sixteen, (w + 7, h + 3), global_palette=pal[:16], offset=(3, 2),
+            transparency=9, min_code_size=4),
+        "frame_past_the_screen": iw.encode_gif(
+            small, (max(1, w - 1), h), global_palette=pal[:4], offset=(1, 1),
+            min_code_size=2),
+        "grayscale_table": iw.encode_gif(idx, global_palette=gray),
+        "no_table": iw.encode_gif(sixteen, min_code_size=4),
+        "pillow": pil_bytes(seeded_image(rng, h, w), "GIF"),
+    }
+
+
+def bmp_modes(rng, h, w):
+    """{mode: bytes} of every BMP mode at h x w (rows bottom-up unless
+    the mode says top-down)."""
+    img = seeded_image(rng, h, w)
+    pal = rng.randint(0, 256, (256, 3)).astype(np.uint8)
+    gray = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1)
+    out = {}
+
+    def rows(x, bits, masks=None, top_down=False):
+        r = iw.bmp_pixels(x, bits, masks)
+        return (r if top_down else r[::-1]).tobytes()
+
+    # every header size: 1-bit 40, 4-bit 108, 8-bit 124
+    for bits, header in ((1, 40), (4, 108), (8, 124)):
+        idx = rng.randint(0, 1 << bits, (h, w))
+        out[f"{bits}bit_header_{header}"] = iw.encode_bmp(
+            w, h, bits, rows(idx, bits), header=header,
+            palette=pal[:1 << bits])
+    idx = rng.randint(0, 256, (h, w))
+    out["8bit_short_palette"] = iw.encode_bmp(
+        w, h, 8, rows(idx, 8), palette=pal[:100], colors=100)
+    out["8bit_grayscale"] = iw.encode_bmp(w, h, 8, rows(idx, 8),
+                                          palette=gray)
+    bw = np.array([[0, 0, 0], [255, 255, 255]], np.uint8)
+    out["1bit_black_white"] = iw.encode_bmp(
+        w, h, 1, rows(rng.randint(0, 2, (h, w)), 1), palette=bw)
+    out["8bit_os2_header"] = iw.encode_bmp(w, h, 8, rows(idx, 8), header=12,
+                                           palette=pal)
+    out["16bit_555_header_64"] = iw.encode_bmp(w, h, 16, rows(img, 16),
+                                               header=64)
+    m565 = (0xF800, 0x7E0, 0x1F)
+    out["16bit_565_bitfields"] = iw.encode_bmp(
+        w, h, 16, rows(img, 16, m565), compression=3, masks=m565)
+    out["16bit_565_header_52"] = iw.encode_bmp(
+        w, h, 16, rows(img, 16, m565), header=52, compression=3, masks=m565)
+    out["24bit"] = iw.encode_bmp(w, h, 24, rows(img, 24))
+    out["8bit_top_down_header_56"] = iw.encode_bmp(
+        w, h, 8, rows(idx, 8, top_down=True), header=56, palette=pal,
+        top_down=True)
+    out["32bit_bgrx"] = iw.encode_bmp(w, h, 32, rows(img, 32))
+    rgba = (0xFF, 0xFF00, 0xFF0000, 0xFF000000)
+    out["32bit_rgba_bitfields"] = iw.encode_bmp(
+        w, h, 32, rows(img, 32, rgba), header=108, compression=3, masks=rgba)
+    for rle4 in (False, True):
+        bits = 4 if rle4 else 8
+        idx = rng.randint(0, 3, (h, w))
+        idx[: h // 2, : w // 2] = 2
+        p = pal[:16] if rle4 else pal
+        start = 14 + 40 + 4 * len(p)
+        # RLE4 top-down, RLE8 bottom-up
+        ops = iw.rle_ops(idx[::-1] if rle4 else idx, rle4, rng)
+        out[f"rle{bits}{'_top_down' if rle4 else ''}"] = iw.encode_bmp(
+            w, h, bits, iw.rle_bytes(ops, rle4, start),
+            compression=2 if rle4 else 1, palette=p, top_down=rle4)
+    return out
+
+
+def format_cases():
+    """(name, bytes) of every WebP, GIF and BMP mode at every size, and a
+    GIF whose LZW code table fills without a clear code."""
+    rng = np.random.RandomState(16)
+    cases = []
+    for ext, modes in (("webp", webp_modes), ("gif", gif_modes),
+                       ("bmp", bmp_modes)):
+        for h, w in SIZES:
+            for mode, data in modes(rng, h, w).items():
+                cases.append((f"{ext}_{mode}_{h}x{w}.{ext}", data))
+    idx = rng.randint(0, 256, (64, 72)).astype(np.uint8)
+    cases.append(("gif_deferred_clear_64x72.gif", iw.encode_gif(
+        idx, global_palette=rng.randint(0, 256, (256, 3)).astype(
+            np.uint8))))
+    return cases
+
+
+def format_refused_cases():
+    """(name, bytes, word the NotImplementedError names) of BMP files
+    Pillow refuses or reads with the wrong unpacker."""
+    rng = np.random.RandomState(17)
+    img = seeded_image(rng, 6, 5)
+    jpeg = pil_jpeg(img, quality=90)
+    rows = iw.bmp_pixels(img, 24)[::-1].tobytes()
+    gray16 = np.repeat(np.arange(16, dtype=np.uint8)[:, None], 3, 1)
+    idx = rng.randint(0, 16, (6, 5))
+    return [
+        ("refused_bmp_jpeg.bmp", iw.encode_bmp(5, 6, 24, jpeg,
+                                               compression=4), "JPEG"),
+        ("refused_bmp_png.bmp", iw.encode_bmp(
+            5, 6, 24, png_bytes(img.reshape(6, -1), 5, 8, 2, rng),
+            compression=5), "PNG"),
+        ("refused_bmp_bitfields_layout.bmp", iw.encode_bmp(
+            5, 6, 32, iw.bmp_pixels(img, 32, (0xFF00, 0xFF0000, 0xFF000000))
+            [::-1].tobytes(), compression=3,
+            masks=(0xFF00, 0xFF0000, 0xFF000000)), "bit-fields layout"),
+        ("refused_bmp_2bit.bmp", iw.encode_bmp(5, 6, 2, rows), "depth 2"),
+        ("refused_bmp_rle_24bit.bmp", iw.encode_bmp(5, 6, 24, b"\x00\x01",
+                                                    compression=1), "RLE"),
+        ("refused_bmp_4bit_grayscale.bmp", iw.encode_bmp(
+            5, 6, 4, iw.bmp_pixels(idx, 4)[::-1].tobytes(), palette=gray16),
+         "grayscale palette"),
+    ]
+
+
 # --------------------------------------------------------------- scenes
 
 SCENE_CATEGORIES = [{"id": 1, "name": "person"}, {"id": 3, "name": "car"},
@@ -383,6 +622,24 @@ def scene_cases():
     return out
 
 
+def format_scene_cases(jpeg_scenes):
+    """(name, bytes, source JPEG scene) of the scenes as WebP: the three
+    scenes' arrays as lossy WebP (q80), and the first JPEG scene's Pillow
+    decode as lossless WebP (its pixels, so its detections, are the JPEG
+    file's)."""
+    from PIL import Image
+    out = []
+    for (name, _, _), seed in zip(jpeg_scenes, (1, 2, 3)):
+        img, _ = scene(seed)
+        out.append((name.rsplit(".", 1)[0] + "_q80.webp",
+                    pil_bytes(img, "WEBP", quality=80), name))
+    first, data, _ = jpeg_scenes[0]
+    decoded = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+    out.append((first.rsplit(".", 1)[0] + "_lossless.webp",
+                pil_bytes(decoded, "WEBP", lossless=True), first))
+    return out
+
+
 def pillow_digest(data: bytes):
     from PIL import Image
     img = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
@@ -395,8 +652,9 @@ def time_pillow(reps: int = 5) -> None:
     from PIL import Image
 
     from tools import image_decode_bench_torch as bench
-    for name in bench.TIMED:
-        data = (bench.REPO / name).read_bytes()
+    files = {name: (bench.REPO / name).read_bytes() for name in bench.TIMED}
+    files.update(bench.format_scenes())
+    for name, data in files.items():
         ms = bench.median_ms(lambda: np.asarray(Image.open(io.BytesIO(
             data)).convert("RGB")), reps)
         print(f"{name}: pillow_ms {ms:.2f}", flush=True)
@@ -407,21 +665,28 @@ def main() -> int:
         time_pillow()
         return 0
     CORPUS.mkdir(parents=True, exist_ok=True)
-    index = {"files": {}, "refused": {}, "scenes": {}}
-    for name, data in jpeg_cases() + png_cases():
+    index = {"files": {}, "refused": {}, "scenes": {}, "format_scenes": {}}
+    for name, data in jpeg_cases() + png_cases() + format_cases():
         (CORPUS / name).write_bytes(data)
         shape, digest = pillow_digest(data)
         index["files"][name] = {"shape": shape, "sha256": digest}
-    for name, data, word in refused_cases():
+    for name, data, word in refused_cases() + format_refused_cases():
         (CORPUS / name).write_bytes(data)
         index["refused"][name] = word
-    for name, data, anns in scene_cases():
+    scenes = scene_cases()
+    for name, data, anns in scenes:
         (CORPUS / name).write_bytes(data)
         shape, digest = pillow_digest(data)
         index["files"][name] = {"shape": shape, "sha256": digest}
         index["scenes"][name] = anns
+    # "format_scenes": each WebP scene's JPEG scene (its annotations)
+    for name, data, source in format_scene_cases(scenes):
+        (CORPUS / name).write_bytes(data)
+        shape, digest = pillow_digest(data)
+        index["files"][name] = {"shape": shape, "sha256": digest}
+        index["format_scenes"][name] = source
     index["categories"] = SCENE_CATEGORIES
-    INDEX.write_text(json.dumps(index, indent=1) + "\n")
+    INDEX.write_text(json.dumps(index, separators=(",", ":")) + "\n")
     size = sum(p.stat().st_size for p in CORPUS.iterdir())
     print(f"{len(list(CORPUS.iterdir()))} files, {size} bytes")
     return 0

@@ -1,0 +1,679 @@
+"""Test-only writers of BMP, GIF and WebP files for what Pillow's own
+writers do not reach.
+
+BMP and GIF are written here with numpy alone (chip_smoke.py's phase 9d
+writes its BMP and GIF scenes with them on the card, which has no
+Pillow):
+
+* `encode_bmp`: every header size Pillow reads (12, 40, 52, 56, 64, 108,
+  124), 1/4/8-bit palettes (short ones too), 16-bit 5-5-5 and bit-field
+  layouts, 24-bit, 32-bit with or without bit fields, BI_RLE8 and
+  BI_RLE4 (`rle_ops` spells the operations out: runs, absolute runs,
+  deltas, line and bitmap ends), top-down rows.
+* `encode_gif`: one frame: global and local colour tables, a frame
+  offset inside the logical screen, interlaced rows, a transparency
+  index, any LZW minimum code size from 2 to 8, clear codes every
+  `clear_every` codes, or none once the code table is full (the deferred
+  clear).
+
+WebP goes through the system's libwebp encoder, loaded with ctypes when
+`encode_webp` is first called (`webp_available()` says whether there is
+one): its WebPConfig reaches the simple loop filter, token partitions,
+segments and sharpness, which Pillow's writer leaves at their defaults.
+`webp_container` wraps VP8/VP8L bitstreams into an animated file with
+frames at offsets; `vp8_with_lf_deltas` rewrites a lossy
+file's first partition with loop-filter deltas, which libwebp's encoder
+never writes.
+
+Their output is only ever held to Pillow's decode of the same bytes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import ctypes.util
+import struct
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+# ------------------------------------------------------------------ BMP
+
+_BMP_HEADERS = (12, 40, 52, 56, 64, 108, 124)
+
+
+def _pack_rows(samples: np.ndarray, bits: int) -> np.ndarray:
+    """[h, w] ints below 2**bits -> [h, stride] uint8 rows, padded to 4
+    bytes, pixels MSB first within a byte."""
+    h, w = samples.shape
+    if bits < 8:
+        per = 8 // bits
+        s = np.pad(samples, ((0, 0), (0, (-w) % per))).reshape(h, -1, per)
+        row = np.zeros(s.shape[:2], np.int64)
+        for i in range(per):
+            row |= s[:, :, i].astype(np.int64) << (8 - bits * (i + 1))
+        row = row.astype(np.uint8)
+    else:
+        row = samples.astype(np.uint8)
+    return np.pad(row, ((0, 0), (0, (-row.shape[1]) % 4)))
+
+
+def bmp_pixels(image: np.ndarray, bits: int,
+               masks: Optional[Sequence[int]] = None) -> np.ndarray:
+    """The rows of an RGB uint8 image [h, w, 3] (or palette indices
+    [h, w]) as BMP pixel rows [h, stride] in top-down order: indices
+    packed for bits <= 8, else each channel scaled into its mask (16-bit
+    default 5-5-5, 32-bit default B, G, R, X bytes)."""
+    if bits <= 8:
+        return _pack_rows(np.asarray(image), bits)
+    img = np.asarray(image).astype(np.int64)
+    h, w = img.shape[:2]
+    if bits == 24:
+        raw = img[..., ::-1].reshape(h, -1).astype(np.uint8)
+        return np.pad(raw, ((0, 0), (0, (-raw.shape[1]) % 4)))
+    if masks is None:
+        masks = (0x7C00, 0x3E0, 0x1F) if bits == 16 else (
+            0xFF0000, 0xFF00, 0xFF)
+    word = np.zeros((h, w), np.int64)
+    for c, mask in enumerate(masks[:3]):
+        if not mask:
+            continue
+        shift = (mask & -mask).bit_length() - 1
+        top = mask >> shift
+        word |= ((img[..., c] * top + 127) // 255) << shift
+    if len(masks) > 3 and masks[3]:
+        shift = (masks[3] & -masks[3]).bit_length() - 1
+        word |= ((img[..., 0] ^ img[..., 1]) & (masks[3] >> shift)) << shift
+    raw = word.astype("<u2" if bits == 16 else "<u4").view(np.uint8)
+    raw = raw.reshape(h, -1)
+    return np.pad(raw, ((0, 0), (0, (-raw.shape[1]) % 4)))
+
+
+def encode_bmp(width: int, height: int, bits: int, pixels: bytes, *,
+               header: int = 40, compression: int = 0,
+               palette: Optional[np.ndarray] = None, colors: int = 0,
+               masks: Optional[Sequence[int]] = None,
+               top_down: bool = False) -> bytes:
+    """A BMP file around `pixels` (rows in file order, or RLE data).
+    palette: [n, 3] RGB; colors: the header's colour count (0: 1 << bits);
+    masks: the bit fields (compression 3), after a 40-byte header as three
+    words, inside a larger header as four."""
+    if header not in _BMP_HEADERS:
+        raise ValueError(f"header size {header}")
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, width, height, 1, bits)
+    else:
+        info = struct.pack("<IiiHHIIiiII", header, width,
+                           -height if top_down else height, 1, bits,
+                           compression, len(pixels), 2835, 2835, colors, 0)
+        if header > 40:
+            m = list(masks or ()) + [0] * 4
+            info += struct.pack("<IIII", *m[:4])[:header - 40]
+        info += bytes(header - len(info))
+    extra = b""
+    if header == 40 and compression == 3:
+        extra = struct.pack("<III", *masks[:3])
+    pal = b""
+    if palette is not None:
+        pal_entries = np.asarray(palette, np.uint8)[:, ::-1]
+        if header != 12:
+            pal_entries = np.pad(pal_entries, ((0, 0), (0, 1)))
+        pal = pal_entries.tobytes()
+    start = 14 + len(info) + len(extra) + len(pal)
+    return (b"BM" + struct.pack("<IHHI", start + len(pixels), 0, 0, start)
+            + info + extra + pal + pixels)
+
+
+def rle_ops(indices: np.ndarray, rle4: bool, rng) -> List[tuple]:
+    """Pillow's RLE operations for the rows of indices [h, w] (bottom row
+    first, as a bottom-up BMP stores them): runs of equal pixels, absolute
+    runs of 3 or more, a delta now and then over pixels left at 0, and an
+    end of line after each row but the last."""
+    ops = []
+    h, w = indices.shape
+    for r, row in enumerate(indices[::-1]):
+        x = 0
+        while x < w:
+            if rng.rand() < 0.1 and x + 2 < w and not row[x:x + 2].any():
+                ops.append(("delta", 2, 0))
+                x += 2
+                continue
+            run = 1
+            while x + run < w and run < 255 and row[x + run] == row[x]:
+                run += 1
+            pair = 2
+            while (rle4 and x + pair < w and pair < 255
+                   and row[x + pair] == row[x + pair - 2]):
+                pair += 1
+            if run < 2 and pair >= 4:
+                ops.append(("run2", pair, int(row[x]), int(row[x + 1])))
+                x += pair
+                continue
+            if run >= 2 or w - x < 3:
+                ops.append(("run", run, int(row[x])))
+                x += run
+                continue
+            n = min(w - x, int(rng.randint(3, 9)))
+            if rle4 and n % 2:
+                n -= 1              # Pillow reads n // 2 bytes
+            if n < 3:
+                ops.append(("run", 1, int(row[x])))
+                x += 1
+                continue
+            ops.append(("absolute", row[x:x + n].tolist()))
+            x += n
+        if r < h - 1:
+            ops.append(("eol",))
+    ops.append(("eob",))
+    return ops
+
+
+def rle_bytes(ops: Sequence[tuple], rle4: bool, data_offset: int) -> bytes:
+    """RLE8/RLE4 data of `ops`; absolute runs padded to an even file
+    offset as Pillow's reader aligns them (data_offset: where the data
+    starts in the file). A delta is written as Pillow reads it: two
+    bytes it skips, then right and up."""
+    out = bytearray()
+    for op in ops:
+        if op[0] == "run":
+            _, n, v = op
+            out += bytes([n, (v << 4 | v) if rle4 else v])
+        elif op[0] == "run2":            # RLE4: a pixel pair alternating
+            _, n, a, b = op
+            out += bytes([n, a << 4 | b])
+        elif op[0] == "absolute":
+            vals = op[1]
+            out += bytes([0, len(vals)])
+            if rle4:
+                out += bytes((vals[i] << 4) | vals[i + 1]
+                             for i in range(0, len(vals), 2))
+            else:
+                out += bytes(vals)
+            if (data_offset + len(out)) % 2:
+                out.append(0)
+        elif op[0] == "delta":
+            out += bytes([0, 2, 0, 0, op[1], op[2]])
+        elif op[0] == "eol":
+            out += b"\x00\x00"
+        elif op[0] == "eob":
+            out += b"\x00\x01"
+    return bytes(out)
+
+
+# ------------------------------------------------------------------ GIF
+
+def _lzw(indices: np.ndarray, min_size: int, clear_every: int = 0,
+         deferred: bool = True) -> bytes:
+    """GIF LZW of a flat index array, codes LSB first. clear_every > 0
+    emits a clear code after that many codes; when the table is full, a
+    clear code unless `deferred`, which goes on with the full table."""
+    clear, end = 1 << min_size, (1 << min_size) + 1
+    acc = nbits = 0
+    out = bytearray()
+    size = min_size + 1
+
+    def put(code):
+        nonlocal acc, nbits
+        acc |= code << nbits
+        nbits += size
+        while nbits >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nbits -= 8
+
+    def reset():
+        return {(i,): i for i in range(clear)}, end + 1
+
+    table, nxt = reset()
+    put(clear)
+    emitted = 0
+    seq = np.asarray(indices).reshape(-1).tolist()
+    w = (seq[0],)
+    for k in seq[1:]:
+        wk = w + (k,)
+        if wk in table:
+            w = wk
+            continue
+        put(table[w])
+        emitted += 1
+        if nxt < 4096:
+            table[wk] = nxt
+            nxt += 1
+            if nxt - 1 == 1 << size and size < 12:
+                size += 1
+        elif not deferred:
+            put(clear)
+            table, nxt = reset()
+            size = min_size + 1
+        if clear_every and emitted % clear_every == 0:
+            put(clear)
+            table, nxt = reset()
+            size = min_size + 1
+        w = (k,)
+    put(table[w])
+    put(end)
+    if nbits:
+        out.append(acc & 255)
+    return bytes(out)
+
+
+def _sub_blocks(data: bytes) -> bytes:
+    return b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                    for i in range(0, len(data), 255)) + b"\x00"
+
+
+def _table_bits(palette) -> int:
+    n = len(palette)
+    bits = max(1, (n - 1).bit_length())
+    if n != 1 << bits:
+        raise ValueError(f"a colour table of {n} entries")
+    return bits
+
+
+def encode_gif(indices: np.ndarray, screen: Tuple[int, int] = None, *,
+               global_palette: Optional[np.ndarray] = None,
+               local_palette: Optional[np.ndarray] = None,
+               offset: Tuple[int, int] = (0, 0), interlace: bool = False,
+               transparency: Optional[int] = None,
+               min_code_size: int = 8, clear_every: int = 0,
+               deferred: bool = True, version: bytes = b"GIF89a") -> bytes:
+    """A one-frame GIF of palette indices [h, w] at `offset` (x, y) in a
+    logical screen (w, h; default the frame's). Palettes: [2**k, 3]
+    uint8."""
+    indices = np.asarray(indices)
+    h, w = indices.shape
+    sw, sh = screen or (w, h)
+    flags = 0
+    gct = b""
+    if global_palette is not None:
+        bits = _table_bits(global_palette)
+        flags = 0x80 | (bits - 1)
+        gct = np.asarray(global_palette, np.uint8).tobytes()
+    out = version + struct.pack("<HHBBB", sw, sh, flags, 0, 0) + gct
+    if transparency is not None:
+        out += b"!\xf9\x04" + struct.pack("<BHB", 1, 10, transparency) \
+            + b"\x00"
+    out += b"!\xfe" + _sub_blocks(b"test image")
+    lflags = 0x40 if interlace else 0
+    lct = b""
+    if local_palette is not None:
+        bits = _table_bits(local_palette)
+        lflags |= 0x80 | (bits - 1)
+        lct = np.asarray(local_palette, np.uint8).tobytes()
+    out += b"," + struct.pack("<HHHHB", offset[0], offset[1], w, h,
+                              lflags) + lct
+    rows = indices
+    if interlace:
+        order = (list(range(0, h, 8)) + list(range(4, h, 8))
+                 + list(range(2, h, 4)) + list(range(1, h, 2)))
+        rows = indices[order]
+    out += bytes([min_code_size]) + _sub_blocks(
+        _lzw(rows, min_code_size, clear_every, deferred))
+    return out + b";"
+
+
+def quantize_332(image: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """An RGB image [h, w, 3] as indices into a fixed 256-entry palette (3
+    bits of red, 3 of green, 2 of blue): (indices [h, w], palette)."""
+    img = np.asarray(image).astype(np.int64)
+    idx = (img[..., 0] >> 5) << 5 | (img[..., 1] >> 5) << 2 | img[..., 2] >> 6
+    k = np.arange(256)
+    palette = np.stack([(k >> 5) * 255 // 7, ((k >> 2) & 7) * 255 // 7,
+                        (k & 3) * 255 // 3], -1).astype(np.uint8)
+    return idx.astype(np.uint8), palette
+
+
+# ----------------------------------------------------------------- WebP
+
+_LIBWEBP = None
+
+
+def _libwebp():
+    global _LIBWEBP
+    if _LIBWEBP is None:
+        name = ctypes.util.find_library("webp")
+        if name is None:
+            raise OSError("no libwebp to encode with")
+        lib = ctypes.CDLL(name)
+        lib.WebPConfigInitInternal.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                               ctypes.c_float, ctypes.c_int]
+        lib.WebPPictureInitInternal.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lib.WebPPictureImportRGBA.argtypes = [ctypes.c_void_p,
+                                              ctypes.c_char_p, ctypes.c_int]
+        lib.WebPPictureImportRGB.argtypes = [ctypes.c_void_p,
+                                             ctypes.c_char_p, ctypes.c_int]
+        lib.WebPEncode.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.WebPPictureFree.argtypes = [ctypes.c_void_p]
+        lib.WebPMemoryWriterInit.argtypes = [ctypes.c_void_p]
+        lib.WebPMemoryWriterClear.argtypes = [ctypes.c_void_p]
+        lib.WebPGetEncoderVersion.restype = ctypes.c_int
+        _LIBWEBP = lib
+    return _LIBWEBP
+
+
+def webp_available() -> bool:
+    try:
+        _libwebp()
+        return True
+    except OSError:
+        return False
+
+
+_CONFIG_FIELDS = [
+    ("lossless", ctypes.c_int), ("quality", ctypes.c_float),
+    ("method", ctypes.c_int), ("image_hint", ctypes.c_int),
+    ("target_size", ctypes.c_int), ("target_PSNR", ctypes.c_float),
+    ("segments", ctypes.c_int), ("sns_strength", ctypes.c_int),
+    ("filter_strength", ctypes.c_int), ("filter_sharpness", ctypes.c_int),
+    ("filter_type", ctypes.c_int), ("autofilter", ctypes.c_int),
+    ("alpha_compression", ctypes.c_int), ("alpha_filtering", ctypes.c_int),
+    ("alpha_quality", ctypes.c_int), ("pass_", ctypes.c_int),
+    ("show_compressed", ctypes.c_int), ("preprocessing", ctypes.c_int),
+    ("partitions", ctypes.c_int), ("partition_limit", ctypes.c_int),
+    ("emulate_jpeg_size", ctypes.c_int), ("thread_level", ctypes.c_int),
+    ("low_memory", ctypes.c_int), ("near_lossless", ctypes.c_int),
+    ("exact", ctypes.c_int), ("use_delta_palette", ctypes.c_int),
+    ("use_sharp_yuv", ctypes.c_int), ("qmin", ctypes.c_int),
+    ("qmax", ctypes.c_int), ("pad", ctypes.c_uint32 * 8)]
+
+
+class _Config(ctypes.Structure):
+    _fields_ = _CONFIG_FIELDS
+
+
+class _MemoryWriter(ctypes.Structure):
+    _fields_ = [("mem", ctypes.POINTER(ctypes.c_uint8)),
+                ("size", ctypes.c_size_t), ("max_size", ctypes.c_size_t),
+                ("pad", ctypes.c_uint32 * 1)]
+
+
+# WebPPicture: the fields set here, then room to spare for the rest
+class _Picture(ctypes.Structure):
+    _fields_ = [("use_argb", ctypes.c_int), ("colorspace", ctypes.c_int),
+                ("width", ctypes.c_int), ("height", ctypes.c_int),
+                ("y", ctypes.c_void_p), ("u", ctypes.c_void_p),
+                ("v", ctypes.c_void_p), ("y_stride", ctypes.c_int),
+                ("uv_stride", ctypes.c_int), ("a", ctypes.c_void_p),
+                ("a_stride", ctypes.c_int), ("pad1", ctypes.c_uint32 * 2),
+                ("argb", ctypes.c_void_p), ("argb_stride", ctypes.c_int),
+                ("pad2", ctypes.c_uint32 * 3),
+                ("writer", ctypes.c_void_p), ("custom_ptr", ctypes.c_void_p),
+                ("rest", ctypes.c_uint8 * 256)]
+
+
+_ENCODER_ABI = 0x020f
+
+
+def encode_webp(image: np.ndarray, **config) -> bytes:
+    """A still WebP file of an RGB [h, w, 3] or RGBA [h, w, 4] uint8 image
+    through libwebp's WebPEncode. config: WebPConfig fields (quality,
+    method, lossless, segments, filter_type 0 = simple, filter_strength,
+    filter_sharpness, partitions, sns_strength, autofilter, exact, ...)."""
+    lib = _libwebp()
+    img = np.ascontiguousarray(image, np.uint8)
+    h, w, ch = img.shape
+    cfg = _Config()
+    if not lib.WebPConfigInitInternal(ctypes.byref(cfg), 0,
+                                      float(config.get("quality", 75)),
+                                      _ENCODER_ABI):
+        raise RuntimeError("WebPConfigInit failed")
+    for key, value in config.items():
+        setattr(cfg, key, value)
+    pic = _Picture()
+    if not lib.WebPPictureInitInternal(ctypes.byref(pic), _ENCODER_ABI):
+        raise RuntimeError("WebPPictureInit failed")
+    pic.width, pic.height = w, h
+    pic.use_argb = int(bool(cfg.lossless))
+    writer = _MemoryWriter()
+    lib.WebPMemoryWriterInit(ctypes.byref(writer))
+    pic.writer = ctypes.cast(lib.WebPMemoryWrite, ctypes.c_void_p).value
+    pic.custom_ptr = ctypes.addressof(writer)
+    try:
+        importer = (lib.WebPPictureImportRGBA if ch == 4
+                    else lib.WebPPictureImportRGB)
+        if not importer(ctypes.byref(pic), img.tobytes(), w * ch):
+            raise RuntimeError("WebPPictureImport failed")
+        if not lib.WebPEncode(ctypes.byref(cfg), ctypes.byref(pic)):
+            raise RuntimeError("WebPEncode failed")
+        return ctypes.string_at(writer.mem, writer.size)
+    finally:
+        lib.WebPPictureFree(ctypes.byref(pic))
+        lib.WebPMemoryWriterClear(ctypes.byref(writer))
+
+
+def _riff_chunk(fourcc: bytes, body: bytes) -> bytes:
+    return fourcc + struct.pack("<I", len(body)) + body + b"\x00" * (
+        len(body) & 1)
+
+
+def webp_chunks(data: bytes) -> List[Tuple[bytes, bytes]]:
+    """The (fourcc, body) chunks of a WebP file."""
+    pos, out = 12, []
+    while pos + 8 <= len(data):
+        fourcc = data[pos:pos + 4]
+        n = struct.unpack("<I", data[pos + 4:pos + 8])[0]
+        out.append((fourcc, data[pos + 8:pos + 8 + n]))
+        pos += 8 + n + (n & 1)
+    return out
+
+
+def webp_container(canvas: Tuple[int, int],
+                   frames: Sequence[tuple]) -> bytes:
+    """An animated WebP file (VP8X with the animation and alpha flags, an
+    ANIM chunk, one ANMF a frame). frames: (x, y, width, height, chunks)
+    with x and y even and chunks the frame's bitstream chunks (an ALPH
+    and a VP8, or a VP8L)."""
+    cw, ch = canvas
+    body = _riff_chunk(b"VP8X", struct.pack("<I", 0x12)
+                       + (cw - 1).to_bytes(3, "little")
+                       + (ch - 1).to_bytes(3, "little"))
+    body += _riff_chunk(b"ANIM", struct.pack("<IH", 0xFFFFFFFF, 0))
+    for x, y, w, h, chunks in frames:
+        head = ((x // 2).to_bytes(3, "little") + (y // 2).to_bytes(3, "little")
+                + (w - 1).to_bytes(3, "little") + (h - 1).to_bytes(3, "little")
+                + (100).to_bytes(3, "little") + b"\x00")
+        body += _riff_chunk(b"ANMF", head + b"".join(
+            _riff_chunk(c, b) for c, b in chunks))
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
+
+
+# ------------------------------------------- VP8 loop-filter deltas
+
+class _BoolDecoder:
+    """RFC 6386's boolean decoder (section 7.3), zeros past the end."""
+
+    def __init__(self, data: bytes):
+        self.data, self.pos = data, 2
+        self.value = (data[0] << 8 | data[1]) if len(data) > 1 else 0
+        self.range, self.bit_count = 255, 0
+
+    def get(self, prob: int) -> int:
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        big = split << 8
+        if self.value >= big:
+            bit, self.range, self.value = 1, self.range - split, \
+                self.value - big
+        else:
+            bit, self.range = 0, split
+        while self.range < 128:
+            self.value <<= 1
+            self.range <<= 1
+            self.bit_count += 1
+            if self.bit_count == 8:
+                self.bit_count = 0
+                if self.pos < len(self.data):
+                    self.value |= self.data[self.pos]
+                self.pos += 1
+        return bit
+
+
+class _BoolEncoder:
+    """RFC 6386's boolean encoder (section 7.3)."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.range, self.bottom, self.bit_count = 255, 0, 24
+
+    def _carry(self):
+        i = len(self.out) - 1
+        while i >= 0 and self.out[i] == 255:
+            self.out[i] = 0
+            i -= 1
+        self.out[i] += 1
+
+    def put(self, bit: int, prob: int) -> None:
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        if bit:
+            self.bottom += split
+            self.range -= split
+        else:
+            self.range = split
+        while self.range < 128:
+            self.range <<= 1
+            if self.bottom & (1 << 31):
+                self._carry()
+            self.bottom = (self.bottom << 1) & 0xFFFFFFFF
+            self.bit_count -= 1
+            if not self.bit_count:
+                self.out.append((self.bottom >> 24) & 255)
+                self.bottom &= (1 << 24) - 1
+                self.bit_count = 8
+
+    def flush(self) -> bytes:
+        c, v = self.bit_count, self.bottom
+        if v & (1 << (32 - c)):
+            self._carry()
+        v = (v << (c & 7)) & 0xFFFFFFFF
+        for _ in range(c >> 3):
+            v = (v << 8) & 0xFFFFFFFF
+        for _ in range(4):
+            self.out.append((v >> 24) & 255)
+            v = (v << 8) & 0xFFFFFFFF
+        return bytes(self.out)
+
+
+def _decoder_tables():
+    """The coefficient update probabilities [1056] and the 4x4 mode
+    probabilities [10][10][9], read from the decoder's C++ source."""
+    import re
+    from pathlib import Path
+    src = (Path(__file__).resolve().parent.parent / "maskrcnn_tpu_torch"
+           / "csrc" / "webp_decode.cpp").read_text()
+
+    def table(name):
+        body = re.search(name + r"\[[^=]*= \{(.*?)\};", src, re.S).group(1)
+        return [int(v) for v in re.findall(r"\d+", body)]
+
+    modes = np.array(table("kBModesProba")).reshape(10, 10, 9)
+    return table("kCoeffsUpdateProba"), modes
+
+
+# libwebp's 4x4 mode tree (kYModesIntra4: a leaf is minus the mode)
+_YMODES4 = [0, 1, -1, 2, -2, 3, 4, 6, -3, 5, -4, -5, -6, 7, -7, 8, -8, -9]
+
+
+def vp8_with_lf_deltas(data: bytes, ref_deltas=(5, -2, 0, 3),
+                       mode_deltas=(-4, 0, 6, 0)) -> bytes:
+    """A plain lossy WebP file with its VP8 frame's loop-filter deltas
+    set: the first partition is decoded symbol by symbol and written
+    again with the same probabilities, the filter header's delta update
+    replaced (libwebp's encoder writes no deltas). The token partitions
+    are kept as they are."""
+    update_probas, bmodes = _decoder_tables()
+    at = data.index(b"VP8 ") + 8
+    vp8 = data[at:at + struct.unpack("<I", data[at - 4:at])[0]]
+    tag = vp8[0] | vp8[1] << 8 | vp8[2] << 16
+    first = tag >> 5
+    width = (vp8[6] | vp8[7] << 8) & 0x3FFF
+    height = (vp8[8] | vp8[9] << 8) & 0x3FFF
+    dec, enc = _BoolDecoder(vp8[10:10 + first]), _BoolEncoder()
+
+    def copy(prob=128):
+        bit = dec.get(prob)
+        enc.put(bit, prob)
+        return bit
+
+    def value(n, prob=128):
+        v = 0
+        for _ in range(n):
+            v = v << 1 | copy(prob)
+        return v
+
+    def put_value(v, n):
+        for i in range(n - 1, -1, -1):
+            enc.put((v >> i) & 1, 128)
+
+    value(2)                                    # colour space, clamping
+    seg_probs = [255, 255, 255]
+    update_map = 0
+    if copy():                                  # segments
+        update_map = copy()
+        if copy():
+            copy()
+            for bits in [7] * 4 + [6] * 4:
+                if copy():
+                    value(bits + 1)
+        if update_map:
+            for s in range(3):
+                if copy():
+                    seg_probs[s] = value(8)
+    value(1 + 6 + 3)                            # simple, level, sharpness
+    if dec.get(128):                            # the source's deltas: dropped
+        if dec.get(128):
+            for _ in range(8):
+                if dec.get(128):
+                    for _ in range(7):
+                        dec.get(128)
+    enc.put(1, 128)                             # use and update deltas
+    enc.put(1, 128)
+    for d in list(ref_deltas) + list(mode_deltas):
+        enc.put(int(d != 0), 128)
+        if d:
+            put_value(abs(d), 6)
+            enc.put(int(d < 0), 128)
+    value(2)                                    # partitions
+    value(7)                                    # base quantizer
+    for _ in range(5):
+        if copy():
+            value(5)
+    copy()                                      # refresh entropy
+    for p in update_probas:
+        if copy(p):
+            value(8)
+    skip_p = value(8) if copy() else None
+    mb_w, mb_h = (width + 15) >> 4, (height + 15) >> 4
+    top = [0] * (4 * mb_w)
+    for _ in range(mb_h):
+        left = [0] * 4
+        for x in range(mb_w):
+            if update_map:
+                if not copy(seg_probs[0]):
+                    copy(seg_probs[1])
+                else:
+                    copy(seg_probs[2])
+            if skip_p is not None:
+                copy(skip_p)
+            if copy(145):                       # 16x16
+                ymode = (1 if copy(128) else 3) if copy(156) else (
+                    2 if copy(163) else 0)
+                top[4 * x:4 * x + 4] = [ymode] * 4
+                left = [ymode] * 4
+            else:
+                for yy in range(4):
+                    m = left[yy]
+                    for xx in range(4):
+                        prob = bmodes[top[4 * x + xx]][m]
+                        i = _YMODES4[copy(prob[0])]
+                        while i > 0:
+                            i = _YMODES4[2 * i + copy(prob[i])]
+                        m = -i
+                        top[4 * x + xx] = m
+                    left[yy] = m
+            if copy(142) and copy(114):
+                copy(183)
+    part0 = enc.flush()
+    tag = (tag & 0x1F) | (len(part0) << 5)
+    frame = bytes([tag & 255, (tag >> 8) & 255, tag >> 16]) + vp8[3:10] \
+        + part0 + vp8[10 + first:]
+    body = b"WEBP" + _riff_chunk(b"VP8 ", frame)
+    return b"RIFF" + struct.pack("<I", len(body)) + body

@@ -269,14 +269,22 @@ def test_unsupported_modes_raise_naming_them():
         image_io.read_image(_raw_png(rows, 5, 2, [0] * 5, 3, depth=16),
                             plain=True)
     for plain in (False, True):
-        with pytest.raises(ValueError, match="not a PNG or JPEG"):
-            image_io.read_image(b"GIF89a", plain=plain)
+        # a TIFF header: a format neither route reads
+        with pytest.raises(ValueError,
+                           match="not a PNG, JPEG, WebP, GIF or BMP"):
+            image_io.read_image(b"II*\x00" + bytes(12), plain=plain)
         # a header claiming more pixels than Pillow's decompression-bomb
         # limit
         huge = bytearray(_raw_png(rows, 5, 2, [0] * 5, 3))
         huge[16:24] = struct.pack(">II", 20000, 20000)
         with pytest.raises(ValueError, match="image size"):
             image_io.read_image(bytes(huge), plain=plain)
+    # a GIF signature alone: a truncated GIF to the native route, a
+    # format the plain route does not read
+    with pytest.raises(ValueError, match="not a GIF file"):
+        image_io.read_image(b"GIF89a")
+    with pytest.raises(NotImplementedError, match="GIF: the plain route"):
+        image_io.read_image(b"GIF89a", plain=True)
 
 
 @pytest.mark.parametrize("h,w", [(3, 3), (2, 5), (5, 2), (16, 16)])

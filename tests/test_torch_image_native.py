@@ -56,12 +56,19 @@ def test_refused_corpus_file_names_its_mode(name):
 
 
 def test_corpus_is_whole_and_small():
-    """The index names every file of the corpus, the files hold at most
-    400 KB in all, the scenes are COCO-sized and one is progressive, and
-    the generator would write the same bytes again."""
+    """The index names every file of the corpus, the JPEG and PNG files
+    hold at most 400 KB in all and the WebP, GIF and BMP ones 600 KB, the
+    scenes are COCO-sized and one is progressive, and the generator would
+    write the same bytes again."""
     files = {p.name for p in ic.CORPUS.iterdir()} - {"index.json"}
     assert files == set(INDEX["files"]) | set(INDEX["refused"])
-    assert sum(p.stat().st_size for p in ic.CORPUS.iterdir()) <= 400_000
+    formats = (".webp", ".gif", ".bmp")
+    sizes = [(p.suffix in formats, p.stat().st_size)
+             for p in ic.CORPUS.iterdir() if p.name != "index.json"]
+    # the JPEG and PNG files within 400 KB, the WebP, GIF and BMP ones
+    # within 600 KB
+    assert sum(n for new, n in sizes if not new) <= 400_000
+    assert sum(n for new, n in sizes if new) <= 600_000
     assert {INDEX["files"][s]["shape"][0] for s in INDEX["scenes"]} == {480}
     assert any("progressive" in s for s in INDEX["scenes"])
     for name, data in ic.jpeg_cases()[:6] + ic.png_cases()[:4]:
@@ -209,7 +216,11 @@ def test_corrupt_files_raise_value_errors():
     data = (REPO / "images" / "sample.jpg").read_bytes()
     with pytest.raises(ValueError, match="truncated"):
         image_io.read_image(data[:len(data) // 2])
-    with pytest.raises(ValueError, match="not a PNG or JPEG"):
+    # a TIFF header: a format the reader does not take
+    with pytest.raises(ValueError, match="not a PNG, JPEG, WebP, GIF or BMP"):
+        image_io.read_image(b"II*\x00" + data)
+    # "BM" before a JPEG: a BMP whose header runs past the file
+    with pytest.raises(ValueError, match="BMP: truncated header"):
         image_io.read_image(b"BM" + data)
     png = (ic.CORPUS / "png_c2_d8_trns.png").read_bytes()
     broken = bytearray(png)

@@ -5,6 +5,7 @@ bridge, the anchors."""
 import ast
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -161,6 +162,31 @@ def test_demo_sources_import_no_jax_pil_nbformat_matplotlib(path):
     bad = [n for n in names if any(n == f or n.startswith(f + ".")
                                    for f in DEMO_FORBIDDEN)]
     assert names and not bad, bad
+
+
+# a ctypes (or dlopen) load of a system image codec: the port decodes
+# WebP, GIF and BMP with its own sources (csrc/), never with libwebp or
+# giflib
+CODEC_LOAD = re.compile(r"(find_library|CDLL|LoadLibrary|dlopen)\s*\("
+                        r"[^)]*\b(lib)?(webp|gif)\b")
+
+
+@pytest.mark.parametrize("path", ["chip_smoke.py", "maskrcnn_tpu_torch",
+                                  "predict_torch.py", "coco_torch.py",
+                                  "explore_torch.py", "tools/serve_torch.py",
+                                  "tools/image_decode_bench_torch.py"])
+def test_port_sources_load_no_system_codec(path):
+    """The port's sources and image-reading scripts, read as text: no
+    ctypes or dlopen load of libwebp or giflib, and the C++ decoders
+    include no codec library's header."""
+    root = REPO / path
+    files = (sorted(root.rglob("*.py")) + sorted(root.rglob("*.cpp"))
+             if root.is_dir() else [root])
+    bad = [str(f.relative_to(REPO)) for f in files
+           if CODEC_LOAD.search(f.read_text())
+           or re.search(r"#include\s*[<\"](webp|gif_lib|png|jpeglib|zlib)",
+                        f.read_text())]
+    assert not bad, bad
 
 
 CONFIG_CLASSES = ("Config", "CocoConfig", "CocoInferenceConfig",

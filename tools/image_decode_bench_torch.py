@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 """Host image decode of the PyTorch/CUDA port, timed: the native decoder
-(`read_image`, csrc/image_decode.cpp) beside the plain Python route
-(`read_image(..., plain=True)`); decodes a second of the committed
-corpus's two baseline 640x480 scenes (tests/data/image_io) on 1 and 4
-threads, each route, which shows whether a decode leaves the GIL; and
-`data/pipeline.BatchLoader` images a second with 1 and 4 worker threads
-over a COCO directory of the corpus's three scenes (a whole training
-sample: decode, resample, masks).
+(`read_image`, csrc/image_decode.cpp and csrc/webp_decode.cpp) beside
+the plain Python route (`read_image(..., plain=True)`, JPEG and PNG
+only), over repository JPEG files and the first corpus scene (640x480)
+as lossy WebP (q80), lossless WebP, GIF and BMP (the GIF and BMP written
+here from the JPEG scene's decode by tests/image_writers.py, numpy only);
+decodes a second of the committed corpus's two baseline 640x480 JPEG
+scenes (tests/data/image_io) on 1 and 4 threads, each route, and of its
+three lossy WebP scenes natively, which shows whether a decode leaves
+the GIL; and `data/pipeline.BatchLoader` images a second with 1 and 4
+worker threads over a COCO directory of the corpus's three scenes (a
+whole training sample: decode, resample, masks).
 
     python3 tools/image_decode_bench_torch.py [--reps 5] [--copies 8]
                                               [--json-out F]
@@ -22,7 +26,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import shutil
 import statistics
 import sys
 import tempfile
@@ -36,26 +39,79 @@ REPO = Path(__file__).resolve().parent.parent
 CORPUS = REPO / "tests" / "data" / "image_io"
 TIMED = ("images/sample.jpg", "output/detections.jpg",
          "tests/data/image_io/scene_progressive.jpg")
+# the JPEG scenes as lossy WebP, each in the JPEG scene's slot
+WEBP_SCENES = ("scene_baseline_420_q80.webp", "scene_baseline_444_q80.webp",
+               "scene_progressive_q80.webp")
+LOSSLESS_SCENE = "scene_baseline_420_lossless.webp"
 
 
 def corpus_index() -> dict:
     return json.loads((CORPUS / "index.json").read_text())
 
 
-def coco_scene_dir(root: Path, copies: int) -> str:
-    """A COCO directory (minival 2014 names) of the corpus's scenes, each
-    `copies` times, with their annotations. Returns the directory."""
+def image_writers():
+    """tests/image_writers.py (its BMP and GIF writers are numpy only)."""
+    sys.path.insert(0, str(REPO / "tests"))
+    import image_writers
+    return image_writers
+
+
+def scene_files(fmt: str) -> list:
+    """[(name, bytes)] of the corpus's three JPEG scenes in one format, in
+    the order of the index's scenes: "jpeg" the files; "bmp" (24-bit) and
+    "gif" (a fixed 3-3-2 palette) written from their native decodes;
+    "webp" the committed q80 files; "webp_lossless" the committed
+    lossless file of the first scene (its JPEG decode's pixels) and the
+    other two as their JPEG files."""
+    from maskrcnn_tpu_torch.data import image_io
+    names = list(corpus_index()["scenes"])
+    out = []
+    for k, name in enumerate(names):
+        data = (CORPUS / name).read_bytes()
+        stem = name.rsplit(".", 1)[0]
+        if fmt == "webp" or (fmt == "webp_lossless" and k == 0):
+            webp = WEBP_SCENES[k] if fmt == "webp" else LOSSLESS_SCENE
+            out.append((webp, (CORPUS / webp).read_bytes()))
+        elif fmt in ("bmp", "gif"):
+            iw = image_writers()
+            img = image_io.read_image(data)
+            h, w = img.shape[:2]
+            if fmt == "bmp":
+                blob = iw.encode_bmp(w, h, 24,
+                                     iw.bmp_pixels(img, 24)[::-1].tobytes())
+            else:
+                idx, palette = iw.quantize_332(img)
+                blob = iw.encode_gif(idx, global_palette=palette)
+            out.append((f"{stem}.{fmt}", blob))
+        else:
+            out.append((name, data))
+    return out
+
+
+def format_scenes() -> dict:
+    """{name: bytes} of the first scene as lossy WebP, lossless WebP, GIF
+    and BMP (the files decode_times times beside TIMED)."""
+    return {name: data for fmt in ("webp", "webp_lossless", "gif", "bmp")
+            for name, data in scene_files(fmt)[:1]}
+
+
+def coco_scene_dir(root: Path, copies: int, fmt: str = "jpeg") -> str:
+    """A COCO directory (minival 2014 names) of the corpus's scenes in
+    `fmt` (scene_files), each `copies` times, with the JPEG scenes'
+    annotations. Returns the directory."""
     index = corpus_index()
     root = Path(root) / "coco"
     (root / "annotations").mkdir(parents=True, exist_ok=True)
     (root / "val2014").mkdir(exist_ok=True)
     images, anns = [], []
+    files = scene_files(fmt)
     for k in range(copies):
-        for name, scene_anns in index["scenes"].items():
+        for (name, data), (scene, scene_anns) in zip(
+                files, index["scenes"].items()):
             i = len(images) + 1
-            h, w = index["files"][name]["shape"]
+            h, w = index["files"][scene]["shape"]
             file_name = f"COCO_val2014_{i:012d}{Path(name).suffix}"
-            shutil.copyfile(CORPUS / name, root / "val2014" / file_name)
+            (root / "val2014" / file_name).write_bytes(data)
             images.append({"id": i, "height": h, "width": w,
                            "file_name": file_name, "source": name})
             for a in scene_anns:
@@ -77,11 +133,12 @@ def median_ms(fn, reps: int) -> float:
 
 def decode_times(reps: int = 5) -> dict:
     """{file: {"native_ms", "plain_ms" (None where the plain route refuses
-    the file)}}, medians of `reps`."""
+    the file)}}, medians of `reps`: TIMED, then format_scenes()."""
     from maskrcnn_tpu_torch.data import image_io
     out = {}
-    for name in TIMED:
-        data = (REPO / name).read_bytes()
+    files = {name: (REPO / name).read_bytes() for name in TIMED}
+    files.update(format_scenes())
+    for name, data in files.items():
         image_io.read_image(data)                       # the build, once
         row = {"native_ms": median_ms(lambda: image_io.read_image(data),
                                       reps)}
@@ -97,19 +154,22 @@ def decode_times(reps: int = 5) -> dict:
 
 def decode_rates(decodes: int = 48) -> dict:
     """{route: {threads: decodes a second}}: `decodes` decodes (a quarter
-    of them on the plain route) of the two baseline scenes, spread over
-    1 and 4 threads."""
+    of them on the plain route) of the two baseline JPEG scenes
+    ("native", "plain") or of the three lossy WebP scenes ("webp"),
+    spread over 1 and 4 threads."""
     from concurrent.futures import ThreadPoolExecutor
 
     from maskrcnn_tpu_torch.data import image_io
-    data = [(CORPUS / n).read_bytes()
+    jpeg = [(CORPUS / n).read_bytes()
             for n in ("scene_baseline_420.jpg", "scene_baseline_444.jpg")]
+    webp = [(CORPUS / n).read_bytes() for n in WEBP_SCENES]
     out = {}
-    for route in ("native", "plain"):
-        n = decodes if route == "native" else decodes // 4
+    for route in ("native", "plain", "webp"):
+        n = decodes // 4 if route == "plain" else decodes
+        data = webp if route == "webp" else jpeg
 
-        def decode(i, plain=route == "plain"):
-            return image_io.read_image(data[i % 2], plain=plain)
+        def decode(i, plain=route == "plain", data=data):
+            return image_io.read_image(data[i % len(data)], plain=plain)
 
         out[route] = {}
         for threads in (1, 4):
@@ -164,7 +224,7 @@ def main(argv=None) -> int:
             for k, v in row.items()), flush=True)
     threads = decode_rates()
     for route, row in threads.items():
-        print(f"{route} decodes of the baseline scenes: 1 thread "
+        print(f"{route} decodes of the scenes: 1 thread "
               f"{row[1]:.1f}/s, 4 threads {row[4]:.1f}/s "
               f"({row[4] / row[1]:.2f}x)", flush=True)
     rates = loader_rates(args.copies)
