@@ -142,18 +142,22 @@ Phases, each printing one line:
     bit-identical, its launches and time beside the live step's;
     8e utils.profiler.trace around one step writes a Chrome trace;
  9. after phase 8, image files and learning (tools/learning_torch.py):
-    9a the port's native PNG, JPEG, BMP, GIF and WebP decoders
+    9a the port's native PNG, JPEG, BMP, GIF, WebP and TIFF decoders
     (data/native_image.py, csrc/image_decode.cpp and csrc/webp_decode.cpp
     built with g++) give Pillow's pixels for every repository image and
     every file of the committed corpus (tests/data/image_io; SHA-256
     digests taken with Pillow 12.1.0; the card's machine has no Pillow,
-    and no libwebp or giflib is loaded) and equal the plain Python route
-    on the repository images, the corpus's refused files name their
-    modes, host ms a decode native beside plain (640x480, 1252², the
-    progressive scene, and the first scene as lossy and lossless WebP,
-    GIF and BMP), decodes a second on 1 and 4 threads each route and of
-    the lossy WebP scenes, BatchLoader img/s with 1 and 4 workers,
-    write_png read back exactly;
+    and no libwebp, giflib or libtiff is loaded; the decoder library
+    links only the C and C++ runtimes and imports no zlib symbol: PNG's
+    and TIFF's inflate is its own) and equal the plain Python route on
+    the repository images, the corpus's refused files name their modes,
+    host ms a decode native beside plain (640x480, 1252², the progressive
+    scene, and the first scene as PNG, lossy and lossless WebP, GIF, BMP,
+    and TIFF uncompressed, LZW with predictor 2, tiled Deflate with
+    predictor 2 and YCbCr 2x2 JPEG), the PNG scene's inflate beside
+    zlib's, decodes a second on 1 and 4 threads each route and of the lossy WebP
+    and tiled Deflate TIFF scenes, BatchLoader img/s with 1 and 4
+    workers, write_png read back exactly;
     9b K1 against its plain version at the 64 px levels (P5 2x2), K1-bwd
     there as in 7a, then tests/test_learning_ap.py on the card: the 64 px
     TinyConfig trained from scratch (240 steps, B=4, one class),
@@ -180,10 +184,13 @@ Phases, each printing one line:
     route and once through the native one: detections equal, K1, K2 and
     K4 launched, img/s and the decode's share of each sweep; then the
     same sweep over the scenes as BMP files and with the first as
-    lossless WebP (the JPEG decodes' pixels: detections equal the JPEG
-    sweep's), as lossy WebP and as GIF files (detections found), K1, K2
-    and K4 launched in each; one POST each of the progressive JPEG and
-    of a lossy WebP to tools/serve_torch.py's handler answered;
+    lossless WebP (one batch of 8 images each) and as tiled LZW TIFF
+    with predictor 2 (24 images; the JPEG decodes' pixels: detections
+    equal the JPEG sweep's), as lossy WebP and GIF files (one batch each:
+    detections found) and with the baseline scenes' JPEG streams as
+    YCbCr JPEG TIFF (24 images: detections equal too), K1, K2 and K4
+    launched in each; one POST each of the progressive JPEG, a lossy
+    WebP and a JPEG TIFF to tools/serve_torch.py's handler answered;
 10. after phase 9, the spatial axis and the debug and tutorial surface:
     10a predict_step B=2 at 1024² with the backbone and FPN on 2 and 4
     row shards of the one card (parallel/spatial.py, in process):
@@ -227,6 +234,7 @@ import itertools
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3028,6 +3036,34 @@ class DecoderBuild:
             self.pool.shutdown()
 
 
+def decoder_links() -> dict:
+    """What the JPEG/PNG/GIF/BMP/TIFF decoder library links (ldd) and
+    whether it imports a zlib or libtiff symbol (nm -D: no inflate or
+    TIFF*): {"ok", "needed", "nm"}; not ok without nm, whose reading the
+    claim needs."""
+    from maskrcnn_tpu_torch.data import native_image
+    path = str(native_image.library_path())
+    out = subprocess.run(["ldd", path], capture_output=True, text=True,
+                         timeout=60).stdout
+    needed = sorted({line.split()[0].rsplit("/", 1)[-1]
+                     for line in out.splitlines() if line.strip()})
+    runtimes = ("linux-vdso", "libstdc++", "libgcc_s", "libc.", "libm.",
+                "ld-linux")
+    ok = bool(needed) and all(n.startswith(runtimes) for n in needed)
+    nm = shutil.which("nm")
+    if nm:
+        undefined = subprocess.run([nm, "-D", "--undefined-only", path],
+                                   capture_output=True, text=True,
+                                   timeout=60).stdout
+        found = re.findall(r"\b(?:inflate|TIFF)\w*", undefined)
+        ok = ok and not found
+        nm_note = f"nm: {len(undefined.splitlines())} undefined symbols"
+    else:
+        ok = False
+        nm_note = "nm not installed: symbols not read"
+    return {"ok": ok, "needed": needed, "nm": nm_note}
+
+
 def decode_phase(card, build=None):
     """Phase 9a: the port's native image decoders (data/native_image.py,
     csrc/image_decode.cpp and csrc/webp_decode.cpp built with g++) give
@@ -3035,18 +3071,24 @@ def decode_phase(card, build=None):
     the plain Python route there; every file of the committed corpus
     (tests/data/image_io: progressive, CMYK and YCCK, Adobe RGB, sampling
     factors up to 4, Adam7 and every PNG bit depth; lossy and lossless,
-    extended and animated WebP, GIF and BMP of every mode) decodes to its
+    extended and animated WebP, GIF and BMP of every mode; TIFF of every
+    mode, compression, predictor, layout and orientation) decodes to its
     Pillow digest, and each refused file raises NotImplementedError
-    naming its mode; neither Pillow nor a system libwebp or giflib is
-    loaded; host ms a decode, median of 5, native beside plain
-    (images/sample.jpg 640x480, output/detections.jpg 1252², the
-    progressive scene, the first scene as lossy and lossless WebP, GIF
-    and BMP); decodes a second of the two baseline JPEG scenes on 1 and
-    4 threads, each route, and of the three lossy WebP scenes (whether a
-    decode leaves the GIL); BatchLoader images a second with 1 and 4
-    worker threads over a COCO directory of the corpus scenes (a whole
-    training sample); write_png read back exactly (RGB and
-    grayscale)."""
+    naming its mode; neither Pillow nor a system libwebp, giflib or
+    libtiff is loaded, and the decoder library links only the C and C++
+    runtimes and imports no zlib or libtiff symbol (PNG's and TIFF's
+    inflate is the library's own); host ms a
+    decode, median of 5, native beside plain (images/sample.jpg 640x480,
+    output/detections.jpg 1252², the progressive scene, the first scene
+    as PNG, lossy and lossless WebP, GIF, BMP, and TIFF uncompressed, LZW
+    with predictor 2, tiled Deflate with predictor 2 and YCbCr 2x2 JPEG);
+    the PNG scene's image data through the library's inflate beside
+    zlib.decompress; decodes a second of the two baseline JPEG scenes on 1 and 4 threads,
+    each route, and of the three scenes as lossy WebP and as tiled
+    Deflate TIFF (whether a decode leaves the GIL); BatchLoader images a
+    second with 1 and 4 worker threads over a COCO directory of the
+    corpus scenes (a whole training sample); write_png read back exactly
+    (RGB and grayscale)."""
     from maskrcnn_tpu_torch.data import image_io
     from tools import image_decode_bench_torch as bench
     build = build or DecoderBuild()
@@ -3074,6 +3116,7 @@ def decode_phase(card, build=None):
         except NotImplementedError as e:
             check(word in str(e), f"9a: corpus {name} refused as {e}")
     times = bench.decode_times(5)
+    inflate = bench.inflate_times(5)
     threads = bench.decode_rates()
     rates = bench.loader_rates()
     rng = np.random.RandomState(9)
@@ -3086,9 +3129,11 @@ def decode_phase(card, build=None):
     with open("/proc/self/maps") as f:
         loaded = {line.split()[-1] for line in f if "/" in line}
     codecs = sorted(p for p in loaded
-                    if re.match(r"lib(webp|gif)[.-]", os.path.basename(p))
+                    if re.match(r"lib(webp|gif|tiff)[.-]", os.path.basename(p))
                     or "/PIL/" in p or "pillow.libs" in p)
     check(not codecs, f"9a: a system codec was loaded: {codecs}")
+    links = decoder_links()
+    check(links["ok"], f"9a: the decoder library links or imports {links}")
     lines = "; ".join(
         f"{name} native {row['native_ms']:.2f} ms, plain "
         + (f"{row['plain_ms']:.2f} ms ({row['plain_ms'] / row['native_ms']:.1f}x)"
@@ -3100,15 +3145,21 @@ def decode_phase(card, build=None):
           f"to Pillow's pixels (SHA-256) and equal the plain route; corpus: "
           f"{len(index['files'])} files to their digests, "
           f"{len(index['refused'])} refused by name; no system codec "
-          f"loaded; host decode median of 5: {lines}; decodes a second of "
+          f"loaded; host decode median of 5: {lines}; the PNG scene's "
+          f"image data ({inflate['bytes']} bytes) inflated by the "
+          f"library's own inflate {inflate['own_ms']:.2f} ms, by "
+          f"zlib.decompress (zlib {inflate['zlib']}) "
+          f"{inflate['zlib_ms']:.2f} ms; decodes a second of "
           "the scenes on 1 / 4 threads (native and plain: the baseline "
-          "JPEG scenes; webp: the lossy WebP scenes): " + ", ".join(
+          "JPEG scenes; webp: the lossy WebP scenes; tiff: the scenes as "
+          "tiled Deflate TIFF): " + ", ".join(
               f"{route} {row[1]:.1f} / {row[4]:.1f} ({row[4] / row[1]:.2f}x)"
               for route, row in threads.items())
           + f"; BatchLoader over the corpus scenes (CocoConfig, B=4): 1 "
           f"worker {rates[1]:.1f} img/s, 4 workers {rates[4]:.1f} img/s "
           f"({rates[4] / rates[1]:.2f}x); write_png reads back exactly; "
-          f"{card}", flush=True)
+          f"the decoder library links {links['needed']}, imports no "
+          f"zlib or libtiff symbol ({links['nm']}); {card}", flush=True)
 
 
 def same_detections(a, b) -> bool:
@@ -3128,7 +3179,18 @@ def same_detections(a, b) -> bool:
 # 9d: the corpus scenes, each this many times (3 batches of 8), and the
 # formats swept beside the JPEG files (image_decode_bench_torch.scene_files)
 FILES_COPIES, FILES_B = 8, 8
-FILES_FORMATS = ("bmp", "webp_lossless", "webp", "gif")
+FILES_FORMATS = ("bmp", "webp_lossless", "tiff_tiled_lzw_predictor", "webp",
+                 "gif", "tiff_jpeg")
+# the sweeps whose files hold the JPEG decodes' pixels, so their detections
+# equal the JPEG sweep's (the JPEG TIFF holds the baseline scenes' own JPEG
+# streams, which decode to their JPEG files' pixels)
+SAME_PIXELS = ("plain", "bmp", "webp_lossless", "tiff_tiled_lzw_predictor",
+               "tiff_jpeg")
+# images a sweep: the WebP, GIF and BMP sweeps one batch (the first 8
+# images, so the JPEG sweep's first 8 results), to keep the whole script
+# within its time
+FILES_IMAGES = {"bmp": FILES_B, "webp_lossless": FILES_B, "webp": FILES_B,
+                "gif": FILES_B}
 
 
 def files_phase(kernels, card, cfg=None):
@@ -3141,13 +3203,16 @@ def files_phase(kernels, card, cfg=None):
     the two sweeps equal, K1, K2 and K4 launched in the native sweep,
     each sweep's images a second and the decode's share of its seconds.
     Then the native sweep over the scenes in the other formats
-    (image_decode_bench_torch.scene_files): BMP files and the first
-    scene as lossless WebP hold the JPEG decodes' pixels, so their
+    (image_decode_bench_torch.scene_files; the WebP, GIF and BMP sweeps
+    over the first batch of 8 images, FILES_IMAGES): BMP files, the first
+    scene as lossless WebP, tiled LZW TIFF with predictor 2, and the
+    baseline scenes' own JPEG streams as YCbCr JPEG TIFF (the progressive
+    scene as its JPEG file) hold the JPEG decodes' pixels, so their
     detections equal the JPEG sweep's; lossy WebP and GIF (a fixed
-    palette) find detections; K1, K2 and K4 launched in every sweep.
-    Then one POST each of the progressive scene and of a lossy WebP scene
-    to tools/serve_torch.py's handler on a localhost port is answered
-    with detections. Returns the native JPEG sweep's launches."""
+    palette) find detections; K1, K2 and K4 launched in every sweep. Then one POST each of the progressive scene, of a
+    lossy WebP scene and of a JPEG TIFF scene to tools/serve_torch.py's
+    handler on a localhost port is answered with detections. Returns the
+    native JPEG sweep's launches."""
     import threading
     import urllib.request
     from http.server import ThreadingHTTPServer
@@ -3163,7 +3228,7 @@ def files_phase(kernels, card, cfg=None):
     det = Detector(cfg, DEVICE, generator=torch.Generator().manual_seed(7))
     sweeps = {}
 
-    def sweep(root, route, plain=False):
+    def sweep(root, route, plain=False, n_images=3 * FILES_COPIES):
         ds = CocoDataset(root, "minival", 2014, cfg)
         decode = {"s": 0.0, "native": 0}
 
@@ -3185,7 +3250,7 @@ def files_phase(kernels, card, cfg=None):
         stats = evaluate_coco(rec, ds, ds.coco, "bbox", batch_size=FILES_B)
         seconds = time.perf_counter() - t
         sweeps[route] = (rec.results, seconds, decode, stats,
-                         launch_counts(kernels))
+                         launch_counts(kernels), n_images)
 
     with tempfile.TemporaryDirectory() as tmp:
         root = bench.coco_scene_dir(Path(tmp) / "jpeg", FILES_COPIES)
@@ -3198,10 +3263,11 @@ def files_phase(kernels, card, cfg=None):
         sweep(root, "plain", plain=True)
         sweep(root, "native")
         for fmt in FILES_FORMATS:
-            sweep(bench.coco_scene_dir(Path(tmp) / fmt, FILES_COPIES, fmt),
-                  fmt)
+            count = FILES_IMAGES.get(fmt, 3 * FILES_COPIES)
+            sweep(bench.coco_scene_dir(Path(tmp) / fmt, FILES_COPIES, fmt,
+                                       count), fmt, n_images=count)
     launches = sweeps["native"][4]
-    for route, (results, _, _, _, n) in sweeps.items():
+    for route, (results, _, _, _, n, _) in sweeps.items():
         if route == "plain":
             continue
         check(all(n[k] > 0 for k in ("roi_align", "nms", "paste_pack")),
@@ -3209,16 +3275,18 @@ def files_phase(kernels, card, cfg=None):
         check(sum(len(r[0]) for r in results if r is not None) > 0,
               f"9d: no detection in the {route} sweep")
     found = sum(len(r[0]) for r in sweeps["native"][0] if r is not None)
-    for route in ("plain", "bmp", "webp_lossless"):
-        check(same_detections(sweeps[route][0], sweeps["native"][0]),
+    for route in SAME_PIXELS:
+        got = sweeps[route][0]
+        check(same_detections(got, sweeps["native"][0][:len(got)]),
               f"9d: the {route} sweep's detections differ from the native "
               "JPEG sweep's")
     n_images = 3 * FILES_COPIES
     parts = []
-    for route, (results, seconds, decode, stats, n) in sweeps.items():
+    for route, (results, seconds, decode, stats, n, count) in sweeps.items():
         parts.append(
-            f"{route} {n_images / seconds:.2f} img/s ({seconds:.2f} s, "
-            f"decode {decode['s'] * 1e3 / n_images:.2f} ms an image, "
+            f"{route} {count / seconds:.2f} img/s ({count} images, "
+            f"{seconds:.2f} s, decode {decode['s'] * 1e3 / count:.2f} ms "
+            "an image, "
             f"{100 * decode['s'] / seconds:.1f}% of the sweep"
             + (f", {decode['native']} progressive files read natively"
                if decode["native"] and route == "plain" else "")
@@ -3227,7 +3295,8 @@ def files_phase(kernels, card, cfg=None):
                f"detections, bbox AP {stats[0]:.3f}, launches K1 "
                f"{n['roi_align']} K2 {n['nms']} K4 {n['paste_pack']}")
             + ")")
-    # the serve handler: one POST of the progressive JPEG, one of a WebP
+    # the serve handler: one POST of the progressive JPEG, one of a WebP,
+    # one of a TIFF
     batcher = BatchingDetector(det, FILES_B, 10.0)
     server = ThreadingHTTPServer(("127.0.0.1", 0),
                                  make_handler(batcher, COCO_CLASS_NAMES))
@@ -3235,12 +3304,15 @@ def files_phase(kernels, card, cfg=None):
     thread.start()
     posts = []
     try:
+        tiff_name, tiff = bench.scene_files("tiff_jpeg", 1)[0]
+        bodies = {tiff_name: tiff}
         for name, kind in (("scene_progressive.jpg", "image/jpeg"),
-                           (bench.WEBP_SCENES[0], "image/webp")):
+                           (bench.WEBP_SCENES[0], "image/webp"),
+                           (tiff_name, "image/tiff")):
+            body = bodies.get(name) or (bench.CORPUS / name).read_bytes()
             req = urllib.request.Request(
                 f"http://127.0.0.1:{server.server_address[1]}/detect",
-                data=(bench.CORPUS / name).read_bytes(), method="POST",
-                headers={"Content-Type": kind})
+                data=body, method="POST", headers={"Content-Type": kind})
             t = time.perf_counter()
             with urllib.request.urlopen(req, timeout=300) as resp:
                 status, reply = resp.status, json.loads(resp.read())
@@ -3257,8 +3329,9 @@ def files_phase(kernels, card, cfg=None):
     print(f"[9d] evaluate_coco bbox over {n_images} files (3 corpus scenes "
           f"x {FILES_COPIES}, one progressive) through {cfg_name(cfg)} at "
           f"B={FILES_B}: detections of the plain-route and native-route "
-          f"JPEG sweeps equal ({found} detections), and of the BMP and "
-          f"lossless-WebP sweeps; " + "; ".join(parts)
+          f"JPEG sweeps equal ({found} detections), and of the BMP, "
+          f"lossless-WebP, tiled-LZW-TIFF and JPEG-TIFF sweeps; "
+          + "; ".join(parts)
           + f"; bbox AP {sweeps['native'][3][0]:.3f} (seeded weights); "
           + "; ".join(f"serve_torch POST of {name} answered {status} with "
                       f"{len(reply['detections'])} detections in {ms:.1f} ms"

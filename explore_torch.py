@@ -14,7 +14,8 @@ returns its tensors (`features`, `anchors`, `proposals`, `detections`),
 so a script can call the stages without the CLI. The RoIAlign is the
 device dispatch (`ops.roi_align.multilevel_roi_align_impl`): K1 on the
 card, the plain `multilevel_roi_align` on the CPU. The image file (JPEG,
-PNG, WebP, GIF or BMP) is read without Pillow (data/image_io.py). Drawing
+PNG, WebP, GIF, BMP or TIFF, its first image) is read without Pillow
+(data/image_io.py, which names the modes it refuses). Drawing
 needs matplotlib; without it the stages still run and print, and the CLI
 says that it cannot draw the picture.
 """

@@ -1,6 +1,7 @@
-// Host image decoder of the port: JPEG, PNG (after inflate), BMP and GIF
-// to RGB uint8, the pixels np.asarray(PIL.Image.open(f).convert("RGB"))
-// gives with Pillow 12.1 over libjpeg-turbo 3.1 (WebP: webp_decode.cpp).
+// Host image decoder of the port: JPEG, PNG, BMP, GIF and
+// TIFF to RGB uint8, the pixels np.asarray(PIL.Image.open(f).convert("RGB"))
+// gives with Pillow 12.1 over libjpeg-turbo 3.1, libtiff 4.7 and zlib
+// (WebP: webp_decode.cpp).
 //
 // Host C++17, no CUDA: maskrcnn_tpu_torch/data/native_image.py compiles it
 // with g++ on first use and calls it through ctypes, which releases the
@@ -24,7 +25,9 @@
 // whose scans leave a low-frequency coefficient incomplete (libjpeg-turbo
 // smooths such blocks; jdcoefct.c smoothing_ok).
 //
-// PNG: the five row filters, the seven Adam7 passes, bit depths 1, 2, 4,
+// PNG: the image data inflated as zlib.decompress inflates it (by the
+// inflate written here, which TIFF's Deflate shares), the five row
+// filters, the seven Adam7 passes, bit depths 1, 2, 4,
 // 8 and 16, and Pillow's conversions to RGB: gray 1-bit as 0/255, 2- and
 // 4-bit scaled by 85 and 17, 16-bit gray ("I;16") clipped to 255, the
 // high byte of every other 16-bit sample, alpha dropped, palette indices
@@ -48,6 +51,31 @@
 // (clear and end codes, a full table kept without a clear code),
 // interlaced rows.
 //
+// TIFF as Pillow's TiffImagePlugin opens the first image of the file:
+// Pillow's reading of the header (II, MM, their byte-swapped magics and
+// BigTIFF's) and of the first IFD, its OPEN_INFO table of (byte order,
+// photometric, sample format, fill order, bits, extra samples) -> (mode,
+// raw mode), its own "raw" tiles for uncompressed data (offsets in file
+// order, byte counts unread) and libtiff's decoding of everything
+// compressed, as TiffDecode.c drives it: strips or tiles (edge tiles
+// cropped), contiguous or separate planes, FillOrder 2, PackBits, LZW
+// (libtiff's codes and the old LSB-first ones), Deflate through the
+// inflate written here (zlib's checks and messages, its Adler-32), JPEG
+// through the decoder above (JPEGTables and the tables of the strips
+// before kept, each strip or tile its own stream, the colour transform
+// libtiff picks: YCbCr to RGB for contiguous YCbCr as Pillow asks with
+// JPEGCOLORMODE_RGB, the components as they are otherwise), predictors 2
+// and 3, samples of more than 8 bits in the host's byte order as libtiff
+// leaves them; then Pillow's unpacker for the raw mode (Unpack.c: bit
+// depths 1-16, 12-bit, signed 16, 32-bit integer and float, palettes
+// with their 16-bit ColorMap, LA, PA, RGB and RGBA of 8 and 16 bits with
+// associated alpha un-premultiplied, CMYK), Convert.c's conversion to
+// RGB, and ImageOps.exif_transpose's Orientation (the tag, or XMP's
+// tiff:Orientation where it is absent). Refused, with the mode named:
+// CCITT, LZMA, ZSTD, WebP, old-style JPEG, ThunderScan and SGILog
+// compression, LAB, YCbCr that is not JPEG-compressed with contiguous
+// samples, 16-bit CMYK; what Pillow itself refuses is a ValueError.
+//
 // Entry points return 0, 1 (a corrupt file: ValueError) or 2 (a mode not
 // read: NotImplementedError), with a message.
 
@@ -56,6 +84,7 @@
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
+#include <iterator>
 #include <string>
 #include <vector>
 
@@ -222,16 +251,13 @@ struct Bits {
       return e & 0xFF;
     }
     int l = kLookBits + 1;
-    int32_t code = static_cast<int32_t>(w >> (16 - l));
-    while (l <= 16 && code > t.maxcode[l]) {
-      l++;
-      code = static_cast<int32_t>(w >> (16 - l));
-    }
+    while (l <= 16 && static_cast<int32_t>(w >> (16 - l)) > t.maxcode[l]) l++;
     if (l > 16) {
       // jpeg_huff_decode: a corrupt code gives a zero
       consume(16);
       return 0;
     }
+    const int32_t code = static_cast<int32_t>(w >> (16 - l));
     consume(l);
     return t.vals[code + t.valoffset[l]];
   }
@@ -300,7 +326,7 @@ struct Jpeg {
   bool progressive = false, have_frame = false;
   int hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   std::vector<Component> comps;
-  int32_t qtables[4][64];
+  int32_t qtables[4][64] = {};
   bool qdefined[4] = {false, false, false, false};
   Huffman dc_tables[4], ac_tables[4];
   int restart_interval = 0;
@@ -309,8 +335,21 @@ struct Jpeg {
 
   Jpeg(const uint8_t* data, int64_t size) : d(data), n(size) {}
 
-  // Reads the markers; with `header_only`, stops after the frame header.
-  void run(bool header_only) {
+  // The quantization and Huffman tables of another stream (TIFF's
+  // JPEGTables, or the strip before: libjpeg keeps them in the object).
+  void take_tables(const Jpeg& t) {
+    std::memcpy(qtables, t.qtables, sizeof(qtables));
+    std::memcpy(qdefined, t.qdefined, sizeof(qdefined));
+    for (int i = 0; i < 4; i++) {
+      dc_tables[i] = t.dc_tables[i];
+      ac_tables[i] = t.ac_tables[i];
+    }
+  }
+
+  // Reads the markers; with `header_only`, stops after the frame header;
+  // with `tables`, reads a tables-only stream (no frame: TIFF's
+  // JPEGTables).
+  void run(bool header_only, bool tables = false) {
     if (n < 2 || d[0] != 0xFF || d[1] != 0xD8) corrupt("not a JPEG file");
     int64_t pos = 2;
     for (;;) {
@@ -332,6 +371,10 @@ struct Jpeg {
       const uint8_t* body = d + pos + 2;
       int blen = length - 2;
       pos += length;
+      if (tables && (marker == 0xDA || (marker >= 0xC0 && marker <= 0xCF &&
+                                        marker != 0xC4 && marker != 0xC8 &&
+                                        marker != 0xCC)))
+        corrupt("TIFF: bogus JPEGTables field (an image in the tables)");
       if (marker == 0xC0 || marker == 0xC1 || marker == 0xC2) {
         frame(body, blen, marker == 0xC2);
         if (header_only) return;
@@ -365,7 +408,7 @@ struct Jpeg {
       }
       // APPn, COM and the rest: skipped
     }
-    if (!have_frame) corrupt("JPEG: no frame header");
+    if (!have_frame && !tables) corrupt("JPEG: no frame header");
   }
 
   void frame(const uint8_t* b, int len, bool prog) {
@@ -754,6 +797,13 @@ inline uint8_t clamp255(int v) {
   return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
 }
 
+// jdcolor.c ycc_rgb_convert of one pixel
+inline void ycc_to_rgb(const Tables& t, int y, int cb, int cr, uint8_t* o) {
+  o[0] = clamp255(y + t.cr_r[cr]);
+  o[1] = clamp255(y + ((t.cb_g[cb] + t.cr_g[cr]) >> 16));
+  o[2] = clamp255(y + t.cb_b[cb]);
+}
+
 // jpeg_idct_islow: dequantize a block (natural order) and write 8x8
 // samples at out with row stride `stride`
 void idct_islow(const int16_t* in, const int32_t* q, uint8_t* out,
@@ -920,7 +970,9 @@ void upsample(const uint8_t* src, int stride, int cw, int ch, int hr, int vr,
   }
 }
 
-void decode_jpeg(Jpeg& j, uint8_t* out) {
+// Every component's samples at the frame's full size ([height][width]
+// each): the entropy-coded data, the IDCT and the upsampler.
+std::vector<std::vector<uint8_t>> jpeg_planes(Jpeg& j) {
   j.run(false);
   if (j.comps.front().coef.empty()) j.allocate();
   if (j.would_smooth())
@@ -949,7 +1001,13 @@ void decode_jpeg(Jpeg& j, uint8_t* out) {
     upsample(plane.data(), stride, c.cw, c.ch, j.hmax / c.h, j.vmax / c.v,
              full[ci].data(), W, H);
   }
-  const int64_t npix = static_cast<int64_t>(W) * H;
+  return full;
+}
+
+void decode_jpeg(Jpeg& j, uint8_t* out) {
+  std::vector<std::vector<uint8_t>> full = jpeg_planes(j);
+  const Tables& t = tables();
+  const int64_t npix = static_cast<int64_t>(j.width) * j.height;
   Space s = j.space();
   if (s == Space::Gray) {
     const uint8_t* g = full[0].data();
@@ -964,12 +1022,7 @@ void decode_jpeg(Jpeg& j, uint8_t* out) {
     }
   } else if (s == Space::YCbCr) {
     const uint8_t *Y = full[0].data(), *Cb = full[1].data(), *Cr = full[2].data();
-    for (int64_t i = 0; i < npix; i++) {
-      int y = Y[i], cb = Cb[i], cr = Cr[i];
-      out[3 * i] = clamp255(y + t.cr_r[cr]);
-      out[3 * i + 1] = clamp255(y + ((t.cb_g[cb] + t.cr_g[cr]) >> 16));
-      out[3 * i + 2] = clamp255(y + t.cb_b[cb]);
-    }
+    for (int64_t i = 0; i < npix; i++) ycc_to_rgb(t, Y[i], Cb[i], Cr[i], out + 3 * i);
   } else {
     // CMYK from libjpeg (YCCK through ycck_cmyk_convert), then Pillow's
     // "CMYK;I" unpack (255 - v) and Convert.c cmyk2rgb
@@ -993,6 +1046,338 @@ void decode_jpeg(Jpeg& j, uint8_t* out) {
     }
   }
 }
+
+// ------------------------------------------------------------------- zlib
+
+// zlib's inflate (RFC 1950 and 1951), PNG's and TIFF's: a whole stream as
+// zlib.decompress gives it (a PNG's image data), or one strip or tile as
+// libtiff's ZIPDecode drives it: the output buffer is filled, and decoding
+// goes on past a full buffer only for what needs no output (block
+// headers, the last block's end and its Adler-32 check), as zlib's state
+// machine does. Its checks and messages are zlib's.
+struct InflateEnd {};  // the input ran out
+
+constexpr int kZFast = 11;
+
+struct ZHuff {
+  int16_t count[16];
+  int16_t symbol[320];
+  uint16_t fast[1 << kZFast];  // (code length << 9) | symbol, codes of <= kZFast bits
+  bool empty = false;  // no codes at all: every code is invalid
+};
+
+// zlib's inflate_table: false for an over-subscribed set, or an incomplete
+// one where zlib refuses it (the code-length code, or a set whose longest
+// code is not a single 1-bit code).
+bool build_zhuff(ZHuff& h, const uint8_t* lens, int n, bool code_lengths) {
+  std::memset(h.count, 0, sizeof(h.count));
+  std::memset(h.fast, 0, sizeof(h.fast));
+  for (int i = 0; i < n; i++) h.count[lens[i]]++;
+  int max = 15;
+  while (max >= 1 && h.count[max] == 0) max--;
+  h.empty = max == 0;
+  if (h.empty) return !code_lengths;
+  int left = 1;
+  for (int len = 1; len <= 15; len++) {
+    left <<= 1;
+    left -= h.count[len];
+    if (left < 0) return false;
+  }
+  if (left > 0 && (code_lengths || max != 1)) return false;
+  int16_t offs[16];
+  offs[1] = 0;
+  for (int len = 1; len < 15; len++) offs[len + 1] = static_cast<int16_t>(offs[len] + h.count[len]);
+  for (int i = 0; i < n; i++)
+    if (lens[i]) h.symbol[offs[lens[i]]++] = static_cast<int16_t>(i);
+  // the fast table: canonical codes, stored bit-reversed (LSB first)
+  int code = 0, k = 0;
+  for (int len = 1; len <= kZFast; len++) {
+    for (int c = 0; c < h.count[len]; c++, k++, code++) {
+      int rev = 0;
+      for (int b = 0; b < len; b++) rev |= ((code >> b) & 1) << (len - 1 - b);
+      for (int i = rev; i < (1 << kZFast); i += 1 << len)
+        h.fast[i] = static_cast<uint16_t>((len << 9) | h.symbol[k]);
+    }
+    code <<= 1;
+  }
+  return true;
+}
+
+class Inflater {
+ public:
+  // what: the prefix of its errors ("TIFF: Deflate data", ...)
+  Inflater(const uint8_t* d, int64_t n, const char* what) : d_(d), n_(n), what_(what) {}
+
+  // Fills out[0, cap): libtiff's ZIPDecode over one strip or tile, its
+  // Adler-32 checked only where the stream ends inside the strip.
+  int64_t run(uint8_t* out, int64_t cap) { return inflate(out, cap); }
+
+  // The whole stream into v, grown from its size as the data needs and
+  // cut to the data: zlib.decompress (its end and Adler-32 checked, what
+  // follows the stream ignored).
+  void run(std::vector<uint8_t>& v) {
+    if (v.empty()) v.resize(1);
+    grow_ = &v;
+    v.resize(static_cast<size_t>(inflate(v.data(), static_cast<int64_t>(v.size()))));
+  }
+
+ private:
+  int64_t inflate(uint8_t* out, int64_t cap) {
+    out_ = out;
+    cap_ = cap;
+    len_ = 0;
+    try {
+      int cmf = static_cast<int>(bits(8)), flg = static_cast<int>(bits(8));
+      if ((cmf * 256 + flg) % 31) fail("incorrect header check");
+      if ((cmf & 15) != 8) fail("unknown compression method");
+      if ((cmf >> 4) + 8 > 15) fail("invalid window size");
+      if (flg & 0x20) fail("a preset dictionary is needed");
+      for (;;) {
+        const bool last = bits(1);
+        const int type = static_cast<int>(bits(2));
+        if (type == 0) {
+          stored();
+        } else if (type == 1) {
+          fixed_tables();
+          codes(lit_, dist_);
+        } else if (type == 2) {
+          dynamic_tables();
+          codes(lit_, dist_);
+        } else {
+          fail("invalid block type");
+        }
+        if (stop_) return len_;
+        if (last) break;
+      }
+      // the Adler-32 of the data, big-endian, after the last block
+      drop(bitcnt_ & 7);
+      uint32_t want = 0;
+      for (int i = 0; i < 4; i++) want = (want << 8) | static_cast<uint32_t>(bits(8));
+      if (want != adler()) fail("incorrect data check");
+      if (!grow_ && len_ < cap_) fail_short();
+      return len_;
+    } catch (const InflateEnd&) {
+      if (grow_) fail("incomplete or truncated stream");
+      if (len_ == cap_) return len_;
+      fail_short();
+    }
+  }
+
+  const uint8_t* d_;
+  int64_t n_;
+  const char* what_;
+  int64_t pos_ = 0;
+  uint64_t bitbuf_ = 0;
+  int bitcnt_ = 0;
+  uint8_t* out_ = nullptr;
+  int64_t cap_ = 0, len_ = 0;
+  std::vector<uint8_t>* grow_ = nullptr;
+  bool stop_ = false;
+  ZHuff lit_, dist_;
+
+  [[noreturn]] void fail(const char* why) const {
+    corrupt(std::string(what_) + ": " + why);
+  }
+  [[noreturn]] void fail_short() const {
+    corrupt(std::string(what_) + ": not enough data (short " +
+            std::to_string(cap_ - len_) + " bytes)");
+  }
+
+  void refill() {
+    if (pos_ + 8 <= n_) {
+      // a whole word: the bits past bitcnt_ are the stream's next bits,
+      // so or-ing them in again later changes nothing
+      uint64_t word;
+      std::memcpy(&word, d_ + pos_, 8);
+      bitbuf_ |= word << bitcnt_;
+      const int take = (63 - bitcnt_) >> 3;
+      pos_ += take;
+      bitcnt_ += 8 * take;
+      return;
+    }
+    while (bitcnt_ <= 56 && pos_ < n_) {
+      bitbuf_ |= static_cast<uint64_t>(d_[pos_++]) << bitcnt_;
+      bitcnt_ += 8;
+    }
+  }
+  uint32_t bits(int k) {
+    if (k == 0) return 0;
+    if (bitcnt_ < k) {
+      refill();
+      if (bitcnt_ < k) throw InflateEnd{};
+    }
+    const uint32_t v = static_cast<uint32_t>(bitbuf_ & ((uint64_t{1} << k) - 1));
+    drop(k);
+    return v;
+  }
+  void drop(int k) {
+    bitbuf_ >>= k;
+    bitcnt_ -= k;
+  }
+
+  int decode(const ZHuff& h) {
+    if (h.empty) return -1;
+    if (bitcnt_ < 15) refill();
+    const uint16_t e = h.fast[bitbuf_ & ((1 << kZFast) - 1)];
+    if (e && (e >> 9) <= bitcnt_) {
+      drop(e >> 9);
+      return e & 511;
+    }
+    // puff.c's decode, a bit at a time
+    int code = 0, first = 0, index = 0;
+    for (int len = 1; len <= 15; len++) {
+      code |= static_cast<int>(bits(1));
+      const int count = h.count[len];
+      if (code - count < first) return h.symbol[index + (code - first)];
+      index += count;
+      first += count;
+      first <<= 1;
+      code <<= 1;
+    }
+    return -1;
+  }
+
+  // false where k more bytes fit (the whole-stream buffer grown for
+  // them); a strip's buffer ends the strip once it is full
+  bool full(int64_t k = 1) {
+    if (k <= cap_ - len_) return false;
+    if (grow_) {
+      grow_->resize(static_cast<size_t>(std::max(len_ + k, 2 * cap_)));
+      out_ = grow_->data();
+      cap_ = static_cast<int64_t>(grow_->size());
+      return false;
+    }
+    if (len_ < cap_) return false;
+    stop_ = true;
+    return true;
+  }
+
+  void stored() {
+    drop(bitcnt_ & 7);
+    const uint32_t len = bits(16), nlen = bits(16);
+    if (len != (~nlen & 0xffff)) fail("invalid stored block lengths");
+    for (uint32_t i = 0; i < len; i++) {
+      if (full()) return;
+      out_[len_++] = static_cast<uint8_t>(bits(8));
+    }
+  }
+
+  void fixed_tables() {
+    uint8_t lens[320];
+    for (int i = 0; i < 144; i++) lens[i] = 8;
+    for (int i = 144; i < 256; i++) lens[i] = 9;
+    for (int i = 256; i < 280; i++) lens[i] = 7;
+    for (int i = 280; i < 288; i++) lens[i] = 8;
+    build_zhuff(lit_, lens, 288, false);
+    for (int i = 0; i < 32; i++) lens[i] = 5;
+    build_zhuff(dist_, lens, 32, false);
+  }
+
+  void dynamic_tables() {
+    const int nlen = static_cast<int>(bits(5)) + 257;
+    const int ndist = static_cast<int>(bits(5)) + 1;
+    const int ncode = static_cast<int>(bits(4)) + 4;
+    if (nlen > 286 || ndist > 30) fail("too many length or distance symbols");
+    static const uint8_t order[19] = {16, 17, 18, 0, 8, 7, 9, 6, 10, 5,
+                                      11, 4, 12, 3, 13, 2, 14, 1, 15};
+    uint8_t lens[320] = {0};
+    for (int i = 0; i < ncode; i++) lens[order[i]] = static_cast<uint8_t>(bits(3));
+    ZHuff cl;
+    if (!build_zhuff(cl, lens, 19, true)) fail("invalid code lengths set");
+    int have = 0;
+    std::memset(lens, 0, sizeof(lens));
+    while (have < nlen + ndist) {
+      const int sym = decode(cl);
+      if (sym < 0) fail("invalid code lengths set");
+      if (sym < 16) {
+        lens[have++] = static_cast<uint8_t>(sym);
+        continue;
+      }
+      int len = 0, rep;
+      if (sym == 16) {
+        if (have == 0) fail("invalid bit length repeat");
+        len = lens[have - 1];
+        rep = 3 + static_cast<int>(bits(2));
+      } else if (sym == 17) {
+        rep = 3 + static_cast<int>(bits(3));
+      } else {
+        rep = 11 + static_cast<int>(bits(7));
+      }
+      if (have + rep > nlen + ndist) fail("invalid bit length repeat");
+      while (rep--) lens[have++] = static_cast<uint8_t>(len);
+    }
+    if (lens[256] == 0) fail("invalid code -- missing end-of-block");
+    if (!build_zhuff(lit_, lens, nlen, false)) fail("invalid literal/lengths set");
+    if (!build_zhuff(dist_, lens + nlen, ndist, false)) fail("invalid distances set");
+  }
+
+  void codes(const ZHuff& lit, const ZHuff& dist) {
+    static const uint16_t lbase[29] = {3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 15, 17, 19, 23, 27,
+                                       31, 35, 43, 51, 59, 67, 83, 99, 115, 131, 163, 195, 227, 258};
+    static const uint8_t lext[29] = {0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2,
+                                     2, 3, 3, 3, 3, 4, 4, 4, 4, 5, 5, 5, 5, 0};
+    static const uint16_t dbase[30] = {1, 2, 3, 4, 5, 7, 9, 13, 17, 25, 33, 49, 65, 97, 129,
+                                       193, 257, 385, 513, 769, 1025, 1537, 2049, 3073,
+                                       4097, 6145, 8193, 12289, 16385, 24577};
+    static const uint8_t dext[30] = {0, 0, 0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6,
+                                     6, 7, 7, 8, 8, 9, 9, 10, 10, 11, 11, 12, 12, 13, 13};
+    for (;;) {
+      int sym = decode(lit);
+      if (sym < 256) {
+        if (sym < 0) fail("invalid literal/length code");
+        if (len_ == cap_ && full()) return;
+        out_[len_++] = static_cast<uint8_t>(sym);
+        continue;
+      }
+      if (sym == 256) return;
+      sym -= 257;
+      if (sym >= 29) fail("invalid literal/length code");
+      int64_t length = lbase[sym] + bits(lext[sym]);
+      const int dsym = decode(dist);
+      if (dsym < 0 || dsym >= 30) fail("invalid distance code");
+      const int64_t distance = dbase[dsym] + bits(dext[dsym]);
+      if (full(length)) return;
+      if (distance > len_) fail("invalid distance too far back");
+      const int64_t n = std::min(length, cap_ - len_);
+      uint8_t* dst = out_ + len_;
+      const uint8_t* src = dst - distance;
+      if (distance == 1) {
+        std::memset(dst, src[0], static_cast<size_t>(n));
+      } else {
+        // chunks of at most `distance` bytes: each reads only bytes
+        // already written
+        for (int64_t i = 0; i < n; i += distance)
+          std::memcpy(dst + i, src + i, static_cast<size_t>(std::min(distance, n - i)));
+      }
+      len_ += n;
+      if (n < length && full()) return;
+    }
+  }
+
+  // 16 bytes a step: b gains 16 a and the bytes weighted 16 to 1
+  uint32_t adler() const {
+    uint64_t a = 1, b = 0;
+    for (int64_t i = 0; i < len_;) {
+      const int64_t end = std::min<int64_t>(len_, i + 5552);
+      for (; i + 16 <= end; i += 16) {
+        uint32_t sum = 0, weighted = 0;
+        for (int k = 0; k < 16; k++) {
+          sum += out_[i + k];
+          weighted += static_cast<uint32_t>(16 - k) * out_[i + k];
+        }
+        b += 16 * a + weighted;
+        a += sum;
+      }
+      for (; i < end; i++) {
+        a += out_[i];
+        b += a;
+      }
+      a %= 65521;
+      b %= 65521;
+    }
+    return static_cast<uint32_t>((b << 16) | a);
+  }
+};
 
 // -------------------------------------------------------------------- PNG
 
@@ -1111,9 +1496,38 @@ void convert_row(const PngFormat& f, const uint8_t* row, int count,
   }
 }
 
-void decode_png(const uint8_t* raw, int64_t n, int width, int height,
+// Adam7 passes: x0, y0, dx, dy
+const int kAdam7[7][4] = {{0, 0, 8, 8}, {4, 0, 8, 8}, {0, 4, 4, 8}, {2, 0, 4, 4},
+                          {0, 2, 2, 4}, {1, 0, 2, 2}, {0, 1, 1, 2}};
+const int kWhole[1][4] = {{0, 0, 1, 1}};
+
+// The width and height of Adam7 pass p (or of the whole image).
+void png_pass(int width, int height, const int (&plan)[4], int* pw, int* ph) {
+  const int x0 = plan[0], y0 = plan[1], dx = plan[2], dy = plan[3];
+  *pw = width <= x0 ? 0 : (width - x0 + dx - 1) / dx;
+  *ph = height <= y0 ? 0 : (height - y0 + dy - 1) / dy;
+}
+
+// z: the image data (all IDAT chunks), inflated here as zlib.decompress
+// inflates it.
+void decode_png(const uint8_t* z, int64_t zn, int width, int height,
                 int depth, int color, int interlace, const uint8_t* palette,
                 int entries, uint8_t* out) {
+  const int (*plan)[4] = interlace ? kAdam7 : kWhole;
+  const int count = interlace ? 7 : 1;
+  // the inflate's buffer starts at the size a valid header's data takes
+  const int64_t guess_bits = static_cast<int64_t>(color == 2 ? 3 : color == 4 ? 2 : color == 6 ? 4 : 1) *
+                             std::min(std::max(depth, 1), 16);
+  int64_t size = 0;
+  for (int p = 0; p < count; p++) {
+    int pw, ph;
+    png_pass(width, height, plan[p], &pw, &ph);
+    if (pw > 0) size += static_cast<int64_t>(ph) * (1 + (pw * guess_bits + 7) / 8);
+  }
+  std::vector<uint8_t> data(static_cast<size_t>(size));
+  Inflater(z, zn, "PNG: bad image data").run(data);
+  const uint8_t* raw = data.data();
+  const int64_t n = static_cast<int64_t>(data.size());
   int channels;
   bool ok;
   switch (color) {
@@ -1133,20 +1547,12 @@ void decode_png(const uint8_t* raw, int64_t n, int width, int height,
   PngFormat f{channels, depth, color, palette, entries};
   int bits_pp = channels * depth;
   int bpp = std::max(1, bits_pp / 8);
-  // Adam7 passes: x0, y0, dx, dy
-  static const int passes[7][4] = {{0, 0, 8, 8}, {4, 0, 8, 8}, {0, 4, 4, 8},
-                                   {2, 0, 4, 4}, {0, 2, 2, 4}, {1, 0, 2, 2},
-                                   {0, 1, 1, 2}};
-  static const int whole[1][4] = {{0, 0, 1, 1}};
-  const int(*plan)[4] = interlace ? passes : whole;
-  int count = interlace ? 7 : 1;
   int64_t at = 0;
   std::vector<uint8_t> buf;
   for (int p = 0; p < count; p++) {
-    int x0 = plan[p][0], y0 = plan[p][1], dx = plan[p][2], dy = plan[p][3];
-    int pw = (width - x0 + dx - 1) / dx, ph = (height - y0 + dy - 1) / dy;
-    if (width <= x0) pw = 0;
-    if (height <= y0) ph = 0;
+    const int x0 = plan[p][0], y0 = plan[p][1], dx = plan[p][2], dy = plan[p][3];
+    int pw, ph;
+    png_pass(width, height, plan[p], &pw, &ph);
     if (pw == 0 || ph == 0) continue;  // an empty pass holds no bytes
     int64_t stride = (static_cast<int64_t>(pw) * bits_pp + 7) / 8;
     buf.resize(static_cast<size_t>(stride) * ph);
@@ -1661,6 +2067,1301 @@ void decode_gif(const uint8_t* d, int64_t n, uint8_t* out, int64_t height,
   }
 }
 
+// ------------------------------------------------------------------- TIFF
+
+// libtiff's LZWDecode over one strip or tile into out[0, cap): codes of 9
+// to 12 bits MSB first with the early change of code width, or, when the
+// data starts with a clear code written LSB first, LZWDecodeCompat's
+// old-style codes (LSB first, the width changed one code later). Data
+// that ends without the end code ends the strip as libtiff does; a strip
+// left short is an error.
+void tiff_lzw(const uint8_t* d, int64_t n, uint8_t* out, int64_t cap) {
+  constexpr int kSize = 4096, kClear = 256, kEnd = 257, kFirst = 258;
+  const bool compat = n >= 2 && d[0] == 0 && (d[1] & 1);
+  std::vector<uint16_t> prefix(kSize), length(kSize);
+  std::vector<uint8_t> value(kSize), first(kSize);
+  for (int i = 0; i < 256; i++) {
+    length[i] = 1;
+    value[i] = first[i] = static_cast<uint8_t>(i);
+  }
+  int nbits = 9;
+  int maxcode = compat ? 511 : 510;
+  int free_ent = kFirst;
+  int old = 0;
+  uint64_t acc = 0;
+  int nacc = 0;
+  int64_t pos = 0, len = 0;
+  auto next = [&]() -> int {
+    while (nacc < nbits) {
+      if (pos >= n) return kEnd;  // not terminated with the end code
+      if (compat) {
+        acc |= static_cast<uint64_t>(d[pos++]) << nacc;
+      } else {
+        acc = (acc << 8) | d[pos++];
+      }
+      nacc += 8;
+    }
+    int code;
+    if (compat) {
+      code = static_cast<int>(acc & ((1u << nbits) - 1));
+      acc >>= nbits;
+    } else {
+      code = static_cast<int>((acc >> (nacc - nbits)) & ((1u << nbits) - 1));
+    }
+    nacc -= nbits;
+    if (!compat) acc &= (uint64_t{1} << nacc) - 1;
+    return code;
+  };
+  auto put = [&](int code) {
+    const int64_t l = length[code];
+    if (l > cap - len) {
+      // the start of the string that fits
+      int c = code;
+      int64_t cl = l;
+      while (cl > cap - len) {
+        c = prefix[c];
+        cl--;
+      }
+      for (int64_t i = cl - 1; i >= 0; i--, c = prefix[c]) out[len + i] = value[c];
+      len = cap;
+      return;
+    }
+    int c = code;
+    for (int64_t i = l - 1; i >= 0; i--, c = prefix[c]) out[len + i] = value[c];
+    len += l;
+  };
+  while (len < cap) {
+    int code = next();
+    if (code == kEnd) break;
+    if (code == kClear) {
+      do {
+        free_ent = kFirst;
+        nbits = 9;
+        maxcode = compat ? 511 : 510;
+        code = next();
+      } while (code == kClear);
+      if (code == kEnd) break;
+      if (code > kClear) corrupt("TIFF: LZW data: corrupted LZW table");
+      out[len++] = static_cast<uint8_t>(code);
+      old = code;
+      continue;
+    }
+    // a code past the next free entry, or a full table (only a clear or
+    // the end code may follow)
+    if (code > free_ent || free_ent >= kSize)
+      corrupt("TIFF: LZW data: corrupted LZW table");
+    prefix[free_ent] = static_cast<uint16_t>(old);
+    first[free_ent] = first[old];
+    length[free_ent] = static_cast<uint16_t>(length[old] + 1);
+    value[free_ent] = code < free_ent ? first[code] : first[old];
+    if (++free_ent > maxcode) {
+      if (++nbits > 12) nbits = 12;
+      maxcode = (1 << nbits) - (compat ? 1 : 2);
+    }
+    old = code;
+    put(code);
+  }
+  if (len < cap)
+    corrupt("TIFF: LZW data: not enough data (short " + std::to_string(cap - len) +
+            " bytes)");
+}
+
+// libtiff's PackBitsDecode over one strip or tile into out[0, cap).
+void tiff_packbits(const uint8_t* d, int64_t n, uint8_t* out, int64_t cap) {
+  int64_t pos = 0, len = 0;
+  while (pos < n && len < cap) {
+    int k = d[pos++];
+    if (k >= 128) k -= 256;
+    if (k < 0) {
+      if (k == -128) continue;
+      int64_t run = -k + 1;
+      if (run > cap - len) run = cap - len;
+      if (pos >= n) break;
+      std::memset(out + len, d[pos++], static_cast<size_t>(run));
+      len += run;
+    } else {
+      int64_t lit = k + 1;
+      if (lit > cap - len) lit = cap - len;
+      if (n - pos < lit) break;
+      std::memcpy(out + len, d + pos, static_cast<size_t>(lit));
+      len += lit;
+      pos += lit;
+    }
+  }
+  if (len < cap)
+    corrupt("TIFF: PackBits data: not enough data (short " +
+            std::to_string(cap - len) + " bytes)");
+}
+
+// Pillow's TiffImagePlugin.OPEN_INFO: (big-endian, photometric, sample
+// format, fill order, bits per sample, extra samples) -> (mode, raw mode)
+struct OpenInfo {
+  int mm, photometric, format, fill;
+  const char* bps;
+  const char* extra;
+  const char* mode;
+  const char* raw;
+};
+
+const OpenInfo kOpenInfo[] = {
+    {0, 0, 1, 1, "1", "", "1", "1;I"},
+    {1, 0, 1, 1, "1", "", "1", "1;I"},
+    {0, 0, 1, 2, "1", "", "1", "1;IR"},
+    {1, 0, 1, 2, "1", "", "1", "1;IR"},
+    {0, 1, 1, 1, "1", "", "1", "1"},
+    {1, 1, 1, 1, "1", "", "1", "1"},
+    {0, 1, 1, 2, "1", "", "1", "1;R"},
+    {1, 1, 1, 2, "1", "", "1", "1;R"},
+    {0, 0, 1, 1, "2", "", "L", "L;2I"},
+    {1, 0, 1, 1, "2", "", "L", "L;2I"},
+    {0, 0, 1, 2, "2", "", "L", "L;2IR"},
+    {1, 0, 1, 2, "2", "", "L", "L;2IR"},
+    {0, 1, 1, 1, "2", "", "L", "L;2"},
+    {1, 1, 1, 1, "2", "", "L", "L;2"},
+    {0, 1, 1, 2, "2", "", "L", "L;2R"},
+    {1, 1, 1, 2, "2", "", "L", "L;2R"},
+    {0, 0, 1, 1, "4", "", "L", "L;4I"},
+    {1, 0, 1, 1, "4", "", "L", "L;4I"},
+    {0, 0, 1, 2, "4", "", "L", "L;4IR"},
+    {1, 0, 1, 2, "4", "", "L", "L;4IR"},
+    {0, 1, 1, 1, "4", "", "L", "L;4"},
+    {1, 1, 1, 1, "4", "", "L", "L;4"},
+    {0, 1, 1, 2, "4", "", "L", "L;4R"},
+    {1, 1, 1, 2, "4", "", "L", "L;4R"},
+    {0, 0, 1, 1, "8", "", "L", "L;I"},
+    {1, 0, 1, 1, "8", "", "L", "L;I"},
+    {0, 0, 1, 2, "8", "", "L", "L;IR"},
+    {1, 0, 1, 2, "8", "", "L", "L;IR"},
+    {0, 1, 1, 1, "8", "", "L", "L"},
+    {1, 1, 1, 1, "8", "", "L", "L"},
+    {0, 1, 2, 1, "8", "", "L", "L"},
+    {1, 1, 2, 1, "8", "", "L", "L"},
+    {0, 1, 1, 2, "8", "", "L", "L;R"},
+    {1, 1, 1, 2, "8", "", "L", "L;R"},
+    {0, 1, 1, 1, "12", "", "I;16", "I;12"},
+    {0, 0, 1, 1, "16", "", "I;16", "I;16"},
+    {0, 1, 1, 1, "16", "", "I;16", "I;16"},
+    {1, 1, 1, 1, "16", "", "I;16B", "I;16B"},
+    {0, 1, 1, 2, "16", "", "I;16", "I;16R"},
+    {0, 1, 2, 1, "16", "", "I", "I;16S"},
+    {1, 1, 2, 1, "16", "", "I", "I;16BS"},
+    {0, 0, 3, 1, "32", "", "F", "F;32F"},
+    {1, 0, 3, 1, "32", "", "F", "F;32BF"},
+    {0, 1, 1, 1, "32", "", "I", "I;32N"},
+    {0, 1, 2, 1, "32", "", "I", "I;32S"},
+    {1, 1, 2, 1, "32", "", "I", "I;32BS"},
+    {0, 1, 3, 1, "32", "", "F", "F;32F"},
+    {1, 1, 3, 1, "32", "", "F", "F;32BF"},
+    {0, 1, 1, 1, "8,8", "2", "LA", "LA"},
+    {1, 1, 1, 1, "8,8", "2", "LA", "LA"},
+    {0, 2, 1, 1, "8,8,8", "", "RGB", "RGB"},
+    {1, 2, 1, 1, "8,8,8", "", "RGB", "RGB"},
+    {0, 2, 1, 2, "8,8,8", "", "RGB", "RGB;R"},
+    {1, 2, 1, 2, "8,8,8", "", "RGB", "RGB;R"},
+    {0, 2, 1, 1, "8,8,8,8", "", "RGBA", "RGBA"},
+    {1, 2, 1, 1, "8,8,8,8", "", "RGBA", "RGBA"},
+    {0, 2, 1, 1, "8,8,8,8", "0", "RGB", "RGBX"},
+    {1, 2, 1, 1, "8,8,8,8", "0", "RGB", "RGBX"},
+    {0, 2, 1, 1, "8,8,8,8,8", "0,0", "RGB", "RGBXX"},
+    {1, 2, 1, 1, "8,8,8,8,8", "0,0", "RGB", "RGBXX"},
+    {0, 2, 1, 1, "8,8,8,8,8,8", "0,0,0", "RGB", "RGBXXX"},
+    {1, 2, 1, 1, "8,8,8,8,8,8", "0,0,0", "RGB", "RGBXXX"},
+    {0, 2, 1, 1, "8,8,8,8", "1", "RGBA", "RGBa"},
+    {1, 2, 1, 1, "8,8,8,8", "1", "RGBA", "RGBa"},
+    {0, 2, 1, 1, "8,8,8,8,8", "1,0", "RGBA", "RGBaX"},
+    {1, 2, 1, 1, "8,8,8,8,8", "1,0", "RGBA", "RGBaX"},
+    {0, 2, 1, 1, "8,8,8,8,8,8", "1,0,0", "RGBA", "RGBaXX"},
+    {1, 2, 1, 1, "8,8,8,8,8,8", "1,0,0", "RGBA", "RGBaXX"},
+    {0, 2, 1, 1, "8,8,8,8", "2", "RGBA", "RGBA"},
+    {1, 2, 1, 1, "8,8,8,8", "2", "RGBA", "RGBA"},
+    {0, 2, 1, 1, "8,8,8,8,8", "2,0", "RGBA", "RGBAX"},
+    {1, 2, 1, 1, "8,8,8,8,8", "2,0", "RGBA", "RGBAX"},
+    {0, 2, 1, 1, "8,8,8,8,8,8", "2,0,0", "RGBA", "RGBAXX"},
+    {1, 2, 1, 1, "8,8,8,8,8,8", "2,0,0", "RGBA", "RGBAXX"},
+    {0, 2, 1, 1, "8,8,8,8", "999", "RGBA", "RGBA"},
+    {1, 2, 1, 1, "8,8,8,8", "999", "RGBA", "RGBA"},
+    {0, 2, 1, 1, "16,16,16", "", "RGB", "RGB;16L"},
+    {1, 2, 1, 1, "16,16,16", "", "RGB", "RGB;16B"},
+    {0, 2, 1, 1, "16,16,16,16", "", "RGBA", "RGBA;16L"},
+    {1, 2, 1, 1, "16,16,16,16", "", "RGBA", "RGBA;16B"},
+    {0, 2, 1, 1, "16,16,16,16", "0", "RGB", "RGBX;16L"},
+    {1, 2, 1, 1, "16,16,16,16", "0", "RGB", "RGBX;16B"},
+    {0, 2, 1, 1, "16,16,16,16", "1", "RGBA", "RGBa;16L"},
+    {1, 2, 1, 1, "16,16,16,16", "1", "RGBA", "RGBa;16B"},
+    {0, 2, 1, 1, "16,16,16,16", "2", "RGBA", "RGBA;16L"},
+    {1, 2, 1, 1, "16,16,16,16", "2", "RGBA", "RGBA;16B"},
+    {0, 3, 1, 1, "1", "", "P", "P;1"},
+    {1, 3, 1, 1, "1", "", "P", "P;1"},
+    {0, 3, 1, 2, "1", "", "P", "P;1R"},
+    {1, 3, 1, 2, "1", "", "P", "P;1R"},
+    {0, 3, 1, 1, "2", "", "P", "P;2"},
+    {1, 3, 1, 1, "2", "", "P", "P;2"},
+    {0, 3, 1, 2, "2", "", "P", "P;2R"},
+    {1, 3, 1, 2, "2", "", "P", "P;2R"},
+    {0, 3, 1, 1, "4", "", "P", "P;4"},
+    {1, 3, 1, 1, "4", "", "P", "P;4"},
+    {0, 3, 1, 2, "4", "", "P", "P;4R"},
+    {1, 3, 1, 2, "4", "", "P", "P;4R"},
+    {0, 3, 1, 1, "8", "", "P", "P"},
+    {1, 3, 1, 1, "8", "", "P", "P"},
+    {0, 3, 1, 1, "8,8", "0", "P", "PX"},
+    {1, 3, 1, 1, "8,8", "0", "P", "PX"},
+    {0, 3, 1, 1, "8,8", "2", "PA", "PA"},
+    {1, 3, 1, 1, "8,8", "2", "PA", "PA"},
+    {0, 3, 1, 2, "8", "", "P", "P;R"},
+    {1, 3, 1, 2, "8", "", "P", "P;R"},
+    {0, 5, 1, 1, "8,8,8,8", "", "CMYK", "CMYK"},
+    {1, 5, 1, 1, "8,8,8,8", "", "CMYK", "CMYK"},
+    {0, 5, 1, 1, "8,8,8,8,8", "0", "CMYK", "CMYKX"},
+    {1, 5, 1, 1, "8,8,8,8,8", "0", "CMYK", "CMYKX"},
+    {0, 5, 1, 1, "8,8,8,8,8,8", "0,0", "CMYK", "CMYKXX"},
+    {1, 5, 1, 1, "8,8,8,8,8,8", "0,0", "CMYK", "CMYKXX"},
+    {0, 5, 1, 1, "16,16,16,16", "", "CMYK", "CMYK;16L"},
+    {1, 5, 1, 1, "16,16,16,16", "", "CMYK", "CMYK;16B"},
+    {0, 6, 1, 1, "8", "", "L", "L"},
+    {1, 6, 1, 1, "8", "", "L", "L"},
+    {0, 6, 1, 1, "8,8,8", "", "RGB", "RGBX"},
+    {1, 6, 1, 1, "8,8,8", "", "RGB", "RGBX"},
+    {0, 8, 1, 1, "8,8,8", "", "LAB", "LAB"},
+    {1, 8, 1, 1, "8,8,8", "", "LAB", "LAB"},
+};
+
+// How Pillow's unpacker for a raw mode fills a pixel of the image's mode
+// (Unpack.c). The image holds a word a pixel: the value for "1", "L",
+// "P", "I;16" ("I;16B"), "I" and "F" (the float's bits); bytes 0-3 for
+// the bands of "LA", "PA" (L or P in byte 0), "RGB", "RGBA" and "CMYK".
+enum class PMode { One, L, P, I16, I, F, LA, PA, RGB, RGBA, CMYK, Lab };
+
+struct Unpack {
+  enum Kind { Bits, U16, I12, S16, I32, F32, Chan8, Chan16, Band8 } kind = Bits;
+  int bits = 8;           // bits a pixel
+  int depth = 8;          // Bits: bits a sample
+  bool gray = false;      // Bits: scaled to 0-255 ("1", "L"), else an index
+  bool invert = false, reverse = false;
+  bool big = false;       // 16- and 32-bit samples big-endian
+  std::string chans;      // Chan8, Chan16: a band letter a sample
+  int band = 0;           // Band8
+};
+
+const uint8_t* bitrev() {
+  static uint8_t t[256];
+  static bool done = false;
+  if (!done) {
+    for (int i = 0; i < 256; i++) {
+      int r = 0;
+      for (int b = 0; b < 8; b++) r |= ((i >> b) & 1) << (7 - b);
+      t[i] = static_cast<uint8_t>(r);
+    }
+    done = true;
+  }
+  return t;
+}
+
+PMode pmode(const std::string& m) {
+  if (m == "1") return PMode::One;
+  if (m == "L") return PMode::L;
+  if (m == "P") return PMode::P;
+  if (m == "I;16" || m == "I;16B") return PMode::I16;
+  if (m == "I") return PMode::I;
+  if (m == "F") return PMode::F;
+  if (m == "LA") return PMode::LA;
+  if (m == "PA") return PMode::PA;
+  if (m == "RGB") return PMode::RGB;
+  if (m == "RGBA") return PMode::RGBA;
+  if (m == "CMYK") return PMode::CMYK;
+  return PMode::Lab;
+}
+
+int bands(PMode m) {
+  switch (m) {
+    case PMode::LA: case PMode::PA: return 2;
+    case PMode::RGB: case PMode::Lab: return 3;
+    case PMode::RGBA: case PMode::CMYK: return 4;
+    default: return 1;
+  }
+}
+
+// Pillow's unpacker of `raw` for an image of `mode`: false where Pillow
+// has none ("unknown raw mode").
+bool make_unpack(const std::string& raw, PMode mode, Unpack& u) {
+  struct BitsMode { const char* name; int depth; char family; bool inv, rev; };
+  static const BitsMode kBits[] = {
+      {"1", 1, '1', false, false}, {"1;I", 1, '1', true, false},
+      {"1;R", 1, '1', false, true}, {"1;IR", 1, '1', true, true},
+      {"L;2", 2, 'L', false, false}, {"L;2I", 2, 'L', true, false},
+      {"L;2R", 2, 'L', false, true}, {"L;2IR", 2, 'L', true, true},
+      {"L;4", 4, 'L', false, false}, {"L;4I", 4, 'L', true, false},
+      {"L;4R", 4, 'L', false, true}, {"L;4IR", 4, 'L', true, true},
+      {"L", 8, 'L', false, false}, {"L;I", 8, 'L', true, false},
+      {"L;R", 8, 'L', false, true}, {"P;1", 1, 'P', false, false},
+      {"P;2", 2, 'P', false, false}, {"P;4", 4, 'P', false, false},
+      {"P", 8, 'P', false, false}, {"P;R", 8, 'P', false, true}};
+  // (OPEN_INFO's "L;IR", "P;1R", "P;2R" and "P;4R" have no unpacker in
+  // Pillow: uncompressed files of those layouts raise there, and here)
+  for (const BitsMode& b : kBits) {
+    if (raw != b.name) continue;
+    const PMode want = b.family == '1' ? PMode::One : b.family == 'L' ? PMode::L : PMode::P;
+    if (mode != want) return false;
+    u.kind = Unpack::Bits;
+    u.depth = u.bits = b.depth;
+    u.gray = b.family != 'P';
+    u.invert = b.inv;
+    u.reverse = b.rev;
+    return true;
+  }
+  if (raw == "I;16" || raw == "I;16N" || raw == "I;16B" || raw == "I;16R") {
+    u.kind = Unpack::U16;
+    u.bits = 16;
+    u.big = raw == "I;16B";
+    u.reverse = raw == "I;16R";
+    return mode == PMode::I16;
+  }
+  if (raw == "I;12") {
+    u.kind = Unpack::I12;
+    u.bits = 12;
+    return mode == PMode::I16;
+  }
+  if (raw == "I;16S" || raw == "I;16BS") {
+    u.kind = Unpack::S16;
+    u.bits = 16;
+    u.big = raw == "I;16BS";
+    return mode == PMode::I;
+  }
+  if (raw == "I;32N" || raw == "I;32S" || raw == "I;32BS" || raw == "I") {
+    u.kind = Unpack::I32;
+    u.bits = 32;
+    u.big = raw == "I;32BS";
+    return mode == PMode::I;
+  }
+  if (raw == "F;32F" || raw == "F;32BF" || raw == "F") {
+    u.kind = Unpack::F32;
+    u.bits = 32;
+    u.big = raw == "F;32BF";
+    return mode == PMode::F;
+  }
+  if (raw.size() == 1 && std::strchr("RGBACMYK", raw[0])) {
+    u.kind = Unpack::Band8;
+    u.bits = 8;
+    u.band = static_cast<int>(std::strchr("RGBA", raw[0]) ? std::strchr("RGBA", raw[0]) - "RGBA"
+                                                          : std::strchr("CMYK", raw[0]) - "CMYK");
+    if (std::strchr("CMYK", raw[0])) return mode == PMode::CMYK;
+    if (raw[0] == 'A') return mode == PMode::RGBA;
+    return mode == PMode::RGB || mode == PMode::RGBA;
+  }
+  static const char* kChan8[] = {"LA", "PA", "PX", "RGB", "RGB;R", "RGBA", "RGBX",
+                                 "RGBXX", "RGBXXX", "RGBa", "RGBaX", "RGBaXX",
+                                 "RGBAX", "RGBAXX", "CMYK", "CMYKX", "CMYKXX"};
+  for (const char* c : kChan8) {
+    if (raw != c) continue;
+    u.kind = Unpack::Chan8;
+    u.reverse = raw == "RGB;R";
+    u.chans = raw.substr(0, raw.find(';'));
+    u.bits = 8 * static_cast<int>(u.chans.size());
+    return true;
+  }
+  const size_t semi = raw.find(";16");
+  if (semi != std::string::npos && semi + 4 == raw.size()) {
+    const char e = raw.back();
+    u.kind = Unpack::Chan16;
+    u.chans = raw.substr(0, semi);
+    u.big = e == 'B';
+    u.bits = 16 * static_cast<int>(u.chans.size());
+    return (e == 'L' || e == 'B' || e == 'N') &&
+           (u.chans == "RGB" || u.chans == "RGBA" || u.chans == "RGBX" || u.chans == "RGBa");
+  }
+  return false;
+}
+
+inline uint8_t clip8(int v) { return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v)); }
+
+inline uint32_t set_band(uint32_t px, int band, uint32_t v) {
+  const int s = 8 * band;
+  return (px & ~(0xffu << s)) | ((v & 0xffu) << s);
+}
+
+// One row of `count` pixels from `in` into the image's words at `out`, as
+// Pillow's unpacker writes them.
+void unpack_row(const Unpack& u, const uint8_t* in, int64_t count, uint32_t* out) {
+  const uint8_t* rev = bitrev();
+  switch (u.kind) {
+    case Unpack::Bits: {
+      const int per = 8 / u.depth, mask = (1 << u.depth) - 1;
+      const int scale = u.depth == 1 ? 255 : u.depth == 2 ? 0x55 : u.depth == 4 ? 0x11 : 1;
+      for (int64_t x = 0; x < count; x++) {
+        uint8_t byte = in[x / per];
+        if (u.reverse) byte = rev[byte];
+        const int shift = 8 - u.depth * (static_cast<int>(x % per) + 1);
+        int v = (byte >> shift) & mask;
+        if (u.gray) {
+          v *= scale;
+          if (u.invert) v = 255 - v;
+        }
+        out[x] = static_cast<uint32_t>(v);
+      }
+      return;
+    }
+    case Unpack::U16:
+      for (int64_t x = 0; x < count; x++) {
+        uint8_t b0 = in[2 * x], b1 = in[2 * x + 1];
+        if (u.reverse) {
+          b0 = rev[b0];
+          b1 = rev[b1];
+        }
+        out[x] = u.big ? (b0 << 8) | b1 : (b1 << 8) | b0;
+      }
+      return;
+    case Unpack::I12:
+      for (int64_t x = 0; x < count; x++) {
+        const uint8_t* p = in + (x / 2) * 3;
+        out[x] = x % 2 == 0 ? (p[0] << 4) | (p[1] >> 4) : ((p[1] & 15) << 8) | p[2];
+      }
+      return;
+    case Unpack::S16:
+      for (int64_t x = 0; x < count; x++) {
+        const uint8_t b0 = in[2 * x], b1 = in[2 * x + 1];
+        const int16_t v = static_cast<int16_t>(u.big ? (b0 << 8) | b1 : (b1 << 8) | b0);
+        out[x] = static_cast<uint32_t>(static_cast<int32_t>(v));
+      }
+      return;
+    case Unpack::I32:
+    case Unpack::F32:
+      for (int64_t x = 0; x < count; x++) {
+        const uint8_t* p = in + 4 * x;
+        out[x] = u.big ? (static_cast<uint32_t>(p[0]) << 24) | (p[1] << 16) | (p[2] << 8) | p[3]
+                       : (static_cast<uint32_t>(p[3]) << 24) | (p[2] << 16) | (p[1] << 8) | p[0];
+      }
+      return;
+    case Unpack::Band8:
+      for (int64_t x = 0; x < count; x++) out[x] = set_band(out[x], u.band, in[x]);
+      return;
+    case Unpack::Chan8:
+    case Unpack::Chan16: {
+      const int n = static_cast<int>(u.chans.size());
+      if (u.kind == Unpack::Chan8 && !u.reverse && (u.chans == "RGB" || u.chans == "RGBX")) {
+        for (int64_t x = 0; x < count; x++, in += n)
+          out[x] = in[0] | (in[1] << 8) | (in[2] << 16) | 0xff000000u;
+        return;
+      }
+      const int size = u.kind == Unpack::Chan8 ? 1 : 2;
+      const int hi = size == 1 ? 0 : (u.big ? 0 : 1);
+      const bool premul = u.chans.find('a') != std::string::npos;
+      for (int64_t x = 0; x < count; x++) {
+        const uint8_t* p = in + static_cast<int64_t>(x) * n * size;
+        uint32_t v[4] = {0, 0, 0, 255};
+        for (int k = 0; k < n; k++) {
+          uint8_t s = p[k * size + hi];
+          if (u.reverse) s = rev[s];
+          switch (u.chans[k]) {
+            case 'L': case 'P': case 'R': case 'C': v[0] = s; break;
+            case 'G': case 'M': v[1] = s; break;
+            case 'B': case 'Y': v[2] = s; break;
+            case 'A': case 'a': case 'K': v[3] = s; break;
+            default: break;  // X: skipped
+          }
+        }
+        if (premul) {
+          // unpackRGBa: premultiplied colour back to straight
+          const uint32_t a = v[3];
+          if (a == 0) {
+            v[0] = v[1] = v[2] = 0;
+          } else if (a != 255) {
+            for (int k = 0; k < 3; k++) v[k] = clip8(static_cast<int>(v[k] * 255 / a));
+          }
+        }
+        out[x] = v[0] | (v[1] << 8) | (v[2] << 16) | (v[3] << 24);
+      }
+      return;
+    }
+  }
+}
+
+// A TIFF file as Pillow 12.1's TiffImagePlugin opens its first image:
+// Pillow's own reading of the header and the first IFD (its tag types,
+// the last of a repeated tag), its mode and raw mode, its tiles for
+// uncompressed data, and libtiff's decoding for everything compressed.
+struct TiffEntry {
+  int type = 0;
+  uint64_t count = 0;
+  const uint8_t* data = nullptr;
+  bool pillow = false;  // a tag type Pillow reads
+};
+
+inline int tiff_type_size(int type) {
+  switch (type) {
+    case 1: case 2: case 6: case 7: return 1;
+    case 3: case 8: return 2;
+    case 4: case 9: case 11: case 13: return 4;
+    case 5: case 10: case 12: case 16: case 17: case 18: return 8;
+    default: return 0;
+  }
+}
+
+const char* tiff_refused(int compression) {
+  switch (compression) {
+    case 2: return "CCITT modified Huffman (2)";
+    case 3: return "CCITT Group 3 fax (3)";
+    case 4: return "CCITT Group 4 fax (4)";
+    case 32771: return "CCITT RLEW (32771)";
+    case 6: return "old-style JPEG (6)";
+    case 32809: return "ThunderScan (32809)";
+    case 34676: return "SGILog (34676)";
+    case 34677: return "SGILog24 (34677)";
+    case 34925: return "LZMA (34925)";
+    case 50000: return "ZSTD (50000)";
+    case 50001: return "WebP (50001)";
+    default: return nullptr;
+  }
+}
+
+struct Tiff {
+  const uint8_t* d;
+  int64_t n;
+  bool be = false, big = false;
+  std::vector<std::pair<int, TiffEntry>> entries;
+  int64_t width = 0, height = 0;      // the image as stored
+  int64_t out_w = 0, out_h = 0;       // after the orientation
+  int compression = 1, photometric = 0, planar = 1, fillorder = 1;
+  int orientation = 1, spp = 1, bps_count = 1;
+  std::vector<int64_t> bps, sample_format, extra;
+  std::string mode, rawmode;
+  PMode pm = PMode::L;
+  uint8_t palette[256 * 3];
+  std::vector<uint32_t> img;
+
+  Tiff(const uint8_t* data, int64_t size) : d(data), n(size) {
+    read_ifd();
+    setup();
+  }
+
+  uint64_t rd(const uint8_t* p, int bytes) const {
+    uint64_t v = 0;
+    for (int i = 0; i < bytes; i++) v = be ? (v << 8) | p[i] : v | (static_cast<uint64_t>(p[i]) << (8 * i));
+    return v;
+  }
+
+  const TiffEntry* find(int tag, bool pillow) const {
+    for (const auto& e : entries)
+      if (e.first == tag && (e.second.pillow || !pillow)) return &e.second;
+    return nullptr;
+  }
+
+  // value i of an integer tag (a non-integer type reads as 0)
+  int64_t value(const TiffEntry& e, uint64_t i) const {
+    const uint8_t* p = e.data + i * tiff_type_size(e.type);
+    switch (e.type) {
+      case 1: case 2: case 7: return p[0];
+      case 6: return static_cast<int8_t>(p[0]);
+      case 3: return static_cast<int64_t>(rd(p, 2));
+      case 8: return static_cast<int16_t>(rd(p, 2));
+      case 4: case 13: return static_cast<int64_t>(rd(p, 4));
+      case 9: return static_cast<int32_t>(rd(p, 4));
+      case 17: return static_cast<int64_t>(rd(p, 8));
+      case 16: case 18:  // unsigned: past 2**63 - 1 saturated, not negative
+        return static_cast<int64_t>(std::min<uint64_t>(rd(p, 8), INT64_MAX));
+      default: return 0;
+    }
+  }
+
+  bool has(int tag, bool pillow = true) const { return find(tag, pillow) != nullptr; }
+
+  int64_t get(int tag, int64_t fallback, bool pillow = true) const {
+    const TiffEntry* e = find(tag, pillow);
+    return e ? value(*e, 0) : fallback;
+  }
+
+  std::vector<int64_t> list(int tag, bool pillow = true) const {
+    std::vector<int64_t> out;
+    const TiffEntry* e = find(tag, pillow);
+    if (e)
+      for (uint64_t i = 0; i < e->count; i++) out.push_back(value(*e, i));
+    return out;
+  }
+
+  // ImageFileDirectory_v2.load: an entry of an unknown type or whose data
+  // lies past the end is skipped; a short directory ends the tags
+  void read_ifd() {
+    if (n < 8) corrupt("TIFF: truncated header");
+    be = d[0] == 'M';
+    big = d[2] == 43;
+    if (big && n < 16) corrupt("TIFF: truncated header");
+    uint64_t pos = big ? rd(d + 8, 8) : rd(d + 4, 4);
+    const uint64_t esize = big ? 20 : 12, inline_size = big ? 8 : 4;
+    if (pos > static_cast<uint64_t>(n) || n - pos < (big ? 8u : 2u)) return;
+    const uint64_t count = big ? rd(d + pos, 8) : rd(d + pos, 2);
+    pos += big ? 8 : 2;
+    for (uint64_t i = 0; i < count; i++) {
+      if (n - pos < esize) return;
+      const uint8_t* e = d + pos;
+      pos += esize;
+      TiffEntry t;
+      const int tag = static_cast<int>(rd(e, 2));
+      t.type = static_cast<int>(rd(e + 2, 2));
+      t.count = big ? rd(e + 4, 8) : rd(e + 4, 4);
+      const int size = tiff_type_size(t.type);
+      if (size == 0) continue;
+      t.pillow = t.type <= 13 || t.type == 16;
+      if (t.count > static_cast<uint64_t>(n)) continue;
+      const uint64_t total = t.count * size;
+      if (total == 0) continue;
+      const uint8_t* val = e + (big ? 12 : 8);
+      if (total > inline_size) {
+        const uint64_t off = rd(val, big ? 8 : 4);
+        if (off > static_cast<uint64_t>(n) || total > n - off) continue;
+        t.data = d + off;
+      } else {
+        t.data = val;
+      }
+      bool replaced = false;
+      for (auto& old : entries) {
+        if (old.first == tag) {
+          old.second = t;
+          replaced = true;
+        }
+      }
+      if (!replaced) entries.emplace_back(tag, t);
+    }
+  }
+
+  static std::string join(const std::vector<int64_t>& v) {
+    std::string s;
+    for (size_t i = 0; i < v.size(); i++) s += (i ? "," : "") + std::to_string(v[i]);
+    return s;
+  }
+
+  const OpenInfo* lookup(int fill) const {
+    if (sample_format.size() != 1) return nullptr;
+    const std::string b = join(bps), e = join(extra);
+    for (const OpenInfo& o : kOpenInfo) {
+      if (o.mm == static_cast<int>(be) && o.photometric == photometric &&
+          o.format == sample_format[0] && o.fill == fill && b == o.bps && e == o.extra)
+        return &o;
+    }
+    return nullptr;
+  }
+
+  // TiffImageFile._setup, the ImageOps.exif_transpose that load_end runs,
+  // and the modes this decoder refuses
+  void setup() {
+    if (has(0xBC01)) corrupt("TIFF: Windows Media Photo files not yet supported");
+    compression = static_cast<int>(get(259, 1));
+    static const int kKnown[] = {1, 2, 3, 4, 5, 6, 7, 8, 32771, 32773, 32809,
+                                 32946, 34676, 34677, 34925, 50000, 50001};
+    if (std::find(std::begin(kKnown), std::end(kKnown), compression) == std::end(kKnown))
+      corrupt("TIFF: unknown compression " + std::to_string(compression));
+    planar = static_cast<int>(get(284, 1));
+    photometric = static_cast<int>(get(262, 0));
+    if (compression == 6) photometric = 6;
+    fillorder = static_cast<int>(get(266, 1));
+    if (!has(256) || !has(257)) corrupt("TIFF: missing dimensions");
+    width = get(256, 0);
+    height = get(257, 0);
+    if (width < 1 || height < 1) corrupt("TIFF: image size 0");
+    orientation = static_cast<int>(get(274, 0));
+    if (!has(274)) orientation = xmp_orientation();
+    const bool swap = orientation >= 5 && orientation <= 8;
+    out_w = swap ? height : width;
+    out_h = swap ? width : height;
+    sample_format = has(339) ? list(339) : std::vector<int64_t>{1};
+    if (sample_format.size() > 1 &&
+        std::all_of(sample_format.begin(), sample_format.end(), [](int64_t v) { return v == 1; }))
+      sample_format = {1};
+    bps = has(258) ? list(258) : std::vector<int64_t>{1};
+    extra = list(338);
+    bps_count = (photometric == 2 || photometric == 6 || photometric == 8 ? 3
+                 : photometric == 5 ? 4 : 1) + static_cast<int>(extra.size());
+    spp = static_cast<int>(get(277, compression == 6 && (photometric == 2 || photometric == 6) ? 3 : 1));
+    if (spp > 6) corrupt("TIFF: invalid value for samples per pixel");
+    if (spp < static_cast<int>(bps.size())) {
+      bps.resize(std::max(spp, 0));
+    } else if (spp > static_cast<int>(bps.size()) && bps.size() == 1) {
+      bps.assign(spp, bps[0]);
+    }
+    if (static_cast<int>(bps.size()) != spp || spp < 1) corrupt("TIFF: unknown data organization");
+    const OpenInfo* o = lookup(fillorder);
+    if (!o) {
+      corrupt("TIFF: unknown pixel mode (photometric " + std::to_string(photometric) +
+              ", " + join(bps) + " bits a sample, sample format " + join(sample_format) +
+              ", extra samples " + (extra.empty() ? std::string("none") : join(extra)) +
+              ", fill order " + std::to_string(fillorder) + "), which Pillow does not read");
+    }
+    mode = o->mode;
+    rawmode = o->raw;
+    pm = pmode(mode);
+    if (compression != 1) {
+      // _setup's libtiff route: the fill order left to libtiff, the raw
+      // mode as libtiff's samples are laid out
+      const OpenInfo* o1 = lookup(1);
+      if (o1) {
+        mode = o1->mode;
+        rawmode = o1->raw;
+        pm = pmode(mode);
+      }
+      if (photometric == 6 && compression == 7 && planar == 1) {
+        rawmode = "RGB";
+      } else if (rawmode == "I;16") {
+        rawmode = "I;16N";
+      } else if (rawmode.size() > 4 && (rawmode.compare(rawmode.size() - 4, 4, ";16B") == 0 ||
+                                        rawmode.compare(rawmode.size() - 4, 4, ";16L") == 0)) {
+        rawmode = rawmode.substr(0, rawmode.size() - 1) + "N";
+      }
+    }
+    if (pm == PMode::P || pm == PMode::PA) {
+      const TiffEntry* cm = find(320, true);
+      if (!cm) corrupt("TIFF: a palette image without a ColorMap");
+      const int64_t entries = static_cast<int64_t>(cm->count / 3);
+      if (entries > 256) corrupt("TIFF: a ColorMap of more than 256 entries");
+      std::memset(palette, 0, sizeof(palette));
+      for (int64_t i = 0; i < entries; i++)
+        for (int k = 0; k < 3; k++)
+          palette[3 * i + k] = static_cast<uint8_t>(value(*cm, k * entries + i) / 256);
+    }
+    // what this decoder refuses
+    if (const char* name = tiff_refused(compression))
+      refuse(std::string("TIFF: ") + name + " compression is not supported");
+    if (pm == PMode::Lab) refuse("TIFF: LAB (CIELab) images are not supported");
+    if (rawmode.compare(0, 4, "CMYK") == 0 && rawmode.find(";16") != std::string::npos)
+      refuse("TIFF: 16-bit CMYK images are not supported");
+    if (photometric == 6 && !(compression == 7 && planar == 1 && spp == 3))
+      refuse("TIFF: YCbCr images that are not JPEG-compressed with contiguous "
+             "samples (Pillow reads them through libtiff's RGBA interface) are not supported");
+  }
+
+  // Image.getexif's XMP fallback: tiff:Orientation="N or tiff:Orientation>N
+  int xmp_orientation() const {
+    const TiffEntry* e = find(700, true);
+    if (!e || tiff_type_size(e->type) != 1) return 0;
+    const std::string key = "tiff:Orientation";
+    const uint8_t* end = e->data + e->count;
+    for (const uint8_t* p = e->data; p + key.size() <= end; p++) {
+      if (std::memcmp(p, key.data(), key.size())) continue;
+      const uint8_t* q = p + key.size();
+      if (q + 2 < end && q[0] == '=' && q[1] == '"' && q[2] >= '0' && q[2] <= '9')
+        return q[2] - '0';
+      if (q + 1 < end && q[0] == '>' && q[1] >= '0' && q[1] <= '9') return q[1] - '0';
+    }
+    return 0;
+  }
+
+  // ------------------------------------------------ uncompressed: Pillow
+  // ImageFile.load over _setup's tiles: one "raw" tile a strip or tile
+  // (the last offset alone when one strip covers the image; a plane's
+  // band of the raw mode each for PlanarConfiguration 2), in file order,
+  // consecutive duplicates dropped; each read from its offset on, its
+  // byte count unread
+  void raw_route() {
+    std::vector<int64_t> offsets;
+    int64_t w, h;
+    if (has(273)) {
+      offsets = list(273);
+      h = get(278, height);
+      w = width;
+    } else if (has(324)) {
+      offsets = list(324);
+      if (!has(322) || !has(323)) corrupt("TIFF: invalid tile dimensions");
+      w = get(322, 0);
+      h = get(323, 0);
+    } else {
+      corrupt("TIFF: unknown data organization (no strip or tile offsets)");
+    }
+    if (w < 1 || h < 1) corrupt("TIFF: a tile or strip of no pixels");
+    if (w == width && h == height && planar != 2 && !offsets.empty())
+      offsets.erase(offsets.begin(), offsets.end() - 1);
+    int64_t sum = 0;
+    for (int64_t b : bps) sum += b;
+    struct Tile {
+      int64_t offset, x0, y0, x1, y1, stride;
+      std::string raw;
+    };
+    std::vector<Tile> tiles;
+    int64_t x = 0, y = 0;
+    size_t layer = 0;
+    // (w and h may be near 2**63: x + w and y + h are not formed past the
+    // image's edge)
+    for (int64_t off : offsets) {
+      const bool past = w > width - x;
+      double stride = past ? static_cast<double>(w) * sum / 8.0 : 0.0;
+      std::string raw = rawmode;
+      if (planar == 2) {
+        if (layer >= rawmode.size()) corrupt("TIFF: more planes than the raw mode has bands");
+        raw = rawmode.substr(layer, 1);
+        stride /= bps_count;
+      }
+      // Pillow's raw decoder takes the stride as a C int
+      if (stride >= 2147483648.0)
+        corrupt("TIFF: a tile's row stride of more than 2**31 - 1 bytes, which Pillow's "
+                "raw decoder refuses");
+      tiles.push_back({off, x, y, past ? width : x + w, h > height - y ? height : y + h,
+                       static_cast<int64_t>(stride), raw});
+      x = past ? width : x + w;
+      if (x >= width) {
+        x = 0;
+        y = h > height - y ? height : y + h;
+        if (y >= height) {
+          y = 0;
+          layer++;
+        }
+      }
+    }
+    std::stable_sort(tiles.begin(), tiles.end(),
+                     [](const Tile& a, const Tile& b) { return a.offset < b.offset; });
+    std::vector<Tile> kept;
+    for (size_t i = 0; i < tiles.size(); i++) {
+      const Tile& t = tiles[i];
+      if (i + 1 < tiles.size()) {
+        const Tile& u = tiles[i + 1];
+        if (t.x0 == u.x0 && t.y0 == u.y0 && t.x1 == u.x1 && t.y1 == u.y1 &&
+            t.stride == u.stride && t.raw == u.raw)
+          continue;
+      }
+      kept.push_back(t);
+    }
+    for (const Tile& t : kept) {
+      Unpack u;
+      if (!make_unpack(t.raw, pm, u))
+        corrupt("TIFF: unknown raw mode " + t.raw + " for an image of mode " + mode);
+      const int64_t xs = t.x1 - t.x0, ys = t.y1 - t.y0;
+      const int64_t bytes = (xs * u.bits + 7) / 8;
+      const int64_t skip = t.stride ? t.stride - bytes : 0;
+      if (skip < 0) corrupt("TIFF: a tile's rows overlap");
+      int64_t rows_bytes, skips, need;
+      if (__builtin_mul_overflow(ys, bytes, &rows_bytes) ||
+          __builtin_mul_overflow(ys - 1, skip, &skips) ||
+          __builtin_add_overflow(rows_bytes, skips, &need) ||
+          t.offset < 0 || t.offset > n || need > n - t.offset)
+        corrupt("TIFF: image file is truncated");
+      for (int64_t r = 0; r < ys; r++)
+        unpack_row(u, d + t.offset + r * (bytes + skip), xs,
+                   img.data() + (t.y0 + r) * width + t.x0);
+    }
+  }
+
+  // ---------------------------------------------- compressed: libtiff
+  struct Layout {
+    bool tiled = false;
+    int bits = 8, predictor = 1, format = 1;
+    int64_t rps = 0;                  // libtiff's rows a strip (the image's when absent)
+    int64_t tw = 0, th = 0, across = 0, per_plane = 0;
+    int64_t row_bytes = 0;            // a strip's or tile's row
+    std::vector<int64_t> offsets, counts;
+    int hs = 1, vs = 1;               // JPEG: YCbCr subsampling
+    bool ycc = false;
+  };
+  Layout L;
+  Jpeg jtables{nullptr, 0};
+
+  // libtiff's JPEGFixupTagsSubsampling, where the file has no
+  // YCbCrSubsampling tag: the luma sampling factors of the first strip's or
+  // tile's frame header replace the default 2x2
+  void fixup_subsampling() {
+    if (L.offsets.empty() || L.counts.empty() || L.counts[0] == 0) return;
+    const int64_t off = L.offsets[0];
+    if (off < 0 || off >= n) return;
+    const uint8_t* p = d + off;
+    const int64_t m = std::min<int64_t>(L.counts[0], n - off);
+    int64_t i = 0;
+    auto byte = [&](uint8_t* v) {
+      if (i >= m) return false;
+      *v = p[i++];
+      return true;
+    };
+    uint8_t b;
+    if (!byte(&b) || b != 0xFF || !byte(&b) || b != 0xD8) return;
+    for (;;) {
+      do {
+        if (!byte(&b)) return;
+      } while (b != 0xFF);
+      do {
+        if (!byte(&b)) return;
+      } while (b == 0xFF);
+      if (b == 0xD8) continue;
+      const bool skip = b == 0xFE || (b >= 0xE0 && b <= 0xEF) || b == 0xDB ||
+                        b == 0xDA || b == 0xC4 || b == 0xDD;
+      const bool sof = b == 0xC0 || b == 0xC1 || b == 0xC2 || b == 0xC9 || b == 0xCA;
+      if (!skip && !sof) return;
+      uint8_t hi, lo;
+      if (!byte(&hi) || !byte(&lo)) return;
+      const int len = (hi << 8) | lo;
+      if (skip) {
+        if (len < 2) return;
+        i += len - 2;
+        continue;
+      }
+      if (len != 8 + spp * 3 || i + len - 2 > m) return;
+      const uint8_t* f = p + i;
+      const int ph = f[7] >> 4, pv = f[7] & 15;
+      for (int c = 1; c < spp; c++)
+        if (f[7 + 3 * c] != 0x11) return;
+      if ((ph != 1 && ph != 2 && ph != 4) || (pv != 1 && pv != 2 && pv != 4)) return;
+      L.hs = ph;
+      L.vs = pv;
+      return;
+    }
+  }
+
+  void libtiff_layout() {
+    // TIFFClientOpen's header check
+    const uint64_t magic = rd(d + 2, 2);
+    if (magic != 42 && magic != 43)
+      corrupt("TIFF: not a TIFF file (bad version number " + std::to_string(magic) +
+              "), as libtiff reads the header");
+    if ((magic == 43) != big) corrupt("TIFF: a big-endian BigTIFF file, which Pillow reads as classic TIFF");
+    for (int64_t b : bps)
+      if (b != bps[0]) corrupt("TIFF: different BitsPerSample values for the samples");
+    L.bits = static_cast<int>(bps[0]);
+    // JPEGPreDecode: the stream's precision (8 here) must be the samples'
+    if (compression == 7 && L.bits != 8)
+      corrupt("TIFF: Improper JPEG data precision (" + std::to_string(L.bits) +
+              "-bit samples, as libtiff's JPEGPreDecode refuses)");
+    L.predictor = static_cast<int>(get(317, 1, false));
+    L.format = static_cast<int>(get(339, 1, false));
+    L.tiled = has(322, false) && has(323, false);
+    const int samples = planar == 2 ? 1 : spp;
+    int64_t nseg;
+    if (L.tiled) {
+      L.tw = get(322, 0, false);
+      L.th = get(323, 0, false);
+      if (L.tw < 1 || L.th < 1) corrupt("TIFF: zero tile width or length");
+      if (L.tw > (int64_t{1} << 24) || L.th > (int64_t{1} << 24) || L.tw * L.th > (int64_t{1} << 32))
+        corrupt("TIFF: a tile larger than libtiff takes");
+      L.across = (width + L.tw - 1) / L.tw;
+      L.per_plane = L.across * ((height + L.th - 1) / L.th);
+      L.row_bytes = (L.tw * samples * L.bits + 7) / 8;
+    } else {
+      const int64_t rps = get(278, -1, false);
+      if (rps == 0) corrupt("TIFF: zero RowsPerStrip");
+      L.rps = rps < 0 || rps >= 0xFFFFFFFFll ? height : rps;
+      L.per_plane = (height + L.rps - 1) / L.rps;
+      L.row_bytes = (width * samples * L.bits + 7) / 8;
+    }
+    nseg = L.per_plane * (planar == 2 ? spp : 1);
+    const int otag = L.tiled ? 324 : 273, ctag = L.tiled ? 325 : 279;
+    if (!has(otag, false))
+      corrupt(std::string("TIFF: missing required ") + (L.tiled ? "TileOffsets" : "StripOffsets"));
+    L.offsets = list(otag, false);
+    L.offsets.resize(nseg, 0);
+    if (has(ctag, false)) {
+      L.counts = list(ctag, false);
+      L.counts.resize(nseg, 0);
+      if (nseg == 1 && !L.tiled && L.counts[0] == 0 && L.offsets[0] != 0)
+        L.counts[0] = std::max<int64_t>(0, n - L.offsets[0]);
+    } else {
+      if ((planar != 2 && nseg > 1) || (planar == 2 && nseg != spp))
+        corrupt(std::string("TIFF: missing required ") +
+                (L.tiled ? "TileByteCounts" : "StripByteCounts"));
+      L.counts.assign(nseg, 0);
+      for (int64_t i = 0; i < nseg; i++)
+        L.counts[i] = std::max<int64_t>(0, n - L.offsets[i]);
+    }
+    L.ycc = photometric == 6 && planar == 1;
+    if (compression == 7) {
+      if (L.ycc) {
+        std::vector<int64_t> sub = list(530, false);
+        L.hs = sub.size() > 0 ? static_cast<int>(sub[0]) : 2;
+        L.vs = sub.size() > 1 ? static_cast<int>(sub[1]) : 2;
+        if (spp == 3 && sub.empty()) fixup_subsampling();
+      }
+      if (const TiffEntry* t = find(347, false)) {
+        jtables = Jpeg(t->data, static_cast<int64_t>(t->count * tiff_type_size(t->type)));
+        jtables.run(false, true);
+      }
+    }
+  }
+
+  // One strip or tile (index s): its data decoded into buf[0, size) as
+  // libtiff's TIFFReadEncodedStrip / TIFFReadTile leave it: samples of
+  // more than 8 bits in the host's (little-endian) order.
+  void segment(int64_t s, uint8_t* buf, int64_t size, int64_t seg_w, int64_t seg_h,
+               bool last_strip) {
+    if (s >= static_cast<int64_t>(L.offsets.size())) corrupt("TIFF: strip out of range");
+    const int64_t off = L.offsets[s], cnt = L.counts[s];
+    if (cnt <= 0) corrupt("TIFF: invalid strip byte count " + std::to_string(cnt));
+    if (off < 0 || off > n || cnt > n - off)
+      corrupt("TIFF: read error on strip " + std::to_string(s) + " (the file is truncated)");
+    const uint8_t* p = d + off;
+    std::vector<uint8_t> flipped;
+    if (fillorder == 2 && compression != 7) {
+      const uint8_t* rev = bitrev();
+      flipped.resize(static_cast<size_t>(cnt));
+      for (int64_t i = 0; i < cnt; i++) flipped[i] = rev[p[i]];
+      p = flipped.data();
+    }
+    switch (compression) {
+      case 5: tiff_lzw(p, cnt, buf, size); break;
+      case 8: case 32946: Inflater(p, cnt, "TIFF: Deflate data").run(buf, size); break;
+      case 32773: tiff_packbits(p, cnt, buf, size); break;
+      case 7: jpeg_segment(p, cnt, buf, size, seg_w, seg_h, last_strip); return;
+      default: corrupt("TIFF: compression " + std::to_string(compression));
+    }
+    // LZW and Deflate take a predictor; libtiff swaps samples of a
+    // big-endian file to the host's order after decoding, but for the
+    // floating-point predictor, whose output is the host's already
+    const int predictor = compression == 32773 ? 1 : L.predictor;
+    const int bytes = L.bits / 8;
+    if (be && (L.bits == 16 || L.bits == 32) && predictor != 3) {
+      for (int64_t i = 0; i + bytes <= size; i += bytes) std::reverse(buf + i, buf + i + bytes);
+    }
+    if (predictor == 1) return;
+    const int stride = planar == 2 ? 1 : spp;
+    if (predictor == 2) {
+      if (L.bits != 8 && L.bits != 16 && L.bits != 32 && L.bits != 64)
+        corrupt("TIFF: horizontal differencing \"Predictor\" not supported with " +
+                std::to_string(L.bits) + "-bit samples");
+      for (int64_t r = 0; r + L.row_bytes <= size; r += L.row_bytes) {
+        uint8_t* row = buf + r;
+        const int64_t count = L.row_bytes / bytes;
+        if (bytes == 1) {
+          for (int64_t i = stride; i < count; i++) row[i] = static_cast<uint8_t>(row[i] + row[i - stride]);
+          continue;
+        }
+        for (int64_t i = stride; i < count; i++) {
+          uint8_t* a = row + i * bytes;
+          const uint8_t* b = a - stride * bytes;
+          unsigned carry = 0;
+          for (int k = 0; k < bytes; k++) {  // little-endian add
+            const unsigned v = a[k] + b[k] + carry;
+            a[k] = static_cast<uint8_t>(v);
+            carry = v >> 8;
+          }
+        }
+      }
+    } else if (predictor == 3) {
+      if (L.format != 3)
+        corrupt("TIFF: floating point \"Predictor\" not supported with " +
+                std::to_string(L.format) + " data format");
+      if (L.bits != 16 && L.bits != 24 && L.bits != 32 && L.bits != 64)
+        corrupt("TIFF: floating point \"Predictor\" not supported with " +
+                std::to_string(L.bits) + "-bit samples");
+      std::vector<uint8_t> tmp(static_cast<size_t>(L.row_bytes));
+      const int64_t wc = L.row_bytes / bytes;
+      for (int64_t r = 0; r + L.row_bytes <= size; r += L.row_bytes) {
+        uint8_t* row = buf + r;
+        for (int64_t i = stride; i < L.row_bytes; i++) row[i] = static_cast<uint8_t>(row[i] + row[i - stride]);
+        std::memcpy(tmp.data(), row, static_cast<size_t>(L.row_bytes));
+        for (int64_t c = 0; c < wc; c++)
+          for (int k = 0; k < bytes; k++) row[bytes * c + k] = tmp[(bytes - k - 1) * wc + c];
+      }
+    } else {
+      corrupt("TIFF: \"Predictor\" value " + std::to_string(predictor) + " not supported");
+    }
+  }
+
+  // libtiff's JPEG codec on one strip or tile: JPEGTables (and the tables
+  // of the streams before) in the decompressor, the colour transform
+  // chosen by libtiff (YCbCr to RGB for contiguous YCbCr, as Pillow asks
+  // with JPEGCOLORMODE_RGB; the components as they are otherwise), never
+  // by the stream's JFIF or Adobe marker
+  void jpeg_segment(const uint8_t* p, int64_t cnt, uint8_t* buf, int64_t size,
+                    int64_t seg_w, int64_t seg_h, bool last_strip) {
+    Jpeg head(p, cnt);
+    head.take_tables(jtables);
+    head.run(true);
+    const size_t want = planar == 2 ? 1 : static_cast<size_t>(spp);
+    if (head.comps.size() != want) corrupt("TIFF: improper JPEG component count");
+    const int h0 = L.ycc ? L.hs : 1, v0 = L.ycc ? L.vs : 1;
+    for (size_t c = 0; c < head.comps.size(); c++) {
+      const int eh = c == 0 ? h0 : 1, ev = c == 0 ? v0 : 1;
+      if (head.comps[c].h != eh || head.comps[c].v != ev)
+        corrupt("TIFF: improper JPEG sampling factors");
+    }
+    if (head.width > seg_w || (head.height > seg_h && !(last_strip && !L.tiled)))
+      corrupt("TIFF: JPEG strip/tile size exceeds expected dimensions");
+    if (head.width < seg_w || head.height < seg_h)
+      corrupt("TIFF: a JPEG strip or tile smaller than the strip or tile");
+    Jpeg j(p, cnt);
+    j.take_tables(jtables);
+    std::vector<std::vector<uint8_t>> planes = jpeg_planes(j);
+    jtables.take_tables(j);
+    const Tables& t = tables();
+    const int64_t W = j.width;
+    const size_t nc = planes.size();
+    if (seg_h * seg_w * static_cast<int64_t>(nc) > size)
+      corrupt("TIFF: a JPEG strip or tile of more samples than the strip or tile holds");
+    for (int64_t r = 0; r < seg_h; r++) {
+      uint8_t* o = buf + r * seg_w * static_cast<int64_t>(nc);
+      for (int64_t x = 0; x < seg_w; x++, o += nc) {
+        const int64_t i = r * W + x;
+        if (L.ycc) {
+          ycc_to_rgb(t, planes[0][i], planes[1][i], planes[2][i], o);
+        } else {
+          for (size_t k = 0; k < nc; k++) o[k] = planes[k][i];
+        }
+      }
+    }
+  }
+
+  // libtiff's ExtraSamples: the tag's first value (Corel's 999 read as
+  // unassociated alpha), or unspecified (0) for samples past the
+  // photometric's colour channels; -1 for none
+  int libtiff_extra0() const {
+    if (!extra.empty()) return extra[0] == 999 ? 2 : static_cast<int>(extra[0]);
+    const int colour = photometric <= 1 || photometric == 3 || photometric == 4 ? 1
+                       : photometric == 5 ? 4
+                       : photometric == 2 || photometric == 6 || photometric == 8 ? 3 : 0;
+    return colour && spp > colour ? 0 : -1;
+  }
+
+  // TiffDecode.c's _decodeStrip and _decodeTile: each strip or tile through
+  // the raw mode's unpacker, edge tiles cropped; separate planes (of more
+  // than one sample) one a band of the image, 8-bit or the high byte of
+  // 16-bit samples, the colour then un-premultiplied in an RGBA image whose
+  // first extra sample is associated or unspecified alpha
+  void libtiff_route() {
+    libtiff_layout();
+    const bool separate = planar == 2 && spp > 1;
+    const int planes = separate ? bands(pm) : 1;
+    Unpack u;
+    if (separate) {
+      if (L.bits != 8 && L.bits != 16)
+        corrupt("TIFF: separate planes of " + std::to_string(L.bits) +
+                "-bit samples, which Pillow's decoder does not take");
+      // (one band: Pillow unpacks the first plane with the raw mode of all
+      // the samples, an error for strips, reads past its tile otherwise)
+      if (planes == 1 || (spp != planes && !L.tiled))
+        corrupt("TIFF: separate planes of " + std::to_string(spp) + " samples for a mode of " +
+                std::to_string(planes) + " bands, which Pillow's decoder refuses");
+    } else if (!make_unpack(rawmode, pm, u)) {
+      corrupt("TIFF: unknown raw mode " + rawmode + " for an image of mode " + mode);
+    }
+    const bool unpremultiply = separate && pm == PMode::RGBA &&
+                               (libtiff_extra0() == 0 || libtiff_extra0() == 1);
+    const int sbytes = L.bits / 8;
+    const int64_t seg_w = L.tiled ? L.tw : width;
+    const int64_t full_rows = L.tiled ? L.th : std::min(L.rps, height);
+    const int64_t row_bytes = compression == 7 && L.ycc ? seg_w * 3 : L.row_bytes;
+    // the unpacker reads no further than a decoded row
+    if (!separate && (seg_w * u.bits + 7) / 8 > row_bytes)
+      corrupt("TIFF: raw mode " + rawmode + " holds more bits a pixel than the samples");
+    std::vector<std::vector<uint8_t>> bufs(planes);
+    for (auto& b : bufs) b.resize(static_cast<size_t>(row_bytes * full_rows));
+    // one row of cw pixels at img row y, column x
+    auto put_row = [&](int64_t r, int64_t cw, int64_t y, int64_t x) {
+      uint32_t* o = img.data() + y * width + x;
+      if (!separate) {
+        unpack_row(u, bufs[0].data() + r * row_bytes, cw, o);
+        return;
+      }
+      for (int p = 0; p < planes; p++) {
+        const uint8_t* in = bufs[p].data() + r * row_bytes + (sbytes - 1);
+        for (int64_t i = 0; i < cw; i++) o[i] = set_band(o[i], p, in[i * sbytes]);
+      }
+      if (!unpremultiply) return;
+      for (int64_t i = 0; i < cw; i++) {
+        const uint32_t v = o[i], a = v >> 24;
+        if (a == 0) {
+          o[i] = 0;
+        } else if (a != 255) {
+          uint32_t w = a << 24;
+          for (int k = 0; k < 3; k++) w |= static_cast<uint32_t>(clip8(static_cast<int>(((v >> (8 * k)) & 255) * 255 / a))) << (8 * k);
+          o[i] = w;
+        }
+      }
+    };
+    if (L.tiled) {
+      for (int64_t y = 0; y < height; y += L.th) {
+        for (int64_t x = 0; x < width; x += L.tw) {
+          const int64_t tile = (y / L.th) * L.across + x / L.tw;
+          for (int p = 0; p < planes; p++)
+            segment(tile + p * L.per_plane, bufs[p].data(), row_bytes * L.th, L.tw, L.th, false);
+          const int64_t cw = std::min(L.tw, width - x), ch = std::min(L.th, height - y);
+          for (int64_t r = 0; r < ch; r++) put_row(r, cw, y + r, x);
+        }
+      }
+      return;
+    }
+    for (int64_t y = 0; y < height; y += L.rps) {
+      const int64_t rows = std::min(L.rps, height - y);
+      const int64_t strip = y / L.rps;
+      for (int p = 0; p < planes; p++)
+        segment(strip + p * L.per_plane, bufs[p].data(), row_bytes * rows, width, rows,
+                y + rows == height);
+      for (int64_t r = 0; r < rows; r++) put_row(r, width, y + r, 0);
+    }
+  }
+
+  // Convert.c's conversion of the mode to RGB, with exif_transpose's
+  // orientation
+  void rgb(uint32_t v, uint8_t* o) const {
+    switch (pm) {
+      case PMode::One: case PMode::L: case PMode::LA:
+        o[0] = o[1] = o[2] = static_cast<uint8_t>(v);
+        return;
+      case PMode::P: case PMode::PA:
+        std::memcpy(o, &palette[3 * (v & 255)], 3);
+        return;
+      case PMode::I16:
+        o[0] = o[1] = o[2] = static_cast<uint8_t>(std::min<uint32_t>(v, 255));
+        return;
+      case PMode::I: {
+        const int32_t s = static_cast<int32_t>(v);
+        o[0] = o[1] = o[2] = static_cast<uint8_t>(s <= 0 ? 0 : (s >= 255 ? 255 : s));
+        return;
+      }
+      case PMode::F: {
+        float f;
+        std::memcpy(&f, &v, 4);
+        o[0] = o[1] = o[2] = static_cast<uint8_t>(f > 0 ? (f >= 255 ? 255 : static_cast<int>(f)) : 0);
+        return;
+      }
+      case PMode::CMYK: {
+        const int nk = 255 - static_cast<int>(v >> 24);
+        for (int k = 0; k < 3; k++) {
+          const int tmp = static_cast<int>((v >> (8 * k)) & 255) * nk + 128;
+          o[k] = clamp255(nk - (((tmp >> 8) + tmp) >> 8));
+        }
+        return;
+      }
+      default:
+        o[0] = static_cast<uint8_t>(v);
+        o[1] = static_cast<uint8_t>(v >> 8);
+        o[2] = static_cast<uint8_t>(v >> 16);
+    }
+  }
+
+  void decode(uint8_t* out) {
+    img.assign(static_cast<size_t>(width * height), 0);
+    if (compression == 1) {
+      raw_route();
+    } else {
+      libtiff_route();
+    }
+    const int64_t W = width, H = height;
+    const bool straight = orientation < 2 || orientation > 8;
+    std::vector<uint8_t> line(static_cast<size_t>(straight ? 0 : W * 3));
+    for (int64_t r = 0; r < H; r++) {
+      uint8_t* o = straight ? out + r * W * 3 : line.data();
+      const uint32_t* in = img.data() + r * W;
+      if (pm == PMode::RGB || pm == PMode::RGBA) {
+        for (int64_t c = 0; c < W; c++, o += 3) {
+          o[0] = static_cast<uint8_t>(in[c]);
+          o[1] = static_cast<uint8_t>(in[c] >> 8);
+          o[2] = static_cast<uint8_t>(in[c] >> 16);
+        }
+      } else if (pm == PMode::L || pm == PMode::One || pm == PMode::LA) {
+        for (int64_t c = 0; c < W; c++, o += 3) o[0] = o[1] = o[2] = static_cast<uint8_t>(in[c]);
+      } else {
+        for (int64_t c = 0; c < W; c++, o += 3) rgb(in[c], o);
+      }
+      if (straight) continue;
+      // exif_transpose: where pixel (r, c) goes, a step of c at a time
+      auto at = [&](int64_t c) {
+        int64_t orow = r, ocol = c;
+        switch (orientation) {
+          case 2: ocol = W - 1 - c; break;
+          case 3: orow = H - 1 - r; ocol = W - 1 - c; break;
+          case 4: orow = H - 1 - r; break;
+          case 5: orow = c; ocol = r; break;
+          case 6: orow = c; ocol = H - 1 - r; break;
+          case 7: orow = W - 1 - c; ocol = H - 1 - r; break;
+          default: orow = W - 1 - c; ocol = r; break;
+        }
+        return (orow * out_w + ocol) * 3;
+      };
+      const int64_t base = at(0), step = W > 1 ? at(1) - base : 0;
+      for (int64_t c = 0; c < W; c++) std::memcpy(out + base + c * step, &line[c * 3], 3);
+    }
+  }
+};
+
 // Runs f, reporting a thrown Error or an allocation failure.
 template <class F>
 int guarded(const char* format, char* msg, int32_t msg_len, F f) {
@@ -1720,8 +3421,8 @@ int mrt_jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out,
   }
 }
 
-// A PNG's inflated image data (all IDAT chunks) to out [height, width, 3].
-// palette: `entries` RGB triples or null.
+// A PNG's image data (all IDAT chunks, still deflated) to out
+// [height, width, 3]. palette: `entries` RGB triples or null.
 int mrt_png_decode(const uint8_t* raw, int64_t n, int32_t width,
                    int32_t height, int32_t depth, int32_t color,
                    int32_t interlace, const uint8_t* palette,
@@ -1764,6 +3465,40 @@ int mrt_gif_decode(const uint8_t* data, int64_t n, uint8_t* out,
                    int32_t msg_len) {
   return guarded("GIF", msg, msg_len,
                  [&] { decode_gif(data, n, out, height, width); });
+}
+
+// TIFF: the first image's size after its orientation, then the whole
+// decode into out [height, width, 3] (that size, checked again).
+int mrt_tiff_size(const uint8_t* data, int64_t n, int32_t* height,
+                  int32_t* width, char* msg, int32_t msg_len) {
+  return guarded("TIFF", msg, msg_len, [&] {
+    Tiff t(data, n);
+    *height = static_cast<int32_t>(std::min<int64_t>(t.out_h, INT32_MAX));
+    *width = static_cast<int32_t>(std::min<int64_t>(t.out_w, INT32_MAX));
+  });
+}
+
+int mrt_tiff_decode(const uint8_t* data, int64_t n, uint8_t* out,
+                    int32_t height, int32_t width, char* msg,
+                    int32_t msg_len) {
+  return guarded("TIFF", msg, msg_len, [&] {
+    Tiff t(data, n);
+    if (t.out_h != height || t.out_w != width) corrupt("TIFF: the image's size changed");
+    t.decode(out);
+  });
+}
+
+// A whole zlib stream (its end and Adler-32 checked), PNG's and TIFF's
+// inflate, into at most cap bytes: *len the bytes it holds.
+int mrt_zlib_inflate(const uint8_t* data, int64_t n, uint8_t* out,
+                     int64_t cap, int64_t* len, char* msg, int32_t msg_len) {
+  return guarded("zlib", msg, msg_len, [&] {
+    std::vector<uint8_t> v(static_cast<size_t>(std::max<int64_t>(cap, 1)));
+    Inflater(data, n, "zlib").run(v);
+    if (static_cast<int64_t>(v.size()) > cap) corrupt("zlib: more data than the output holds");
+    std::memcpy(out, v.data(), v.size());
+    *len = static_cast<int64_t>(v.size());
+  });
 }
 
 }  // extern "C"

@@ -9,9 +9,11 @@
 // Pillow opens every WebP file through libwebp's WebPAnimDecoder in
 // non-premultiplied RGBA and drops the alpha, so the RGB never depends on
 // it: this decoder reads the RIFF container (a plain "VP8 " or "VP8L"
-// file, or "VP8X" with or without an animation), skips ALPH and the
-// metadata chunks, and places the first frame at its offset on a canvas
-// cleared to transparent black, as WebPAnimDecoder does for a key frame.
+// file, or "VP8X" with or without an animation), skips the metadata
+// chunks, and places the first frame at its offset on a canvas cleared to
+// transparent black, as WebPAnimDecoder does for a key frame. A lossy
+// frame's ALPH chunk is decoded as libwebp decodes it (its values unused)
+// so that a file whose alpha libwebp refuses is refused here too.
 //
 // VP8L (lossless) follows vp8l_dec.c: simple and normal prefix codes with
 // their code-length codes, two-level lookup tables of 8 root bits, meta
@@ -1981,6 +1983,56 @@ void decode_vp8l(const uint8_t* data, size_t size, int width, int height,
   }
 }
 
+// ------------------------------------------------------------ alpha
+
+// libwebp's ALPHInit and ALPHDecode (alpha_dec.c) on a lossy frame's ALPH
+// chunk: the header byte (compression method 0 or 1, a filter in its two
+// bits, pre-processing 0 or 1, the reserved bits 0), then raw alpha of at
+// least width x height bytes, or a headerless VP8L stream (transforms,
+// colour cache, meta prefix codes) whose green channel holds the alpha,
+// and the filter undone (filters.c). Pillow's RGB never depends on the
+// alpha, but libwebp's decode, and so Pillow, fails where it does not
+// decode: so does this.
+void decode_alpha(const uint8_t* data, size_t size, int width, int height) {
+  if (size <= 1) corrupt("WebP: could not decode alpha data (an empty ALPH chunk)");
+  const int method = data[0] & 3, filter = (data[0] >> 2) & 3;
+  const int pre_processing = (data[0] >> 4) & 3, reserved = data[0] >> 6;
+  if (method > 1 || pre_processing > 1 || reserved != 0)
+    corrupt("WebP: could not decode alpha data (a bad ALPH header)");
+  const uint8_t* p = data + 1;
+  const size_t n = size - 1;
+  const size_t npix = static_cast<size_t>(width) * height;
+  std::vector<uint8_t> alpha(npix);
+  if (method == 0) {
+    if (n < npix) corrupt("WebP: could not decode alpha data (raw alpha shorter than the frame)");
+    std::memcpy(alpha.data(), p, npix);
+  } else {
+    Vp8l dec(p, n);
+    const std::vector<uint32_t> argb = dec.decode_stream(width, height, true);
+    for (size_t i = 0; i < npix; i++) alpha[i] = static_cast<uint8_t>(argb[i] >> 8);
+  }
+  // WebPUnfilters: horizontal, vertical, gradient (none: 0), in place
+  for (int y = 0; filter && y < height; y++) {
+    uint8_t* row = &alpha[static_cast<size_t>(y) * width];
+    const uint8_t* prev = y ? row - width : nullptr;
+    if (!prev || filter == 1) {
+      uint8_t pred = prev ? prev[0] : 0;
+      for (int x = 0; x < width; x++) pred = row[x] = static_cast<uint8_t>(pred + row[x]);
+    } else if (filter == 2) {
+      for (int x = 0; x < width; x++) row[x] = static_cast<uint8_t>(prev[x] + row[x]);
+    } else {
+      uint8_t top = prev[0], top_left = top, left = top;
+      for (int x = 0; x < width; x++) {
+        top = prev[x];
+        const int g = left + top - top_left;
+        left = static_cast<uint8_t>(row[x] + ((g & ~0xff) == 0 ? g : g < 0 ? 0 : 255));
+        top_left = top;
+        row[x] = left;
+      }
+    }
+  }
+}
+
 // ------------------------------------------------------------ container
 
 // The first frame of a WebP file, as WebPDemux lays it out for
@@ -1991,8 +2043,11 @@ struct WebP {
   const uint8_t* bitstream = nullptr;
   size_t size = 0;
   bool lossless = false;
+  const uint8_t* alpha = nullptr;  // the frame's ALPH chunk, if any
+  size_t alpha_size = 0;
 
-  // the frame's bitstream among chunks [p, end): ALPH and metadata
+  // the frame's bitstream among chunks [p, end), and the first ALPH chunk
+  // before it (WebPDemux refuses one before a VP8L bitstream); metadata
   // chunks are skipped
   void find_bitstream(const uint8_t* p, const uint8_t* end) {
     while (end - p >= 8) {
@@ -2000,9 +2055,14 @@ struct WebP {
       if (static_cast<uint64_t>(end - p - 8) < n) corrupt("WebP: truncated chunk");
       if (!std::memcmp(p, "VP8 ", 4) || !std::memcmp(p, "VP8L", 4)) {
         lossless = p[3] == 'L';
+        if (lossless && alpha) corrupt("WebP: an ALPH chunk before a VP8L bitstream");
         bitstream = p + 8;
         size = n;
         return;
+      }
+      if (!std::memcmp(p, "ALPH", 4) && !alpha) {
+        alpha = p + 8;
+        alpha_size = n;
       }
       p += 8 + n + (n & 1);
     }
@@ -2094,6 +2154,8 @@ void decode_webp(const uint8_t* d, int64_t n, uint8_t* out, int64_t height,
   } else {
     decode_vp8(w.bitstream, w.size, static_cast<int>(w.fw),
                static_cast<int>(w.fh), at, stride);
+    if (w.alpha)
+      decode_alpha(w.alpha, w.alpha_size, static_cast<int>(w.fw), static_cast<int>(w.fh));
   }
 }
 

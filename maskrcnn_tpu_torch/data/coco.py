@@ -5,7 +5,9 @@ minival -> val images rule).
 
 Annotations come through the port's own COCO index (eval/coco_index.py).
 `CocoDataset.load_image` and `load` decode an image file with the port's
-own JPEG, PNG, WebP, GIF and BMP reader (data/image_io.py: Pillow's pixels, no Pillow).
+own JPEG, PNG, WebP, GIF, BMP and TIFF reader (data/image_io.py: Pillow's
+pixels, no Pillow; tests/test_torch_image_tiff.py holds a directory of
+TIFF scenes to the JAX package's CocoDataset).
 `load` gives a training
 image's instances in original coordinates (crowds negated, mask-extent
 boxes, the empty-image fallback) and `sample`, from DetectionDataset, puts

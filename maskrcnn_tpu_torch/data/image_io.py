@@ -1,21 +1,24 @@
-"""Image files without Pillow: PNG, JPEG, WebP, GIF and BMP decode to RGB
-uint8, and a PNG writer.
+"""Image files without Pillow: PNG, JPEG, WebP, GIF, BMP and TIFF decode
+to RGB uint8, and a PNG writer.
 
 `read_image(f)` (a path, the file's bytes or a binary file object)
 returns what `np.asarray(PIL.Image.open(f).convert("RGB"))` returns with
-Pillow 12.1 over libjpeg-turbo 3.1, zlib and libwebp 1.6, bit for bit,
-through the native decoders (`csrc/image_decode.cpp` for PNG, JPEG, GIF
-and BMP, `csrc/webp_decode.cpp` for WebP; built with g++ on first use and
-called through ctypes outside the GIL, one call a decode:
-data/native_image.py). The format is told by the file's first bytes, as
-Pillow's `_accept` functions tell it. It reads:
+Pillow 12.1 over libjpeg-turbo 3.1, zlib, libwebp 1.6 and libtiff 4.7,
+bit for bit, through the native decoders (`csrc/image_decode.cpp` for
+PNG, JPEG, GIF, BMP and TIFF, `csrc/webp_decode.cpp` for WebP; built with
+g++ on first use and called through ctypes outside the GIL, one call a
+decode after its size call: data/native_image.py). The format is told
+by the file's first bytes, as Pillow's `_accept` functions tell it. It
+reads:
 
 * PNG: grayscale (bit depths 1, 2, 4, 8, 16), RGB (8, 16), palette (1,
   2, 4, 8), grayscale + alpha and RGBA (8, 16); all five row filters;
   Adam7 interlacing. Alpha and tRNS are dropped and a palette looked up,
   as `convert("RGB")` does; 16-bit grayscale opens in Pillow as "I;16"
   and is clipped to 255, other 16-bit samples give their high byte.
-  zlib is the standard library's.
+  The image data is inflated by the decoder's own inflate (TIFF's
+  Deflate), as zlib.decompress inflates it; the plain route uses the
+  standard library's zlib.
 * JPEG: baseline, extended sequential and progressive Huffman coding
   with 8-bit samples, restart intervals and byte stuffing; 1 component
   (grayscale), 3 (YCbCr, or RGB under an Adobe transform 0 or component
@@ -29,7 +32,9 @@ Pillow's `_accept` functions tell it. It reads:
   normal loop filters, libwebp's fancy upsampler and YUV -> RGB) and
   lossless (VP8L: every transform, the colour cache, meta prefix codes),
   plain or extended; alpha (ALPH, or VP8L's) dropped, which Pillow's
-  RGB never depends on; an animation's first frame at its offset on the
+  RGB never depends on, though a lossy frame's ALPH chunk is decoded as
+  libwebp decodes it, so that a file whose alpha libwebp refuses is
+  refused here too; an animation's first frame at its offset on the
   canvas cleared to black, as libwebp's WebPAnimDecoder gives it.
 * GIF (GIF87a, GIF89a): the first frame, with the screen grown to hold
   it and filled outside it with the transparency index or 0; global or
@@ -42,6 +47,24 @@ Pillow's `_accept` functions tell it. It reads:
   16-bit (5-5-5, or 5-6-5 bit fields), 24-bit, 32-bit (BGRX and the
   bit-field layouts Pillow takes; alpha dropped); BI_RLE8 and BI_RLE4 as
   Pillow's RLE decoder reads them; rows bottom-up or top-down.
+* TIFF (II, MM, the byte-swapped magics Pillow takes, BigTIFF): the
+  first image, as TiffImagePlugin opens it: Pillow's own reading of
+  uncompressed strips and tiles, and libtiff's decoding of PackBits,
+  LZW (its codes and the old LSB-first ones), Deflate (an inflate in
+  the C++ source: one call decodes any number of strips) and JPEG
+  (strips or tiles each a stream, JPEGTables, YCbCr subsampling 1x1,
+  2x1 and 2x2 converted to RGB as Pillow asks libtiff to, RGB,
+  grayscale and CMYK components as they are); predictors 2 and 3;
+  strips or tiles (edge tiles cropped), contiguous or separate planes,
+  FillOrder 2; bilevel, grayscale of 2 to 16 bits (16-bit clipped to
+  255), 32-bit integer and float (truncated and clipped), palettes of 1
+  to 8 bits, LA, PA, RGB and RGBA of 8 and 16 bits (extra samples
+  dropped; associated alpha un-premultiplied, as Pillow's "RGBa"),
+  CMYK; the Orientation tag (2-8, or XMP's tiff:Orientation) applied as
+  ImageOps.exif_transpose applies it, for TIFF only. (Pillow opening an
+  uncompressed one-strip file of Orientation 5-8 from a path maps it
+  into memory and loses the transposition; this gives what Pillow gives
+  from the file's bytes.)
 
 Refused, with NotImplementedError naming the mode: arithmetic-coded,
 lossless and hierarchical JPEG, samples of other than 8 bits, a height
@@ -51,13 +74,20 @@ scans leave a low-frequency coefficient incomplete (libjpeg-turbo
 block-smooths it); JPEG- or PNG-compressed BMP, BMP bit-field layouts
 and pixel depths Pillow refuses, RLE of more than 8-bit pixels, and 1-
 and 4-bit BMP under a grayscale palette (Pillow reads them with the
-wrong unpacker). Any other file (TIFF, Pillow's other plugins) raises a
-ValueError naming the five formats read.
+wrong unpacker); TIFF of CCITT, LZMA, ZSTD, WebP, old-style JPEG,
+ThunderScan or SGILog compression, LAB, YCbCr that is not JPEG-
+compressed with contiguous samples, and 16-bit CMYK. A TIFF layout
+Pillow itself refuses, or reads from past its buffers (separate planes
+of a one-band mode in tiles), is a ValueError naming it. Any other file
+(Pillow's other plugins) raises a ValueError naming the six formats
+read. tests/test_torch_image_tiff.py holds the TIFF route to Pillow's
+decode on the CPU, and chip_smoke.py's phase 9 to the corpus's Pillow
+digests on the card's host.
 
 `read_image(f, plain=True)` takes the plain Python decoders below
 instead (`decode_png`, `decode_jpeg`): 8-bit non-interlaced PNG and
 baseline JPEG with 1 or 3 components (YCbCr) and sampling factors 1 or
-2, the rest refused (WebP, GIF and BMP with a NotImplementedError
+2, the rest refused (WebP, GIF, BMP and TIFF with a NotImplementedError
 naming the format). They are the reference the native route is held
 to on the card, where Pillow is absent; no caller on the main path uses
 them. Their JPEG entropy decoding is plain Python over a table of
@@ -82,6 +112,10 @@ from maskrcnn_tpu_torch.data.native_image import (MAX_PIXELS,  # noqa: F401
 from maskrcnn_tpu_torch.data.native_image import check_size as _check_size
 
 Source = Union[str, os.PathLike, bytes, bytearray, memoryview, BinaryIO]
+# TiffImagePlugin.PREFIXES: II and MM, the two byte-swapped magics Pillow
+# also takes, and BigTIFF's
+TIFF_PREFIXES = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a",
+                 b"MM\x00\x2b", b"II\x2b\x00")
 
 
 def _read_bytes(source: Source) -> bytes:
@@ -95,7 +129,7 @@ def _read_bytes(source: Source) -> bytes:
 
 def read_image(source: Source, plain: bool = False) -> np.ndarray:
     """An image file (path, bytes or binary file object: PNG, JPEG, WebP,
-    GIF or BMP) as RGB uint8 [H, W, 3]: the pixels Pillow's
+    GIF, BMP or TIFF) as RGB uint8 [H, W, 3]: the pixels Pillow's
     `Image.open(f).convert("RGB")` gives, through the native decoders (a
     RuntimeError naming the compiler when one cannot be built);
     `plain=True` takes the plain Python decoders (PNG and JPEG only)."""
@@ -106,7 +140,7 @@ def read_image(source: Source, plain: bool = False) -> np.ndarray:
         return decode_jpeg(data) if plain else native_image.decode_jpeg(data)
     name = format_of(data)
     if name is None:
-        raise ValueError("not a PNG, JPEG, WebP, GIF or BMP file")
+        raise ValueError("not a PNG, JPEG, WebP, GIF, BMP or TIFF file")
     if plain:
         raise NotImplementedError(f"{name}: the plain route reads PNG and "
                                   "JPEG only")
@@ -114,8 +148,9 @@ def read_image(source: Source, plain: bool = False) -> np.ndarray:
 
 
 def format_of(data: bytes):
-    """"WebP", "GIF" or "BMP" as Pillow's _accept functions take the file's
-    first bytes, else None (PNG and JPEG are told apart before)."""
+    """"WebP", "GIF", "BMP" or "TIFF" as Pillow's _accept functions take
+    the file's first bytes, else None (PNG and JPEG are told apart
+    before)."""
     if (data[:4] == b"RIFF" and data[8:12] == b"WEBP"
             and data[12:16] in (b"VP8 ", b"VP8L", b"VP8X")):
         return "WebP"
@@ -123,6 +158,8 @@ def format_of(data: bytes):
         return "GIF"
     if data[:2] == b"BM":
         return "BMP"
+    if data[:4] in TIFF_PREFIXES:
+        return "TIFF"
     return None
 
 

@@ -1,22 +1,24 @@
 """ctypes bridge to the port's native image decoders
-(`maskrcnn_tpu_torch/csrc/image_decode.cpp`: JPEG, PNG, GIF and BMP;
-`csrc/webp_decode.cpp`: WebP; host C++17).
+(`maskrcnn_tpu_torch/csrc/image_decode.cpp`: JPEG, PNG, GIF, BMP and
+TIFF; `csrc/webp_decode.cpp`: WebP; host C++17).
 
 On first use each source is compiled with the host's C++ compiler into
 `build/maskrcnn_tpu_torch/` (`utils/native_build.py`) and loaded with
 ctypes; the libraries link only the C and C++ runtimes. A whole JPEG,
-GIF, BMP or WebP decode (headers, entropy decoding, transforms,
-filtering, colour) runs in one call, as does a PNG's after zlib's
-inflate (the row filters, Adam7, bit depths, palette and colour); ctypes
-releases the GIL for the call, and zlib for the inflate, so decoder
-threads run in parallel. Every format's size is read first and held to
-Pillow's decompression-bomb limit (`check_size`) before the output is
-allocated (an animated WebP's canvas, a GIF's screen grown to hold its
-frame). There is no fallback: without a compiler `library()` and
-`webp_library()` raise a RuntimeError naming it (the plain Python
-decoders of image_io.py, PNG and JPEG only and 56x slower, are reached
-only by `read_image(..., plain=True)`); no system codec (libwebp,
-giflib, Pillow) is loaded.
+PNG, GIF, BMP, TIFF or WebP decode (headers, entropy decoding and
+decompression, transforms, filtering, colour; a TIFF's every strip or
+tile; PNG's and TIFF's Deflate through the source's own inflate) runs
+in one call (a PNG's chunks are read here first); ctypes releases the
+GIL for the call, so decoder threads run in parallel. Every
+format's size is read first (one size call) and held to Pillow's
+decompression-bomb limit (`check_size`) before the output is allocated
+(an animated WebP's canvas, a GIF's screen grown to hold its frame, a
+TIFF's image after its orientation). There is no fallback: without a
+compiler `library()` and `webp_library()` raise a RuntimeError naming it
+(the plain Python decoders of image_io.py, PNG and JPEG only and 56x
+slower, are reached only by `read_image(..., plain=True)`); no system
+codec (libwebp, giflib, libtiff, zlib, Pillow) is loaded
+(tests/test_torch_image_tiff.py reads the library's imports).
 """
 
 from __future__ import annotations
@@ -25,7 +27,6 @@ import ctypes
 import struct
 import subprocess
 import threading
-import zlib
 from pathlib import Path
 from typing import Optional
 
@@ -77,7 +78,8 @@ def _build(stem: str, source: Path) -> ctypes.CDLL:
 _U8P = ctypes.c_char_p
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _OUT = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
-# mrt_<format>_size and mrt_<format>_decode of JPEG, BMP, GIF and WebP
+# mrt_<format>_size and mrt_<format>_decode of JPEG, BMP, GIF, TIFF and
+# WebP
 _SIZE_ARGS = [_U8P, ctypes.c_int64, _I32P, _I32P, ctypes.c_char_p,
               ctypes.c_int32]
 _DECODE_ARGS = [_U8P, ctypes.c_int64, _OUT, ctypes.c_int32, ctypes.c_int32,
@@ -93,14 +95,19 @@ def _declare(lib: ctypes.CDLL, formats) -> None:
 
 
 def library() -> ctypes.CDLL:
-    """The JPEG, PNG, BMP and GIF decoder library, built on first use; a
-    RuntimeError naming the compiler when it cannot be built or loaded."""
+    """The JPEG, PNG, BMP, GIF and TIFF decoder library, built on first
+    use; a RuntimeError naming the compiler when it cannot be built or
+    loaded."""
     global _LIB
     with _LOCK:
         if _LIB is not None:
             return _LIB
         lib = _build("image_decode", SOURCE)
-        _declare(lib, ("jpeg", "bmp", "gif"))
+        _declare(lib, ("jpeg", "bmp", "gif", "tiff"))
+        lib.mrt_zlib_inflate.argtypes = [
+            _U8P, ctypes.c_int64, _OUT, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_char_p, ctypes.c_int32]
+        lib.mrt_zlib_inflate.restype = ctypes.c_int
         lib.mrt_png_decode.argtypes = [
             _U8P, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
             ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, _U8P,
@@ -143,7 +150,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
 
 def decode_png(data: bytes) -> np.ndarray:
     """A PNG file's bytes -> RGB uint8 [H, W, 3]: the chunks read and the
-    image data inflated here, the rest in one native call."""
+    rest (the image data's inflate on) in one native call."""
     if not data.startswith(PNG_SIGNATURE):
         raise ValueError("not a PNG file")
     lib = library()
@@ -168,10 +175,7 @@ def decode_png(data: bytes) -> np.ndarray:
         raise ValueError("PNG: no IHDR chunk")
     width, height, depth, color, _, _, interlace = header
     check_size(width, height)
-    try:
-        raw = zlib.decompress(b"".join(idat))
-    except zlib.error as e:
-        raise ValueError(f"PNG: bad image data: {e}") from None
+    raw = b"".join(idat)
     msg = ctypes.create_string_buffer(_MSG_LEN)
     out = np.empty((height, width, 3), np.uint8)
     entries = min(len(palette) // 3, 256) if palette is not None else 0
@@ -210,6 +214,28 @@ def decode_gif(data: bytes) -> np.ndarray:
     """A GIF file's bytes -> the first frame on its screen, RGB uint8
     [H, W, 3]."""
     return _decode(library(), "gif", data)
+
+
+def decode_tiff(data: bytes) -> np.ndarray:
+    """A TIFF file's bytes -> its first image, RGB uint8 [H, W, 3], after
+    its orientation."""
+    return _decode(library(), "tiff", data)
+
+
+def inflate(data: bytes, limit: int) -> bytes:
+    """A whole zlib stream through the decoder's own inflate (PNG's and
+    the TIFF route's Deflate; its end and Adler-32 checked), at most
+    `limit` bytes: what zlib.decompress gives, or a ValueError where it
+    raises. The tests hold the inflate to zlib through it."""
+    lib = library()
+    msg = ctypes.create_string_buffer(_MSG_LEN)
+    out = np.empty(max(limit, 1), np.uint8)
+    n = ctypes.c_int64()
+    code = lib.mrt_zlib_inflate(data, len(data), out, limit, ctypes.byref(n),
+                                msg, _MSG_LEN)
+    if code:
+        _raise(code, msg)
+    return out[:n.value].tobytes()
 
 
 def decode_webp(data: bytes) -> np.ndarray:

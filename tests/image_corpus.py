@@ -1,7 +1,7 @@
 """The image reader's committed corpus, `tests/data/image_io/`: small
-seeded files of every JPEG, PNG, WebP, GIF and BMP mode the port reads
-(the WebP, GIF and BMP modes each at 1x1, 5x3, 37x53 and 16x24), a few it
-refuses, three COCO-sized (640x480) synthetic scenes as JPEG files, one
+seeded files of every JPEG, PNG, WebP, GIF, BMP and TIFF mode the port
+reads (the WebP, GIF, BMP and TIFF modes each at 1x1, 5x3, 37x53 and
+16x24), a few it refuses, three COCO-sized (640x480) synthetic scenes as JPEG files, one
 of them progressive, with their annotations (chip_smoke.py's phase 9d
 reads them as a COCO directory), the same three scenes as lossy WebP
 (q80), and the first scene's JPEG decode as lossless WebP.
@@ -16,7 +16,8 @@ Every file is made here from seeded numpy arrays: by Pillow where Pillow
 writes the mode, by a byte edit of a Pillow file (an Adobe transform set
 to 2 for YCCK, the Adobe marker removed, a frame marker or precision
 rewritten), or by the test-only writers (tests/jpeg_writer.py,
-tests/image_writers.py; the PNG writer below). Regenerate with `python
+tests/image_writers.py, whose `encode_tiff` writes every TIFF; the PNG
+writer below). Regenerate with `python
 tests/image_corpus.py` (needs Pillow, and the system's libwebp for the
 encoder options Pillow does not reach; the digests then change only if
 Pillow's decode does);
@@ -171,7 +172,7 @@ def seeded_png(seed: int, h: int, w: int, depth: int, color: int,
 def pil_jpeg(img: np.ndarray, mode: str = None, **kw) -> bytes:
     from PIL import Image
     buf = io.BytesIO()
-    Image.fromarray(img, mode).save(buf, "JPEG", **kw)
+    Image.fromarray(np.asarray(img, np.uint8), mode).save(buf, "JPEG", **kw)
     return buf.getvalue()
 
 
@@ -568,6 +569,202 @@ def format_refused_cases():
     ]
 
 
+# ----------------------------------------------------------------- TIFF
+
+def tiff_jpeg_segments(img, rows=None, tile=None, tables=False, **kw):
+    """Pillow's JPEG streams of each strip of `rows` rows (all of them by
+    default) or each `tile` (width, length) of img, edge tiles padded;
+    with `tables`, (the JPEGTables, the abbreviated streams)."""
+    h, w = img.shape[:2]
+    segs = []
+    if tile:
+        tw, th = tile
+        for y in range(0, h, th):
+            for x in range(0, w, tw):
+                blk = np.zeros((th, tw) + img.shape[2:], np.uint8)
+                part = img[y:y + th, x:x + tw]
+                blk[:part.shape[0], :part.shape[1]] = part
+                segs.append(pil_jpeg(blk, **kw))
+    else:
+        for y in range(0, h, rows or h):
+            segs.append(pil_jpeg(img[y:y + (rows or h)], **kw))
+    if not tables:
+        return segs
+    return (iw.jpeg_split_tables(segs[0])[0],
+            [iw.jpeg_split_tables(sg)[1] for sg in segs])
+
+
+def tiff_modes(rng, h, w):
+    """{mode: bytes} of every TIFF mode, compression, predictor, layout
+    and orientation the reader takes, at h x w."""
+    img = seeded_image(rng, h, w)
+    rgba = seeded_image(rng, h, w, 4)
+    gray = img[..., 0]
+    cmyk = seeded_image(rng, h, w, 4)
+    u16 = (img.astype(np.int64) * 257 + rng.randint(0, 257, img.shape))
+    cmap = rng.randint(0, 65536, (256, 3))
+    fl = (img[..., 1].astype(np.float32) * 1.17 - 20.5)
+    enc = iw.encode_tiff
+    out = {
+        "bilevel_raw": enc(gray > 120, bits=1, photometric=1),
+        "bilevel_min_is_white_packbits": enc(gray > 90, bits=1, photometric=0,
+                                             compression=32773),
+        "bilevel_fill_order_2_raw": enc(gray > 120, bits=1, photometric=1,
+                                        fill_order=2),
+        "gray2_lzw": enc(gray >> 6, bits=2, photometric=1, compression=5),
+        "gray4_min_is_white_deflate": enc(gray >> 4, bits=4, photometric=0,
+                                          compression=8),
+        "gray8_min_is_white_raw": enc(gray, photometric=0),
+        "gray8_lzw_predictor": enc(gray, photometric=1, compression=5,
+                                   predictor=2),
+        "gray8_tiled_lzw": enc(gray, photometric=1, compression=5,
+                               tile=(16, 16)),
+        "gray12_lzw": enc(u16[..., 0] >> 4, bits=12, photometric=1,
+                          compression=5),
+        "gray16_deflate_predictor": enc(u16[..., 0], bits=16, photometric=1,
+                                        compression=8, predictor=2),
+        "gray16_big_endian_lzw_predictor": enc(
+            u16[..., 1], bits=16, photometric=1, compression=5, predictor=2,
+            byteorder=">"),
+        "gray16_signed_raw": enc(u16[..., 2], bits=16, photometric=1,
+                                 sample_format=2),
+        "int32_signed_deflate": enc(
+            (img[..., 0].astype(np.int64) * 3 - 120) % (1 << 32), bits=32,
+            photometric=1, sample_format=2, compression=8),
+        "float32_deflate_predictor3": enc(fl, bits=32, photometric=1,
+                                          sample_format=3, compression=8,
+                                          predictor=3),
+        "float32_big_endian_raw": enc(fl, bits=32, photometric=1,
+                                      sample_format=3, byteorder=">"),
+        "palette1_raw": enc(gray & 1, bits=1, photometric=3,
+                            colormap=cmap[:2]),
+        "palette2_packbits": enc(gray & 3, bits=2, photometric=3,
+                                 colormap=cmap[:4], compression=32773),
+        "palette4_lzw": enc(gray & 15, bits=4, photometric=3,
+                            colormap=cmap[:16], compression=5),
+        "palette8_short_colormap_deflate": enc(
+            gray, photometric=3, compression=8,
+            tags={320: (3, cmap[:200].T.reshape(-1).tolist())}),
+        "la_lzw": enc(rgba[..., :2], photometric=1, extra_samples=[2],
+                      compression=5),
+        "pa_raw": enc(np.dstack([gray, img[..., 1]]), photometric=3,
+                      extra_samples=[2], colormap=cmap),
+        "rgb_raw": enc(img),
+        "rgb_packbits": enc(img, compression=32773),
+        "rgb_lzw": enc(img, compression=5),
+        "rgb_lzw_old_style": enc(img, compression=5, old_lzw=True),
+        "rgb_lzw_predictor_strips_of_2": enc(img, compression=5, predictor=2,
+                                             rows_per_strip=2),
+        "rgb_deflate_predictor": enc(img, compression=8, predictor=2),
+        "rgb_deflate_32946": enc(img, compression=32946),
+        "rgb_tiled_deflate_predictor": enc(img, compression=8, predictor=2,
+                                           tile=(16, 16)),
+        "rgb_planar_lzw": enc(img, compression=5, planar=2,
+                              rows_per_strip=4),
+        "rgb_planar_raw": enc(img, planar=2),
+        "rgb_bigtiff_deflate": enc(img, compression=8, bigtiff=True),
+        "rgb_big_endian_lzw": enc(img, compression=5, byteorder=">"),
+        "rgb_fill_order_2_lzw": enc(img, compression=5, fill_order=2),
+        "rgb16_lzw_predictor": enc(u16, bits=16, compression=5, predictor=2),
+        "rgb16_big_endian_deflate": enc(u16, bits=16, compression=8,
+                                        byteorder=">"),
+        "rgba_unassociated_lzw": enc(rgba, extra_samples=[2], compression=5),
+        "rgba_associated_deflate": enc(rgba, extra_samples=[1],
+                                       compression=8),
+        "rgba_no_extra_samples_planar_tiled": enc(rgba, compression=8,
+                                                  planar=2, tile=(16, 16)),
+        "rgba16_associated_lzw": enc(
+            np.dstack([u16, u16[..., :1]]), bits=16, extra_samples=[1],
+            compression=5),
+        "rgbx_raw": enc(rgba, extra_samples=[0]),
+        "cmyk_lzw": enc(cmyk, photometric=5, compression=5),
+        "cmyk_extra_sample_deflate": enc(np.dstack([cmyk, gray]),
+                                         photometric=5, extra_samples=[0],
+                                         compression=8),
+        "ycbcr_jpeg_2x2": enc(img, photometric=6, compression=7,
+                              segments=tiff_jpeg_segments(
+                                  img, subsampling="4:2:0", quality=85),
+                              ycbcr_subsampling=(2, 2)),
+        "ycbcr_jpeg_2x1_strips_of_8": enc(
+            img, photometric=6, compression=7, rows_per_strip=8,
+            segments=tiff_jpeg_segments(img, 8, subsampling="4:2:2",
+                                         quality=75),
+            ycbcr_subsampling=(2, 1)),
+        "ycbcr_jpeg_1x1_tiled": enc(
+            img, photometric=6, compression=7, tile=(16, 16),
+            segments=tiff_jpeg_segments(img, tile=(16, 16),
+                                         subsampling="4:4:4", quality=90),
+            ycbcr_subsampling=(1, 1)),
+        "rgb_jpeg_adobe_streams": enc(
+            img, photometric=2, compression=7,
+            segments=tiff_jpeg_segments(img, keep_rgb=True, quality=90)),
+        "rgb_jpeg_ycbcr_streams": enc(
+            img, photometric=2, compression=7,
+            segments=tiff_jpeg_segments(img, subsampling="4:4:4",
+                                         quality=90)),
+        "gray_jpeg": enc(gray, photometric=1, compression=7,
+                         segments=tiff_jpeg_segments(gray, quality=80)),
+        "cmyk_jpeg": enc(cmyk, photometric=5, compression=7,
+                         segments=tiff_jpeg_segments(cmyk, mode="CMYK",
+                                                      quality=80)),
+    }
+    tables, segs = tiff_jpeg_segments(img, 16, tables=True,
+                                       subsampling="4:2:0", quality=70)
+    out["ycbcr_jpeg_tables_strips_of_16"] = enc(
+        img, photometric=6, compression=7, rows_per_strip=16, segments=segs,
+        jpeg_tables=tables)
+    for o in range(2, 9):
+        out[f"rgb_orientation_{o}"] = enc(img, compression=5, orientation=o)
+    xmp = b'<rdf:Description tiff:Orientation="6"/>'
+    out["rgb_xmp_orientation_6"] = enc(img, compression=8,
+                                       tags={700: (1, list(xmp))})
+    return out
+
+
+def tiff_cases():
+    """(name, bytes) of every TIFF mode at every size."""
+    rng = np.random.RandomState(18)
+    return [(f"tiff_{mode}_{h}x{w}.tif", data) for h, w in SIZES
+            for mode, data in tiff_modes(rng, h, w).items()]
+
+
+def tiff_refused_cases():
+    """(name, bytes, word the NotImplementedError names) of TIFF files of
+    a compression or mode the reader refuses."""
+    rng = np.random.RandomState(19)
+    img = seeded_image(rng, 6, 5)
+    from PIL import Image
+
+    def pil_tiff(mode, **kw):
+        buf = io.BytesIO()
+        Image.fromarray(img).convert(mode).save(buf, "TIFF", **kw)
+        return buf.getvalue()
+
+    junk = dict(segments=[bytes(rng.randint(0, 256, 40).astype(np.uint8))])
+    return [
+        ("refused_tiff_ccitt_group4.tif", pil_tiff("1", compression="group4"),
+         "CCITT"),
+        ("refused_tiff_lzma.tif", pil_tiff("RGB", compression="lzma"), "LZMA"),
+        ("refused_tiff_zstd.tif", pil_tiff("RGB", compression="zstd"), "ZSTD"),
+        ("refused_tiff_webp.tif", iw.encode_tiff(img, compression=50001,
+                                                 **junk), "WebP"),
+        ("refused_tiff_old_style_jpeg.tif", iw.encode_tiff(
+            img, compression=6, photometric=6, **junk), "old-style JPEG"),
+        ("refused_tiff_thunderscan.tif", iw.encode_tiff(
+            img[..., 0] >> 4, bits=4, photometric=1, compression=32809,
+            **junk), "ThunderScan"),
+        ("refused_tiff_sgilog.tif", iw.encode_tiff(
+            img[..., 0], bits=16, photometric=1, compression=34676, **junk),
+         "SGILog"),
+        ("refused_tiff_lab.tif", iw.encode_tiff(img, photometric=8), "LAB"),
+        ("refused_tiff_ycbcr_uncompressed.tif", iw.encode_tiff(
+            img, photometric=6, ycbcr_subsampling=(1, 1)), "YCbCr"),
+        ("refused_tiff_cmyk16.tif", iw.encode_tiff(
+            seeded_image(rng, 6, 5, 4).astype(np.int64) * 257, bits=16,
+            photometric=5, compression=5), "16-bit CMYK"),
+    ]
+
+
 # --------------------------------------------------------------- scenes
 
 SCENE_CATEGORIES = [{"id": 1, "name": "person"}, {"id": 3, "name": "car"},
@@ -666,11 +863,13 @@ def main() -> int:
         return 0
     CORPUS.mkdir(parents=True, exist_ok=True)
     index = {"files": {}, "refused": {}, "scenes": {}, "format_scenes": {}}
-    for name, data in jpeg_cases() + png_cases() + format_cases():
+    for name, data in (jpeg_cases() + png_cases() + format_cases()
+                       + tiff_cases()):
         (CORPUS / name).write_bytes(data)
         shape, digest = pillow_digest(data)
         index["files"][name] = {"shape": shape, "sha256": digest}
-    for name, data, word in refused_cases() + format_refused_cases():
+    for name, data, word in (refused_cases() + format_refused_cases()
+                             + tiff_refused_cases()):
         (CORPUS / name).write_bytes(data)
         index["refused"][name] = word
     scenes = scene_cases()

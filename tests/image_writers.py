@@ -1,9 +1,9 @@
-"""Test-only writers of BMP, GIF and WebP files for what Pillow's own
-writers do not reach.
+"""Test-only writers of BMP, GIF, WebP and TIFF files for what Pillow's
+own writers do not reach.
 
-BMP and GIF are written here with numpy alone (chip_smoke.py's phase 9d
-writes its BMP and GIF scenes with them on the card, which has no
-Pillow):
+BMP, GIF and TIFF are written here with numpy (and the standard
+library's zlib) alone: chip_smoke.py writes its BMP, GIF and TIFF scenes
+with them on the card, which has no Pillow.
 
 * `encode_bmp`: every header size Pillow reads (12, 40, 52, 56, 64, 108,
   124), 1/4/8-bit palettes (short ones too), 16-bit 5-5-5 and bit-field
@@ -15,6 +15,16 @@ Pillow):
   index, any LZW minimum code size from 2 to 8, clear codes every
   `clear_every` codes, or none once the code table is full (the deferred
   clear).
+* `encode_tiff`: one page of any bit depth and sample layout Pillow
+  reads: strips or tiles (edge tiles padded), PlanarConfiguration 1 or
+  2, no compression, PackBits, LZW (`tiff_lzw`: libtiff's codes, or the
+  old LSB-first ones), Deflate, or JPEG streams given a strip or tile
+  (with JPEGTables: `jpeg_split_tables`; `tiff_from_jpeg` wraps a whole
+  JPEG file), predictors 2 and 3, FillOrder 2, II or MM byte order,
+  classic TIFF or BigTIFF, an Orientation, a ColorMap, ExtraSamples,
+  and tags added, overridden or left out on purpose. Pillow's writer
+  reaches none of tiles, planes, BigTIFF, FillOrder 2 or subsampled
+  YCbCr JPEG.
 
 WebP goes through the system's libwebp encoder, loaded with ctypes when
 `encode_webp` is first called (`webp_available()` says whether there is
@@ -677,3 +687,352 @@ def vp8_with_lf_deltas(data: bytes, ref_deltas=(5, -2, 0, 3),
         + part0 + vp8[10 + first:]
     body = b"WEBP" + _riff_chunk(b"VP8 ", frame)
     return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+# ----------------------------------------------------------------- TIFF
+
+# tag types: BYTE, ASCII, SHORT, LONG, RATIONAL, UNDEFINED, LONG8
+_TIFF_FMT = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 7: "B", 16: "Q"}
+_TIFF_SIZE = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 7: 1, 16: 8}
+
+
+def _bitrev_table() -> np.ndarray:
+    k = np.arange(256)
+    out = np.zeros(256, np.int64)
+    for b in range(8):
+        out |= ((k >> b) & 1) << (7 - b)
+    return out.astype(np.uint8)
+
+
+BITREV = _bitrev_table()
+
+
+def tiff_rows(samples: np.ndarray, bits: int, byteorder: str) -> np.ndarray:
+    """Rows of samples [r, n] (ints below 2**bits, or float32) as TIFF row
+    bytes [r, stride]: samples below 8 bits packed MSB first, each row
+    padded to a byte; 16- and 32-bit samples in `byteorder`."""
+    s = np.asarray(samples)
+    r, n = s.shape
+    if bits in (16, 32, 64):
+        kind = "f" if s.dtype.kind == "f" else "u"
+        return s.astype(f"{byteorder}{kind}{bits // 8}").view(
+            np.uint8).reshape(r, -1)
+    if bits == 8:
+        return s.astype(np.uint8)
+    v = s.astype(np.int64)
+    nbits = n * bits
+    out = np.zeros((r, (nbits + 7) // 8), np.int64)
+    pos = np.arange(n) * bits
+    for b in range(bits):
+        bit = (v >> (bits - 1 - b)) & 1
+        p = pos + b
+        np.add.at(out, (slice(None), p >> 3), bit << (7 - (p & 7)))
+    return out.astype(np.uint8)
+
+
+def tiff_packbits(data: bytes) -> bytes:
+    """PackBits: runs of 2 to 128 equal bytes as one, the rest literally
+    in pieces of at most 128."""
+    out = bytearray()
+    i, n = 0, len(data)
+    lit = bytearray()
+
+    def flush():
+        for k in range(0, len(lit), 128):
+            piece = lit[k:k + 128]
+            out.append(len(piece) - 1)
+            out.extend(piece)
+        lit.clear()
+
+    while i < n:
+        j = i
+        while j < n and j - i < 128 and data[j] == data[i]:
+            j += 1
+        if j - i >= 2:
+            flush()
+            out.append(257 - (j - i))
+            out.append(data[i])
+            i = j
+        else:
+            lit.append(data[i])
+            i += 1
+    flush()
+    return bytes(out)
+
+
+def tiff_lzw(data: bytes, old_style: bool = False) -> bytes:
+    """TIFF LZW as libtiff writes it: a clear code first, 9- to 12-bit
+    codes MSB first with the early change of code width, a clear code
+    when the table fills, the end code last. `old_style`: codes LSB
+    first and the width changed one code later (the pre-1990 streams
+    libtiff still reads)."""
+    out = bytearray()
+    acc = nacc = 0
+    nbits = 9
+    limit = 512 if old_style else 511
+
+    def put(code):
+        nonlocal acc, nacc
+        if old_style:
+            acc |= code << nacc
+            nacc += nbits
+            while nacc >= 8:
+                out.append(acc & 255)
+                acc >>= 8
+                nacc -= 8
+        else:
+            acc = (acc << nbits) | code
+            nacc += nbits
+            while nacc >= 8:
+                out.append((acc >> (nacc - 8)) & 255)
+                nacc -= 8
+                acc &= (1 << nacc) - 1
+
+    table = {}
+    free = 258
+    put(256)
+    w = -1
+    for byte in data:
+        if w < 0:
+            w = byte
+            continue
+        key = (w << 8) | byte
+        code = table.get(key)
+        if code is not None:
+            w = code
+            continue
+        put(w)
+        if free == 4094:
+            put(256)
+            table.clear()
+            free, nbits, limit = 258, 9, 512 if old_style else 511
+        else:
+            table[key] = free
+            free += 1
+            if free > limit:
+                nbits += 1
+                limit = (1 << nbits) - (0 if old_style else 1)
+        w = byte
+    if w >= 0:
+        put(w)
+        free += 1
+        if free > limit and nbits < 12:
+            nbits += 1
+    put(257)
+    if nacc:
+        out.append(((acc << (8 - nacc)) if not old_style else acc) & 255)
+    return bytes(out)
+
+
+def tiff_predict(rows: np.ndarray, stride: int, bits: int,
+                 predictor: int, byteorder: str) -> np.ndarray:
+    """Row bytes [r, stride_bytes] of segment rows [r, n] with TIFF
+    predictor 2 (horizontal differences of `stride` samples apart, mod
+    2**bits) or 3 (floating point: each row's float bytes in big-endian
+    planes, then byte differences `stride` apart)."""
+    s = np.asarray(rows)
+    if predictor == 2:
+        v = s.astype(np.int64)
+        d = v.copy()
+        d[:, stride:] = (v[:, stride:] - v[:, :-stride]) % (1 << bits)
+        if s.dtype.kind == "f":
+            d = s.view(f"u{bits // 8}").astype(np.int64)
+            d[:, stride:] = (d[:, stride:] - d[:, :-stride]) % (1 << bits)
+            return tiff_rows(d.astype(np.uint64), bits, byteorder)
+        return tiff_rows(d, bits, byteorder)
+    r, n = s.shape
+    planes = s.astype(">f4").view(np.uint8).reshape(r, n, 4).transpose(
+        0, 2, 1).reshape(r, 4 * n).astype(np.int64)
+    out = planes.copy()
+    out[:, stride:] = (planes[:, stride:] - planes[:, :-stride]) % 256
+    return out.astype(np.uint8)
+
+
+def encode_tiff(samples: np.ndarray, *, bits: int = 8, photometric: int = 2,
+                compression: int = 1, predictor: int = 1,
+                byteorder: str = "<", bigtiff: bool = False,
+                rows_per_strip: Optional[int] = None,
+                tile: Optional[Tuple[int, int]] = None, planar: int = 1,
+                fill_order: int = 1, extra_samples: Sequence[int] = (),
+                sample_format: Optional[int] = None,
+                colormap: Optional[np.ndarray] = None,
+                orientation: Optional[int] = None, old_lzw: bool = False,
+                segments: Optional[Sequence[bytes]] = None,
+                jpeg_tables: Optional[bytes] = None,
+                ycbcr_subsampling: Optional[Tuple[int, int]] = None,
+                zlib_level: int = 6, tags: Optional[dict] = None,
+                omit: Sequence[int] = (), width: Optional[int] = None,
+                height: Optional[int] = None) -> bytes:
+    """A one-page TIFF file of samples [h, w] or [h, w, spp] (ints below
+    2**bits, or float32 with sample_format 3): strips of `rows_per_strip`
+    rows (default: one strip) or tiles of `tile` = (width, length) (edge
+    tiles padded with zeros); PlanarConfiguration 1 or 2; compression 1
+    (none), 5 (LZW; `old_lzw` for LSB-first codes), 8 (Deflate, zlib),
+    32773 (PackBits) or 7 with `segments` (each strip's or tile's bytes,
+    given: a JPEG stream) and `jpeg_tables`; predictor 2 or 3; FillOrder
+    2 (every byte of each segment's data bit-reversed); II or MM byte
+    order ("<" or ">"), classic or BigTIFF (8-byte offsets, LONG8
+    strip and tile offsets). `tags` adds or overrides {tag: (type,
+    values)}, `omit` leaves tags out (a file that is corrupt on
+    purpose)."""
+    import zlib
+    a = np.asarray(samples)
+    if a.ndim == 2:
+        a = a[..., None]
+    h, w, spp = a.shape
+    segs = []
+    if tile:
+        tw, th = tile
+        across, down = -(-w // tw), -(-h // th)
+        grid = np.zeros((down * th, across * tw, spp), a.dtype)
+        grid[:h, :w] = a
+        boxes = [(y * th, x * tw, th, tw) for y in range(down)
+                 for x in range(across)]
+    else:
+        rps = rows_per_strip or h
+        grid = a
+        boxes = [(y, 0, min(rps, h - y), w) for y in range(0, h, rps)]
+    planes = range(spp) if planar == 2 else [None]
+    if segments is None:
+        for p in planes:
+            for y, x, bh, bw in boxes:
+                block = grid[y:y + bh, x:x + bw]
+                block = block[..., p] if p is not None else block
+                rows = block.reshape(bh, -1)
+                stride = 1 if p is not None else spp
+                if predictor in (2, 3):
+                    raw = tiff_predict(rows, stride, bits, predictor,
+                                       byteorder)
+                else:
+                    raw = tiff_rows(rows, bits, byteorder)
+                data = raw.tobytes()
+                if compression == 5:
+                    data = tiff_lzw(data, old_lzw)
+                elif compression in (8, 32946):
+                    data = zlib.compress(data, zlib_level)
+                elif compression == 32773:
+                    data = tiff_packbits(data)
+                if fill_order == 2:
+                    data = BITREV[np.frombuffer(data, np.uint8)].tobytes()
+                segs.append(data)
+    else:
+        segs = list(segments)
+    off_type = 16 if bigtiff else 4
+    t = {256: (4, [width or w]), 257: (4, [height or h]),
+         258: (3, [bits] * spp), 259: (3, [compression]),
+         262: (3, [photometric]), 277: (3, [spp])}
+    if fill_order != 1:
+        t[266] = (3, [fill_order])
+    if planar != 1:
+        t[284] = (3, [planar])
+    if predictor != 1:
+        t[317] = (3, [predictor])
+    if extra_samples:
+        t[338] = (3, list(extra_samples))
+    if sample_format is not None:
+        t[339] = (3, [sample_format] * spp)
+    if colormap is not None:
+        t[320] = (3, np.asarray(colormap).T.reshape(-1).tolist())
+    if orientation is not None:
+        t[274] = (3, [orientation])
+    if jpeg_tables is not None:
+        t[347] = (7, list(jpeg_tables))
+    if ycbcr_subsampling is not None:
+        t[530] = (3, list(ycbcr_subsampling))
+    if tile:
+        t[322] = (4, [tile[0]])
+        t[323] = (4, [tile[1]])
+    elif rows_per_strip:
+        t[278] = (4, [rows_per_strip])
+    offs_tag, counts_tag = (324, 325) if tile else (273, 279)
+    t[counts_tag] = (off_type, [len(s) for s in segs])
+    t[offs_tag] = (off_type, [0] * len(segs))    # filled in below
+    for tag, value in (tags or {}).items():
+        t[tag] = value
+    for tag in omit:
+        t.pop(tag, None)
+    e = byteorder
+    head = 16 if bigtiff else 8
+    out = bytearray(head)
+    offsets = []
+    for s in segs:
+        offsets.append(len(out))
+        out += s
+        if len(out) & 1:
+            out.append(0)
+    if offs_tag in t and offs_tag not in (tags or {}):
+        t[offs_tag] = (t[offs_tag][0], offsets)
+    entry, count_fmt, inline = (20, "Q", 8) if bigtiff else (12, "I", 4)
+    blobs = {}
+    for tag, (typ, values) in sorted(t.items()):
+        fmt = _TIFF_FMT[typ]
+        if typ == 5:
+            data = b"".join(struct.pack(e + "II", *v) for v in values)
+        else:
+            data = struct.pack(f"{e}{len(values)}{fmt}", *values)
+        if len(data) > inline:
+            blobs[tag] = len(out)
+            out += data
+            if len(out) & 1:
+                out.append(0)
+    ifd = len(out)
+    out += struct.pack(e + ("Q" if bigtiff else "H"), len(t))
+    for tag, (typ, values) in sorted(t.items()):
+        count = len(values) if typ != 5 else len(values)
+        out += struct.pack(f"{e}HH{count_fmt}", tag, typ, count)
+        if tag in blobs:
+            out += struct.pack(e + ("Q" if bigtiff else "I"), blobs[tag])
+        else:
+            if typ == 5:
+                data = b"".join(struct.pack(e + "II", *v) for v in values)
+            else:
+                data = struct.pack(f"{e}{len(values)}{_TIFF_FMT[typ]}",
+                                   *values)
+            out += data.ljust(inline, b"\x00")
+    out += bytes(8 if bigtiff else 4)
+    magic = b"II" if e == "<" else b"MM"
+    if bigtiff:
+        out[:16] = magic + struct.pack(e + "HHHQ", 43, 8, 0, ifd)
+    else:
+        out[:8] = magic + struct.pack(e + "HI", 42, ifd)
+    return bytes(out)
+
+
+def jpeg_split_tables(data: bytes) -> Tuple[bytes, bytes]:
+    """A JPEG file as (a tables-only stream of its DQT and DHT segments,
+    the abbreviated stream without them): TIFF's JPEGTables and a
+    strip's or tile's data."""
+    tables, rest = [b"\xff\xd8"], [b"\xff\xd8"]
+    pos = 2
+    while data[pos + 1] != 0xDA:
+        n = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        (tables if data[pos + 1] in (0xDB, 0xC4) else rest).append(
+            data[pos:pos + 2 + n])
+        pos += 2 + n
+    rest.append(data[pos:])
+    return b"".join(tables) + b"\xff\xd9", b"".join(rest)
+
+
+def jpeg_frame(data: bytes) -> Tuple[int, int, list]:
+    """(width, height, [(h, v) sampling factors a component]) of a JPEG
+    file's frame header."""
+    pos = 2
+    while data[pos + 1] not in (0xC0, 0xC1, 0xC2):
+        pos += 2 + struct.unpack(">H", data[pos + 2:pos + 4])[0]
+    h, w, n = struct.unpack(">HHB", data[pos + 5:pos + 10])
+    comps = data[pos + 10:pos + 10 + 3 * n]
+    return w, h, [(comps[3 * k + 1] >> 4, comps[3 * k + 1] & 15)
+                  for k in range(n)]
+
+
+def tiff_from_jpeg(data: bytes, byteorder: str = "<") -> bytes:
+    """A JPEG file of 3 components (YCbCr) or 1 as a one-strip
+    JPEG-compressed TIFF: photometric YCbCr with the stream's luma
+    sampling as YCbCrSubsampling, or grayscale."""
+    w, h, sampling = jpeg_frame(data)
+    ycc = len(sampling) == 3
+    shape = (h, w, 3) if ycc else (h, w)
+    return encode_tiff(np.broadcast_to(np.uint8(0), shape),
+                       photometric=6 if ycc else 1, compression=7,
+                       segments=[data], byteorder=byteorder,
+                       ycbcr_subsampling=sampling[0] if ycc else None)

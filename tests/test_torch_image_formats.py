@@ -7,8 +7,10 @@ files made here equal Pillow's live decode (WebP qualities, methods,
 lossless and exact, alpha, animation and the encoder options Pillow does
 not reach; GIF and BMP of every mode); the JAX package's CocoDataset
 reads a COCO directory of the scenes in these formats as the port's
-does; decoder threads give one thread's arrays; the formats the reader
-does not take are named."""
+does; byte-edited copies of the alpha files give Pillow's outcome (a
+lossy frame's ALPH chunk decoded as libwebp decodes it); decoder threads
+give one thread's arrays; the formats the reader does not take are
+named."""
 
 import hashlib
 import io
@@ -144,6 +146,93 @@ def test_webp_alpha_and_animation_equal_pillow():
             frame = ic.frame_chunks(ic.pil_bytes(rgba, "WEBP", **kw))
             assert_like_pillow(iw.webp_container(
                 (w + 9, h + 5), [(4, 2, w, h, frame)]), f"offset {kw}")
+
+
+def _riff(chunks) -> bytes:
+    body = b"WEBP" + b"".join(iw._riff_chunk(c, b) for c, b in chunks)
+    return b"RIFF" + len(body).to_bytes(4, "little") + body
+
+
+def _like_pillow_or_both_raise(data: bytes, what: str) -> str:
+    """The native decode equals Pillow's, or both raise (the native one a
+    ValueError); returns which."""
+    try:
+        want = pillow(data)
+    except Exception:  # noqa: BLE001 - any error is Pillow's outcome
+        with pytest.raises(ValueError):
+            image_io.read_image(data)
+        return "error"
+    got = image_io.read_image(data)
+    assert got.shape == want.shape and np.array_equal(got, want), what
+    return "pixels"
+
+
+ALPHA_FILES = sorted(n for n in INDEX["files"]
+                     if n.startswith(("webp_lossy_alpha_",
+                                      "webp_lossless_exact_alpha_")))
+
+
+@pytest.mark.parametrize("name", ALPHA_FILES)
+def test_webp_alpha_edits_give_pillows_outcome(name):
+    """Byte-edited copies of the corpus's alpha files against live Pillow
+    (libwebp decodes a lossy frame's ALPH chunk even though Pillow's RGB
+    drops it, and fails where it does not decode): every value of the
+    ALPH header byte (compression method, filter, pre-processing,
+    reserved bits), the chunk truncated, a byte flipped anywhere in its
+    VP8L stream, raw alpha of each filter at, below and past the frame's
+    size, the ALPH chunk before a VP8L bitstream; for the lossless file,
+    bytes flipped in its VP8L bitstream. Each gives Pillow's outcome,
+    pixels or an error; the unedited file keeps its digest."""
+    pytest.importorskip("PIL")
+    data = (ic.CORPUS / name).read_bytes()
+    assert digest(image_io.read_image(data)) == INDEX["files"][name]["sha256"]
+    chunks = iw.webp_chunks(data)
+    fourccs = [c for c, _ in chunks]
+    seen = set()
+    if b"ALPH" not in fourccs:
+        k = fourccs.index(b"VP8L")
+        body = chunks[k][1]
+        for pos in range(5, len(body), 2):
+            edited = bytearray(body)
+            edited[pos] ^= 0xFF
+            seen.add(_like_pillow_or_both_raise(_riff(
+                chunks[:k] + [(b"VP8L", bytes(edited))] + chunks[k + 1:]),
+                f"VP8L byte {pos}"))
+        assert seen == {"pixels", "error"}
+        return
+    k = fourccs.index(b"ALPH")
+    alph = chunks[k][1]
+
+    def with_alpha(body):
+        return _riff(chunks[:k] + [(b"ALPH", body)] + chunks[k + 1:])
+
+    for header in range(256):
+        seen.add(_like_pillow_or_both_raise(
+            with_alpha(bytes([header]) + alph[1:]), f"header {header:#x}"))
+    for cut in sorted({0, 1, 2, 3, len(alph) // 2, len(alph) - 1}):
+        seen.add(_like_pillow_or_both_raise(with_alpha(alph[:cut]),
+                                            f"cut at {cut}"))
+    for pos in range(1, len(alph)):
+        for x in (0x01, 0xFF):
+            edited = bytearray(alph)
+            edited[pos] ^= x
+            seen.add(_like_pillow_or_both_raise(with_alpha(bytes(edited)),
+                                                f"byte {pos} ^ {x}"))
+    h, w = INDEX["files"][name]["shape"]
+    values = np.random.RandomState(h * w).randint(0, 256, h * w)
+    for filt in range(4):
+        for extra in (-1, 0, 3):
+            raw = values.astype(np.uint8).tobytes() + bytes(max(extra, 0))
+            seen.add(_like_pillow_or_both_raise(with_alpha(
+                bytes([filt << 2]) + raw[:h * w + min(extra, 0)]),
+                f"raw filter {filt} {extra}"))
+    lossless = (ic.CORPUS / name.replace("lossy_alpha",
+                                         "lossless")).read_bytes()
+    vp8l = [c for c in iw.webp_chunks(lossless) if c[0] == b"VP8L"]
+    head = [c for c in chunks if c[0] == b"VP8X"]
+    seen.add(_like_pillow_or_both_raise(_riff(head + [(b"ALPH", alph)]
+                                              + vp8l), "ALPH before VP8L"))
+    assert seen == {"pixels", "error"}
 
 
 @pytest.mark.parametrize("kw", [
@@ -319,10 +408,14 @@ def test_rle_ends_and_deltas_equal_pillow():
 # ------------------------------------------------------------ refusals
 
 def test_other_formats_and_plain_route_are_named():
-    """A TIFF header is no format the reader takes; the plain route reads
-    PNG and JPEG only and names the format it does not read; a corrupt
-    file of each new format raises ValueError."""
-    with pytest.raises(ValueError, match="not a PNG, JPEG, WebP, GIF or BMP"):
+    """A PPM header is no format the reader takes (a TIFF header alone is
+    a corrupt TIFF); the plain route reads PNG and JPEG only and names
+    the format it does not read; a corrupt file of each new format
+    raises ValueError."""
+    with pytest.raises(ValueError,
+                       match="not a PNG, JPEG, WebP, GIF, BMP or TIFF"):
+        image_io.read_image(b"P6\n5 3\n255\n" + bytes(64))
+    with pytest.raises(ValueError, match="TIFF"):
         image_io.read_image(b"II*\x00" + bytes(64))
     for name in ("webp_lossless_5x3.webp", "gif_global_table_5x3.gif",
                  "bmp_24bit_5x3.bmp"):

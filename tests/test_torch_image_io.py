@@ -269,16 +269,22 @@ def test_unsupported_modes_raise_naming_them():
         image_io.read_image(_raw_png(rows, 5, 2, [0] * 5, 3, depth=16),
                             plain=True)
     for plain in (False, True):
-        # a TIFF header: a format neither route reads
+        # a PPM header: a format Pillow reads that neither route reads
         with pytest.raises(ValueError,
-                           match="not a PNG, JPEG, WebP, GIF or BMP"):
-            image_io.read_image(b"II*\x00" + bytes(12), plain=plain)
+                           match="not a PNG, JPEG, WebP, GIF, BMP or TIFF"):
+            image_io.read_image(b"P6\n5 3\n255\n" + bytes(45), plain=plain)
         # a header claiming more pixels than Pillow's decompression-bomb
         # limit
         huge = bytearray(_raw_png(rows, 5, 2, [0] * 5, 3))
         huge[16:24] = struct.pack(">II", 20000, 20000)
         with pytest.raises(ValueError, match="image size"):
             image_io.read_image(bytes(huge), plain=plain)
+    # a TIFF header alone: a corrupt TIFF to the native route, a format
+    # the plain route does not read
+    with pytest.raises(ValueError, match="TIFF"):
+        image_io.read_image(b"II*\x00" + bytes(12))
+    with pytest.raises(NotImplementedError, match="TIFF: the plain route"):
+        image_io.read_image(b"II*\x00" + bytes(12), plain=True)
     # a GIF signature alone: a truncated GIF to the native route, a
     # format the plain route does not read
     with pytest.raises(ValueError, match="not a GIF file"):

@@ -10,8 +10,10 @@ one reads; a failed build raises naming the compiler, with no fallback."""
 import hashlib
 import io
 import json
+import struct
 import subprocess
 import sys
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -57,18 +59,18 @@ def test_refused_corpus_file_names_its_mode(name):
 
 def test_corpus_is_whole_and_small():
     """The index names every file of the corpus, the JPEG and PNG files
-    hold at most 400 KB in all and the WebP, GIF and BMP ones 600 KB, the
-    scenes are COCO-sized and one is progressive, and the generator would
-    write the same bytes again."""
+    hold at most 400 KB in all, the WebP, GIF and BMP ones 600 KB and the
+    TIFF ones 500 KB, the scenes are COCO-sized and one is progressive,
+    and the generator would write the same bytes again."""
     files = {p.name for p in ic.CORPUS.iterdir()} - {"index.json"}
     assert files == set(INDEX["files"]) | set(INDEX["refused"])
-    formats = (".webp", ".gif", ".bmp")
-    sizes = [(p.suffix in formats, p.stat().st_size)
+    group = {".webp": "formats", ".gif": "formats", ".bmp": "formats",
+             ".tif": "tiff"}
+    sizes = [(group.get(p.suffix, "jpeg_png"), p.stat().st_size)
              for p in ic.CORPUS.iterdir() if p.name != "index.json"]
-    # the JPEG and PNG files within 400 KB, the WebP, GIF and BMP ones
-    # within 600 KB
-    assert sum(n for new, n in sizes if not new) <= 400_000
-    assert sum(n for new, n in sizes if new) <= 600_000
+    limits = {"jpeg_png": 400_000, "formats": 600_000, "tiff": 500_000}
+    for name, limit in limits.items():
+        assert sum(n for g, n in sizes if g == name) <= limit, name
     assert {INDEX["files"][s]["shape"][0] for s in INDEX["scenes"]} == {480}
     assert any("progressive" in s for s in INDEX["scenes"])
     for name, data in ic.jpeg_cases()[:6] + ic.png_cases()[:4]:
@@ -181,6 +183,46 @@ def test_native_route_equals_plain_route():
     assert both >= 25
 
 
+def test_png_image_data_inflates_as_zlib_decompress():
+    """The native route inflates a PNG's image data with the decoder's own
+    inflate (TIFF's Deflate), the plain route with zlib.decompress: on
+    good, stored and dynamic streams, a bad Adler-32, truncated streams,
+    bytes after the stream, more or less data than the image holds and
+    flipped bytes, the two give the same pixels or both raise (the native
+    route a ValueError, the plain one zlib's error or a ValueError)."""
+    rng = np.random.RandomState(21)
+    h, w = 37, 53
+    good = ic.png_bytes(rng.randint(0, 256, (h, w * 3)), w, 8, 2, rng)
+    pos, idat = 8, b""
+    while pos < len(good):
+        length, kind = struct.unpack(">I4s", good[pos:pos + 8])
+        if kind == b"IDAT":
+            idat += good[pos + 8:pos + 8 + length]
+        pos += 12 + length
+    raw = zlib.decompress(idat)
+    streams = [zlib.compress(raw, level) for level in (0, 1, 9)]
+    z = streams[-1]
+    streams += [z[:-1] + bytes([z[-1] ^ 1]), z[:-4], z[:len(z) // 2], b"",
+                z + b"junk", zlib.compress(raw + bytes(100)),
+                zlib.compress(raw[:-10])]
+    for k in range(2, len(z), max(1, len(z) // 40)):
+        flipped = bytearray(z)
+        flipped[k] ^= 0x5A
+        streams.append(bytes(flipped))
+    head = good[:8 + 25]                             # signature, IHDR
+    for k, stream in enumerate(streams):
+        png = (head + ic._chunk(b"IDAT", stream)
+               + ic._chunk(b"IEND", b""))
+        try:
+            want = image_io.read_image(png, plain=True)
+        except (ValueError, zlib.error):
+            with pytest.raises(ValueError):
+                image_io.read_image(png)
+            continue
+        np.testing.assert_array_equal(image_io.read_image(png), want,
+                                      err_msg=str(k))
+
+
 def test_read_image_never_takes_the_plain_route(monkeypatch):
     def refuse(data):
         raise AssertionError("the plain route ran")
@@ -216,8 +258,12 @@ def test_corrupt_files_raise_value_errors():
     data = (REPO / "images" / "sample.jpg").read_bytes()
     with pytest.raises(ValueError, match="truncated"):
         image_io.read_image(data[:len(data) // 2])
-    # a TIFF header: a format the reader does not take
-    with pytest.raises(ValueError, match="not a PNG, JPEG, WebP, GIF or BMP"):
+    # a PPM header: a format the reader does not take
+    with pytest.raises(ValueError,
+                       match="not a PNG, JPEG, WebP, GIF, BMP or TIFF"):
+        image_io.read_image(b"P6\n5 3\n255\n" + data)
+    # a TIFF header before a JPEG: a TIFF whose directory is garbage
+    with pytest.raises(ValueError, match="TIFF"):
         image_io.read_image(b"II*\x00" + data)
     # "BM" before a JPEG: a BMP whose header runs past the file
     with pytest.raises(ValueError, match="BMP: truncated header"):

@@ -165,10 +165,10 @@ def test_demo_sources_import_no_jax_pil_nbformat_matplotlib(path):
 
 
 # a ctypes (or dlopen) load of a system image codec: the port decodes
-# WebP, GIF and BMP with its own sources (csrc/), never with libwebp or
-# giflib
+# WebP, GIF, BMP and TIFF (Deflate included) with its own sources (csrc/),
+# never with libwebp, giflib, libtiff or zlib's library
 CODEC_LOAD = re.compile(r"(find_library|CDLL|LoadLibrary|dlopen)\s*\("
-                        r"[^)]*\b(lib)?(webp|gif)\b")
+                        r"[^)]*\b(lib)?(webp|gif|tiff|z)\b")
 
 
 @pytest.mark.parametrize("path", ["chip_smoke.py", "maskrcnn_tpu_torch",
@@ -177,14 +177,16 @@ CODEC_LOAD = re.compile(r"(find_library|CDLL|LoadLibrary|dlopen)\s*\("
                                   "tools/image_decode_bench_torch.py"])
 def test_port_sources_load_no_system_codec(path):
     """The port's sources and image-reading scripts, read as text: no
-    ctypes or dlopen load of libwebp or giflib, and the C++ decoders
-    include no codec library's header."""
+    ctypes or dlopen load of libwebp, giflib, libtiff or libz, and the
+    C++ decoders include no codec library's header (zlib.h and tiffio.h
+    among them)."""
     root = REPO / path
     files = (sorted(root.rglob("*.py")) + sorted(root.rglob("*.cpp"))
              if root.is_dir() else [root])
     bad = [str(f.relative_to(REPO)) for f in files
            if CODEC_LOAD.search(f.read_text())
-           or re.search(r"#include\s*[<\"](webp|gif_lib|png|jpeglib|zlib)",
+           or re.search(r"#include\s*[<\"](webp|gif_lib|png|jpeglib|zlib|"
+                        r"tiffio|tiff)",
                         f.read_text())]
     assert not bad, bad
 

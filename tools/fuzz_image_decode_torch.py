@@ -1,0 +1,130 @@
+#!/usr/bin/env python3
+"""Mutation fuzzing of the port's native image decoders under AddressSanitizer
+and UndefinedBehaviorSanitizer: csrc/image_decode.cpp (JPEG, GIF, BMP, TIFF)
+or csrc/webp_decode.cpp (WebP) built with g++ -fsanitize=address,undefined
+into build/maskrcnn_tpu_torch/fuzz/, then each worker process decodes
+mutated copies of the committed corpus's files (tests/data/image_io) of
+one format through the size and decode calls, as data/native_image.py
+makes them: bytes set, bits flipped, 2-, 4- and 8-byte integers near
+the type limits written, the file cut short. An error the decoder
+reports is the expected outcome; a sanitizer report stops the worker and
+the run exits 1.
+
+    python3 tools/fuzz_image_decode_torch.py --format tiff [--glob 'tiff_*']
+        [--mutations 3000] [--workers 4] [--seed 1]
+
+Host only, no card; a worker holds at most a 4-megapixel output.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import random
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+CORPUS = REPO / "tests" / "data" / "image_io"
+CSRC = REPO / "maskrcnn_tpu_torch" / "csrc"
+OUT = REPO / "build" / "maskrcnn_tpu_torch" / "fuzz"
+SOURCES = {"webp": "webp_decode.cpp"}
+SUFFIX = {"jpeg": ".jpg", "gif": ".gif", "bmp": ".bmp", "tiff": ".tif",
+          "webp": ".webp"}
+LIMITS = (0, 1, 2, 7, 8, 15, 16, 255, 256, 65535, 2 ** 31 - 1, 2 ** 31,
+          2 ** 32 - 1, 2 ** 61, 2 ** 63, 2 ** 64 - 1)
+MAX_PIXELS = 4_000_000
+
+
+def build(fmt: str) -> Path:
+    source = CSRC / SOURCES.get(fmt, "image_decode.cpp")
+    lib = OUT / f"lib{source.stem}_asan.so"
+    if not lib.exists() or lib.stat().st_mtime < source.stat().st_mtime:
+        OUT.mkdir(parents=True, exist_ok=True)
+        subprocess.run(["g++", "-O1", "-g", "-shared", "-fPIC", "-std=c++17",
+                        "-fwrapv", "-fsanitize=address,undefined",
+                        "-fno-sanitize-recover=all", "-o", str(lib),
+                        str(source)], check=True)
+    return lib
+
+
+def mutate(rng: random.Random, data: bytes) -> bytes:
+    d = bytearray(data)
+    for _ in range(rng.randint(1, 8)):
+        p = rng.randrange(len(d))
+        r = rng.random()
+        if r < 0.5:
+            d[p] = rng.randrange(256)
+        elif r < 0.7:
+            d[p] ^= 1 << rng.randrange(8)
+        elif r < 0.85:
+            size = rng.choice((2, 4, 8))
+            v = min(rng.choice(LIMITS), 256 ** size - 1)
+            d[p:p + size] = v.to_bytes(size, rng.choice(("little", "big")))
+        else:
+            d = d[:max(p, 4)]
+    return bytes(d)
+
+
+def worker(lib_path: str, fmt: str, pattern: str, mutations: int,
+           seed: int) -> None:
+    lib = ctypes.CDLL(lib_path)
+    size_fn, decode_fn = (getattr(lib, f"mrt_{fmt}_{k}")
+                          for k in ("size", "decode"))
+    msg = ctypes.create_string_buffer(512)
+    files = [p.read_bytes() for p in sorted(CORPUS.glob(pattern))
+             if p.suffix == SUFFIX[fmt] and p.stat().st_size < 20000]
+    if not files:
+        raise SystemExit(f"no {fmt} corpus file matches {pattern}")
+    rng = random.Random(seed)
+    for _ in range(mutations):
+        data = mutate(rng, rng.choice(files))
+        h, w = ctypes.c_int32(), ctypes.c_int32()
+        if size_fn(data, len(data), ctypes.byref(h), ctypes.byref(w), msg,
+                   512):
+            continue
+        if min(h.value, w.value) < 1 or h.value * w.value > MAX_PIXELS:
+            continue
+        out = ctypes.create_string_buffer(h.value * w.value * 3)
+        decode_fn(data, len(data), out, h.value, w.value, msg, 512)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--format", choices=sorted(SUFFIX), required=True)
+    ap.add_argument("--glob", default="*")
+    ap.add_argument("--mutations", type=int, default=3000)
+    ap.add_argument("--workers", type=int, default=4)
+    ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--worker-seed", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.worker_seed is not None:
+        worker(str(build(args.format)), args.format, args.glob,
+               args.mutations, args.worker_seed)
+        return 0
+    build(args.format)
+    runtimes = [subprocess.run(["g++", f"-print-file-name={name}"],
+                               capture_output=True, text=True,
+                               check=True).stdout.strip()
+                for name in ("libasan.so", "libubsan.so")]
+    env = dict(os.environ, LD_PRELOAD=":".join(runtimes),
+               ASAN_OPTIONS="detect_leaks=0",
+               UBSAN_OPTIONS="print_stacktrace=1")
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--format", args.format, "--glob",
+         args.glob, "--mutations", str(args.mutations),
+         "--worker-seed", str(args.seed + k)], env=env)
+        for k in range(args.workers)]
+    failed = [k for k, p in enumerate(procs) if p.wait() != 0]
+    total = args.workers * args.mutations
+    print(f"{args.format}: {total} mutations of {args.glob}, "
+          f"{len(failed)} workers stopped by a sanitizer report "
+          f"(seeds {[args.seed + k for k in failed]})", flush=True)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -3,14 +3,19 @@
 (`read_image`, csrc/image_decode.cpp and csrc/webp_decode.cpp) beside
 the plain Python route (`read_image(..., plain=True)`, JPEG and PNG
 only), over repository JPEG files and the first corpus scene (640x480)
-as lossy WebP (q80), lossless WebP, GIF and BMP (the GIF and BMP written
-here from the JPEG scene's decode by tests/image_writers.py, numpy only);
-decodes a second of the committed corpus's two baseline 640x480 JPEG
-scenes (tests/data/image_io) on 1 and 4 threads, each route, and of its
-three lossy WebP scenes natively, which shows whether a decode leaves
-the GIL; and `data/pipeline.BatchLoader` images a second with 1 and 4
-worker threads over a COCO directory of the corpus's three scenes (a
-whole training sample: decode, resample, masks).
+as PNG, lossy WebP (q80), lossless WebP, GIF, BMP and TIFF (uncompressed, LZW
+with predictor 2, tiled Deflate with predictor 2, and its JPEG stream as
+a YCbCr 2x2 JPEG TIFF; the PNG written here from the JPEG scene's decode
+by `image_io.encode_png`, the GIF, BMP and TIFF ones by
+tests/image_writers.py, numpy and the standard library only); the PNG
+scene's image data inflated by the decoder's own inflate (PNG's and
+TIFF's) beside zlib.decompress; decodes a second of the committed corpus's two baseline
+640x480 JPEG scenes (tests/data/image_io) on 1 and 4 threads, each
+route, and of its three scenes as lossy WebP and as tiled Deflate TIFF
+natively, which shows whether a decode leaves the GIL; and
+`data/pipeline.BatchLoader` images a second with 1 and 4 worker threads
+over a COCO directory of the corpus's three scenes (a whole training
+sample: decode, resample, masks).
 
     python3 tools/image_decode_bench_torch.py [--reps 5] [--copies 8]
                                               [--json-out F]
@@ -24,6 +29,7 @@ card's host.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import statistics
@@ -31,6 +37,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -56,15 +63,32 @@ def image_writers():
     return image_writers
 
 
-def scene_files(fmt: str) -> list:
-    """[(name, bytes)] of the corpus's three JPEG scenes in one format, in
-    the order of the index's scenes: "jpeg" the files; "bmp" (24-bit) and
-    "gif" (a fixed 3-3-2 palette) written from their native decodes;
-    "webp" the committed q80 files; "webp_lossless" the committed
-    lossless file of the first scene (its JPEG decode's pixels) and the
-    other two as their JPEG files."""
+# the TIFF files a scene is written as (tests/image_writers.encode_tiff;
+# tiles of 256x256, GeoTIFF's usual, so that the edge tiles are cropped)
+TIFF_WRITES = {"raw": dict(),
+               "lzw_predictor": dict(compression=5, predictor=2),
+               "tiled_lzw_predictor": dict(compression=5, predictor=2,
+                                           tile=(256, 256)),
+               "tiled_deflate_predictor": dict(compression=8, predictor=2,
+                                               tile=(256, 256))}
+
+
+@functools.lru_cache(maxsize=None)
+def scene_files(fmt: str, count: int = 3) -> tuple:
+    """((name, bytes), ...) of the corpus's first `count` JPEG scenes (of
+    three) in one format, in the order of the index's scenes: "jpeg" the
+    files; "png" (image_io.encode_png: filter 0, zlib's level 6), "bmp" (24-bit), "gif" (a fixed 3-3-2 palette) and
+    "tiff_<write>" (a TIFF_WRITES layout) written from their native
+    decodes; "webp" the
+    committed q80 files; "webp_lossless" the committed lossless file of
+    the first scene (its JPEG decode's pixels) and the other two as their
+    JPEG files; "tiff_jpeg" the baseline scenes' own JPEG streams as
+    one-strip YCbCr JPEG TIFF (tests/image_writers.tiff_from_jpeg: the
+    4:2:0 scene's subsampling 2x2, the 4:4:4 one's 1x1) and the
+    progressive scene as its JPEG file (libtiff's reading of a
+    progressive strip is not held to Pillow here)."""
     from maskrcnn_tpu_torch.data import image_io
-    names = list(corpus_index()["scenes"])
+    names = list(corpus_index()["scenes"])[:count]
     out = []
     for k, name in enumerate(names):
         data = (CORPUS / name).read_bytes()
@@ -72,33 +96,52 @@ def scene_files(fmt: str) -> list:
         if fmt == "webp" or (fmt == "webp_lossless" and k == 0):
             webp = WEBP_SCENES[k] if fmt == "webp" else LOSSLESS_SCENE
             out.append((webp, (CORPUS / webp).read_bytes()))
-        elif fmt in ("bmp", "gif"):
+        elif fmt == "tiff_jpeg" and "progressive" not in name:
+            out.append((f"{stem}_jpeg.tif", image_writers().tiff_from_jpeg(
+                data)))
+        elif fmt in ("png", "bmp", "gif") or (fmt.startswith("tiff_")
+                                              and fmt[5:] in TIFF_WRITES):
             iw = image_writers()
             img = image_io.read_image(data)
             h, w = img.shape[:2]
-            if fmt == "bmp":
+            if fmt == "png":
+                out.append((f"{stem}.png", image_io.encode_png(img)))
+            elif fmt == "bmp":
                 blob = iw.encode_bmp(w, h, 24,
                                      iw.bmp_pixels(img, 24)[::-1].tobytes())
-            else:
+                out.append((f"{stem}.bmp", blob))
+            elif fmt == "gif":
                 idx, palette = iw.quantize_332(img)
-                blob = iw.encode_gif(idx, global_palette=palette)
-            out.append((f"{stem}.{fmt}", blob))
+                out.append((f"{stem}.gif",
+                            iw.encode_gif(idx, global_palette=palette)))
+            else:
+                out.append((f"{stem}_{fmt[5:]}.tif",
+                            iw.encode_tiff(img, **TIFF_WRITES[fmt[5:]])))
         else:
             out.append((name, data))
-    return out
+    return tuple(out)
+
+
+FORMAT_TIMES = ("png", "webp", "webp_lossless", "gif", "bmp", "tiff_raw",
+                "tiff_lzw_predictor", "tiff_tiled_deflate_predictor",
+                "tiff_jpeg")
 
 
 def format_scenes() -> dict:
-    """{name: bytes} of the first scene as lossy WebP, lossless WebP, GIF
-    and BMP (the files decode_times times beside TIMED)."""
-    return {name: data for fmt in ("webp", "webp_lossless", "gif", "bmp")
-            for name, data in scene_files(fmt)[:1]}
+    """{name: bytes} of the first scene as PNG, lossy WebP, lossless WebP,
+    GIF, BMP, and TIFF uncompressed, LZW with predictor 2, tiled Deflate with
+    predictor 2 and YCbCr 2x2 JPEG (the files decode_times times beside
+    TIMED)."""
+    return {name: data for fmt in FORMAT_TIMES
+            for name, data in scene_files(fmt, 1)}
 
 
-def coco_scene_dir(root: Path, copies: int, fmt: str = "jpeg") -> str:
+def coco_scene_dir(root: Path, copies: int, fmt: str = "jpeg",
+                   limit: Optional[int] = None) -> str:
     """A COCO directory (minival 2014 names) of the corpus's scenes in
-    `fmt` (scene_files), each `copies` times, with the JPEG scenes'
-    annotations. Returns the directory."""
+    `fmt` (scene_files), each `copies` times (the first `limit` images
+    of those, where given), with the JPEG scenes' annotations. Returns
+    the directory."""
     index = corpus_index()
     root = Path(root) / "coco"
     (root / "annotations").mkdir(parents=True, exist_ok=True)
@@ -109,6 +152,8 @@ def coco_scene_dir(root: Path, copies: int, fmt: str = "jpeg") -> str:
         for (name, data), (scene, scene_anns) in zip(
                 files, index["scenes"].items()):
             i = len(images) + 1
+            if limit is not None and i > limit:
+                break
             h, w = index["files"][scene]["shape"]
             file_name = f"COCO_val2014_{i:012d}{Path(name).suffix}"
             (root / "val2014" / file_name).write_bytes(data)
@@ -152,21 +197,49 @@ def decode_times(reps: int = 5) -> dict:
     return out
 
 
+def inflate_times(reps: int = 5) -> dict:
+    """{"own_ms", "zlib_ms", "bytes", "zlib"}: the PNG scene's image data
+    (its IDAT chunks joined) inflated by the decoder's own inflate
+    (native_image.inflate) and by zlib.decompress (the zlib Python runs,
+    its version under "zlib"), medians of `reps`."""
+    import struct
+    import zlib
+
+    from maskrcnn_tpu_torch.data import native_image
+    data = scene_files("png", 1)[0][1]
+    pos, z = 8, b""
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        if kind == b"IDAT":
+            z += data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+    raw = zlib.decompress(z)
+    if native_image.inflate(z, len(raw)) != raw:
+        raise RuntimeError("the decoder's inflate differs from zlib's")
+    return {"own_ms": median_ms(lambda: native_image.inflate(z, len(raw)),
+                                reps),
+            "zlib_ms": median_ms(lambda: zlib.decompress(z), reps),
+            "bytes": len(z), "zlib": zlib.ZLIB_RUNTIME_VERSION}
+
+
 def decode_rates(decodes: int = 48) -> dict:
     """{route: {threads: decodes a second}}: `decodes` decodes (a quarter
     of them on the plain route) of the two baseline JPEG scenes
-    ("native", "plain") or of the three lossy WebP scenes ("webp"),
+    ("native", "plain"), of the three lossy WebP scenes ("webp") or of
+    the three scenes as tiled Deflate TIFF with predictor 2 ("tiff"),
     spread over 1 and 4 threads."""
     from concurrent.futures import ThreadPoolExecutor
 
     from maskrcnn_tpu_torch.data import image_io
     jpeg = [(CORPUS / n).read_bytes()
             for n in ("scene_baseline_420.jpg", "scene_baseline_444.jpg")]
-    webp = [(CORPUS / n).read_bytes() for n in WEBP_SCENES]
+    files = {"webp": [(CORPUS / n).read_bytes() for n in WEBP_SCENES],
+             "tiff": [d for _, d in scene_files(
+                 "tiff_tiled_deflate_predictor")]}
     out = {}
-    for route in ("native", "plain", "webp"):
+    for route in ("native", "plain", "webp", "tiff"):
         n = decodes // 4 if route == "plain" else decodes
-        data = webp if route == "webp" else jpeg
+        data = files.get(route, jpeg)
 
         def decode(i, plain=route == "plain", data=data):
             return image_io.read_image(data[i % len(data)], plain=plain)
@@ -222,6 +295,10 @@ def main(argv=None) -> int:
         print(f"{name}: " + ", ".join(
             f"{k} {v:.2f}" if v is not None else f"{k} refused"
             for k, v in row.items()), flush=True)
+    inflate = inflate_times(args.reps)
+    print(f"PNG scene's image data ({inflate['bytes']} bytes) inflated: "
+          f"own {inflate['own_ms']:.2f} ms, zlib {inflate['zlib']} "
+          f"{inflate['zlib_ms']:.2f} ms", flush=True)
     threads = decode_rates()
     for route, row in threads.items():
         print(f"{route} decodes of the scenes: 1 thread "
@@ -233,7 +310,8 @@ def main(argv=None) -> int:
           f"({rates[4] / rates[1]:.2f}x)", flush=True)
     if args.json_out:
         with open(args.json_out, "w") as f:
-            json.dump({"decode_ms": times, "decode_threads": threads,
+            json.dump({"decode_ms": times, "inflate_ms": inflate,
+                       "decode_threads": threads,
                        "loader_img_s": rates, "reps": args.reps}, f,
                       indent=1)
     return 0

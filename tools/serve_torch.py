@@ -8,15 +8,18 @@ coalesced into device batches by `maskrcnn_tpu_torch.serving
                                 [--int8 [--int8-skip C4,C5]]
                                 [--calib-stats stats.json]
 
-    POST /detect   body: JPEG, PNG, WebP, GIF or BMP bytes
+    POST /detect   body: JPEG, PNG, WebP, GIF, BMP or TIFF bytes
         -> {"detections": [{"class_id", "class_name", "score",
                             "box": [y1, x1, y2, x2],
                             "mask_rle": {"size", "counts"}}, ...]}
     GET /healthz   -> {"ok": true, "batches": N, "images": M}
 
 The Detector runs on the card; --tiny runs TinyConfig on the CPU (the
-smoke and test mode). A posted JPEG, PNG, WebP, GIF or BMP is
-decoded without Pillow (maskrcnn_tpu_torch/data/image_io.py).
+smoke and test mode). A posted JPEG, PNG, WebP, GIF, BMP or TIFF (its
+first image) is decoded without Pillow
+(maskrcnn_tpu_torch/data/image_io.py); a file it refuses is answered
+500 with the reader's message (chip_smoke.py's phase 9d posts a JPEG, a
+WebP and a TIFF).
 """
 
 from __future__ import annotations
