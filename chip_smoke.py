@@ -143,18 +143,22 @@ Phases, each printing one line:
     8e utils.profiler.trace around one step writes a Chrome trace;
  9. after phase 8, image files and learning (tools/learning_torch.py):
     9a the port's native PNG, JPEG, BMP, GIF, WebP and TIFF decoders
-    (data/native_image.py, csrc/image_decode.cpp and csrc/webp_decode.cpp
+    (data/native_image.py, csrc/image_decode.cpp with the TIFF codecs'
+    tiff_zstd.cpp, tiff_xz.cpp and tiff_fax.cpp, and csrc/webp_decode.cpp
     built with g++) give Pillow's pixels for every repository image and
-    every file of the committed corpus (tests/data/image_io; SHA-256
-    digests taken with Pillow 12.1.0; the card's machine has no Pillow,
-    and no libwebp, giflib or libtiff is loaded; the decoder library
-    links only the C and C++ runtimes and imports no zlib symbol: PNG's
-    and TIFF's inflate is its own) and equal the plain Python route on
-    the repository images, the corpus's refused files name their modes,
-    host ms a decode native beside plain (640x480, 1252², the progressive
-    scene, and the first scene as PNG, lossy and lossless WebP, GIF, BMP,
-    and TIFF uncompressed, LZW with predictor 2, tiled Deflate with
-    predictor 2 and YCbCr 2x2 JPEG), the PNG scene's inflate beside
+    every file of the committed corpus (tests/data/image_io, with ZSTD,
+    LZMA and CCITT TIFF, and the first scene as ZSTD and LZMA TIFF,
+    tests/data/tiff_scenes; SHA-256 digests taken with Pillow 12.1.0; the
+    card's machine has no Pillow, and no libwebp, giflib or libtiff is
+    loaded; the decoder library links only the C and C++ runtimes and
+    imports no zlib, libtiff, libzstd, XXH or liblzma symbol: PNG's and
+    TIFF's inflate, ZSTD, xz and fax decoders are its own) and equal the
+    plain Python route on the repository images, the corpus's refused
+    files name their modes, host ms a decode native beside plain
+    (640x480, 1252², the progressive scene, and the first scene as PNG,
+    lossy and lossless WebP, GIF, BMP, and TIFF uncompressed, LZW with
+    predictor 2, tiled Deflate with predictor 2, YCbCr 2x2 JPEG, ZSTD and
+    LZMA with predictor 2 and its bilevel as Group 4), the PNG scene's inflate beside
     zlib's, decodes a second on 1 and 4 threads each route and of the lossy WebP
     and tiled Deflate TIFF scenes, BatchLoader img/s with 1 and 4
     workers, write_png read back exactly;
@@ -188,9 +192,11 @@ Phases, each printing one line:
     with predictor 2 (24 images; the JPEG decodes' pixels: detections
     equal the JPEG sweep's), as lossy WebP and GIF files (one batch each:
     detections found) and with the baseline scenes' JPEG streams as
-    YCbCr JPEG TIFF (24 images: detections equal too), K1, K2 and K4
-    launched in each; one POST each of the progressive JPEG, a lossy
-    WebP and a JPEG TIFF to tools/serve_torch.py's handler answered;
+    YCbCr JPEG TIFF (24 images: detections equal too) and with the first
+    as ZSTD and as LZMA TIFF with predictor 2 (one batch each: detections
+    equal the JPEG sweep's), K1, K2 and K4 launched in each; one POST
+    each of the progressive JPEG, a lossy WebP and a JPEG TIFF to
+    tools/serve_torch.py's handler answered;
 10. after phase 9, the spatial axis and the debug and tutorial surface:
     10a predict_step B=2 at 1024² with the backbone and FPN on 2 and 4
     row shards of the one card (parallel/spatial.py, in process):
@@ -3010,8 +3016,9 @@ def learning_tools():
 
 
 class DecoderBuild:
-    """The native image decoders (g++: csrc/image_decode.cpp and
-    csrc/webp_decode.cpp) built in two threads from when it is made,
+    """The native image decoders (g++: csrc/image_decode.cpp with the TIFF
+    codecs' sources, and csrc/webp_decode.cpp) built in two threads from
+    when it is made,
     beside the kernels' nvcc build; `wait` gives the seconds the later
     one took."""
 
@@ -3038,9 +3045,9 @@ class DecoderBuild:
 
 def decoder_links() -> dict:
     """What the JPEG/PNG/GIF/BMP/TIFF decoder library links (ldd) and
-    whether it imports a zlib or libtiff symbol (nm -D: no inflate or
-    TIFF*): {"ok", "needed", "nm"}; not ok without nm, whose reading the
-    claim needs."""
+    whether it imports a zlib, libtiff, libzstd, XXH or liblzma symbol
+    (nm -D: no inflate*, TIFF*, ZSTD_*, XXH* or lzma_*): {"ok", "needed",
+    "nm"}; not ok without nm, whose reading the claim needs."""
     from maskrcnn_tpu_torch.data import native_image
     path = str(native_image.library_path())
     out = subprocess.run(["ldd", path], capture_output=True, text=True,
@@ -3055,7 +3062,8 @@ def decoder_links() -> dict:
         undefined = subprocess.run([nm, "-D", "--undefined-only", path],
                                    capture_output=True, text=True,
                                    timeout=60).stdout
-        found = re.findall(r"\b(?:inflate|TIFF)\w*", undefined)
+        found = re.findall(r"\b(?:inflate|TIFF|ZSTD_|lzma_|XXH)\w*",
+                           undefined)
         ok = ok and not found
         nm_note = f"nm: {len(undefined.splitlines())} undefined symbols"
     else:
@@ -3072,16 +3080,20 @@ def decode_phase(card, build=None):
     (tests/data/image_io: progressive, CMYK and YCCK, Adobe RGB, sampling
     factors up to 4, Adam7 and every PNG bit depth; lossy and lossless,
     extended and animated WebP, GIF and BMP of every mode; TIFF of every
-    mode, compression, predictor, layout and orientation) decodes to its
-    Pillow digest, and each refused file raises NotImplementedError
-    naming its mode; neither Pillow nor a system libwebp, giflib or
-    libtiff is loaded, and the decoder library links only the C and C++
-    runtimes and imports no zlib or libtiff symbol (PNG's and TIFF's
-    inflate is the library's own); host ms a
-    decode, median of 5, native beside plain (images/sample.jpg 640x480,
-    output/detections.jpg 1252², the progressive scene, the first scene
-    as PNG, lossy and lossless WebP, GIF, BMP, and TIFF uncompressed, LZW
-    with predictor 2, tiled Deflate with predictor 2 and YCbCr 2x2 JPEG);
+    mode, compression (ZSTD, LZMA and every CCITT mode among them),
+    predictor, layout and orientation) decodes to its Pillow digest, and
+    each refused file raises NotImplementedError naming its mode; the
+    first scene as ZSTD and LZMA TIFF (tests/data/tiff_scenes) decodes to
+    its digest; neither Pillow nor a system libwebp, giflib or libtiff is
+    loaded, and the decoder library links only the C and C++ runtimes and
+    imports no zlib, libtiff, libzstd, XXH or liblzma symbol (PNG's and
+    TIFF's inflate, the ZSTD, xz and fax decoders are the library's own);
+    host ms a decode, median of 5, native beside plain (images/sample.jpg
+    640x480, output/detections.jpg 1252², the progressive scene, the
+    first scene as PNG, lossy and lossless WebP, GIF, BMP, and TIFF
+    uncompressed, LZW with predictor 2, tiled Deflate with predictor 2,
+    YCbCr 2x2 JPEG, ZSTD and LZMA with predictor 2, and its bilevel as
+    CCITT Group 4);
     the PNG scene's image data through the library's inflate beside
     zlib.decompress; decodes a second of the two baseline JPEG scenes on 1 and 4 threads,
     each route, and of the three scenes as lossy WebP and as tiled
@@ -3115,6 +3127,13 @@ def decode_phase(card, build=None):
             check(False, f"9a: corpus {name} was not refused")
         except NotImplementedError as e:
             check(word in str(e), f"9a: corpus {name} refused as {e}")
+    scene_tiffs = json.loads((bench.TIFF_SCENES / "index.json").read_text())
+    for name, entry in scene_tiffs.items():
+        img = image_io.read_image(bench.TIFF_SCENES / name)
+        check(list(img.shape) == entry["shape"] + [3]
+              and hashlib.sha256(img.tobytes()).hexdigest()
+              == entry["sha256"], f"9a: {name} decodes to other pixels "
+              "than Pillow's")
     times = bench.decode_times(5)
     inflate = bench.inflate_times(5)
     threads = bench.decode_rates()
@@ -3143,8 +3162,11 @@ def decode_phase(card, build=None):
           f"{build_s:.2f} s (two g++ threads, from the script's start in a "
           f"whole run); {len(IMAGE_DIGESTS)} repository images decode "
           f"to Pillow's pixels (SHA-256) and equal the plain route; corpus: "
-          f"{len(index['files'])} files to their digests, "
-          f"{len(index['refused'])} refused by name; no system codec "
+          f"{len(index['files'])} files to their digests (ZSTD, LZMA and "
+          f"CCITT among them), {len(index['refused'])} refused by name "
+          f"(an xz BCJ filter's among them); the "
+          f"first scene as ZSTD and as LZMA TIFF ({len(scene_tiffs)} "
+          f"committed files) to their digests; no system codec "
           f"loaded; host decode median of 5: {lines}; the PNG scene's "
           f"image data ({inflate['bytes']} bytes) inflated by the "
           f"library's own inflate {inflate['own_ms']:.2f} ms, by "
@@ -3159,7 +3181,8 @@ def decode_phase(card, build=None):
           f"worker {rates[1]:.1f} img/s, 4 workers {rates[4]:.1f} img/s "
           f"({rates[4] / rates[1]:.2f}x); write_png reads back exactly; "
           f"the decoder library links {links['needed']}, imports no "
-          f"zlib or libtiff symbol ({links['nm']}); {card}", flush=True)
+          f"zlib, libtiff, libzstd, XXH or liblzma symbol ({links['nm']}); "
+          f"{card}", flush=True)
 
 
 def same_detections(a, b) -> bool:
@@ -3180,17 +3203,20 @@ def same_detections(a, b) -> bool:
 # formats swept beside the JPEG files (image_decode_bench_torch.scene_files)
 FILES_COPIES, FILES_B = 8, 8
 FILES_FORMATS = ("bmp", "webp_lossless", "tiff_tiled_lzw_predictor", "webp",
-                 "gif", "tiff_jpeg")
+                 "gif", "tiff_jpeg", "tiff_zstd_predictor",
+                 "tiff_lzma_predictor")
 # the sweeps whose files hold the JPEG decodes' pixels, so their detections
 # equal the JPEG sweep's (the JPEG TIFF holds the baseline scenes' own JPEG
-# streams, which decode to their JPEG files' pixels)
+# streams, which decode to their JPEG files' pixels; the ZSTD and LZMA
+# TIFF the first scene's JPEG decode)
 SAME_PIXELS = ("plain", "bmp", "webp_lossless", "tiff_tiled_lzw_predictor",
-               "tiff_jpeg")
-# images a sweep: the WebP, GIF and BMP sweeps one batch (the first 8
-# images, so the JPEG sweep's first 8 results), to keep the whole script
-# within its time
+               "tiff_jpeg", "tiff_zstd_predictor", "tiff_lzma_predictor")
+# images a sweep: the WebP, GIF, BMP, ZSTD and LZMA sweeps one batch (the
+# first 8 images, so the JPEG sweep's first 8 results), to keep the whole
+# script within its time
 FILES_IMAGES = {"bmp": FILES_B, "webp_lossless": FILES_B, "webp": FILES_B,
-                "gif": FILES_B}
+                "gif": FILES_B, "tiff_zstd_predictor": FILES_B,
+                "tiff_lzma_predictor": FILES_B}
 
 
 def files_phase(kernels, card, cfg=None):
@@ -3207,8 +3233,10 @@ def files_phase(kernels, card, cfg=None):
     over the first batch of 8 images, FILES_IMAGES): BMP files, the first
     scene as lossless WebP, tiled LZW TIFF with predictor 2, and the
     baseline scenes' own JPEG streams as YCbCr JPEG TIFF (the progressive
-    scene as its JPEG file) hold the JPEG decodes' pixels, so their
-    detections equal the JPEG sweep's; lossy WebP and GIF (a fixed
+    scene as its JPEG file) and the first scene as ZSTD and as LZMA TIFF
+    with predictor 2 (committed, tests/data/tiff_scenes; the other scenes
+    as their JPEG files; one batch each) hold the JPEG decodes' pixels, so
+    their detections equal the JPEG sweep's; lossy WebP and GIF (a fixed
     palette) find detections; K1, K2 and K4 launched in every sweep. Then one POST each of the progressive scene, of a
     lossy WebP scene and of a JPEG TIFF scene to tools/serve_torch.py's
     handler on a localhost port is answered with detections. Returns the
@@ -3230,10 +3258,12 @@ def files_phase(kernels, card, cfg=None):
 
     def sweep(root, route, plain=False, n_images=3 * FILES_COPIES):
         ds = CocoDataset(root, "minival", 2014, cfg)
-        decode = {"s": 0.0, "native": 0}
+        decode = {"s": 0.0, "native": 0, "files": {}}
 
         def load_image(image_id, ds=ds):
             path = ds.image_path(ds.image_index(image_id))
+            suffix = Path(path).suffix
+            decode["files"][suffix] = decode["files"].get(suffix, 0) + 1
             t = time.perf_counter()
             try:
                 img = image_io.read_image(path, plain=plain)
@@ -3284,8 +3314,9 @@ def files_phase(kernels, card, cfg=None):
     parts = []
     for route, (results, seconds, decode, stats, n, count) in sweeps.items():
         parts.append(
-            f"{route} {count / seconds:.2f} img/s ({count} images, "
-            f"{seconds:.2f} s, decode {decode['s'] * 1e3 / count:.2f} ms "
+            f"{route} {count / seconds:.2f} img/s ({count} images: "
+            + " ".join(f"{k} {v}" for k, v in sorted(decode["files"].items()))
+            + f", {seconds:.2f} s, decode {decode['s'] * 1e3 / count:.2f} ms "
             "an image, "
             f"{100 * decode['s'] / seconds:.1f}% of the sweep"
             + (f", {decode['native']} progressive files read natively"
@@ -3330,7 +3361,8 @@ def files_phase(kernels, card, cfg=None):
           f"x {FILES_COPIES}, one progressive) through {cfg_name(cfg)} at "
           f"B={FILES_B}: detections of the plain-route and native-route "
           f"JPEG sweeps equal ({found} detections), and of the BMP, "
-          f"lossless-WebP, tiled-LZW-TIFF and JPEG-TIFF sweeps; "
+          f"lossless-WebP, tiled-LZW-TIFF, JPEG-TIFF, ZSTD-TIFF and "
+          f"LZMA-TIFF sweeps; "
           + "; ".join(parts)
           + f"; bbox AP {sweeps['native'][3][0]:.3f} (seeded weights); "
           + "; ".join(f"serve_torch POST of {name} answered {status} with "

@@ -1,7 +1,7 @@
 // Host image decoder of the port: JPEG, PNG, BMP, GIF and
 // TIFF to RGB uint8, the pixels np.asarray(PIL.Image.open(f).convert("RGB"))
-// gives with Pillow 12.1 over libjpeg-turbo 3.1, libtiff 4.7 and zlib
-// (WebP: webp_decode.cpp).
+// gives with Pillow 12.1 over libjpeg-turbo 3.1, libtiff 4.7, zlib,
+// libzstd 1.5 and liblzma 5.8 (WebP: webp_decode.cpp).
 //
 // Host C++17, no CUDA: maskrcnn_tpu_torch/data/native_image.py compiles it
 // with g++ on first use and calls it through ctypes, which releases the
@@ -60,7 +60,12 @@
 // compressed, as TiffDecode.c drives it: strips or tiles (edge tiles
 // cropped), contiguous or separate planes, FillOrder 2, PackBits, LZW
 // (libtiff's codes and the old LSB-first ones), Deflate through the
-// inflate written here (zlib's checks and messages, its Adler-32), JPEG
+// inflate written here (zlib's checks and messages, its Adler-32), ZSTD,
+// LZMA and CCITT (2, 3, 4, 32771) through the decoders in tiff_zstd.cpp,
+// tiff_xz.cpp and tiff_fax.cpp (image_codec.h; the fax codec reads the
+// fill order itself, keeps its run arrays and its EOL mode from strip to
+// strip, and a fax tile's failure keeps the tile, as TIFFReadEncodedTile
+// takes the decoder's -1), JPEG
 // through the decoder above (JPEGTables and the tables of the strips
 // before kept, each strip or tile its own stream, the colour transform
 // libtiff picks: YCbCr to RGB for contiguous YCbCr as Pillow asks with
@@ -71,9 +76,12 @@
 // with their 16-bit ColorMap, LA, PA, RGB and RGBA of 8 and 16 bits with
 // associated alpha un-premultiplied, CMYK), Convert.c's conversion to
 // RGB, and ImageOps.exif_transpose's Orientation (the tag, or XMP's
-// tiff:Orientation where it is absent). Refused, with the mode named:
-// CCITT, LZMA, ZSTD, WebP, old-style JPEG, ThunderScan and SGILog
-// compression, LAB, YCbCr that is not JPEG-compressed with contiguous
+// tiff:Orientation where it is absent); a file Pillow opens from a path
+// and memory-maps (one uncompressed strip or tile of a mapped mode,
+// Orientation 5-8) as that view turned (Tiff::map_stride; a view whose
+// last row would run past the file's end is an error). Refused, with the mode
+// named: WebP, old-style JPEG, ThunderScan and SGILog compression, an xz
+// BCJ filter, LAB, YCbCr that is not JPEG-compressed with contiguous
 // samples, 16-bit CMYK; what Pillow itself refuses is a ValueError.
 //
 // Entry points return 0, 1 (a corrupt file: ValueError) or 2 (a mode not
@@ -88,15 +96,13 @@
 #include <string>
 #include <vector>
 
+#include "image_codec.h"
+
 namespace {
 
-struct Error {
-  int code;
-  std::string msg;
-};
-
-[[noreturn]] void corrupt(const std::string& m) { throw Error{1, m}; }
-[[noreturn]] void refuse(const std::string& m) { throw Error{2, m}; }
+using mrt::corrupt;
+using mrt::Error;
+using mrt::refuse;
 
 int report(const Error& e, char* msg, int32_t msg_len) {
   if (msg && msg_len > 0) {
@@ -2598,19 +2604,17 @@ inline int tiff_type_size(int type) {
 
 const char* tiff_refused(int compression) {
   switch (compression) {
-    case 2: return "CCITT modified Huffman (2)";
-    case 3: return "CCITT Group 3 fax (3)";
-    case 4: return "CCITT Group 4 fax (4)";
-    case 32771: return "CCITT RLEW (32771)";
     case 6: return "old-style JPEG (6)";
     case 32809: return "ThunderScan (32809)";
     case 34676: return "SGILog (34676)";
     case 34677: return "SGILog24 (34677)";
-    case 34925: return "LZMA (34925)";
-    case 50000: return "ZSTD (50000)";
     case 50001: return "WebP (50001)";
     default: return nullptr;
   }
+}
+
+inline bool tiff_fax(int compression) {
+  return compression == 2 || compression == 3 || compression == 4 || compression == 32771;
 }
 
 struct Tiff {
@@ -2628,9 +2632,16 @@ struct Tiff {
   uint8_t palette[256 * 3];
   std::vector<uint32_t> img;
 
-  Tiff(const uint8_t* data, int64_t size) : d(data), n(size) {
+  int64_t mapped = 0;  // map_stride() of a file Pillow opens from a path
+
+  Tiff(const uint8_t* data, int64_t size, bool path = false) : d(data), n(size) {
     read_ifd();
     setup();
+    if (path && (mapped = map_stride())) {
+      // the view's size, which exif_transpose swaps back
+      out_w = width;
+      out_h = height;
+    }
   }
 
   uint64_t rd(const uint8_t* p, int bytes) const {
@@ -2848,7 +2859,13 @@ struct Tiff {
   // band of the raw mode each for PlanarConfiguration 2), in file order,
   // consecutive duplicates dropped; each read from its offset on, its
   // byte count unread
-  void raw_route() {
+  struct Tile {
+    int64_t offset, x0, y0, x1, y1, stride;
+    std::string raw;
+  };
+
+  // _setup's tiles, in the order of the offsets
+  std::vector<Tile> raw_tiles() const {
     std::vector<int64_t> offsets;
     int64_t w, h;
     if (has(273)) {
@@ -2868,10 +2885,6 @@ struct Tiff {
       offsets.erase(offsets.begin(), offsets.end() - 1);
     int64_t sum = 0;
     for (int64_t b : bps) sum += b;
-    struct Tile {
-      int64_t offset, x0, y0, x1, y1, stride;
-      std::string raw;
-    };
     std::vector<Tile> tiles;
     int64_t x = 0, y = 0;
     size_t layer = 0;
@@ -2902,6 +2915,62 @@ struct Tiff {
         }
       }
     }
+    return tiles;
+  }
+
+  // ImageFile.load's memory map, for a file Pillow opens from a path: one
+  // raw tile whose raw mode is the image's mode and one of Image._MAPMODES
+  // is viewed in place at the size _setup gives, which an Orientation tag
+  // of 5-8 swaps; exif_transpose then turns that view. The view's rows
+  // (as many as the stored width, of the stored height's pixels) step by
+  // the tile's stride, or else by the row of that many pixels; map_buffer
+  // refuses a file too short for them. A tile's stride may be shorter
+  // than a view row, whose last row then runs past the rows' bytes:
+  // Pillow reads past the end of its map there, and the port refuses the
+  // file. 0: not mapped; else the row step.
+  int64_t map_stride() const {
+    const int64_t tag = get(274, 0);
+    if (compression != 1 || tag < 5 || tag > 8) return 0;
+    static const char* const kMapModes[] = {"L", "P", "RGBX", "RGBA", "CMYK",
+                                            "I;16", "I;16L", "I;16B"};
+    if (std::find_if(std::begin(kMapModes), std::end(kMapModes),
+                     [&](const char* m) { return mode == m; }) == std::end(kMapModes))
+      return 0;
+    const std::vector<Tile> tiles = raw_tiles();
+    if (tiles.size() != 1 || tiles[0].raw != mode) return 0;
+    const Tile& t = tiles[0];
+    if (t.offset < 0) corrupt("TIFF: Tile offset cannot be negative");
+    // (the size check before map_buffer falls back to decoding)
+    int64_t need;
+    if (t.stride > 0 && (__builtin_mul_overflow(width, t.stride, &need) || need > n - t.offset))
+      return 0;
+    const int64_t pixel = mode == "L" || mode == "P" ? 1 : mode.compare(0, 4, "I;16") == 0 ? 2 : 4;
+    int64_t row;  // a view row's bytes
+    if (__builtin_mul_overflow(height, pixel, &row))
+      corrupt("TIFF: buffer is not large enough (Pillow's memory map of the file)");
+    const int64_t stride = t.stride > 0 ? t.stride : row;
+    if (__builtin_mul_overflow(width, stride, &need) || need > n - t.offset)
+      corrupt("TIFF: buffer is not large enough (Pillow's memory map of the file)");
+    int64_t last;
+    if (__builtin_mul_overflow(width - 1, stride, &last) ||
+        __builtin_add_overflow(last, row, &last) || last > n - t.offset)
+      corrupt("TIFF: the memory-mapped view's last row runs past the end of the file");
+    return stride;
+  }
+
+  // the mapped view as the image: `width` rows of `height` pixels
+  void map_route(int64_t stride) {
+    Unpack u;
+    if (!make_unpack(rawmode, pm, u))
+      corrupt("TIFF: unknown raw mode " + rawmode + " for an image of mode " + mode);
+    const int64_t off = raw_tiles()[0].offset;
+    std::swap(width, height);
+    img.assign(static_cast<size_t>(width * height), 0);
+    for (int64_t r = 0; r < height; r++) unpack_row(u, d + off + r * stride, width, img.data() + r * width);
+  }
+
+  void raw_route() {
+    std::vector<Tile> tiles = raw_tiles();
     std::stable_sort(tiles.begin(), tiles.end(),
                      [](const Tile& a, const Tile& b) { return a.offset < b.offset; });
     std::vector<Tile> kept;
@@ -2948,6 +3017,7 @@ struct Tiff {
   };
   Layout L;
   Jpeg jtables{nullptr, 0};
+  mrt::FaxState fax;  // libtiff's fax codec's state from strip to strip
 
   // libtiff's JPEGFixupTagsSubsampling, where the file has no
   // YCbCrSubsampling tag: the luma sampling factors of the first strip's or
@@ -3008,6 +3078,9 @@ struct Tiff {
     for (int64_t b : bps)
       if (b != bps[0]) corrupt("TIFF: different BitsPerSample values for the samples");
     L.bits = static_cast<int>(bps[0]);
+    // Fax3SetupState
+    if (tiff_fax(compression) && L.bits != 1)
+      corrupt("TIFF: Bits/sample must be 1 for Group 3/4 encoding/decoding");
     // JPEGPreDecode: the stream's precision (8 here) must be the samples'
     if (compression == 7 && L.bits != 8)
       corrupt("TIFF: Improper JPEG data precision (" + std::to_string(L.bits) +
@@ -3078,6 +3151,22 @@ struct Tiff {
     if (off < 0 || off > n || cnt > n - off)
       corrupt("TIFF: read error on strip " + std::to_string(s) + " (the file is truncated)");
     const uint8_t* p = d + off;
+    if (tiff_fax(compression)) {
+      // the fax codec reads the fill order itself (TIFF_NOBITREV)
+      mrt::FaxParams fp;
+      fp.compression = compression;
+      fp.options = static_cast<uint32_t>(get(compression == 4 ? 293 : 292, 0, false));
+      fp.msb2lsb = fillorder != 2;
+      fp.width = seg_w;
+      try {
+        mrt::tiff_fax(p, cnt, buf, size, seg_h, fp, fax);
+      } catch (const Error&) {
+        // TIFFReadEncodedTile takes the fax decoder's -1 for success (a
+        // tile keeps the rows decoded before the fault); a strip fails
+        if (!L.tiled) throw;
+      }
+      return;
+    }
     std::vector<uint8_t> flipped;
     if (fillorder == 2 && compression != 7) {
       const uint8_t* rev = bitrev();
@@ -3089,11 +3178,13 @@ struct Tiff {
       case 5: tiff_lzw(p, cnt, buf, size); break;
       case 8: case 32946: Inflater(p, cnt, "TIFF: Deflate data").run(buf, size); break;
       case 32773: tiff_packbits(p, cnt, buf, size); break;
+      case 50000: mrt::tiff_zstd(p, cnt, buf, size); break;
+      case 34925: mrt::tiff_xz(p, cnt, buf, size); break;
       case 7: jpeg_segment(p, cnt, buf, size, seg_w, seg_h, last_strip); return;
       default: corrupt("TIFF: compression " + std::to_string(compression));
     }
-    // LZW and Deflate take a predictor; libtiff swaps samples of a
-    // big-endian file to the host's order after decoding, but for the
+    // LZW, Deflate, ZSTD and LZMA take a predictor; libtiff swaps samples
+    // of a big-endian file to the host's order after decoding, but for the
     // floating-point predictor, whose output is the host's already
     const int predictor = compression == 32773 ? 1 : L.predictor;
     const int bytes = L.bits / 8;
@@ -3319,7 +3410,9 @@ struct Tiff {
 
   void decode(uint8_t* out) {
     img.assign(static_cast<size_t>(width * height), 0);
-    if (compression == 1) {
+    if (mapped) {
+      map_route(mapped);
+    } else if (compression == 1) {
       raw_route();
     } else {
       libtiff_route();
@@ -3381,6 +3474,25 @@ void size_of(const T& t, int32_t* height, int32_t* width) {
   // the caller's check_size refuses what does not fit
   *height = static_cast<int32_t>(std::min<int64_t>(t.height, INT32_MAX));
   *width = static_cast<int32_t>(std::min<int64_t>(t.width, INT32_MAX));
+}
+
+// TIFF's size and decode calls; `path`: Tiff's path route
+int tiff_size(const uint8_t* data, int64_t n, bool path, int32_t* height,
+              int32_t* width, char* msg, int32_t msg_len) {
+  return guarded("TIFF", msg, msg_len, [&] {
+    Tiff t(data, n, path);
+    *height = static_cast<int32_t>(std::min<int64_t>(t.out_h, INT32_MAX));
+    *width = static_cast<int32_t>(std::min<int64_t>(t.out_w, INT32_MAX));
+  });
+}
+
+int tiff_decode(const uint8_t* data, int64_t n, bool path, uint8_t* out,
+                int32_t height, int32_t width, char* msg, int32_t msg_len) {
+  return guarded("TIFF", msg, msg_len, [&] {
+    Tiff t(data, n, path);
+    if (t.out_h != height || t.out_w != width) corrupt("TIFF: the image's size changed");
+    t.decode(out);
+  });
 }
 
 }  // namespace
@@ -3468,24 +3580,18 @@ int mrt_gif_decode(const uint8_t* data, int64_t n, uint8_t* out,
 }
 
 // TIFF: the first image's size after its orientation, then the whole
-// decode into out [height, width, 3] (that size, checked again).
+// decode into out [height, width, 3] (that size, checked again); `path`
+// nonzero reads a file Pillow opens from a path (its memory map where it
+// takes one: Tiff::map_stride).
 int mrt_tiff_size(const uint8_t* data, int64_t n, int32_t* height,
-                  int32_t* width, char* msg, int32_t msg_len) {
-  return guarded("TIFF", msg, msg_len, [&] {
-    Tiff t(data, n);
-    *height = static_cast<int32_t>(std::min<int64_t>(t.out_h, INT32_MAX));
-    *width = static_cast<int32_t>(std::min<int64_t>(t.out_w, INT32_MAX));
-  });
+                  int32_t* width, char* msg, int32_t msg_len, int32_t path) {
+  return tiff_size(data, n, path != 0, height, width, msg, msg_len);
 }
 
 int mrt_tiff_decode(const uint8_t* data, int64_t n, uint8_t* out,
                     int32_t height, int32_t width, char* msg,
-                    int32_t msg_len) {
-  return guarded("TIFF", msg, msg_len, [&] {
-    Tiff t(data, n);
-    if (t.out_h != height || t.out_w != width) corrupt("TIFF: the image's size changed");
-    t.decode(out);
-  });
+                    int32_t msg_len, int32_t path) {
+  return tiff_decode(data, n, path != 0, out, height, width, msg, msg_len);
 }
 
 // A whole zlib stream (its end and Adler-32 checked), PNG's and TIFF's

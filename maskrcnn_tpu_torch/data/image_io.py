@@ -5,9 +5,11 @@ to RGB uint8, and a PNG writer.
 returns what `np.asarray(PIL.Image.open(f).convert("RGB"))` returns with
 Pillow 12.1 over libjpeg-turbo 3.1, zlib, libwebp 1.6 and libtiff 4.7,
 bit for bit, through the native decoders (`csrc/image_decode.cpp` for
-PNG, JPEG, GIF, BMP and TIFF, `csrc/webp_decode.cpp` for WebP; built with
-g++ on first use and called through ctypes outside the GIL, one call a
-decode after its size call: data/native_image.py). The format is told
+PNG, JPEG, GIF, BMP and TIFF, with TIFF's ZSTD, LZMA and CCITT codecs in
+`csrc/tiff_zstd.cpp`, `tiff_xz.cpp` and `tiff_fax.cpp`;
+`csrc/webp_decode.cpp` for WebP; built with g++ on first use and called
+through ctypes outside the GIL, one call a decode after its size call:
+data/native_image.py). The format is told
 by the file's first bytes, as Pillow's `_accept` functions tell it. It
 reads:
 
@@ -51,20 +53,26 @@ reads:
   first image, as TiffImagePlugin opens it: Pillow's own reading of
   uncompressed strips and tiles, and libtiff's decoding of PackBits,
   LZW (its codes and the old LSB-first ones), Deflate (an inflate in
-  the C++ source: one call decodes any number of strips) and JPEG
-  (strips or tiles each a stream, JPEGTables, YCbCr subsampling 1x1,
-  2x1 and 2x2 converted to RGB as Pillow asks libtiff to, RGB,
-  grayscale and CMYK components as they are); predictors 2 and 3;
-  strips or tiles (edge tiles cropped), contiguous or separate planes,
-  FillOrder 2; bilevel, grayscale of 2 to 16 bits (16-bit clipped to
-  255), 32-bit integer and float (truncated and clipped), palettes of 1
-  to 8 bits, LA, PA, RGB and RGBA of 8 and 16 bits (extra samples
-  dropped; associated alpha un-premultiplied, as Pillow's "RGBa"),
-  CMYK; the Orientation tag (2-8, or XMP's tiff:Orientation) applied as
-  ImageOps.exif_transpose applies it, for TIFF only. (Pillow opening an
-  uncompressed one-strip file of Orientation 5-8 from a path maps it
-  into memory and loses the transposition; this gives what Pillow gives
-  from the file's bytes.)
+  the C++ source: one call decodes any number of strips), ZSTD (a
+  libzstd-equivalent frame decoder in the source), LZMA (an .xz stream
+  decoder: LZMA2, Delta, every check), CCITT modified Huffman, RLEW,
+  Group 3 1D and 2D and Group 4 (tif_fax3.c's decoder, damaged lines
+  filled as libtiff fills them) and JPEG (strips or tiles each a
+  stream, JPEGTables, YCbCr subsampling 1x1, 2x1 and 2x2 converted to
+  RGB as Pillow asks libtiff to, RGB, grayscale and CMYK components as
+  they are); predictors 2 and 3; strips or tiles (edge tiles cropped),
+  contiguous or separate planes, FillOrder 2; bilevel, grayscale of 2
+  to 16 bits (16-bit clipped to 255), 32-bit integer and float
+  (truncated and clipped), palettes of 1 to 8 bits, LA, PA, RGB and
+  RGBA of 8 and 16 bits (extra samples dropped; associated alpha
+  un-premultiplied, as Pillow's "RGBa"), CMYK; the Orientation tag (2-8,
+  or XMP's tiff:Orientation) applied as ImageOps.exif_transpose applies
+  it, for TIFF only. A path is read as Pillow reads a path: an
+  uncompressed image in one strip or tile of a mode Pillow memory-maps
+  (L, P, RGBA, CMYK, I;16) with Orientation 5-8 is the mapped view
+  turned, not the image (Pillow's `ImageFile.load`), and a ValueError
+  where the view's last row would run past the file's end (Pillow reads
+  past its map); bytes and file objects as Pillow reads bytes.
 
 Refused, with NotImplementedError naming the mode: arithmetic-coded,
 lossless and hierarchical JPEG, samples of other than 8 bits, a height
@@ -74,9 +82,10 @@ scans leave a low-frequency coefficient incomplete (libjpeg-turbo
 block-smooths it); JPEG- or PNG-compressed BMP, BMP bit-field layouts
 and pixel depths Pillow refuses, RLE of more than 8-bit pixels, and 1-
 and 4-bit BMP under a grayscale palette (Pillow reads them with the
-wrong unpacker); TIFF of CCITT, LZMA, ZSTD, WebP, old-style JPEG,
-ThunderScan or SGILog compression, LAB, YCbCr that is not JPEG-
-compressed with contiguous samples, and 16-bit CMYK. A TIFF layout
+wrong unpacker); TIFF of WebP, old-style JPEG, ThunderScan or SGILog
+compression, LZMA data through an xz BCJ filter (x86, ARM and the
+others), LAB, YCbCr that is not JPEG-compressed with contiguous
+samples, and 16-bit CMYK. A TIFF layout
 Pillow itself refuses, or reads from past its buffers (separate planes
 of a one-band mode in tiles), is a ValueError naming it. Any other file
 (Pillow's other plugins) raises a ValueError naming the six formats
@@ -144,6 +153,10 @@ def read_image(source: Source, plain: bool = False) -> np.ndarray:
     if plain:
         raise NotImplementedError(f"{name}: the plain route reads PNG and "
                                   "JPEG only")
+    if name == "TIFF":
+        # Pillow memory-maps some files it opens from a path
+        return native_image.decode_tiff(
+            data, path=isinstance(source, (str, os.PathLike)))
     return getattr(native_image, f"decode_{name.lower()}")(data)
 
 

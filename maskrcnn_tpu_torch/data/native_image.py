@@ -1,15 +1,19 @@
 """ctypes bridge to the port's native image decoders
 (`maskrcnn_tpu_torch/csrc/image_decode.cpp`: JPEG, PNG, GIF, BMP and
-TIFF; `csrc/webp_decode.cpp`: WebP; host C++17).
+TIFF, with TIFF's ZSTD, LZMA and CCITT codecs in `csrc/tiff_zstd.cpp`,
+`tiff_xz.cpp` and `tiff_fax.cpp` and their shared `image_codec.h`, all
+compiled into one library; `csrc/webp_decode.cpp`: WebP; host C++17).
 
-On first use each source is compiled with the host's C++ compiler into
-`build/maskrcnn_tpu_torch/` (`utils/native_build.py`) and loaded with
-ctypes; the libraries link only the C and C++ runtimes. A whole JPEG,
-PNG, GIF, BMP, TIFF or WebP decode (headers, entropy decoding and
-decompression, transforms, filtering, colour; a TIFF's every strip or
-tile; PNG's and TIFF's Deflate through the source's own inflate) runs
-in one call (a PNG's chunks are read here first); ctypes releases the
-GIL for the call, so decoder threads run in parallel. Every
+On first use each library's sources are compiled with the host's C++
+compiler into `build/maskrcnn_tpu_torch/` (`utils/native_build.py`,
+named by a hash of every file the build reads) and loaded with ctypes;
+the libraries link only the C and C++ runtimes. A whole JPEG, PNG, GIF,
+BMP, TIFF or WebP decode (headers, entropy decoding and decompression,
+transforms, filtering, colour; a TIFF's every strip or tile; PNG's and
+TIFF's Deflate through the source's own inflate, TIFF's ZSTD, xz and
+fax data through the sources' own decoders) runs in one call (a PNG's
+chunks are read here first); ctypes releases the GIL for the call, so
+decoder threads run in parallel. Every
 format's size is read first (one size call) and held to Pillow's
 decompression-bomb limit (`check_size`) before the output is allocated
 (an animated WebP's canvas, a GIF's screen grown to hold its frame, a
@@ -17,8 +21,8 @@ TIFF's image after its orientation). There is no fallback: without a
 compiler `library()` and `webp_library()` raise a RuntimeError naming it
 (the plain Python decoders of image_io.py, PNG and JPEG only and 56x
 slower, are reached only by `read_image(..., plain=True)`); no system
-codec (libwebp, giflib, libtiff, zlib, Pillow) is loaded
-(tests/test_torch_image_tiff.py reads the library's imports).
+codec (libwebp, giflib, libtiff, zlib, libzstd, liblzma, Pillow) is
+loaded (tests/test_torch_image_tiff.py reads the library's imports).
 """
 
 from __future__ import annotations
@@ -36,6 +40,11 @@ from maskrcnn_tpu_torch.utils import native_build
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCE = CSRC / "image_decode.cpp"
+# every file the image library's build reads: image_decode.cpp, the TIFF
+# codecs in sources of their own, and every header of csrc/ (hashed, so
+# that no header an edit touches is left out of the library's name)
+SOURCES = (SOURCE, CSRC / "tiff_zstd.cpp", CSRC / "tiff_xz.cpp",
+           CSRC / "tiff_fax.cpp", *sorted(CSRC.glob("*.h")))
 WEBP_SOURCE = CSRC / "webp_decode.cpp"
 # -fwrapv: the IDCTs' int32 arithmetic wraps as libjpeg-turbo's does on
 # the corrupt coefficients a valid file never holds
@@ -55,21 +64,23 @@ _MSG_LEN = 512
 
 def library_path() -> Path:
     """Where the library for the current source and flags lives."""
-    return native_build.library_path("image_decode", SOURCE, CXX_FLAGS)
+    return native_build.library_path("image_decode", SOURCES, CXX_FLAGS)
 
 
 def webp_library_path() -> Path:
     """Where the WebP library for the current source and flags lives."""
-    return native_build.library_path("webp_decode", WEBP_SOURCE, CXX_FLAGS)
+    return native_build.library_path("webp_decode", (WEBP_SOURCE,),
+                                     CXX_FLAGS)
 
 
-def _build(stem: str, source: Path) -> ctypes.CDLL:
+def _build(stem: str, sources) -> ctypes.CDLL:
     try:
-        return native_build.load(stem, source, CXX_FLAGS)
+        return native_build.load(stem, sources, CXX_FLAGS)
     except (OSError, subprocess.SubprocessError) as e:
         detail = getattr(e, "stderr", b"") or b""
+        names = ", ".join(p.name for p in sources if p.suffix == ".cpp")
         raise RuntimeError(
-            f"the native image decoder ({source.name}) could not be "
+            f"the native image decoder ({names}) could not be "
             f"built with the C++ compiler {native_build.compiler()!r} "
             f"or loaded: {e} {detail.decode(errors='replace')[-2000:]}"
         ) from e
@@ -79,17 +90,18 @@ _U8P = ctypes.c_char_p
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _OUT = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 # mrt_<format>_size and mrt_<format>_decode of JPEG, BMP, GIF, TIFF and
-# WebP
+# WebP (TIFF's take one more argument, its path flag)
 _SIZE_ARGS = [_U8P, ctypes.c_int64, _I32P, _I32P, ctypes.c_char_p,
               ctypes.c_int32]
 _DECODE_ARGS = [_U8P, ctypes.c_int64, _OUT, ctypes.c_int32, ctypes.c_int32,
                 ctypes.c_char_p, ctypes.c_int32]
 
 
-def _declare(lib: ctypes.CDLL, formats) -> None:
+def _declare(lib: ctypes.CDLL, formats, extra=()) -> None:
     for name in formats:
-        getattr(lib, f"mrt_{name}_size").argtypes = _SIZE_ARGS
-        getattr(lib, f"mrt_{name}_decode").argtypes = _DECODE_ARGS
+        getattr(lib, f"mrt_{name}_size").argtypes = _SIZE_ARGS + list(extra)
+        getattr(lib, f"mrt_{name}_decode").argtypes = (_DECODE_ARGS +
+                                                       list(extra))
         for kind in ("size", "decode"):
             getattr(lib, f"mrt_{name}_{kind}").restype = ctypes.c_int
 
@@ -102,8 +114,9 @@ def library() -> ctypes.CDLL:
     with _LOCK:
         if _LIB is not None:
             return _LIB
-        lib = _build("image_decode", SOURCE)
-        _declare(lib, ("jpeg", "bmp", "gif", "tiff"))
+        lib = _build("image_decode", SOURCES)
+        _declare(lib, ("jpeg", "bmp", "gif"))
+        _declare(lib, ("tiff",), [ctypes.c_int32])
         lib.mrt_zlib_inflate.argtypes = [
             _U8P, ctypes.c_int64, _OUT, ctypes.c_int64,
             ctypes.POINTER(ctypes.c_int64), ctypes.c_char_p, ctypes.c_int32]
@@ -122,7 +135,7 @@ def webp_library() -> ctypes.CDLL:
     global _WEBP_LIB
     with _WEBP_LOCK:
         if _WEBP_LIB is None:
-            lib = _build("webp_decode", WEBP_SOURCE)
+            lib = _build("webp_decode", (WEBP_SOURCE,))
             _declare(lib, ("webp",))
             _WEBP_LIB = lib
         return _WEBP_LIB
@@ -187,19 +200,22 @@ def decode_png(data: bytes) -> np.ndarray:
     return out
 
 
-def _decode(lib: ctypes.CDLL, name: str, data: bytes) -> np.ndarray:
+def _decode(lib: ctypes.CDLL, name: str, data: bytes,
+            *extra) -> np.ndarray:
     """One format's size call, Pillow's size limit, then its decode call
-    into an array of that size."""
+    into an array of that size (`extra`: the format's further
+    arguments)."""
     msg = ctypes.create_string_buffer(_MSG_LEN)
     h, w = ctypes.c_int32(), ctypes.c_int32()
     code = getattr(lib, f"mrt_{name}_size")(
-        data, len(data), ctypes.byref(h), ctypes.byref(w), msg, _MSG_LEN)
+        data, len(data), ctypes.byref(h), ctypes.byref(w), msg, _MSG_LEN,
+        *extra)
     if code:
         _raise(code, msg)
     check_size(w.value, h.value)
     out = np.empty((h.value, w.value, 3), np.uint8)
     code = getattr(lib, f"mrt_{name}_decode")(data, len(data), out, h.value,
-                                              w.value, msg, _MSG_LEN)
+                                              w.value, msg, _MSG_LEN, *extra)
     if code:
         _raise(code, msg)
     return out
@@ -216,10 +232,14 @@ def decode_gif(data: bytes) -> np.ndarray:
     return _decode(library(), "gif", data)
 
 
-def decode_tiff(data: bytes) -> np.ndarray:
+def decode_tiff(data: bytes, path: bool = False) -> np.ndarray:
     """A TIFF file's bytes -> its first image, RGB uint8 [H, W, 3], after
-    its orientation."""
-    return _decode(library(), "tiff", data)
+    its orientation. `path`: the bytes of a file Pillow opens from its
+    path, which it memory-maps where it can (an uncompressed image of one
+    strip or tile in a mode it maps, whose Orientation 5-8 then turns the
+    mapped view, not the image; a ValueError where the view's last row
+    would run past the file's end)."""
+    return _decode(library(), "tiff", data, int(path))
 
 
 def inflate(data: bytes, limit: int) -> bytes:

@@ -31,7 +31,7 @@ _TRIED = False
 
 def library_path() -> Path:
     """Where the library for the current source and flags lives."""
-    return native_build.library_path("rle_kernels", SOURCE)
+    return native_build.library_path("rle_kernels", (SOURCE,))
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -40,7 +40,7 @@ def _load() -> Optional[ctypes.CDLL]:
         return _LIB
     _TRIED = True
     try:
-        lib = native_build.load("rle_kernels", SOURCE)
+        lib = native_build.load("rle_kernels", (SOURCE,))
     except (OSError, subprocess.SubprocessError):
         return None
     u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")

@@ -4,7 +4,9 @@ reads (the WebP, GIF, BMP and TIFF modes each at 1x1, 5x3, 37x53 and
 16x24), a few it refuses, three COCO-sized (640x480) synthetic scenes as JPEG files, one
 of them progressive, with their annotations (chip_smoke.py's phase 9d
 reads them as a COCO directory), the same three scenes as lossy WebP
-(q80), and the first scene's JPEG decode as lossless WebP.
+(q80), and the first scene's JPEG decode as lossless WebP; beside it,
+`tests/data/tiff_scenes/`, the first scene's JPEG decode as ZSTD and
+LZMA TIFF (Pillow's writer, predictor 2) with their digests.
 
 `index.json` beside the files gives each file's rows, columns and the
 SHA-256 of Pillow 12.1.0's decode (np.asarray(Image.open(f).convert(
@@ -45,6 +47,9 @@ from jpeg_writer import encode_jpeg, scan_offsets  # noqa: E402
 
 CORPUS = Path(__file__).resolve().parent / "data" / "image_io"
 INDEX = CORPUS / "index.json"
+# the first scene as ZSTD and LZMA TIFF (tiff_scene_cases), under a size
+# bound of its own (test_tiff_scenes_are_whole_and_small)
+TIFF_SCENES = CORPUS.parent / "tiff_scenes"
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 ADAM7 = [(0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2)]
@@ -718,6 +723,46 @@ def tiff_modes(rng, h, w):
     xmp = b'<rdf:Description tiff:Orientation="6"/>'
     out["rgb_xmp_orientation_6"] = enc(img, compression=8,
                                        tags={700: (1, list(xmp))})
+    # ZSTD, LZMA and CCITT (no draw from rng: the files above stay as
+    # they were)
+    out.update({
+        "rgb_zstd": enc(img, compression=50000),
+        "rgb_zstd_predictor_strips_of_8": enc(
+            img, compression=50000, predictor=2, rows_per_strip=8,
+            zstd=dict(level=19, checksum=True)),
+        "gray_zstd_tiled_big_endian": enc(
+            gray, photometric=1, compression=50000, tile=(16, 16),
+            byteorder=">", zstd=dict(level=1, content_size=False)),
+        "gray16_zstd_predictor_big_endian": enc(
+            u16[..., 0], bits=16, photometric=1, compression=50000,
+            predictor=2, byteorder=">"),
+        "rgb_lzma": enc(img, compression=34925),
+        "rgb_lzma_predictor_strips_of_8": enc(
+            img, compression=34925, predictor=2, rows_per_strip=8,
+            xz=dict(check=1, preset=9)),
+        "gray_lzma_tiled_big_endian": enc(
+            gray, photometric=1, compression=34925, tile=(16, 16),
+            byteorder=">", xz=dict(check=10, preset=0)),
+        "gray_lzma_delta": enc(gray, photometric=1, compression=34925,
+                               xz=dict(filters=[{"id": 3, "dist": 1},
+                                                {"id": 0x21, "preset": 6}])),
+    })
+    bilevel = gray > 120
+    fax_modes = {"ccitt_rle": (2, {}), "ccitt_rlew": (32771, {}),
+                 "group3": (3, {}), "group3_fill_bits": (3, {"options": 4}),
+                 "group3_2d": (3, {"options": 1}),
+                 "group3_2d_k4_fill_bits": (3, {"options": 5, "k": 4}),
+                 "group4": (4, {})}
+    for name, (compression, fax) in fax_modes.items():
+        for fill in (1, 2):
+            out[f"bilevel_{name}" + ("_fill_order_2" if fill == 2 else "")] = \
+                enc(bilevel, bits=1, photometric=0, compression=compression,
+                    fax=fax, fill_order=fill)
+    out["bilevel_group3_rows_of_3_big_endian"] = enc(
+        bilevel, bits=1, photometric=0, compression=3, rows_per_strip=3,
+        byteorder=">")
+    out["bilevel_group4_tiled_min_is_black"] = enc(
+        bilevel, bits=1, photometric=1, compression=4, tile=(16, 16))
     return out
 
 
@@ -728,9 +773,9 @@ def tiff_cases():
             for mode, data in tiff_modes(rng, h, w).items()]
 
 
-def tiff_refused_cases():
-    """(name, bytes, word the NotImplementedError names) of TIFF files of
-    a compression or mode the reader refuses."""
+def tiff_pillow_cases():
+    """(name, bytes) of TIFF files Pillow's writer (its libtiff) makes in
+    ZSTD, LZMA and CCITT Group 4."""
     rng = np.random.RandomState(19)
     img = seeded_image(rng, 6, 5)
     from PIL import Image
@@ -740,12 +785,22 @@ def tiff_refused_cases():
         Image.fromarray(img).convert(mode).save(buf, "TIFF", **kw)
         return buf.getvalue()
 
+    return [("pillow_tiff_group4.tif", pil_tiff("1", compression="group4")),
+            ("pillow_tiff_lzma.tif", pil_tiff("RGB", compression="lzma")),
+            ("pillow_tiff_zstd.tif", pil_tiff("RGB", compression="zstd"))]
+
+
+def tiff_refused_cases():
+    """(name, bytes, word the NotImplementedError names) of TIFF files of
+    a compression or mode the reader refuses."""
+    rng = np.random.RandomState(19)
+    img = seeded_image(rng, 6, 5)
     junk = dict(segments=[bytes(rng.randint(0, 256, 40).astype(np.uint8))])
+    # an xz stream with the x86 BCJ filter before LZMA2
+    bcj = iw.xz_stream(img.tobytes(), filters=[{"id": 4}, {"id": 0x21}])
     return [
-        ("refused_tiff_ccitt_group4.tif", pil_tiff("1", compression="group4"),
-         "CCITT"),
-        ("refused_tiff_lzma.tif", pil_tiff("RGB", compression="lzma"), "LZMA"),
-        ("refused_tiff_zstd.tif", pil_tiff("RGB", compression="zstd"), "ZSTD"),
+        ("refused_tiff_lzma_bcj_x86.tif", iw.encode_tiff(
+            img, compression=34925, segments=[bcj]), "BCJ filter x86"),
         ("refused_tiff_webp.tif", iw.encode_tiff(img, compression=50001,
                                                  **junk), "WebP"),
         ("refused_tiff_old_style_jpeg.tif", iw.encode_tiff(
@@ -837,6 +892,25 @@ def format_scene_cases(jpeg_scenes):
     return out
 
 
+def tiff_scene_cases(jpeg_scenes):
+    """(name, bytes, source JPEG scene) of the first JPEG scene's Pillow
+    decode as TIFF with predictor 2 by Pillow's writer (its libtiff,
+    strips of 34 rows): ZSTD and LZMA. The card cannot write these (no
+    Pillow, and chip_smoke.py loads no lzma), so they are committed,
+    beside the corpus (`TIFF_SCENES`), for phase 9d's sweeps and 9a's
+    times; their pixels, so their detections, are the JPEG file's."""
+    from PIL import Image
+    first, data, _ = jpeg_scenes[0]
+    decoded = Image.open(io.BytesIO(data)).convert("RGB")
+    stem = first.rsplit(".", 1)[0]
+    out = []
+    for comp in ("zstd", "lzma"):
+        buf = io.BytesIO()
+        decoded.save(buf, "TIFF", compression=comp, tiffinfo={317: 2})
+        out.append((f"{stem}_{comp}_predictor.tif", buf.getvalue(), first))
+    return out
+
+
 def pillow_digest(data: bytes):
     from PIL import Image
     img = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
@@ -864,7 +938,7 @@ def main() -> int:
     CORPUS.mkdir(parents=True, exist_ok=True)
     index = {"files": {}, "refused": {}, "scenes": {}, "format_scenes": {}}
     for name, data in (jpeg_cases() + png_cases() + format_cases()
-                       + tiff_cases()):
+                       + tiff_cases() + tiff_pillow_cases()):
         (CORPUS / name).write_bytes(data)
         shape, digest = pillow_digest(data)
         index["files"][name] = {"shape": shape, "sha256": digest}
@@ -886,6 +960,15 @@ def main() -> int:
         index["format_scenes"][name] = source
     index["categories"] = SCENE_CATEGORIES
     INDEX.write_text(json.dumps(index, separators=(",", ":")) + "\n")
+    TIFF_SCENES.mkdir(exist_ok=True)
+    scene_index = {}
+    for name, data, source in tiff_scene_cases(scenes):
+        (TIFF_SCENES / name).write_bytes(data)
+        shape, digest = pillow_digest(data)
+        scene_index[name] = {"shape": shape, "sha256": digest,
+                             "source": source}
+    (TIFF_SCENES / "index.json").write_text(
+        json.dumps(scene_index, indent=1) + "\n")
     size = sum(p.stat().st_size for p in CORPUS.iterdir())
     print(f"{len(list(CORPUS.iterdir()))} files, {size} bytes")
     return 0

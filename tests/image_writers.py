@@ -24,7 +24,11 @@ with them on the card, which has no Pillow.
   classic TIFF or BigTIFF, an Orientation, a ColorMap, ExtraSamples,
   and tags added, overridden or left out on purpose. Pillow's writer
   reaches none of tiles, planes, BigTIFF, FillOrder 2 or subsampled
-  YCbCr JPEG.
+  YCbCr JPEG. ZSTD strips go through Pillow's bundled libzstd by ctypes
+  (`zstd_frame`: level, checksum, content size, window log, long-distance
+  matching) and LZMA strips through the standard library's lzma
+  (`xz_stream`: check, preset, filters), both loaded only when called,
+  so they run where Pillow is (the card has neither).
 
 WebP goes through the system's libwebp encoder, loaded with ctypes when
 `encode_webp` is first called (`webp_available()` says whether there is
@@ -848,6 +852,275 @@ def tiff_predict(rows: np.ndarray, stride: int, bits: int,
     return out.astype(np.uint8)
 
 
+_LIBZSTD = None
+
+
+def _libzstd():
+    """Pillow's bundled libzstd (1.5.7), which its libtiff uses."""
+    global _LIBZSTD
+    if _LIBZSTD is None:
+        import glob
+        import os
+
+        import PIL
+        libs = os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)),
+                            "pillow.libs")
+        lib = ctypes.CDLL(sorted(glob.glob(os.path.join(
+            libs, "libzstd-*.so*")))[0])
+        lib.ZSTD_createCCtx.restype = ctypes.c_void_p
+        lib.ZSTD_freeCCtx.argtypes = [ctypes.c_void_p]
+        lib.ZSTD_CCtx_setParameter.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                               ctypes.c_int]
+        lib.ZSTD_CCtx_setParameter.restype = ctypes.c_size_t
+        lib.ZSTD_compressBound.argtypes = [ctypes.c_size_t]
+        lib.ZSTD_compressBound.restype = ctypes.c_size_t
+        lib.ZSTD_compress2.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                       ctypes.c_size_t, ctypes.c_char_p,
+                                       ctypes.c_size_t]
+        lib.ZSTD_compress2.restype = ctypes.c_size_t
+        lib.ZSTD_isError.argtypes = [ctypes.c_size_t]
+        _LIBZSTD = lib
+    return _LIBZSTD
+
+
+# ZSTD_cParameter values of zstd.h
+_ZSTD_PARAMS = {"level": 100, "window_log": 101, "ldm": 160,
+                "content_size": 200, "checksum": 201}
+
+
+def zstd_frame(data: bytes, level: int = 3, checksum: bool = False,
+               content_size: bool = True, window_log: int = 0,
+               ldm: bool = False) -> bytes:
+    """One zstd frame of `data` through Pillow's libzstd: a compression
+    level (1-22, or negative), the XXH64 content checksum, the frame
+    content size in the header (without it libzstd's decoder streams),
+    a window log (0: the level's), long-distance matching."""
+    lib = _libzstd()
+    cctx = lib.ZSTD_createCCtx()
+    try:
+        for name, value in (("level", level), ("checksum", int(checksum)),
+                            ("content_size", int(content_size)),
+                            ("window_log", window_log), ("ldm", int(ldm))):
+            if lib.ZSTD_isError(lib.ZSTD_CCtx_setParameter(
+                    cctx, _ZSTD_PARAMS[name], value)):
+                raise ValueError(f"zstd parameter {name}={value}")
+        cap = lib.ZSTD_compressBound(len(data))
+        out = ctypes.create_string_buffer(cap)
+        n = lib.ZSTD_compress2(cctx, out, cap, data, len(data))
+        if lib.ZSTD_isError(n):
+            raise ValueError("zstd compression failed")
+        return out.raw[:n]
+    finally:
+        lib.ZSTD_freeCCtx(cctx)
+
+
+def xz_stream(data: bytes, check: Optional[int] = None, preset: int = 6,
+              filters: Optional[list] = None) -> bytes:
+    """An .xz stream of `data` by the standard library's lzma (LZMA2
+    alone unless `filters` says otherwise; CRC64 unless `check`)."""
+    import lzma
+    return lzma.compress(data, format=lzma.FORMAT_XZ,
+                         check=lzma.CHECK_CRC64 if check is None else check,
+                         preset=None if filters else preset, filters=filters)
+
+
+# ---------------------------------------------------------- TIFF CCITT
+
+# T.4's run codes: {run: bits} of the terminating and make-up codes
+_FAX_WHITE = dict(zip(range(64), (
+    "00110101 000111 0111 1000 1011 1100 1110 1111 10011 10100 00111 01000 "
+    "001000 000011 110100 110101 101010 101011 0100111 0001100 0001000 "
+    "0010111 0000011 0000100 0101000 0101011 0010011 0100100 0011000 "
+    "00000010 00000011 00011010 00011011 00010010 00010011 00010100 "
+    "00010101 00010110 00010111 00101000 00101001 00101010 00101011 "
+    "00101100 00101101 00000100 00000101 00001010 00001011 01010010 "
+    "01010011 01010100 01010101 00100100 00100101 01011000 01011001 "
+    "01011010 01011011 01001010 01001011 00110010 00110011 00110100"
+).split()))
+_FAX_WHITE.update(zip(range(64, 1729, 64), (
+    "11011 10010 010111 0110111 00110110 00110111 01100100 01100101 "
+    "01101000 01100111 011001100 011001101 011010010 011010011 011010100 "
+    "011010101 011010110 011010111 011011000 011011001 011011010 011011011 "
+    "010011000 010011001 010011010 011000 010011011").split()))
+_FAX_BLACK = dict(zip(range(64), (
+    "0000110111 010 11 10 011 0011 0010 00011 000101 000100 0000100 "
+    "0000101 0000111 00000100 00000111 000011000 0000010111 0000011000 "
+    "0000001000 00001100111 00001101000 00001101100 00000110111 "
+    "00000101000 00000010111 00000011000 000011001010 000011001011 "
+    "000011001100 000011001101 000001101000 000001101001 000001101010 "
+    "000001101011 000011010010 000011010011 000011010100 000011010101 "
+    "000011010110 000011010111 000001101100 000001101101 000011011010 "
+    "000011011011 000001010100 000001010101 000001010110 000001010111 "
+    "000001100100 000001100101 000001010010 000001010011 000000100100 "
+    "000000110111 000000111000 000000100111 000000101000 000001011000 "
+    "000001011001 000000101011 000000101100 000001011010 000001100110 "
+    "000001100111").split()))
+_FAX_BLACK.update(zip(range(64, 1729, 64), (
+    "0000001111 000011001000 000011001001 000001011011 000000110011 "
+    "000000110100 000000110101 0000001101100 0000001101101 0000001001010 "
+    "0000001001011 0000001001100 0000001001101 0000001110010 "
+    "0000001110011 0000001110100 0000001110101 0000001110110 "
+    "0000001110111 0000001010010 0000001010011 0000001010100 "
+    "0000001010101 0000001011010 0000001011011 0000001100100 "
+    "0000001100101").split()))
+_FAX_EXT = dict(zip(range(1792, 2561, 64), (
+    "00000001000 00000001100 00000001101 000000010010 000000010011 "
+    "000000010100 000000010101 000000010110 000000010111 000000011100 "
+    "000000011101 000000011110 000000011111").split()))
+_FAX_EOL = "000000000001"
+_FAX_V = {0: "1", 1: "011", 2: "000011", 3: "0000011", -1: "010",
+          -2: "000010", -3: "0000010"}
+
+
+def _fax_run(run: int, black: bool) -> str:
+    """A run's make-up codes (2560 at a time past 2560) and terminating
+    code."""
+    table = _FAX_BLACK if black else _FAX_WHITE
+    out = []
+    while run >= 2560:
+        out.append(_FAX_EXT[2560])
+        run -= 2560
+    if run >= 64:
+        big = run // 64 * 64
+        out.append(table.get(big) or _FAX_EXT[big])
+        run -= big
+    out.append(table[run])
+    return "".join(out)
+
+
+def _fax_codes(row: np.ndarray) -> list:
+    """A row of bools (True black) as modified Huffman runs, white
+    first: [(code, True for a black run's)]."""
+    out, x, black = [], 0, False
+    w = len(row)
+    while x < w:
+        n = x
+        while n < w and bool(row[n]) == black:
+            n += 1
+        run = n - x
+        while run >= 2560:
+            out.append((_FAX_EXT[2560], black))
+            run -= 2560
+        if run >= 64:
+            big = run // 64 * 64
+            table = _FAX_BLACK if black else _FAX_WHITE
+            out.append((table.get(big) or _FAX_EXT[big], black))
+            run -= big
+        out.append(((_FAX_BLACK if black else _FAX_WHITE)[run], black))
+        x, black = n, not black
+    return out
+
+
+def _fax_1d(row: np.ndarray) -> str:
+    return "".join(code for code, _ in _fax_codes(row))
+
+
+def _rlew_row(row: np.ndarray, start: int) -> str:
+    """A row of RLEW (32771) starting at bit `start` (a 16-bit word):
+    its codes, then zeros to where libtiff's Fax3DecodeRLE reads the next
+    row from. Its reader takes bytes ahead for its 12- and 13-bit code
+    lookups, and after the row keeps a whole 16 bits of them or skips to
+    an even byte; so rows are laid where it looks for them, not at the
+    next word."""
+    loaded, avail, out = start // 8, 0, []
+    for code, black in _fax_codes(row):
+        need = 13 if black else 12
+        for _ in range(2):
+            if avail < need:
+                loaded += 1
+                avail += 8
+        avail -= len(code)
+        out.append(code)
+    avail -= avail - (avail & ~15)
+    if avail == 0 and loaded % 2:
+        loaded += 1
+    bits = "".join(out)
+    return bits + "0" * (loaded * 8 - avail - start - len(bits))
+
+
+def _changes(line: np.ndarray) -> list:
+    """A line's changing elements: the pixels whose colour differs from
+    the one before (white before the first); even entries turn black."""
+    a = np.concatenate([[False], np.asarray(line, bool)])
+    return np.flatnonzero(a[1:] != a[:-1]).tolist()
+
+
+def _fax_2d(row: np.ndarray, ref: np.ndarray) -> str:
+    """A row coded against its reference line (T.4 2D / T.6): pass,
+    vertical and horizontal modes."""
+    import bisect
+    w = len(row)
+    cur, prev = _changes(row), _changes(ref)
+
+    def next_change(changes, after, black=None):
+        i = bisect.bisect_right(changes, after)
+        if black is not None and i % 2 != (0 if black else 1):
+            i += 1
+        return changes[i] if i < len(changes) else w
+
+    out, a0, black = [], -1, False
+    while a0 < w:
+        a1 = next_change(cur, a0)
+        b1 = next_change(prev, a0, not black)
+        b2 = next_change(prev, b1)
+        if b2 < a1:
+            out.append("0001")
+            a0 = b2
+        elif abs(a1 - b1) <= 3:
+            out.append(_FAX_V[a1 - b1])
+            a0, black = a1, not black
+        else:
+            a2 = next_change(cur, a1)
+            out.append("001" + _fax_run(a1 - max(a0, 0), black)
+                       + _fax_run(a2 - a1, not black))
+            a0 = a2
+    return "".join(out)
+
+
+def _bits_to_bytes(bits: str) -> bytes:
+    bits += "0" * (-len(bits) % 8)
+    return int(bits, 2).to_bytes(len(bits) // 8, "big") if bits else b""
+
+
+def fax_encode(rows: np.ndarray, compression: int, options: int = 0,
+               k: int = 2, eol_at_start: bool = True) -> bytes:
+    """A strip or tile of bools [h, w] (True black, as photometric 0
+    reads them) in a CCITT compression, bits MSB first: 2 (modified
+    Huffman, rows to a byte), 32771 (RLEW, rows laid out where libtiff's
+    reader takes them: `_rlew_row`), 3
+    (T.4: an EOL before each row; T4Options bit 0 a 1D/2D tag bit after
+    it and every k-th row 1D, bit 2 fill bits ending each EOL on a byte;
+    `eol_at_start` False leaves the first EOL out) or 4 (T.6 against
+    the previous row, then EOFB)."""
+    rows = np.asarray(rows, bool)
+    w = rows.shape[1]
+    ref = np.zeros(w, bool)
+    out = ""
+    for i, row in enumerate(rows):
+        if compression == 2:
+            out += _fax_1d(row)
+            out += "0" * (-len(out) % 8)
+        elif compression == 32771:
+            out += _rlew_row(row, len(out))
+        elif compression == 3:
+            if i or eol_at_start:
+                if options & 4:
+                    out += "0" * ((4 - len(out)) % 8)
+                out += _FAX_EOL
+            if options & 1:
+                one_d = i % k == 0
+                out += ("1" + _fax_1d(row)) if one_d else (
+                    "0" + _fax_2d(row, ref))
+            else:
+                out += _fax_1d(row)
+        else:
+            out += _fax_2d(row, ref)
+        ref = row
+    if compression == 4:
+        out += _FAX_EOL * 2
+    return _bits_to_bytes(out)
+
+
 def encode_tiff(samples: np.ndarray, *, bits: int = 8, photometric: int = 2,
                 compression: int = 1, predictor: int = 1,
                 byteorder: str = "<", bigtiff: bool = False,
@@ -860,7 +1133,9 @@ def encode_tiff(samples: np.ndarray, *, bits: int = 8, photometric: int = 2,
                 segments: Optional[Sequence[bytes]] = None,
                 jpeg_tables: Optional[bytes] = None,
                 ycbcr_subsampling: Optional[Tuple[int, int]] = None,
-                zlib_level: int = 6, tags: Optional[dict] = None,
+                zlib_level: int = 6, zstd: Optional[dict] = None,
+                xz: Optional[dict] = None, fax: Optional[dict] = None,
+                tags: Optional[dict] = None,
                 omit: Sequence[int] = (), width: Optional[int] = None,
                 height: Optional[int] = None) -> bytes:
     """A one-page TIFF file of samples [h, w] or [h, w, spp] (ints below
@@ -868,8 +1143,12 @@ def encode_tiff(samples: np.ndarray, *, bits: int = 8, photometric: int = 2,
     rows (default: one strip) or tiles of `tile` = (width, length) (edge
     tiles padded with zeros); PlanarConfiguration 1 or 2; compression 1
     (none), 5 (LZW; `old_lzw` for LSB-first codes), 8 (Deflate, zlib),
-    32773 (PackBits) or 7 with `segments` (each strip's or tile's bytes,
-    given: a JPEG stream) and `jpeg_tables`; predictor 2 or 3; FillOrder
+    32773 (PackBits), 50000 (ZSTD: `zstd_frame` with the `zstd`
+    arguments), 34925 (LZMA: `xz_stream` with the `xz` arguments), 2, 3,
+    4 or 32771 (CCITT, 1-bit samples: `fax_encode` with the `fax`
+    arguments; T4Options from its `options`), or
+    any compression with `segments` (each strip's or tile's bytes,
+    given: a JPEG stream for 7) and `jpeg_tables`; predictor 2 or 3; FillOrder
     2 (every byte of each segment's data bit-reversed); II or MM byte
     order ("<" or ">"), classic or BigTIFF (8-byte offsets, LONG8
     strip and tile offsets). `tags` adds or overrides {tag: (type,
@@ -900,6 +1179,12 @@ def encode_tiff(samples: np.ndarray, *, bits: int = 8, photometric: int = 2,
                 block = block[..., p] if p is not None else block
                 rows = block.reshape(bh, -1)
                 stride = 1 if p is not None else spp
+                if compression in (2, 3, 4, 32771):
+                    data = fax_encode(rows, compression, **(fax or {}))
+                    if fill_order == 2:
+                        data = BITREV[np.frombuffer(data, np.uint8)].tobytes()
+                    segs.append(data)
+                    continue
                 if predictor in (2, 3):
                     raw = tiff_predict(rows, stride, bits, predictor,
                                        byteorder)
@@ -912,6 +1197,10 @@ def encode_tiff(samples: np.ndarray, *, bits: int = 8, photometric: int = 2,
                     data = zlib.compress(data, zlib_level)
                 elif compression == 32773:
                     data = tiff_packbits(data)
+                elif compression == 50000:
+                    data = zstd_frame(data, **(zstd or {}))
+                elif compression == 34925:
+                    data = xz_stream(data, **(xz or {}))
                 if fill_order == 2:
                     data = BITREV[np.frombuffer(data, np.uint8)].tobytes()
                 segs.append(data)
@@ -927,6 +1216,8 @@ def encode_tiff(samples: np.ndarray, *, bits: int = 8, photometric: int = 2,
         t[284] = (3, [planar])
     if predictor != 1:
         t[317] = (3, [predictor])
+    if compression in (3, 4) and (fax or {}).get("options"):
+        t[292 if compression == 3 else 293] = (4, [fax["options"]])
     if extra_samples:
         t[338] = (3, list(extra_samples))
     if sample_format is not None:

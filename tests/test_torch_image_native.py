@@ -77,6 +77,16 @@ def test_corpus_is_whole_and_small():
         assert (ic.CORPUS / name).read_bytes() == data, name
 
 
+def test_tiff_scenes_are_whole_and_small():
+    """The ZSTD and LZMA TIFF scenes (tests/data/tiff_scenes, kept apart
+    from the corpus's bounds) are the files their index names and hold at
+    most 900 KB in all."""
+    scenes = json.loads((ic.TIFF_SCENES / "index.json").read_text())
+    files = {p.name for p in ic.TIFF_SCENES.iterdir()} - {"index.json"}
+    assert files == set(scenes)
+    assert sum((ic.TIFF_SCENES / n).stat().st_size for n in files) <= 900_000
+
+
 def _cmyk_cases(rng, h, w):
     cmyk = ic.seeded_image(rng, h, w, 4)
     for inverted in (False, True):
@@ -234,8 +244,11 @@ def test_read_image_never_takes_the_plain_route(monkeypatch):
 
 FAILED_BUILD = r"""
 import os, sys
+from pathlib import Path
 os.environ["CXX"] = "/nonexistent/g++-for-a-test"
 from maskrcnn_tpu_torch.data import image_io, native_image
+from maskrcnn_tpu_torch.utils import native_build
+native_build.BUILD_DIR = Path(sys.argv[1])
 native_image.CXX_FLAGS = native_image.CXX_FLAGS + ("-DFAILED_BUILD_TEST",)
 try:
     image_io.read_image("images/sample.jpg")
@@ -244,14 +257,41 @@ except RuntimeError as e:
 """
 
 
-def test_failed_build_raises_naming_the_compiler():
+def test_failed_build_raises_naming_the_compiler(tmp_path):
     """Without a compiler the reader raises a RuntimeError naming it; it
-    never drops to the plain route."""
-    proc = subprocess.run([sys.executable, "-c", FAILED_BUILD], cwd=REPO,
-                          capture_output=True, text=True, timeout=120)
+    never drops to the plain route, and the failed build leaves no
+    temporary file in its build directory (a directory of this test's
+    own: other test processes build in the shared one at the same
+    time)."""
+    build = tmp_path / "build"
+    proc = subprocess.run([sys.executable, "-c", FAILED_BUILD, str(build)],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
     assert "RAISED" in proc.stdout, proc.stdout + proc.stderr
     assert "/nonexistent/g++-for-a-test" in proc.stdout
-    assert not list(native_image.native_build.BUILD_DIR.glob("*.so.tmp"))
+    assert build.is_dir()
+    assert not list(build.glob("*.so.tmp"))
+
+
+def test_library_path_follows_every_source(tmp_path):
+    """The image library is built from several sources (image_decode.cpp,
+    the TIFF codecs' and their header): its path hashes every file the
+    build reads, so an edit to any of them names another library."""
+    from maskrcnn_tpu_torch.utils import native_build
+    sources = [tmp_path / p.name for p in native_image.SOURCES]
+    for src, dst in zip(native_image.SOURCES, sources):
+        dst.write_bytes(src.read_bytes())
+    assert {p.suffix for p in sources} == {".cpp", ".h"}
+    assert len(sources) >= 5
+    first = native_build.library_path("image_decode", sources,
+                                      native_image.CXX_FLAGS)
+    assert first.name == native_image.library_path().name
+    seen = {first}
+    for path in sources:
+        path.write_bytes(path.read_bytes() + b"\n// an edit\n")
+        seen.add(native_build.library_path("image_decode", sources,
+                                           native_image.CXX_FLAGS))
+    assert len(seen) == len(sources) + 1
 
 
 def test_corrupt_files_raise_value_errors():

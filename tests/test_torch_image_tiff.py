@@ -7,10 +7,12 @@ file names its mode; seeded files made here (tests/image_writers.py's
 `encode_tiff`, Pillow's own TIFF writer and JPEG streams) give Pillow's
 live outcome, pixels or an error: every mode, compression, predictor,
 byte order, layout (strips, tiles, planes), FillOrder, orientation and
-JPEG colour case, and broken strip tables; the C++ inflate equals
-zlib.decompress; decoder threads give one thread's arrays; the JAX
-package's CocoDataset reads a COCO directory of the scenes as TIFF as
-the port's does."""
+JPEG colour case, and broken strip tables; a file read from its path
+gives what Pillow gives from the path (its memory map of uncompressed
+files); the C++ inflate equals zlib.decompress; decoder threads give one
+thread's arrays; the JAX package's CocoDataset reads a COCO directory of
+the scenes as TIFF as the port's does. ZSTD, LZMA and CCITT:
+tests/test_torch_image_tiff_codecs.py."""
 
 import hashlib
 import importlib.util
@@ -95,26 +97,33 @@ def test_corpus_mode_at_every_size_equals_its_digest(mode):
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_corpus_refused_file_names_its_mode(name):
-    """CCITT, LZMA, ZSTD, WebP, old-style JPEG, ThunderScan and SGILog
-    compression, LAB, uncompressed YCbCr and 16-bit CMYK raise
+    """An xz BCJ filter in LZMA data, WebP, old-style JPEG, ThunderScan
+    and SGILog compression, LAB, uncompressed YCbCr and 16-bit CMYK raise
     NotImplementedError naming the mode."""
     with pytest.raises(NotImplementedError, match=re.escape(REFUSED[name])):
         image_io.read_image(ic.CORPUS / name)
 
 
 def test_corpus_covers_the_tiff_modes():
-    """Every compression the reader takes, both predictors, tiles, planes,
-    BigTIFF, FillOrder 2, both byte orders, JPEG with tables and each
-    YCbCr subsampling, and orientations 2-8 (and XMP's) are in the
-    corpus, and the refused files name ten modes."""
+    """Every compression the reader takes (ZSTD, LZMA and each CCITT mode
+    among them), both predictors, tiles, planes, BigTIFF, FillOrder 2,
+    both byte orders, JPEG with tables and each YCbCr subsampling, and
+    orientations 2-8 (and XMP's) are in the corpus, Pillow's own ZSTD,
+    LZMA and Group 4 files are read to their digests, and the refused
+    files name eight modes."""
     joined = " ".join(MODES)
     for part in ("raw", "packbits", "lzw", "lzw_old_style", "deflate",
                  "32946", "jpeg", "predictor", "predictor3", "tiled",
                  "planar", "bigtiff", "fill_order_2", "big_endian",
-                 "jpeg_tables", "2x2", "2x1", "1x1", "xmp_orientation"):
+                 "jpeg_tables", "2x2", "2x1", "1x1", "xmp_orientation",
+                 "zstd", "zstd_predictor", "lzma", "lzma_delta",
+                 "ccitt_rle", "ccitt_rlew", "group3", "group3_2d",
+                 "group3_fill_bits", "group4", "group4_tiled"):
         assert part in joined, part
     assert {f"rgb_orientation_{o}" for o in range(2, 9)} <= set(MODES)
-    assert len(REFUSED) == 10
+    assert {f"pillow_tiff_{c}.tif" for c in ("group4", "lzma", "zstd")} \
+        <= set(INDEX["files"])
+    assert len(REFUSED) == 8
 
 
 # ----------------------------------------------------- live Pillow: modes
@@ -243,6 +252,80 @@ def test_orientations_equal_pillow(orientation):
         assert_like_pillow(iw.encode_tiff(
             s, tags={700: (1, list(xmp)), 274: (3, [1])}, **kw),
             f"XMP under the tag {orientation}")
+
+
+# the TIFF modes whose raw mode is the mode and one of Image._MAPMODES:
+# (samples shape, encode_tiff arguments)
+MAP_MODES = {
+    "L": ((7, 5), dict(photometric=1)),
+    "P": ((7, 5), dict(photometric=3)),
+    "RGBA": ((7, 5, 4), dict(extra_samples=[2])),
+    "CMYK": ((7, 5, 4), dict(photometric=5)),
+    "I;16": ((7, 5), dict(photometric=1, bits=16)),
+    "I;16B": ((7, 5), dict(photometric=1, bits=16, byteorder=">")),
+}
+
+
+@pytest.mark.parametrize("orientation", range(1, 9))
+@pytest.mark.parametrize("mode", sorted(MAP_MODES))
+def test_path_reads_equal_pillows_path_reads(mode, orientation, tmp_path):
+    """An uncompressed one-strip TIFF of a mode Pillow memory-maps, read
+    from its path, gives Image.open(path).convert("RGB") (for Orientation
+    5-8 the mapped view turned, not the image), and from its bytes gives
+    Image.open(BytesIO(...)); in strips the two agree."""
+    from PIL import Image
+    shape, kw = MAP_MODES[mode]
+    rng = np.random.RandomState(orientation)
+    samples = rng.randint(0, 65536 if kw.get("bits") == 16 else 256, shape)
+    if mode == "P":
+        kw = dict(kw, colormap=rng.randint(0, 65536, (256, 3)))
+    for layout in (dict(), dict(rows_per_strip=3)):
+        data = iw.encode_tiff(samples, orientation=orientation, **kw,
+                              **layout)
+        path = tmp_path / f"{mode.replace(';', '')}.tif"
+        path.write_bytes(data)
+        with Image.open(path) as im:
+            assert im.mode == mode
+            want_path = np.asarray(im.convert("RGB"))
+        want_bytes = pillow(data)
+        for source in (path, str(path)):
+            got = image_io.read_image(source)
+            assert got.shape == want_path.shape
+            assert np.array_equal(got, want_path), (mode, orientation)
+        with open(path, "rb") as f:
+            assert np.array_equal(image_io.read_image(f), want_bytes)
+        assert np.array_equal(image_io.read_image(data), want_bytes)
+        mapped = orientation >= 5 and not layout
+        assert (want_path.shape != want_bytes.shape) == (
+            mapped and shape[0] != shape[1])
+
+
+@pytest.mark.parametrize("orientation", range(5, 9))
+def test_path_read_of_a_wide_tile_stays_in_the_file(orientation, tmp_path):
+    """One uncompressed tile wider than an L image 10 wide and 100 tall:
+    Pillow maps it from the path with the tile's 16-byte stride, and the
+    turned view's 10 rows of 100 pixels overlap. Whole, the file reads as
+    Pillow reads it from its path; with the tile moved to 160 bytes
+    before the end (enough for Pillow's size check, 10 strides, not for
+    the last row) the read raises ValueError where Pillow reads past the
+    end of its map."""
+    from PIL import Image
+    samples = np.random.RandomState(orientation).randint(0, 256, (100, 10))
+    kw = dict(photometric=1, tile=(16, 112), orientation=orientation)
+    data = iw.encode_tiff(samples, **kw)
+    path = tmp_path / "wide_tile.tif"
+    path.write_bytes(data)
+    with Image.open(path) as im:
+        want = np.asarray(im.convert("RGB"))
+    assert want.shape == (100, 10, 3)
+    assert np.array_equal(image_io.read_image(path), want)
+    assert np.array_equal(image_io.read_image(data), pillow(data))
+    cut = iw.encode_tiff(samples, **kw,
+                         tags={324: (4, [len(data) - 160])})
+    assert len(cut) == len(data)
+    path.write_bytes(cut)
+    with pytest.raises(ValueError, match="last row runs past the end"):
+        image_io.read_image(path)
 
 
 @pytest.mark.parametrize("compression", [1, 5, 8, 32773])
@@ -619,7 +702,8 @@ print("BAD", bad)
 def test_tiff_decode_loads_no_libtiff_and_links_no_zlib():
     """Decoding every TIFF mode in a fresh interpreter loads no libtiff,
     libjpeg or Pillow, and the decoder library names only the C and C++
-    runtimes and imports no zlib or libtiff symbol."""
+    runtimes and imports no zlib, libtiff, libzstd, XXH or liblzma
+    symbol."""
     names = [MODES[m][0] for m in sorted(MODES)]
     proc = subprocess.run([sys.executable, "-c", NO_SYSTEM_CODECS, *names],
                           cwd=REPO, capture_output=True, text=True,
@@ -635,7 +719,8 @@ def test_tiff_decode_loads_no_libtiff_and_links_no_zlib():
     assert libs and all(lib.startswith(runtimes) for lib in libs), libs
     undefined = subprocess.run(["nm", "-D", "--undefined-only", str(path)],
                                capture_output=True, text=True).stdout
-    assert not re.search(r"\b(inflate|TIFF)\w*", undefined), undefined
+    assert not re.search(r"\b(inflate|TIFF|ZSTD_|lzma_|XXH)\w*",
+                         undefined), undefined
 
 
 # ---------------------------------------- the JAX package's CocoDataset
@@ -644,7 +729,10 @@ def _coco_dir(root: Path) -> Path:
     """A COCO directory of the three scenes as TIFF (from their JPEG
     files' native decodes): LZW with predictor 2 in strips, tiled Deflate
     with predictor 2, and the baseline scenes' JPEG streams as YCbCr
-    JPEG TIFF."""
+    JPEG TIFF; and the first scene uncompressed in one strip, as L with
+    Orientation 5 and 8 and as RGBA with Orientation 6 and 7, which
+    Pillow memory-maps from a path (the mapped view, 640 wide, is what
+    it turns)."""
     images, anns, files = [], [], []
     for k, scene in enumerate(INDEX["scenes"]):
         data = (ic.CORPUS / scene).read_bytes()
@@ -655,6 +743,15 @@ def _coco_dir(root: Path) -> Path:
                                     tile=(256, 256), byteorder="><"[k % 2]))
         if "progressive" not in scene:
             files.append(iw.tiff_from_jpeg(data))
+        if k == 0:
+            alpha = (img[..., 1:2] // 2 + 128).astype(np.uint8)
+            for o in (5, 8):
+                files.append(iw.encode_tiff(img[..., 0], photometric=1,
+                                            orientation=o))
+            for o in (6, 7):
+                files.append(iw.encode_tiff(
+                    np.concatenate([img, alpha], -1), extra_samples=[2],
+                    orientation=o))
     (root / "val2014").mkdir(parents=True)
     (root / "annotations").mkdir()
     for i, data in enumerate(files, 1):
@@ -684,7 +781,7 @@ def test_jax_coco_dataset_reads_tiff_as_the_port(tmp_path):
     root = str(_coco_dir(tmp_path / "coco"))
     ref = jax_coco.CocoDataset(root, "minival", 2014, TinyConfig())
     port = port_coco.CocoDataset(root, "minival", 2014, PortTinyConfig())
-    assert port.ids == ref.ids and len(port.ids) == 8
+    assert port.ids == ref.ids and len(port.ids) == 12
     for i, image_id in enumerate(port.ids):
         np.testing.assert_array_equal(port.load_image(image_id),
                                       ref.load_image(image_id))

@@ -1,17 +1,25 @@
 #!/usr/bin/env python3
 """Mutation fuzzing of the port's native image decoders under AddressSanitizer
-and UndefinedBehaviorSanitizer: csrc/image_decode.cpp (JPEG, GIF, BMP, TIFF)
-or csrc/webp_decode.cpp (WebP) built with g++ -fsanitize=address,undefined
-into build/maskrcnn_tpu_torch/fuzz/, then each worker process decodes
-mutated copies of the committed corpus's files (tests/data/image_io) of
-one format through the size and decode calls, as data/native_image.py
-makes them: bytes set, bits flipped, 2-, 4- and 8-byte integers near
-the type limits written, the file cut short. An error the decoder
-reports is the expected outcome; a sanitizer report stops the worker and
-the run exits 1.
+and UndefinedBehaviorSanitizer: the sources of data/native_image.py's
+image library (JPEG, GIF, BMP, TIFF with its ZSTD, LZMA and CCITT data)
+or of its WebP library, built with its flags and
+-fsanitize=address,undefined into build/maskrcnn_tpu_torch/, then each
+worker process decodes mutated copies of the committed corpus's files
+(tests/data/image_io) of one format through the size and decode calls,
+as data/native_image.py makes them: bytes set, bits flipped, 2-, 4- and
+8-byte integers near the type limits written, the file cut short. TIFF
+files are read half the time as from their path (the memory-map route),
+and the TIFF seeds add uncompressed files that route takes (`map_*`:
+L, P, RGBA, CMYK, I;16 and I;16B at Orientation 5-8, in one strip or
+in one tile wider than the image and narrower than it is tall). An error the decoder reports is the
+expected outcome; a sanitizer report stops the worker and the run exits
+1.
 
     python3 tools/fuzz_image_decode_torch.py --format tiff [--glob 'tiff_*']
         [--mutations 3000] [--workers 4] [--seed 1]
+
+(`--glob '*zstd*'`, `'*lzma*'`, `'*bilevel_ccitt*'` and `'*group*'`,
+or `'map_*'` mutate the ZSTD, LZMA, CCITT or memory-map files alone.)
 
 Host only, no card; a worker holds at most a 4-megapixel output.
 """
@@ -20,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import fnmatch
 import os
 import random
 import subprocess
@@ -27,10 +36,15 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+sys.path.insert(1, str(REPO / "tests"))
+
+from maskrcnn_tpu_torch.data import native_image  # noqa: E402
+from maskrcnn_tpu_torch.utils import native_build  # noqa: E402
+
 CORPUS = REPO / "tests" / "data" / "image_io"
-CSRC = REPO / "maskrcnn_tpu_torch" / "csrc"
-OUT = REPO / "build" / "maskrcnn_tpu_torch" / "fuzz"
-SOURCES = {"webp": "webp_decode.cpp"}
+FLAGS = ("-O1", "-g", "-shared", "-fPIC", "-std=c++17", "-fwrapv",
+         "-fsanitize=address,undefined", "-fno-sanitize-recover=all")
 SUFFIX = {"jpeg": ".jpg", "gif": ".gif", "bmp": ".bmp", "tiff": ".tif",
           "webp": ".webp"}
 LIMITS = (0, 1, 2, 7, 8, 15, 16, 255, 256, 65535, 2 ** 31 - 1, 2 ** 31,
@@ -39,15 +53,43 @@ MAX_PIXELS = 4_000_000
 
 
 def build(fmt: str) -> Path:
-    source = CSRC / SOURCES.get(fmt, "image_decode.cpp")
-    lib = OUT / f"lib{source.stem}_asan.so"
-    if not lib.exists() or lib.stat().st_mtime < source.stat().st_mtime:
-        OUT.mkdir(parents=True, exist_ok=True)
-        subprocess.run(["g++", "-O1", "-g", "-shared", "-fPIC", "-std=c++17",
-                        "-fwrapv", "-fsanitize=address,undefined",
-                        "-fno-sanitize-recover=all", "-o", str(lib),
-                        str(source)], check=True)
+    """The sanitized library of native_image's sources for `fmt`, named
+    by their hash as native_build names every library."""
+    stem, sources = (("webp_decode_asan", (native_image.WEBP_SOURCE,))
+                     if fmt == "webp" else
+                     ("image_decode_asan", native_image.SOURCES))
+    lib = native_build.library_path(stem, sources, FLAGS)
+    if not lib.exists():
+        native_build.build(sources, lib, FLAGS)
     return lib
+
+
+def map_seeds() -> dict:
+    """Uncompressed TIFF files that a read from the path memory-maps:
+    each mapped mode at Orientation 5-8, in one strip and in one tile
+    wider and longer than the image (whose stride is shorter than a row
+    of the turned view)."""
+    import numpy as np
+
+    import image_writers as iw
+    rng = np.random.RandomState(0)
+    modes = {"L": ((40, 5), dict(photometric=1)),
+             "P": ((40, 5), dict(photometric=3,
+                                colormap=rng.randint(0, 65536, (256, 3)))),
+             "RGBA": ((40, 5, 4), dict(extra_samples=[2])),
+             "CMYK": ((40, 5, 4), dict(photometric=5)),
+             "I16": ((40, 5), dict(photometric=1, bits=16)),
+             "I16B": ((40, 5), dict(photometric=1, bits=16, byteorder=">"))}
+    seeds = {}
+    for mode, (shape, kw) in modes.items():
+        samples = rng.randint(0, 65536 if kw.get("bits") == 16 else 256,
+                              shape)
+        for orientation in range(5, 9):
+            for layout, extra in (("strip", {}), ("tile", {"tile": (16, 48)})):
+                seeds[f"map_{mode}_{orientation}_{layout}.tif"] = (
+                    iw.encode_tiff(samples, orientation=orientation, **kw,
+                                   **extra))
+    return seeds
 
 
 def mutate(rng: random.Random, data: bytes) -> bytes:
@@ -76,19 +118,24 @@ def worker(lib_path: str, fmt: str, pattern: str, mutations: int,
     msg = ctypes.create_string_buffer(512)
     files = [p.read_bytes() for p in sorted(CORPUS.glob(pattern))
              if p.suffix == SUFFIX[fmt] and p.stat().st_size < 20000]
+    if fmt == "tiff":
+        files += [d for name, d in map_seeds().items()
+                  if fnmatch.fnmatch(name, pattern)]
     if not files:
         raise SystemExit(f"no {fmt} corpus file matches {pattern}")
     rng = random.Random(seed)
     for _ in range(mutations):
         data = mutate(rng, rng.choice(files))
+        # TIFF's size and decode calls take the path flag last
+        extra = (ctypes.c_int32(rng.randrange(2)),) if fmt == "tiff" else ()
         h, w = ctypes.c_int32(), ctypes.c_int32()
         if size_fn(data, len(data), ctypes.byref(h), ctypes.byref(w), msg,
-                   512):
+                   512, *extra):
             continue
         if min(h.value, w.value) < 1 or h.value * w.value > MAX_PIXELS:
             continue
         out = ctypes.create_string_buffer(h.value * w.value * 3)
-        decode_fn(data, len(data), out, h.value, w.value, msg, 512)
+        decode_fn(data, len(data), out, h.value, w.value, msg, 512, *extra)
 
 
 def main(argv=None) -> int:

@@ -4,10 +4,13 @@
 the plain Python route (`read_image(..., plain=True)`, JPEG and PNG
 only), over repository JPEG files and the first corpus scene (640x480)
 as PNG, lossy WebP (q80), lossless WebP, GIF, BMP and TIFF (uncompressed, LZW
-with predictor 2, tiled Deflate with predictor 2, and its JPEG stream as
-a YCbCr 2x2 JPEG TIFF; the PNG written here from the JPEG scene's decode
-by `image_io.encode_png`, the GIF, BMP and TIFF ones by
-tests/image_writers.py, numpy and the standard library only); the PNG
+with predictor 2, tiled Deflate with predictor 2, its JPEG stream as
+a YCbCr 2x2 JPEG TIFF, ZSTD and LZMA with predictor 2, and its bilevel
+as CCITT Group 4; the PNG written here from the JPEG scene's decode
+by `image_io.encode_png`, the GIF, BMP, Group 4 and other TIFF ones by
+tests/image_writers.py, numpy and the standard library only, the ZSTD
+and LZMA ones committed, tests/data/tiff_scenes, since Pillow's writer
+makes them); the PNG
 scene's image data inflated by the decoder's own inflate (PNG's and
 TIFF's) beside zlib.decompress; decodes a second of the committed corpus's two baseline
 640x480 JPEG scenes (tests/data/image_io) on 1 and 4 threads, each
@@ -44,6 +47,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 REPO = Path(__file__).resolve().parent.parent
 CORPUS = REPO / "tests" / "data" / "image_io"
+# the first scene as ZSTD and LZMA TIFF with predictor 2 (Pillow's writer;
+# tests/image_corpus.tiff_scene_cases)
+TIFF_SCENES = REPO / "tests" / "data" / "tiff_scenes"
+COMMITTED_TIFF = {"tiff_zstd_predictor": "scene_baseline_420_zstd_predictor.tif",
+                  "tiff_lzma_predictor": "scene_baseline_420_lzma_predictor.tif"}
 TIMED = ("images/sample.jpg", "output/detections.jpg",
          "tests/data/image_io/scene_progressive.jpg")
 # the JPEG scenes as lossy WebP, each in the JPEG scene's slot
@@ -86,7 +94,11 @@ def scene_files(fmt: str, count: int = 3) -> tuple:
     one-strip YCbCr JPEG TIFF (tests/image_writers.tiff_from_jpeg: the
     4:2:0 scene's subsampling 2x2, the 4:4:4 one's 1x1) and the
     progressive scene as its JPEG file (libtiff's reading of a
-    progressive strip is not held to Pillow here)."""
+    progressive strip is not held to Pillow here); "tiff_zstd_predictor"
+    and "tiff_lzma_predictor" the committed ZSTD or LZMA TIFF of the
+    first scene (its JPEG decode's pixels) and the other two as their
+    JPEG files; "tiff_group4" the scenes' bilevel (mean of the channels
+    below 110 black) as CCITT Group 4."""
     from maskrcnn_tpu_torch.data import image_io
     names = list(corpus_index()["scenes"])[:count]
     out = []
@@ -96,6 +108,13 @@ def scene_files(fmt: str, count: int = 3) -> tuple:
         if fmt == "webp" or (fmt == "webp_lossless" and k == 0):
             webp = WEBP_SCENES[k] if fmt == "webp" else LOSSLESS_SCENE
             out.append((webp, (CORPUS / webp).read_bytes()))
+        elif fmt in COMMITTED_TIFF and k == 0:
+            out.append((COMMITTED_TIFF[fmt],
+                        (TIFF_SCENES / COMMITTED_TIFF[fmt]).read_bytes()))
+        elif fmt == "tiff_group4":
+            bilevel = image_io.read_image(data).mean(-1) < 110
+            out.append((f"{stem}_group4.tif", image_writers().encode_tiff(
+                bilevel, bits=1, photometric=0, compression=4)))
         elif fmt == "tiff_jpeg" and "progressive" not in name:
             out.append((f"{stem}_jpeg.tif", image_writers().tiff_from_jpeg(
                 data)))
@@ -124,14 +143,15 @@ def scene_files(fmt: str, count: int = 3) -> tuple:
 
 FORMAT_TIMES = ("png", "webp", "webp_lossless", "gif", "bmp", "tiff_raw",
                 "tiff_lzw_predictor", "tiff_tiled_deflate_predictor",
-                "tiff_jpeg")
+                "tiff_jpeg", "tiff_zstd_predictor", "tiff_lzma_predictor",
+                "tiff_group4")
 
 
 def format_scenes() -> dict:
     """{name: bytes} of the first scene as PNG, lossy WebP, lossless WebP,
     GIF, BMP, and TIFF uncompressed, LZW with predictor 2, tiled Deflate with
-    predictor 2 and YCbCr 2x2 JPEG (the files decode_times times beside
-    TIMED)."""
+    predictor 2, YCbCr 2x2 JPEG, ZSTD and LZMA with predictor 2 and its
+    bilevel as Group 4 (the files decode_times times beside TIMED)."""
     return {name: data for fmt in FORMAT_TIMES
             for name, data in scene_files(fmt, 1)}
 
