@@ -3072,6 +3072,12 @@ def decoder_links() -> dict:
     return {"ok": ok, "needed": needed, "nm": nm_note}
 
 
+# the corpus's files of the small lossless plugins (tests/image_corpus.py
+# plugin_cases)
+PLUGIN_EXTS = ("ppm", "pgm", "pbm", "pfm", "tga", "qoi", "ico", "cur", "dib",
+               "pcx", "dcx", "sgi", "ras")
+
+
 def decode_phase(card, build=None):
     """Phase 9a: the port's native image decoders (data/native_image.py,
     csrc/image_decode.cpp and csrc/webp_decode.cpp built with g++) give
@@ -3081,8 +3087,10 @@ def decode_phase(card, build=None):
     factors up to 4, Adam7 and every PNG bit depth; lossy and lossless,
     extended and animated WebP, GIF and BMP of every mode; TIFF of every
     mode, compression (ZSTD, LZMA and every CCITT mode among them),
-    predictor, layout and orientation) decodes to its Pillow digest, and
-    each refused file raises NotImplementedError naming its mode; the
+    predictor, layout and orientation; PPM/PGM/PBM/PFM, TGA, QOI, ICO,
+    CUR, DIB, PCX, DCX, SGI and Sun raster of every mode) decodes to its
+    Pillow digest, and each refused file raises NotImplementedError
+    naming its mode or the format Pillow reads that the port does not; the
     first scene as ZSTD and LZMA TIFF (tests/data/tiff_scenes) decodes to
     its digest; neither Pillow nor a system libwebp, giflib or libtiff is
     loaded, and the decoder library links only the C and C++ runtimes and
@@ -3092,8 +3100,8 @@ def decode_phase(card, build=None):
     640x480, output/detections.jpg 1252², the progressive scene, the
     first scene as PNG, lossy and lossless WebP, GIF, BMP, and TIFF
     uncompressed, LZW with predictor 2, tiled Deflate with predictor 2,
-    YCbCr 2x2 JPEG, ZSTD and LZMA with predictor 2, and its bilevel as
-    CCITT Group 4);
+    YCbCr 2x2 JPEG, ZSTD and LZMA with predictor 2, its bilevel as
+    CCITT Group 4, and PPM P6, TGA RLE, QOI, PCX, SGI RLE and Sun RLE);
     the PNG scene's image data through the library's inflate beside
     zlib.decompress; decodes a second of the two baseline JPEG scenes on 1 and 4 threads,
     each route, and of the three scenes as lossy WebP and as tiled
@@ -3127,6 +3135,11 @@ def decode_phase(card, build=None):
             check(False, f"9a: corpus {name} was not refused")
         except NotImplementedError as e:
             check(word in str(e), f"9a: corpus {name} refused as {e}")
+    plugins = sum(name.rsplit(".", 1)[1] in PLUGIN_EXTS
+                  for name in index["files"])
+    refused_formats = " ".join(sorted(
+        word for name, word in index["refused"].items()
+        if name.rsplit(".", 1)[1] not in ("bmp", "tif", "jpg", "png")))
     scene_tiffs = json.loads((bench.TIFF_SCENES / "index.json").read_text())
     for name, entry in scene_tiffs.items():
         img = image_io.read_image(bench.TIFF_SCENES / name)
@@ -3163,8 +3176,10 @@ def decode_phase(card, build=None):
           f"whole run); {len(IMAGE_DIGESTS)} repository images decode "
           f"to Pillow's pixels (SHA-256) and equal the plain route; corpus: "
           f"{len(index['files'])} files to their digests (ZSTD, LZMA and "
-          f"CCITT among them), {len(index['refused'])} refused by name "
-          f"(an xz BCJ filter's among them); the "
+          f"CCITT among them; {plugins} of PPM, TGA, QOI, ICO, CUR, DIB, "
+          f"PCX, DCX, SGI and Sun raster), {len(index['refused'])} refused "
+          f"by name (an xz BCJ filter's and Pillow's formats the port does "
+          f"not read among them: {refused_formats}); the "
           f"first scene as ZSTD and as LZMA TIFF ({len(scene_tiffs)} "
           f"committed files) to their digests; no system codec "
           f"loaded; host decode median of 5: {lines}; the PNG scene's "
@@ -3204,19 +3219,21 @@ def same_detections(a, b) -> bool:
 FILES_COPIES, FILES_B = 8, 8
 FILES_FORMATS = ("bmp", "webp_lossless", "tiff_tiled_lzw_predictor", "webp",
                  "gif", "tiff_jpeg", "tiff_zstd_predictor",
-                 "tiff_lzma_predictor")
+                 "tiff_lzma_predictor", "plugins")
 # the sweeps whose files hold the JPEG decodes' pixels, so their detections
 # equal the JPEG sweep's (the JPEG TIFF holds the baseline scenes' own JPEG
 # streams, which decode to their JPEG files' pixels; the ZSTD and LZMA
-# TIFF the first scene's JPEG decode)
+# TIFF the first scene's JPEG decode; "plugins" each image's scene decode
+# as PPM P6, TGA RLE, QOI, PCX, SGI RLE and Sun RLE in turn)
 SAME_PIXELS = ("plain", "bmp", "webp_lossless", "tiff_tiled_lzw_predictor",
-               "tiff_jpeg", "tiff_zstd_predictor", "tiff_lzma_predictor")
-# images a sweep: the WebP, GIF, BMP, ZSTD and LZMA sweeps one batch (the
-# first 8 images, so the JPEG sweep's first 8 results), to keep the whole
-# script within its time
+               "tiff_jpeg", "tiff_zstd_predictor", "tiff_lzma_predictor",
+               "plugins")
+# images a sweep: the WebP, GIF, BMP, ZSTD, LZMA and plugin sweeps one
+# batch (the first 8 images, so the JPEG sweep's first 8 results), to keep
+# the whole script within its time
 FILES_IMAGES = {"bmp": FILES_B, "webp_lossless": FILES_B, "webp": FILES_B,
                 "gif": FILES_B, "tiff_zstd_predictor": FILES_B,
-                "tiff_lzma_predictor": FILES_B}
+                "tiff_lzma_predictor": FILES_B, "plugins": FILES_B}
 
 
 def files_phase(kernels, card, cfg=None):
@@ -3235,9 +3252,11 @@ def files_phase(kernels, card, cfg=None):
     baseline scenes' own JPEG streams as YCbCr JPEG TIFF (the progressive
     scene as its JPEG file) and the first scene as ZSTD and as LZMA TIFF
     with predictor 2 (committed, tests/data/tiff_scenes; the other scenes
-    as their JPEG files; one batch each) hold the JPEG decodes' pixels, so
-    their detections equal the JPEG sweep's; lossy WebP and GIF (a fixed
-    palette) find detections; K1, K2 and K4 launched in every sweep. Then one POST each of the progressive scene, of a
+    as their JPEG files; one batch each), and one batch whose images
+    rotate through PPM P6, TGA RLE, QOI, PCX, SGI RLE and Sun RLE (written
+    from the scenes' decodes by tests/image_writers.py) hold the JPEG
+    decodes' pixels, so their detections equal the JPEG sweep's; lossy
+    WebP and GIF (a fixed palette) find detections; K1, K2 and K4 launched in every sweep. Then one POST each of the progressive scene, of a
     lossy WebP scene and of a JPEG TIFF scene to tools/serve_torch.py's
     handler on a localhost port is answered with detections. Returns the
     native JPEG sweep's launches."""
@@ -3361,8 +3380,9 @@ def files_phase(kernels, card, cfg=None):
           f"x {FILES_COPIES}, one progressive) through {cfg_name(cfg)} at "
           f"B={FILES_B}: detections of the plain-route and native-route "
           f"JPEG sweeps equal ({found} detections), and of the BMP, "
-          f"lossless-WebP, tiled-LZW-TIFF, JPEG-TIFF, ZSTD-TIFF and "
-          f"LZMA-TIFF sweeps; "
+          f"lossless-WebP, tiled-LZW-TIFF, JPEG-TIFF, ZSTD-TIFF, "
+          f"LZMA-TIFF and plugin (PPM, TGA RLE, QOI, PCX, SGI RLE, Sun "
+          f"RLE in turn) sweeps; "
           + "; ".join(parts)
           + f"; bbox AP {sweeps['native'][3][0]:.3f} (seeded weights); "
           + "; ".join(f"serve_torch POST of {name} answered {status} with "

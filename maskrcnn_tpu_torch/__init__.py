@@ -19,9 +19,10 @@ run on the card unless given `device="cpu"`. The package carries its own
 copy of the configs (`config.py`), of the host codecs (`data/codecs.py`:
 Pillow's bilinear resample in torch int32 ops, no Pillow) and of the
 COCO evaluation stack (`eval/`, `data/coco.py`), and imports nothing of
-the JAX package. It reads JPEG, PNG, WebP, GIF and BMP files without
-Pillow (`data/image_io.py`, native decoders: Pillow's pixels bit for
-bit), and imports matplotlib only to draw (`utils/visualize.py`).
+the JAX package. It reads the image files Pillow's `Image.open` reads
+(JPEG, PNG, WebP, GIF, BMP, TIFF, Netpbm, TGA, QOI, ICO, CUR, DIB, PCX,
+DCX, SGI, Sun raster) without Pillow (`data/image_io.py`, native
+decoders: Pillow's pixels bit for bit; other formats are named), and imports matplotlib only to draw (`utils/visualize.py`).
 """
 
 __all__ = ["Config", "CocoConfig", "CocoInferenceConfig", "TinyConfig"]

@@ -7,6 +7,8 @@
 #pragma once
 
 #include <cstdint>
+#include <cstdio>
+#include <new>
 #include <string>
 #include <vector>
 
@@ -21,6 +23,28 @@ struct Error {
 
 [[noreturn]] inline void corrupt(const std::string& m) { throw Error{1, m}; }
 [[noreturn]] inline void refuse(const std::string& m) { throw Error{2, m}; }
+
+// An entry point's return: the error's code, its message into msg.
+inline int report(const Error& e, char* msg, int32_t msg_len) {
+  if (msg && msg_len > 0) {
+    std::snprintf(msg, static_cast<size_t>(msg_len), "%s", e.msg.c_str());
+  }
+  return e.code;
+}
+
+// Runs f, reporting a thrown Error or an allocation failure.
+template <class F>
+int guarded(const char* format, char* msg, int32_t msg_len, F f) {
+  try {
+    f();
+    return 0;
+  } catch (const Error& e) {
+    return report(e, msg, msg_len);
+  } catch (const std::bad_alloc&) {
+    return report(Error{1, std::string(format) + ": out of memory"}, msg,
+                  msg_len);
+  }
+}
 
 // libtiff 4.7's ZSTDDecode over one strip or tile, as it drives libzstd
 // 1.5.7: d[0, n) decoded into out[0, cap), an Error where libtiff fails.

@@ -1,7 +1,9 @@
-// Host image decoder of the port: JPEG, PNG, BMP, GIF and
-// TIFF to RGB uint8, the pixels np.asarray(PIL.Image.open(f).convert("RGB"))
-// gives with Pillow 12.1 over libjpeg-turbo 3.1, libtiff 4.7, zlib,
-// libzstd 1.5 and liblzma 5.8 (WebP: webp_decode.cpp).
+// Host image decoder of the port: JPEG, PNG, BMP (and the DIB frames of
+// DIB, ICO and CUR files), GIF and TIFF to RGB uint8, the pixels
+// np.asarray(PIL.Image.open(f).convert("RGB")) gives with Pillow 12.1
+// over libjpeg-turbo 3.1, libtiff 4.7, zlib, libzstd 1.5 and liblzma 5.8
+// (WebP: webp_decode.cpp; Pillow's small lossless plugins:
+// image_plugins.cpp).
 //
 // Host C++17, no CUDA: maskrcnn_tpu_torch/data/native_image.py compiles it
 // with g++ on first use and calls it through ctypes, which releases the
@@ -25,8 +27,9 @@
 // whose scans leave a low-frequency coefficient incomplete (libjpeg-turbo
 // smooths such blocks; jdcoefct.c smoothing_ok).
 //
-// PNG: the image data inflated as zlib.decompress inflates it (by the
-// inflate written here, which TIFF's Deflate shares), the five row
+// PNG: the image data inflated by the inflate written here (TIFF's
+// Deflate shares it) as Pillow's decoder drives zlib: up to the image's
+// last byte, so a stream cut in its trailer still decodes, the five row
 // filters, the seven Adam7 passes, bit depths 1, 2, 4,
 // 8 and 16, and Pillow's conversions to RGB: gray 1-bit as 0/255, 2- and
 // 4-bit scaled by 85 and 17, 16-bit gray ("I;16") clipped to 255, the
@@ -40,7 +43,10 @@
 // takes (alpha dropped), BI_RLE8 and BI_RLE4 through Pillow's own RLE
 // decoder (a delta skips two bytes before its offsets; deltas and line
 // ends leave index 0; absolute runs align to the file's even offsets),
-// rows bottom-up or top-down. Channels narrower than 8 bits widen as
+// rows bottom-up or top-down (the last row's padding not needed); a DIB
+// header at an offset, as Pillow's DIB plugin, IcoFile.frame (the height
+// halved, the AND mask or alpha bytes read) and CurImageFile read one.
+// Channels narrower than 8 bits widen as
 // Pillow's unpackers do: v * 255 / (2**bits - 1).
 //
 // GIF: the first frame as GifImagePlugin.py and GifDecode.c give it: the
@@ -102,14 +108,9 @@ namespace {
 
 using mrt::corrupt;
 using mrt::Error;
+using mrt::guarded;
 using mrt::refuse;
-
-int report(const Error& e, char* msg, int32_t msg_len) {
-  if (msg && msg_len > 0) {
-    std::snprintf(msg, static_cast<size_t>(msg_len), "%s", e.msg.c_str());
-  }
-  return e.code;
-}
+using mrt::report;
 
 // ------------------------------------------------------------------- JPEG
 
@@ -1530,8 +1531,14 @@ void decode_png(const uint8_t* z, int64_t zn, int width, int height,
     png_pass(width, height, plan[p], &pw, &ph);
     if (pw > 0) size += static_cast<int64_t>(ph) * (1 + (pw * guess_bits + 7) / 8);
   }
-  std::vector<uint8_t> data(static_cast<size_t>(size));
-  Inflater(z, zn, "PNG: bad image data").run(data);
+  // Pillow's ZipDecode inflates a row at a time and stops at the image's
+  // last row: zlib goes on past a full buffer only for what gives no
+  // output (a block's end, the next block's header, the Adler-32 check
+  // where the stream ends there), so what follows the image's bytes is
+  // not read, and a stream that ends on them is whole without its
+  // trailer. The strip route's inflate stops the same way.
+  std::vector<uint8_t> data(static_cast<size_t>(std::max<int64_t>(size, 1)));
+  data.resize(static_cast<size_t>(Inflater(z, zn, "PNG: bad image data").run(data.data(), size)));
   const uint8_t* raw = data.data();
   const int64_t n = static_cast<int64_t>(data.size());
   int channels;
@@ -1578,7 +1585,11 @@ uint32_t le32(const uint8_t* p) {
   return p[0] | (p[1] << 8) | (p[2] << 16) | (static_cast<uint32_t>(p[3]) << 24);
 }
 
-// A BMP as BmpImagePlugin.py opens it.
+// A BMP as BmpImagePlugin.py opens it: a "BM" file, or a DIB header at
+// `at` (BmpImageFile._bitmap without a file header: Pillow's DIB plugin,
+// an ICO or CUR frame). `pillow_error`: what Pillow itself refuses
+// (header types, depths, bit-field layouts, compressions, palette sizes
+// its _bitmap raises on) is a ValueError, not a refusal by name.
 struct Bmp {
   int64_t width = 0, height = 0;
   int bits = 0;
@@ -1591,14 +1602,29 @@ struct Bmp {
   bool gray = false;
   int rgb_at[3] = {2, 1, 0};      // 32-bit: byte of R, G and B in a pixel
   int depth16 = 15;               // 16-bit: 5-5-5 ("BGR;15") or 5-6-5
+  bool pillow_error = false;
 
   Bmp(const uint8_t* d, int64_t n) {
     if (n < 18 || d[0] != 'B' || d[1] != 'M') corrupt("not a BMP file");
-    offset = le32(d + 10);
-    uint32_t hs = le32(d + 14);
-    int64_t pos = 14;
+    parse(d, n, 14, le32(d + 10));
+  }
+
+  Bmp(const uint8_t* d, int64_t n, int64_t at) : pillow_error(true) {
+    if (at < 0 || at > n - 4) corrupt("DIB: truncated header");
+    parse(d, n, at, 0);
+  }
+
+  [[noreturn]] void unsupported(const std::string& m) const {
+    if (pillow_error) corrupt(m);
+    refuse(m);
+  }
+
+  void parse(const uint8_t* d, int64_t n, int64_t at, int64_t file_offset) {
+    offset = file_offset;
+    uint32_t hs = le32(d + at);
+    int64_t pos = at;
     if (hs < 4 || pos + hs > n) corrupt("BMP: truncated header");
-    const uint8_t* h = d + 18;
+    const uint8_t* h = d + at + 4;
     uint32_t colors = 0;
     int padding = 4;
     uint32_t mask[4] = {0, 0, 0, 0};
@@ -1628,15 +1654,15 @@ struct Bmp {
         }
       }
     } else {
-      refuse("BMP: header type " + std::to_string(hs) + " is not supported");
+      unsupported("BMP: header type " + std::to_string(hs) + " is not supported");
     }
     if (colors == 0) colors = bits < 32 ? 1u << bits : 0u;
     if (offset == 14 + static_cast<int64_t>(hs) && bits <= 8)
       offset += 4 * static_cast<int64_t>(colors);
     if (bits != 1 && bits != 4 && bits != 8 && bits != 16 && bits != 24 &&
         bits != 32)
-      refuse("BMP: pixel depth " + std::to_string(bits) +
-             " is not supported");
+      unsupported("BMP: pixel depth " + std::to_string(bits) +
+                  " is not supported");
     if (compression == 3) {
       // the bit-field layouts Pillow reads
       static const uint32_t k32[8][4] = {
@@ -1669,7 +1695,7 @@ struct Bmp {
           ok = mask[0] == 0x7C00 && mask[1] == 0x3E0 && mask[2] == 0x1F;
         }
       }
-      if (!ok) refuse("BMP: this bit-fields layout is not supported");
+      if (!ok) unsupported("BMP: this bit-fields layout is not supported");
     } else if (compression == 1 || compression == 2) {
       if (bits > 8)
         refuse("BMP: RLE compression of " + std::to_string(bits) +
@@ -1678,13 +1704,13 @@ struct Bmp {
       const char* name = compression == 4   ? " (JPEG)"
                          : compression == 5 ? " (PNG)"
                                             : "";
-      refuse("BMP: compression " + std::to_string(compression) + name +
-             " is not supported");
+      unsupported("BMP: compression " + std::to_string(compression) + name +
+                  " is not supported");
     }
     if (bits <= 8) {
       if (colors == 0 || colors > 65536)
-        refuse("BMP: palette size " + std::to_string(colors) +
-               " is not supported");
+        unsupported("BMP: palette size " + std::to_string(colors) +
+                    " is not supported");
       int64_t avail = std::max<int64_t>(0, std::min<int64_t>(
           n - pos, static_cast<int64_t>(padding) * colors));
       const uint8_t* p = d + pos;
@@ -1777,13 +1803,11 @@ std::vector<uint8_t> bmp_rle(const uint8_t* d, int64_t n, int64_t pos,
   return data;
 }
 
-// into out [height, width, 3]: the size mrt_bmp_size gave
-void decode_bmp(const uint8_t* d, int64_t n, uint8_t* out, int64_t height,
-                int64_t width) {
-  Bmp b(d, n);
-  if (b.width != width || b.height != height)
-    corrupt("BMP: the image's size changed");
-  const int64_t w = b.width, h = b.height;
+// into out [h, b.width, 3]: the first h rows of the bitmap in file order
+// (h = b.height; an ICO or CUR frame's XOR image, its height halved)
+void decode_bmp(const Bmp& b, const uint8_t* d, int64_t n, uint8_t* out,
+                int64_t h) {
+  const int64_t w = b.width;
   auto index_out = [&](uint8_t v, uint8_t* o) {
     if (b.gray) {
       o[0] = o[1] = o[2] = v;
@@ -1800,8 +1824,11 @@ void decode_bmp(const uint8_t* d, int64_t n, uint8_t* out, int64_t height,
     }
     return;
   }
+  // the raw decoder reads a row's padding only before the next row
   const int64_t stride = ((w * b.bits + 31) >> 3) & ~int64_t{3};
-  if (b.offset < 0 || b.offset > n || (n - b.offset) / std::max<int64_t>(stride, 1) < h)
+  const int64_t last = (w * b.bits + 7) / 8;
+  if (b.offset < 0 || b.offset > n || (n - b.offset - last) / std::max<int64_t>(stride, 1) < h - 1 ||
+      n - b.offset < last)
     corrupt("BMP: image file is truncated");
   for (int64_t r = 0; r < h; r++) {
     const uint8_t* row = d + b.offset + r * stride;
@@ -2711,13 +2738,23 @@ struct Tiff {
       const int size = tiff_type_size(t.type);
       if (size == 0) continue;
       t.pillow = t.type <= 13 || t.type == 16;
-      if (t.count > static_cast<uint64_t>(n)) continue;
+      // a tag whose data runs past the file: Pillow's ImageFileDirectory
+      // load stops there (its _safe_read raises, the load warns and
+      // returns), dropping the tags after it; a type it does not read it
+      // skips before reading
+      if (t.count > static_cast<uint64_t>(n)) {
+        if (t.pillow) return;
+        continue;
+      }
       const uint64_t total = t.count * size;
       if (total == 0) continue;
       const uint8_t* val = e + (big ? 12 : 8);
       if (total > inline_size) {
         const uint64_t off = rd(val, big ? 8 : 4);
-        if (off > static_cast<uint64_t>(n) || total > n - off) continue;
+        if (off > static_cast<uint64_t>(n) || total > n - off) {
+          if (t.pillow) return;
+          continue;
+        }
         t.data = d + off;
       } else {
         t.data = val;
@@ -3455,20 +3492,6 @@ struct Tiff {
   }
 };
 
-// Runs f, reporting a thrown Error or an allocation failure.
-template <class F>
-int guarded(const char* format, char* msg, int32_t msg_len, F f) {
-  try {
-    f();
-    return 0;
-  } catch (const Error& e) {
-    return report(e, msg, msg_len);
-  } catch (const std::bad_alloc&) {
-    return report(Error{1, std::string(format) + ": out of memory"}, msg,
-                  msg_len);
-  }
-}
-
 template <class T>
 void size_of(const T& t, int32_t* height, int32_t* width) {
   // the caller's check_size refuses what does not fit
@@ -3562,8 +3585,58 @@ int mrt_bmp_size(const uint8_t* data, int64_t n, int32_t* height,
 int mrt_bmp_decode(const uint8_t* data, int64_t n, uint8_t* out,
                    int32_t height, int32_t width, char* msg,
                    int32_t msg_len) {
-  return guarded("BMP", msg, msg_len,
-                 [&] { decode_bmp(data, n, out, height, width); });
+  return guarded("BMP", msg, msg_len, [&] {
+    Bmp b(data, n);
+    if (b.width != width || b.height != height) corrupt("BMP: the image's size changed");
+    decode_bmp(b, data, n, out, b.height);
+  });
+}
+
+// A DIB header at `at` (no file header), as Pillow reads one: kind 0 a DIB
+// file (BmpImagePlugin's DIB plugin); 1 an ICO frame (IcoFile.frame: the
+// height halved as int(h / 2), then the frame's AND mask, or for an entry
+// of 32 bits a pixel (`bpp32`) its alpha bytes, read as Pillow reads them
+// and a ValueError where they are short: `mask_end` the entry's offset
+// plus its size); 2 a CUR frame (CurImageFile: the height halved, h // 2).
+// The size call gives the image's size, the decode call the pixels.
+int mrt_dib_size(const uint8_t* data, int64_t n, int32_t* height,
+                 int32_t* width, char* msg, int32_t msg_len, int64_t at,
+                 int32_t kind, int64_t mask_end, int32_t bpp32) {
+  (void)mask_end;
+  (void)bpp32;
+  return guarded("DIB", msg, msg_len, [&] {
+    Bmp b(data, n, at);
+    if (kind != 0) b.height /= 2;
+    size_of(b, height, width);
+  });
+}
+
+int mrt_dib_decode(const uint8_t* data, int64_t n, uint8_t* out,
+                   int32_t height, int32_t width, char* msg, int32_t msg_len,
+                   int64_t at, int32_t kind, int64_t mask_end, int32_t bpp32) {
+  return guarded("DIB", msg, msg_len, [&] {
+    Bmp b(data, n, at);
+    const int64_t h = kind != 0 ? b.height / 2 : b.height, w = b.width;
+    if (w != width || h != height) corrupt("DIB: the image's size changed");
+    if (kind == 1) {
+      if (bpp32) {
+        // the alpha bytes: every 4th of w * h * 4 from the pixel data
+        if (b.offset < 0 || b.offset > n || (n - b.offset) / 4 < w * h)
+          corrupt("ICO: buffer is not large enough for the alpha mask");
+      } else {
+        // Pillow reads total bytes and decodes them as "1;I" rows of
+        // padded / 8 bytes: the last row needs no padding
+        const int64_t padded = (w + 31) / 32 * 32;
+        const int64_t total = padded * h / 8;
+        const int64_t start = mask_end - total;
+        const int64_t need = (h - 1) * (padded / 8) + (w + 7) / 8;
+        if (start < 0) corrupt("ICO: negative seek value for the AND mask");
+        if (start > n || n - start < need)
+          corrupt("ICO: not enough image data in the AND mask");
+      }
+    }
+    decode_bmp(b, data, n, out, h);
+  });
 }
 
 int mrt_gif_size(const uint8_t* data, int64_t n, int32_t* height,

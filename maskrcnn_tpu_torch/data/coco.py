@@ -5,9 +5,11 @@ minival -> val images rule).
 
 Annotations come through the port's own COCO index (eval/coco_index.py).
 `CocoDataset.load_image` and `load` decode an image file with the port's
-own JPEG, PNG, WebP, GIF, BMP and TIFF reader (data/image_io.py: Pillow's
-pixels, no Pillow; tests/test_torch_image_tiff.py holds a directory of
-TIFF scenes to the JAX package's CocoDataset).
+own reader of the image files Pillow reads (data/image_io.py: JPEG, PNG,
+WebP, GIF, BMP, TIFF, Netpbm, TGA, QOI, ICO, CUR, DIB, PCX, DCX, SGI and
+Sun raster; Pillow's pixels, no Pillow; tests/test_torch_image_tiff.py
+and test_torch_image_plugins.py hold directories of them to the JAX
+package's CocoDataset).
 `load` gives a training
 image's instances in original coordinates (crowds negated, mask-extent
 boxes, the empty-image fallback) and `sample`, from DetectionDataset, puts

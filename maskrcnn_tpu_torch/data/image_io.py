@@ -1,17 +1,20 @@
-"""Image files without Pillow: PNG, JPEG, WebP, GIF, BMP and TIFF decode
-to RGB uint8, and a PNG writer.
+"""Image files without Pillow: every format of Pillow's that the port
+reads decodes to RGB uint8, and a PNG writer.
 
 `read_image(f)` (a path, the file's bytes or a binary file object)
 returns what `np.asarray(PIL.Image.open(f).convert("RGB"))` returns with
 Pillow 12.1 over libjpeg-turbo 3.1, zlib, libwebp 1.6 and libtiff 4.7,
 bit for bit, through the native decoders (`csrc/image_decode.cpp` for
-PNG, JPEG, GIF, BMP and TIFF, with TIFF's ZSTD, LZMA and CCITT codecs in
-`csrc/tiff_zstd.cpp`, `tiff_xz.cpp` and `tiff_fax.cpp`;
-`csrc/webp_decode.cpp` for WebP; built with g++ on first use and called
-through ctypes outside the GIL, one call a decode after its size call:
-data/native_image.py). The format is told
-by the file's first bytes, as Pillow's `_accept` functions tell it. It
-reads:
+PNG, JPEG, GIF, BMP (with the DIB frames of DIB, ICO and CUR files) and
+TIFF, with TIFF's ZSTD, LZMA and CCITT codecs in `csrc/tiff_zstd.cpp`,
+`tiff_xz.cpp` and `tiff_fax.cpp`; `csrc/image_plugins.cpp` for Netpbm,
+TGA, QOI, PCX, DCX, SGI and Sun raster; `csrc/webp_decode.cpp` for WebP;
+built with g++ on first use and called through ctypes outside the GIL,
+one call a decode after its size call: data/native_image.py). The format
+is told as Pillow's `Image.open` tells it (`format_of`,
+data/image_probe.py: its plugins in their order, their `_accept`
+functions on the first 16 bytes, and the header checks of their `_open`
+that pass a file on to the next plugin or end `Image.open`). It reads:
 
 * PNG: grayscale (bit depths 1, 2, 4, 8, 16), RGB (8, 16), palette (1,
   2, 4, 8), grayscale + alpha and RGBA (8, 16); all five row filters;
@@ -19,7 +22,9 @@ reads:
   as `convert("RGB")` does; 16-bit grayscale opens in Pillow as "I;16"
   and is clipped to 255, other 16-bit samples give their high byte.
   The image data is inflated by the decoder's own inflate (TIFF's
-  Deflate), as zlib.decompress inflates it; the plain route uses the
+  Deflate) as Pillow's decoder drives zlib: it stops at the image's
+  last byte, so a stream cut in its trailer, or damaged past the image's
+  bytes, still decodes; the plain route uses the
   standard library's zlib.
 * JPEG: baseline, extended sequential and progressive Huffman coding
   with 8-bit samples, restart intervals and byte stuffing; 1 component
@@ -74,6 +79,35 @@ reads:
   where the view's last row would run past the file's end (Pillow reads
   past its map); bytes and file objects as Pillow reads bytes.
 
+* PPM, PGM, PBM and PFM (PpmImagePlugin): P1-P6 plain and raw, header
+  tokens and comments as Pillow's reader takes them (Python's int() of
+  each), maxval 1-65535 scaled as PpmDecoder and the plain decoder round
+  them (16-bit grays open as mode "I" and are clipped to 255), "Pf"
+  floats (truncated and clipped, rows bottom-up), and Pillow's own
+  P0CMYK, PyP (no palette: black), PyRGBA and PyCMYK.
+* TGA: the (type, depth) pairs of TgaImagePlugin's MODES (colour-mapped
+  8-bit, bilevel, 8-bit and 16-bit LA grays, 15/16-, 24- and 32-bit
+  colour) raw and RLE (TgaRleDecode.c: literal packets run across rows,
+  a run past its row is an error), 16- and 24-bit colour maps at their
+  first entry (a map on a gray image is looked up, as Pillow's palette
+  makes it; 32-bit maps raise, as Pillow does), the ID field, the
+  origin bits.
+* QOI: every op of QoiDecoder (the index hash, runs), 3 or 4 channels.
+* ICO and CUR: the entry IcoFile (the largest, then the lowest colour
+  depth) or CurImagePlugin (the first, or a later one larger in both
+  sides) picks: a PNG through the PNG decoder, a DIB through the BMP
+  decoder with its height halved, its AND mask or alpha read as Pillow
+  reads them; DIB files (Pillow's DIB plugin: a BMP without its file
+  header).
+* PCX and DCX (its first page): PcxDecode.c's RLE; 1-bit, 1-bit in 2 or
+  4 planes (the header's palette), 8-bit gray or with a VGA palette, and
+  RGB in three planes, rows padded as Pillow pads them.
+* SGI: raw and RLE (SgiRleDecode.c, its bounds checks and short rows),
+  1 or 2 bytes a sample (the high byte), 1, 3 or 4 channels.
+* Sun raster: file types 0-5 (type 2 RLE, SunRleDecode.c), depths 1, 4,
+  8, 24 and 32 in BGR or (type 3) RGB, colour maps on 4- and 8-bit
+  images.
+
 Refused, with NotImplementedError naming the mode: arithmetic-coded,
 lossless and hierarchical JPEG, samples of other than 8 bits, a height
 set by a DNL marker, 2-component JPEG, fractional sampling factors, an
@@ -87,17 +121,23 @@ compression, LZMA data through an xz BCJ filter (x86, ARM and the
 others), LAB, YCbCr that is not JPEG-compressed with contiguous
 samples, and 16-bit CMYK. A TIFF layout
 Pillow itself refuses, or reads from past its buffers (separate planes
-of a one-band mode in tiles), is a ValueError naming it. Any other file
-(Pillow's other plugins) raises a ValueError naming the six formats
-read. tests/test_torch_image_tiff.py holds the TIFF route to Pillow's
-decode on the CPU, and chip_smoke.py's phase 9 to the corpus's Pillow
-digests on the card's host.
+of a one-band mode in tiles), is a ValueError naming it. A file of a
+format Pillow reads that the port does not (JPEG 2000, AVIF, DDS, PSD,
+ICNS, BLP, IM, SPIDER, XBM, XPM, MSP, FLI, FTEX, GBR, PCD, PIXAR,
+XVTHUMB, IMT, IPTC, MCIDAS, FITS, EPS, WMF and the stubs) raises
+NotImplementedError naming the format; a file no plugin takes, or whose
+header ends `Image.open` with an error, raises ValueError (Pillow raises
+UnidentifiedImageError, an OSError, or the plugin's error there).
+tests/test_torch_image_probe.py holds the probe to Pillow's Image.open,
+tests/test_torch_image_tiff.py and test_torch_image_plugins.py the
+decoders to Pillow's decode on the CPU, and chip_smoke.py's phase 9 to
+the corpus's Pillow digests on the card's host.
 
 `read_image(f, plain=True)` takes the plain Python decoders below
 instead (`decode_png`, `decode_jpeg`): 8-bit non-interlaced PNG and
 baseline JPEG with 1 or 3 components (YCbCr) and sampling factors 1 or
-2, the rest refused (WebP, GIF, BMP and TIFF with a NotImplementedError
-naming the format). They are the reference the native route is held
+2, the rest refused (every other format with a NotImplementedError
+naming it). They are the reference the native route is held
 to on the card, where Pillow is absent; no caller on the main path uses
 them. Their JPEG entropy decoding is plain Python over a table of
 16-bit windows; everything after it (dequantize, un-zigzag, jidctint.c's
@@ -115,16 +155,12 @@ from typing import BinaryIO, Union
 
 import numpy as np
 
-from maskrcnn_tpu_torch.data import native_image
+from maskrcnn_tpu_torch.data import image_probe, native_image
 from maskrcnn_tpu_torch.data.native_image import (MAX_PIXELS,  # noqa: F401
                                                   PNG_SIGNATURE)
 from maskrcnn_tpu_torch.data.native_image import check_size as _check_size
 
 Source = Union[str, os.PathLike, bytes, bytearray, memoryview, BinaryIO]
-# TiffImagePlugin.PREFIXES: II and MM, the two byte-swapped magics Pillow
-# also takes, and BigTIFF's
-TIFF_PREFIXES = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a",
-                 b"MM\x00\x2b", b"II\x2b\x00")
 
 
 def _read_bytes(source: Source) -> bytes:
@@ -136,44 +172,54 @@ def _read_bytes(source: Source) -> bytes:
         return f.read()
 
 
+# the formats read, by Pillow's name: their native decoders
+# (native_image.decode_<name>)
+READ = ("BMP", "DIB", "GIF", "JPEG", "PPM", "PNG", "CUR", "PCX", "DCX",
+        "ICO", "TIFF", "QOI", "SGI", "SUN", "TGA", "WEBP")
+# the formats whose decoders take the path flag (Pillow reads a file it
+# opens from a path otherwise than one it opens from bytes)
+PATH_READS = ("TIFF", "PCX", "DCX")
+
+
 def read_image(source: Source, plain: bool = False) -> np.ndarray:
-    """An image file (path, bytes or binary file object: PNG, JPEG, WebP,
-    GIF, BMP or TIFF) as RGB uint8 [H, W, 3]: the pixels Pillow's
-    `Image.open(f).convert("RGB")` gives, through the native decoders (a
-    RuntimeError naming the compiler when one cannot be built);
-    `plain=True` takes the plain Python decoders (PNG and JPEG only)."""
+    """An image file (a path, bytes or a binary file object) as RGB uint8
+    [H, W, 3]: the pixels Pillow's `Image.open(f).convert("RGB")` gives,
+    through the native decoders (a RuntimeError naming the compiler when
+    one cannot be built). The format is told as Image.open tells it
+    (`format_of`); a format Pillow reads that the port does not read
+    raises NotImplementedError naming it, and a file no plugin of Pillow's
+    takes raises ValueError (where Pillow raises UnidentifiedImageError,
+    an OSError), as does one whose header ends Image.open with an error.
+    `plain=True` takes the plain Python decoders (PNG and JPEG only; any
+    other format read raises NotImplementedError naming it)."""
     data = _read_bytes(source)
-    if data.startswith(PNG_SIGNATURE):
-        return decode_png(data) if plain else native_image.decode_png(data)
-    if data.startswith(b"\xff\xd8"):
-        return decode_jpeg(data) if plain else native_image.decode_jpeg(data)
-    name = format_of(data)
+    path = isinstance(source, (str, os.PathLike))
+    name = format_of(data, path)
     if name is None:
-        raise ValueError("not a PNG, JPEG, WebP, GIF, BMP or TIFF file")
+        raise ValueError("cannot identify the image file: no plugin of "
+                         "Pillow's Image.open takes it")
+    if name not in READ:
+        raise NotImplementedError(
+            f"{name}: a format Pillow's Image.open reads (its {name} "
+            "plugin), which the port does not read")
     if plain:
+        if name == "PNG":
+            return decode_png(data)
+        if name == "JPEG":
+            return decode_jpeg(data)
         raise NotImplementedError(f"{name}: the plain route reads PNG and "
                                   "JPEG only")
-    if name == "TIFF":
-        # Pillow memory-maps some files it opens from a path
-        return native_image.decode_tiff(
-            data, path=isinstance(source, (str, os.PathLike)))
-    return getattr(native_image, f"decode_{name.lower()}")(data)
+    decode = getattr(native_image, f"decode_{name.lower()}")
+    return decode(data, path=path) if name in PATH_READS else decode(data)
 
 
-def format_of(data: bytes):
-    """"WebP", "GIF", "BMP" or "TIFF" as Pillow's _accept functions take
-    the file's first bytes, else None (PNG and JPEG are told apart
-    before)."""
-    if (data[:4] == b"RIFF" and data[8:12] == b"WEBP"
-            and data[12:16] in (b"VP8 ", b"VP8L", b"VP8X")):
-        return "WebP"
-    if data[:6] in (b"GIF87a", b"GIF89a"):
-        return "GIF"
-    if data[:2] == b"BM":
-        return "BMP"
-    if data[:4] in TIFF_PREFIXES:
-        return "TIFF"
-    return None
+def format_of(data: bytes, path: bool = False):
+    """The format Pillow's `Image.open` gives the file (its name, as
+    `Image.open(f).format`: "PNG", "JPEG", "WEBP", "PPM", "IM", ...), or
+    None where it raises UnidentifiedImageError; a ValueError naming the
+    plugin where a plugin's header check ends Image.open with an error.
+    `path`: the file is opened from its path (image_probe.identify)."""
+    return image_probe.identify(data, path)
 
 
 # --------------------------------------------------------------------- PNG

@@ -1,20 +1,23 @@
 """ctypes bridge to the port's native image decoders
-(`maskrcnn_tpu_torch/csrc/image_decode.cpp`: JPEG, PNG, GIF, BMP and
-TIFF, with TIFF's ZSTD, LZMA and CCITT codecs in `csrc/tiff_zstd.cpp`,
-`tiff_xz.cpp` and `tiff_fax.cpp` and their shared `image_codec.h`, all
-compiled into one library; `csrc/webp_decode.cpp`: WebP; host C++17).
+(`maskrcnn_tpu_torch/csrc/image_decode.cpp`: JPEG, PNG, GIF, BMP (and
+the DIB frames of DIB, ICO and CUR files) and TIFF, with TIFF's ZSTD,
+LZMA and CCITT codecs in `csrc/tiff_zstd.cpp`, `tiff_xz.cpp` and
+`tiff_fax.cpp`, Netpbm, TGA, QOI, PCX, DCX, SGI and Sun raster in
+`csrc/image_plugins.cpp`, and their shared `image_codec.h`, all compiled
+into one library; `csrc/webp_decode.cpp`: WebP; host C++17).
 
 On first use each library's sources are compiled with the host's C++
 compiler into `build/maskrcnn_tpu_torch/` (`utils/native_build.py`,
 named by a hash of every file the build reads) and loaded with ctypes;
-the libraries link only the C and C++ runtimes. A whole JPEG, PNG, GIF,
-BMP, TIFF or WebP decode (headers, entropy decoding and decompression,
-transforms, filtering, colour; a TIFF's every strip or tile; PNG's and
-TIFF's Deflate through the source's own inflate, TIFF's ZSTD, xz and
-fax data through the sources' own decoders) runs in one call (a PNG's
-chunks are read here first); ctypes releases the GIL for the call, so
-decoder threads run in parallel. Every
-format's size is read first (one size call) and held to Pillow's
+the libraries link only the C and C++ runtimes. A whole decode of any
+format (headers, entropy decoding and decompression, transforms,
+filtering, colour; a TIFF's every strip or tile; PNG's and TIFF's
+Deflate through the source's own inflate, TIFF's ZSTD, xz and fax data
+through the sources' own decoders) runs in one call (a PNG's chunks are
+read here first, and an ICO's or CUR's directory, to pick the frame as
+data/image_probe.py's model of Pillow picks it); ctypes releases the
+GIL for the call, so decoder threads run in parallel. Every format's
+size is read first (one size call) and held to Pillow's
 decompression-bomb limit (`check_size`) before the output is allocated
 (an animated WebP's canvas, a GIF's screen grown to hold its frame, a
 TIFF's image after its orientation). There is no fallback: without a
@@ -44,7 +47,8 @@ SOURCE = CSRC / "image_decode.cpp"
 # codecs in sources of their own, and every header of csrc/ (hashed, so
 # that no header an edit touches is left out of the library's name)
 SOURCES = (SOURCE, CSRC / "tiff_zstd.cpp", CSRC / "tiff_xz.cpp",
-           CSRC / "tiff_fax.cpp", *sorted(CSRC.glob("*.h")))
+           CSRC / "tiff_fax.cpp", CSRC / "image_plugins.cpp",
+           *sorted(CSRC.glob("*.h")))
 WEBP_SOURCE = CSRC / "webp_decode.cpp"
 # -fwrapv: the IDCTs' int32 arithmetic wraps as libjpeg-turbo's does on
 # the corrupt coefficients a valid file never holds
@@ -89,8 +93,9 @@ def _build(stem: str, sources) -> ctypes.CDLL:
 _U8P = ctypes.c_char_p
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _OUT = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
-# mrt_<format>_size and mrt_<format>_decode of JPEG, BMP, GIF, TIFF and
-# WebP (TIFF's take one more argument, its path flag)
+# mrt_<format>_size and mrt_<format>_decode of every format but PNG
+# (TIFF's, PCX's and DCX's take one more argument, a path flag; DIB's the
+# frame's place and kind)
 _SIZE_ARGS = [_U8P, ctypes.c_int64, _I32P, _I32P, ctypes.c_char_p,
               ctypes.c_int32]
 _DECODE_ARGS = [_U8P, ctypes.c_int64, _OUT, ctypes.c_int32, ctypes.c_int32,
@@ -107,16 +112,19 @@ def _declare(lib: ctypes.CDLL, formats, extra=()) -> None:
 
 
 def library() -> ctypes.CDLL:
-    """The JPEG, PNG, BMP, GIF and TIFF decoder library, built on first
-    use; a RuntimeError naming the compiler when it cannot be built or
+    """The decoder library of every format but WebP, built on first use; a
+    RuntimeError naming the compiler when it cannot be built or
     loaded."""
     global _LIB
     with _LOCK:
         if _LIB is not None:
             return _LIB
         lib = _build("image_decode", SOURCES)
-        _declare(lib, ("jpeg", "bmp", "gif"))
-        _declare(lib, ("tiff",), [ctypes.c_int32])
+        _declare(lib, ("jpeg", "bmp", "gif", "ppm", "tga", "qoi", "sgi",
+                       "sun"))
+        _declare(lib, ("tiff", "pcx", "dcx"), [ctypes.c_int32])
+        _declare(lib, ("dib",), [ctypes.c_int64, ctypes.c_int32,
+                                 ctypes.c_int64, ctypes.c_int32])
         lib.mrt_zlib_inflate.argtypes = [
             _U8P, ctypes.c_int64, _OUT, ctypes.c_int64,
             ctypes.POINTER(ctypes.c_int64), ctypes.c_char_p, ctypes.c_int32]
@@ -240,6 +248,71 @@ def decode_tiff(data: bytes, path: bool = False) -> np.ndarray:
     mapped view, not the image; a ValueError where the view's last row
     would run past the file's end)."""
     return _decode(library(), "tiff", data, int(path))
+
+
+def decode_ppm(data: bytes) -> np.ndarray:
+    """A PPM, PGM, PBM or PFM file's bytes (Pillow's P0CMYK, PyP, PyRGBA
+    and PyCMYK too) -> RGB uint8 [H, W, 3]."""
+    return _decode(library(), "ppm", data)
+
+
+def decode_tga(data: bytes) -> np.ndarray:
+    """A TGA file's bytes -> RGB uint8 [H, W, 3]."""
+    return _decode(library(), "tga", data)
+
+
+def decode_qoi(data: bytes) -> np.ndarray:
+    """A QOI file's bytes -> RGB uint8 [H, W, 3]."""
+    return _decode(library(), "qoi", data)
+
+
+def decode_pcx(data: bytes, path: bool = False) -> np.ndarray:
+    """A PCX file's bytes -> RGB uint8 [H, W, 3]. `path`: a file Pillow
+    opens from its path, where the seek to an 8-bit image's VGA palette
+    raises before a file's start (from bytes it stops there)."""
+    return _decode(library(), "pcx", data, int(path))
+
+
+def decode_dcx(data: bytes, path: bool = False) -> np.ndarray:
+    """A DCX file's bytes -> its first page, RGB uint8 [H, W, 3] (`path`
+    as decode_pcx's)."""
+    return _decode(library(), "dcx", data, int(path))
+
+
+def decode_sgi(data: bytes) -> np.ndarray:
+    """An SGI file's bytes -> RGB uint8 [H, W, 3]."""
+    return _decode(library(), "sgi", data)
+
+
+def decode_sun(data: bytes) -> np.ndarray:
+    """A Sun raster file's bytes -> RGB uint8 [H, W, 3]."""
+    return _decode(library(), "sun", data)
+
+
+def decode_dib(data: bytes) -> np.ndarray:
+    """A DIB file's bytes (a BMP's info header and pixels without its
+    file header) -> RGB uint8 [H, W, 3]."""
+    return _decode(library(), "dib", data, 0, 0, 0, 0)
+
+
+def decode_ico(data: bytes) -> np.ndarray:
+    """An ICO file's bytes -> the entry IcoImageFile loads (the largest,
+    image_probe.ico_entry), RGB uint8 [H, W, 3]: a PNG through the PNG
+    route, a DIB through the BMP decoder with its height halved and its
+    AND mask (or a 32-bit entry's alpha) held to what Pillow reads."""
+    from maskrcnn_tpu_torch.data.image_probe import ico_entry
+    _, _, _, size, offset, bpp = ico_entry(data)
+    if data[offset:offset + 8] == PNG_SIGNATURE:
+        return decode_png(data[offset:])
+    return _decode(library(), "dib", data, offset, 1, offset + size,
+                   int(bpp == 32))
+
+
+def decode_cur(data: bytes) -> np.ndarray:
+    """A CUR file's bytes -> the cursor CurImageFile loads
+    (image_probe.cur_frame), RGB uint8 [H, W, 3]."""
+    from maskrcnn_tpu_torch.data.image_probe import cur_frame
+    return _decode(library(), "dib", data, cur_frame(data), 2, 0, 0)
 
 
 def inflate(data: bytes, limit: int) -> bytes:

@@ -7,9 +7,10 @@ counterpart of predict.py, with its argv, plus --device):
 
 Loads the reference `mask_rcnn_coco.pth` when it exists (random weights
 otherwise), prints one line a detection (label id, Chinese name, box,
-score) and saves the overlay. The image file (JPEG, PNG, WebP, GIF, BMP
-or TIFF; a TIFF's first image, its Orientation applied as Pillow applies
-it) is read without Pillow (data/image_io.py, which names the modes it
+score) and saves the overlay. The image file (JPEG, PNG, WebP, GIF, BMP,
+TIFF, Netpbm, TGA, QOI, ICO, CUR, DIB, PCX, DCX, SGI or Sun raster; a
+TIFF's first image, its Orientation applied as Pillow applies it) is
+read without Pillow (data/image_io.py, which names the modes it
 refuses); drawing needs matplotlib, the Detector does not. -tta (flip
 test-time augmentation), -soft-nms SIGMA and -cascade IOUS set the
 config's inference protocols; the reference `.pth` has no cascade heads,

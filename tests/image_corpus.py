@@ -820,6 +820,195 @@ def tiff_refused_cases():
     ]
 
 
+# ---------------------------- PPM, TGA, QOI, ICO, CUR, DIB, PCX, SGI, Sun
+
+def _pil(img, fmt: str, mode: str = None, **kw) -> bytes:
+    from PIL import Image
+    im = Image.fromarray(img)
+    if mode:
+        im = im.convert(mode)
+    buf = io.BytesIO()
+    im.save(buf, fmt, **kw)
+    return buf.getvalue()
+
+
+def plugin_modes(rng, h, w):
+    """{(extension, mode): bytes} of every mode of the small lossless
+    plugins at h x w: Pillow's writer where it writes the mode, else
+    tests/image_writers.py's (plain and maxval-scaled Netpbm, TGA colour
+    maps, 15-bit pixels, origins and RLE Pillow does not emit, QOI's
+    reference encoder, icons and cursors of DIB payloads, planar 1-bit
+    and windowed PCX, DCX, SGI RLE and 16-bit grays, Sun raster)."""
+    rgb = seeded_image(rng, h, w)
+    rgba = seeded_image(rng, h, w, 4)
+    gray = rgb[..., 0]
+    bits = rng.randint(0, 2, (h, w))
+    idx16 = rng.randint(0, 16, (h, w))
+    idx4 = rng.randint(0, 4, (h, w))
+    pal = rng.randint(0, 256, (256, 3)).astype(np.uint8)
+    gray_vga = b"\x0c" + np.repeat(np.arange(256, dtype=np.uint8), 3).tobytes()
+    out = {
+        ("pbm", "p4"): _pil(bits.astype(bool), "PPM"),
+        ("pbm", "p1"): iw.encode_ppm(bits, b"P1", rng=rng),
+        ("pgm", "p5"): _pil(gray, "PPM"),
+        ("pgm", "p2"): iw.encode_ppm(gray, b"P2", rng=rng),
+        ("pgm", "p5_16bit"): _pil(gray.astype(np.int32) * 257, "PPM", "I"),
+        ("pgm", "p5_maxval_100"): iw.encode_ppm(gray * 100 // 255, b"P5",
+                                                100, rng=rng),
+        ("pgm", "p2_maxval_1000"): iw.encode_ppm(
+            gray.astype(np.int64) * 4 % 1001, b"P2", 1000, rng=rng),
+        ("ppm", "p6"): _pil(rgb, "PPM"),
+        ("ppm", "p3"): iw.encode_ppm(rgb, b"P3", rng=rng),
+        ("ppm", "p6_maxval_4095"): iw.encode_ppm(
+            rgb.astype(np.int64) * 16, b"P6", 4095, rng=rng),
+        ("ppm", "p3_maxval_15"): iw.encode_ppm(rgb >> 4, b"P3", 15, rng=rng),
+        ("ppm", "p0cmyk"): iw.encode_ppm(rgba, b"P0CMYK", rng=rng),
+        ("ppm", "pycmyk"): iw.encode_ppm(rgba, b"PyCMYK", rng=rng),
+        ("ppm", "pyrgba"): iw.encode_ppm(rgba, b"PyRGBA", rng=rng),
+        ("ppm", "pyp"): iw.encode_ppm(gray, b"PyP", rng=rng),
+        ("pfm", "little_endian"): _pil(gray.astype(np.float32) * 1.37 - 20,
+                                       "PPM"),
+        ("pfm", "big_endian"): iw.encode_pfm(
+            gray.astype(np.float32) * 1.5 - 30, 2.5),
+        ("tga", "l"): _pil(gray, "TGA"),
+        ("tga", "la"): _pil(np.dstack([gray, rgb[..., 1]]), "TGA", "LA"),
+        ("tga", "p"): _pil(gray, "TGA", "P"),
+        ("tga", "1"): _pil(bits.astype(bool), "TGA"),
+        ("tga", "rgb"): _pil(rgb, "TGA"),
+        ("tga", "rgba"): _pil(rgba, "TGA"),
+        ("tga", "rgb15"): iw.encode_tga(rgb, 2, 16),
+        ("tga", "map16"): iw.encode_tga(idx16, 1, 8, palette=pal[:16],
+                                        map_depth=16),
+        ("tga", "map24_start_3"): iw.encode_tga(idx16 + 3, 1, 8,
+                                                palette=pal[:16], map_start=3),
+        ("tga", "l_map"): iw.encode_tga(idx4, 3, 8, palette=pal[:8]),
+        ("tga", "bottom_right_id"): iw.encode_tga(
+            rgb, 2, 24, top=False, right=True, id_field=b"an id field"),
+        ("tga", "rle_l"): _pil(gray, "TGA", compression="tga_rle"),
+        ("tga", "rle_p"): _pil(gray, "TGA", "P", compression="tga_rle"),
+        ("tga", "rle_rgb"): _pil(rgb, "TGA", compression="tga_rle"),
+        ("tga", "rle_rgba"): _pil(rgba, "TGA", compression="tga_rle"),
+        ("tga", "rle_rgb15"): iw.encode_tga(rgb, 10, 16, rng=rng),
+        ("tga", "rle_la_bottom"): iw.encode_tga(
+            np.dstack([gray, gray]), 11, 16, top=False, rng=rng),
+        ("tga", "rle_map24"): iw.encode_tga(idx4, 9, 8, palette=pal[:4],
+                                            rng=rng),
+        ("tga", "rle_rgba_bottom"): iw.encode_tga(rgba, 10, 32, top=False,
+                                                  rng=rng),
+        ("qoi", "rgb"): _pil(rgb, "QOI"),
+        ("qoi", "rgba"): _pil(rgba, "QOI"),
+        ("qoi", "rgba_linear"): iw.encode_qoi(rgba, 1),
+        ("ico", "dib24"): iw.encode_ico([(iw.ico_dib(rgb, 24), w, h, 24, 0)]),
+        ("ico", "dib8"): iw.encode_ico([(iw.ico_dib(gray, 8, palette=pal),
+                                         w, h, 8, 0)]),
+        ("ico", "dib4_mask"): iw.encode_ico([(iw.ico_dib(
+            idx16, 4, palette=pal[:16], mask=bits), w, h, 4, 16)]),
+        ("ico", "dib1"): iw.encode_ico([(iw.ico_dib(bits, 1, palette=pal[:2]),
+                                         w, h, 1, 2)]),
+        ("ico", "two_entries"): iw.encode_ico([
+            (iw.ico_dib(rgb[:1, :1], 24), 1, 1, 24, 0),
+            (iw.ico_dib(rgb, 24), w, h, 24, 0)]),
+        ("ico", "png"): _pil(rgba, "ICO", sizes=[(w, h)]),
+        ("ico", "dib32"): _pil(rgba, "ICO", sizes=[(w, h)],
+                               bitmap_format="bmp"),
+        ("cur", "dib24"): iw.encode_ico([(iw.ico_dib(rgb, 24), w, h, 24, 0)],
+                                        kind=2),
+        ("cur", "dib8"): iw.encode_ico([(iw.ico_dib(gray, 8, palette=pal),
+                                         w, h, 8, 0)], kind=2),
+        ("dib", "24bit"): _pil(rgb, "DIB"),
+        ("dib", "8bit"): _pil(gray, "DIB", "P"),
+        ("pcx", "1"): _pil(bits.astype(bool), "PCX"),
+        ("pcx", "l"): _pil(gray, "PCX"),
+        ("pcx", "p"): _pil(gray, "PCX", "P"),
+        ("pcx", "rgb"): iw.encode_pcx(rgb, 8, 3, rng=rng),
+        ("pcx", "rgb_odd_stride"): iw.encode_pcx(rgb, 8, 3, even=False,
+                                                 rng=rng),
+        ("pcx", "planar4"): iw.encode_pcx(idx16, 1, 4, palette=pal[:16],
+                                          rng=rng),
+        ("pcx", "planar2"): iw.encode_pcx(idx4, 1, 2, palette=pal[:16],
+                                          rng=rng),
+        ("pcx", "l_window"): iw.encode_pcx(gray, 8, 1, vga=gray_vga,
+                                           window=(3, 7), rng=rng),
+        ("dcx", "first_page"): iw.encode_dcx([
+            iw.encode_pcx(rgb, 8, 3, rng=rng),
+            iw.encode_pcx(gray, 8, 1, vga=gray_vga)]),
+        ("sgi", "l"): _pil(gray, "SGI"),
+        ("sgi", "rgb"): _pil(rgb, "SGI"),
+        ("sgi", "rgba"): _pil(rgba, "SGI"),
+        ("sgi", "rgb16"): _pil(rgb, "SGI", bpc=2),
+        ("sgi", "l16"): iw.encode_sgi(gray.astype(np.int64) * 257 + 3, 2),
+        ("sgi", "dimension1"): iw.encode_sgi(gray, 1, dimension=1),
+        ("sgi", "rle_l"): iw.encode_sgi(gray, 1, True, rng=rng),
+        ("sgi", "rle_rgb"): iw.encode_sgi(rgb, 1, True, rng=rng),
+        ("sgi", "rle_rgba"): iw.encode_sgi(rgba, 1, True, rng=rng),
+        ("sgi", "rle_rgb16"): iw.encode_sgi(rgb.astype(np.int64) * 251, 2,
+                                            True, rng=rng),
+    }
+    sun = {"1": (bits, 1, 1, None), "4": (idx16, 4, 1, None),
+           "8": (gray, 8, 1, None), "24": (rgb, 24, 1, None),
+           "32": (rgb, 32, 1, None), "24_rgb": (rgb, 24, 3, None),
+           "32_rgb": (rgb, 32, 3, None), "8_palette": (gray, 8, 1, pal),
+           "4_palette": (idx16, 4, 1, pal[:16]),
+           "type0": (rgb, 24, 0, None), "type4": (gray, 8, 4, None),
+           "type5": (rgb, 32, 5, None), "rle_1": (bits, 1, 2, None),
+           "rle_8": (gray, 8, 2, None), "rle_24": (rgb, 24, 2, None),
+           "rle_32": (rgb, 32, 2, None),
+           "rle_8_palette": (idx16, 8, 2, pal[:16])}
+    for mode, (px, depth, kind, p) in sun.items():
+        data = iw.encode_sun(px, depth, kind, palette=p, rng=rng)
+        if w == 1 and struct.unpack(">I", data[16:20])[0] in (1, 4):
+            # what Pillow's GBR plugin would take (plugin_refused_cases)
+            data = iw.encode_sun(px, depth, kind, palette=p, rng=rng,
+                                 length=0)
+        out[("ras", mode)] = data
+    return out
+
+
+def plugin_cases():
+    """(name, bytes) of every plugin mode at every size."""
+    rng = np.random.RandomState(20)
+    cases = []
+    for h, w in SIZES:
+        for (ext, mode), data in plugin_modes(rng, h, w).items():
+            cases.append((f"{ext}_{mode}_{h}x{w}.{ext}", data))
+    return cases
+
+
+def plugin_refused_cases():
+    """(name, bytes, format the NotImplementedError names) of files of
+    Pillow's plugins the port does not read, one a plugin Pillow writes or
+    whose header is a few bytes, and a 1x1 Sun raster whose length field
+    Pillow's GBR plugin takes first."""
+    from PIL import Image
+    rng = np.random.RandomState(21)
+    img = seeded_image(rng, 6, 5)
+    gray = img[..., 0]
+    out = [("refused_sun_gbr_1x1.ras", iw.encode_sun(img[:1, :1], 24),
+            "GBR")]
+    for fmt, ext, mode, kw in (
+            ("IM", "im", "RGB", {}), ("SPIDER", "spi", "F", {}),
+            ("MSP", "msp", "1", {}), ("XBM", "xbm", "1", {}),
+            ("EPS", "eps", "RGB", {}), ("JPEG2000", "jp2", "RGB", {}),
+            ("DDS", "dds", "RGB", {}), ("BLP", "blp", "P", {}),
+            ("AVIF", "avif", "RGB", {})):
+        out.append((f"refused_{ext}.{ext}", _pil(img, fmt, mode, **kw), fmt))
+    icns = _pil(np.repeat(np.repeat(img, 4, 0), 4, 1)[:16, :16], "ICNS")
+    out.append(("refused_icns.icns", icns, "ICNS"))
+    xpm = (b'/* XPM */\nstatic char *x[] = {\n"2 1 2 1",\n'
+           b'"a c #ff0000",\n"b c #00ff00",\n"ab"};\n')
+    out.append(("refused_xpm.xpm", xpm, "XPM"))
+    psd = (b"8BPS\x00\x01" + bytes(6) + struct.pack(">HIIHH", 3, 1, 2, 8, 3)
+           + bytes(12) + bytes(6))
+    out.append(("refused_psd.psd", psd, "PSD"))
+    out.append(("refused_fits.fits",
+                b"".join(c.ljust(80).encode() for c in (
+                    "SIMPLE  = T", "BITPIX  = 8", "NAXIS   = 2",
+                    "NAXIS1  = 5", "NAXIS2  = 6", "END"))
+                .ljust(2880) + gray.tobytes().ljust(2880, b"\0"), "FITS"))
+    assert all(Image.open(io.BytesIO(d)).format == f for _, d, f in out)
+    return out
+
+
 # --------------------------------------------------------------- scenes
 
 SCENE_CATEGORIES = [{"id": 1, "name": "person"}, {"id": 3, "name": "car"},
@@ -938,12 +1127,14 @@ def main() -> int:
     CORPUS.mkdir(parents=True, exist_ok=True)
     index = {"files": {}, "refused": {}, "scenes": {}, "format_scenes": {}}
     for name, data in (jpeg_cases() + png_cases() + format_cases()
-                       + tiff_cases() + tiff_pillow_cases()):
+                       + tiff_cases() + tiff_pillow_cases()
+                       + plugin_cases()):
         (CORPUS / name).write_bytes(data)
         shape, digest = pillow_digest(data)
         index["files"][name] = {"shape": shape, "sha256": digest}
     for name, data, word in (refused_cases() + format_refused_cases()
-                             + tiff_refused_cases()):
+                             + tiff_refused_cases()
+                             + plugin_refused_cases()):
         (CORPUS / name).write_bytes(data)
         index["refused"][name] = word
     scenes = scene_cases()

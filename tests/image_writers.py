@@ -1327,3 +1327,434 @@ def tiff_from_jpeg(data: bytes, byteorder: str = "<") -> bytes:
                        photometric=6 if ycc else 1, compression=7,
                        segments=[data], byteorder=byteorder,
                        ycbcr_subsampling=sampling[0] if ycc else None)
+
+
+# -------------------------------------- PPM, TGA, QOI, PCX, SGI, Sun, ICO
+# numpy and the standard library alone (chip_smoke.py writes its PPM, TGA,
+# QOI, PCX, SGI and Sun raster scenes with them on the card). Where a
+# writer takes `rng`, it draws the encoder's free choices from it:
+# whitespace and comments, packet splits, runs across rows.
+
+_PPM_BANDS = {b"P1": 1, b"P2": 1, b"P3": 3, b"P4": 1, b"P5": 1, b"P6": 3,
+              b"P0CMYK": 4, b"PyP": 1, b"PyRGBA": 4, b"PyCMYK": 4}
+
+
+def _ppm_space(rng) -> bytes:
+    """One or more whitespace bytes, now and then a comment."""
+    if rng is None:
+        return b"\n"
+    out = b"".join(bytes([b" \t\n\r\x0b\x0c"[rng.randint(6)]])
+                   for _ in range(1 + rng.randint(2)))
+    if rng.rand() < 0.3:
+        out += b"# a comment" + (b"\r" if rng.rand() < 0.5 else b"\n")
+    return out
+
+
+def encode_ppm(samples: np.ndarray, magic: bytes = b"P6", maxval: int = 255,
+               rng=None, line: int = 70) -> bytes:
+    """A Netpbm file of `samples` (rows top-down): [h, w] for P1/P4 (true
+    black), P2/P5 and PyP, [h, w, 3] for P3/P6, [h, w, 4] for P0CMYK,
+    PyRGBA and PyCMYK (ints up to maxval). The plain formats (P1-P3)
+    write decimal tokens, `line` characters a line (P1 without spaces
+    where rng says so); the others bytes, two big-endian where maxval
+    passes 255. `rng`: whitespace and comments between header tokens."""
+    s = np.asarray(samples)
+    h, w = s.shape[:2]
+    head = magic + _ppm_space(rng) + str(w).encode() + _ppm_space(rng) + \
+        str(h).encode()
+    if magic not in (b"P1", b"P4"):
+        head += _ppm_space(rng) + str(maxval).encode()
+    head += b"\n"
+    if magic == b"P4":
+        return head + _pack_rows(s.astype(np.int64), 1)[:, :(w + 7) // 8] \
+            .tobytes()
+    if magic == b"P1":
+        flat = s.astype(np.int64).reshape(-1)
+        if rng is not None and rng.rand() < 0.5:
+            body = "".join(map(str, flat))
+            return head + "\n".join(body[i:i + line] for i in
+                                    range(0, len(body), line)).encode()
+        return head + _plain_lines([str(v) for v in flat], line)
+    if magic in (b"P2", b"P3"):
+        return head + _plain_lines([str(v) for v in
+                                    s.astype(np.int64).reshape(-1)], line)
+    dtype = ">u2" if maxval > 255 else np.uint8
+    return head + s.astype(dtype).tobytes()
+
+
+def _plain_lines(tokens, line: int) -> bytes:
+    out, cur = [], ""
+    for t in tokens:
+        if cur and len(cur) + 1 + len(t) > line:
+            out.append(cur)
+            cur = t
+        else:
+            cur = f"{cur} {t}" if cur else t
+    out.append(cur)
+    return ("\n".join(out) + "\n").encode()
+
+
+def encode_pfm(values: np.ndarray, scale: float = -1.0) -> bytes:
+    """A PFM ("Pf", one channel) of float32 values [h, w] (rows top-down;
+    the file stores them bottom-up), little-endian for a negative scale."""
+    v = np.asarray(values, np.float32)[::-1]
+    h, w = v.shape
+    return (b"Pf\n%d %d\n%r\n" % (w, h, scale)) + v.astype(
+        "<f4" if scale < 0 else ">f4").tobytes()
+
+
+def _packets(n: int, rng, max_run: int, same: np.ndarray) -> list:
+    """Splits n units into (kind, start, count) packets of up to max_run
+    units: "run" where the units from the second on repeat the first
+    (same[i]: unit i equals unit i - 1), else "lit"; rng, where given,
+    cuts packets short at random."""
+    out, i = [], 0
+    while i < n:
+        j = i + 1
+        while j < n and j - i < max_run and same[j]:
+            j += 1
+        kind = "run" if j - i >= 2 else "lit"
+        if kind == "lit":
+            while (j < n and j - i < max_run
+                   and not (j + 1 < n and same[j + 1])):
+                j += 1
+        count = j - i
+        if rng is not None and count > 1 and rng.rand() < 0.3:
+            count = 1 + rng.randint(count - 1)
+            kind = kind if count > 1 else "lit"
+        out.append((kind, i, count))
+        i += count
+    return out
+
+
+def _repeats(units: np.ndarray) -> np.ndarray:
+    """units [n, k]: whether unit i equals unit i - 1."""
+    same = np.zeros(len(units), bool)
+    same[1:] = np.all(units[1:] == units[:-1], axis=1)
+    return same
+
+
+def encode_tga(pixels: np.ndarray, imagetype: int, depth: int, *,
+               palette: Optional[np.ndarray] = None, map_start: int = 0,
+               map_depth: int = 24, top: bool = True, right: bool = False,
+               id_field: bytes = b"", rng=None) -> bytes:
+    """A TGA file whose decode is `pixels` (rows top-down, columns left to
+    right): palette indices or grays [h, w] (types 1/9, 3/11: depth 8;
+    depth 1 bits), gray and alpha [h, w, 2] (depth 16), RGB [h, w, 3]
+    (types 2/10: depth 24; depth 16 as 5-5-5, the alpha bit set) or RGBA
+    [h, w, 4] (depth 32). `palette`: [n, 3] RGB at entry `map_start`,
+    stored in `map_depth` bits. `top`/`right`: the origin the flags name
+    (rows and columns are stored in that order). Types 9-11 are RLE:
+    runs within a row, literal packets split by rng and free to run
+    across rows, as TgaRleDecode.c reads them."""
+    p = np.asarray(pixels)
+    h, w = p.shape[:2]
+    if not top:
+        p = p[::-1]
+    if right:
+        p = p[:, ::-1]
+    if depth == 1:
+        rows = _pack_rows(p.astype(np.int64), 1)[:, :(w + 7) // 8]
+        units = rows.reshape(h, -1, 1)
+    elif depth == 16 and p.ndim == 3 and p.shape[2] == 3:
+        c = p.astype(np.int64) >> 3
+        word = (c[..., 0] << 10) | (c[..., 1] << 5) | c[..., 2] | 0x8000
+        units = word.astype("<u2").view(np.uint8).reshape(h, w, 2)
+    elif p.ndim == 3 and p.shape[2] >= 3:
+        order = [2, 1, 0, 3][:p.shape[2]]
+        units = p[..., order].astype(np.uint8)
+    else:
+        units = p.astype(np.uint8).reshape(h, w, -1)
+    cmap = b""
+    if palette is not None:
+        pal = np.asarray(palette, np.int64)
+        if map_depth == 16:
+            c = pal >> 3
+            cmap = ((c[:, 0] << 10) | (c[:, 1] << 5) | c[:, 2]).astype(
+                "<u2").tobytes()
+        else:
+            bgr = pal[:, ::-1]
+            if map_depth == 32:
+                bgr = np.concatenate([bgr, np.full((len(pal), 1), 255)], 1)
+            cmap = bgr.astype(np.uint8).tobytes()
+    n_map = 0 if palette is None else len(palette)
+    head = struct.pack("<BBBHHBHHHHBB", len(id_field),
+                       int(palette is not None), imagetype, map_start, n_map,
+                       map_depth if palette is not None else 0, 0, 0, w, h,
+                       depth, (0x20 if top else 0) | (0x10 if right else 0))
+    if imagetype < 8:
+        return head + id_field + cmap + units.tobytes()
+    k = units.shape[2]
+    body = bytearray()
+    flat = units.reshape(-1, k)
+    same = _repeats(flat)
+    same[::w] = False                       # no run across a row's start
+    for kind, start, count in _packets(len(flat), rng, 128, same):
+        if kind == "run":
+            body += bytes([0x80 | (count - 1)]) + flat[start].tobytes()
+        else:
+            body += bytes([count - 1]) + flat[start:start + count].tobytes()
+    return head + id_field + cmap + bytes(body)
+
+
+_QOI_END = b"\x00" * 7 + b"\x01"
+
+
+def encode_qoi(image: np.ndarray, colorspace: int = 0) -> bytes:
+    """A QOI file of RGB [h, w, 3] or RGBA [h, w, 4]: every op (runs, the
+    index, diffs, luma, RGB and RGBA), as the reference encoder chooses."""
+    img = np.asarray(image, np.uint8)
+    h, w, ch = img.shape
+    px = img.reshape(-1, ch).tolist()
+    seen = [None] * 64
+    prev = [0, 0, 0, 255]
+    out = bytearray(b"qoif" + struct.pack(">IIBB", w, h, ch, colorspace))
+    run = 0
+    for i, p in enumerate(px):
+        v = p + [255] if ch == 3 else p
+        if v == prev:
+            run += 1
+            if run == 62 or i == len(px) - 1:
+                out.append(0xC0 | (run - 1))
+                run = 0
+            continue
+        if run:
+            out.append(0xC0 | (run - 1))
+            run = 0
+        hsh = (v[0] * 3 + v[1] * 5 + v[2] * 7 + v[3] * 11) % 64
+        if seen[hsh] == v:
+            out.append(hsh)
+        elif v[3] == prev[3]:
+            dr, dg, db = ((v[k] - prev[k] + 128) % 256 - 128 for k in range(3))
+            if -2 <= dr < 2 and -2 <= dg < 2 and -2 <= db < 2:
+                out.append(0x40 | (dr + 2) << 4 | (dg + 2) << 2 | (db + 2))
+            elif -32 <= dg < 32 and -8 <= dr - dg < 8 and -8 <= db - dg < 8:
+                out += bytes([0x80 | (dg + 32),
+                              (dr - dg + 8) << 4 | (db - dg + 8)])
+            else:
+                out += bytes([0xFE] + v[:3])
+        else:
+            out += bytes([0xFF] + v)
+        seen[hsh] = v
+        prev = v
+    return bytes(out) + _QOI_END
+
+
+def encode_qoi_fast(image: np.ndarray) -> bytes:
+    """A QOI file of RGB [h, w, 3] in runs and RGB ops only (numpy over
+    the whole image: the scenes' writer)."""
+    img = np.asarray(image, np.uint8)
+    h, w, _ = img.shape
+    flat = img.reshape(-1, 3)
+    same = _repeats(flat)
+    same[0] = bool(np.all(flat[0] == 0)) and False
+    out = [b"qoif" + struct.pack(">IIBB", w, h, 3, 0)]
+    starts = np.flatnonzero(~same)
+    ends = np.append(starts[1:], len(flat))
+    ops = np.zeros((len(starts), 4), np.uint8)
+    ops[:, 0] = 0xFE
+    ops[:, 1:] = flat[starts]
+    runs = ends - starts - 1
+    pieces = []
+    for k in range(len(starts)):
+        pieces.append(ops[k].tobytes())
+        r = int(runs[k])
+        while r > 0:
+            pieces.append(bytes([0xC0 | (min(r, 62) - 1)]))
+            r -= 62
+    return out[0] + b"".join(pieces) + _QOI_END
+
+
+def _pcx_rle(line: bytes, rng) -> bytes:
+    """One scanline (its planes together) as PCX RLE: runs of up to 63,
+    bytes of 0xC0 and above always as runs."""
+    arr = np.frombuffer(line, np.uint8).reshape(-1, 1)
+    same = _repeats(arr)
+    out = bytearray()
+    for kind, start, count in _packets(len(arr), rng, 63, same):
+        if kind == "run":
+            out += bytes([0xC0 | count, line[start]])
+        else:
+            for b in line[start:start + count]:
+                out += bytes([0xC1, b]) if b >= 0xC0 else bytes([b])
+    return bytes(out)
+
+
+def encode_pcx(pixels: np.ndarray, bits: int, planes: int, *,
+               palette: Optional[np.ndarray] = None,
+               vga: Optional[bytes] = None,
+               window: Tuple[int, int] = (0, 0), even: bool = True,
+               version: int = 5, rng=None) -> bytes:
+    """A PCX file: 1-bit [h, w] in 1 plane (true white), 1-bit palette
+    indices [h, w] in 2 or 4 planes (`palette`: 16 RGB entries in the
+    header), 8-bit [h, w] in one plane (`vga`: the 769 bytes at the
+    file's end, or none) or RGB [h, w, 3] in 3 planes. `window`: the
+    image's (xmin, ymin); `even`: rows padded to an even length (the
+    header's stride), else the header states the unpadded length."""
+    p = np.asarray(pixels)
+    h, w = p.shape[:2]
+    stride = (w * bits + 7) // 8
+    padded = stride + (stride % 2 if even else 0)
+    rows = []
+    for y in range(h):
+        if bits == 1:
+            plane_rows = [_pack_rows(((p[y:y + 1].astype(np.int64) >> k) & 1),
+                                     1)[0, :stride] for k in range(planes)]
+        elif planes == 3:
+            plane_rows = [p[y, :, k].astype(np.uint8) for k in range(3)]
+        else:
+            plane_rows = [p[y].astype(np.uint8)]
+        rows.append(b"".join(np.pad(r, (0, padded - len(r))).tobytes()
+                             for r in plane_rows))
+    header = bytearray(128)
+    x0, y0 = window
+    struct.pack_into("<BBBBHHHHHH", header, 0, 10, version, 1, bits, x0, y0,
+                     x0 + w - 1, y0 + h - 1, 72, 72)
+    if palette is not None:
+        entries = np.asarray(palette, np.uint8)[:16].tobytes()
+        header[16:64] = entries.ljust(48, b"\0")
+    header[65] = planes
+    struct.pack_into("<HH", header, 66, padded if even else stride, 1)
+    body = b"".join(_pcx_rle(r, rng) for r in rows)
+    return bytes(header) + body + (vga or b"")
+
+
+def encode_dcx(pages: Sequence[bytes]) -> bytes:
+    """A DCX file of PCX pages."""
+    table = 4 + 4 * (len(pages) + 1)
+    offsets, pos = [], table
+    for page in pages:
+        offsets.append(pos)
+        pos += len(page)
+    return (struct.pack("<I", 987654321) + struct.pack(
+        f"<{len(pages) + 1}I", *offsets, 0) + b"".join(pages))
+
+
+def _sgi_rle_row(row: np.ndarray, bpc: int, rng) -> bytes:
+    """One channel's row as SGI RLE packets (count | 0x80 literals, runs
+    of one value), then a 0 count; 16-bit counts and values with bpc 2."""
+    same = _repeats(row.reshape(-1, 1))
+    dt = ">u2" if bpc == 2 else np.uint8
+    out = []
+    for kind, start, count in _packets(len(row), rng, 127, same):
+        if kind == "run":
+            out.append(np.array([count, row[start]], dt).tobytes())
+        else:
+            out.append(np.array([0x80 | count], dt).tobytes()
+                       + row[start:start + count].astype(dt).tobytes())
+    return b"".join(out) + np.array([0], dt).tobytes()
+
+
+def encode_sgi(samples: np.ndarray, bpc: int = 1, rle: bool = False,
+               dimension: Optional[int] = None, rng=None) -> bytes:
+    """An SGI file of samples [h, w] (one channel) or [h, w, 3 or 4] (rows
+    top-down; stored bottom-up), 1 or 2 bytes a sample, raw planes or RLE
+    (an offset and a length table, a row of packets per channel and
+    row)."""
+    s = np.asarray(samples)
+    if s.ndim == 2:
+        s = s[..., None]
+    h, w, z = s.shape
+    dim = dimension or (3 if z > 1 else 2)
+    head = bytearray(512)
+    struct.pack_into(">hBBHHHH", head, 0, 474, int(rle), bpc, dim, w, h, z)
+    struct.pack_into(">ii", head, 12, 0, 255 if bpc == 1 else 65535)
+    planes = [s[::-1, :, c] for c in range(z)]
+    if not rle:
+        dt = ">u2" if bpc == 2 else np.uint8
+        return bytes(head) + b"".join(pl.astype(dt).tobytes() for pl in planes)
+    rows = [[_sgi_rle_row(planes[c][y], bpc, rng) for y in range(h)]
+            for c in range(z)]
+    pos = 512 + 8 * h * z
+    starts, lengths, data = [], [], []
+    for c in range(z):
+        for y in range(h):
+            starts.append(pos)
+            lengths.append(len(rows[c][y]))
+            data.append(rows[c][y])
+            pos += len(rows[c][y])
+    return (bytes(head) + struct.pack(f">{h * z}I", *starts)
+            + struct.pack(f">{h * z}I", *lengths) + b"".join(data))
+
+
+def _sun_rle(data: bytes, rng) -> bytes:
+    """SunRleDecode.c's input: 0x80 n v a run of n + 1 (n up to 255), 0x80
+    0 a literal 0x80, other bytes themselves."""
+    arr = np.frombuffer(data, np.uint8).reshape(-1, 1)
+    same = _repeats(arr)
+    out = bytearray()
+    for kind, start, count in _packets(len(arr), rng, 256, same):
+        if kind == "run" and count >= 3:
+            out += bytes([0x80, count - 1, data[start]])
+        else:
+            for b in data[start:start + count]:
+                out += b"\x80\x00" if b == 0x80 else bytes([b])
+    return bytes(out)
+
+
+def encode_sun(pixels: np.ndarray, depth: int, file_type: int = 1, *,
+               palette: Optional[np.ndarray] = None, rng=None,
+               length: Optional[int] = None) -> bytes:
+    """A Sun raster file: 1-bit [h, w] (true black), 4- or 8-bit grays or
+    palette indices [h, w] (`palette`: [n, 3] RGB, stored as three
+    planes), or RGB [h, w, 3] at depth 24 or 32 (BGR, or RGB for file
+    type 3; a fourth byte after them at 32). Raw rows are padded to 16
+    bits; file type 2 is RLE over the unpadded rows, runs across rows.
+    `length`: the header's data length (the data's, by default; Pillow
+    ignores it, but a width of 1 with a length of 1 or 4 makes the file a
+    GIMP brush to Pillow's earlier GBR plugin)."""
+    p = np.asarray(pixels)
+    h, w = p.shape[:2]
+    if depth in (1, 4, 8):
+        bits = p.astype(np.int64)
+        rows = _pack_rows(bits, depth)[:, :(w * depth + 7) // 8]
+    else:
+        rgb = p[..., :3] if file_type == 3 else p[..., 2::-1]
+        if depth == 32:
+            rgb = np.concatenate([rgb, np.full((h, w, 1), 7, np.uint8)], 2)
+        rows = rgb.astype(np.uint8).reshape(h, -1)
+    stride = ((w * depth + 15) // 16) * 2
+    pal = b""
+    if palette is not None:
+        pal = np.asarray(palette, np.uint8).T.tobytes()
+    if file_type == 2:
+        body = _sun_rle(rows.tobytes(), rng)
+    else:
+        body = np.pad(rows, ((0, 0), (0, stride - rows.shape[1]))).tobytes()
+    return struct.pack(">8I", 0x59A66A95, w, h, depth,
+                       len(body) if length is None else length, file_type,
+                       1 if pal else 0, len(pal)) + pal + body
+
+
+def ico_dib(image: np.ndarray, bits: int, palette: Optional[np.ndarray] = None,
+            mask: Optional[np.ndarray] = None) -> bytes:
+    """An icon's DIB: a 40-byte BITMAPINFOHEADER whose height counts the
+    XOR image and the AND mask, the palette, the XOR rows bottom-up, then
+    the AND mask's rows (1 bit a pixel, padded to 32 bits; `mask` true
+    transparent)."""
+    img = np.asarray(image)
+    h, w = img.shape[:2]
+    bmp = encode_bmp(w, h, bits, bmp_pixels(img, bits)[::-1].tobytes(),
+                     palette=palette)
+    info = bytearray(bmp[14:])
+    struct.pack_into("<i", info, 8, 2 * h)
+    m = np.zeros((h, w), np.int64) if mask is None else np.asarray(mask)
+    rows = _pack_rows(m.astype(np.int64), 1)
+    rows = np.pad(rows, ((0, 0), (0, (-rows.shape[1]) % 4)))
+    return bytes(info) + rows[::-1].tobytes()
+
+
+def encode_ico(entries: Sequence[tuple], kind: int = 1) -> bytes:
+    """An ICO (kind 1) or CUR (kind 2) file: entries (payload, width,
+    height, bpp, colors): a DIB (ico_dib) or a PNG file, with its
+    directory's width and height (256 written as 0), bit count and colour
+    count (a CUR's hotspot in their place: 0, 0)."""
+    pos = 6 + 16 * len(entries)
+    head = struct.pack("<HHH", 0, kind, len(entries))
+    table, data = b"", b""
+    for payload, w, h, bpp, colors in entries:
+        planes, bits = (1, bpp) if kind == 1 else (0, 0)
+        table += struct.pack("<BBBBHHII", w % 256, h % 256, colors, 0, planes,
+                             bits, len(payload), pos + len(data))
+        data += payload
+    return head + table + data

@@ -268,15 +268,28 @@ def test_unsupported_modes_raise_naming_them():
     with pytest.raises(NotImplementedError, match="bit depth 16"):
         image_io.read_image(_raw_png(rows, 5, 2, [0] * 5, 3, depth=16),
                             plain=True)
+    # a PPM file: the native route reads it (Pillow's pixels), the plain
+    # route names it
+    ppm = b"P6\n5 3\n255\n" + bytes(range(45))
+    assert np.array_equal(image_io.read_image(ppm),
+                          np.arange(45, dtype=np.uint8).reshape(3, 5, 3))
+    with pytest.raises(NotImplementedError, match="PPM: the plain route"):
+        image_io.read_image(ppm, plain=True)
     for plain in (False, True):
-        # a PPM header: a format Pillow reads that neither route reads
-        with pytest.raises(ValueError,
-                           match="not a PNG, JPEG, WebP, GIF, BMP or TIFF"):
-            image_io.read_image(b"P6\n5 3\n255\n" + bytes(45), plain=plain)
+        # bytes no plugin of Pillow's takes, and an IM header: a format
+        # Pillow reads that neither route reads
+        with pytest.raises(ValueError, match="no plugin of Pillow's"):
+            image_io.read_image(b"Q6\n5 3\n255\n" + bytes(45), plain=plain)
+        with pytest.raises(NotImplementedError, match="IM: a format Pillow"):
+            image_io.read_image(b"Image type: RGB image\nImage size (x*y): "
+                                b"5*3\n\x1a" + bytes(45), plain=plain)
         # a header claiming more pixels than Pillow's decompression-bomb
         # limit
         huge = bytearray(_raw_png(rows, 5, 2, [0] * 5, 3))
         huge[16:24] = struct.pack(">II", 20000, 20000)
+        # the header's checksum follows it (Pillow passes on a PNG whose
+        # header fails its checksum before its size is read)
+        huge[29:33] = struct.pack(">I", zlib.crc32(bytes(huge[12:29])))
         with pytest.raises(ValueError, match="image size"):
             image_io.read_image(bytes(huge), plain=plain)
     # a TIFF header alone: a corrupt TIFF to the native route, a format
@@ -285,12 +298,16 @@ def test_unsupported_modes_raise_naming_them():
         image_io.read_image(b"II*\x00" + bytes(12))
     with pytest.raises(NotImplementedError, match="TIFF: the plain route"):
         image_io.read_image(b"II*\x00" + bytes(12), plain=True)
-    # a GIF signature alone: a truncated GIF to the native route, a
-    # format the plain route does not read
-    with pytest.raises(ValueError, match="not a GIF file"):
-        image_io.read_image(b"GIF89a")
+    # a GIF signature alone: Pillow's GIF plugin passes it on (its screen
+    # descriptor is cut short) and no other takes it, on both routes; a
+    # GIF file is a format the plain route does not read
+    for plain in (False, True):
+        with pytest.raises(ValueError, match="no plugin of Pillow's"):
+            image_io.read_image(b"GIF89a", plain=plain)
+    buf = io.BytesIO()
+    Image.new("P", (3, 2)).save(buf, "GIF")
     with pytest.raises(NotImplementedError, match="GIF: the plain route"):
-        image_io.read_image(b"GIF89a", plain=True)
+        image_io.read_image(buf.getvalue(), plain=True)
 
 
 @pytest.mark.parametrize("h,w", [(3, 3), (2, 5), (5, 2), (16, 16)])

@@ -59,16 +59,23 @@ def test_refused_corpus_file_names_its_mode(name):
 
 def test_corpus_is_whole_and_small():
     """The index names every file of the corpus, the JPEG and PNG files
-    hold at most 400 KB in all, the WebP, GIF and BMP ones 600 KB and the
-    TIFF ones 500 KB, the scenes are COCO-sized and one is progressive,
-    and the generator would write the same bytes again."""
+    hold at most 400 KB in all, the WebP, GIF and BMP ones 600 KB, the
+    TIFF ones 500 KB and those of Pillow's other plugins (the small
+    lossless ones read, and the refused ones) 700 KB, the scenes are
+    COCO-sized and one is progressive, and the generator would write the
+    same bytes again."""
     files = {p.name for p in ic.CORPUS.iterdir()} - {"index.json"}
     assert files == set(INDEX["files"]) | set(INDEX["refused"])
     group = {".webp": "formats", ".gif": "formats", ".bmp": "formats",
              ".tif": "tiff"}
+    plugins = (".ppm .pgm .pbm .pfm .tga .qoi .ico .cur .dib .pcx .dcx "
+               ".sgi .ras .im .spi .msp .xbm .eps .jp2 .dds .blp .avif "
+               ".icns .xpm .psd .fits").split()
+    group.update({ext: "plugins" for ext in plugins})
     sizes = [(group.get(p.suffix, "jpeg_png"), p.stat().st_size)
              for p in ic.CORPUS.iterdir() if p.name != "index.json"]
-    limits = {"jpeg_png": 400_000, "formats": 600_000, "tiff": 500_000}
+    limits = {"jpeg_png": 400_000, "formats": 600_000, "tiff": 500_000,
+              "plugins": 700_000}
     for name, limit in limits.items():
         assert sum(n for g, n in sizes if g == name) <= limit, name
     assert {INDEX["files"][s]["shape"][0] for s in INDEX["scenes"]} == {480}
@@ -195,11 +202,17 @@ def test_native_route_equals_plain_route():
 
 def test_png_image_data_inflates_as_zlib_decompress():
     """The native route inflates a PNG's image data with the decoder's own
-    inflate (TIFF's Deflate), the plain route with zlib.decompress: on
-    good, stored and dynamic streams, a bad Adler-32, truncated streams,
-    bytes after the stream, more or less data than the image holds and
-    flipped bytes, the two give the same pixels or both raise (the native
-    route a ValueError, the plain one zlib's error or a ValueError)."""
+    inflate (TIFF's Deflate) as Pillow's decoder drives zlib, the plain
+    route with zlib.decompress: on good, stored and dynamic streams, a
+    bad Adler-32, truncated streams, bytes after the stream, more or less
+    data than the image holds and flipped bytes, the native route gives
+    Pillow's pixels or raises a ValueError where Pillow raises, and the
+    plain one the same pixels or zlib's error or a ValueError. Pillow
+    stops at the image's last row: a stream cut in its trailer, or
+    damaged past the image's bytes, still decodes where zlib.decompress
+    raises."""
+    pytest.importorskip("PIL")
+    from PIL import Image
     rng = np.random.RandomState(21)
     h, w = 37, 53
     good = ic.png_bytes(rng.randint(0, 256, (h, w * 3)), w, 8, 2, rng)
@@ -224,13 +237,18 @@ def test_png_image_data_inflates_as_zlib_decompress():
         png = (head + ic._chunk(b"IDAT", stream)
                + ic._chunk(b"IEND", b""))
         try:
-            want = image_io.read_image(png, plain=True)
-        except (ValueError, zlib.error):
+            want = np.asarray(Image.open(io.BytesIO(png)).convert("RGB"))
+        except OSError:
             with pytest.raises(ValueError):
                 image_io.read_image(png)
             continue
         np.testing.assert_array_equal(image_io.read_image(png), want,
                                       err_msg=str(k))
+        try:
+            plain = image_io.read_image(png, plain=True)
+        except (ValueError, zlib.error):
+            continue
+        np.testing.assert_array_equal(plain, want, err_msg=str(k))
 
 
 def test_read_image_never_takes_the_plain_route(monkeypatch):
@@ -298,10 +316,16 @@ def test_corrupt_files_raise_value_errors():
     data = (REPO / "images" / "sample.jpg").read_bytes()
     with pytest.raises(ValueError, match="truncated"):
         image_io.read_image(data[:len(data) // 2])
-    # a PPM header: a format the reader does not take
-    with pytest.raises(ValueError,
-                       match="not a PNG, JPEG, WebP, GIF, BMP or TIFF"):
-        image_io.read_image(b"P6\n5 3\n255\n" + data)
+    # a PPM header before a JPEG: a 5x3 PPM (its first 45 bytes are the
+    # pixels); bytes no plugin of Pillow's takes; an XPM header, a format
+    # Pillow reads that the port does not
+    ppm = image_io.read_image(b"P6\n5 3\n255\n" + data)
+    assert np.array_equal(ppm, np.frombuffer(data[:45], np.uint8).reshape(
+        3, 5, 3))
+    with pytest.raises(ValueError, match="no plugin of Pillow's"):
+        image_io.read_image(b"Q6\n5 3\n255\n" + data)
+    with pytest.raises(NotImplementedError, match="XPM: a format Pillow"):
+        image_io.read_image(b'/* XPM */\n"1 1 1 1",\n"a c #ff0000",\n"a"')
     # a TIFF header before a JPEG: a TIFF whose directory is garbage
     with pytest.raises(ValueError, match="TIFF"):
         image_io.read_image(b"II*\x00" + data)
@@ -311,5 +335,9 @@ def test_corrupt_files_raise_value_errors():
     png = (ic.CORPUS / "png_c2_d8_trns.png").read_bytes()
     broken = bytearray(png)
     broken[24] = 7                                   # bit depth 7
-    with pytest.raises(ValueError, match="bit depth 7"):
+    # no mode of Pillow's PNG plugin (nor the header's checksum): Pillow
+    # identifies no image, and the PNG decoder names the depth
+    with pytest.raises(ValueError, match="no plugin of Pillow's"):
         image_io.read_image(bytes(broken))
+    with pytest.raises(ValueError, match="bit depth 7"):
+        native_image.decode_png(bytes(broken))

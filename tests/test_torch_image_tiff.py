@@ -787,3 +787,31 @@ def test_jax_coco_dataset_reads_tiff_as_the_port(tmp_path):
                                       ref.load_image(image_id))
         for a, b in zip(port.load(i), ref.load(i)):
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_a_tag_whose_data_runs_past_the_file_ends_the_directory():
+    """Pillow's ImageFileDirectory load stops at the first tag whose data
+    runs past the file's end (its read raises, the load warns and
+    returns), dropping every tag after it: a count so set on Compression
+    drops the strip tags (no plugin takes the file), on the last tag
+    (PlanarConfiguration) nothing the image needs; the port reads the
+    directory as far as Pillow does."""
+    import struct
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(ic.seeded_image(np.random.RandomState(80), 5, 7)).save(
+        buf, "TIFF")
+    data = buf.getvalue()
+    ifd = struct.unpack_from("<I", data, 4)[0]
+    entries = {struct.unpack_from("<H", data, ifd + 2 + 12 * k)[0]: k
+               for k in range(struct.unpack_from("<H", data, ifd)[0])}
+    edits = {}
+    for tag in (259, 284):
+        edited = bytearray(data)
+        struct.pack_into("<I", edited, ifd + 2 + 12 * entries[tag] + 4,
+                         2_621_441)
+        edits[tag] = bytes(edited)
+        assert_like_pillow(edits[tag], f"tag {tag}")
+    with pytest.raises(ValueError, match="data organization"):
+        image_io.read_image(edits[259])
+    assert np.array_equal(image_io.read_image(edits[284]), pillow(data))

@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
 """Mutation fuzzing of the port's native image decoders under AddressSanitizer
 and UndefinedBehaviorSanitizer: the sources of data/native_image.py's
-image library (JPEG, GIF, BMP, TIFF with its ZSTD, LZMA and CCITT data)
-or of its WebP library, built with its flags and
+image library (JPEG, GIF, BMP, TIFF with its ZSTD, LZMA and CCITT data;
+PPM/PGM/PBM/PFM, TGA, QOI, PCX, DCX, SGI and Sun raster; DIB, and the
+DIB frames of ICO and CUR, whose entry is picked as
+data/image_probe.py picks it, PNG frames left out) or of its WebP
+library, built with its flags and
 -fsanitize=address,undefined into build/maskrcnn_tpu_torch/, then each
 worker process decodes mutated copies of the committed corpus's files
 (tests/data/image_io) of one format through the size and decode calls,
@@ -11,12 +14,16 @@ as data/native_image.py makes them: bytes set, bits flipped, 2-, 4- and
 files are read half the time as from their path (the memory-map route),
 and the TIFF seeds add uncompressed files that route takes (`map_*`:
 L, P, RGBA, CMYK, I;16 and I;16B at Orientation 5-8, in one strip or
-in one tile wider than the image and narrower than it is tall). An error the decoder reports is the
-expected outcome; a sanitizer report stops the worker and the run exits
-1.
+in one tile wider than the image and narrower than it is tall); PCX
+and DCX files are read from their path half the time too. An error the
+decoder reports is the expected outcome; a sanitizer report stops the
+worker and the run exits 1.
 
     python3 tools/fuzz_image_decode_torch.py --format tiff [--glob 'tiff_*']
         [--mutations 3000] [--workers 4] [--seed 1]
+
+(formats: jpeg, gif, bmp, tiff, webp, ppm, tga, qoi, pcx, dcx, sgi, sun,
+dib, ico, cur)
 
 (`--glob '*zstd*'`, `'*lzma*'`, `'*bilevel_ccitt*'` and `'*group*'`,
 or `'map_*'` mutate the ZSTD, LZMA, CCITT or memory-map files alone.)
@@ -45,8 +52,14 @@ from maskrcnn_tpu_torch.utils import native_build  # noqa: E402
 CORPUS = REPO / "tests" / "data" / "image_io"
 FLAGS = ("-O1", "-g", "-shared", "-fPIC", "-std=c++17", "-fwrapv",
          "-fsanitize=address,undefined", "-fno-sanitize-recover=all")
-SUFFIX = {"jpeg": ".jpg", "gif": ".gif", "bmp": ".bmp", "tiff": ".tif",
-          "webp": ".webp"}
+SUFFIX = {"jpeg": (".jpg",), "gif": (".gif",), "bmp": (".bmp",),
+          "tiff": (".tif",), "webp": (".webp",),
+          "ppm": (".ppm", ".pgm", ".pbm", ".pfm"), "tga": (".tga",),
+          "qoi": (".qoi",), "pcx": (".pcx",), "dcx": (".dcx",),
+          "sgi": (".sgi",), "sun": (".ras",), "dib": (".dib",),
+          "ico": (".ico",), "cur": (".cur",)}
+# the formats whose calls take a path flag last
+PATH_FLAG = ("tiff", "pcx", "dcx")
 LIMITS = (0, 1, 2, 7, 8, 15, 16, 255, 256, 65535, 2 ** 31 - 1, 2 ** 31,
           2 ** 32 - 1, 2 ** 61, 2 ** 63, 2 ** 64 - 1)
 MAX_PIXELS = 4_000_000
@@ -110,14 +123,39 @@ def mutate(rng: random.Random, data: bytes) -> bytes:
     return bytes(d)
 
 
+def extra_args(fmt: str, data: bytes, rng: random.Random):
+    """The size and decode calls' arguments after the message's length,
+    as data/native_image.py passes them; None where the file is no ICO
+    or CUR whose frame the probe can place, or an ICO's frame is a PNG."""
+    if fmt in PATH_FLAG:
+        return (ctypes.c_int32(rng.randrange(2)),)
+    if fmt not in ("dib", "ico", "cur"):
+        return ()
+    from maskrcnn_tpu_torch.data import image_probe
+    at, kind, end, bpp32 = 0, 0, 0, 0
+    try:
+        if fmt == "ico":
+            _, _, _, size, at, bpp = image_probe.ico_entry(data)
+            if data[at:at + 8] == native_image.PNG_SIGNATURE:
+                return None
+            kind, end, bpp32 = 1, at + size, int(bpp == 32)
+        elif fmt == "cur":
+            at, kind = image_probe.cur_frame(data), 2
+    except Exception:  # noqa: BLE001 - the probe refuses the directory
+        return None
+    return (ctypes.c_int64(at), ctypes.c_int32(kind), ctypes.c_int64(end),
+            ctypes.c_int32(bpp32))
+
+
 def worker(lib_path: str, fmt: str, pattern: str, mutations: int,
            seed: int) -> None:
     lib = ctypes.CDLL(lib_path)
-    size_fn, decode_fn = (getattr(lib, f"mrt_{fmt}_{k}")
+    name = "dib" if fmt in ("ico", "cur") else fmt
+    size_fn, decode_fn = (getattr(lib, f"mrt_{name}_{k}")
                           for k in ("size", "decode"))
     msg = ctypes.create_string_buffer(512)
     files = [p.read_bytes() for p in sorted(CORPUS.glob(pattern))
-             if p.suffix == SUFFIX[fmt] and p.stat().st_size < 20000]
+             if p.suffix in SUFFIX[fmt] and p.stat().st_size < 20000]
     if fmt == "tiff":
         files += [d for name, d in map_seeds().items()
                   if fnmatch.fnmatch(name, pattern)]
@@ -126,8 +164,9 @@ def worker(lib_path: str, fmt: str, pattern: str, mutations: int,
     rng = random.Random(seed)
     for _ in range(mutations):
         data = mutate(rng, rng.choice(files))
-        # TIFF's size and decode calls take the path flag last
-        extra = (ctypes.c_int32(rng.randrange(2)),) if fmt == "tiff" else ()
+        extra = extra_args(fmt, data, rng)
+        if extra is None:
+            continue
         h, w = ctypes.c_int32(), ctypes.c_int32()
         if size_fn(data, len(data), ctypes.byref(h), ctypes.byref(w), msg,
                    512, *extra):

@@ -81,6 +81,28 @@ TIFF_WRITES = {"raw": dict(),
                                                tile=(256, 256))}
 
 
+# the small lossless plugins a scene is written as (tests/image_writers.py,
+# numpy only): Netpbm P6, TGA RLE, QOI (runs and RGB ops), PCX (RLE, three
+# planes), SGI RLE and Sun raster RLE
+PLUGIN_SCENES = ("ppm", "tga_rle", "qoi", "pcx", "sgi_rle", "sun_rle")
+
+
+def plugin_scene(fmt: str, img) -> tuple:
+    """(extension, bytes) of an RGB image in one of PLUGIN_SCENES."""
+    iw = image_writers()
+    if fmt == "ppm":
+        return "ppm", iw.encode_ppm(img, b"P6")
+    if fmt == "tga_rle":
+        return "tga", iw.encode_tga(img, 10, 24)
+    if fmt == "qoi":
+        return "qoi", iw.encode_qoi_fast(img)
+    if fmt == "pcx":
+        return "pcx", iw.encode_pcx(img, 8, 3)
+    if fmt == "sgi_rle":
+        return "sgi", iw.encode_sgi(img, 1, True)
+    return "ras", iw.encode_sun(img, 24, 2)
+
+
 @functools.lru_cache(maxsize=None)
 def scene_files(fmt: str, count: int = 3) -> tuple:
     """((name, bytes), ...) of the corpus's first `count` JPEG scenes (of
@@ -98,7 +120,8 @@ def scene_files(fmt: str, count: int = 3) -> tuple:
     and "tiff_lzma_predictor" the committed ZSTD or LZMA TIFF of the
     first scene (its JPEG decode's pixels) and the other two as their
     JPEG files; "tiff_group4" the scenes' bilevel (mean of the channels
-    below 110 black) as CCITT Group 4."""
+    below 110 black) as CCITT Group 4; PLUGIN_SCENES written from their
+    native decodes (plugin_scene)."""
     from maskrcnn_tpu_torch.data import image_io
     names = list(corpus_index()["scenes"])[:count]
     out = []
@@ -115,6 +138,9 @@ def scene_files(fmt: str, count: int = 3) -> tuple:
             bilevel = image_io.read_image(data).mean(-1) < 110
             out.append((f"{stem}_group4.tif", image_writers().encode_tiff(
                 bilevel, bits=1, photometric=0, compression=4)))
+        elif fmt in PLUGIN_SCENES:
+            ext, blob = plugin_scene(fmt, image_io.read_image(data))
+            out.append((f"{stem}.{ext}", blob))
         elif fmt == "tiff_jpeg" and "progressive" not in name:
             out.append((f"{stem}_jpeg.tif", image_writers().tiff_from_jpeg(
                 data)))
@@ -144,36 +170,51 @@ def scene_files(fmt: str, count: int = 3) -> tuple:
 FORMAT_TIMES = ("png", "webp", "webp_lossless", "gif", "bmp", "tiff_raw",
                 "tiff_lzw_predictor", "tiff_tiled_deflate_predictor",
                 "tiff_jpeg", "tiff_zstd_predictor", "tiff_lzma_predictor",
-                "tiff_group4")
+                "tiff_group4") + PLUGIN_SCENES
 
 
 def format_scenes() -> dict:
     """{name: bytes} of the first scene as PNG, lossy WebP, lossless WebP,
     GIF, BMP, and TIFF uncompressed, LZW with predictor 2, tiled Deflate with
     predictor 2, YCbCr 2x2 JPEG, ZSTD and LZMA with predictor 2 and its
-    bilevel as Group 4 (the files decode_times times beside TIMED)."""
+    bilevel as Group 4, and as PPM P6, TGA RLE, QOI, PCX, SGI RLE and Sun
+    RLE (the files decode_times times beside TIMED)."""
     return {name: data for fmt in FORMAT_TIMES
             for name, data in scene_files(fmt, 1)}
+
+
+@functools.lru_cache(maxsize=None)
+def _scene_decode(k: int):
+    from maskrcnn_tpu_torch.data import image_io
+    name = list(corpus_index()["scenes"])[k]
+    return name.rsplit(".", 1)[0], image_io.read_image(CORPUS / name)
 
 
 def coco_scene_dir(root: Path, copies: int, fmt: str = "jpeg",
                    limit: Optional[int] = None) -> str:
     """A COCO directory (minival 2014 names) of the corpus's scenes in
-    `fmt` (scene_files), each `copies` times (the first `limit` images
-    of those, where given), with the JPEG scenes' annotations. Returns
-    the directory."""
+    `fmt` (scene_files; "plugins": image i in PLUGIN_SCENES[(i - 1) %
+    6], each written when its image is), each `copies` times (the first
+    `limit` images of those, where given), with the JPEG scenes'
+    annotations. Returns the directory."""
     index = corpus_index()
     root = Path(root) / "coco"
     (root / "annotations").mkdir(parents=True, exist_ok=True)
     (root / "val2014").mkdir(exist_ok=True)
     images, anns = [], []
-    files = scene_files(fmt)
+    files = scene_files(fmt) if fmt != "plugins" else None
     for k in range(copies):
-        for (name, data), (scene, scene_anns) in zip(
-                files, index["scenes"].items()):
+        for j, (scene, scene_anns) in enumerate(index["scenes"].items()):
             i = len(images) + 1
             if limit is not None and i > limit:
                 break
+            if files is not None:
+                name, data = files[j]
+            else:
+                stem, img = _scene_decode(j)
+                ext, data = plugin_scene(
+                    PLUGIN_SCENES[(i - 1) % len(PLUGIN_SCENES)], img)
+                name = f"{stem}.{ext}"
             h, w = index["files"][scene]["shape"]
             file_name = f"COCO_val2014_{i:012d}{Path(name).suffix}"
             (root / "val2014" / file_name).write_bytes(data)

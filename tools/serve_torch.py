@@ -8,15 +8,19 @@ coalesced into device batches by `maskrcnn_tpu_torch.serving
                                 [--int8 [--int8-skip C4,C5]]
                                 [--calib-stats stats.json]
 
-    POST /detect   body: JPEG, PNG, WebP, GIF, BMP or TIFF bytes
+    POST /detect   body: the bytes of an image file of any format the port
+                   reads (data/image_io.py: JPEG, PNG, WebP, GIF, BMP, TIFF,
+                   PPM/PGM/PBM/PFM, TGA, QOI, ICO, CUR, DIB, PCX, DCX, SGI,
+                   Sun raster)
         -> {"detections": [{"class_id", "class_name", "score",
                             "box": [y1, x1, y2, x2],
                             "mask_rle": {"size", "counts"}}, ...]}
     GET /healthz   -> {"ok": true, "batches": N, "images": M}
 
 The Detector runs on the card; --tiny runs TinyConfig on the CPU (the
-smoke and test mode). A posted JPEG, PNG, WebP, GIF, BMP or TIFF (its
-first image) is decoded without Pillow
+smoke and test mode). A posted image file (a TIFF's first image, a DCX's
+first page, an icon's largest entry, as Pillow reads them) is decoded
+without Pillow
 (maskrcnn_tpu_torch/data/image_io.py); a file it refuses is answered
 500 with the reader's message (chip_smoke.py's phase 9d posts a JPEG, a
 WebP and a TIFF).
