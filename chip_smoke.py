@@ -3090,9 +3090,12 @@ def decode_phase(card, build=None):
     predictor, layout and orientation; PPM/PGM/PBM/PFM, TGA, QOI, ICO,
     CUR, DIB, PCX, DCX, SGI and Sun raster of every mode) decodes to its
     Pillow digest, and each refused file raises NotImplementedError
-    naming its mode or the format Pillow reads that the port does not; the
-    first scene as ZSTD and LZMA TIFF (tests/data/tiff_scenes) decodes to
-    its digest; neither Pillow nor a system libwebp, giflib or libtiff is
+    naming its mode or the format Pillow reads that the port does not
+    (each file Pillow raises on raises a ValueError); the first scene as
+    ZSTD and LZMA TIFF (tests/data/tiff_scenes) and the scenes as
+    arithmetic-coded, lossless and block-smoothed JPEG
+    (tests/data/jpeg_scenes) decode to their digests; neither Pillow nor a
+    system libwebp, giflib or libtiff is
     loaded, and the decoder library links only the C and C++ runtimes and
     imports no zlib, libtiff, libzstd, XXH or liblzma symbol (PNG's and
     TIFF's inflate, the ZSTD, xz and fax decoders are the library's own);
@@ -3101,7 +3104,9 @@ def decode_phase(card, build=None):
     first scene as PNG, lossy and lossless WebP, GIF, BMP, and TIFF
     uncompressed, LZW with predictor 2, tiled Deflate with predictor 2,
     YCbCr 2x2 JPEG, ZSTD and LZMA with predictor 2, its bilevel as
-    CCITT Group 4, and PPM P6, TGA RLE, QOI, PCX, SGI RLE and Sun RLE);
+    CCITT Group 4, PPM P6, TGA RLE, QOI, PCX, SGI RLE and Sun RLE, and
+    arithmetic-coded sequential and progressive JPEG, lossless JPEG with
+    predictors 1 and 7 and a block-smoothed progressive JPEG);
     the PNG scene's image data through the library's inflate beside
     zlib.decompress; decodes a second of the two baseline JPEG scenes on 1 and 4 threads,
     each route, and of the three scenes as lossy WebP and as tiled
@@ -3140,6 +3145,12 @@ def decode_phase(card, build=None):
     refused_formats = " ".join(sorted(
         word for name, word in index["refused"].items()
         if name.rsplit(".", 1)[1] not in ("bmp", "tif", "jpg", "png")))
+    for name in index.get("errors", {}):
+        try:
+            image_io.read_image(bench.CORPUS / name)
+            check(False, f"9a: corpus {name}, which Pillow refuses, decoded")
+        except ValueError:
+            pass
     scene_tiffs = json.loads((bench.TIFF_SCENES / "index.json").read_text())
     for name, entry in scene_tiffs.items():
         img = image_io.read_image(bench.TIFF_SCENES / name)
@@ -3147,6 +3158,14 @@ def decode_phase(card, build=None):
               and hashlib.sha256(img.tobytes()).hexdigest()
               == entry["sha256"], f"9a: {name} decodes to other pixels "
               "than Pillow's")
+    scene_jpegs = json.loads((bench.JPEG_SCENES / "index.json").read_text())
+    for name, entry in scene_jpegs.items():
+        img = image_io.read_image(bench.JPEG_SCENES / name)
+        check(list(img.shape) == entry["shape"] + [3]
+              and hashlib.sha256(img.tobytes()).hexdigest()
+              == entry["sha256"], f"9a: {name} decodes to other pixels "
+              "than Pillow's")
+    jpeg_modes = sum(name.startswith("jpeg_") for name in index["files"])
     times = bench.decode_times(5)
     inflate = bench.inflate_times(5)
     threads = bench.decode_rates()
@@ -3181,7 +3200,11 @@ def decode_phase(card, build=None):
           f"by name (an xz BCJ filter's and Pillow's formats the port does "
           f"not read among them: {refused_formats}); the "
           f"first scene as ZSTD and as LZMA TIFF ({len(scene_tiffs)} "
-          f"committed files) to their digests; no system codec "
+          f"committed files) to their digests; {jpeg_modes} corpus files of "
+          f"arithmetic-coded, lossless and block-smoothed JPEG and the "
+          f"scenes in those modes ({len(scene_jpegs)} committed files) to "
+          f"their digests, {len(index.get('errors', {}))} byte edits Pillow "
+          f"refuses raise; no system codec "
           f"loaded; host decode median of 5: {lines}; the PNG scene's "
           f"image data ({inflate['bytes']} bytes) inflated by the "
           f"library's own inflate {inflate['own_ms']:.2f} ms, by "
@@ -3219,21 +3242,24 @@ def same_detections(a, b) -> bool:
 FILES_COPIES, FILES_B = 8, 8
 FILES_FORMATS = ("bmp", "webp_lossless", "tiff_tiled_lzw_predictor", "webp",
                  "gif", "tiff_jpeg", "tiff_zstd_predictor",
-                 "tiff_lzma_predictor", "plugins")
+                 "tiff_lzma_predictor", "plugins", "jpeg_modes")
 # the sweeps whose files hold the JPEG decodes' pixels, so their detections
 # equal the JPEG sweep's (the JPEG TIFF holds the baseline scenes' own JPEG
 # streams, which decode to their JPEG files' pixels; the ZSTD and LZMA
 # TIFF the first scene's JPEG decode; "plugins" each image's scene decode
-# as PPM P6, TGA RLE, QOI, PCX, SGI RLE and Sun RLE in turn)
+# as PPM P6, TGA RLE, QOI, PCX, SGI RLE and Sun RLE in turn; "jpeg_modes"
+# each scene's coefficients re-coded arithmetic, sequential and
+# progressive in turn, and the first scene's decode as lossless JPEG)
 SAME_PIXELS = ("plain", "bmp", "webp_lossless", "tiff_tiled_lzw_predictor",
                "tiff_jpeg", "tiff_zstd_predictor", "tiff_lzma_predictor",
-               "plugins")
+               "plugins", "jpeg_modes")
 # images a sweep: the WebP, GIF, BMP, ZSTD, LZMA and plugin sweeps one
 # batch (the first 8 images, so the JPEG sweep's first 8 results), to keep
 # the whole script within its time
 FILES_IMAGES = {"bmp": FILES_B, "webp_lossless": FILES_B, "webp": FILES_B,
                 "gif": FILES_B, "tiff_zstd_predictor": FILES_B,
-                "tiff_lzma_predictor": FILES_B, "plugins": FILES_B}
+                "tiff_lzma_predictor": FILES_B, "plugins": FILES_B,
+                "jpeg_modes": FILES_B}
 
 
 def files_phase(kernels, card, cfg=None):
@@ -3254,7 +3280,10 @@ def files_phase(kernels, card, cfg=None):
     with predictor 2 (committed, tests/data/tiff_scenes; the other scenes
     as their JPEG files; one batch each), and one batch whose images
     rotate through PPM P6, TGA RLE, QOI, PCX, SGI RLE and Sun RLE (written
-    from the scenes' decodes by tests/image_writers.py) hold the JPEG
+    from the scenes' decodes by tests/image_writers.py), and one batch
+    whose images rotate through each scene's coefficients re-coded
+    arithmetic sequential and progressive and the first scene's decode
+    as lossless JPEG (committed, tests/data/jpeg_scenes) hold the JPEG
     decodes' pixels, so their detections equal the JPEG sweep's; lossy
     WebP and GIF (a fixed palette) find detections; K1, K2 and K4 launched in every sweep. Then one POST each of the progressive scene, of a
     lossy WebP scene and of a JPEG TIFF scene to tools/serve_torch.py's
@@ -3381,8 +3410,9 @@ def files_phase(kernels, card, cfg=None):
           f"B={FILES_B}: detections of the plain-route and native-route "
           f"JPEG sweeps equal ({found} detections), and of the BMP, "
           f"lossless-WebP, tiled-LZW-TIFF, JPEG-TIFF, ZSTD-TIFF, "
-          f"LZMA-TIFF and plugin (PPM, TGA RLE, QOI, PCX, SGI RLE, Sun "
-          f"RLE in turn) sweeps; "
+          f"LZMA-TIFF, plugin (PPM, TGA RLE, QOI, PCX, SGI RLE, Sun "
+          f"RLE in turn) and JPEG-mode (arithmetic sequential, "
+          f"arithmetic progressive, lossless in turn) sweeps; "
           + "; ".join(parts)
           + f"; bbox AP {sweeps['native'][3][0]:.3f} (seeded weights); "
           + "; ".join(f"serve_torch POST of {name} answered {status} with "

@@ -9,23 +9,31 @@
 // with g++ on first use and calls it through ctypes, which releases the
 // GIL for the whole call.
 //
-// JPEG follows libjpeg-turbo's C path as Pillow configures it (its SIMD
-// paths give the same bits): jdhuff.c / jdphuff.c entropy decoding
-// (baseline, extended sequential and progressive Huffman, restart
-// intervals), every coefficient of the image kept until the last scan,
-// jidctint.c's islow IDCT with the range-limit table, jdsample.c's
+// JPEG follows libjpeg-turbo as Pillow configures it: jdhuff.c /
+// jdphuff.c entropy decoding (baseline, extended sequential and
+// progressive Huffman, restart intervals; the standard tables a
+// sequential scan takes for an undefined slot 0 or 1), the arithmetic
+// and lossless decoders of jpeg_arith.cpp and jpeg_lossless.cpp
+// (image_codec.h), every coefficient of the image kept until the last
+// scan, jdcoefct.c's block smoothing of a progressive file whose scans
+// leave coefficients 1-9 incomplete (decompress_smooth_data, with the
+// bits from before a scan cut short past its last whole iMCU row), the
+// islow IDCT as its SIMD code computes it (16-bit products and sums,
+// saturated passes: jidctint.c's C on valid data), jdsample.c's
 // upsamplers (fancy h2v1, h1v2 and h2v2 where libjpeg-turbo picks them,
-// box replication elsewhere, edges replicated at the component's
-// downsampled size as jdmainct.c's context rows are), jdcolor.c's
-// fixed-point YCbCr -> RGB and YCCK -> CMYK tables, the colour space chosen
-// by jdapimin.c's default_decompress_parms, and for 4 components Pillow's
-// own steps: the "CMYK;I" unpack (samples inverted) and Convert.c's
-// cmyk2rgb. Refused, with the mode named: arithmetic coding, lossless and
-// hierarchical frames, samples of other than 8 bits, 2 components,
-// sampling factors that do not divide the largest or that make an
-// interleaved MCU of more than 10 blocks, and a progressive file
-// whose scans leave a low-frequency coefficient incomplete (libjpeg-turbo
-// smooths such blocks; jdcoefct.c smoothing_ok).
+// box replication elsewhere and for lossless frames, edges replicated at
+// the component's downsampled size as jdmainct.c's context rows are),
+// jdcolor.c's fixed-point YCbCr -> RGB and YCCK -> CMYK tables, the
+// colour space chosen by jdapimin.c's default_decompress_parms, and for 4
+// components Pillow's own steps: the "CMYK;I" unpack (samples inverted)
+// and Convert.c's cmyk2rgb. Pillow's decoder is part of the outcome: it
+// gives libjpeg the file in 65536-byte blocks (an arithmetic scan cannot
+// cross the end of one), and a single-scan file's markers after its rows
+// may run out (libtiff's source ends in a fake EOI instead); jdmarker.c's
+// marker walk decides what else is an error. Refused, with the mode
+// named: arithmetic lossless and hierarchical frames, samples of other
+// than 8 bits, 2 components, sampling factors that do not divide the
+// largest or that make an interleaved MCU of more than 10 blocks.
 //
 // PNG: the image data inflated by the inflate written here (TIFF's
 // Deflate shares it) as Pillow's decoder drives zlib: up to the image's
@@ -63,7 +71,8 @@
 // photometric, sample format, fill order, bits, extra samples) -> (mode,
 // raw mode), its own "raw" tiles for uncompressed data (offsets in file
 // order, byte counts unread) and libtiff's decoding of everything
-// compressed, as TiffDecode.c drives it: strips or tiles (edge tiles
+// compressed, with the directory as libtiff's TIFFReadDirectory reads it
+// again (LibtiffDir), as TiffDecode.c drives it: strips or tiles (edge tiles
 // cropped), contiguous or separate planes, FillOrder 2, PackBits, LZW
 // (libtiff's codes and the old LSB-first ones), Deflate through the
 // inflate written here (zlib's checks and messages, its Adler-32), ZSTD,
@@ -102,6 +111,13 @@
 #include <string>
 #include <vector>
 
+// The IDCT (idct_islow) is libjpeg-turbo's SSE2 one, lane for lane: the
+// only one the tests hold to Pillow's bits.
+#if !defined(__SSE2__)
+#error "image_decode.cpp needs SSE2 (an x86-64 host): its IDCT is libjpeg-turbo's SSE2 code"
+#endif
+#include <emmintrin.h>
+
 #include "image_codec.h"
 
 namespace {
@@ -111,187 +127,13 @@ using mrt::Error;
 using mrt::guarded;
 using mrt::refuse;
 using mrt::report;
+using mrt::Bits;
+using mrt::build_huffman;
+using mrt::extend;
+using mrt::Huffman;
+using mrt::kNatural;
 
 // ------------------------------------------------------------------- JPEG
-
-// the zigzag position k's coefficient in natural order, with 16 entries
-// past the end as jpeg_natural_order has (a corrupt run lands on 63)
-const int kNatural[80] = {
-    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
-    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
-    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
-    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
-    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
-
-constexpr int kLookBits = 9;
-
-struct Huffman {
-  bool defined = false;
-  // (code length << 8) | symbol for codes of at most kLookBits bits, else 0
-  uint16_t look[1 << kLookBits];
-  int32_t maxcode[18];
-  int32_t valoffset[18];
-  uint8_t vals[256];
-};
-
-// jdhuff.c jpeg_make_d_derived_tbl
-void build_huffman(Huffman& t, const uint8_t* counts, const uint8_t* symbols,
-                   int total, bool dc) {
-  uint8_t size[257];
-  uint32_t code_of[257];
-  int p = 0;
-  for (int l = 1; l <= 16; l++) {
-    for (int i = 0; i < counts[l - 1]; i++) size[p++] = static_cast<uint8_t>(l);
-  }
-  size[p] = 0;
-  uint32_t code = 0;
-  int si = size[0];
-  p = 0;
-  while (size[p]) {
-    while (size[p] == si) code_of[p++] = code++;
-    if (code >= (1u << si)) corrupt("JPEG: bad Huffman table");
-    code <<= 1;
-    si++;
-  }
-  p = 0;
-  for (int l = 1; l <= 16; l++) {
-    if (counts[l - 1]) {
-      t.valoffset[l] = p - static_cast<int32_t>(code_of[p]);
-      p += counts[l - 1];
-      t.maxcode[l] = static_cast<int32_t>(code_of[p - 1]);
-    } else {
-      t.maxcode[l] = -1;
-    }
-  }
-  t.valoffset[17] = 0;
-  t.maxcode[17] = 0xFFFFF;
-  std::memset(t.look, 0, sizeof(t.look));
-  p = 0;
-  for (int l = 1; l <= kLookBits; l++) {
-    for (int i = 1; i <= counts[l - 1]; i++, p++) {
-      uint32_t base = code_of[p] << (kLookBits - l);
-      for (uint32_t c = 0; c < (1u << (kLookBits - l)); c++) {
-        t.look[base + c] = static_cast<uint16_t>((l << 8) | symbols[p]);
-      }
-    }
-  }
-  std::memcpy(t.vals, symbols, static_cast<size_t>(total));
-  std::memset(t.vals + total, 0, static_cast<size_t>(256 - total));
-  if (dc) {
-    for (int i = 0; i < total; i++) {
-      if (symbols[i] > 15) corrupt("JPEG: bad DC Huffman table");
-    }
-  }
-  t.defined = true;
-}
-
-// The entropy-coded bits of a scan: stuffed zeros removed, and zero bits
-// supplied past a marker (libjpeg's fill_bit_buffer); once a decode reads
-// such a bit, `insufficient` is set and the rest of the restart interval
-// is left as it is (jdhuff.c's insufficient_data).
-struct Bits {
-  const uint8_t* d;
-  int64_t n;
-  int64_t pos;
-  uint64_t buf = 0;  // the next bits, most significant first
-  int nbits = 0;
-  int padded = 0;  // zero bits at the end of buf that follow a marker
-  bool at_marker = false;
-  bool insufficient = false;
-
-  Bits(const uint8_t* data, int64_t size, int64_t start)
-      : d(data), n(size), pos(start) {}
-
-  void fill() {
-    while (nbits <= 56) {
-      uint32_t byte = 0;
-      if (!at_marker && pos < n) {
-        byte = d[pos];
-        if (byte == 0xFF) {
-          int64_t q = pos + 1;
-          while (q < n && d[q] == 0xFF) q++;  // fill bytes
-          if (q < n && d[q] == 0) {
-            pos = q + 1;
-          } else {
-            at_marker = true;
-            pos = q - 1;  // the 0xFF before the marker code
-            byte = 0;
-            padded += 8;
-          }
-        } else {
-          pos++;
-        }
-      } else {
-        padded += 8;
-      }
-      buf |= static_cast<uint64_t>(byte) << (56 - nbits);
-      nbits += 8;
-    }
-  }
-
-  inline void consume(int k) {
-    buf <<= k;
-    nbits -= k;
-    if (nbits < padded) {
-      insufficient = true;
-      padded = nbits;
-    }
-  }
-
-  inline uint32_t peek(int k) {
-    if (nbits < k) fill();
-    return static_cast<uint32_t>(buf >> (64 - k));
-  }
-
-  inline uint32_t get(int k) {
-    if (k == 0) return 0;
-    uint32_t v = peek(k);
-    consume(k);
-    return v;
-  }
-
-  inline int decode(const Huffman& t) {
-    uint32_t w = peek(16);
-    uint16_t e = t.look[w >> (16 - kLookBits)];
-    if (e) {
-      consume(e >> 8);
-      return e & 0xFF;
-    }
-    int l = kLookBits + 1;
-    while (l <= 16 && static_cast<int32_t>(w >> (16 - l)) > t.maxcode[l]) l++;
-    if (l > 16) {
-      // jpeg_huff_decode: a corrupt code gives a zero
-      consume(16);
-      return 0;
-    }
-    const int32_t code = static_cast<int32_t>(w >> (16 - l));
-    consume(l);
-    return t.vals[code + t.valoffset[l]];
-  }
-
-  // a restart marker: the buffered bits dropped, the next marker read and
-  // swallowed when it is a restart (read_restart_marker)
-  void restart() {
-    buf = 0;
-    nbits = 0;
-    padded = 0;
-    at_marker = false;
-    while (pos + 1 < n) {
-      if (d[pos] == 0xFF && d[pos + 1] != 0 && d[pos + 1] != 0xFF) break;
-      pos++;
-    }
-    if (pos + 1 < n && d[pos + 1] >= 0xD0 && d[pos + 1] <= 0xD7) {
-      pos += 2;
-      insufficient = false;
-    }
-  }
-};
-
-inline int extend(uint32_t v, int s) {
-  // HUFF_EXTEND
-  return (s && v < (1u << (s - 1))) ? static_cast<int>(v) - ((1 << s) - 1)
-                                    : static_cast<int>(v);
-}
 
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
@@ -299,19 +141,20 @@ struct Component {
   int cw = 0, ch = 0;          // downsampled width and height
   std::vector<int16_t> coef;   // bw * bh blocks of 64, natural order
   int32_t quant[64];           // latched at the component's first scan
+  int16_t quant16[64];         // ... as the IDCT multiplies it (a 16-bit short)
   bool latched = false;
   int coef_bits[64];           // progressive: the bit each coefficient is known to
+  int prev_bits[64];           // ... before the last scan of the component
   int dc_last = 0;
+  std::vector<uint8_t> samples;  // lossless: ch rows of cw samples
 };
 
 const char* sof_mode(int marker) {
   switch (marker) {
-    case 0xC3: return "lossless";
     case 0xC5: return "hierarchical sequential";
+    case 0xC8: return "JPG (reserved frame type)";
     case 0xC6: return "hierarchical progressive";
     case 0xC7: return "hierarchical lossless";
-    case 0xC9: return "arithmetic-coded sequential";
-    case 0xCA: return "arithmetic-coded progressive";
     case 0xCB: return "arithmetic-coded lossless";
     case 0xCD: return "arithmetic-coded hierarchical sequential";
     case 0xCE: return "arithmetic-coded hierarchical progressive";
@@ -331,6 +174,12 @@ struct Jpeg {
   int64_t n;
   int width = 0, height = 0;
   bool progressive = false, have_frame = false;
+  bool arith = false, lossless = false;  // SOF9/SOF10, SOF3
+  int scans = 0;                // SOS markers read (input_scan_number)
+  // the last iMCU row the last scan decoded whole (jdcoefct.c's
+  // last_good_iMCU_row: past it, block smoothing takes the coefficient
+  // bits from before that scan)
+  int last_good_row = INT_MAX;
   int hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   std::vector<Component> comps;
   int32_t qtables[4][64] = {};
@@ -339,8 +188,18 @@ struct Jpeg {
   int restart_interval = 0;
   bool jfif = false, adobe = false;
   int transform = 0;
+  // DAC conditioning of the arithmetic tables 0-15 (L, U; Kx), as SOI
+  // resets them
+  uint8_t dac_L[16], dac_U[16], dac_K[16];
+  // libtiff's source (a strip or tile, a fake EOI past its end), not
+  // Pillow's 65536-byte blocks of the file
+  bool in_tiff = false;
 
-  Jpeg(const uint8_t* data, int64_t size) : d(data), n(size) {}
+  Jpeg(const uint8_t* data, int64_t size) : d(data), n(size) {
+    std::memset(dac_L, 0, sizeof(dac_L));
+    std::memset(dac_U, 1, sizeof(dac_U));
+    std::memset(dac_K, 5, sizeof(dac_K));
+  }
 
   // The quantization and Huffman tables of another stream (TIFF's
   // JPEGTables, or the strip before: libjpeg keeps them in the object).
@@ -359,22 +218,62 @@ struct Jpeg {
   void run(bool header_only, bool tables = false) {
     if (n < 2 || d[0] != 0xFF || d[1] != 0xD8) corrupt("not a JPEG file");
     int64_t pos = 2;
+    // Where the data may end without an EOI: under libtiff, after any scan
+    // (its source gives a fake EOI); under Pillow, after the scan of a
+    // single-scan file, whose rows are all out before libjpeg reads the
+    // markers after it (jpeg_finish_decompress suspends there, and Pillow
+    // is done).
+    bool may_end = false;
+    bool single_scan = false;
     for (;;) {
       // next_marker: skip anything up to a 0xFF, then fill bytes
       while (pos < n && d[pos] != 0xFF) pos++;
       while (pos < n && d[pos] == 0xFF) pos++;
       if (pos >= n) {
+        if (may_end) break;
         if (!have_frame) corrupt("JPEG: no frame header");
         corrupt("JPEG: no EOI marker (the file is truncated)");
       }
       int marker = d[pos++];
+      if (marker == 0) continue;  // a stuffed zero: next_marker goes on
       if (marker == 0xD9) break;  // EOI
       if (marker == 0xD8) corrupt("JPEG: a second SOI marker");
       if ((marker >= 0xD0 && marker <= 0xD7) || marker == 0x01) continue;
-      if (pos + 2 > n) corrupt("JPEG: a marker segment runs past the end");
-      int length = be16(d + pos);
-      if (length < 2 || pos + length > n)
+      // jdmarker.c read_markers: what it reads; the rest is an error
+      const bool skipped = (marker >= 0xE0 && marker <= 0xEF) || marker == 0xFE ||
+                           marker == 0xDC;
+      if (!skipped && !(marker >= 0xC0 && marker <= 0xCF) && marker != 0xDA &&
+          marker != 0xDB && marker != 0xDD) {
+        char hex[8];
+        std::snprintf(hex, sizeof(hex), "0x%02X", marker);
+        corrupt(std::string("JPEG: unsupported marker type ") + hex);
+      }
+      // a frame marker: what libjpeg refuses, before the segment is read
+      const bool sof = marker >= 0xC0 && marker <= 0xCF && marker != 0xC4 && marker != 0xCC;
+      if (sof && !tables) {
+        if (const char* mode = sof_mode(marker))
+          refuse(std::string("JPEG: ") + mode + " mode is not supported "
+                 "(baseline, extended sequential, progressive and lossless "
+                 "Huffman, sequential and progressive arithmetic only)");
+        if (have_frame) corrupt("JPEG: a second frame header");
+      }
+      if (pos + 2 > n) {
+        if (may_end) break;
         corrupt("JPEG: a marker segment runs past the end");
+      }
+      int length = be16(d + pos);
+      if (length < 2 && skipped) {
+        pos += 2;  // skip_variable: nothing to skip
+        continue;
+      }
+      if (pos + length > n && may_end) {
+        // the data ends within the segment: libjpeg reads it as far as the
+        // data goes, and only what it finds wrong on the way is an error
+        if (!in_tiff && !skipped) partial_segment(marker, pos);
+        break;
+      }
+      if (length < 2) corrupt("JPEG: bad marker length");
+      if (pos + length > n) corrupt("JPEG: a marker segment runs past the end");
       const uint8_t* body = d + pos + 2;
       int blen = length - 2;
       pos += length;
@@ -382,20 +281,20 @@ struct Jpeg {
                                         marker != 0xC4 && marker != 0xC8 &&
                                         marker != 0xCC)))
         corrupt("TIFF: bogus JPEGTables field (an image in the tables)");
-      if (marker == 0xC0 || marker == 0xC1 || marker == 0xC2) {
-        frame(body, blen, marker == 0xC2);
+      if (marker == 0xC0 || marker == 0xC1 || marker == 0xC2 || marker == 0xC3 ||
+          marker == 0xC9 || marker == 0xCA) {
+        frame(body, blen, marker == 0xC2 || marker == 0xCA);
+        arith = marker == 0xC9 || marker == 0xCA;
+        lossless = marker == 0xC3;
         if (header_only) return;
-      } else if (const char* mode = sof_mode(marker)) {
-        refuse(std::string("JPEG: ") + mode + " mode is not supported "
-               "(baseline, extended sequential and progressive Huffman only)");
       } else if (marker == 0xC4) {
         dht(body, blen);
       } else if (marker == 0xCC) {
-        refuse("JPEG: arithmetic coding (DAC marker) is not supported");
+        dac(body, blen);
       } else if (marker == 0xDB) {
         dqt(body, blen);
       } else if (marker == 0xDD) {
-        if (blen < 2) corrupt("JPEG: bad DRI marker");
+        if (blen != 2) corrupt("JPEG: bad DRI marker");
         restart_interval = be16(body);
       } else if (marker == 0xE0) {
         // jdmarker.c examine_app0: at least 14 bytes, "JFIF\0"
@@ -408,14 +307,81 @@ struct Jpeg {
         }
       } else if (marker == 0xDA) {
         if (!have_frame) corrupt("JPEG: scan before the frame header");
+        if (single_scan) corrupt("JPEG: a second scan where EOI was expected");
+        const bool first = !may_end && comps.front().coef.empty() &&
+                           comps.front().samples.empty();
         pos = scan(body, blen, pos);
-      } else if (marker == 0xDC) {
-        refuse("JPEG: a DNL marker (height defined after the scan) is not "
-               "supported");
+        // jdinput.c: a first scan of every component, not progressive,
+        // is the file's only one
+        single_scan = first && !progressive && blen >= 1 &&
+                      body[0] == static_cast<int>(comps.size());
+        // libtiff's JPEGDecode takes jpeg_finish_decompress's failure (-1)
+        // for success: nothing after a single scan's data counts
+        if (single_scan && in_tiff) break;
+        may_end = in_tiff || single_scan;
       }
       // APPn, COM and the rest: skipped
     }
     if (!have_frame && !tables) corrupt("JPEG: no frame header");
+  }
+
+  // A DQT, DHT, DAC, DRI or SOS segment from `pos` (its length field) to
+  // the end of the data, which comes first, read as jdmarker.c reads it
+  // under a suspending source: the checks it makes on the way raise;
+  // running out of data does not (after a single scan Pillow is done).
+  void partial_segment(int marker, int64_t pos) const {
+    int64_t p = pos;
+    auto have = [&](int64_t k) { return p + k <= n; };
+    if (!have(2)) return;
+    int64_t length = be16(d + p) - 2;
+    p += 2;
+    if (marker == 0xDB) {
+      while (length > 0) {
+        if (!have(1)) return;
+        const int prec = d[p] >> 4, index = d[p] & 15;
+        p++;
+        if (index >= 4) corrupt("JPEG: bad DQT table index " + std::to_string(index));
+        const int size = prec ? 128 : 64;
+        if (!have(size)) return;
+        p += size;
+        length -= 1 + size;
+      }
+    } else if (marker == 0xC4) {
+      while (length > 16) {
+        if (!have(17)) return;
+        int count = 0;
+        for (int i = 1; i <= 16; i++) count += d[p + i];
+        const int index = d[p];
+        p += 17;
+        length -= 17;
+        if (count > 256 || count > length) corrupt("JPEG: bad Huffman table");
+        if (!have(count)) return;
+        p += count;
+        length -= count;
+        if ((index & ~0x10) >= 4) corrupt("JPEG: bad DHT table index " + std::to_string(index));
+      }
+    } else if (marker == 0xCC) {
+      while (length > 0) {
+        if (!have(2)) return;
+        const int index = d[p], val = d[p + 1];
+        p += 2;
+        length -= 2;
+        if (index >= 32) corrupt("JPEG: bad DAC table index " + std::to_string(index));
+        if (index < 16 && (val & 15) > (val >> 4))
+          corrupt("JPEG: bad DAC value " + std::to_string(val));
+      }
+    } else if (marker == 0xDD) {
+      if (length != 2) corrupt("JPEG: bad DRI marker");
+      return;
+    } else if (marker == 0xDA) {
+      if (!have(1)) return;
+      const int ns = d[p];
+      if (length != 2 * ns + 4 || ns < 1 || ns > 4) corrupt("JPEG: bad SOS marker");
+      return;  // a whole one ends the single-scan file with an error: EOI was expected
+    } else {
+      return;
+    }
+    if (length != 0) corrupt("JPEG: bad marker length");
   }
 
   void frame(const uint8_t* b, int len, bool prog) {
@@ -435,7 +401,7 @@ struct Jpeg {
     if (nc != 1 && nc != 3 && nc != 4)
       refuse("JPEG: " + std::to_string(nc) +
              " components are not supported (1, 3 or 4)");
-    if (len < 6 + 3 * nc) corrupt("JPEG: bad frame header");
+    if (len != 6 + 3 * nc) corrupt("JPEG: bad frame header");
     progressive = prog;
     comps.resize(nc);
     hmax = vmax = 1;
@@ -447,7 +413,6 @@ struct Jpeg {
       c.tq = b[8 + 3 * i];
       if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4)
         corrupt("JPEG: bad sampling factors");
-      if (c.tq > 3) corrupt("JPEG: bad quantization table index");
       hmax = std::max(hmax, c.h);
       vmax = std::max(vmax, c.v);
     }
@@ -461,14 +426,60 @@ struct Jpeg {
     have_frame = true;
   }
 
+  // jstdhuff.c std_huff_tables, which libjpeg-turbo's sequential Huffman
+  // decoder (jdhuff.c) runs as it starts: slots 0 and 1 that no DHT has
+  // filled get the tables of ITU T.81 Annex K.3 (for Motion-JPEG streams)
+  void std_tables() {
+    static const uint8_t kDcBits[2][16] = {{0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0},
+                                           {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0}};
+    static const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+    static const uint8_t kAcBits[2][16] = {{0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125},
+                                           {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119}};
+    static const uint8_t kAcVals[2][162] = {
+        {0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51,
+         0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1,
+         0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18,
+         0x19, 0x1a, 0x25, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39,
+         0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57,
+         0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+         0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92,
+         0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7,
+         0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3,
+         0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8,
+         0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2,
+         0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa},
+        {0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07,
+         0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09,
+         0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25,
+         0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38,
+         0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56,
+         0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+         0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+         0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5,
+         0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba,
+         0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6,
+         0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2,
+         0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa}};
+    for (int t = 0; t < 2; t++) {
+      if (!dc_tables[t].defined) build_huffman(dc_tables[t], kDcBits[t], kDcVals, 12);
+      if (!ac_tables[t].defined) build_huffman(ac_tables[t], kAcBits[t], kAcVals[t], 162);
+    }
+  }
+
   void allocate() {
     for (Component& c : comps) {
       c.bw = mcux * c.h;
       c.bh = mcuy * c.v;
       c.cw = static_cast<int>((static_cast<int64_t>(width) * c.h + hmax - 1) / hmax);
       c.ch = static_cast<int>((static_cast<int64_t>(height) * c.v + vmax - 1) / vmax);
-      c.coef.assign(static_cast<size_t>(c.bw) * c.bh * 64, 0);
+      // (value-initialised: zeroed as one block, which assign() is not)
+      if (lossless) {
+        c.samples = std::vector<uint8_t>(static_cast<size_t>(c.cw) * c.ch);
+      } else {
+        c.coef = std::vector<int16_t>(static_cast<size_t>(c.bw) * c.bh * 64);
+      }
       for (int k = 0; k < 64; k++) c.coef_bits[k] = -1;
+      for (int k = 0; k < 64; k++) c.prev_bits[k] = -1;
     }
   }
 
@@ -483,9 +494,34 @@ struct Jpeg {
       if (total > 256 || i + 17 + total > len)
         corrupt("JPEG: bad Huffman table");
       build_huffman(tc == 0 ? dc_tables[th] : ac_tables[th], b + i + 1,
-                    b + i + 17, total, tc == 0);
+                    b + i + 17, total);
       i += 17 + total;
     }
+  }
+
+  // jdmarker.c get_dac
+  void dac(const uint8_t* b, int len) {
+    if (len % 2) corrupt("JPEG: bad DAC marker length");
+    for (int i = 0; i < len; i += 2) {
+      const int index = b[i], val = b[i + 1];
+      if (index >= 32) corrupt("JPEG: bad DAC table index " + std::to_string(index));
+      if (index >= 16) {
+        dac_K[index - 16] = static_cast<uint8_t>(val);
+      } else {
+        dac_L[index] = static_cast<uint8_t>(val & 15);
+        dac_U[index] = static_cast<uint8_t>(val >> 4);
+        if (dac_L[index] > dac_U[index])
+          corrupt("JPEG: bad DAC value " + std::to_string(val));
+      }
+    }
+  }
+
+  // a table a scan uses, held to jpeg_make_d_derived_tbl's checks
+  void check_table(int index, bool dc, int max_dc_symbol) const {
+    const Huffman* t = index > 3 ? nullptr : dc ? &dc_tables[index] : &ac_tables[index];
+    if (!t || !t->defined) corrupt("JPEG: a Huffman table is missing");
+    if (!t->valid || (dc && t->max_symbol > max_dc_symbol))
+      corrupt("JPEG: bad Huffman table");
   }
 
   void dqt(const uint8_t* b, int len) {
@@ -507,10 +543,14 @@ struct Jpeg {
   // The scan's entropy-coded data from `pos`; returns where the next
   // marker starts.
   int64_t scan(const uint8_t* b, int len, int64_t pos) {
-    if (comps.front().coef.empty()) allocate();
+    if (comps.front().coef.empty() && comps.front().samples.empty()) {
+      allocate();
+      if (!arith && !progressive && !lossless) std_tables();
+    }
+    scans++;
     if (len < 1) corrupt("JPEG: bad SOS marker");
     int ns = b[0];
-    if (ns < 1 || ns > 4 || len < 4 + 2 * ns) corrupt("JPEG: bad SOS marker");
+    if (ns < 1 || ns > 4 || len != 4 + 2 * ns) corrupt("JPEG: bad SOS marker");
     std::vector<int> in_scan(ns), dct(ns), act(ns);
     for (int k = 0; k < ns; k++) {
       int cid = b[1 + 2 * k], t = b[2 + 2 * k];
@@ -519,19 +559,23 @@ struct Jpeg {
         if (comps[j].id == cid) ci = static_cast<int>(j);
       }
       if (ci < 0) corrupt("JPEG: a scan names an unknown component");
+      for (int q = 0; q < k; q++) {
+        if (in_scan[q] == ci) corrupt("JPEG: a scan names a component twice");
+      }
       in_scan[k] = ci;
       dct[k] = t >> 4;
       act[k] = t & 15;
-      if (dct[k] > 3 || act[k] > 3) corrupt("JPEG: bad Huffman table index");
     }
     int ss = b[1 + 2 * ns], se = b[2 + 2 * ns];
     int ah = b[3 + 2 * ns] >> 4, al = b[3 + 2 * ns] & 15;
+    if (lossless) return lossless_scan(in_scan, dct, ss, se, ah, al, pos);
     // jdinput.c latch_quant_tables: a component's table at its first scan
     for (int ci : in_scan) {
       Component& c = comps[ci];
       if (!c.latched) {
-        if (!qdefined[c.tq]) corrupt("JPEG: a quantization table is missing");
+        if (c.tq > 3 || !qdefined[c.tq]) corrupt("JPEG: a quantization table is missing");
         std::memcpy(c.quant, qtables[c.tq], sizeof(c.quant));
+        for (int k = 0; k < 64; k++) c.quant16[k] = static_cast<int16_t>(c.quant[k]);
         c.latched = true;
       }
     }
@@ -547,24 +591,28 @@ struct Jpeg {
       if (al > 13) bad = true;
       if (bad) corrupt("JPEG: bad progressive scan parameters");
       for (int ci : in_scan) {
-        for (int k = ss; k <= se; k++) comps[ci].coef_bits[k] = al;
+        Component& c = comps[ci];
+        for (int k = std::min(ss, 1); k <= std::max(se, 9); k++)
+          c.prev_bits[k] = scans > 1 ? c.coef_bits[k] : 0;
+        for (int k = ss; k <= se; k++) c.coef_bits[k] = al;
       }
     } else {
       if (ss != 0 || se != 63 || ah != 0 || al != 0) {
         // libjpeg warns and decodes the whole band
       }
     }
-    for (int k = 0; k < ns; k++) {
-      bool need_dc = !progressive || (ss == 0 && ah == 0);
-      bool need_ac = !progressive || ss != 0;
-      if (need_dc && !dc_tables[dct[k]].defined)
-        corrupt("JPEG: a Huffman table is missing");
-      if (need_ac && !ac_tables[act[k]].defined)
-        corrupt("JPEG: a Huffman table is missing");
+    if (!arith) {
+      // the Huffman tables the scan uses (an arithmetic scan's tables
+      // 0-15 always exist)
+      for (int k = 0; k < ns; k++) {
+        if (!progressive || (ss == 0 && ah == 0)) check_table(dct[k], true, 15);
+        if (!progressive || ss != 0) check_table(act[k], false, 255);
+      }
     }
 
-    // the scan's blocks: (component, block index) in decode order
-    struct Slot { int ci; const Huffman* dc; const Huffman* ac; };
+    // the scan's blocks: (component, its index in the scan, block index)
+    // in decode order
+    struct Slot { int ci, k; };
     std::vector<Slot> layout;
     std::vector<int> offs;  // within an MCU: block offset from the MCU's origin
     int64_t mcus;
@@ -574,7 +622,7 @@ struct Jpeg {
       per_row = (c.cw + 7) / 8;
       int rows = (c.ch + 7) / 8;
       mcus = static_cast<int64_t>(per_row) * rows;
-      layout.push_back({in_scan[0], &dc_tables[dct[0]], &ac_tables[act[0]]});
+      layout.push_back({in_scan[0], 0});
       offs.push_back(0);
     } else {
       per_row = mcux;
@@ -583,7 +631,7 @@ struct Jpeg {
         Component& c = comps[in_scan[k]];
         for (int y = 0; y < c.v; y++) {
           for (int x = 0; x < c.h; x++) {
-            layout.push_back({in_scan[k], &dc_tables[dct[k]], &ac_tables[act[k]]});
+            layout.push_back({in_scan[k], k});
             offs.push_back(y * c.bw + x);
           }
         }
@@ -592,48 +640,104 @@ struct Jpeg {
     if (layout.size() > 10)
       refuse("JPEG: an interleaved scan of more than 10 blocks an MCU "
              "(sampling factors too large) is not supported");
+    // block s of the MCU at MCU row my, column mx
+    auto block_at = [&](int64_t my, int64_t mx, size_t s) {
+      Component& c = comps[layout[s].ci];
+      const int64_t block = ns == 1 ? my * c.bw + mx : (my * c.v * c.bw + mx * c.h + offs[s]);
+      return c.coef.data() + block * 64;
+    };
 
-    Bits bits(d, n, pos);
-    for (Component& c : comps) c.dc_last = 0;
-    int eobrun = 0;
-    for (int64_t m = 0; m < mcus; m++) {
-      if (restart_interval && m > 0 && m % restart_interval == 0) {
-        bits.restart();
-        for (Component& c : comps) c.dc_last = 0;
-        eobrun = 0;
+    int64_t p;
+    if (arith) {
+      mrt::ArithScan a;
+      a.src.d = d;
+      a.src.n = n;
+      a.src.pos = pos;
+      a.src.fake_eoi = in_tiff;
+      // Pillow's decoder: the block of the file in which the SOS segment ends
+      a.src.limit = in_tiff ? n : std::min<int64_t>(n, (pos + 65535) / 65536 * 65536);
+      a.progressive = progressive;
+      a.ss = ss;
+      a.se = se;
+      a.ah = ah;
+      a.al = al;
+      a.ncomp = ns;
+      for (int k = 0; k < ns; k++) {
+        a.dc_tbl[k] = dct[k];
+        a.ac_tbl[k] = act[k];
       }
-      if (bits.insufficient) continue;
-      int my = static_cast<int>(m / per_row), mx = static_cast<int>(m % per_row);
-      for (size_t s = 0; s < layout.size(); s++) {
-        Component& c = comps[layout[s].ci];
-        int64_t block;
-        if (ns == 1) {
-          block = static_cast<int64_t>(my) * c.bw + mx;
-        } else {
-          block = static_cast<int64_t>(my) * c.v * c.bw +
-                  static_cast<int64_t>(mx) * c.h + offs[s];
+      a.dc_L = dac_L;
+      a.dc_U = dac_U;
+      a.ac_K = dac_K;
+      a.restart_interval = restart_interval;
+      a.start();
+      int16_t* blocks[10];
+      int comp[10];
+      const int nb = static_cast<int>(layout.size());
+      for (int s = 0; s < nb; s++) comp[s] = layout[s].k;
+      for (int64_t m = 0, my = 0, mx = 0; m < mcus; m++) {
+        for (int s = 0; s < nb; s++) blocks[s] = block_at(my, mx, static_cast<size_t>(s));
+        a.decode_mcu(blocks, comp, nb);
+        if (++mx == per_row) mx = 0, my++;
+      }
+      p = a.src.marker_pos();
+      last_good_row = INT_MAX;
+    } else {
+      Bits bits(d, n, pos, !in_tiff);
+      for (Component& c : comps) c.dc_last = 0;
+      int eobrun = 0;
+      // the iMCU rows: an MCU row of an interleaved scan, v block rows of
+      // one component's
+      const int rows_per_imcu = ns == 1 ? comps[in_scan[0]].v : 1;
+      last_good_row = 0;
+      int64_t my = 0, mx = -1, to_restart = restart_interval;
+      int next_restart_num = 0;
+      for (int64_t m = 0; m < mcus; m++) {
+        if (++mx == per_row) mx = 0, my++;
+        // the MCU row starting: where an iMCU row starts, the last good one
+        if (mx == 0 && my % rows_per_imcu == 0 && !bits.insufficient)
+          last_good_row = static_cast<int>(my / rows_per_imcu);
+        if (restart_interval && m > 0 && --to_restart == 0) {
+          to_restart = restart_interval;
+          bits.restart(next_restart_num);
+          for (Component& c : comps) c.dc_last = 0;
+          eobrun = 0;
         }
-        int16_t* blk = c.coef.data() + block * 64;
-        if (!progressive) {
-          sequential_block(bits, *layout[s].dc, *layout[s].ac, c.dc_last, blk);
-        } else if (ss == 0) {
-          if (ah == 0) {
-            int sdc = bits.decode(*layout[s].dc);
-            int diff = extend(bits.get(sdc), sdc);
-            c.dc_last += diff;
-            blk[0] = static_cast<int16_t>(static_cast<uint32_t>(c.dc_last) << al);
-          } else if (bits.get(1)) {
-            blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+        if (bits.insufficient) continue;
+        for (size_t s = 0; s < layout.size(); s++) {
+          Component& c = comps[layout[s].ci];
+          // (a table the scan does not use may be an index past 3)
+          const int k = layout[s].k;
+          const Huffman& dc = dc_tables[dct[k] & 3];
+          const Huffman& ac = ac_tables[act[k] & 3];
+          int16_t* blk = block_at(my, mx, s);
+          if (!progressive) {
+            sequential_block(bits, dc, ac, c.dc_last, blk);
+          } else if (ss == 0) {
+            if (ah == 0) {
+              int sdc = bits.decode(dc);
+              int diff = extend(bits.get(sdc), sdc);
+              c.dc_last += diff;
+              blk[0] = static_cast<int16_t>(static_cast<uint32_t>(c.dc_last) << al);
+            } else if (bits.get(1)) {
+              blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+            }
+          } else if (ah == 0) {
+            ac_first(bits, ac, ss, se, al, eobrun, blk);
+          } else {
+            ac_refine(bits, ac, ss, se, al, eobrun, blk);
           }
-        } else if (ah == 0) {
-          ac_first(bits, *layout[s].ac, ss, se, al, eobrun, blk);
-        } else {
-          ac_refine(bits, *layout[s].ac, ss, se, al, eobrun, blk);
         }
       }
+      if (!bits.insufficient) last_good_row = INT_MAX;  // the scan's last row
+      p = bits.pos;
     }
-    // the next marker: past the scan's data (next_marker skips the rest)
-    int64_t p = bits.pos;
+    return next_marker_at(p);
+  }
+
+  // the next marker past the scan's data (next_marker skips the rest, and
+  // the marker reader skips restart markers)
+  int64_t next_marker_at(int64_t p) const {
     while (p + 1 < n) {
       if (d[p] == 0xFF && d[p + 1] != 0 && d[p + 1] != 0xFF &&
           !(d[p + 1] >= 0xD0 && d[p + 1] <= 0xD7))
@@ -641,6 +745,35 @@ struct Jpeg {
       p++;
     }
     return p;
+  }
+
+  // A lossless scan (jpeg_lossless.cpp) into the components' samples.
+  int64_t lossless_scan(const std::vector<int>& in_scan, const std::vector<int>& dct,
+                        int ss, int se, int ah, int al, int64_t pos) {
+    const int ns = static_cast<int>(in_scan.size());
+    int blocks = 0;
+    for (int ci : in_scan) blocks += comps[ci].h * comps[ci].v;
+    if (ns > 1 && blocks > 10)
+      refuse("JPEG: an interleaved scan of more than 10 blocks an MCU "
+             "(sampling factors too large) is not supported");
+    // jddiffct.c / jdlossls.c start_pass: the predictor and point transform
+    if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= 8)
+      corrupt("JPEG: bad lossless scan parameters");
+    std::vector<mrt::LosslessComp> lc(static_cast<size_t>(ns));
+    for (int k = 0; k < ns; k++) {
+      check_table(dct[k], true, 16);
+      Component& c = comps[in_scan[k]];
+      lc[k].plane = c.samples.data();
+      lc[k].cw = c.cw;
+      lc[k].ch = c.ch;
+      lc[k].h = c.h;
+      lc[k].v = c.v;
+      lc[k].table = &dc_tables[dct[k]];
+    }
+    const int lx = (width + hmax - 1) / hmax, ly = (height + vmax - 1) / vmax;
+    int64_t end = pos;
+    mrt::lossless_scan(d, n, pos, ss, al, restart_interval, lx, ly, !in_tiff, lc, end);
+    return next_marker_at(end);
   }
 
   static void sequential_block(Bits& bits, const Huffman& dc,
@@ -775,13 +908,8 @@ constexpr int32_t F0899 = 7373, F1175 = 9633, F1501 = 12299, F1847 = 15137;
 constexpr int32_t F1961 = 16069, F2053 = 16819, F2562 = 20995, F3072 = 25172;
 
 struct Tables {
-  uint8_t idct_limit[1024];   // descaled IDCT value & 1023 -> sample
   int32_t cr_r[256], cb_b[256], cr_g[256], cb_g[256];
   Tables() {
-    for (int i = 0; i < 1024; i++) {
-      int x = i >= 512 ? i - 1024 : i;
-      idct_limit[i] = static_cast<uint8_t>(std::min(255, std::max(0, x + 128)));
-    }
     // jdcolor.c build_ycc_rgb_table, SCALEBITS 16
     const int64_t half = 1 << 15;
     auto fix = [](double v) { return static_cast<int64_t>(v * 65536.0 + 0.5); };
@@ -811,105 +939,111 @@ inline void ycc_to_rgb(const Tables& t, int y, int cb, int cr, uint8_t* o) {
   o[2] = clamp255(y + t.cb_b[cb]);
 }
 
-// jpeg_idct_islow: dequantize a block (natural order) and write 8x8
-// samples at out with row stride `stride`
-void idct_islow(const int16_t* in, const int32_t* q, uint8_t* out,
-                int stride, const uint8_t* limit) {
-  int32_t ws[64];
-  for (int col = 0; col < 8; col++) {
-    const int16_t* c = in + col;
-    const int32_t* qq = q + col;
-    if (c[8] == 0 && c[16] == 0 && c[24] == 0 && c[32] == 0 && c[40] == 0 &&
-        c[48] == 0 && c[56] == 0) {
-      int32_t dc = (c[0] * qq[0]) * (1 << kPass1Bits);
-      for (int r = 0; r < 8; r++) ws[r * 8 + col] = dc;
-      continue;
-    }
-    int32_t z2 = c[16] * qq[16], z3 = c[48] * qq[48];
-    int32_t z1 = (z2 + z3) * F0541;
-    int32_t tmp2 = z1 + z3 * (-F1847);
-    int32_t tmp3 = z1 + z2 * F0765;
-    z2 = c[0] * qq[0];
-    z3 = c[32] * qq[32];
-    int32_t tmp0 = (z2 + z3) * (1 << kConstBits);
-    int32_t tmp1 = (z2 - z3) * (1 << kConstBits);
-    int32_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    int32_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    int32_t t0 = c[56] * qq[56], t1 = c[40] * qq[40];
-    int32_t t2 = c[24] * qq[24], t3 = c[8] * qq[8];
-    z1 = t0 + t3;
-    z2 = t1 + t2;
-    z3 = t0 + t2;
-    int32_t z4 = t1 + t3;
-    int32_t z5 = (z3 + z4) * F1175;
-    t0 *= F0298;
-    t1 *= F2053;
-    t2 *= F3072;
-    t3 *= F1501;
-    z1 *= -F0899;
-    z2 *= -F2562;
-    z3 = z3 * (-F1961) + z5;
-    z4 = z4 * (-F0390) + z5;
-    t0 += z1 + z3;
-    t1 += z2 + z4;
-    t2 += z2 + z3;
-    t3 += z1 + z4;
-    constexpr int sh = kConstBits - kPass1Bits;
-    constexpr int32_t rnd = 1 << (sh - 1);
-    ws[0 * 8 + col] = (tmp10 + t3 + rnd) >> sh;
-    ws[7 * 8 + col] = (tmp10 - t3 + rnd) >> sh;
-    ws[1 * 8 + col] = (tmp11 + t2 + rnd) >> sh;
-    ws[6 * 8 + col] = (tmp11 - t2 + rnd) >> sh;
-    ws[2 * 8 + col] = (tmp12 + t1 + rnd) >> sh;
-    ws[5 * 8 + col] = (tmp12 - t1 + rnd) >> sh;
-    ws[3 * 8 + col] = (tmp13 + t0 + rnd) >> sh;
-    ws[4 * 8 + col] = (tmp13 - t0 + rnd) >> sh;
+// libjpeg-turbo's islow IDCT as Pillow's build runs it on x86-64, the
+// SIMD one (jidctint-sse2.asm; the AVX2 one gives the same bits): it
+// equals jidctint.c's wherever no intermediate leaves its range, and on
+// the coefficients of corrupt data it is its own. The coefficients are
+// dequantized by 16-bit multiplies (the quantizer a 16-bit short), the
+// sums of two terms before a multiply are 16-bit and wrap, the products
+// and the rest are 32-bit, each pass's results saturate to 16 bits and
+// the samples to -128..127 before the +128; a block whose rows 1-7 are all
+// zero takes the first pass's DC shortcut (a 16-bit shift). Eight columns
+// (then rows) at a time, as jidctint-sse2.asm lays them out: pmullw
+// products, paddw/psubw sums, pmaddwd pairs, packssdw and packsswb
+// saturation.
+inline __m128i madd_pairs(__m128i a, __m128i b, int16_t ca, int16_t cb) {
+  return _mm_madd_epi16(_mm_unpacklo_epi16(a, b), _mm_set_epi16(cb, ca, cb, ca, cb, ca, cb, ca));
+}
+inline __m128i madd_pairs_hi(__m128i a, __m128i b, int16_t ca, int16_t cb) {
+  return _mm_madd_epi16(_mm_unpackhi_epi16(a, b), _mm_set_epi16(cb, ca, cb, ca, cb, ca, cb, ca));
+}
+
+// one pass over x[0..7] (registers of 8 lanes), descaled by `sh` and
+// saturated to 16 bits into y[0..7]
+inline void idct_pass_sse2(const __m128i* x, __m128i* y, int sh) {
+  const __m128i rnd = _mm_set1_epi32(1 << (sh - 1));
+  const __m128i zero = _mm_setzero_si128();
+  __m128i o_lo[8], o_hi[8];
+  for (int half = 0; half < 2; half++) {
+    auto madd = half ? madd_pairs_hi : madd_pairs;
+    auto widen = [&](__m128i v) {  // (v << 16) >> 3: v << 13 in 32 bits
+      return _mm_srai_epi32(half ? _mm_unpackhi_epi16(zero, v) : _mm_unpacklo_epi16(zero, v),
+                            16 - kConstBits);
+    };
+    const __m128i tmp3 = madd(x[2], x[6], F0541 + F0765, F0541);
+    const __m128i tmp2 = madd(x[2], x[6], F0541, F0541 - F1847);
+    const __m128i tmp0 = widen(_mm_add_epi16(x[0], x[4]));
+    const __m128i tmp1 = widen(_mm_sub_epi16(x[0], x[4]));
+    const __m128i tmp10 = _mm_add_epi32(tmp0, tmp3), tmp13 = _mm_sub_epi32(tmp0, tmp3);
+    const __m128i tmp11 = _mm_add_epi32(tmp1, tmp2), tmp12 = _mm_sub_epi32(tmp1, tmp2);
+    const __m128i z3s = _mm_add_epi16(x[3], x[7]), z4s = _mm_add_epi16(x[1], x[5]);
+    const __m128i z3p = madd(z3s, z4s, F1175 - F1961, F1175);
+    const __m128i z4p = madd(z3s, z4s, F1175, F1175 - F0390);
+    const __m128i t0 = _mm_add_epi32(madd(x[7], x[1], F0298 - F0899, -F0899), z3p);
+    const __m128i t3 = _mm_add_epi32(madd(x[7], x[1], -F0899, F1501 - F0899), z4p);
+    const __m128i t1 = _mm_add_epi32(madd(x[5], x[3], F2053 - F2562, -F2562), z4p);
+    const __m128i t2 = _mm_add_epi32(madd(x[5], x[3], -F2562, F3072 - F2562), z3p);
+    __m128i* o = half ? o_hi : o_lo;
+    o[0] = _mm_add_epi32(tmp10, t3);
+    o[7] = _mm_sub_epi32(tmp10, t3);
+    o[1] = _mm_add_epi32(tmp11, t2);
+    o[6] = _mm_sub_epi32(tmp11, t2);
+    o[2] = _mm_add_epi32(tmp12, t1);
+    o[5] = _mm_sub_epi32(tmp12, t1);
+    o[3] = _mm_add_epi32(tmp13, t0);
+    o[4] = _mm_sub_epi32(tmp13, t0);
   }
-  constexpr int sh = kConstBits + kPass1Bits + 3;
-  constexpr int32_t rnd = 1 << (sh - 1);
-  for (int row = 0; row < 8; row++) {
-    const int32_t* w = ws + row * 8;
-    uint8_t* o = out + static_cast<int64_t>(row) * stride;
-    if (w[1] == 0 && w[2] == 0 && w[3] == 0 && w[4] == 0 && w[5] == 0 &&
-        w[6] == 0 && w[7] == 0) {
-      uint8_t v = limit[((w[0] + (1 << (kPass1Bits + 2))) >> (kPass1Bits + 3)) & 1023];
-      std::memset(o, v, 8);
-      continue;
-    }
-    int32_t z2 = w[2], z3 = w[6];
-    int32_t z1 = (z2 + z3) * F0541;
-    int32_t tmp2 = z1 + z3 * (-F1847);
-    int32_t tmp3 = z1 + z2 * F0765;
-    int32_t tmp0 = (w[0] + w[4]) * (1 << kConstBits);
-    int32_t tmp1 = (w[0] - w[4]) * (1 << kConstBits);
-    int32_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    int32_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    int32_t t0 = w[7], t1 = w[5], t2 = w[3], t3 = w[1];
-    z1 = t0 + t3;
-    z2 = t1 + t2;
-    z3 = t0 + t2;
-    int32_t z4 = t1 + t3;
-    int32_t z5 = (z3 + z4) * F1175;
-    t0 *= F0298;
-    t1 *= F2053;
-    t2 *= F3072;
-    t3 *= F1501;
-    z1 *= -F0899;
-    z2 *= -F2562;
-    z3 = z3 * (-F1961) + z5;
-    z4 = z4 * (-F0390) + z5;
-    t0 += z1 + z3;
-    t1 += z2 + z4;
-    t2 += z2 + z3;
-    t3 += z1 + z4;
-    o[0] = limit[((tmp10 + t3 + rnd) >> sh) & 1023];
-    o[7] = limit[((tmp10 - t3 + rnd) >> sh) & 1023];
-    o[1] = limit[((tmp11 + t2 + rnd) >> sh) & 1023];
-    o[6] = limit[((tmp11 - t2 + rnd) >> sh) & 1023];
-    o[2] = limit[((tmp12 + t1 + rnd) >> sh) & 1023];
-    o[5] = limit[((tmp12 - t1 + rnd) >> sh) & 1023];
-    o[3] = limit[((tmp13 + t0 + rnd) >> sh) & 1023];
-    o[4] = limit[((tmp13 - t0 + rnd) >> sh) & 1023];
+  const __m128i count = _mm_cvtsi32_si128(sh);
+  for (int k = 0; k < 8; k++)
+    y[k] = _mm_packs_epi32(_mm_sra_epi32(_mm_add_epi32(o_lo[k], rnd), count),
+                           _mm_sra_epi32(_mm_add_epi32(o_hi[k], rnd), count));
+}
+
+inline void transpose8x8(__m128i* r) {
+  const __m128i a0 = _mm_unpacklo_epi16(r[0], r[1]), a1 = _mm_unpackhi_epi16(r[0], r[1]);
+  const __m128i a2 = _mm_unpacklo_epi16(r[2], r[3]), a3 = _mm_unpackhi_epi16(r[2], r[3]);
+  const __m128i a4 = _mm_unpacklo_epi16(r[4], r[5]), a5 = _mm_unpackhi_epi16(r[4], r[5]);
+  const __m128i a6 = _mm_unpacklo_epi16(r[6], r[7]), a7 = _mm_unpackhi_epi16(r[6], r[7]);
+  const __m128i b0 = _mm_unpacklo_epi32(a0, a2), b1 = _mm_unpackhi_epi32(a0, a2);
+  const __m128i b2 = _mm_unpacklo_epi32(a1, a3), b3 = _mm_unpackhi_epi32(a1, a3);
+  const __m128i b4 = _mm_unpacklo_epi32(a4, a6), b5 = _mm_unpackhi_epi32(a4, a6);
+  const __m128i b6 = _mm_unpacklo_epi32(a5, a7), b7 = _mm_unpackhi_epi32(a5, a7);
+  r[0] = _mm_unpacklo_epi64(b0, b4);
+  r[1] = _mm_unpackhi_epi64(b0, b4);
+  r[2] = _mm_unpacklo_epi64(b1, b5);
+  r[3] = _mm_unpackhi_epi64(b1, b5);
+  r[4] = _mm_unpacklo_epi64(b2, b6);
+  r[5] = _mm_unpackhi_epi64(b2, b6);
+  r[6] = _mm_unpacklo_epi64(b3, b7);
+  r[7] = _mm_unpackhi_epi64(b3, b7);
+}
+
+// Writes the 8x8 samples at out with row stride `stride`.
+void idct_islow(const int16_t* in, const int16_t* q, uint8_t* out, int stride) {
+  __m128i x[8];
+  __m128i ac = _mm_setzero_si128();
+  for (int k = 0; k < 8; k++) {
+    x[k] = _mm_mullo_epi16(_mm_loadu_si128(reinterpret_cast<const __m128i*>(in + 8 * k)),
+                           _mm_loadu_si128(reinterpret_cast<const __m128i*>(q + 8 * k)));
+    if (k) ac = _mm_or_si128(ac, _mm_loadu_si128(reinterpret_cast<const __m128i*>(in + 8 * k)));
+  }
+  __m128i ws[8];
+  if (_mm_movemask_epi8(_mm_cmpeq_epi8(ac, _mm_setzero_si128())) == 0xFFFF) {
+    const __m128i dc = _mm_slli_epi16(x[0], kPass1Bits);  // psllw: wraps
+    for (int k = 0; k < 8; k++) ws[k] = dc;
+  } else {
+    idct_pass_sse2(x, ws, kConstBits - kPass1Bits);
+  }
+  transpose8x8(ws);
+  __m128i y[8];
+  idct_pass_sse2(ws, y, kConstBits + kPass1Bits + 3);
+  transpose8x8(y);
+  const __m128i bias = _mm_set1_epi8(static_cast<char>(0x80));
+  for (int k = 0; k < 8; k += 2) {
+    const __m128i b = _mm_add_epi8(_mm_packs_epi16(y[k], y[k + 1]), bias);
+    _mm_storel_epi64(reinterpret_cast<__m128i*>(out + static_cast<int64_t>(k) * stride), b);
+    _mm_storel_epi64(reinterpret_cast<__m128i*>(out + static_cast<int64_t>(k + 1) * stride),
+                     _mm_unpackhi_epi64(b, b));
   }
 }
 
@@ -917,7 +1051,7 @@ void idct_islow(const int16_t* in, const int32_t* q, uint8_t* out,
 // downsampled plane (cw x ch valid of a `stride`-wide buffer), with the
 // upsampler jdsample.c jinit_upsampler picks for the ratio (hr, vr).
 void upsample(const uint8_t* src, int stride, int cw, int ch, int hr, int vr,
-              uint8_t* dst, int width, int height) {
+              uint8_t* dst, int width, int height, bool fancy) {
   auto row = [&](int r) { return src + static_cast<int64_t>(r) * stride; };
   std::vector<int> colsum(static_cast<size_t>(cw));
   std::vector<uint8_t> wide(static_cast<size_t>(cw) * hr + 8);
@@ -926,7 +1060,7 @@ void upsample(const uint8_t* src, int stride, int cw, int ch, int hr, int vr,
     int r = y / vr;
     if (hr == 1 && vr == 1) {
       std::memcpy(o, row(y), static_cast<size_t>(width));
-    } else if (hr == 2 && vr == 1 && cw > 2) {
+    } else if (fancy && hr == 2 && vr == 1 && cw > 2) {
       // h2v1_fancy_upsample
       const uint8_t* in = row(r);
       uint8_t* w = wide.data();
@@ -941,7 +1075,7 @@ void upsample(const uint8_t* src, int stride, int cw, int ch, int hr, int vr,
       w[2 * cw - 2] = static_cast<uint8_t>((v * 3 + in[cw - 2] + 1) >> 2);
       w[2 * cw - 1] = static_cast<uint8_t>(v);
       std::memcpy(o, w, static_cast<size_t>(width));
-    } else if (hr == 1 && vr == 2) {
+    } else if (fancy && hr == 1 && vr == 2) {
       // h1v2_fancy_upsample: the nearer input row 3x, the other 1x
       int above = y % 2 == 0;
       int other = above ? std::max(r - 1, 0) : std::min(r + 1, ch - 1);
@@ -951,7 +1085,7 @@ void upsample(const uint8_t* src, int stride, int cw, int ch, int hr, int vr,
       for (int x = 0; x < width; x++) {
         o[x] = static_cast<uint8_t>((in0[x] * 3 + in1[x] + bias) >> 2);
       }
-    } else if (hr == 2 && vr == 2 && cw > 2) {
+    } else if (fancy && hr == 2 && vr == 2 && cw > 2) {
       // h2v2_fancy_upsample
       int above = y % 2 == 0;
       int other = above ? std::max(r - 1, 0) : std::min(r + 1, ch - 1);
@@ -977,36 +1111,196 @@ void upsample(const uint8_t* src, int stride, int cw, int ch, int hr, int vr,
   }
 }
 
+// jdcoefct.c decompress_smooth_data as libjpeg-turbo 3.1 runs it when
+// smoothing_ok (Jpeg::would_smooth) holds at the output pass, every scan
+// read: each block's coefficients 1-9 that are still zero and not known
+// to full precision estimated from the DC values of its 5x5 neighbourhood
+// (edge blocks replicated; the rows above and below as the iMCU rows
+// address them), within the limit coef_bits gives; and where a component
+// has no AC data at all, its DC value smoothed too. Then the IDCT.
+void idct_smoothed(const Component& c, int imcu_rows, int last_good_row, bool first_scan_only,
+                   uint8_t* plane, int stride) {
+  const int bx = (c.cw + 7) / 8, by = (c.ch + 7) / 8;
+  // smoothing_ok's latches: the bits now, and before the last scan (-1
+  // where there was no scan before)
+  int now[10], before[10];
+  for (int k = 0; k < 10; k++) {
+    now[k] = c.coef_bits[k];
+    before[k] = k == 0 ? 0 : first_scan_only ? -1 : c.prev_bits[k];
+  }
+  int64_t q[64];
+  for (int k = 0; k < 64; k++) q[k] = c.quant[k];
+  const int64_t Q00 = q[0];
+  // a coefficient's estimate from num, for quantizer qk, within the bits
+  // al it is known to
+  auto predict = [](int64_t num, int64_t qk, int al) {
+    int pred;
+    if (num >= 0) {
+      pred = static_cast<int>(((qk << 7) + num) / (qk << 8));
+      if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+    } else {
+      pred = static_cast<int>(((qk << 7) - num) / (qk << 8));
+      if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      pred = -pred;
+    }
+    return pred;
+  };
+  const int vs = c.v;
+  int16_t ws[64];
+  for (int R = 0; R < imcu_rows; R++) {
+    const int* cb = R > last_good_row ? before : now;
+    bool change_dc = true;
+    for (int k = 1; k < 10; k++) change_dc = change_dc && cb[k] == -1;
+    int block_rows = vs;
+    if (R == imcu_rows - 1) {
+      block_rows = by % vs;
+      if (block_rows == 0) block_rows = vs;
+    }
+    const int image_block_rows = block_rows * imcu_rows;
+    for (int br = 0; br < block_rows; br++) {
+      const int row = R * vs + br;
+      if (row >= by) break;
+      const int ibr = R * block_rows + br;  // as libjpeg counts it
+      const int prev = ibr > 0 ? row - 1 : row;
+      const int pprev = ibr > 1 ? row - 2 : prev;
+      const int next = ibr < image_block_rows - 1 ? row + 1 : row;
+      const int nnext = ibr < image_block_rows - 2 ? row + 2 : next;
+      const int rows[5] = {pprev, prev, row, next, nnext};
+      for (int x = 0; x < bx; x++) {
+        // DC[r][k]: row r of the five, column x - 2 + k clamped
+        int DC[5][5];
+        for (int r = 0; r < 5; r++) {
+          const int16_t* base = c.coef.data() + static_cast<int64_t>(rows[r]) * c.bw * 64;
+          for (int k = 0; k < 5; k++) {
+            const int col = std::min(std::max(x - 2 + k, 0), bx - 1);
+            DC[r][k] = base[static_cast<int64_t>(col) * 64];
+          }
+        }
+        const int DC01 = DC[0][0], DC02 = DC[0][1], DC03 = DC[0][2], DC04 = DC[0][3],
+                  DC05 = DC[0][4], DC06 = DC[1][0], DC07 = DC[1][1], DC08 = DC[1][2],
+                  DC09 = DC[1][3], DC10 = DC[1][4], DC11 = DC[2][0], DC12 = DC[2][1],
+                  DC13 = DC[2][2], DC14 = DC[2][3], DC15 = DC[2][4], DC16 = DC[3][0],
+                  DC17 = DC[3][1], DC18 = DC[3][2], DC19 = DC[3][3], DC20 = DC[3][4],
+                  DC21 = DC[4][0], DC22 = DC[4][1], DC23 = DC[4][2], DC24 = DC[4][3],
+                  DC25 = DC[4][4];
+        std::memcpy(ws, c.coef.data() + (static_cast<int64_t>(row) * c.bw + x) * 64,
+                    sizeof(ws));
+        int al;
+        // AC01
+        if ((al = cb[1]) != 0 && ws[1] == 0) {
+          const int64_t num = Q00 * (change_dc
+              ? (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 - 13 * DC09 +
+                 3 * DC10 - 3 * DC11 + 38 * DC12 - 38 * DC14 + 3 * DC15 - 3 * DC16 +
+                 13 * DC17 - 13 * DC19 + 3 * DC20 - DC21 - DC22 + DC24 + DC25)
+              : (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15));
+          ws[1] = static_cast<int16_t>(predict(num, q[1], al));
+        }
+        // AC10
+        if ((al = cb[2]) != 0 && ws[8] == 0) {
+          const int64_t num = Q00 * (change_dc
+              ? (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 + 13 * DC07 +
+                 38 * DC08 + 13 * DC09 - DC10 + DC16 - 13 * DC17 - 38 * DC18 -
+                 13 * DC19 + DC20 + DC21 + 3 * DC22 + 3 * DC23 + 3 * DC24 + DC25)
+              : (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23));
+          ws[8] = static_cast<int16_t>(predict(num, q[8], al));
+        }
+        // AC20
+        if ((al = cb[3]) != 0 && ws[16] == 0) {
+          const int64_t num = Q00 * (change_dc
+              ? (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 - 14 * DC13 -
+                 5 * DC14 + 2 * DC17 + 7 * DC18 + 2 * DC19 + DC23)
+              : (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23));
+          ws[16] = static_cast<int16_t>(predict(num, q[16], al));
+        }
+        // AC11
+        if ((al = cb[4]) != 0 && ws[9] == 0) {
+          const int64_t num = Q00 * (change_dc
+              ? (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 + 9 * DC19 + DC21 - DC25)
+              : (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 + DC22 - DC24 +
+                 DC04 - DC06 + 10 * DC07 - 10 * DC09));
+          ws[9] = static_cast<int16_t>(predict(num, q[9], al));
+        }
+        // AC02
+        if ((al = cb[5]) != 0 && ws[2] == 0) {
+          const int64_t num = Q00 * (change_dc
+              ? (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 - 14 * DC13 +
+                 7 * DC14 + DC15 + 2 * DC17 - 5 * DC18 + 2 * DC19)
+              : (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15));
+          ws[2] = static_cast<int16_t>(predict(num, q[2], al));
+        }
+        if (change_dc) {
+          // AC03, AC12, AC21, AC30
+          if ((al = cb[6]) != 0 && ws[3] == 0) {
+            const int64_t num = Q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19);
+            ws[3] = static_cast<int16_t>(predict(num, q[3], al));
+          }
+          if ((al = cb[7]) != 0 && ws[10] == 0) {
+            const int64_t num = Q00 * (DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19);
+            ws[10] = static_cast<int16_t>(predict(num, q[10], al));
+          }
+          if ((al = cb[8]) != 0 && ws[17] == 0) {
+            const int64_t num = Q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14 + DC17 - DC19);
+            ws[17] = static_cast<int16_t>(predict(num, q[17], al));
+          }
+          if ((al = cb[9]) != 0 && ws[24] == 0) {
+            const int64_t num = Q00 * (DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19);
+            ws[24] = static_cast<int16_t>(predict(num, q[24], al));
+          }
+          // the DC value itself
+          const int64_t num = Q00 *
+              (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 - 6 * DC06 +
+               6 * DC07 + 42 * DC08 + 6 * DC09 - 6 * DC10 - 8 * DC11 + 42 * DC12 +
+               152 * DC13 + 42 * DC14 - 8 * DC15 - 6 * DC16 + 6 * DC17 + 42 * DC18 +
+               6 * DC19 - 6 * DC20 - 2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 -
+               2 * DC25);
+          ws[0] = static_cast<int16_t>(predict(num, Q00, 0));
+        }
+        idct_islow(ws, c.quant16, plane + static_cast<int64_t>(row) * 8 * stride + x * 8,
+                   stride);
+      }
+    }
+  }
+}
+
 // Every component's samples at the frame's full size ([height][width]
-// each): the entropy-coded data, the IDCT and the upsampler.
+// each): the entropy-coded data, the IDCT (block-smoothed where
+// libjpeg-turbo smooths) or a lossless frame's samples, and the
+// upsampler.
 std::vector<std::vector<uint8_t>> jpeg_planes(Jpeg& j) {
   j.run(false);
-  if (j.comps.front().coef.empty()) j.allocate();
-  if (j.would_smooth())
-    refuse("JPEG: a progressive file whose scans leave low-frequency "
-           "coefficients incomplete is block-smoothed by libjpeg-turbo; "
-           "block smoothing is not supported");
-  const Tables& t = tables();
-  const int W = j.width, H = j.height;
+  if (j.comps.front().coef.empty() && j.comps.front().samples.empty()) j.allocate();
+  const bool smooth = j.would_smooth();
+    const int W = j.width, H = j.height;
   size_t nc = j.comps.size();
   std::vector<std::vector<uint8_t>> full(nc);
   std::vector<uint8_t> plane;
   for (size_t ci = 0; ci < nc; ci++) {
     Component& c = j.comps[ci];
+    full[ci].resize(static_cast<size_t>(W) * H);
+    if (j.lossless) {
+      // no DCT: libjpeg-turbo's upsampler has no context rows (box only)
+      upsample(c.samples.data(), c.cw, c.cw, c.ch, j.hmax / c.h, j.vmax / c.v,
+               full[ci].data(), W, H, false);
+      std::vector<uint8_t>().swap(c.samples);
+      continue;
+    }
     int bx = (c.cw + 7) / 8, by = (c.ch + 7) / 8;
     int stride = bx * 8;
     plane.assign(static_cast<size_t>(stride) * by * 8, 0);
-    for (int y = 0; y < by; y++) {
-      for (int x = 0; x < bx; x++) {
-        idct_islow(c.coef.data() + (static_cast<int64_t>(y) * c.bw + x) * 64,
-                   c.quant, plane.data() + static_cast<int64_t>(y) * 8 * stride + x * 8,
-                   stride, t.idct_limit);
+    if (smooth) {
+      idct_smoothed(c, j.mcuy, j.last_good_row, j.scans <= 1, plane.data(), stride);
+    } else {
+      for (int y = 0; y < by; y++) {
+        for (int x = 0; x < bx; x++) {
+          idct_islow(c.coef.data() + (static_cast<int64_t>(y) * c.bw + x) * 64,
+                     c.quant16, plane.data() + static_cast<int64_t>(y) * 8 * stride + x * 8,
+                     stride);
+        }
       }
     }
     std::vector<int16_t>().swap(c.coef);
-    full[ci].resize(static_cast<size_t>(W) * H);
     upsample(plane.data(), stride, c.cw, c.ch, j.hmax / c.h, j.vmax / c.v,
-             full[ci].data(), W, H);
+             full[ci].data(), W, H, true);
   }
   return full;
 }
@@ -1016,6 +1310,12 @@ void decode_jpeg(Jpeg& j, uint8_t* out) {
   const Tables& t = tables();
   const int64_t npix = static_cast<int64_t>(j.width) * j.height;
   Space s = j.space();
+  // libjpeg-turbo converts no colour space in a lossless frame: YCbCr or
+  // YCCK components, which Pillow's RGB or CMYK output would convert,
+  // are an error
+  if (j.lossless && (s == Space::YCbCr || s == Space::YCCK))
+    corrupt("JPEG: unsupported color conversion request (a lossless frame of YCbCr or "
+            "YCCK components)");
   if (s == Space::Gray) {
     const uint8_t* g = full[0].data();
     for (int64_t i = 0; i < npix; i++) {
@@ -2109,7 +2409,9 @@ void decode_gif(const uint8_t* d, int64_t n, uint8_t* out, int64_t height,
 // that ends without the end code ends the strip as libtiff does; a strip
 // left short is an error.
 void tiff_lzw(const uint8_t* d, int64_t n, uint8_t* out, int64_t cap) {
-  constexpr int kSize = 4096, kClear = 256, kEnd = 257, kFirst = 258;
+  // libtiff's table: 12-bit codes, and CSIZE entries (1,024 past 4,095)
+  // that corrupt data may go on filling before a clear code
+  constexpr int kSize = 4095 + 1024, kClear = 256, kEnd = 257, kFirst = 258;
   const bool compat = n >= 2 && d[0] == 0 && (d[1] & 1);
   std::vector<uint16_t> prefix(kSize), length(kSize);
   std::vector<uint8_t> value(kSize), first(kSize);
@@ -2120,7 +2422,7 @@ void tiff_lzw(const uint8_t* d, int64_t n, uint8_t* out, int64_t cap) {
   int nbits = 9;
   int maxcode = compat ? 511 : 510;
   int free_ent = kFirst;
-  int old = 0;
+  int old = -1;  // LZWPreDecode's dec_oldcodep before the table: no code yet
   uint64_t acc = 0;
   int nacc = 0;
   int64_t pos = 0, len = 0;
@@ -2181,7 +2483,7 @@ void tiff_lzw(const uint8_t* d, int64_t n, uint8_t* out, int64_t cap) {
     }
     // a code past the next free entry, or a full table (only a clear or
     // the end code may follow)
-    if (code > free_ent || free_ent >= kSize)
+    if (code > free_ent || free_ent >= kSize || old < 0)
       corrupt("TIFF: LZW data: corrupted LZW table");
     prefix[free_ent] = static_cast<uint16_t>(old);
     first[free_ent] = first[old];
@@ -2616,7 +2918,6 @@ struct TiffEntry {
   int type = 0;
   uint64_t count = 0;
   const uint8_t* data = nullptr;
-  bool pillow = false;  // a tag type Pillow reads
 };
 
 inline int tiff_type_size(int type) {
@@ -2643,6 +2944,409 @@ const char* tiff_refused(int compression) {
 inline bool tiff_fax(int compression) {
   return compression == 2 || compression == 3 || compression == 4 || compression == 32771;
 }
+
+// libtiff 4.7.1's own reading of the first IFD (TIFFReadDirectory), which
+// Pillow's TiffDecode.c leaves the decode of a compressed image to
+// (TIFFClientOpen over the mapped file, then TIFFSetSubDirectory): it
+// reads every entry again under rules of its own, beside Pillow's
+// ImageFileDirectory: the first of a repeated tag (Pillow keeps the
+// last), the types each tag's reader takes with their range checks
+// (tif_dirread.c TIFFReadDirEntryShort, Long, Long8Array,
+// PersampleShort), the tags whose fault ends the open (SamplesPerPixel,
+// Compression, the image and tile sizes, PlanarConfiguration,
+// RowsPerStrip, ExtraSamples, BitsPerSample, SampleFormat) and those
+// whose fault only drops the tag (Photometric, FillOrder, Predictor,
+// ...), the strip arrays padded with zeros to the strip count, a missing
+// or zero StripByteCounts estimated (EstimateStripByteCounts), the
+// Colormap a palette image needs, and the zero sizes it refuses.
+struct LibtiffDir {
+  struct Entry {
+    int tag = 0, type = 0;
+    uint64_t count = 0;
+    const uint8_t* field = nullptr;  // the value field (4 or 8 bytes)
+  };
+  enum Err { kOk, kCount, kType, kIo, kRange, kPsdif, kSizesan };
+
+  const uint8_t* d;
+  int64_t n;
+  bool be, big;
+  std::vector<Entry> dir;  // every entry, in the directory's order
+  uint16_t ndir = 0;
+
+  uint32_t width = 0, height = 0, depth = 1;
+  uint16_t bps = 1, compression = 1, spp = 1, planar = 1, fillorder = 1;
+  uint16_t predictor = 1, sampleformat = 1;
+  int photometric = -1;            // -1: unset
+  uint32_t rps = 0xFFFFFFFFu;      // unset: the whole image
+  bool tiled = false;
+  uint32_t tw = 0, th = 0, tdepth = 1;
+  bool colormap = false;
+  const Entry* jpegtables = nullptr;
+  std::vector<uint16_t> ycbcr_sub;  // YCbCrSubsampling, where read
+  uint32_t t4 = 0, t6 = 0;
+  std::vector<uint16_t> extrasamples;
+  int ink_bump = -1;  // the InkNames entry whose count libtiff raises by one
+  uint64_t nstrips = 0;
+  std::vector<uint64_t> offsets, counts;
+
+  LibtiffDir(const uint8_t* data, int64_t size, bool be_, bool big_)
+      : d(data), n(size), be(be_), big(big_) {}
+
+  uint64_t rd(const uint8_t* p, int bytes) const {
+    uint64_t v = 0;
+    for (int i = 0; i < bytes; i++) v = be ? (v << 8) | p[i] : v | (static_cast<uint64_t>(p[i]) << (8 * i));
+    return v;
+  }
+
+  [[noreturn]] static void fail(const std::string& why) {
+    corrupt("TIFF: libtiff refuses the directory (" + why + ")");
+  }
+
+  // TIFFReadDirEntryArrayWithLimit and the element conversions of the
+  // Short, Long and Long8 readers: the first `take` values, each at most
+  // `max`, from inline data or the file (where the whole count puts it)
+  Err array(const Entry& e, uint64_t take, uint64_t max, int dest,
+            std::vector<uint64_t>& out) const {
+    out.clear();
+    switch (e.type) {
+      case 1: case 3: case 4: case 6: case 8: case 9: case 16: case 17: break;
+      default: return kType;
+    }
+    const int size = tiff_type_size(e.type);
+    take = std::min(take, e.count);
+    if (take == 0) return kOk;
+    if (2147483647u / size < take || 2147483647u / dest < take) return kSizesan;
+    const uint64_t clamped = std::min<uint64_t>(e.count, 10) * size;
+    const uint64_t bytes = take * size;
+    const uint64_t inline_size = big ? 8 : 4;
+    const uint8_t* p = e.field;
+    if (!(clamped <= inline_size && bytes <= inline_size)) {
+      const uint64_t off = rd(e.field, big ? 8 : 4);
+      if (off > static_cast<uint64_t>(n) || bytes > static_cast<uint64_t>(n) - off) return kIo;
+      p = d + off;
+    }
+    out.reserve(static_cast<size_t>(take));
+    for (uint64_t i = 0; i < take; i++) {
+      const uint8_t* q = p + i * size;
+      uint64_t v;
+      bool neg = false;
+      switch (e.type) {
+        case 1: v = q[0]; break;
+        case 6: neg = static_cast<int8_t>(q[0]) < 0; v = q[0]; break;
+        case 3: v = rd(q, 2); break;
+        case 8: neg = static_cast<int16_t>(rd(q, 2)) < 0; v = rd(q, 2); break;
+        case 4: v = rd(q, 4); break;
+        case 9: neg = static_cast<int32_t>(rd(q, 4)) < 0; v = rd(q, 4); break;
+        case 16: v = rd(q, 8); break;
+        default: neg = static_cast<int64_t>(rd(q, 8)) < 0; v = rd(q, 8); break;
+      }
+      if (neg || v > max) return kRange;
+      out.push_back(v);
+    }
+    return kOk;
+  }
+
+  // TIFFReadDirEntryShort / Long: exactly one value
+  Err one(const Entry& e, uint64_t max, uint64_t& v) const {
+    if (e.count != 1) return kCount;
+    std::vector<uint64_t> a;
+    const Err err = array(e, 1, max, max > 0xFFFF ? 4 : 2, a);
+    if (err == kOk) v = a[0];
+    return err;
+  }
+
+  // ... or, where the count is not one, TIFFReadDirEntryPersampleShort:
+  // at least SamplesPerPixel values, the first SamplesPerPixel equal
+  Err short_or_persample(const Entry& e, uint64_t& v) const {
+    Err err = one(e, 0xFFFF, v);
+    if (err != kCount) return err;
+    if (e.count < spp) return kCount;
+    std::vector<uint64_t> a;
+    err = array(e, e.count, 0xFFFF, 2, a);
+    if (err != kOk || a.empty()) return err;
+    v = a[0];
+    for (uint16_t i = 1; i < spp; i++)
+      if (a[i] != v) return kPsdif;
+    return kOk;
+  }
+
+  // _TIFFCheckFieldIsValidForCodec: a codec's own tags count only under it
+  bool valid_for_codec(int tag) const {
+    switch (tag) {
+      case 317: return compression == 5 || compression == 8 || compression == 32946 ||
+                       compression == 32909 || compression == 34925 || compression == 50000 ||
+                       compression == 34887;
+      case 347: return compression == 7 || compression == 6;
+      case 292: return compression == 3;
+      case 293: return compression == 4;
+      default: return true;
+    }
+  }
+
+  void read(uint64_t diroff) {
+    // TIFFFetchDirectory over the mapped file
+    if (diroff == 0) fail("no first directory");
+    uint64_t count;
+    uint64_t pos = diroff;
+    if (!big) {
+      if (pos > static_cast<uint64_t>(n) || n - pos < 2) fail("cannot read the directory count");
+      count = rd(d + pos, 2);
+      pos += 2;
+    } else {
+      if (pos > static_cast<uint64_t>(n) || n - pos < 8) fail("cannot read the directory count");
+      count = rd(d + pos, 8);
+      pos += 8;
+    }
+    if (count > 4096) fail("a directory count past the sanity limit");
+    if (count == 0) fail("a directory of no tags");
+    const uint64_t esize = big ? 20 : 12;
+    if (count * esize > static_cast<uint64_t>(n) - pos) fail("cannot read the directory");
+    ndir = static_cast<uint16_t>(count);
+    std::vector<bool> ignore(count, false);
+    for (uint64_t i = 0; i < count; i++) {
+      const uint8_t* e = d + pos + i * esize;
+      Entry t;
+      t.tag = static_cast<int>(rd(e, 2));
+      t.type = static_cast<int>(rd(e + 2, 2));
+      t.count = big ? rd(e + 4, 8) : rd(e + 4, 4);
+      t.field = e + (big ? 12 : 8);
+      dir.push_back(t);
+    }
+    // a repeated tag: the first one counts
+    for (size_t i = 0; i < dir.size(); i++)
+      for (size_t j = i + 1; j < dir.size(); j++)
+        if (dir[j].tag == dir[i].tag) ignore[j] = true;
+    auto first = [&](int tag) -> int {
+      for (size_t i = 0; i < dir.size(); i++)
+        if (!ignore[i] && dir[i].tag == tag) return static_cast<int>(i);
+      return -1;
+    };
+    uint64_t v = 0;
+    int i = first(277);
+    if (i >= 0) {
+      if (one(dir[i], 0xFFFF, v) != kOk) fail("SamplesPerPixel");
+      if (v == 0) fail("SamplesPerPixel 0");
+      spp = static_cast<uint16_t>(v);
+      ignore[i] = true;
+    }
+    i = first(259);
+    if (i >= 0) {
+      if (short_or_persample(dir[i], v) != kOk) fail("Compression");
+      compression = static_cast<uint16_t>(v);
+      ignore[i] = true;
+    }
+    // the first pass: the tags that size the image
+    bool dims = false, have_offsets = false;
+    for (size_t k = 0; k < dir.size(); k++) {
+      if (ignore[k]) continue;
+      const Entry& e = dir[k];
+      switch (e.tag) {
+        case 273: case 324: have_offsets = true; break;
+        case 256: case 257: case 32997: case 322: case 323: case 32998: case 278:
+          if (one(e, 0xFFFFFFFFu, v) != kOk) fail("tag " + std::to_string(e.tag));
+          if (e.tag == 256) width = static_cast<uint32_t>(v), dims = true;
+          if (e.tag == 257) height = static_cast<uint32_t>(v), dims = true;
+          if (e.tag == 32997) depth = static_cast<uint32_t>(v);
+          if (e.tag == 322) tw = static_cast<uint32_t>(v), tiled = true;
+          if (e.tag == 323) th = static_cast<uint32_t>(v), tiled = true;
+          if (e.tag == 32998) tdepth = static_cast<uint32_t>(v);
+          if (e.tag == 278) {
+            if (v == 0) fail("RowsPerStrip 0");
+            rps = static_cast<uint32_t>(v);
+          }
+          ignore[k] = true;
+          break;
+        case 284:
+          if (one(e, 0xFFFF, v) != kOk) fail("PlanarConfiguration");
+          if (v != 1 && v != 2) fail("bad value " + std::to_string(v) + " for PlanarConfiguration");
+          planar = static_cast<uint16_t>(v);
+          ignore[k] = true;
+          break;
+        case 338: {
+          std::vector<uint64_t> a;
+          if (e.count > 0xFFFF) fail("ExtraSamples");
+          if (array(e, e.count, 0xFFFF, 2, a) != kOk) fail("ExtraSamples");
+          if (a.size() > spp) fail("ExtraSamples past SamplesPerPixel");
+          extrasamples.clear();
+          for (uint64_t x : a) {
+            if (x > 2 && x != 999) fail("an ExtraSamples value");
+            extrasamples.push_back(static_cast<uint16_t>(x == 999 ? 2 : x));
+          }
+          ignore[k] = true;
+          break;
+        }
+        default:
+          if (!valid_for_codec(e.tag)) ignore[k] = true;
+          break;
+      }
+    }
+    if (!dims) fail("no ImageLength");
+    // TIFFhowmany_32: 0 where x + y - 1 would pass 32 bits
+    auto howmany = [](uint64_t x, uint64_t y) -> uint64_t {
+      if (y == 0 || x >= 0xFFFFFFFFull - (y - 1)) return 0;
+      return (x + y - 1) / y;
+    };
+    if (!tiled) {
+      nstrips = rps == 0xFFFFFFFFu ? 1 : howmany(height, rps);
+    } else {
+      // (a size of 0xFFFFFFFF is the image's)
+      const uint64_t dx = tw == 0xFFFFFFFFu ? width : tw, dy = th == 0xFFFFFFFFu ? height : th;
+      const uint64_t dz = tdepth == 0xFFFFFFFFu ? depth : tdepth;
+      nstrips = dx == 0 || dy == 0 || dz == 0
+                    ? 0
+                    : howmany(width, dx) * howmany(height, dy) * howmany(depth, dz);
+    }
+    if (planar == 2) nstrips *= spp;
+    if (nstrips == 0 || nstrips > 0xFFFFFFFFull) fail("no strips or tiles");
+    if (!have_offsets) fail(tiled ? "no TileOffsets" : "no StripOffsets");
+    // the second pass
+    int offsets_entry = -1, counts_entry = -1;
+    for (size_t k = 0; k < dir.size(); k++) {
+      if (ignore[k]) continue;
+      const Entry& e = dir[k];
+      switch (e.tag) {
+        case 258: case 339: case 280: case 281: case 32996:
+          if (short_or_persample(e, v) != kOk) fail("tag " + std::to_string(e.tag));
+          if (e.tag == 258) bps = static_cast<uint16_t>(v);
+          if (e.tag == 339) {
+            if (v < 1 || v > 6) fail("bad SampleFormat " + std::to_string(v));
+            sampleformat = static_cast<uint16_t>(v);
+          }
+          if (e.tag == 32996) {
+            if (v > 3) fail("bad DataType " + std::to_string(v));
+            sampleformat = static_cast<uint16_t>(v == 0 ? 4 : v == 3 ? 3 : v == 1 ? 2 : 1);
+          }
+          break;
+        case 340: case 341: {
+          // SMin/SMaxSampleValue: SamplesPerPixel values of any numeric type
+          const int size = tiff_type_size(e.type);
+          if (e.count != spp || size == 0 || e.type == 2 || e.type == 7 || e.type == 13 ||
+              e.type == 18)
+            fail("tag " + std::to_string(e.tag));
+          const uint64_t bytes = e.count * size;
+          if (bytes > (big ? 8u : 4u)) {
+            const uint64_t off = rd(e.field, big ? 8 : 4);
+            if (off > static_cast<uint64_t>(n) || bytes > static_cast<uint64_t>(n) - off)
+              fail("tag " + std::to_string(e.tag));
+          }
+          break;
+        }
+        case 273: case 324: offsets_entry = static_cast<int>(k); break;
+        case 279: case 325: counts_entry = static_cast<int>(k); break;
+        case 320: {
+          // ColorMap: read once BitsPerSample is, at its exact count
+          bool bps_read = false;
+          for (size_t q = 0; q < k; q++) bps_read = bps_read || (!ignore[q] && dir[q].tag == 258);
+          if (!bps_read || bps > 24) break;
+          std::vector<uint64_t> a;
+          if (e.count == 3ull << bps && array(e, e.count, 0xFFFF, 2, a) == kOk) colormap = true;
+          break;
+        }
+        case 262:
+          if (one(e, 0xFFFF, v) == kOk) photometric = static_cast<int>(v);
+          break;
+        case 266:
+          if (one(e, 0xFFFF, v) == kOk && (v == 1 || v == 2)) fillorder = static_cast<uint16_t>(v);
+          break;
+        case 317:
+          if (one(e, 0xFFFF, v) == kOk) predictor = static_cast<uint16_t>(v);
+          break;
+        case 292:
+          if (one(e, 0xFFFFFFFFu, v) == kOk) t4 = static_cast<uint32_t>(v);
+          break;
+        case 293:
+          if (one(e, 0xFFFFFFFFu, v) == kOk) t6 = static_cast<uint32_t>(v);
+          break;
+        case 347:
+          if (e.count > 0 && tiff_type_size(e.type) == 1 && e.count <= static_cast<uint64_t>(n))
+            jpegtables = &e;
+          break;
+        case 333: {
+          // InkNames: read as text, and where no byte of it is a NUL,
+          // TIFFFetchNormalTag adds one to the entry's count (which
+          // EstimateStripByteCounts then sizes)
+          std::vector<uint64_t> a;
+          Err err = kOk;
+          if (e.type == 2 || e.type == 7) {
+            const uint64_t bytes = e.count;
+            const uint8_t* p = e.field;
+            if (bytes > (big ? 8u : 4u)) {
+              const uint64_t off = rd(e.field, big ? 8 : 4);
+              if (off > static_cast<uint64_t>(n) || bytes > static_cast<uint64_t>(n) - off)
+                err = kIo;
+              else
+                p = d + off;
+            }
+            if (err == kOk)
+              for (uint64_t i = 0; i < bytes; i++) a.push_back(p[i]);
+          } else {
+            err = array(e, e.count, 255, 1, a);
+          }
+          if (err == kOk && !a.empty() &&
+              std::find(a.begin(), a.end(), 0) == a.end())
+            ink_bump = static_cast<int>(k);
+          break;
+        }
+        case 530: {
+          std::vector<uint64_t> a;
+          if (e.count == 2 && array(e, 2, 0xFFFF, 2, a) == kOk)
+            ycbcr_sub = {static_cast<uint16_t>(a[0]), static_cast<uint16_t>(a[1])};
+          break;
+        }
+        default: break;
+      }
+    }
+    if (photometric == 3 && !colormap) {
+      if (bps >= 8 && spp == 3) {
+        photometric = 2;
+      } else if (bps >= 8) {
+        photometric = 1;
+      } else {
+        fail("a palette image without a Colormap");
+      }
+    }
+    // the strip arrays (TIFFFetchStripThing): nstrips values, zeros past
+    // a short tag
+    auto strip_array = [&](int k, std::vector<uint64_t>& out, const char* what) {
+      if (array(dir[k], nstrips, UINT64_MAX, 8, out) != kOk) fail(what);
+      out.resize(static_cast<size_t>(nstrips), 0);
+    };
+    strip_array(offsets_entry, offsets, "StripOffsets");
+    if (counts_entry < 0) {
+      if ((planar == 1 && nstrips > 1) || (planar == 2 && nstrips != spp))
+        fail(tiled ? "no TileByteCounts" : "no StripByteCounts");
+      estimate();
+    } else {
+      strip_array(counts_entry, counts, "StripByteCounts");
+      // ByteCountLooksBad for a compressed single strip
+      if (nstrips == 1 && !tiled && offsets[0] != 0 && counts[0] == 0) estimate();
+    }
+    // TIFFScanlineSize and TIFFStripSize / TIFFTileSize are not zero
+    const uint64_t samples = planar == 1 ? spp : 1;
+    if (static_cast<uint64_t>(tiled ? tw : width) * samples * bps == 0) fail("a scanline of zero bytes");
+    if (!tiled && std::min<uint64_t>(rps, height) == 0) fail("a strip of zero bytes");
+  }
+
+  // EstimateStripByteCounts for compressed data: the file less the header,
+  // the directory and its entries' data, a plane's share each, the last
+  // strip cut at the end of the file
+  void estimate() {
+    uint64_t space = big ? 16 + 8 + ndir * 20ull + 8 : 8 + 2 + ndir * 12ull + 4;
+    for (size_t k = 0; k < dir.size(); k++) {
+      const Entry& e = dir[k];
+      const int w = tiff_type_size(e.type);
+      if (w == 0) fail("a tag of unknown type while estimating StripByteCounts");
+      const uint64_t size = (e.count + (static_cast<int>(k) == ink_bump)) * w;
+      if (size > (big ? 8u : 4u)) space += size;
+    }
+    space = static_cast<uint64_t>(n) < space ? n : n - space;
+    if (planar == 2) space /= spp;
+    counts.assign(static_cast<size_t>(nstrips), space);
+    const uint64_t last = offsets.back();
+    if (last + counts.back() > static_cast<uint64_t>(n))
+      counts.back() = last >= static_cast<uint64_t>(n) ? 0 : n - last;
+  }
+};
 
 struct Tiff {
   const uint8_t* d;
@@ -2677,9 +3381,9 @@ struct Tiff {
     return v;
   }
 
-  const TiffEntry* find(int tag, bool pillow) const {
+  const TiffEntry* find(int tag) const {
     for (const auto& e : entries)
-      if (e.first == tag && (e.second.pillow || !pillow)) return &e.second;
+      if (e.first == tag) return &e.second;
     return nullptr;
   }
 
@@ -2700,23 +3404,25 @@ struct Tiff {
     }
   }
 
-  bool has(int tag, bool pillow = true) const { return find(tag, pillow) != nullptr; }
+  bool has(int tag) const { return find(tag) != nullptr; }
 
-  int64_t get(int tag, int64_t fallback, bool pillow = true) const {
-    const TiffEntry* e = find(tag, pillow);
+  int64_t get(int tag, int64_t fallback) const {
+    const TiffEntry* e = find(tag);
     return e ? value(*e, 0) : fallback;
   }
 
-  std::vector<int64_t> list(int tag, bool pillow = true) const {
+  std::vector<int64_t> list(int tag) const {
     std::vector<int64_t> out;
-    const TiffEntry* e = find(tag, pillow);
+    const TiffEntry* e = find(tag);
     if (e)
       for (uint64_t i = 0; i < e->count; i++) out.push_back(value(*e, i));
     return out;
   }
 
-  // ImageFileDirectory_v2.load: an entry of an unknown type or whose data
-  // lies past the end is skipped; a short directory ends the tags
+  // ImageFileDirectory_v2.load: an entry of a type it does not read is
+  // skipped, one whose data lies past the end ends the tags, as does a
+  // short directory (the libtiff route reads the directory again:
+  // LibtiffDir)
   void read_ifd() {
     if (n < 8) corrupt("TIFF: truncated header");
     be = d[0] == 'M';
@@ -2736,25 +3442,17 @@ struct Tiff {
       t.type = static_cast<int>(rd(e + 2, 2));
       t.count = big ? rd(e + 4, 8) : rd(e + 4, 4);
       const int size = tiff_type_size(t.type);
-      if (size == 0) continue;
-      t.pillow = t.type <= 13 || t.type == 16;
+      if (size == 0 || !(t.type <= 13 || t.type == 16)) continue;
       // a tag whose data runs past the file: Pillow's ImageFileDirectory
       // load stops there (its _safe_read raises, the load warns and
-      // returns), dropping the tags after it; a type it does not read it
-      // skips before reading
-      if (t.count > static_cast<uint64_t>(n)) {
-        if (t.pillow) return;
-        continue;
-      }
+      // returns), dropping the tags after it
+      if (t.count > static_cast<uint64_t>(n)) return;
       const uint64_t total = t.count * size;
       if (total == 0) continue;
       const uint8_t* val = e + (big ? 12 : 8);
       if (total > inline_size) {
         const uint64_t off = rd(val, big ? 8 : 4);
-        if (off > static_cast<uint64_t>(n) || total > n - off) {
-          if (t.pillow) return;
-          continue;
-        }
+        if (off > static_cast<uint64_t>(n) || total > n - off) return;
         t.data = d + off;
       } else {
         t.data = val;
@@ -2789,14 +3487,32 @@ struct Tiff {
 
   // TiffImageFile._setup, the ImageOps.exif_transpose that load_end runs,
   // and the modes this decoder refuses
+  // Whether Pillow reads the tag as integers: BYTE, ASCII and UNDEFINED
+  // load as bytes or text, RATIONAL, FLOAT and DOUBLE as numbers of their
+  // own, which _setup's lookups and comparisons fail on
+  bool integral(int tag) const {
+    const TiffEntry* e = find(tag);
+    if (!e) return true;
+    switch (e->type) {
+      case 3: case 4: case 6: case 8: case 9: case 13: case 16: return true;
+      default: return false;
+    }
+  }
+
   void setup() {
     if (has(0xBC01)) corrupt("TIFF: Windows Media Photo files not yet supported");
+    for (int tag : {256, 257, 258, 259, 262, 266, 277, 338, 339}) {
+      if (!integral(tag))
+        corrupt("TIFF: tag " + std::to_string(tag) + " of a type Pillow does not read as "
+                "integers (bytes, text or a fraction)");
+    }
     compression = static_cast<int>(get(259, 1));
     static const int kKnown[] = {1, 2, 3, 4, 5, 6, 7, 8, 32771, 32773, 32809,
                                  32946, 34676, 34677, 34925, 50000, 50001};
     if (std::find(std::begin(kKnown), std::end(kKnown), compression) == std::end(kKnown))
       corrupt("TIFF: unknown compression " + std::to_string(compression));
-    planar = static_cast<int>(get(284, 1));
+    // (a PlanarConfiguration Pillow reads as bytes or a fraction is not 2)
+    planar = integral(284) ? static_cast<int>(get(284, 1)) : 1;
     photometric = static_cast<int>(get(262, 0));
     if (compression == 6) photometric = 6;
     fillorder = static_cast<int>(get(266, 1));
@@ -2804,7 +3520,9 @@ struct Tiff {
     width = get(256, 0);
     height = get(257, 0);
     if (width < 1 || height < 1) corrupt("TIFF: image size 0");
-    orientation = static_cast<int>(get(274, 0));
+    // (an Orientation Pillow reads as bytes or a fraction turns nothing,
+    // and keeps XMP's out)
+    orientation = integral(274) ? static_cast<int>(get(274, 0)) : 1;
     if (!has(274)) orientation = xmp_orientation();
     const bool swap = orientation >= 5 && orientation <= 8;
     out_w = swap ? height : width;
@@ -2854,7 +3572,7 @@ struct Tiff {
       }
     }
     if (pm == PMode::P || pm == PMode::PA) {
-      const TiffEntry* cm = find(320, true);
+      const TiffEntry* cm = find(320);
       if (!cm) corrupt("TIFF: a palette image without a ColorMap");
       const int64_t entries = static_cast<int64_t>(cm->count / 3);
       if (entries > 256) corrupt("TIFF: a ColorMap of more than 256 entries");
@@ -2876,7 +3594,7 @@ struct Tiff {
 
   // Image.getexif's XMP fallback: tiff:Orientation="N or tiff:Orientation>N
   int xmp_orientation() const {
-    const TiffEntry* e = find(700, true);
+    const TiffEntry* e = find(700);
     if (!e || tiff_type_size(e->type) != 1) return 0;
     const std::string key = "tiff:Orientation";
     const uint8_t* end = e->data + e->count;
@@ -3042,13 +3760,20 @@ struct Tiff {
   }
 
   // ---------------------------------------------- compressed: libtiff
+  // the image as libtiff reads it (LibtiffDir) and Pillow's TiffDecode.c
+  // decodes it from there
   struct Layout {
     bool tiled = false;
     int bits = 8, predictor = 1, format = 1;
+    int compression = 1, planar = 1, spp = 1, fillorder = 1;
+    int photometric = 0;              // TIFFGetField's, 0 where unset
+    uint32_t t4 = 0, t6 = 0;          // fax options
     int64_t rps = 0;                  // libtiff's rows a strip (the image's when absent)
     int64_t tw = 0, th = 0, across = 0, per_plane = 0;
     int64_t row_bytes = 0;            // a strip's or tile's row
+    int64_t seg_size = 0;             // TIFFStripSize / TIFFTileSize
     std::vector<int64_t> offsets, counts;
+    std::vector<uint16_t> extra;      // ExtraSamples
     int hs = 1, vs = 1;               // JPEG: YCbCr subsampling
     bool ycc = false;
   };
@@ -3093,10 +3818,10 @@ struct Tiff {
         i += len - 2;
         continue;
       }
-      if (len != 8 + spp * 3 || i + len - 2 > m) return;
+      if (len != 8 + L.spp * 3 || i + len - 2 > m) return;
       const uint8_t* f = p + i;
       const int ph = f[7] >> 4, pv = f[7] & 15;
-      for (int c = 1; c < spp; c++)
+      for (int c = 1; c < L.spp; c++)
         if (f[7 + 3 * c] != 0x11) return;
       if ((ph != 1 && ph != 2 && ph != 4) || (pv != 1 && pv != 2 && pv != 4)) return;
       L.hs = ph;
@@ -3112,67 +3837,88 @@ struct Tiff {
       corrupt("TIFF: not a TIFF file (bad version number " + std::to_string(magic) +
               "), as libtiff reads the header");
     if ((magic == 43) != big) corrupt("TIFF: a big-endian BigTIFF file, which Pillow reads as classic TIFF");
-    for (int64_t b : bps)
-      if (b != bps[0]) corrupt("TIFF: different BitsPerSample values for the samples");
-    L.bits = static_cast<int>(bps[0]);
+    if (big && (rd(d + 4, 2) != 8 || rd(d + 6, 2) != 0))
+      corrupt("TIFF: not a TIFF file (bad BigTIFF offset size), as libtiff reads the header");
+    LibtiffDir t(d, n, be, big);
+    t.read(big ? rd(d + 8, 8) : rd(d + 4, 4));
+    // TiffDecode.c: libtiff's size must be Pillow's
+    if (t.width != width || t.height != height)
+      corrupt("TIFF: libtiff reads a size of " + std::to_string(t.width) + "x" +
+              std::to_string(t.height) + ", Pillow " + std::to_string(width) + "x" +
+              std::to_string(height));
+    L.compression = t.compression;
+    L.planar = t.planar;
+    L.spp = t.spp;
+    L.fillorder = t.fillorder;
+    L.photometric = t.photometric < 0 ? 0 : t.photometric;
+    L.t4 = t.t4;
+    L.t6 = t.t6;
+    L.extra = t.extrasamples;
+    L.bits = t.bps;
+    L.predictor = t.predictor;
+    L.format = t.sampleformat;
+    L.tiled = t.tiled;
+    if (const char* name = tiff_refused(L.compression))
+      refuse(std::string("TIFF: ") + name + " compression is not supported");
+    switch (L.compression) {
+      case 1: case 2: case 3: case 4: case 5: case 7: case 8: case 32771: case 32773:
+      case 32946: case 34925: case 50000: break;
+      default:
+        corrupt("TIFF: compression scheme " + std::to_string(L.compression) +
+                " is not configured in libtiff");
+    }
+    // TiffDecode.c reads YCbCr as RGBA (TIFFReadRGBAImage) but contiguous JPEG
+    if (L.photometric == 6 && !(L.compression == 7 && L.planar == 1))
+      refuse("TIFF: YCbCr images that are not JPEG-compressed with contiguous "
+             "samples (Pillow reads them through libtiff's RGBA interface) are not supported");
     // Fax3SetupState
-    if (tiff_fax(compression) && L.bits != 1)
+    if (tiff_fax(L.compression) && L.bits != 1)
       corrupt("TIFF: Bits/sample must be 1 for Group 3/4 encoding/decoding");
     // JPEGPreDecode: the stream's precision (8 here) must be the samples'
-    if (compression == 7 && L.bits != 8)
+    if (L.compression == 7 && L.bits != 8)
       corrupt("TIFF: Improper JPEG data precision (" + std::to_string(L.bits) +
               "-bit samples, as libtiff's JPEGPreDecode refuses)");
-    L.predictor = static_cast<int>(get(317, 1, false));
-    L.format = static_cast<int>(get(339, 1, false));
-    L.tiled = has(322, false) && has(323, false);
-    const int samples = planar == 2 ? 1 : spp;
-    int64_t nseg;
+    const int samples = L.planar == 2 ? 1 : L.spp;
     if (L.tiled) {
-      L.tw = get(322, 0, false);
-      L.th = get(323, 0, false);
-      if (L.tw < 1 || L.th < 1) corrupt("TIFF: zero tile width or length");
+      L.tw = t.tw;
+      L.th = t.th;
       if (L.tw > (int64_t{1} << 24) || L.th > (int64_t{1} << 24) || L.tw * L.th > (int64_t{1} << 32))
         corrupt("TIFF: a tile larger than libtiff takes");
       L.across = (width + L.tw - 1) / L.tw;
       L.per_plane = L.across * ((height + L.th - 1) / L.th);
       L.row_bytes = (L.tw * samples * L.bits + 7) / 8;
+      L.seg_size = L.row_bytes * L.th;
     } else {
-      const int64_t rps = get(278, -1, false);
-      if (rps == 0) corrupt("TIFF: zero RowsPerStrip");
-      L.rps = rps < 0 || rps >= 0xFFFFFFFFll ? height : rps;
+      // TiffDecode.c takes a RowsPerStrip past 2**31 as a negative int
+      // and fails to allocate its strip buffer
+      if (t.rps >= 0x80000000u && t.rps != 0xFFFFFFFFu)
+        corrupt("TIFF: a RowsPerStrip of " + std::to_string(t.rps) +
+                ", past Pillow's strip buffer");
+      L.rps = t.rps == 0xFFFFFFFFu ? height : t.rps;
       L.per_plane = (height + L.rps - 1) / L.rps;
       L.row_bytes = (width * samples * L.bits + 7) / 8;
+      L.seg_size = L.row_bytes * std::min<int64_t>(L.rps, height);
     }
-    nseg = L.per_plane * (planar == 2 ? spp : 1);
-    const int otag = L.tiled ? 324 : 273, ctag = L.tiled ? 325 : 279;
-    if (!has(otag, false))
-      corrupt(std::string("TIFF: missing required ") + (L.tiled ? "TileOffsets" : "StripOffsets"));
-    L.offsets = list(otag, false);
-    L.offsets.resize(nseg, 0);
-    if (has(ctag, false)) {
-      L.counts = list(ctag, false);
-      L.counts.resize(nseg, 0);
-      if (nseg == 1 && !L.tiled && L.counts[0] == 0 && L.offsets[0] != 0)
-        L.counts[0] = std::max<int64_t>(0, n - L.offsets[0]);
-    } else {
-      if ((planar != 2 && nseg > 1) || (planar == 2 && nseg != spp))
-        corrupt(std::string("TIFF: missing required ") +
-                (L.tiled ? "TileByteCounts" : "StripByteCounts"));
-      L.counts.assign(nseg, 0);
-      for (int64_t i = 0; i < nseg; i++)
-        L.counts[i] = std::max<int64_t>(0, n - L.offsets[i]);
-    }
-    L.ycc = photometric == 6 && planar == 1;
-    if (compression == 7) {
+    L.offsets.assign(t.offsets.begin(), t.offsets.end());
+    L.counts.clear();
+    for (uint64_t c : t.counts) L.counts.push_back(static_cast<int64_t>(std::min<uint64_t>(c, INT64_MAX)));
+    L.ycc = L.photometric == 6 && L.planar == 1;
+    if (L.compression == 7) {
       if (L.ycc) {
-        std::vector<int64_t> sub = list(530, false);
-        L.hs = sub.size() > 0 ? static_cast<int>(sub[0]) : 2;
-        L.vs = sub.size() > 1 ? static_cast<int>(sub[1]) : 2;
-        if (spp == 3 && sub.empty()) fixup_subsampling();
+        L.hs = t.ycbcr_sub.size() > 0 ? t.ycbcr_sub[0] : 2;
+        L.vs = t.ycbcr_sub.size() > 1 ? t.ycbcr_sub[1] : 2;
+        if (L.spp == 3 && t.ycbcr_sub.empty()) fixup_subsampling();
       }
-      if (const TiffEntry* t = find(347, false)) {
-        jtables = Jpeg(t->data, static_cast<int64_t>(t->count * tiff_type_size(t->type)));
-        jtables.run(false, true);
+      if (t.jpegtables) {
+        const uint8_t* tp = t.jpegtables->field;
+        const uint64_t tn = t.jpegtables->count;
+        if (tn > (big ? 8u : 4u)) tp = nullptr;
+        const uint64_t toff = tn > (big ? 8u : 4u) ? t.rd(t.jpegtables->field, big ? 8 : 4) : 0;
+        if (tn <= (big ? 8u : 4u) || (toff <= static_cast<uint64_t>(n) && tn <= static_cast<uint64_t>(n) - toff)) {
+          jtables = Jpeg(tp ? tp : d + toff, static_cast<int64_t>(tn));
+          jtables.in_tiff = true;
+          jtables.run(false, true);
+        }
       }
     }
   }
@@ -3183,17 +3929,22 @@ struct Tiff {
   void segment(int64_t s, uint8_t* buf, int64_t size, int64_t seg_w, int64_t seg_h,
                bool last_strip) {
     if (s >= static_cast<int64_t>(L.offsets.size())) corrupt("TIFF: strip out of range");
-    const int64_t off = L.offsets[s], cnt = L.counts[s];
+    const int64_t off = L.offsets[s];
+    int64_t cnt = L.counts[s];
     if (cnt <= 0) corrupt("TIFF: invalid strip byte count " + std::to_string(cnt));
+    // TIFFFillStrip / TIFFFillTile: a count past 1 MiB and ten times the
+    // strip's or tile's size is cut to that
+    if (cnt > 1024 * 1024 && L.seg_size > 0 && (cnt - 4096) / 10 > L.seg_size)
+      cnt = L.seg_size * 10 + 4096;
     if (off < 0 || off > n || cnt > n - off)
       corrupt("TIFF: read error on strip " + std::to_string(s) + " (the file is truncated)");
     const uint8_t* p = d + off;
-    if (tiff_fax(compression)) {
+    if (tiff_fax(L.compression)) {
       // the fax codec reads the fill order itself (TIFF_NOBITREV)
       mrt::FaxParams fp;
-      fp.compression = compression;
-      fp.options = static_cast<uint32_t>(get(compression == 4 ? 293 : 292, 0, false));
-      fp.msb2lsb = fillorder != 2;
+      fp.compression = L.compression;
+      fp.options = L.compression == 4 ? L.t6 : L.compression == 3 ? L.t4 : 0;
+      fp.msb2lsb = L.fillorder != 2;
       fp.width = seg_w;
       try {
         mrt::tiff_fax(p, cnt, buf, size, seg_h, fp, fax);
@@ -3205,31 +3956,38 @@ struct Tiff {
       return;
     }
     std::vector<uint8_t> flipped;
-    if (fillorder == 2 && compression != 7) {
+    if (L.fillorder == 2 && L.compression != 7) {
       const uint8_t* rev = bitrev();
       flipped.resize(static_cast<size_t>(cnt));
       for (int64_t i = 0; i < cnt; i++) flipped[i] = rev[p[i]];
       p = flipped.data();
     }
-    switch (compression) {
+    switch (L.compression) {
+      case 1:
+        // DumpModeDecode
+        if (cnt < size)
+          corrupt("TIFF: not enough data for a scanline (" + std::to_string(cnt) + " bytes of " +
+                  std::to_string(size) + ")");
+        std::memcpy(buf, p, static_cast<size_t>(size));
+        break;
       case 5: tiff_lzw(p, cnt, buf, size); break;
       case 8: case 32946: Inflater(p, cnt, "TIFF: Deflate data").run(buf, size); break;
       case 32773: tiff_packbits(p, cnt, buf, size); break;
       case 50000: mrt::tiff_zstd(p, cnt, buf, size); break;
       case 34925: mrt::tiff_xz(p, cnt, buf, size); break;
       case 7: jpeg_segment(p, cnt, buf, size, seg_w, seg_h, last_strip); return;
-      default: corrupt("TIFF: compression " + std::to_string(compression));
+      default: corrupt("TIFF: compression " + std::to_string(L.compression));
     }
     // LZW, Deflate, ZSTD and LZMA take a predictor; libtiff swaps samples
     // of a big-endian file to the host's order after decoding, but for the
     // floating-point predictor, whose output is the host's already
-    const int predictor = compression == 32773 ? 1 : L.predictor;
+    const int predictor = L.compression == 32773 || L.compression == 1 ? 1 : L.predictor;
     const int bytes = L.bits / 8;
     if (be && (L.bits == 16 || L.bits == 32) && predictor != 3) {
       for (int64_t i = 0; i + bytes <= size; i += bytes) std::reverse(buf + i, buf + i + bytes);
     }
     if (predictor == 1) return;
-    const int stride = planar == 2 ? 1 : spp;
+    const int stride = L.planar == 2 ? 1 : L.spp;
     if (predictor == 2) {
       if (L.bits != 8 && L.bits != 16 && L.bits != 32 && L.bits != 64)
         corrupt("TIFF: horizontal differencing \"Predictor\" not supported with " +
@@ -3281,9 +4039,10 @@ struct Tiff {
   void jpeg_segment(const uint8_t* p, int64_t cnt, uint8_t* buf, int64_t size,
                     int64_t seg_w, int64_t seg_h, bool last_strip) {
     Jpeg head(p, cnt);
+    head.in_tiff = true;
     head.take_tables(jtables);
     head.run(true);
-    const size_t want = planar == 2 ? 1 : static_cast<size_t>(spp);
+    const size_t want = L.planar == 2 ? 1 : static_cast<size_t>(L.spp);
     if (head.comps.size() != want) corrupt("TIFF: improper JPEG component count");
     const int h0 = L.ycc ? L.hs : 1, v0 = L.ycc ? L.vs : 1;
     for (size_t c = 0; c < head.comps.size(); c++) {
@@ -3296,6 +4055,7 @@ struct Tiff {
     if (head.width < seg_w || head.height < seg_h)
       corrupt("TIFF: a JPEG strip or tile smaller than the strip or tile");
     Jpeg j(p, cnt);
+    j.in_tiff = true;
     j.take_tables(jtables);
     std::vector<std::vector<uint8_t>> planes = jpeg_planes(j);
     jtables.take_tables(j);
@@ -3321,11 +4081,12 @@ struct Tiff {
   // unassociated alpha), or unspecified (0) for samples past the
   // photometric's colour channels; -1 for none
   int libtiff_extra0() const {
-    if (!extra.empty()) return extra[0] == 999 ? 2 : static_cast<int>(extra[0]);
-    const int colour = photometric <= 1 || photometric == 3 || photometric == 4 ? 1
-                       : photometric == 5 ? 4
-                       : photometric == 2 || photometric == 6 || photometric == 8 ? 3 : 0;
-    return colour && spp > colour ? 0 : -1;
+    if (!L.extra.empty()) return L.extra[0];
+    const int ph = L.photometric;
+    const int colour = ph <= 1 || ph == 3 || ph == 4 ? 1
+                       : ph == 5 ? 4
+                       : ph == 2 || ph == 6 || ph == 8 ? 3 : 0;
+    return colour && L.spp > colour ? 0 : -1;
   }
 
   // TiffDecode.c's _decodeStrip and _decodeTile: each strip or tile through
@@ -3335,17 +4096,18 @@ struct Tiff {
   // first extra sample is associated or unspecified alpha
   void libtiff_route() {
     libtiff_layout();
-    const bool separate = planar == 2 && spp > 1;
+    // TiffDecode.c _pickUnpackers: a plane a band where libtiff's samples
+    // are separate and the mode has bands to spread them over; a mode of
+    // one band unpacks the first plane's rows with its raw mode
+    const bool separate = L.planar == 2 && bands(pm) > 1;
     const int planes = separate ? bands(pm) : 1;
     Unpack u;
     if (separate) {
       if (L.bits != 8 && L.bits != 16)
         corrupt("TIFF: separate planes of " + std::to_string(L.bits) +
                 "-bit samples, which Pillow's decoder does not take");
-      // (one band: Pillow unpacks the first plane with the raw mode of all
-      // the samples, an error for strips, reads past its tile otherwise)
-      if (planes == 1 || (spp != planes && !L.tiled))
-        corrupt("TIFF: separate planes of " + std::to_string(spp) + " samples for a mode of " +
+      if (L.spp != planes && !L.tiled)
+        corrupt("TIFF: separate planes of " + std::to_string(L.spp) + " samples for a mode of " +
                 std::to_string(planes) + " bands, which Pillow's decoder refuses");
     } else if (!make_unpack(rawmode, pm, u)) {
       corrupt("TIFF: unknown raw mode " + rawmode + " for an image of mode " + mode);
@@ -3355,10 +4117,20 @@ struct Tiff {
     const int sbytes = L.bits / 8;
     const int64_t seg_w = L.tiled ? L.tw : width;
     const int64_t full_rows = L.tiled ? L.th : std::min(L.rps, height);
-    const int64_t row_bytes = compression == 7 && L.ycc ? seg_w * 3 : L.row_bytes;
-    // the unpacker reads no further than a decoded row
-    if (!separate && (seg_w * u.bits + 7) / 8 > row_bytes)
-      corrupt("TIFF: raw mode " + rawmode + " holds more bits a pixel than the samples");
+    const int64_t row_bytes = L.compression == 7 && L.ycc ? seg_w * 3 : L.row_bytes;
+    // TiffDecode.c: the unpacker reads no further than libtiff's scanline,
+    // and the buffer it asks libtiff to fill (rows a strip of the
+    // unpacker's rows) holds a whole strip or tile
+    if (!separate) {
+      const int64_t unpacker_row = (seg_w * u.bits + 7) / 8;
+      if (unpacker_row > row_bytes)
+        corrupt("TIFF: raw mode " + rawmode + " takes " + std::to_string(unpacker_row) +
+                " bytes a row, libtiff's scanline holds " + std::to_string(row_bytes));
+      const int64_t rows = L.tiled ? L.th : L.rps;
+      if (unpacker_row < row_bytes && rows * unpacker_row < full_rows * row_bytes)
+        corrupt("TIFF: Pillow's strip buffer of " + std::to_string(rows * unpacker_row) +
+                " bytes is smaller than libtiff's strip of " + std::to_string(full_rows * row_bytes));
+    }
     std::vector<std::vector<uint8_t>> bufs(planes);
     for (auto& b : bufs) b.resize(static_cast<size_t>(row_bytes * full_rows));
     // one row of cw pixels at img row y, column x

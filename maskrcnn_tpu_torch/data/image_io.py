@@ -27,13 +27,21 @@ that pass a file on to the next plugin or end `Image.open`). It reads:
   bytes, still decodes; the plain route uses the
   standard library's zlib.
 * JPEG: baseline, extended sequential and progressive Huffman coding
-  with 8-bit samples, restart intervals and byte stuffing; 1 component
+  with 8-bit samples, restart intervals and byte stuffing; arithmetic
+  coding, sequential and progressive, with DAC conditioning
+  (`csrc/jpeg_arith.cpp`; a scan that crosses the end of the
+  65,536-byte block of the file Pillow's decoder holds raises, as in
+  Pillow); lossless frames at 8 bits, predictors 1-7, point transforms
+  (`csrc/jpeg_lossless.cpp`); 1 component
   (grayscale), 3 (YCbCr, or RGB under an Adobe transform 0 or component
   ids R, G, B without JFIF, jdapimin.c's rule) or 4 (CMYK under Adobe
   transform 0 or no Adobe marker, YCCK under transform 2; Pillow's
   inverted "CMYK;I" samples and its cmyk2rgb); sampling factors 1 to 4
   with libjpeg-turbo's upsampler for each ratio (fancy h2v1, h1v2,
-  h2v2, box replication elsewhere).
+  h2v2, box replication elsewhere and for lossless frames); the block
+  smoothing libjpeg-turbo gives a progressive file whose scans leave
+  coefficients 1-9 incomplete; on corrupt data, what libjpeg-turbo
+  makes of it (its SIMD IDCT's bits, its marker walk).
 * WebP (RIFF "WEBP" with a "VP8 ", "VP8L" or "VP8X" chunk): lossy (VP8:
   segments, loop-filter deltas, 1 to 8 token partitions, the simple and
   normal loop filters, libwebp's fancy upsampler and YUV -> RGB) and
@@ -72,7 +80,10 @@ that pass a file on to the next plugin or end `Image.open`). It reads:
   RGBA of 8 and 16 bits (extra samples dropped; associated alpha
   un-premultiplied, as Pillow's "RGBa"), CMYK; the Orientation tag (2-8,
   or XMP's tiff:Orientation) applied as ImageOps.exif_transpose applies
-  it, for TIFF only. A path is read as Pillow reads a path: an
+  it, for TIFF only. A compressed image is decoded with the directory
+  as libtiff's TIFFReadDirectory reads it (the first of a repeated tag,
+  its types, counts and checks, StripByteCounts it estimates), beside
+  Pillow's reading, which gives the mode. A path is read as Pillow reads a path: an
   uncompressed image in one strip or tile of a mode Pillow memory-maps
   (L, P, RGBA, CMYK, I;16) with Orientation 5-8 is the mapped view
   turned, not the image (Pillow's `ImageFile.load`), and a ValueError
@@ -108,20 +119,18 @@ that pass a file on to the next plugin or end `Image.open`). It reads:
   8, 24 and 32 in BGR or (type 3) RGB, colour maps on 4- and 8-bit
   images.
 
-Refused, with NotImplementedError naming the mode: arithmetic-coded,
-lossless and hierarchical JPEG, samples of other than 8 bits, a height
-set by a DNL marker, 2-component JPEG, fractional sampling factors, an
-interleaved MCU of more than 10 blocks, and a progressive JPEG whose
-scans leave a low-frequency coefficient incomplete (libjpeg-turbo
-block-smooths it); JPEG- or PNG-compressed BMP, BMP bit-field layouts
+Refused, with NotImplementedError naming the mode (Pillow refuses them
+too): arithmetic-coded lossless and hierarchical JPEG, samples of other
+than 8 bits, a height set by a DNL marker, 2-component JPEG, fractional
+sampling factors and an interleaved MCU of more than 10 blocks;
+JPEG- or PNG-compressed BMP, BMP bit-field layouts
 and pixel depths Pillow refuses, RLE of more than 8-bit pixels, and 1-
 and 4-bit BMP under a grayscale palette (Pillow reads them with the
 wrong unpacker); TIFF of WebP, old-style JPEG, ThunderScan or SGILog
 compression, LZMA data through an xz BCJ filter (x86, ARM and the
 others), LAB, YCbCr that is not JPEG-compressed with contiguous
 samples, and 16-bit CMYK. A TIFF layout
-Pillow itself refuses, or reads from past its buffers (separate planes
-of a one-band mode in tiles), is a ValueError naming it. A file of a
+Pillow itself refuses is a ValueError naming it. A file of a
 format Pillow reads that the port does not (JPEG 2000, AVIF, DDS, PSD,
 ICNS, BLP, IM, SPIDER, XBM, XPM, MSP, FLI, FTEX, GBR, PCD, PIXAR,
 XVTHUMB, IMT, IPTC, MCIDAS, FITS, EPS, WMF and the stubs) raises

@@ -22,8 +22,9 @@ the model, so that the same tokens pass. The decompression-bomb check
 (more than MAX_PIXELS pixels) then ends `Image.open` as it does in
 Pillow.
 
-For the formats the port read before the probe (BMP, GIF, JPEG, PNG,
-TIFF, WebP) only the conditions that pass a file on are modelled; where
+JPEG's `_open` is modelled whole (its marker walk up to the first
+scan). For the other formats the port read before the probe (BMP, GIF,
+PNG, TIFF, WebP) only the conditions that pass a file on are modelled; where
 their `_open` would raise, the format is returned and its decoder
 raises (a ValueError, or the NotImplementedError naming a mode the port
 refuses). IcoImageFile loads its frame inside `_open`: a frame that
@@ -1377,9 +1378,89 @@ def _open_pixar(fp):
     return mode, size
 
 
+# JpegImagePlugin.MARKER: the marker codes its _open reads (with the
+# handlers that read a segment); any other code past 0xFF (but 0x00 and
+# 0xFF) ends the open with "no marker found"
+_JPEG_SEGMENT = ({0xC4, 0xCC, 0xDA, 0xDB, 0xDC, 0xDD, 0xDF, 0xFE}
+                 | set(range(0xE0, 0xF0))
+                 | (set(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}))
+_JPEG_BARE = {0xC8, *range(0xD0, 0xDA), *range(0xF0, 0xFE)}
+
+
+def _jpeg_safe_read(fp, n):
+    """ImageFile._safe_read: a short read raises OSError, which ends
+    Image.open."""
+    if n <= 0:
+        return b""
+    data = fp.read(n)
+    if len(data) < n:
+        raise ValueError("JPEG: Truncated File Read")
+    return data
+
+
+def _open_jpeg(fp):
+    """JpegImageFile._open: the marker walk up to the first SOS, the
+    segments it reads (their lengths, the APP0 JFIF and APP14 Adobe
+    fields, DQT's tables, every SOF's size and components, the ICC
+    fragments' count) and what each raises; a depth or a number of
+    layers Pillow cannot handle is left to the decoder, which names
+    it."""
+    if fp.read(3) != b"\xff\xd8\xff":
+        raise SyntaxError("not a JPEG file")
+    mode, size = "", (0, 0)
+    icc = []
+    s = b"\xff"
+    while True:
+        i = s[0]
+        if i != 0xFF:
+            s = fp.read(1)  # junk
+            continue
+        s = s + fp.read(1)
+        i = _be16(s)
+        code = i & 0xFF
+        if i >> 8 == 0xFF and (code in _JPEG_SEGMENT or code in _JPEG_BARE):
+            if code in _JPEG_SEGMENT:
+                n = _be16(fp.read(2)) - 2
+                seg = _jpeg_safe_read(fp, n)
+                if code == 0xE0 and seg.startswith(b"JFIF"):
+                    _be16(seg, 5)
+                elif code == 0xEE and seg.startswith(b"Adobe"):
+                    _be16(seg, 5)
+                elif code == 0xE2 and seg.startswith(b"ICC_PROFILE\0"):
+                    icc.append(seg)
+                elif code == 0xDB:
+                    while len(seg):
+                        qt = 1 + (1 if seg[0] // 16 == 0 else 2) * 64
+                        if len(seg) < qt:
+                            raise SyntaxError("bad quantization table marker")
+                        seg = seg[qt:]
+                elif 0xC0 <= code <= 0xCF and code not in (0xC4, 0xC8, 0xCC):
+                    size = _be16(seg, 3), _be16(seg, 1)
+                    mode = {1: "L", 3: "RGB", 4: "CMYK"}.get(seg[5])
+                    if seg[0] != 8 or mode is None:
+                        # Pillow cannot handle the depth or the layers:
+                        # the decoder refuses the file, naming them
+                        return "?", (1, 1)
+                    if icc:
+                        icc.sort()
+                        icc[0][13]
+                        icc = []
+                    for k in range(6, len(seg), 3):
+                        seg[k:k + 3][2]
+            if code == 0xDA:
+                return mode, size
+            s = fp.read(1)
+        elif i in (0, 0xFFFF):
+            s = b"\xff"
+        elif i == 0xFF00:
+            s = fp.read(1)
+        else:
+            raise SyntaxError("no marker found")
+
+
 OPEN = {
     "BMP": _open_bmp_file, "DIB": _open_bmp, "GIF": _open_gif,
-    "JPEG": lambda fp: ("?", (1, 1)), "PPM": _open_ppm, "PNG": _open_png,
+    "JPEG": _open_jpeg, "PPM": _open_ppm, "PNG": _open_png,
     "AVIF": _open_avif, "BLP": _open_blp, "BUFR": _open_stub,
     "CUR": _open_cur, "PCX": _open_pcx, "DCX": _open_dcx, "DDS": _open_dds,
     "EPS": _open_eps, "FITS": _open_fits, "FLI": _open_fli,

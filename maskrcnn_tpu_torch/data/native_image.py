@@ -1,15 +1,18 @@
 """ctypes bridge to the port's native image decoders
 (`maskrcnn_tpu_torch/csrc/image_decode.cpp`: JPEG, PNG, GIF, BMP (and
-the DIB frames of DIB, ICO and CUR files) and TIFF, with TIFF's ZSTD,
-LZMA and CCITT codecs in `csrc/tiff_zstd.cpp`, `tiff_xz.cpp` and
-`tiff_fax.cpp`, Netpbm, TGA, QOI, PCX, DCX, SGI and Sun raster in
+the DIB frames of DIB, ICO and CUR files) and TIFF, with JPEG's
+arithmetic and lossless scans in `csrc/jpeg_arith.cpp` and
+`jpeg_lossless.cpp`, TIFF's ZSTD, LZMA and CCITT codecs in
+`csrc/tiff_zstd.cpp`, `tiff_xz.cpp` and `tiff_fax.cpp`, Netpbm, TGA, QOI, PCX, DCX, SGI and Sun raster in
 `csrc/image_plugins.cpp`, and their shared `image_codec.h`, all compiled
 into one library; `csrc/webp_decode.cpp`: WebP; host C++17).
 
 On first use each library's sources are compiled with the host's C++
 compiler into `build/maskrcnn_tpu_torch/` (`utils/native_build.py`,
 named by a hash of every file the build reads) and loaded with ctypes;
-the libraries link only the C and C++ runtimes. A whole decode of any
+the libraries link only the C and C++ runtimes. The JPEG IDCT is
+libjpeg-turbo's SSE2 code, so the image library builds on x86-64 hosts
+(elsewhere its build fails naming SSE2). A whole decode of any
 format (headers, entropy decoding and decompression, transforms,
 filtering, colour; a TIFF's every strip or tile; PNG's and TIFF's
 Deflate through the source's own inflate, TIFF's ZSTD, xz and fax data
@@ -43,10 +46,12 @@ from maskrcnn_tpu_torch.utils import native_build
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCE = CSRC / "image_decode.cpp"
-# every file the image library's build reads: image_decode.cpp, the TIFF
-# codecs in sources of their own, and every header of csrc/ (hashed, so
+# every file the image library's build reads: image_decode.cpp, the JPEG
+# scan decoders and TIFF codecs in sources of their own, and every
+# header of csrc/ (hashed, so
 # that no header an edit touches is left out of the library's name)
-SOURCES = (SOURCE, CSRC / "tiff_zstd.cpp", CSRC / "tiff_xz.cpp",
+SOURCES = (SOURCE, CSRC / "jpeg_arith.cpp", CSRC / "jpeg_lossless.cpp",
+           CSRC / "tiff_zstd.cpp", CSRC / "tiff_xz.cpp",
            CSRC / "tiff_fax.cpp", CSRC / "image_plugins.cpp",
            *sorted(CSRC.glob("*.h")))
 WEBP_SOURCE = CSRC / "webp_decode.cpp"

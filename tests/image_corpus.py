@@ -50,6 +50,9 @@ INDEX = CORPUS / "index.json"
 # the first scene as ZSTD and LZMA TIFF (tiff_scene_cases), under a size
 # bound of its own (test_tiff_scenes_are_whole_and_small)
 TIFF_SCENES = CORPUS.parent / "tiff_scenes"
+# the scenes as arithmetic-coded and lossless JPEG (jpeg_scene_cases),
+# under a size bound of their own (test_jpeg_scenes_are_whole_and_small)
+JPEG_SCENES = CORPUS.parent / "jpeg_scenes"
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 ADAM7 = [(0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2)]
@@ -291,19 +294,123 @@ def jpeg_cases():
     return cases
 
 
+# the corpus's four sizes of each JPEG mode of jpeg_mode_cases
+MODE_SIZES = ((1, 1), (5, 3), (37, 53), (16, 24))
+
+
+def jpeg_modes():
+    """The writer of the JPEG modes Pillow reads but does not write
+    (tests/jpeg_modes.py: tests/jpeg_modes.c built against Pillow's
+    libjpeg-turbo 3.1)."""
+    import jpeg_modes
+    return jpeg_modes
+
+
+def first_scans(data: bytes, k: int) -> bytes:
+    """The file with only its first k scans (and EOI)."""
+    s = scan_offsets(data)
+    end = s[k] if k < len(s) else data.rindex(b"\xff\xd9")
+    return data[:end] + b"\xff\xd9"
+
+
+def jpeg_mode_cases():
+    """(name, bytes) of the JPEG modes read since arithmetic coding,
+    lossless frames and block smoothing came in, each at MODE_SIZES:
+    arithmetic-coded sequential and progressive files (gray, 4:2:0, 4:2:2,
+    4:4:4, CMYK and YCCK; restart intervals; DAC conditioning other than
+    the default) and a Pillow file's coefficients re-coded arithmetic,
+    written by Pillow's libjpeg-turbo; lossless files (predictors 1-7,
+    point transforms 0 and 2, gray, RGB and YCbCr, subsampled chroma,
+    restarts every MCU row), the same; and progressive Pillow files cut to
+    their first scans, which libjpeg-turbo block-smooths."""
+    jm = jpeg_modes()
+    dac = ((2, 5, 10), (1, 3, 2))
+    s420 = [(2, 2), (1, 1), (1, 1)]
+    s422 = [(2, 1), (1, 1), (1, 1)]
+    out = []
+    for h, w in MODE_SIZES:
+        rng = np.random.RandomState(19 + h * 100 + w)
+        img = seeded_image(rng, h, w)
+        gray = img[..., 0]
+        cmyk = seeded_image(rng, h, w, 4)
+        modes = {
+            "arith_gray": jm.write(gray, arith=True),
+            "arith_420": jm.write(img, arith=True, sampling=s420),
+            "arith_422": jm.write(img, arith=True, sampling=s422),
+            "arith_444": jm.write(img, arith=True),
+            "arith_420_restart": jm.write(img, arith=True, sampling=s420,
+                                          restart=2),
+            "arith_444_dac": jm.write(img, arith=True, dac=dac),
+            "arith_cmyk": jm.write(cmyk, arith=True),
+            "arith_ycck_420": jm.write(cmyk, space=jm.YCCK, arith=True,
+                                       sampling=s420 + [(2, 2)]),
+            "arith_progressive_gray": jm.write(gray, arith=True,
+                                               progressive=True),
+            "arith_progressive_420": jm.write(img, arith=True,
+                                              progressive=True,
+                                              sampling=s420),
+            "arith_progressive_422_restart": jm.write(
+                img, arith=True, progressive=True, sampling=s422, restart=1),
+            "arith_progressive_444_dac": jm.write(img, arith=True,
+                                                  progressive=True, dac=dac),
+            "arith_progressive_cmyk": jm.write(cmyk, arith=True,
+                                               progressive=True),
+            "arith_transcoded_420": jm.transcode(pil_jpeg(img, quality=85)),
+            "lossless_gray_p4": jm.write(gray, predictor=4),
+            "lossless_ycc_p1": jm.write(img, predictor=1),
+            "lossless_ycc_420_p5": jm.write(img, predictor=5, sampling=s420),
+            "lossless_rgb_p1_pt2": jm.write(img, predictor=1,
+                                            point_transform=2,
+                                            space=jm.RGB),
+            "lossless_rgb_p7_pt2": jm.write(img, predictor=7,
+                                            point_transform=2,
+                                            space=jm.RGB),
+            "lossless_rgb_p2_restart": jm.write(img, predictor=2,
+                                                restart=-1, space=jm.RGB),
+        }
+        for psv in range(1, 8):
+            modes[f"lossless_rgb_p{psv}"] = jm.write(img, predictor=psv,
+                                                     space=jm.RGB)
+        p420 = pil_jpeg(img, quality=85, progressive=True)
+        for k in (1, 2, 3, 5, 7, 9):
+            modes[f"smooth_420_first_{k}_scans"] = first_scans(p420, k)
+        modes["smooth_444_last_scan_dropped"] = drop_scan(pil_jpeg(
+            img, quality=85, progressive=True, subsampling="4:4:4"), -1)
+        modes["smooth_gray_first_2_scans"] = first_scans(pil_jpeg(
+            gray, quality=85, progressive=True), 2)
+        for mode, data in modes.items():
+            out.append((f"jpeg_{mode}_{h}x{w}.jpg", data))
+    return out
+
+
+def jpeg_outcome_cases():
+    """(name, bytes) of byte edits that were refused before these modes
+    were read, and now give Pillow's outcome (its pixels, or an error):
+    Huffman data under an arithmetic or a lossless frame marker, and a
+    progressive file without its last scan (block-smoothed)."""
+    rng = np.random.RandomState(15)
+    img = seeded_image(rng, 24, 24)
+    base = pil_jpeg(img, quality=90)
+    return [
+        ("refused_progressive_last_scan_missing.jpg",
+         drop_scan(pil_jpeg(img, quality=90, progressive=True), -1)),
+        ("refused_arithmetic.jpg", patched_sof(base, marker=0xC9)),
+        ("refused_lossless.jpg", patched_sof(base, marker=0xC3)),
+    ]
+
+
 def refused_cases():
     """(name, bytes, word the NotImplementedError names)."""
     rng = np.random.RandomState(15)
     img = seeded_image(rng, 24, 24)
     base = pil_jpeg(img, quality=90)
     planes = [img[..., k] for k in range(3)]
+    lossless = jpeg_modes().write(img, predictor=1)
     return [
-        ("refused_progressive_last_scan_missing.jpg",
-         drop_scan(pil_jpeg(img, quality=90, progressive=True), -1),
-         "block smoothing"),
-        ("refused_arithmetic.jpg", patched_sof(base, marker=0xC9),
-         "arithmetic"),
-        ("refused_lossless.jpg", patched_sof(base, marker=0xC3), "lossless"),
+        # libjpeg-turbo codes no arithmetic lossless frame
+        ("refused_arithmetic_lossless.jpg",
+         lossless.replace(b"\xff\xc3", b"\xff\xcb", 1),
+         "arithmetic-coded lossless"),
         ("refused_hierarchical.jpg", patched_sof(base, marker=0xC5),
          "hierarchical"),
         ("refused_12bit.jpg", patched_sof(base, precision=12), "12-bit"),
@@ -1100,6 +1207,45 @@ def tiff_scene_cases(jpeg_scenes):
     return out
 
 
+def jpeg_scene_cases(jpeg_scenes):
+    """(name, bytes, source JPEG scene, what it holds) of the scenes in the
+    JPEG modes read natively since arithmetic coding and lossless frames:
+    each scene's coefficients re-coded arithmetic sequential and
+    progressive (jpegtran -arithmetic: the JPEG file's pixels), the first
+    scene's Pillow decode as lossless JPEG with predictors 1 and 7 (RGB,
+    point transform 0: its pixels), and the first scene re-coded
+    progressive without its last two scans (block-smoothed: other
+    pixels). The card cannot write these (no libjpeg), so they are
+    committed (`JPEG_SCENES`) for phase 9d's sweep and 9a's times."""
+    from PIL import Image
+    jm = jpeg_modes()
+    out = []
+    for name, data, _ in jpeg_scenes:
+        stem = name.rsplit(".", 1)[0]
+        out.append((f"{stem}_arith.jpg", jm.transcode(data), name, "same"))
+        out.append((f"{stem}_arith_progressive.jpg",
+                    jm.transcode(data, progressive=True), name, "same"))
+    first, data, _ = jpeg_scenes[0]
+    stem = first.rsplit(".", 1)[0]
+    decoded = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+    for psv in (1, 7):
+        out.append((f"{stem}_lossless_p{psv}.jpg",
+                    jm.write(decoded, predictor=psv, space=jm.RGB), first,
+                    "same"))
+    progressive = jm.transcode(data, arith=False, progressive=True)
+    out.append((f"{stem}_smoothed.jpg", drop_scan(drop_scan(progressive, -1),
+                                                  -1), first, "smoothed"))
+    return out
+
+
+def pillow_outcome(data: bytes):
+    """(shape, digest) of Pillow's decode, or the text of its error."""
+    try:
+        return pillow_digest(data)
+    except Exception as e:  # noqa: BLE001 - any error is Pillow's outcome
+        return f"{type(e).__name__}: {e}"
+
+
 def pillow_digest(data: bytes):
     from PIL import Image
     img = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
@@ -1125,13 +1271,23 @@ def main() -> int:
         time_pillow()
         return 0
     CORPUS.mkdir(parents=True, exist_ok=True)
-    index = {"files": {}, "refused": {}, "scenes": {}, "format_scenes": {}}
+    index = {"files": {}, "refused": {}, "errors": {}, "scenes": {},
+             "format_scenes": {}}
     for name, data in (jpeg_cases() + png_cases() + format_cases()
                        + tiff_cases() + tiff_pillow_cases()
-                       + plugin_cases()):
+                       + plugin_cases() + jpeg_mode_cases()):
         (CORPUS / name).write_bytes(data)
         shape, digest = pillow_digest(data)
         index["files"][name] = {"shape": shape, "sha256": digest}
+    # "errors": files Pillow raises on (its error's text), which the port
+    # raises on too
+    for name, data in jpeg_outcome_cases():
+        (CORPUS / name).write_bytes(data)
+        got = pillow_outcome(data)
+        if isinstance(got, str):
+            index["errors"][name] = got
+        else:
+            index["files"][name] = {"shape": got[0], "sha256": got[1]}
     for name, data, word in (refused_cases() + format_refused_cases()
                              + tiff_refused_cases()
                              + plugin_refused_cases()):
@@ -1159,6 +1315,15 @@ def main() -> int:
         scene_index[name] = {"shape": shape, "sha256": digest,
                              "source": source}
     (TIFF_SCENES / "index.json").write_text(
+        json.dumps(scene_index, indent=1) + "\n")
+    JPEG_SCENES.mkdir(exist_ok=True)
+    scene_index = {}
+    for name, data, source, holds in jpeg_scene_cases(scenes):
+        (JPEG_SCENES / name).write_bytes(data)
+        shape, digest = pillow_digest(data)
+        scene_index[name] = {"shape": shape, "sha256": digest,
+                             "source": source, "pixels": holds}
+    (JPEG_SCENES / "index.json").write_text(
         json.dumps(scene_index, indent=1) + "\n")
     size = sum(p.stat().st_size for p in CORPUS.iterdir())
     print(f"{len(list(CORPUS.iterdir()))} files, {size} bytes")

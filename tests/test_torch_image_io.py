@@ -239,17 +239,30 @@ def _patched_sof(data: bytes, marker: int = None, precision: int = None):
 
 
 def test_unsupported_modes_raise_naming_them():
-    """Both routes refuse arithmetic coding, lossless and 12-bit JPEG; the
-    plain route also refuses what only the native route reads
-    (progressive, CMYK, Adobe transform 0, Adam7, 16-bit PNG)."""
+    """Both routes refuse 12-bit JPEG and the plain route arithmetic
+    coding and lossless frames, which the native route reads (a baseline
+    file's Huffman data under either frame marker gives Pillow's outcome:
+    the arithmetic decoder's pixels, libjpeg's refusal of the lossless
+    scan's parameters); the plain route also refuses what only the native
+    route reads (progressive, CMYK, Adobe transform 0, Adam7, 16-bit
+    PNG)."""
     rng = np.random.RandomState(9)
     img = seeded_image(rng, 24, 24)
     base = _jpeg(img)
+    arith = _patched_sof(base, marker=0xC9)
+    lossless = _patched_sof(base, marker=0xC3)
+    np.testing.assert_array_equal(
+        image_io.read_image(arith),
+        np.asarray(Image.open(io.BytesIO(arith)).convert("RGB")))
+    with pytest.raises(OSError):
+        Image.open(io.BytesIO(lossless)).convert("RGB")
+    with pytest.raises(ValueError, match="lossless scan"):
+        image_io.read_image(lossless)
+    with pytest.raises(NotImplementedError, match="arithmetic"):
+        image_io.read_image(arith, plain=True)
+    with pytest.raises(NotImplementedError, match="lossless"):
+        image_io.read_image(lossless, plain=True)
     for plain in (False, True):
-        with pytest.raises(NotImplementedError, match="arithmetic"):
-            image_io.read_image(_patched_sof(base, marker=0xC9), plain=plain)
-        with pytest.raises(NotImplementedError, match="lossless"):
-            image_io.read_image(_patched_sof(base, marker=0xC3), plain=plain)
         with pytest.raises(NotImplementedError, match="12-bit"):
             image_io.read_image(_patched_sof(base, precision=12),
                                 plain=plain)

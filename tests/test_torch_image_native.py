@@ -57,31 +57,65 @@ def test_refused_corpus_file_names_its_mode(name):
         image_io.read_image(ic.CORPUS / name)
 
 
+@pytest.mark.parametrize("name", sorted(INDEX["errors"]))
+def test_corpus_file_pillow_refuses_raises(name):
+    """The corpus's byte edits that Pillow raises on (a lossless frame
+    marker over a baseline scan, whose parameters libjpeg refuses) raise
+    a ValueError here too."""
+    data = (ic.CORPUS / name).read_bytes()
+    with pytest.raises(Exception):
+        pillow(data)
+    with pytest.raises(ValueError):
+        image_io.read_image(data)
+
+
 def test_corpus_is_whole_and_small():
     """The index names every file of the corpus, the JPEG and PNG files
-    hold at most 400 KB in all, the WebP, GIF and BMP ones 600 KB, the
+    hold at most 400 KB in all, the arithmetic, lossless and smoothed
+    JPEG modes (jpeg_*) 200 KB, the WebP, GIF and BMP ones 600 KB, the
     TIFF ones 500 KB and those of Pillow's other plugins (the small
     lossless ones read, and the refused ones) 700 KB, the scenes are
     COCO-sized and one is progressive, and the generator would write the
     same bytes again."""
     files = {p.name for p in ic.CORPUS.iterdir()} - {"index.json"}
-    assert files == set(INDEX["files"]) | set(INDEX["refused"])
+    assert files == (set(INDEX["files"]) | set(INDEX["refused"])
+                     | set(INDEX["errors"]))
     group = {".webp": "formats", ".gif": "formats", ".bmp": "formats",
              ".tif": "tiff"}
     plugins = (".ppm .pgm .pbm .pfm .tga .qoi .ico .cur .dib .pcx .dcx "
                ".sgi .ras .im .spi .msp .xbm .eps .jp2 .dds .blp .avif "
                ".icns .xpm .psd .fits").split()
     group.update({ext: "plugins" for ext in plugins})
-    sizes = [(group.get(p.suffix, "jpeg_png"), p.stat().st_size)
+    sizes = [("jpeg_modes" if p.name.startswith("jpeg_")
+              else group.get(p.suffix, "jpeg_png"), p.stat().st_size)
              for p in ic.CORPUS.iterdir() if p.name != "index.json"]
-    limits = {"jpeg_png": 400_000, "formats": 600_000, "tiff": 500_000,
-              "plugins": 700_000}
+    limits = {"jpeg_png": 400_000, "jpeg_modes": 200_000,
+              "formats": 600_000, "tiff": 500_000, "plugins": 700_000}
     for name, limit in limits.items():
         assert sum(n for g, n in sizes if g == name) <= limit, name
     assert {INDEX["files"][s]["shape"][0] for s in INDEX["scenes"]} == {480}
     assert any("progressive" in s for s in INDEX["scenes"])
     for name, data in ic.jpeg_cases()[:6] + ic.png_cases()[:4]:
         assert (ic.CORPUS / name).read_bytes() == data, name
+
+
+def test_jpeg_scenes_are_whole_and_small_and_their_pixels():
+    """The scenes as arithmetic-coded and lossless JPEG
+    (tests/data/jpeg_scenes, kept apart from the corpus's bounds) are the
+    files their index names, hold at most 1.5 MB in all and decode to
+    their Pillow digests, and those that re-code a scene's coefficients or
+    its decode give that scene's pixels."""
+    scenes = json.loads((ic.JPEG_SCENES / "index.json").read_text())
+    files = {p.name for p in ic.JPEG_SCENES.iterdir()} - {"index.json"}
+    assert files == set(scenes)
+    assert sum((ic.JPEG_SCENES / n).stat().st_size for n in files) \
+        <= 1_500_000
+    for name, entry in scenes.items():
+        img = image_io.read_image(ic.JPEG_SCENES / name)
+        assert list(img.shape) == entry["shape"] + [3]
+        assert digest(img) == entry["sha256"], name
+        if entry["pixels"] == "same":
+            assert digest(img) == INDEX["files"][entry["source"]]["sha256"]
 
 
 def test_tiff_scenes_are_whole_and_small():
@@ -153,32 +187,34 @@ def test_seeded_modes_equal_pillow(size):
 
 
 def test_truncated_progressive_equals_pillow_or_is_refused():
-    """A progressive file missing its last scans: libjpeg-turbo smooths
-    the blocks when coefficients 1-9 are incomplete (refused here, named);
-    a file whose only missing band is 10-63, or its DC scan, is not
-    smoothed and equals Pillow's pixels."""
+    """A progressive file missing scans, cut at every scan: where its scans
+    leave coefficients 1-9 incomplete libjpeg-turbo block-smooths the
+    blocks (jdcoefct.c decompress_smooth_data), as the port does; a file
+    whose only missing band is 10-63, or its DC scan, is not smoothed.
+    Every cut equals Pillow's pixels (or raises where Pillow does: a cut
+    that leaves a later scan without its Huffman table)."""
     rng = np.random.RandomState(21)
     img = ic.seeded_image(rng, 37, 53)
     full = ic.pil_jpeg(img, quality=85, progressive=True)
-    for k in range(1, 4):
-        with pytest.raises(NotImplementedError, match="block smoothing"):
-            image_io.read_image(ic.drop_scan(full, -k))
     planes = [img[..., k] for k in range(3)]
     bands = encode_jpeg(planes, [(2, 2), (1, 1), (1, 1)],
                         bands=[(1, 9), (10, 63)])
-    equal = refused = 0
-    for k in range(7):
-        cut = ic.drop_scan(bands, k)
-        try:
-            got = image_io.read_image(cut)
-        except NotImplementedError as e:
-            assert "block smoothing" in str(e)
-            refused += 1
-            continue
-        np.testing.assert_array_equal(got, pillow(cut))
-        equal += 1
-    # the DC scan and the three 10-63 bands decode; the 1-9 bands refuse
-    assert (equal, refused) == (4, 3)
+    equal = raised = 0
+    for source in (full, bands):
+        n = len(ic.scan_offsets(source))
+        for k in range(1, n + 1):
+            for cut in (ic.drop_scan(source, k - 1), ic.first_scans(source, k)):
+                try:
+                    want = pillow(cut)
+                except Exception:  # noqa: BLE001 - Pillow's outcome
+                    with pytest.raises(ValueError):
+                        image_io.read_image(cut)
+                    raised += 1
+                    continue
+                np.testing.assert_array_equal(image_io.read_image(cut), want)
+                equal += 1
+    assert equal >= 20 and equal + raised == 2 * (len(ic.scan_offsets(
+        full)) + len(ic.scan_offsets(bands)))
 
 
 def test_native_route_equals_plain_route():

@@ -14,8 +14,10 @@ as data/native_image.py makes them: bytes set, bits flipped, 2-, 4- and
 files are read half the time as from their path (the memory-map route),
 and the TIFF seeds add uncompressed files that route takes (`map_*`:
 L, P, RGBA, CMYK, I;16 and I;16B at Orientation 5-8, in one strip or
-in one tile wider than the image and narrower than it is tall); PCX
-and DCX files are read from their path half the time too. An error the
+in one tile wider than the image and narrower than it is tall) and,
+where Pillow's libjpeg is at hand to write them (tests/jpeg_modes.py),
+JPEG TIFF files whose strips are arithmetic-coded (`arith_*`); PCX and
+DCX files are read from their path half the time too. An error the
 decoder reports is the expected outcome; a sanitizer report stops the
 worker and the run exits 1.
 
@@ -26,7 +28,12 @@ worker and the run exits 1.
 dib, ico, cur)
 
 (`--glob '*zstd*'`, `'*lzma*'`, `'*bilevel_ccitt*'` and `'*group*'`,
-or `'map_*'` mutate the ZSTD, LZMA, CCITT or memory-map files alone.)
+`'map_*'` or `'arith_*'` mutate the ZSTD, LZMA, CCITT, memory-map or
+arithmetic JPEG TIFF files alone; `'tiff_*lzw*'`, `'tiff_*deflate*'` and
+`'tiff_*packbits*'` the files libtiff's directory checks see most;
+with --format jpeg, `'jpeg_arith*'`, `'jpeg_lossless*'` and
+`'jpeg_smooth*'` the arithmetic-coded, lossless and block-smoothed
+modes.)
 
 Host only, no card; a worker holds at most a 4-megapixel output.
 """
@@ -105,6 +112,31 @@ def map_seeds() -> dict:
     return seeds
 
 
+def arith_seeds() -> dict:
+    """JPEG TIFF files (compression 7) whose strips are arithmetic-coded,
+    sequential and progressive, RGB and gray; empty where Pillow's
+    libjpeg, which writes them, is not at hand."""
+    try:
+        import numpy as np
+
+        import image_writers as iw
+        import jpeg_modes as jm
+        rng = np.random.RandomState(1)
+        seeds = {}
+        for k, progressive in enumerate((False, True)):
+            img = rng.randint(0, 256, (24, 40, 3)).astype(np.uint8)
+            rgb = jm.write(img, space=jm.RGB, arith=True,
+                           progressive=progressive, restart=3)
+            seeds[f"arith_rgb_{k}.tif"] = iw.encode_tiff(
+                img, compression=7, segments=[rgb])
+            gray = jm.write(img[..., 0], arith=True, progressive=progressive)
+            seeds[f"arith_gray_{k}.tif"] = iw.encode_tiff(
+                img[..., 0], photometric=1, compression=7, segments=[gray])
+        return seeds
+    except Exception:  # noqa: BLE001 - no Pillow, no compiler: no seeds
+        return {}
+
+
 def mutate(rng: random.Random, data: bytes) -> bytes:
     d = bytearray(data)
     for _ in range(rng.randint(1, 8)):
@@ -157,7 +189,8 @@ def worker(lib_path: str, fmt: str, pattern: str, mutations: int,
     files = [p.read_bytes() for p in sorted(CORPUS.glob(pattern))
              if p.suffix in SUFFIX[fmt] and p.stat().st_size < 20000]
     if fmt == "tiff":
-        files += [d for name, d in map_seeds().items()
+        seeds = dict(map_seeds(), **arith_seeds())
+        files += [d for name, d in seeds.items()
                   if fnmatch.fnmatch(name, pattern)]
     if not files:
         raise SystemExit(f"no {fmt} corpus file matches {pattern}")

@@ -6,11 +6,12 @@ only), over repository JPEG files and the first corpus scene (640x480)
 as PNG, lossy WebP (q80), lossless WebP, GIF, BMP and TIFF (uncompressed, LZW
 with predictor 2, tiled Deflate with predictor 2, its JPEG stream as
 a YCbCr 2x2 JPEG TIFF, ZSTD and LZMA with predictor 2, and its bilevel
-as CCITT Group 4; the PNG written here from the JPEG scene's decode
+as CCITT Group 4, and as arithmetic-coded, lossless (predictors 1 and 7)
+and block-smoothed JPEG; the PNG written here from the JPEG scene's decode
 by `image_io.encode_png`, the GIF, BMP, Group 4 and other TIFF ones by
 tests/image_writers.py, numpy and the standard library only, the ZSTD
 and LZMA ones committed, tests/data/tiff_scenes, since Pillow's writer
-makes them); the PNG
+makes them, as are the JPEG modes, tests/data/jpeg_scenes); the PNG
 scene's image data inflated by the decoder's own inflate (PNG's and
 TIFF's) beside zlib.decompress; decodes a second of the committed corpus's two baseline
 640x480 JPEG scenes (tests/data/image_io) on 1 and 4 threads, each
@@ -22,6 +23,14 @@ sample: decode, resample, masks).
 
     python3 tools/image_decode_bench_torch.py [--reps 5] [--copies 8]
                                               [--json-out F]
+    python3 tools/image_decode_bench_torch.py --jpeg-ab ROOT [ROOT ...]
+                                              [--rounds 6] [--json-out F]
+
+`--jpeg-ab` times only the native decode of the Huffman JPEG files of
+AB_FILES, for the port in each ROOT (a checkout or `git archive` copy:
+its package, its library built from its own csrc/), each in a process
+of its own, the roots taking turns in every round: a comparison of two
+versions of the decoder within one run.
 
 Times are host milliseconds, median of `--reps` decodes of the file's
 bytes (Pillow's, where it is installed: `python tests/image_corpus.py
@@ -52,6 +61,17 @@ CORPUS = REPO / "tests" / "data" / "image_io"
 TIFF_SCENES = REPO / "tests" / "data" / "tiff_scenes"
 COMMITTED_TIFF = {"tiff_zstd_predictor": "scene_baseline_420_zstd_predictor.tif",
                   "tiff_lzma_predictor": "scene_baseline_420_lzma_predictor.tif"}
+# the scenes as arithmetic-coded JPEG (their coefficients re-coded), the
+# first scene's decode as lossless JPEG and the first scene re-coded
+# progressive without its last two scans (block-smoothed), by Pillow's
+# libjpeg-turbo (tests/image_corpus.jpeg_scene_cases)
+JPEG_SCENES = REPO / "tests" / "data" / "jpeg_scenes"
+COMMITTED_JPEG = {"jpeg_arith": "scene_baseline_420_arith.jpg",
+                  "jpeg_arith_progressive":
+                      "scene_baseline_420_arith_progressive.jpg",
+                  "jpeg_lossless_p1": "scene_baseline_420_lossless_p1.jpg",
+                  "jpeg_lossless_p7": "scene_baseline_420_lossless_p7.jpg",
+                  "jpeg_smoothed": "scene_baseline_420_smoothed.jpg"}
 TIMED = ("images/sample.jpg", "output/detections.jpg",
          "tests/data/image_io/scene_progressive.jpg")
 # the JPEG scenes as lossy WebP, each in the JPEG scene's slot
@@ -119,7 +139,9 @@ def scene_files(fmt: str, count: int = 3) -> tuple:
     progressive strip is not held to Pillow here); "tiff_zstd_predictor"
     and "tiff_lzma_predictor" the committed ZSTD or LZMA TIFF of the
     first scene (its JPEG decode's pixels) and the other two as their
-    JPEG files; "tiff_group4" the scenes' bilevel (mean of the channels
+    JPEG files; COMMITTED_JPEG's formats the committed arithmetic,
+    lossless or smoothed JPEG file of the first scene and the other two
+    as their JPEG files; "tiff_group4" the scenes' bilevel (mean of the channels
     below 110 black) as CCITT Group 4; PLUGIN_SCENES written from their
     native decodes (plugin_scene)."""
     from maskrcnn_tpu_torch.data import image_io
@@ -134,6 +156,9 @@ def scene_files(fmt: str, count: int = 3) -> tuple:
         elif fmt in COMMITTED_TIFF and k == 0:
             out.append((COMMITTED_TIFF[fmt],
                         (TIFF_SCENES / COMMITTED_TIFF[fmt]).read_bytes()))
+        elif fmt in COMMITTED_JPEG and k == 0:
+            out.append((COMMITTED_JPEG[fmt],
+                        (JPEG_SCENES / COMMITTED_JPEG[fmt]).read_bytes()))
         elif fmt == "tiff_group4":
             bilevel = image_io.read_image(data).mean(-1) < 110
             out.append((f"{stem}_group4.tif", image_writers().encode_tiff(
@@ -170,15 +195,17 @@ def scene_files(fmt: str, count: int = 3) -> tuple:
 FORMAT_TIMES = ("png", "webp", "webp_lossless", "gif", "bmp", "tiff_raw",
                 "tiff_lzw_predictor", "tiff_tiled_deflate_predictor",
                 "tiff_jpeg", "tiff_zstd_predictor", "tiff_lzma_predictor",
-                "tiff_group4") + PLUGIN_SCENES
+                "tiff_group4") + PLUGIN_SCENES + tuple(COMMITTED_JPEG)
 
 
 def format_scenes() -> dict:
     """{name: bytes} of the first scene as PNG, lossy WebP, lossless WebP,
     GIF, BMP, and TIFF uncompressed, LZW with predictor 2, tiled Deflate with
     predictor 2, YCbCr 2x2 JPEG, ZSTD and LZMA with predictor 2 and its
-    bilevel as Group 4, and as PPM P6, TGA RLE, QOI, PCX, SGI RLE and Sun
-    RLE (the files decode_times times beside TIMED)."""
+    bilevel as Group 4, as PPM P6, TGA RLE, QOI, PCX, SGI RLE and Sun
+    RLE, and as arithmetic-coded sequential and progressive JPEG,
+    lossless JPEG with predictors 1 and 7 and a block-smoothed
+    progressive JPEG (the files decode_times times beside TIMED)."""
     return {name: data for fmt in FORMAT_TIMES
             for name, data in scene_files(fmt, 1)}
 
@@ -190,11 +217,25 @@ def _scene_decode(k: int):
     return name.rsplit(".", 1)[0], image_io.read_image(CORPUS / name)
 
 
+# "jpeg_modes": each scene's turns through its committed JPEG files that
+# hold its JPEG file's pixels (JPEG_SCENES: the first scene's arithmetic
+# sequential, arithmetic progressive and lossless files, the others'
+# arithmetic sequential and progressive ones)
+JPEG_MODE_TURNS = (("scene_baseline_420_arith.jpg",
+                    "scene_baseline_420_arith_progressive.jpg",
+                    "scene_baseline_420_lossless_p1.jpg"),
+                   ("scene_baseline_444_arith.jpg",
+                    "scene_baseline_444_arith_progressive.jpg"),
+                   ("scene_progressive_arith.jpg",
+                    "scene_progressive_arith_progressive.jpg"))
+
+
 def coco_scene_dir(root: Path, copies: int, fmt: str = "jpeg",
                    limit: Optional[int] = None) -> str:
     """A COCO directory (minival 2014 names) of the corpus's scenes in
     `fmt` (scene_files; "plugins": image i in PLUGIN_SCENES[(i - 1) %
-    6], each written when its image is), each `copies` times (the first
+    6], each written when its image is; "jpeg_modes": copy c of scene j
+    JPEG_MODE_TURNS[j][c % its length]), each `copies` times (the first
     `limit` images of those, where given), with the JPEG scenes'
     annotations. Returns the directory."""
     index = corpus_index()
@@ -202,7 +243,7 @@ def coco_scene_dir(root: Path, copies: int, fmt: str = "jpeg",
     (root / "annotations").mkdir(parents=True, exist_ok=True)
     (root / "val2014").mkdir(exist_ok=True)
     images, anns = [], []
-    files = scene_files(fmt) if fmt != "plugins" else None
+    files = scene_files(fmt) if fmt not in ("plugins", "jpeg_modes") else None
     for k in range(copies):
         for j, (scene, scene_anns) in enumerate(index["scenes"].items()):
             i = len(images) + 1
@@ -210,6 +251,10 @@ def coco_scene_dir(root: Path, copies: int, fmt: str = "jpeg",
                 break
             if files is not None:
                 name, data = files[j]
+            elif fmt == "jpeg_modes":
+                turns = JPEG_MODE_TURNS[j]
+                name = turns[k % len(turns)]
+                data = (JPEG_SCENES / name).read_bytes()
             else:
                 stem, img = _scene_decode(j)
                 ext, data = plugin_scene(
@@ -345,12 +390,71 @@ def loader_rates(copies: int = 8) -> dict:
         return {w: loader_rate(root, w) for w in (1, 4)}
 
 
+# the Huffman JPEG files `--jpeg-ab` times: the repository's sample and
+# the corpus's three 640x480 scenes (chip_smoke.py 9d's JPEG sweep)
+AB_FILES = ("images/sample.jpg", "tests/data/image_io/scene_baseline_420.jpg",
+            "tests/data/image_io/scene_baseline_444.jpg",
+            "tests/data/image_io/scene_progressive.jpg")
+
+
+def jpeg_ms(reps: int) -> dict:
+    """{file: ms}: the least of `reps` means of 5 native decodes of each
+    of AB_FILES (this repository's bytes), by the maskrcnn_tpu_torch
+    first on sys.path."""
+    from maskrcnn_tpu_torch.data import native_image
+    out = {}
+    for name in AB_FILES:
+        data = (REPO / name).read_bytes()
+        native_image.decode_jpeg(data)  # builds the library
+        best = float("inf")
+        for _ in range(reps):
+            t = time.perf_counter()
+            for _ in range(5):
+                native_image.decode_jpeg(data)
+            best = min(best, (time.perf_counter() - t) / 5 * 1e3)
+        out[name] = best
+    return out
+
+
+def jpeg_ab(roots, rounds: int, reps: int) -> dict:
+    """{root: {file: [ms of each round]}}, each root's port timed by
+    jpeg_ms in a process of its own, the roots in turn in each round."""
+    import subprocess
+    out = {r: {n: [] for n in AB_FILES} for r in roots}
+    for _ in range(rounds):
+        for root in roots:
+            res = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--jpeg-ms",
+                 os.path.abspath(root), "--reps", str(reps)],
+                check=True, capture_output=True, text=True)
+            for name, ms in json.loads(res.stdout.splitlines()[-1]).items():
+                out[root][name].append(ms)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--copies", type=int, default=8)
     ap.add_argument("--json-out", default=None)
+    ap.add_argument("--jpeg-ab", nargs="+", default=None, metavar="ROOT")
+    ap.add_argument("--rounds", type=int, default=6)
+    ap.add_argument("--jpeg-ms", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.jpeg_ms:
+        sys.path.insert(0, args.jpeg_ms)
+        print(json.dumps(jpeg_ms(args.reps)))
+        return 0
+    if args.jpeg_ab:
+        ab = jpeg_ab(args.jpeg_ab, args.rounds, args.reps)
+        for root, files in ab.items():
+            print(f"{root}: " + ", ".join(
+                f"{Path(n).name} median {statistics.median(v):.3f} "
+                f"min {min(v):.3f} ms" for n, v in files.items()), flush=True)
+        if args.json_out:
+            with open(args.json_out, "w") as f:
+                json.dump({"jpeg_ab_ms": ab, "reps": args.reps}, f, indent=1)
+        return 0
     times = decode_times(args.reps)
     for name, row in times.items():
         print(f"{name}: " + ", ".join(
