@@ -142,9 +142,10 @@ Phases, each printing one line:
     bit-identical, its launches and time beside the live step's;
     8e utils.profiler.trace around one step writes a Chrome trace;
  9. after phase 8, image files and learning (tools/learning_torch.py):
-    9a the port's native PNG, JPEG, BMP, GIF, WebP and TIFF decoders
-    (data/native_image.py, csrc/image_decode.cpp with the TIFF codecs'
-    tiff_zstd.cpp, tiff_xz.cpp and tiff_fax.cpp, and csrc/webp_decode.cpp
+    9a the port's native PNG, JPEG, BMP, GIF, WebP, TIFF and JPEG 2000
+    decoders (data/native_image.py, csrc/image_decode.cpp with the TIFF
+    codecs' tiff_zstd.cpp, tiff_xz.cpp and tiff_fax.cpp,
+    csrc/jpeg2000_decode.cpp, and csrc/webp_decode.cpp
     built with g++) give Pillow's pixels for every repository image and
     every file of the committed corpus (tests/data/image_io, with ZSTD,
     LZMA and CCITT TIFF, and the first scene as ZSTD and LZMA TIFF,
@@ -194,7 +195,10 @@ Phases, each printing one line:
     detections found) and with the baseline scenes' JPEG streams as
     YCbCr JPEG TIFF (24 images: detections equal too) and with the first
     as ZSTD and as LZMA TIFF with predictor 2 (one batch each: detections
-    equal the JPEG sweep's), K1, K2 and K4 launched in each; one POST
+    equal the JPEG sweep's), and one batch rotating through the scenes'
+    decodes as reversible JPEG 2000 (a default JP2, a tiled RPCL J2K with
+    precincts, a layered JP2 with PLT; detections equal the JPEG
+    sweep's), K1, K2 and K4 launched in each; one POST
     each of the progressive JPEG, a lossy WebP and a JPEG TIFF to
     tools/serve_torch.py's handler answered;
 10. after phase 9, the spatial axis and the debug and tutorial surface:
@@ -3045,8 +3049,9 @@ class DecoderBuild:
 
 def decoder_links() -> dict:
     """What the JPEG/PNG/GIF/BMP/TIFF decoder library links (ldd) and
-    whether it imports a zlib, libtiff, libzstd, XXH or liblzma symbol
-    (nm -D: no inflate*, TIFF*, ZSTD_*, XXH* or lzma_*): {"ok", "needed",
+    whether it imports a zlib, libtiff, libzstd, XXH, liblzma or OpenJPEG
+    symbol (nm -D: no inflate*, TIFF*, ZSTD_*, XXH*, lzma_* or opj_*):
+    {"ok", "needed",
     "nm"}; not ok without nm, whose reading the claim needs."""
     from maskrcnn_tpu_torch.data import native_image
     path = str(native_image.library_path())
@@ -3062,7 +3067,7 @@ def decoder_links() -> dict:
         undefined = subprocess.run([nm, "-D", "--undefined-only", path],
                                    capture_output=True, text=True,
                                    timeout=60).stdout
-        found = re.findall(r"\b(?:inflate|TIFF|ZSTD_|lzma_|XXH)\w*",
+        found = re.findall(r"\b(?:inflate|TIFF|ZSTD_|lzma_|XXH|opj_)\w*",
                            undefined)
         ok = ok and not found
         nm_note = f"nm: {len(undefined.splitlines())} undefined symbols"
@@ -3094,11 +3099,13 @@ def decode_phase(card, build=None):
     (each file Pillow raises on raises a ValueError); the first scene as
     ZSTD and LZMA TIFF (tests/data/tiff_scenes) and the scenes as
     arithmetic-coded, lossless and block-smoothed JPEG
-    (tests/data/jpeg_scenes) decode to their digests; neither Pillow nor a
-    system libwebp, giflib or libtiff is
+    (tests/data/jpeg_scenes) and the scenes as JPEG 2000
+    (tests/data/jpeg2000_scenes) decode to their digests; neither Pillow
+    nor a system libwebp, giflib, libtiff or libopenjp2 is
     loaded, and the decoder library links only the C and C++ runtimes and
-    imports no zlib, libtiff, libzstd, XXH or liblzma symbol (PNG's and
-    TIFF's inflate, the ZSTD, xz and fax decoders are the library's own);
+    imports no zlib, libtiff, libzstd, XXH, liblzma or OpenJPEG symbol
+    (PNG's and TIFF's inflate, the ZSTD, xz, fax and JPEG 2000 decoders
+    are the library's own);
     host ms a decode, median of 5, native beside plain (images/sample.jpg
     640x480, output/detections.jpg 1252², the progressive scene, the
     first scene as PNG, lossy and lossless WebP, GIF, BMP, and TIFF
@@ -3106,7 +3113,8 @@ def decode_phase(card, build=None):
     YCbCr 2x2 JPEG, ZSTD and LZMA with predictor 2, its bilevel as
     CCITT Group 4, PPM P6, TGA RLE, QOI, PCX, SGI RLE and Sun RLE, and
     arithmetic-coded sequential and progressive JPEG, lossless JPEG with
-    predictors 1 and 7 and a block-smoothed progressive JPEG);
+    predictors 1 and 7 and a block-smoothed progressive JPEG, and the
+    first scene as reversible and irreversible JP2);
     the PNG scene's image data through the library's inflate beside
     zlib.decompress; decodes a second of the two baseline JPEG scenes on 1 and 4 threads,
     each route, and of the three scenes as lossy WebP and as tiled
@@ -3165,6 +3173,15 @@ def decode_phase(card, build=None):
               and hashlib.sha256(img.tobytes()).hexdigest()
               == entry["sha256"], f"9a: {name} decodes to other pixels "
               "than Pillow's")
+    scene_j2ks = json.loads((bench.JPEG2000_SCENES / "index.json").read_text())
+    for name, entry in scene_j2ks.items():
+        img = image_io.read_image(bench.JPEG2000_SCENES / name)
+        check(list(img.shape) == entry["shape"] + [3]
+              and hashlib.sha256(img.tobytes()).hexdigest()
+              == entry["sha256"], f"9a: {name} decodes to other pixels "
+              "than Pillow's")
+    jpeg2000s = sum(name.rsplit(".", 1)[1] in ("jp2", "j2k")
+                    for name in index["files"])
     jpeg_modes = sum(name.startswith("jpeg_") for name in index["files"])
     times = bench.decode_times(5)
     inflate = bench.inflate_times(5)
@@ -3180,7 +3197,8 @@ def decode_phase(card, build=None):
     with open("/proc/self/maps") as f:
         loaded = {line.split()[-1] for line in f if "/" in line}
     codecs = sorted(p for p in loaded
-                    if re.match(r"lib(webp|gif|tiff)[.-]", os.path.basename(p))
+                    if re.match(r"lib(webp|gif|tiff|openjp2)[.-]",
+                                os.path.basename(p))
                     or "/PIL/" in p or "pillow.libs" in p)
     check(not codecs, f"9a: a system codec was loaded: {codecs}")
     links = decoder_links()
@@ -3204,7 +3222,11 @@ def decode_phase(card, build=None):
           f"arithmetic-coded, lossless and block-smoothed JPEG and the "
           f"scenes in those modes ({len(scene_jpegs)} committed files) to "
           f"their digests, {len(index.get('errors', {}))} byte edits Pillow "
-          f"refuses raise; no system codec "
+          f"refuses raise; {jpeg2000s} corpus files of JPEG 2000 (JP2 and "
+          f"raw J2K: every progression, mode switch, tiles, precincts, POC, "
+          f"PPM/PPT, RGN, subsampling, CMYK, sYCC, palettes) and the scenes "
+          f"as JPEG 2000 ({len(scene_j2ks)} committed files) to their "
+          f"digests; no system codec "
           f"loaded; host decode median of 5: {lines}; the PNG scene's "
           f"image data ({inflate['bytes']} bytes) inflated by the "
           f"library's own inflate {inflate['own_ms']:.2f} ms, by "
@@ -3219,7 +3241,8 @@ def decode_phase(card, build=None):
           f"worker {rates[1]:.1f} img/s, 4 workers {rates[4]:.1f} img/s "
           f"({rates[4] / rates[1]:.2f}x); write_png reads back exactly; "
           f"the decoder library links {links['needed']}, imports no "
-          f"zlib, libtiff, libzstd, XXH or liblzma symbol ({links['nm']}); "
+          f"zlib, libtiff, libzstd, XXH, liblzma or OpenJPEG symbol "
+          f"({links['nm']}); "
           f"{card}", flush=True)
 
 
@@ -3242,24 +3265,28 @@ def same_detections(a, b) -> bool:
 FILES_COPIES, FILES_B = 8, 8
 FILES_FORMATS = ("bmp", "webp_lossless", "tiff_tiled_lzw_predictor", "webp",
                  "gif", "tiff_jpeg", "tiff_zstd_predictor",
-                 "tiff_lzma_predictor", "plugins", "jpeg_modes")
+                 "tiff_lzma_predictor", "plugins", "jpeg_modes",
+                 "jpeg2000_layouts")
 # the sweeps whose files hold the JPEG decodes' pixels, so their detections
 # equal the JPEG sweep's (the JPEG TIFF holds the baseline scenes' own JPEG
 # streams, which decode to their JPEG files' pixels; the ZSTD and LZMA
 # TIFF the first scene's JPEG decode; "plugins" each image's scene decode
 # as PPM P6, TGA RLE, QOI, PCX, SGI RLE and Sun RLE in turn; "jpeg_modes"
 # each scene's coefficients re-coded arithmetic, sequential and
-# progressive in turn, and the first scene's decode as lossless JPEG)
+# progressive in turn, and the first scene's decode as lossless JPEG;
+# "jpeg2000_layouts" each scene's decode as reversible JPEG 2000, a layout
+# a scene: a default JP2, a tiled RPCL J2K with precincts, a JP2 of
+# quality layers with PLT)
 SAME_PIXELS = ("plain", "bmp", "webp_lossless", "tiff_tiled_lzw_predictor",
                "tiff_jpeg", "tiff_zstd_predictor", "tiff_lzma_predictor",
-               "plugins", "jpeg_modes")
+               "plugins", "jpeg_modes", "jpeg2000_layouts")
 # images a sweep: the WebP, GIF, BMP, ZSTD, LZMA and plugin sweeps one
 # batch (the first 8 images, so the JPEG sweep's first 8 results), to keep
 # the whole script within its time
 FILES_IMAGES = {"bmp": FILES_B, "webp_lossless": FILES_B, "webp": FILES_B,
                 "gif": FILES_B, "tiff_zstd_predictor": FILES_B,
                 "tiff_lzma_predictor": FILES_B, "plugins": FILES_B,
-                "jpeg_modes": FILES_B}
+                "jpeg_modes": FILES_B, "jpeg2000_layouts": FILES_B}
 
 
 def files_phase(kernels, card, cfg=None):
@@ -3283,8 +3310,12 @@ def files_phase(kernels, card, cfg=None):
     from the scenes' decodes by tests/image_writers.py), and one batch
     whose images rotate through each scene's coefficients re-coded
     arithmetic sequential and progressive and the first scene's decode
-    as lossless JPEG (committed, tests/data/jpeg_scenes) hold the JPEG
-    decodes' pixels, so their detections equal the JPEG sweep's; lossy
+    as lossless JPEG (committed, tests/data/jpeg_scenes), and one batch
+    whose images rotate through the scenes' decodes as reversible JPEG
+    2000 (committed, tests/data/jpeg2000_scenes: a default JP2, a raw J2K
+    with 256x256 tiles and precincts in RPCL order, a JP2 of three quality
+    layers with PLT) hold the JPEG decodes' pixels, so their detections
+    equal the JPEG sweep's; lossy
     WebP and GIF (a fixed palette) find detections; K1, K2 and K4 launched in every sweep. Then one POST each of the progressive scene, of a
     lossy WebP scene and of a JPEG TIFF scene to tools/serve_torch.py's
     handler on a localhost port is answered with detections. Returns the
@@ -3411,8 +3442,10 @@ def files_phase(kernels, card, cfg=None):
           f"JPEG sweeps equal ({found} detections), and of the BMP, "
           f"lossless-WebP, tiled-LZW-TIFF, JPEG-TIFF, ZSTD-TIFF, "
           f"LZMA-TIFF, plugin (PPM, TGA RLE, QOI, PCX, SGI RLE, Sun "
-          f"RLE in turn) and JPEG-mode (arithmetic sequential, "
-          f"arithmetic progressive, lossless in turn) sweeps; "
+          f"RLE in turn), JPEG-mode (arithmetic sequential, "
+          f"arithmetic progressive, lossless in turn) and JPEG 2000 "
+          f"(default JP2, tiled RPCL J2K, layered JP2 with PLT in turn) "
+          f"sweeps; "
           + "; ".join(parts)
           + f"; bbox AP {sweeps['native'][3][0]:.3f} (seeded weights); "
           + "; ".join(f"serve_torch POST of {name} answered {status} with "

@@ -1,5 +1,6 @@
 // What the sources of the host image decoder library share: its error
-// type, the TIFF codecs that live in sources of their own
+// type (jpeg2000_decode.cpp's too), the TIFF codecs that live in sources
+// of their own
 // (tiff_zstd.cpp, tiff_xz.cpp, tiff_fax.cpp) beside image_decode.cpp, and
 // the JPEG decoder's Huffman bit reader and its arithmetic and lossless
 // scan decoders (jpeg_arith.cpp, jpeg_lossless.cpp).

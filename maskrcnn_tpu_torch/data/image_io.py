@@ -3,12 +3,14 @@ reads decodes to RGB uint8, and a PNG writer.
 
 `read_image(f)` (a path, the file's bytes or a binary file object)
 returns what `np.asarray(PIL.Image.open(f).convert("RGB"))` returns with
-Pillow 12.1 over libjpeg-turbo 3.1, zlib, libwebp 1.6 and libtiff 4.7,
+Pillow 12.1 over libjpeg-turbo 3.1, zlib, libwebp 1.6, libtiff 4.7 and
+OpenJPEG 2.5.4,
 bit for bit, through the native decoders (`csrc/image_decode.cpp` for
 PNG, JPEG, GIF, BMP (with the DIB frames of DIB, ICO and CUR files) and
 TIFF, with TIFF's ZSTD, LZMA and CCITT codecs in `csrc/tiff_zstd.cpp`,
 `tiff_xz.cpp` and `tiff_fax.cpp`; `csrc/image_plugins.cpp` for Netpbm,
-TGA, QOI, PCX, DCX, SGI and Sun raster; `csrc/webp_decode.cpp` for WebP;
+TGA, QOI, PCX, DCX, SGI and Sun raster; `csrc/jpeg2000_decode.cpp` for
+JPEG 2000; `csrc/webp_decode.cpp` for WebP;
 built with g++ on first use and called through ctypes outside the GIL,
 one call a decode after its size call: data/native_image.py). The format
 is told as Pillow's `Image.open` tells it (`format_of`,
@@ -118,6 +120,24 @@ that pass a file on to the next plugin or end `Image.open`). It reads:
 * Sun raster: file types 0-5 (type 2 RLE, SunRleDecode.c), depths 1, 4,
   8, 24 and 32 in BGR or (type 3) RGB, colour maps on 4- and 8-bit
   images.
+* JPEG 2000 (Jpeg2KImagePlugin: JP2 files and raw J2K codestreams), as
+  Pillow decodes them through OpenJPEG's tile API in strict mode: the
+  JP2 boxes OpenJPEG reads (ihdr against SIZ, colr, pclr, cmap, cdef,
+  bpcc, boxes past the codestream), the main and tile-part markers with
+  OpenJPEG's checks (a cut stream raises), every progression order and
+  POC change, precincts, tiles, tile-parts, image and tile offsets,
+  quality layers, PPM and PPT, SOP and EPH, the code-block mode
+  switches and RGN max-shift, the 5/3 and 9/7 transforms (OpenJPEG's
+  float operations in its order) with RCT and ICT, components of their
+  own precision, sign and subsampling; then Pillow's side: the mode
+  Jpeg2KImageFile._open gives (L or I;16 by precision, LA, RGB, RGBA,
+  CMYK from colr, P and PA from pclr: data/image_probe.jpeg2000_header),
+  its unpackers (their shifts and offsets, a subsampled component
+  indexed by width / dx, its tile buffer kept from tile to tile), the
+  colour space it assumes where colr gives none (sYCC where component 1
+  or 2 is subsampled and component 0 is not), its YCbCr -> RGB for sYCC,
+  a pclr palette as ImagePalette.getcolor builds it, and the files it
+  refuses (a mode and colour space with no unpacker).
 
 Refused, with NotImplementedError naming the mode (Pillow refuses them
 too): arithmetic-coded lossless and hierarchical JPEG, samples of other
@@ -129,17 +149,20 @@ and 4-bit BMP under a grayscale palette (Pillow reads them with the
 wrong unpacker); TIFF of WebP, old-style JPEG, ThunderScan or SGILog
 compression, LZMA data through an xz BCJ filter (x86, ARM and the
 others), LAB, YCbCr that is not JPEG-compressed with contiguous
-samples, and 16-bit CMYK. A TIFF layout
+samples, and 16-bit CMYK; JPEG 2000's HTJ2K code-blocks (Part 15: a
+CAP marker or code-block style 0x40) and Part-2 multi-component
+transforms (CBD, MCT, MCC, MCO), which OpenJPEG decodes. A TIFF layout
 Pillow itself refuses is a ValueError naming it. A file of a
-format Pillow reads that the port does not (JPEG 2000, AVIF, DDS, PSD,
+format Pillow reads that the port does not (AVIF, DDS, PSD,
 ICNS, BLP, IM, SPIDER, XBM, XPM, MSP, FLI, FTEX, GBR, PCD, PIXAR,
 XVTHUMB, IMT, IPTC, MCIDAS, FITS, EPS, WMF and the stubs) raises
 NotImplementedError naming the format; a file no plugin takes, or whose
 header ends `Image.open` with an error, raises ValueError (Pillow raises
 UnidentifiedImageError, an OSError, or the plugin's error there).
 tests/test_torch_image_probe.py holds the probe to Pillow's Image.open,
-tests/test_torch_image_tiff.py and test_torch_image_plugins.py the
-decoders to Pillow's decode on the CPU, and chip_smoke.py's phase 9 to
+tests/test_torch_image_tiff.py, test_torch_image_plugins.py and
+test_torch_image_jpeg2000.py the decoders to Pillow's decode on the
+CPU, and chip_smoke.py's phase 9 to
 the corpus's Pillow digests on the card's host.
 
 `read_image(f, plain=True)` takes the plain Python decoders below
@@ -184,7 +207,7 @@ def _read_bytes(source: Source) -> bytes:
 # the formats read, by Pillow's name: their native decoders
 # (native_image.decode_<name>)
 READ = ("BMP", "DIB", "GIF", "JPEG", "PPM", "PNG", "CUR", "PCX", "DCX",
-        "ICO", "TIFF", "QOI", "SGI", "SUN", "TGA", "WEBP")
+        "ICO", "JPEG2000", "TIFF", "QOI", "SGI", "SUN", "TGA", "WEBP")
 # the formats whose decoders take the path flag (Pillow reads a file it
 # opens from a path otherwise than one it opens from bytes)
 PATH_READS = ("TIFF", "PCX", "DCX")

@@ -1036,6 +1036,14 @@ def _open_gbr(fp):
 
 
 def _open_jpeg2000(fp):
+    mode, size, _ = _jpeg2000_open(fp)
+    return mode, size
+
+
+def _jpeg2000_open(fp):
+    """Jpeg2KImageFile._open: (mode, size, palette), the palette the
+    _Palette Pillow builds from a JP2 file's pclr box for mode P or PA, or
+    None."""
     sig = fp.read(4)
     if sig == b"\xff\x4f\xff\x51":
         hdr = fp.read(2)
@@ -1043,11 +1051,14 @@ def _open_jpeg2000(fp):
         v = struct.unpack_from(">HHIIIIIIIIH", siz)
         size, csiz = (v[2] - v[4], v[3] - v[5]), v[10]
         if csiz == 1:
-            struct.unpack_from(">B", siz, 38)
-        elif csiz not in (2, 3, 4):
+            ssiz = struct.unpack_from(">B", siz, 38)[0]
+            mode = "I;16" if (ssiz & 0x7F) + 1 > 8 else "L"
+        elif csiz in (2, 3, 4):
+            mode = {2: "LA", 3: "RGB", 4: "RGBA"}[csiz]
+        else:
             raise SyntaxError("unable to determine J2K image mode")
         _j2k_comment(fp)
-        return "RGB", size
+        return mode, size, None
     sig += fp.read(8)
     if sig != JP2_MAGIC:
         raise SyntaxError("not a JPEG 2000 file")
@@ -1060,21 +1071,28 @@ def _open_jpeg2000(fp):
             break
         if tbox == b"ftyp":
             reader.read_fields(">4s")
-    size = nc = mode = None
+    size = nc = mode = palette = None
     while header.has_next_box():
         tbox = header.next_box_type()
         if tbox == b"ihdr":
             height, width, nc, bpc = header.read_fields(">IIHB")
             size = width, height
-            mode = {1: "L", 2: "LA", 3: "RGB", 4: "RGBA"}.get(nc, mode)
+            if nc == 1 and (bpc & 0x7F) > 8:
+                mode = "I;16"
+            else:
+                mode = {1: "L", 2: "LA", 3: "RGB", 4: "RGBA"}.get(nc, mode)
         elif tbox == b"colr" and nc == 4:
-            header.read_fields(">BBBI")
+            meth, _, _, enumcs = header.read_fields(">BBBI")
+            if meth == 1 and enumcs == 12:
+                mode = "CMYK"
         elif tbox == b"pclr" and mode in ("L", "LA"):
             ne, npc = header.read_fields(">HB")
             depths = header.read_fields(">" + "B" * npc)
             if max((0, *depths)) <= 8:
+                palette = _Palette("RGBA" if npc == 4 else "RGB")
                 for _ in range(ne):
-                    header.read_fields(">" + "B" * npc)
+                    palette.getcolor(header.read_fields(">" + "B" * npc))
+                mode = "P" if mode == "L" else "PA"
         elif tbox == b"res ":
             res = header.read_boxes()
             while res.has_next_box():
@@ -1086,7 +1104,57 @@ def _open_jpeg2000(fp):
     if fp.read(12).endswith(b"jp2c\xff\x4f\xff\x51"):
         fp.seek(_be16(fp.read(2)) - 2, io.SEEK_CUR)
         _j2k_comment(fp)
-    return mode, size
+    return mode, size, palette
+
+
+class _Palette:
+    """ImagePalette.ImagePalette as Jpeg2KImagePlugin fills it from a pclr
+    box (getcolor: colours already held keep their index; a new one goes
+    at len(palette) // len(mode), a ValueError past 256)."""
+
+    def __init__(self, mode):
+        self.mode, self.palette, self.colors = mode, bytearray(), {}
+
+    def getcolor(self, color):
+        if self.mode == "RGB" and len(color) == 4:
+            if color[3] != 255:
+                raise ValueError("cannot add non-opaque RGBA color to RGB "
+                                 "palette")
+            color = color[:3]
+        elif self.mode == "RGBA" and len(color) == 3:
+            color += (255,)
+        if color in self.colors:
+            return self.colors[color]
+        n = len(self.mode)
+        index = len(self.palette) // n
+        if index >= 256:
+            raise ValueError("cannot allocate more than 256 colors")
+        self.colors[color] = index
+        if index * n < len(self.palette):
+            self.palette = (self.palette[:index * n] + bytes(color)
+                            + self.palette[index * n + n:])
+        else:
+            self.palette += bytes(color)
+        return index
+
+    def table(self) -> bytes:
+        """The 256 RGB entries of the P image after putpalette (black past
+        the palette's entries), as convert("RGB") looks them up."""
+        n = len(self.mode)
+        entries = min(len(self.palette) // n, 256)
+        out = bytearray(768)
+        for i in range(entries):
+            out[3 * i:3 * i + 3] = self.palette[n * i:n * i + 3]
+        return bytes(out)
+
+
+def jpeg2000_header(data: bytes):
+    """(mode, (width, height), palette) of a JPEG 2000 file as
+    Jpeg2KImageFile._open gives them: the mode L, I;16, LA, RGB, RGBA,
+    CMYK, P or PA, and for P and PA the 256 RGB entries convert("RGB")
+    looks up (else None). The file is one identify() names JPEG2000."""
+    mode, size, palette = _jpeg2000_open(_File(data, False))
+    return mode, size, palette.table() if palette is not None else None
 
 
 def _j2k_comment(fp):

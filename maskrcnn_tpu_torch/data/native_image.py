@@ -4,8 +4,9 @@ the DIB frames of DIB, ICO and CUR files) and TIFF, with JPEG's
 arithmetic and lossless scans in `csrc/jpeg_arith.cpp` and
 `jpeg_lossless.cpp`, TIFF's ZSTD, LZMA and CCITT codecs in
 `csrc/tiff_zstd.cpp`, `tiff_xz.cpp` and `tiff_fax.cpp`, Netpbm, TGA, QOI, PCX, DCX, SGI and Sun raster in
-`csrc/image_plugins.cpp`, and their shared `image_codec.h`, all compiled
-into one library; `csrc/webp_decode.cpp`: WebP; host C++17).
+`csrc/image_plugins.cpp`, JPEG 2000 in `csrc/jpeg2000_decode.cpp`, and
+their shared `image_codec.h`, all compiled into one library;
+`csrc/webp_decode.cpp`: WebP; host C++17).
 
 On first use each library's sources are compiled with the host's C++
 compiler into `build/maskrcnn_tpu_torch/` (`utils/native_build.py`,
@@ -27,8 +28,8 @@ TIFF's image after its orientation). There is no fallback: without a
 compiler `library()` and `webp_library()` raise a RuntimeError naming it
 (the plain Python decoders of image_io.py, PNG and JPEG only and 56x
 slower, are reached only by `read_image(..., plain=True)`); no system
-codec (libwebp, giflib, libtiff, zlib, libzstd, liblzma, Pillow) is
-loaded (tests/test_torch_image_tiff.py reads the library's imports).
+codec (libwebp, giflib, libtiff, zlib, libzstd, liblzma, OpenJPEG,
+Pillow) is loaded (tests/test_torch_image_tiff.py reads the library's imports).
 """
 
 from __future__ import annotations
@@ -53,11 +54,13 @@ SOURCE = CSRC / "image_decode.cpp"
 SOURCES = (SOURCE, CSRC / "jpeg_arith.cpp", CSRC / "jpeg_lossless.cpp",
            CSRC / "tiff_zstd.cpp", CSRC / "tiff_xz.cpp",
            CSRC / "tiff_fax.cpp", CSRC / "image_plugins.cpp",
-           *sorted(CSRC.glob("*.h")))
+           CSRC / "jpeg2000_decode.cpp", *sorted(CSRC.glob("*.h")))
 WEBP_SOURCE = CSRC / "webp_decode.cpp"
 # -fwrapv: the IDCTs' int32 arithmetic wraps as libjpeg-turbo's does on
-# the corrupt coefficients a valid file never holds
-CXX_FLAGS = native_build.CXX_FLAGS + ("-fwrapv",)
+# the corrupt coefficients a valid file never holds; -ffp-contract=off:
+# JPEG 2000's 9/7 transform rounds each product and sum as OpenJPEG's SSE
+# code does (no fused multiply-add, on any host)
+CXX_FLAGS = native_build.CXX_FLAGS + ("-fwrapv", "-ffp-contract=off")
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # Pillow's decompression-bomb error: more pixels than twice
 # Image.MAX_IMAGE_PIXELS
@@ -100,7 +103,7 @@ _I32P = ctypes.POINTER(ctypes.c_int32)
 _OUT = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 # mrt_<format>_size and mrt_<format>_decode of every format but PNG
 # (TIFF's, PCX's and DCX's take one more argument, a path flag; DIB's the
-# frame's place and kind)
+# frame's place and kind; JPEG 2000's a mode and a palette)
 _SIZE_ARGS = [_U8P, ctypes.c_int64, _I32P, _I32P, ctypes.c_char_p,
               ctypes.c_int32]
 _DECODE_ARGS = [_U8P, ctypes.c_int64, _OUT, ctypes.c_int32, ctypes.c_int32,
@@ -139,6 +142,8 @@ def library() -> ctypes.CDLL:
             ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, _U8P,
             ctypes.c_int32, _OUT, ctypes.c_char_p, ctypes.c_int32]
         lib.mrt_png_decode.restype = ctypes.c_int
+        # JPEG 2000's: Pillow's mode and a P image's palette
+        _declare(lib, ("jpeg2000",), [ctypes.c_int32, _U8P])
         _LIB = lib
         return lib
 
@@ -334,6 +339,23 @@ def inflate(data: bytes, limit: int) -> bytes:
     if code:
         _raise(code, msg)
     return out[:n.value].tobytes()
+
+
+# Pillow's modes of a JPEG 2000 file, as csrc/jpeg2000_decode.cpp numbers
+# them
+JPEG2000_MODES = ("L", "I;16", "LA", "RGB", "RGBA", "CMYK", "P", "PA")
+
+
+def decode_jpeg2000(data: bytes) -> np.ndarray:
+    """A JPEG 2000 file's bytes (a JP2 file or a raw J2K codestream) -> RGB
+    uint8 [H, W, 3]: the mode (and a P or PA file's palette) as
+    Jpeg2KImageFile._open gives them (image_probe.jpeg2000_header), the
+    codestream as OpenJPEG 2.5.4 decodes it tile by tile, each tile
+    unpacked as Pillow's decoder unpacks it, then convert("RGB")."""
+    from maskrcnn_tpu_torch.data.image_probe import jpeg2000_header
+    mode, _, palette = jpeg2000_header(data)
+    return _decode(library(), "jpeg2000", data, JPEG2000_MODES.index(mode),
+                   palette or bytes(768))
 
 
 def decode_webp(data: bytes) -> np.ndarray:

@@ -53,6 +53,9 @@ TIFF_SCENES = CORPUS.parent / "tiff_scenes"
 # the scenes as arithmetic-coded and lossless JPEG (jpeg_scene_cases),
 # under a size bound of their own (test_jpeg_scenes_are_whole_and_small)
 JPEG_SCENES = CORPUS.parent / "jpeg_scenes"
+# the scenes as JPEG 2000 (jpeg2000_scene_cases), under a size bound of
+# their own (test_jpeg2000_scenes_are_whole_and_small)
+JPEG2000_SCENES = CORPUS.parent / "jpeg2000_scenes"
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 ADAM7 = [(0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2)]
@@ -1095,8 +1098,8 @@ def plugin_refused_cases():
     for fmt, ext, mode, kw in (
             ("IM", "im", "RGB", {}), ("SPIDER", "spi", "F", {}),
             ("MSP", "msp", "1", {}), ("XBM", "xbm", "1", {}),
-            ("EPS", "eps", "RGB", {}), ("JPEG2000", "jp2", "RGB", {}),
-            ("DDS", "dds", "RGB", {}), ("BLP", "blp", "P", {}),
+            ("EPS", "eps", "RGB", {}), ("DDS", "dds", "RGB", {}),
+            ("BLP", "blp", "P", {}),
             ("AVIF", "avif", "RGB", {})):
         out.append((f"refused_{ext}.{ext}", _pil(img, fmt, mode, **kw), fmt))
     icns = _pil(np.repeat(np.repeat(img, 4, 0), 4, 1)[:16, :16], "ICNS")
@@ -1114,6 +1117,177 @@ def plugin_refused_cases():
                 .ljust(2880) + gray.tobytes().ljust(2880, b"\0"), "FITS"))
     assert all(Image.open(io.BytesIO(d)).format == f for _, d, f in out)
     return out
+
+
+# ------------------------------------------------------------ JPEG 2000
+
+def jpeg2000_writer():
+    """tests/jpeg2000_writer.py: OpenJPEG 2.5's encoder in Pillow's
+    bundled libopenjp2 by ctypes, and the JP2 box and PPT/PPM edits."""
+    import jpeg2000_writer
+    return jpeg2000_writer
+
+
+def jpeg2000_modes(rng, h, w):
+    """{(name, extension): bytes} of the JPEG 2000 layouts at h x w: Pillow's
+    writer (reversible and irreversible, with and without MCT, raw J2K,
+    tiles with image and tile offsets, precincts, each progression order,
+    quality layers, PLT, signed samples; modes L, I;16, LA, RGB, RGBA);
+    OpenJPEG's encoder by ctypes (each code-block mode switch and all six,
+    SOP and EPH, POC, tile-parts by resolution, layer and component, RGN,
+    subsampled components, 12-bit, signed 16-bit and mixed precisions);
+    byte edits of those (packet headers in PPT and PPM markers, JP2 boxes:
+    CMYK, sYCC, no colr box, a cdef box, pclr palettes of 3 and 4 columns
+    for P and PA)."""
+    jw = jpeg2000_writer()
+    img = seeded_image(rng, h, w)
+    gray = img[..., 0]
+    alpha = img[..., 1]
+    tiny = h * w < 4
+    # OpenJPEG's encoder takes at most 1 + log2 of the smaller side levels
+    levels = min(3, min(h, w).bit_length())
+    # its rate allocation needs room for the packet headers: one lossless
+    # layer on the smallest images
+    layers = (20, 5, 1) if h * w >= 100 else (0,)
+    out = {}
+    pil = {"rgb": {}, "rgb_mct": {"mct": 1},
+           "rgb_irreversible": {"irreversible": True},
+           "rgb_irreversible_mct": {"irreversible": True, "mct": 1},
+           "rgb_tiles_offsets": dict(tile_size=(8, 8), num_resolutions=2,
+                                     **({} if tiny else dict(
+                                         tile_offset=(1, 2), offset=(3, 5)))),
+           "rgb_precincts": dict(precinct_size=(128, 128),
+                                 num_resolutions=levels,
+                                 codeblock_size=(16, 16)),
+           "rgb_layers": dict(quality_layers=[40, 10, 1]),
+           "rgb_irreversible_layers": dict(irreversible=True,
+                                           quality_layers=[30, 8]),
+           "rgb_plt": dict(plt=True, quality_layers=[20, 1])}
+    for order in ("RLCP", "RPCL", "PCRL", "CPRL"):
+        pil[f"rgb_{order.lower()}"] = dict(
+            progression=order, precinct_size=(64, 64),
+            num_resolutions=levels, quality_layers=[20, 5, 1])
+    for name, kw in pil.items():
+        out[(name, "jp2")] = _pil(img, "JPEG2000", **kw)
+    out[("rgb", "j2k")] = _pil(img, "JPEG2000", no_jp2=True)
+    for name, mode in (("l", "L"), ("i16", "I;16"), ("la", "LA"),
+                       ("rgba", "RGBA")):
+        out[(name, "jp2")] = _pil(np.dstack([img, alpha]), "JPEG2000", mode)
+    out[("l_signed", "jp2")] = _pil(gray, "JPEG2000", signed=True)
+    planes = [img[..., k].astype(np.int32) for k in range(3)]
+
+    def enc(*args, **kw):
+        # OpenJPEG's encoder cannot write some layouts of the smallest
+        # images (its output buffer is sized by the image): those are left
+        # out at that size
+        try:
+            return jw.encode(*args, **kw)
+        except ValueError:
+            return None
+
+    def jp2(cs, *args, **kw):
+        return None if cs is None else jw.jp2_file(cs, *args, **kw)
+
+    def packed(cs, where):
+        return None if cs is None else jw.packed_headers(cs, where)
+    for name, bits in (("bypass", jw.BYPASS), ("reset", jw.RESET),
+                       ("termall", jw.TERMALL), ("vsc", jw.VSC),
+                       ("pterm", jw.PTERM), ("segsym", jw.SEGSYM),
+                       ("all_switches", 63)):
+        out[(name, "j2k")] = enc(planes, mode=bits, layers=layers)
+    out[("all_switches_irreversible", "j2k")] = enc(
+        planes, mode=63, irreversible=True, mct=True, layers=layers[1:] or layers)
+    out[("sop_eph", "j2k")] = enc(planes, sop=True, eph=True,
+                                  layers=layers)
+    out[("poc", "j2k")] = enc(planes, layers=layers, pocs=[
+        (0, 0, 2, 3, 3, "RLCP"), (0, 0, 3, 6, 3, "CPRL")])
+    for part in "RLC":
+        out[(f"tileparts_{part.lower()}", "j2k")] = enc(
+            planes, tile=(8, 8), resolutions=2, layers=layers,
+            tile_parts=part)
+    out[("rgn", "j2k")] = enc(planes, roi=(0, 5), layers=layers[1:] or layers)
+    tiled = enc(planes, sop=True, eph=True, tile=(8, 8), resolutions=2,
+                layers=layers, tile_parts="R")
+    out[("ppt", "j2k")] = packed(tiled, "ppt")
+    out[("ppm", "j2k")] = packed(tiled, "ppm")
+    ch, cw = -(-h // 2), -(-w // 2)
+    chroma = [img[::2, ::2, k].astype(np.int32)[:ch, :cw] for k in (1, 2)]
+    out[("subsampled_420", "j2k")] = enc([planes[0]] + chroma,
+                                         sub=[(1, 1), (2, 2), (2, 2)],
+                                         resolutions=2)
+    out[("sycc_422", "jp2")] = jp2(enc(
+        [planes[0]] + [img[:, ::2, k].astype(np.int32) for k in (1, 2)],
+        sub=[(1, 1), (2, 1), (2, 1)], resolutions=2), h, w, 3, enumcs=18)
+    g = gray.astype(np.int32)
+    out[("l12", "j2k")] = enc([g * 16 + (g >> 4)], prec=[12])
+    out[("l16_signed", "j2k")] = enc([g * 256 - 32768], prec=[16],
+                                     signed=[True])
+    out[("rgb_mixed_precision", "j2k")] = enc(
+        [planes[0], planes[1] * 4, planes[2] >> 4], prec=[8, 10, 4])
+    out[("cmyk", "jp2")] = jp2(enc(planes + [alpha.astype(
+        np.int32)]), h, w, 4, enumcs=12)
+    out[("sycc", "jp2")] = jp2(enc(planes), h, w, 3, enumcs=18)
+    out[("no_colr", "jp2")] = jp2(enc(planes), h, w, 3, enumcs=None)
+    out[("cdef", "jp2")] = jp2(
+        enc(planes + [alpha.astype(np.int32)]), h, w, 4,
+        extra=jw.cdef_box([(0, 0, 1), (1, 0, 2), (2, 0, 3), (3, 1, 0)]))
+    index = (g % 9).astype(np.int32)
+    entries = [(17 * k, 255 - 20 * k, (k * 53) % 256) for k in range(8)]
+    entries.insert(3, entries[1])  # a repeated colour: Pillow's getcolor
+    out[("p", "jp2")] = jp2(
+        enc([index]), h, w, 1,
+        extra=jw.pclr_box(entries, (7, 7, 7)) + jw.cmap_box(3))
+    out[("pa", "jp2")] = jp2(
+        enc([index, alpha.astype(np.int32)]), h, w, 2,
+        extra=jw.pclr_box(entries, (7, 7, 7)) + jw.cmap_box(3))
+    out[("p_rgba_palette", "jp2")] = jp2(
+        enc([index]), h, w, 1, extra=jw.pclr_box(
+            [e + (255 - 9 * k,) for k, e in enumerate(entries)], (7,) * 4)
+        + jw.cmap_box(4))
+    return {k: v for k, v in out.items() if v is not None}
+
+
+def jpeg2000_cases():
+    """(name, bytes) of every JPEG 2000 layout at every size."""
+    rng = np.random.RandomState(22)
+    cases = []
+    for h, w in SIZES:
+        for (name, ext), data in jpeg2000_modes(rng, h, w).items():
+            cases.append((f"jp2_{name}_{h}x{w}.{ext}", data))
+    return cases
+
+
+def _insert_marker(cs: bytes, after: int, marker: bytes) -> bytes:
+    """A codestream with `marker` (a whole segment) after the main-header
+    segment whose marker is `after`."""
+    i = 2
+    while struct.unpack(">H", cs[i:i + 2])[0] != after:
+        i += 2 + struct.unpack(">H", cs[i + 2:i + 4])[0]
+    i += 2 + struct.unpack(">H", cs[i + 2:i + 4])[0]
+    return cs[:i] + marker + cs[i:]
+
+
+def jpeg2000_refused_cases():
+    """(name, bytes, word) of the JPEG 2000 parts OpenJPEG decodes and the
+    port refuses by name, byte-edited from an OpenJPEG codestream: HTJ2K
+    code-blocks (COD's style byte 0x40) and a Part-15 CAP marker; Part-2
+    multi-component transforms (an MCT marker, a CBD marker)."""
+    jw = jpeg2000_writer()
+    rng = np.random.RandomState(23)
+    img = seeded_image(rng, 6, 5)
+    cs = jw.encode([img[..., k].astype(np.int32) for k in range(3)])
+    cod = cs.index(b"\xff\x52")
+    ht = bytearray(cs)
+    ht[cod + 12] |= 0x40
+    cap = b"\xff\x50\x00\x08\x00\x02\x00\x00\x00\x00"
+    mct = b"\xff\x74\x00\x06\x00\x00\x00\x00"
+    cbd = b"\xff\x78\x00\x07\x00\x03\x07\x07\x07"
+    return [("refused_jp2_htj2k.j2k", bytes(ht), "HTJ2K"),
+            ("refused_jp2_cap.j2k", _insert_marker(cs, 0xFF51, cap), "HTJ2K"),
+            ("refused_jp2_part2_mct.j2k", _insert_marker(cs, 0xFF52, mct),
+             "Part-2"),
+            ("refused_jp2_part2_cbd.j2k", _insert_marker(cs, 0xFF51, cbd),
+             "Part-2")]
 
 
 # --------------------------------------------------------------- scenes
@@ -1238,6 +1412,43 @@ def jpeg_scene_cases(jpeg_scenes):
     return out
 
 
+def refused_jp2_case():
+    """(name, bytes) of the JPEG 2000 file the corpus held among Pillow's
+    formats the port refused (plugin_refused_cases' seeded image as
+    Pillow's RGB JP2), now decoded to its digest."""
+    rng = np.random.RandomState(21)
+    return "refused_jp2.jp2", _pil(seeded_image(rng, 6, 5), "JPEG2000", "RGB")
+
+
+def jpeg2000_scene_cases(jpeg_scenes):
+    """(name, bytes, source JPEG scene, what it holds) of the scenes as
+    JPEG 2000 for phase 9d's sweep and 9a's times (committed,
+    `JPEG2000_SCENES`): each scene's JPEG decode written reversibly in
+    one layout (its pixels): the first as Pillow's default JP2, the
+    second as a raw J2K codestream with 256x256 tiles and 64x64 precincts
+    in RPCL order, the third as a JP2 of three quality layers (the last
+    lossless) with PLT markers; and the first scene's decode as an
+    irreversible JP2 at rate 8 (other pixels, timed only)."""
+    from PIL import Image
+    layouts = (("jp2", {}), ("j2k", dict(no_jp2=True, tile_size=(256, 256),
+                                          precinct_size=(64, 64),
+                                          progression="RPCL")),
+               ("jp2", dict(quality_layers=[40, 10, 1], plt=True)))
+    names = ("default", "tiles_rpcl", "layers_plt")
+    out = []
+    for (name, data, _), (ext, kw), label in zip(jpeg_scenes, layouts, names):
+        decoded = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+        stem = name.rsplit(".", 1)[0]
+        out.append((f"{stem}_{label}.{ext}", _pil(decoded, "JPEG2000", **kw),
+                    name, "same"))
+    first, data, _ = jpeg_scenes[0]
+    decoded = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+    out.append((first.rsplit(".", 1)[0] + "_irreversible.jp2",
+                _pil(decoded, "JPEG2000", irreversible=True,
+                     quality_layers=[8]), first, "irreversible"))
+    return out
+
+
 def pillow_outcome(data: bytes):
     """(shape, digest) of Pillow's decode, or the text of its error."""
     try:
@@ -1266,9 +1477,39 @@ def time_pillow(reps: int = 5) -> None:
         print(f"{name}: pillow_ms {ms:.2f}", flush=True)
 
 
+def write_jpeg2000(index, scenes) -> None:
+    """The JPEG 2000 files of the corpus and their index entries, and the
+    JPEG 2000 scenes with theirs."""
+    for name, data in jpeg2000_cases() + [refused_jp2_case()]:
+        (CORPUS / name).write_bytes(data)
+        shape, digest = pillow_digest(data)
+        index["files"][name] = {"shape": shape, "sha256": digest}
+        index["refused"].pop(name, None)
+    for name, data, word in jpeg2000_refused_cases():
+        (CORPUS / name).write_bytes(data)
+        index["refused"][name] = word
+    JPEG2000_SCENES.mkdir(exist_ok=True)
+    scene_index = {}
+    for name, data, source, holds in jpeg2000_scene_cases(scenes):
+        (JPEG2000_SCENES / name).write_bytes(data)
+        shape, digest = pillow_digest(data)
+        scene_index[name] = {"shape": shape, "sha256": digest,
+                             "source": source, "pixels": holds}
+    (JPEG2000_SCENES / "index.json").write_text(
+        json.dumps(scene_index, indent=1) + "\n")
+
+
 def main() -> int:
     if "--time-pillow" in sys.argv[1:]:
         time_pillow()
+        return 0
+    if "--jpeg2000" in sys.argv[1:]:
+        # the JPEG 2000 files alone, every other file and entry kept
+        index = json.loads(INDEX.read_text())
+        scenes = [(name, (CORPUS / name).read_bytes(), None)
+                  for name in index["scenes"]]
+        write_jpeg2000(index, scenes)
+        INDEX.write_text(json.dumps(index, separators=(",", ":")) + "\n")
         return 0
     CORPUS.mkdir(parents=True, exist_ok=True)
     index = {"files": {}, "refused": {}, "errors": {}, "scenes": {},
@@ -1306,6 +1547,7 @@ def main() -> int:
         index["files"][name] = {"shape": shape, "sha256": digest}
         index["format_scenes"][name] = source
     index["categories"] = SCENE_CATEGORIES
+    write_jpeg2000(index, scenes)
     INDEX.write_text(json.dumps(index, separators=(",", ":")) + "\n")
     TIFF_SCENES.mkdir(exist_ok=True)
     scene_index = {}

@@ -1,0 +1,320 @@
+"""The port's JPEG 2000 reader (csrc/jpeg2000_decode.cpp through
+data/native_image.decode_jpeg2000, the mode from data/image_probe.py)
+against Pillow 12.1.0 over OpenJPEG 2.5.4: the corpus covers every layout
+(tests/image_corpus.jpeg2000_modes; each file's digest is held by
+tests/test_torch_image_native.py); seeded files of every layout at sizes
+of their own, and cut and byte-edited copies of Pillow's and OpenJPEG's
+files, give Pillow's live outcome (its pixels, or a ValueError where it
+raises); the MQ coder's states are ISO 15444-1's Table C.2; Pillow's
+YCbCr -> RGB for sYCC files holds over every (Cb, Cr); HTJ2K and Part-2
+multi-component transforms raise NotImplementedError naming them; the
+scenes as JPEG 2000 (tests/data/jpeg2000_scenes, which chip_smoke.py's
+phase 9d reads) hold their JPEG files' pixels."""
+
+import ctypes
+import hashlib
+import io
+import json
+import random
+import re
+import struct
+import sys
+import warnings
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from maskrcnn_tpu_torch.data import image_io, native_image
+
+TESTS = Path(__file__).resolve().parent
+sys.path.insert(0, str(TESTS))
+
+import image_corpus as ic  # noqa: E402
+
+pytest.importorskip("PIL")
+jw = ic.jpeg2000_writer()
+
+INDEX = json.loads(ic.INDEX.read_text())
+NAME = re.compile(r"^jp2_(.*)_(\d+)x(\d+)\.(jp2|j2k)$")
+
+
+def pillow(data: bytes):
+    """Pillow's `np.asarray(Image.open(f).convert("RGB"))`, or None where
+    it raises."""
+    from PIL import Image
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+    except Exception:  # noqa: BLE001 - any error is Pillow's outcome
+        return None
+
+
+def outcome(data: bytes):
+    """The port's outcome: its pixels, "error" for a ValueError, or the
+    NotImplementedError's text."""
+    try:
+        return image_io.read_image(data)
+    except ValueError:
+        return "error"
+    except NotImplementedError as e:
+        return f"refused: {e}"
+
+
+def test_corpus_covers_every_layout_at_every_size():
+    """46 layouts, each at the corpus's four sizes (but TERMALL at 16x24,
+    which OpenJPEG's encoder cannot write there: its output buffer is
+    sized by the image), the file Pillow's writer made before the port
+    read JPEG 2000, and the refused parts, each named."""
+    layouts = {}
+    for name in INDEX["files"]:
+        m = NAME.match(name)
+        if m:
+            layouts.setdefault(m.group(1), set()).add(
+                (int(m.group(2)), int(m.group(3))))
+    assert len(layouts) == 46, sorted(layouts)
+    for layout, sizes in layouts.items():
+        want = set(ic.SIZES) - ({(16, 24)} if layout == "termall" else set())
+        assert sizes == want, layout
+    assert "refused_jp2.jp2" in INDEX["files"]
+    refused = {n: w for n, w in INDEX["refused"].items()
+               if n.startswith("refused_jp2")}
+    assert sorted(refused.values()) == ["HTJ2K", "HTJ2K", "Part-2", "Part-2"]
+    for name, word in refused.items():
+        with pytest.raises(NotImplementedError, match=word):
+            image_io.read_image(ic.CORPUS / name)
+
+
+@pytest.mark.parametrize("seed,h,w", [(40, 9, 13), (41, 23, 17),
+                                      (42, 2, 30)])
+def test_seeded_layouts_equal_pillow(seed, h, w):
+    """Every layout of the corpus at a size of its own, from another seed,
+    to Pillow's live decode."""
+    rng = np.random.RandomState(seed)
+    for (layout, ext), data in ic.jpeg2000_modes(rng, h, w).items():
+        want = pillow(data)
+        assert want is not None, layout
+        got = image_io.read_image(data)
+        assert got.shape == want.shape and np.array_equal(got, want), layout
+
+
+def _writer_files(seed: int):
+    """Small files of Pillow's writer and of OpenJPEG's encoder in the
+    layouts whose headers and packets the edits reach."""
+    rng = np.random.RandomState(seed)
+    img = ic.seeded_image(rng, 11, 14)
+    planes = [img[..., k].astype(np.int32) for k in range(3)]
+    files = [(str(kw), ic._pil(img, "JPEG2000", **kw)) for kw in (
+        {}, {"no_jp2": True}, {"irreversible": True, "quality_layers": [20, 5]},
+        {"tile_size": (8, 8), "num_resolutions": 2},
+        {"plt": True, "progression": "RPCL"})]
+    files += [
+        ("switches", jw.encode(planes, mode=63, layers=(20, 4, 1), mct=True)),
+        ("sop eph", jw.encode(planes, sop=True, eph=True, layers=(20, 4, 1),
+                              resolutions=3)),
+        ("poc", jw.encode(planes, layers=(20, 4, 1), resolutions=3, pocs=[
+            (0, 0, 2, 2, 3, "RLCP"), (0, 0, 3, 3, 3, "CPRL")])),
+        ("tile-parts", jw.encode(planes, tile=(8, 8), tile_parts="L",
+                                 layers=(20, 4, 1), resolutions=2,
+                                 progression="PCRL")),
+        ("rgn", jw.encode(planes, roi=(0, 6), resolutions=3)),
+        ("ppm", jw.packed_headers(jw.encode(
+            planes, sop=True, eph=True, layers=(20, 4, 1), resolutions=3),
+            "ppm")),
+        ("pclr", jw.jp2_file(jw.encode([planes[0] % 7], resolutions=3), 11, 14,
+                             1, extra=jw.pclr_box(
+                                 [(k, 2 * k, 255 - k) for k in range(7)],
+                                 (7, 7, 7)) + jw.cmap_box(3)))]
+    return files
+
+
+def _siz_subsampling(data: bytes):
+    """The offsets of the SIZ marker's XRsiz and YRsiz bytes."""
+    i = data.find(b"\xff\x4f\xff\x51") + 2
+    n = struct.unpack(">H", data[i + 38:i + 40])[0]
+    return {i + 40 + 3 * k + d for k in range(n) for d in (1, 2)}
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cut_and_edited_files_give_pillows_outcome(seed):
+    """Cuts of every length class and single-byte edits (headers, packet
+    headers, code-block data) give Pillow's outcome: its pixels, or a
+    ValueError where it raises (strict mode: a cut stream raises). An
+    edit that sets HTJ2K's style bit is refused by name instead. Edits
+    of a component's subsampling (XRsiz, YRsiz) are not drawn: where the
+    subsampling leaves a component smaller than Pillow's unpacker
+    indexes, Pillow reads past OpenJPEG's tile data (memory it never
+    wrote), which no decoder can reproduce; subsampled layouts are held
+    to Pillow by the corpus instead."""
+    r = random.Random(seed)
+    compared = 0
+    for name, data in _writer_files(seed):
+        cases = [data[:k] for k in sorted({r.randrange(len(data))
+                                           for _ in range(12)})]
+        skip = _siz_subsampling(data)
+        for _ in range(60):
+            e = bytearray(data)
+            i = (r.randrange(min(len(data), 160)) if r.random() < 0.5
+                 else r.randrange(len(data)))
+            if i in skip:
+                continue
+            e[i] = (r.getrandbits(8) if r.random() < 0.5
+                    else e[i] ^ (1 << r.randrange(8)))
+            cases.append(bytes(e))
+        for d in cases:
+            want, got = pillow(d), outcome(d)
+            if isinstance(got, str) and got.startswith("refused"):
+                assert "HTJ2K" in got, (name, got)
+                continue
+            compared += 1
+            if want is None:
+                assert isinstance(got, str) and got == "error", name
+            else:
+                assert not isinstance(got, str), (name, got)
+                assert np.array_equal(got, want), name
+    assert compared > 600
+
+
+def test_a_cut_stream_raises_as_strict_mode_does():
+    """Pillow's JP2 cut by 10 bytes or by half raises in Pillow (OpenJPEG's
+    strict mode); so does the port, with a ValueError."""
+    rng = np.random.RandomState(3)
+    data = ic._pil(ic.seeded_image(rng, 37, 53), "JPEG2000")
+    for cut in (data[:-10], data[:len(data) // 2], data[:-1]):
+        assert pillow(cut) is None
+        with pytest.raises(ValueError):
+            image_io.read_image(cut)
+
+
+# ISO 15444-1 Table C.2: Qe, NMPS, NLPS, SWITCH of the 47 states
+TABLE_C2 = [
+    (0x5601, 1, 1, 1), (0x3401, 2, 6, 0), (0x1801, 3, 9, 0),
+    (0x0AC1, 4, 12, 0), (0x0521, 5, 29, 0), (0x0221, 38, 33, 0),
+    (0x5601, 7, 6, 1), (0x5401, 8, 14, 0), (0x4801, 9, 14, 0),
+    (0x3801, 10, 14, 0), (0x3001, 11, 17, 0), (0x2401, 12, 18, 0),
+    (0x1C01, 13, 20, 0), (0x1601, 29, 21, 0), (0x5601, 15, 14, 1),
+    (0x5401, 16, 14, 0), (0x5101, 17, 15, 0), (0x4801, 18, 16, 0),
+    (0x3801, 19, 17, 0), (0x3401, 20, 18, 0), (0x3001, 21, 19, 0),
+    (0x2801, 22, 19, 0), (0x2401, 23, 20, 0), (0x2201, 24, 21, 0),
+    (0x1C01, 25, 22, 0), (0x1801, 26, 23, 0), (0x1601, 27, 24, 0),
+    (0x1401, 28, 25, 0), (0x1201, 29, 26, 0), (0x1101, 30, 27, 0),
+    (0x0AC1, 31, 28, 0), (0x09C1, 32, 29, 0), (0x08A1, 33, 30, 0),
+    (0x0521, 34, 31, 0), (0x0441, 35, 32, 0), (0x02A1, 36, 33, 0),
+    (0x0221, 37, 34, 0), (0x0141, 38, 35, 0), (0x0111, 39, 36, 0),
+    (0x0085, 40, 37, 0), (0x0049, 41, 38, 0), (0x0025, 42, 39, 0),
+    (0x0015, 43, 40, 0), (0x0009, 44, 41, 0), (0x0005, 45, 42, 0),
+    (0x0001, 45, 43, 0), (0x5601, 46, 46, 0)]
+
+
+def test_mq_states_are_table_c2():
+    lib = native_image.library()
+    qe = (ctypes.c_uint16 * 47)()
+    nmps, nlps, sw = ((ctypes.c_uint8 * 47)() for _ in range(3))
+    lib.mrt_jpeg2000_mq_table(qe, nmps, nlps, sw)
+    got = [(qe[i], nmps[i], nlps[i], sw[i]) for i in range(47)]
+    assert got == TABLE_C2
+
+
+def test_sycc_colours_equal_pillows_ycbcr_conversion():
+    """An sYCC JP2 holding every (Cb, Cr) pair under Y values of every
+    kind decodes as Pillow's own YCbCr -> RGB does."""
+    cb, cr = np.meshgrid(np.arange(256), np.arange(256), indexing="ij")
+    for y in ((cb * 7 + cr * 13) % 256, np.full_like(cb, 128)):
+        data = jw.jp2_file(jw.encode([y, cb, cr], resolutions=1,
+                                     cblk=(64, 64)), 256, 256, 3, enumcs=18)
+        want = pillow(data)
+        assert want is not None
+        assert np.array_equal(image_io.read_image(data), want)
+
+
+def test_refused_parts_are_named():
+    """HTJ2K (COD's or COC's style 0x40, a CAP marker) and Part-2
+    multi-component transforms (CBD, MCT, MCC, MCO) raise
+    NotImplementedError naming them; a style byte with HT mixed mode
+    (0x80), which OpenJPEG itself refuses, raises a ValueError as Pillow
+    does."""
+    rng = np.random.RandomState(4)
+    img = ic.seeded_image(rng, 7, 9)
+    cs = jw.encode([img[..., k].astype(np.int32) for k in range(3)])
+    cod = cs.index(b"\xff\x52")
+    ht = bytearray(cs)
+    ht[cod + 12] |= 0x40
+    with pytest.raises(NotImplementedError, match="HTJ2K"):
+        image_io.read_image(bytes(ht))
+    mixed = bytearray(cs)
+    mixed[cod + 12] |= 0xC0
+    assert pillow(bytes(mixed)) is None
+    with pytest.raises(ValueError):
+        image_io.read_image(bytes(mixed))
+    for marker in (b"\xff\x74", b"\xff\x75", b"\xff\x77", b"\xff\x78"):
+        data = ic._insert_marker(cs, 0xFF52, marker + b"\x00\x05\x00\x00\x00")
+        with pytest.raises(NotImplementedError, match="Part-2"):
+            image_io.read_image(data)
+
+
+def test_jpeg2000_scenes_are_whole_and_small_and_their_pixels():
+    """The scenes as JPEG 2000 (tests/data/jpeg2000_scenes) are the files
+    their index names, hold at most 2 MB in all, decode to their Pillow
+    digests, and those written from a scene's decode give its pixels."""
+    scenes = json.loads((ic.JPEG2000_SCENES / "index.json").read_text())
+    files = {p.name for p in ic.JPEG2000_SCENES.iterdir()} - {"index.json"}
+    assert files == set(scenes)
+    assert sum((ic.JPEG2000_SCENES / n).stat().st_size
+               for n in files) <= 2_000_000
+    layouts = set()
+    for name, entry in scenes.items():
+        img = image_io.read_image(ic.JPEG2000_SCENES / name)
+        assert list(img.shape) == entry["shape"] + [3]
+        assert hashlib.sha256(img.tobytes()).hexdigest() == entry["sha256"]
+        if entry["pixels"] == "same":
+            layouts.add(name.rsplit(".", 1)[1])
+            assert np.array_equal(img, image_io.read_image(
+                ic.CORPUS / entry["source"])), name
+    assert layouts == {"jp2", "j2k"}
+
+
+def test_decoder_threads_give_one_threads_arrays():
+    """Decodes on threads (ctypes releases the GIL) give the arrays of one
+    thread's decodes."""
+    from concurrent.futures import ThreadPoolExecutor
+    names = sorted(n for n in INDEX["files"]
+                   if n.startswith("jp2_") and "37x53" in n)[:12]
+    datas = [(ic.CORPUS / n).read_bytes() for n in names]
+    want = [image_io.read_image(d) for d in datas]
+    with ThreadPoolExecutor(4) as pool:
+        got = list(pool.map(image_io.read_image, datas * 2))
+    for k, img in enumerate(got):
+        assert np.array_equal(img, want[k % len(datas)])
+
+
+def test_a_bomb_raises_before_decoding():
+    """A SIZ past Pillow's decompression-bomb limit raises ValueError
+    from the header (Image.open's check), nothing allocated."""
+    rng = np.random.RandomState(5)
+    cs = bytearray(jw.encode([ic.seeded_image(rng, 5, 6)[..., 0].astype(
+        np.int32)]))
+    cs[8:16] = struct.pack(">II", 200_000, 100_000)
+    with pytest.raises(ValueError, match="pixels"):
+        image_io.read_image(bytes(cs))
+
+
+def test_decode_loads_no_openjpeg():
+    """Decoding JPEG 2000 in a fresh interpreter loads neither Pillow nor
+    a libopenjp2, and the decoder library imports no OpenJPEG symbol."""
+    import subprocess
+    code = ("import sys\nfrom maskrcnn_tpu_torch.data import image_io\n"
+            "for f in sys.argv[1:]:\n    image_io.read_image(f)\n"
+            "maps = open('/proc/self/maps').read()\n"
+            "print('BAD', [m for m in ('openjp2', 'PIL') if m in maps "
+            "or m in sys.modules])\n")
+    names = [str(ic.CORPUS / n) for n in ("jp2_rgb_37x53.jp2",
+                                          "jp2_ppm_37x53.j2k")]
+    proc = subprocess.run([sys.executable, "-c", code, *names],
+                          cwd=TESTS.parent, capture_output=True, text=True,
+                          timeout=120)
+    assert "BAD []" in proc.stdout, proc.stdout + proc.stderr
+    undefined = subprocess.run(
+        ["nm", "-D", "--undefined-only", str(native_image.library_path())],
+        capture_output=True, text=True).stdout
+    assert undefined and not re.search(r"\bopj_\w*", undefined)

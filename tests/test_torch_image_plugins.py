@@ -119,10 +119,10 @@ def test_corpus_covers_the_plugins_and_their_refusals():
     assert len(MODES) >= 86
     refused = {n: w for n, w in INDEX["refused"].items()
                if not n.startswith(("refused_bmp", "refused_tiff",
-                                    "refused_jpeg", "refused_png"))}
-    assert {"GBR", "IM", "SPIDER", "MSP", "XBM", "EPS", "JPEG2000", "DDS",
-            "BLP", "AVIF", "ICNS", "XPM", "PSD", "FITS"} <= set(
-                refused.values())
+                                    "refused_jpeg", "refused_png",
+                                    "refused_jp2_"))}
+    assert {"GBR", "IM", "SPIDER", "MSP", "XBM", "EPS", "DDS", "BLP", "AVIF",
+            "ICNS", "XPM", "PSD", "FITS"} <= set(refused.values())
     for name, word in refused.items():
         with pytest.raises(NotImplementedError, match=word):
             image_io.read_image(ic.CORPUS / name)

@@ -366,3 +366,42 @@ def test_a_jpeg_needs_three_marker_bytes():
     data = buf.getvalue()
     assert check(data, "JPEG") == "JPEG"
     assert check(b"\xff\xd8\x00" + data[3:], "SOI alone") == "none"
+
+
+def test_jpeg2000_mode_is_pillows():
+    """The probe's JPEG 2000 mode (image_probe.jpeg2000_header, one model
+    of Jpeg2KImageFile._open that also names the format) is Image.open's
+    mode on every JPEG 2000 file of the corpus (L, I;16 by the first
+    component's precision, LA, RGB, RGBA from a raw codestream's SIZ; a
+    JP2's ihdr, CMYK from colr, P and PA from pclr) and on cut and edited
+    copies of their headers that Image.open still opens."""
+    sys.path.insert(0, str(image_io.__file__).rsplit("/maskrcnn_tpu_torch",
+                                                      1)[0] + "/tests")
+    import image_corpus as ic
+    from PIL import Image
+    index = json.loads(ic.INDEX.read_text())
+    names = sorted(n for n in index["files"] if n.startswith("jp2_")
+                   and n.endswith("_5x3." + n.rsplit(".", 1)[1]))
+    rng = random.Random(3)
+    modes = set()
+    for name in names:
+        data = (ic.CORPUS / name).read_bytes()
+        copies = [data] + [data[:rng.randrange(len(data))] for _ in range(2)]
+        for _ in range(4):
+            e = bytearray(data)
+            e[rng.randrange(min(len(data), 120))] = rng.getrandbits(8)
+            copies.append(bytes(e))
+        for d in copies:
+            try:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    im = Image.open(io.BytesIO(d))
+            except Exception:  # noqa: BLE001 - Image.open refuses it
+                continue
+            if im.format != "JPEG2000":
+                continue
+            mode, size, palette = image_probe.jpeg2000_header(d)
+            assert (mode, size) == (im.mode, im.size), name
+            assert (palette is not None) == (mode in ("P", "PA")), name
+            modes.add(mode)
+    assert modes == {"L", "I;16", "LA", "RGB", "RGBA", "CMYK", "P", "PA"}

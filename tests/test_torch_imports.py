@@ -165,10 +165,11 @@ def test_demo_sources_import_no_jax_pil_nbformat_matplotlib(path):
 
 
 # a ctypes (or dlopen) load of a system image codec: the port decodes
-# WebP, GIF, BMP and TIFF (Deflate included) with its own sources (csrc/),
-# never with libwebp, giflib, libtiff or zlib's library
+# WebP, GIF, BMP, TIFF (Deflate included) and JPEG 2000 with its own
+# sources (csrc/), never with libwebp, giflib, libtiff, zlib's library or
+# OpenJPEG's
 CODEC_LOAD = re.compile(r"(find_library|CDLL|LoadLibrary|dlopen)\s*\("
-                        r"[^)]*\b(lib)?(webp|gif|tiff|z)\b")
+                        r"[^)]*\b(lib)?(webp|gif|tiff|z|openjp2)\b")
 
 
 @pytest.mark.parametrize("path", ["chip_smoke.py", "maskrcnn_tpu_torch",
@@ -186,7 +187,7 @@ def test_port_sources_load_no_system_codec(path):
     bad = [str(f.relative_to(REPO)) for f in files
            if CODEC_LOAD.search(f.read_text())
            or re.search(r"#include\s*[<\"](webp|gif_lib|png|jpeglib|zlib|"
-                        r"tiffio|tiff)",
+                        r"tiffio|tiff|openjpeg)",
                         f.read_text())]
     assert not bad, bad
 

@@ -4,7 +4,7 @@ and UndefinedBehaviorSanitizer: the sources of data/native_image.py's
 image library (JPEG, GIF, BMP, TIFF with its ZSTD, LZMA and CCITT data;
 PPM/PGM/PBM/PFM, TGA, QOI, PCX, DCX, SGI and Sun raster; DIB, and the
 DIB frames of ICO and CUR, whose entry is picked as
-data/image_probe.py picks it, PNG frames left out) or of its WebP
+data/image_probe.py picks it, PNG frames left out; JPEG 2000) or of its WebP
 library, built with its flags and
 -fsanitize=address,undefined into build/maskrcnn_tpu_torch/, then each
 worker process decodes mutated copies of the committed corpus's files
@@ -25,7 +25,7 @@ worker and the run exits 1.
         [--mutations 3000] [--workers 4] [--seed 1]
 
 (formats: jpeg, gif, bmp, tiff, webp, ppm, tga, qoi, pcx, dcx, sgi, sun,
-dib, ico, cur)
+dib, ico, cur, jpeg2000)
 
 (`--glob '*zstd*'`, `'*lzma*'`, `'*bilevel_ccitt*'` and `'*group*'`,
 `'map_*'` or `'arith_*'` mutate the ZSTD, LZMA, CCITT, memory-map or
@@ -33,7 +33,10 @@ arithmetic JPEG TIFF files alone; `'tiff_*lzw*'`, `'tiff_*deflate*'` and
 `'tiff_*packbits*'` the files libtiff's directory checks see most;
 with --format jpeg, `'jpeg_arith*'`, `'jpeg_lossless*'` and
 `'jpeg_smooth*'` the arithmetic-coded, lossless and block-smoothed
-modes.)
+modes; with --format jpeg2000, `'jp2_*'` the layouts of
+tests/image_corpus.jpeg2000_modes (raw J2K and JP2: every mode switch,
+SOP/EPH, POC, tile-parts, RGN, PPT and PPM, subsampling, palettes),
+each decoded in a mode of Pillow's drawn at random.)
 
 Host only, no card; a worker holds at most a 4-megapixel output.
 """
@@ -58,13 +61,14 @@ from maskrcnn_tpu_torch.utils import native_build  # noqa: E402
 
 CORPUS = REPO / "tests" / "data" / "image_io"
 FLAGS = ("-O1", "-g", "-shared", "-fPIC", "-std=c++17", "-fwrapv",
-         "-fsanitize=address,undefined", "-fno-sanitize-recover=all")
+         "-ffp-contract=off", "-fsanitize=address,undefined",
+         "-fno-sanitize-recover=all")
 SUFFIX = {"jpeg": (".jpg",), "gif": (".gif",), "bmp": (".bmp",),
           "tiff": (".tif",), "webp": (".webp",),
           "ppm": (".ppm", ".pgm", ".pbm", ".pfm"), "tga": (".tga",),
           "qoi": (".qoi",), "pcx": (".pcx",), "dcx": (".dcx",),
           "sgi": (".sgi",), "sun": (".ras",), "dib": (".dib",),
-          "ico": (".ico",), "cur": (".cur",)}
+          "ico": (".ico",), "cur": (".cur",), "jpeg2000": (".jp2", ".j2k")}
 # the formats whose calls take a path flag last
 PATH_FLAG = ("tiff", "pcx", "dcx")
 LIMITS = (0, 1, 2, 7, 8, 15, 16, 255, 256, 65535, 2 ** 31 - 1, 2 ** 31,
@@ -161,6 +165,10 @@ def extra_args(fmt: str, data: bytes, rng: random.Random):
     or CUR whose frame the probe can place, or an ICO's frame is a PNG."""
     if fmt in PATH_FLAG:
         return (ctypes.c_int32(rng.randrange(2)),)
+    if fmt == "jpeg2000":
+        # any of Pillow's modes, whatever the header says, and a palette
+        return (ctypes.c_int32(rng.randrange(8)),
+                bytes(rng.randrange(256) for _ in range(768)))
     if fmt not in ("dib", "ico", "cur"):
         return ()
     from maskrcnn_tpu_torch.data import image_probe

@@ -6,8 +6,10 @@ only), over repository JPEG files and the first corpus scene (640x480)
 as PNG, lossy WebP (q80), lossless WebP, GIF, BMP and TIFF (uncompressed, LZW
 with predictor 2, tiled Deflate with predictor 2, its JPEG stream as
 a YCbCr 2x2 JPEG TIFF, ZSTD and LZMA with predictor 2, and its bilevel
-as CCITT Group 4, and as arithmetic-coded, lossless (predictors 1 and 7)
-and block-smoothed JPEG; the PNG written here from the JPEG scene's decode
+as CCITT Group 4, as arithmetic-coded, lossless (predictors 1 and 7)
+and block-smoothed JPEG, and as reversible and irreversible JP2 (committed,
+tests/data/jpeg2000_scenes, csrc/jpeg2000_decode.cpp); the PNG written
+here from the JPEG scene's decode
 by `image_io.encode_png`, the GIF, BMP, Group 4 and other TIFF ones by
 tests/image_writers.py, numpy and the standard library only, the ZSTD
 and LZMA ones committed, tests/data/tiff_scenes, since Pillow's writer
@@ -72,6 +74,18 @@ COMMITTED_JPEG = {"jpeg_arith": "scene_baseline_420_arith.jpg",
                   "jpeg_lossless_p1": "scene_baseline_420_lossless_p1.jpg",
                   "jpeg_lossless_p7": "scene_baseline_420_lossless_p7.jpg",
                   "jpeg_smoothed": "scene_baseline_420_smoothed.jpg"}
+# the scenes as JPEG 2000 (tests/image_corpus.jpeg2000_scene_cases): each
+# scene's JPEG decode, reversible, in a layout of its own (the first
+# Pillow's default JP2, the second a raw J2K with tiles and precincts in
+# RPCL order, the third a JP2 of quality layers with PLT), and the first
+# scene's decode as an irreversible JP2 (timed only)
+JPEG2000_SCENES = REPO / "tests" / "data" / "jpeg2000_scenes"
+JPEG2000_FILES = ("scene_baseline_420_default.jp2",
+                  "scene_baseline_444_tiles_rpcl.j2k",
+                  "scene_progressive_layers_plt.jp2")
+COMMITTED_JPEG2000 = {
+    "jpeg2000": "scene_baseline_420_default.jp2",
+    "jpeg2000_irreversible": "scene_baseline_420_irreversible.jp2"}
 TIMED = ("images/sample.jpg", "output/detections.jpg",
          "tests/data/image_io/scene_progressive.jpg")
 # the JPEG scenes as lossy WebP, each in the JPEG scene's slot
@@ -141,7 +155,11 @@ def scene_files(fmt: str, count: int = 3) -> tuple:
     first scene (its JPEG decode's pixels) and the other two as their
     JPEG files; COMMITTED_JPEG's formats the committed arithmetic,
     lossless or smoothed JPEG file of the first scene and the other two
-    as their JPEG files; "tiff_group4" the scenes' bilevel (mean of the channels
+    as their JPEG files; "jpeg2000" and "jpeg2000_irreversible" the
+    committed default and irreversible JP2 of the first scene and the
+    other two as their JPEG files; "jpeg2000_layouts" each scene's
+    committed reversible JPEG 2000 file (JPEG2000_FILES: its JPEG decode's
+    pixels); "tiff_group4" the scenes' bilevel (mean of the channels
     below 110 black) as CCITT Group 4; PLUGIN_SCENES written from their
     native decodes (plugin_scene)."""
     from maskrcnn_tpu_torch.data import image_io
@@ -159,6 +177,12 @@ def scene_files(fmt: str, count: int = 3) -> tuple:
         elif fmt in COMMITTED_JPEG and k == 0:
             out.append((COMMITTED_JPEG[fmt],
                         (JPEG_SCENES / COMMITTED_JPEG[fmt]).read_bytes()))
+        elif fmt in COMMITTED_JPEG2000 and k == 0:
+            out.append((COMMITTED_JPEG2000[fmt], (
+                JPEG2000_SCENES / COMMITTED_JPEG2000[fmt]).read_bytes()))
+        elif fmt == "jpeg2000_layouts":
+            out.append((JPEG2000_FILES[k],
+                        (JPEG2000_SCENES / JPEG2000_FILES[k]).read_bytes()))
         elif fmt == "tiff_group4":
             bilevel = image_io.read_image(data).mean(-1) < 110
             out.append((f"{stem}_group4.tif", image_writers().encode_tiff(
@@ -195,7 +219,8 @@ def scene_files(fmt: str, count: int = 3) -> tuple:
 FORMAT_TIMES = ("png", "webp", "webp_lossless", "gif", "bmp", "tiff_raw",
                 "tiff_lzw_predictor", "tiff_tiled_deflate_predictor",
                 "tiff_jpeg", "tiff_zstd_predictor", "tiff_lzma_predictor",
-                "tiff_group4") + PLUGIN_SCENES + tuple(COMMITTED_JPEG)
+                "tiff_group4") + PLUGIN_SCENES + tuple(COMMITTED_JPEG) + tuple(
+                    COMMITTED_JPEG2000)
 
 
 def format_scenes() -> dict:
@@ -203,9 +228,10 @@ def format_scenes() -> dict:
     GIF, BMP, and TIFF uncompressed, LZW with predictor 2, tiled Deflate with
     predictor 2, YCbCr 2x2 JPEG, ZSTD and LZMA with predictor 2 and its
     bilevel as Group 4, as PPM P6, TGA RLE, QOI, PCX, SGI RLE and Sun
-    RLE, and as arithmetic-coded sequential and progressive JPEG,
-    lossless JPEG with predictors 1 and 7 and a block-smoothed
-    progressive JPEG (the files decode_times times beside TIMED)."""
+    RLE, as arithmetic-coded sequential and progressive JPEG, lossless
+    JPEG with predictors 1 and 7 and a block-smoothed progressive JPEG,
+    and as reversible and irreversible JP2 (the files decode_times times
+    beside TIMED)."""
     return {name: data for fmt in FORMAT_TIMES
             for name, data in scene_files(fmt, 1)}
 
