@@ -3093,10 +3093,12 @@ def decode_phase(card, build=None):
     extended and animated WebP, GIF and BMP of every mode; TIFF of every
     mode, compression (ZSTD, LZMA and every CCITT mode among them),
     predictor, layout and orientation; PPM/PGM/PBM/PFM, TGA, QOI, ICO,
-    CUR, DIB, PCX, DCX, SGI and Sun raster of every mode) decodes to its
-    Pillow digest, and each refused file raises NotImplementedError
-    naming its mode or the format Pillow reads that the port does not
-    (each file Pillow raises on raises a ValueError); the first scene as
+    CUR, DIB, PCX, DCX, SGI and Sun raster of every mode; YCbCr through
+    libtiff's RGBA route, old-style JPEG, LAB, 16-bit CMYK, ThunderScan,
+    every xz filter, ICNS) decodes to its Pillow digest, and each refused file
+    raises NotImplementedError naming its mode or the format Pillow reads
+    that the port does not (each file Pillow raises on raises a
+    ValueError); the first scene as
     ZSTD and LZMA TIFF (tests/data/tiff_scenes) and the scenes as
     arithmetic-coded, lossless and block-smoothed JPEG
     (tests/data/jpeg_scenes) and the scenes as JPEG 2000
@@ -3113,8 +3115,10 @@ def decode_phase(card, build=None):
     YCbCr 2x2 JPEG, ZSTD and LZMA with predictor 2, its bilevel as
     CCITT Group 4, PPM P6, TGA RLE, QOI, PCX, SGI RLE and Sun RLE, and
     arithmetic-coded sequential and progressive JPEG, lossless JPEG with
-    predictors 1 and 7 and a block-smoothed progressive JPEG, and the
-    first scene as reversible and irreversible JP2);
+    predictors 1 and 7 and a block-smoothed progressive JPEG, the
+    first scene as reversible and irreversible JP2, and as YCbCr 2x2 LZW
+    and YCbCr 1x1 planar TIFF (libtiff's RGBA route), its JPEG stream as
+    old-style JPEG TIFF, as LAB TIFF, and on a 1024² ICNS canvas);
     the PNG scene's image data through the library's inflate beside
     zlib.decompress; decodes a second of the two baseline JPEG scenes on 1 and 4 threads,
     each route, and of the three scenes as lossy WebP and as tiled
@@ -3215,14 +3219,14 @@ def decode_phase(card, build=None):
           f"{len(index['files'])} files to their digests (ZSTD, LZMA and "
           f"CCITT among them; {plugins} of PPM, TGA, QOI, ICO, CUR, DIB, "
           f"PCX, DCX, SGI and Sun raster), {len(index['refused'])} refused "
-          f"by name (an xz BCJ filter's and Pillow's formats the port does "
-          f"not read among them: {refused_formats}); the "
+          f"by name (old-style JPEG in tiles or planes and Pillow's "
+          f"formats the port does not read among them: {refused_formats}); the "
           f"first scene as ZSTD and as LZMA TIFF ({len(scene_tiffs)} "
           f"committed files) to their digests; {jpeg_modes} corpus files of "
           f"arithmetic-coded, lossless and block-smoothed JPEG and the "
           f"scenes in those modes ({len(scene_jpegs)} committed files) to "
-          f"their digests, {len(index.get('errors', {}))} byte edits Pillow "
-          f"refuses raise; {jpeg2000s} corpus files of JPEG 2000 (JP2 and "
+          f"their digests, {len(index.get('errors', {}))} files Pillow "
+          f"fails on raise ValueError; {jpeg2000s} corpus files of JPEG 2000 (JP2 and "
           f"raw J2K: every progression, mode switch, tiles, precincts, POC, "
           f"PPM/PPT, RGN, subsampling, CMYK, sYCC, palettes) and the scenes "
           f"as JPEG 2000 ({len(scene_j2ks)} committed files) to their "
@@ -3266,7 +3270,7 @@ FILES_COPIES, FILES_B = 8, 8
 FILES_FORMATS = ("bmp", "webp_lossless", "tiff_tiled_lzw_predictor", "webp",
                  "gif", "tiff_jpeg", "tiff_zstd_predictor",
                  "tiff_lzma_predictor", "plugins", "jpeg_modes",
-                 "jpeg2000_layouts")
+                 "jpeg2000_layouts", "rgba_modes", "rgba_modes_png")
 # the sweeps whose files hold the JPEG decodes' pixels, so their detections
 # equal the JPEG sweep's (the JPEG TIFF holds the baseline scenes' own JPEG
 # streams, which decode to their JPEG files' pixels; the ZSTD and LZMA
@@ -3286,7 +3290,13 @@ SAME_PIXELS = ("plain", "bmp", "webp_lossless", "tiff_tiled_lzw_predictor",
 FILES_IMAGES = {"bmp": FILES_B, "webp_lossless": FILES_B, "webp": FILES_B,
                 "gif": FILES_B, "tiff_zstd_predictor": FILES_B,
                 "tiff_lzma_predictor": FILES_B, "plugins": FILES_B,
-                "jpeg_modes": FILES_B, "jpeg2000_layouts": FILES_B}
+                "jpeg_modes": FILES_B, "jpeg2000_layouts": FILES_B,
+                "rgba_modes": FILES_B, "rgba_modes_png": FILES_B}
+# "rgba_modes": one batch rotating through libtiff's RGBA route, LAB and
+# ICNS (image_decode_bench_torch.RGBA_MODES: YCbCr 2x2 LZW strips, YCbCr
+# 1x1 Deflate planes, old-style JPEG, LAB, an ic10 PNG on a 1024² canvas), other
+# pixels than the JPEG files': its detections equal those of the same
+# decodes read back from PNG files ("rgba_modes_png")
 
 
 def files_phase(kernels, card, cfg=None):
@@ -3315,7 +3325,11 @@ def files_phase(kernels, card, cfg=None):
     2000 (committed, tests/data/jpeg2000_scenes: a default JP2, a raw J2K
     with 256x256 tiles and precincts in RPCL order, a JP2 of three quality
     layers with PLT) hold the JPEG decodes' pixels, so their detections
-    equal the JPEG sweep's; lossy
+    equal the JPEG sweep's; one batch whose images rotate through YCbCr
+    2x2 LZW strips, YCbCr 1x1 Deflate planes (libtiff's RGBA route), the
+    scenes' JPEG streams as old-style JPEG TIFF, LAB TIFF and the scenes
+    on a 1024² ICNS canvas (written at run time, numpy only) gives the
+    detections of its own decodes read back from PNG files; lossy
     WebP and GIF (a fixed palette) find detections; K1, K2 and K4 launched in every sweep. Then one POST each of the progressive scene, of a
     lossy WebP scene and of a JPEG TIFF scene to tools/serve_torch.py's
     handler on a localhost port is answered with detections. Returns the
@@ -3389,6 +3403,9 @@ def files_phase(kernels, card, cfg=None):
         check(same_detections(got, sweeps["native"][0][:len(got)]),
               f"9d: the {route} sweep's detections differ from the native "
               "JPEG sweep's")
+    check(same_detections(sweeps["rgba_modes"][0], sweeps["rgba_modes_png"][0]),
+          "9d: the RGBA-route and ICNS sweep's detections differ from those of "
+          "its decodes read back from PNG")
     n_images = 3 * FILES_COPIES
     parts = []
     for route, (results, seconds, decode, stats, n, count) in sweeps.items():
@@ -3445,7 +3462,9 @@ def files_phase(kernels, card, cfg=None):
           f"RLE in turn), JPEG-mode (arithmetic sequential, "
           f"arithmetic progressive, lossless in turn) and JPEG 2000 "
           f"(default JP2, tiled RPCL J2K, layered JP2 with PLT in turn) "
-          f"sweeps; "
+          f"sweeps; of the RGBA-route, LAB and ICNS batch (YCbCr 2x2 LZW, "
+          f"YCbCr 1x1 planes, old-style JPEG, LAB, ICNS in turn) and of "
+          f"its decodes read back from PNG; "
           + "; ".join(parts)
           + f"; bbox AP {sweeps['native'][3][0]:.3f} (seeded weights); "
           + "; ".join(f"serve_torch POST of {name} answered {status} with "

@@ -342,6 +342,21 @@ struct Bits {
   // dropped and the marker read by read_restart_marker. Where that keeps
   // a marker unread, the next interval decodes from zero bits and keeps
   // `insufficient` as it was; else it decodes afresh.
+  // whether the marker libjpeg's read_restart_marker reads next (past any
+  // bytes before it) is the restart expected: where it is not, libjpeg
+  // resyncs through the source's resync_to_restart
+  bool next_is_restart(int num) const {
+    int64_t p = pos;
+    if (at_marker) return p + 1 < n && d[p + 1] == 0xD0 + num;
+    for (;;) {
+      while (p < n && d[p] != 0xFF) p++;
+      while (p < n && d[p] == 0xFF) p++;
+      if (p >= n) return false;
+      if (d[p] != 0) return d[p] == 0xD0 + num;
+      p++;
+    }
+  }
+
   void restart(int& next_restart_num) {
     JpegSource src;
     src.d = d;

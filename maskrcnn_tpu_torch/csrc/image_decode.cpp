@@ -103,11 +103,15 @@
 // read: NotImplementedError), with a message.
 
 #include <algorithm>
+#include <cfloat>
 #include <climits>
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
+#include <cstdlib>
 #include <cstring>
 #include <iterator>
+#include <new>
 #include <string>
 #include <vector>
 
@@ -194,6 +198,11 @@ struct Jpeg {
   // libtiff's source (a strip or tile, a fake EOI past its end), not
   // Pillow's 65536-byte blocks of the file
   bool in_tiff = false;
+  // libtiff's old-style JPEG source: a restart marker out of turn, or the
+  // end of the data within a scan, is an error (its resync_to_restart
+  // fails, and so does its fill past the end); the MCU it happens at
+  bool ojpeg = false;
+  int64_t fail_mcu = -1;
 
   Jpeg(const uint8_t* data, int64_t size) : d(data), n(size) {
     std::memset(dac_L, 0, sizeof(dac_L));
@@ -252,9 +261,8 @@ struct Jpeg {
       const bool sof = marker >= 0xC0 && marker <= 0xCF && marker != 0xC4 && marker != 0xCC;
       if (sof && !tables) {
         if (const char* mode = sof_mode(marker))
-          refuse(std::string("JPEG: ") + mode + " mode is not supported "
-                 "(baseline, extended sequential, progressive and lossless "
-                 "Huffman, sequential and progressive arithmetic only)");
+          corrupt(std::string("JPEG: ") + mode + " mode, which libjpeg-turbo does not "
+                  "decode (Pillow: broken data stream)");
         if (have_frame) corrupt("JPEG: a second frame header");
       }
       if (pos + 2 > n) {
@@ -392,15 +400,15 @@ struct Jpeg {
     width = be16(b + 3);
     int nc = b[5];
     if (precision != 8)
-      refuse("JPEG: " + std::to_string(precision) +
-             "-bit samples are not supported (8-bit only)");
+      corrupt("JPEG: " + std::to_string(precision) +
+              "-bit samples, which Pillow's 8-bit decoder does not take");
     if (height == 0)
-      refuse("JPEG: a DNL marker (height defined after the scan) is not "
-             "supported");
+      corrupt("JPEG: an empty image (a height defined by a DNL marker), which libjpeg-turbo "
+              "refuses");
     if (width == 0) corrupt("JPEG: image width 0");
     if (nc != 1 && nc != 3 && nc != 4)
-      refuse("JPEG: " + std::to_string(nc) +
-             " components are not supported (1, 3 or 4)");
+      corrupt("JPEG: " + std::to_string(nc) +
+              " components, which Pillow does not take (1, 3 or 4)");
     if (len != 6 + 3 * nc) corrupt("JPEG: bad frame header");
     progressive = prog;
     comps.resize(nc);
@@ -418,8 +426,9 @@ struct Jpeg {
     }
     for (const Component& c : comps) {
       if (hmax % c.h || vmax % c.v)
-        refuse("JPEG: fractional sampling factors (a component's factors do "
-               "not divide the largest) are not supported");
+        corrupt("JPEG: fractional sampling factors (a component's factors do "
+                "not divide the largest), which libjpeg-turbo does not decode "
+                "(Pillow: broken data stream)");
     }
     mcux = (width + 8 * hmax - 1) / (8 * hmax);
     mcuy = (height + 8 * vmax - 1) / (8 * vmax);
@@ -638,8 +647,8 @@ struct Jpeg {
       }
     }
     if (layout.size() > 10)
-      refuse("JPEG: an interleaved scan of more than 10 blocks an MCU "
-             "(sampling factors too large) is not supported");
+      corrupt("JPEG: an interleaved scan of more than 10 blocks an MCU "
+              "(sampling factors too large), which libjpeg-turbo refuses");
     // block s of the MCU at MCU row my, column mx
     auto block_at = [&](int64_t my, int64_t mx, size_t s) {
       Component& c = comps[layout[s].ci];
@@ -699,11 +708,21 @@ struct Jpeg {
           last_good_row = static_cast<int>(my / rows_per_imcu);
         if (restart_interval && m > 0 && --to_restart == 0) {
           to_restart = restart_interval;
+          if (ojpeg && !bits.next_is_restart(next_restart_num)) {
+            fail_mcu = m;
+            break;
+          }
           bits.restart(next_restart_num);
           for (Component& c : comps) c.dc_last = 0;
           eobrun = 0;
         }
-        if (bits.insufficient) continue;
+        if (bits.insufficient) {
+          if (ojpeg && !bits.at_marker) {
+            fail_mcu = m - 1;
+            break;
+          }
+          continue;
+        }
         for (size_t s = 0; s < layout.size(); s++) {
           Component& c = comps[layout[s].ci];
           // (a table the scan does not use may be an index past 3)
@@ -754,8 +773,8 @@ struct Jpeg {
     int blocks = 0;
     for (int ci : in_scan) blocks += comps[ci].h * comps[ci].v;
     if (ns > 1 && blocks > 10)
-      refuse("JPEG: an interleaved scan of more than 10 blocks an MCU "
-             "(sampling factors too large) is not supported");
+      corrupt("JPEG: an interleaved scan of more than 10 blocks an MCU "
+              "(sampling factors too large), which libjpeg-turbo refuses");
     // jddiffct.c / jdlossls.c start_pass: the predictor and point transform
     if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= 8)
       corrupt("JPEG: bad lossless scan parameters");
@@ -1266,8 +1285,8 @@ void idct_smoothed(const Component& c, int imcu_rows, int last_good_row, bool fi
 // each): the entropy-coded data, the IDCT (block-smoothed where
 // libjpeg-turbo smooths) or a lossless frame's samples, and the
 // upsampler.
-std::vector<std::vector<uint8_t>> jpeg_planes(Jpeg& j) {
-  j.run(false);
+std::vector<std::vector<uint8_t>> jpeg_planes(Jpeg& j, bool ran = false) {
+  if (!ran) j.run(false);
   if (j.comps.front().coef.empty() && j.comps.front().samples.empty()) j.allocate();
   const bool smooth = j.would_smooth();
     const int W = j.width, H = j.height;
@@ -1303,6 +1322,27 @@ std::vector<std::vector<uint8_t>> jpeg_planes(Jpeg& j) {
              full[ci].data(), W, H, true);
   }
   return full;
+}
+
+// libjpeg's raw data output: each component's samples at its own
+// (downsampled) resolution, its blocks' IDCT into a plane of whole blocks
+// (`planes`), their row strides returned
+std::vector<int> jpeg_raw_planes(Jpeg& j, std::vector<std::vector<uint8_t>>& planes) {
+  if (j.comps.front().coef.empty()) j.allocate();
+  std::vector<int> strides;
+  planes.assign(j.comps.size(), {});
+  for (size_t ci = 0; ci < j.comps.size(); ci++) {
+    Component& c = j.comps[ci];
+    const int bx = (c.cw + 7) / 8, by = (c.ch + 7) / 8;
+    const int stride = bx * 8;
+    planes[ci].assign(static_cast<size_t>(stride) * by * 8, 0);
+    for (int y = 0; y < by; y++)
+      for (int x = 0; x < bx; x++)
+        idct_islow(c.coef.data() + (static_cast<int64_t>(y) * c.bw + x) * 64, c.quant16,
+                   planes[ci].data() + static_cast<int64_t>(y) * 8 * stride + x * 8, stride);
+    strides.push_back(stride);
+  }
+  return strides;
 }
 
 void decode_jpeg(Jpeg& j, uint8_t* out) {
@@ -1887,9 +1927,9 @@ uint32_t le32(const uint8_t* p) {
 
 // A BMP as BmpImagePlugin.py opens it: a "BM" file, or a DIB header at
 // `at` (BmpImageFile._bitmap without a file header: Pillow's DIB plugin,
-// an ICO or CUR frame). `pillow_error`: what Pillow itself refuses
-// (header types, depths, bit-field layouts, compressions, palette sizes
-// its _bitmap raises on) is a ValueError, not a refusal by name.
+// an ICO or CUR frame). What Pillow itself refuses (header types, depths,
+// bit-field layouts, compressions, palette sizes its _bitmap raises on) is
+// a ValueError.
 struct Bmp {
   int64_t width = 0, height = 0;
   int bits = 0;
@@ -1902,21 +1942,16 @@ struct Bmp {
   bool gray = false;
   int rgb_at[3] = {2, 1, 0};      // 32-bit: byte of R, G and B in a pixel
   int depth16 = 15;               // 16-bit: 5-5-5 ("BGR;15") or 5-6-5
-  bool pillow_error = false;
+  int misread = 0;                // the bits a pixel of Pillow's wrong unpacker, where it has one
 
   Bmp(const uint8_t* d, int64_t n) {
     if (n < 18 || d[0] != 'B' || d[1] != 'M') corrupt("not a BMP file");
     parse(d, n, 14, le32(d + 10));
   }
 
-  Bmp(const uint8_t* d, int64_t n, int64_t at) : pillow_error(true) {
+  Bmp(const uint8_t* d, int64_t n, int64_t at) {
     if (at < 0 || at > n - 4) corrupt("DIB: truncated header");
     parse(d, n, at, 0);
-  }
-
-  [[noreturn]] void unsupported(const std::string& m) const {
-    if (pillow_error) corrupt(m);
-    refuse(m);
   }
 
   void parse(const uint8_t* d, int64_t n, int64_t at, int64_t file_offset) {
@@ -1954,15 +1989,14 @@ struct Bmp {
         }
       }
     } else {
-      unsupported("BMP: header type " + std::to_string(hs) + " is not supported");
+      corrupt("BMP: header type " + std::to_string(hs) + " is not supported");
     }
     if (colors == 0) colors = bits < 32 ? 1u << bits : 0u;
     if (offset == 14 + static_cast<int64_t>(hs) && bits <= 8)
       offset += 4 * static_cast<int64_t>(colors);
     if (bits != 1 && bits != 4 && bits != 8 && bits != 16 && bits != 24 &&
         bits != 32)
-      unsupported("BMP: pixel depth " + std::to_string(bits) +
-                  " is not supported");
+      corrupt("BMP: pixel depth " + std::to_string(bits) + " is not supported");
     if (compression == 3) {
       // the bit-field layouts Pillow reads
       static const uint32_t k32[8][4] = {
@@ -1995,22 +2029,21 @@ struct Bmp {
           ok = mask[0] == 0x7C00 && mask[1] == 0x3E0 && mask[2] == 0x1F;
         }
       }
-      if (!ok) unsupported("BMP: this bit-fields layout is not supported");
+      if (!ok) corrupt("BMP: this bit-fields layout is not supported");
     } else if (compression == 1 || compression == 2) {
+      // (Pillow's RLE decoder has no raw mode for wider pixels)
       if (bits > 8)
-        refuse("BMP: RLE compression of " + std::to_string(bits) +
-               "-bit pixels is not supported");
+        corrupt("BMP: RLE compression of " + std::to_string(bits) +
+                "-bit pixels: unknown raw mode for given image mode, as Pillow raises");
     } else if (compression != 0) {
       const char* name = compression == 4   ? " (JPEG)"
                          : compression == 5 ? " (PNG)"
                                             : "";
-      unsupported("BMP: compression " + std::to_string(compression) + name +
-                  " is not supported");
+      corrupt("BMP: compression " + std::to_string(compression) + name + " is not supported");
     }
     if (bits <= 8) {
       if (colors == 0 || colors > 65536)
-        unsupported("BMP: palette size " + std::to_string(colors) +
-                    " is not supported");
+        corrupt("BMP: palette size " + std::to_string(colors) + " is not supported");
       int64_t avail = std::max<int64_t>(0, std::min<int64_t>(
           n - pos, static_cast<int64_t>(padding) * colors));
       const uint8_t* p = d + pos;
@@ -2033,14 +2066,17 @@ struct Bmp {
       if (gray) {
         // mode "1" over 1-bit pixels and mode "L" over 8-bit ones are a
         // lookup in this palette; Pillow reads other bit depths under a
-        // grayscale palette with the wrong unpacker
+        // grayscale palette with the wrong unpacker: "1" (a bit a pixel)
+        // or "L" (a byte a pixel) over the rows of `bits`-bit pixels
         bool one = colors == 2 && bits == 1 && compression == 0;
         bool l8 = colors != 2 && bits == 8;
         bool rle_l = colors != 2 && (compression == 1 || compression == 2);
-        if (!one && !l8 && !rle_l)
-          refuse("BMP: a " + std::to_string(bits) +
-                 "-bit image under a grayscale palette of " +
-                 std::to_string(colors) + " colours is not supported");
+        if (!one && !l8 && !rle_l) {
+          if (compression != 0)
+            refuse("BMP: RLE pixels under a grayscale palette of 2 colours (Pillow's mode "
+                   "\"1\" over the decoded indices) are not supported");
+          misread = colors == 2 ? 1 : 8;
+        }
         gray = !one;
       }
     }
@@ -2126,7 +2162,9 @@ void decode_bmp(const Bmp& b, const uint8_t* d, int64_t n, uint8_t* out,
   }
   // the raw decoder reads a row's padding only before the next row
   const int64_t stride = ((w * b.bits + 31) >> 3) & ~int64_t{3};
-  const int64_t last = (w * b.bits + 7) / 8;
+  const int64_t last = (w * (b.misread ? b.misread : b.bits) + 7) / 8;
+  // Pillow's raw decoder refuses a row longer than the stride
+  if (last > stride) corrupt("BMP: codec configuration error (a row of the raw mode is longer than the stride)");
   if (b.offset < 0 || b.offset > n || (n - b.offset - last) / std::max<int64_t>(stride, 1) < h - 1 ||
       n - b.offset < last)
     corrupt("BMP: image file is truncated");
@@ -2134,6 +2172,15 @@ void decode_bmp(const Bmp& b, const uint8_t* d, int64_t n, uint8_t* out,
     const uint8_t* row = d + b.offset + r * stride;
     int64_t y = b.top_down ? r : h - 1 - r;
     uint8_t* o = out + y * w * 3;
+    if (b.misread == 8) {
+      for (int64_t x = 0; x < w; x++) o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = row[x];
+      continue;
+    }
+    if (b.misread == 1) {
+      for (int64_t x = 0; x < w; x++)
+        o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = (row[x / 8] >> (7 - x % 8)) & 1 ? 255 : 0;
+      continue;
+    }
     switch (b.bits) {
       case 1:
       case 4:
@@ -2528,6 +2575,75 @@ void tiff_packbits(const uint8_t* d, int64_t n, uint8_t* out, int64_t cap) {
             std::to_string(cap - len) + " bytes)");
 }
 
+// libtiff's ThunderScan decoder (tif_thunder.c ThunderDecodeRow): rows of
+// `width` 4-bit pixels, each row `scan` bytes apart in out[0, cap); runs,
+// 2- and 3-bit deltas from the last pixel and raw pixels. A row whose
+// codes give more or fewer pixels fails after its bytes past the last
+// pixel are zeroed.
+void tiff_thunder(const uint8_t* d, int64_t n, uint8_t* out, int64_t cap, int64_t width,
+                  int64_t scan) {
+  static const int kTwo[4] = {0, 1, 0, -1};
+  static const int kThree[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+  if (scan <= 0 || cap % scan) corrupt("TIFF: ThunderScan: Fractional scanlines cannot be read");
+  int64_t at = 0;  // input read
+  for (int64_t row = 0; row < cap; row += scan) {
+    uint8_t* op0 = out + row;
+    int64_t op = 0;  // output byte
+    const int64_t bytes = (width + 1) / 2;
+    unsigned last = 0;
+    int64_t np = 0;
+    auto put = [&](int v) {
+      last = static_cast<unsigned>(v) & 0xf;
+      if (np < width) {
+        if (np++ & 1)
+          op0[op++] |= static_cast<uint8_t>(last);
+        else
+          op0[op] = static_cast<uint8_t>(last << 4);
+      }
+    };
+    while (at < n && np < width) {
+      int c = d[at++];
+      switch (c & 0xc0) {
+        case 0x00: {  // a run of the last pixel, c & 0x3f long
+          int k = c;
+          if (np & 1) {
+            op0[op] |= static_cast<uint8_t>(last);
+            last = op0[op++];
+            np++;
+            k--;
+          } else {
+            last |= last << 4;
+          }
+          np += k;
+          if (np <= width)
+            for (; k > 0; k -= 2) op0[op++] = static_cast<uint8_t>(last);
+          if (k == -1) op0[--op] &= 0xf0;
+          last &= 0xf;
+          break;
+        }
+        case 0x40:
+          if (((c >> 4) & 3) != 2) put(static_cast<int>(last) + kTwo[(c >> 4) & 3]);
+          if (((c >> 2) & 3) != 2) put(static_cast<int>(last) + kTwo[(c >> 2) & 3]);
+          if ((c & 3) != 2) put(static_cast<int>(last) + kTwo[c & 3]);
+          break;
+        case 0x80:
+          if (((c >> 3) & 7) != 4) put(static_cast<int>(last) + kThree[(c >> 3) & 7]);
+          if ((c & 7) != 4) put(static_cast<int>(last) + kThree[c & 7]);
+          break;
+        default:
+          put(c);
+          break;
+      }
+    }
+    if (np != width) {
+      if (op < bytes) std::memset(op0 + op, 0, static_cast<size_t>(bytes - op));
+      corrupt(std::string("TIFF: ThunderScan: ") + (np < width ? "Not enough" : "Too much") +
+              " data at scanline " + std::to_string(row / scan) + " (" + std::to_string(np) +
+              " != " + std::to_string(width) + ")");
+    }
+  }
+}
+
 // Pillow's TiffImagePlugin.OPEN_INFO: (big-endian, photometric, sample
 // format, fill order, bits per sample, extra samples) -> (mode, raw mode)
 struct OpenInfo {
@@ -2668,7 +2784,7 @@ const OpenInfo kOpenInfo[] = {
 enum class PMode { One, L, P, I16, I, F, LA, PA, RGB, RGBA, CMYK, Lab };
 
 struct Unpack {
-  enum Kind { Bits, U16, I12, S16, I32, F32, Chan8, Chan16, Band8 } kind = Bits;
+  enum Kind { Bits, U16, I12, S16, I32, F32, Chan8, Chan16, Band8, Lab8 } kind = Bits;
   int bits = 8;           // bits a pixel
   int depth = 8;          // Bits: bits a sample
   bool gray = false;      // Bits: scaled to 0-255 ("1", "L"), else an index
@@ -2719,6 +2835,19 @@ int bands(PMode m) {
 // Pillow's unpacker of `raw` for an image of `mode`: false where Pillow
 // has none ("unknown raw mode").
 bool make_unpack(const std::string& raw, PMode mode, Unpack& u) {
+  if (raw == "LAB") {
+    // ImagingUnpackLAB: a* and b* signed outside, unsigned in the image
+    u.kind = Unpack::Lab8;
+    u.bits = 24;
+    return mode == PMode::Lab;
+  }
+  if (mode == PMode::Lab && raw.size() == 1 && std::strchr("LAB", raw[0])) {
+    // a plane a band, its bytes as they are
+    u.kind = Unpack::Band8;
+    u.bits = 8;
+    u.band = static_cast<int>(std::strchr("LAB", raw[0]) - "LAB");
+    return true;
+  }
   struct BitsMode { const char* name; int depth; char family; bool inv, rev; };
   static const BitsMode kBits[] = {
       {"1", 1, '1', false, false}, {"1;I", 1, '1', true, false},
@@ -2802,7 +2931,8 @@ bool make_unpack(const std::string& raw, PMode mode, Unpack& u) {
     u.big = e == 'B';
     u.bits = 16 * static_cast<int>(u.chans.size());
     return (e == 'L' || e == 'B' || e == 'N') &&
-           (u.chans == "RGB" || u.chans == "RGBA" || u.chans == "RGBX" || u.chans == "RGBa");
+           (u.chans == "RGB" || u.chans == "RGBA" || u.chans == "RGBX" || u.chans == "RGBa" ||
+            u.chans == "CMYK");
   }
   return false;
 }
@@ -2869,6 +2999,10 @@ void unpack_row(const Unpack& u, const uint8_t* in, int64_t count, uint32_t* out
     case Unpack::Band8:
       for (int64_t x = 0; x < count; x++) out[x] = set_band(out[x], u.band, in[x]);
       return;
+    case Unpack::Lab8:
+      for (int64_t x = 0; x < count; x++, in += 3)
+        out[x] = in[0] | ((in[1] ^ 128u) << 8) | ((in[2] ^ 128u) << 16) | 0xff000000u;
+      return;
     case Unpack::Chan8:
     case Unpack::Chan16: {
       const int n = static_cast<int>(u.chans.size());
@@ -2930,15 +3064,15 @@ inline int tiff_type_size(int type) {
   }
 }
 
-const char* tiff_refused(int compression) {
-  switch (compression) {
-    case 6: return "old-style JPEG (6)";
-    case 32809: return "ThunderScan (32809)";
-    case 34676: return "SGILog (34676)";
-    case 34677: return "SGILog24 (34677)";
-    case 50001: return "WebP (50001)";
-    default: return nullptr;
-  }
+// the codecs Pillow's libtiff cannot decode any file of: WebP is not
+// configured in it, and SGILog needs a LogL or LogLuv photometric, which
+// Pillow's TIFF plugin does not open
+void tiff_never_decoded(int compression) {
+  if (compression == 50001)
+    corrupt("TIFF: WEBP compression support is not configured (Pillow's libtiff)");
+  if (compression == 34676 || compression == 34677)
+    corrupt("TIFF: SGILog compression: inappropriate photometric interpretation (libtiff "
+            "decodes LogL and LogLuv only, which Pillow does not open)");
 }
 
 inline bool tiff_fax(int compression) {
@@ -2983,7 +3117,15 @@ struct LibtiffDir {
   bool colormap = false;
   const Entry* jpegtables = nullptr;
   std::vector<uint16_t> ycbcr_sub;  // YCbCrSubsampling, where read
+  std::vector<float> luma, refbw;   // YCbCrCoefficients, ReferenceBlackWhite, where read
+  // old-style JPEG's tags (tif_ojpeg.c's fields): JPEGInterchangeFormat
+  // and its length, JPEGRestartInterval, and the tables' offsets
+  uint64_t jif = 0, jif_len = 0;
+  uint16_t ojpeg_restart = 0;
+  std::vector<uint64_t> qtables, dctables, actables;
+  bool counts_tag = false;
   uint32_t t4 = 0, t6 = 0;
+  bool bps_read = false, spp_read = false;
   std::vector<uint16_t> extrasamples;
   int ink_bump = -1;  // the InkNames entry whose count libtiff raises by one
   uint64_t nstrips = 0;
@@ -2991,6 +3133,10 @@ struct LibtiffDir {
 
   LibtiffDir(const uint8_t* data, int64_t size, bool be_, bool big_)
       : d(data), n(size), be(be_), big(big_) {}
+
+  // YCbCrSubsampling as TIFFGetFieldDefaulted gives it (2x2 unset)
+  int sub_h() const { return ycbcr_sub.empty() ? 2 : ycbcr_sub[0]; }
+  int sub_v() const { return ycbcr_sub.empty() ? 2 : ycbcr_sub[1]; }
 
   uint64_t rd(const uint8_t* p, int bytes) const {
     uint64_t v = 0;
@@ -3046,6 +3192,64 @@ struct LibtiffDir {
     return kOk;
   }
 
+  // TIFFReadDirEntryFloatArray: the values of an integer, rational,
+  // float or double entry as floats (a rational of denominator 0 is 0);
+  // `out` stays empty where libtiff drops the tag
+  void floats(const Entry& e, std::vector<float>& out) const {
+    out.clear();
+    const int size = tiff_type_size(e.type);
+    switch (e.type) {
+      case 1: case 3: case 4: case 5: case 6: case 8: case 9: case 10: case 11: case 12:
+      case 13: case 16: case 17: case 18: break;
+      default: return;
+    }
+    const uint64_t bytes = e.count * size;
+    const uint8_t* p = e.field;
+    if (bytes > (big ? 8u : 4u)) {
+      const uint64_t off = rd(e.field, big ? 8 : 4);
+      if (off > static_cast<uint64_t>(n) || bytes > static_cast<uint64_t>(n) - off) return;
+      p = d + off;
+    }
+    for (uint64_t i = 0; i < e.count; i++) {
+      const uint8_t* q = p + i * size;
+      float f;
+      switch (e.type) {
+        case 1: f = static_cast<float>(q[0]); break;
+        case 6: f = static_cast<float>(static_cast<int8_t>(q[0])); break;
+        case 3: f = static_cast<float>(rd(q, 2)); break;
+        case 8: f = static_cast<float>(static_cast<int16_t>(rd(q, 2))); break;
+        case 4: case 13: f = static_cast<float>(static_cast<uint32_t>(rd(q, 4))); break;
+        case 9: f = static_cast<float>(static_cast<int32_t>(rd(q, 4))); break;
+        case 16: case 18: f = static_cast<float>(rd(q, 8)); break;
+        case 17: f = static_cast<float>(static_cast<int64_t>(rd(q, 8))); break;
+        case 5: {
+          const uint32_t a = static_cast<uint32_t>(rd(q, 4)), b = static_cast<uint32_t>(rd(q + 4, 4));
+          f = b == 0 ? 0.0f : static_cast<float>(a) / static_cast<float>(b);
+          break;
+        }
+        case 10: {
+          const int32_t a = static_cast<int32_t>(rd(q, 4));
+          const uint32_t b = static_cast<uint32_t>(rd(q + 4, 4));
+          f = b == 0 ? 0.0f : static_cast<float>(a) / static_cast<float>(b);
+          break;
+        }
+        case 11: {
+          const uint32_t bits = static_cast<uint32_t>(rd(q, 4));
+          std::memcpy(&f, &bits, 4);
+          break;
+        }
+        default: {
+          const uint64_t bits = rd(q, 8);
+          double v;
+          std::memcpy(&v, &bits, 8);
+          f = v > FLT_MAX ? FLT_MAX : v < -FLT_MAX ? -FLT_MAX : static_cast<float>(v);
+          break;
+        }
+      }
+      out.push_back(f);
+    }
+  }
+
   // TIFFReadDirEntryShort / Long: exactly one value
   Err one(const Entry& e, uint64_t max, uint64_t& v) const {
     if (e.count != 1) return kCount;
@@ -3077,6 +3281,8 @@ struct LibtiffDir {
                        compression == 32909 || compression == 34925 || compression == 50000 ||
                        compression == 34887;
       case 347: return compression == 7 || compression == 6;
+      case 512: case 513: case 514: case 515: case 517: case 518: case 519: case 520: case 521:
+        return compression == 6;
       case 292: return compression == 3;
       case 293: return compression == 4;
       default: return true;
@@ -3127,6 +3333,7 @@ struct LibtiffDir {
       if (one(dir[i], 0xFFFF, v) != kOk) fail("SamplesPerPixel");
       if (v == 0) fail("SamplesPerPixel 0");
       spp = static_cast<uint16_t>(v);
+      spp_read = true;
       ignore[i] = true;
     }
     i = first(259);
@@ -3198,7 +3405,9 @@ struct LibtiffDir {
     }
     if (planar == 2) nstrips *= spp;
     if (nstrips == 0 || nstrips > 0xFFFFFFFFull) fail("no strips or tiles");
-    if (!have_offsets) fail(tiled ? "no TileOffsets" : "no StripOffsets");
+    // (old-style JPEG in one strip may do without: its stream holds all)
+    if (!have_offsets && !(compression == 6 && !tiled && nstrips == 1))
+      fail(tiled ? "no TileOffsets" : "no StripOffsets");
     // the second pass
     int offsets_entry = -1, counts_entry = -1;
     for (size_t k = 0; k < dir.size(); k++) {
@@ -3207,7 +3416,7 @@ struct LibtiffDir {
       switch (e.tag) {
         case 258: case 339: case 280: case 281: case 32996:
           if (short_or_persample(e, v) != kOk) fail("tag " + std::to_string(e.tag));
-          if (e.tag == 258) bps = static_cast<uint16_t>(v);
+          if (e.tag == 258) bps = static_cast<uint16_t>(v), bps_read = true;
           if (e.tag == 339) {
             if (v < 1 || v > 6) fail("bad SampleFormat " + std::to_string(v));
             sampleformat = static_cast<uint16_t>(v);
@@ -3293,8 +3502,36 @@ struct LibtiffDir {
             ycbcr_sub = {static_cast<uint16_t>(a[0]), static_cast<uint16_t>(a[1])};
           break;
         }
+        case 529:
+          if (e.count == 3) floats(e, luma);
+          break;
+        case 513: case 514: case 515:
+          if (compression == 6 && one(e, e.tag == 515 ? 0xFFFF : UINT64_MAX, v) == kOk) {
+            if (e.tag == 513) jif = v;
+            if (e.tag == 514) jif_len = v;
+            if (e.tag == 515) ojpeg_restart = static_cast<uint16_t>(v);
+          }
+          break;
+        case 519: case 520: case 521: {
+          // OJPEGVSetField takes at most 3 offsets
+          std::vector<uint64_t> a;
+          if (compression == 6 && e.count <= 3 && array(e, e.count, UINT64_MAX, 8, a) == kOk)
+            (e.tag == 519 ? qtables : e.tag == 520 ? dctables : actables) = a;
+          break;
+        }
+        case 532:
+          if (e.count == 6) floats(e, refbw);
+          break;
+
         default: break;
       }
+    }
+    if (compression == 6) {
+      // TIFFReadDirectory's old-style JPEG hack: a missing photometric or
+      // RGB is YCbCr, missing bits a sample are 8, missing samples a pixel 3
+      if (photometric < 0 || photometric == 2) photometric = 6;
+      if (!bps_read) bps = 8;
+      if (!spp_read && photometric == 6) spp = 3;
     }
     if (photometric == 3 && !colormap) {
       if (bps >= 8 && spp == 3) {
@@ -3311,8 +3548,17 @@ struct LibtiffDir {
       if (array(dir[k], nstrips, UINT64_MAX, 8, out) != kOk) fail(what);
       out.resize(static_cast<size_t>(nstrips), 0);
     };
-    strip_array(offsets_entry, offsets, "StripOffsets");
-    if (counts_entry < 0) {
+    if (offsets_entry >= 0) {
+      strip_array(offsets_entry, offsets, "StripOffsets");
+    } else {
+      offsets.assign(static_cast<size_t>(nstrips), 0);
+    }
+    counts_tag = counts_entry >= 0;
+    if (compression == 6) {
+      // old-style JPEG's byte counts are left as they are (0 past the tag)
+      if (counts_entry >= 0) strip_array(counts_entry, counts, "StripByteCounts");
+      counts.resize(static_cast<size_t>(nstrips), 0);
+    } else if (counts_entry < 0) {
       if ((planar == 1 && nstrips > 1) || (planar == 2 && nstrips != spp))
         fail(tiled ? "no TileByteCounts" : "no StripByteCounts");
       estimate();
@@ -3324,6 +3570,14 @@ struct LibtiffDir {
     // TIFFScanlineSize and TIFFStripSize / TIFFTileSize are not zero
     const uint64_t samples = planar == 1 ? spp : 1;
     if (static_cast<uint64_t>(tiled ? tw : width) * samples * bps == 0) fail("a scanline of zero bytes");
+    // (old-style JPEG's subsampling is its stream's: Tiff::ojpeg_subsampling)
+    if (photometric == 6 && planar == 1 && spp == 3 && compression != 6) {
+      // packed YCbCr: a row of sampling blocks over the vertical subsampling
+      const int hs = sub_h(), vs = sub_v();
+      if ((hs != 1 && hs != 2 && hs != 4) || (vs != 1 && vs != 2 && vs != 4))
+        fail("Invalid YCbCr subsampling");
+      if ((width + hs - 1) / hs * (hs * vs + 2) * bps / 8 / vs == 0) fail("a scanline of zero bytes");
+    }
     if (!tiled && std::min<uint64_t>(rps, height) == 0) fail("a strip of zero bytes");
   }
 
@@ -3345,6 +3599,146 @@ struct LibtiffDir {
     const uint64_t last = offsets.back();
     if (last + counts.back() > static_cast<uint64_t>(n))
       counts.back() = last >= static_cast<uint64_t>(n) ? 0 : n - last;
+  }
+};
+
+// Pillow's LAB -> RGB (Image.convert through ImageCms): LittleCMS 2.17's
+// transform of its D50 Lab profile to sRGB, perceptual, TYPE_Lab_8 to
+// TYPE_RGBA_8, as lcms evaluates it after OptimizeByResampling: a 33³
+// CLUT of 16-bit RGB nodes (the float pipeline sampled at the nodes;
+// data/lab_srgb_clut.zlib, set once by mrt_lab_clut) under PrelinEval8's
+// tetrahedral interpolation of 8-bit inputs (FROM_8_TO_16 in, the
+// fixed-point domain of 32 intervals), FROM_16_TO_8 out.
+uint16_t g_lab_clut[33 * 33 * 33 * 3];
+bool g_lab_ready = false;
+
+uint32_t lab_to_rgb(int L, int a, int b) {
+  struct Axis {
+    int32_t base[256], rest[256];
+  };
+  static const Axis* axes = [] {
+    static Axis t[3];
+    const int32_t opta[3] = {33 * 33 * 3, 33 * 3, 3};
+    for (int k = 0; k < 3; k++)
+      for (int v = 0; v < 256; v++) {
+        const int32_t in = v * 257 * 32;
+        const int32_t fx = in + (in + 0x7fff) / 0xffff;  // _cmsToFixedDomain
+        t[k].base[v] = opta[k] * (fx >> 16);
+        t[k].rest[v] = fx & 0xffff;
+      }
+    return t;
+  }();
+  const int32_t X0 = axes[0].base[L], Y0 = axes[1].base[a], Z0 = axes[2].base[b];
+  const int32_t rx = axes[0].rest[L], ry = axes[1].rest[a], rz = axes[2].rest[b];
+  const int32_t X1 = X0 + (rx == 0 ? 0 : 33 * 33 * 3), Y1 = Y0 + (ry == 0 ? 0 : 33 * 3),
+                Z1 = Z0 + (rz == 0 ? 0 : 3);
+  uint32_t rgb = 0;
+  for (int k = 0; k < 3; k++) {
+    auto D = [&](int32_t x, int32_t y, int32_t z) -> int32_t { return g_lab_clut[x + y + z + k]; };
+    const int32_t c0 = D(X0, Y0, Z0);
+    int32_t c1, c2, c3;
+    if (rx >= ry && ry >= rz) {
+      c1 = D(X1, Y0, Z0) - c0;
+      c2 = D(X1, Y1, Z0) - D(X1, Y0, Z0);
+      c3 = D(X1, Y1, Z1) - D(X1, Y1, Z0);
+    } else if (rx >= rz && rz >= ry) {
+      c1 = D(X1, Y0, Z0) - c0;
+      c2 = D(X1, Y1, Z1) - D(X1, Y0, Z1);
+      c3 = D(X1, Y0, Z1) - D(X1, Y0, Z0);
+    } else if (rz >= rx && rx >= ry) {
+      c1 = D(X1, Y0, Z1) - D(X0, Y0, Z1);
+      c2 = D(X1, Y1, Z1) - D(X1, Y0, Z1);
+      c3 = D(X0, Y0, Z1) - c0;
+    } else if (ry >= rx && rx >= rz) {
+      c1 = D(X1, Y1, Z0) - D(X0, Y1, Z0);
+      c2 = D(X0, Y1, Z0) - c0;
+      c3 = D(X1, Y1, Z1) - D(X1, Y1, Z0);
+    } else if (ry >= rz && rz >= rx) {
+      c1 = D(X1, Y1, Z1) - D(X0, Y1, Z1);
+      c2 = D(X0, Y1, Z0) - c0;
+      c3 = D(X0, Y1, Z1) - D(X0, Y1, Z0);
+    } else {
+      c1 = D(X1, Y1, Z1) - D(X0, Y1, Z1);
+      c2 = D(X0, Y1, Z1) - D(X0, Y0, Z1);
+      c3 = D(X0, Y0, Z1) - c0;
+    }
+    const int32_t rest = c1 * rx + c2 * ry + c3 * rz + 0x8001;
+    const uint32_t out16 = static_cast<uint16_t>(c0 + ((rest + (rest >> 16)) >> 16));
+    rgb |= ((out16 * 65281u + 8388608u) >> 24) << (8 * k);
+  }
+  return rgb;
+}
+
+// A zeroed buffer from calloc (pages untouched until written)
+struct ZeroBuffer {
+  uint8_t* p = nullptr;
+  ZeroBuffer() = default;
+  ZeroBuffer(const ZeroBuffer&) = delete;
+  ZeroBuffer& operator=(const ZeroBuffer&) = delete;
+  ZeroBuffer(ZeroBuffer&& o) noexcept : p(o.p) { o.p = nullptr; }
+  ~ZeroBuffer() { std::free(p); }
+  void allocate(size_t n) {
+    std::free(p);
+    p = static_cast<uint8_t*>(std::calloc(n ? n : 1, 1));
+    if (!p) throw std::bad_alloc();
+  }
+  uint8_t* data() { return p; }
+};
+
+// tif_color.c's TIFFYCbCrToRGBInit and TIFFYCbCrtoRGB, as tif_getimage.c's
+// initYCbCrConversion sets them up: YCbCrCoefficients (CCIR 601-1's
+// luma by default) and ReferenceBlackWhite (0, 255, 128, 255, 128, 255 by
+// default) into fixed-point tables, in float arithmetic as the C source
+// does it; the RGBA raster's word for a YCbCr triple.
+struct YccToRgb {
+  int32_t cr_r[256], cb_b[256], cr_g[256], cb_g[256], y[256];
+
+  static float clampf(float f, float lo, float hi) { return !(f >= lo) ? lo : f > hi ? hi : f; }
+  static int32_t fix(float x) { return static_cast<int32_t>(static_cast<double>(x * 65536.0f) + 0.5); }
+  // Code2V: (c - (int32)RB) * CR / (RW - RB, or 1)
+  static float code2v(int c, float rb, float rw, int cr) {
+    const float span = (rw - rb != 0) ? rw - rb : 1.0f;
+    return static_cast<float>(c - static_cast<int32_t>(rb)) * static_cast<float>(cr) / span;
+  }
+
+  void init(const std::vector<float>& luma_tag, const std::vector<float>& rbw_tag) {
+    const float kLuma[3] = {0.299f, 0.587f, 0.114f};
+    const float kRbw[6] = {0.0f, 255.0f, 128.0f, 255.0f, 128.0f, 255.0f};
+    const float* luma = luma_tag.size() == 3 ? luma_tag.data() : kLuma;
+    const float* rbw = rbw_tag.size() == 6 ? rbw_tag.data() : kRbw;
+    if (std::isnan(luma[0]) || luma[1] == 0.0f || std::isnan(luma[1]) || std::isnan(luma[2]))
+      corrupt("TIFF: initYCbCrConversion: Invalid values for YCbCrCoefficients tag");
+    for (int i = 0; i < 6; i++)
+      if (!(rbw[i] > static_cast<float>(-0x7FFFFFFF + 128) && rbw[i] < static_cast<float>(0x7FFFFFFF)))
+        corrupt("TIFF: initYCbCrConversion: Invalid values for ReferenceBlackWhite tag");
+    const float f1 = 2 - 2 * luma[0];
+    const int32_t d1 = fix(clampf(f1, 0.0f, 2.0f));
+    const float f2 = luma[0] * f1 / luma[1];
+    const int32_t d2 = -fix(clampf(f2, 0.0f, 2.0f));
+    const float f3 = 2 - 2 * luma[2];
+    const int32_t d3 = fix(clampf(f3, 0.0f, 2.0f));
+    const float f4 = luma[2] * f3 / luma[1];
+    const int32_t d4 = -fix(clampf(f4, 0.0f, 2.0f));
+    for (int i = 0, x = -128; i < 256; i++, x++) {
+      const int32_t cr = static_cast<int32_t>(
+          clampf(code2v(x, rbw[4] - 128.0f, rbw[5] - 128.0f, 127), -128.0f * 32, 128.0f * 32));
+      const int32_t cb = static_cast<int32_t>(
+          clampf(code2v(x, rbw[2] - 128.0f, rbw[3] - 128.0f, 127), -128.0f * 32, 128.0f * 32));
+      cr_r[i] = (d1 * cr + (1 << 15)) >> 16;
+      cb_b[i] = (d3 * cb + (1 << 15)) >> 16;
+      cr_g[i] = d2 * cr;
+      cb_g[i] = d4 * cb + (1 << 15);
+      y[i] = static_cast<int32_t>(clampf(code2v(x + 128, rbw[0], rbw[1], 255), -128.0f * 32, 128.0f * 32));
+    }
+  }
+
+  // PACK(r, g, b): the raster's word, bytes R, G, B, 255
+  uint32_t rgb(int Y, int Cb, int Cr) const {
+    auto c8 = [](int32_t v) { return static_cast<uint32_t>(v < 0 ? 0 : v > 255 ? 255 : v); };
+    const uint32_t r = c8(y[Y] + cr_r[Cr]);
+    const uint32_t g = c8(y[Y] + ((cb_g[Cb] + cr_g[Cr]) >> 16));
+    const uint32_t b = c8(y[Y] + cb_b[Cb]);
+    return r | (g << 8) | (b << 16) | 0xff000000u;
   }
 };
 
@@ -3582,14 +3976,9 @@ struct Tiff {
           palette[3 * i + k] = static_cast<uint8_t>(value(*cm, k * entries + i) / 256);
     }
     // what this decoder refuses
-    if (const char* name = tiff_refused(compression))
-      refuse(std::string("TIFF: ") + name + " compression is not supported");
-    if (pm == PMode::Lab) refuse("TIFF: LAB (CIELab) images are not supported");
-    if (rawmode.compare(0, 4, "CMYK") == 0 && rawmode.find(";16") != std::string::npos)
-      refuse("TIFF: 16-bit CMYK images are not supported");
-    if (photometric == 6 && !(compression == 7 && planar == 1 && spp == 3))
-      refuse("TIFF: YCbCr images that are not JPEG-compressed with contiguous "
-             "samples (Pillow reads them through libtiff's RGBA interface) are not supported");
+    tiff_never_decoded(compression);
+    if (pm == PMode::Lab && !g_lab_ready)
+      refuse("TIFF: LAB (CIELab) images need LittleCMS's LAB -> sRGB table (mrt_lab_clut)");
   }
 
   // Image.getexif's XMP fallback: tiff:Orientation="N or tiff:Orientation>N
@@ -3771,11 +4160,24 @@ struct Tiff {
     int64_t rps = 0;                  // libtiff's rows a strip (the image's when absent)
     int64_t tw = 0, th = 0, across = 0, per_plane = 0;
     int64_t row_bytes = 0;            // a strip's or tile's row
+    int64_t pred_row = 0;             // the predictor's row (TIFFScanlineSize, packed YCbCr's)
     int64_t seg_size = 0;             // TIFFStripSize / TIFFTileSize
     std::vector<int64_t> offsets, counts;
     std::vector<uint16_t> extra;      // ExtraSamples
     int hs = 1, vs = 1;               // JPEG: YCbCr subsampling
     bool ycc = false;
+    // libtiff's RGBA interface (YCbCr but contiguous JPEG): its subsampling,
+    // conversion tags and RowsPerStrip as stored
+    bool rgba = false;
+    int sub_h = 2, sub_v = 2;
+    uint32_t rps_tag = 0xFFFFFFFFu;
+    std::vector<float> luma, refbw;
+    // old-style JPEG (without a StripByteCounts tag its strips cannot be
+    // read)
+    uint64_t jif = 0, jif_len = 0;
+    uint16_t ojpeg_restart = 0;
+    std::vector<uint64_t> qtables, dctables, actables;
+    bool counts_tag = true;
   };
   Layout L;
   Jpeg jtables{nullptr, 0};
@@ -3858,19 +4260,48 @@ struct Tiff {
     L.predictor = t.predictor;
     L.format = t.sampleformat;
     L.tiled = t.tiled;
-    if (const char* name = tiff_refused(L.compression))
-      refuse(std::string("TIFF: ") + name + " compression is not supported");
+    tiff_never_decoded(L.compression);
     switch (L.compression) {
-      case 1: case 2: case 3: case 4: case 5: case 7: case 8: case 32771: case 32773:
-      case 32946: case 34925: case 50000: break;
+      case 1: case 2: case 3: case 4: case 5: case 6: case 7: case 8: case 32771: case 32773:
+      case 32809: case 32946: case 34925: case 50000: break;
       default:
         corrupt("TIFF: compression scheme " + std::to_string(L.compression) +
                 " is not configured in libtiff");
     }
-    // TiffDecode.c reads YCbCr as RGBA (TIFFReadRGBAImage) but contiguous JPEG
-    if (L.photometric == 6 && !(L.compression == 7 && L.planar == 1))
-      refuse("TIFF: YCbCr images that are not JPEG-compressed with contiguous "
-             "samples (Pillow reads them through libtiff's RGBA interface) are not supported");
+    // TiffDecode.c reads YCbCr through libtiff's RGBA interface but
+    // contiguous JPEG, which libjpeg converts
+    L.rgba = L.photometric == 6 && !(L.compression == 7 && L.planar == 1);
+    L.sub_h = t.sub_h();
+    L.sub_v = t.sub_v();
+    L.rps_tag = t.rps;
+    L.luma = t.luma;
+    L.refbw = t.refbw;
+    if (L.compression == 6) {
+      if (L.tiled || (L.planar == 2 && L.spp > 1))
+        refuse("TIFF: old-style JPEG in tiles or separate planes is not supported");
+      L.jif = t.jif;
+      L.jif_len = t.jif_len;
+      L.ojpeg_restart = t.ojpeg_restart;
+      L.qtables = t.qtables;
+      L.dctables = t.dctables;
+      L.actables = t.actables;
+      L.counts_tag = t.counts_tag;
+      L.offsets.assign(t.offsets.begin(), t.offsets.end());
+      L.counts.assign(t.counts.begin(), t.counts.end());
+      ojpeg_subsampling();
+      // TIFFScanlineSize of packed YCbCr, at the stream's subsampling
+      if (L.photometric == 6 && L.spp == 3) {
+        const int hs = L.sub_h, vs = L.sub_v;
+        if ((hs != 1 && hs != 2 && hs != 4) || (vs != 1 && vs != 2 && vs != 4))
+          corrupt("TIFF: libtiff refuses the directory (Invalid YCbCr subsampling)");
+        if ((width + hs - 1) / hs * (hs * vs + 2) * L.bits / 8 / vs == 0)
+          corrupt("TIFF: libtiff refuses the directory (a scanline of zero bytes)");
+      }
+    }
+    // ThunderSetupDecode
+    if (L.compression == 32809 && L.bits != 4)
+      corrupt("TIFF: ThunderScan: Wrong bitspersample value (" + std::to_string(L.bits) +
+              "), Thunder decoder only supports 4bits per sample.");
     // Fax3SetupState
     if (tiff_fax(L.compression) && L.bits != 1)
       corrupt("TIFF: Bits/sample must be 1 for Group 3/4 encoding/decoding");
@@ -3882,8 +4313,6 @@ struct Tiff {
     if (L.tiled) {
       L.tw = t.tw;
       L.th = t.th;
-      if (L.tw > (int64_t{1} << 24) || L.th > (int64_t{1} << 24) || L.tw * L.th > (int64_t{1} << 32))
-        corrupt("TIFF: a tile larger than libtiff takes");
       L.across = (width + L.tw - 1) / L.tw;
       L.per_plane = L.across * ((height + L.th - 1) / L.th);
       L.row_bytes = (L.tw * samples * L.bits + 7) / 8;
@@ -3899,6 +4328,11 @@ struct Tiff {
       L.row_bytes = (width * samples * L.bits + 7) / 8;
       L.seg_size = L.row_bytes * std::min<int64_t>(L.rps, height);
     }
+    // the predictor's rows: a strip's packed YCbCr scanline (a row of
+    // sampling blocks over the vertical subsampling), else a row
+    L.pred_row = L.row_bytes;
+    if (!L.tiled && L.photometric == 6 && L.planar == 1 && L.spp == 3 && L.compression != 7)
+      L.pred_row = (width + L.sub_h - 1) / L.sub_h * (L.sub_h * L.sub_v + 2) * L.bits / 8 / L.sub_v;
     L.offsets.assign(t.offsets.begin(), t.offsets.end());
     L.counts.clear();
     for (uint64_t c : t.counts) L.counts.push_back(static_cast<int64_t>(std::min<uint64_t>(c, INT64_MAX)));
@@ -3926,8 +4360,15 @@ struct Tiff {
   // One strip or tile (index s): its data decoded into buf[0, size) as
   // libtiff's TIFFReadEncodedStrip / TIFFReadTile leave it: samples of
   // more than 8 bits in the host's (little-endian) order.
+  // `filled`: TIFFFillStrip / TIFFFillTile took the strip (a fault after
+  // that is the codec's, with its output so far in buf)
   void segment(int64_t s, uint8_t* buf, int64_t size, int64_t seg_w, int64_t seg_h,
-               bool last_strip) {
+               bool last_strip, bool* filled = nullptr) {
+    if (filled) *filled = false;
+    if (L.compression == 6) {
+      ojpeg_segment(s, buf, size, filled);
+      return;
+    }
     if (s >= static_cast<int64_t>(L.offsets.size())) corrupt("TIFF: strip out of range");
     const int64_t off = L.offsets[s];
     int64_t cnt = L.counts[s];
@@ -3938,6 +4379,7 @@ struct Tiff {
       cnt = L.seg_size * 10 + 4096;
     if (off < 0 || off > n || cnt > n - off)
       corrupt("TIFF: read error on strip " + std::to_string(s) + " (the file is truncated)");
+    if (filled) *filled = true;
     const uint8_t* p = d + off;
     if (tiff_fax(L.compression)) {
       // the fax codec reads the fill order itself (TIFF_NOBITREV)
@@ -3975,26 +4417,35 @@ struct Tiff {
       case 32773: tiff_packbits(p, cnt, buf, size); break;
       case 50000: mrt::tiff_zstd(p, cnt, buf, size); break;
       case 34925: mrt::tiff_xz(p, cnt, buf, size); break;
+      case 32809:
+        tiff_thunder(p, cnt, buf, size, width,
+                     (width * (L.planar == 2 ? 1 : L.spp) * L.bits + 7) / 8);
+        break;
       case 7: jpeg_segment(p, cnt, buf, size, seg_w, seg_h, last_strip); return;
       default: corrupt("TIFF: compression " + std::to_string(L.compression));
     }
     // LZW, Deflate, ZSTD and LZMA take a predictor; libtiff swaps samples
     // of a big-endian file to the host's order after decoding, but for the
     // floating-point predictor, whose output is the host's already
-    const int predictor = L.compression == 32773 || L.compression == 1 ? 1 : L.predictor;
+    const int predictor =
+        L.compression == 32773 || L.compression == 1 || L.compression == 32809 ? 1 : L.predictor;
     const int bytes = L.bits / 8;
     if (be && (L.bits == 16 || L.bits == 32) && predictor != 3) {
       for (int64_t i = 0; i + bytes <= size; i += bytes) std::reverse(buf + i, buf + i + bytes);
     }
     if (predictor == 1) return;
     const int stride = L.planar == 2 ? 1 : L.spp;
+    const int64_t prow = L.pred_row;
+    // PredictorDecodeTile and horAcc*: whole rows of whole pixels
+    if (prow <= 0 || size % prow != 0) corrupt("TIFF: Predictor: occ0%rowsize != 0");
+    if (prow % (std::max(bytes, 1) * stride) != 0) corrupt("TIFF: Predictor: (cc%stride)!=0");
     if (predictor == 2) {
       if (L.bits != 8 && L.bits != 16 && L.bits != 32 && L.bits != 64)
         corrupt("TIFF: horizontal differencing \"Predictor\" not supported with " +
                 std::to_string(L.bits) + "-bit samples");
-      for (int64_t r = 0; r + L.row_bytes <= size; r += L.row_bytes) {
+      for (int64_t r = 0; r + prow <= size; r += prow) {
         uint8_t* row = buf + r;
-        const int64_t count = L.row_bytes / bytes;
+        const int64_t count = prow / bytes;
         if (bytes == 1) {
           for (int64_t i = stride; i < count; i++) row[i] = static_cast<uint8_t>(row[i] + row[i - stride]);
           continue;
@@ -4017,12 +4468,12 @@ struct Tiff {
       if (L.bits != 16 && L.bits != 24 && L.bits != 32 && L.bits != 64)
         corrupt("TIFF: floating point \"Predictor\" not supported with " +
                 std::to_string(L.bits) + "-bit samples");
-      std::vector<uint8_t> tmp(static_cast<size_t>(L.row_bytes));
-      const int64_t wc = L.row_bytes / bytes;
-      for (int64_t r = 0; r + L.row_bytes <= size; r += L.row_bytes) {
+      std::vector<uint8_t> tmp(static_cast<size_t>(prow));
+      const int64_t wc = prow / bytes;
+      for (int64_t r = 0; r + prow <= size; r += prow) {
         uint8_t* row = buf + r;
-        for (int64_t i = stride; i < L.row_bytes; i++) row[i] = static_cast<uint8_t>(row[i] + row[i - stride]);
-        std::memcpy(tmp.data(), row, static_cast<size_t>(L.row_bytes));
+        for (int64_t i = stride; i < prow; i++) row[i] = static_cast<uint8_t>(row[i] + row[i - stride]);
+        std::memcpy(tmp.data(), row, static_cast<size_t>(prow));
         for (int64_t c = 0; c < wc; c++)
           for (int k = 0; k < bytes; k++) row[bytes * c + k] = tmp[(bytes - k - 1) * wc + c];
       }
@@ -4096,6 +4547,10 @@ struct Tiff {
   // first extra sample is associated or unspecified alpha
   void libtiff_route() {
     libtiff_layout();
+    if (L.rgba) {
+      rgba_route();
+      return;
+    }
     // TiffDecode.c _pickUnpackers: a plane a band where libtiff's samples
     // are separate and the mode has bands to spread them over; a mode of
     // one band unpacks the first plane's rows with its raw mode
@@ -4131,8 +4586,13 @@ struct Tiff {
         corrupt("TIFF: Pillow's strip buffer of " + std::to_string(rows * unpacker_row) +
                 " bytes is smaller than libtiff's strip of " + std::to_string(full_rows * row_bytes));
     }
-    std::vector<std::vector<uint8_t>> bufs(planes);
-    for (auto& b : bufs) b.resize(static_cast<size_t>(row_bytes * full_rows));
+    // Pillow's buffer takes a tile of up to 2**31 - 1 bytes; calloc's pages
+    // are touched only where a codec writes, so that a wide tile whose data
+    // ends early costs what it decodes
+    if (L.tiled && INT32_MAX / std::max<int64_t>(row_bytes, 1) < L.th)
+      corrupt("TIFF: a tile of more than 2**31 - 1 bytes, past Pillow's buffer");
+    std::vector<ZeroBuffer> bufs(planes);
+    for (auto& b : bufs) b.allocate(static_cast<size_t>(row_bytes * full_rows));
     // one row of cw pixels at img row y, column x
     auto put_row = [&](int64_t r, int64_t cw, int64_t y, int64_t x) {
       uint32_t* o = img.data() + y * width + x;
@@ -4178,6 +4638,595 @@ struct Tiff {
     }
   }
 
+  // ----------------------------------- old-style JPEG: libtiff's tif_ojpeg.c
+  // The codec reads its own data (TIFF_NOREADRAW): a stream of the
+  // JPEGInterchangeFormat bytes (where the tag points into the file) and
+  // then each strip's (a strip at offset 0 or past the file skipped, a
+  // byte count of 0 or past the file read to its end). Its header is read
+  // from that stream's markers (SOI, APPn and COM skipped, DQT, DHT, DRI,
+  // SOF0/1/3 and SOS kept) up to SOS, or, where the stream opens with no
+  // marker, from the tables tags. libjpeg then decodes a stream it writes:
+  // SOI, the tables by index, DRI, the frame and scan headers it keeps,
+  // the entropy data with an RST marker after each strip but the last
+  // entry's, and EOI. Packed YCbCr comes out of libjpeg's raw
+  // (downsampled) data, or interleaved where the stream's sampling is not
+  // one TIFF allows (libjpeg's upsampling, no colour conversion).
+  struct OjRegion {
+    int64_t at, end;
+    int64_t strip;  // -1: the JPEGInterchangeFormat bytes
+  };
+  struct OjSource {
+    std::vector<OjRegion> regs;
+    size_t r = 0;
+    int64_t p = 0;
+    // the next byte, or false at the stream's end
+    bool peek(const uint8_t* d, uint8_t& b) {
+      while (r < regs.size() && p >= regs[r].end) {
+        r++;
+        if (r < regs.size()) p = regs[r].at;
+      }
+      if (r >= regs.size()) return false;
+      b = d[p];
+      return true;
+    }
+    bool byte(const uint8_t* d, uint8_t& b) {
+      if (!peek(d, b)) return false;
+      p++;
+      return true;
+    }
+    bool word(const uint8_t* d, uint32_t& w) {
+      uint8_t a, b;
+      if (!byte(d, a) || !byte(d, b)) return false;
+      w = (a << 8) | b;
+      return true;
+    }
+  };
+  struct Ojpeg {
+    bool header_done = false, decoded = false, broken = false;
+    int hs = 2, vs = 2;
+    bool desub = false;
+    uint16_t restart = 0;
+    bool sof = false;
+    int sof_marker = 0xC0;
+    uint32_t sof_x = 0, sof_y = 0;
+    uint8_t sof_c[3] = {0, 1, 2}, sof_hv[3] = {0x22, 0x11, 0x11}, sof_tq[3] = {0, 1, 2};
+    uint8_t sos_cs[3] = {0, 1, 2}, sos_tda[3] = {0, 0x11, 0x22};
+    std::vector<uint8_t> qt[4], dc[4], ac[4];  // whole marker segments
+    OjSource src;
+    std::vector<uint8_t> packed;  // the image's block rows
+    int64_t bpl = 0, lps = 0;     // bytes a block row, block rows a strip
+    int64_t good_rows = INT64_MAX;  // rows out before libjpeg fails
+    bool dead = false;            // libjpeg failed on a strip before
+    bool short_ok = false;        // rows past the packed ones are left, not failed
+  } oj;
+
+  OjSource oj_source() const {
+    OjSource src;
+    if (L.jif != 0 && L.jif < static_cast<uint64_t>(n)) {
+      uint64_t len = L.jif_len;
+      if (len == 0 || L.jif > UINT64_MAX - len || L.jif + len > static_cast<uint64_t>(n))
+        len = n - L.jif;
+      src.regs.push_back({static_cast<int64_t>(L.jif), static_cast<int64_t>(L.jif + len), -1});
+    }
+    for (size_t k = 0; L.counts_tag && k < L.offsets.size(); k++) {
+      const uint64_t off = static_cast<uint64_t>(L.offsets[k]);
+      if (off == 0 || off >= static_cast<uint64_t>(n)) continue;
+      uint64_t cnt = static_cast<uint64_t>(L.counts[k]);
+      if (cnt == 0 || off + cnt > static_cast<uint64_t>(n)) cnt = n - off;
+      src.regs.push_back({static_cast<int64_t>(off), static_cast<int64_t>(off + cnt),
+                          static_cast<int64_t>(k)});
+    }
+    if (!src.regs.empty()) src.p = src.regs[0].at;
+    return src;
+  }
+
+  // OJPEGReadHeaderInfoSec's marker walk; `correct`: OJPEGSubsamplingCorrect's
+  // quiet pass (no tables kept, false ends it quietly). False where the
+  // header fails.
+  bool oj_markers(OjSource& src, bool correct) {
+    const int spp = 3;
+    uint8_t m;
+    for (;;) {
+      if (!src.peek(d, m)) return false;
+      if (m != 255) break;
+      src.p++;
+      do {
+        if (!src.byte(d, m)) return false;
+      } while (m == 255);
+      uint32_t len;
+      switch (m) {
+        case 0xD8: break;
+        case 0xFE: case 0xE0: case 0xE1: case 0xE2: case 0xE3: case 0xE4: case 0xE5: case 0xE6:
+        case 0xE7: case 0xE8: case 0xE9: case 0xEA: case 0xEB: case 0xEC: case 0xED: case 0xEE:
+        case 0xEF:
+          if (!src.word(d, len) || len < 2) return false;
+          for (uint32_t k = 2; k < len; k++)
+            if (!src.byte(d, m)) return false;
+          break;
+        case 0xDD:  // DRI
+          if (!src.word(d, len) || len != 4) return false;
+          if (!src.word(d, len)) return false;
+          oj.restart = static_cast<uint16_t>(len);
+          break;
+        case 0xDB: case 0xC4: {  // DQT, DHT
+          const int kind = m;
+          if (!src.word(d, len) || len <= 2) return false;
+          std::vector<uint8_t> body(len - 2);
+          for (auto& b : body)
+            if (!src.byte(d, b)) return false;
+          if (correct) break;
+          if (kind == 0xDB) {
+            for (size_t k = 0; k < body.size(); k += 65) {
+              if (body.size() - k < 65) return false;
+              const int id = body[k] & 15;
+              if (id > 3) return false;
+              oj.qt[id] = {0xFF, 0xDB, 0, 67};
+              oj.qt[id].insert(oj.qt[id].end(), body.begin() + k, body.begin() + k + 65);
+            }
+          } else {
+            const int o = body[0];
+            if ((o & 0xF0) != 0 && (o & 0xF0) != 16) return false;
+            if ((o & 15) > 3) return false;
+            std::vector<uint8_t>& t = (o & 0xF0) ? oj.ac[o & 15] : oj.dc[o & 15];
+            t = {0xFF, 0xC4, static_cast<uint8_t>(len >> 8), static_cast<uint8_t>(len)};
+            t.insert(t.end(), body.begin(), body.end());
+          }
+          break;
+        }
+        case 0xC0: case 0xC1: case 0xC3: {
+          if (oj.sof && !correct) return false;
+          if (!src.word(d, len) || len < 11 || (len - 8) % 3 != 0) return false;
+          if (!correct && (len - 8) / 3 != static_cast<uint32_t>(spp)) return false;
+          uint8_t prec;
+          uint32_t y, x;
+          if (!src.byte(d, prec) || (!correct && prec != 8)) return false;
+          if (!src.word(d, y) || !src.word(d, x)) return false;
+          if (!correct) {
+            if (y < height && y < static_cast<uint32_t>(height)) return false;
+            if (x < width) return false;
+            if (x > width) return false;
+          }
+          uint8_t nf;
+          if (!src.byte(d, nf) || nf != spp) return false;
+          for (int q = 0; q < spp; q++) {
+            uint8_t c, hv, tq;
+            if (!src.byte(d, c) || !src.byte(d, hv) || !src.byte(d, tq)) return false;
+            if (correct) {
+              if (q == 0) {
+                oj.hs = hv >> 4;
+                oj.vs = hv & 15;
+                if ((oj.hs != 1 && oj.hs != 2 && oj.hs != 4) || (oj.vs != 1 && oj.vs != 2 && oj.vs != 4))
+                  oj.desub = true;
+              } else if (hv != 0x11) {
+                oj.desub = true;
+              }
+            } else {
+              oj.sof_c[q] = c;
+              oj.sof_hv[q] = hv;
+              oj.sof_tq[q] = tq;
+              if (!oj.desub && hv != (q == 0 ? ((oj.hs << 4) | oj.vs) : 0x11)) return false;
+            }
+          }
+          if (correct) return true;
+          oj.sof = true;
+          oj.sof_marker = m;
+          oj.sof_x = x;
+          oj.sof_y = y;
+          break;
+        }
+        case 0xDA: {
+          if (correct) return true;
+          if (!oj.sof) return false;
+          if (!src.word(d, len) || len != static_cast<uint32_t>(6 + spp * 2)) return false;
+          uint8_t ns;
+          if (!src.byte(d, ns) || ns != spp) return false;
+          for (int q = 0; q < spp; q++)
+            if (!src.byte(d, oj.sos_cs[q]) || !src.byte(d, oj.sos_tda[q])) return false;
+          for (int k = 0; k < 3; k++)
+            if (!src.byte(d, m)) break;  // OJPEGReadSkip
+          return true;
+        }
+        default:
+          return false;
+      }
+    }
+    return true;
+  }
+
+  // OJPEGSubsamplingCorrect: the subsampling the stream's frame header
+  // gives (the tag's, 2x2 unset, where it has none), 1x1 where libjpeg
+  // must upsample
+  void ojpeg_subsampling() {
+    if (L.spp != 3 || L.photometric != 6) {
+      oj.hs = oj.vs = 1;
+    } else {
+      oj.hs = L.sub_h;
+      oj.vs = L.sub_v;
+      OjSource src = oj_source();
+      oj_markers(src, true);
+      if (oj.desub) oj.hs = oj.vs = 1;
+    }
+    L.sub_h = oj.hs;
+    L.sub_v = oj.vs;
+  }
+
+  // The tables tags' segments (OJPEGReadHeaderInfoSecTables*): a table a
+  // component, repeated offsets shared with the component before
+  bool oj_tables() {
+    const int spp = 3;
+    auto off = [](const std::vector<uint64_t>& v, int m) { return m < static_cast<int>(v.size()) ? v[m] : 0; };
+    if (off(L.qtables, 0) == 0) return false;  // Missing JPEG tables
+    for (int m = 0; m < spp; m++) {
+      const uint64_t o = off(L.qtables, m);
+      if (o != 0 && (m == 0 || o != off(L.qtables, m - 1))) {
+        for (int k = 0; k < m - 1; k++)
+          if (o == off(L.qtables, k)) return false;
+        if (o > static_cast<uint64_t>(n) || n - o < 64) return false;
+        oj.qt[m] = {0xFF, 0xDB, 0, 67, static_cast<uint8_t>(m)};
+        oj.qt[m].insert(oj.qt[m].end(), d + o, d + o + 64);
+        oj.sof_tq[m] = static_cast<uint8_t>(m);
+      } else {
+        oj.sof_tq[m] = oj.sof_tq[m - 1];
+      }
+    }
+    for (int ac = 0; ac < 2; ac++) {
+      const std::vector<uint64_t>& v = ac ? L.actables : L.dctables;
+      if (off(v, 0) == 0) return false;
+      for (int m = 0; m < spp; m++) {
+        const uint64_t o = off(v, m);
+        if (o != 0 && (m == 0 || o != off(v, m - 1))) {
+          for (int k = 0; k < m - 1; k++)
+            if (o == off(v, k)) return false;
+          if (o > static_cast<uint64_t>(n) || n - o < 16) return false;
+          uint32_t q = 0;
+          for (int k = 0; k < 16; k++) q += d[o + k];
+          if (static_cast<uint64_t>(n) - o - 16 < q) return false;
+          std::vector<uint8_t>& t = ac ? oj.ac[m] : oj.dc[m];
+          t = {0xFF, 0xC4, static_cast<uint8_t>((19 + q) >> 8), static_cast<uint8_t>(19 + q),
+               static_cast<uint8_t>(ac ? 16 | m : m)};
+          t.insert(t.end(), d + o, d + o + 16 + q);
+          oj.sos_tda[m] = static_cast<uint8_t>(ac ? (oj.sos_tda[m] & 0xF0) | m : m << 4);
+        } else {
+          oj.sos_tda[m] = static_cast<uint8_t>(ac ? (oj.sos_tda[m] & 0xF0) | (oj.sos_tda[m - 1] & 0x0F)
+                                                  : oj.sos_tda[m - 1]);
+        }
+      }
+    }
+    return true;
+  }
+
+  // OJPEGReadHeaderInfo and OJPEGWriteHeaderInfo, then the whole stream
+  // through the JPEG decoder: false where the header fails (TIFFFillStrip's
+  // failure)
+  bool ojpeg_start() {
+    if (oj.header_done) return !oj.broken;
+    oj.header_done = true;
+    oj.broken = true;
+    const int64_t rps = std::min<int64_t>(L.rps_tag, height);
+    oj.restart = L.ojpeg_restart;
+    if (rps < height) {
+      if ((oj.hs != 1 && oj.hs != 2 && oj.hs != 4) || (oj.vs != 1 && oj.vs != 2 && oj.vs != 4))
+        return false;
+      if (rps % (oj.vs * 8) != 0) return false;
+      oj.restart = static_cast<uint16_t>((width + oj.hs * 8 - 1) / (oj.hs * 8) * (rps / (oj.vs * 8)));
+    }
+    oj.src = oj_source();
+    if (!oj_markers(oj.src, false)) return false;
+    if (!oj.sof) {
+      if (!oj_tables()) return false;
+      oj.sof_marker = 0xC0;
+      oj.sof_hv[0] = static_cast<uint8_t>((oj.hs << 4) | oj.vs);
+      oj.sof_hv[1] = oj.sof_hv[2] = 0x11;
+      for (int m = 0; m < 3; m++) oj.sof_c[m] = oj.sos_cs[m] = static_cast<uint8_t>(m);
+      oj.sof_x = static_cast<uint32_t>(width);
+      oj.sof_y = static_cast<uint32_t>(height);
+    }
+    if (oj.sof_marker == 0xC3)
+      refuse("TIFF: old-style JPEG of a lossless frame is not supported");
+    // the stream libjpeg reads
+    std::vector<uint8_t> js = {0xFF, 0xD8};
+    for (int k = 0; k < 4; k++) js.insert(js.end(), oj.qt[k].begin(), oj.qt[k].end());
+    for (int k = 0; k < 4; k++) js.insert(js.end(), oj.dc[k].begin(), oj.dc[k].end());
+    for (int k = 0; k < 4; k++) js.insert(js.end(), oj.ac[k].begin(), oj.ac[k].end());
+    if (oj.restart)
+      js.insert(js.end(), {0xFF, 0xDD, 0, 4, static_cast<uint8_t>(oj.restart >> 8),
+                           static_cast<uint8_t>(oj.restart)});
+    js.insert(js.end(), {0xFF, static_cast<uint8_t>(oj.sof_marker), 0, 17, 8,
+                         static_cast<uint8_t>(oj.sof_y >> 8), static_cast<uint8_t>(oj.sof_y),
+                         static_cast<uint8_t>(oj.sof_x >> 8), static_cast<uint8_t>(oj.sof_x), 3});
+    for (int m = 0; m < 3; m++) js.insert(js.end(), {oj.sof_c[m], oj.sof_hv[m], oj.sof_tq[m]});
+    js.insert(js.end(), {0xFF, 0xDA, 0, 12, 3});
+    for (int m = 0; m < 3; m++) js.insert(js.end(), {oj.sos_cs[m], oj.sos_tda[m]});
+    js.insert(js.end(), {0, 63, 0});
+    // the entropy data: an RST marker after a strip while entries follow
+    int rst = 0;
+    OjSource& sr = oj.src;
+    uint8_t b;
+    while (sr.peek(d, b)) {
+      const OjRegion& g = sr.regs[sr.r];
+      js.insert(js.end(), d + sr.p, d + g.end);
+      sr.p = g.end;
+      if (g.strip >= 0 && g.strip + 1 < static_cast<int64_t>(L.offsets.size()) &&
+          sr.r + 1 < sr.regs.size()) {
+        js.insert(js.end(), {0xFF, static_cast<uint8_t>(0xD0 + rst)});
+        rst = (rst + 1) & 7;
+      }
+    }
+    js.insert(js.end(), {0xFF, 0xD9});
+    // libjpeg's decode: raw downsampled planes, or interleaved samples
+    Jpeg head(js.data(), static_cast<int64_t>(js.size()));
+    head.in_tiff = true;
+    try {
+      head.run(true);
+    } catch (const Error&) {
+      return false;
+    }
+    // OJPEGWriteHeaderInfo's checks of what jpeg_start_decompress gives:
+    // the frame's width (16 bits in the frame header) the strip's, and in
+    // raw mode the luma's sampling the subsampling
+    const bool raw = !oj.desub;
+    if (head.width != width) return false;
+    if (raw && (head.hmax != oj.hs || head.vmax != oj.vs)) return false;
+    Jpeg j(js.data(), static_cast<int64_t>(js.size()));
+    j.in_tiff = true;
+    j.ojpeg = true;
+    oj.broken = false;
+    const int hs = raw ? oj.hs : 1, vs = raw ? oj.vs : 1;
+    oj.bpl = raw ? (width + hs - 1) / hs * (hs * vs + 2) : 3 * width;
+    oj.lps = raw ? (rps + vs - 1) / vs : rps;
+    const int64_t rows = (static_cast<int64_t>(head.height) + vs - 1) / vs;
+    // (what libjpeg refuses before the data, its tables, fails the header)
+    try {
+      j.run(false);
+    } catch (const Error&) {
+      oj.broken = true;
+      return false;
+    }
+    try {
+      if (raw) {
+        // OJPEGDecodeRaw over jpeg_read_raw_data: an iMCU row at a time
+        // into one buffer (8 chroma rows, vs * 8 luma rows), each block row
+        // of a component past its blocks left as the row before left it,
+        // and every read past the frame's last iMCU row leaving the buffer
+        // as it is; the image's block rows packed from it
+        std::vector<std::vector<uint8_t>> planes;
+        std::vector<int> strides = jpeg_raw_planes(j, planes);
+        const int64_t need = L.per_plane * oj.lps;
+        const int64_t blocks = (width + hs - 1) / hs;
+        oj.packed.assign(static_cast<size_t>(need * oj.bpl), 0);
+        std::vector<std::vector<uint8_t>> ring(3);
+        const int lines[3] = {vs * 8, 8, 8};
+        for (int c = 0; c < 3; c++) ring[c].assign(static_cast<size_t>(lines[c]) * strides[c], 0);
+        for (int64_t k = 0; k * 8 < need; k++) {
+          if (k < j.mcuy) {
+            for (int c = 0; c < 3; c++) {
+              const int64_t have = (j.comps[c].ch + 7) / 8;  // the component's block rows
+              const int per = lines[c] / 8;                    // its block rows an iMCU row
+              for (int b = 0; b < per; b++) {
+                const int64_t gb = k * per + b;
+                if (gb >= have) continue;
+                std::memcpy(ring[c].data() + static_cast<int64_t>(b) * 8 * strides[c],
+                            planes[c].data() + gb * 8 * strides[c], static_cast<size_t>(8 * strides[c]));
+              }
+            }
+          }
+          for (int64_t cl = 0; cl < 8 && k * 8 + cl < need; cl++) {
+            uint8_t* o = oj.packed.data() + (k * 8 + cl) * oj.bpl;
+            for (int64_t bx = 0; bx < blocks; bx++) {
+              for (int r = 0; r < vs; r++)
+                for (int c = 0; c < hs; c++) *o++ = ring[0][(cl * vs + r) * strides[0] + bx * hs + c];
+              *o++ = ring[1][cl * strides[1] + bx];
+              *o++ = ring[2][cl * strides[2] + bx];
+            }
+          }
+        }
+      } else {
+        // OJPEGDecodeScanlines: past the frame's rows libjpeg gives none
+        // and the strip's rows stay as they are (zero)
+        std::vector<std::vector<uint8_t>> full = jpeg_planes(j, true);
+        oj.packed.assign(static_cast<size_t>(j.height) * oj.bpl, 0);
+        oj.short_ok = true;
+        const int64_t W = j.width;
+        for (int64_t y = 0; y < j.height; y++)
+          for (int64_t x = 0; x < width; x++)
+            for (int k = 0; k < 3; k++) oj.packed[y * oj.bpl + 3 * x + k] = full[k][y * W + x];
+      }
+      oj.decoded = true;
+    } catch (const Error&) {
+      oj.decoded = false;
+    }
+    // the rows libjpeg gives before its error: those of the iMCU rows
+    // before the one it fails in
+    oj.good_rows = INT64_MAX;
+    if (j.fail_mcu >= 0) {
+      const int64_t imcu = j.fail_mcu / std::max(j.mcux, 1);
+      oj.good_rows = imcu * (raw ? 8 : 8 * j.vmax);
+    }
+    return true;
+  }
+
+  // One strip: its block rows of the decoded image (OJPEGDecodeRaw /
+  // OJPEGDecodeScanlines: a request of a fraction of a row fails)
+  void ojpeg_segment(int64_t s, uint8_t* buf, int64_t size, bool* filled) {
+    if (!ojpeg_start()) corrupt("TIFF: old-style JPEG: the stream's header is refused (libtiff's tif_ojpeg.c)");
+    // (a strip after one libjpeg failed on fails to start: OJPEGPreDecode
+    // cannot skip the rows left)
+    if (oj.dead) corrupt("TIFF: old-style JPEG: libjpeg failed on an earlier strip");
+    if (filled) *filled = true;
+    if (oj.bpl <= 0 || size % oj.bpl != 0) corrupt("TIFF: old-style JPEG: Fractional scanline not read");
+    if (!oj.decoded) {
+      oj.dead = true;
+      corrupt("TIFF: old-style JPEG: libjpeg fails on the data");
+    }
+    const int64_t row0 = s * oj.lps;
+    const int64_t rows = size / oj.bpl;
+    const int64_t have = std::min<int64_t>(static_cast<int64_t>(oj.packed.size()) / oj.bpl, oj.good_rows);
+    const int64_t take = std::max<int64_t>(0, std::min(rows, have - row0));
+    if (take > 0)
+      std::memcpy(buf, oj.packed.data() + row0 * oj.bpl, static_cast<size_t>(take * oj.bpl));
+    if (take < rows && (row0 + rows > oj.good_rows || !oj.short_ok)) {
+      oj.dead = true;
+      corrupt("TIFF: old-style JPEG: libjpeg fails within the strip");
+    }
+  }
+
+  // TiffDecode.c _decodeAsRGBA: TIFFRGBAImageGet over blocks of
+  // RowsPerStrip (or TileLength) rows, each block's raster of ABGR words
+  // unpacked with the raw mode. tif_getimage.c reads the strips or tiles a
+  // block holds (gtStripContig, gtTileContig, gtStripSeparate,
+  // gtTileSeparate) into a buffer allocated zeroed for the block, and
+  // carries on past a strip the codec fails on (Pillow passes stop = 0)
+  // with what the buffer holds; a strip or tile it cannot fill ends the
+  // decode where it is the block's first read, and is zeroed otherwise.
+  // The raster is not turned (Pillow's exif_transpose turns the image).
+  void rgba_route() {
+    // TIFFRGBAImageOK and TIFFRGBAImageBegin
+    if (L.bits != 1 && L.bits != 2 && L.bits != 4 && L.bits != 8 && L.bits != 16)
+      corrupt("TIFF: libtiff's RGBA interface: Sorry, can not handle images with " +
+              std::to_string(L.bits) + "-bit samples");
+    if (L.format == 3)
+      corrupt("TIFF: libtiff's RGBA interface: Sorry, can not handle images with IEEE "
+              "floating-point samples");
+    const bool contig = !(L.planar == 2 && L.spp > 1);
+    const int hs = L.sub_h, vs = L.sub_v;
+    if (L.bits != 8 || L.spp != 3)
+      corrupt("TIFF: libtiff's RGBA interface: Cannot handle format (YCbCr of " +
+              std::to_string(L.spp) + " samples of " + std::to_string(L.bits) + " bits)");
+    YccToRgb conv;
+    conv.init(L.luma, L.refbw);
+    const int key = hs << 4 | vs;
+    const bool known = contig ? (key == 0x44 || key == 0x42 || key == 0x41 || key == 0x22 ||
+                                 key == 0x21 || key == 0x12 || key == 0x11)
+                              : key == 0x11;
+    if (!known)
+      corrupt("TIFF: libtiff's RGBA interface: Cannot handle format (YCbCr subsampling " +
+              std::to_string(hs) + "x" + std::to_string(vs) +
+              (contig ? std::string() : std::string(" in separate planes")) + ")");
+    Unpack u;
+    if (!make_unpack(rawmode, pm, u))
+      corrupt("TIFF: unknown raw mode " + rawmode + " for an image of mode " + mode);
+    // the unpacker reads a raster row's 4 bytes a pixel
+    if (u.bits > 32)
+      corrupt("TIFF: raw mode " + rawmode + " reads past the RGBA raster's rows");
+    // Pillow's block of rows and its buffer
+    const int64_t rpb = L.tiled ? L.th : (L.rps_tag == 0xFFFFFFFFu ? height : L.rps_tag);
+    if (INT32_MAX / 4 < width) corrupt("TIFF: an RGBA row past Pillow's int");
+    if (INT32_MAX / (width * 4) < rpb) corrupt("TIFF: an RGBA block past Pillow's int");
+    // libtiff's strips: RowsPerStrip as stored, and its sizes
+    const int64_t rps = L.rps_tag;  // 0xFFFFFFFF: one strip
+    const int64_t per_image = L.tiled ? 0 : (height + std::min<int64_t>(rps, height) - 1) /
+                                                std::min<int64_t>(rps, height);
+    const int64_t bsize = contig ? hs * vs + 2 : 1;
+    // TIFFScanlineSize / TIFFTileRowSize, TIFFVStripSize / TIFFTileSize
+    const int64_t seg_w = L.tiled ? L.tw : width;
+    auto seg_bytes = [&](int64_t rows) -> int64_t {
+      if (!contig) return rows * seg_w;
+      return (seg_w + hs - 1) / hs * bsize * ((rows + vs - 1) / vs);
+    };
+    const int64_t scanline = contig ? (width + hs - 1) / hs * bsize / vs : width;
+    const int planes = contig ? 1 : 3;
+    const int64_t seg_max = L.tiled ? seg_bytes(L.th) : seg_bytes(std::min<int64_t>(rps, height));
+    std::vector<uint32_t> raster;
+    ZeroBuffer buf;
+    const uint8_t* bufend = nullptr;
+    // one read into plane p's part of the buffer; `first`: the block's
+    // first, through the allocating read, which allocates the buffer
+    // zeroed once the strip or tile is filled; a tile's there refuses a
+    // buffer of more than 10**8 bytes for data of less than the tile over
+    // the codec's largest ratio (_TIFFReadEncodedTileAndAllocBuffer)
+    auto read = [&](int64_t index, int p, int64_t want, int64_t rows, bool first) {
+      if (first) {
+        const int64_t ratio = L.compression == 50000 ? 33000 : L.compression == 34925 ? 7000 : 1000;
+        if (L.tiled && seg_max * planes > 100000000 && index < static_cast<int64_t>(L.counts.size()) &&
+            L.counts[index] < seg_max / ratio)
+          corrupt("TIFF: Likely invalid tile byte count (libtiff's allocation check)");
+        buf.allocate(static_cast<size_t>(seg_max * planes));
+        bufend = buf.data() + seg_max * planes;
+      }
+      uint8_t* at = buf.data() + p * seg_max;
+      bool filled = false;
+      try {
+        segment(index, at, want, seg_w, rows, false, &filled);
+      } catch (const Error&) {
+        if (!filled) {
+          if (first) throw;
+          std::memset(at, 0, static_cast<size_t>(want));
+        }
+      }
+    };
+    auto byte = [&](const uint8_t* q) -> int {
+      if (!bufend || q < buf.data() || q >= bufend)
+        corrupt("TIFF: libtiff's RGBA interface reads past its buffer");
+      return *q;
+    };
+    for (int64_t y = 0; y < height; y += rpb) {
+      const int64_t rows = std::min(rpb, height - y);
+      raster.assign(static_cast<size_t>(width * rows), 0);
+      auto pix = [&](int64_t r, int64_t c, int Y, int Cb, int Cr) {
+        raster[r * width + c] = conv.rgb(Y, Cb, Cr);
+      };
+      // put.contig and put.separate over w columns from tocol, h rows from
+      // block row r0, the data from q, `skew` columns past each row
+      auto put = [&](const uint8_t* q, int64_t r0, int64_t tocol, int64_t w, int64_t h,
+                     int64_t skew) {
+        if (!contig) {
+          const uint8_t* q1 = q + seg_max;
+          const uint8_t* q2 = q1 + seg_max;
+          for (int64_t r = 0; r < h; r++) {
+            for (int64_t c = 0; c < w; c++) {
+              const int64_t k = r * (w + skew) + c;
+              pix(r0 + r, tocol + c, byte(q + k), byte(q1 + k), byte(q2 + k));
+            }
+          }
+          return;
+        }
+        // (putcontig8bitYCbCr44tile skips blocks of 4x2's size)
+        const int64_t pskip = (skew / hs) * (key == 0x44 ? 10 : bsize);
+        for (int64_t rb = 0; rb < h; rb += vs) {
+          for (int64_t x = 0; x < w; x += hs) {
+            const int Cb = byte(q + hs * vs), Cr = byte(q + hs * vs + 1);
+            for (int r = 0; r < vs && rb + r < h; r++)
+              for (int c = 0; c < hs && x + c < w; c++)
+                pix(r0 + rb + r, tocol + x + c, byte(q + r * hs + c), Cb, Cr);
+            q += bsize;
+          }
+          q += pskip;
+        }
+      };
+      if (!L.tiled) {
+        // gtStripContig / gtStripSeparate
+        for (int64_t row = 0; row < rows;) {
+          const int64_t in_strip = (row + y) % rps;
+          const int64_t nrow = std::min(rows - row, rps - in_strip);
+          int64_t nrowsub = nrow;
+          if (contig && nrowsub % vs) nrowsub += vs - nrowsub % vs;
+          const int64_t strip = (row + y) / rps;
+          // TIFFReadEncodedStrip's size: the strip's, at most temp * scanline
+          const int64_t rows_in = std::min<int64_t>(std::min<int64_t>(rps, height),
+                                                    height - strip * std::min<int64_t>(rps, height));
+          const int64_t want = std::min(seg_bytes(rows_in), (in_strip + nrowsub) * scanline);
+          for (int p = 0; p < planes; p++)
+            read(strip + p * per_image, p, want, rows_in, p == 0 && row == 0);
+          put(buf.data() + in_strip * scanline, row, 0, width, nrow, 0);
+          row += nrow;
+        }
+      } else {
+        // gtTileContig / gtTileSeparate: a row of tiles
+        const int64_t nrow = std::min(rows, L.th - y % L.th);
+        for (int64_t tocol = 0; tocol < width; tocol += L.tw) {
+          const int64_t tile = (y / L.th) * L.across + tocol / L.tw;
+          for (int p = 0; p < planes; p++)
+            read(tile + p * L.per_plane, p, seg_max, L.th, p == 0 && tocol == 0);
+          const int64_t this_tw = std::min(L.tw, width - tocol);
+          put(buf.data(), 0, tocol, this_tw, nrow, L.tw - this_tw);
+        }
+      }
+      for (int64_t r = 0; r < rows; r++)
+        unpack_row(u, reinterpret_cast<const uint8_t*>(raster.data() + r * width), width,
+                   img.data() + (y + r) * width);
+    }
+  }
+
   // Convert.c's conversion of the mode to RGB, with exif_transpose's
   // orientation
   void rgb(uint32_t v, uint8_t* o) const {
@@ -4200,6 +5249,13 @@ struct Tiff {
         float f;
         std::memcpy(&f, &v, 4);
         o[0] = o[1] = o[2] = static_cast<uint8_t>(f > 0 ? (f >= 255 ? 255 : static_cast<int>(f)) : 0);
+        return;
+      }
+      case PMode::Lab: {
+        const uint32_t c = lab_to_rgb(v & 255, (v >> 8) & 255, (v >> 16) & 255);
+        o[0] = static_cast<uint8_t>(c);
+        o[1] = static_cast<uint8_t>(c >> 8);
+        o[2] = static_cast<uint8_t>(c >> 16);
         return;
       }
       case PMode::CMYK: {
@@ -4437,6 +5493,26 @@ int mrt_tiff_decode(const uint8_t* data, int64_t n, uint8_t* out,
                     int32_t height, int32_t width, char* msg,
                     int32_t msg_len, int32_t path) {
   return tiff_decode(data, n, path != 0, out, height, width, msg, msg_len);
+}
+
+// LittleCMS's LAB -> sRGB table (lab_to_rgb), 33³ nodes of R, G, B
+void mrt_lab_clut(const uint16_t* table) {
+  std::memcpy(g_lab_clut, table, sizeof(g_lab_clut));
+  g_lab_ready = true;
+}
+
+// Pillow's LAB -> RGB of n LAB pixels (the image's bytes: L, a + 128,
+// b + 128) into n RGB triples
+int mrt_lab_rgb(const uint8_t* lab, int64_t n, uint8_t* rgb, char* msg, int32_t msg_len) {
+  return guarded("LAB", msg, msg_len, [&] {
+    if (!g_lab_ready) refuse("LAB: no LittleCMS table set (mrt_lab_clut)");
+    for (int64_t i = 0; i < n; i++, lab += 3, rgb += 3) {
+      const uint32_t c = lab_to_rgb(lab[0], lab[1], lab[2]);
+      rgb[0] = static_cast<uint8_t>(c);
+      rgb[1] = static_cast<uint8_t>(c >> 8);
+      rgb[2] = static_cast<uint8_t>(c >> 16);
+    }
+  });
 }
 
 // A whole zlib stream (its end and Adler-32 checked), PNG's and TIFF's

@@ -1053,6 +1053,59 @@ void size_of(const T& t, int32_t* height, int32_t* width) {
 
 }  // namespace
 
+// IcnsImagePlugin.read_32 (read_32t: after its 4 zero bytes): a packed
+// RGB icon of w x h pixels at d[start, start + length): the three bands
+// raw where `length` is three times the pixels, else each band in turn
+// as Apple's RLE (a byte of 0x80 or more: the next byte, that less 125
+// times; else that plus one bytes as they are), read on past the
+// entry's end as Pillow's file reads run on; a band not exactly full, or
+// short of bytes, fails as Pillow fails.
+void decode_icns_rgb(const uint8_t* d, int64_t n, int64_t start, int64_t length, bool prefix,
+                     int64_t w, int64_t h, uint8_t* out) {
+  if (start < 0 || start > n) start = n;
+  if (prefix) {
+    if (n - start < 4 || std::memcmp(d + start, "\0\0\0\0", 4) != 0)
+      corrupt("ICNS: Unknown signature, expecting 0x00000000");
+    start += 4;
+    length -= 4;
+  }
+  const int64_t sizesq = w * h;
+  if (length == sizesq * 3) {
+    if (n - start < length) corrupt("ICNS: not enough image data");
+    std::memcpy(out, d + start, static_cast<size_t>(length));
+    return;
+  }
+  int64_t pos = start;
+  std::vector<uint8_t> band;
+  for (int b = 0; b < 3; b++) {
+    band.clear();
+    int64_t left = sizesq;
+    while (left > 0) {
+      if (pos >= n) break;
+      const int c = d[pos++];
+      int64_t run;
+      if (c & 0x80) {
+        run = c - 125;
+        if (pos < n) {
+          band.insert(band.end(), static_cast<size_t>(run), d[pos]);
+          pos++;
+        }
+      } else {
+        run = c + 1;
+        const int64_t take = std::min<int64_t>(run, n - pos);
+        band.insert(band.end(), d + pos, d + pos + take);
+        pos += take;
+      }
+      left -= run;
+      if (left <= 0) break;
+    }
+    if (left != 0)
+      corrupt("ICNS: Error reading channel [" + std::to_string(left) + " left]");
+    if (static_cast<int64_t>(band.size()) != sizesq) corrupt("ICNS: not enough image data");
+    for (int64_t i = 0; i < sizesq; i++) out[3 * i + b] = band[i];
+  }
+}
+
 extern "C" {
 
 // Each format: its image's size, then the whole decode into out
@@ -1130,6 +1183,15 @@ int mrt_sun_size(const uint8_t* data, int64_t n, int32_t* height, int32_t* width
 int mrt_sun_decode(const uint8_t* data, int64_t n, uint8_t* out, int32_t height, int32_t width,
                    char* msg, int32_t msg_len) {
   return guarded("SUN", msg, msg_len, [&] { decode_sun(data, n, out, height, width); });
+}
+
+// An ICNS file's packed RGB icon (decode_icns_rgb): the entry at start,
+// `length` bytes, `prefix`: it32's 4-byte prefix, into out [height, width, 3].
+int mrt_icns_rgb(const uint8_t* data, int64_t n, int64_t start, int64_t length, int32_t prefix,
+                 uint8_t* out, int32_t height, int32_t width, char* msg, int32_t msg_len) {
+  return guarded("ICNS", msg, msg_len, [&] {
+    decode_icns_rgb(data, n, start, length, prefix != 0, width, height, out);
+  });
 }
 
 }  // extern "C"

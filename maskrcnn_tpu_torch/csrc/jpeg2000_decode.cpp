@@ -760,6 +760,17 @@ struct Codestream {
     state = kTPH;
   }
 
+  // opj_j2k_read_cbd: each component's depth and signedness anew (the DC
+  // level shift stays SIZ's)
+  void cbd(const uint8_t* p, uint32_t n) {
+    if (n != numcomps + 2 || be16(p) != numcomps) fail("Crror reading CBD marker");
+    for (uint32_t i = 0; i < numcomps; i++) {
+      comps[i].sgnd = p[2 + i] >> 7;
+      comps[i].prec = (p[2 + i] & 0x7f) + 1u;
+      if (comps[i].prec > 31) fail("CBD: precision above 31 bits");
+    }
+  }
+
   // one marker segment's body through its handler
   void handle(uint32_t id, const uint8_t* p, uint32_t n) {
     switch (id) {
@@ -777,9 +788,12 @@ struct Codestream {
       case kPPT: ppt_marker(p, n); break;
       case kCRG: if (n != numcomps * 4) fail("error reading CRG marker"); break;
       case kCOM: case kCPF: break;
-      case kCAP: refuse("JPEG2000: HTJ2K (ISO 15444-15, a CAP marker) is not read");
-      case kCBD: case kMCT: case kMCC: case kMCO:
-        refuse("JPEG2000: Part-2 multi-component transforms (CBD, MCT, MCC, MCO markers) "
+      // opj_j2k_read_cap reads nothing: an HT code-block style is what
+      // refuses an HTJ2K stream (SPCod)
+      case kCAP: break;
+      case kCBD: cbd(p, n); break;
+      case kMCT: case kMCC: case kMCO:
+        refuse("JPEG2000: Part-2 multi-component transforms (MCT, MCC, MCO markers) "
                "are not read");
       case kSOT: sot(p, n); break;
       default: fail("not sure how that happened");

@@ -14,14 +14,14 @@
 // * each block header: its size byte, CRC32, flags, the optional
 //   compressed and uncompressed sizes (variable-length integers, the
 //   shortest form only), one to four filter flags (LZMA2's dictionary
-//   size and its lc/lp/pb limits, Delta's distance, the chain Delta* then
-//   LZMA2), zero padding; a BCJ filter is refused with its name (liblzma
-//   decodes it; libtiff's writer never emits one);
+//   size and its lc/lp/pb limits, Delta's distance, a chain of Delta and
+//   BCJ filters then LZMA2; the BCJ filters x86, PowerPC, IA-64, ARM, ARM-Thumb, SPARC,
+//   ARM64 and RISC-V with their start offsets), zero padding;
 // * LZMA2: uncompressed and LZMA chunks, the dictionary, state and
 //   property resets and the chunks that must come first, lc + lp <= 4,
 //   each chunk's sizes, the range decoder's end; LZMA as liblzma decodes
 //   it (distances within the dictionary, lengths within the chunk); the
-//   Delta filter after it;
+//   Delta and BCJ filters after it;
 // * the block's end: its sizes against the header's, its padding, and its
 //   check (none, CRC32, CRC64 or SHA-256 verified; another ID skipped
 //   unverified, as liblzma does without LZMA_TELL_UNSUPPORTED_CHECK).
@@ -396,6 +396,9 @@ struct Lzma2 {
         left -= n;
         if (n < len) fail("corrupt data (a match past the chunk's end)");
       }
+      // the chunk's last symbol out: liblzma normalizes the range decoder
+      // once more (SEQ_NORMALIZE) before its end checks
+      normalize();
     } catch (const Starved&) {
       if (overrun()) fail("corrupt data (an LZMA chunk past its compressed size)");
       throw;
@@ -456,6 +459,274 @@ struct Lzma2 {
         csize += byte() + 1u;
         for (u32 k = 0; k < csize; k++) emit(byte());
       }
+    }
+  }
+};
+
+// liblzma's BCJ filters (simple/*.c), decoding: each converts what it
+// can of buf[0, size) at stream position now (a block's start offset
+// on), and returns how many bytes it converted; the rest waits for more
+// data, or passes as it is at the block's end. Called once over a whole
+// block's data they give what liblzma's buffered calls give.
+struct Bcj {
+  u64 id;
+  u32 start;
+  u32 prev_mask = 0, prev_pos = static_cast<u32>(-5);  // x86's state
+
+  static u32 r32le(const u8* p) { return le32(p); }
+  static void w32le(u8* p, u32 v) {
+    for (int i = 0; i < 4; i++) p[i] = static_cast<u8>(v >> (8 * i));
+  }
+  static u32 r32be(const u8* p) {
+    return (static_cast<u32>(p[0]) << 24) | (p[1] << 16) | (p[2] << 8) | p[3];
+  }
+
+  // the bytes a call may leave unconverted (simple_coder's unfiltered_max)
+  static size_t unfiltered_max(u64 id) {
+    return id == 4 ? 5 : id == 6 ? 16 : id == 11 ? 8 : 4;
+  }
+
+  size_t x86(u32 now, u8* b, size_t size) {
+    static const u32 kBits[8] = {0, 1, 2, 2, 3, 3, 3, 3};
+    auto ms = [](u32 v) { return ((v + 1) & 0xFE) == 0; };
+    if (size < 5) return 0;
+    if (now - prev_pos > 5) prev_pos = now - 5;
+    const size_t limit = size - 5;
+    size_t i = 0;
+    while (i <= limit) {
+      u32 c = b[i];
+      if (c != 0xE8 && c != 0xE9) {
+        ++i;
+        continue;
+      }
+      const u32 offset = now + static_cast<u32>(i) - prev_pos;
+      prev_pos = now + static_cast<u32>(i);
+      if (offset > 5) {
+        prev_mask = 0;
+      } else {
+        for (u32 k = 0; k < offset; ++k) {
+          prev_mask &= 0x77;
+          prev_mask <<= 1;
+        }
+      }
+      c = b[i + 4];
+      if (ms(c) && (prev_mask >> 1) <= 4 && (prev_mask >> 1) != 3) {
+        u32 src = (c << 24) | (static_cast<u32>(b[i + 3]) << 16) | (static_cast<u32>(b[i + 2]) << 8) | b[i + 1];
+        u32 dest;
+        for (;;) {
+          dest = src - (now + static_cast<u32>(i) + 5);
+          if (prev_mask == 0) break;
+          const u32 k = kBits[prev_mask >> 1];
+          c = static_cast<u8>(dest >> (24 - k * 8));
+          if (!ms(c)) break;
+          src = dest ^ ((1u << (32 - k * 8)) - 1);
+        }
+        b[i + 4] = static_cast<u8>(~(((dest >> 24) & 1) - 1));
+        b[i + 3] = static_cast<u8>(dest >> 16);
+        b[i + 2] = static_cast<u8>(dest >> 8);
+        b[i + 1] = static_cast<u8>(dest);
+        i += 5;
+        prev_mask = 0;
+      } else {
+        ++i;
+        prev_mask |= 1;
+        if (ms(c)) prev_mask |= 0x10;
+      }
+    }
+    return i;
+  }
+
+  static size_t powerpc(u32 now, u8* b, size_t size) {
+    size &= ~size_t{3};
+    size_t i;
+    for (i = 0; i < size; i += 4) {
+      if ((b[i] >> 2) != 0x12 || (b[i + 3] & 3) != 1) continue;
+      const u32 src = ((static_cast<u32>(b[i]) & 3) << 24) | (static_cast<u32>(b[i + 1]) << 16) |
+                      (static_cast<u32>(b[i + 2]) << 8) | (static_cast<u32>(b[i + 3]) & ~3u);
+      const u32 dest = src - (now + static_cast<u32>(i));
+      b[i] = static_cast<u8>(0x48 | ((dest >> 24) & 3));
+      b[i + 1] = static_cast<u8>(dest >> 16);
+      b[i + 2] = static_cast<u8>(dest >> 8);
+      b[i + 3] = static_cast<u8>((b[i + 3] & 3) | (dest & 0xFF));
+    }
+    return i;
+  }
+
+  static size_t ia64(u32 now, u8* b, size_t size) {
+    static const u32 kBranch[32] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                                    4, 4, 6, 6, 0, 0, 7, 7, 4, 4, 0, 0, 4, 4, 0, 0};
+    size &= ~size_t{15};
+    size_t i;
+    for (i = 0; i < size; i += 16) {
+      const u32 mask = kBranch[b[i] & 0x1F];
+      u32 bit_pos = 5;
+      for (int slot = 0; slot < 3; ++slot, bit_pos += 41) {
+        if (((mask >> slot) & 1) == 0) continue;
+        const size_t byte_pos = bit_pos >> 3;
+        const u32 bit_res = bit_pos & 7;
+        u64 instr = 0;
+        for (int j = 0; j < 6; ++j) instr += static_cast<u64>(b[i + j + byte_pos]) << (8 * j);
+        u64 norm = instr >> bit_res;
+        if (((norm >> 37) & 0xF) != 0x5 || ((norm >> 9) & 0x7) != 0) continue;
+        u32 src = static_cast<u32>((norm >> 13) & 0xFFFFF);
+        src |= static_cast<u32>((norm >> 36) & 1) << 20;
+        src <<= 4;
+        u32 dest = src - (now + static_cast<u32>(i));
+        dest >>= 4;
+        norm &= ~(static_cast<u64>(0x8FFFFF) << 13);
+        norm |= static_cast<u64>(dest & 0xFFFFF) << 13;
+        norm |= static_cast<u64>(dest & 0x100000) << (36 - 20);
+        instr &= (1u << bit_res) - 1;
+        instr |= norm << bit_res;
+        for (int j = 0; j < 6; j++) b[i + j + byte_pos] = static_cast<u8>(instr >> (8 * j));
+      }
+    }
+    return i;
+  }
+
+  static size_t arm(u32 now, u8* b, size_t size) {
+    size &= ~size_t{3};
+    size_t i;
+    for (i = 0; i < size; i += 4) {
+      if (b[i + 3] != 0xEB) continue;
+      u32 src = (static_cast<u32>(b[i + 2]) << 16) | (static_cast<u32>(b[i + 1]) << 8) | b[i];
+      src <<= 2;
+      u32 dest = src - (now + static_cast<u32>(i) + 8);
+      dest >>= 2;
+      b[i + 2] = static_cast<u8>(dest >> 16);
+      b[i + 1] = static_cast<u8>(dest >> 8);
+      b[i] = static_cast<u8>(dest);
+    }
+    return i;
+  }
+
+  static size_t armthumb(u32 now, u8* b, size_t size) {
+    if (size < 4) return 0;
+    size -= 4;
+    size_t i;
+    for (i = 0; i <= size; i += 2) {
+      if ((b[i + 1] & 0xF8) != 0xF0 || (b[i + 3] & 0xF8) != 0xF8) continue;
+      u32 src = ((static_cast<u32>(b[i + 1]) & 7) << 19) | (static_cast<u32>(b[i]) << 11) |
+                ((static_cast<u32>(b[i + 3]) & 7) << 8) | b[i + 2];
+      src <<= 1;
+      u32 dest = src - (now + static_cast<u32>(i) + 4);
+      dest >>= 1;
+      b[i + 1] = static_cast<u8>(0xF0 | ((dest >> 19) & 7));
+      b[i] = static_cast<u8>(dest >> 11);
+      b[i + 3] = static_cast<u8>(0xF8 | ((dest >> 8) & 7));
+      b[i + 2] = static_cast<u8>(dest);
+      i += 2;
+    }
+    return i;
+  }
+
+  static size_t sparc(u32 now, u8* b, size_t size) {
+    size &= ~size_t{3};
+    size_t i;
+    for (i = 0; i < size; i += 4) {
+      if (!((b[i] == 0x40 && (b[i + 1] & 0xC0) == 0) || (b[i] == 0x7F && (b[i + 1] & 0xC0) == 0xC0)))
+        continue;
+      u32 src = r32be(b + i);
+      src <<= 2;
+      u32 dest = src - (now + static_cast<u32>(i));
+      dest >>= 2;
+      dest = (((0u - ((dest >> 22) & 1)) << 22) & 0x3FFFFFFF) | (dest & 0x3FFFFF) | 0x40000000;
+      for (int k = 0; k < 4; k++) b[i + k] = static_cast<u8>(dest >> (24 - 8 * k));
+    }
+    return i;
+  }
+
+  static size_t arm64(u32 now, u8* b, size_t size) {
+    size &= ~size_t{3};
+    size_t i;
+    for (i = 0; i < size; i += 4) {
+      u32 pc = now + static_cast<u32>(i);
+      u32 instr = r32le(b + i);
+      if ((instr >> 26) == 0x25) {
+        const u32 src = instr;
+        pc >>= 2;
+        pc = 0u - pc;
+        w32le(b + i, 0x94000000u | ((src + pc) & 0x03FFFFFF));
+      } else if ((instr & 0x9F000000u) == 0x90000000u) {
+        const u32 src = ((instr >> 29) & 3) | ((instr >> 3) & 0x001FFFFC);
+        if ((src + 0x00020000) & 0x001C0000) continue;
+        instr &= 0x9000001Fu;
+        pc >>= 12;
+        pc = 0u - pc;
+        const u32 dest = src + pc;
+        instr |= (dest & 3) << 29;
+        instr |= (dest & 0x0003FFFC) << 3;
+        instr |= (0u - (dest & 0x00020000)) & 0x00E00000;
+        w32le(b + i, instr);
+      }
+    }
+    return i;
+  }
+
+  static size_t riscv(u32 now, u8* b, size_t size) {
+    if (size < 8) return 0;
+    size -= 8;
+    size_t i;
+    for (i = 0; i <= size; i += 2) {
+      u32 inst = b[i];
+      if (inst == 0xEF) {
+        // JAL with rd x1 or x5
+        const u32 b1 = b[i + 1];
+        if ((b1 & 0x0D) != 0) continue;
+        const u32 b2 = b[i + 2], b3 = b[i + 3];
+        const u32 pc = now + static_cast<u32>(i);
+        u32 addr = ((b1 & 0xF0) << 13) | (b2 << 9) | (b3 << 1);
+        addr -= pc;
+        b[i + 1] = static_cast<u8>((b1 & 0x0F) | ((addr >> 8) & 0xF0));
+        b[i + 2] = static_cast<u8>(((addr >> 16) & 0x0F) | ((addr >> 7) & 0x10) | ((addr << 4) & 0xE0));
+        b[i + 3] = static_cast<u8>(((addr >> 4) & 0x7F) | ((addr >> 13) & 0x80));
+        i += 4 - 2;
+      } else if ((inst & 0x7F) == 0x17) {
+        // AUIPC and the instruction after it
+        u32 inst2;
+        inst |= static_cast<u32>(b[i + 1]) << 8;
+        inst |= static_cast<u32>(b[i + 2]) << 16;
+        inst |= static_cast<u32>(b[i + 3]) << 24;
+        if (inst & 0xE80) {
+          inst2 = r32le(b + i + 4);
+          if (((inst << 8) ^ (inst2 - 3)) & 0xF8003) {
+            i += 6 - 2;
+            continue;
+          }
+          u32 addr = inst & 0xFFFFF000u;
+          addr += inst2 >> 20;
+          inst = 0x17 | (2 << 7) | (inst2 << 12);
+          inst2 = addr;
+        } else {
+          const u32 rs1 = inst >> 27;
+          if (static_cast<u32>((inst - 0x3117) << 18) >= (rs1 & 0x1D)) {
+            i += 4 - 2;
+            continue;
+          }
+          u32 addr = r32be(b + i + 4);
+          addr -= now + static_cast<u32>(i);
+          inst2 = (inst >> 12) | (addr << 20);
+          inst = 0x17 | (rs1 << 7) | ((addr + 0x800) & 0xFFFFF000u);
+        }
+        w32le(b + i, inst);
+        w32le(b + i + 4, inst2);
+        i += 8 - 2;
+      }
+    }
+    return i;
+  }
+
+  // a block's whole data, where `end`: the block ended there
+  void run(u8* b, size_t size) {
+    switch (id) {
+      case 4: x86(start, b, size); break;
+      case 5: powerpc(start, b, size); break;
+      case 6: ia64(start, b, size); break;
+      case 7: arm(start, b, size); break;
+      case 8: armthumb(start, b, size); break;
+      case 9: sparc(start, b, size); break;
+      case 10: arm64(start, b, size); break;
+      default: riscv(start, b, size); break;
     }
   }
 };
@@ -530,7 +801,11 @@ void decode(const u8* d, size_t n, u8* out, size_t cap, size_t& got) {
         prop = h[p];
         if (id == 0x21 && ((prop & 0xC0) || prop > 40)) fail("unsupported LZMA2 properties");
       } else if (bcj_name(id)) {
+        // the start offset, aligned as the filter's instructions are
         if (psize != 0 && psize != 4) fail("unsupported filter properties");
+        if (psize == 4) prop = le32(h + p);
+        static const u32 kAlign[12] = {0, 0, 0, 0, 0, 3, 15, 3, 1, 3, 3, 1};
+        if (prop & kAlign[id]) fail("unsupported filter properties (start offset)");
       } else {
         fail("unsupported filter " + std::to_string(id));
       }
@@ -543,10 +818,13 @@ void decode(const u8* d, size_t n, u8* out, size_t cap, size_t& got) {
     // validate_chain: Delta or BCJ filters, then LZMA2 last
     for (int f = 0; f < nfilters; f++)
       if ((ids[f] == 0x21) != (f == nfilters - 1)) fail("unsupported filter chain");
-    for (int f = 0; f < nfilters; f++)
-      if (const char* name = bcj_name(ids[f]))
-        refuse(std::string("TIFF: LZMA data: the xz BCJ filter ") + name + " (" +
-               std::to_string(ids[f]) + ") is not supported");
+    bool bcj = false;
+    size_t look = 0;  // what liblzma decodes past the strip to convert its last bytes
+    for (int f = 0; f < nfilters; f++) {
+      if (!bcj_name(ids[f])) continue;
+      bcj = true;
+      look += 2 * Bcj::unfiltered_max(ids[f]);
+    }
     pos += hsize;
     // the block's data
     Lzma2 z;
@@ -558,17 +836,51 @@ void decode(const u8* d, size_t n, u8* out, size_t cap, size_t& got) {
     dsize = std::max<u64>(dsize, 4096);
     dsize = (dsize + 15) & ~u64{15};
     z.dict_size = static_cast<size_t>(dsize);
-    z.out = out;
-    z.cap = cap;
-    z.got = &got;
     z.limit = usize;
     z.dict.reserve(cap - got);
-    for (int f = nfilters - 2; f >= 0; f--) {
-      z.deltas.push_back(static_cast<int>(props[f]) + 1);
-      z.delta_hist.emplace_back(256, 0);
-      z.delta_pos.push_back(0);
+    // with a BCJ filter the chain runs over the block's LZMA2 output (as
+    // far as the strip and the filters' look-ahead go) once it is out;
+    // Delta filters alone run byte by byte as it comes
+    std::vector<u8> raw;
+    size_t raw_got = 0;
+    if (bcj) {
+      raw.resize(cap - got + look);
+      z.out = raw.data();
+      z.cap = raw.size();
+      z.got = &raw_got;
+    } else {
+      z.out = out;
+      z.cap = cap;
+      z.got = &got;
+      for (int f = nfilters - 2; f >= 0; f--) {
+        z.deltas.push_back(static_cast<int>(props[f]) + 1);
+        z.delta_hist.emplace_back(256, 0);
+        z.delta_pos.push_back(0);
+      }
     }
-    z.run();
+    const u8* data = out + got;
+    if (bcj) {
+      try {
+        z.run();
+      } catch (const Full&) {
+      }
+      for (int f = nfilters - 2; f >= 0; f--) {
+        if (ids[f] == 3) {
+          const size_t dist = props[f] + 1;
+          for (size_t i = dist; i < raw_got; i++) raw[i] = static_cast<u8>(raw[i] + raw[i - dist]);
+        } else {
+          Bcj{ids[f], props[f]}.run(raw.data(), raw_got);
+        }
+      }
+      const size_t take = std::min(raw_got, cap - got);
+      std::memcpy(out + got, raw.data(), take);
+      got += take;
+      if (got == cap) throw Full{};
+      data = raw.data();
+    } else {
+      z.run();
+      data = out + got - z.produced;
+    }
     if (usize != ~u64{0} && z.produced != usize) fail("corrupt block (uncompressed size)");
     u64 used = z.pos - pos;
     if (csize != ~u64{0} && used != csize) fail("corrupt block (compressed size)");
@@ -581,7 +893,6 @@ void decode(const u8* d, size_t n, u8* out, size_t cap, size_t& got) {
     const size_t cs = static_cast<size_t>(kCheckSize[check]);
     if (n - pos < cs) throw Starved{};
     const u8* c = d + pos;
-    const u8* data = out + got - z.produced;
     const size_t len = static_cast<size_t>(z.produced);
     bool ok = true;
     if (check == 1) {

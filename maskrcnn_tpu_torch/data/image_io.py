@@ -9,8 +9,9 @@ bit for bit, through the native decoders (`csrc/image_decode.cpp` for
 PNG, JPEG, GIF, BMP (with the DIB frames of DIB, ICO and CUR files) and
 TIFF, with TIFF's ZSTD, LZMA and CCITT codecs in `csrc/tiff_zstd.cpp`,
 `tiff_xz.cpp` and `tiff_fax.cpp`; `csrc/image_plugins.cpp` for Netpbm,
-TGA, QOI, PCX, DCX, SGI and Sun raster; `csrc/jpeg2000_decode.cpp` for
-JPEG 2000; `csrc/webp_decode.cpp` for WebP;
+TGA, QOI, PCX, DCX, SGI and Sun raster and ICNS's packed icons;
+`csrc/jpeg2000_decode.cpp` for JPEG 2000; `csrc/webp_decode.cpp` for
+WebP;
 built with g++ on first use and called through ctypes outside the GIL,
 one call a decode after its size call: data/native_image.py). The format
 is told as Pillow's `Image.open` tells it (`format_of`,
@@ -63,24 +64,41 @@ that pass a file on to the next plugin or end `Image.open`). It reads:
   124-byte ones; 1, 4 and 8-bit palettes (black past a short one),
   16-bit (5-5-5, or 5-6-5 bit fields), 24-bit, 32-bit (BGRX and the
   bit-field layouts Pillow takes; alpha dropped); BI_RLE8 and BI_RLE4 as
-  Pillow's RLE decoder reads them; rows bottom-up or top-down.
+  Pillow's RLE decoder reads them; rows bottom-up or top-down; 1- and
+  4-bit pixels under a grayscale palette as Pillow misreads them (its
+  "L" unpacker, a byte a pixel, or "1" for 2 colours; a "codec
+  configuration error" where such a row outruns the stride).
 * TIFF (II, MM, the byte-swapped magics Pillow takes, BigTIFF): the
   first image, as TiffImagePlugin opens it: Pillow's own reading of
   uncompressed strips and tiles, and libtiff's decoding of PackBits,
   LZW (its codes and the old LSB-first ones), Deflate (an inflate in
   the C++ source: one call decodes any number of strips), ZSTD (a
   libzstd-equivalent frame decoder in the source), LZMA (an .xz stream
-  decoder: LZMA2, Delta, every check), CCITT modified Huffman, RLEW,
+  decoder: LZMA2, Delta and the BCJ filters x86, PowerPC, IA-64, ARM,
+  ARM-Thumb, SPARC, ARM64 and RISC-V, every check), CCITT modified
+  Huffman, RLEW,
   Group 3 1D and 2D and Group 4 (tif_fax3.c's decoder, damaged lines
-  filled as libtiff fills them) and JPEG (strips or tiles each a
-  stream, JPEGTables, YCbCr subsampling 1x1, 2x1 and 2x2 converted to
-  RGB as Pillow asks libtiff to, RGB, grayscale and CMYK components as
-  they are); predictors 2 and 3; strips or tiles (edge tiles cropped),
+  filled as libtiff fills them), ThunderScan (tif_thunder.c) and JPEG
+  (strips or tiles each a stream, JPEGTables, YCbCr subsampling 1x1,
+  2x1 and 2x2 converted to RGB as Pillow asks libtiff to, RGB,
+  grayscale and CMYK components as they are); every other YCbCr
+  (uncompressed read raw as Pillow reads it; else libtiff's RGBA
+  interface, tif_getimage.c, as TiffDecode.c's _decodeAsRGBA drives it:
+  packed subsampling 4x4, 4x2, 4x1, 2x2, 2x1, 1x2 and 1x1 or separate
+  1x1 planes, tif_color.c's conversion from ReferenceBlackWhite and
+  YCbCrCoefficients, a strip its codec fails on kept as the codec left
+  it) and old-style JPEG (tif_ojpeg.c over libjpeg's raw data: the
+  tables tags or JPEGInterchangeFormat, restart intervals a strip);
+  predictors 2 and 3; strips or tiles (edge tiles cropped),
   contiguous or separate planes, FillOrder 2; bilevel, grayscale of 2
   to 16 bits (16-bit clipped to 255), 32-bit integer and float
   (truncated and clipped), palettes of 1 to 8 bits, LA, PA, RGB and
   RGBA of 8 and 16 bits (extra samples dropped; associated alpha
-  un-premultiplied, as Pillow's "RGBa"), CMYK; the Orientation tag (2-8,
+  un-premultiplied, as Pillow's "RGBa"), CMYK of 8 and 16 bits, LAB
+  (Pillow's unpack, a* and b* signed, then its convert: LittleCMS 2.17's
+  D50 Lab to sRGB transform as lcms evaluates 8-bit input, a 33³ CLUT
+  under tetrahedral interpolation; the CLUT committed,
+  data/lab_srgb_clut.zlib); the Orientation tag (2-8,
   or XMP's tiff:Orientation) applied as ImageOps.exif_transpose applies
   it, for TIFF only. A compressed image is decoded with the directory
   as libtiff's TIFFReadDirectory reads it (the first of a repeated tag,
@@ -137,32 +155,42 @@ that pass a file on to the next plugin or end `Image.open`). It reads:
   colour space it assumes where colr gives none (sYCC where component 1
   or 2 is subsampled and component 0 is not), its YCbCr -> RGB for sYCC,
   a pclr palette as ImagePalette.getcolor builds it, and the files it
-  refuses (a mode and colour space with no unpacker).
+  refuses (a mode and colour space with no unpacker); a CAP marker read
+  as OpenJPEG reads it (nothing), a CBD marker setting each component's
+  depth and sign.
 
-Refused, with NotImplementedError naming the mode (Pillow refuses them
-too): arithmetic-coded lossless and hierarchical JPEG, samples of other
-than 8 bits, a height set by a DNL marker, 2-component JPEG, fractional
-sampling factors and an interleaved MCU of more than 10 blocks;
-JPEG- or PNG-compressed BMP, BMP bit-field layouts
-and pixel depths Pillow refuses, RLE of more than 8-bit pixels, and 1-
-and 4-bit BMP under a grayscale palette (Pillow reads them with the
-wrong unpacker); TIFF of WebP, old-style JPEG, ThunderScan or SGILog
-compression, LZMA data through an xz BCJ filter (x86, ARM and the
-others), LAB, YCbCr that is not JPEG-compressed with contiguous
-samples, and 16-bit CMYK; JPEG 2000's HTJ2K code-blocks (Part 15: a
-CAP marker or code-block style 0x40) and Part-2 multi-component
-transforms (CBD, MCT, MCC, MCO), which OpenJPEG decodes. A TIFF layout
-Pillow itself refuses is a ValueError naming it. A file of a
-format Pillow reads that the port does not (AVIF, DDS, PSD,
-ICNS, BLP, IM, SPIDER, XBM, XPM, MSP, FLI, FTEX, GBR, PCD, PIXAR,
-XVTHUMB, IMT, IPTC, MCIDAS, FITS, EPS, WMF and the stubs) raises
-NotImplementedError naming the format; a file no plugin takes, or whose
-header ends `Image.open` with an error, raises ValueError (Pillow raises
-UnidentifiedImageError, an OSError, or the plugin's error there).
+* ICNS (IcnsImagePlugin): the block walk, the size IcnsImageFile loads
+  (the largest), every entry of that size read as Pillow reads it (so
+  that one Pillow fails on fails here too): a PNG entry through the PNG
+  decoder (read from the entry to the file's end), a JPEG 2000 entry
+  through the JPEG 2000 decoder, packed RGB (is32, il32, ih32, it32
+  after its 4 zero bytes; raw or Apple's RLE, read on past the entry as
+  Pillow's file reads run on) with its mask checked; the image's size
+  held to a whole scale of one of the file's sizes.
+
+The contract: a file Pillow decodes decodes to Pillow's pixels, or
+raises NotImplementedError naming the format or mode the port does not
+read; a file Pillow fails on raises ValueError. Refused by name: JPEG
+2000's HTJ2K code-blocks (code-block style 0x40) and Part-2
+multi-component transforms (MCT, MCC, MCO markers), RLE pixels under a 2-colour
+grayscale BMP palette, old-style JPEG in tiles or separate planes and
+of a lossless frame; a file of a format Pillow reads that the port does
+not (AVIF, DDS, PSD, BLP, IM, SPIDER, XBM, XPM, MSP, FLI, FTEX, GBR,
+PCD, PIXAR, XVTHUMB, IMT, IPTC, MCIDAS, FITS, EPS, WMF and the stubs).
+A ValueError where Pillow fails: a file no plugin of `Image.open` takes
+(Pillow's UnidentifiedImageError: JPEG frames of other than 8 bits or
+of 2 or 5 layers, which SOF passes on), a header that ends `Image.open`
+(BMP's depth, bit-fields layout, compression and palette checks), what
+libjpeg-turbo never decodes (hierarchical and arithmetic-coded lossless
+frames, fractional sampling factors, an interleaved MCU of more than 10
+blocks), what Pillow's build never decodes (RLE of more than 8-bit BMP
+pixels, TIFF's WebP compression and its SGILog under any photometric
+Pillow opens), and a TIFF layout Pillow or libtiff refuses, naming it.
 tests/test_torch_image_probe.py holds the probe to Pillow's Image.open,
-tests/test_torch_image_tiff.py, test_torch_image_plugins.py and
-test_torch_image_jpeg2000.py the decoders to Pillow's decode on the
-CPU, and chip_smoke.py's phase 9 to
+tests/test_torch_image_outcomes.py the contract on every refused file of
+the corpus, tests/test_torch_image_tiff.py, test_torch_image_tiff_rgba.py,
+test_torch_image_plugins.py and test_torch_image_jpeg2000.py the
+decoders to Pillow's decode on the CPU, and chip_smoke.py's phase 9 to
 the corpus's Pillow digests on the card's host.
 
 `read_image(f, plain=True)` takes the plain Python decoders below
@@ -207,7 +235,8 @@ def _read_bytes(source: Source) -> bytes:
 # the formats read, by Pillow's name: their native decoders
 # (native_image.decode_<name>)
 READ = ("BMP", "DIB", "GIF", "JPEG", "PPM", "PNG", "CUR", "PCX", "DCX",
-        "ICO", "JPEG2000", "TIFF", "QOI", "SGI", "SUN", "TGA", "WEBP")
+        "ICNS", "ICO", "JPEG2000", "TIFF", "QOI", "SGI", "SUN", "TGA",
+        "WEBP")
 # the formats whose decoders take the path flag (Pillow reads a file it
 # opens from a path otherwise than one it opens from bytes)
 PATH_READS = ("TIFF", "PCX", "DCX")

@@ -165,18 +165,16 @@ _BMP_FIELDS = {32: ((0xFF0000, 0xFF00, 0xFF, 0),
                16: ((0xF800, 0x7E0, 0x1F), (0x7C00, 0x3E0, 0x1F))}
 
 
-def _open_bmp(fp, header=0, strict=True):
-    """BmpImageFile._bitmap: the header's size; with `strict`, a
-    ValueError where _bitmap raises (a BMP file's own decoder raises
-    there instead, with the refusals it names)."""
+def _open_bmp(fp, header=0):
+    """BmpImageFile._bitmap: the header's size, and a ValueError where
+    _bitmap raises (its depth, bit-fields layout, compression and
+    palette size checks, which end Image.open)."""
     if header:
         fp.seek(header)
     size = _le32(fp.read(4))
     data = fp.read(max(size - 4, 0))
     if len(data) < size - 4:
-        if strict:
-            raise ValueError("BMP: Truncated File Read")
-        return "?", (1, 1)
+        raise ValueError("BMP: Truncated File Read")
     if size == 12:
         width, height, bits = _le16(data, 0), _le16(data, 2), _le16(data, 6)
         compression, colors = 0, 0
@@ -193,22 +191,19 @@ def _open_bmp(fp, header=0, strict=True):
             else:
                 masks = [_le32(fp.read(4)) for _ in range(3)] + [0]
     else:
-        if strict:
-            raise ValueError(f"BMP: unsupported BMP header type ({size})")
-        return "?", (1, 1)
-    if strict:
-        if bits not in (1, 4, 8, 16, 24, 32):
-            raise ValueError(f"BMP: unsupported BMP pixel depth ({bits})")
-        if compression == 3:
-            fields = _BMP_FIELDS.get(bits, ())
-            if tuple(masks if bits == 32 else masks[:3]) not in fields:
-                raise ValueError("BMP: unsupported BMP bitfields layout")
-        elif compression not in (0, 1, 2):
-            raise ValueError(f"BMP: unsupported BMP compression "
-                             f"({compression})")
-        colors = colors or 1 << bits
-        if bits <= 8 and not 0 < colors <= 65536:
-            raise ValueError(f"BMP: unsupported BMP palette size ({colors})")
+        raise ValueError(f"BMP: unsupported BMP header type ({size})")
+    if bits not in (1, 4, 8, 16, 24, 32):
+        raise ValueError(f"BMP: unsupported BMP pixel depth ({bits})")
+    if compression == 3:
+        fields = _BMP_FIELDS.get(bits, ())
+        if tuple(masks if bits == 32 else masks[:3]) not in fields:
+            raise ValueError("BMP: unsupported BMP bitfields layout")
+    elif compression not in (0, 1, 2):
+        raise ValueError(f"BMP: unsupported BMP compression "
+                         f"({compression})")
+    colors = colors or 1 << bits
+    if bits <= 8 and not 0 < colors <= 65536:
+        raise ValueError(f"BMP: unsupported BMP palette size ({colors})")
     return "?", (width, height)
 
 
@@ -217,7 +212,7 @@ def _open_bmp_file(fp):
     if not head.startswith(b"BM"):
         raise SyntaxError("not a BMP file")
     _le32(head, 10)
-    return _open_bmp(fp, strict=False)
+    return _open_bmp(fp)
 
 
 def _gif_block(fp):
@@ -1230,21 +1225,42 @@ _ICNS_SIZES = {(512, 512, 2): (b"ic10",), (512, 512, 1): (b"ic09",),
                (16, 16, 1): (b"icp4", b"is32", b"s8mk")}
 
 
-def _open_icns(fp):
+def _icns_blocks(fp):
+    """IcnsFile.__init__: {code: (start, length)} of the file's blocks (a
+    repeated code: its last block), walked up to the header's file size;
+    struct.error on a short block header, SyntaxError on a size of 0."""
     s = fp.read(8)
     filesize = _be32(s, 4)
-    blocks = set()
+    dct = {}
     i = 8
     while i < filesize:
         s = fp.read(8)
         sig, blocksize = s[:4], _be32(s, 4)
         if blocksize <= 0:
             raise SyntaxError("invalid block header")
-        blocks.add(sig)
+        i += 8
+        dct[sig] = (i, blocksize - 8)
         fp.seek(blocksize - 8, io.SEEK_CUR)
-        i += blocksize
+        i += blocksize - 8
+    return dct
+
+
+def icns_entries(data: bytes):
+    """An ICNS file's ({code: (start, length)}, its sizes (IcnsFile.
+    itersizes: (width, height, scale) in the order of IcnsFile.SIZES), the
+    size IcnsImageFile loads (bestsize: the largest))."""
+    dct = _icns_blocks(_File(data, False))
     sizes = [size for size, codes in _ICNS_SIZES.items()
-             if any(c in blocks for c in codes)]
+             if any(c in dct for c in codes)]
+    if not sizes:
+        raise ValueError("ICNS: No 32bit icon resources found")
+    return dct, sizes, max(sizes)
+
+
+def _open_icns(fp):
+    dct = _icns_blocks(fp)
+    sizes = [size for size, codes in _ICNS_SIZES.items()
+             if any(c in dct for c in codes)]
     if not sizes:
         raise SyntaxError("No 32bit icon resources found")
     w, h, scale = max(sizes)
@@ -1471,8 +1487,8 @@ def _open_jpeg(fp):
     segments it reads (their lengths, the APP0 JFIF and APP14 Adobe
     fields, DQT's tables, every SOF's size and components, the ICC
     fragments' count) and what each raises; a depth or a number of
-    layers Pillow cannot handle is left to the decoder, which names
-    it."""
+    layers Pillow cannot handle is SOF's SyntaxError, which passes the
+    file on to the next plugin."""
     if fp.read(3) != b"\xff\xd8\xff":
         raise SyntaxError("not a JPEG file")
     mode, size = "", (0, 0)
@@ -1505,10 +1521,12 @@ def _open_jpeg(fp):
                 elif 0xC0 <= code <= 0xCF and code not in (0xC4, 0xC8, 0xCC):
                     size = _be16(seg, 3), _be16(seg, 1)
                     mode = {1: "L", 3: "RGB", 4: "CMYK"}.get(seg[5])
-                    if seg[0] != 8 or mode is None:
-                        # Pillow cannot handle the depth or the layers:
-                        # the decoder refuses the file, naming them
-                        return "?", (1, 1)
+                    # SOF's SyntaxError: Image.open tries the next plugin
+                    if seg[0] != 8:
+                        raise SyntaxError(f"cannot handle {seg[0]}-bit layers")
+                    if mode is None:
+                        raise SyntaxError(
+                            f"cannot handle {seg[5]}-layer images")
                     if icc:
                         icc.sort()
                         icc[0][13]

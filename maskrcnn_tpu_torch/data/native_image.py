@@ -38,6 +38,7 @@ import ctypes
 import struct
 import subprocess
 import threading
+import zlib
 from pathlib import Path
 from typing import Optional
 
@@ -62,6 +63,10 @@ WEBP_SOURCE = CSRC / "webp_decode.cpp"
 # code does (no fused multiply-add, on any host)
 CXX_FLAGS = native_build.CXX_FLAGS + ("-fwrapv", "-ffp-contract=off")
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# LittleCMS 2.17's LAB -> sRGB CLUT as Pillow's convert("RGB") of LAB uses
+# it: 33³ nodes of R, G, B as uint16, zlib (csrc/image_decode.cpp
+# lab_to_rgb)
+LAB_CLUT = Path(__file__).resolve().parent / "lab_srgb_clut.zlib"
 # Pillow's decompression-bomb error: more pixels than twice
 # Image.MAX_IMAGE_PIXELS
 MAX_PIXELS = 2 * 89_478_485
@@ -144,6 +149,20 @@ def library() -> ctypes.CDLL:
         lib.mrt_png_decode.restype = ctypes.c_int
         # JPEG 2000's: Pillow's mode and a P image's palette
         _declare(lib, ("jpeg2000",), [ctypes.c_int32, _U8P])
+        lib.mrt_icns_rgb.argtypes = [
+            _U8P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int32, _OUT, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_char_p, ctypes.c_int32]
+        lib.mrt_icns_rgb.restype = ctypes.c_int
+        lib.mrt_lab_rgb.argtypes = [_OUT, ctypes.c_int64, _OUT,
+                                    ctypes.c_char_p, ctypes.c_int32]
+        lib.mrt_lab_rgb.restype = ctypes.c_int
+        lib.mrt_lab_clut.argtypes = [ctypes.c_void_p]
+        lib.mrt_lab_clut.restype = None
+        # LittleCMS's LAB -> sRGB table (TIFF's LAB; tests/image_corpus.py
+        # --lab-clut wrote it from Pillow's liblcms2)
+        table = np.frombuffer(zlib.decompress(LAB_CLUT.read_bytes()), "<u2")
+        lib.mrt_lab_clut(np.ascontiguousarray(table, np.uint16).ctypes.data)
         _LIB = lib
         return lib
 
@@ -356,6 +375,87 @@ def decode_jpeg2000(data: bytes) -> np.ndarray:
     mode, _, palette = jpeg2000_header(data)
     return _decode(library(), "jpeg2000", data, JPEG2000_MODES.index(mode),
                    palette or bytes(768))
+
+
+# IcnsImagePlugin.IcnsFile.SIZES: a size's entries, in the order
+# dataforsize reads them ("png": a PNG or JPEG 2000 image, "rgb": packed
+# RGB, "rgb32t": it32's, "mask": an 8-bit mask)
+ICNS_READERS = {
+    (512, 512, 2): ((b"ic10", "png"),), (512, 512, 1): ((b"ic09", "png"),),
+    (256, 256, 2): ((b"ic14", "png"),), (256, 256, 1): ((b"ic08", "png"),),
+    (128, 128, 2): ((b"ic13", "png"),),
+    (128, 128, 1): ((b"ic07", "png"), (b"it32", "rgb32t"),
+                    (b"t8mk", "mask")),
+    (64, 64, 1): ((b"icp6", "png"),), (32, 32, 2): ((b"ic12", "png"),),
+    (48, 48, 1): ((b"ih32", "rgb"), (b"h8mk", "mask")),
+    (32, 32, 1): ((b"icp5", "png"), (b"il32", "rgb"), (b"l8mk", "mask")),
+    (16, 16, 2): ((b"ic11", "png"),),
+    (16, 16, 1): ((b"icp4", "png"), (b"is32", "rgb"), (b"s8mk", "mask")),
+}
+_J2K_SIGNATURES = (b"\xff\x4f\xff\x51", b"\x0d\x0a\x87\x0a")
+
+
+def decode_icns(data: bytes) -> np.ndarray:
+    """An ICNS file's bytes -> RGB uint8 [H, W, 3]: the icon
+    IcnsImageFile.load reads (bestsize's, image_probe.icns_entries): its
+    PNG (from the entry to the file's end, as Pillow's PNG plugin reads
+    it) or JPEG 2000 entry (the entry's bytes) through those decoders,
+    else its packed RGB (mrt_icns_rgb, its mask only checked: alpha is
+    dropped); every entry of the size read, so that one Pillow fails on
+    fails here too, and the image's size held to the file's sizes as
+    IcnsImageFile's size setter holds it."""
+    from maskrcnn_tpu_torch.data.image_probe import icns_entries
+    dct, sizes, best = icns_entries(data)
+    w, h, scale = best
+    image = rgb = None
+    for code, kind in ICNS_READERS[best]:
+        if code not in dct:
+            continue
+        start, length = dct[code]
+        if kind == "png":
+            sig = data[start:start + 12]
+            if sig.startswith(PNG_SIGNATURE):
+                image = decode_png(data[start:])
+            elif (sig.startswith(_J2K_SIGNATURES)
+                  or sig == b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"):
+                image = decode_jpeg2000(data[start:start + length])
+            else:
+                raise ValueError("ICNS: Unsupported icon subimage format")
+        elif kind == "mask":
+            if len(data) - min(start, len(data)) < w * h:
+                raise ValueError("ICNS: not enough image data (mask)")
+        else:
+            rgb = np.empty((h, w, 3), np.uint8)
+            msg = ctypes.create_string_buffer(_MSG_LEN)
+            code = library().mrt_icns_rgb(data, len(data), start, length,
+                                          int(kind == "rgb32t"), rgb, h, w,
+                                          msg, _MSG_LEN)
+            if code:
+                _raise(code, msg)
+    if image is None:
+        if rgb is None:
+            raise ValueError("ICNS: no RGB image for its size (KeyError)")
+        image = rgb
+    # the size setter: a size of the file at a whole scale
+    ih, iw = image.shape[:2]
+    if not any(sw * ss // iw * ih == sh * ss for sw, sh, ss in sizes):
+        raise ValueError("ICNS: This is not one of the allowed sizes of "
+                         "this image")
+    return image
+
+
+def lab_to_rgb(lab: np.ndarray) -> np.ndarray:
+    """LAB pixels [..., 3] uint8 as a LAB image holds them (L, a + 128,
+    b + 128) -> Pillow's convert("RGB") of them (LittleCMS's transform,
+    csrc/image_decode.cpp lab_to_rgb), RGB uint8 of the same shape."""
+    lab = np.ascontiguousarray(lab, np.uint8)
+    out = np.empty(lab.shape, np.uint8)
+    msg = ctypes.create_string_buffer(_MSG_LEN)
+    code = library().mrt_lab_rgb(lab.reshape(-1), lab.size // 3,
+                                 out.reshape(-1), msg, _MSG_LEN)
+    if code:
+        _raise(code, msg)
+    return out
 
 
 def decode_webp(data: bytes) -> np.ndarray:

@@ -10,8 +10,9 @@ LZMA TIFF (Pillow's writer, predictor 2) with their digests.
 
 `index.json` beside the files gives each file's rows, columns and the
 SHA-256 of Pillow 12.1.0's decode (np.asarray(Image.open(f).convert(
-"RGB"))), the word each refused file's NotImplementedError names, and
-the scenes' annotations. The card's machine has no Pillow: chip_smoke.py
+"RGB"))), the word each refused file's NotImplementedError names, the
+text of Pillow's error on each file it fails on ("errors"), and the
+scenes' annotations. The card's machine has no Pillow: chip_smoke.py
 holds the port's reader to these digests there.
 
 Every file is made here from seeded numpy arrays: by Pillow where Pillow
@@ -19,12 +20,28 @@ writes the mode, by a byte edit of a Pillow file (an Adobe transform set
 to 2 for YCCK, the Adobe marker removed, a frame marker or precision
 rewritten), or by the test-only writers (tests/jpeg_writer.py,
 tests/image_writers.py, whose `encode_tiff` writes every TIFF; the PNG
-writer below). Regenerate with `python
+writer below). The files of libtiff's RGBA route and the rest
+(tiff_rgba_cases): YCbCr by image_writers.encode_tiff_ycbcr, old-style
+JPEG by image_writers.encode_tiff_ojpeg (Pillow's JPEG, split), LAB
+(image_writers.rgb_to_lab), 16-bit CMYK and ThunderScan
+(image_writers.thunder_encode) by encode_tiff, xz
+chains by the standard library's lzma or, for ARM64 and RISC-V,
+Pillow's liblzma (image_writers.xz_liblzma); ICNS files (icns_cases) by
+image_writers.encode_icns over Pillow's PNG and JPEG 2000 entries and
+image_writers.icns_rgb. The `refused_*` files are classed by Pillow's
+outcome (write_outcome): "refused" where the port does not read what
+Pillow reads (STILL_REFUSED), else a digest or, where Pillow fails,
+"errors" with its error's text. `--lab-clut` writes LittleCMS's LAB ->
+sRGB table the port's LAB decode uses (maskrcnn_tpu_torch/data/
+lab_srgb_clut.zlib, from Pillow's liblcms2) and prints the digest of
+Pillow's conversion of all 2**24 LAB pixels. Regenerate with `python
 tests/image_corpus.py` (needs Pillow, and the system's libwebp for the
 encoder options Pillow does not reach; the digests then change only if
 Pillow's decode does);
 `--time-pillow` prints Pillow's decode times of the files
-tools/image_decode_bench_torch.py times instead.
+tools/image_decode_bench_torch.py times instead; `--rgba-icns` writes
+tiff_rgba_cases, icns_cases and the refused files alone, every other
+file and entry kept.
 """
 
 from __future__ import annotations
@@ -32,6 +49,7 @@ from __future__ import annotations
 import hashlib
 import io
 import json
+import re
 import struct
 import sys
 import zlib
@@ -906,6 +924,10 @@ def tiff_refused_cases():
     rng = np.random.RandomState(19)
     img = seeded_image(rng, 6, 5)
     junk = dict(segments=[bytes(rng.randint(0, 256, 40).astype(np.uint8))])
+    # old-style JPEG in tiles or planes: a 16x16 JPEG at
+    # JPEGInterchangeFormat, every strip or tile its bytes
+    big = np.zeros((32, 32, 3), np.uint8)
+    jif = pil_jpeg(seeded_image(rng, 16, 16), quality=90, subsampling=0)
     # an xz stream with the x86 BCJ filter before LZMA2
     bcj = iw.xz_stream(img.tobytes(), filters=[{"id": 4}, {"id": 0x21}])
     return [
@@ -927,7 +949,115 @@ def tiff_refused_cases():
         ("refused_tiff_cmyk16.tif", iw.encode_tiff(
             seeded_image(rng, 6, 5, 4).astype(np.int64) * 257, bits=16,
             photometric=5, compression=5), "16-bit CMYK"),
+    ] + [(f"refused_tiff_old_style_jpeg_{name}.tif", iw.encode_tiff(
+        big, compression=6, photometric=6, segments=[jif] * n,
+        tags={513: (4, [8]), 514: (4, [len(jif)]), 530: (3, [1, 1])}, **kw),
+        "old-style JPEG in tiles or separate planes")
+        for name, n, kw in (("tiles", 4, dict(tile=(16, 16))),
+                            ("planar", 3, dict(planar=2)))]
+
+
+# xz filter chains a TIFF's LZMA strip may hold: (name, filters before
+# LZMA2); ARM64 (10) and RISC-V (11) through Pillow's liblzma
+XZ_CHAINS = (("x86", [4]), ("powerpc", [5]), ("ia64", [6]), ("arm", [7]),
+             ("armthumb", [8]), ("sparc", [9]), ("arm64", [10]),
+             ("riscv", [11]), ("delta", [3]), ("delta_x86", [3, 4]))
+
+
+def xz_chain(data: bytes, ids) -> bytes:
+    """An .xz stream of `data` through the filters `ids` then LZMA2 (a
+    Delta filter of distance 3): the standard library's lzma, or Pillow's
+    bundled liblzma by ctypes for ARM64 and RISC-V."""
+    import lzma
+    if not {10, 11} & set(ids):
+        return lzma.compress(data, format=lzma.FORMAT_XZ, filters=[
+            {"id": i, "dist": 3} if i == 3 else {"id": i}
+            for i in ids] + [{"id": lzma.FILTER_LZMA2}])
+    return iw.xz_liblzma(data, ids)
+
+
+def tiff_rgba_cases():
+    """(name, bytes) of the TIFF modes read since libtiff's RGBA route:
+    YCbCr (tests/image_writers.encode_tiff_ycbcr) at every subsampling
+    tif_getimage.c puts (contiguous LZW strips, Deflate tiles, one
+    PackBits strip), cosited and centred positioning, ReferenceBlackWhite
+    and YCbCrCoefficients, separate planes in ZSTD strips and LZMA tiles,
+    packed 2x2 read raw (uncompressed: Pillow's raw route); 16-bit CMYK
+    (LZW planes, uncompressed); LAB (image_writers.rgb_to_lab: raw, LZW
+    planes, big-endian Deflate tiles); ThunderScan
+    (image_writers.thunder_encode, FillOrder 1 and 2); LZMA strips under
+    each xz filter (xz_chain); old-style JPEG (image_writers.ojpeg_tiff
+    over Pillow's JPEG: the tables tags, a restart interval a strip, and
+    JPEGInterchangeFormat)."""
+    rng = np.random.RandomState(23)
+    img = seeded_image(rng, 9, 13)
+    out = []
+    for hs, vs in ((4, 4), (4, 2), (4, 1), (2, 2), (2, 1), (1, 2), (1, 1)):
+        sub = f"{hs}{vs}"
+        out.append((f"tiff_ycbcr_{sub}_lzw_strips.tif", iw.encode_tiff_ycbcr(
+            img, (hs, vs), compression=5, rows_per_strip=4)))
+        out.append((f"tiff_ycbcr_{sub}_deflate_tiles.tif",
+                    iw.encode_tiff_ycbcr(img, (hs, vs), compression=8,
+                                         tile=(16, 16))))
+        out.append((f"tiff_ycbcr_{sub}_packbits_small.tif",
+                    iw.encode_tiff_ycbcr(img[:5, :3], (hs, vs),
+                                         compression=32773)))
+    out += [
+        ("tiff_ycbcr_22_cosited.tif", iw.encode_tiff_ycbcr(
+            img, (2, 2), tags={531: (3, [2])})),
+        ("tiff_ycbcr_22_centred.tif", iw.encode_tiff_ycbcr(
+            img, (2, 2), tags={531: (3, [1])})),
+        ("tiff_ycbcr_21_refbw_coefficients.tif", iw.encode_tiff_ycbcr(
+            img, (2, 1), tags={532: (5, [(16, 1), (235, 1), (128, 1),
+                                         (240, 1), (128, 1), (240, 1)]),
+                               529: (5, [(2126, 10000), (7152, 10000),
+                                         (722, 10000)])})),
+        ("tiff_ycbcr_11_planar_zstd_strips.tif", iw.encode_tiff_ycbcr(
+            img, (1, 1), planar=2, compression=50000, rows_per_strip=4)),
+        ("tiff_ycbcr_11_planar_lzma_tiles.tif", iw.encode_tiff_ycbcr(
+            img, (1, 1), planar=2, compression=34925, tile=(16, 16))),
+        ("tiff_ycbcr_22_packed_raw.tif", iw.encode_tiff_ycbcr(
+            img[:6, :4], (2, 2), compression=1)),
     ]
+    cmyk = seeded_image(rng, 6, 5, 4).astype(np.int64) * 257
+    out += [("tiff_cmyk16_planar_lzw.tif", iw.encode_tiff(
+                cmyk, bits=16, photometric=5, compression=5, planar=2)),
+            ("tiff_cmyk16_raw_be.tif", iw.encode_tiff(
+                cmyk, bits=16, photometric=5, byteorder=">"))]
+    pix = np.clip(np.cumsum(rng.randint(-2, 3, (7, 11)), 1) + 7, 0, 15)
+    pix[:, :3] = 9
+    for fill in (1, 2):
+        segs = [iw.thunder_encode(pix[y:y + 4]) for y in range(0, 7, 4)]
+        if fill == 2:
+            segs = [iw.BITREV[np.frombuffer(x, np.uint8)].tobytes()
+                    for x in segs]
+        out.append((f"tiff_thunderscan_fill{fill}.tif", iw.encode_tiff(
+            pix, bits=4, photometric=1 if fill == 1 else 0,
+            compression=32809, rows_per_strip=4, segments=segs,
+            fill_order=fill)))
+    small = seeded_image(rng, 6, 5)
+    for name, ids in XZ_CHAINS:
+        out.append((f"tiff_lzma_{name}.tif", iw.encode_tiff(
+            small, compression=34925,
+            segments=[xz_chain(small.tobytes(), ids)])))
+    lab = iw.rgb_to_lab(img)
+    out += [("tiff_lab_raw.tif", iw.encode_tiff(lab, photometric=8)),
+            ("tiff_lab_lzw_planar.tif", iw.encode_tiff(
+                lab, photometric=8, compression=5, planar=2)),
+            ("tiff_lab_deflate_tiles_be.tif", iw.encode_tiff(
+                lab, photometric=8, compression=8, tile=(16, 16),
+                byteorder=">"))]
+    scene = seeded_image(rng, 24, 32)
+    out += [
+        ("tiff_ojpeg_tables_420.tif", iw.encode_tiff_ojpeg(scene)),
+        ("tiff_ojpeg_tables_422_strips.tif", iw.encode_tiff_ojpeg(
+            scene, subsampling=1, rows_per_strip=8)),
+        ("tiff_ojpeg_jif_444.tif", iw.encode_tiff_ojpeg(
+            scene, subsampling=0, form="jif")),
+        ("tiff_ojpeg_jif_420_strips.tif", iw.encode_tiff_ojpeg(
+            scene, form="jif", rows_per_strip=16)),
+    ]
+    return out
 
 
 # ---------------------------- PPM, TGA, QOI, ICO, CUR, DIB, PCX, SGI, Sun
@@ -1117,6 +1247,47 @@ def plugin_refused_cases():
                 .ljust(2880) + gray.tobytes().ljust(2880, b"\0"), "FITS"))
     assert all(Image.open(io.BytesIO(d)).format == f for _, d, f in out)
     return out
+
+
+def icns_cases():
+    """(name, bytes) of ICNS files (tests/image_writers.encode_icns): PNG
+    entries at 1x and 2x, a JPEG 2000 entry, packed RGB (RLE and raw, it32
+    with its prefix) with and without masks, and two sizes (the largest
+    read)."""
+    rng = np.random.RandomState(24)
+
+    def smooth(h, w):
+        yy, xx = np.mgrid[0:h, 0:w]
+        return np.stack([(yy * 3 + xx) % 256, (xx * 5) % 256,
+                         (255 - yy * 2) % 256], -1).astype(np.uint8)
+
+    def flat(h, w):
+        # bands of 32 equal pixels (RLE runs), a noisy corner (literals)
+        yy, xx = np.mgrid[0:h, 0:w]
+        img = np.stack([(yy // 4 * 9) % 256, (xx // 32 * 70) % 256,
+                        np.full((h, w), 200)], -1).astype(np.uint8)
+        img[:4, :6] = seeded_image(rng, 4, 6)
+        return img
+
+    return [
+        ("icns_png_icp4.icns", iw.encode_icns(
+            [(b"icp4", _pil(seeded_image(rng, 16, 16), "PNG"))])),
+        ("icns_png_ic11_2x.icns", iw.encode_icns(
+            [(b"ic11", _pil(smooth(32, 32), "PNG", "P"))])),
+        ("icns_jpeg2000_ic12.icns", iw.encode_icns(
+            [(b"ic12", _pil(smooth(32, 32), "JPEG2000"))])),
+        ("icns_is32_rle_mask.icns", iw.encode_icns(
+            [(b"is32", iw.icns_rgb(seeded_image(rng, 16, 16))),
+             (b"s8mk", bytes(range(256)))])),
+        ("icns_il32_raw.icns", iw.encode_icns(
+            [(b"il32", iw.icns_rgb(seeded_image(rng, 32, 32), rle=False))])),
+        ("icns_ih32_rle.icns", iw.encode_icns(
+            [(b"ih32", iw.icns_rgb(flat(48, 48))),
+             (b"h8mk", bytes(48 * 48))])),
+        ("icns_it32_two_sizes.icns", iw.encode_icns(
+            [(b"is32", iw.icns_rgb(smooth(16, 16))),
+             (b"it32", iw.icns_rgb(flat(128, 128), prefix=True))])),
+    ]
 
 
 # ------------------------------------------------------------ JPEG 2000
@@ -1485,9 +1656,8 @@ def write_jpeg2000(index, scenes) -> None:
         shape, digest = pillow_digest(data)
         index["files"][name] = {"shape": shape, "sha256": digest}
         index["refused"].pop(name, None)
-    for name, data, word in jpeg2000_refused_cases():
-        (CORPUS / name).write_bytes(data)
-        index["refused"][name] = word
+    for name, data, _ in jpeg2000_refused_cases():
+        write_outcome(index, name, data)
     JPEG2000_SCENES.mkdir(exist_ok=True)
     scene_index = {}
     for name, data, source, holds in jpeg2000_scene_cases(scenes):
@@ -1499,7 +1669,128 @@ def write_jpeg2000(index, scenes) -> None:
         json.dumps(scene_index, indent=1) + "\n")
 
 
+# the files of Pillow's formats and modes the port does not read, by name
+# (their NotImplementedError's word); every other file the refused cases
+# make is decoded to its digest, or is one Pillow fails on ("errors"). A
+# few of these are stubs Pillow fails on too, of a format the port does
+# not read: their refusal names the format or mode first
+STILL_REFUSED = {
+    "refused_sun_gbr_1x1.ras": "GBR",
+    "refused_tiff_old_style_jpeg_tiles.tif": "old-style JPEG in tiles",
+    "refused_tiff_old_style_jpeg_planar.tif": "old-style JPEG in tiles",
+    "refused_im.im": "IM", "refused_spi.spi": "SPIDER",
+    "refused_msp.msp": "MSP", "refused_xbm.xbm": "XBM",
+    "refused_eps.eps": "EPS", "refused_dds.dds": "DDS",
+    "refused_blp.blp": "BLP", "refused_avif.avif": "AVIF",
+    "refused_xpm.xpm": "XPM", "refused_psd.psd": "PSD",
+    "refused_fits.fits": "FITS", "refused_jp2_htj2k.j2k": "HTJ2K",
+    "refused_jp2_part2_mct.j2k": "Part-2"}
+
+
+def lab_clut() -> bytes:
+    """LittleCMS 2.17's LAB -> sRGB table as Pillow's convert("RGB") of a
+    LAB image uses it (data/lab_srgb_clut.zlib, zlib of 33³ x 3 uint16,
+    little-endian, L slowest): Pillow's bundled liblcms2 by ctypes, the
+    transform ImageCms.buildTransform makes (cmsCreateLab2Profile(NULL),
+    cmsCreate_sRGBProfile, perceptual) at 16 bits and unoptimized,
+    evaluated at the node inputs OptimizeByResampling samples
+    (_cmsQuantizeVal: i * 65535 / 32 rounded): its CLUT's nodes."""
+    import ctypes
+    import glob
+    import os
+
+    import PIL
+    libs = os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)),
+                        "pillow.libs")
+    lib = ctypes.CDLL(glob.glob(os.path.join(libs, "liblcms2*"))[0])
+    vp = ctypes.c_void_p
+    lib.cmsCreateLab2Profile.restype = vp
+    lib.cmsCreate_sRGBProfile.restype = vp
+    lib.cmsCreateTransform.restype = vp
+    lib.cmsCreateTransform.argtypes = [vp, ctypes.c_uint32, vp,
+                                       ctypes.c_uint32, ctypes.c_uint32,
+                                       ctypes.c_uint32]
+    lib.cmsDoTransform.argtypes = [vp, vp, vp, ctypes.c_uint32]
+    lab16 = (10 << 16) | (3 << 3) | 2          # TYPE_Lab_16
+    rgb16 = (4 << 16) | (3 << 3) | 2           # TYPE_RGB_16
+    noopt = 0x0100                             # cmsFLAGS_NOOPTIMIZE
+    xform = lib.cmsCreateTransform(lib.cmsCreateLab2Profile(None), lab16,
+                                   lib.cmsCreate_sRGBProfile(), rgb16, 0,
+                                   noopt)
+    nodes = [int(np.floor(i * 65535 / 32 + 0.5)) for i in range(33)]
+    grid = np.array(np.meshgrid(nodes, nodes, nodes, indexing="ij"))
+    inp = np.ascontiguousarray(grid.reshape(3, -1).T, np.uint16)
+    out = np.zeros_like(inp)
+    lib.cmsDoTransform(xform, inp.ctypes.data, out.ctypes.data, len(inp))
+    return zlib.compress(out.astype("<u2").tobytes(), 9)
+
+
+def lab_table_digest() -> str:
+    """SHA-256 of Pillow's convert("RGB") of every LAB pixel (L, a + 128,
+    b + 128 in the image, L slowest): the RGB bytes of all 2**24."""
+    from PIL import Image
+    v = np.arange(256, dtype=np.uint8)
+    L, A, B = np.meshgrid(v, v, v, indexing="ij")
+    # the image's a and b are the raw bytes' xor 128 (ImagingUnpackLAB)
+    raw = np.stack([L, A ^ 128, B ^ 128], -1)
+    im = Image.frombytes("LAB", (4096, 4096), raw.tobytes())
+    return hashlib.sha256(np.asarray(im.convert("RGB")).tobytes()).hexdigest()
+
+
+def write_outcome(index, name: str, data: bytes) -> None:
+    """A file made as a refusal, under Pillow's outcome: "refused"
+    (STILL_REFUSED), its digest, or its error's text ("errors")."""
+    (CORPUS / name).write_bytes(data)
+    for key in ("files", "refused", "errors"):
+        index[key].pop(name, None)
+    if name in STILL_REFUSED:
+        index["refused"][name] = STILL_REFUSED[name]
+        return
+    got = pillow_outcome(data)
+    if isinstance(got, str):
+        # (the text without the file object's address)
+        index["errors"][name] = re.sub(r" <[^>]* at 0x[0-9a-f]+>", "", got)
+    else:
+        index["files"][name] = {"shape": got[0], "sha256": got[1]}
+
+
+def write_outcomes(index) -> None:
+    """The files made as refusals (refused_cases, format_refused_cases,
+    tiff_refused_cases, plugin_refused_cases), each under Pillow's
+    outcome (write_outcome)."""
+    for name, data, _ in (refused_cases() + format_refused_cases()
+                          + tiff_refused_cases() + plugin_refused_cases()):
+        write_outcome(index, name, data)
+
+
+def write_slice(index) -> None:
+    """The TIFF modes of libtiff's RGBA route and the rest, the ICNS files
+    (their index entries), and the refusals (the JPEG 2000 ones too) under
+    Pillow's outcome; every other file and entry kept."""
+    for name, data in tiff_rgba_cases() + icns_cases():
+        (CORPUS / name).write_bytes(data)
+        shape, digest = pillow_digest(data)
+        index["files"][name] = {"shape": shape, "sha256": digest}
+    write_outcomes(index)
+    for name, data, _ in jpeg2000_refused_cases():
+        write_outcome(index, name, data)
+
+
+LAB_CLUT = (Path(__file__).resolve().parent.parent / "maskrcnn_tpu_torch"
+            / "data" / "lab_srgb_clut.zlib")
+
+
 def main() -> int:
+    if "--lab-clut" in sys.argv[1:]:
+        LAB_CLUT.write_bytes(lab_clut())
+        print(f"{LAB_CLUT}: all 2**24 LAB pixels through Pillow: "
+              f"{lab_table_digest()}")
+        return 0
+    if "--rgba-icns" in sys.argv[1:]:
+        index = json.loads(INDEX.read_text())
+        write_slice(index)
+        INDEX.write_text(json.dumps(index, separators=(",", ":")) + "\n")
+        return 0
     if "--time-pillow" in sys.argv[1:]:
         time_pillow()
         return 0
@@ -1516,7 +1807,8 @@ def main() -> int:
              "format_scenes": {}}
     for name, data in (jpeg_cases() + png_cases() + format_cases()
                        + tiff_cases() + tiff_pillow_cases()
-                       + plugin_cases() + jpeg_mode_cases()):
+                       + plugin_cases() + jpeg_mode_cases()
+                       + tiff_rgba_cases() + icns_cases()):
         (CORPUS / name).write_bytes(data)
         shape, digest = pillow_digest(data)
         index["files"][name] = {"shape": shape, "sha256": digest}
@@ -1529,11 +1821,7 @@ def main() -> int:
             index["errors"][name] = got
         else:
             index["files"][name] = {"shape": got[0], "sha256": got[1]}
-    for name, data, word in (refused_cases() + format_refused_cases()
-                             + tiff_refused_cases()
-                             + plugin_refused_cases()):
-        (CORPUS / name).write_bytes(data)
-        index["refused"][name] = word
+    write_outcomes(index)
     scenes = scene_cases()
     for name, data, anns in scenes:
         (CORPUS / name).write_bytes(data)

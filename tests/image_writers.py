@@ -46,6 +46,8 @@ from __future__ import annotations
 
 import ctypes
 import ctypes.util
+import io
+import re
 import struct
 from typing import List, Optional, Sequence, Tuple
 
@@ -696,8 +698,9 @@ def vp8_with_lf_deltas(data: bytes, ref_deltas=(5, -2, 0, 3),
 # ----------------------------------------------------------------- TIFF
 
 # tag types: BYTE, ASCII, SHORT, LONG, RATIONAL, UNDEFINED, LONG8
-_TIFF_FMT = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 7: "B", 16: "Q"}
-_TIFF_SIZE = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 7: 1, 16: 8}
+_TIFF_FMT = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 7: "B", 11: "f", 12: "d",
+             16: "Q"}
+_TIFF_SIZE = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 7: 1, 11: 4, 12: 8, 16: 8}
 
 
 def _bitrev_table() -> np.ndarray:
@@ -912,6 +915,50 @@ def zstd_frame(data: bytes, level: int = 3, checksum: bool = False,
         return out.raw[:n]
     finally:
         lib.ZSTD_freeCCtx(cctx)
+
+
+def xz_liblzma(data: bytes, ids: Sequence[int], start: Optional[int] = None,
+               check: int = 4) -> bytes:
+    """An .xz stream of `data` through the filters `ids` (a Delta filter of
+    distance 3; a BCJ filter's start offset `start`) then LZMA2 at preset
+    6, by Pillow's bundled liblzma (lzma_stream_buffer_encode) by ctypes:
+    the standard library's lzma may not know ARM64 (10) or RISC-V (11)."""
+    import glob
+    import os
+
+    import PIL
+    libs = os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)),
+                        "pillow.libs")
+    lib = ctypes.CDLL(glob.glob(os.path.join(libs, "liblzma*"))[0])
+
+    class Filter(ctypes.Structure):
+        _fields_ = [("id", ctypes.c_uint64), ("options", ctypes.c_void_p)]
+
+    lzma2 = ctypes.create_string_buffer(256)   # lzma_options_lzma
+    if lib.lzma_lzma_preset(lzma2, 6):
+        raise RuntimeError("lzma_lzma_preset failed")
+    keep, chain = [], (Filter * (len(ids) + 2))()
+    for k, fid in enumerate(ids):
+        opts = None
+        if fid == 3 or start is not None:
+            # lzma_options_delta {type, dist} or lzma_options_bcj
+            # {start_offset}
+            vals = (ctypes.c_uint32 * 8)(*((0, 3) if fid == 3 else (start,)))
+            keep.append(vals)
+            opts = ctypes.cast(vals, ctypes.c_void_p)
+        chain[k] = Filter(fid, opts)
+    chain[len(ids)] = Filter(0x21, ctypes.cast(lzma2, ctypes.c_void_p))
+    chain[len(ids) + 1] = Filter(0xFFFFFFFFFFFFFFFF, None)
+    out = ctypes.create_string_buffer(2 * len(data) + 1024)
+    pos = ctypes.c_size_t(0)
+    lib.lzma_stream_buffer_encode.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_char_p,
+        ctypes.c_size_t, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t),
+        ctypes.c_size_t]
+    if lib.lzma_stream_buffer_encode(chain, check, None, data, len(data), out,
+                                     ctypes.byref(pos), len(out)):
+        raise RuntimeError("lzma_stream_buffer_encode failed")
+    return out.raw[:pos.value]
 
 
 def xz_stream(data: bytes, check: Optional[int] = None, preset: int = 6,
@@ -1287,6 +1334,353 @@ def encode_tiff(samples: np.ndarray, *, bits: int = 8, photometric: int = 2,
     else:
         out[:8] = magic + struct.pack(e + "HI", 42, ifd)
     return bytes(out)
+
+
+def rgb_to_ycbcr(rgb: np.ndarray) -> np.ndarray:
+    """RGB uint8 [h, w, 3] as YCbCr (JFIF's full-range equations,
+    rounded)."""
+    x = np.asarray(rgb, np.float64)
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = 128 - 0.168736 * r - 0.331264 * g + 0.5 * b
+    cr = 128 + 0.5 * r - 0.418688 * g - 0.081312 * b
+    return np.clip(np.rint(np.stack([y, cb, cr], -1)), 0, 255).astype(np.uint8)
+
+
+def rgb_to_lab(rgb: np.ndarray) -> np.ndarray:
+    """RGB uint8 [h, w, 3] as TIFF's CIELab samples (photometric 8): L*
+    scaled to 0-255, a* and b* as signed bytes (sRGB to XYZ, D65 white;
+    close enough for test images, not a colour-managed conversion)."""
+    c = np.asarray(rgb, np.float64) / 255
+    c = np.where(c > 0.04045, ((c + 0.055) / 1.055) ** 2.4, c / 12.92)
+    xyz = c @ np.array([[0.4124, 0.2126, 0.0193], [0.3576, 0.7152, 0.1192],
+                        [0.1805, 0.0722, 0.9505]])
+    xyz /= (0.95047, 1.0, 1.08883)
+    f = np.where(xyz > 0.008856, np.cbrt(xyz), 7.787 * xyz + 16 / 116)
+    L = 116 * f[..., 1] - 16
+    a = 500 * (f[..., 0] - f[..., 1])
+    b = 200 * (f[..., 1] - f[..., 2])
+    out = np.stack([np.clip(np.rint(L * 2.55), 0, 255),
+                    np.clip(np.rint(a), -128, 127) % 256,
+                    np.clip(np.rint(b), -128, 127) % 256], -1)
+    return out.astype(np.uint8)
+
+
+def ycbcr_blocks(ycc: np.ndarray, hs: int, vs: int) -> bytes:
+    """YCbCr samples [h, w, 3] packed as TIFF's subsampled YCbCr: blocks of
+    hs x vs luma samples (row by row) then one Cb and one Cr (the block's
+    means), a row of blocks after another; the edges padded by repeating
+    the last row and column."""
+    h, w, _ = ycc.shape
+    bh, bw = -(-h // vs), -(-w // hs)
+    pad = np.pad(ycc, ((0, bh * vs - h), (0, bw * hs - w), (0, 0)),
+                 mode="edge")
+    blocks = pad.reshape(bh, vs, bw, hs, 3).transpose(0, 2, 1, 3, 4)
+    luma = blocks[..., 0].reshape(bh, bw, hs * vs)
+    chroma = np.rint(blocks[..., 1:].reshape(bh, bw, hs * vs, 2).mean(2))
+    return np.concatenate([luma, chroma.astype(np.uint8)], -1).tobytes()
+
+
+def tiff_compress(data: bytes, compression: int, **kw) -> bytes:
+    """One strip's or tile's bytes under `compression` (1, 5, 8, 32773,
+    50000 or 34925), as encode_tiff compresses them."""
+    import zlib
+    if compression == 5:
+        return tiff_lzw(data, kw.get("old_lzw", False))
+    if compression in (8, 32946):
+        return zlib.compress(data, kw.get("zlib_level", 6))
+    if compression == 32773:
+        return tiff_packbits(data)
+    if compression == 50000:
+        return zstd_frame(data, **kw.get("zstd", {}))
+    if compression == 34925:
+        return xz_stream(data, **kw.get("xz", {}))
+    return data
+
+
+def encode_tiff_ycbcr(rgb: np.ndarray, sub: Tuple[int, int] = (2, 2), *,
+                      compression: int = 5,
+                      rows_per_strip: Optional[int] = None,
+                      tile: Optional[Tuple[int, int]] = None, planar: int = 1,
+                      **kw) -> bytes:
+    """An RGB image [h, w, 3] as a YCbCr TIFF subsampled `sub` = (hs, vs):
+    contiguous strips of `rows_per_strip` rows or tiles of `tile` = (width,
+    length), each packed as ycbcr_blocks (the image's edges padded), or
+    separate planes (of the full-resolution samples); compressed as
+    tiff_compress. The other keywords go to encode_tiff."""
+    ycc = rgb_to_ycbcr(rgb)
+    h, w, _ = ycc.shape
+    if planar == 2:
+        return encode_tiff(ycc, photometric=6, compression=compression,
+                           rows_per_strip=rows_per_strip, tile=tile, planar=2,
+                           ycbcr_subsampling=sub, **kw)
+    hs, vs = sub
+    if tile:
+        tw, th = tile
+        down, across = -(-h // th), -(-w // tw)
+        grid = np.pad(ycc, ((0, down * th - h), (0, across * tw - w), (0, 0)),
+                      mode="edge")
+        raw = [ycbcr_blocks(grid[y:y + th, x:x + tw], hs, vs)
+               for y in range(0, down * th, th)
+               for x in range(0, across * tw, tw)]
+    else:
+        rps = rows_per_strip or h
+        raw = [ycbcr_blocks(ycc[y:y + rps], hs, vs) for y in range(0, h, rps)]
+    kwc = {k: kw.pop(k) for k in ("old_lzw", "zlib_level", "zstd", "xz")
+           if k in kw}
+    segs = [tiff_compress(r, compression, **kwc) for r in raw]
+    return encode_tiff(ycc, photometric=6, compression=compression,
+                       rows_per_strip=rows_per_strip, tile=tile,
+                       segments=segs, ycbcr_subsampling=sub, **kw)
+
+
+def jpeg_segments(data: bytes) -> dict:
+    """A baseline JPEG file's parts: "dqt" {table id: 64 bytes, zigzag},
+    "dht" {(class, id): 16 counts + symbols}, "sof" (width, height,
+    [(id, h, v, tq)]), "sos" [(id, td, ta)], "dri" (0 unset), "data"
+    (the entropy-coded data up to EOI, restart markers in it)."""
+    out = {"dqt": {}, "dht": {}, "dri": 0}
+    pos = 2
+    while True:
+        marker = data[pos + 1]
+        n = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        body = data[pos + 4:pos + 2 + n]
+        if marker == 0xDB:
+            k = 0
+            while k < len(body):
+                out["dqt"][body[k] & 15] = body[k + 1:k + 65]
+                k += 65
+        elif marker == 0xC4:
+            k = 0
+            while k < len(body):
+                m = sum(body[k + 1:k + 17])
+                key = (body[k] >> 4, body[k] & 15)
+                out["dht"][key] = body[k + 1:k + 17 + m]
+                k += 17 + m
+        elif marker == 0xDD:
+            out["dri"] = struct.unpack(">H", body[:2])[0]
+        elif marker in (0xC0, 0xC1):
+            h, w, nc = struct.unpack(">HHB", body[1:6])
+            out["sof"] = (w, h, [(body[6 + 3 * i], body[7 + 3 * i] >> 4,
+                                  body[7 + 3 * i] & 15, body[8 + 3 * i])
+                                 for i in range(nc)])
+        elif marker == 0xDA:
+            nc = body[0]
+            out["sos"] = [(body[1 + 2 * i], body[2 + 2 * i] >> 4,
+                           body[2 + 2 * i] & 15) for i in range(nc)]
+            end = data.rindex(b"\xff\xd9")
+            out["data"] = data[pos + 2 + n:end]
+            return out
+        pos += 2 + n
+
+
+def encode_tiff_ojpeg(rgb: np.ndarray, *, subsampling: int = 2,
+                      quality: int = 85, **kw) -> bytes:
+    """An RGB image [h, w, 3] as an old-style JPEG TIFF: Pillow's baseline
+    JPEG of it (`subsampling` 0, 1 or 2: 4:4:4, 4:2:2, 4:2:0; a restart
+    interval a strip where `rows_per_strip` cuts the image) through
+    ojpeg_tiff, which takes the other keywords."""
+    from PIL import Image
+    h = rgb.shape[0]
+    hv = {0: (1, 1), 1: (2, 1), 2: (2, 2)}[subsampling]
+    rps = kw.get("rows_per_strip") or h
+    extra = {}
+    if rps < h:
+        assert rps % (8 * hv[1]) == 0, "a strip is whole MCU rows"
+        extra["restart_marker_rows"] = rps // (8 * hv[1])
+    buf = io.BytesIO()
+    Image.fromarray(np.ascontiguousarray(rgb, np.uint8)).save(
+        buf, "JPEG", quality=quality, subsampling=subsampling, **extra)
+    return ojpeg_tiff(buf.getvalue(), **kw)
+
+
+def ojpeg_tiff(jpeg: bytes, *, form: str = "tables",
+               rows_per_strip: Optional[int] = None, photometric: int = 6,
+               tags: Optional[dict] = None, omit: Sequence[int] = ()) -> bytes:
+    """A baseline JPEG file (3 components, restart markers a strip apart
+    where `rows_per_strip` cuts the image) as an old-style JPEG TIFF
+    (compression 6): either whole at JPEGInterchangeFormat, the strips the
+    entropy data within it (form "jif"), or split into libtiff's tables
+    tags (JPEGProc 1, JPEGQTables, JPEGDCTables, JPEGACTables a component
+    each, JPEGRestartInterval) and strips of entropy data (form "tables");
+    YCbCrSubsampling the luma's sampling factors. `tags` adds or
+    overrides tags, `omit` leaves them out. Numpy and struct only."""
+    seg = jpeg_segments(jpeg)
+    w, h, comps = seg["sof"]
+    hv = comps[0][1:3]
+    rps = rows_per_strip or h
+    parts = (re.split(b"\xff[\xd0-\xd7]", seg["data"]) if rps < h
+             else [seg["data"]])
+    t = dict(tags or {})
+    t[258] = (3, [8, 8, 8])
+    t[530] = (3, list(hv))
+    blank = np.zeros((h, w, 3), np.uint8)
+    if form == "jif":
+        # the stream first (offset 8), the strips pointing into it
+        start = 8 + jpeg.index(seg["data"])
+        offsets, at = [], start
+        for part in parts:
+            offsets.append(at)
+            at += len(part) + 2
+        t[513] = (4, [8])
+        t[514] = (4, [len(jpeg)])
+        body = encode_tiff(blank, photometric=photometric, compression=6,
+                           rows_per_strip=rows_per_strip,
+                           segments=[jpeg] + [b""] * (len(parts) - 1), tags=t)
+        return _drop_tags(_retag_strips(body, offsets,
+                                        [len(p) for p in parts]), omit)
+    # a table a component (component m's at index m), leading the first
+    # segment (offset 8), the first strip past them
+    q = [seg["dqt"][c[3]] for c in comps]
+    dc = [seg["dht"][(0, td)] for _, td, _ in seg["sos"]]
+    ac = [seg["dht"][(1, ta)] for _, _, ta in seg["sos"]]
+    t[512] = (3, [1])
+    if rps < h:
+        t[515] = (3, [seg["dri"]])
+    at = 8
+    for tag, group in ((519, q), (520, dc), (521, ac)):
+        t[tag] = (4, [])
+        for b in group:
+            t[tag][1].append(at)
+            at += len(b)
+    tables = b"".join(q + dc + ac)
+    body = encode_tiff(blank, photometric=photometric, compression=6,
+                       rows_per_strip=rows_per_strip,
+                       segments=[tables + parts[0]] + parts[1:], tags=t)
+    strips = _strip_entries(body)
+    offsets = [strips[0][0] + len(tables)] + [o for o, _ in strips[1:]]
+    counts = [strips[0][1] - len(tables)] + [c for _, c in strips[1:]]
+    return _drop_tags(_retag_strips(body, offsets, counts), omit)
+
+
+def thunder_encode(pixels: np.ndarray) -> bytes:
+    """Rows of 4-bit pixels [h, w] as ThunderScan data (libtiff's
+    tif_thunder.c decodes it): runs of the last pixel, three 2-bit or two
+    3-bit deltas from it, or raw pixels, each row from a last pixel of
+    0."""
+    two = {0: 0, 1: 1, -1: 3}
+    three = {0: 0, 1: 1, 2: 2, 3: 3, -3: 5, -2: 6, -1: 7}
+    out = bytearray()
+    for row in np.asarray(pixels, np.int64):
+        last, i, n = 0, 0, len(row)
+        while i < n:
+            k = i
+            while k < n and k - i < 63 and row[k] == last:
+                k += 1
+            if k - i >= 2:
+                out.append(k - i)
+                i = k
+                continue
+            if i + 3 <= n:
+                d = [int(row[i] - last), int(row[i + 1] - row[i]),
+                     int(row[i + 2] - row[i + 1])]
+                if all(x in two for x in d):
+                    out.append(0x40 | two[d[0]] << 4 | two[d[1]] << 2
+                               | two[d[2]])
+                    last, i = int(row[i + 2]), i + 3
+                    continue
+            if i + 2 <= n:
+                d = [int(row[i] - last), int(row[i + 1] - row[i])]
+                if all(x in three for x in d):
+                    out.append(0x80 | three[d[0]] << 3 | three[d[1]])
+                    last, i = int(row[i + 1]), i + 2
+                    continue
+            out.append(0xC0 | int(row[i]))
+            last, i = int(row[i]), i + 1
+    return bytes(out)
+
+
+def _drop_tags(data: bytes, tags: Sequence[int]) -> bytes:
+    """A little-endian classic TIFF with the first IFD's entries of `tags`
+    taken out (their data left where it is)."""
+    if not tags:
+        return data
+    out = bytearray(data)
+    ifd = struct.unpack("<I", out[4:8])[0]
+    n = struct.unpack("<H", out[ifd:ifd + 2])[0]
+    kept = [bytes(out[ifd + 2 + 12 * i:ifd + 14 + 12 * i]) for i in range(n)]
+    kept = [e for e in kept if struct.unpack("<H", e[:2])[0] not in tags]
+    out[ifd:ifd + 2] = struct.pack("<H", len(kept))
+    out[ifd + 2:ifd + 2 + 12 * len(kept)] = b"".join(kept)
+    out[ifd + 2 + 12 * len(kept):ifd + 6 + 12 * len(kept)] = bytes(4)
+    return bytes(out)
+
+
+def _strip_entries(data: bytes) -> list:
+    """[(offset, byte count)] of a little-endian classic TIFF's strips."""
+    ifd = struct.unpack("<I", data[4:8])[0]
+    n = struct.unpack("<H", data[ifd:ifd + 2])[0]
+    vals = {}
+    for i in range(n):
+        e = ifd + 2 + 12 * i
+        tag, typ, count, v = struct.unpack("<HHII", data[e:e + 12])
+        if tag in (273, 279):
+            vals[tag] = ([v] if count == 1 else
+                         list(struct.unpack(f"<{count}I",
+                                            data[v:v + 4 * count])))
+    return list(zip(vals[273], vals[279]))
+
+
+def _retag_strips(data: bytes, offsets, counts) -> bytes:
+    """A little-endian classic TIFF with its StripOffsets and
+    StripByteCounts (LONG, of the same count) replaced."""
+    out = bytearray(data)
+    ifd = struct.unpack("<I", out[4:8])[0]
+    n = struct.unpack("<H", out[ifd:ifd + 2])[0]
+    for i in range(n):
+        e = ifd + 2 + 12 * i
+        tag, typ, count, v = struct.unpack("<HHII", out[e:e + 12])
+        if tag not in (273, 279):
+            continue
+        vals = offsets if tag == 273 else counts
+        assert typ == 4 and count == len(vals)
+        if count == 1:
+            out[e + 8:e + 12] = struct.pack("<I", vals[0])
+        else:
+            out[v:v + 4 * count] = struct.pack(f"<{count}I", *vals)
+    return bytes(out)
+
+
+def encode_icns(entries: Sequence[Tuple[bytes, bytes]]) -> bytes:
+    """An ICNS file of `entries` [(code, data)], in that order."""
+    body = b"".join(code + struct.pack(">I", len(data) + 8) + data
+                    for code, data in entries)
+    return b"icns" + struct.pack(">I", len(body) + 8) + body
+
+
+def icns_rle(band: bytes) -> bytes:
+    """One band of a packed ICNS icon in Apple's RLE: runs of 3 to 130
+    equal bytes as (length + 125, byte), the rest as literals of at most
+    128 bytes (length - 1, bytes)."""
+    out, lit, i = bytearray(), bytearray(), 0
+    while i < len(band):
+        j = i
+        while j < len(band) and j - i < 130 and band[j] == band[i]:
+            j += 1
+        if j - i >= 3:
+            if lit:
+                out += bytes([len(lit) - 1]) + lit
+                lit = bytearray()
+            out += bytes([j - i + 125, band[i]])
+            i = j
+            continue
+        lit.append(band[i])
+        i += 1
+        if len(lit) == 128:
+            out += bytes([127]) + lit
+            lit = bytearray()
+    if lit:
+        out += bytes([len(lit) - 1]) + lit
+    return bytes(out)
+
+
+def icns_rgb(rgb: np.ndarray, rle: bool = True, prefix: bool = False) -> bytes:
+    """A packed RGB icon entry of rgb [h, w, 3]: its bands in turn as
+    icns_rle, or raw RGB triples; `prefix`: it32's 4 zero bytes first."""
+    a = np.ascontiguousarray(rgb, np.uint8)
+    data = (b"".join(icns_rle(a[..., k].tobytes()) for k in range(3))
+            if rle else a.tobytes())
+    return (b"\0" * 4 if prefix else b"") + data
 
 
 def jpeg_split_tables(data: bytes) -> Tuple[bytes, bytes]:

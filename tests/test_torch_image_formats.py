@@ -75,12 +75,13 @@ def test_corpus_mode_at_every_size_equals_its_digest(mode):
 
 
 def test_corpus_covers_every_format_and_scene():
-    """The corpus holds WebP, GIF and BMP modes, refused BMP files, and
-    the scenes as lossy WebP (three) and lossless WebP (one, holding its
-    JPEG scene's decode)."""
+    """The corpus holds WebP, GIF and BMP modes, BMP files Pillow fails on
+    (each a ValueError here, test_torch_image_native), and the scenes as
+    lossy WebP (three) and lossless WebP (one, holding its JPEG scene's
+    decode)."""
     exts = {m.rsplit(".", 1)[1] for m in MODES}
     assert exts == {"webp", "gif", "bmp"}
-    assert sum(n.endswith(".bmp") for n in INDEX["refused"]) >= 5
+    assert sum(n.endswith(".bmp") for n in INDEX["errors"]) >= 5
     scenes = INDEX["format_scenes"]
     assert sorted(scenes.values()).count("scene_baseline_420.jpg") == 2
     assert set(scenes.values()) == set(INDEX["scenes"])

@@ -239,7 +239,8 @@ def _patched_sof(data: bytes, marker: int = None, precision: int = None):
 
 
 def test_unsupported_modes_raise_naming_them():
-    """Both routes refuse 12-bit JPEG and the plain route arithmetic
+    """Both routes fail on 12-bit JPEG, which no plugin of Pillow's opens
+    (a ValueError), and the plain route refuses arithmetic
     coding and lossless frames, which the native route reads (a baseline
     file's Huffman data under either frame marker gives Pillow's outcome:
     the arithmetic decoder's pixels, libjpeg's refusal of the lossless
@@ -263,7 +264,7 @@ def test_unsupported_modes_raise_naming_them():
     with pytest.raises(NotImplementedError, match="lossless"):
         image_io.read_image(lossless, plain=True)
     for plain in (False, True):
-        with pytest.raises(NotImplementedError, match="12-bit"):
+        with pytest.raises(ValueError, match="no plugin of Pillow's"):
             image_io.read_image(_patched_sof(base, precision=12),
                                 plain=plain)
     with pytest.raises(NotImplementedError, match="progressive"):

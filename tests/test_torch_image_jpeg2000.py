@@ -66,7 +66,9 @@ def test_corpus_covers_every_layout_at_every_size():
     """46 layouts, each at the corpus's four sizes (but TERMALL at 16x24,
     which OpenJPEG's encoder cannot write there: its output buffer is
     sized by the image), the file Pillow's writer made before the port
-    read JPEG 2000, and the refused parts, each named."""
+    read JPEG 2000, the refused parts, each named (an HT code-block, a
+    Part-2 transform), and a CAP and a CBD marker alone, which OpenJPEG
+    decodes, to their digests."""
     layouts = {}
     for name in INDEX["files"]:
         m = NAME.match(name)
@@ -80,7 +82,9 @@ def test_corpus_covers_every_layout_at_every_size():
     assert "refused_jp2.jp2" in INDEX["files"]
     refused = {n: w for n, w in INDEX["refused"].items()
                if n.startswith("refused_jp2")}
-    assert sorted(refused.values()) == ["HTJ2K", "HTJ2K", "Part-2", "Part-2"]
+    assert sorted(refused.values()) == ["HTJ2K", "Part-2"]
+    assert {"refused_jp2_cap.j2k", "refused_jp2_part2_cbd.j2k"} \
+        <= set(INDEX["files"])
     for name, word in refused.items():
         with pytest.raises(NotImplementedError, match=word):
             image_io.read_image(ic.CORPUS / name)
@@ -229,11 +233,11 @@ def test_sycc_colours_equal_pillows_ycbcr_conversion():
 
 
 def test_refused_parts_are_named():
-    """HTJ2K (COD's or COC's style 0x40, a CAP marker) and Part-2
-    multi-component transforms (CBD, MCT, MCC, MCO) raise
-    NotImplementedError naming them; a style byte with HT mixed mode
-    (0x80), which OpenJPEG itself refuses, raises a ValueError as Pillow
-    does."""
+    """HTJ2K code-blocks (COD's or COC's style 0x40) and Part-2
+    multi-component transforms (MCT, MCC, MCO) raise NotImplementedError
+    naming them; a style byte with HT mixed mode (0x80), which OpenJPEG
+    itself refuses, raises a ValueError as Pillow does, as does a CBD
+    marker of the wrong length (opj_j2k_read_cbd's check)."""
     rng = np.random.RandomState(4)
     img = ic.seeded_image(rng, 7, 9)
     cs = jw.encode([img[..., k].astype(np.int32) for k in range(3)])
@@ -247,10 +251,14 @@ def test_refused_parts_are_named():
     assert pillow(bytes(mixed)) is None
     with pytest.raises(ValueError):
         image_io.read_image(bytes(mixed))
-    for marker in (b"\xff\x74", b"\xff\x75", b"\xff\x77", b"\xff\x78"):
+    for marker in (b"\xff\x74", b"\xff\x75", b"\xff\x77"):
         data = ic._insert_marker(cs, 0xFF52, marker + b"\x00\x05\x00\x00\x00")
         with pytest.raises(NotImplementedError, match="Part-2"):
             image_io.read_image(data)
+    data = ic._insert_marker(cs, 0xFF52, b"\xff\x78\x00\x05\x00\x00\x00")
+    assert pillow(data) is None
+    with pytest.raises(ValueError):
+        image_io.read_image(data)
 
 
 def test_jpeg2000_scenes_are_whole_and_small_and_their_pixels():

@@ -285,9 +285,10 @@ def test_lossless_colour_conversion_raises_as_in_pillow():
 
 
 def test_sof11_hierarchical_12_bit_and_2_component_files_are_refused():
-    """What Pillow refuses the port refuses too, naming it: an arithmetic
-    lossless frame (libjpeg-turbo: "arithmetic coding is not
-    implemented"), hierarchical frames, 12-bit samples, 2 components."""
+    """What Pillow fails on the port fails on too (a ValueError): an
+    arithmetic lossless frame and hierarchical frames, which libjpeg-turbo
+    does not decode (named), and 12-bit samples, which no plugin of
+    Pillow's opens."""
     rng = np.random.RandomState(13)
     img = ic.seeded_image(rng, 16, 16)
     lossless = jm.write(img, predictor=1)
@@ -298,11 +299,11 @@ def test_sof11_hierarchical_12_bit_and_2_component_files_are_refused():
                          (0xC6, "hierarchical progressive"),
                          (0xCD, "arithmetic-coded hierarchical")):
         cases.append((ic.patched_sof(base, marker=marker), word))
-    cases.append((ic.patched_sof(base, precision=12), "12-bit"))
+    cases.append((ic.patched_sof(base, precision=12), "no plugin of Pillow's"))
     for data, word in cases:
         with pytest.raises(Exception):
             pillow(data)
-        with pytest.raises(NotImplementedError, match=word):
+        with pytest.raises(ValueError, match=word):
             image_io.read_image(data)
 
 

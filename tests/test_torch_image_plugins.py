@@ -113,7 +113,8 @@ def test_corpus_covers_the_plugins_and_their_refusals():
     QOI channel counts, ICO's PNG and DIB payloads, CUR, DIB, PCX's four
     layouts, DCX, SGI raw and RLE of 1 and 2 bytes, Sun raster's types
     0-5), and a refused file of the formats Pillow reads that the port
-    does not, each NotImplementedError naming its format."""
+    does not, each NotImplementedError naming its format (ICNS, read since,
+    to its digest)."""
     exts = {m.rsplit(".", 1)[1] for m in MODES}
     assert exts == set(EXTS.split("|"))
     assert len(MODES) >= 86
@@ -122,7 +123,8 @@ def test_corpus_covers_the_plugins_and_their_refusals():
                                     "refused_jpeg", "refused_png",
                                     "refused_jp2_"))}
     assert {"GBR", "IM", "SPIDER", "MSP", "XBM", "EPS", "DDS", "BLP", "AVIF",
-            "ICNS", "XPM", "PSD", "FITS"} <= set(refused.values())
+            "XPM", "PSD", "FITS"} <= set(refused.values())
+    assert "refused_icns.icns" in INDEX["files"]
     for name, word in refused.items():
         with pytest.raises(NotImplementedError, match=word):
             image_io.read_image(ic.CORPUS / name)

@@ -97,8 +97,7 @@ def test_corpus_mode_at_every_size_equals_its_digest(mode):
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_corpus_refused_file_names_its_mode(name):
-    """An xz BCJ filter in LZMA data, WebP, old-style JPEG, ThunderScan
-    and SGILog compression, LAB, uncompressed YCbCr and 16-bit CMYK raise
+    """Old-style JPEG in tiles or separate planes raises
     NotImplementedError naming the mode."""
     with pytest.raises(NotImplementedError, match=re.escape(REFUSED[name])):
         image_io.read_image(ic.CORPUS / name)
@@ -109,8 +108,10 @@ def test_corpus_covers_the_tiff_modes():
     among them), both predictors, tiles, planes, BigTIFF, FillOrder 2,
     both byte orders, JPEG with tables and each YCbCr subsampling, and
     orientations 2-8 (and XMP's) are in the corpus, Pillow's own ZSTD,
-    LZMA and Group 4 files are read to their digests, and the refused
-    files name eight modes."""
+    LZMA and Group 4 files are read to their digests, and the files once
+    refused decode to their digests or, where Pillow fails, raise
+    ValueError; old-style JPEG in tiles or planes alone is refused by
+    name."""
     joined = " ".join(MODES)
     for part in ("raw", "packbits", "lzw", "lzw_old_style", "deflate",
                  "32946", "jpeg", "predictor", "predictor3", "tiled",
@@ -123,7 +124,15 @@ def test_corpus_covers_the_tiff_modes():
     assert {f"rgb_orientation_{o}" for o in range(2, 9)} <= set(MODES)
     assert {f"pillow_tiff_{c}.tif" for c in ("group4", "lzma", "zstd")} \
         <= set(INDEX["files"])
-    assert len(REFUSED) == 8
+    assert set(REFUSED) == {"refused_tiff_old_style_jpeg_tiles.tif",
+                            "refused_tiff_old_style_jpeg_planar.tif"}
+    for name in ("refused_tiff_lzma_bcj_x86.tif", "refused_tiff_cmyk16.tif",
+                 "refused_tiff_ycbcr_uncompressed.tif",
+                 "refused_tiff_lab.tif"):
+        assert name in INDEX["files"], name
+    for name in ("refused_tiff_webp.tif", "refused_tiff_old_style_jpeg.tif",
+                 "refused_tiff_thunderscan.tif", "refused_tiff_sgilog.tif"):
+        assert name in INDEX["errors"], name
 
 
 # ----------------------------------------------------- live Pillow: modes

@@ -20,7 +20,6 @@ import glob
 import io
 import lzma
 import os
-import re
 import sys
 import warnings
 from pathlib import Path
@@ -243,7 +242,8 @@ def test_xz_streams_and_filters_as_liblzma_reads_them():
     made with none, its ID changed to 2 and its field left empty: liblzma
     then takes 4 bytes of the index as the check); two streams (the second
     never read); a truncated stream; Delta of distance 2 and 4 in one
-    chain; and each BCJ filter raises NotImplementedError naming it."""
+    chain; and each BCJ filter the standard library writes decodes as
+    liblzma decodes it (ARM64 and RISC-V: test_torch_image_tiff_rgba)."""
     img = _image(3, 30, 40, "texture")
     raw = img.tobytes()
     two = iw.xz_stream(raw[:100]) + iw.xz_stream(raw[100:])
@@ -264,9 +264,7 @@ def test_xz_streams_and_filters_as_liblzma_reads_them():
                                          {"id": lzma.FILTER_LZMA2}])
         data = iw.encode_tiff(img, compression=34925, segments=[seg])
         assert not isinstance(outcome(pillow, data), Exception)
-        with pytest.raises(NotImplementedError,
-                           match=re.escape(f"BCJ filter {name} ")):
-            image_io.read_image(data)
+        assert not same_outcome(data), (name, same_outcome(data))
 
 
 # ---------------------------------------------------------------- CCITT

@@ -25,7 +25,7 @@ worker and the run exits 1.
         [--mutations 3000] [--workers 4] [--seed 1]
 
 (formats: jpeg, gif, bmp, tiff, webp, ppm, tga, qoi, pcx, dcx, sgi, sun,
-dib, ico, cur, jpeg2000)
+dib, ico, cur, jpeg2000, icns: its packed RGB entries)
 
 (`--glob '*zstd*'`, `'*lzma*'`, `'*bilevel_ccitt*'` and `'*group*'`,
 `'map_*'` or `'arith_*'` mutate the ZSTD, LZMA, CCITT, memory-map or
@@ -33,10 +33,12 @@ arithmetic JPEG TIFF files alone; `'tiff_*lzw*'`, `'tiff_*deflate*'` and
 `'tiff_*packbits*'` the files libtiff's directory checks see most;
 with --format jpeg, `'jpeg_arith*'`, `'jpeg_lossless*'` and
 `'jpeg_smooth*'` the arithmetic-coded, lossless and block-smoothed
-modes; with --format jpeg2000, `'jp2_*'` the layouts of
-tests/image_corpus.jpeg2000_modes (raw J2K and JP2: every mode switch,
-SOP/EPH, POC, tile-parts, RGN, PPT and PPM, subsampling, palettes),
-each decoded in a mode of Pillow's drawn at random.)
+modes; `'tiff_ycbcr_*'`, `'*ojpeg*'`, `'*lab*'`, `'*thunder*'`,
+`'*cmyk16*'` and `'tiff_lzma_*'` libtiff's RGBA route, old-style JPEG,
+LAB, ThunderScan, 16-bit CMYK and the xz filters; with --format jpeg2000, `'jp2_*'` the
+layouts of tests/image_corpus.jpeg2000_modes (raw J2K and JP2: every
+mode switch, SOP/EPH, POC, tile-parts, RGN, PPT and PPM, subsampling,
+palettes), each decoded in a mode of Pillow's drawn at random.)
 
 Host only, no card; a worker holds at most a 4-megapixel output.
 """
@@ -68,7 +70,8 @@ SUFFIX = {"jpeg": (".jpg",), "gif": (".gif",), "bmp": (".bmp",),
           "ppm": (".ppm", ".pgm", ".pbm", ".pfm"), "tga": (".tga",),
           "qoi": (".qoi",), "pcx": (".pcx",), "dcx": (".dcx",),
           "sgi": (".sgi",), "sun": (".ras",), "dib": (".dib",),
-          "ico": (".ico",), "cur": (".cur",), "jpeg2000": (".jp2", ".j2k")}
+          "ico": (".ico",), "cur": (".cur",), "jpeg2000": (".jp2", ".j2k"),
+          "icns": (".icns",)}
 # the formats whose calls take a path flag last
 PATH_FLAG = ("tiff", "pcx", "dcx")
 LIMITS = (0, 1, 2, 7, 8, 15, 16, 255, 256, 65535, 2 ** 31 - 1, 2 ** 31,
@@ -187,9 +190,38 @@ def extra_args(fmt: str, data: bytes, rng: random.Random):
             ctypes.c_int32(bpp32))
 
 
+def icns_worker(lib, files, rng: random.Random, mutations: int) -> None:
+    """ICNS: each packed RGB entry of the size IcnsImageFile loads
+    (data/image_probe.icns_entries) through mrt_icns_rgb (its PNG and JPEG
+    2000 entries are those decoders' files)."""
+    from maskrcnn_tpu_torch.data import image_probe
+    msg = ctypes.create_string_buffer(512)
+    for _ in range(mutations):
+        data = mutate(rng, rng.choice(files))
+        try:
+            dct, _, best = image_probe.icns_entries(data)
+        except Exception:  # noqa: BLE001 - the walk refuses the file
+            continue
+        w, h, _ = best
+        for code, kind in native_image.ICNS_READERS[best]:
+            if code in dct and kind.startswith("rgb"):
+                start, length = dct[code]
+                out = ctypes.create_string_buffer(h * w * 3)
+                lib.mrt_icns_rgb(data, len(data), ctypes.c_int64(start),
+                                 ctypes.c_int64(length),
+                                 ctypes.c_int32(kind == "rgb32t"), out,
+                                 ctypes.c_int32(h), ctypes.c_int32(w), msg,
+                                 512)
+
+
 def worker(lib_path: str, fmt: str, pattern: str, mutations: int,
            seed: int) -> None:
     lib = ctypes.CDLL(lib_path)
+    if fmt == "icns":
+        files = [p.read_bytes() for p in sorted(CORPUS.glob(pattern))
+                 if p.suffix == ".icns" and p.stat().st_size < 20000]
+        icns_worker(lib, files, random.Random(seed), mutations)
+        return
     name = "dib" if fmt in ("ico", "cur") else fmt
     size_fn, decode_fn = (getattr(lib, f"mrt_{name}_{k}")
                           for k in ("size", "decode"))

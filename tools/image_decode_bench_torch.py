@@ -115,6 +115,41 @@ TIFF_WRITES = {"raw": dict(),
                                                tile=(256, 256))}
 
 
+# the modes of libtiff's RGBA route, LAB and ICNS a scene is written as
+# (tests/image_writers.py, numpy only), each decoding to pixels other than
+# the JPEG file's: YCbCr 2x2 in LZW strips of 16 rows, YCbCr 1x1 in
+# separate Deflate planes, the scene's own JPEG stream as old-style JPEG
+# (the tables tags; the progressive scene the first scene's stream), LAB
+# in LZW strips of 16 rows, and the scene's decode as a PNG ic10 entry on
+# a 1024² canvas
+RGBA_MODES = ("tiff_ycbcr22_lzw", "tiff_ycbcr11_planar", "tiff_ojpeg",
+              "tiff_lab_lzw", "icns")
+
+
+def rgba_mode(fmt: str, k: int, data: bytes, img) -> tuple:
+    """(name suffix, bytes) of scene k (its JPEG file `data`, its decode
+    `img`) in one of RGBA_MODES."""
+    from maskrcnn_tpu_torch.data import image_io
+    iw = image_writers()
+    if fmt == "tiff_ycbcr22_lzw":
+        return "_ycbcr22.tif", iw.encode_tiff_ycbcr(img, (2, 2), compression=5,
+                                                    rows_per_strip=16)
+    if fmt == "tiff_ycbcr11_planar":
+        return "_ycbcr11.tif", iw.encode_tiff_ycbcr(
+            img, (1, 1), planar=2, compression=8, rows_per_strip=16)
+    if fmt == "tiff_ojpeg":
+        if k == 2:
+            data = (CORPUS / list(corpus_index()["scenes"])[0]).read_bytes()
+        return "_ojpeg.tif", iw.ojpeg_tiff(data)
+    if fmt == "tiff_lab_lzw":
+        return "_lab.tif", iw.encode_tiff(iw.rgb_to_lab(img), photometric=8,
+                                          compression=5, rows_per_strip=16)
+    import numpy as np
+    canvas = np.zeros((1024, 1024, 3), np.uint8)
+    canvas[:img.shape[0], :img.shape[1]] = img
+    return ".icns", iw.encode_icns([(b"ic10", image_io.encode_png(canvas))])
+
+
 # the small lossless plugins a scene is written as (tests/image_writers.py,
 # numpy only): Netpbm P6, TGA RLE, QOI (runs and RGB ops), PCX (RLE, three
 # planes), SGI RLE and Sun raster RLE
@@ -161,7 +196,7 @@ def scene_files(fmt: str, count: int = 3) -> tuple:
     committed reversible JPEG 2000 file (JPEG2000_FILES: its JPEG decode's
     pixels); "tiff_group4" the scenes' bilevel (mean of the channels
     below 110 black) as CCITT Group 4; PLUGIN_SCENES written from their
-    native decodes (plugin_scene)."""
+    native decodes (plugin_scene); RGBA_MODES (rgba_mode)."""
     from maskrcnn_tpu_torch.data import image_io
     names = list(corpus_index()["scenes"])[:count]
     out = []
@@ -190,6 +225,9 @@ def scene_files(fmt: str, count: int = 3) -> tuple:
         elif fmt in PLUGIN_SCENES:
             ext, blob = plugin_scene(fmt, image_io.read_image(data))
             out.append((f"{stem}.{ext}", blob))
+        elif fmt in RGBA_MODES:
+            suffix, blob = rgba_mode(fmt, k, data, image_io.read_image(data))
+            out.append((f"{stem}{suffix}", blob))
         elif fmt == "tiff_jpeg" and "progressive" not in name:
             out.append((f"{stem}_jpeg.tif", image_writers().tiff_from_jpeg(
                 data)))
@@ -220,7 +258,7 @@ FORMAT_TIMES = ("png", "webp", "webp_lossless", "gif", "bmp", "tiff_raw",
                 "tiff_lzw_predictor", "tiff_tiled_deflate_predictor",
                 "tiff_jpeg", "tiff_zstd_predictor", "tiff_lzma_predictor",
                 "tiff_group4") + PLUGIN_SCENES + tuple(COMMITTED_JPEG) + tuple(
-                    COMMITTED_JPEG2000)
+                    COMMITTED_JPEG2000) + RGBA_MODES
 
 
 def format_scenes() -> dict:
@@ -261,7 +299,9 @@ def coco_scene_dir(root: Path, copies: int, fmt: str = "jpeg",
     """A COCO directory (minival 2014 names) of the corpus's scenes in
     `fmt` (scene_files; "plugins": image i in PLUGIN_SCENES[(i - 1) %
     6], each written when its image is; "jpeg_modes": copy c of scene j
-    JPEG_MODE_TURNS[j][c % its length]), each `copies` times (the first
+    JPEG_MODE_TURNS[j][c % its length]; "rgba_modes": image i in
+    RGBA_MODES[(i - 1) % 5], and "rgba_modes_png" each of those files'
+    decode as PNG), each `copies` times (the first
     `limit` images of those, where given), with the JPEG scenes'
     annotations. Returns the directory."""
     index = corpus_index()
@@ -269,10 +309,13 @@ def coco_scene_dir(root: Path, copies: int, fmt: str = "jpeg",
     (root / "annotations").mkdir(parents=True, exist_ok=True)
     (root / "val2014").mkdir(exist_ok=True)
     images, anns = [], []
-    files = scene_files(fmt) if fmt not in ("plugins", "jpeg_modes") else None
+    files = (scene_files(fmt) if fmt not in ("plugins", "jpeg_modes",
+                                             "rgba_modes", "rgba_modes_png")
+             else None)
     for k in range(copies):
         for j, (scene, scene_anns) in enumerate(index["scenes"].items()):
             i = len(images) + 1
+            shape = index["files"][scene]["shape"]
             if limit is not None and i > limit:
                 break
             if files is not None:
@@ -281,12 +324,21 @@ def coco_scene_dir(root: Path, copies: int, fmt: str = "jpeg",
                 turns = JPEG_MODE_TURNS[j]
                 name = turns[k % len(turns)]
                 data = (JPEG_SCENES / name).read_bytes()
+            elif fmt.startswith("rgba_modes"):
+                from maskrcnn_tpu_torch.data import image_io
+                name, data = scene_files(
+                    RGBA_MODES[(i - 1) % len(RGBA_MODES)])[j]
+                decoded = image_io.read_image(data)
+                shape = decoded.shape[:2]  # (ICNS: its 1024² canvas)
+                if fmt == "rgba_modes_png":
+                    name = name.rsplit(".", 1)[0] + ".png"
+                    data = image_io.encode_png(decoded)
             else:
                 stem, img = _scene_decode(j)
                 ext, data = plugin_scene(
                     PLUGIN_SCENES[(i - 1) % len(PLUGIN_SCENES)], img)
                 name = f"{stem}.{ext}"
-            h, w = index["files"][scene]["shape"]
+            h, w = shape
             file_name = f"COCO_val2014_{i:012d}{Path(name).suffix}"
             (root / "val2014" / file_name).write_bytes(data)
             images.append({"id": i, "height": h, "width": w,
