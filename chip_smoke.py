@@ -3095,7 +3095,11 @@ def decode_phase(card, build=None):
     predictor, layout and orientation; PPM/PGM/PBM/PFM, TGA, QOI, ICO,
     CUR, DIB, PCX, DCX, SGI and Sun raster of every mode; YCbCr through
     libtiff's RGBA route, old-style JPEG, LAB, 16-bit CMYK, ThunderScan,
-    every xz filter, ICNS) decodes to its Pillow digest, and each refused file
+    every xz filter, ICNS; Part-2 JPEG 2000 transforms) and of
+    tests/data/texture_io (DDS of every route: BC1-BC7 of every FourCC and
+    DXGI format, uncompressed RGB(A) masks, L, LA, P, R8G8B8A8; BLP1 JPEG
+    and palettes, BLP2 palettes and DXT; PSD of every mode, raw and
+    PackBits) decodes to its Pillow digest, and each refused file
     raises NotImplementedError naming its mode or the format Pillow reads
     that the port does not (each file Pillow raises on raises a
     ValueError); the first scene as
@@ -3118,7 +3122,10 @@ def decode_phase(card, build=None):
     predictors 1 and 7 and a block-smoothed progressive JPEG, the
     first scene as reversible and irreversible JP2, and as YCbCr 2x2 LZW
     and YCbCr 1x1 planar TIFF (libtiff's RGBA route), its JPEG stream as
-    old-style JPEG TIFF, as LAB TIFF, and on a 1024² ICNS canvas);
+    old-style JPEG TIFF, as LAB TIFF, and on a 1024² ICNS canvas, and
+    in image_decode_bench_torch.TEXTURE_MODES: BC1, BC7 and 5-6-5
+    RGB-mask DDS, BLP2 DXT5, its JPEG stream as BLP1 JPEG, PackBits RGB
+    PSD, raw CMYK PSD and a Part-2 J2K);
     the PNG scene's image data through the library's inflate beside
     zlib.decompress; decodes a second of the two baseline JPEG scenes on 1 and 4 threads,
     each route, and of the three scenes as lossy WebP and as tiled
@@ -3186,6 +3193,22 @@ def decode_phase(card, build=None):
               "than Pillow's")
     jpeg2000s = sum(name.rsplit(".", 1)[1] in ("jp2", "j2k")
                     for name in index["files"])
+    part2 = sum(name.startswith("jp2_part2_") for name in index["files"])
+    textures = json.loads((bench.TEXTURES / "index.json").read_text())
+    for name, entry in textures["files"].items():
+        img = image_io.read_image(bench.TEXTURES / name)
+        check(list(img.shape) == entry["shape"] + [3]
+              and hashlib.sha256(img.tobytes()).hexdigest()
+              == entry["sha256"], f"9a: {name} decodes to other pixels "
+              "than Pillow's")
+    for name in textures["errors"]:
+        try:
+            image_io.read_image(bench.TEXTURES / name)
+            check(False, f"9a: {name}, which Pillow refuses, decoded")
+        except ValueError:
+            pass
+    texture_counts = {ext: sum(n.endswith(ext) for n in textures["files"])
+                      for ext in (".dds", ".blp", ".psd")}
     jpeg_modes = sum(name.startswith("jpeg_") for name in index["files"])
     times = bench.decode_times(5)
     inflate = bench.inflate_times(5)
@@ -3230,7 +3253,11 @@ def decode_phase(card, build=None):
           f"raw J2K: every progression, mode switch, tiles, precincts, POC, "
           f"PPM/PPT, RGN, subsampling, CMYK, sYCC, palettes) and the scenes "
           f"as JPEG 2000 ({len(scene_j2ks)} committed files) to their "
-          f"digests; no system codec "
+          f"digests, {part2} of them Part-2 transforms (MCT, MCC, MCO); "
+          f"texture files to their digests: {texture_counts['.dds']} DDS, "
+          f"{texture_counts['.blp']} BLP, {texture_counts['.psd']} PSD, "
+          f"{len(textures['errors'])} that Pillow fails on raise "
+          f"ValueError; no system codec "
           f"loaded; host decode median of 5: {lines}; the PNG scene's "
           f"image data ({inflate['bytes']} bytes) inflated by the "
           f"library's own inflate {inflate['own_ms']:.2f} ms, by "
@@ -3270,7 +3297,8 @@ FILES_COPIES, FILES_B = 8, 8
 FILES_FORMATS = ("bmp", "webp_lossless", "tiff_tiled_lzw_predictor", "webp",
                  "gif", "tiff_jpeg", "tiff_zstd_predictor",
                  "tiff_lzma_predictor", "plugins", "jpeg_modes",
-                 "jpeg2000_layouts", "rgba_modes", "rgba_modes_png")
+                 "jpeg2000_layouts", "rgba_modes", "rgba_modes_png",
+                 "texture_modes", "texture_modes_png")
 # the sweeps whose files hold the JPEG decodes' pixels, so their detections
 # equal the JPEG sweep's (the JPEG TIFF holds the baseline scenes' own JPEG
 # streams, which decode to their JPEG files' pixels; the ZSTD and LZMA
@@ -3291,12 +3319,17 @@ FILES_IMAGES = {"bmp": FILES_B, "webp_lossless": FILES_B, "webp": FILES_B,
                 "gif": FILES_B, "tiff_zstd_predictor": FILES_B,
                 "tiff_lzma_predictor": FILES_B, "plugins": FILES_B,
                 "jpeg_modes": FILES_B, "jpeg2000_layouts": FILES_B,
-                "rgba_modes": FILES_B, "rgba_modes_png": FILES_B}
+                "rgba_modes": FILES_B, "rgba_modes_png": FILES_B,
+                "texture_modes": FILES_B, "texture_modes_png": FILES_B}
 # "rgba_modes": one batch rotating through libtiff's RGBA route, LAB and
 # ICNS (image_decode_bench_torch.RGBA_MODES: YCbCr 2x2 LZW strips, YCbCr
 # 1x1 Deflate planes, old-style JPEG, LAB, an ic10 PNG on a 1024² canvas), other
 # pixels than the JPEG files': its detections equal those of the same
-# decodes read back from PNG files ("rgba_modes_png")
+# decodes read back from PNG files ("rgba_modes_png"); "texture_modes"
+# one batch rotating through DDS, BLP, PSD and Part-2 JPEG 2000
+# (image_decode_bench_torch.TEXTURE_MODES: BC1, BC7 and 5-6-5 DDS, BLP2
+# DXT5, BLP1 JPEG, PackBits RGB PSD, CMYK PSD, a Part-2 J2K), held the same
+# way ("texture_modes_png")
 
 
 def files_phase(kernels, card, cfg=None):
@@ -3329,7 +3362,11 @@ def files_phase(kernels, card, cfg=None):
     2x2 LZW strips, YCbCr 1x1 Deflate planes (libtiff's RGBA route), the
     scenes' JPEG streams as old-style JPEG TIFF, LAB TIFF and the scenes
     on a 1024² ICNS canvas (written at run time, numpy only) gives the
-    detections of its own decodes read back from PNG files; lossy
+    detections of its own decodes read back from PNG files, as does one
+    batch whose images rotate through BC1, BC7 and 5-6-5 DDS, BLP2 DXT5,
+    the scenes' JPEG streams as BLP1 JPEG, PackBits RGB PSD, CMYK PSD and
+    the tiled J2K scene with a Part-2 transform (written at run time,
+    numpy only); lossy
     WebP and GIF (a fixed palette) find detections; K1, K2 and K4 launched in every sweep. Then one POST each of the progressive scene, of a
     lossy WebP scene and of a JPEG TIFF scene to tools/serve_torch.py's
     handler on a localhost port is answered with detections. Returns the
@@ -3406,6 +3443,10 @@ def files_phase(kernels, card, cfg=None):
     check(same_detections(sweeps["rgba_modes"][0], sweeps["rgba_modes_png"][0]),
           "9d: the RGBA-route and ICNS sweep's detections differ from those of "
           "its decodes read back from PNG")
+    check(same_detections(sweeps["texture_modes"][0],
+                          sweeps["texture_modes_png"][0]),
+          "9d: the DDS, BLP, PSD and Part-2 sweep's detections differ from "
+          "those of its decodes read back from PNG")
     n_images = 3 * FILES_COPIES
     parts = []
     for route, (results, seconds, decode, stats, n, count) in sweeps.items():
@@ -3464,7 +3505,10 @@ def files_phase(kernels, card, cfg=None):
           f"(default JP2, tiled RPCL J2K, layered JP2 with PLT in turn) "
           f"sweeps; of the RGBA-route, LAB and ICNS batch (YCbCr 2x2 LZW, "
           f"YCbCr 1x1 planes, old-style JPEG, LAB, ICNS in turn) and of "
-          f"its decodes read back from PNG; "
+          f"its decodes read back from PNG; of the DDS, BLP, PSD and "
+          f"Part-2 batch (BC1, BC7, 5-6-5 DDS, BLP2 DXT5, BLP1 JPEG, "
+          f"PackBits RGB PSD, CMYK PSD, Part-2 J2K in turn) and of its "
+          f"decodes read back from PNG; "
           + "; ".join(parts)
           + f"; bbox AP {sweeps['native'][3][0]:.3f} (seeded weights); "
           + "; ".join(f"serve_torch POST of {name} answered {status} with "

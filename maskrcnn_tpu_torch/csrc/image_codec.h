@@ -51,6 +51,16 @@ int guarded(const char* format, char* msg, int32_t msg_len, F f) {
   }
 }
 
+// Convert.c's cmyk2rgb of one pixel (CMYK as the image holds it)
+inline void cmyk_rgb(const uint8_t* c, uint8_t* o) {
+  const int nk = 255 - c[3];
+  for (int k = 0; k < 3; k++) {
+    const int tmp = c[k] * nk + 128;
+    const int v = nk - (((tmp >> 8) + tmp) >> 8);
+    o[k] = static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
+  }
+}
+
 // libtiff 4.7's ZSTDDecode over one strip or tile, as it drives libzstd
 // 1.5.7: d[0, n) decoded into out[0, cap), an Error where libtiff fails.
 void tiff_zstd(const uint8_t* d, int64_t n, uint8_t* out, int64_t cap);

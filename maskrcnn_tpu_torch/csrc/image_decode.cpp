@@ -203,6 +203,10 @@ struct Jpeg {
   // fails, and so does its fill past the end); the MCU it happens at
   bool ojpeg = false;
   int64_t fail_mcu = -1;
+  // BLP1's JPEG: BlpImagePlugin sets a CMYK frame's jpegmode to "CMYK",
+  // which makes JpegDecode.c set libjpeg's jpeg_color_space to JCS_CMYK:
+  // an Adobe transform 2 (YCCK) is read as CMYK, unconverted
+  bool force_cmyk = false;
 
   Jpeg(const uint8_t* data, int64_t size) : d(data), n(size) {
     std::memset(dac_L, 0, sizeof(dac_L));
@@ -1377,21 +1381,27 @@ void decode_jpeg(Jpeg& j, uint8_t* out) {
                   *P2 = full[2].data(), *P3 = full[3].data();
     for (int64_t i = 0; i < npix; i++) {
       int c0 = P0[i], c1 = P1[i], c2 = P2[i];
-      if (s == Space::YCCK) {
+      if (s == Space::YCCK && !j.force_cmyk) {
         int y = c0, cb = c1, cr = c2;
         c0 = clamp255(255 - (y + t.cr_r[cr]));
         c1 = clamp255(255 - (y + ((t.cb_g[cb] + t.cr_g[cr]) >> 16)));
         c2 = clamp255(255 - (y + t.cb_b[cb]));
       }
-      int nk = P3[i];  // 255 - (255 - k)
-      int cmy[3] = {255 - c0, 255 - c1, 255 - c2};
-      for (int k = 0; k < 3; k++) {
-        int tmp = cmy[k] * nk + 128;
-        int mul = ((tmp >> 8) + tmp) >> 8;
-        out[3 * i + k] = clamp255(nk - mul);
-      }
+      const uint8_t inv[4] = {uint8_t(255 - c0), uint8_t(255 - c1), uint8_t(255 - c2),
+                              uint8_t(255 - P3[i])};
+      mrt::cmyk_rgb(inv, out + 3 * i);
     }
   }
+}
+
+// One JPEG file's whole decode into out [height, width, 3], the size its
+// size call gave; force_cmyk: BLP1's jpegmode "CMYK" (Jpeg::force_cmyk)
+void jpeg_entry(const uint8_t* data, int64_t n, uint8_t* out, int32_t height, int32_t width,
+                bool force_cmyk) {
+  Jpeg j(data, n);
+  j.force_cmyk = force_cmyk;
+  decode_jpeg(j, out);
+  if (j.height != height || j.width != width) corrupt("JPEG: the frame's size changed");
 }
 
 // ------------------------------------------------------------------- zlib
@@ -5371,17 +5381,16 @@ int mrt_jpeg_size(const uint8_t* data, int64_t n, int32_t* height,
 int mrt_jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out,
                     int32_t height, int32_t width, char* msg,
                     int32_t msg_len) {
-  try {
-    Jpeg j(data, n);
-    decode_jpeg(j, out);
-    if (j.height != height || j.width != width)
-      corrupt("JPEG: the frame's size changed");
-    return 0;
-  } catch (const Error& e) {
-    return report(e, msg, msg_len);
-  } catch (const std::bad_alloc&) {
-    return report(Error{1, "JPEG: out of memory"}, msg, msg_len);
-  }
+  return guarded("JPEG", msg, msg_len,
+                 [&] { jpeg_entry(data, n, out, height, width, false); });
+}
+
+// BLP1's JPEG: mrt_jpeg_decode with jpeg_color_space CMYK where the frame
+// has 4 components (Jpeg::force_cmyk)
+int mrt_jpeg_decode_cmyk(const uint8_t* data, int64_t n, uint8_t* out, int32_t height,
+                         int32_t width, char* msg, int32_t msg_len) {
+  return guarded("JPEG", msg, msg_len,
+                 [&] { jpeg_entry(data, n, out, height, width, true); });
 }
 
 // A PNG's image data (all IDAT chunks, still deflated) to out

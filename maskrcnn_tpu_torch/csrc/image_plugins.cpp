@@ -48,14 +48,7 @@ inline uint32_t le32(const uint8_t* p) {
 }
 inline uint8_t clip8(int64_t v) { return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v)); }
 
-// Convert.c's cmyk2rgb of one pixel
-inline void cmyk_rgb(const uint8_t* c, uint8_t* o) {
-  const int nk = 255 - c[3];
-  for (int k = 0; k < 3; k++) {
-    const int tmp = c[k] * nk + 128;
-    o[k] = clip8(nk - (((tmp >> 8) + tmp) >> 8));
-  }
-}
+using mrt::cmyk_rgb;
 
 // F -> RGB: the float truncated to an integer, clipped (NaN 0)
 inline uint8_t float8(float f) {

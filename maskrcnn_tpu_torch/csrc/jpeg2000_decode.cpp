@@ -355,8 +355,25 @@ struct Ppx {
   }
 };
 
+// Part-2 multi-component transform records (opj_mct_data_t and
+// opj_simple_mcc_decorrelation_data_t; an MCC's arrays by their place
+// among the MCT records, -1 for none)
+struct MctRecord {
+  uint32_t index = 0, array_type = 0, element_type = 0;
+  std::vector<uint8_t> data;
+};
+struct MccRecord {
+  uint32_t index = 0, nb_comps = 0;
+  int32_t deco = -1, offset = -1;
+};
+
 struct Tcp {
   uint32_t csty = 0, numlayers = 0, mct = 0;
+  std::vector<MctRecord> mct_records;
+  // OpenJPEG's array of MCC records: the first nb_mcc are read, the slot
+  // after them keeps what a collection read in part left there
+  std::vector<MccRecord> mcc_records;
+  uint32_t nb_mcc = 0;
   int32_t prg = 0;
   bool cod = false, poc = false;
   uint32_t numpocs = 0;
@@ -771,6 +788,139 @@ struct Codestream {
     }
   }
 
+  // opj_j2k_read_mct: one array of a Part-2 transform (a record of its
+  // index, array and element types and data; a second part, Zmct or
+  // Ymct, is skipped with a warning)
+  void mct_marker(const uint8_t* p, uint32_t n) {
+    Tcp& t = cur();
+    if (n < 2) fail("Error reading MCT marker");
+    if (be16(p) != 0) return;  // "mct data within multiple MCT records"
+    if (n <= 6) fail("Error reading MCT marker");
+    const uint32_t imct = be16(p + 2), index = imct & 0xff;
+    size_t k = 0;
+    while (k < t.mct_records.size() && t.mct_records[k].index != index) k++;
+    if (k == t.mct_records.size()) t.mct_records.emplace_back();
+    MctRecord& r = t.mct_records[k];
+    r.data.clear();
+    r.index = index;
+    r.array_type = (imct >> 8) & 3;
+    r.element_type = (imct >> 10) & 3;
+    if (be16(p + 4) != 0) return;  // "multiple MCT markers": the record kept empty
+    r.data.assign(p + 6, p + n);
+  }
+
+  // opj_j2k_read_mcc: one array-based decorrelation collection (a single
+  // collection of components 0..n-1 in order; anything else is skipped
+  // with a warning, what the fields read so far left in place)
+  void mcc_marker(const uint8_t* p, uint32_t n) {
+    Tcp& t = cur();
+    if (n < 2) fail("Error reading MCC marker");
+    if (be16(p) != 0) return;  // "multiple data spanning"
+    if (n < 7) fail("Error reading MCC marker");
+    const uint32_t index = p[2];
+    uint32_t k = 0;
+    while (k < t.nb_mcc && t.mcc_records[k].index != index) k++;
+    const bool fresh = k == t.nb_mcc;
+    if (t.mcc_records.size() <= k) t.mcc_records.resize(k + 1);
+    MccRecord& r = t.mcc_records[k];
+    r.index = index;
+    if (be16(p + 3) != 0) return;  // "multiple data spanning"
+    const uint32_t collections = be16(p + 5);
+    if (collections > 1) return;   // "multiple collections"
+    uint32_t left = n - 7;
+    p += 7;
+    for (uint32_t c = 0; c < collections; c++) {
+      if (left < 3) fail("Error reading MCC marker");
+      if (p[0] != 1) return;  // "collections other than array decorrelation"
+      uint32_t nc = be16(p + 1);
+      p += 3;
+      left -= 3;
+      uint32_t width = 1 + (nc >> 15);
+      r.nb_comps = nc & 0x7fff;
+      if (left < width * r.nb_comps + 2) fail("Error reading MCC marker");
+      left -= width * r.nb_comps + 2;
+      for (uint32_t j = 0; j < r.nb_comps; j++, p += width)
+        if (be_n(p, int(width)) != j) return;  // "indix shuffle"
+      nc = be16(p);
+      p += 2;
+      width = 1 + (nc >> 15);
+      if ((nc & 0x7fff) != r.nb_comps) return;  // "without same number of indixes"
+      if (left < width * r.nb_comps + 3) fail("Error reading MCC marker");
+      left -= width * r.nb_comps + 3;
+      for (uint32_t j = 0; j < r.nb_comps; j++, p += width)
+        if (be_n(p, int(width)) != j) return;
+      const uint32_t tmcc = be_n(p, 3);
+      p += 3;
+      r.deco = r.offset = -1;
+      auto find = [&](uint32_t idx) {
+        for (size_t m = 0; m < t.mct_records.size(); m++)
+          if (t.mct_records[m].index == idx) return int32_t(m);
+        fail("Error reading MCC marker");
+      };
+      if (tmcc & 0xff) r.deco = find(tmcc & 0xff);
+      if ((tmcc >> 8) & 0xff) r.offset = find((tmcc >> 8) & 0xff);
+    }
+    if (left != 0) fail("Error reading MCC marker");
+    if (fresh) t.nb_mcc++;
+  }
+
+  // opj_j2k_read_mco and opj_j2k_add_mct: the transform's one stage. Every
+  // DC level shift of the tile (or the default) becomes 0, then the stage's
+  // collection (with as many components as the image) gives its offsets
+  // as the shifts; its decorrelation matrix is held to its size. OpenJPEG
+  // decodes no transform of its own (COD's byte 2 fails), so the shifts
+  // are what an MCO changes.
+  void mco_marker(const uint8_t* p, uint32_t n) {
+    Tcp& t = cur();
+    if (n < 1) fail("Error reading MCO marker");
+    const uint32_t stages = p[0];
+    if (stages > 1) return;  // "Cannot take in charge multiple transformation stages"
+    if (n != stages + 1) fail("Error reading MCO marker");
+    for (Tccp& c : t.tccps) c.dc_shift = 0;
+    for (uint32_t i = 0; i < stages; i++) {
+      const uint32_t index = p[1 + i];
+      const MccRecord* r = nullptr;
+      for (uint32_t m = 0; m < t.nb_mcc && !r; m++)
+        if (t.mcc_records[m].index == index) r = &t.mcc_records[m];
+      if (!r || r->nb_comps != numcomps) continue;
+      static const uint32_t kSize[4] = {2, 4, 4, 8};
+      if (r->deco >= 0) {
+        const MctRecord& a = t.mct_records[size_t(r->deco)];
+        if (a.data.size() != size_t(kSize[a.element_type]) * numcomps * numcomps)
+          fail("MCO: the decorrelation array's size");
+      }
+      if (r->offset >= 0) {
+        const MctRecord& a = t.mct_records[size_t(r->offset)];
+        if (a.data.size() != size_t(kSize[a.element_type]) * numcomps)
+          fail("MCO: the offset array's size");
+        for (uint32_t c = 0; c < numcomps; c++)
+          t.tccps[c].dc_shift = mct_int32(a.data.data() + c * kSize[a.element_type],
+                                          a.element_type);
+      }
+    }
+  }
+
+  // j2k_mct_read_functions_to_int32: an element as int32 (int16 read as
+  // its unsigned 16 bits, floats truncated; x86's conversion gives
+  // INT32_MIN for NaN or what no int32 holds)
+  static int32_t mct_int32(const uint8_t* e, uint32_t type) {
+    auto from = [](double v) {
+      return (v >= -2147483648.0 && v < 2147483648.0) ? int32_t(v) : INT32_MIN;
+    };
+    if (type == 0) return int32_t(be16(e));
+    if (type == 1) return int32_t(be32(e));
+    if (type == 2) {
+      const uint32_t u = be32(e);
+      float f;
+      std::memcpy(&f, &u, 4);
+      return from(double(f));
+    }
+    const uint64_t u = (uint64_t(be32(e)) << 32) | be32(e + 4);
+    double d;
+    std::memcpy(&d, &u, 8);
+    return from(d);
+  }
+
   // one marker segment's body through its handler
   void handle(uint32_t id, const uint8_t* p, uint32_t n) {
     switch (id) {
@@ -792,9 +942,9 @@ struct Codestream {
       // refuses an HTJ2K stream (SPCod)
       case kCAP: break;
       case kCBD: cbd(p, n); break;
-      case kMCT: case kMCC: case kMCO:
-        refuse("JPEG2000: Part-2 multi-component transforms (MCT, MCC, MCO markers) "
-               "are not read");
+      case kMCT: mct_marker(p, n); break;
+      case kMCC: mcc_marker(p, n); break;
+      case kMCO: mco_marker(p, n); break;
       case kSOT: sot(p, n); break;
       default: fail("not sure how that happened");
     }
@@ -2655,15 +2805,6 @@ void unpack(Unpacker u, const std::vector<Comp>& comps, const uint8_t* td, uint3
   }
 }
 
-// Convert.c's cmyk2rgb of one pixel
-inline void cmyk_rgb(const uint8_t* c, uint8_t* o) {
-  const int nk = 255 - c[3];
-  for (int k = 0; k < 3; k++) {
-    const int tmp = c[k] * nk + 128;
-    const int v = nk - (((tmp >> 8) + tmp) >> 8);
-    o[k] = uint8_t(v < 0 ? 0 : v > 255 ? 255 : v);
-  }
-}
 
 // convert("RGB") of Pillow's image (`palette`: 256 RGB entries for P, PA)
 void to_rgb(PilImage& im, const uint8_t* palette, uint8_t* out) {
@@ -2681,7 +2822,7 @@ void to_rgb(PilImage& im, const uint8_t* palette, uint8_t* out) {
       }
       case kLA: out[0] = out[1] = out[2] = p[4 * i]; break;
       case kPA: std::memcpy(out, palette + 3 * p[4 * i], 3); break;
-      case kCMYK: cmyk_rgb(p + 4 * i, out); break;
+      case kCMYK: mrt::cmyk_rgb(p + 4 * i, out); break;
       default: std::memcpy(out, p + 4 * i, 3); break;
     }
   }

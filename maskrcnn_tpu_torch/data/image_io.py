@@ -10,8 +10,8 @@ PNG, JPEG, GIF, BMP (with the DIB frames of DIB, ICO and CUR files) and
 TIFF, with TIFF's ZSTD, LZMA and CCITT codecs in `csrc/tiff_zstd.cpp`,
 `tiff_xz.cpp` and `tiff_fax.cpp`; `csrc/image_plugins.cpp` for Netpbm,
 TGA, QOI, PCX, DCX, SGI and Sun raster and ICNS's packed icons;
-`csrc/jpeg2000_decode.cpp` for JPEG 2000; `csrc/webp_decode.cpp` for
-WebP;
+`csrc/jpeg2000_decode.cpp` for JPEG 2000; `csrc/bcn_decode.cpp` for
+the pixels of DDS, BLP and PSD; `csrc/webp_decode.cpp` for WebP;
 built with g++ on first use and called through ctypes outside the GIL,
 one call a decode after its size call: data/native_image.py). The format
 is told as Pillow's `Image.open` tells it (`format_of`,
@@ -157,7 +157,12 @@ that pass a file on to the next plugin or end `Image.open`). It reads:
   a pclr palette as ImagePalette.getcolor builds it, and the files it
   refuses (a mode and colour space with no unpacker); a CAP marker read
   as OpenJPEG reads it (nothing), a CBD marker setting each component's
-  depth and sign.
+  depth and sign; Part-2 multi-component transforms as OpenJPEG 2.5.4
+  reads them (opj_j2k_read_mct, _mcc, _mco: records of every element
+  type, array-based collections, what it skips or fails on), whose MCO
+  sets every DC level shift to 0 and then to its collection's offsets;
+  COD's transform byte 2 fails, as in OpenJPEG, so no custom transform
+  ever runs.
 
 * ICNS (IcnsImagePlugin): the block walk, the size IcnsImageFile loads
   (the largest), every entry of that size read as Pillow reads it (so
@@ -167,16 +172,36 @@ that pass a file on to the next plugin or end `Image.open`). It reads:
   after its 4 zero bytes; raw or Apple's RLE, read on past the entry as
   Pillow's file reads run on) with its mask checked; the image's size
   held to a whole scale of one of the file's sizes.
+* DDS (DdsImagePlugin): the first surface of every route _open takes:
+  BCn blocks as Pillow's C decoder reads them (BC1 of 4 or 3 colours and
+  transparent black, BC2, BC3, BC4, BC5 unsigned and signed, BC6H
+  unsigned and signed in its 14 modes, BC7 in its 8, partial edge
+  blocks; FourCC DXT1/3/5, BC4U, ATI1, BC5U, ATI2, BC5S and the DX10
+  DXGI formats), uncompressed RGB(A) under any masks as its Python
+  DdsRgbDecoder scales them, L, LA, P under its RGBA palette and
+  R8G8B8A8, the pixels starting where _open's reads left the file.
+* BLP (BlpImagePlugin): BLP1 JPEG (the shared header and the first mip
+  through the JPEG decoder, a CMYK frame's jpegmode "CMYK", the result
+  read back as BGR rows of the BLP's width), BLP1 and BLP2 palettes of
+  BGRA entries, BLP2 DXT1/3/5 through the plugin's own Python block
+  decoders (their rows read back by the image's width).
+* PSD (PsdImagePlugin): the merged image after the layer section, each
+  channel a plane, raw or PackBits (Pillow's PackDecode.c), in the
+  modes of its MODES table ("1", L, P under its 768-byte palette or
+  black, RGB, RGBA, CMYK from "C;I" planes, LAB through LittleCMS's
+  table, duotone and multichannel as L).
 
 The contract: a file Pillow decodes decodes to Pillow's pixels, or
 raises NotImplementedError naming the format or mode the port does not
 read; a file Pillow fails on raises ValueError. Refused by name: JPEG
-2000's HTJ2K code-blocks (code-block style 0x40) and Part-2
-multi-component transforms (MCT, MCC, MCO markers), RLE pixels under a 2-colour
-grayscale BMP palette, old-style JPEG in tiles or separate planes and
-of a lossless frame; a file of a format Pillow reads that the port does
-not (AVIF, DDS, PSD, BLP, IM, SPIDER, XBM, XPM, MSP, FLI, FTEX, GBR,
-PCD, PIXAR, XVTHUMB, IMT, IPTC, MCIDAS, FITS, EPS, WMF and the stubs).
+2000's HTJ2K code-blocks (code-block style 0x40), RLE pixels under a
+2-colour grayscale BMP palette, old-style JPEG in tiles or separate
+planes and of a lossless frame; a file of a format Pillow reads that the
+port does not (AVIF, IM, SPIDER, XBM, XPM, MSP, FLI, FTEX, GBR, PCD,
+PIXAR, XVTHUMB, IMT, IPTC, MCIDAS, FITS, EPS, WMF and the stubs). An
+AVIF is named only where libavif 1.3's parse, which Image.open runs,
+takes it (data/image_probe.py models it: the boxes, items, properties
+and their checks); one it fails is a ValueError (or no plugin's).
 A ValueError where Pillow fails: a file no plugin of `Image.open` takes
 (Pillow's UnidentifiedImageError: JPEG frames of other than 8 bits or
 of 2 or 5 layers, which SOF passes on), a header that ends `Image.open`
@@ -189,8 +214,9 @@ Pillow opens), and a TIFF layout Pillow or libtiff refuses, naming it.
 tests/test_torch_image_probe.py holds the probe to Pillow's Image.open,
 tests/test_torch_image_outcomes.py the contract on every refused file of
 the corpus, tests/test_torch_image_tiff.py, test_torch_image_tiff_rgba.py,
-test_torch_image_plugins.py and test_torch_image_jpeg2000.py the
-decoders to Pillow's decode on the CPU, and chip_smoke.py's phase 9 to
+test_torch_image_plugins.py, test_torch_image_jpeg2000.py,
+test_torch_image_dds.py and test_torch_image_blp_psd.py the decoders to
+Pillow's decode on the CPU, and chip_smoke.py's phase 9 to
 the corpus's Pillow digests on the card's host.
 
 `read_image(f, plain=True)` takes the plain Python decoders below
@@ -234,9 +260,9 @@ def _read_bytes(source: Source) -> bytes:
 
 # the formats read, by Pillow's name: their native decoders
 # (native_image.decode_<name>)
-READ = ("BMP", "DIB", "GIF", "JPEG", "PPM", "PNG", "CUR", "PCX", "DCX",
-        "ICNS", "ICO", "JPEG2000", "TIFF", "QOI", "SGI", "SUN", "TGA",
-        "WEBP")
+READ = ("BMP", "DIB", "GIF", "JPEG", "PPM", "PNG", "BLP", "CUR", "PCX",
+        "DCX", "DDS", "ICNS", "ICO", "JPEG2000", "PSD", "TIFF", "QOI", "SGI",
+        "SUN", "TGA", "WEBP")
 # the formats whose decoders take the path flag (Pillow reads a file it
 # opens from a path otherwise than one it opens from bytes)
 PATH_READS = ("TIFF", "PCX", "DCX")

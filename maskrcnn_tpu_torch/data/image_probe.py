@@ -32,10 +32,14 @@ fails to load (a file cut short, an AND mask past the data, a PNG
 frame whose image data runs into a broken chunk) makes Image.open raise
 or pass the file on to plugins that cannot load it either; there the
 probe returns "ICO" and the ICO decoder raises the ValueError. AVIF's
-model reads the box structure only (the ftyp brands, a meta box, every
-box before the media data whole), not the ISOBMFF items libavif checks
-further. tests/test_torch_image_probe.py holds the model to live Pillow
-on thousands of seeded prefixes.
+`_open` runs libavif 1.3's avifDecoderParse, which the model follows
+(`_avif_parse`: the top-level boxes, the meta box's children and their
+checks, the items' properties, the primary and alpha items, the first
+64 bytes of an item without CICP); what it leaves out needs the AV1
+sequence header or decoder. PSD's `_open` looks (mode, bits) up in
+PsdImagePlugin.MODES, whose pairs alone open. tests/test_torch_image_probe.py
+holds the model to live Pillow on thousands of seeded prefixes, and
+tests/test_torch_image_blp_psd.py on edited AVIF and PSD files.
 """
 
 from __future__ import annotations
@@ -1267,26 +1271,33 @@ def _open_icns(fp):
     return "RGBA", (w * scale, h * scale)
 
 
-_PSD_MODES = {(0, 1), (0, 8), (1, 8), (2, 8), (3, 8), (3, 16), (4, 8),
-              (7, 8), (8, 8), (9, 8)}
-_PSD_CHANNELS = {(0, 1): 1, (0, 8): 1, (1, 8): 1, (2, 8): 1, (3, 8): 3,
-                 (3, 16): 3, (4, 8): 4, (7, 8): 1, (8, 8): 1, (9, 8): 3}
+# PsdImagePlugin.MODES: (Photoshop mode, bits) -> (Pillow's mode, the
+# channels it needs); no other key opens (16-bit RGB included)
+PSD_MODES = {(0, 1): ("1", 1), (0, 8): ("L", 1), (1, 8): ("L", 1),
+             (2, 8): ("P", 1), (3, 8): ("RGB", 3), (4, 8): ("CMYK", 4),
+             (7, 8): ("L", 1), (8, 8): ("L", 1), (9, 8): ("LAB", 3)}
 
 
-def _open_psd(fp):
+def _psd_layout(fp):
+    """PsdImageFile._open's walk: (mode, size, channels, compression, the
+    offset of the first plane or of the byte-count table, the colour mode
+    data of a P image's 768-byte palette or None)."""
     s = fp.read(26)
     if _be16(s, 4) != 1:
         raise SyntaxError("not a PSD file")
-    bits, channels, mode = _be16(s, 22), _be16(s, 12), _be16(s, 24)
-    need = _PSD_CHANNELS[(mode, bits)]
+    bits, channels, psd_mode = _be16(s, 22), _be16(s, 12), _be16(s, 24)
+    mode, need = PSD_MODES[(psd_mode, bits)]
     if need > channels:
         raise ValueError("PSD: not enough channels")
-    if (mode, bits) in ((3, 8), (3, 16)) and channels == 4:
-        need = 4
+    if mode == "RGB" and channels == 4:
+        mode, need = "RGBA", 4
     size = _be32(s, 18), _be32(s, 14)
+    palette = None
     n = _be32(fp.read(4))
     if n:
-        fp.read(n)
+        data = fp.read(n)
+        if mode == "P" and n == 768:
+            palette = data
     n = _be32(fp.read(4))
     if n:
         end = fp.tell() + n
@@ -1305,11 +1316,24 @@ def _open_psd(fp):
         _be32(fp.read(4))
         fp.seek(end)
     compression = _be16(fp.read(2))
+    offset = fp.tell()
     if compression == 1:
         counts = fp.read(need * size[1] * 2)
         for i in range(0, need * size[1] * 2, 2):
             _be16(counts, i)
+    return mode, size, need, compression, offset, palette
+
+
+def _open_psd(fp):
+    _, size, _, _, _, _ = _psd_layout(fp)
     return "RGB", size
+
+
+def psd_layout(data: bytes):
+    """A PSD file's (mode, size, channels, compression, offset, palette)
+    as PsdImageFile._open reads them (_psd_layout); the file has been
+    told as PSD (identify)."""
+    return _psd_layout(_File(data, False))
 
 
 def _open_wmf(fp):
@@ -1412,36 +1436,431 @@ def _open_mpeg(fp):
     return "RGB", (bits >> 12, bits & 0xFFF)
 
 
-def _open_avif(fp):
-    """libavif's parse, as far as the box structure: the ftyp box first,
-    naming avif or avis among its brands, a meta box, every box before
-    the media data whole (a file cut inside its media data still opens);
-    else passed on (the AvifDecoder's SyntaxError)."""
-    data = fp.read()
-    pos, boxes = 0, []
-    while pos < len(data):
-        if pos + 8 > len(data):
-            raise SyntaxError("AVIF: a box header past the end")
-        size, kind = struct.unpack_from(">I4s", data, pos)
-        head = 8
+class _AvifFail(Exception):
+    """libavif's avifDecoderParse failing with `result`: Pillow's
+    AvifDecoder raises SyntaxError for BMFF parsing failed, truncated data
+    and invalid ftyp (Image.open passes the file on), else RuntimeError."""
+
+    PASS = ("BMFF parsing failed", "Truncated data", "Invalid ftyp")
+
+    def __init__(self, result: str):
+        super().__init__(result)
+        self.result = result
+
+
+class _AvifStream:
+    """libavif's avifROStream over one box's bytes: a read past its end
+    fails the parse (BMFF parsing failed)."""
+
+    def __init__(self, data: bytes, start: int = 0, end: int = None):
+        self.d, self.pos = data, start
+        self.end = len(data) if end is None else end
+
+    def left(self) -> int:
+        return self.end - self.pos
+
+    def read(self, n: int) -> bytes:
+        if n > self.left():
+            raise _AvifFail("BMFF parsing failed")
+        out = self.d[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def u(self, n: int) -> int:
+        return int.from_bytes(self.read(n), "big")
+
+    def version(self, enforce: int = None) -> int:
+        v = self.u(1)
+        self.u(3)
+        if enforce is not None and v != enforce:
+            raise _AvifFail("BMFF parsing failed")
+        return v
+
+    def string(self) -> None:
+        end = self.d.find(b"\0", self.pos, self.end)
+        if end < 0:
+            raise _AvifFail("BMFF parsing failed")
+        self.pos = end + 1
+
+    def box(self, top: bool = False):
+        """avifROStreamReadBoxHeader: (type, body start, body size; None
+        for a top-level box of size 0)."""
+        start = self.pos
+        size = self.u(4)
+        kind = self.read(4)
         if size == 1:
-            size, head = struct.unpack_from(">Q", data, pos + 8)[0], 16
-        elif size == 0:
-            size = len(data) - pos
+            size = self.u(8)
+        if kind == b"uuid":
+            self.read(16)
+        head = self.pos - start
+        if size == 0:
+            if not top:
+                raise _AvifFail("BMFF parsing failed")
+            return kind, self.pos, None
         if size < head:
-            raise SyntaxError("AVIF: a box shorter than its header")
-        if pos + size > len(data) and kind != b"mdat":
-            raise SyntaxError("AVIF: a box past the end")
-        boxes.append((kind, data[pos + head:pos + size]))
-        pos += size
-    if not boxes or boxes[0][0] != b"ftyp":
-        raise SyntaxError("AVIF: no ftyp box")
-    ftyp = boxes[0][1]
-    brands = [ftyp[:4]] + [ftyp[i:i + 4] for i in range(8, len(ftyp) - 3, 4)]
-    if b"avif" not in brands and b"avis" not in brands:
-        raise SyntaxError("AVIF: not an AVIF brand")
-    if b"meta" not in [k for k, _ in boxes]:
-        raise SyntaxError("AVIF: no meta box")
+            raise _AvifFail("BMFF parsing failed")
+        if not top and size - head > self.left():
+            raise _AvifFail("BMFF parsing failed")
+        return kind, self.pos, size - head
+
+
+def _avif_item(items, iid):
+    return items.setdefault(iid, {"type": b"", "extents": [], "props": [],
+                                  "ipma": False, "essential": False,
+                                  "idat": False, "thmb": 0, "auxl": 0})
+
+
+def _avif_properties(d, start, end):
+    """avifParseItemPropertyContainerBox: each property (type, fields)."""
+    s = _AvifStream(d, start, end)
+    props = []
+    while s.left() >= 1:
+        kind, at, size = s.box()
+        b = _AvifStream(d, at, at + size)
+        prop = {"type": kind, "opaque": False}
+        if kind == b"ispe":
+            b.version(0)
+            prop["size"] = b.u(4), b.u(4)
+        elif kind == b"auxC":
+            b.version(0)
+            start_name = b.pos
+            b.string()
+            prop["alpha"] = d[start_name:b.pos - 1] in (
+                b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
+                b"urn:mpeg:hevc:2015:auxid:1")
+        elif kind == b"colr":
+            colour = b.read(4)
+            prop["icc"] = colour in (b"rICC", b"prof")
+            prop["nclx"] = colour == b"nclx"
+            if prop["nclx"]:
+                b.read(6)
+                if b.u(1) & 0x7F:           # reserved bits
+                    raise _AvifFail("BMFF parsing failed")
+        elif kind == b"av1C":
+            first = b.u(1)
+            if not first >> 7 or first & 0x7F != 1:
+                raise _AvifFail("BMFF parsing failed")
+            b.read(3)
+            c = d[at + 2]
+            prop["depth"] = 12 if c & 0x20 else 10 if c & 0x40 else 8
+        elif kind == b"pasp":
+            b.read(8)
+        elif kind == b"clap":
+            prop["clap"] = [b.u(4) for _ in range(8)]
+        elif kind == b"irot":
+            b.read(1)
+        elif kind == b"imir":
+            b.read(1)
+        elif kind == b"pixi":
+            b.version(0)
+            count = b.u(1)
+            if count == 0 or count > 4:
+                raise _AvifFail("Not implemented")
+            depths = [b.u(1) for _ in range(count)]
+            if any(x != depths[0] for x in depths):
+                raise _AvifFail("Not implemented")
+            prop["depths"] = depths
+        elif kind in (b"a1op", b"lsel", b"a1lx", b"clli"):
+            b.read({b"a1op": 1, b"lsel": 2, b"a1lx": 1, b"clli": 4}[kind])
+        else:
+            prop["opaque"] = True
+        props.append(prop)
+        s.pos = at + size
+    return props
+
+
+def _avif_meta(d, start, end):
+    """avifParseMetaBox: the items (type, extents, properties) and the
+    primary item's ID."""
+    s = _AvifStream(d, start, end)
+    s.version(0)
+    items, seen, meta = {}, set(), {"primary": 0, "idat": b""}
+    first = True
+    while s.left() >= 1:
+        kind, at, size = s.box()
+        b = _AvifStream(d, at, at + size)
+        if first:
+            if kind != b"hdlr":
+                raise _AvifFail("BMFF parsing failed")
+            first = False
+        elif kind == b"hdlr":
+            raise _AvifFail("BMFF parsing failed")
+        unique = (b"hdlr", b"iloc", b"pitm", b"idat", b"iprp", b"iinf",
+                  b"iref")
+        if kind in unique:
+            if kind in seen:
+                raise _AvifFail("BMFF parsing failed")
+            seen.add(kind)
+        if kind == b"hdlr":
+            b.version(0)
+            if b.u(4) != 0 or b.read(4) != b"pict":
+                raise _AvifFail("BMFF parsing failed")
+            b.read(12)
+            b.string()
+        elif kind == b"iloc":
+            version = b.version()
+            if version > 2:
+                raise _AvifFail("BMFF parsing failed")
+            sizes = b.u(1)
+            more = b.u(1)
+            off_size, len_size = sizes >> 4, sizes & 15
+            base_size, index_size = more >> 4, (more & 15 if version else 0)
+            if any(x not in (0, 4, 8) for x in (off_size, len_size,
+                                                base_size, index_size)):
+                raise _AvifFail("BMFF parsing failed")
+            count = b.u(2 if version < 2 else 4)
+            for _ in range(count):
+                iid = b.u(2 if version < 2 else 4)
+                if iid == 0:
+                    raise _AvifFail("BMFF parsing failed")
+                item = _avif_item(items, iid)
+                if item["extents"]:
+                    raise _AvifFail("BMFF parsing failed")
+                if version in (1, 2):
+                    method = b.u(2) & 15
+                    if method not in (0, 1):
+                        raise _AvifFail("BMFF parsing failed")
+                    item["idat"] = method == 1
+                b.u(2)
+                base = b.u(base_size)
+                for _ in range(b.u(2)):
+                    offset, length = b.u(off_size), b.u(len_size)
+                    item["extents"].append((base + offset, length))
+        elif kind == b"pitm":
+            if meta["primary"]:
+                raise _AvifFail("BMFF parsing failed")
+            version = b.version()
+            meta["primary"] = b.u(2 if version == 0 else 4)
+        elif kind == b"idat":
+            meta["idat"] = d[at:at + size]
+        elif kind == b"iprp":
+            kind2, at2, size2 = b.box()
+            if kind2 != b"ipco":
+                raise _AvifFail("BMFF parsing failed")
+            props = _avif_properties(d, at2, at2 + size2)
+            b.pos = at2 + size2
+            pairs = set()
+            while b.left() >= 1:
+                kind3, at3, size3 = b.box()
+                if kind3 != b"ipma":
+                    raise _AvifFail("BMFF parsing failed")
+                m = _AvifStream(d, at3, at3 + size3)
+                version = m.u(1)
+                flags = m.u(3)
+                prev = 0
+                for _ in range(m.u(4)):
+                    iid = m.u(2 if version < 1 else 4)
+                    if iid == 0 or iid <= prev:
+                        raise _AvifFail("BMFF parsing failed")
+                    prev = iid
+                    item = _avif_item(items, iid)
+                    if item["ipma"]:
+                        raise _AvifFail("BMFF parsing failed")
+                    item["ipma"] = True
+                    for _ in range(m.u(1)):
+                        v = m.u(2 if flags & 1 else 1)
+                        bits = 15 if flags & 1 else 7
+                        essential, index = v >> bits, v & ((1 << bits) - 1)
+                        if index == 0:
+                            if essential:
+                                raise _AvifFail("BMFF parsing failed")
+                            continue
+                        if index > len(props):
+                            raise _AvifFail("BMFF parsing failed")
+                        prop = props[index - 1]
+                        if not prop["opaque"]:
+                            must = prop["type"] in (b"a1op", b"lsel", b"clap",
+                                                    b"irot", b"imir")
+                            if essential and prop["type"] == b"a1lx" or (
+                                    not essential and must):
+                                raise _AvifFail("BMFF parsing failed")
+                            item["props"].append(prop)
+                        elif essential:
+                            item["essential"] = True
+                if (version, flags) in pairs:
+                    raise _AvifFail("BMFF parsing failed")
+                pairs.add((version, flags))
+                b.pos = at3 + size3
+        elif kind == b"iref":
+            version = b.version()
+            while b.left() >= 1 and version < 2:
+                ref, _, _ = b.box()
+                src = b.u(2 if version == 0 else 4)
+                if src == 0:
+                    raise _AvifFail("BMFF parsing failed")
+                for _ in range(b.u(2)):
+                    dst = b.u(2 if version == 0 else 4)
+                    if dst == 0:
+                        raise _AvifFail("BMFF parsing failed")
+                    if ref in (b"thmb", b"auxl"):
+                        _avif_item(items, src)[ref.decode()] = dst
+        elif kind == b"iinf":
+            version = b.version()
+            if version > 1:
+                raise _AvifFail("BMFF parsing failed")
+            for _ in range(b.u(2 if version == 0 else 4)):
+                kind4, at4, size4 = b.box()
+                if kind4 != b"infe":
+                    raise _AvifFail("BMFF parsing failed")
+                e = _AvifStream(d, at4, at4 + size4)
+                version4 = e.version()
+                if version4 not in (2, 3):
+                    raise _AvifFail("BMFF parsing failed")
+                iid = e.u(2 if version4 == 2 else 4)
+                if iid == 0:
+                    raise _AvifFail("BMFF parsing failed")
+                e.u(2)
+                item_type = e.read(4)
+                e.string()
+                if item_type == b"mime":
+                    e.string()
+                _avif_item(items, iid)["type"] = item_type
+                b.pos = at4 + size4
+        s.pos = at + size
+    if first:
+        raise _AvifFail("BMFF parsing failed")
+    return items, meta
+
+
+def _avif_parse(d: bytes) -> None:
+    """libavif 1.3's avifDecoderParse of a still image, as far as its
+    result does not depend on the AV1 data: the top-level boxes (ftyp
+    first, its brands; meta, whose hdlr, iloc, pitm, idat, iprp (ipco,
+    ipma) and iinf are read with their checks), then the items' ispe, the
+    primary item (Missing or empty image item), its av1C, pixi against
+    av1C, its extents against the file. Raises _AvifFail."""
+    s = _AvifStream(d)
+    ftyp = meta = None
+    moov = False
+    while True:
+        if s.pos > len(d):
+            raise _AvifFail("BMFF parsing failed")
+        if s.pos == len(d):
+            break
+        head = _AvifStream(d, s.pos, min(len(d), s.pos + 32))
+        kind, at, size = head.box(top=True)
+        if ftyp is None and s.pos:   # a box after a first that is not ftyp
+            raise _AvifFail("BMFF parsing failed")
+        if kind in (b"ftyp", b"meta", b"moov"):
+            if size is None:
+                size = len(d) - at
+            elif at + size > len(d):
+                raise _AvifFail("Truncated data")
+        elif size is None:
+            raise _AvifFail("BMFF parsing failed")
+        s.pos = at + size
+        if kind == b"moov":
+            moov = True
+        if kind == b"ftyp":
+            if ftyp is not None or (size - 8) % 4 or size < 8:
+                raise _AvifFail("BMFF parsing failed")
+            body = d[at:at + size]
+            ftyp = [body[:4]] + [body[i:i + 4] for i in range(8, size, 4)]
+            if b"avif" not in ftyp and b"avis" not in ftyp:
+                raise _AvifFail("Invalid ftyp")
+        elif kind == b"meta":
+            if meta is not None:
+                raise _AvifFail("BMFF parsing failed")
+            meta = _avif_meta(d, at, at + size)
+        needs_meta = ftyp is not None and b"avif" in ftyp
+        needs_moov = ftyp is not None and b"avis" in ftyp
+        if ftyp is not None and (not needs_meta or meta is not None) and (
+                not needs_moov or moov):
+            break
+    if ftyp is None:
+        raise _AvifFail("Invalid ftyp")
+    if (needs_meta and meta is None) or (needs_moov and not moov):
+        raise _AvifFail("Truncated data")
+    if meta is None:
+        return
+    items, info = meta
+    for item in items.values():
+        if not sum(n for _, n in item["extents"]) or item["essential"]:
+            continue
+        if item["type"] not in (b"av01", b"grid"):
+            continue
+        ispe = [p for p in item["props"] if p["type"] == b"ispe"]
+        if not ispe or 0 in ispe[0]["size"]:
+            raise _AvifFail("BMFF parsing failed")
+        w, h = ispe[0]["size"]
+        if w * h > 16384 * 16384 or w > 32768 or h > 32768:
+            raise _AvifFail("BMFF parsing failed")
+    item = items.get(info["primary"])
+    if (not info["primary"] or item is None or item["essential"]
+            or item["type"] not in (b"av01", b"grid") or item["thmb"]
+            or not sum(n for _, n in item["extents"])):
+        raise _AvifFail("Missing or empty image item")
+    size = sum(n for _, n in item["extents"])
+    if size > len(d):
+        raise _AvifFail("BMFF parsing failed")
+    _avif_validate(item)
+    for alpha in items.values():
+        if (alpha["auxl"] == info["primary"] and not alpha["essential"]
+                and alpha["type"] == b"av01"
+                and sum(n for _, n in alpha["extents"])):
+            aux = [p for p in alpha["props"] if p["type"] == b"auxC"]
+            if aux and aux[0].get("alpha"):
+                _avif_validate(alpha)
+                asize = sum(n for _, n in alpha["extents"])
+                if asize > len(d):
+                    raise _AvifFail("BMFF parsing failed")
+                break
+    colr = [p for p in item["props"] if p["type"] == b"colr"]
+    for key in ("icc", "nclx"):
+        if sum(p[key] for p in colr) > 1:
+            raise _AvifFail("BMFF parsing failed")
+    if not any(p["nclx"] for p in colr):
+        # no CICP: the AV1 sequence header is looked for from the first
+        # 64 bytes of the item on (avifDecoderItemRead)
+        _avif_read(d, item, info, min(size, 64))
+
+
+def _avif_validate(item) -> None:
+    """avifDecoderItemValidateProperties: av1C present, pixi's depths
+    those of av1C."""
+    config = [p for p in item["props"] if p["type"] == b"av1C"]
+    if not config:
+        raise _AvifFail("BMFF parsing failed")
+    for p in item["props"]:
+        if p["type"] == b"pixi" and any(x != config[0]["depth"]
+                                        for x in p["depths"]):
+            raise _AvifFail("BMFF parsing failed")
+
+
+def _avif_read(d: bytes, item, info, count: int) -> None:
+    """avifDecoderItemRead of the item's first `count` bytes: its extents
+    in the file or its meta box's idat."""
+    if not item["extents"]:
+        raise _AvifFail("Truncated data")
+    if item["idat"] and not info["idat"]:
+        raise _AvifFail("No content")
+    left = count
+    for offset, length in item["extents"]:
+        n = min(length, left)
+        if item["idat"]:
+            if offset > len(info["idat"]) or length > len(info["idat"]) - offset:
+                raise _AvifFail("BMFF parsing failed")
+        else:
+            if offset > len(d):
+                raise _AvifFail("BMFF parsing failed")
+            if len(d) - offset < n:
+                raise _AvifFail("Truncated data")
+        left -= n
+        if not left:
+            break
+
+
+def _open_avif(fp):
+    """AvifImageFile._open: libavif's avifDecoderParse (_avif_parse): a
+    failure Pillow's decoder raises as SyntaxError passes the file on,
+    any other ends Image.open."""
+    try:
+        _avif_parse(fp.read())
+    except _AvifFail as e:
+        if e.result in _AvifFail.PASS:
+            raise SyntaxError(f"AVIF: {e.result}") from None
+        raise ValueError(f"AVIF: Failed to decode image: {e.result}") \
+            from None
     return "RGB", (1, 1)
 
 

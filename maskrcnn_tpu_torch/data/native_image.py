@@ -4,8 +4,10 @@ the DIB frames of DIB, ICO and CUR files) and TIFF, with JPEG's
 arithmetic and lossless scans in `csrc/jpeg_arith.cpp` and
 `jpeg_lossless.cpp`, TIFF's ZSTD, LZMA and CCITT codecs in
 `csrc/tiff_zstd.cpp`, `tiff_xz.cpp` and `tiff_fax.cpp`, Netpbm, TGA, QOI, PCX, DCX, SGI and Sun raster in
-`csrc/image_plugins.cpp`, JPEG 2000 in `csrc/jpeg2000_decode.cpp`, and
-their shared `image_codec.h`, all compiled into one library;
+`csrc/image_plugins.cpp`, JPEG 2000 in `csrc/jpeg2000_decode.cpp`, the
+pixels of DDS, BLP and PSD in `csrc/bcn_decode.cpp` (their headers read
+here, as `decode_icns` reads ICNS's), and their shared `image_codec.h` and
+`bcn_tables.h`, all compiled into one library;
 `csrc/webp_decode.cpp`: WebP; host C++17).
 
 On first use each library's sources are compiled with the host's C++
@@ -55,7 +57,8 @@ SOURCE = CSRC / "image_decode.cpp"
 SOURCES = (SOURCE, CSRC / "jpeg_arith.cpp", CSRC / "jpeg_lossless.cpp",
            CSRC / "tiff_zstd.cpp", CSRC / "tiff_xz.cpp",
            CSRC / "tiff_fax.cpp", CSRC / "image_plugins.cpp",
-           CSRC / "jpeg2000_decode.cpp", *sorted(CSRC.glob("*.h")))
+           CSRC / "jpeg2000_decode.cpp", CSRC / "bcn_decode.cpp",
+           *sorted(CSRC.glob("*.h")))
 WEBP_SOURCE = CSRC / "webp_decode.cpp"
 # -fwrapv: the IDCTs' int32 arithmetic wraps as libjpeg-turbo's does on
 # the corrupt coefficients a valid file never holds; -ffp-contract=off:
@@ -157,6 +160,19 @@ def library() -> ctypes.CDLL:
         lib.mrt_lab_rgb.argtypes = [_OUT, ctypes.c_int64, _OUT,
                                     ctypes.c_char_p, ctypes.c_int32]
         lib.mrt_lab_rgb.restype = ctypes.c_int
+        # DDS's, BLP's and PSD's pixels (csrc/bcn_decode.cpp)
+        i32, i64 = ctypes.c_int32, ctypes.c_int64
+        tail = [_OUT, i32, i32, ctypes.c_char_p, i32]
+        lib.mrt_bcn.argtypes = [_U8P, i64, i64, i32, i32] + tail
+        lib.mrt_dds_masks.argtypes = [_U8P, i64, i64, i64, ctypes.c_void_p,
+                                      i32] + tail
+        lib.mrt_blp_dxt.argtypes = [_U8P, i64, i64, i32, i32] + tail
+        lib.mrt_psd_planes.argtypes = [_U8P, i64, i64, i32, i32, i32,
+                                       _U8P] + tail
+        lib.mrt_jpeg_decode_cmyk.argtypes = _DECODE_ARGS
+        for name in ("bcn", "dds_masks", "blp_dxt", "psd_planes",
+                     "jpeg_decode_cmyk"):
+            getattr(lib, f"mrt_{name}").restype = ctypes.c_int
         lib.mrt_lab_clut.argtypes = [ctypes.c_void_p]
         lib.mrt_lab_clut.restype = None
         # LittleCMS's LAB -> sRGB table (TIFF's LAB; tests/image_corpus.py
@@ -455,6 +471,200 @@ def lab_to_rgb(lab: np.ndarray) -> np.ndarray:
                                  out.reshape(-1), msg, _MSG_LEN)
     if code:
         _raise(code, msg)
+    return out
+
+
+def _call(name: str, *args) -> None:
+    """One of bcn_decode.cpp's entry points (its message buffer last)."""
+    msg = ctypes.create_string_buffer(_MSG_LEN)
+    code = getattr(library(), f"mrt_{name}")(*args, msg, _MSG_LEN)
+    if code:
+        _raise(code, msg)
+
+
+# DdsImagePlugin's "bcn" tiles: (n, signed) of each FourCC and DXGI format
+DDS_FOURCC_BCN = {b"DXT1": (1, 0), b"DXT3": (2, 0), b"DXT5": (3, 0),
+                  b"BC4U": (4, 0), b"ATI1": (4, 0), b"BC5S": (5, 1),
+                  b"BC5U": (5, 0), b"ATI2": (5, 0)}
+DDS_DXGI_BCN = {70: (1, 0), 71: (1, 0), 73: (2, 0), 74: (2, 0), 76: (3, 0),
+                77: (3, 0), 79: (4, 0), 80: (4, 0), 82: (5, 0), 83: (5, 0),
+                84: (5, 1), 95: (6, 0), 96: (6, 1), 97: (7, 0), 98: (7, 0),
+                99: (7, 0)}
+
+
+def _raw_rgb(data: bytes, pos: int, h: int, w: int, mode: str,
+             palette: bytes = b"") -> np.ndarray:
+    """Pillow's raw decoder of `mode` rows from data[pos:] (an error where
+    they run out), then convert("RGB"): L expanded, LA's and RGBA's alpha
+    dropped, P looked up in its RGBA palette."""
+    bands = {"L": 1, "LA": 2, "P": 1, "RGBA": 4}[mode]
+    need = h * w * bands
+    if len(data) - pos < need:
+        raise ValueError(f"{mode} image data: image file is truncated")
+    px = np.frombuffer(data, np.uint8, need, pos).reshape(h, w, bands)
+    if mode == "P":
+        return np.frombuffer(palette, np.uint8).reshape(256, 4)[px[..., 0],
+                                                               :3].copy()
+    if mode in ("L", "LA"):
+        return np.repeat(px[..., :1], 3, axis=2)
+    return px[..., :3].copy()
+
+
+def decode_dds(data: bytes) -> np.ndarray:
+    """A DDS file's bytes -> its first surface, RGB uint8 [H, W, 3], as
+    DdsImageFile reads it (the header held to its _open by
+    image_probe.identify): uncompressed RGB(A) under any masks
+    (DdsRgbDecoder), L, LA, P under its RGBA palette, R8G8B8A8, or BCn
+    blocks (csrc/bcn_decode.cpp). Its load_seek does nothing, so the
+    pixels start where _open's reads left the file."""
+    height, width = struct.unpack_from("<2I", data, 12)
+    pfflags, fourcc, bitcount = struct.unpack_from("<I4sI", data, 80)
+    check_size(width, height)
+    n, pos = len(data), 128
+    if pfflags & 0x40:                                  # DDPF_RGB
+        count = 4 if pfflags & 0x1 else 3
+        masks = np.array(struct.unpack_from(f"<{count}I", data, 92),
+                         np.uint32)
+        out = np.empty((height, width, 3), np.uint8)
+        _call("dds_masks", data, n, pos, bitcount, masks.ctypes.data, count,
+              out, height, width)
+        return out
+    if pfflags & 0x20000:                               # DDPF_LUMINANCE
+        return _raw_rgb(data, pos, height, width,
+                        "L" if bitcount == 8 else "LA")
+    if pfflags & 0x20:                                  # DDPF_PALETTEINDEXED8
+        return _raw_rgb(data, min(pos + 1024, n), height, width, "P",
+                        data[pos:pos + 1024])
+    if fourcc == b"DX10":
+        (dxgi,) = struct.unpack_from("<I", data, pos)
+        pos = min(pos + 20, n)
+        if dxgi not in DDS_DXGI_BCN:                    # R8G8B8A8
+            return _raw_rgb(data, pos, height, width, "RGBA")
+        bcn, sign = DDS_DXGI_BCN[dxgi]
+    else:
+        bcn, sign = DDS_FOURCC_BCN[fourcc]
+    out = np.empty((height, width, 3), np.uint8)
+    _call("bcn", data, n, pos, bcn, sign, out, height, width)
+    return out
+
+
+def _safe_read(data: bytes, pos: int, size: int) -> bytes:
+    """ImageFile._safe_read at `pos`: `size` bytes, an error where the
+    file holds fewer."""
+    if size <= 0:
+        return b""
+    if len(data) - min(pos, len(data)) < size:
+        raise ValueError("BLP: Truncated File Read")
+    return data[pos:pos + size]
+
+
+def _blp_jpeg(data: bytes, pos: int, offsets, lengths, height: int,
+              width: int) -> np.ndarray:
+    """BLP1Decoder._decode_jpeg_stream: the shared JPEG header and the
+    first mip's data, opened as JpegImageFile opens it (a CMYK frame's
+    jpegmode "CMYK": YCCK components read as CMYK), convert("RGB"), then
+    its bytes read as BGR rows of the BLP's width."""
+    from maskrcnn_tpu_torch.data import image_probe
+    (size,) = struct.unpack("<I", _safe_read(data, pos, 4))
+    header = _safe_read(data, pos + 4, size)
+    pos += 4 + size
+    pos += len(_safe_read(data, pos, offsets[0] - pos))
+    jpeg = header + _safe_read(data, pos, lengths[0])
+    if not image_probe.ACCEPT["JPEG"](jpeg[:16]):
+        raise ValueError("BLP: its JPEG: not a JPEG file")
+    try:
+        _, (jw, jh) = image_probe.OPEN["JPEG"](image_probe._File(jpeg, False))
+    except Exception as e:  # noqa: BLE001 - JpegImageFile raises them all
+        raise ValueError(f"BLP: its JPEG does not open: {e}") from None
+    if jw * jh > MAX_PIXELS:
+        raise ValueError("BLP: its JPEG is a decompression bomb")
+    lib = library()
+    msg = ctypes.create_string_buffer(_MSG_LEN)
+    h, w = ctypes.c_int32(), ctypes.c_int32()
+    code = lib.mrt_jpeg_size(jpeg, len(jpeg), ctypes.byref(h),
+                             ctypes.byref(w), msg, _MSG_LEN)
+    if code:
+        _raise(code, msg)
+    rgb = np.empty((h.value, w.value, 3), np.uint8)
+    _call("jpeg_decode_cmyk", jpeg, len(jpeg), rgb, h.value, w.value)
+    flat = rgb.reshape(-1)
+    if flat.size < height * width * 3:
+        raise ValueError("BLP: not enough image data")
+    return flat[:height * width * 3].reshape(height, width, 3)[..., ::-1] \
+        .copy()
+
+
+def decode_blp(data: bytes) -> np.ndarray:
+    """A BLP file's bytes -> RGB uint8 [H, W, 3], as BlpImagePlugin's
+    BLP1Decoder and BLP2Decoder read it: a BLP1 JPEG (the port's JPEG
+    decoder), 256-entry BGRA palettes with their index streams, BLP2's
+    DXT1/3/5 through the plugin's own Python block decoders
+    (csrc/bcn_decode.cpp mrt_blp_dxt); what Pillow fails on (its
+    BLPFormatError too: Pillow has failed) a ValueError."""
+    magic = data[:4]
+    (compression,) = struct.unpack_from("<i", data, 4)
+    if magic == b"BLP1":
+        alpha = struct.unpack_from("<I", data, 8)[0] != 0
+        width, height, encoding = struct.unpack_from("<IIi", data, 12)
+        pos = 28
+    else:
+        encoding, alpha, alpha_encoding = struct.unpack_from("<3b", data, 8)
+        alpha = alpha != 0
+        width, height = struct.unpack_from("<II", data, 12)
+        pos = 20
+    check_size(width, height)
+    offsets = struct.unpack("<16I", _safe_read(data, pos, 64))
+    lengths = struct.unpack("<16I", _safe_read(data, pos + 64, 64))
+    pos += 128
+    if magic == b"BLP1" and compression == 0:
+        return _blp_jpeg(data, pos, offsets, lengths, height, width)
+    if magic == b"BLP1" and (compression != 1 or encoding not in (4, 5)):
+        raise ValueError(f"BLP: unsupported BLP1 compression {compression} "
+                         f"or encoding {encoding}")
+    palette = np.frombuffer(_safe_read(data, pos, 1024), np.uint8) \
+        .reshape(256, 4)[:, [2, 1, 0]]
+    pos = pos + 1024 if magic == b"BLP1" else offsets[0]
+    if magic == b"BLP2":
+        if compression != 1 or encoding not in (1, 2):
+            raise ValueError(f"BLP: unknown BLP2 compression {compression} "
+                             f"or encoding {encoding}")
+        if encoding == 2:
+            kind = {0: 0, 1: 1, 7: 2}.get(alpha_encoding)
+            if kind is None:
+                raise ValueError("BLP: unsupported alpha encoding "
+                                 f"{alpha_encoding}")
+            out = np.empty((height, width, 3), np.uint8)
+            _call("blp_dxt", data, len(data), pos, kind, int(alpha), out,
+                  height, width)
+            return out
+    index = np.frombuffer(_safe_read(data, pos, lengths[0]), np.uint8)
+    if index.size < width * height:
+        raise ValueError("BLP: not enough image data")
+    return palette[index[:width * height]].reshape(height, width, 3)
+
+
+# PsdImagePlugin's modes as csrc/bcn_decode.cpp numbers them
+PSD_MODES = ("1", "L", "P", "RGB", "RGBA", "CMYK", "LAB")
+
+
+def decode_psd(data: bytes) -> np.ndarray:
+    """A PSD file's bytes -> its merged image, RGB uint8 [H, W, 3], as
+    PsdImageFile reads it (image_probe.psd_layout: the mode, channels and
+    where the image data starts past the layer section), each channel's
+    plane raw or PackBits (csrc/bcn_decode.cpp mrt_psd_planes), then
+    convert("RGB") (a P image without a 768-byte palette is black, as
+    Pillow's is)."""
+    from maskrcnn_tpu_torch.data.image_probe import psd_layout
+    mode, (width, height), channels, compression, pos, palette = \
+        psd_layout(data)
+    check_size(width, height)
+    out = np.empty((height, width, 3), np.uint8)
+    if palette is not None:
+        p = np.frombuffer(palette, np.uint8).reshape(3, 256).T
+        palette = np.ascontiguousarray(p).tobytes()
+    _call("psd_planes", data, len(data), pos, compression,
+          PSD_MODES.index(mode), channels, palette or bytes(768), out,
+          height, width)
     return out
 
 

@@ -1249,6 +1249,28 @@ def plugin_refused_cases():
     return out
 
 
+def avif_refused_cases():
+    """(name, bytes, word) of byte edits of the refused AVIF that libavif's
+    parse fails on: the primary item's ID (Missing or empty image item,
+    which ends Image.open), the hdlr box (BMFF parsing failed, which
+    passes the file on), pixi's depths (Not implemented), the file cut
+    inside the meta box (Truncated data)."""
+    data = (CORPUS / "refused_avif.avif").read_bytes()
+    pitm = data.index(b"pitm") + 8
+    hdlr = data.index(b"hdlr") + 12
+    pixi = data.index(b"pixi") + 9
+
+    def edit(at, value):
+        e = bytearray(data)
+        e[at] = value
+        return bytes(e)
+
+    return [("refused_avif_no_primary.avif", edit(pitm + 1, 7), "AVIF"),
+            ("refused_avif_hdlr.avif", edit(hdlr, ord("v")), "AVIF"),
+            ("refused_avif_pixi.avif", edit(pixi, 10), "AVIF"),
+            ("refused_avif_cut.avif", data[:100], "AVIF")]
+
+
 def icns_cases():
     """(name, bytes) of ICNS files (tests/image_writers.encode_icns): PNG
     entries at 1x and 2x, a JPEG 2000 entry, packed RGB (RLE and raw, it32
@@ -1439,10 +1461,12 @@ def _insert_marker(cs: bytes, after: int, marker: bytes) -> bytes:
 
 
 def jpeg2000_refused_cases():
-    """(name, bytes, word) of the JPEG 2000 parts OpenJPEG decodes and the
-    port refuses by name, byte-edited from an OpenJPEG codestream: HTJ2K
+    """(name, bytes, word) of the JPEG 2000 parts the port refused by name
+    before it read them, byte-edited from an OpenJPEG codestream: HTJ2K
     code-blocks (COD's style byte 0x40) and a Part-15 CAP marker; Part-2
-    multi-component transforms (an MCT marker, a CBD marker)."""
+    multi-component transforms (an MCT marker, a CBD marker, and
+    OpenJPEG's own Part-2 stream, COD's transform byte 2, which OpenJPEG
+    2.5.4 fails on)."""
     jw = jpeg2000_writer()
     rng = np.random.RandomState(23)
     img = seeded_image(rng, 6, 5)
@@ -1453,12 +1477,248 @@ def jpeg2000_refused_cases():
     cap = b"\xff\x50\x00\x08\x00\x02\x00\x00\x00\x00"
     mct = b"\xff\x74\x00\x06\x00\x00\x00\x00"
     cbd = b"\xff\x78\x00\x07\x00\x03\x07\x07\x07"
+    transform = bytearray(jw.encode(
+        [img[..., k].astype(np.int32) for k in range(3)],
+        custom_mct=(np.eye(3, dtype=np.float32), [128] * 3)))
     return [("refused_jp2_htj2k.j2k", bytes(ht), "HTJ2K"),
+            ("refused_jp2_part2_transform.j2k", bytes(transform), "Part-2"),
             ("refused_jp2_cap.j2k", _insert_marker(cs, 0xFF51, cap), "HTJ2K"),
             ("refused_jp2_part2_mct.j2k", _insert_marker(cs, 0xFF52, mct),
              "Part-2"),
             ("refused_jp2_part2_cbd.j2k", _insert_marker(cs, 0xFF51, cbd),
              "Part-2")]
+
+
+# ------------------------------------------------------ DDS, BLP and PSD
+
+# DDS, BLP and PSD files (texture_cases), with an index of their own
+# (a digest or Pillow's error each) under a size bound of their own
+# (tests/test_torch_image_dds.py)
+TEXTURES = CORPUS.parent / "texture_io"
+
+
+def _blocks_random(rng, h, w, size):
+    return rng.randint(0, 256, ((w + 3) // 4) * ((h + 3) // 4) * size) \
+        .astype(np.uint8).tobytes()
+
+
+def dds_modes(rng, h, w):
+    """(route, bytes) of every DdsImagePlugin route at one size: Pillow's
+    writer (DXT1/3/5, BC2/3/5, RGB, RGBA, L, LA), random blocks of every
+    FourCC and DXGI BCn format (every 128-bit BC6H/BC7 block is input the
+    decoder takes), BC7 mode 6 from the image, uncompressed RGB(A) under
+    other masks (5-6-5, 10-10-10-2, a zero mask), P and R8G8B8A8."""
+    rgba = seeded_image(rng, h, w, 4)
+    rgb = np.ascontiguousarray(rgba[..., :3])
+    dxgi = iw.DXGI
+    out = []
+    for fmt, mode in (("DXT1", "RGBA"), ("DXT3", "RGBA"), ("DXT5", "RGBA"),
+                      ("BC2", "RGBA"), ("BC3", "RGBA"), ("BC5", "RGB")):
+        out.append((f"pillow_{fmt.lower()}", _pil(rgba, "DDS", mode,
+                                                  pixel_format=fmt)))
+    for mode in ("RGB", "RGBA", "L", "LA"):
+        out.append((f"pillow_{mode.lower()}", _pil(rgba, "DDS", mode)))
+    for fourcc in (b"DXT1", b"DXT3", b"DXT5", b"BC4U", b"ATI1", b"BC5U",
+                   b"ATI2", b"BC5S"):
+        size = 8 if fourcc in (b"DXT1", b"BC4U", b"ATI1") else 16
+        out.append((f"fourcc_{fourcc.decode().lower()}", iw.encode_dds(
+            w, h, _blocks_random(rng, h, w, size), fourcc=fourcc)))
+    for name in ("BC1", "BC1_TYPELESS", "BC2", "BC2_TYPELESS", "BC3",
+                 "BC3_TYPELESS", "BC4", "BC4_TYPELESS", "BC5",
+                 "BC5_TYPELESS", "BC5S", "BC6H", "BC6HS", "BC7",
+                 "BC7_TYPELESS", "BC7_SRGB"):
+        size = 8 if name.startswith(("BC1", "BC4")) else 16
+        out.append((f"dx10_{name.lower()}", iw.encode_dds(
+            w, h, _blocks_random(rng, h, w, size), dxgi=dxgi[name])))
+    out.append(("dx10_bc7_mode6", iw.encode_dds(
+        w, h, iw.bc7_mode6_encode(rgba), dxgi=dxgi["BC7"])))
+    for name in ("RGBA", "RGBA_SRGB", "RGBA_TYPELESS"):
+        out.append((f"dx10_{name.lower()}",
+                    iw.encode_dds(w, h, rgba.tobytes(), dxgi=dxgi[name])))
+    for name, bits, masks, alpha in (
+            ("rgb565", 16, (0xF800, 0x7E0, 0x1F, 0), False),
+            ("rgb10a2", 32, (0x3FF00000, 0xFFC00, 0x3FF, 0xC0000000), True),
+            ("rgb_zero_mask", 24, (0xFF0000, 0, 0xFF, 0), False),
+            ("bgr555_alpha", 16, (0x7C00, 0x3E0, 0x1F, 0x8000), True)):
+        pf = iw.DDPF_RGB | (iw.DDPF_ALPHAPIXELS if alpha else 0)
+        out.append((name, iw.encode_dds(
+            w, h, iw.dds_mask_pixels(rgba, masks, bits), pfflags=pf,
+            bitcount=bits, masks=masks)))
+    palette = rng.randint(0, 256, 1024).astype(np.uint8).tobytes()
+    out.append(("p", iw.encode_dds(
+        w, h, rng.randint(0, 256, h * w).astype(np.uint8).tobytes(),
+        pfflags=iw.DDPF_PALETTEINDEXED8, bitcount=8, palette=palette)))
+    return out
+
+
+def blp_modes(rng, h, w):
+    """(route, bytes) of every BlpImagePlugin route at one size: BLP1 JPEG
+    (RGB, grayscale, CMYK, YCCK, with alpha; the JPEG split between the
+    shared header and the mip, bytes between), BLP1 and BLP2 palettes
+    (with alpha; Pillow's own writer), BLP2 DXT1/3/5 with and without
+    alpha (random blocks)."""
+    img = seeded_image(rng, h, w, 3)
+    out = []
+    rgb_jpeg = _pil(img, "JPEG", "RGB", quality=90)
+    cmyk_jpeg = _pil(img, "JPEG", "CMYK", quality=90)
+    for name, jpeg, alpha in (
+            ("blp1_jpeg", rgb_jpeg, 0), ("blp1_jpeg_alpha", rgb_jpeg, 1),
+            ("blp1_jpeg_gray", _pil(img, "JPEG", "L"), 0),
+            ("blp1_jpeg_cmyk", cmyk_jpeg, 0),
+            ("blp1_jpeg_ycck", with_transform(cmyk_jpeg, 2), 0)):
+        out.append((name, iw.blp_jpeg_file(jpeg, w, h, split=len(jpeg) // 3,
+                                           gap=b"\x00gap", alpha=alpha)))
+    idx = rng.randint(0, 256, (h, w)).astype(np.uint8)
+    pal = rng.randint(0, 256, (256, 4)).astype(np.uint8)
+    for v in (1, 2):
+        out.append((f"blp{v}_palette", iw.blp_palette_file(idx, pal,
+                                                           version=v)))
+        out.append((f"blp{v}_palette_alpha", iw.blp_palette_file(
+            idx, pal, version=v, alpha=8, encoding=5 if v == 1 else None)))
+    out.append(("blp2_pillow", _pil(img, "BLP", "P")))
+    for name, enc, size in (("dxt1", 0, 8), ("dxt3", 1, 16), ("dxt5", 7, 16)):
+        for alpha in (0, 1):
+            out.append((f"blp2_{name}" + ("_alpha" if alpha else ""),
+                        iw.blp_dxt_file(_blocks_random(rng, h, w, size), w, h,
+                                        alpha_encoding=enc, alpha=alpha)))
+    return out
+
+
+def psd_modes(rng, h, w):
+    """(route, bytes) of every PsdImagePlugin mode at one size, raw and
+    PackBits (packets split at random, no-op bytes): bitmap, grayscale
+    (modes 0 and 1), duotone, multichannel, P with and without its
+    768-byte palette, RGB, RGBA, RGB of 5 channels, CMYK of 4 and 5, LAB;
+    RGB after a layer section and image resources."""
+    img = seeded_image(rng, h, w, 4)
+    planes = np.ascontiguousarray(img.transpose(2, 0, 1))
+    pal = rng.randint(0, 256, 768).astype(np.uint8).tobytes()
+    out = []
+    for name, mode, c, kw in (
+            ("bitmap", "1", 1, {}), ("gray", "gray", 1, {}), ("l", "L", 1, {}),
+            ("duotone", "duotone", 1, {}),
+            ("multichannel", "multichannel", 2, {}),
+            ("p", "P", 1, {"palette": pal}), ("p_no_palette", "P", 1, {}),
+            ("rgb", "RGB", 3, {}), ("rgba", "RGB", 4, {}),
+            ("rgb5", "RGB", 5, {}), ("cmyk", "CMYK", 4, {}),
+            ("cmyk5", "CMYK", 5, {}), ("lab", "LAB", 3, {}),
+            ("rgb_layers", "RGB", 3, {"layers": True, "resources": [
+                (1005, b"", b"resolution"), (1039, b"icc", b"x" * 5)]})):
+        p = np.concatenate([planes] * 2)[:c]
+        if mode == "1":
+            p = (p > 127).astype(np.uint8)
+        for comp in (0, 1):
+            out.append((f"{name}_{'rle' if comp else 'raw'}", iw.encode_psd(
+                p, mode, compression=comp, rng=rng if comp else None, **kw)))
+    return out
+
+
+def texture_cases():
+    """(name, bytes) of the DDS, BLP and PSD modes at the corpus's four
+    sizes."""
+    out = []
+    for ext, modes, seed in (("dds", dds_modes, 70), ("blp", blp_modes, 71),
+                             ("psd", psd_modes, 72)):
+        rng = np.random.RandomState(seed)
+        for h, w in SIZES:
+            for route, data in modes(rng, h, w):
+                out.append((f"{ext}_{route}_{h}x{w}.{ext}", data))
+    return out
+
+
+def texture_error_cases():
+    """(name, bytes) of DDS, BLP and PSD files Pillow fails on: cut BCn,
+    raw and PackBits data, a BLP encoding, compression or alpha encoding
+    it does not take, a BLP1 JPEG that is not one, a PSD of ZIP
+    compression, a 16-bit RGB PSD (no mode of Pillow's)."""
+    rng = np.random.RandomState(73)
+    img = seeded_image(rng, 9, 7, 4)
+    rgb = np.ascontiguousarray(img[..., :3])
+    bc7 = iw.encode_dds(7, 9, iw.bc7_mode6_encode(img), dxgi=iw.DXGI["BC7"])
+    dxt1 = _pil(img, "DDS", "RGBA", pixel_format="DXT1")
+    planes = np.ascontiguousarray(img.transpose(2, 0, 1)[:3])
+    psd = iw.encode_psd(planes, "RGB", compression=1)
+    raw = iw.encode_psd(planes, "RGB")
+    zip_at = len(raw) - planes.size - 2          # the compression word
+    blocks = _blocks_random(rng, 9, 7, 16)
+    return [
+        ("dds_cut_bc7.dds", bc7[:-1]),
+        ("dds_cut_dxt1.dds", dxt1[:140]),
+        ("dds_cut_l.dds", _pil(img, "DDS", "L")[:-3]),
+        ("blp_bad_blp1_encoding.blp", iw.blp_palette_file(
+            img[..., 0], img.reshape(-1, 4)[:256].repeat(5, 0)[:256],
+            version=1, encoding=3)),
+        ("blp_blp2_raw_bgra.blp", iw.blp_dxt_file(blocks, 7, 9,
+                                                  alpha_encoding=7)[:8]
+         + b"\x03" + iw.blp_dxt_file(blocks, 7, 9, alpha_encoding=7)[9:]),
+        ("blp_blp2_alpha_encoding_8.blp", iw.blp_dxt_file(
+            blocks, 7, 9, alpha_encoding=8)),
+        ("blp_cut_dxt5.blp", iw.blp_dxt_file(blocks, 7, 9,
+                                             alpha_encoding=7)[:-5]),
+        ("blp_jpeg_not_a_jpeg.blp", iw.blp_jpeg_file(
+            b"\xff\xd8\xff\xe0" + bytes(40), 7, 9)),
+        ("psd_cut_rle.psd", psd[:-2]),
+        ("psd_zip.psd", raw[:zip_at] + b"\x00\x02" + raw[zip_at + 2:]),
+        ("psd_rgb16.psd", iw.encode_psd(
+            np.ascontiguousarray(rgb.transpose(2, 0, 1)), "RGB", bits=16)),
+    ]
+
+
+def write_textures() -> None:
+    """The DDS, BLP and PSD files and their index (texture_io/index.json:
+    "files" digests, "errors" Pillow's error texts)."""
+    TEXTURES.mkdir(exist_ok=True)
+    for p in TEXTURES.iterdir():
+        p.unlink()
+    index = {"files": {}, "errors": {}}
+    for name, data in texture_cases() + texture_error_cases():
+        (TEXTURES / name).write_bytes(data)
+        got = pillow_outcome(data)
+        if isinstance(got, str):
+            index["errors"][name] = re.sub(r" <[^>]* at 0x[0-9a-f]+>", "",
+                                           got)
+        else:
+            index["files"][name] = {"shape": got[0], "sha256": got[1]}
+    (TEXTURES / "index.json").write_text(
+        json.dumps(index, separators=(",", ":")) + "\n")
+
+
+def part2_cases():
+    """(name, bytes) of raw J2K codestreams with Part-2 transforms as
+    OpenJPEG 2.5.4 decodes them: OpenJPEG's own MCT, MCC and MCO markers
+    (opj_set_MCT: 3 and 4 components, reversible and irreversible, DC
+    shifts, tiles) under COD's transform byte 0 or 1 (it fails on 2),
+    whose offsets become the components' DC level shifts; the writer's
+    markers of every element type (image_writers.part2_markers) over an
+    OpenJPEG codestream."""
+    jw = jpeg2000_writer()
+    rng = np.random.RandomState(74)
+    out = []
+    for nc, irr, tile, cod in ((3, False, None, 0), (3, True, None, 1),
+                               (4, False, (8, 8), 0), (4, True, None, 0),
+                               (3, False, (8, 16), 1)):
+        img = seeded_image(rng, 13, 19, 4)[..., :nc]
+        matrix = rng.uniform(-1, 1, (nc, nc)).astype(np.float32)
+        shift = rng.randint(-300, 300, nc)
+        cs = bytearray(jw.encode([img[..., k].astype(np.int32)
+                                  for k in range(nc)],
+                                 custom_mct=(matrix, shift),
+                                 irreversible=irr, tile=tile))
+        cs[cs.index(b"\xff\x52") + 8] = cod
+        name = (f"jp2_part2_opj_{nc}c_{'irrev' if irr else 'rev'}"
+                f"{'_tiles' if tile else ''}_cod{cod}.j2k")
+        out.append((name, bytes(cs)))
+    img = seeded_image(rng, 11, 9, 3)
+    cs = jw.encode([img[..., k].astype(np.int32) for k in range(3)], mct=True)
+    for etype, offsets in ((0, [40000, 5, 128]), (1, [-70, 128, 100000]),
+                           (2, [127.9, -3.5, 1e10]), (3, [128.0, 255.5, -1.0])):
+        out.append((f"jp2_part2_offsets_type{etype}.j2k",
+                    iw.with_main_header_markers(cs, iw.part2_markers(
+                        3, offsets, np.eye(3), offset_type=etype,
+                        matrix_type=etype))))
+    out.append(("jp2_part2_no_stage.j2k", iw.with_main_header_markers(
+        cs, b"\xff\x77\x00\x03\x00")))
+    return out
 
 
 # --------------------------------------------------------------- scenes
@@ -1680,11 +1940,9 @@ STILL_REFUSED = {
     "refused_tiff_old_style_jpeg_planar.tif": "old-style JPEG in tiles",
     "refused_im.im": "IM", "refused_spi.spi": "SPIDER",
     "refused_msp.msp": "MSP", "refused_xbm.xbm": "XBM",
-    "refused_eps.eps": "EPS", "refused_dds.dds": "DDS",
-    "refused_blp.blp": "BLP", "refused_avif.avif": "AVIF",
-    "refused_xpm.xpm": "XPM", "refused_psd.psd": "PSD",
-    "refused_fits.fits": "FITS", "refused_jp2_htj2k.j2k": "HTJ2K",
-    "refused_jp2_part2_mct.j2k": "Part-2"}
+    "refused_eps.eps": "EPS", "refused_avif.avif": "AVIF",
+    "refused_xpm.xpm": "XPM", "refused_fits.fits": "FITS",
+    "refused_jp2_htj2k.j2k": "HTJ2K"}
 
 
 def lab_clut() -> bytes:
@@ -1725,6 +1983,77 @@ def lab_clut() -> bytes:
     return zlib.compress(out.astype("<u2").tobytes(), 9)
 
 
+BCN_TABLES = (Path(__file__).resolve().parent.parent / "maskrcnn_tpu_torch"
+              / "csrc" / "bcn_tables.h")
+
+
+def bcn_tables() -> str:
+    """The BC6H/BC7 partition and anchor tables as Pillow's bcn decoder
+    holds them, read off its decode of crafted BC7 blocks (the C header
+    csrc/bcn_tables.h). One block a partition: mode 1 (two subsets) or
+    mode 2 (three), every endpoint 0 but the second one of subset 1 (red
+    at its maximum) and of subset 2 (green), every index bit 1; a texel
+    of subset 1 is then red, of subset 2 green, of subset 0 black, and the
+    anchor of a subset, whose index is a bit shorter, is darker (weight 27
+    or 21 of 64 where the others have 64)."""
+    from PIL import Image
+    tables = {}
+    for mode, ns in ((1, 2), (2, 3)):
+        blocks = []
+        for part in range(64):
+            if mode == 1:
+                f = [(0b10, 2), (part, 6)]
+                f += [(63 if (ch == 0 and e == 3) else 0, 6)
+                      for ch in range(3) for e in range(4)]
+                f += [(0, 1), (1, 1), ((1 << 46) - 1, 46)]
+            else:
+                f = [(0b100, 3), (part, 6)]
+                f += [(31 if (ch, e) in ((0, 3), (1, 5)) else 0, 5)
+                      for ch in range(3) for e in range(6)]
+                f += [((1 << 29) - 1, 29)]
+            blocks.append(iw.pack_bits(f))
+        dds = iw.encode_dds(256, 4, b"".join(blocks), dxgi=iw.DXGI["BC7"])
+        px = np.asarray(Image.open(io.BytesIO(dds)).convert("RGB"))
+        subsets, anchors = [], [[], []]
+        for part in range(64):
+            blk = px[:, 4 * part:4 * part + 4].reshape(16, 3).astype(int)
+            sub = [(1 if t[0] else 2 if t[1] else 0) for t in blk]
+            assert sub[0] == 0
+            subsets.append(sum(s << (ns - 1) * i for i, s in enumerate(sub)))
+            for k in range(1, ns):
+                dark = [i for i in range(16)
+                        if sub[i] == k and 0 < blk[i][k - 1] < 255]
+                assert len(dark) == 1, (mode, part, k, blk.tolist())
+                anchors[k - 1].append(dark[0])
+        tables[ns] = subsets, anchors
+
+    def rows(values, fmt, per):
+        items = [fmt.format(v) for v in values]
+        return ",\n".join("    " + ", ".join(items[i:i + per])
+                           for i in range(0, len(items), per))
+
+    p2, (a2, _) = tables[2]
+    p3, (a3a, a3b) = tables[3]
+    return "\n".join([
+        "// The BC6H and BC7 partition and anchor tables as Pillow 12.1's bcn",
+        "// decoder holds them, read off its decode of crafted BC7 blocks: written",
+        "// by `python tests/image_corpus.py --bcn-tables`; do not edit.",
+        "#pragma once", "", "#include <cstdint>", "", "namespace mrt {", "",
+        "// two subsets: bit n of a partition's entry is texel n's subset",
+        "inline constexpr uint16_t kBcPartition2[64] = {",
+        rows(p2, "0x{:04x}", 8) + "};", "",
+        "// three subsets: bits 2n, 2n + 1 are texel n's subset",
+        "inline constexpr uint32_t kBcPartition3[64] = {",
+        rows(p3, "0x{:08x}", 6) + "};", "",
+        "// the anchor texel of subset 1 of two, of subsets 1 and 2 of three",
+        "inline constexpr uint8_t kBcAnchor2[64] = {",
+        rows(a2, "{}", 16) + "};",
+        "inline constexpr uint8_t kBcAnchor3a[64] = {",
+        rows(a3a, "{}", 16) + "};",
+        "inline constexpr uint8_t kBcAnchor3b[64] = {",
+        rows(a3b, "{}", 16) + "};", "", "}  // namespace mrt", ""])
+
+
 def lab_table_digest() -> str:
     """SHA-256 of Pillow's convert("RGB") of every LAB pixel (L, a + 128,
     b + 128 in the image, L slowest): the RGB bytes of all 2**24."""
@@ -1756,10 +2085,26 @@ def write_outcome(index, name: str, data: bytes) -> None:
 
 def write_outcomes(index) -> None:
     """The files made as refusals (refused_cases, format_refused_cases,
-    tiff_refused_cases, plugin_refused_cases), each under Pillow's
-    outcome (write_outcome)."""
+    tiff_refused_cases, plugin_refused_cases, avif_refused_cases), each
+    under Pillow's outcome (write_outcome)."""
     for name, data, _ in (refused_cases() + format_refused_cases()
                           + tiff_refused_cases() + plugin_refused_cases()):
+        write_outcome(index, name, data)
+    for name, data, _ in avif_refused_cases():
+        write_outcome(index, name, data)
+
+
+def write_textures_slice(index) -> None:
+    """The DDS, BLP and PSD files (write_textures), the Part-2 JPEG 2000
+    files and every refusal under Pillow's outcome; every other file and
+    entry kept."""
+    write_textures()
+    for name, data in part2_cases():
+        (CORPUS / name).write_bytes(data)
+        shape, digest = pillow_digest(data)
+        index["files"][name] = {"shape": shape, "sha256": digest}
+    write_outcomes(index)
+    for name, data, _ in jpeg2000_refused_cases():
         write_outcome(index, name, data)
 
 
@@ -1781,10 +2126,19 @@ LAB_CLUT = (Path(__file__).resolve().parent.parent / "maskrcnn_tpu_torch"
 
 
 def main() -> int:
+    if "--bcn-tables" in sys.argv[1:]:
+        BCN_TABLES.write_text(bcn_tables())
+        print(f"{BCN_TABLES}: written from Pillow's bcn decoder")
+        return 0
     if "--lab-clut" in sys.argv[1:]:
         LAB_CLUT.write_bytes(lab_clut())
         print(f"{LAB_CLUT}: all 2**24 LAB pixels through Pillow: "
               f"{lab_table_digest()}")
+        return 0
+    if "--textures" in sys.argv[1:]:
+        index = json.loads(INDEX.read_text())
+        write_textures_slice(index)
+        INDEX.write_text(json.dumps(index, separators=(",", ":")) + "\n")
         return 0
     if "--rgba-icns" in sys.argv[1:]:
         index = json.loads(INDEX.read_text())
@@ -1836,6 +2190,7 @@ def main() -> int:
         index["format_scenes"][name] = source
     index["categories"] = SCENE_CATEGORIES
     write_jpeg2000(index, scenes)
+    write_textures_slice(index)
     INDEX.write_text(json.dumps(index, separators=(",", ":")) + "\n")
     TIFF_SCENES.mkdir(exist_ok=True)
     scene_index = {}

@@ -2152,3 +2152,345 @@ def encode_ico(entries: Sequence[tuple], kind: int = 1) -> bytes:
                              bits, len(payload), pos + len(data))
         data += payload
     return head + table + data
+
+
+# ----------------------------------------------------- DDS, BLP and PSD
+
+DDPF_ALPHAPIXELS, DDPF_FOURCC, DDPF_PALETTEINDEXED8 = 0x1, 0x4, 0x20
+DDPF_RGB, DDPF_LUMINANCE = 0x40, 0x20000
+# DXGI formats DdsImagePlugin reads
+DXGI = {"BC1": 71, "BC1_TYPELESS": 70, "BC2": 74, "BC2_TYPELESS": 73,
+        "BC3": 77, "BC3_TYPELESS": 76, "BC4": 80, "BC4_TYPELESS": 79,
+        "BC5": 83, "BC5_TYPELESS": 82, "BC5S": 84, "BC6H": 95, "BC6HS": 96,
+        "BC7": 98, "BC7_TYPELESS": 97, "BC7_SRGB": 99, "RGBA": 28,
+        "RGBA_TYPELESS": 27, "RGBA_SRGB": 29}
+
+
+def pack_bits(fields, size: int = 16) -> bytes:
+    """(value, bits) fields packed LSB first into `size` bytes (a BC6H or
+    BC7 block)."""
+    v = n = 0
+    for value, bits in fields:
+        v |= (int(value) & ((1 << bits) - 1)) << n
+        n += bits
+    assert n <= 8 * size, n
+    return v.to_bytes(size, "little")
+
+
+def encode_dds(width: int, height: int, payload: bytes, *,
+               fourcc: bytes = b"\0\0\0\0", dxgi: Optional[int] = None,
+               pfflags: Optional[int] = None, bitcount: int = 0,
+               masks=(0, 0, 0, 0), palette: bytes = b"",
+               header_size: int = 124) -> bytes:
+    """A DDS file: its 124-byte header (pixel format flags FOURCC where a
+    fourcc or `dxgi` is given, else `pfflags`), a DX10 header where
+    `dxgi` is given, a P image's 1024-byte palette, then `payload`."""
+    if dxgi is not None:
+        fourcc = b"DX10"
+    if pfflags is None:
+        pfflags = DDPF_FOURCC
+    head = struct.pack("<4s7I", b"DDS ", header_size, 0x1007, height, width,
+                       0, 0, 0) + bytes(44)
+    head += struct.pack("<2I4sI4I", 32, pfflags, fourcc, bitcount, *masks)
+    head += struct.pack("<5I", 0x1000, 0, 0, 0, 0)
+    if dxgi is not None:
+        head += struct.pack("<5I", dxgi, 3, 0, 1, 0)
+    return head + palette + payload
+
+
+def _blocks(pixels: np.ndarray) -> np.ndarray:
+    """[h, w, c] -> [bh, bw, 16, c]: 4x4 blocks, the edges padded by
+    repeating the last row and column."""
+    h, w = pixels.shape[:2]
+    ph, pw = -h % 4, -w % 4
+    p = np.pad(pixels, ((0, ph), (0, pw), (0, 0)), mode="edge")
+    bh, bw = p.shape[0] // 4, p.shape[1] // 4
+    return p.reshape(bh, 4, bw, 4, -1).transpose(0, 2, 1, 3, 4).reshape(
+        bh, bw, 16, -1)
+
+
+def bc1_encode(rgb: np.ndarray) -> bytes:
+    """BC1 blocks of an RGB image (numpy only): each block's darkest and
+    brightest texels as its 565 endpoints (c0 > c1, four colours), each
+    texel the nearest of the four."""
+    blk = _blocks(rgb.astype(np.int32))
+    luma = blk.sum(-1)
+    hi = np.take_along_axis(blk, luma.argmax(-1)[..., None, None], 2)[:, :, 0]
+    lo = np.take_along_axis(blk, luma.argmin(-1)[..., None, None], 2)[:, :, 0]
+
+    def to565(c):
+        return (c[..., 0] >> 3 << 11) | (c[..., 1] >> 2 << 5) | (c[..., 2] >> 3)
+
+    c0, c1 = to565(hi), to565(lo)
+    swap = c0 < c1
+    c0, c1 = np.where(swap, c1, c0), np.where(swap, c0, c1)
+    c1 = np.where(c0 == c1, np.maximum(c1 - 1, 0), c1)
+    c0 = np.where(c0 == c1, c0 + 1, c0)
+
+    def from565(v):
+        r, g, b = (v >> 11) & 31, (v >> 5) & 63, v & 31
+        return np.stack([(r << 3) | (r >> 2), (g << 2) | (g >> 4),
+                         (b << 3) | (b >> 2)], -1)
+
+    e0, e1 = from565(c0), from565(c1)
+    pal = np.stack([e0, e1, (2 * e0 + e1) // 3, (e0 + 2 * e1) // 3], 2)
+    dist = ((blk[:, :, :, None, :] - pal[:, :, None]) ** 2).sum(-1)
+    idx = dist.argmin(-1).astype(np.uint32)
+    lut = (idx << (2 * np.arange(16, dtype=np.uint32))).sum(-1, dtype=np.uint32)
+    out = np.zeros(c0.shape + (8,), np.uint8)
+    out[..., 0:2] = np.stack([c0 & 255, c0 >> 8], -1)
+    out[..., 2:4] = np.stack([c1 & 255, c1 >> 8], -1)
+    out[..., 4:8] = np.stack([(lut >> (8 * k)) & 255 for k in range(4)], -1)
+    return out.tobytes()
+
+
+def bc7_mode6_encode(rgba: np.ndarray) -> bytes:
+    """BC7 mode-6 blocks of an RGBA image (numpy only): each block's
+    per-channel minimum and maximum as its 7-bit endpoints (p-bits 0),
+    each texel's 4-bit index its projection onto the segment."""
+    blk = _blocks(rgba.astype(np.int64))
+    lo, hi = blk.min(2) >> 1, blk.max(2) >> 1
+    e0, e1 = (lo << 1) | (lo >> 6), (hi << 1) | (hi >> 6)
+    d = (e1 - e0)[:, :, None]
+    num = ((blk - e0[:, :, None]) * d).sum(-1)
+    den = np.maximum((d * d).sum(-1), 1)
+    idx = np.clip(np.rint(num * 15 / den), 0, 15).astype(np.int64)
+    # the first texel's index has 3 bits: swap the endpoints where its
+    # index is 8 or more
+    flip = idx[:, :, 0] >= 8
+    lo2 = np.where(flip[..., None], hi, lo)
+    hi2 = np.where(flip[..., None], lo, hi)
+    idx = np.where(flip[..., None], 15 - idx, idx)
+    n = blk.shape[0] * blk.shape[1]
+    fields = [(np.full(n, 1 << 6), 7)]
+    for c in range(4):
+        fields += [(lo2[..., c].ravel(), 7), (hi2[..., c].ravel(), 7)]
+    fields += [(np.zeros(n), 2), (idx[..., 0].ravel(), 3)]
+    fields += [(idx[..., t].ravel(), 4) for t in range(1, 16)]
+    bits = np.concatenate([(np.asarray(v, np.int64)[:, None]
+                            >> np.arange(k)) & 1 for v, k in fields], 1)
+    assert bits.shape[1] == 128
+    return np.packbits(bits.astype(np.uint8), axis=1,
+                       bitorder="little").tobytes()
+
+
+def dds_mask_pixels(pixels: np.ndarray, masks, bitcount: int) -> bytes:
+    """Pixels [h, w, c] (8-bit samples) packed into `bitcount`-bit
+    little-endian words under each channel's mask (its top bits)."""
+    h, w, c = pixels.shape
+    word = np.zeros((h, w), np.uint64)
+    for k, m in enumerate(masks[:c]):
+        if not m:
+            continue
+        shift = (m & -m).bit_length() - 1
+        bits = (m >> shift).bit_length()
+        v = pixels[..., k].astype(np.uint64) >> np.uint64(max(8 - bits, 0))
+        word |= (v << np.uint64(shift)) & np.uint64(m)
+    nbytes = bitcount // 8
+    return word.astype("<u8").view(np.uint8).reshape(h, w, 8)[..., :nbytes] \
+        .tobytes()
+
+
+def encode_blp(width: int, height: int, *, version: int = 2,
+               compression: int = 1, encoding: int = 1, alpha: int = 0,
+               alpha_encoding: int = 0, offsets=(), lengths=(),
+               palette: bytes = b"", body: bytes = b"",
+               subtype: int = 0) -> bytes:
+    """A BLP1 or BLP2 file: its header, the 16 mip offsets and lengths
+    (`offsets`, `lengths`: the first ones, the rest 0), `palette` (256
+    BGRA entries, or a BLP1 JPEG's header length and header), then
+    `body`."""
+    if version == 1:
+        head = struct.pack("<4siI2Iii", b"BLP1", compression, alpha, width,
+                           height, encoding, subtype)
+    else:
+        head = struct.pack("<4si4b2I", b"BLP2", compression, encoding, alpha,
+                           alpha_encoding, 0, width, height)
+    offs = list(offsets) + [0] * (16 - len(offsets))
+    lens = list(lengths) + [0] * (16 - len(lengths))
+    return head + struct.pack("<16I", *offs) + struct.pack("<16I", *lens) \
+        + palette + body
+
+
+def blp_palette_file(indices: np.ndarray, palette: np.ndarray, *,
+                     version: int = 2, alpha: int = 0,
+                     encoding: int = None) -> bytes:
+    """A palette BLP of `indices` [h, w] under `palette` [256, 4] (RGBA,
+    written BGRA)."""
+    h, w = indices.shape
+    pal = palette[:, [2, 1, 0, 3]].astype(np.uint8).tobytes()
+    start = (28 if version == 1 else 20) + 128 + len(pal)
+    return encode_blp(w, h, version=version, compression=1,
+                      encoding=encoding or (4 if version == 1 else 1),
+                      alpha=alpha, offsets=[start], lengths=[w * h],
+                      palette=pal, body=indices.astype(np.uint8).tobytes())
+
+
+def blp_jpeg_file(jpeg: bytes, width: int, height: int, *, split: int = 0,
+                  gap: bytes = b"", alpha: int = 0) -> bytes:
+    """A BLP1 JPEG: the first `split` bytes of `jpeg` as its shared
+    header, `gap` after it, then the rest as the first mip."""
+    header, rest = jpeg[:split], jpeg[split:]
+    start = 28 + 128 + 4 + len(header) + len(gap)
+    return encode_blp(width, height, version=1, compression=0, encoding=5,
+                      alpha=alpha, offsets=[start], lengths=[len(rest)],
+                      palette=struct.pack("<I", len(header)) + header + gap,
+                      body=rest)
+
+
+def blp_dxt_file(blocks: bytes, width: int, height: int, *,
+                 alpha_encoding: int, alpha: int = 1) -> bytes:
+    """A BLP2 DXT file (alpha encodings 0, 1 and 7: DXT1, DXT3, DXT5) of
+    the given blocks, after a zero palette."""
+    start = 20 + 128 + 1024
+    return encode_blp(width, height, version=2, compression=1, encoding=2,
+                      alpha=alpha, alpha_encoding=alpha_encoding,
+                      offsets=[start], lengths=[len(blocks)],
+                      palette=bytes(1024), body=blocks)
+
+
+def packbits_row(row: bytes, rng=None) -> bytes:
+    """A row in PackBits (runs of 3 or more, literals up to 128 bytes;
+    `rng`: split runs and literals at random and put in no-op bytes)."""
+    out = bytearray()
+    i, n = 0, len(row)
+    while i < n:
+        j = i
+        while j + 1 < n and row[j + 1] == row[i] and j - i < 127:
+            j += 1
+        run = j - i + 1
+        if rng is not None and run > 1 and rng.rand() < 0.3:
+            run = rng.randint(1, run + 1)
+        if run >= 3 or (rng is not None and run == 2):
+            out += bytes([257 - run, row[i]])
+            i += run
+            continue
+        k = i
+        while k < n and k - i < 128 and not (
+                k + 2 < n and row[k] == row[k + 1] == row[k + 2]):
+            k += 1
+        k = max(k, i + 1)
+        if rng is not None and k - i > 1 and rng.rand() < 0.3:
+            k = i + rng.randint(1, k - i + 1)
+        if rng is not None and rng.rand() < 0.05:
+            out.append(0x80)
+        out += bytes([k - i - 1]) + row[i:k]
+        i = k
+    return bytes(out)
+
+
+PSD_MODES = {"1": (0, 1), "L": (1, 8), "P": (2, 8), "RGB": (3, 8),
+             "CMYK": (4, 8), "multichannel": (7, 8), "duotone": (8, 8),
+             "LAB": (9, 8), "gray": (0, 8)}
+
+
+def encode_psd(planes: np.ndarray, mode: str = "RGB", *,
+               compression: int = 0, palette: Optional[bytes] = None,
+               resources=(), layers: bool = False, bits: int = None,
+               psd_mode: int = None, rng=None) -> bytes:
+    """A PSD file of `planes` [c, h, w] (uint8; mode "1": 0/1 bits) as
+    Photoshop lays its merged image out: header, colour mode data (a P
+    image's 768-byte palette), image resources ((id, name, data), ...),
+    a layer section (one RGB layer of the planes, raw) where `layers`,
+    then the compression word and each channel's plane, raw or PackBits
+    (`rng`: packets split at random) after the byte-count table."""
+    c, h, w = planes.shape
+    pmode, pbits = PSD_MODES[mode]
+    if psd_mode is not None:
+        pmode = psd_mode
+    if bits is not None:
+        pbits = bits
+    head = struct.pack(">4sH6xHIIHH", b"8BPS", 1, c, h, w, pbits, pmode)
+    cmd = palette or b""
+    head += struct.pack(">I", len(cmd)) + cmd
+    res = bytearray()
+    for rid, name, data in resources:
+        res += b"8BIM" + struct.pack(">H", rid) + bytes([len(name)]) + name
+        if not len(name) & 1:
+            res += b"\0"
+        res += struct.pack(">I", len(data)) + data
+        if len(data) & 1:
+            res += b"\0"
+    head += struct.pack(">I", len(res)) + res
+    if layers:
+        n = min(c, 3)
+        info = struct.pack(">h", 1) + struct.pack(">4iH", 0, 0, h, w, n)
+        info += b"".join(struct.pack(">hI", k, 2 + h * w) for k in range(n))
+        info += b"8BIMnorm" + bytes([255, 0, 0, 0])
+        extra = struct.pack(">II", 0, 0) + bytes([5]) + b"layer" + b"\0\0"
+        info += struct.pack(">I", len(extra)) + extra
+        for k in range(n):
+            info += struct.pack(">H", 0) + planes[k].tobytes()
+        if len(info) & 1:
+            info += b"\0"
+        block = struct.pack(">I", len(info)) + info + struct.pack(">I", 0)
+        head += struct.pack(">I", len(block)) + block
+    else:
+        head += struct.pack(">I", 0)
+    rows = []
+    for k in range(c):
+        p = planes[k]
+        if mode == "1":
+            p = np.packbits(p.astype(bool), axis=1)
+        rows.append([p[y].tobytes() for y in range(h)])
+    if compression == 0:
+        body = b"".join(r for ch in rows for r in ch)
+        return head + struct.pack(">H", 0) + body
+    packed = [[packbits_row(r, rng) for r in ch] for ch in rows]
+    table = b"".join(struct.pack(">H", len(r)) for ch in packed for r in ch)
+    return head + struct.pack(">H", compression) + table + b"".join(
+        r for ch in packed for r in ch)
+
+
+def bc3_encode(rgb: np.ndarray) -> bytes:
+    """BC3/DXT5 blocks of an RGB image (numpy only): an opaque alpha block
+    (a0 = a1 = 255, every index 0) before each bc1_encode colour block."""
+    colour = np.frombuffer(bc1_encode(rgb), np.uint8).reshape(-1, 8)
+    alpha = np.zeros_like(colour)
+    alpha[:, :2] = 255
+    return np.concatenate([alpha, colour], 1).tobytes()
+
+
+def part2_markers(n: int, offsets=None, matrix=None, *,
+                  offset_type: int = 1, matrix_type: int = 2,
+                  reversible: bool = True) -> bytes:
+    """A JPEG 2000 Part-2 multi-component transform as marker segments for
+    a codestream's main header: MCT records (a decorrelation matrix of
+    n x n elements, index 1; an offset array of n elements, index 2; each
+    of an element type 0-3: int16, int32, float32, float64, big-endian),
+    an array-based MCC collection of components 0..n-1 (index 1) naming
+    them, and an MCO of that one stage."""
+    fmt = {0: ">H", 1: ">i", 2: ">f", 3: ">d"}
+    out = b""
+
+    def mct(index, array_type, etype, values):
+        body = struct.pack(">HHH", 0, index | (array_type << 8)
+                           | (etype << 10), 0)
+        body += b"".join(struct.pack(fmt[etype], int(v) & 0xFFFF if etype == 0
+                                     else int(v) if etype == 1 else float(v))
+                         for v in values)
+        return b"\xff\x74" + struct.pack(">H", len(body) + 2) + body
+
+    deco = off = 0
+    if matrix is not None:
+        out += mct(1, 1, matrix_type, np.asarray(matrix).ravel().tolist())
+        deco = 1
+    if offsets is not None:
+        out += mct(2, 2, offset_type, list(offsets))
+        off = 2
+    comps = bytes(range(n)) if n <= 256 else b""
+    body = struct.pack(">HBHHB", 0, 1, 0, 1, 1) + struct.pack(">H", n) \
+        + comps + struct.pack(">H", n) + comps \
+        + ((int(reversible) << 16) | (off << 8) | deco).to_bytes(3, "big")
+    out += b"\xff\x75" + struct.pack(">H", len(body) + 2) + body
+    out += b"\xff\x77\x00\x04\x01\x01"
+    return out
+
+
+def with_main_header_markers(codestream: bytes, segments: bytes) -> bytes:
+    """A raw J2K codestream with marker segments put at the end of its main
+    header (before its first SOT)."""
+    at = 2
+    while codestream[at:at + 2] != b"\xff\x90":
+        at += 2 + struct.unpack(">H", codestream[at + 2:at + 4])[0]
+    return codestream[:at] + segments + codestream[at:]

@@ -164,6 +164,10 @@ def library() -> ctypes.CDLL:
         lib.opj_destroy_codec.argtypes = [ctypes.c_void_p]
         lib.opj_image_destroy.argtypes = [ctypes.POINTER(Image)]
         lib.opj_set_default_encoder_parameters.argtypes = [ctypes.c_void_p]
+        lib.opj_set_MCT.argtypes = [ctypes.POINTER(CParameters),
+                                    ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.c_uint32]
+        lib.opj_set_MCT.restype = ctypes.c_int
         _LIB = lib
         check_layout()
     return _LIB
@@ -200,14 +204,17 @@ def encode(planes: Sequence[np.ndarray], prec: Sequence[int] = None,
            progression: str = "LRCP", layers: Sequence[float] = (0,),
            tile=None, tile_offset=(0, 0), precincts=None, sop=False,
            eph=False, pocs=(), tile_parts: Optional[str] = None,
-           roi=None, plt=False, tlm=False) -> bytes:
+           roi=None, plt=False, tlm=False, custom_mct=None) -> bytes:
     """Encode components (each an int array [h_c, w_c] of its own size, the
     image's size in reference-grid units being planes[0]'s times its
     subsampling) as a raw J2K codestream, or JP2 where `jp2`;
     `resolutions` is capped at the levels OpenJPEG's encoder takes (1 +
     log2 of the smallest component's or tile's side).
     `pocs`: (resno0, compno0, layno1, resno1, compno1, "RPCL"), ...;
-    `roi`: (component, shift); `tile_parts`: "R", "L" or "C"."""
+    `roi`: (component, shift); `tile_parts`: "R", "L" or "C";
+    `custom_mct`: (matrix, dc_shift), an n x n float encoding matrix and
+    n integer DC shifts for opj_set_MCT (Part-2 array-based MCT, MCC and
+    MCO markers; COD's transform byte 2)."""
     lib = library()
     n = len(planes)
     side = min(min(p.shape) for p in planes)
@@ -270,6 +277,13 @@ def encode(planes: Sequence[np.ndarray], prec: Sequence[int] = None,
             p.tp_on, p.tp_flag = b"\x01", tile_parts.encode()
         if roi:
             p.roi_compno, p.roi_shift = roi
+        if custom_mct is not None:
+            matrix = np.ascontiguousarray(custom_mct[0], np.float32)
+            shift = np.ascontiguousarray(custom_mct[1], np.int32)
+            assert matrix.shape == (n, n) and shift.shape == (n,)
+            if not lib.opj_set_MCT(ctypes.byref(p), matrix.ctypes.data,
+                                   shift.ctypes.data, n):
+                raise ValueError("opj_set_MCT failed")
         codec = lib.opj_create_compress(2 if jp2 else 0)
         _messages.clear()
         lib.opj_set_error_handler(codec, _on_message, None)
@@ -302,6 +316,8 @@ def encode(planes: Sequence[np.ndarray], prec: Sequence[int] = None,
                 os.unlink(path)
         finally:
             lib.opj_destroy_codec(codec)
+            if p.mct_data:
+                ctypes.CDLL(None).free(ctypes.c_void_p(p.mct_data))
     finally:
         lib.opj_image_destroy(image)
     _check_markers(data, mode, pocs, roi)

@@ -6,8 +6,10 @@ tests/test_torch_image_native.py); seeded files of every layout at sizes
 of their own, and cut and byte-edited copies of Pillow's and OpenJPEG's
 files, give Pillow's live outcome (its pixels, or a ValueError where it
 raises); the MQ coder's states are ISO 15444-1's Table C.2; Pillow's
-YCbCr -> RGB for sYCC files holds over every (Cb, Cr); HTJ2K and Part-2
-multi-component transforms raise NotImplementedError naming them; the
+YCbCr -> RGB for sYCC files holds over every (Cb, Cr); HTJ2K raises
+NotImplementedError naming it; Part-2 multi-component transforms (MCT,
+MCC and MCO markers: OpenJPEG's own, of every element type, moved into
+tile-part headers, byte-edited) give Pillow's outcome; the
 scenes as JPEG 2000 (tests/data/jpeg2000_scenes, which chip_smoke.py's
 phase 9d reads) hold their JPEG files' pixels."""
 
@@ -31,6 +33,7 @@ TESTS = Path(__file__).resolve().parent
 sys.path.insert(0, str(TESTS))
 
 import image_corpus as ic  # noqa: E402
+import image_writers as iw  # noqa: E402
 
 pytest.importorskip("PIL")
 jw = ic.jpeg2000_writer()
@@ -66,9 +69,10 @@ def test_corpus_covers_every_layout_at_every_size():
     """46 layouts, each at the corpus's four sizes (but TERMALL at 16x24,
     which OpenJPEG's encoder cannot write there: its output buffer is
     sized by the image), the file Pillow's writer made before the port
-    read JPEG 2000, the refused parts, each named (an HT code-block, a
-    Part-2 transform), and a CAP and a CBD marker alone, which OpenJPEG
-    decodes, to their digests."""
+    read JPEG 2000, the refused part, named (an HT code-block), and a CAP
+    and a CBD marker alone, which OpenJPEG decodes, to their digests; the
+    Part-2 files to theirs, and a Part-2 transform OpenJPEG fails on
+    among the errors."""
     layouts = {}
     for name in INDEX["files"]:
         m = NAME.match(name)
@@ -82,7 +86,11 @@ def test_corpus_covers_every_layout_at_every_size():
     assert "refused_jp2.jp2" in INDEX["files"]
     refused = {n: w for n, w in INDEX["refused"].items()
                if n.startswith("refused_jp2")}
-    assert sorted(refused.values()) == ["HTJ2K", "Part-2"]
+    assert sorted(refused.values()) == ["HTJ2K"]
+    assert len([n for n in INDEX["files"] if n.startswith("jp2_part2_")]) \
+        == 10
+    assert {"refused_jp2_part2_mct.j2k", "refused_jp2_part2_transform.j2k"} \
+        <= set(INDEX["errors"])
     assert {"refused_jp2_cap.j2k", "refused_jp2_part2_cbd.j2k"} \
         <= set(INDEX["files"])
     for name, word in refused.items():
@@ -233,11 +241,11 @@ def test_sycc_colours_equal_pillows_ycbcr_conversion():
 
 
 def test_refused_parts_are_named():
-    """HTJ2K code-blocks (COD's or COC's style 0x40) and Part-2
-    multi-component transforms (MCT, MCC, MCO) raise NotImplementedError
-    naming them; a style byte with HT mixed mode (0x80), which OpenJPEG
-    itself refuses, raises a ValueError as Pillow does, as does a CBD
-    marker of the wrong length (opj_j2k_read_cbd's check)."""
+    """HTJ2K code-blocks (COD's or COC's style 0x40) raise
+    NotImplementedError naming them; a style byte with HT mixed mode
+    (0x80), which OpenJPEG itself refuses, raises a ValueError as Pillow
+    does, as do an MCT, MCC or MCO marker too short for OpenJPEG's reader
+    and a CBD marker of the wrong length (opj_j2k_read_cbd's check)."""
     rng = np.random.RandomState(4)
     img = ic.seeded_image(rng, 7, 9)
     cs = jw.encode([img[..., k].astype(np.int32) for k in range(3)])
@@ -253,7 +261,8 @@ def test_refused_parts_are_named():
         image_io.read_image(bytes(mixed))
     for marker in (b"\xff\x74", b"\xff\x75", b"\xff\x77"):
         data = ic._insert_marker(cs, 0xFF52, marker + b"\x00\x05\x00\x00\x00")
-        with pytest.raises(NotImplementedError, match="Part-2"):
+        assert pillow(data) is None
+        with pytest.raises(ValueError):
             image_io.read_image(data)
     data = ic._insert_marker(cs, 0xFF52, b"\xff\x78\x00\x05\x00\x00\x00")
     assert pillow(data) is None
@@ -326,3 +335,107 @@ def test_decode_loads_no_openjpeg():
         ["nm", "-D", "--undefined-only", str(native_image.library_path())],
         capture_output=True, text=True).stdout
     assert undefined and not re.search(r"\bopj_\w*", undefined)
+
+
+def _same(data: bytes) -> bool:
+    """The port's outcome is Pillow's: its pixels, or a ValueError where
+    it raises."""
+    want, got = pillow(data), outcome(data)
+    if want is None:
+        return isinstance(got, str) and got == "error"
+    return not isinstance(got, str) and np.array_equal(got, want)
+
+
+def _segments(cs: bytes):
+    """(marker, offset, length) of a raw codestream's main header."""
+    out, at = [], 2
+    while cs[at:at + 2] != b"\xff\x90":
+        n = struct.unpack(">H", cs[at + 2:at + 4])[0]
+        out.append((struct.unpack(">H", cs[at:at + 2])[0], at, n))
+        at += 2 + n
+    return out, at
+
+
+@pytest.mark.parametrize("seed", [50, 51])
+def test_part2_transforms_give_pillows_outcome(seed):
+    """OpenJPEG's own Part-2 streams (opj_set_MCT: 3 and 4 components,
+    reversible and irreversible, DC shifts, tiles) under COD's transform
+    byte 0, 1 (the MCO's offsets become the DC level shifts) and 2 (which
+    OpenJPEG fails on); their MCT, MCC and MCO segments edited byte by
+    byte, moved after SIZ and into the first tile-part's header, and an
+    MCO of no stage after them (every shift 0)."""
+    rng = np.random.RandomState(seed)
+    for case in range(6):
+        nc = 3 + case % 2
+        h, w = rng.randint(3, 20, 2)
+        img = rng.randint(0, 256, (h, w, nc))
+        matrix = rng.uniform(-1, 1, (nc, nc)).astype(np.float32)
+        shift = rng.randint(-200, 200, nc)
+        cs = bytearray(jw.encode([img[..., k].astype(np.int32)
+                                  for k in range(nc)],
+                                 custom_mct=(matrix, shift),
+                                 irreversible=bool(case % 3 == 1),
+                                 tile=(8, 8) if case % 3 == 2 else None))
+        cod = cs.index(b"\xff\x52")
+        for byte in (0, 1, 2):
+            cs[cod + 8] = byte
+            assert _same(bytes(cs)), (case, byte)
+        cs[cod + 8] = case % 2
+        cs = bytes(cs)
+        segs, sot = _segments(cs)
+        part2 = [s for s in segs if s[0] in (0xFF74, 0xFF75, 0xFF77)]
+        for _ in range(16):
+            _, at, n = part2[rng.randint(len(part2))]
+            e = bytearray(cs)
+            q = at + 4 + rng.randint(0, max(n - 2, 1))
+            e[q] = rng.randint(0, 256) if rng.rand() < 0.7 else \
+                e[q] ^ (1 << rng.randint(8))
+            assert _same(bytes(e)), (case, q - at)
+        moved = b"".join(cs[a:a + 2 + n] for _, a, n in part2)
+        rest = b"".join(cs[a:a + 2 + n] for m, a, n in segs
+                        if m not in (0xFF74, 0xFF75, 0xFF77))
+        siz = cs[segs[0][1]:segs[0][1] + 2 + segs[0][2]]
+        body = cs[sot:]
+        assert _same(b"\xff\x4f" + siz + moved + rest[len(siz):] + body)
+        psot = struct.unpack(">I", body[6:10])[0]
+        for extra in (moved, moved + b"\xff\x77\x00\x03\x00"):
+            sot_seg = body[:6] + struct.pack(">I", psot + len(extra)) \
+                + body[10:12]
+            assert _same(b"\xff\x4f" + rest + sot_seg + extra + body[12:])
+        assert _same(cs[:sot] + b"\xff\x77\x00\x03\x00" + cs[sot:])
+
+
+def test_part2_offsets_of_every_element_type_equal_pillow():
+    """Offset arrays of 16-bit (read unsigned), int32, float32 and
+    float64 elements (truncated; NaN, infinities and what no int32 holds
+    give INT32_MIN, as x86's conversion does), a decorrelation array of
+    the wrong size, collections OpenJPEG skips (more than one, other than
+    array-based, components shuffled, a second part of a segment) or
+    fails on (an array not read), an MCO of two stages (skipped) or of a
+    collection of other components, records read again."""
+    rng = np.random.RandomState(52)
+    img = ic.seeded_image(rng, 10, 7)
+    cs = jw.encode([img[..., k].astype(np.int32) for k in range(3)], mct=True)
+    inf, nan = float("inf"), float("nan")
+    cases = []
+    for etype, offsets in ((0, [0, 65535, 128]), (1, [-2 ** 31, 2 ** 31 - 1,
+                                                      -5]),
+                           (2, [nan, inf, -3e9]), (3, [-inf, 2.5e9, -0.9]),
+                           (2, [128.7, -128.7, 0.0])):
+        cases.append(iw.part2_markers(3, offsets, np.eye(3),
+                                      offset_type=etype, matrix_type=etype))
+    good = iw.part2_markers(3, [10, 20, 30], np.eye(3))
+    cases.append(iw.part2_markers(3, [1, 2, 3], np.eye(4)))  # 16 elements
+    cases.append(iw.part2_markers(3, [1, 2, 3, 4]))         # 4 offsets
+    mcc = good.index(b"\xff\x75")
+    for at, value in ((8, 2), (9, 2), (4, 1), (13, 1), (15, 1), (21, 5),
+                      (23, 9), (22, 7)):
+        e = bytearray(good)
+        e[mcc + at] = value
+        cases.append(bytes(e))
+    cases.append(good[:-6] + b"\xff\x77\x00\x05\x02\x01\x01")
+    cases.append(good + good)
+    cases.append(good.replace(b"\xff\x77\x00\x04\x01\x01",
+                              b"\xff\x77\x00\x04\x01\x07"))
+    for markers in cases:
+        assert _same(iw.with_main_header_markers(cs, markers)), markers.hex()

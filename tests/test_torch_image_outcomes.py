@@ -36,16 +36,12 @@ REFUSED_FILES = sorted(p.name for p in ic.CORPUS.iterdir()
 # stubs of formats the port does not read, which Pillow fails on too: the
 # refusal names the format first
 STUBS = {
-    "refused_psd.psd": "a PSD header without its image data (Pillow: image "
-                       "file is truncated)",
     "refused_sun_gbr_1x1.ras": "a 1x1 Sun raster whose length field Pillow's "
                                "GBR plugin takes (not enough image data)",
     "refused_eps.eps": "EPS, which Pillow reads through Ghostscript (not on "
                        "this machine)",
     "refused_jp2_htj2k.j2k": "a hand-edited HT code-block style over Part-1 "
                              "data, which OpenJPEG fails on",
-    "refused_jp2_part2_mct.j2k": "hand-edited MCT and MCO markers, which "
-                                 "OpenJPEG fails on",
     "refused_tiff_old_style_jpeg_tiles.tif": "old-style JPEG in tiles, which "
     "the port does not read (a JPEGInterchangeFormat stream each tile here, "
     "which libtiff fails on)",

@@ -25,7 +25,11 @@ worker and the run exits 1.
         [--mutations 3000] [--workers 4] [--seed 1]
 
 (formats: jpeg, gif, bmp, tiff, webp, ppm, tga, qoi, pcx, dcx, sgi, sun,
-dib, ico, cur, jpeg2000, icns: its packed RGB entries)
+dib, ico, cur, jpeg2000, icns: its packed RGB entries; dds, blp, psd:
+the files of tests/data/texture_io through data/native_image.py's
+decode_dds, decode_blp and decode_psd, which read the header in Python
+and make one call into csrc/bcn_decode.cpp, here into the sanitized
+library)
 
 (`--glob '*zstd*'`, `'*lzma*'`, `'*bilevel_ccitt*'` and `'*group*'`,
 `'map_*'` or `'arith_*'` mutate the ZSTD, LZMA, CCITT, memory-map or
@@ -38,7 +42,8 @@ modes; `'tiff_ycbcr_*'`, `'*ojpeg*'`, `'*lab*'`, `'*thunder*'`,
 LAB, ThunderScan, 16-bit CMYK and the xz filters; with --format jpeg2000, `'jp2_*'` the
 layouts of tests/image_corpus.jpeg2000_modes (raw J2K and JP2: every
 mode switch, SOP/EPH, POC, tile-parts, RGN, PPT and PPM, subsampling,
-palettes), each decoded in a mode of Pillow's drawn at random.)
+palettes), each decoded in a mode of Pillow's drawn at random;
+`'jp2_part2_*'` the Part-2 transforms (MCT, MCC and MCO markers).)
 
 Host only, no card; a worker holds at most a 4-megapixel output.
 """
@@ -62,6 +67,7 @@ from maskrcnn_tpu_torch.data import native_image  # noqa: E402
 from maskrcnn_tpu_torch.utils import native_build  # noqa: E402
 
 CORPUS = REPO / "tests" / "data" / "image_io"
+TEXTURES = REPO / "tests" / "data" / "texture_io"
 FLAGS = ("-O1", "-g", "-shared", "-fPIC", "-std=c++17", "-fwrapv",
          "-ffp-contract=off", "-fsanitize=address,undefined",
          "-fno-sanitize-recover=all")
@@ -71,7 +77,10 @@ SUFFIX = {"jpeg": (".jpg",), "gif": (".gif",), "bmp": (".bmp",),
           "qoi": (".qoi",), "pcx": (".pcx",), "dcx": (".dcx",),
           "sgi": (".sgi",), "sun": (".ras",), "dib": (".dib",),
           "ico": (".ico",), "cur": (".cur",), "jpeg2000": (".jp2", ".j2k"),
-          "icns": (".icns",)}
+          "icns": (".icns",), "dds": (".dds",), "blp": (".blp",),
+          "psd": (".psd",)}
+# the formats decoded through data/native_image.py's Python header reading
+TEXTURE = ("dds", "blp", "psd")
 # the formats whose calls take a path flag last
 PATH_FLAG = ("tiff", "pcx", "dcx")
 LIMITS = (0, 1, 2, 7, 8, 15, 16, 255, 256, 65535, 2 ** 31 - 1, 2 ** 31,
@@ -214,8 +223,32 @@ def icns_worker(lib, files, rng: random.Random, mutations: int) -> None:
                                  512)
 
 
+def texture_worker(lib_path: str, fmt: str, pattern: str, mutations: int,
+                   seed: int) -> None:
+    """DDS, BLP or PSD: mutated files through native_image's decode_dds,
+    decode_blp or decode_psd, its library the sanitized one (loaded and
+    declared by native_image.library) and its size limit a worker's."""
+    native_image._build = lambda stem, sources: ctypes.CDLL(lib_path)
+    native_image._LIB = None
+    native_image.MAX_PIXELS = MAX_PIXELS
+    decode = getattr(native_image, f"decode_{fmt}")
+    files = [p.read_bytes() for p in sorted(TEXTURES.glob(pattern))
+             if p.suffix in SUFFIX[fmt] and p.stat().st_size < 20000]
+    if not files:
+        raise SystemExit(f"no {fmt} texture file matches {pattern}")
+    rng = random.Random(seed)
+    for _ in range(mutations):
+        try:
+            decode(mutate(rng, rng.choice(files)))
+        except Exception:  # noqa: BLE001 - a refusal is the outcome
+            pass
+
+
 def worker(lib_path: str, fmt: str, pattern: str, mutations: int,
            seed: int) -> None:
+    if fmt in TEXTURE:
+        texture_worker(lib_path, fmt, pattern, mutations, seed)
+        return
     lib = ctypes.CDLL(lib_path)
     if fmt == "icns":
         files = [p.read_bytes() for p in sorted(CORPUS.glob(pattern))

@@ -80,6 +80,9 @@ COMMITTED_JPEG = {"jpeg_arith": "scene_baseline_420_arith.jpg",
 # RPCL order, the third a JP2 of quality layers with PLT), and the first
 # scene's decode as an irreversible JP2 (timed only)
 JPEG2000_SCENES = REPO / "tests" / "data" / "jpeg2000_scenes"
+# DDS, BLP and PSD files of every route (tests/image_corpus.texture_cases),
+# their digests in an index of their own
+TEXTURES = REPO / "tests" / "data" / "texture_io"
 JPEG2000_FILES = ("scene_baseline_420_default.jp2",
                   "scene_baseline_444_tiles_rpcl.j2k",
                   "scene_progressive_layers_plt.jp2")
@@ -150,6 +153,53 @@ def rgba_mode(fmt: str, k: int, data: bytes, img) -> tuple:
     return ".icns", iw.encode_icns([(b"ic10", image_io.encode_png(canvas))])
 
 
+# the DDS, BLP, PSD and Part-2 JPEG 2000 files a scene is written as
+# (tests/image_writers.py, numpy only), each decoding to pixels other than
+# the JPEG file's: BC1 (DXT1) and BC7 (mode 6) DDS, 5-6-5 RGB-mask DDS,
+# BLP2 DXT5 (read by BlpImagePlugin's own Python block decoder), the
+# scene's own JPEG stream as BLP1 JPEG (its channels swapped, as Pillow
+# reads them), PackBits RGB PSD, raw CMYK PSD, and the committed tiled
+# J2K scene with a Part-2 transform (MCT, MCC and MCO markers: offsets
+# that shift each component's DC level)
+TEXTURE_MODES = ("dds_bc1", "dds_bc7", "dds_rgb565", "blp2_dxt5",
+                 "blp1_jpeg", "psd_rgb_packbits", "psd_cmyk", "j2k_part2")
+
+
+def texture_mode(fmt: str, k: int, data: bytes, img) -> tuple:
+    """(name suffix, bytes) of scene k (its JPEG file `data`, its decode
+    `img`) in one of TEXTURE_MODES."""
+    import numpy as np
+    iw = image_writers()
+    h, w = img.shape[:2]
+    if fmt == "dds_bc1":
+        return "_bc1.dds", iw.encode_dds(w, h, iw.bc1_encode(img),
+                                         fourcc=b"DXT1")
+    if fmt == "dds_bc7":
+        rgba = np.concatenate([img, np.full((h, w, 1), 255, np.uint8)], 2)
+        return "_bc7.dds", iw.encode_dds(w, h, iw.bc7_mode6_encode(rgba),
+                                         dxgi=iw.DXGI["BC7"])
+    if fmt == "dds_rgb565":
+        masks = (0xF800, 0x7E0, 0x1F, 0)
+        return "_rgb565.dds", iw.encode_dds(
+            w, h, iw.dds_mask_pixels(img, masks, 16), pfflags=iw.DDPF_RGB,
+            bitcount=16, masks=masks)
+    if fmt == "blp2_dxt5":
+        return "_dxt5.blp", iw.blp_dxt_file(iw.bc3_encode(img), w, h,
+                                            alpha_encoding=7)
+    if fmt == "blp1_jpeg":
+        return "_jpeg.blp", iw.blp_jpeg_file(data, w, h, split=len(data) // 2)
+    planes = np.ascontiguousarray(img.transpose(2, 0, 1))
+    if fmt == "psd_rgb_packbits":
+        return "_rgb.psd", iw.encode_psd(planes, "RGB", compression=1)
+    if fmt == "psd_cmyk":
+        # "C;I" planes: the stored bytes are the RGB ones, K stored 255
+        cmyk = np.concatenate([planes, np.full((1, h, w), 255, np.uint8)])
+        return "_cmyk.psd", iw.encode_psd(cmyk, "CMYK")
+    cs = (JPEG2000_SCENES / "scene_baseline_444_tiles_rpcl.j2k").read_bytes()
+    return "_part2.j2k", iw.with_main_header_markers(cs, iw.part2_markers(
+        3, [128 + 24 * k, 96, 160], np.eye(3)))
+
+
 # the small lossless plugins a scene is written as (tests/image_writers.py,
 # numpy only): Netpbm P6, TGA RLE, QOI (runs and RGB ops), PCX (RLE, three
 # planes), SGI RLE and Sun raster RLE
@@ -196,7 +246,8 @@ def scene_files(fmt: str, count: int = 3) -> tuple:
     committed reversible JPEG 2000 file (JPEG2000_FILES: its JPEG decode's
     pixels); "tiff_group4" the scenes' bilevel (mean of the channels
     below 110 black) as CCITT Group 4; PLUGIN_SCENES written from their
-    native decodes (plugin_scene); RGBA_MODES (rgba_mode)."""
+    native decodes (plugin_scene); RGBA_MODES (rgba_mode); TEXTURE_MODES
+    (texture_mode)."""
     from maskrcnn_tpu_torch.data import image_io
     names = list(corpus_index()["scenes"])[:count]
     out = []
@@ -228,6 +279,10 @@ def scene_files(fmt: str, count: int = 3) -> tuple:
         elif fmt in RGBA_MODES:
             suffix, blob = rgba_mode(fmt, k, data, image_io.read_image(data))
             out.append((f"{stem}{suffix}", blob))
+        elif fmt in TEXTURE_MODES:
+            suffix, blob = texture_mode(fmt, k, data,
+                                        image_io.read_image(data))
+            out.append((f"{stem}{suffix}", blob))
         elif fmt == "tiff_jpeg" and "progressive" not in name:
             out.append((f"{stem}_jpeg.tif", image_writers().tiff_from_jpeg(
                 data)))
@@ -258,7 +313,7 @@ FORMAT_TIMES = ("png", "webp", "webp_lossless", "gif", "bmp", "tiff_raw",
                 "tiff_lzw_predictor", "tiff_tiled_deflate_predictor",
                 "tiff_jpeg", "tiff_zstd_predictor", "tiff_lzma_predictor",
                 "tiff_group4") + PLUGIN_SCENES + tuple(COMMITTED_JPEG) + tuple(
-                    COMMITTED_JPEG2000) + RGBA_MODES
+                    COMMITTED_JPEG2000) + RGBA_MODES + TEXTURE_MODES
 
 
 def format_scenes() -> dict:
@@ -268,8 +323,8 @@ def format_scenes() -> dict:
     bilevel as Group 4, as PPM P6, TGA RLE, QOI, PCX, SGI RLE and Sun
     RLE, as arithmetic-coded sequential and progressive JPEG, lossless
     JPEG with predictors 1 and 7 and a block-smoothed progressive JPEG,
-    and as reversible and irreversible JP2 (the files decode_times times
-    beside TIMED)."""
+    as reversible and irreversible JP2, in RGBA_MODES and in
+    TEXTURE_MODES (the files decode_times times beside TIMED)."""
     return {name: data for fmt in FORMAT_TIMES
             for name, data in scene_files(fmt, 1)}
 
@@ -301,7 +356,8 @@ def coco_scene_dir(root: Path, copies: int, fmt: str = "jpeg",
     6], each written when its image is; "jpeg_modes": copy c of scene j
     JPEG_MODE_TURNS[j][c % its length]; "rgba_modes": image i in
     RGBA_MODES[(i - 1) % 5], and "rgba_modes_png" each of those files'
-    decode as PNG), each `copies` times (the first
+    decode as PNG; "texture_modes" image i in TEXTURE_MODES[(i - 1) % 8],
+    "texture_modes_png" as PNG), each `copies` times (the first
     `limit` images of those, where given), with the JPEG scenes'
     annotations. Returns the directory."""
     index = corpus_index()
@@ -309,8 +365,11 @@ def coco_scene_dir(root: Path, copies: int, fmt: str = "jpeg",
     (root / "annotations").mkdir(parents=True, exist_ok=True)
     (root / "val2014").mkdir(exist_ok=True)
     images, anns = [], []
+    turns = {"rgba_modes": RGBA_MODES, "texture_modes": TEXTURE_MODES}
     files = (scene_files(fmt) if fmt not in ("plugins", "jpeg_modes",
-                                             "rgba_modes", "rgba_modes_png")
+                                             "rgba_modes", "rgba_modes_png",
+                                             "texture_modes",
+                                             "texture_modes_png")
              else None)
     for k in range(copies):
         for j, (scene, scene_anns) in enumerate(index["scenes"].items()):
@@ -324,13 +383,13 @@ def coco_scene_dir(root: Path, copies: int, fmt: str = "jpeg",
                 turns = JPEG_MODE_TURNS[j]
                 name = turns[k % len(turns)]
                 data = (JPEG_SCENES / name).read_bytes()
-            elif fmt.startswith("rgba_modes"):
+            elif fmt.startswith(("rgba_modes", "texture_modes")):
                 from maskrcnn_tpu_torch.data import image_io
-                name, data = scene_files(
-                    RGBA_MODES[(i - 1) % len(RGBA_MODES)])[j]
+                modes = turns[fmt.replace("_png", "")]
+                name, data = scene_files(modes[(i - 1) % len(modes)])[j]
                 decoded = image_io.read_image(data)
                 shape = decoded.shape[:2]  # (ICNS: its 1024² canvas)
-                if fmt == "rgba_modes_png":
+                if fmt.endswith("_png"):
                     name = name.rsplit(".", 1)[0] + ".png"
                     data = image_io.encode_png(decoded)
             else:
