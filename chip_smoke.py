@@ -162,7 +162,13 @@ Phases, each printing one line:
     LZMA with predictor 2 and its bilevel as Group 4), the PNG scene's inflate beside
     zlib's, decodes a second on 1 and 4 threads each route and of the lossy WebP
     and tiled Deflate TIFF scenes, BatchLoader img/s with 1 and 4
-    workers, write_png read back exactly;
+    workers, write_png read back exactly; the last plugins' files
+    (tests/data/legacy_io: IM, SPIDER, FITS, MCIDAS, IMT, XVTHUMB, PIXAR,
+    GBR, FTEX, XBM, XPM, MSP, FLI and IPTC, csrc/image_legacy.cpp) and
+    the seeded Photo CD files to their digests, the files Pillow fails
+    on (the stubs and MPEG among them) ValueErrors, EPS refused naming
+    Ghostscript, and host ms a decode of the first scene as IM RGB,
+    SPIDER, FITS -32, XPM, MSP v2, FLI, GBR RGBA and a Photo CD;
     9b K1 against its plain version at the 64 px levels (P5 2x2), K1-bwd
     there as in 7a, then tests/test_learning_ap.py on the card: the 64 px
     TinyConfig trained from scratch (240 steps, B=4, one class),
@@ -198,7 +204,10 @@ Phases, each printing one line:
     equal the JPEG sweep's), and one batch rotating through the scenes'
     decodes as reversible JPEG 2000 (a default JP2, a tiled RPCL J2K with
     precincts, a layered JP2 with PLT; detections equal the JPEG
-    sweep's), K1, K2 and K4 launched in each; one POST
+    sweep's), and one batch rotating through the last plugins (IM RGB,
+    SPIDER, FITS -32, XPM, MSP v2, FLI, GBR RGBA, Photo CD: detections
+    equal those of its decodes read back from PNG), K1, K2 and K4
+    launched in each; one POST
     each of the progressive JPEG, a lossy WebP and a JPEG TIFF to
     tools/serve_torch.py's handler answered;
 10. after phase 9, the spatial axis and the debug and tutorial surface:
@@ -3209,6 +3218,31 @@ def decode_phase(card, build=None):
             pass
     texture_counts = {ext: sum(n.endswith(ext) for n in textures["files"])
                       for ext in (".dds", ".blp", ".psd")}
+    legacy = json.loads((bench.LEGACY / "index.json").read_text())
+    for name, entry in legacy["files"].items():
+        img = image_io.read_image(bench.LEGACY / name)
+        check(list(img.shape) == entry["shape"] + [3]
+              and hashlib.sha256(img.tobytes()).hexdigest()
+              == entry["sha256"], f"9a: {name} decodes to other pixels "
+              "than Pillow's")
+    for name in legacy["errors"]:
+        try:
+            image_io.read_image(bench.LEGACY / name)
+            check(False, f"9a: {name}, which Pillow refuses, decoded")
+        except ValueError:
+            pass
+    for name, data in bench.image_writers().pcd_cases():
+        img, entry = image_io.read_image(data), legacy["generated"][name]
+        check(list(img.shape) == entry["shape"] + [3]
+              and hashlib.sha256(img.tobytes()).hexdigest()
+              == entry["sha256"], f"9a: {name} decodes to other pixels "
+              "than Pillow's")
+    try:
+        image_io.read_image(bench.CORPUS / "refused_eps.eps")
+        check(False, "9a: an EPS file decoded")
+    except NotImplementedError as e:
+        check("Ghostscript" in str(e), f"9a: EPS refused as {e}")
+    legacy_counts = sorted({n.rsplit(".", 1)[1] for n in legacy["files"]})
     jpeg_modes = sum(name.startswith("jpeg_") for name in index["files"])
     times = bench.decode_times(5)
     inflate = bench.inflate_times(5)
@@ -3257,7 +3291,12 @@ def decode_phase(card, build=None):
           f"texture files to their digests: {texture_counts['.dds']} DDS, "
           f"{texture_counts['.blp']} BLP, {texture_counts['.psd']} PSD, "
           f"{len(textures['errors'])} that Pillow fails on raise "
-          f"ValueError; no system codec "
+          f"ValueError; the last plugins' files to their digests: "
+          f"{len(legacy['files'])} of {', '.join(legacy_counts)}, "
+          f"{len(legacy['generated'])} seeded Photo CD files, "
+          f"{len(legacy['errors'])} that Pillow fails on (the stubs and "
+          f"MPEG among them) raise ValueError, EPS refused naming "
+          f"Ghostscript; no system codec "
           f"loaded; host decode median of 5: {lines}; the PNG scene's "
           f"image data ({inflate['bytes']} bytes) inflated by the "
           f"library's own inflate {inflate['own_ms']:.2f} ms, by "
@@ -3298,7 +3337,8 @@ FILES_FORMATS = ("bmp", "webp_lossless", "tiff_tiled_lzw_predictor", "webp",
                  "gif", "tiff_jpeg", "tiff_zstd_predictor",
                  "tiff_lzma_predictor", "plugins", "jpeg_modes",
                  "jpeg2000_layouts", "rgba_modes", "rgba_modes_png",
-                 "texture_modes", "texture_modes_png")
+                 "texture_modes", "texture_modes_png", "legacy_modes",
+                 "legacy_modes_png")
 # the sweeps whose files hold the JPEG decodes' pixels, so their detections
 # equal the JPEG sweep's (the JPEG TIFF holds the baseline scenes' own JPEG
 # streams, which decode to their JPEG files' pixels; the ZSTD and LZMA
@@ -3320,7 +3360,8 @@ FILES_IMAGES = {"bmp": FILES_B, "webp_lossless": FILES_B, "webp": FILES_B,
                 "tiff_lzma_predictor": FILES_B, "plugins": FILES_B,
                 "jpeg_modes": FILES_B, "jpeg2000_layouts": FILES_B,
                 "rgba_modes": FILES_B, "rgba_modes_png": FILES_B,
-                "texture_modes": FILES_B, "texture_modes_png": FILES_B}
+                "texture_modes": FILES_B, "texture_modes_png": FILES_B,
+                "legacy_modes": FILES_B, "legacy_modes_png": FILES_B}
 # "rgba_modes": one batch rotating through libtiff's RGBA route, LAB and
 # ICNS (image_decode_bench_torch.RGBA_MODES: YCbCr 2x2 LZW strips, YCbCr
 # 1x1 Deflate planes, old-style JPEG, LAB, an ic10 PNG on a 1024² canvas), other
@@ -3329,7 +3370,9 @@ FILES_IMAGES = {"bmp": FILES_B, "webp_lossless": FILES_B, "webp": FILES_B,
 # one batch rotating through DDS, BLP, PSD and Part-2 JPEG 2000
 # (image_decode_bench_torch.TEXTURE_MODES: BC1, BC7 and 5-6-5 DDS, BLP2
 # DXT5, BLP1 JPEG, PackBits RGB PSD, CMYK PSD, a Part-2 J2K), held the same
-# way ("texture_modes_png")
+# way ("texture_modes_png"), as is "legacy_modes", one batch rotating
+# through the last plugins (image_decode_bench_torch.LEGACY_MODES: IM RGB,
+# SPIDER, FITS -32, XPM, MSP v2, FLI, GBR RGBA, a 768x512 Photo CD)
 
 
 def files_phase(kernels, card, cfg=None):
@@ -3366,7 +3409,9 @@ def files_phase(kernels, card, cfg=None):
     batch whose images rotate through BC1, BC7 and 5-6-5 DDS, BLP2 DXT5,
     the scenes' JPEG streams as BLP1 JPEG, PackBits RGB PSD, CMYK PSD and
     the tiled J2K scene with a Part-2 transform (written at run time,
-    numpy only); lossy
+    numpy only), as does one batch whose images rotate through the
+    scenes as IM RGB, SPIDER, FITS -32, XPM, MSP v2, FLI, GBR RGBA and a
+    Photo CD (written at run time, numpy only); lossy
     WebP and GIF (a fixed palette) find detections; K1, K2 and K4 launched in every sweep. Then one POST each of the progressive scene, of a
     lossy WebP scene and of a JPEG TIFF scene to tools/serve_torch.py's
     handler on a localhost port is answered with detections. Returns the
@@ -3447,6 +3492,10 @@ def files_phase(kernels, card, cfg=None):
                           sweeps["texture_modes_png"][0]),
           "9d: the DDS, BLP, PSD and Part-2 sweep's detections differ from "
           "those of its decodes read back from PNG")
+    check(same_detections(sweeps["legacy_modes"][0],
+                          sweeps["legacy_modes_png"][0]),
+          "9d: the last plugins' sweep's detections differ from those of "
+          "its decodes read back from PNG")
     n_images = 3 * FILES_COPIES
     parts = []
     for route, (results, seconds, decode, stats, n, count) in sweeps.items():

@@ -61,6 +61,12 @@ inline void cmyk_rgb(const uint8_t* c, uint8_t* o) {
   }
 }
 
+// Python's gzip.decompress over d[0, n): every member (its header's
+// fields, its raw deflate through image_decode.cpp's inflate, its CRC-32
+// and length), the zero bytes between members skipped; an Error, its
+// message prefixed with `what`, where Python raises.
+void gzip_decompress(const uint8_t* d, int64_t n, const char* what, std::vector<uint8_t>& out);
+
 // libtiff 4.7's ZSTDDecode over one strip or tile, as it drives libzstd
 // 1.5.7: d[0, n) decoded into out[0, cap), an Error where libtiff fails.
 void tiff_zstd(const uint8_t* d, int64_t n, uint8_t* out, int64_t cap);

@@ -1478,17 +1478,28 @@ class Inflater {
     v.resize(static_cast<size_t>(inflate(v.data(), static_cast<int64_t>(v.size()))));
   }
 
+  // A raw deflate stream (no zlib header or Adler-32) into v, as
+  // zlib.decompressobj(wbits=-15) inflates it: the offset of its end in
+  // the input, where its unused data starts.
+  int64_t run_raw(std::vector<uint8_t>& v) {
+    raw_ = true;
+    run(v);
+    return end_;
+  }
+
  private:
   int64_t inflate(uint8_t* out, int64_t cap) {
     out_ = out;
     cap_ = cap;
     len_ = 0;
     try {
-      int cmf = static_cast<int>(bits(8)), flg = static_cast<int>(bits(8));
-      if ((cmf * 256 + flg) % 31) fail("incorrect header check");
-      if ((cmf & 15) != 8) fail("unknown compression method");
-      if ((cmf >> 4) + 8 > 15) fail("invalid window size");
-      if (flg & 0x20) fail("a preset dictionary is needed");
+      if (!raw_) {
+        int cmf = static_cast<int>(bits(8)), flg = static_cast<int>(bits(8));
+        if ((cmf * 256 + flg) % 31) fail("incorrect header check");
+        if ((cmf & 15) != 8) fail("unknown compression method");
+        if ((cmf >> 4) + 8 > 15) fail("invalid window size");
+        if (flg & 0x20) fail("a preset dictionary is needed");
+      }
       for (;;) {
         const bool last = bits(1);
         const int type = static_cast<int>(bits(2));
@@ -1508,6 +1519,10 @@ class Inflater {
       }
       // the Adler-32 of the data, big-endian, after the last block
       drop(bitcnt_ & 7);
+      if (raw_) {
+        end_ = pos_ - bitcnt_ / 8;
+        return len_;
+      }
       uint32_t want = 0;
       for (int i = 0; i < 4; i++) want = (want << 8) | static_cast<uint32_t>(bits(8));
       if (want != adler()) fail("incorrect data check");
@@ -1530,6 +1545,8 @@ class Inflater {
   int64_t cap_ = 0, len_ = 0;
   std::vector<uint8_t>* grow_ = nullptr;
   bool stop_ = false;
+  bool raw_ = false;
+  int64_t end_ = 0;
   ZHuff lit_, dist_;
 
   [[noreturn]] void fail(const char* why) const {
@@ -5357,6 +5374,70 @@ int tiff_decode(const uint8_t* data, int64_t n, bool path, uint8_t* out,
 }
 
 }  // namespace
+
+namespace mrt {
+
+// zlib's CRC-32 (the gzip trailer's)
+static uint32_t crc32(const uint8_t* p, size_t n) {
+  static uint32_t table[256];
+  static const bool ready = [] {
+    for (uint32_t i = 0; i < 256; i++) {
+      uint32_t c = i;
+      for (int k = 0; k < 8; k++) c = c & 1 ? 0xEDB88320u ^ (c >> 1) : c >> 1;
+      table[i] = c;
+    }
+    return true;
+  }();
+  (void)ready;
+  uint32_t c = 0xFFFFFFFFu;
+  for (size_t i = 0; i < n; i++) c = table[(c ^ p[i]) & 0xFF] ^ (c >> 8);
+  return c ^ 0xFFFFFFFFu;
+}
+
+void gzip_decompress(const uint8_t* d, int64_t n, const char* what, std::vector<uint8_t>& out) {
+  const std::string w(what);
+  out.clear();
+  int64_t pos = 0;
+  for (;;) {
+    // gzip._read_gzip_header: no bytes left ends the data
+    if (pos >= n) return;
+    if (n - pos < 2 || d[pos] != 0x1F || d[pos + 1] != 0x8B) corrupt(w + ": Not a gzipped file");
+    pos += 2;
+    if (n - pos < 8) corrupt(w + ": Compressed file ended before the end-of-stream marker was reached");
+    const int method = d[pos], flag = d[pos + 1];
+    pos += 8;
+    if (method != 8) corrupt(w + ": Unknown compression method");
+    if (flag & 4) {  // FEXTRA
+      if (n - pos < 2) corrupt(w + ": Compressed file ended before the end-of-stream marker was reached");
+      const int64_t extra = d[pos] | (d[pos + 1] << 8);
+      pos += 2;
+      if (n - pos < extra) corrupt(w + ": Compressed file ended before the end-of-stream marker was reached");
+      pos += extra;
+    }
+    for (int field = 8; field <= 16; field += 8) {  // FNAME, FCOMMENT
+      if (flag & field)
+        while (pos < n && d[pos++] != 0) {
+        }
+    }
+    if (flag & 2) {  // FHCRC
+      if (n - pos < 2) corrupt(w + ": Compressed file ended before the end-of-stream marker was reached");
+      pos += 2;
+    }
+    std::vector<uint8_t> member;
+    const int64_t end = Inflater(d + pos, n - pos, what).run_raw(member);
+    pos += end;
+    if (n - pos < 8) corrupt(w + ": Compressed file ended before the end-of-stream marker was reached");
+    const uint32_t crc = d[pos] | (d[pos + 1] << 8) | (d[pos + 2] << 16) | (uint32_t(d[pos + 3]) << 24);
+    const uint32_t size = d[pos + 4] | (d[pos + 5] << 8) | (d[pos + 6] << 16) | (uint32_t(d[pos + 7]) << 24);
+    if (crc != crc32(member.data(), member.size())) corrupt(w + ": CRC check failed");
+    if (size != static_cast<uint32_t>(member.size())) corrupt(w + ": Incorrect length of data produced");
+    out.insert(out.end(), member.begin(), member.end());
+    pos += 8;
+    while (pos < n && d[pos] == 0) pos++;
+  }
+}
+
+}  // namespace mrt
 
 extern "C" {
 

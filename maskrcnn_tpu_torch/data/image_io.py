@@ -11,7 +11,9 @@ TIFF, with TIFF's ZSTD, LZMA and CCITT codecs in `csrc/tiff_zstd.cpp`,
 `tiff_xz.cpp` and `tiff_fax.cpp`; `csrc/image_plugins.cpp` for Netpbm,
 TGA, QOI, PCX, DCX, SGI and Sun raster and ICNS's packed icons;
 `csrc/jpeg2000_decode.cpp` for JPEG 2000; `csrc/bcn_decode.cpp` for
-the pixels of DDS, BLP and PSD; `csrc/webp_decode.cpp` for WebP;
+the pixels of DDS, BLP and PSD; `csrc/image_legacy.cpp` for IM, SPIDER,
+FITS, MCIDAS, IMT, XVThumb, PIXAR, GBR, FTEX, XBM, XPM, MSP, FLI and
+PCD; `csrc/webp_decode.cpp` for WebP;
 built with g++ on first use and called through ctypes outside the GIL,
 one call a decode after its size call: data/native_image.py). The format
 is told as Pillow's `Image.open` tells it (`format_of`,
@@ -190,18 +192,46 @@ that pass a file on to the next plugin or end `Image.open`). It reads:
   modes of its MODES table ("1", L, P under its 768-byte palette or
   black, RGB, RGBA, CMYK from "C;I" planes, LAB through LittleCMS's
   table, duotone and multichannel as L).
+* The last plugins, each header as its `_open` reads it (data/
+  image_probe.plugin_layout) and its pixels as its decoder reads them
+  (Pillow's raw decoder and unpackers of every raw mode they name, then
+  Convert.c's convert("RGB"): palettes black past their entries, CMYK
+  through cmyk2rgb, YCbCr through ConvertYCbCr.c's tables, I and 16-bit
+  modes clipped, F truncated through L): IM (every image type of
+  ImImagePlugin.OPEN, rows bottom-up, RGB3 and RYB3 planes, "L*n"
+  floats through BitDecode.c, a colour Lut making L and P images P and
+  LA and PA ones PA); SPIDER (either byte order, a stack's first image);
+  FITS (BITPIX 8, 16, 32, -32, -64 in Pillow's raw modes L, I;16, I, F,
+  rows bottom-up; GZIP_1 tiles through Python's gzip.decompress over the
+  decoder's own inflate); MCIDAS (L, I;16B, I;32B at the header's
+  stride; from a path, the rows Pillow memory-maps); IMT (L), XVThumb (P
+  under its 3-3-2 palette), PIXAR (RGB at 1024), GBR (versions 1 and 2,
+  L or RGBA), FTEX (raw RGB, or BC1 through the DDS route); XBM
+  (XbmDecode.c); XPM (its colour table of #rrggbb and None, keys of any
+  length, P or, past 256 colours, RGB, as XpmDecoder reads its lines);
+  MSP (version 1 raw, version 2 MspDecoder's runs and row map); FLI and
+  FLC (the first frame through FliDecode.c: COLOR 4 and 11 for the
+  palette, BLACK, BRUN, COPY, LC, SS2); PCD (the 768x512 base image
+  through PcdDecode.c and PhotoYCC, turned by its orientation byte);
+  IPTC (its image data behind a P5 header where raw, else a file of its
+  own read by this reader, a band merged with black ones into RGB or
+  CMYK as IptcImageFile.load merges it).
 
 The contract: a file Pillow decodes decodes to Pillow's pixels, or
 raises NotImplementedError naming the format or mode the port does not
 read; a file Pillow fails on raises ValueError. Refused by name: JPEG
 2000's HTJ2K code-blocks (code-block style 0x40), RLE pixels under a
 2-colour grayscale BMP palette, old-style JPEG in tiles or separate
-planes and of a lossless frame; a file of a format Pillow reads that the
-port does not (AVIF, IM, SPIDER, XBM, XPM, MSP, FLI, FTEX, GBR, PCD,
-PIXAR, XVTHUMB, IMT, IPTC, MCIDAS, FITS, EPS, WMF and the stubs). An
+planes and of a lossless frame, an IPTC band held as TIFF; a file of a
+format Pillow reads that the port does not: AVIF (no AV1 decoder) and
+EPS (Pillow reads it through Ghostscript; the refusal names it). An
 AVIF is named only where libavif 1.3's parse, which Image.open runs,
 takes it (data/image_probe.py models it: the boxes, items, properties
-and their checks); one it fails is a ValueError (or no plugin's).
+and their checks, and the search for the AV1 sequence header of an item
+without an nclx colour); one it fails is a ValueError (or no plugin's).
+BUFR, GRIB and HDF5 (Pillow's stubs), MPEG and WMF (no handler off
+Windows) open in Pillow and fail at load: a ValueError naming the
+format and Pillow's error.
 A ValueError where Pillow fails: a file no plugin of `Image.open` takes
 (Pillow's UnidentifiedImageError: JPEG frames of other than 8 bits or
 of 2 or 5 layers, which SOF passes on), a header that ends `Image.open`
@@ -215,7 +245,8 @@ tests/test_torch_image_probe.py holds the probe to Pillow's Image.open,
 tests/test_torch_image_outcomes.py the contract on every refused file of
 the corpus, tests/test_torch_image_tiff.py, test_torch_image_tiff_rgba.py,
 test_torch_image_plugins.py, test_torch_image_jpeg2000.py,
-test_torch_image_dds.py and test_torch_image_blp_psd.py the decoders to
+test_torch_image_dds.py, test_torch_image_blp_psd.py and
+test_torch_image_legacy.py the decoders to
 Pillow's decode on the CPU, and chip_smoke.py's phase 9 to
 the corpus's Pillow digests on the card's host.
 
@@ -261,11 +292,13 @@ def _read_bytes(source: Source) -> bytes:
 # the formats read, by Pillow's name: their native decoders
 # (native_image.decode_<name>)
 READ = ("BMP", "DIB", "GIF", "JPEG", "PPM", "PNG", "BLP", "CUR", "PCX",
-        "DCX", "DDS", "ICNS", "ICO", "JPEG2000", "PSD", "TIFF", "QOI", "SGI",
-        "SUN", "TGA", "WEBP")
+        "DCX", "DDS", "FITS", "FLI", "FTEX", "GBR", "ICNS", "ICO", "IM",
+        "IMT", "IPTC", "JPEG2000", "MCIDAS", "MSP", "PCD", "PIXAR", "PSD",
+        "TIFF", "QOI", "SGI", "SPIDER", "SUN", "TGA", "WEBP", "XBM", "XPM",
+        "XVThumb")
 # the formats whose decoders take the path flag (Pillow reads a file it
 # opens from a path otherwise than one it opens from bytes)
-PATH_READS = ("TIFF", "PCX", "DCX")
+PATH_READS = ("TIFF", "PCX", "DCX", "MCIDAS")
 
 
 def read_image(source: Source, plain: bool = False) -> np.ndarray:
@@ -285,6 +318,13 @@ def read_image(source: Source, plain: bool = False) -> np.ndarray:
     if name is None:
         raise ValueError("cannot identify the image file: no plugin of "
                          "Pillow's Image.open takes it")
+    if name in native_image.LOAD_ERRORS:
+        raise ValueError(f"{name}: Pillow opens the file and fails to load "
+                         f"it: {native_image.LOAD_ERRORS[name]}")
+    if name == "EPS":
+        raise NotImplementedError(
+            "EPS: Pillow reads EPS only through Ghostscript (its gs "
+            "program), and the port carries no PostScript interpreter")
     if name not in READ:
         raise NotImplementedError(
             f"{name}: a format Pillow's Image.open reads (its {name} "
@@ -296,6 +336,8 @@ def read_image(source: Source, plain: bool = False) -> np.ndarray:
             return decode_jpeg(data)
         raise NotImplementedError(f"{name}: the plain route reads PNG and "
                                   "JPEG only")
+    if name == "IPTC":
+        return native_image.decode_iptc(data, read_image)
     decode = getattr(native_image, f"decode_{name.lower()}")
     return decode(data, path=path) if name in PATH_READS else decode(data)
 

@@ -34,9 +34,12 @@ or pass the file on to plugins that cannot load it either; there the
 probe returns "ICO" and the ICO decoder raises the ValueError. AVIF's
 `_open` runs libavif 1.3's avifDecoderParse, which the model follows
 (`_avif_parse`: the top-level boxes, the meta box's children and their
-checks, the items' properties, the primary and alpha items, the first
-64 bytes of an item without CICP); what it leaves out needs the AV1
-sequence header or decoder. PSD's `_open` looks (mode, bits) up in
+checks, the items' properties, the primary and alpha items, and for an
+item without CICP the search for its AV1 sequence header, whose OBUs
+`av1_sequence_header` parses); what it leaves out needs the AV1
+decoder. The plugins whose files the port decodes past their header
+leave what their decoder reads in `_File.layout` (`plugin_layout`).
+PSD's `_open` looks (mode, bits) up in
 PsdImagePlugin.MODES, whose pairs alone open. tests/test_torch_image_probe.py
 holds the model to live Pillow on thousands of seeded prefixes, and
 tests/test_torch_image_blp_psd.py on edited AVIF and PSD files.
@@ -60,6 +63,9 @@ ORDER = ("BMP", "DIB", "GIF", "JPEG", "PPM", "PNG", "AVIF", "BLP", "BUFR",
          "GRIB", "HDF5", "JPEG2000", "ICNS", "ICO", "IM", "IMT", "IPTC",
          "MCIDAS", "MPEG", "TIFF", "MSP", "PCD", "PIXAR", "PSD", "QOI", "SGI",
          "SPIDER", "SUN", "TGA", "WEBP", "WMF", "XBM", "XPM", "XVTHUMB")
+# the format an Image.ID entry's plugin gives (Image.register_open keys
+# the plugins by their format upper-cased)
+FORMATS = {"XVTHUMB": "XVThumb"}
 # what _open_core passes on: ImageFile turns IndexError, TypeError,
 # KeyError, EOFError and struct.error from an _open into SyntaxError
 _PASS = (SyntaxError, IndexError, TypeError, KeyError, EOFError,
@@ -291,7 +297,8 @@ def _open_png(fp):
             return "?", (1, 1)
         if cid == b"IHDR":
             size = (_be32(body), _be32(body, 4))
-            mode = "?" if (body[8], body[9]) in _PNG_MODES else ""
+            mode = ("" if (body[8], body[9]) not in _PNG_MODES else
+                    "L" if body[9] == 0 and body[8] in (2, 4, 8) else "?")
             if body[11]:
                 raise SyntaxError("unknown filter category")
         crc = fp.read(4)
@@ -528,6 +535,7 @@ def _open_im(fp):
     fp.seek(0)
     n = 0
     info = {"Image type": "L", "Image size (x*y)": (512, 512)}
+    rawmode = "L"
     tags = {"Comment", "Date", "Digitalization equipment", "File size (no of "
             "images)", "Lut", "Name", "Scale (x,y)", "Image size (x*y)",
             "Image type"}
@@ -555,7 +563,7 @@ def _open_im(fp):
             if len(v) == 1:
                 v = v[0]
         elif k == "Image type" and v in _IM_OPEN:
-            v = _IM_OPEN[v]
+            v, rawmode = _IM_OPEN[v]
         info[k] = v
         if k in tags:
             n += 1
@@ -566,11 +574,23 @@ def _open_im(fp):
         s = fp.read(1)
     if not s:
         raise SyntaxError("File truncated")
+    palette = None
     if "Lut" in info:
         palette = fp.read(768)
+        grey = True
         for i in range(256):
-            palette[i] == palette[i + 256] == palette[i + 512]
-    return mode, size
+            # (a short Lut raises IndexError here, as in Pillow)
+            if not palette[i] == palette[i + 256] == palette[i + 512]:
+                grey = False
+        if not grey and mode in ("L", "LA", "P", "PA"):
+            # a colour Lut makes L and P palette images, LA and PA ones PA
+            mode, rawmode = (("P", "P") if mode in ("L", "P")
+                             else ("PA", "PA;L"))
+        else:
+            palette = None
+    fp.layout = {"mode": mode, "rawmode": rawmode, "offset": fp.tell(),
+                 "palette": palette}
+    return info["Image type"], size
 
 
 def _im_number(s):
@@ -581,21 +601,25 @@ def _im_number(s):
 
 
 def _im_open_table():
-    table = {"0 1 image": "1", "L 1 image": "1", "Greyscale image": "L",
-             "Grayscale image": "L", "RGB image": "RGB", "RLB image": "RGB",
-             "RYB image": "RGB", "B1 image": "1", "B2 image": "P",
-             "B4 image": "P", "X 24 image": "RGB", "L 32 S image": "I",
-             "L 32 F image": "F", "RGB3 image": "RGB", "RYB3 image": "RGB",
-             "LA image": "LA", "PA image": "LA", "RGBA image": "RGBA",
-             "RGBX image": "RGB", "CMYK image": "CMYK",
-             "YCC image": "YCbCr"}
+    """ImImagePlugin.OPEN: (mode, raw mode) of each image type."""
+    table = {"0 1 image": ("1", "1"), "L 1 image": ("1", "1"),
+             "Greyscale image": ("L", "L"), "Grayscale image": ("L", "L"),
+             "RGB image": ("RGB", "RGB;L"), "RLB image": ("RGB", "RLB"),
+             "RYB image": ("RGB", "RLB"), "B1 image": ("1", "1"),
+             "B2 image": ("P", "P;2"), "B4 image": ("P", "P;4"),
+             "X 24 image": ("RGB", "RGB"), "L 32 S image": ("I", "I;32"),
+             "L 32 F image": ("F", "F;32"), "RGB3 image": ("RGB", "RGB;T"),
+             "RYB3 image": ("RGB", "RYB;T"), "LA image": ("LA", "LA;L"),
+             "PA image": ("LA", "PA;L"), "RGBA image": ("RGBA", "RGBA;L"),
+             "RGBX image": ("RGB", "RGBX;L"), "CMYK image": ("CMYK", "CMYK;L"),
+             "YCC image": ("YCbCr", "YCbCr;L")}
     for i in ("8", "8S", "16", "16S", "32", "32F"):
-        table[f"L {i} image"] = table[f"L*{i} image"] = "F"
+        table[f"L {i} image"] = table[f"L*{i} image"] = ("F", f"F;{i}")
     for i in ("16", "16L", "16B"):
-        table[f"L {i} image"] = table[f"L*{i} image"] = f"I;{i}"
-    table["L 32S image"] = table["L*32S image"] = "I"
+        table[f"L {i} image"] = table[f"L*{i} image"] = (f"I;{i}", f"I;{i}")
+    table["L 32S image"] = table["L*32S image"] = ("I", "I;32S")
     for j in range(2, 33):
-        table[f"L*{j} image"] = "F"
+        table[f"L*{j} image"] = ("F", f"F;{j}")
     return table
 
 
@@ -613,7 +637,10 @@ def _open_imt(fp):
             s, buffer = buffer[:1], buffer[1:]
         else:
             s = fp.read(1)
-        if not s or s == b"\x0c":
+        if not s:
+            break
+        if s == b"\x0c":
+            fp.layout = {"offset": fp.tell() - len(buffer)}
             break
         if b"\n" not in buffer:
             buffer += fp.read(100)
@@ -643,25 +670,31 @@ def _iptc_int(c) -> int:
     return _be32((b"\0\0\0\0" + c)[-4:])
 
 
+def iptc_field(fp):
+    """IptcImageFile.field: the next field's (tag, size), (None, 0) at
+    zeros or the file's end; raises as Pillow's does (IndexError or
+    struct.error on a header cut short)."""
+    s = fp.read(5)
+    if not s.strip(b"\x00"):
+        return None, 0
+    tag = s[1], s[2]
+    if s[0] != 0x1C or tag[0] not in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240):
+        raise SyntaxError("invalid IPTC/NAA file")
+    size = s[3]
+    if size > 132:
+        raise ValueError("IPTC: illegal field length")
+    if size == 128:
+        return tag, 0
+    if size > 128:
+        return tag, _iptc_int(fp.read(size - 128))
+    return tag, _be16(s, 3)
+
+
 def _open_iptc(fp):
     info = {}
     while True:
-        s = fp.read(5)
-        if not s.strip(b"\x00"):
-            tag = None
-        else:
-            tag = s[1], s[2]
-            if s[0] != 0x1C or tag[0] not in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240):
-                raise SyntaxError("invalid IPTC/NAA file")
-            size = s[3]
-            if size > 132:
-                raise ValueError("IPTC: illegal field length")
-            if size == 128:
-                size = 0
-            elif size > 128:
-                size = _iptc_int(fp.read(size - 128))
-            else:
-                size = _be16(s, 3)
+        offset = fp.tell()
+        tag, size = iptc_field(fp)
         if not tag or tag == (8, 10):
             break
         data = fp.read(size) if size else None
@@ -673,7 +706,7 @@ def _open_iptc(fp):
         else:
             info[tag] = data
     layers, component = info[(3, 60)][0], info[(3, 60)][1]
-    mode = ""
+    mode, band = "", None
     if layers == 1 and not component:
         mode = "L"
     else:
@@ -681,14 +714,15 @@ def _open_iptc(fp):
             mode = "RGB"
         elif layers == 4 and component:
             mode = "CMYK"
-        if (3, 65) in info:
-            info[(3, 65)][0] - 1
+        band = info[(3, 65)][0] - 1 if (3, 65) in info else 0
     size = _iptc_int(info[(3, 20)]), _iptc_int(info[(3, 30)])
     try:
         if _iptc_int(info[(3, 120)]) not in (1, 5):
             raise KeyError
     except KeyError:
         raise ValueError("IPTC: unknown IPTC image compression") from None
+    fp.layout = {"offset": offset if tag == (8, 10) else None, "band": band,
+                 "raw": _iptc_int(info[(3, 120)]) == 1}
     return mode, size
 
 
@@ -698,6 +732,7 @@ def _open_pcd(fp):
     if not s.startswith(b"PCD_"):
         raise SyntaxError("not a PCD file")
     orientation = s[1538] & 3
+    fp.layout = {"orientation": orientation}
     return "RGB", (512, 768) if orientation in (1, 3) else (768, 512)
 
 
@@ -721,10 +756,12 @@ def _spider_header(t) -> int:
 
 def _open_spider(fp):
     f = fp.read(27 * 4)
+    big = True
     try:
         t = struct.unpack(">27f", f)
         hdrlen = _spider_header(t)
         if hdrlen == 0:
+            big = False
             t = struct.unpack("<27f", f)
             hdrlen = _spider_header(t)
         if hdrlen == 0:
@@ -736,15 +773,18 @@ def _open_spider(fp):
         raise SyntaxError("not a Spider 2D image")
     size = int(h[12]), int(h[2])
     istack, imgnumber = int(h[24]), int(h[27])
+    offset = hdrlen
     if istack == 0 and imgnumber == 0:
         pass
     elif istack > 0 and imgnumber == 0:
         int(h[26])
+        offset = 2 * hdrlen
     elif istack == 0 and imgnumber > 0:
         # SpiderImageFile reads self.stkoffset, which only seek() sets
         raise ValueError("SPIDER: an image within a stack, opened alone")
     else:
         raise SyntaxError("inconsistent stack header values")
+    fp.layout = {"offset": offset, "rawmode": "F;32BF" if big else "F;32F"}
     return "F", size
 
 
@@ -929,23 +969,28 @@ def _open_fits(fp):
         headers[keyword] = value
     if not found:
         raise ValueError("FITS: no image data")
-    return found
+    mode, size, gzip, offset, bits = found
+    fp.layout = {"gzip": gzip, "offset": offset + fp.tell() - 80,
+                 "bitpix": bits}
+    return mode, size
 
 
 def _fits_size(headers):
-    prefix = b""
+    """FitsImageFile._parse_headers: (mode, size, whether the data is
+    GZIP_1 tiles, the data's offset past the header, BITPIX), or None."""
+    prefix, offset = b"", 0
     if (headers.get(b"XTENSION") == b"'BINTABLE'"
             and headers.get(b"ZIMAGE") == b"T"
             and headers[b"ZCMPTYPE"] == b"'GZIP_1  '"):
-        _fits_axes(headers, b"")
-        int(headers[b"BITPIX"])
+        table = _fits_axes(headers, b"") or (0, 0)
+        offset = table[0] * table[1] * (int(headers[b"BITPIX"]) // 8)
         prefix = b"Z"
     size = _fits_axes(headers, prefix)
     if not size:
         return None
     bits = int(headers[prefix + b"BITPIX"])
     mode = {8: "L", 16: "I;16", 32: "I", -32: "F", -64: "F"}.get(bits, "")
-    return mode, size
+    return mode, size, prefix == b"Z", offset, bits
 
 
 def _fits_axes(headers, prefix):
@@ -958,11 +1003,12 @@ def _fits_axes(headers, prefix):
 
 
 def _open_fli(fp):
-    s = fp.read(128)
+    s = s0 = fp.read(128)
     if not (_fli_accept(s) and s[20:22] == b"\0\0" and s[42:80] == bytes(38)
             and s[88:] == bytes(40)):
         raise SyntaxError("not an FLI/FLC file")
     size = _le16(s, 8), _le16(s, 10)
+    palette = [(a, a, a) for a in range(256)]
     s = fp.read(16)
     if _le16(s, 4) == 0xF100:
         fp.seek(128 + _le32(s))
@@ -975,6 +1021,7 @@ def _open_fli(fp):
             s = fp.read(6)
             chunk_type = _le16(s, 4)
             if chunk_type in (4, 11):
+                shift = 2 if chunk_type == 11 else 0
                 i = 0
                 for _ in range(_le16(fp.read(2))):
                     s = fp.read(2)
@@ -982,19 +1029,27 @@ def _open_fli(fp):
                     n = s[1] or 256
                     s = fp.read(n * 3)
                     for k in range(0, len(s), 3):
-                        s[k + 2]
+                        rgb = tuple((s[k + j] << shift) & 255
+                                    for j in range(3))
                         if i > 255:
                             raise IndexError("palette index")
+                        palette[i] = rgb
                         i += 1
                 break
             chunk_size = _le32(s)
             if not chunk_size:
                 break
-    # seek(0): the first frame's chunk header
+    # seek(0): _seek_check refuses a frame past n_frames, then the first
+    # frame's chunk header
+    if _le16(s0, 6) == 0:
+        raise EOFError("attempt to seek outside sequence")
+    fp.seek(128)
     s = fp.read(4)
     if not s:
         raise EOFError("missing frame data")
     _le32(s)
+    fp.layout = {"offset": 128, "palette": bytes(v for rgb in palette
+                                                 for v in rgb)}
     return "P", size
 
 
@@ -1008,7 +1063,7 @@ def _open_ftex(fp):
     fmt, where = struct.unpack("<2i", fp.read(8))
     fp.seek(where)
     (mipmap,) = struct.unpack("<i", fp.read(4))
-    fp.read(mipmap)
+    fp.layout = {"format": fmt, "data": fp.read(mipmap)}
     if fmt not in (0, 1):
         raise ValueError("FTEX: invalid texture compression format")
     return "RGB", size
@@ -1030,8 +1085,10 @@ def _open_gbr(fp):
         if fp.read(4) != b"GIMP":
             raise SyntaxError("not a GIMP brush, bad magic number")
         _be32(fp.read(4))
+    fp.read(header_size - (20 if version == 1 else 28))     # the comment
     _bomb_check((width, height))
-    return "L", (width, height)
+    fp.layout = {"offset": fp.tell()}
+    return "L" if depth == 1 else "RGBA", (width, height)
 
 
 def _open_jpeg2000(fp):
@@ -1373,6 +1430,7 @@ def _open_xbm(fp):
     m = _XBM_HEAD.match(fp.read(512))
     if not m:
         raise SyntaxError("not a XBM file")
+    fp.layout = {"offset": m.end()}
     return "1", (int(m.group("width")), int(m.group("height")))
 
 
@@ -1387,8 +1445,10 @@ def _open_xpm(fp):
             break
     size = int(m.group(1)), int(m.group(2))
     palette_length, bpp = int(m.group(3)), int(m.group(4))
+    palette = {}
     for _ in range(palette_length):
         line = fp.readline().rstrip()
+        c = line[1:bpp + 1]
         s = line[bpp + 1:-2].split()
         for i in range(0, len(s), 2):
             if s[i] == b"c":
@@ -1396,13 +1456,16 @@ def _open_xpm(fp):
                 if rgb == b"None":
                     pass
                 elif rgb.startswith(b"#"):
-                    int(rgb[1:], 16)
+                    v = int(rgb[1:], 16)
+                    palette[c] = bytes(((v >> 16) & 255, (v >> 8) & 255,
+                                        v & 255))
                 else:
                     raise ValueError("XPM: cannot read this XPM file")
                 break
         else:
             raise ValueError("XPM: cannot read this XPM file")
-    return "P", size
+    fp.layout = {"offset": fp.tell(), "bpp": bpp, "palette": palette}
+    return "RGB" if palette_length > 256 else "P", size
 
 
 def _open_xvthumb(fp):
@@ -1415,6 +1478,7 @@ def _open_xvthumb(fp):
         if s[0] != 35:
             break
     w, h = s.strip().split(maxsplit=2)[:2]
+    fp.layout = {"offset": fp.tell()}
     return "P", (int(w), int(h))
 
 
@@ -1425,7 +1489,11 @@ def _open_mcidas(fp):
     w = (0, *struct.unpack("!64i", s))
     if w[11] not in (1, 2, 4):
         raise SyntaxError("unsupported McIdas format")
-    return "L", (w[10], w[9])
+    mode, rawmode = {1: ("L", "L"), 2: ("I;16B", "I;16B"),
+                     4: ("I", "I;32B")}[w[11]]
+    fp.layout = {"mode": mode, "rawmode": rawmode, "offset": w[34] + w[15],
+                 "stride": w[15] + w[10] * w[11] * w[14]}
+    return mode, (w[10], w[9])
 
 
 def _open_mpeg(fp):
@@ -1810,9 +1878,173 @@ def _avif_parse(d: bytes) -> None:
         if sum(p[key] for p in colr) > 1:
             raise _AvifFail("BMFF parsing failed")
     if not any(p["nclx"] for p in colr):
-        # no CICP: the AV1 sequence header is looked for from the first
-        # 64 bytes of the item on (avifDecoderItemRead)
-        _avif_read(d, item, info, min(size, 64))
+        _avif_harvest_cicp(d, item, info, size)
+
+
+def _avif_harvest_cicp(d: bytes, item, info, size: int) -> None:
+    """avifDecoderReset with no nclx colr: the item's first 64, 128, ...
+    bytes read (avifDecoderPrepareSample, _avif_read) until its AV1
+    sequence header parses, the read reaches the item's end or 4,096
+    bytes. An item in an idat is read whole at the first step and its
+    sample keeps the first step's bytes, so every step parses those; a
+    header that never parses leaves the image's CICP unset, which is no
+    failure."""
+    search = 0
+    while True:
+        search = min(search + 64, size)
+        if not item["idat"] or search <= 64:
+            sample = _avif_read(d, item, info, search)
+        if av1_sequence_header(sample):
+            return
+        if search == size or search >= 4096:
+            return
+
+
+class _Bits:
+    """libavif's avifBits: MSB-first bits; a read past the end gives 0 and
+    sets `error`."""
+
+    def __init__(self, data: bytes):
+        self.d, self.pos, self.error = data, 0, False
+
+    def read(self, n: int) -> int:
+        v = 0
+        for _ in range(n):
+            byte = self.pos >> 3
+            if byte >= len(self.d):
+                self.error = True
+                return 0
+            v = (v << 1) | ((self.d[byte] >> (7 - (self.pos & 7))) & 1)
+            self.pos += 1
+        return v
+
+    def uleb128(self) -> int:
+        val, i = 0, 0
+        while True:
+            v = self.read(8)
+            more = v & 0x80
+            val |= (v & 0x7F) << i
+            i += 7
+            if not (more and i < 56):
+                break
+        if val > 0xFFFFFFFF or more:
+            self.error = True
+            return 0
+        return val
+
+    def uvlc(self) -> int:
+        n = 0
+        while not self.read(1):
+            n += 1
+            if n == 32:
+                return 0xFFFFFFFF
+        return ((1 << n) - 1) + self.read(n) if n else 0
+
+
+def av1_sequence_header(data: bytes) -> bool:
+    """libavif 1.3's avifSequenceHeaderParse (obu.c): the OBUs of `data`
+    walked to the first sequence header OBU (AV1 spec 5.3, 5.5), which
+    must parse whole within its size; False where none does."""
+    pos = 0
+    while pos < len(data):
+        b = _Bits(data[pos:])
+        if b.read(1):                                   # forbidden bit
+            return False
+        obu_type, extension, has_size = b.read(4), b.read(1), b.read(1)
+        b.read(1)
+        if extension:
+            b.read(8)
+        size = b.uleb128() if has_size else len(data) - pos - 1 - extension
+        if b.error:
+            return False
+        start = b.pos // 8
+        if size > len(data) - pos - start or size < 0:
+            return False
+        if obu_type == 1:
+            return _av1_sequence_header_obu(
+                _Bits(data[pos + start:pos + start + size]))
+        pos += size + start
+    return False
+
+
+def _av1_sequence_header_obu(b: _Bits) -> bool:
+    """parseSequenceHeader: sequence_header_obu() to its
+    film_grain_params_present flag, no read past its end."""
+    profile = b.read(3)
+    if profile > 2:
+        return False
+    still = b.read(1)
+    reduced = b.read(1)
+    if reduced and not still:
+        return False
+    if reduced:
+        b.read(5)
+    else:
+        decoder_model = delay_bits = 0
+        if b.read(1):                                   # timing_info
+            b.read(32)
+            b.read(32)
+            if b.read(1) and b.uvlc() == 0xFFFFFFFF:
+                return False
+            decoder_model = b.read(1)
+            if decoder_model:
+                delay_bits = b.read(5) + 1
+                b.read(32)
+                b.read(5)
+                b.read(5)
+        initial_delay = b.read(1)
+        for _ in range(b.read(5) + 1):
+            b.read(12)
+            if b.read(5) > 7:
+                b.read(1)
+            if decoder_model and b.read(1):
+                b.read(delay_bits)
+                b.read(delay_bits)
+                b.read(1)
+            if initial_delay and b.read(1):
+                b.read(4)
+    wbits, hbits = b.read(4) + 1, b.read(4) + 1
+    b.read(wbits)
+    b.read(hbits)
+    if not reduced and b.read(1):                       # frame ids
+        b.read(4)
+        b.read(3)
+    b.read(3)
+    if not reduced:
+        b.read(4)
+        order_hint = b.read(1)
+        if order_hint:
+            b.read(2)
+        force = 2 if b.read(1) else b.read(1)
+        if force > 0 and not b.read(1):
+            b.read(1)
+        if order_hint:
+            b.read(3)
+    b.read(3)
+    # color_config()
+    high = b.read(1)
+    depth = (12 if b.read(1) else 10) if profile == 2 and high else (
+        10 if high else 8)
+    mono = b.read(1) if profile != 1 else 0
+    cp = tc = mc = 2
+    if b.read(1):
+        cp, tc, mc = b.read(8), b.read(8), b.read(8)
+    if mono:
+        b.read(1)
+    elif not (cp == 1 and tc == 13 and mc == 0):
+        b.read(1)
+        ssx, ssy = {0: (1, 1), 1: (0, 0)}.get(profile, (1, 0))
+        if profile == 2 and depth == 12:
+            ssx = b.read(1)
+            ssy = b.read(1) if ssx else 0
+        if ssx and ssy:
+            b.read(2)
+    if b.error:
+        return False
+    if not mono:
+        b.read(1)
+    b.read(1)                                           # film grain
+    return not b.error
 
 
 def _avif_validate(item) -> None:
@@ -1827,27 +2059,32 @@ def _avif_validate(item) -> None:
             raise _AvifFail("BMFF parsing failed")
 
 
-def _avif_read(d: bytes, item, info, count: int) -> None:
+def _avif_read(d: bytes, item, info, count: int) -> bytes:
     """avifDecoderItemRead of the item's first `count` bytes: its extents
-    in the file or its meta box's idat."""
+    in the file or its meta box's idat (read whole); returns the first
+    `count` bytes."""
     if not item["extents"]:
         raise _AvifFail("Truncated data")
     if item["idat"] and not info["idat"]:
         raise _AvifFail("No content")
-    left = count
+    left = count if not item["idat"] else sum(n for _, n in item["extents"])
+    out = b""
     for offset, length in item["extents"]:
         n = min(length, left)
         if item["idat"]:
             if offset > len(info["idat"]) or length > len(info["idat"]) - offset:
                 raise _AvifFail("BMFF parsing failed")
+            out += info["idat"][offset:offset + n]
         else:
             if offset > len(d):
                 raise _AvifFail("BMFF parsing failed")
             if len(d) - offset < n:
                 raise _AvifFail("Truncated data")
+            out += d[offset:offset + n]
         left -= n
         if not left:
             break
+    return out[:count]
 
 
 def _open_avif(fp):
@@ -1871,6 +2108,7 @@ def _open_msp(fp):
         checksum ^= _le16(s, i)
     if checksum != 0:
         raise SyntaxError("bad MSP checksum")
+    fp.layout = {"version": 1 if s.startswith(b"DanM") else 2}
     return "1", (_le16(s, 4), _le16(s, 6))
 
 
@@ -1988,6 +2226,9 @@ class _File(io.BytesIO):
     def __init__(self, data: bytes, path: bool):
         super().__init__(data)
         self.path = path
+        # what the _open of a format the port reads past its header
+        # leaves for the decoder (plugin_layout)
+        self.layout = None
 
 
 def identify(data: bytes, path: bool = False) -> Optional[str]:
@@ -2015,5 +2256,15 @@ def identify(data: bytes, path: bool = False) -> Optional[str]:
         except (_Bomb, Exception) as e:
             raise ValueError(f"{name}: Pillow's Image.open raises here: "
                              f"{e}") from None
-        return name
+        return FORMATS.get(name, name)
     return None
+
+
+def plugin_layout(data: bytes, name: str):
+    """(mode, size, layout) of a file told as `name` (identify), as that
+    plugin's _open leaves them: `layout` the tile's offset and the
+    fields its decoder reads (an IM's raw mode and palette, an XPM's
+    colour table, a FITS file's BITPIX, ...)."""
+    fp = _File(data, False)
+    mode, size = OPEN[name.upper()](fp)
+    return mode, size, fp.layout

@@ -6,7 +6,11 @@ arithmetic and lossless scans in `csrc/jpeg_arith.cpp` and
 `csrc/tiff_zstd.cpp`, `tiff_xz.cpp` and `tiff_fax.cpp`, Netpbm, TGA, QOI, PCX, DCX, SGI and Sun raster in
 `csrc/image_plugins.cpp`, JPEG 2000 in `csrc/jpeg2000_decode.cpp`, the
 pixels of DDS, BLP and PSD in `csrc/bcn_decode.cpp` (their headers read
-here, as `decode_icns` reads ICNS's), and their shared `image_codec.h` and
+here, as `decode_icns` reads ICNS's), those of IM, SPIDER, FITS,
+MCIDAS, IMT, XVThumb, PIXAR, GBR, FTEX, XBM, XPM, MSP, FLI and PCD in
+`csrc/image_legacy.cpp` (their headers read by data/image_probe.py's
+model of each plugin's _open, `plugin_layout`; IPTC's image through the
+PPM and JPEG routes), and their shared `image_codec.h` and
 `bcn_tables.h`, all compiled into one library;
 `csrc/webp_decode.cpp`: WebP; host C++17).
 
@@ -58,7 +62,7 @@ SOURCES = (SOURCE, CSRC / "jpeg_arith.cpp", CSRC / "jpeg_lossless.cpp",
            CSRC / "tiff_zstd.cpp", CSRC / "tiff_xz.cpp",
            CSRC / "tiff_fax.cpp", CSRC / "image_plugins.cpp",
            CSRC / "jpeg2000_decode.cpp", CSRC / "bcn_decode.cpp",
-           *sorted(CSRC.glob("*.h")))
+           CSRC / "image_legacy.cpp", *sorted(CSRC.glob("*.h")))
 WEBP_SOURCE = CSRC / "webp_decode.cpp"
 # -fwrapv: the IDCTs' int32 arithmetic wraps as libjpeg-turbo's does on
 # the corrupt coefficients a valid file never holds; -ffp-contract=off:
@@ -172,6 +176,20 @@ def library() -> ctypes.CDLL:
         lib.mrt_jpeg_decode_cmyk.argtypes = _DECODE_ARGS
         for name in ("bcn", "dds_masks", "blp_dxt", "psd_planes",
                      "jpeg_decode_cmyk"):
+            getattr(lib, f"mrt_{name}").restype = ctypes.c_int
+        # the last plugins' pixels (csrc/image_legacy.cpp)
+        lib.mrt_raw_tiles.argtypes = [_U8P, i64, ctypes.c_void_p, i32, i32,
+                                      _U8P, _OUT, i32, i32, ctypes.c_char_p,
+                                      ctypes.c_char_p, i32]
+        lib.mrt_xbm.argtypes = [_U8P, i64, i64] + tail
+        lib.mrt_xpm.argtypes = [_U8P, i64, i64, i32, _U8P, ctypes.c_void_p,
+                                i32, _U8P] + tail
+        lib.mrt_msp.argtypes = [_U8P, i64] + tail
+        lib.mrt_fli.argtypes = [_U8P, i64, i64, _U8P] + tail
+        lib.mrt_pcd.argtypes = [_U8P, i64, i64] + tail
+        lib.mrt_fits_gzip.argtypes = [_U8P, i64, i64, i32, i32] + tail
+        for name in ("raw_tiles", "xbm", "xpm", "msp", "fli", "pcd",
+                     "fits_gzip"):
             getattr(lib, f"mrt_{name}").restype = ctypes.c_int
         lib.mrt_lab_clut.argtypes = [ctypes.c_void_p]
         lib.mrt_lab_clut.restype = None
@@ -672,3 +690,335 @@ def decode_webp(data: bytes) -> np.ndarray:
     """A WebP file's bytes -> the first frame on its canvas, RGB uint8
     [H, W, 3]."""
     return _decode(webp_library(), "webp", data)
+
+
+# ------------------------------------------------ the last plugins' pixels
+# Pillow's modes and raw modes as csrc/image_legacy.cpp numbers them
+LEGACY_MODES = ("1", "L", "P", "LA", "PA", "RGB", "RGBA", "CMYK", "YCbCr",
+                "I", "F", "I;16", "I;16L", "I;16B")
+RAWMODES = ("1", "1;R", "L", "P", "P;2", "P;4", "LA;L", "PA;L", "RGB",
+            "RGB;L", "RGBX;L", "RGBA", "RGBA;L", "CMYK;L", "YCbCr;L", "R",
+            "G", "B", "I", "I;32", "I;32S", "I;32B", "F", "F;8", "F;8S",
+            "F;16", "F;16S", "F;32", "F;32S", "F;32F", "F;32BF", "I;16",
+            "I;16L", "I;16B")
+# Unpack.c's raw modes for each mode, of those the plugins name (any other
+# pair is Pillow's "unknown raw mode for given image mode")
+UNPACKERS = {"1": ("1",), "L": ("L",), "P": ("P", "P;2", "P;4"),
+             "LA": ("LA;L",), "PA": ("PA;L",),
+             "RGB": ("RGB", "RGB;L", "RGBX;L", "R", "G", "B"),
+             "RGBA": ("RGBA", "RGBA;L"), "CMYK": ("CMYK;L",),
+             "YCbCr": ("YCbCr;L",), "I": ("I", "I;32", "I;32S", "I;32B"),
+             "F": ("F", "F;8", "F;8S", "F;16", "F;16S", "F;32", "F;32S",
+                   "F;32F", "F;32BF"),
+             "I;16": ("I;16",), "I;16L": ("I;16L",), "I;16B": ("I;16B",)}
+
+
+def _legacy_size(size, what: str):
+    """An _open's size as Image.core.new takes it: two ints, (w, h)."""
+    if (not isinstance(size, tuple) or len(size) != 2
+            or not all(isinstance(v, int) for v in size)):
+        raise ValueError(f"{what}: a size Pillow's Image.core.new refuses: "
+                         f"{size!r}")
+    check_size(*size)
+    return size
+
+
+def _palette_triples(palette: bytes) -> bytes:
+    """A palette of RGB triples, black past its entries: 768 bytes."""
+    return bytes(palette[:768]).ljust(768, b"\0")
+
+
+def raw_tiles(data: bytes, mode: str, size, tiles, palette: bytes = b"",
+              what: str = "raw") -> np.ndarray:
+    """Pillow's raw tiles (offset, raw mode, stride, ystep), or
+    ("bit", offset, bits) for BitDecode.c's floats, decoded into an image of
+    `mode` as ImageFile.load decodes them, then convert("RGB") (palette: P
+    and PA's RGB triples): RGB uint8 [H, W, 3]."""
+    w, h = _legacy_size(size, what)
+    if mode not in LEGACY_MODES:
+        raise ValueError(f"{what}: unrecognized image mode {mode!r}")
+    rows = []
+    for tile in tiles:
+        if tile[0] == "bit":
+            if mode != "F":
+                raise ValueError(f"{what}: decoder error (the bit decoder "
+                                 "decodes F images only)")
+            rows.append((tile[1], 0, 0, -1, tile[2]))
+            continue
+        offset, rawmode, stride, ystep = tile
+        if not -2 ** 31 <= stride < 2 ** 31:
+            # the raw decoder takes its stride as a C int
+            raise ValueError(f"{what}: a stride of {stride} overflows the "
+                             "raw decoder's int")
+        if rawmode not in UNPACKERS[mode]:
+            raise ValueError(f"{what}: unknown raw mode {rawmode!r} for "
+                             f"image mode {mode!r}")
+        rows.append((offset, RAWMODES.index(rawmode), stride, ystep, 0))
+    table = np.array(rows, np.int64).reshape(-1)
+    out = np.empty((h, w, 3), np.uint8)
+    msg = ctypes.create_string_buffer(_MSG_LEN)
+    code = library().mrt_raw_tiles(
+        data, len(data), table.ctypes.data, len(rows),
+        LEGACY_MODES.index(mode), _palette_triples(palette), out, h, w,
+        what.encode(), msg, _MSG_LEN)
+    if code:
+        _raise(code, msg)
+    return out
+
+
+def _layout(data: bytes, name: str):
+    from maskrcnn_tpu_torch.data.image_probe import plugin_layout
+    return plugin_layout(data, name)
+
+
+def decode_im(data: bytes) -> np.ndarray:
+    """An IM file's bytes -> RGB uint8 [H, W, 3], as ImImageFile reads it:
+    its raw mode's rows bottom-up from the header's end (a G, an R and a B
+    plane for RGB3 and RYB3; BitDecode.c's floats for "L*n" of other
+    than 8, 16 and 32 bits), a colour Lut making L and P images P and LA
+    and PA ones PA (its planes R, G, B)."""
+    _, size, lay = _layout(data, "IM")
+    mode, rawmode, offset = lay["mode"], lay["rawmode"], lay["offset"]
+    w, h = _legacy_size(size, "IM")
+    palette = b""
+    if lay["palette"] is not None:
+        p = lay["palette"]
+        if len(p) < 768:            # the file ends inside its Lut
+            raise ValueError("IM: image file is truncated")
+        palette = bytes(v for i in range(256) for v in (p[i], p[i + 256],
+                                                        p[i + 512]))
+    if rawmode in ("RGB;T", "RYB;T"):
+        tiles = [(offset + k * w * h, band, 0, -1)
+                 for k, band in enumerate("GRB")]
+    elif (rawmode.startswith("F;") and rawmode[2:].isdigit()
+          and int(rawmode[2:]) not in (8, 16, 32)):
+        tiles = [("bit", offset, int(rawmode[2:]))]
+    else:
+        tiles = [(offset, rawmode, 0, -1)]
+    return raw_tiles(data, mode, size, tiles, palette, "IM")
+
+
+def decode_spider(data: bytes) -> np.ndarray:
+    """A SPIDER file's bytes -> RGB uint8 [H, W, 3]: its floats (F;32BF or
+    F;32F by the header's byte order) past the header (a stack's first
+    image past two), truncated and clipped."""
+    _, size, lay = _layout(data, "SPIDER")
+    return raw_tiles(data, "F", size, [(lay["offset"], lay["rawmode"], 0,
+                                        1)], what="SPIDER")
+
+
+def decode_fits(data: bytes) -> np.ndarray:
+    """A FITS file's bytes -> RGB uint8 [H, W, 3], as FitsImageFile reads
+    it: the first HDU with an image, its rows bottom-up in the mode BITPIX
+    gives (L, I;16, I or F, read as Pillow's raw modes of those names),
+    or a GZIP_1 tiled image's heap through FitsGzipDecoder
+    (csrc/image_legacy.cpp mrt_fits_gzip, the decoder's own inflate)."""
+    mode, size, lay = _layout(data, "FITS")
+    if not lay["gzip"]:
+        return raw_tiles(data, mode, size, [(lay["offset"], mode, 0, -1)],
+                         what="FITS")
+    w, h = _legacy_size(size, "FITS")
+    out = np.empty((h, w, 3), np.uint8)
+    _call("fits_gzip", data, len(data), lay["offset"], lay["bitpix"],
+          LEGACY_MODES.index(mode), out, h, w)
+    return out
+
+
+def decode_mcidas(data: bytes, path: bool = False) -> np.ndarray:
+    """A McIdas area file's bytes -> RGB uint8 [H, W, 3]: rows of L, I;16B
+    or I;32B at the header's stride. `path`: a file Pillow opens from its
+    path, whose L and I;16B rows it memory-maps where the rows' span
+    fits the file (rows at the stride even where it is shorter than a row,
+    the whole rows of a stride of 0 or less)."""
+    mode, size, lay = _layout(data, "MCIDAS")
+    offset, stride, rawmode = lay["offset"], lay["stride"], lay["rawmode"]
+    w, h = _legacy_size(size, "MCIDAS")
+    if path and mode in ("L", "I;16B") and offset >= 0:
+        row = w * (1 if mode == "L" else 2)
+        if stride > 0 and offset + h * stride <= len(data):
+            mapped = b"".join(
+                data[offset + y * stride:offset + y * stride + row]
+                .ljust(row, b"\0") for y in range(h))
+            return raw_tiles(mapped, mode, size, [(0, rawmode, 0, 1)],
+                             what="MCIDAS")
+        if stride <= 0 and offset <= len(data):
+            if offset + h * row > len(data):
+                raise ValueError("MCIDAS: buffer is not large enough")
+            return raw_tiles(data, mode, size, [(offset, rawmode, 0, 1)],
+                             what="MCIDAS")
+    return raw_tiles(data, mode, size, [(offset, rawmode, stride, 1)],
+                     what="MCIDAS")
+
+
+def decode_imt(data: bytes) -> np.ndarray:
+    """An IM Tools file's bytes -> RGB uint8 [H, W, 3]: L rows after the
+    header's form feed."""
+    mode, size, lay = _layout(data, "IMT")
+    if lay is None:
+        raise ValueError("IMT: cannot load this image (no form feed ends "
+                         "the header)")
+    return raw_tiles(data, mode, size, [(lay["offset"], "L", 0, 1)],
+                     what="IMT")
+
+
+# XVThumbImagePlugin.PALETTE: 3-3-2 bits of R, G, B
+XV_PALETTE = bytes(v for r in range(8) for g in range(8) for b in range(4)
+                   for v in (r * 255 // 7, g * 255 // 7, b * 255 // 3))
+
+
+def decode_xvthumb(data: bytes) -> np.ndarray:
+    """An XV thumbnail's bytes -> RGB uint8 [H, W, 3]: P rows under the
+    fixed 3-3-2 palette."""
+    _, size, lay = _layout(data, "XVTHUMB")
+    return raw_tiles(data, "P", size, [(lay["offset"], "P", 0, 1)],
+                     XV_PALETTE, "XVTHUMB")
+
+
+def decode_pixar(data: bytes) -> np.ndarray:
+    """A PIXAR file's bytes -> RGB uint8 [H, W, 3]: RGB rows at 1024."""
+    mode, size, _ = _layout(data, "PIXAR")
+    return raw_tiles(data, mode, size, [(1024, "RGB", 0, 1)], what="PIXAR")
+
+
+def decode_gbr(data: bytes) -> np.ndarray:
+    """A GIMP brush's bytes -> RGB uint8 [H, W, 3]: L or RGBA pixels after
+    the comment, as GbrImageFile.load's frombytes reads them (a short read
+    is "not enough image data")."""
+    mode, size, lay = _layout(data, "GBR")
+    return raw_tiles(data, mode, size, [(lay["offset"], mode, 0, 1)],
+                     what="GBR")
+
+
+def decode_ftex(data: bytes) -> np.ndarray:
+    """An FTEX file's bytes -> RGB uint8 [H, W, 3]: its mipmap's data as
+    raw RGB (format 1) or BC1 blocks (format 0, csrc/bcn_decode.cpp)."""
+    _, size, lay = _layout(data, "FTEX")
+    w, h = _legacy_size(size, "FTEX")
+    mip = lay["data"]
+    if lay["format"] == 1:
+        return raw_tiles(mip, "RGB", size, [(0, "RGB", 0, 1)], what="FTEX")
+    out = np.empty((h, w, 3), np.uint8)
+    _call("bcn", mip, len(mip), 0, 1, 0, out, h, w)
+    return out
+
+
+def decode_xbm(data: bytes) -> np.ndarray:
+    """An XBM file's bytes -> RGB uint8 [H, W, 3] (XbmDecode.c)."""
+    _, size, lay = _layout(data, "XBM")
+    w, h = _legacy_size(size, "XBM")
+    out = np.empty((h, w, 3), np.uint8)
+    _call("xbm", data, len(data), lay["offset"], out, h, w)
+    return out
+
+
+def decode_xpm(data: bytes) -> np.ndarray:
+    """An XPM file's bytes -> RGB uint8 [H, W, 3]: the colour table as
+    XpmImageFile._open reads it (image_probe), the pixels as XpmDecoder
+    reads them (csrc/image_legacy.cpp mrt_xpm)."""
+    _, size, lay = _layout(data, "XPM")
+    w, h = _legacy_size(size, "XPM")
+    keys = list(lay["palette"])
+    colours = b"".join(lay["palette"][k] for k in keys) or b"\0"
+    lengths = np.array([len(k) for k in keys] or [0], np.int32)
+    out = np.empty((h, w, 3), np.uint8)
+    _call("xpm", data, len(data), lay["offset"], lay["bpp"],
+          b"".join(keys) or b"\0", lengths.ctypes.data, len(keys), colours,
+          out, h, w)
+    return out
+
+
+def decode_msp(data: bytes) -> np.ndarray:
+    """An MSP file's bytes -> RGB uint8 [H, W, 3]: version 1's raw "1"
+    rows, version 2's runs (MspDecoder, csrc/image_legacy.cpp)."""
+    _, size, lay = _layout(data, "MSP")
+    if lay["version"] == 1:
+        return raw_tiles(data, "1", size, [(32, "1", 0, 1)], what="MSP")
+    w, h = _legacy_size(size, "MSP")
+    out = np.empty((h, w, 3), np.uint8)
+    _call("msp", data, len(data), out, h, w)
+    return out
+
+
+def decode_fli(data: bytes) -> np.ndarray:
+    """An FLI or FLC file's bytes -> its first frame, RGB uint8 [H, W, 3]:
+    the palette of the frame's first COLOR chunk (FliImageFile._palette)
+    and the frame through FliDecode.c (csrc/image_legacy.cpp)."""
+    _, size, lay = _layout(data, "FLI")
+    w, h = _legacy_size(size, "FLI")
+    out = np.empty((h, w, 3), np.uint8)
+    _call("fli", data, len(data), lay["offset"], lay["palette"], out, h, w)
+    return out
+
+
+def decode_pcd(data: bytes) -> np.ndarray:
+    """A Photo CD file's bytes -> its 768x512 base image, RGB uint8, turned
+    as its orientation byte says (PcdDecode.c and PhotoYCC -> RGB,
+    csrc/image_legacy.cpp)."""
+    _, _, lay = _layout(data, "PCD")
+    out = np.empty((512, 768, 3), np.uint8)
+    _call("pcd", data, len(data), 96 * 2048, out, 512, 768)
+    turns = {1: 1, 3: 3}.get(lay["orientation"], 0)
+    return np.ascontiguousarray(np.rot90(out, turns)) if turns else out
+
+
+def decode_iptc(data: bytes, read) -> np.ndarray:
+    """An IPTC/NAA file's bytes -> RGB uint8 [H, W, 3], as
+    IptcImageFile.load reads it: the (8, 10) fields' data joined, behind
+    a P5 header where the compression is raw, opened as an image file and
+    read by `read` (image_io.read_image: the PPM route, or the JPEG one);
+    a band of an RGB or CMYK image merged with black bands into its mode
+    (the band image must be L), then convert("RGB")."""
+    from maskrcnn_tpu_torch.data import image_probe
+    mode, size, lay = _layout(data, "IPTC")
+    if lay["offset"] is None:
+        raise ValueError("IPTC: cannot load this image (no image data "
+                         "field)")
+    fp = image_probe._File(data, False)
+    fp.seek(lay["offset"])
+    inner = bytearray(b"P5\n%d %d\n255\n" % size if lay["raw"] else b"")
+    while True:
+        try:
+            tag, length = image_probe.iptc_field(fp)
+        except (SyntaxError, IndexError, struct.error) as e:
+            raise ValueError(f"IPTC: a field Pillow's load fails on: {e}") \
+                from None
+        if tag != (8, 10):
+            break
+        inner += fp.read(length)
+    inner = bytes(inner)
+    band = lay["band"]
+    if band is None:
+        return read(inner)
+    name = image_probe.identify(inner)
+    if name is None:
+        raise ValueError("IPTC: its image data is no image file")
+    inner_mode, _, _ = image_probe.plugin_layout(inner, name)
+    if inner_mode == "?" and name == "TIFF":   # (a PNG's "?" is not L)
+        raise NotImplementedError(f"IPTC: a band held as {name}, whose "
+                                  "mode the port does not tell")
+    if inner_mode != "L":
+        raise ValueError(f"IPTC: a band of mode {inner_mode!r}, not L "
+                         "(Image.merge: mode mismatch)")
+    bands = {"RGB": 3, "CMYK": 4}[mode]
+    if not -bands <= band < bands:
+        raise ValueError(f"IPTC: band {band} of a {mode} image")
+    band %= bands
+    gray = read(inner)[..., 0]
+    if mode == "RGB":
+        out = np.zeros(gray.shape + (3,), np.uint8)
+        out[..., band] = gray
+        return out
+    # CMYK with one band set, through cmyk2rgb
+    cmyk = np.zeros(gray.shape + (4,), np.int32)
+    cmyk[..., band] = gray
+    nk = 255 - cmyk[..., 3:]
+    tmp = cmyk[..., :3] * nk + 128
+    return np.clip(nk - (((tmp >> 8) + tmp) >> 8), 0, 255).astype(np.uint8)
+
+
+# what Pillow raises loading the formats it opens and cannot load here
+LOAD_ERRORS = {"BUFR": "cannot find loader for this BUFR file",
+               "GRIB": "cannot find loader for this GRIB file",
+               "HDF5": "cannot find loader for this HDF5 file",
+               "MPEG": "cannot load this image",
+               "WMF": "cannot find loader for this WMF file"}

@@ -1215,10 +1215,11 @@ def plugin_cases():
 
 
 def plugin_refused_cases():
-    """(name, bytes, format the NotImplementedError names) of files of
-    Pillow's plugins the port does not read, one a plugin Pillow writes or
-    whose header is a few bytes, and a 1x1 Sun raster whose length field
-    Pillow's GBR plugin takes first."""
+    """(name, bytes, format) of files of Pillow's plugins the port once did
+    not read, one a plugin Pillow writes or whose header is a few bytes,
+    and a 1x1 Sun raster whose length field Pillow's GBR plugin takes
+    first (and fails on: not enough image data); of these the port now
+    refuses only EPS and AVIF (STILL_REFUSED)."""
     from PIL import Image
     rng = np.random.RandomState(21)
     img = seeded_image(rng, 6, 5)
@@ -1683,6 +1684,258 @@ def write_textures() -> None:
         json.dumps(index, separators=(",", ":")) + "\n")
 
 
+# ------------------------------------- IM, SPIDER, FITS and the rest
+
+# the files of the last plugins the port reads (legacy_cases), with an
+# index of their own (tests/test_torch_image_legacy.py); the Photo CD
+# files are made at test time (image_writers.pcd_cases) and only their
+# digests are kept ("generated")
+LEGACY = CORPUS.parent / "legacy_io"
+
+
+def _im_cases(rng, h, w):
+    """IM files: Pillow's writer in every mode it writes, and
+    image_writers.encode_im for the image types it does not (1-bit "L 1",
+    2- and 4-bit palettes, Luts that make L and LA images P and PA, a grey
+    non-linear Lut, RGB3 and RYB3 planes, X 24, the "L 8" to "L 32F" and
+    "L*n" floats of 2 to 31 bits, "L 32 S" and "L 32 F")."""
+    img = seeded_image(rng, h, w, 4)
+    g = img[..., 0]
+    out = []
+    for mode in ("1", "L", "LA", "P", "PA", "I", "I;16", "I;16L", "I;16B",
+                 "F", "RGB", "RGBA", "RGBX", "CMYK", "YCbCr"):
+        from PIL import Image
+        if mode in ("I", "F"):
+            im = Image.fromarray(g.astype(np.int32) * 3 - 100).convert(mode)
+        elif mode.startswith("I;16"):
+            im = Image.frombytes(mode, (w, h), img[..., :2].tobytes())
+        elif mode in ("P", "PA"):
+            im = Image.fromarray(img[..., :3]).convert(
+                "P", palette=Image.ADAPTIVE, colors=11).convert(mode)
+        elif mode in ("1", "L"):
+            im = Image.fromarray(g).convert(mode)
+        elif mode == "LA":
+            im = Image.fromarray(img[..., :2], "LA")
+        else:
+            im = Image.fromarray(img).convert(mode)
+        buf = io.BytesIO()
+        im.save(buf, "IM")
+        out.append((f"im_pillow_{mode.replace(';', '').lower()}",
+                    buf.getvalue()))
+    colour = rng.randint(0, 256, 768).astype(np.uint8).tobytes()
+    grey = bytes(np.tile(rng.randint(0, 256, 256).astype(np.uint8), 3))
+    bits = (g > 127).astype(np.uint8)
+    for name, kind, data, lut in (
+            ("l1", "L 1", iw.im_rows(iw.pack_bits_msb(bits)), None),
+            ("b2", "B2", iw.im_rows(rng.randint(
+                0, 256, (h, (2 * w + 7) // 8)).astype(np.uint8)), None),
+            ("b4", "B4", iw.im_rows(rng.randint(
+                0, 256, (h, (4 * w + 7) // 8)).astype(np.uint8)), None),
+            ("b4_lut", "B4", iw.im_rows(g), colour),
+            ("grey_lut_colour", "Greyscale", iw.im_rows(g), colour),
+            ("grey_lut_grey", "Greyscale", iw.im_rows(g), grey),
+            ("la_lut", "LA", iw.im_rows(img[..., :2], True), colour),
+            ("pa_lut", "PA", iw.im_rows(img[..., :2], True), colour),
+            ("rgb_lut", "RGB", iw.im_rows(img[..., :3], True), colour),
+            ("rgb3", "RGB3", b"".join(iw.im_rows(img[..., k])
+                                      for k in range(3)), None),
+            ("ryb3", "RYB3", b"".join(iw.im_rows(img[..., k])
+                                      for k in range(3)), None),
+            ("x24", "X 24", iw.im_rows(img[..., :3]), None),
+            ("l32s_image", "L 32 S", iw.im_rows(
+                g.astype("<i4") * 5 - 300), None),
+            ("l32f_image", "L 32 F", iw.im_rows(
+                g.astype("<u4") * 5), None)):
+        out.append((f"im_{name}", iw.encode_im(kind, w, h, data, lut=lut)))
+    for t, dt in (("8", "u1"), ("8S", "i1"), ("16", "<u2"), ("16S", "<i2"),
+                  ("32", "<u4"), ("32F", "<f4"), ("32S", "<i4")):
+        v = g.astype(np.int64) * 3 - 200
+        if dt[-1] in "12" or dt in ("<u4",):
+            info = np.iinfo(np.dtype(dt))
+            v = np.clip(v, info.min, info.max)
+        data = iw.im_rows(v.astype(dt))
+        star = "*" if t != "32S" else " "
+        out.append((f"im_l{t.lower()}", iw.encode_im(f"L {t}", w, h, data)))
+        out.append((f"im_lstar{t.lower()}",
+                    iw.encode_im(f"L{star}{t}", w, h, data)))
+    for j in (2, 5, 12, 24, 31):
+        data = rng.randint(0, 256, ((w * j + 7) // 8) * h).astype(
+            np.uint8).tobytes()
+        out.append((f"im_lstar_bits{j}", iw.encode_im(f"L*{j}", w, h, data)))
+    return out
+
+
+def legacy_modes(rng, h, w):
+    """(route, bytes) of every route of the last plugins at one size."""
+    img = seeded_image(rng, h, w, 4)
+    rgb = np.ascontiguousarray(img[..., :3])
+    g = img[..., 0]
+    f = g.astype(np.float32) * 1.7 - 60.5
+    bits = (g > 127).astype(np.uint8)
+    out = _im_cases(rng, h, w)
+    out.append(("spider_pillow", _pil(f, "SPIDER")))
+    for big in (True, False):
+        name = "be" if big else "le"
+        out.append((f"spider_{name}", iw.encode_spider(f, big)))
+        out.append((f"spider_{name}_stack", iw.encode_spider(f, big, True)))
+    for bitpix in (8, 16, 32, -32, -64):
+        v = f if bitpix < 0 else g.astype(np.int64) * (
+            1 if bitpix == 8 else 300) - (0 if bitpix == 8 else 100)
+        out.append((f"fits_{bitpix}".replace("-", "f"),
+                    iw.encode_fits(v, bitpix)))
+    for bitpix in (8, 16, 32):
+        v = g.astype(np.int64) * (1 if bitpix == 8 else 300)
+        out.append((f"fits_gzip_{bitpix}", iw.encode_fits(
+            v, bitpix, gzip_tiles=True)))
+    for size, prefix, bands in ((1, 0, 1), (1, 3, 2), (2, 4, 1), (4, 0, 3)):
+        out.append((f"mcidas_{size}_{prefix}_{bands}", iw.encode_mcidas(
+            g.astype(np.int64) * (1 if size == 1 else 2), size,
+            prefix=prefix, bands=bands)))
+    out.append(("imt", iw.encode_imt(g)))
+    out.append(("xvthumb", iw.encode_xvthumb(g)))
+    out.append(("pixar", iw.encode_pixar(rgb)))
+    for v in (1, 2):
+        out.append((f"gbr_v{v}_l", iw.encode_gbr(g, v)))
+        out.append((f"gbr_v{v}_rgba", iw.encode_gbr(img, v)))
+    out.append(("ftex_rgb", iw.encode_ftex(w, h, rgb.tobytes(), 1)))
+    out.append(("ftex_dxt1", iw.encode_ftex(w, h, iw.bc1_encode(rgb), 0,
+                                            gap=b"gap!")))
+    out.append(("xbm_pillow", _pil(g, "XBM", "1")))
+    out.append(("xbm_hotspot_upper", iw.encode_xbm(bits, (1, 2), True, 5)))
+    for bpp, n in ((1, 6), (2, 60), (2, 300)):
+        idx = rng.randint(0, n, (h, w))
+        colours = rng.randint(0, 256, (n, 3)).astype(np.uint8)
+        out.append((f"xpm_{bpp}_{n}", iw.encode_xpm(
+            idx, colours, bpp, pixels_comment=n != 60)))
+    out.append(("msp_pillow_v1", _pil(g, "MSP", "1")))
+    out.append(("msp_v1", iw.encode_msp(bits, 1)))
+    out.append(("msp_v2", iw.encode_msp(bits, 2, rng)))
+    palette = rng.randint(0, 256, (256, 3)).astype(np.uint8)
+    idx = rng.randint(0, 256, (h, w)).astype(np.uint8)
+    idx[:, : w // 2] = 7                                 # runs
+    out.append(("fli_brun", iw.encode_fli(w, h, [iw.fli_color(palette),
+                                                 iw.fli_brun(idx)])))
+    out.append(("fli_copy_color64", iw.encode_fli(w, h, [
+        iw.fli_color(palette // 4, 11, ((0, 100), (20, 50))),
+        iw.fli_chunk(16, idx.tobytes())], magic=0xAF11)))
+    out.append(("fli_black_lc", iw.encode_fli(w, h, [
+        iw.fli_color(palette), iw.fli_chunk(13, b""), iw.fli_lc(idx)])))
+    out.append(("fli_ss2", iw.encode_fli(w, h, [iw.fli_color(palette),
+                                                iw.fli_ss2(idx)])))
+    jpeg_l = _pil(g, "JPEG", "L", quality=90)
+    for name, data, kw in (
+            ("raw_l", g.tobytes(), {}),
+            ("raw_rgb_band1", g.tobytes(), dict(layers=3, component=1,
+                                                band=1)),
+            ("raw_cmyk_band3", g.tobytes(), dict(layers=4, component=1,
+                                                 band=3)),
+            ("jpeg_l", jpeg_l, dict(compression=5, pieces=2)),
+            ("jpeg_rgb", _pil(rgb, "JPEG", quality=90), dict(compression=5)),
+            ("jpeg_rgb_band2", jpeg_l, dict(compression=5, layers=3,
+                                            component=1, band=2))):
+        out.append((f"iptc_{name}", iw.encode_iptc(w, h, data, **kw)))
+    return out
+
+
+def legacy_cases():
+    """(name, bytes) of the last plugins' routes at the corpus's four
+    sizes."""
+    rng = np.random.RandomState(75)
+    out = []
+    for h, w in SIZES:
+        for route, data in legacy_modes(rng, h, w):
+            ext = route.split("_")[0]
+            out.append((f"{route}_{h}x{w}.{ext}", data))
+    return out
+
+
+def legacy_error_cases():
+    """(name, bytes) of files of the last plugins that Pillow opens and
+    fails on (and a FITS file whose data ends inside its first 80 bytes,
+    which it decodes): IM raw modes it has no unpacker for (RLB, LA with
+    PA;L) and
+    a file cut in its data, BitDecode floats cut short, a SPIDER file
+    cut, GZIP_1 FITS of BITPIX -32 (FitsGzipDecoder reads no
+    bytes) and of a broken gzip member, a McIdas stride shorter than a
+    row, an IM Tools header with no form feed, a GBR cut, an XPM with a
+    pixel of its None colour and one with a key not in its table, an
+    XBM and an MSP version 2 cut, an FLC whose prefix chunk FliDecode.c
+    meets as its frame, an FLI BRUN line that overruns, an IPTC file with no
+    image data field, and the stubs (BUFR, GRIB, HDF5) and
+    MPEG, which Pillow opens and cannot load."""
+    rng = np.random.RandomState(76)
+    img = seeded_image(rng, 9, 7, 4)
+    g = img[..., 0]
+    bits = (g > 127).astype(np.uint8)
+    palette = rng.randint(0, 256, (256, 3)).astype(np.uint8)
+    gz = iw.encode_fits(g.astype(np.int64), 16, gzip_tiles=True)
+    heap = gz.index(b"\x1f\x8b")
+    brun = iw.fli_brun(g)
+    return [
+        ("im_rlb_no_unpacker.im", iw.encode_im(
+            "RLB", 7, 9, iw.im_rows(img[..., :3], True))),
+        ("im_pa_no_unpacker.im", iw.encode_im(
+            "PA", 7, 9, iw.im_rows(img[..., :2], True))),
+        ("im_cut.im", _pil(img[..., :3], "IM")[:-5]),
+        ("im_bits_cut.im", iw.encode_im("L*12", 7, 9, bytes(80))),
+        ("spider_cut.spi", iw.encode_spider(g.astype(np.float32))[:-3]),
+        # the data ends inside its first 80 bytes: the tile starts 80
+        # bytes before the end of _open's last read (Pillow decodes it)
+        ("fits_cut_in_its_first_card.fits", iw.encode_fits(g, 8)[:2920]),
+        ("fits_gzip_f32.fits", iw.encode_fits(g.astype(np.int64), -32,
+                                              gzip_tiles=True)),
+        ("fits_gzip_broken.fits", gz[:heap + 12] + b"\xff" * 9
+         + gz[heap + 21:]),
+        # a line prefix of -3 bytes: a stride of 4, shorter than a row,
+        # the file cut so that Pillow's memory map of a path does not
+        # hold the rows either (from a path as from bytes, the stride fails)
+        ("mcidas_short_stride.mcidas", (iw.encode_mcidas(g, 1)[:56]
+         + struct.pack(">i", -3) + iw.encode_mcidas(g, 1)[60:])[:276]),
+        ("imt_no_form_feed.imt", iw.encode_imt(g).replace(b"\x0c", b"\n")),
+        ("gbr_cut.gbr", iw.encode_gbr(img, 2)[:-9]),
+        ("xpm_none_pixel.xpm", iw.encode_xpm(
+            np.arange(63).reshape(9, 7) % 4, palette[:4], 1, none=2)),
+        ("xpm_unknown_key.xpm", iw.encode_xpm(
+            np.arange(63).reshape(9, 7) % 4, palette[:4], 1)
+         .replace(b'"#', b'"~', 1)),
+        ("xbm_cut.xbm", iw.encode_xbm(bits)[:-20]),
+        ("msp_v2_cut.msp", iw.encode_msp(bits, 2)[:-3]),
+        ("fli_prefix_chunk.fli", iw.encode_fli(7, 9, [
+            iw.fli_color(palette), brun], prefix=True)),
+        ("fli_brun_overrun.fli", iw.encode_fli(7, 9, [
+            iw.fli_color(palette), brun[:7] + b"\x64" + brun[8:]])),
+        ("iptc_no_image_data.iptc", iw.encode_iptc(7, 9, g.tobytes())
+         .split(b"\x1c\x08\x0a")[0]),
+        ("bufr_stub.bufr", b"BUFR" + bytes(60)),
+        ("grib_stub.grib", b"GRIB\0\0\0\1" + bytes(60)),
+        ("hdf5_stub.h5", b"\x89HDF\r\n\x1a\n" + bytes(60)),
+        ("mpeg_stub.mpg", b"\0\0\1\xb3\x05\x00\x30" + bytes(40)),
+    ]
+
+
+def write_legacy() -> None:
+    """The last plugins' files and their index (legacy_io/index.json:
+    "files" digests, "errors" Pillow's error texts, "generated" the
+    digests of image_writers.pcd_cases, made at test time)."""
+    LEGACY.mkdir(exist_ok=True)
+    for p in LEGACY.iterdir():
+        p.unlink()
+    index = {"files": {}, "errors": {}, "generated": {}}
+    for name, data in legacy_cases() + legacy_error_cases():
+        (LEGACY / name).write_bytes(data)
+        got = pillow_outcome(data)
+        if isinstance(got, str):
+            index["errors"][name] = re.sub(r" <[^>]* at 0x[0-9a-f]+>", "",
+                                           got)
+        else:
+            index["files"][name] = {"shape": got[0], "sha256": got[1]}
+    for name, data in iw.pcd_cases():
+        shape, digest = pillow_digest(data)
+        index["generated"][name] = {"shape": shape, "sha256": digest}
+    (LEGACY / "index.json").write_text(
+        json.dumps(index, separators=(",", ":")) + "\n")
+
+
 def part2_cases():
     """(name, bytes) of raw J2K codestreams with Part-2 transforms as
     OpenJPEG 2.5.4 decodes them: OpenJPEG's own MCT, MCC and MCO markers
@@ -1935,13 +2188,9 @@ def write_jpeg2000(index, scenes) -> None:
 # few of these are stubs Pillow fails on too, of a format the port does
 # not read: their refusal names the format or mode first
 STILL_REFUSED = {
-    "refused_sun_gbr_1x1.ras": "GBR",
     "refused_tiff_old_style_jpeg_tiles.tif": "old-style JPEG in tiles",
     "refused_tiff_old_style_jpeg_planar.tif": "old-style JPEG in tiles",
-    "refused_im.im": "IM", "refused_spi.spi": "SPIDER",
-    "refused_msp.msp": "MSP", "refused_xbm.xbm": "XBM",
     "refused_eps.eps": "EPS", "refused_avif.avif": "AVIF",
-    "refused_xpm.xpm": "XPM", "refused_fits.fits": "FITS",
     "refused_jp2_htj2k.j2k": "HTJ2K"}
 
 
@@ -2140,6 +2389,9 @@ def main() -> int:
         write_textures_slice(index)
         INDEX.write_text(json.dumps(index, separators=(",", ":")) + "\n")
         return 0
+    if "--legacy" in sys.argv[1:]:
+        write_legacy()
+        return 0
     if "--rgba-icns" in sys.argv[1:]:
         index = json.loads(INDEX.read_text())
         write_slice(index)
@@ -2191,6 +2443,7 @@ def main() -> int:
     index["categories"] = SCENE_CATEGORIES
     write_jpeg2000(index, scenes)
     write_textures_slice(index)
+    write_legacy()
     INDEX.write_text(json.dumps(index, separators=(",", ":")) + "\n")
     TIFF_SCENES.mkdir(exist_ok=True)
     scene_index = {}

@@ -2494,3 +2494,454 @@ def with_main_header_markers(codestream: bytes, segments: bytes) -> bytes:
     while codestream[at:at + 2] != b"\xff\x90":
         at += 2 + struct.unpack(">H", codestream[at + 2:at + 4])[0]
     return codestream[:at] + segments + codestream[at:]
+
+
+# ------------------------------------------- IM, SPIDER, FITS and the rest
+# The last plugins Pillow decodes (numpy and the standard library alone,
+# so that chip_smoke.py writes its scenes in these formats on the card).
+
+def encode_im(image_type: str, width: int, height: int, data: bytes, *,
+              lut: Optional[bytes] = None, lines: Sequence[str] = (),
+              size: Optional[str] = None) -> bytes:
+    """An IM file: its header ("Image type: <image_type> image", the
+    size, `lines` more), padded with zeros to 511 bytes and a 0x1A, a Lut
+    of 768 bytes (R, G, B planes) where given, then `data` (the rows
+    bottom-up, as ImImagePlugin writes and reads them: im_rows)."""
+    head = [f"Image type: {image_type} image",
+            f"Image size (x*y): {size or f'{width}*{height}'}",
+            *lines] + (["Lut: 1"] if lut is not None else [])
+    text = "".join(f"{line}\r\n" for line in head).encode("latin-1")
+    return (text.ljust(511, b"\0") + b"\x1a" + (lut or b"") + data)
+
+
+def im_rows(samples: np.ndarray, layers: bool = False) -> bytes:
+    """[H, W] or [H, W, C] samples as IM rows: bottom-up, each row's
+    channels one after another where `layers` (RGB;L and the like), else
+    interleaved."""
+    rows = samples[::-1]
+    if layers and rows.ndim == 3:
+        rows = rows.transpose(0, 2, 1)
+    return np.ascontiguousarray(rows).tobytes()
+
+
+def pack_bits_msb(bits: np.ndarray, lsb_first: bool = False) -> np.ndarray:
+    """[H, W] of 0/1 as rows of bytes, the first pixel in the high bit (or
+    the low one)."""
+    return np.packbits(bits.astype(np.uint8), axis=1,
+                       bitorder="little" if lsb_first else "big")
+
+
+def encode_spider(values: np.ndarray, big: bool = True,
+                  stack: bool = False) -> bytes:
+    """A SPIDER image of float32 [H, W] (big- or little-endian); `stack`:
+    a stack header of one image before the image's own header."""
+    h, w = values.shape
+    lenbyt = w * 4
+    labrec = 1024 // lenbyt + (1 if 1024 % lenbyt else 0)
+    labbyt = labrec * lenbyt
+    fmt = ">" if big else "<"
+
+    def header(istack, maxim, imgnum):
+        hdr = [0.0] * 27
+        hdr[0], hdr[1], hdr[4] = 1.0, float(h), 1.0
+        hdr[11], hdr[12] = float(w), float(labrec)
+        hdr[21], hdr[22] = float(labbyt), float(lenbyt)
+        hdr[23], hdr[25], hdr[26] = float(istack), float(maxim), float(imgnum)
+        return struct.pack(f"{fmt}27f", *hdr).ljust(labbyt, b"\0")
+
+    pixels = values.astype(f"{fmt}f4").tobytes()
+    if stack:
+        return header(2, 1, 0) + header(0, 0, 1) + pixels
+    return header(0, 0, 0) + pixels
+
+
+def fits_cards(cards: Sequence[str]) -> bytes:
+    """FITS header cards (each padded to 80 bytes), END, padded to 2880."""
+    text = b"".join(c.ljust(80).encode("latin-1") for c in (*cards, "END"))
+    return text.ljust(-(-len(text) // 2880) * 2880, b" ")
+
+
+def encode_fits(values: np.ndarray, bitpix: int, *, gzip_tiles: bool = False,
+                cards: Sequence[str] = (), little: bool = False) -> bytes:
+    """A FITS file of [H, W] values: BITPIX 8, 16, 32, -32 or -64
+    (big-endian data, as FITS stores it; `little`: little-endian, the
+    byte order of the raw modes Pillow's FITS reader reads the data in),
+    or with `gzip_tiles` a BINTABLE of GZIP_1 compressed data (an empty
+    primary HDU, the image's 4-byte big-endian values gzipped in the
+    heap)."""
+    h, w = values.shape
+    dtype = {8: ">u1", 16: ">i2", 32: ">i4", -32: ">f4", -64: ">f8"}[bitpix]
+    if little:
+        dtype = "<" + dtype[1:]
+    if not gzip_tiles:
+        data = values.astype(dtype).tobytes()
+        return (fits_cards(["SIMPLE  = T", f"BITPIX  = {bitpix}",
+                            "NAXIS   = 2", f"NAXIS1  = {w}",
+                            f"NAXIS2  = {h}", *cards])
+                + data.ljust(-(-len(data) // 2880) * 2880, b"\0"))
+    import gzip
+    heap = gzip.compress(values.astype(">i4").tobytes(), mtime=0)
+    table = struct.pack(">ii", len(heap), 0)
+    body = table + heap
+    return (fits_cards(["SIMPLE  = T", "BITPIX  = 8", "NAXIS   = 0"])
+            + fits_cards(["XTENSION= 'BINTABLE'", "BITPIX  = 8",
+                          "NAXIS   = 2", "NAXIS1  = 8", "NAXIS2  = 1",
+                          "ZIMAGE  = T", "ZCMPTYPE= 'GZIP_1  '",
+                          f"ZBITPIX = {bitpix}", "ZNAXIS  = 2",
+                          f"ZNAXIS1 = {w}", f"ZNAXIS2 = {h}", *cards])
+            + body.ljust(-(-len(body) // 2880) * 2880, b"\0"))
+
+
+def encode_mcidas(samples: np.ndarray, size: int, *, prefix: int = 0,
+                  bands: int = 1, offset: int = 256) -> bytes:
+    """A McIdas area file of [H, W] samples of `size` bytes (1, 2 or 4,
+    big-endian), each line after `prefix` bytes and followed by the
+    samples of `bands` - 1 more bands (zeros)."""
+    h, w = samples.shape
+    words = [0] * 64
+    words[1], words[8], words[9], words[10] = 4, h, w, size
+    words[13], words[14], words[33] = bands, prefix, offset
+    header = struct.pack(">64i", *words)
+    dtype = {1: ">u1", 2: ">u2", 4: ">u4"}[size]
+    line = np.zeros((h, prefix + w * size * bands), np.uint8)
+    line[:, prefix:prefix + w * size] = np.frombuffer(
+        samples.astype(dtype).tobytes(), np.uint8).reshape(h, w * size)
+    return header.ljust(offset, b"\0") + line.tobytes()
+
+
+def encode_imt(gray: np.ndarray, comment: bool = True) -> bytes:
+    """An IM Tools file of an [H, W] uint8 image."""
+    h, w = gray.shape
+    head = (b"* a comment\n" if comment else b"") + \
+        f"width {w}\nheight {h}\npixel n8\n".encode()
+    return head + b"\x0c" + gray.astype(np.uint8).tobytes()
+
+
+def encode_xvthumb(indices: np.ndarray) -> bytes:
+    """An XV thumbnail of [H, W] indices into its 3-3-2 palette."""
+    h, w = indices.shape
+    return (b"P7 332\n#XVVERSION:Version 2.28\n#END_OF_COMMENTS\n"
+            + f"{w} {h} 255\n".encode() + indices.astype(np.uint8).tobytes())
+
+
+def encode_pixar(rgb: np.ndarray) -> bytes:
+    """A PIXAR file of RGB uint8 [H, W, 3] (raw RGB at 1024)."""
+    h, w = rgb.shape[:2]
+    header = bytearray(1024)
+    header[:4] = b"\x80\xe8\0\0"
+    struct.pack_into("<HH", header, 416, h, w)
+    struct.pack_into("<HH", header, 424, 14, 2)
+    return bytes(header) + rgb.astype(np.uint8).tobytes()
+
+
+def encode_gbr(pixels: np.ndarray, version: int = 2,
+               comment: bytes = b"brush\0") -> bytes:
+    """A GIMP brush of [H, W] gray or [H, W, 4] RGBA pixels, version 1 or
+    2."""
+    h, w = pixels.shape[:2]
+    depth = 1 if pixels.ndim == 2 else 4
+    fixed = 20 if version == 1 else 28
+    head = struct.pack(">5I", fixed + len(comment), version, w, h, depth)
+    if version == 2:
+        head += b"GIMP" + struct.pack(">I", 25)
+    return head + comment + pixels.astype(np.uint8).tobytes()
+
+
+def encode_ftex(width: int, height: int, payload: bytes, fmt: int = 1,
+                gap: bytes = b"") -> bytes:
+    """An FTEX file: one format (0 DXT1 blocks, 1 raw RGB), its mipmap's
+    `payload` after `gap`."""
+    where = 32 + len(gap)
+    return (b"FTEX" + struct.pack("<7i", 1, width, height, 1, 1, fmt, where)
+            + gap + struct.pack("<i", len(payload)) + payload)
+
+
+def encode_xbm(bits: np.ndarray, hotspot=None, upper: bool = False,
+               per_line: int = 12) -> bytes:
+    """An X11 bitmap of [H, W] 0/1 pixels (rows of bytes, the first pixel
+    in the low bit)."""
+    h, w = bits.shape
+    rows = pack_bits_msb(bits, lsb_first=True).reshape(-1)
+    text = f"#define im_width {w}\n#define im_height {h}\n"
+    if hotspot:
+        text += (f"#define im_x_hot {hotspot[0]}\n"
+                 f"#define im_y_hot {hotspot[1]}\n")
+    fmt = "0x{:02X}" if upper else "0x{:02x}"
+    words = [fmt.format(b) for b in rows]
+    body = ",\n".join(", ".join(words[i:i + per_line])
+                      for i in range(0, len(words), per_line))
+    return (text + "static char im_bits[] = {\n" + body + "\n};\n").encode()
+
+
+def xpm_keys(n: int, bpp: int) -> List[bytes]:
+    """n distinct keys of bpp printable characters (no quote)."""
+    chars = [c for c in range(35, 127) if c != 92]
+    keys = []
+    for i in range(n):
+        key = bytearray()
+        for _ in range(bpp):
+            key.append(chars[i % len(chars)])
+            i //= len(chars)
+        keys.append(bytes(key))
+    return keys
+
+
+def encode_xpm(indices: np.ndarray, colours: np.ndarray, bpp: int = 1, *,
+               none: Optional[int] = None,
+               pixels_comment: bool = True) -> bytes:
+    """An XPM file of [H, W] indices into `colours` (uint8 [N, 3]; entry
+    `none` written as None), keys of `bpp` characters."""
+    h, w = indices.shape
+    keys = xpm_keys(len(colours), bpp)
+    out = [b"/* XPM */", b"static char *image[] = {",
+           b"/* columns rows colors chars-per-pixel */",
+           f'"{w} {h} {len(colours)} {bpp} ",'.encode()]
+    for k, (key, rgb) in enumerate(zip(keys, colours)):
+        value = b"None" if k == none else ("#%02x%02x%02x" % tuple(
+            int(v) for v in rgb)).encode()
+        out.append(b'"' + key + b" c " + value + b'",')
+    if pixels_comment:
+        out.append(b"/* pixels */")
+    for y in range(h):
+        out.append(b'"' + b"".join(keys[i] for i in indices[y]) + b'"'
+                   + (b"," if y + 1 < h else b""))
+    out.append(b"};")
+    return b"\n".join(out) + b"\n"
+
+
+def _msp_header(w: int, h: int, version: int) -> bytes:
+    words = [0] * 16
+    magic = b"DanM" if version == 1 else b"LinS"
+    words[0], words[1] = struct.unpack("<HH", magic)
+    words[2], words[3], words[4], words[5] = w, h, 1, 1
+    words[6], words[7], words[8], words[9] = 1, 1, w, h
+    check = 0
+    for v in words:
+        check ^= v
+    words[12] = check
+    return struct.pack("<16H", *words)
+
+
+def encode_msp(bits: np.ndarray, version: int = 2, rng=None) -> bytes:
+    """A Windows Paint file of [H, W] 0/1 pixels: version 1 raw rows, or
+    version 2's row map and runs (runs of a byte where it repeats, else
+    literals of up to 255 bytes; an all-white row left out of the map)."""
+    h, w = bits.shape
+    rows = pack_bits_msb(bits)
+    if version == 1:
+        return _msp_header(w, h, 1) + rows.tobytes()
+    data = []
+    for row in rows:
+        if (row == 0xFF).all() and (rng is None or rng.randint(2)):
+            data.append(b"")
+            continue
+        out, i = bytearray(), 0
+        while i < len(row):
+            j = i
+            while j < len(row) and row[j] == row[i] and j - i < 255:
+                j += 1
+            if j - i >= 3:
+                out += bytes((0, j - i, row[i]))
+                i = j
+                continue
+            k = min(len(row), i + (rng.randint(1, 256) if rng else 255))
+            out += bytes((k - i,)) + row[i:k].tobytes()
+            i = k
+        data.append(bytes(out))
+    return (_msp_header(w, h, 2) + struct.pack(f"<{h}H", *map(len, data))
+            + b"".join(data))
+
+
+def fli_chunk(kind: int, body: bytes) -> bytes:
+    """An FLI subchunk (its size counts its 6-byte header)."""
+    if len(body) % 2:
+        body += b"\0"
+    return struct.pack("<IH", 6 + len(body), kind) + body
+
+
+def fli_color(palette: np.ndarray, kind: int = 4,
+              packets: Sequence[Tuple[int, int]] = ((0, 256),)) -> bytes:
+    """A COLOR_256 (4) or COLOR_64 (11) chunk: packets of (skip, count) of
+    the palette's entries (uint8 [256, 3])."""
+    body = struct.pack("<H", len(packets))
+    i = 0
+    for skip, count in packets:
+        i += skip
+        body += bytes((skip, count & 255)) + palette[i:i + count].tobytes()
+        i += count
+    return fli_chunk(kind, body)
+
+
+def fli_brun(indices: np.ndarray) -> bytes:
+    """A BRUN chunk: each line's packets (runs of a repeated byte,
+    literals of the rest)."""
+    body = bytearray()
+    for row in indices:
+        line, i = bytearray(), 0
+        packets = 0
+        while i < len(row):
+            j = i
+            while j < len(row) and row[j] == row[i] and j - i < 127:
+                j += 1
+            if j - i >= 2:
+                line += bytes((j - i, row[i]))
+                i = j
+            else:
+                k = i
+                while k < len(row) and k - i < 127 and (
+                        k + 1 >= len(row) or row[k + 1] != row[k]):
+                    k += 1
+                k = max(k, i + 1)
+                line += bytes(((256 - (k - i)) & 255,)) + row[i:k].tobytes()
+                i = k
+            packets += 1
+        body += bytes((packets & 255,)) + line
+    return fli_chunk(15, bytes(body))
+
+
+def fli_lc(indices: np.ndarray, first: int = 0) -> bytes:
+    """An LC (byte delta) chunk over a black frame: lines from `first`,
+    each a packet of skipped zeros and literals or runs."""
+    body = bytearray(struct.pack("<HH", first, len(indices) - first))
+    for row in indices[first:]:
+        packets, line, x = 0, bytearray(), 0
+        while x < len(row):
+            skip = 0
+            while x < len(row) and row[x] == 0 and skip < 255:
+                x += 1
+                skip += 1
+            if x >= len(row):
+                break
+            j = x
+            while j < len(row) and row[j] == row[x] and j - x < 127:
+                j += 1
+            if j - x >= 3:
+                line += bytes((skip, (256 - (j - x)) & 255, row[x]))
+                x = j
+            else:
+                k = min(len(row), x + 127)
+                line += bytes((skip, k - x)) + row[x:k].tobytes()
+                x = k
+            packets += 1
+        body += bytes((packets,)) + line
+    return fli_chunk(12, bytes(body))
+
+
+def fli_ss2(indices: np.ndarray) -> bytes:
+    """An SS2 (word delta) chunk over a black frame: every line its word
+    packets (literal words or a repeated word); an odd width's last pixel
+    through the flag word that stores it."""
+    h, w = indices.shape
+    body = bytearray(struct.pack("<H", h))
+    even = w - w % 2
+    for row in indices:
+        line = bytearray()
+        if w % 2:
+            line += struct.pack("<H", 0x8000 | int(row[-1]))
+        words = row[:even].reshape(-1, 2)
+        packets, parts, x = 0, bytearray(), 0
+        while x < len(words):
+            j = x
+            while (j < len(words) and (words[j] == words[x]).all()
+                   and j - x < 127):
+                j += 1
+            if j - x >= 2:
+                parts += bytes((0, (256 - (j - x)) & 255)) + words[x].tobytes()
+                x = j
+            else:
+                k = min(len(words), x + 127)
+                parts += bytes((0, k - x)) + words[x:k].tobytes()
+                x = k
+            packets += 1
+        line += struct.pack("<H", packets) + parts
+        body += line
+    return fli_chunk(7, bytes(body))
+
+
+def encode_fli(width: int, height: int, chunks: Sequence[bytes], *,
+               magic: int = 0xAF12, prefix: bool = False,
+               frames: int = 1) -> bytes:
+    """An FLI (0xAF11) or FLC (0xAF12) file whose first frame holds
+    `chunks`; `prefix`: an FLC prefix chunk (0xF100) before it."""
+    frame_body = b"".join(chunks)
+    frame = struct.pack("<IHH8x", 16 + len(frame_body), 0xF1FA,
+                        len(chunks)) + frame_body
+    pre = struct.pack("<IH10x", 16, 0xF100) if prefix else b""
+    body = pre + frame
+    header = bytearray(128)
+    struct.pack_into("<IHHHHHHI", header, 0, 128 + len(body), magic, frames,
+                     width, height, 8, 0, 5)
+    return bytes(header) + body
+
+
+def encode_pcd(y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
+               orientation: int = 0) -> bytes:
+    """A Photo CD file of its 768x512 base image: Y [512, 768], Cb and Cr
+    [256, 384] (PhotoYCC), the orientation byte's low bits."""
+    head = bytearray(96 * 2048)
+    head[2048:2052] = b"PCD_"
+    head[2048 + 1538] = orientation & 3
+    chunks = np.concatenate([y.reshape(256, 2 * 768), cb.reshape(256, 384),
+                             cr.reshape(256, 384)], axis=1).astype(np.uint8)
+    return bytes(head) + chunks.tobytes()
+
+
+def rgb_to_photo_ycc(rgb: np.ndarray):
+    """RGB uint8 [512, 768, 3] as PhotoYCC planes (encode_pcd's), the
+    inverse of Pillow's YCC;P to within its rounding."""
+    f = rgb.astype(np.float64)
+    lum = 0.299 * f[..., 0] + 0.587 * f[..., 1] + 0.114 * f[..., 2]
+    y = np.clip(np.round(lum / 1.3584), 0, 255)
+    c1 = (f[..., 2] - lum) / 2.2179 + 156
+    c2 = (f[..., 0] - lum) / 1.8215 + 137
+    def half(c):
+        return np.clip(np.round(c.reshape(256, 2, 384, 2).mean((1, 3))), 0,
+                       255).astype(np.uint8)
+
+    return y.astype(np.uint8), half(c1), half(c2)
+
+
+def iptc_field(record: int, dataset: int, data: bytes,
+               extended: int = 0) -> bytes:
+    """An IPTC/NAA field; `extended`: its length in that many bytes after
+    a 0x80 | n length byte."""
+    if extended:
+        return (bytes((0x1C, record, dataset, 0x80 | extended))
+                + len(data).to_bytes(extended, "big") + data)
+    return bytes((0x1C, record, dataset)) + struct.pack(">H", len(data)) + data
+
+
+def encode_iptc(width: int, height: int, data: bytes, *, layers: int = 1,
+                component: int = 0, compression: int = 1,
+                band: Optional[int] = None, pieces: int = 1) -> bytes:
+    """An IPTC/NAA file: the image fields, then its data (raw gray bytes,
+    or a JPEG file for compression 5) in `pieces` (8, 10) fields."""
+    out = (iptc_field(1, 90, b"\x1b%G") + iptc_field(2, 5, b"title")
+           + iptc_field(3, 20, struct.pack(">H", width))
+           + iptc_field(3, 30, struct.pack(">H", height))
+           + iptc_field(3, 60, bytes((layers, component)))
+           + iptc_field(3, 120, bytes((compression,))))
+    if band is not None:
+        out += iptc_field(3, 65, bytes((band + 1,)))
+    step = -(-len(data) // pieces)
+    for k in range(pieces):
+        part = data[k * step:(k + 1) * step]
+        out += iptc_field(8, 10, part, extended=4 if len(part) > 32767 else 0)
+    return out
+
+
+# the corpus's Photo CD files (tests/data/legacy_io: about 0.8 MB each, so
+# made here from a seed, and only their digests committed): the base
+# image's planes seeded once, under each orientation byte
+PCD_SEED = 23
+
+
+def pcd_cases() -> List[Tuple[str, bytes]]:
+    rng = np.random.RandomState(PCD_SEED)
+    yy, xx = np.mgrid[0:512, 0:768]
+    y = np.clip((yy // 3 + xx // 5) % 200 + rng.randint(0, 40, (512, 768)),
+                0, 255)
+    cb = rng.randint(60, 250, (256, 384))
+    cr = rng.randint(60, 230, (256, 384))
+    return [(f"pcd_orientation{o}.pcd", encode_pcd(y, cb, cr, o))
+            for o in range(4)]

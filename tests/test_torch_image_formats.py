@@ -409,18 +409,21 @@ def test_rle_ends_and_deltas_equal_pillow():
 # ------------------------------------------------------------ refusals
 
 def test_other_formats_and_plain_route_are_named():
-    """A PPM file is read as Pillow reads it; bytes no plugin of Pillow's
-    takes raise ValueError, and a format Pillow reads that the port does
-    not (XPM) a NotImplementedError naming it (a TIFF header alone is a
-    corrupt TIFF); the plain route reads PNG and JPEG only and names the
-    format it does not read; a corrupt file of each new format raises
+    """A PPM file and an XPM file are read as Pillow reads them; bytes no
+    plugin of Pillow's takes raise ValueError, and a format Pillow reads
+    that the port does not (EPS, through Ghostscript) a
+    NotImplementedError naming it (a TIFF header alone is a corrupt
+    TIFF); the plain route reads PNG and JPEG only and names the format
+    it does not read; a corrupt file of each new format raises
     ValueError."""
     ppm = b"P6\n5 3\n255\n" + bytes(range(64))
     assert np.array_equal(image_io.read_image(ppm), pillow(ppm))
     with pytest.raises(ValueError, match="no plugin of Pillow's"):
         image_io.read_image(b"Q6\n5 3\n255\n" + bytes(64))
-    with pytest.raises(NotImplementedError, match="XPM: a format Pillow"):
-        image_io.read_image(b'/* XPM */\n"1 1 1 1",\n"a c #ff0000",\n"a"')
+    xpm = b'/* XPM */\n"1 1 1 1",\n"a c #ff0000",\n"a"'
+    assert np.array_equal(image_io.read_image(xpm), pillow(xpm))
+    with pytest.raises(NotImplementedError, match="EPS: .*Ghostscript"):
+        image_io.read_image(b"%!PS-Adobe-3.0\n%%BoundingBox: 0 0 5 3\n")
     with pytest.raises(ValueError, match="TIFF"):
         image_io.read_image(b"II*\x00" + bytes(64))
     for name in ("webp_lossless_5x3.webp", "gif_global_table_5x3.gif",

@@ -289,14 +289,21 @@ def test_unsupported_modes_raise_naming_them():
                           np.arange(45, dtype=np.uint8).reshape(3, 5, 3))
     with pytest.raises(NotImplementedError, match="PPM: the plain route"):
         image_io.read_image(ppm, plain=True)
+    # an IM header and 45 zero bytes: a black 5x3 RGB image to the native
+    # route, a format the plain route does not read
+    im = b"Image type: RGB image\nImage size (x*y): 5*3\n\x1a" + bytes(45)
+    assert np.array_equal(image_io.read_image(im),
+                          np.zeros((3, 5, 3), np.uint8))
+    with pytest.raises(NotImplementedError, match="IM: the plain route"):
+        image_io.read_image(im, plain=True)
     for plain in (False, True):
-        # bytes no plugin of Pillow's takes, and an IM header: a format
-        # Pillow reads that neither route reads
+        # bytes no plugin of Pillow's takes, and an EPS header: a format
+        # Pillow reads (through Ghostscript) that neither route reads
         with pytest.raises(ValueError, match="no plugin of Pillow's"):
             image_io.read_image(b"Q6\n5 3\n255\n" + bytes(45), plain=plain)
-        with pytest.raises(NotImplementedError, match="IM: a format Pillow"):
-            image_io.read_image(b"Image type: RGB image\nImage size (x*y): "
-                                b"5*3\n\x1a" + bytes(45), plain=plain)
+        with pytest.raises(NotImplementedError, match="EPS: .*Ghostscript"):
+            image_io.read_image(b"%!PS-Adobe-3.0\n%%BoundingBox: 0 0 5 3\n"
+                                b"%%EndComments\n", plain=plain)
         # a header claiming more pixels than Pillow's decompression-bomb
         # limit
         huge = bytearray(_raw_png(rows, 5, 2, [0] * 5, 3))

@@ -356,15 +356,19 @@ def test_corrupt_files_raise_value_errors():
     with pytest.raises(ValueError, match="truncated"):
         image_io.read_image(data[:len(data) // 2])
     # a PPM header before a JPEG: a 5x3 PPM (its first 45 bytes are the
-    # pixels); bytes no plugin of Pillow's takes; an XPM header, a format
-    # Pillow reads that the port does not
+    # pixels); bytes no plugin of Pillow's takes; an XPM header whose one
+    # pixel is its colour; an EPS header, a format Pillow reads (through
+    # Ghostscript) that the port does not
     ppm = image_io.read_image(b"P6\n5 3\n255\n" + data)
     assert np.array_equal(ppm, np.frombuffer(data[:45], np.uint8).reshape(
         3, 5, 3))
     with pytest.raises(ValueError, match="no plugin of Pillow's"):
         image_io.read_image(b"Q6\n5 3\n255\n" + data)
-    with pytest.raises(NotImplementedError, match="XPM: a format Pillow"):
-        image_io.read_image(b'/* XPM */\n"1 1 1 1",\n"a c #ff0000",\n"a"')
+    assert np.array_equal(image_io.read_image(
+        b'/* XPM */\n"1 1 1 1",\n"a c #ff0000",\n"a"'),
+        np.array([[[255, 0, 0]]], np.uint8))
+    with pytest.raises(NotImplementedError, match="EPS: .*Ghostscript"):
+        image_io.read_image(b"%!PS-Adobe-3.0\n%%BoundingBox: 0 0 5 3\n")
     # a TIFF header before a JPEG: a TIFF whose directory is garbage
     with pytest.raises(ValueError, match="TIFF"):
         image_io.read_image(b"II*\x00" + data)

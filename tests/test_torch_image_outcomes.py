@@ -34,12 +34,13 @@ INDEX = json.loads(ic.INDEX.read_text())
 REFUSED_FILES = sorted(p.name for p in ic.CORPUS.iterdir()
                        if p.name.startswith("refused_"))
 # stubs of formats the port does not read, which Pillow fails on too: the
-# refusal names the format first
+# refusal names the format first (a 1x1 Sun raster whose length field
+# Pillow's GBR plugin takes, refused_sun_gbr_1x1.ras, is no longer among
+# them: the port reads GBR, and raises ValueError where Pillow fails on it
+# with "not enough image data")
 STUBS = {
-    "refused_sun_gbr_1x1.ras": "a 1x1 Sun raster whose length field Pillow's "
-                               "GBR plugin takes (not enough image data)",
     "refused_eps.eps": "EPS, which Pillow reads through Ghostscript (not on "
-                       "this machine)",
+                       "this machine), and whose refusal names Ghostscript",
     "refused_jp2_htj2k.j2k": "a hand-edited HT code-block style over Part-1 "
                              "data, which OpenJPEG fails on",
     "refused_tiff_old_style_jpeg_tiles.tif": "old-style JPEG in tiles, which "

@@ -29,7 +29,15 @@ dib, ico, cur, jpeg2000, icns: its packed RGB entries; dds, blp, psd:
 the files of tests/data/texture_io through data/native_image.py's
 decode_dds, decode_blp and decode_psd, which read the header in Python
 and make one call into csrc/bcn_decode.cpp, here into the sanitized
-library)
+library; im, spider, fits, mcidas, imt, xvthumb, pixar, gbr, ftex, xbm,
+xpm, msp, fli, iptc: the files of tests/data/legacy_io, and pcd: the
+seeded Photo CD files (tests/image_writers.pcd_cases), through
+data/image_io.read_image (the probe, native_image.py's decode_<format>,
+csrc/image_legacy.cpp in the sanitized library), where an exception other
+than ValueError or NotImplementedError also stops the worker; avif: the
+AVIF files of tests/data/image_io through data/image_probe.identify, the
+model of libavif's parse and of its search for the AV1 sequence header,
+Python alone, held to raising ValueError at most)
 
 (`--glob '*zstd*'`, `'*lzma*'`, `'*bilevel_ccitt*'` and `'*group*'`,
 `'map_*'` or `'arith_*'` mutate the ZSTD, LZMA, CCITT, memory-map or
@@ -78,9 +86,17 @@ SUFFIX = {"jpeg": (".jpg",), "gif": (".gif",), "bmp": (".bmp",),
           "sgi": (".sgi",), "sun": (".ras",), "dib": (".dib",),
           "ico": (".ico",), "cur": (".cur",), "jpeg2000": (".jp2", ".j2k"),
           "icns": (".icns",), "dds": (".dds",), "blp": (".blp",),
+          **{fmt: (f".{fmt}",) for fmt in (
+              "im", "spider", "fits", "mcidas", "imt", "xvthumb", "pixar",
+              "gbr", "ftex", "xbm", "xpm", "msp", "fli", "iptc", "pcd")},
+          "avif": (".avif",),
           "psd": (".psd",)}
 # the formats decoded through data/native_image.py's Python header reading
 TEXTURE = ("dds", "blp", "psd")
+LEGACY_DIR = REPO / "tests" / "data" / "legacy_io"
+# the formats of tests/data/legacy_io, by their files' extension, and PCD
+LEGACY = ("im", "spider", "fits", "mcidas", "imt", "xvthumb", "pixar",
+          "gbr", "ftex", "xbm", "xpm", "msp", "fli", "iptc", "pcd")
 # the formats whose calls take a path flag last
 PATH_FLAG = ("tiff", "pcx", "dcx")
 LIMITS = (0, 1, 2, 7, 8, 15, 16, 255, 256, 65535, 2 ** 31 - 1, 2 ** 31,
@@ -244,8 +260,41 @@ def texture_worker(lib_path: str, fmt: str, pattern: str, mutations: int,
             pass
 
 
+def legacy_worker(lib_path: str, fmt: str, pattern: str, mutations: int,
+                  seed: int) -> None:
+    """The last plugins' files (PCD's seeded ones) through
+    image_io.read_image over the sanitized library; an exception other
+    than ValueError or NotImplementedError (the contract's) stops the
+    worker. "avif": the probe alone."""
+    from maskrcnn_tpu_torch.data import image_io, image_probe
+    native_image._build = lambda stem, sources: ctypes.CDLL(lib_path)
+    native_image._LIB = None
+    native_image.MAX_PIXELS = MAX_PIXELS
+    image_probe.MAX_PIXELS = MAX_PIXELS
+    if fmt == "pcd":
+        import image_writers
+        files = [d for name, d in image_writers.pcd_cases()
+                 if fnmatch.fnmatch(name, pattern)]
+    else:
+        root = CORPUS if fmt == "avif" else LEGACY_DIR
+        files = [p.read_bytes() for p in sorted(root.glob(pattern))
+                 if p.suffix in SUFFIX[fmt] and p.stat().st_size < 200000]
+    if not files:
+        raise SystemExit(f"no {fmt} file matches {pattern}")
+    read = image_probe.identify if fmt == "avif" else image_io.read_image
+    rng = random.Random(seed)
+    for _ in range(mutations):
+        try:
+            read(mutate(rng, rng.choice(files)))
+        except (ValueError, NotImplementedError):
+            pass
+
+
 def worker(lib_path: str, fmt: str, pattern: str, mutations: int,
            seed: int) -> None:
+    if fmt in LEGACY or fmt == "avif":
+        legacy_worker(lib_path, fmt, pattern, mutations, seed)
+        return
     if fmt in TEXTURE:
         texture_worker(lib_path, fmt, pattern, mutations, seed)
         return

@@ -83,6 +83,9 @@ JPEG2000_SCENES = REPO / "tests" / "data" / "jpeg2000_scenes"
 # DDS, BLP and PSD files of every route (tests/image_corpus.texture_cases),
 # their digests in an index of their own
 TEXTURES = REPO / "tests" / "data" / "texture_io"
+# the last plugins' files (tests/image_corpus.legacy_cases), their digests
+# in an index of their own
+LEGACY = REPO / "tests" / "data" / "legacy_io"
 JPEG2000_FILES = ("scene_baseline_420_default.jp2",
                   "scene_baseline_444_tiles_rpcl.j2k",
                   "scene_progressive_layers_plt.jp2")
@@ -200,6 +203,48 @@ def texture_mode(fmt: str, k: int, data: bytes, img) -> tuple:
         3, [128 + 24 * k, 96, 160], np.eye(3)))
 
 
+# the last plugins a scene is written as (tests/image_writers.py, numpy
+# only), each decoding to pixels other than the JPEG file's: IM RGB (its
+# rows layer by layer, bottom-up), SPIDER and FITS BITPIX -32 of its gray
+# (the mean of its channels) as floats (the FITS data little-endian, as
+# Pillow's raw mode F reads it), XPM under a 3-3-2 palette with keys of
+# two characters, MSP version 2 of its bilevel, an FLC frame of BRUN lines
+# under the 3-3-2 palette, GBR RGBA, and the scene on a 768x512 Photo CD
+# base image (PhotoYCC, chroma at half size)
+LEGACY_MODES = ("im_rgb", "spider", "fits_f32", "xpm", "msp_v2", "fli",
+                "gbr_rgba", "pcd")
+
+
+def legacy_mode(fmt: str, img) -> tuple:
+    """(name suffix, bytes) of a scene's decode `img` in one of
+    LEGACY_MODES."""
+    import numpy as np
+    iw = image_writers()
+    h, w = img.shape[:2]
+    gray = img.astype(np.float32).mean(-1)
+    if fmt == "im_rgb":
+        return ".im", iw.encode_im("RGB", w, h, iw.im_rows(img, True))
+    if fmt == "spider":
+        return ".spi", iw.encode_spider(gray)
+    if fmt == "fits_f32":
+        return "_f32.fits", iw.encode_fits(gray, -32, little=True)
+    if fmt == "xpm":
+        idx, palette = iw.quantize_332(img)
+        return ".xpm", iw.encode_xpm(idx, palette, 2)
+    if fmt == "msp_v2":
+        return ".msp", iw.encode_msp((gray > 110).astype(np.uint8), 2)
+    if fmt == "fli":
+        idx, palette = iw.quantize_332(img)
+        return ".flc", iw.encode_fli(w, h, [iw.fli_color(palette),
+                                            iw.fli_brun(idx)])
+    if fmt == "gbr_rgba":
+        rgba = np.concatenate([img, np.full((h, w, 1), 255, np.uint8)], 2)
+        return ".gbr", iw.encode_gbr(rgba)
+    canvas = np.zeros((512, 768, 3), np.uint8)
+    canvas[:min(h, 512), :min(w, 768)] = img[:512, :768]
+    return ".pcd", iw.encode_pcd(*iw.rgb_to_photo_ycc(canvas))
+
+
 # the small lossless plugins a scene is written as (tests/image_writers.py,
 # numpy only): Netpbm P6, TGA RLE, QOI (runs and RGB ops), PCX (RLE, three
 # planes), SGI RLE and Sun raster RLE
@@ -247,7 +292,7 @@ def scene_files(fmt: str, count: int = 3) -> tuple:
     pixels); "tiff_group4" the scenes' bilevel (mean of the channels
     below 110 black) as CCITT Group 4; PLUGIN_SCENES written from their
     native decodes (plugin_scene); RGBA_MODES (rgba_mode); TEXTURE_MODES
-    (texture_mode)."""
+    (texture_mode); LEGACY_MODES (legacy_mode)."""
     from maskrcnn_tpu_torch.data import image_io
     names = list(corpus_index()["scenes"])[:count]
     out = []
@@ -283,6 +328,9 @@ def scene_files(fmt: str, count: int = 3) -> tuple:
             suffix, blob = texture_mode(fmt, k, data,
                                         image_io.read_image(data))
             out.append((f"{stem}{suffix}", blob))
+        elif fmt in LEGACY_MODES:
+            suffix, blob = legacy_mode(fmt, image_io.read_image(data))
+            out.append((f"{stem}{suffix}", blob))
         elif fmt == "tiff_jpeg" and "progressive" not in name:
             out.append((f"{stem}_jpeg.tif", image_writers().tiff_from_jpeg(
                 data)))
@@ -313,7 +361,8 @@ FORMAT_TIMES = ("png", "webp", "webp_lossless", "gif", "bmp", "tiff_raw",
                 "tiff_lzw_predictor", "tiff_tiled_deflate_predictor",
                 "tiff_jpeg", "tiff_zstd_predictor", "tiff_lzma_predictor",
                 "tiff_group4") + PLUGIN_SCENES + tuple(COMMITTED_JPEG) + tuple(
-                    COMMITTED_JPEG2000) + RGBA_MODES + TEXTURE_MODES
+                    COMMITTED_JPEG2000) + RGBA_MODES + TEXTURE_MODES + \
+    LEGACY_MODES
 
 
 def format_scenes() -> dict:
@@ -323,8 +372,8 @@ def format_scenes() -> dict:
     bilevel as Group 4, as PPM P6, TGA RLE, QOI, PCX, SGI RLE and Sun
     RLE, as arithmetic-coded sequential and progressive JPEG, lossless
     JPEG with predictors 1 and 7 and a block-smoothed progressive JPEG,
-    as reversible and irreversible JP2, in RGBA_MODES and in
-    TEXTURE_MODES (the files decode_times times beside TIMED)."""
+    as reversible and irreversible JP2, in RGBA_MODES, TEXTURE_MODES and
+    LEGACY_MODES (the files decode_times times beside TIMED)."""
     return {name: data for fmt in FORMAT_TIMES
             for name, data in scene_files(fmt, 1)}
 
@@ -357,7 +406,9 @@ def coco_scene_dir(root: Path, copies: int, fmt: str = "jpeg",
     JPEG_MODE_TURNS[j][c % its length]; "rgba_modes": image i in
     RGBA_MODES[(i - 1) % 5], and "rgba_modes_png" each of those files'
     decode as PNG; "texture_modes" image i in TEXTURE_MODES[(i - 1) % 8],
-    "texture_modes_png" as PNG), each `copies` times (the first
+    "texture_modes_png" as PNG; "legacy_modes" image i in
+    LEGACY_MODES[(i - 1) % 8], "legacy_modes_png" as PNG), each `copies`
+    times (the first
     `limit` images of those, where given), with the JPEG scenes'
     annotations. Returns the directory."""
     index = corpus_index()
@@ -365,12 +416,12 @@ def coco_scene_dir(root: Path, copies: int, fmt: str = "jpeg",
     (root / "annotations").mkdir(parents=True, exist_ok=True)
     (root / "val2014").mkdir(exist_ok=True)
     images, anns = [], []
-    turns = {"rgba_modes": RGBA_MODES, "texture_modes": TEXTURE_MODES}
-    files = (scene_files(fmt) if fmt not in ("plugins", "jpeg_modes",
-                                             "rgba_modes", "rgba_modes_png",
-                                             "texture_modes",
-                                             "texture_modes_png")
-             else None)
+    turns = {"rgba_modes": RGBA_MODES, "texture_modes": TEXTURE_MODES,
+             "legacy_modes": LEGACY_MODES}
+    files = (scene_files(fmt) if fmt not in (
+        "plugins", "jpeg_modes", "rgba_modes", "rgba_modes_png",
+        "texture_modes", "texture_modes_png", "legacy_modes",
+        "legacy_modes_png") else None)
     for k in range(copies):
         for j, (scene, scene_anns) in enumerate(index["scenes"].items()):
             i = len(images) + 1
@@ -383,12 +434,14 @@ def coco_scene_dir(root: Path, copies: int, fmt: str = "jpeg",
                 turns = JPEG_MODE_TURNS[j]
                 name = turns[k % len(turns)]
                 data = (JPEG_SCENES / name).read_bytes()
-            elif fmt.startswith(("rgba_modes", "texture_modes")):
+            elif fmt.startswith(("rgba_modes", "texture_modes",
+                                 "legacy_modes")):
                 from maskrcnn_tpu_torch.data import image_io
                 modes = turns[fmt.replace("_png", "")]
                 name, data = scene_files(modes[(i - 1) % len(modes)])[j]
                 decoded = image_io.read_image(data)
-                shape = decoded.shape[:2]  # (ICNS: its 1024² canvas)
+                shape = decoded.shape[:2]  # (ICNS: its 1024² canvas, PCD
+                # its 768x512 base image)
                 if fmt.endswith("_png"):
                     name = name.rsplit(".", 1)[0] + ".png"
                     data = image_io.encode_png(decoded)
