@@ -145,7 +145,8 @@ Phases, each printing one line:
     9a the port's native PNG, JPEG, BMP, GIF, WebP, TIFF and JPEG 2000
     decoders (data/native_image.py, csrc/image_decode.cpp with the TIFF
     codecs' tiff_zstd.cpp, tiff_xz.cpp and tiff_fax.cpp,
-    csrc/jpeg2000_decode.cpp, and csrc/webp_decode.cpp
+    csrc/jpeg2000_decode.cpp with csrc/jpeg2000_ht.cpp, and
+    csrc/webp_decode.cpp
     built with g++) give Pillow's pixels for every repository image and
     every file of the committed corpus (tests/data/image_io, with ZSTD,
     LZMA and CCITT TIFF, and the first scene as ZSTD and LZMA TIFF,
@@ -3115,7 +3116,9 @@ def decode_phase(card, build=None):
     ZSTD and LZMA TIFF (tests/data/tiff_scenes) and the scenes as
     arithmetic-coded, lossless and block-smoothed JPEG
     (tests/data/jpeg_scenes) and the scenes as JPEG 2000
-    (tests/data/jpeg2000_scenes) decode to their digests; neither Pillow
+    (tests/data/jpeg2000_scenes) decode to their digests, as do the
+    corpus's HTJ2K files and the scenes as HTJ2K (tests/data/htj2k_scenes,
+    their decode timed beside the Part-1 scenes'); neither Pillow
     nor a system libwebp, giflib, libtiff or libopenjp2 is
     loaded, and the decoder library links only the C and C++ runtimes and
     imports no zlib, libtiff, libzstd, XXH, liblzma or OpenJPEG symbol
@@ -3200,6 +3203,15 @@ def decode_phase(card, build=None):
               and hashlib.sha256(img.tobytes()).hexdigest()
               == entry["sha256"], f"9a: {name} decodes to other pixels "
               "than Pillow's")
+    scene_hts = json.loads((bench.HTJ2K_SCENES / "index.json").read_text())
+    for name, entry in scene_hts.items():
+        img = image_io.read_image(bench.HTJ2K_SCENES / name)
+        check(list(img.shape) == entry["shape"] + [3]
+              and hashlib.sha256(img.tobytes()).hexdigest()
+              == entry["sha256"], f"9a: {name} decodes to other pixels "
+              "than Pillow's")
+    htj2ks = sum(name.startswith("htj2k_") for name in index["files"])
+    ht_errors = sum(name.startswith("htj2k_") for name in index["errors"])
     jpeg2000s = sum(name.rsplit(".", 1)[1] in ("jp2", "j2k")
                     for name in index["files"])
     part2 = sum(name.startswith("jp2_part2_") for name in index["files"])
@@ -3314,6 +3326,17 @@ def decode_phase(card, build=None):
           f"zlib, libtiff, libzstd, XXH, liblzma or OpenJPEG symbol "
           f"({links['nm']}); "
           f"{card}", flush=True)
+    print(f"[9a] HTJ2K: {htj2ks} corpus files (raw codestreams and JPH: "
+          f"cleanup and refinement passes, VSC, every code-block size, "
+          f"quality layers, RPCL with precincts, tiles, 5/3 and 9/7) to "
+          f"Pillow's digests, {ht_errors} that Pillow fails on raise "
+          f"ValueError; the scenes as lossless HTJ2K ({len(scene_hts)} "
+          f"committed files) to their digests; host decode median of 5, "
+          f"HT scenes: " + ", ".join(
+              f"{n} {times[n]['native_ms']:.2f} ms" for n in scene_hts)
+          + "; the Part-1 JPEG 2000 scenes of the same pixels: " + ", ".join(
+              f"{n} {times[n]['native_ms']:.2f} ms" for n in scene_j2ks)
+          + f"; {card}", flush=True)
 
 
 def same_detections(a, b) -> bool:
@@ -3336,7 +3359,8 @@ FILES_COPIES, FILES_B = 8, 8
 FILES_FORMATS = ("bmp", "webp_lossless", "tiff_tiled_lzw_predictor", "webp",
                  "gif", "tiff_jpeg", "tiff_zstd_predictor",
                  "tiff_lzma_predictor", "plugins", "jpeg_modes",
-                 "jpeg2000_layouts", "rgba_modes", "rgba_modes_png",
+                 "jpeg2000_layouts", "htj2k_layouts", "rgba_modes",
+                 "rgba_modes_png",
                  "texture_modes", "texture_modes_png", "legacy_modes",
                  "legacy_modes_png")
 # the sweeps whose files hold the JPEG decodes' pixels, so their detections
@@ -3348,10 +3372,12 @@ FILES_FORMATS = ("bmp", "webp_lossless", "tiff_tiled_lzw_predictor", "webp",
 # progressive in turn, and the first scene's decode as lossless JPEG;
 # "jpeg2000_layouts" each scene's decode as reversible JPEG 2000, a layout
 # a scene: a default JP2, a tiled RPCL J2K with precincts, a JP2 of
-# quality layers with PLT)
+# quality layers with PLT; "htj2k_layouts" each scene's decode as lossless
+# HTJ2K, a layout a scene: a raw codestream of cleanup passes, a tiled
+# RPCL JPH with precincts and refinement passes, a JPH of quality layers)
 SAME_PIXELS = ("plain", "bmp", "webp_lossless", "tiff_tiled_lzw_predictor",
                "tiff_jpeg", "tiff_zstd_predictor", "tiff_lzma_predictor",
-               "plugins", "jpeg_modes", "jpeg2000_layouts")
+               "plugins", "jpeg_modes", "jpeg2000_layouts", "htj2k_layouts")
 # images a sweep: the WebP, GIF, BMP, ZSTD, LZMA and plugin sweeps one
 # batch (the first 8 images, so the JPEG sweep's first 8 results), to keep
 # the whole script within its time
@@ -3359,6 +3385,7 @@ FILES_IMAGES = {"bmp": FILES_B, "webp_lossless": FILES_B, "webp": FILES_B,
                 "gif": FILES_B, "tiff_zstd_predictor": FILES_B,
                 "tiff_lzma_predictor": FILES_B, "plugins": FILES_B,
                 "jpeg_modes": FILES_B, "jpeg2000_layouts": FILES_B,
+                "htj2k_layouts": FILES_B,
                 "rgba_modes": FILES_B, "rgba_modes_png": FILES_B,
                 "texture_modes": FILES_B, "texture_modes_png": FILES_B,
                 "legacy_modes": FILES_B, "legacy_modes_png": FILES_B}
@@ -3400,8 +3427,12 @@ def files_phase(kernels, card, cfg=None):
     whose images rotate through the scenes' decodes as reversible JPEG
     2000 (committed, tests/data/jpeg2000_scenes: a default JP2, a raw J2K
     with 256x256 tiles and precincts in RPCL order, a JP2 of three quality
-    layers with PLT) hold the JPEG decodes' pixels, so their detections
-    equal the JPEG sweep's; one batch whose images rotate through YCbCr
+    layers with PLT), and one batch whose images rotate through the
+    scenes' decodes as lossless HTJ2K (committed, tests/data/htj2k_scenes:
+    a raw codestream, a tiled RPCL JPH with precincts and refinement
+    passes, a JPH of three quality layers) hold the JPEG decodes' pixels,
+    so their detections equal the JPEG sweep's; one batch whose images
+    rotate through YCbCr
     2x2 LZW strips, YCbCr 1x1 Deflate planes (libtiff's RGBA route), the
     scenes' JPEG streams as old-style JPEG TIFF, LAB TIFF and the scenes
     on a 1024² ICNS canvas (written at run time, numpy only) gives the
@@ -3550,9 +3581,10 @@ def files_phase(kernels, card, cfg=None):
           f"lossless-WebP, tiled-LZW-TIFF, JPEG-TIFF, ZSTD-TIFF, "
           f"LZMA-TIFF, plugin (PPM, TGA RLE, QOI, PCX, SGI RLE, Sun "
           f"RLE in turn), JPEG-mode (arithmetic sequential, "
-          f"arithmetic progressive, lossless in turn) and JPEG 2000 "
+          f"arithmetic progressive, lossless in turn), JPEG 2000 "
           f"(default JP2, tiled RPCL J2K, layered JP2 with PLT in turn) "
-          f"sweeps; of the RGBA-route, LAB and ICNS batch (YCbCr 2x2 LZW, "
+          f"and HTJ2K (raw codestream, tiled RPCL JPH, layered JPH in "
+          f"turn) sweeps; of the RGBA-route, LAB and ICNS batch (YCbCr 2x2 LZW, "
           f"YCbCr 1x1 planes, old-style JPEG, LAB, ICNS in turn) and of "
           f"its decodes read back from PNG; of the DDS, BLP, PSD and "
           f"Part-2 batch (BC1, BC7, 5-6-5 DDS, BLP2 DXT5, BLP1 JPEG, "

@@ -1,5 +1,6 @@
 // What the sources of the host image decoder library share: its error
-// type (jpeg2000_decode.cpp's too), the TIFF codecs that live in sources
+// type (jpeg2000_decode.cpp's too), JPEG 2000's HT code-block decoder
+// (jpeg2000_ht.cpp), the TIFF codecs that live in sources
 // of their own
 // (tiff_zstd.cpp, tiff_xz.cpp, tiff_fax.cpp) beside image_decode.cpp, and
 // the JPEG decoder's Huffman bit reader and its arithmetic and lossless
@@ -66,6 +67,25 @@ inline void cmyk_rgb(const uint8_t* c, uint8_t* o) {
 // and length), the zero bytes between members skipped; an Error, its
 // message prefixed with `what`, where Python raises.
 void gzip_decompress(const uint8_t* d, int64_t n, const char* what, std::vector<uint8_t>& out);
+
+// One HT code-block (ISO 15444-15) as jpeg2000_decode.cpp's tier 2 leaves
+// it, for jpeg2000_ht.cpp: its chunks' bytes in order, the first two
+// segments' lengths and passes, its size, numbps and Mb (the band's
+// magnitude bit-planes) as OpenJPEG's t2.c sets them, the tile-component's
+// ROI shift, VSC, and `align` the address of its bytes mod 4 where
+// OpenJPEG decodes them.
+struct HtBlock {
+  const uint8_t* data;
+  uint32_t len, nchunks, numsegs;
+  uint32_t seg_len[2], seg_passes[2];
+  uint32_t width, height, numbps, mb, roishift;
+  bool causal;
+  uint32_t align;
+};
+
+// OpenJPEG 2.5.4's opj_t1_ht_decode_cblk: the block's samples into out
+// (width x height), an Error where OpenJPEG fails on the block.
+void jpeg2000_ht_block(const HtBlock& b, std::vector<int32_t>& out);
 
 // libtiff 4.7's ZSTDDecode over one strip or tile, as it drives libzstd
 // 1.5.7: d[0, n) decoded into out[0, cap), an Error where libtiff fails.

@@ -25,14 +25,15 @@
 //   significance, refinement and cleanup passes, run-length coding,
 //   raw (BYPASS) passes, RESET, VSC, SEGSYM, RGN max-shift, the half-bit
 //   reconstruction and the division by 2 of reversible coefficients;
+// * HTJ2K (ISO 15444-15) code-blocks, code-block style 0x40: t2.c's HT
+//   segments (the cleanup pass alone in the first segment, every later
+//   pass of a packet in the next, over OpenJPEG's Part-1 segment limits)
+//   and ht_dec.c's block decoder (jpeg2000_ht.cpp);
 // * dwt.c's 5/3 (integer) and 9/7 (float: its lifting constants and
 //   order of operations) inverse transforms, mct.c's RCT and ICT, the DC
 //   level shift, lrintf and the clamp to each component's precision;
 // * Pillow's unpackers (its shifts and offsets, its subsampled-component
 //   indexing, its YCbCr -> RGB for sYCC) and convert("RGB").
-// Refused by name: HTJ2K (Part 15: a CAP marker or code-block style 0x40)
-// and Part-2 multi-component transforms (CBD, MCT, MCC, MCO), which
-// OpenJPEG decodes and this source does not.
 // Built without floating-point contraction (-ffp-contract=off): the 9/7
 // path must round each product and sum as OpenJPEG's SSE code does.
 
@@ -50,7 +51,6 @@ namespace {
 
 using mrt::corrupt;
 using mrt::guarded;
-using mrt::refuse;
 
 [[noreturn]] void fail(const std::string& m) { corrupt("JPEG2000: " + m); }
 
@@ -494,8 +494,6 @@ struct Codestream {
       fail("invalid code-block width and height");
     c.cblksty = p[3];
     if (c.cblksty & 0x80) fail("unsupported mixed HT code-block style");
-    if (c.cblksty & 0x40)
-      refuse("JPEG2000: HTJ2K (ISO 15444-15) code-blocks are not read");
     c.qmfbid = p[4];
     if (c.qmfbid > 1) fail("invalid wavelet transformation");
     n -= 5;
@@ -938,8 +936,8 @@ struct Codestream {
       case kPPT: ppt_marker(p, n); break;
       case kCRG: if (n != numcomps * 4) fail("error reading CRG marker"); break;
       case kCOM: case kCPF: break;
-      // opj_j2k_read_cap reads nothing: an HT code-block style is what
-      // refuses an HTJ2K stream (SPCod)
+      // opj_j2k_read_cap reads nothing (Part 15's capabilities: the
+      // code-block style says HT)
       case kCAP: break;
       case kCBD: cbd(p, n); break;
       case kMCT: mct_marker(p, n); break;
@@ -1171,8 +1169,11 @@ struct Seg {
 struct Cblk {
   int32_t x0 = 0, y0 = 0, x1 = 0, y1 = 0;
   uint32_t numbps = 0, numlenbits = 0, numnewpasses = 0, numsegs = 0, real_num_segs = 0;
+  uint32_t mb = 0;  // the band's magnitude bit-planes at the first inclusion
   std::vector<Seg> segs;
   std::vector<uint8_t> data;  // the code-block's chunks, in order
+  uint32_t nchunks = 0;       // and their number
+  uint64_t chunk0 = 0;        // the first one's offset in the tile's data
 };
 
 struct Precinct {
@@ -1739,6 +1740,7 @@ uint64_t decode_packet(Tile& tile, Tcp& tcp, PacketIterator& pi, const uint8_t* 
         if (!cb.numsegs) {
           uint32_t i = 0;
           while (!tgt_decode(bio, pr.imsb, k, int32_t(i))) ++i;
+          cb.mb = uint32_t(band.numbps);
           cb.numbps = uint32_t(band.numbps) + 1 - i;
           cb.numlenbits = 3;
         }
@@ -1759,7 +1761,13 @@ uint64_t decode_packet(Tile& tile, Tcp& tcp, PacketIterator& pi, const uint8_t* 
         int32_t n = int32_t(cb.numnewpasses);
         do {
           Seg& seg = cb.segs[segno];
-          seg.numnewpasses = uint32_t(std::min<int64_t>(int64_t(seg.maxpasses) - seg.numpasses, n));
+          // HT: the first segment takes one pass (the cleanup), a later one
+          // every pass left, whatever the segment's limit
+          if (cblksty & 0x40) {
+            seg.numnewpasses = segno == 0 ? 1 : uint32_t(n);
+          } else {
+            seg.numnewpasses = uint32_t(std::min<int64_t>(int64_t(seg.maxpasses) - seg.numpasses, n));
+          }
           const uint32_t bits = cb.numlenbits + floorlog2(seg.numnewpasses);
           if (bits > 32) fail("invalid bit number in a packet header");
           seg.newlen = bits ? bio.read(bits) : 0;
@@ -1816,6 +1824,7 @@ uint64_t decode_packet(Tile& tile, Tcp& tcp, PacketIterator& pi, const uint8_t* 
         if (uint64_t(end - cur) < seg->newlen)
           fail("read: segment too long for codeblock");
         cb.data.insert(cb.data.end(), cur, cur + seg->newlen);
+        if (cb.nchunks++ == 0) cb.chunk0 = uint64_t(cur - tcp.data.data());
         cur += seg->newlen;
         seg->len += seg->newlen;
         seg->numpasses += seg->numnewpasses;
@@ -2348,7 +2357,23 @@ void t1_decode(Tile& tile, Tcp& tcp, uint32_t compno) {
         for (Cblk& cb : pr.cblks) {
           if (!area_of_interest(tile, tcp, compno, r, band.bandno, cb.x0, cb.y0, cb.x1, cb.y1))
             continue;
-          t1.decode(cb, band.bandno, tccp.roishift, tccp.cblksty);
+          if (tccp.cblksty & 0x40) {
+            t1.w = uint32_t(cb.x1 - cb.x0);
+            t1.h = uint32_t(cb.y1 - cb.y0);
+            // OpenJPEG decodes one chunk where it lies in the tile's data
+            // (malloc'd), several from a buffer of their own (malloc'd)
+            mrt::HtBlock hb{cb.data.data(), uint32_t(cb.data.size()), cb.nchunks, cb.numsegs,
+                            {0, 0}, {0, 0}, t1.w, t1.h, cb.numbps, cb.mb, tccp.roishift,
+                            (tccp.cblksty & 8) != 0,
+                            cb.nchunks == 1 ? uint32_t(cb.chunk0 & 3) : 0u};
+            for (uint32_t k = 0; k < 2 && k < cb.numsegs; k++) {
+              hb.seg_len[k] = cb.segs[k].len;
+              hb.seg_passes[k] = cb.segs[k].real_num_passes;
+            }
+            mrt::jpeg2000_ht_block(hb, t1.data);
+          } else {
+            t1.decode(cb, band.bandno, tccp.roishift, tccp.cblksty);
+          }
           if (t1.w == 0 || t1.h == 0) continue;
           uint32_t x = uint32_t(cb.x0 - band.x0), y = uint32_t(cb.y0 - band.y0);
           if (band.bandno & 1) x += uint32_t(tc.res[r - 1].x1 - tc.res[r - 1].x0);

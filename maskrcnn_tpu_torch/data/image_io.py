@@ -140,25 +140,28 @@ that pass a file on to the next plugin or end `Image.open`). It reads:
 * Sun raster: file types 0-5 (type 2 RLE, SunRleDecode.c), depths 1, 4,
   8, 24 and 32 in BGR or (type 3) RGB, colour maps on 4- and 8-bit
   images.
-* JPEG 2000 (Jpeg2KImagePlugin: JP2 files and raw J2K codestreams), as
-  Pillow decodes them through OpenJPEG's tile API in strict mode: the
-  JP2 boxes OpenJPEG reads (ihdr against SIZ, colr, pclr, cmap, cdef,
-  bpcc, boxes past the codestream), the main and tile-part markers with
-  OpenJPEG's checks (a cut stream raises), every progression order and
-  POC change, precincts, tiles, tile-parts, image and tile offsets,
-  quality layers, PPM and PPT, SOP and EPH, the code-block mode
-  switches and RGN max-shift, the 5/3 and 9/7 transforms (OpenJPEG's
-  float operations in its order) with RCT and ICT, components of their
-  own precision, sign and subsampling; then Pillow's side: the mode
-  Jpeg2KImageFile._open gives (L or I;16 by precision, LA, RGB, RGBA,
-  CMYK from colr, P and PA from pclr: data/image_probe.jpeg2000_header),
-  its unpackers (their shifts and offsets, a subsampled component
-  indexed by width / dx, its tile buffer kept from tile to tile), the
-  colour space it assumes where colr gives none (sYCC where component 1
-  or 2 is subsampled and component 0 is not), its YCbCr -> RGB for sYCC,
-  a pclr palette as ImagePalette.getcolor builds it, and the files it
-  refuses (a mode and colour space with no unpacker); a CAP marker read
-  as OpenJPEG reads it (nothing), a CBD marker setting each component's
+* JPEG 2000 (Jpeg2KImagePlugin: JP2 files, JPH files and raw J2K
+  codestreams), as Pillow decodes them through OpenJPEG's tile API in
+  strict mode: the JP2 boxes OpenJPEG reads (ihdr against SIZ, colr,
+  pclr, cmap, cdef, bpcc, boxes past the codestream), the main and
+  tile-part markers with OpenJPEG's checks (a cut stream raises), every
+  progression order and POC change, precincts, tiles, tile-parts, image
+  and tile offsets, quality layers, PPM and PPT, SOP and EPH, the
+  code-block mode switches and RGN max-shift, HTJ2K code-blocks (Part
+  15, code-block style 0x40: OpenJPEG 2.5.4's ht_dec.c, cleanup and
+  refinement passes, its segment rules and its checks of malformed
+  blocks; a CAP marker read as OpenJPEG reads it, not at all), the 5/3
+  and 9/7 transforms (OpenJPEG's float operations in its order) with RCT
+  and ICT, components of their own precision, sign and subsampling; then
+  Pillow's side: the mode Jpeg2KImageFile._open gives (L or I;16 by
+  precision, LA, RGB, RGBA, CMYK from colr, P and PA from pclr:
+  data/image_probe.jpeg2000_header), its unpackers (their shifts and
+  offsets, a subsampled component indexed by width / dx, its tile buffer
+  kept from tile to tile), the colour space it assumes where colr gives
+  none (sYCC where component 1 or 2 is subsampled and component 0 is
+  not), its YCbCr -> RGB for sYCC, a pclr palette as
+  ImagePalette.getcolor builds it, and the files it refuses (a mode and
+  colour space with no unpacker); a CBD marker setting each component's
   depth and sign; Part-2 multi-component transforms as OpenJPEG 2.5.4
   reads them (opj_j2k_read_mct, _mcc, _mco: records of every element
   type, array-based collections, what it skips or fails on), whose MCO
@@ -219,36 +222,36 @@ that pass a file on to the next plugin or end `Image.open`). It reads:
 
 The contract: a file Pillow decodes decodes to Pillow's pixels, or
 raises NotImplementedError naming the format or mode the port does not
-read; a file Pillow fails on raises ValueError. Refused by name: JPEG
-2000's HTJ2K code-blocks (code-block style 0x40), RLE pixels under a
-2-colour grayscale BMP palette, old-style JPEG in tiles or separate
-planes and of a lossless frame, an IPTC band held as TIFF; a file of a
-format Pillow reads that the port does not: AVIF (no AV1 decoder) and
-EPS (Pillow reads it through Ghostscript; the refusal names it). An
-AVIF is named only where libavif 1.3's parse, which Image.open runs,
-takes it (data/image_probe.py models it: the boxes, items, properties
-and their checks, and the search for the AV1 sequence header of an item
-without an nclx colour); one it fails is a ValueError (or no plugin's).
-BUFR, GRIB and HDF5 (Pillow's stubs), MPEG and WMF (no handler off
-Windows) open in Pillow and fail at load: a ValueError naming the
-format and Pillow's error.
-A ValueError where Pillow fails: a file no plugin of `Image.open` takes
-(Pillow's UnidentifiedImageError: JPEG frames of other than 8 bits or
-of 2 or 5 layers, which SOF passes on), a header that ends `Image.open`
-(BMP's depth, bit-fields layout, compression and palette checks), what
-libjpeg-turbo never decodes (hierarchical and arithmetic-coded lossless
-frames, fractional sampling factors, an interleaved MCU of more than 10
-blocks), what Pillow's build never decodes (RLE of more than 8-bit BMP
-pixels, TIFF's WebP compression and its SGILog under any photometric
-Pillow opens), and a TIFF layout Pillow or libtiff refuses, naming it.
+read; a file Pillow fails on raises ValueError. Refused by name: RLE
+pixels under a 2-colour grayscale BMP palette, old-style JPEG in tiles
+or separate planes and of a lossless frame, an IPTC band held as TIFF; a
+file of a format Pillow reads that the port does not: AVIF (no AV1
+decoder) and EPS (Pillow reads it through Ghostscript; the refusal names
+it). An AVIF is named only where libavif 1.3's parse, which Image.open
+runs, takes it (data/image_probe.py models it: the boxes, items,
+properties and their checks, and the search for the AV1 sequence header
+of an item without an nclx colour); one it fails is a ValueError (or no
+plugin's). BUFR, GRIB and HDF5 (Pillow's stubs), MPEG and WMF (no
+handler off Windows) open in Pillow and fail at load: a ValueError
+naming the format and Pillow's error. A ValueError where Pillow fails: a
+file no plugin of `Image.open` takes (Pillow's UnidentifiedImageError:
+JPEG frames of other than 8 bits or of 2 or 5 layers, which SOF passes
+on), a header that ends `Image.open` (BMP's depth, bit-fields layout,
+compression and palette checks), what libjpeg-turbo never decodes
+(hierarchical and arithmetic-coded lossless frames, fractional sampling
+factors, an interleaved MCU of more than 10 blocks), what Pillow's build
+never decodes (RLE of more than 8-bit BMP pixels, TIFF's WebP
+compression and its SGILog under any photometric Pillow opens), and a
+TIFF layout Pillow or libtiff refuses, naming it.
 tests/test_torch_image_probe.py holds the probe to Pillow's Image.open,
 tests/test_torch_image_outcomes.py the contract on every refused file of
-the corpus, tests/test_torch_image_tiff.py, test_torch_image_tiff_rgba.py,
-test_torch_image_plugins.py, test_torch_image_jpeg2000.py,
+the corpus, tests/test_torch_image_tiff.py,
+test_torch_image_tiff_rgba.py, test_torch_image_plugins.py,
+test_torch_image_jpeg2000.py, test_torch_image_htj2k.py,
 test_torch_image_dds.py, test_torch_image_blp_psd.py and
-test_torch_image_legacy.py the decoders to
-Pillow's decode on the CPU, and chip_smoke.py's phase 9 to
-the corpus's Pillow digests on the card's host.
+test_torch_image_legacy.py the decoders to Pillow's decode on the CPU,
+and chip_smoke.py's phase 9 to the corpus's Pillow digests on the card's
+host.
 
 `read_image(f, plain=True)` takes the plain Python decoders below
 instead (`decode_png`, `decode_jpeg`): 8-bit non-interlaced PNG and

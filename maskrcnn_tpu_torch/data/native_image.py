@@ -61,7 +61,8 @@ SOURCE = CSRC / "image_decode.cpp"
 SOURCES = (SOURCE, CSRC / "jpeg_arith.cpp", CSRC / "jpeg_lossless.cpp",
            CSRC / "tiff_zstd.cpp", CSRC / "tiff_xz.cpp",
            CSRC / "tiff_fax.cpp", CSRC / "image_plugins.cpp",
-           CSRC / "jpeg2000_decode.cpp", CSRC / "bcn_decode.cpp",
+           CSRC / "jpeg2000_decode.cpp", CSRC / "jpeg2000_ht.cpp",
+           CSRC / "bcn_decode.cpp",
            CSRC / "image_legacy.cpp", *sorted(CSRC.glob("*.h")))
 WEBP_SOURCE = CSRC / "webp_decode.cpp"
 # -fwrapv: the IDCTs' int32 arithmetic wraps as libjpeg-turbo's does on

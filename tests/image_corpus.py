@@ -39,7 +39,10 @@ tests/image_corpus.py` (needs Pillow, and the system's libwebp for the
 encoder options Pillow does not reach; the digests then change only if
 Pillow's decode does);
 `--time-pillow` prints Pillow's decode times of the files
-tools/image_decode_bench_torch.py times instead; `--rgba-icns` writes
+tools/image_decode_bench_torch.py times instead, `--time-htj2k` those of
+its scenes as HTJ2K and as Part-1 JPEG 2000 alone; `--htj2k` writes the
+HTJ2K files alone (htj2k_cases, the HT scenes) and `--htj2k-tables`
+csrc/htj2k_tables.h; `--rgba-icns` writes
 tiff_rgba_cases, icns_cases and the refused files alone, every other
 file and entry kept.
 """
@@ -74,6 +77,9 @@ JPEG_SCENES = CORPUS.parent / "jpeg_scenes"
 # the scenes as JPEG 2000 (jpeg2000_scene_cases), under a size bound of
 # their own (test_jpeg2000_scenes_are_whole_and_small)
 JPEG2000_SCENES = CORPUS.parent / "jpeg2000_scenes"
+# the scenes as HTJ2K (htj2k_scene_cases), under a size bound of their own
+# (test_htj2k_scenes_are_whole_and_small)
+HTJ2K_SCENES = CORPUS.parent / "htj2k_scenes"
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 ADAM7 = [(0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2)]
@@ -1451,6 +1457,138 @@ def jpeg2000_cases():
     return cases
 
 
+def htj2k_writer():
+    """tests/htj2k_writer.py: the test-only HTJ2K (Part 15) writer, numpy
+    only."""
+    import htj2k_writer
+    return htj2k_writer
+
+
+# the HTJ2K layouts of the corpus (htj2k_writer.encode's keywords, the
+# image's components), each a raw codestream (.j2c); those in HTJ2K_JPH
+# also as a JPH file. "rgb_refinement_layer" is the standard's layout of
+# the refinement passes in a later layer, which OpenJPEG 2.5.4 reads over
+# its Part-1 segment limits (the passes land in the cleanup's segment):
+# Pillow's outcome on it is a digest of other pixels or an error
+HTJ2K_LAYOUTS = {
+    "rgb": {}, "rgb_refined": dict(refine="lossless"),
+    "rgb_refined_all": dict(refine="all"),
+    "rgb_sigprop": dict(refine="sigprop"),
+    "rgb_vsc": dict(refine="all", style=8),
+    "rgb_styles": dict(refine="lossless", style=1 | 2 | 32),
+    "rgb_irreversible": dict(irreversible=True),
+    "rgb_irreversible_refined": dict(irreversible=True, refine="all",
+                                     step_exponent=3),
+    "rgb_no_mct": dict(mct=False), "rgb_levels0": dict(levels=0),
+    "rgb_levels2": dict(levels=2),
+    "rgb_cblk32": dict(cblk=(32, 32), refine="lossless"),
+    "rgb_cblk16": dict(cblk=(16, 16)),
+    "rgb_cblk128x16": dict(cblk=(128, 16), refine="lossless"),
+    "rgb_cblk8x128": dict(cblk=(8, 128)),
+    "rgb_layers": dict(layers=3, layer_of="spread", refine="lossless"),
+    "rgb_refinement_layer": dict(layers=2, layer_of="refinement",
+                                 refine="lossless"),
+    "rgb_termall_refinement_layer": dict(layers=2, layer_of="refinement",
+                                         refine="lossless", style=4),
+    "rgb_termall_split": dict(layers=3, layer_of="split", refine="lossless",
+                              style=4),
+    "rgb_rlcp": dict(progression="RLCP", layers=2, layer_of="spread"),
+    "rgb_rpcl_precincts": dict(progression="RPCL", layers=2,
+                               layer_of="spread", refine="lossless",
+                               precincts=[(4, 4)] * 6),
+    "rgb_tiles": dict(tile=(8, 8), levels=2, refine="lossless"),
+    "rgb_sop_eph": dict(sop=True, eph=True, layers=2, layer_of="spread"),
+    "rgb_cpf": dict(cpf=True), "l": dict(), "l_refined":
+        dict(refine="lossless"), "l12": dict(prec=12),
+    "l_signed": dict(signed=True), "la": dict(), "rgba": dict()}
+HTJ2K_JPH = ("rgb", "rgb_refined", "rgb_irreversible", "l", "la", "rgba")
+
+
+def htj2k_image(rng, h, w, layout):
+    """The seeded image of an HTJ2K layout at h x w, as the writer takes
+    it (its components and precision)."""
+    img = seeded_image(rng, h, w, 4).astype(np.int64)
+    if layout.startswith("rgba"):
+        return img
+    if layout.startswith("la"):
+        return img[..., :2]
+    if layout.startswith("l12"):
+        return img[..., 0] * 16 + (img[..., 0] >> 4)
+    if layout.startswith("l_signed"):
+        return img[..., 0] - 128
+    if layout.startswith("l"):
+        return img[..., 0]
+    return img[..., :3]
+
+
+def htj2k_modes(rng, h, w):
+    """{(name, extension): bytes} of the HTJ2K layouts at h x w."""
+    hw = htj2k_writer()
+    out = {}
+    for layout, kw in HTJ2K_LAYOUTS.items():
+        img = htj2k_image(rng, h, w, layout)
+        cs = hw.encode(img, **kw)
+        out[(layout, "j2c")] = cs
+        if layout in HTJ2K_JPH:
+            nc = 1 if img.ndim == 2 else img.shape[2]
+            out[(layout, "jph")] = hw.jph_file(cs, h, w, nc,
+                                               bpc=kw.get("prec", 8) - 1)
+    return out
+
+
+def htj2k_cases():
+    """(name, bytes) of every HTJ2K layout at every size."""
+    rng = np.random.RandomState(24)
+    return [(f"htj2k_{name}_{h}x{w}.{ext}", data) for h, w in SIZES
+            for (name, ext), data in htj2k_modes(rng, h, w).items()]
+
+
+def htj2k_scene_cases(jpeg_scenes):
+    """(name, bytes, source JPEG scene, what it holds) of the scenes as
+    lossless HTJ2K for phase 9d's sweep and 9a's times (committed,
+    `HTJ2K_SCENES`): each scene's JPEG decode in one layout: the first as
+    a raw codestream (5 levels, 64x64 code-blocks, cleanup passes), the
+    second as a JPH file of 256x256 tiles, 32x32 code-blocks and 64x64
+    precincts in RPCL order with refinement passes, the third as a JPH
+    file of three quality layers with refinement passes."""
+    from PIL import Image
+    hw = htj2k_writer()
+    layouts = (("j2c", "ht", {}),
+               ("jph", "ht_tiles_rpcl", dict(
+                   tile=(256, 256), cblk=(32, 32), progression="RPCL",
+                   precincts=[(6, 6)] * 6, refine="lossless")),
+               ("jph", "ht_layers", dict(layers=3, layer_of="spread",
+                                         refine="lossless")))
+    out = []
+    for (name, data, _), (ext, label, kw) in zip(jpeg_scenes, layouts):
+        decoded = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+        cs = hw.encode(decoded, **kw)
+        if ext == "jph":
+            cs = hw.jph_file(cs, *decoded.shape)
+        out.append((f"{name.rsplit('.', 1)[0]}_{label}.{ext}", cs, name,
+                    "same"))
+    return out
+
+
+def write_htj2k(index, scenes) -> None:
+    """The HTJ2K files of the corpus under Pillow's outcome (a digest, or
+    its error's text), the refused HT stub's outcome, and the HTJ2K scenes
+    with their index."""
+    for name, data in htj2k_cases():
+        write_outcome(index, name, data)
+    for name, data, _ in jpeg2000_refused_cases():
+        write_outcome(index, name, data)
+    HTJ2K_SCENES.mkdir(exist_ok=True)
+    scene_index = {}
+    for name, data, source, holds in htj2k_scene_cases(scenes):
+        (HTJ2K_SCENES / name).write_bytes(data)
+        shape, digest = pillow_digest(data)
+        scene_index[name] = {"shape": shape, "sha256": digest,
+                             "source": source, "pixels": holds}
+    (HTJ2K_SCENES / "index.json").write_text(
+        json.dumps(scene_index, indent=1) + "\n")
+
+
 def _insert_marker(cs: bytes, after: int, marker: bytes) -> bytes:
     """A codestream with `marker` (a whole segment) after the main-header
     segment whose marker is `after`."""
@@ -2147,14 +2285,20 @@ def pillow_digest(data: bytes):
     return list(img.shape[:2]), hashlib.sha256(img.tobytes()).hexdigest()
 
 
-def time_pillow(reps: int = 5) -> None:
+def time_pillow(reps: int = 5, jpeg2000_only: bool = False) -> None:
     """Pillow's `np.asarray(Image.open(f).convert("RGB"))` of the files
-    tools/image_decode_bench_torch.py times, host ms, median of reps."""
+    tools/image_decode_bench_torch.py times (with `jpeg2000_only`, of its
+    scenes as HTJ2K and as Part-1 JPEG 2000 alone), host ms, median of
+    reps."""
     from PIL import Image
 
     from tools import image_decode_bench_torch as bench
     files = {name: (bench.REPO / name).read_bytes() for name in bench.TIMED}
     files.update(bench.format_scenes())
+    if jpeg2000_only:
+        files = {name: data for name, data in files.items()
+                 if (HTJ2K_SCENES / name).exists()
+                 or (JPEG2000_SCENES / name).exists()}
     for name, data in files.items():
         ms = bench.median_ms(lambda: np.asarray(Image.open(io.BytesIO(
             data)).convert("RGB")), reps)
@@ -2190,8 +2334,7 @@ def write_jpeg2000(index, scenes) -> None:
 STILL_REFUSED = {
     "refused_tiff_old_style_jpeg_tiles.tif": "old-style JPEG in tiles",
     "refused_tiff_old_style_jpeg_planar.tif": "old-style JPEG in tiles",
-    "refused_eps.eps": "EPS", "refused_avif.avif": "AVIF",
-    "refused_jp2_htj2k.j2k": "HTJ2K"}
+    "refused_eps.eps": "EPS", "refused_avif.avif": "AVIF"}
 
 
 def lab_clut() -> bytes:
@@ -2303,6 +2446,79 @@ def bcn_tables() -> str:
         rows(a3b, "{}", 16) + "};", "", "}  // namespace mrt", ""])
 
 
+HTJ2K_TABLES = (Path(__file__).resolve().parent.parent / "maskrcnn_tpu_torch"
+                / "csrc" / "htj2k_tables.h")
+
+
+def openjpeg_library() -> Path:
+    """Pillow's bundled libopenjp2 (OpenJPEG 2.5.4)."""
+    import glob
+    import os
+
+    import PIL
+    libs = os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)),
+                        "pillow.libs")
+    return Path(sorted(glob.glob(os.path.join(libs,
+                                              "libopenjp2-*.so.2.5.4")))[0])
+
+
+def _vlc_table_at(data: bytes, off: int):
+    """The 1,024 little-endian uint16 at `off` where they are an HT VLC
+    decoding table (ht_dec.c's layout: c_q << 7 | 7 bits of the stream),
+    else None: every entry's codeword length (its low 3 bits) is 1-7 and
+    every entry equals the entry at its index masked to that length (a
+    prefix code in each of the 8 contexts), e_k within rho and e_1 within
+    e_k, and context 0 has no insignificant quad (there the MEL codes
+    one)."""
+    t = np.frombuffer(data[off:off + 2048], "<u2").astype(np.int64)
+    length = t & 7
+    if (length == 0).any():
+        return None
+    idx = np.arange(1024)
+    if not (t == t[(idx & ~127) | (idx & ((1 << length) - 1))]).all():
+        return None
+    rho, e_1, e_k = (t >> 4) & 15, (t >> 8) & 15, (t >> 12) & 15
+    if (e_k & ~rho).any() or (e_1 & ~e_k).any() or (rho[:128] == 0).any():
+        return None
+    return t.astype(np.uint16)
+
+
+def htj2k_tables() -> str:
+    """OpenJPEG 2.5.4's HT VLC tables (ht_dec.c's vlc_tbl0 and vlc_tbl1)
+    as Pillow's bundled libopenjp2 holds them: the two tables its .rodata
+    holds, found by their structure (_vlc_table_at) in a scan of the
+    library file, the first not overlapping the second; the header
+    csrc/htj2k_tables.h."""
+    data = openjpeg_library().read_bytes()
+    tables, off = [], 0
+    while off + 2048 <= len(data) and len(tables) < 3:
+        t = _vlc_table_at(data, off)
+        if t is None:
+            off += 2
+            continue
+        tables.append(t)
+        off += 2048
+    assert len(tables) == 2, f"{len(tables)} HT VLC tables in the library"
+
+    def rows(values):
+        items = [f"0x{int(v):04x}" for v in values]
+        return ",\n".join("    " + ", ".join(items[i:i + 8])
+                          for i in range(0, len(items), 8))
+
+    return "\n".join([
+        "// OpenJPEG 2.5.4's HT VLC decoding tables (ht_dec.c's vlc_tbl0 for the",
+        "// initial row of quads, vlc_tbl1 for the others), read off Pillow's",
+        "// bundled libopenjp2: written by `python tests/image_corpus.py",
+        "// --htj2k-tables`; do not edit. Index: c_q << 7 | the next 7 bits of the",
+        "// VLC stream; entry: bits 0-2 the codeword's length, 3 u_off, 4-7 rho,",
+        "// 8-11 e_1, 12-15 e_k.",
+        "#pragma once", "", "#include <cstdint>", "", "namespace mrt {", "",
+        "inline constexpr uint16_t kHtVlcTable0[1024] = {",
+        rows(tables[0]) + "};", "",
+        "inline constexpr uint16_t kHtVlcTable1[1024] = {",
+        rows(tables[1]) + "};", "", "}  // namespace mrt", ""])
+
+
 def lab_table_digest() -> str:
     """SHA-256 of Pillow's convert("RGB") of every LAB pixel (L, a + 128,
     b + 128 in the image, L slowest): the RGB bytes of all 2**24."""
@@ -2379,6 +2595,10 @@ def main() -> int:
         BCN_TABLES.write_text(bcn_tables())
         print(f"{BCN_TABLES}: written from Pillow's bcn decoder")
         return 0
+    if "--htj2k-tables" in sys.argv[1:]:
+        HTJ2K_TABLES.write_text(htj2k_tables())
+        print(f"{HTJ2K_TABLES}: written from {openjpeg_library().name}")
+        return 0
     if "--lab-clut" in sys.argv[1:]:
         LAB_CLUT.write_bytes(lab_clut())
         print(f"{LAB_CLUT}: all 2**24 LAB pixels through Pillow: "
@@ -2399,6 +2619,17 @@ def main() -> int:
         return 0
     if "--time-pillow" in sys.argv[1:]:
         time_pillow()
+        return 0
+    if "--time-htj2k" in sys.argv[1:]:
+        time_pillow(7, jpeg2000_only=True)
+        return 0
+    if "--htj2k" in sys.argv[1:]:
+        # the HTJ2K files alone, every other file and entry kept
+        index = json.loads(INDEX.read_text())
+        scenes = [(name, (CORPUS / name).read_bytes(), None)
+                  for name in index["scenes"]]
+        write_htj2k(index, scenes)
+        INDEX.write_text(json.dumps(index, separators=(",", ":")) + "\n")
         return 0
     if "--jpeg2000" in sys.argv[1:]:
         # the JPEG 2000 files alone, every other file and entry kept
@@ -2442,6 +2673,7 @@ def main() -> int:
         index["format_scenes"][name] = source
     index["categories"] = SCENE_CATEGORIES
     write_jpeg2000(index, scenes)
+    write_htj2k(index, scenes)
     write_textures_slice(index)
     write_legacy()
     INDEX.write_text(json.dumps(index, separators=(",", ":")) + "\n")

@@ -6,8 +6,9 @@ tests/test_torch_image_native.py); seeded files of every layout at sizes
 of their own, and cut and byte-edited copies of Pillow's and OpenJPEG's
 files, give Pillow's live outcome (its pixels, or a ValueError where it
 raises); the MQ coder's states are ISO 15444-1's Table C.2; Pillow's
-YCbCr -> RGB for sYCC files holds over every (Cb, Cr); HTJ2K raises
-NotImplementedError naming it; Part-2 multi-component transforms (MCT,
+YCbCr -> RGB for sYCC files holds over every (Cb, Cr); an HT code-block
+style over Part-1 data raises as Pillow does (HTJ2K itself:
+tests/test_torch_image_htj2k.py); Part-2 multi-component transforms (MCT,
 MCC and MCO markers: OpenJPEG's own, of every element type, moved into
 tile-part headers, byte-edited) give Pillow's outcome; the
 scenes as JPEG 2000 (tests/data/jpeg2000_scenes, which chip_smoke.py's
@@ -86,7 +87,8 @@ def test_corpus_covers_every_layout_at_every_size():
     assert "refused_jp2.jp2" in INDEX["files"]
     refused = {n: w for n, w in INDEX["refused"].items()
                if n.startswith("refused_jp2")}
-    assert sorted(refused.values()) == ["HTJ2K"]
+    # (HTJ2K is read: its stub over Part-1 data is one Pillow fails on)
+    assert refused == {} and "refused_jp2_htj2k.j2k" in INDEX["errors"]
     assert len([n for n in INDEX["files"] if n.startswith("jp2_part2_")]) \
         == 10
     assert {"refused_jp2_part2_mct.j2k", "refused_jp2_part2_transform.j2k"} \
@@ -152,8 +154,8 @@ def _siz_subsampling(data: bytes):
 def test_cut_and_edited_files_give_pillows_outcome(seed):
     """Cuts of every length class and single-byte edits (headers, packet
     headers, code-block data) give Pillow's outcome: its pixels, or a
-    ValueError where it raises (strict mode: a cut stream raises). An
-    edit that sets HTJ2K's style bit is refused by name instead. Edits
+    ValueError where it raises (strict mode: a cut stream raises), an
+    edit that sets HTJ2K's style bit over Part-1 data too. Edits
     of a component's subsampling (XRsiz, YRsiz) are not drawn: where the
     subsampling leaves a component smaller than Pillow's unpacker
     indexes, Pillow reads past OpenJPEG's tile data (memory it never
@@ -176,9 +178,8 @@ def test_cut_and_edited_files_give_pillows_outcome(seed):
             cases.append(bytes(e))
         for d in cases:
             want, got = pillow(d), outcome(d)
-            if isinstance(got, str) and got.startswith("refused"):
-                assert "HTJ2K" in got, (name, got)
-                continue
+            assert not (isinstance(got, str) and got.startswith("refused")), \
+                (name, got)
             compared += 1
             if want is None:
                 assert isinstance(got, str) and got == "error", name
@@ -241,8 +242,10 @@ def test_sycc_colours_equal_pillows_ycbcr_conversion():
 
 
 def test_refused_parts_are_named():
-    """HTJ2K code-blocks (COD's or COC's style 0x40) raise
-    NotImplementedError naming them; a style byte with HT mixed mode
+    """HTJ2K's code-block style (0x40) over Part-1 data, which OpenJPEG
+    fails on (its HT decoder finds no cleanup segment there), raises a
+    ValueError as Pillow does (HT code-blocks themselves are read:
+    tests/test_torch_image_htj2k.py); a style byte with HT mixed mode
     (0x80), which OpenJPEG itself refuses, raises a ValueError as Pillow
     does, as do an MCT, MCC or MCO marker too short for OpenJPEG's reader
     and a CBD marker of the wrong length (opj_j2k_read_cbd's check)."""
@@ -252,7 +255,8 @@ def test_refused_parts_are_named():
     cod = cs.index(b"\xff\x52")
     ht = bytearray(cs)
     ht[cod + 12] |= 0x40
-    with pytest.raises(NotImplementedError, match="HTJ2K"):
+    assert pillow(bytes(ht)) is None
+    with pytest.raises(ValueError):
         image_io.read_image(bytes(ht))
     mixed = bytearray(cs)
     mixed[cod + 12] |= 0xC0

@@ -41,8 +41,6 @@ REFUSED_FILES = sorted(p.name for p in ic.CORPUS.iterdir()
 STUBS = {
     "refused_eps.eps": "EPS, which Pillow reads through Ghostscript (not on "
                        "this machine), and whose refusal names Ghostscript",
-    "refused_jp2_htj2k.j2k": "a hand-edited HT code-block style over Part-1 "
-                             "data, which OpenJPEG fails on",
     "refused_tiff_old_style_jpeg_tiles.tif": "old-style JPEG in tiles, which "
     "the port does not read (a JPEGInterchangeFormat stream each tile here, "
     "which libtiff fails on)",

@@ -51,7 +51,10 @@ LAB, ThunderScan, 16-bit CMYK and the xz filters; with --format jpeg2000, `'jp2_
 layouts of tests/image_corpus.jpeg2000_modes (raw J2K and JP2: every
 mode switch, SOP/EPH, POC, tile-parts, RGN, PPT and PPM, subsampling,
 palettes), each decoded in a mode of Pillow's drawn at random;
-`'jp2_part2_*'` the Part-2 transforms (MCT, MCC and MCO markers).)
+`'jp2_part2_*'` the Part-2 transforms (MCT, MCC and MCO markers);
+`'htj2k_*'` the HTJ2K layouts of tests/image_corpus.HTJ2K_LAYOUTS (raw
+codestreams and JPH files; cleanup passes, SigProp and MagRef, VSC,
+quality layers, tiles, precincts).)
 
 Host only, no card; a worker holds at most a 4-megapixel output.
 """
@@ -84,7 +87,8 @@ SUFFIX = {"jpeg": (".jpg",), "gif": (".gif",), "bmp": (".bmp",),
           "ppm": (".ppm", ".pgm", ".pbm", ".pfm"), "tga": (".tga",),
           "qoi": (".qoi",), "pcx": (".pcx",), "dcx": (".dcx",),
           "sgi": (".sgi",), "sun": (".ras",), "dib": (".dib",),
-          "ico": (".ico",), "cur": (".cur",), "jpeg2000": (".jp2", ".j2k"),
+          "ico": (".ico",), "cur": (".cur",), "jpeg2000": (".jp2", ".j2k",
+                                                         ".j2c", ".jph"),
           "icns": (".icns",), "dds": (".dds",), "blp": (".blp",),
           **{fmt: (f".{fmt}",) for fmt in (
               "im", "spider", "fits", "mcidas", "imt", "xvthumb", "pixar",

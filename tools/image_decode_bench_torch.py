@@ -7,8 +7,11 @@ as PNG, lossy WebP (q80), lossless WebP, GIF, BMP and TIFF (uncompressed, LZW
 with predictor 2, tiled Deflate with predictor 2, its JPEG stream as
 a YCbCr 2x2 JPEG TIFF, ZSTD and LZMA with predictor 2, and its bilevel
 as CCITT Group 4, as arithmetic-coded, lossless (predictors 1 and 7)
-and block-smoothed JPEG, and as reversible and irreversible JP2 (committed,
-tests/data/jpeg2000_scenes, csrc/jpeg2000_decode.cpp); the PNG written
+and block-smoothed JPEG, as irreversible JP2, with the three scenes
+each in its layout as reversible JPEG 2000 (committed,
+tests/data/jpeg2000_scenes, csrc/jpeg2000_decode.cpp) and as lossless
+HTJ2K (committed, tests/data/htj2k_scenes, csrc/jpeg2000_ht.cpp): HT
+against Part-1 on the same pixels in one run; the PNG written
 here from the JPEG scene's decode
 by `image_io.encode_png`, the GIF, BMP, Group 4 and other TIFF ones by
 tests/image_writers.py, numpy and the standard library only, the ZSTD
@@ -92,6 +95,17 @@ JPEG2000_FILES = ("scene_baseline_420_default.jp2",
 COMMITTED_JPEG2000 = {
     "jpeg2000": "scene_baseline_420_default.jp2",
     "jpeg2000_irreversible": "scene_baseline_420_irreversible.jp2"}
+# the scenes as lossless HTJ2K (tests/image_corpus.htj2k_scene_cases):
+# each scene's JPEG decode in a layout of its own (the first a raw
+# codestream of cleanup passes, the second a JPH file of tiles and
+# precincts in RPCL order with refinement passes, the third a JPH file of
+# three quality layers with refinement passes)
+HTJ2K_SCENES = REPO / "tests" / "data" / "htj2k_scenes"
+HTJ2K_FILES = ("scene_baseline_420_ht.j2c",
+               "scene_baseline_444_ht_tiles_rpcl.jph",
+               "scene_progressive_ht_layers.jph")
+# the formats whose timed files are all three scenes' (format_scenes)
+LAYOUTS = ("jpeg2000_layouts", "htj2k_layouts")
 TIMED = ("images/sample.jpg", "output/detections.jpg",
          "tests/data/image_io/scene_progressive.jpg")
 # the JPEG scenes as lossy WebP, each in the JPEG scene's slot
@@ -289,6 +303,8 @@ def scene_files(fmt: str, count: int = 3) -> tuple:
     committed default and irreversible JP2 of the first scene and the
     other two as their JPEG files; "jpeg2000_layouts" each scene's
     committed reversible JPEG 2000 file (JPEG2000_FILES: its JPEG decode's
+    pixels); "htj2k_layouts" each
+    scene's committed lossless HTJ2K file (HTJ2K_FILES: its JPEG decode's
     pixels); "tiff_group4" the scenes' bilevel (mean of the channels
     below 110 black) as CCITT Group 4; PLUGIN_SCENES written from their
     native decodes (plugin_scene); RGBA_MODES (rgba_mode); TEXTURE_MODES
@@ -314,6 +330,9 @@ def scene_files(fmt: str, count: int = 3) -> tuple:
         elif fmt == "jpeg2000_layouts":
             out.append((JPEG2000_FILES[k],
                         (JPEG2000_SCENES / JPEG2000_FILES[k]).read_bytes()))
+        elif fmt == "htj2k_layouts":
+            out.append((HTJ2K_FILES[k],
+                        (HTJ2K_SCENES / HTJ2K_FILES[k]).read_bytes()))
         elif fmt == "tiff_group4":
             bilevel = image_io.read_image(data).mean(-1) < 110
             out.append((f"{stem}_group4.tif", image_writers().encode_tiff(
@@ -361,8 +380,8 @@ FORMAT_TIMES = ("png", "webp", "webp_lossless", "gif", "bmp", "tiff_raw",
                 "tiff_lzw_predictor", "tiff_tiled_deflate_predictor",
                 "tiff_jpeg", "tiff_zstd_predictor", "tiff_lzma_predictor",
                 "tiff_group4") + PLUGIN_SCENES + tuple(COMMITTED_JPEG) + tuple(
-                    COMMITTED_JPEG2000) + RGBA_MODES + TEXTURE_MODES + \
-    LEGACY_MODES
+                    COMMITTED_JPEG2000) + LAYOUTS + RGBA_MODES + \
+    TEXTURE_MODES + LEGACY_MODES
 
 
 def format_scenes() -> dict:
@@ -372,10 +391,12 @@ def format_scenes() -> dict:
     bilevel as Group 4, as PPM P6, TGA RLE, QOI, PCX, SGI RLE and Sun
     RLE, as arithmetic-coded sequential and progressive JPEG, lossless
     JPEG with predictors 1 and 7 and a block-smoothed progressive JPEG,
-    as reversible and irreversible JP2, in RGBA_MODES, TEXTURE_MODES and
-    LEGACY_MODES (the files decode_times times beside TIMED)."""
+    as reversible and irreversible JP2, and the three scenes each as
+    reversible JPEG 2000 and as lossless HTJ2K in its layout (LAYOUTS), in
+    RGBA_MODES, TEXTURE_MODES and LEGACY_MODES (the files decode_times
+    times beside TIMED)."""
     return {name: data for fmt in FORMAT_TIMES
-            for name, data in scene_files(fmt, 1)}
+            for name, data in scene_files(fmt, 3 if fmt in LAYOUTS else 1)}
 
 
 @functools.lru_cache(maxsize=None)
