@@ -169,7 +169,13 @@ Phases, each printing one line:
     the seeded Photo CD files to their digests, the files Pillow fails
     on (the stubs and MPEG among them) ValueErrors, EPS refused naming
     Ghostscript, and host ms a decode of the first scene as IM RGB,
-    SPIDER, FITS -32, XPM, MSP v2, FLI, GBR RGBA and a Photo CD;
+    SPIDER, FITS -32, XPM, MSP v2, FLI, GBR RGBA and a Photo CD; AVIF
+    (csrc/av1_decode.cpp, csrc/avif_decode.cpp, a library of its own
+    linking only the runtimes): the corpus's AVIF files and the scenes as
+    AVIF (tests/data/avif_scenes) to Pillow's digests, the 10-bit,
+    12-bit, superres, grid, film-grain and IntraBC files refused by
+    name, and ms an image of the 640x480 scene as AVIF at Pillow's
+    defaults and at speed 0, on 1 and 4 threads;
     9b K1 against its plain version at the 64 px levels (P5 2x2), K1-bwd
     there as in 7a, then tests/test_learning_ap.py on the card: the 64 px
     TinyConfig trained from scratch (240 steps, B=4, one class),
@@ -207,8 +213,10 @@ Phases, each printing one line:
     precincts, a layered JP2 with PLT; detections equal the JPEG
     sweep's), and one batch rotating through the last plugins (IM RGB,
     SPIDER, FITS -32, XPM, MSP v2, FLI, GBR RGBA, Photo CD: detections
-    equal those of its decodes read back from PNG), K1, K2 and K4
-    launched in each; one POST
+    equal those of its decodes read back from PNG), and one batch of the
+    scenes as AVIF at Pillow's defaults (detections equal those of its
+    decodes read back from PNG; the decode's share of the sweep), K1, K2
+    and K4 launched in each; one POST
     each of the progressive JPEG, a lossy WebP and a JPEG TIFF to
     tools/serve_torch.py's handler answered;
 10. after phase 9, the spatial axis and the debug and tutorial surface:
@@ -3031,24 +3039,26 @@ def learning_tools():
 
 class DecoderBuild:
     """The native image decoders (g++: csrc/image_decode.cpp with the TIFF
-    codecs' sources, and csrc/webp_decode.cpp) built in two threads from
-    when it is made,
+    codecs' sources, csrc/webp_decode.cpp, and csrc/avif_decode.cpp with
+    csrc/av1_decode.cpp) built in three threads from when it is made,
     beside the kernels' nvcc build; `wait` gives the seconds the later
     one took."""
 
     def __init__(self):
         from maskrcnn_tpu_torch.data import native_image
         self.fresh = not (native_image.library_path().exists()
-                          and native_image.webp_library_path().exists())
+                          and native_image.webp_library_path().exists()
+                          and native_image.avif_library_path().exists())
         t0 = time.perf_counter()
 
         def build(fn):
             fn()
             return time.perf_counter() - t0
 
-        self.pool = ThreadPoolExecutor(2)
+        self.pool = ThreadPoolExecutor(3)
         self.futures = [self.pool.submit(build, fn) for fn in (
-            native_image.library, native_image.webp_library)]
+            native_image.library, native_image.webp_library,
+            native_image.avif_library)]
 
     def wait(self) -> float:
         try:
@@ -3058,17 +3068,22 @@ class DecoderBuild:
 
 
 def decoder_links() -> dict:
-    """What the JPEG/PNG/GIF/BMP/TIFF decoder library links (ldd) and
-    whether it imports a zlib, libtiff, libzstd, XXH, liblzma or OpenJPEG
+    """What the JPEG/PNG/GIF/BMP/TIFF decoder library and the AVIF one
+    link (ldd: the C and C++ runtimes alone, no libavif, libaom, dav1d or
+    libyuv) and whether the former imports a zlib, libtiff, libzstd, XXH,
+    liblzma or OpenJPEG
     symbol (nm -D: no inflate*, TIFF*, ZSTD_*, XXH*, lzma_* or opj_*):
     {"ok", "needed",
     "nm"}; not ok without nm, whose reading the claim needs."""
     from maskrcnn_tpu_torch.data import native_image
     path = str(native_image.library_path())
-    out = subprocess.run(["ldd", path], capture_output=True, text=True,
-                         timeout=60).stdout
-    needed = sorted({line.split()[0].rsplit("/", 1)[-1]
-                     for line in out.splitlines() if line.strip()})
+    needed = set()
+    for lib in (path, str(native_image.avif_library_path())):
+        out = subprocess.run(["ldd", lib], capture_output=True, text=True,
+                             timeout=60).stdout
+        needed |= {line.split()[0].rsplit("/", 1)[-1]
+                   for line in out.splitlines() if line.strip()}
+    needed = sorted(needed)
     runtimes = ("linux-vdso", "libstdc++", "libgcc_s", "libc.", "libm.",
                 "ld-linux")
     ok = bool(needed) and all(n.startswith(runtimes) for n in needed)
@@ -3270,8 +3285,8 @@ def decode_phase(card, build=None):
     with open("/proc/self/maps") as f:
         loaded = {line.split()[-1] for line in f if "/" in line}
     codecs = sorted(p for p in loaded
-                    if re.match(r"lib(webp|gif|tiff|openjp2)[.-]",
-                                os.path.basename(p))
+                    if re.match(r"lib(webp|gif|tiff|openjp2|avif|aom|dav1d|yuv)"
+                                r"[.-]", os.path.basename(p))
                     or "/PIL/" in p or "pillow.libs" in p)
     check(not codecs, f"9a: a system codec was loaded: {codecs}")
     links = decoder_links()
@@ -3282,7 +3297,7 @@ def decode_phase(card, build=None):
            if row["plain_ms"] is not None else "refuses it")
         for name, row in times.items())
     print(f"[9a] native decoders {'built' if fresh else 'found built'} in "
-          f"{build_s:.2f} s (two g++ threads, from the script's start in a "
+          f"{build_s:.2f} s (three g++ threads, from the script's start in a "
           f"whole run); {len(IMAGE_DIGESTS)} repository images decode "
           f"to Pillow's pixels (SHA-256) and equal the plain route; corpus: "
           f"{len(index['files'])} files to their digests (ZSTD, LZMA and "
@@ -3316,7 +3331,8 @@ def decode_phase(card, build=None):
           f"{inflate['zlib_ms']:.2f} ms; decodes a second of "
           "the scenes on 1 / 4 threads (native and plain: the baseline "
           "JPEG scenes; webp: the lossy WebP scenes; tiff: the scenes as "
-          "tiled Deflate TIFF): " + ", ".join(
+          "tiled Deflate TIFF; avif, avif_speed0: the first scene as AVIF "
+          "at Pillow's defaults and at speed 0): " + ", ".join(
               f"{route} {row[1]:.1f} / {row[4]:.1f} ({row[4] / row[1]:.2f}x)"
               for route, row in threads.items())
           + f"; BatchLoader over the corpus scenes (CocoConfig, B=4): 1 "
@@ -3336,6 +3352,30 @@ def decode_phase(card, build=None):
               f"{n} {times[n]['native_ms']:.2f} ms" for n in scene_hts)
           + "; the Part-1 JPEG 2000 scenes of the same pixels: " + ", ".join(
               f"{n} {times[n]['native_ms']:.2f} ms" for n in scene_j2ks)
+          + f"; {card}", flush=True)
+    avif_scenes = json.loads((bench.AVIF_SCENES / "index.json").read_text())
+    for name, entry in avif_scenes.items():
+        img = image_io.read_image(bench.AVIF_SCENES / name)
+        check(list(img.shape) == entry["shape"] + [3]
+              and hashlib.sha256(img.tobytes()).hexdigest()
+              == entry["sha256"], f"9a: {name} decodes to other pixels "
+              "than Pillow's")
+    avifs = sum(name.endswith(".avif") for name in index["files"])
+    avif_refused = sorted(word for name, word in index["refused"].items()
+                          if name.endswith(".avif"))
+    print(f"[9a] AVIF (csrc/av1_decode.cpp, csrc/avif_decode.cpp): "
+          f"{avifs} corpus files (Pillow's qualities 0-100, speeds 0-10, "
+          f"4:0:0 to 4:4:4, limited range, 2x2 tiles, straight and "
+          f"premultiplied alpha, the aom tools, a libaom full-header "
+          f"frame) and the scenes as AVIF ({len(avif_scenes)} committed "
+          f"files) to Pillow's digests, refused by name: "
+          f"{', '.join(avif_refused)}; the 640x480 scene as AVIF, the "
+          f"whole decode (container, AV1, YUV to RGB), median of 5 on one "
+          f"thread and an image of 48 decodes on 4 threads: " + ", ".join(
+              f"{n} {times[n]['native_ms']:.2f} ms, "
+              f"{1e3 / threads[route][4]:.2f} ms on 4 threads"
+              for n, route in ((bench.AVIF_FILES[0], "avif"),
+                               (bench.AVIF_SPEED0, "avif_speed0")))
           + f"; {card}", flush=True)
 
 
@@ -3362,7 +3402,7 @@ FILES_FORMATS = ("bmp", "webp_lossless", "tiff_tiled_lzw_predictor", "webp",
                  "jpeg2000_layouts", "htj2k_layouts", "rgba_modes",
                  "rgba_modes_png",
                  "texture_modes", "texture_modes_png", "legacy_modes",
-                 "legacy_modes_png")
+                 "legacy_modes_png", "avif", "avif_png")
 # the sweeps whose files hold the JPEG decodes' pixels, so their detections
 # equal the JPEG sweep's (the JPEG TIFF holds the baseline scenes' own JPEG
 # streams, which decode to their JPEG files' pixels; the ZSTD and LZMA
@@ -3388,7 +3428,8 @@ FILES_IMAGES = {"bmp": FILES_B, "webp_lossless": FILES_B, "webp": FILES_B,
                 "htj2k_layouts": FILES_B,
                 "rgba_modes": FILES_B, "rgba_modes_png": FILES_B,
                 "texture_modes": FILES_B, "texture_modes_png": FILES_B,
-                "legacy_modes": FILES_B, "legacy_modes_png": FILES_B}
+                "legacy_modes": FILES_B, "legacy_modes_png": FILES_B,
+                "avif": FILES_B, "avif_png": FILES_B}
 # "rgba_modes": one batch rotating through libtiff's RGBA route, LAB and
 # ICNS (image_decode_bench_torch.RGBA_MODES: YCbCr 2x2 LZW strips, YCbCr
 # 1x1 Deflate planes, old-style JPEG, LAB, an ic10 PNG on a 1024² canvas), other
@@ -3399,7 +3440,10 @@ FILES_IMAGES = {"bmp": FILES_B, "webp_lossless": FILES_B, "webp": FILES_B,
 # DXT5, BLP1 JPEG, PackBits RGB PSD, CMYK PSD, a Part-2 J2K), held the same
 # way ("texture_modes_png"), as is "legacy_modes", one batch rotating
 # through the last plugins (image_decode_bench_torch.LEGACY_MODES: IM RGB,
-# SPIDER, FITS -32, XPM, MSP v2, FLI, GBR RGBA, a 768x512 Photo CD)
+# SPIDER, FITS -32, XPM, MSP v2, FLI, GBR RGBA, a 768x512 Photo CD);
+# "avif" one batch of the scenes as AVIF at Pillow's defaults (committed,
+# tests/data/avif_scenes), held to its decodes read back from PNG
+# ("avif_png")
 
 
 def files_phase(kernels, card, cfg=None):
@@ -3527,6 +3571,11 @@ def files_phase(kernels, card, cfg=None):
                           sweeps["legacy_modes_png"][0]),
           "9d: the last plugins' sweep's detections differ from those of "
           "its decodes read back from PNG")
+    check(same_detections(sweeps["avif"][0], sweeps["avif_png"][0]),
+          "9d: the AVIF sweep's detections differ from those of its "
+          "decodes read back from PNG")
+    check(sweeps["avif"][2]["files"].get(".avif", 0) == FILES_B,
+          f"9d: the AVIF sweep read {sweeps['avif'][2]['files']}")
     n_images = 3 * FILES_COPIES
     parts = []
     for route, (results, seconds, decode, stats, n, count) in sweeps.items():
@@ -3589,7 +3638,10 @@ def files_phase(kernels, card, cfg=None):
           f"its decodes read back from PNG; of the DDS, BLP, PSD and "
           f"Part-2 batch (BC1, BC7, 5-6-5 DDS, BLP2 DXT5, BLP1 JPEG, "
           f"PackBits RGB PSD, CMYK PSD, Part-2 J2K in turn) and of its "
-          f"decodes read back from PNG; "
+          f"decodes read back from PNG; of the AVIF batch (the scenes at "
+          f"Pillow's defaults, the AVIF decode "
+          f"{100 * sweeps['avif'][2]['s'] / sweeps['avif'][1]:.1f}% of its "
+          f"sweep) and of its decodes read back from PNG; "
           + "; ".join(parts)
           + f"; bbox AP {sweeps['native'][3][0]:.3f} (seeded weights); "
           + "; ".join(f"serve_torch POST of {name} answered {status} with "

@@ -3,8 +3,8 @@ reads decodes to RGB uint8, and a PNG writer.
 
 `read_image(f)` (a path, the file's bytes or a binary file object)
 returns what `np.asarray(PIL.Image.open(f).convert("RGB"))` returns with
-Pillow 12.1 over libjpeg-turbo 3.1, zlib, libwebp 1.6, libtiff 4.7 and
-OpenJPEG 2.5.4,
+Pillow 12.1 over libjpeg-turbo 3.1, zlib, libwebp 1.6, libtiff 4.7,
+OpenJPEG 2.5.4 and libavif 1.3 (dav1d, libyuv),
 bit for bit, through the native decoders (`csrc/image_decode.cpp` for
 PNG, JPEG, GIF, BMP (with the DIB frames of DIB, ICO and CUR files) and
 TIFF, with TIFF's ZSTD, LZMA and CCITT codecs in `csrc/tiff_zstd.cpp`,
@@ -13,7 +13,8 @@ TGA, QOI, PCX, DCX, SGI and Sun raster and ICNS's packed icons;
 `csrc/jpeg2000_decode.cpp` for JPEG 2000; `csrc/bcn_decode.cpp` for
 the pixels of DDS, BLP and PSD; `csrc/image_legacy.cpp` for IM, SPIDER,
 FITS, MCIDAS, IMT, XVThumb, PIXAR, GBR, FTEX, XBM, XPM, MSP, FLI and
-PCD; `csrc/webp_decode.cpp` for WebP;
+PCD; `csrc/webp_decode.cpp` for WebP; `csrc/avif_decode.cpp` with
+`csrc/av1_decode.cpp` for AVIF;
 built with g++ on first use and called through ctypes outside the GIL,
 one call a decode after its size call: data/native_image.py). The format
 is told as Pillow's `Image.open` tells it (`format_of`,
@@ -220,18 +221,37 @@ that pass a file on to the next plugin or end `Image.open`). It reads:
   own read by this reader, a band merged with black ones into RGB or
   CMYK as IptcImageFile.load merges it).
 
+* AVIF (AvifImagePlugin over libavif 1.3 and dav1d): the primary item's
+  AV1 key frame (an image sequence's primary item, its first frame) and
+  its alpha item's, 8-bit, profiles 0-2 (4:0:0, 4:2:0, 4:2:2, 4:4:4),
+  every intra tool of the AV1 specification (`csrc/av1_decode.cpp`:
+  multiple tiles, palette, CFL, filter intra, directional modes with
+  edge filter and upsampling, quantizer matrices, delta q and lf,
+  segmentation, lossless WHT, deblocking, CDEF, Wiener and self-guided
+  restoration), converted as avifImageYUVToRGB converts for Pillow
+  (`csrc/avif_decode.cpp`: libyuv's fixed point and bilinear chroma for
+  BT.601, BT.709 and BT.2020 in either range, libavif's float route for
+  identity, YCgCo and the other matrices), premultiplied alpha undone
+  as libyuv's ARGBUnattenuate does, the frame's top-left part where it
+  is larger than the item's ispe. The container is read by
+  data/image_probe.py's model of libavif's parse (`avif_layout`).
+  Refused by name: 10- and 12-bit data, film grain, superres, IntraBC,
+  grid items, a sequence of tracks without items, and an AV1 frame
+  smaller than its item's ispe (libavif reads past dav1d's picture,
+  memory the codec never wrote).
+
 The contract: a file Pillow decodes decodes to Pillow's pixels, or
 raises NotImplementedError naming the format or mode the port does not
 read; a file Pillow fails on raises ValueError. Refused by name: RLE
 pixels under a 2-colour grayscale BMP palette, old-style JPEG in tiles
-or separate planes and of a lossless frame, an IPTC band held as TIFF; a
-file of a format Pillow reads that the port does not: AVIF (no AV1
-decoder) and EPS (Pillow reads it through Ghostscript; the refusal names
-it). An AVIF is named only where libavif 1.3's parse, which Image.open
-runs, takes it (data/image_probe.py models it: the boxes, items,
-properties and their checks, and the search for the AV1 sequence header
-of an item without an nclx colour); one it fails is a ValueError (or no
-plugin's). BUFR, GRIB and HDF5 (Pillow's stubs), MPEG and WMF (no
+or separate planes and of a lossless frame, an IPTC band held as TIFF,
+AVIF's 10- and 12-bit data, film grain, superres, IntraBC and grids; a
+file of a format Pillow reads that the port does not: EPS (Pillow reads
+it through Ghostscript; the refusal names it). An AVIF is read only
+where libavif 1.3's parse, which Image.open runs, takes it
+(data/image_probe.py models it: the boxes, items, properties and their
+checks, and the search for the AV1 sequence header of an item without
+an nclx colour); one it fails is a ValueError (or no plugin's). BUFR, GRIB and HDF5 (Pillow's stubs), MPEG and WMF (no
 handler off Windows) open in Pillow and fail at load: a ValueError
 naming the format and Pillow's error. A ValueError where Pillow fails: a
 file no plugin of `Image.open` takes (Pillow's UnidentifiedImageError:
@@ -248,8 +268,9 @@ tests/test_torch_image_outcomes.py the contract on every refused file of
 the corpus, tests/test_torch_image_tiff.py,
 test_torch_image_tiff_rgba.py, test_torch_image_plugins.py,
 test_torch_image_jpeg2000.py, test_torch_image_htj2k.py,
-test_torch_image_dds.py, test_torch_image_blp_psd.py and
-test_torch_image_legacy.py the decoders to Pillow's decode on the CPU,
+test_torch_image_dds.py, test_torch_image_blp_psd.py,
+test_torch_image_legacy.py and test_torch_image_avif.py the decoders to
+Pillow's decode on the CPU,
 and chip_smoke.py's phase 9 to the corpus's Pillow digests on the card's
 host.
 
@@ -294,7 +315,7 @@ def _read_bytes(source: Source) -> bytes:
 
 # the formats read, by Pillow's name: their native decoders
 # (native_image.decode_<name>)
-READ = ("BMP", "DIB", "GIF", "JPEG", "PPM", "PNG", "BLP", "CUR", "PCX",
+READ = ("BMP", "DIB", "GIF", "JPEG", "PPM", "PNG", "AVIF", "BLP", "CUR", "PCX",
         "DCX", "DDS", "FITS", "FLI", "FTEX", "GBR", "ICNS", "ICO", "IM",
         "IMT", "IPTC", "JPEG2000", "MCIDAS", "MSP", "PCD", "PIXAR", "PSD",
         "TIFF", "QOI", "SGI", "SPIDER", "SUN", "TGA", "WEBP", "XBM", "XPM",

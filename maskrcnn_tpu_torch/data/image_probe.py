@@ -36,8 +36,9 @@ probe returns "ICO" and the ICO decoder raises the ValueError. AVIF's
 (`_avif_parse`: the top-level boxes, the meta box's children and their
 checks, the items' properties, the primary and alpha items, and for an
 item without CICP the search for its AV1 sequence header, whose OBUs
-`av1_sequence_header` parses); what it leaves out needs the AV1
-decoder. The plugins whose files the port decodes past their header
+`av1_sequence_header` parses); its size and mode are the image's
+(the primary item's ispe; RGBA with an alpha item), and `avif_layout`
+hands the items and their colour to the AVIF decoder. The plugins whose files the port decodes past their header
 leave what their decoder reads in `_File.layout` (`plugin_layout`).
 PSD's `_open` looks (mode, bits) up in
 PsdImagePlugin.MODES, whose pairs alone open. tests/test_torch_image_probe.py
@@ -1575,7 +1576,8 @@ class _AvifStream:
 def _avif_item(items, iid):
     return items.setdefault(iid, {"type": b"", "extents": [], "props": [],
                                   "ipma": False, "essential": False,
-                                  "idat": False, "thmb": 0, "auxl": 0})
+                                  "idat": False, "thmb": 0, "auxl": 0,
+                                  "prem": 0})
 
 
 def _avif_properties(d, start, end):
@@ -1601,9 +1603,11 @@ def _avif_properties(d, start, end):
             prop["icc"] = colour in (b"rICC", b"prof")
             prop["nclx"] = colour == b"nclx"
             if prop["nclx"]:
-                b.read(6)
-                if b.u(1) & 0x7F:           # reserved bits
+                prop["cicp"] = (b.u(2), b.u(2), b.u(2))
+                flags = b.u(1)
+                if flags & 0x7F:            # reserved bits
                     raise _AvifFail("BMFF parsing failed")
+                prop["full_range"] = flags >> 7
         elif kind == b"av1C":
             first = b.u(1)
             if not first >> 7 or first & 0x7F != 1:
@@ -1760,8 +1764,11 @@ def _avif_meta(d, start, end):
                     dst = b.u(2 if version == 0 else 4)
                     if dst == 0:
                         raise _AvifFail("BMFF parsing failed")
-                    if ref in (b"thmb", b"auxl"):
+                    if ref in (b"thmb", b"auxl", b"prem"):
                         _avif_item(items, src)[ref.decode()] = dst
+                    elif ref == b"dimg":
+                        _avif_item(items, src).setdefault(
+                            "dimg", []).append(dst)
         elif kind == b"iinf":
             version = b.version()
             if version > 1:
@@ -1790,13 +1797,15 @@ def _avif_meta(d, start, end):
     return items, meta
 
 
-def _avif_parse(d: bytes) -> None:
+def _avif_parse(d: bytes):
     """libavif 1.3's avifDecoderParse of a still image, as far as its
     result does not depend on the AV1 data: the top-level boxes (ftyp
     first, its brands; meta, whose hdlr, iloc, pitm, idat, iprp (ipco,
     ipma) and iinf are read with their checks), then the items' ispe, the
     primary item (Missing or empty image item), its av1C, pixi against
-    av1C, its extents against the file. Raises _AvifFail."""
+    av1C, its extents against the file. Raises _AvifFail; returns
+    (items, info, primary item, alpha item or None), or None for a file
+    of tracks alone (an image sequence without items)."""
     s = _AvifStream(d)
     ftyp = meta = None
     moov = False
@@ -1861,7 +1870,15 @@ def _avif_parse(d: bytes) -> None:
     size = sum(n for _, n in item["extents"])
     if size > len(d):
         raise _AvifFail("BMFF parsing failed")
-    _avif_validate(item)
+    if item["type"] == b"grid":
+        # its tiles carry the av1C (the port refuses grids by name)
+        tiles = item.get("dimg", [])
+        if not tiles or tiles[0] not in items:
+            raise _AvifFail("BMFF parsing failed")
+        _avif_validate(items[tiles[0]])
+    else:
+        _avif_validate(item)
+    found = None
     for alpha in items.values():
         if (alpha["auxl"] == info["primary"] and not alpha["essential"]
                 and alpha["type"] == b"av01"
@@ -1872,6 +1889,7 @@ def _avif_parse(d: bytes) -> None:
                 asize = sum(n for _, n in alpha["extents"])
                 if asize > len(d):
                     raise _AvifFail("BMFF parsing failed")
+                found = alpha
                 break
     colr = [p for p in item["props"] if p["type"] == b"colr"]
     for key in ("icc", "nclx"):
@@ -1879,6 +1897,7 @@ def _avif_parse(d: bytes) -> None:
             raise _AvifFail("BMFF parsing failed")
     if not any(p["nclx"] for p in colr):
         _avif_harvest_cicp(d, item, info, size)
+    return items, info, item, found
 
 
 def _avif_harvest_cicp(d: bytes, item, info, size: int) -> None:
@@ -2087,18 +2106,60 @@ def _avif_read(d: bytes, item, info, count: int) -> bytes:
     return out[:count]
 
 
+def avif_layout(d: bytes) -> dict:
+    """What the AVIF decoder reads of a file libavif's parse takes
+    (`_avif_parse`; a ValueError where it fails): "size" (w, h) and
+    "mode" as Pillow's AvifImageFile gives them (the primary item's ispe;
+    RGBA where an alpha auxiliary item is found), "color" and "alpha" the
+    items' bytes (alpha None) as avifDecoderItemRead reads them, "nclx"
+    (primaries, transfer, matrix, full range) of the colour item's nclx
+    colr or None, "premultiplied" (its prem reference to the alpha
+    item), "grid" (a 'grid' primary item), "sequence" (tracks alone: no
+    item)."""
+    try:
+        return _avif_layout(d, read_items=True)
+    except _AvifFail as e:
+        raise ValueError(f"AVIF: Failed to decode image: {e.result}") \
+            from None
+
+
+def _avif_layout(d: bytes, read_items: bool) -> dict:
+    """avif_layout, raising _AvifFail; the items not read without
+    `read_items` (Image.open does not read them)."""
+    parsed = _avif_parse(d)
+    if parsed is None:
+        return {"sequence": True, "size": (1, 1), "mode": "RGB"}
+    items, info, item, alpha = parsed
+    w, h = [p for p in item["props"] if p["type"] == b"ispe"][0]["size"]
+    nclx = [p for p in item["props"] if p["type"] == b"colr" and p["nclx"]]
+    out = {"sequence": False, "size": (w, h),
+           "mode": "RGBA" if alpha is not None else "RGB",
+           "grid": item["type"] == b"grid",
+           "nclx": (nclx[0]["cicp"] + (nclx[0]["full_range"],)
+                    if nclx else None),
+           "premultiplied": alpha is not None and item["prem"] == next(
+               k for k, v in items.items() if v is alpha)}
+    if read_items:
+        out["color"] = b"" if out["grid"] else _avif_read(
+            d, item, info, sum(n for _, n in item["extents"]))
+        out["alpha"] = None if alpha is None else _avif_read(
+            d, alpha, info, sum(n for _, n in alpha["extents"]))
+    return out
+
+
 def _open_avif(fp):
     """AvifImageFile._open: libavif's avifDecoderParse (_avif_parse): a
     failure Pillow's decoder raises as SyntaxError passes the file on,
-    any other ends Image.open."""
+    any other ends Image.open; the mode and size of its avifImage
+    (avif_layout)."""
     try:
-        _avif_parse(fp.read())
+        layout = _avif_layout(fp.read(), read_items=False)
     except _AvifFail as e:
         if e.result in _AvifFail.PASS:
             raise SyntaxError(f"AVIF: {e.result}") from None
         raise ValueError(f"AVIF: Failed to decode image: {e.result}") \
             from None
-    return "RGB", (1, 1)
+    return layout["mode"], layout["size"]
 
 
 def _open_msp(fp):

@@ -12,7 +12,9 @@ MCIDAS, IMT, XVThumb, PIXAR, GBR, FTEX, XBM, XPM, MSP, FLI and PCD in
 model of each plugin's _open, `plugin_layout`; IPTC's image through the
 PPM and JPEG routes), and their shared `image_codec.h` and
 `bcn_tables.h`, all compiled into one library;
-`csrc/webp_decode.cpp`: WebP; host C++17).
+`csrc/webp_decode.cpp`: WebP; `csrc/avif_decode.cpp` with
+`csrc/av1_decode.cpp` and `av1_tables.h`: AVIF, a library of its own;
+host C++17).
 
 On first use each library's sources are compiled with the host's C++
 compiler into `build/maskrcnn_tpu_torch/` (`utils/native_build.py`,
@@ -35,7 +37,8 @@ compiler `library()` and `webp_library()` raise a RuntimeError naming it
 (the plain Python decoders of image_io.py, PNG and JPEG only and 56x
 slower, are reached only by `read_image(..., plain=True)`); no system
 codec (libwebp, giflib, libtiff, zlib, libzstd, liblzma, OpenJPEG,
-Pillow) is loaded (tests/test_torch_image_tiff.py reads the library's imports).
+libavif, libaom, dav1d, Pillow) is loaded (tests/test_torch_image_tiff.py
+reads the library's imports).
 """
 
 from __future__ import annotations
@@ -65,6 +68,11 @@ SOURCES = (SOURCE, CSRC / "jpeg_arith.cpp", CSRC / "jpeg_lossless.cpp",
            CSRC / "bcn_decode.cpp",
            CSRC / "image_legacy.cpp", *sorted(CSRC.glob("*.h")))
 WEBP_SOURCE = CSRC / "webp_decode.cpp"
+# the AVIF library: the AV1 decoder, avifImageYUVToRGB's routes, the AV1
+# tables it reads and the header of the error type it shares
+AVIF_SOURCES = (CSRC / "avif_decode.cpp", CSRC / "av1_decode.cpp",
+                CSRC / "av1_decode.h", CSRC / "av1_tables.h",
+                CSRC / "image_codec.h")
 # -fwrapv: the IDCTs' int32 arithmetic wraps as libjpeg-turbo's does on
 # the corrupt coefficients a valid file never holds; -ffp-contract=off:
 # JPEG 2000's 9/7 transform rounds each product and sum as OpenJPEG's SSE
@@ -81,9 +89,11 @@ MAX_PIXELS = 2 * 89_478_485
 
 _LIB: Optional[ctypes.CDLL] = None
 _WEBP_LIB: Optional[ctypes.CDLL] = None
-# one lock a library: the two may build at once
+_AVIF_LIB: Optional[ctypes.CDLL] = None
+# one lock a library: they may build at once
 _LOCK = threading.Lock()
 _WEBP_LOCK = threading.Lock()
+_AVIF_LOCK = threading.Lock()
 _MSG_LEN = 512
 
 
@@ -96,6 +106,11 @@ def webp_library_path() -> Path:
     """Where the WebP library for the current source and flags lives."""
     return native_build.library_path("webp_decode", (WEBP_SOURCE,),
                                      CXX_FLAGS)
+
+
+def avif_library_path() -> Path:
+    """Where the AVIF library for the current sources and flags lives."""
+    return native_build.library_path("avif_decode", AVIF_SOURCES, CXX_FLAGS)
 
 
 def _build(stem: str, sources) -> ctypes.CDLL:
@@ -211,6 +226,28 @@ def webp_library() -> ctypes.CDLL:
             _declare(lib, ("webp",))
             _WEBP_LIB = lib
         return _WEBP_LIB
+
+
+def avif_library() -> ctypes.CDLL:
+    """The AVIF decoder library, built on first use (as `library`)."""
+    global _AVIF_LIB
+    with _AVIF_LOCK:
+        if _AVIF_LIB is None:
+            lib = _build("avif_decode", AVIF_SOURCES)
+            i32, i64 = ctypes.c_int32, ctypes.c_int64
+            lib.mrt_avif_decode.argtypes = [
+                _U8P, i64, _U8P, i64, _OUT, i32, i32, i32, i32, i32, i32,
+                i32, ctypes.c_char_p, i32]
+            lib.mrt_av1_planes.argtypes = [_U8P, i64, _I32P, ctypes.c_void_p,
+                                           ctypes.c_void_p, ctypes.c_void_p,
+                                           ctypes.c_char_p, i32]
+            lib.mrt_avif_yuv_to_rgb.argtypes = (
+                [ctypes.c_void_p] * 3 + [i32] * 8
+                + [_OUT, i32, ctypes.c_char_p, i32])
+            for name in ("avif_decode", "av1_planes", "avif_yuv_to_rgb"):
+                getattr(lib, f"mrt_{name}").restype = ctypes.c_int
+            _AVIF_LIB = lib
+        return _AVIF_LIB
 
 
 def _raise(code: int, msg) -> None:
@@ -691,6 +728,72 @@ def decode_webp(data: bytes) -> np.ndarray:
     """A WebP file's bytes -> the first frame on its canvas, RGB uint8
     [H, W, 3]."""
     return _decode(webp_library(), "webp", data)
+
+
+# ------------------------------------------------------------------ AVIF
+
+def decode_avif(data: bytes, rgba: bool = False) -> np.ndarray:
+    """An AVIF file's bytes -> RGB uint8 [H, W, 3] (`rgba`: the RGBA
+    avifImageYUVToRGB gives where the image has alpha, [H, W, 4]): the
+    primary item's AV1 key frame and its alpha item's
+    (image_probe.avif_layout reads the container as libavif 1.3 does),
+    decoded and converted in one call (csrc/avif_decode.cpp). Refused by
+    name: grid items and image sequences without items; the AV1 tools
+    av1_decode.cpp refuses (10- and 12-bit data, film grain, superres,
+    IntraBC); an AV1 frame smaller than the item's ispe (libavif reads
+    past the decoded picture)."""
+    from maskrcnn_tpu_torch.data import image_probe
+    layout = image_probe.avif_layout(data)
+    if layout["sequence"]:
+        raise NotImplementedError("AVIF: an image sequence without image "
+                                  "items, which the port does not read")
+    if layout["grid"]:
+        raise NotImplementedError("AVIF: a grid ('grid') image item, which "
+                                  "the port does not read")
+    w, h = layout["size"]
+    check_size(w, h)
+    lib = avif_library()
+    color, alpha = layout["color"], layout["alpha"]
+    msg = ctypes.create_string_buffer(_MSG_LEN)
+    # no colr nclx box: matrix -1, the sequence header's colour config
+    primaries, _, matrix, full = layout["nclx"] or (0, 0, -1, 0)
+    channels = 4 if layout["mode"] == "RGBA" else 3
+    out = np.empty((h, w, channels), np.uint8)
+    code = lib.mrt_avif_decode(
+        color, len(color), alpha or b"", len(alpha or b""), out, h, w,
+        channels, matrix, primaries, full, int(layout["premultiplied"]), msg,
+        _MSG_LEN)
+    if code:
+        _raise(code, msg)
+    if rgba or channels == 3:
+        return out
+    return np.ascontiguousarray(out[..., :3])
+
+
+def av1_planes(obus: bytes):
+    """The planes of the first frame of AV1 OBUs (Y, U, V; U and V None
+    for 4:0:0) and its colour config (tests hold them to libavif's)."""
+    lib = avif_library()
+    msg = ctypes.create_string_buffer(_MSG_LEN)
+    info = (ctypes.c_int32 * 11)()
+    code = lib.mrt_av1_planes(obus, len(obus), info, None, None, None, msg,
+                              _MSG_LEN)
+    if code:
+        _raise(code, msg)
+    w, h, cw, ch = info[0], info[1], info[2], info[3]
+    y = np.empty((h, w), np.uint8)
+    u = np.empty((ch, cw), np.uint8)
+    v = np.empty((ch, cw), np.uint8)
+    code = lib.mrt_av1_planes(obus, len(obus), info, y.ctypes.data,
+                              u.ctypes.data, v.ctypes.data, msg, _MSG_LEN)
+    if code:
+        _raise(code, msg)
+    keys = ("width", "height", "chroma_width", "chroma_height", "mono",
+            "ss_x", "ss_y", "full_range", "primaries", "transfer", "matrix")
+    config = dict(zip(keys, list(info)))
+    if config["mono"]:
+        return (y, None, None), config
+    return (y, u, v), config
 
 
 # ------------------------------------------------ the last plugins' pixels

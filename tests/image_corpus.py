@@ -42,7 +42,10 @@ Pillow's decode does);
 tools/image_decode_bench_torch.py times instead, `--time-htj2k` those of
 its scenes as HTJ2K and as Part-1 JPEG 2000 alone; `--htj2k` writes the
 HTJ2K files alone (htj2k_cases, the HT scenes) and `--htj2k-tables`
-csrc/htj2k_tables.h; `--rgba-icns` writes
+csrc/htj2k_tables.h; `--avif` writes the AVIF files alone (avif_cases,
+the AVIF refusals, `tests/data/avif_scenes/`: needs OpenCV's libaom for
+the 10-bit, 12-bit and superres files) and `--av1-tables`
+csrc/av1_tables.h (tests/av1_libaom.py); `--rgba-icns` writes
 tiff_rgba_cases, icns_cases and the refused files alone, every other
 file and entry kept.
 """
@@ -2326,6 +2329,211 @@ def write_jpeg2000(index, scenes) -> None:
         json.dumps(scene_index, indent=1) + "\n")
 
 
+# ------------------------------------------------------------------ AVIF
+
+# the scenes as AVIF (avif_scene_cases), under a size bound of their own
+# (test_avif_scenes_are_whole_and_small)
+AVIF_SCENES = CORPUS.parent / "avif_scenes"
+# the AV1 tables of the port's AV1 decoder (tests/av1_libaom.py)
+AV1_TABLES = (Path(__file__).resolve().parent.parent / "maskrcnn_tpu_torch"
+              / "csrc" / "av1_tables.h")
+# aom options Pillow's writer passes (advanced=), one corpus file each
+AVIF_TOOLS = (("qm", {"enable-qm": "1"}),
+              ("qm_levels", {"enable-qm": "1", "qm-min": "0", "qm-max": "8"}),
+              ("no_cdef", {"enable-cdef": "0"}),
+              ("cdef", {"enable-cdef": "1"}),
+              ("restoration", {"enable-restoration": "1"}),
+              ("no_restoration", {"enable-restoration": "0"}),
+              ("chroma_deltaq", {"enable-chroma-deltaq": "1"}),
+              ("deltaq3", {"deltaq-mode": "3"}),
+              ("aq1", {"aq-mode": "1"}),
+              ("palette", {"enable-palette": "1"}),
+              ("no_filter_intra", {"enable-filter-intra": "0"}),
+              ("no_smooth", {"enable-smooth-intra": "0"}),
+              ("no_paeth", {"enable-paeth-intra": "0"}),
+              ("no_cfl", {"enable-cfl-intra": "0"}),
+              ("no_tx64", {"enable-tx64": "0"}),
+              ("no_rect", {"enable-rect-partitions": "0"}),
+              ("ab_partitions", {"enable-ab-partitions": "1"}),
+              ("partitions_1to4", {"enable-1to4-partitions": "1"}),
+              ("sb128", {"sb-size": "128"}),
+              ("reduced_tx_set", {"reduced-tx-type-set": "1"}),
+              ("no_angle_delta", {"enable-angle-delta": "0"}),
+              ("no_edge_filter", {"enable-intra-edge-filter": "0"}),
+              ("sharpness7", {"sharpness": "7"}),
+              ("lossless", {"lossless": "1"}),
+              ("no_directional", {"enable-directional-intra": "0"}),
+              ("tune_ssim", {"tune": "ssim"}))
+
+
+def avif_cases():
+    """(name, bytes) of Pillow's AVIF files: the encoder's settings
+    (quality 0, 50, 75 and 100, speed 0, 6 and 10, 4:0:0, 4:2:0, 4:2:2
+    and 4:4:4, full and limited range, one tile and 2x2 tiles in one tile
+    group or two, alpha straight and premultiplied, an image sequence's
+    first frame, CDEF at speed 0 on a crop of the first scene), the
+    aom tools AVIF_TOOLS switches, sizes 1x1, 5x3 and 37x53; and two
+    files of OpenCV's libaom encoder (tests/av1_libaom.encode_av1) in a
+    container of tests/avif_writer: a full (not reduced) sequence header,
+    a 4:2:0 frame of profile 0."""
+    from PIL import Image
+
+    import av1_libaom
+    import avif_writer
+    rng = np.random.RandomState(25)
+    small = seeded_image(rng, 53, 37)
+    region = seeded_image(rng, 64, 96)
+    wide = seeded_image(rng, 144, 176)
+    rgba = seeded_image(rng, 40, 56, 4)
+    out = []
+    for q in (0, 50, 75, 100):
+        out.append((f"avif_q{q}.avif", _pil(small, "AVIF", quality=q)))
+    for speed in (0, 10):
+        out.append((f"avif_speed{speed}.avif",
+                    _pil(small, "AVIF", speed=speed)))
+    # aom's all-intra encoder turns CDEF off unless asked: at speed 0 with
+    # it, on a crop of the first scene (seeded images draw strength 0),
+    # CDEF beside loop restoration
+    scene = _decoded((CORPUS / "scene_baseline_420.jpg").read_bytes())
+    out.append(("avif_speed0_cdef.avif", _pil(
+        np.ascontiguousarray(scene[300:428, 100:228]), "AVIF", speed=0,
+        advanced={"enable-cdef": "1"})))
+    for sub in ("4:0:0", "4:2:2", "4:4:4"):
+        out.append((f"avif_{sub.replace(':', '')}.avif",
+                    _pil(small, "AVIF", subsampling=sub)))
+    out.append(("avif_limited.avif", _pil(small, "AVIF", range="limited")))
+    out.append(("avif_limited_444.avif", _pil(small, "AVIF", range="limited",
+                                              subsampling="4:4:4")))
+    out.append(("avif_gray.avif", _pil(small, "AVIF", "L")))
+    out.append(("avif_tiles_2x2.avif", _pil(wide, "AVIF", tile_rows=1,
+                                            tile_cols=1, autotiling=False)))
+    # a frame header OBU and two tile group OBUs
+    out.append(("avif_tile_groups.avif", _pil(
+        wide, "AVIF", tile_rows=1, tile_cols=1, autotiling=False,
+        advanced={"num-tile-groups": "2"})))
+    out.append(("avif_rgba.avif", _pil(rgba, "AVIF", "RGBA")))
+    out.append(("avif_rgba_premultiplied.avif",
+                _pil(rgba, "AVIF", "RGBA", alpha_premultiplied=True)))
+    out.append(("avif_rgba_444_q40.avif", _pil(rgba, "AVIF", "RGBA",
+                                               subsampling="4:4:4",
+                                               quality=40)))
+    for name, opts in AVIF_TOOLS:
+        out.append((f"avif_tool_{name}.avif",
+                    _pil(region, "AVIF", advanced=opts)))
+    out.append(("avif_1x1.avif", _pil(np.full((1, 1, 3), 77, np.uint8),
+                                      "AVIF")))
+    out.append(("avif_5x3.avif", _pil(seeded_image(rng, 3, 5), "AVIF")))
+    out.append(("avif_37x53.avif", _pil(small, "AVIF", quality=90)))
+    frames = [Image.fromarray(seeded_image(rng, 24, 40)) for _ in range(3)]
+    buf = io.BytesIO()
+    frames[0].save(buf, "AVIF", save_all=True, append_images=frames[1:])
+    out.append(("avif_sequence.avif", buf.getvalue()))
+    yuv = [rng.randint(0, 256, (32, 48)).astype(np.uint8),
+           rng.randint(0, 256, (16, 24)).astype(np.uint8),
+           rng.randint(0, 256, (16, 24)).astype(np.uint8)]
+    if av1_libaom.libaom_path() is not None:
+        out.append(("avif_libaom_good_quality.avif", avif_writer.container(
+            av1_libaom.encode_av1(yuv), 48, 32)))
+    return out
+
+
+def avif_refused_cases_av1():
+    """(name, bytes, word) of AVIF files Pillow decodes that the port
+    refuses by name: 10-bit and 12-bit data and superres (OpenCV's libaom
+    encoder in tests/avif_writer.container), a grid item (libavif's
+    encoder), film grain and IntraBC (Pillow's writer: film-grain-test,
+    tune-content=screen on a screen-like image)."""
+    import av1_libaom
+    import avif_writer
+    rng = np.random.RandomState(26)
+    y = rng.randint(0, 256, (32, 48)).astype(np.uint16)
+    c = rng.randint(0, 256, (16, 24)).astype(np.uint16)
+    out = []
+    if av1_libaom.libaom_path() is not None:
+        out.append(("refused_avif_10bit.avif", avif_writer.container(
+            av1_libaom.encode_av1([y * 4, c * 4, c * 4], depth=10), 48, 32,
+            depth=10), "10-bit"))
+        out.append(("refused_avif_12bit.avif", avif_writer.container(
+            av1_libaom.encode_av1([y * 16, c * 16, c * 16], depth=12,
+                                  profile=2), 48, 32, depth=12, profile=2),
+            "12-bit"))
+        out.append(("refused_avif_superres.avif", avif_writer.container(
+            av1_libaom.encode_av1([y.astype(np.uint8), c.astype(np.uint8),
+                                   c.astype(np.uint8)],
+                                  superres_denominator=16), 48, 32),
+            "superres"))
+    cell_y = rng.randint(0, 256, (64, 64)).astype(np.uint8)
+    cell_c = rng.randint(0, 256, (32, 32)).astype(np.uint8)
+    out.append(("refused_avif_grid.avif", avif_writer.encode_grid(
+        [[cell_y, cell_c, cell_c]] * 2, 2, 1), "grid"))
+    region = seeded_image(rng, 64, 96)
+    out.append(("refused_avif_film_grain.avif", _pil(
+        region, "AVIF", advanced={"film-grain-test": "1"}), "film grain"))
+    # a four-colour 16x16 pattern repeated, a white bar across it: aom's
+    # screen-content search copies blocks (IntraBC)
+    t = rng.randint(0, 4, (16, 16))
+    pal = np.array([[255, 255, 255], [0, 0, 0], [200, 0, 0], [0, 0, 200]],
+                   np.uint8)
+    screen = np.tile(pal[t], (6, 10, 1))
+    screen[40:60, 30:90] = 255
+    out.append(("refused_avif_intrabc.avif", _pil(
+        screen, "AVIF", advanced={"tune-content": "screen"}), "IntraBC"))
+    return out
+
+
+def avif_scene_cases(scenes):
+    """(name, bytes, source) of the three scenes as AVIF at Pillow's
+    defaults, and the first at speed 0 (self-guided restoration), at
+    speed 0, quality 60, 4:4:4 (Wiener and self-guided units; seeded
+    images draw no Wiener unit from aom) and at speed 0 with CDEF on
+    (aom's all-intra default is off) (chip_smoke.py's phases 9a and 9d
+    read them)."""
+    out = []
+    for k, (name, data, _) in enumerate(scenes):
+        img = _decoded(data)
+        stem = name.rsplit(".", 1)[0]
+        out.append((f"{stem}.avif", _pil(img, "AVIF"), name))
+        if k == 0:
+            out.append((f"{stem}_speed0.avif", _pil(img, "AVIF", speed=0),
+                        name))
+            out.append((f"{stem}_speed0_q60_444.avif",
+                        _pil(img, "AVIF", speed=0, quality=60,
+                             subsampling="4:4:4"), name))
+            out.append((f"{stem}_speed0_cdef.avif",
+                        _pil(img, "AVIF", speed=0,
+                             advanced={"enable-cdef": "1"}), name))
+    return out
+
+
+def _decoded(data: bytes):
+    from PIL import Image
+    return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+
+
+def write_avif(index, scenes) -> None:
+    """The AVIF files of the corpus and their index entries (the refusals
+    under Pillow's outcome), and the AVIF scenes with theirs."""
+    for name, data in avif_cases():
+        (CORPUS / name).write_bytes(data)
+        shape, digest = pillow_digest(data)
+        index["files"][name] = {"shape": shape, "sha256": digest}
+    for name, data, _ in avif_refused_cases_av1():
+        write_outcome(index, name, data)
+    for name, data, _ in avif_refused_cases():
+        write_outcome(index, name, data)
+    write_outcome(index, "refused_avif.avif",
+                  (CORPUS / "refused_avif.avif").read_bytes())
+    AVIF_SCENES.mkdir(exist_ok=True)
+    scene_index = {}
+    for name, data, source in avif_scene_cases(scenes):
+        (AVIF_SCENES / name).write_bytes(data)
+        shape, digest = pillow_digest(data)
+        scene_index[name] = {"shape": shape, "sha256": digest,
+                             "source": source}
+    (AVIF_SCENES / "index.json").write_text(
+        json.dumps(scene_index, indent=1) + "\n")
+
+
 # the files of Pillow's formats and modes the port does not read, by name
 # (their NotImplementedError's word); every other file the refused cases
 # make is decoded to its digest, or is one Pillow fails on ("errors"). A
@@ -2334,7 +2542,12 @@ def write_jpeg2000(index, scenes) -> None:
 STILL_REFUSED = {
     "refused_tiff_old_style_jpeg_tiles.tif": "old-style JPEG in tiles",
     "refused_tiff_old_style_jpeg_planar.tif": "old-style JPEG in tiles",
-    "refused_eps.eps": "EPS", "refused_avif.avif": "AVIF"}
+    "refused_eps.eps": "EPS", "refused_avif_10bit.avif": "10-bit",
+    "refused_avif_12bit.avif": "12-bit",
+    "refused_avif_superres.avif": "superres",
+    "refused_avif_grid.avif": "grid",
+    "refused_avif_film_grain.avif": "film grain",
+    "refused_avif_intrabc.avif": "IntraBC"}
 
 
 def lab_clut() -> bytes:
@@ -2591,6 +2804,19 @@ LAB_CLUT = (Path(__file__).resolve().parent.parent / "maskrcnn_tpu_torch"
 
 
 def main() -> int:
+    if "--av1-tables" in sys.argv[1:]:
+        import av1_libaom
+        AV1_TABLES.write_text(av1_libaom.header(av1_libaom.read_tables()))
+        print(f"{AV1_TABLES}: written from {av1_libaom.libaom_path().name}")
+        return 0
+    if "--avif" in sys.argv[1:]:
+        # the AVIF files alone, every other file and entry kept
+        index = json.loads(INDEX.read_text())
+        scenes = [(name, (CORPUS / name).read_bytes(), None)
+                  for name in index["scenes"]]
+        write_avif(index, scenes)
+        INDEX.write_text(json.dumps(index, separators=(",", ":")) + "\n")
+        return 0
     if "--bcn-tables" in sys.argv[1:]:
         BCN_TABLES.write_text(bcn_tables())
         print(f"{BCN_TABLES}: written from Pillow's bcn decoder")
@@ -2676,6 +2902,7 @@ def main() -> int:
     write_htj2k(index, scenes)
     write_textures_slice(index)
     write_legacy()
+    write_avif(index, scenes)
     INDEX.write_text(json.dumps(index, separators=(",", ":")) + "\n")
     TIFF_SCENES.mkdir(exist_ok=True)
     scene_index = {}

@@ -564,24 +564,26 @@ for name in sys.argv[1:]:
 for data in bench.format_scenes().values():
     image_io.read_image(data)
 maps = open("/proc/self/maps").read().split()
-bad = sorted({p for p in maps if re.match(r"lib(webp|gif)[.-]",
+bad = sorted({p for p in maps if re.match(r"lib(webp|gif|avif|aom|dav1d)[.-]",
                                           p.rsplit("/", 1)[-1])
-              or "pillow.libs" in p})
+              or "pillow.libs" in p or "opencv_python.libs" in p})
 bad += sorted(m for m in sys.modules if m == "PIL" or m.startswith("PIL."))
 print("BAD", bad)
 """
 
 
 def test_decoders_load_no_system_codec_and_link_only_runtimes():
-    """Decoding every format in a fresh interpreter loads no libwebp, giflib
-    or Pillow; the built libraries name only the C and C++ runtimes."""
+    """Decoding every format in a fresh interpreter (AVIF among them) loads
+    no libwebp, giflib, libavif, libaom, dav1d or Pillow; the built
+    libraries name only the C and C++ runtimes."""
     names = [MODES[m][0] for m in sorted(MODES)]
     proc = subprocess.run([sys.executable, "-c", NO_SYSTEM_CODECS, *names],
                           cwd=REPO, capture_output=True, text=True,
                           timeout=120)
     assert "BAD []" in proc.stdout, proc.stdout + proc.stderr
     for path in (native_image.library_path(),
-                 native_image.webp_library_path()):
+                 native_image.webp_library_path(),
+                 native_image.avif_library_path()):
         if not path.exists():
             continue
         out = subprocess.run(["ldd", str(path)], capture_output=True,

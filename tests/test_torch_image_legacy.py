@@ -74,7 +74,7 @@ def digest(img: np.ndarray) -> str:
 def test_legacy_corpus_is_whole_and_small():
     """The index names every file of tests/data/legacy_io (each route of
     the 14 committed formats at the corpus's four sizes, and the files
-    Pillow fails on), which hold at most 1 MB; READ holds 36 formats."""
+    Pillow fails on), which hold at most 1 MB; READ holds 37 formats."""
     files = {p.name for p in ic.LEGACY.iterdir()} - {"index.json"}
     assert files == set(INDEX["files"]) | set(INDEX["errors"])
     assert sum((ic.LEGACY / n).stat().st_size for n in files) <= 1_000_000
@@ -89,7 +89,7 @@ def test_legacy_corpus_is_whole_and_small():
     assert len([r for r in routes if r.startswith("im_")]) >= 45
     assert len(routes) >= 90
     assert set(INDEX["generated"]) == {name for name, _ in iw.pcd_cases()}
-    assert len(image_io.READ) == 36 and {
+    assert len(image_io.READ) == 37 and {
         "IM", "SPIDER", "FITS", "MCIDAS", "IMT", "XVThumb", "PIXAR", "GBR",
         "FTEX", "XBM", "XPM", "MSP", "FLI", "PCD", "IPTC"} <= set(
             image_io.READ)

@@ -75,8 +75,8 @@ def test_corpus_is_whole_and_small():
     JPEG modes (jpeg_*) 200 KB, the WebP, GIF and BMP ones 600 KB, the
     TIFF ones 500 KB, those of Pillow's other plugins (the small
     lossless ones read, and the refused ones) 700 KB, the JPEG 2000
-    layouts (jp2_*, refused_jp2_*) 400 KB and the HTJ2K ones (htj2k_*)
-    300 KB, the scenes are
+    layouts (jp2_*, refused_jp2_*) 400 KB, the HTJ2K ones (htj2k_*)
+    300 KB and the AVIF ones (.avif) 300 KB, the scenes are
     COCO-sized and one is progressive, and the generator would write the
     same bytes again."""
     files = {p.name for p in ic.CORPUS.iterdir()} - {"index.json"}
@@ -85,9 +85,10 @@ def test_corpus_is_whole_and_small():
     group = {".webp": "formats", ".gif": "formats", ".bmp": "formats",
              ".tif": "tiff"}
     plugins = (".ppm .pgm .pbm .pfm .tga .qoi .ico .cur .dib .pcx .dcx "
-               ".sgi .ras .im .spi .msp .xbm .eps .jp2 .dds .blp .avif "
+               ".sgi .ras .im .spi .msp .xbm .eps .jp2 .dds .blp "
                ".icns .xpm .psd .fits").split()
     group.update({ext: "plugins" for ext in plugins})
+    group[".avif"] = "avif"
     sizes = [("jpeg_modes" if p.name.startswith("jpeg_")
               else "jpeg2000" if p.name.startswith(("jp2_", "refused_jp2_"))
               else "htj2k" if p.name.startswith("htj2k_")
@@ -95,7 +96,7 @@ def test_corpus_is_whole_and_small():
              for p in ic.CORPUS.iterdir() if p.name != "index.json"]
     limits = {"jpeg_png": 400_000, "jpeg_modes": 200_000,
               "formats": 600_000, "tiff": 500_000, "plugins": 700_000,
-              "jpeg2000": 400_000, "htj2k": 300_000}
+              "jpeg2000": 400_000, "htj2k": 300_000, "avif": 300_000}
     for name, limit in limits.items():
         assert sum(n for g, n in sizes if g == name) <= limit, name
     assert {INDEX["files"][s]["shape"][0] for s in INDEX["scenes"]} == {480}

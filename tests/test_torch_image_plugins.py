@@ -113,10 +113,12 @@ def test_corpus_covers_the_plugins_and_their_refusals():
     QOI channel counts, ICO's PNG and DIB payloads, CUR, DIB, PCX's four
     layouts, DCX, SGI raw and RLE of 1 and 2 bytes, Sun raster's types
     0-5), and a refused file of the formats Pillow reads that the port
-    does not, each NotImplementedError naming its format (EPS and AVIF;
-    ICNS, DDS, BLP, IM, SPIDER, MSP, XBM, XPM and FITS, read since, to
-    their digests; the PSD header and the 1x1 Sun raster Pillow's GBR
-    plugin takes, read since, among the files Pillow fails on)."""
+    does not, each NotImplementedError naming its format or mode (EPS,
+    and AVIF's 10-bit, 12-bit, superres, grid, film-grain and IntraBC
+    files; ICNS, DDS, BLP, IM, SPIDER, MSP, XBM, XPM, FITS and AVIF, read
+    since, to their digests; the PSD header and the 1x1 Sun raster
+    Pillow's GBR plugin takes, read since, among the files Pillow fails
+    on)."""
     exts = {m.rsplit(".", 1)[1] for m in MODES}
     assert exts == set(EXTS.split("|"))
     assert len(MODES) >= 86
@@ -124,11 +126,12 @@ def test_corpus_covers_the_plugins_and_their_refusals():
                if not n.startswith(("refused_bmp", "refused_tiff",
                                     "refused_jpeg", "refused_png",
                                     "refused_jp2_"))}
-    assert set(refused.values()) == {"EPS", "AVIF"}
+    assert set(refused.values()) == {"EPS", "10-bit", "12-bit", "superres",
+                                     "grid", "film grain", "IntraBC"}
     assert {"refused_icns.icns", "refused_dds.dds", "refused_blp.blp",
             "refused_im.im", "refused_spi.spi", "refused_msp.msp",
-            "refused_xbm.xbm", "refused_xpm.xpm", "refused_fits.fits"} \
-        <= set(INDEX["files"])
+            "refused_xbm.xbm", "refused_xpm.xpm", "refused_fits.fits",
+            "refused_avif.avif"} <= set(INDEX["files"])
     assert {"refused_psd.psd", "refused_sun_gbr_1x1.ras"} \
         <= set(INDEX["errors"])
     for name, word in refused.items():

@@ -9,14 +9,15 @@ have none either: headers made so that each of those takes the file are
 among them) and random bytes. The probe names Pillow's format where
 Image.open opens the file, and raises ValueError where it raises;
 `read_image` then gives Pillow's pixels for the formats read, raises
-NotImplementedError naming any other format (AVIF, EPS), and ValueError
+NotImplementedError naming any other format (EPS), and ValueError
 where Pillow raises, in Image.open or in its load (the stubs, MPEG and
 WMF, which Pillow opens and cannot load). For the six formats read
 before the probe (BMP, GIF, JPEG, PNG, TIFF, WebP) their decoders are
 left to raise where Pillow's
 _open would (their own tests hold them to Pillow), and their byte edits
 are not drawn here; nor are AVIF's, whose box structure the probe
-models but whose ISOBMFF items libavif checks further (ROADMAP)."""
+models but whose ISOBMFF items libavif checks further: their edits are
+drawn in tests/test_torch_image_blp_psd.py and test_torch_image_avif.py."""
 
 import io
 import json

@@ -165,11 +165,12 @@ def test_demo_sources_import_no_jax_pil_nbformat_matplotlib(path):
 
 
 # a ctypes (or dlopen) load of a system image codec: the port decodes
-# WebP, GIF, BMP, TIFF (Deflate included) and JPEG 2000 with its own
-# sources (csrc/), never with libwebp, giflib, libtiff, zlib's library or
-# OpenJPEG's
+# WebP, GIF, BMP, TIFF (Deflate included), JPEG 2000 and AVIF with its own
+# sources (csrc/), never with libwebp, giflib, libtiff, zlib's library,
+# OpenJPEG's, libavif, libaom, dav1d or libyuv
 CODEC_LOAD = re.compile(r"(find_library|CDLL|LoadLibrary|dlopen)\s*\("
-                        r"[^)]*\b(lib)?(webp|gif|tiff|z|openjp2)\b")
+                        r"[^)]*\b(lib)?(webp|gif|tiff|z|openjp2|avif|aom|"
+                        r"dav1d|yuv)\b")
 
 
 @pytest.mark.parametrize("path", ["chip_smoke.py", "maskrcnn_tpu_torch",
@@ -178,16 +179,17 @@ CODEC_LOAD = re.compile(r"(find_library|CDLL|LoadLibrary|dlopen)\s*\("
                                   "tools/image_decode_bench_torch.py"])
 def test_port_sources_load_no_system_codec(path):
     """The port's sources and image-reading scripts, read as text: no
-    ctypes or dlopen load of libwebp, giflib, libtiff or libz, and the
-    C++ decoders include no codec library's header (zlib.h and tiffio.h
-    among them)."""
+    ctypes or dlopen load of libwebp, giflib, libtiff, libz, libavif,
+    libaom, dav1d or libyuv, and the C++ decoders include no codec
+    library's header (zlib.h, tiffio.h, aom/, dav1d/ and avif/ among
+    them)."""
     root = REPO / path
     files = (sorted(root.rglob("*.py")) + sorted(root.rglob("*.cpp"))
              if root.is_dir() else [root])
     bad = [str(f.relative_to(REPO)) for f in files
            if CODEC_LOAD.search(f.read_text())
            or re.search(r"#include\s*[<\"](webp|gif_lib|png|jpeglib|zlib|"
-                        r"tiffio|tiff|openjpeg)",
+                        r"tiffio|tiff|openjpeg|aom|dav1d|avif|libyuv)",
                         f.read_text())]
     assert not bad, bad
 

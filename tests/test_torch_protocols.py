@@ -6,7 +6,8 @@ NMS, and the rectangular canvas's geometry.
 
 Tolerances, each measured on the CPU and stated where it is asserted:
 * soft-NMS: the same selections, |delta score| <= 1e-6 (XLA's exp and
-  PyTorch's differ in the last bit);
+  PyTorch's differ in the last bit), against a JAX reference computed in
+  a process of its own on one CPU (see `_soft_nms_reference`);
 * flips, the merge's NMS keep mask, the resample at scale 1: bit-equal;
 * the merge: the same valid slots and classes, |delta score| <= 1e-6,
   boxes within 1e-4 px (the fusion's sums run in another order), and
@@ -18,6 +19,11 @@ Tolerances, each measured on the CPU and stated where it is asserted:
   lies within 1e-4 of a .5 tie (XLA contracts the coordinate into an FMA
   under jit); every differing value is counted and checked.
 """
+
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -60,24 +66,83 @@ def _boxes(rng, b, n, span=100.0, size=(5.0, 35.0)):
     return np.concatenate([ctr - sz / 2, ctr + sz / 2], -1).astype(np.float32)
 
 
-@pytest.mark.parametrize("sigma,tied", [(0.5, False), (0.5, True),
-                                        (0.3, False)],
-                         ids=["s0.5", "s0.5-tied", "s0.3"])
-def test_soft_nms_scores_matches_jax(sigma, tied):
-    """Batched soft-NMS against the JAX scan on each image: the same boxes
-    selected (score > 0), |delta score| <= 1e-6. Tied scores (4 levels)
-    check that the argmax takes the first index on both sides."""
+SOFT_NMS_CASES = {"s0.5": (0.5, False), "s0.5-tied": (0.5, True),
+                  "s0.3": (0.3, False)}
+SOFT_NMS_ITERS = 50
+
+# The JAX scan's float32 bits depend on the host: XLA:CPU splits the
+# scan's loops across as many intra-op threads as the process may use
+# (on an 8-CPU x86-64 host, 4 or 5 CPUs give other bits for s0.5-tied
+# than 1-3 or 6-8) and vectorises for the CPU's ISA (SSE4.2 and AVX give
+# other bits than AVX2 and AVX-512), and the suite's compile cache can
+# hand back an executable compiled by another process. An ulp that flips a near-tie in the
+# argmax changes the order of selection. The port's bits depend on none
+# of these (the same under 1, 2 and 8 threads and ATen's AVX2 and
+# AVX-512 kernels), so the reference is computed in a process of its own
+# on one CPU, with the ISA capped at AVX2 and no compile cache.
+SOFT_NMS_REFERENCE = r"""
+import os, sys
+os.sched_setaffinity(0, {min(os.sched_getaffinity(0))})
+import numpy as np
+import jax
+from maskrcnn_tpu.ops import nms as jax_nms
+cases = np.load(sys.argv[1])
+out = {}
+for name in sys.argv[3:]:
+    sigma = float(cases[name + "/sigma"])
+    f = jax.jit(jax.vmap(lambda x, s, v: jax_nms.soft_nms_scores(
+        x, s, v, sigma, int(cases["iters"]))))
+    out[name] = np.asarray(f(cases[name + "/boxes"], cases[name + "/scores"],
+                             cases[name + "/valid"]))
+np.savez(sys.argv[2], **out)
+"""
+
+
+def _soft_nms_inputs(sigma, tied):
     rng = np.random.RandomState(int(sigma * 10) + tied)
-    b, n, iters = 3, 100, 50
+    b, n = 3, 100
     boxes = _boxes(rng, b, n)
     scores = rng.rand(b, n).astype(np.float32)
     if tied:
         scores = np.round(scores * 3) / 3
     valid = rng.rand(b, n) > 0.2
-    want = np.asarray(jax.vmap(lambda x, s, v: jax_nms.soft_nms_scores(
-        x, s, v, sigma, iters))(boxes, scores, valid))
+    return boxes, scores, valid
+
+
+@pytest.fixture(scope="module")
+def _soft_nms_reference(tmp_path_factory):
+    """The JAX scan's scores for every case, from one pinned process."""
+    tmp = tmp_path_factory.mktemp("soft_nms")
+    arrays = {"iters": np.int32(SOFT_NMS_ITERS)}
+    for name, (sigma, tied) in SOFT_NMS_CASES.items():
+        boxes, scores, valid = _soft_nms_inputs(sigma, tied)
+        arrays.update({name + "/sigma": np.float64(sigma),
+                       name + "/boxes": boxes, name + "/scores": scores,
+                       name + "/valid": valid})
+    np.savez(tmp / "in.npz", **arrays)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("XLA_", "JAX_"))}
+    env.update(JAX_PLATFORMS="cpu", XLA_FLAGS="--xla_cpu_max_isa=AVX2")
+    repo = Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, "-c", SOFT_NMS_REFERENCE,
+                           str(tmp / "in.npz"), str(tmp / "out.npz"),
+                           *SOFT_NMS_CASES], cwd=repo, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    with np.load(tmp / "out.npz") as out:
+        return {name: out[name] for name in SOFT_NMS_CASES}
+
+
+@pytest.mark.parametrize("case", list(SOFT_NMS_CASES))
+def test_soft_nms_scores_matches_jax(case, _soft_nms_reference):
+    """Batched soft-NMS against the JAX scan on each image: the same boxes
+    selected (score > 0), |delta score| <= 1e-6. Tied scores (4 levels)
+    check that the argmax takes the first index on both sides."""
+    sigma, tied = SOFT_NMS_CASES[case]
+    boxes, scores, valid = _soft_nms_inputs(sigma, tied)
+    want = _soft_nms_reference[case]
     got = _np(port_nms.soft_nms_scores(_t(boxes), _t(scores), _t(valid),
-                                       sigma, iters))
+                                       sigma, SOFT_NMS_ITERS))
     assert got.dtype == np.float32
     np.testing.assert_array_equal(got > 0, want > 0)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)

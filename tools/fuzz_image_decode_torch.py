@@ -35,9 +35,10 @@ seeded Photo CD files (tests/image_writers.pcd_cases), through
 data/image_io.read_image (the probe, native_image.py's decode_<format>,
 csrc/image_legacy.cpp in the sanitized library), where an exception other
 than ValueError or NotImplementedError also stops the worker; avif: the
-AVIF files of tests/data/image_io through data/image_probe.identify, the
-model of libavif's parse and of its search for the AV1 sequence header,
-Python alone, held to raising ValueError at most)
+AVIF files of tests/data/image_io and tests/data/avif_scenes through
+data/image_io.read_image, the probe's model of libavif's parse, then
+native_image.decode_avif over the sanitized AVIF library
+(csrc/avif_decode.cpp, csrc/av1_decode.cpp), held to the same contract)
 
 (`--glob '*zstd*'`, `'*lzma*'`, `'*bilevel_ccitt*'` and `'*group*'`,
 `'map_*'` or `'arith_*'` mutate the ZSTD, LZMA, CCITT, memory-map or
@@ -113,6 +114,8 @@ def build(fmt: str) -> Path:
     by their hash as native_build names every library."""
     stem, sources = (("webp_decode_asan", (native_image.WEBP_SOURCE,))
                      if fmt == "webp" else
+                     ("avif_decode_asan", native_image.AVIF_SOURCES)
+                     if fmt == "avif" else
                      ("image_decode_asan", native_image.SOURCES))
     lib = native_build.library_path(stem, sources, FLAGS)
     if not lib.exists():
@@ -269,10 +272,14 @@ def legacy_worker(lib_path: str, fmt: str, pattern: str, mutations: int,
     """The last plugins' files (PCD's seeded ones) through
     image_io.read_image over the sanitized library; an exception other
     than ValueError or NotImplementedError (the contract's) stops the
-    worker. "avif": the probe alone."""
+    worker. "avif": the AVIF files of the corpus and the scenes
+    (tests/data/avif_scenes) through read_image over the sanitized AVIF
+    library (the probe's parse in Python, one call into
+    csrc/avif_decode.cpp with csrc/av1_decode.cpp)."""
     from maskrcnn_tpu_torch.data import image_io, image_probe
     native_image._build = lambda stem, sources: ctypes.CDLL(lib_path)
     native_image._LIB = None
+    native_image._AVIF_LIB = None
     native_image.MAX_PIXELS = MAX_PIXELS
     image_probe.MAX_PIXELS = MAX_PIXELS
     if fmt == "pcd":
@@ -280,16 +287,26 @@ def legacy_worker(lib_path: str, fmt: str, pattern: str, mutations: int,
         files = [d for name, d in image_writers.pcd_cases()
                  if fnmatch.fnmatch(name, pattern)]
     else:
-        root = CORPUS if fmt == "avif" else LEGACY_DIR
-        files = [p.read_bytes() for p in sorted(root.glob(pattern))
+        roots = ((CORPUS, REPO / "tests" / "data" / "avif_scenes")
+                 if fmt == "avif" else (LEGACY_DIR,))
+        files = [p.read_bytes() for root in roots
+                 for p in sorted(root.glob(pattern))
                  if p.suffix in SUFFIX[fmt] and p.stat().st_size < 200000]
     if not files:
         raise SystemExit(f"no {fmt} file matches {pattern}")
-    read = image_probe.identify if fmt == "avif" else image_io.read_image
+    read = image_io.read_image
     rng = random.Random(seed)
     for _ in range(mutations):
+        data = rng.choice(files)
+        if fmt == "avif" and rng.random() < 0.7:
+            # the AV1 data alone mutated (mdat's payload), the container
+            # kept, so that most mutations reach the decoder
+            at = data.find(b"mdat") + 4
+            data = data[:at] + mutate(rng, data[at:])
+        else:
+            data = mutate(rng, data)
         try:
-            read(mutate(rng, rng.choice(files)))
+            read(data)
         except (ValueError, NotImplementedError):
             pass
 

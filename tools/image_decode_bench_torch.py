@@ -7,7 +7,8 @@ as PNG, lossy WebP (q80), lossless WebP, GIF, BMP and TIFF (uncompressed, LZW
 with predictor 2, tiled Deflate with predictor 2, its JPEG stream as
 a YCbCr 2x2 JPEG TIFF, ZSTD and LZMA with predictor 2, and its bilevel
 as CCITT Group 4, as arithmetic-coded, lossless (predictors 1 and 7)
-and block-smoothed JPEG, as irreversible JP2, with the three scenes
+and block-smoothed JPEG, as irreversible JP2, as AVIF at Pillow's defaults and at speed 0
+(committed, tests/data/avif_scenes, csrc/av1_decode.cpp), with the three scenes
 each in its layout as reversible JPEG 2000 (committed,
 tests/data/jpeg2000_scenes, csrc/jpeg2000_decode.cpp) and as lossless
 HTJ2K (committed, tests/data/htj2k_scenes, csrc/jpeg2000_ht.cpp): HT
@@ -20,7 +21,8 @@ makes them, as are the JPEG modes, tests/data/jpeg_scenes); the PNG
 scene's image data inflated by the decoder's own inflate (PNG's and
 TIFF's) beside zlib.decompress; decodes a second of the committed corpus's two baseline
 640x480 JPEG scenes (tests/data/image_io) on 1 and 4 threads, each
-route, and of its three scenes as lossy WebP and as tiled Deflate TIFF
+route, of its three scenes as lossy WebP and as tiled Deflate TIFF
+and of the first scene as AVIF at Pillow's defaults and at speed 0
 natively, which shows whether a decode leaves the GIL; and
 `data/pipeline.BatchLoader` images a second with 1 and 4 worker threads
 over a COCO directory of the corpus's three scenes (a whole training
@@ -104,6 +106,12 @@ HTJ2K_SCENES = REPO / "tests" / "data" / "htj2k_scenes"
 HTJ2K_FILES = ("scene_baseline_420_ht.j2c",
                "scene_baseline_444_ht_tiles_rpcl.jph",
                "scene_progressive_ht_layers.jph")
+# the scenes as AVIF at Pillow's defaults and the first at speed 0
+# (tests/image_corpus.avif_scene_cases, csrc/av1_decode.cpp)
+AVIF_SCENES = REPO / "tests" / "data" / "avif_scenes"
+AVIF_FILES = ("scene_baseline_420.avif", "scene_baseline_444.avif",
+              "scene_progressive.avif")
+AVIF_SPEED0 = "scene_baseline_420_speed0.avif"
 # the formats whose timed files are all three scenes' (format_scenes)
 LAYOUTS = ("jpeg2000_layouts", "htj2k_layouts")
 TIMED = ("images/sample.jpg", "output/detections.jpg",
@@ -308,14 +316,25 @@ def scene_files(fmt: str, count: int = 3) -> tuple:
     pixels); "tiff_group4" the scenes' bilevel (mean of the channels
     below 110 black) as CCITT Group 4; PLUGIN_SCENES written from their
     native decodes (plugin_scene); RGBA_MODES (rgba_mode); TEXTURE_MODES
-    (texture_mode); LEGACY_MODES (legacy_mode)."""
+    (texture_mode); LEGACY_MODES (legacy_mode); "avif" the committed
+    scenes as AVIF at Pillow's defaults, "avif_png" their decodes as PNG,
+    "avif_speed0" the committed first scene at speed 0 (the other two as
+    their AVIF files)."""
     from maskrcnn_tpu_torch.data import image_io
     names = list(corpus_index()["scenes"])[:count]
     out = []
     for k, name in enumerate(names):
         data = (CORPUS / name).read_bytes()
         stem = name.rsplit(".", 1)[0]
-        if fmt == "webp" or (fmt == "webp_lossless" and k == 0):
+        if fmt in ("avif", "avif_png", "avif_speed0"):
+            avif = AVIF_SPEED0 if fmt == "avif_speed0" and k == 0 \
+                else AVIF_FILES[k]
+            blob = (AVIF_SCENES / avif).read_bytes()
+            if fmt == "avif_png":
+                avif = avif.rsplit(".", 1)[0] + ".png"
+                blob = image_io.encode_png(image_io.read_image(blob))
+            out.append((avif, blob))
+        elif fmt == "webp" or (fmt == "webp_lossless" and k == 0):
             webp = WEBP_SCENES[k] if fmt == "webp" else LOSSLESS_SCENE
             out.append((webp, (CORPUS / webp).read_bytes()))
         elif fmt in COMMITTED_TIFF and k == 0:
@@ -381,7 +400,7 @@ FORMAT_TIMES = ("png", "webp", "webp_lossless", "gif", "bmp", "tiff_raw",
                 "tiff_jpeg", "tiff_zstd_predictor", "tiff_lzma_predictor",
                 "tiff_group4") + PLUGIN_SCENES + tuple(COMMITTED_JPEG) + tuple(
                     COMMITTED_JPEG2000) + LAYOUTS + RGBA_MODES + \
-    TEXTURE_MODES + LEGACY_MODES
+    TEXTURE_MODES + LEGACY_MODES + ("avif", "avif_speed0")
 
 
 def format_scenes() -> dict:
@@ -393,8 +412,9 @@ def format_scenes() -> dict:
     JPEG with predictors 1 and 7 and a block-smoothed progressive JPEG,
     as reversible and irreversible JP2, and the three scenes each as
     reversible JPEG 2000 and as lossless HTJ2K in its layout (LAYOUTS), in
-    RGBA_MODES, TEXTURE_MODES and LEGACY_MODES (the files decode_times
-    times beside TIMED)."""
+    RGBA_MODES, TEXTURE_MODES and LEGACY_MODES, and as AVIF at Pillow's
+    defaults and at speed 0 (the files decode_times times beside
+    TIMED)."""
     return {name: data for fmt in FORMAT_TIMES
             for name, data in scene_files(fmt, 3 if fmt in LAYOUTS else 1)}
 
@@ -542,9 +562,10 @@ def inflate_times(reps: int = 5) -> dict:
 def decode_rates(decodes: int = 48) -> dict:
     """{route: {threads: decodes a second}}: `decodes` decodes (a quarter
     of them on the plain route) of the two baseline JPEG scenes
-    ("native", "plain"), of the three lossy WebP scenes ("webp") or of
-    the three scenes as tiled Deflate TIFF with predictor 2 ("tiff"),
-    spread over 1 and 4 threads."""
+    ("native", "plain"), of the three lossy WebP scenes ("webp"), of
+    the three scenes as tiled Deflate TIFF with predictor 2 ("tiff") or
+    of the first scene as AVIF at Pillow's defaults ("avif") and at
+    speed 0 ("avif_speed0"), spread over 1 and 4 threads."""
     from concurrent.futures import ThreadPoolExecutor
 
     from maskrcnn_tpu_torch.data import image_io
@@ -552,9 +573,11 @@ def decode_rates(decodes: int = 48) -> dict:
             for n in ("scene_baseline_420.jpg", "scene_baseline_444.jpg")]
     files = {"webp": [(CORPUS / n).read_bytes() for n in WEBP_SCENES],
              "tiff": [d for _, d in scene_files(
-                 "tiff_tiled_deflate_predictor")]}
+                 "tiff_tiled_deflate_predictor")],
+             "avif": [(AVIF_SCENES / AVIF_FILES[0]).read_bytes()],
+             "avif_speed0": [(AVIF_SCENES / AVIF_SPEED0).read_bytes()]}
     out = {}
-    for route in ("native", "plain", "webp", "tiff"):
+    for route in ("native", "plain", "webp", "tiff", "avif", "avif_speed0"):
         n = decodes // 4 if route == "plain" else decodes
         data = files.get(route, jpeg)
 
